@@ -1,0 +1,221 @@
+"""Atomic, layout-carrying population checkpoints, byte-compatible with the
+JAX package's on-disk format, so a checkpoint written by either package
+restores in the other.
+
+Layout:  <dir>/step_<N>/
+           arrays.npz     — flattened leaves keyed by tree path
+                            ("params/w_in", "params/mid/0/w/1", ...)
+           tree.json      — {"step", "manifest": {key: {shape, dtype}},
+                             "meta": {"population": layout, ...}}
+           META.ok        — commit marker, written last
+
+Keys join dict keys (in sorted order) and list indices with "/", the order
+in which JAX flattens a tree.  Leaves are stored as full host arrays; a
+restore puts them on the device it is given.  Float32 only in this slice.
+"""
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+
+
+def _flatten_with_paths(tree, prefix: str = "") -> dict:
+    """{"/"-joined path: leaf} in JAX's flattening order."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten_with_paths(tree[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten_with_paths(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _unflatten_like(like, leaves: dict, prefix: str = ""):
+    if isinstance(like, dict):
+        return {k: _unflatten_like(v, leaves, f"{prefix}{k}/")
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten_like(v, leaves, f"{prefix}{i}/")
+                          for i, v in enumerate(like))
+    return leaves[prefix[:-1]]
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save(directory: str, step: int, state_tree, keep_last: int = 3,
+         meta: dict | None = None) -> str:
+    """Atomic synchronous save of a tree of tensors / arrays.  Returns the
+    committed path.  ``meta``: JSON-serialisable dict stored beside the
+    manifest (population checkpoints keep their layout there)."""
+    tgt = os.path.join(directory, f"step_{step:08d}")
+    tmp = tgt + ".tmp"
+    os.makedirs(tmp, exist_ok=True)
+    host = {k: _host(v) for k, v in _flatten_with_paths(state_tree).items()}
+    manifest = {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
+                for k, a in host.items()}
+    np.savez(os.path.join(tmp, "arrays.npz"), **host)
+    with open(os.path.join(tmp, "tree.json"), "w") as f:
+        json.dump({"step": step, "manifest": manifest, "meta": meta or {}},
+                  f)
+    with open(os.path.join(tmp, "META.ok"), "w") as f:
+        f.write(str(time.time()))
+    if os.path.exists(tgt):
+        shutil.rmtree(tgt)
+    os.rename(tmp, tgt)
+    _gc(directory, keep_last)
+    return tgt
+
+
+def _gc(directory: str, keep_last: int):
+    steps = latest_steps(directory)
+    for s in steps[:-keep_last] if keep_last else []:
+        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
+                      ignore_errors=True)
+
+
+def latest_steps(directory: str) -> list[int]:
+    """Committed steps under ``directory``, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    out = []
+    for name in os.listdir(directory):
+        if name.startswith("step_") and not name.endswith(".tmp") and \
+                os.path.exists(os.path.join(directory, name, "META.ok")):
+            out.append(int(name[5:]))
+    return sorted(out)
+
+
+def _pick_step(directory: str, step: int | None) -> int:
+    steps = latest_steps(directory)
+    if not steps:
+        raise FileNotFoundError(f"no committed checkpoints under {directory}")
+    return steps[-1] if step is None else step
+
+
+def restore(directory: str, like_tree, step: int | None = None,
+            device="cuda"):
+    """Restore into the structure of ``like_tree`` (tensors — meta tensors
+    are fine — giving each leaf's shape and dtype) on ``device``.  Leaves
+    the like-tree does not name are ignored.  Returns (tree, step)."""
+    dev = resolve(device)
+    step = _pick_step(directory, step)
+    path = os.path.join(directory, f"step_{step:08d}")
+    with open(os.path.join(path, "tree.json")) as f:
+        manifest = json.load(f)["manifest"]
+    out = {}
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for key, proto in _flatten_with_paths(like_tree).items():
+            if key not in data:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            arr = data[key]
+            if tuple(arr.shape) != tuple(proto.shape):
+                raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
+                                 f"{tuple(proto.shape)}")
+            if manifest[key]["dtype"] != str(arr.dtype):
+                raise NotImplementedError(
+                    f"{key}: stored as {manifest[key]['dtype']} (raw bits); "
+                    "the port restores float32 checkpoints only in this "
+                    "slice (ROADMAP.md)")
+            out[key] = torch.as_tensor(arr).to(device=dev, dtype=proto.dtype)
+    return _unflatten_like(like_tree, out), step
+
+
+def load_meta(directory: str, step: int | None = None) -> tuple:
+    """The ``meta`` dict stored with a checkpoint → (meta, step)."""
+    step = _pick_step(directory, step)
+    with open(os.path.join(directory, f"step_{step:08d}", "tree.json")) as f:
+        return json.load(f).get("meta", {}), step
+
+
+# --------------------------------------------------------------------- #
+# population checkpoints (the layout travels with the parameters)      #
+# --------------------------------------------------------------------- #
+
+def population_meta(layout, params, lifecycle: dict | None = None,
+                    train_meta: dict | None = None) -> dict:
+    """The layout meta a population checkpoint carries: widths, per-layer
+    activations, block, shard-pad count, parameter schema and dtype, plus
+    the optional halving ``lifecycle`` state and ``train`` policy."""
+    from repro_torch.core.population import LayeredPopulation, Population
+    if isinstance(layout, Population):
+        layout = layout.layered()
+    if not isinstance(layout, LayeredPopulation):
+        raise TypeError(f"not a population layout: {type(layout)}")
+    if "w_in" not in params:
+        raise TypeError("the port writes the layered parameter schema "
+                        f"(w_in/b_in/mid/w_out/b_out), got {sorted(params)}")
+    meta = {"population": {
+        "in_features": layout.in_features,
+        "out_features": layout.out_features,
+        "widths": [list(w) for w in layout.widths],
+        "activations": [list(a) for a in layout.activations],
+        "block": layout.block,
+        "n_pad": layout.n_pad,
+        "schema": "layered",
+        "dtype": str(params["w_in"].dtype).removeprefix("torch."),
+    }}
+    if lifecycle is not None:
+        meta["lifecycle"] = dict(lifecycle)
+    if train_meta is not None:
+        meta["train"] = dict(train_meta)
+    return meta
+
+
+def layout_from_meta(meta: dict):
+    from repro_torch.core.population import LayeredPopulation
+    p = meta["population"]
+    return LayeredPopulation(
+        int(p["in_features"]), int(p["out_features"]),
+        tuple(tuple(int(h) for h in w) for w in p["widths"]),
+        tuple(tuple(a) for a in p["activations"]),
+        block=int(p["block"]), n_pad=int(p.get("n_pad", 0)))
+
+
+def save_population(directory: str, step: int, params, layout,
+                    keep_last: int = 3, lifecycle: dict | None = None,
+                    train_meta: dict | None = None) -> str:
+    """Checkpoint population parameters WITH their static layout, so
+    ``restore_population`` (in either package) rebuilds both."""
+    return save(directory, step, {"params": params}, keep_last=keep_last,
+                meta=population_meta(layout, params, lifecycle=lifecycle,
+                                     train_meta=train_meta))
+
+
+def restore_population(directory: str, step: int | None = None,
+                       device="cuda"):
+    """→ (params, layout, step), the parameter tree rebuilt from the stored
+    layout on ``device``.  Layered-schema float32 checkpoints only."""
+    from repro_torch.core.deep import abstract_params
+    device = resolve(device)
+    meta, step = load_meta(directory, step)
+    if "population" not in meta:
+        raise ValueError(f"{directory} step {step}: not a population "
+                         "checkpoint (no layout meta)")
+    pmeta = meta["population"]
+    if pmeta.get("schema", "layered") != "layered":
+        raise NotImplementedError(
+            f"schema {pmeta['schema']!r}: the port restores the layered "
+            "schema only (ROADMAP.md)")
+    if pmeta.get("dtype", "float32") != "float32":
+        raise NotImplementedError(
+            f"dtype {pmeta['dtype']!r}: the port restores float32 "
+            "checkpoints only in this slice (ROADMAP.md)")
+    layout = layout_from_meta(meta)
+    tree, step = restore(directory, {"params": abstract_params(layout)},
+                         step=step, device=device)
+    return tree["params"], layout, step

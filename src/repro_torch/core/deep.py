@@ -1,0 +1,408 @@
+"""Layered ParallelMLPs — the serving subset of the population engine.
+
+A ``LayeredPopulation`` runs as one fused network:
+
+  * layer 0:        dense fused matmul (H0 × F) + bias + per-member
+                    activation + padding mask;
+  * layers 1..L-1:  BLOCK-DIAGONAL projections (member m's units in layer
+                    l+1 contract only member m's units in layer l);
+  * output layer:   the paper's M3 + per-member bias.
+
+``forward(infer=True)`` is the serving path.  With ``bd_impl="fused"``
+each stage is ONE hand-written CUDA kernel (``kernels/ops.py``) — the
+fused input layer, one fused mid layer per projection and the infer head —
+so a request batch costs exactly ``depth + 1`` launches.  ``bd_impl=
+"einsum"`` with ``head_impl="xla"`` is the plain PyTorch path.
+
+Parameters are a dict tree with the JAX package's layout:
+``w_in (H0, F)``, ``b_in (H0,)``, ``mid[l] = {"w": [per-bucket
+(n, hout, hin)], "b": (H_{l+1},)}``, ``w_out (O, H_last)``,
+``b_out (P, O)``; ``params_from_numpy`` carries a JAX-trained tree in.
+Computation is float32 only in this slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.activations import (ACTIVATIONS,
+                                          apply_activations_masked,
+                                          apply_activations_sliced)
+from repro_torch.core.m3 import HEAD_IMPLS, m3, m3_infer_head
+from repro_torch.core.population import LayeredPopulation
+
+_NOT_YET = ("the port computes in float32 only in this slice; bf16 compute "
+            "and the int8 serve copy are still to be ported (ROADMAP.md)")
+
+
+def _static(lp, name, device, arr, dtype) -> torch.Tensor:
+    """A static layout array as a tensor on ``device``, built once per
+    (layout, device) and kept on the layout instance, so the serving path
+    copies no layout data to the card per call."""
+    cache = lp.__dict__.setdefault("_device_cache", {})
+    key = (name, str(torch.device(device)))
+    if key not in cache:
+        cache[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
+                                     device=device)
+    return cache[key]
+
+
+# ---------------------------------------------------------------------- #
+# block-diagonal mid-layer projection                                    #
+# ---------------------------------------------------------------------- #
+
+def block_diag_einsum(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
+                      l: int) -> torch.Tensor:
+    """h (B, H_l) → (B, H_{l+1}) as one batched einsum per bucket;
+    pass-through buckets are slice copies."""
+    b = h.shape[0]
+    outs = []
+    wi = 0
+    for (m0, n, hin, hout, off_in, off_out, real) in lp.proj_buckets(l):
+        if real:
+            hh = h[:, off_in: off_in + n * hin].reshape(b, n, hin)
+            outs.append(torch.einsum("bnh,noh->bno", hh, w_buckets[wi])
+                        .reshape(b, n * hout))
+            wi += 1
+        else:
+            outs.append(h[:, off_in: off_in + n * hin])
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+def pack_weight_tiles(w_buckets, lp: LayeredPopulation, l: int
+                      ) -> torch.Tensor:
+    """Per-bucket (n, hout, hin) arrays → the flat (n_param_blocks, blk, blk)
+    tile array of ``lp.bd_layout(l)`` (member-major, row-major over each
+    member's tile grid)."""
+    blk = lp.block
+    tiles = []
+    wi = 0
+    for (m0, n, hin, hout, off_in, off_out, real) in lp.proj_buckets(l):
+        if not real:
+            continue
+        w = w_buckets[wi]
+        wi += 1
+        ob, ib = hout // blk, hin // blk
+        tiles.append(w.reshape(n, ob, blk, ib, blk)
+                     .permute(0, 1, 3, 2, 4)
+                     .reshape(n * ob * ib, blk, blk))
+    return torch.cat(tiles, dim=0)
+
+
+def block_diag_fused_infer(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
+                           l: int, *, bias: torch.Tensor) -> torch.Tensor:
+    """Mid layer l→l+1 as ONE kernel launch: block-diagonal projection +
+    pass-through-gated bias + per-tile activation + padding mask — returns
+    layer l+1's ACTIVATIONS (callers skip the bias add and ``_act``)."""
+    from repro_torch.kernels.ops import fused_layer_infer
+    dev = h.device
+    pout = lp.layer_pop(l + 1)
+    b_eff = bias * _static(lp, ("active", l + 1), dev,
+                           lp.active_unit_mask(l + 1), torch.float32)
+    return fused_layer_infer(
+        h, pack_weight_tiles(w_buckets, lp, l), b_eff, lp.bd_layout(l),
+        _static(lp, ("block_act", l + 1), dev, pout.block_act_ids,
+                torch.int32),
+        _static(lp, ("mask", l + 1), dev, pout.hidden_mask, torch.float32))
+
+
+BD_INFER_IMPLS = {
+    "einsum": block_diag_einsum,
+    "fused": block_diag_fused_infer,
+}
+# impls whose kernel epilogue already applies bias + activation + mask
+FUSED_BD_IMPLS = frozenset(["fused"])
+
+
+# ---------------------------------------------------------------------- #
+# input-layer projection                                                 #
+# ---------------------------------------------------------------------- #
+
+def input_xla(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+              lp: LayeredPopulation, act_impl: str = "sliced"
+              ) -> torch.Tensor:
+    """Input projection as a plain matmul + bias + the per-layer ``_act``."""
+    return _act(lp, 0, x @ w_in.t() + b_in, act_impl)
+
+
+def input_fused_infer(x: torch.Tensor, w_in: torch.Tensor,
+                      b_in: torch.Tensor, lp: LayeredPopulation,
+                      act_impl: str = "sliced") -> torch.Tensor:
+    """Input layer as ONE kernel launch: dense GEMM + bias + per-block
+    activation + padding mask (``act_impl`` is ignored: the epilogue IS
+    the activation)."""
+    from repro_torch.kernels.ops import fused_input_infer
+    dev = x.device
+    p0 = lp.layer_pop(0)
+    return fused_input_infer(
+        x, w_in, b_in,
+        _static(lp, ("block_act", 0), dev, p0.block_act_ids, torch.int32),
+        _static(lp, ("mask", 0), dev, p0.hidden_mask, torch.float32),
+        block=lp.block)
+
+
+IN_INFER_IMPLS = {
+    "xla": input_xla,
+    "fused": input_fused_infer,
+}
+FUSED_IN_IMPLS = frozenset(["fused"])
+
+
+def _resolve_in_impl(in_impl, bd_impl: str) -> str:
+    """``None`` follows the mid layers: a fused ``bd_impl`` gets the fused
+    input kernel, anything else the plain matmul."""
+    if in_impl is None:
+        return "fused" if bd_impl in FUSED_BD_IMPLS else "xla"
+    if in_impl not in IN_INFER_IMPLS:
+        raise ValueError(f"unknown in_impl {in_impl!r} "
+                         f"(have {sorted(IN_INFER_IMPLS)})")
+    return in_impl
+
+
+# ---------------------------------------------------------------------- #
+# parameters                                                             #
+# ---------------------------------------------------------------------- #
+
+def abstract_params(lp: LayeredPopulation, dtype=torch.float32) -> dict:
+    """The tree of ``init_params(lp)`` as meta tensors — shapes and dtype,
+    no storage (checkpoint restore, shape checks)."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    p0 = lp.layer_pop(0)
+    mid = []
+    for l in range(lp.depth - 1):
+        mid.append({
+            "w": [meta(n, hout, hin) for (m0, n, hin, hout, *_r, real)
+                  in lp.proj_buckets(l) if real],
+            "b": meta(lp.layer_pop(l + 1).total_hidden)})
+    return {"w_in": meta(p0.total_hidden, lp.in_features),
+            "b_in": meta(p0.total_hidden), "mid": mid,
+            "w_out": meta(lp.out_features,
+                          lp.layer_pop(lp.depth - 1).total_hidden),
+            "b_out": meta(lp.num_members, lp.out_features)}
+
+
+def init_params(generator: torch.Generator, lp: LayeredPopulation,
+                dtype=torch.float32) -> dict:
+    """torch.nn.Linear-style init (U(±1/√fan_in), per-member fan-in) on
+    ``generator``'s device.  The distribution is the JAX package's; the
+    numbers are not (torch's generator is not threefry).  Pass-through
+    bias slices are zero."""
+    dev = generator.device
+
+    def uniform(shape, lo, hi):
+        u = torch.rand(shape, generator=generator, device=dev, dtype=dtype)
+        return u * (hi - lo) + lo
+
+    def col(a):
+        return torch.as_tensor(np.asarray(a, np.float32), dtype=dtype,
+                               device=dev)
+
+    p0 = lp.layer_pop(0)
+    bound = 1.0 / np.sqrt(lp.in_features)
+    params = {"w_in": uniform((p0.total_hidden, lp.in_features), -bound,
+                              bound),
+              "b_in": uniform((p0.total_hidden,), -bound, bound),
+              "mid": []}
+    for l in range(lp.depth - 1):
+        pout = lp.layer_pop(l + 1)
+        wl = []
+        for (m0, n, hin, hout, off_in, off_out, real) in lp.proj_buckets(l):
+            if not real:
+                continue
+            fan = np.array([lp.layer_width(m, l) for m in range(m0, m0 + n)],
+                           np.float32)
+            wl.append(uniform((n, hout, hin), -1.0, 1.0)
+                      * col(1.0 / np.sqrt(fan))[:, None, None])
+        fan_unit = np.repeat(
+            np.array([lp.layer_width(m, l) for m in range(lp.num_members)],
+                     np.float32), pout.padded_sizes)
+        params["mid"].append({
+            "w": wl,
+            "b": uniform((pout.total_hidden,), -1.0, 1.0)
+            * col(lp.active_unit_mask(l + 1) / np.sqrt(fan_unit))})
+    plast = lp.layer_pop(lp.depth - 1)
+    last = np.array([w[-1] for w in lp.widths], np.float32)
+    params["w_out"] = (uniform((lp.out_features, plast.total_hidden), -1.0,
+                               1.0)
+                       * col(1.0 / np.sqrt(np.repeat(
+                           last, plast.padded_sizes)))[None, :])
+    params["b_out"] = (uniform((lp.num_members, lp.out_features), -1.0, 1.0)
+                       * col(1.0 / np.sqrt(last))[:, None])
+    return params
+
+
+def params_from_numpy(tree, lp: LayeredPopulation, device="cuda") -> dict:
+    """A parameter tree of numpy arrays (e.g. the JAX package's, through
+    ``jax.device_get``) → float32 tensors on ``device``, shape-checked
+    against ``lp``."""
+    shapes = abstract_params(lp)
+
+    def conv(a, like, where):
+        arr = np.asarray(a)
+        if tuple(arr.shape) != tuple(like.shape):
+            raise ValueError(f"{where}: shape {arr.shape} != "
+                             f"{tuple(like.shape)} for this layout")
+        return torch.tensor(arr, dtype=torch.float32, device=device)
+
+    if len(tree["mid"]) != len(shapes["mid"]):
+        raise ValueError(f"{len(tree['mid'])} mid layers for depth "
+                         f"{lp.depth}")
+    out = {k: conv(tree[k], shapes[k], k)
+           for k in ("w_in", "b_in", "w_out", "b_out")}
+    out["mid"] = []
+    for l, (lay, shp) in enumerate(zip(tree["mid"], shapes["mid"])):
+        if len(lay["w"]) != len(shp["w"]):
+            raise ValueError(f"mid/{l}: {len(lay['w'])} weight buckets, "
+                             f"layout has {len(shp['w'])}")
+        out["mid"].append({
+            "w": [conv(w, s, f"mid/{l}/w/{i}")
+                  for i, (w, s) in enumerate(zip(lay["w"], shp["w"]))],
+            "b": conv(lay["b"], shp["b"], f"mid/{l}/b")})
+    return out
+
+
+def params_to_numpy(params) -> dict:
+    """The inverse of ``params_from_numpy``: every leaf as a numpy array."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [params_to_numpy(v) for v in params]
+    return params.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------------- #
+# forward                                                                #
+# ---------------------------------------------------------------------- #
+
+def _act(lp: LayeredPopulation, l: int, h: torch.Tensor,
+         act_impl: str = "sliced") -> torch.Tensor:
+    """Per-layer activation + padding mask: ``sliced`` (one pass per
+    contiguous activation run) or ``masked`` (branchless select)."""
+    pop = lp.layer_pop(l)
+    dev = h.device
+    if act_impl == "sliced":
+        h = apply_activations_sliced(h, pop.act_runs)
+    elif act_impl == "masked":
+        h = apply_activations_masked(
+            h, _static(lp, ("act_ids", l), dev, pop.act_ids, torch.int32))
+    elif act_impl == "pallas":
+        raise NotImplementedError(
+            "act_impl='pallas' (the seg_act kernel) is not ported yet — "
+            "see ROADMAP.md; the fused path needs no separate activation")
+    else:
+        raise ValueError(f"unknown act_impl {act_impl!r}")
+    return h * _static(lp, ("mask", l), dev, pop.hidden_mask, torch.float32)
+
+
+def check_dtypes(compute_dtype=None, weights_dtype=None):
+    """Reject what this slice cannot compute, rather than ignore it."""
+    f32 = (None, "float32", torch.float32)
+    if compute_dtype not in f32:
+        raise NotImplementedError(f"compute_dtype={compute_dtype!r}: "
+                                  + _NOT_YET)
+    if weights_dtype not in f32:
+        raise NotImplementedError(f"weights_dtype={weights_dtype!r}: "
+                                  + _NOT_YET)
+
+
+def _hidden(params, x, lp: LayeredPopulation, bd_impl: str = "einsum",
+            act_impl: str = "sliced", compute_dtype=None, in_impl=None,
+            infer: bool = False, weights_dtype=None) -> torch.Tensor:
+    """Input layer + every mid layer → the last hidden activations."""
+    check_dtypes(compute_dtype, weights_dtype)
+    if bd_impl not in BD_INFER_IMPLS:
+        raise ValueError(f"unknown bd_impl {bd_impl!r} "
+                         f"(have {sorted(BD_INFER_IMPLS)})")
+    in_impl = _resolve_in_impl(in_impl, bd_impl)
+    if not infer and (bd_impl in FUSED_BD_IMPLS or in_impl in FUSED_IN_IMPLS):
+        raise NotImplementedError(
+            "the fused kernels are forward-only in this slice (infer=True); "
+            "the training kernels are still to be ported (ROADMAP.md)")
+    h = IN_INFER_IMPLS[in_impl](x, params["w_in"], params["b_in"], lp,
+                                act_impl)
+    for l in range(lp.depth - 1):
+        wl = params["mid"][l]["w"]
+        if bd_impl in FUSED_BD_IMPLS:
+            h = BD_INFER_IMPLS[bd_impl](h, wl, lp, l,
+                                        bias=params["mid"][l]["b"])
+            continue
+        z = BD_INFER_IMPLS[bd_impl](h, wl, lp, l)
+        h = z + params["mid"][l]["b"] * _static(
+            lp, ("active", l + 1), h.device, lp.active_unit_mask(l + 1),
+            torch.float32)
+        h = _act(lp, l + 1, h, act_impl)
+    return h
+
+
+def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
+            bd_impl: str = "einsum", act_impl: str = "sliced",
+            compute_dtype=None, in_impl=None, infer: bool = False,
+            head_impl=None, log_probs: bool = False, weights_dtype=None
+            ) -> torch.Tensor:
+    """x (B, F) → logits (B, P, O) — every member an independent deep MLP.
+
+    ``infer=True`` is the serving path: the output projection runs through
+    ``head_impl`` (default ``None`` follows ``bd_impl``) — ``"fused"`` is
+    the one-launch infer-head kernel with the per-member bias (and, under
+    ``log_probs=True``, the log-softmax) in its epilogue, making the whole
+    forward exactly depth+1 kernel launches
+    (``launch_count.fused_infer_budget``).  ``log_probs=True`` returns
+    log-probabilities on every route."""
+    h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl,
+                infer, weights_dtype)
+    plast = lp.layer_pop(lp.depth - 1)
+    if infer:
+        if head_impl is None:
+            head_impl = "fused" if bd_impl in FUSED_BD_IMPLS else "xla"
+        if head_impl not in HEAD_IMPLS:
+            raise ValueError(f"unknown head_impl {head_impl!r} "
+                             f"(have {sorted(HEAD_IMPLS)})")
+        if head_impl == "fused":
+            return m3_infer_head(
+                h, params["w_out"], params["b_out"], plast,
+                log_probs=log_probs,
+                seg=_static(lp, "seg_last", h.device,
+                            plast.block_segment_ids, torch.int32))
+    y = m3(h, params["w_out"], plast, impl=m3_impl) + params["b_out"][None]
+    return torch.log_softmax(y, dim=-1) if log_probs else y
+
+
+# ---------------------------------------------------------------------- #
+# member extraction (standalone baseline)                                #
+# ---------------------------------------------------------------------- #
+
+def extract_member(params, lp: LayeredPopulation, m: int) -> dict:
+    """Standalone deep MLP of member m (REAL units and layers only)."""
+    d = lp.member_depths[m]
+    p0 = lp.layer_pop(0)
+    out = {"w_in": params["w_in"][p0.member_slice(m)],
+           "b_in": params["b_in"][p0.member_slice(m)],
+           "mid": [],
+           "activations": lp.activations[m],
+           "activation": lp.activations[m][0]}
+    for l in range(d - 1):
+        wi = 0
+        for (m0, n, hin, hout, off_in, off_out, real) in lp.proj_buckets(l):
+            if m0 <= m < m0 + n:
+                wm = params["mid"][l]["w"][wi][m - m0][
+                    : lp.widths[m][l + 1], : lp.widths[m][l]]
+                break
+            if real:
+                wi += 1
+        bm = params["mid"][l]["b"][lp.layer_pop(l + 1).member_slice(m)]
+        out["mid"].append({"w": wm, "b": bm})
+    plast = lp.layer_pop(lp.depth - 1)
+    out["w_out"] = params["w_out"][:, plast.member_slice(m)]
+    out["b_out"] = params["b_out"][m]
+    return out
+
+
+def member_forward(member: dict, x: torch.Tensor) -> torch.Tensor:
+    """Forward of one extracted member, honouring per-layer activations."""
+    acts = member["activations"]
+    h = ACTIVATIONS[acts[0]](x @ member["w_in"].t() + member["b_in"])
+    for l, lay in enumerate(member["mid"]):
+        h = ACTIVATIONS[acts[l + 1]](h @ lay["w"].t() + lay["b"])
+    return h @ member["w_out"].t() + member["b_out"]

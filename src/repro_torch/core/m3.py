@@ -1,0 +1,78 @@
+"""Modified Matrix Multiplication (M3) — the paper's core operation.
+
+For a fused hidden tensor ``h`` (B, total_hidden), a fused output weight
+``w2`` (O, total_hidden) and per-unit member ids ``seg``:
+
+    y[b, m, o] = sum_{j : seg[j] == m}  h[b, j] * w2[o, j]
+
+  m3_scatter    — the paper's own GPU form: broadcast product + scatter-add
+                  (``index_add_``); materialises (B, H, O).
+  m3_bucketed   — members bucketed by padded size → one batched matmul per
+                  bucket.
+  m3_infer_head — serving: projection + member bias (+ log-softmax) in one
+                  CUDA kernel (``kernels/ops.infer_head``).
+
+Shapes: h (B, H), w2 (O, H) → y (B, P, O).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.population import Population
+
+
+def m3_scatter(h: torch.Tensor, w2: torch.Tensor, pop: Population,
+               seg: torch.Tensor | None = None) -> torch.Tensor:
+    """The paper's M3: S[b, j, o] = h[b, j]·w2[o, j], scatter-added over j
+    by member.  ``seg``: ``pop.segment_ids`` already on h's device."""
+    if seg is None:
+        seg = torch.as_tensor(pop.segment_ids, device=h.device)
+    y = torch.zeros(h.shape[0], pop.num_members, w2.shape[0],
+                    device=h.device, dtype=torch.float32)
+    return y.index_add_(1, seg.long(), h[:, :, None] * w2.t()[None])
+
+
+def m3_bucketed(h: torch.Tensor, w2: torch.Tensor, pop: Population
+                ) -> torch.Tensor:
+    """Reshape each equal-size run of members to (B, n, hs) and
+    batched-matmul against (n, O, hs)."""
+    b, o = h.shape[0], w2.shape[0]
+    pieces = []
+    for (m0, n, hs, col0) in pop.size_buckets():
+        hh = h[:, col0: col0 + n * hs].reshape(b, n, hs)
+        ww = w2[:, col0: col0 + n * hs].reshape(o, n, hs)
+        pieces.append(torch.einsum("bnh,onh->bno", hh, ww))
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
+
+
+M3_IMPLS = {
+    "scatter": m3_scatter,
+    "bucketed": m3_bucketed,
+}
+
+
+def m3(h: torch.Tensor, w2: torch.Tensor, pop: Population,
+       impl: str = "bucketed") -> torch.Tensor:
+    if impl not in M3_IMPLS:
+        raise ValueError(f"unknown m3_impl {impl!r} (have {sorted(M3_IMPLS)})")
+    return M3_IMPLS[impl](h, w2, pop)
+
+
+def m3_infer_head(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                  pop: Population, *, log_probs: bool = False,
+                  seg=None) -> torch.Tensor:
+    """Projection + per-member bias — and optionally the stable
+    log-softmax — in ONE kernel launch, producing the (B, P, O)
+    logits/log-probs the ensemble reductions consume.  ``seg``: the
+    layout's ``block_segment_ids``, optionally already on the device."""
+    from repro_torch.kernels.ops import infer_head
+    return infer_head(h, w2, b2,
+                      pop.block_segment_ids if seg is None else seg,
+                      block_h=pop.block, log_probs=log_probs)
+
+
+# inference head impls — deep.forward(infer=True) routes through this
+HEAD_IMPLS = {
+    "xla": None,          # m3 logits + bias / log_softmax in deep.forward
+    "fused": m3_infer_head,
+}

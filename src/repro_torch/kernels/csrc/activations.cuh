@@ -1,0 +1,43 @@
+// The paper's ten activations, selected by id in the kernels' epilogues.
+//
+// Ids follow repro_torch.core.activations.ACTIVATION_ORDER (sorted names):
+//   0 elu, 1 gelu, 2 hardshrink, 3 identity, 4 leaky_relu, 5 mish, 6 relu,
+//   7 selu, 8 sigmoid, 9 tanh.
+// Definitions match the plain versions: exact (erf) gelu, leaky slope 0.01,
+// hardshrink λ=0.5 with strict inequalities, mish = x·tanh(softplus(x)) with
+// softplus(x) = max(x, 0) + log1p(exp(-|x|)).  Full-precision libm calls
+// (no fast-math): the kernels are checked against the plain versions at
+// rtol 1e-4 / atol 1e-5.
+#pragma once
+
+#include <math.h>
+
+__device__ __forceinline__ float apply_act(int id, float x) {
+  switch (id) {
+    case 0:  // elu
+      return x > 0.f ? x : expm1f(x);
+    case 1:  // gelu (exact)
+      return 0.5f * x * (1.f + erff(x * 0.70710678118654752440f));
+    case 2:  // hardshrink
+      return (x > 0.5f || x < -0.5f) ? x : 0.f;
+    case 3:  // identity
+      return x;
+    case 4:  // leaky_relu
+      return x >= 0.f ? x : 0.01f * x;
+    case 5: {  // mish
+      const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+      return x * tanhf(sp);
+    }
+    case 6:  // relu
+      return x > 0.f ? x : 0.f;
+    case 7:  // selu
+      return 1.0507009873554804934f *
+             (x > 0.f ? x : 1.6732632423543772848f * expm1f(x));
+    case 8:  // sigmoid
+      return 1.f / (1.f + expf(-x));
+    case 9:  // tanh
+      return tanhf(x);
+    default:  // unknown id: poison the output rather than guess
+      return __int_as_float(0x7fc00000);
+  }
+}

@@ -1,0 +1,120 @@
+// Fused input layer, forward only:  y = act(x · Wᵀ + b) · mask
+//
+// Replaces the TPU kernel repro/kernels/fused_input.py::fused_input_fwd
+// (with_deriv=False), reached through repro/kernels/ops.py::fused_input_infer.
+//
+// x (B, F), W (H, F), b and mask (H,) f32, act ids one per population block
+// (H / block,) int32 → y (B, H) f32.  The pre-activation z never reaches
+// device memory: the bias, the block's activation and the padding mask are
+// applied to the accumulator in registers.
+//
+// What bounds it: bytes.  At the paper's 10,000-member width (H = 1,280,000,
+// F = 100) and a flush of B = 32, one launch must read W (512 MB) and write
+// y (164 MB) against 8.2 GFLOP — about 0.2 ms of memory traffic at
+// 3.35 TB/s against 0.12 ms of f32 FMA work.  The design therefore reads W
+// exactly once per batch tile: a CTA owns a (32 batch rows × 128 hidden
+// units) output tile and walks F in chunks of 16 staged in shared memory.
+// Batch tiles of one hidden tile are adjacent in launch order, so at larger
+// B the W tile is re-read from L2, not from device memory.  The hidden tile
+// is independent of the population block, so block 8 and block 128 run the
+// same code (the activation id is looked up per column).
+//
+// Left for later: no cp.async/TMA double buffering (each chunk's loads are
+// waited for before its FMAs), plain FMA instead of tensor cores (f32 only
+// in this slice), and a fixed 32-row batch tile that wastes half the tile's
+// rows' compute when B < 32.
+#include <climits>
+#include <cuda_runtime.h>
+
+#include "activations.cuh"
+
+namespace {
+
+constexpr int BM = 32;        // batch rows per CTA
+constexpr int BN = 128;       // hidden units per CTA
+constexpr int BK = 16;        // feature chunk staged in shared memory
+constexpr int THREADS = 256;  // 16 × 16 threads
+constexpr int RM = BM / 16;   // rows per thread
+constexpr int RN = BN / 16;   // columns per thread (strided by 16)
+
+__global__ void __launch_bounds__(THREADS)
+fused_input_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ mask,
+                   const int* __restrict__ act_ids, float* __restrict__ y,
+                   int B, int F, int H, int block, int n_btiles) {
+  __shared__ float xs[BK][BM + 1];
+  __shared__ float ws[BK][BN + 1];
+
+  const int bt = blockIdx.x % n_btiles;
+  const int ht = blockIdx.x / n_btiles;
+  const int b0 = bt * BM;
+  const int h0 = ht * BN;
+  const int t = threadIdx.x;
+  const int tx = t % 16;
+  const int ty = t / 16;
+
+  float acc[RM][RN];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+
+  for (int f0 = 0; f0 < F; f0 += BK) {
+    for (int i = t; i < BM * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      const int b = b0 + r, f = f0 + c;
+      xs[c][r] = (b < B && f < F) ? x[(size_t)b * F + f] : 0.f;
+    }
+    for (int i = t; i < BN * BK; i += THREADS) {
+      const int r = i / BK, c = i % BK;
+      const int h = h0 + r, f = f0 + c;
+      ws[c][r] = (h < H && f < F) ? w[(size_t)h * F + f] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float a[RM], bv[RN];
+#pragma unroll
+      for (int i = 0; i < RM; ++i) a[i] = xs[k][ty * RM + i];
+#pragma unroll
+      for (int j = 0; j < RN; ++j) bv[j] = ws[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int j = 0; j < RN; ++j) {
+    const int h = h0 + tx + 16 * j;
+    if (h >= H) continue;
+    const float bb = bias[h];
+    const float mm = mask[h];
+    const int id = act_ids[h / block];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int b = b0 + ty * RM + i;
+      if (b < B) y[(size_t)b * H + h] = apply_act(id, acc[i][j] + bb) * mm;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int fused_input_infer_f32(const float* x, const float* w,
+                                     const float* bias, const float* mask,
+                                     const int* act_ids, float* y, int B,
+                                     int F, int H, int block, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (F <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_tiles = n_btiles * ((H + BN - 1) / BN);
+  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  fused_input_kernel<<<(unsigned)n_tiles, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      x, w, bias, mask, act_ids, y, B, F, H, block, (int)n_btiles);
+  return (int)cudaGetLastError();
+}

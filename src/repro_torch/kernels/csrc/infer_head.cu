@@ -1,0 +1,116 @@
+// Forward-only output head: per-member M3 projection + member bias
+// (+ optional stable log-softmax over the classes):
+//   y[b, m, :] = Σ_{j in member m} h[b, j] · w2[:, j] + b2[m, :]
+//
+// Replaces the TPU kernel repro/kernels/infer_head.py::infer_head_fwd,
+// reached through repro/kernels/ops.py::infer_head.
+//
+// h (B, H), w2 (O, H), b2 (P, O) f32 and the members' hidden-block ranges in
+// CSR form, member_ptr (P + 1,) int32 in units of `block` hidden units →
+// y (B, P, O) f32.  O ≤ 16.
+//
+// The TPU kernel finds member edges from neighbouring segment ids and
+// rewrites its member's output block once per hidden tile (the last write
+// wins, on a sequential grid).  Here one CTA owns one (32-row batch tile,
+// member) pair, loops over the member's contiguous hidden range and writes
+// y[b, m, :] exactly once.  Each warp takes batch rows; its lanes stride the
+// member's hidden units (coalesced reads of h and w2), and a shuffle
+// reduction finishes the O dot products before lane 0 runs the epilogue.
+//
+// What bounds it: bytes.  At the paper's 10,000-member width and B = 32 it
+// reads h (164 MB) and w2 (10 MB) for 10 MFLOP — about 0.05 ms at 3.35 TB/s.
+//
+// Left for later: w2 is re-read per batch row (from L1/L2, not staged in
+// shared memory), and a member narrower than a warp's stride leaves lanes
+// idle; the (B, P, O) store is O floats per row and member.
+#include <climits>
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int BM = 32;          // batch rows per CTA
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_O = 16;
+
+__global__ void __launch_bounds__(THREADS)
+infer_head_kernel(const float* __restrict__ h, const float* __restrict__ w2,
+                  const float* __restrict__ b2,
+                  const int* __restrict__ member_ptr, float* __restrict__ y,
+                  int B, int H, int O, int P, int block, int log_probs,
+                  int n_btiles) {
+  const int bt = blockIdx.x % n_btiles;
+  const int m = blockIdx.x / n_btiles;
+  const int j0 = member_ptr[m] * block;
+  const int j1 = member_ptr[m + 1] * block;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  for (int rr = warp; rr < BM; rr += WARPS) {
+    const int b = bt * BM + rr;
+    if (b >= B) break;  // uniform across the warp
+    float acc[MAX_O];
+#pragma unroll
+    for (int o = 0; o < MAX_O; ++o) acc[o] = 0.f;
+    const float* hr = h + (size_t)b * H;
+    for (int j = j0 + lane; j < j1; j += 32) {
+      const float hv = hr[j];
+#pragma unroll
+      for (int o = 0; o < MAX_O; ++o)
+        if (o < O) acc[o] = fmaf(hv, w2[(size_t)o * H + j], acc[o]);
+    }
+#pragma unroll
+    for (int o = 0; o < MAX_O; ++o) {
+      if (o < O) {
+        float v = acc[o];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        acc[o] = v;
+      }
+    }
+    if (lane == 0) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int o = 0; o < MAX_O; ++o) {
+        if (o < O) {
+          acc[o] += b2[(size_t)m * O + o];
+          mx = fmaxf(mx, acc[o]);
+        }
+      }
+      if (log_probs) {
+        float s = 0.f;
+#pragma unroll
+        for (int o = 0; o < MAX_O; ++o)
+          if (o < O) s += expf(acc[o] - mx);
+        const float lse = logf(s) + mx;
+#pragma unroll
+        for (int o = 0; o < MAX_O; ++o)
+          if (o < O) acc[o] -= lse;
+      }
+      float* yr = y + ((size_t)b * P + m) * O;
+#pragma unroll
+      for (int o = 0; o < MAX_O; ++o)
+        if (o < O) yr[o] = acc[o];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int infer_head_f32(const float* h, const float* w2,
+                              const float* b2, const int* member_ptr,
+                              float* y, int B, int H, int O, int P,
+                              int block, int log_probs, void* stream) {
+  if (B <= 0 || P <= 0) return 0;
+  if (O <= 0 || O > MAX_O || block <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_tiles = n_btiles * P;
+  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  infer_head_kernel<<<(unsigned)n_tiles, THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      h, w2, b2, member_ptr, y, B, H, O, P, block, log_probs,
+      (int)n_btiles);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,296 @@
+"""Population serving engine: batched ensemble inference on one card.
+
+``python -m repro_torch.launch.serve_population --ckpt-dir CKPT``
+
+Request lifecycle:
+
+  1. requests land in a HOST staging slab (two of them, alternating, so
+     requests for flush k+1 stage while flush k's copy to the card may
+     still be in flight; pinned memory on the card);
+  2. the slab flushes when it fills to ``batch`` — or when the
+     max-latency timer for its oldest request fires first (a partial slab,
+     zero-padded to the full batch);
+  3. one eager step per ensemble mode, under ``torch.inference_mode()``,
+     runs the forward-only fused path (``deep.forward(infer=True)``:
+     depth+1 kernel launches) and reduces the (B, P, O) member outputs on
+     the card (``core.ensemble``): best-member routing, top-k soft-vote or
+     all-members soft-vote, each with disagreement uncertainty;
+  4. per-request latency = flush wait + step wall; the driver reports
+     p50/p99 and req/s per mode.
+
+The served member set comes from ``selection.leaderboard`` over a
+calibration split evaluated with the SAME forward-only kernels
+(``publish``); rank 0 becomes ``best1``'s route, the top-k slots become
+``topk``'s vote.  Shard-pad fillers can never be published or reduced
+over (``core.ensemble`` validates).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.core.deep import check_dtypes, forward
+from repro_torch.core.ensemble import (ENSEMBLE_MODES, ensemble_predict,
+                                       real_slots)
+from repro_torch.core.selection import evaluate_population, leaderboard
+from repro_torch.launch.launch_count import (fused_infer_budget,
+                                             kernel_launches)
+
+
+class PopulationServer:
+    """Batched ensemble serving over a trained population on the device its
+    parameters live on.  ``modes``: any of ``("best1", "topk", "all")``."""
+
+    def __init__(self, params, layout, *, bd_impl: str = "fused",
+                 act_impl: str = "sliced", compute_dtype=None,
+                 weights_dtype=None, batch: int = 32, topk: int = 4,
+                 max_latency_ms: float = 5.0):
+        check_dtypes(compute_dtype, weights_dtype)
+        self.params = params
+        self.layout = layout
+        self.device = params["w_in"].device
+        self.batch = int(batch)
+        self.topk = int(topk)
+        self.max_latency_ms = float(max_latency_ms)
+        self._fw = dict(bd_impl=bd_impl, act_impl=act_impl, infer=True)
+        self._host = self._staging(layout.in_features)
+        self._flip = 0
+        self.board = None
+        self.published: dict = {"all": None}
+
+    def _staging(self, features: int) -> list[torch.Tensor]:
+        """The two alternating host slabs (pinned when serving the card, so
+        the copy to it is asynchronous)."""
+        pin = self.device.type == "cuda"
+        return [torch.zeros((self.batch, features), dtype=torch.float32,
+                            pin_memory=pin) for _ in range(2)]
+
+    # ----------------------------------------------------------------- #
+    # published member set                                              #
+    # ----------------------------------------------------------------- #
+
+    def refresh(self, params, layout):
+        """Re-target the server at new (params, layout) — e.g. a training
+        run's state after a halving rung.  Everything keyed on the layout
+        resets: the leaderboard and published sets, and the staging slabs
+        if the feature width changed.  Call
+        :meth:`publish` after to re-derive the served member set."""
+        if layout.in_features != self.layout.in_features:
+            self._host = self._staging(layout.in_features)
+        self.params = params
+        self.layout = layout
+        self.device = params["w_in"].device
+        # a halving rung may shrink the population below the served top-k
+        self.topk = max(1, min(self.topk, real_slots(layout)))
+        self.board = None
+        self.published = {"all": None}
+        return self
+
+    def publish(self, x_calib, y_calib, task: str = "classification",
+                sort_by: str = "loss"):
+        """Refresh the served member set from a leaderboard over a
+        calibration split, scored with the same forward-only kernels the
+        serve steps run (in slabs of ``selection.EVAL_SLAB`` rows).
+        Returns the leaderboard rows."""
+        losses, accs = evaluate_population(
+            self.params, self.layout, x_calib, y_calib, task=task,
+            **self._fw)
+        self.board = leaderboard(self.layout, losses, accs,
+                                 k=max(self.topk, 1), sort_by=sort_by)
+        self.published = {
+            "best1": [self.board[0]["slot"]],
+            "topk": [r["slot"] for r in self.board[:self.topk]],
+            "all": None,                  # every real member, sliced on device
+        }
+        return self.board
+
+    # ----------------------------------------------------------------- #
+    # per-mode step                                                     #
+    # ----------------------------------------------------------------- #
+
+    def _step(self, mode: str):
+        """The eager serve step of ``mode`` over the current published set:
+        forward-only fused path, then the on-device ensemble reduction."""
+        if mode not in ENSEMBLE_MODES:
+            raise ValueError(f"unknown mode {mode!r} (have {ENSEMBLE_MODES})")
+        if mode != "all" and mode not in self.published:
+            raise ValueError(f"mode {mode!r} needs a published member set "
+                             "— call publish() first")
+        ids = self.published.get(mode)
+        lp, fw = self.layout, self._fw
+
+        def step(params, xb):
+            with torch.inference_mode():
+                logits = forward(params, xb, lp, **fw)
+                return ensemble_predict(logits, lp, mode, member_ids=ids,
+                                        with_uncertainty=True)
+
+        return step
+
+    # ----------------------------------------------------------------- #
+    # request loop                                                      #
+    # ----------------------------------------------------------------- #
+
+    def run(self, xs, mode: str = "all", warmup: bool = True) -> dict:
+        """Serve ``xs`` (N, F) through the batching loop → per-request
+        predictions + latency stats.  Closed-loop: all requests are queued
+        at t=0, so full slabs flush on fill and only the trailing partial
+        slab flushes on its max-latency timer (its requests pay that wait
+        in their recorded latency).  ``warmup`` runs one zero slab before
+        the clock starts."""
+        step = self._step(mode)
+        xs = np.asarray(xs, np.float32)
+        n = int(xs.shape[0])
+        lat = np.zeros(n)
+        preds = np.zeros(n, np.int64)
+        unc = np.zeros(n, np.float32)
+        if warmup:
+            step(self.params, torch.zeros(
+                (self.batch, self.layout.in_features),
+                device=self.device))["pred"].cpu()
+        t0 = time.perf_counter()
+        i = 0
+        while i < n:
+            nb = min(self.batch, n - i)
+            buf = self._host[self._flip]
+            self._flip ^= 1
+            buf[:nb] = torch.from_numpy(xs[i:i + nb])
+            if nb < self.batch:               # max-latency flush: timer fired
+                buf[nb:] = 0.0
+            out = step(self.params, buf.to(self.device, non_blocking=True))
+            pred = out["pred"].cpu().numpy()[:nb]
+            mi = out["mutual_information"].cpu().numpy()[:nb]
+            done = time.perf_counter() - t0
+            # every request in the slab completes at the flush's done time;
+            # a timer-fired partial slab waited out max_latency first
+            lat[i:i + nb] = done + (self.max_latency_ms / 1e3
+                                    if nb < self.batch else 0.0)
+            preds[i:i + nb] = pred
+            unc[i:i + nb] = mi
+            i += nb
+        wall = time.perf_counter() - t0
+        return {
+            "mode": mode,
+            "members_served": (real_slots(self.layout)
+                               if self.published.get(mode) is None
+                               else len(self.published[mode])),
+            "requests": n,
+            "pred": preds,
+            "mutual_information": unc,
+            "p50_ms": float(np.percentile(lat, 50) * 1e3),
+            "p99_ms": float(np.percentile(lat, 99) * 1e3),
+            "req_per_s": n / max(wall, 1e-9),
+            "wall_s": wall,
+        }
+
+    # ----------------------------------------------------------------- #
+    # invariants                                                        #
+    # ----------------------------------------------------------------- #
+
+    def check_budget(self):
+        """One serve forward must advance the kernel counters by exactly
+        depth+1: input + (depth−1) mid layers + infer head.  Raises
+        otherwise."""
+        lp = self.layout
+        xb = torch.zeros((self.batch, lp.in_features), device=self.device)
+        before = sum(kernel_launches().values())
+        with torch.inference_mode():
+            forward(self.params, xb, lp, **self._fw)
+        got = sum(kernel_launches().values()) - before
+        budget = fused_infer_budget(lp.depth)["total"]
+        if got != budget:
+            raise RuntimeError(f"serve forward made {got} kernel launches, "
+                               f"the budget is {budget} (depth+1)")
+        return {"launches": got, "budget": budget}
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, step: int | None = None,
+                        device="cuda", **kw):
+        from repro_torch.checkpoint.checkpoint import restore_population
+        params, layout, step = restore_population(ckpt_dir, step=step,
+                                                  device=device)
+        return cls(params, layout, **kw), step
+
+
+def main(argv=None) -> dict:
+    """The serving driver.  Returns {"step", "budget", "board", "serve"}
+    (``serve``: the per-mode latency and throughput rows)."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ckpt-dir", required=True)
+    ap.add_argument("--step", type=int, default=None)
+    ap.add_argument("--modes", nargs="+", default=list(ENSEMBLE_MODES),
+                    choices=list(ENSEMBLE_MODES))
+    ap.add_argument("--requests", type=int, default=256)
+    ap.add_argument("--batch", type=int, default=32)
+    ap.add_argument("--topk", type=int, default=4)
+    ap.add_argument("--max-latency-ms", type=float, default=5.0)
+    ap.add_argument("--calib-samples", type=int, default=512)
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the population over the visible cards "
+                    "(not ported yet: raises)")
+    ap.add_argument("--bd-impl", default="fused", choices=["fused", "einsum"])
+    ap.add_argument("--act-impl", default="sliced",
+                    choices=["sliced", "masked"],
+                    help="activation pass of the unfused route (the fused "
+                    "kernels apply the activation in their epilogue)")
+    ap.add_argument("--compute-dtype", default=None,
+                    help="float32 only in this port so far")
+    ap.add_argument("--weights-dtype", default=None, choices=["int8"],
+                    help="int8 serve copy (not ported yet: raises)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain "
+                    "PyTorch versions)")
+    ap.add_argument("--json-out", default=None)
+    args = ap.parse_args(argv)
+    if args.sharded:
+        raise NotImplementedError("--sharded: multi-card serving is not "
+                                  "ported yet (ROADMAP.md)")
+    check_dtypes(args.compute_dtype, args.weights_dtype)
+
+    server, step = PopulationServer.from_checkpoint(
+        args.ckpt_dir, step=args.step, device=args.device, batch=args.batch,
+        topk=args.topk, max_latency_ms=args.max_latency_ms,
+        bd_impl=args.bd_impl, act_impl=args.act_impl)
+    lp = server.layout
+    print(f"restored step {step}: {real_slots(lp)} members "
+          f"(+{lp.num_members - real_slots(lp)} fillers), "
+          f"F={lp.in_features} O={lp.out_features} depth={lp.depth} "
+          f"on {server.device}")
+
+    from repro_torch.data.synthetic import TabularTask
+    task = TabularTask(args.calib_samples + args.requests, lp.in_features,
+                       n_classes=lp.out_features, seed=0)
+    (xc, yc), (xr, _) = task.split(
+        frac=args.calib_samples / (args.calib_samples + args.requests))
+
+    budget = None
+    if args.bd_impl == "fused":
+        budget = server.check_budget()
+        print("launch budget:", budget)
+    board = server.publish(xc, yc)
+    print(f"published: best1={server.published['best1']} "
+          f"topk={server.published['topk']}")
+    for row in board[:3]:
+        print("  ", row)
+    results = {}
+    for mode in args.modes:
+        r = server.run(xr[:args.requests], mode)
+        results[mode] = {k: v for k, v in r.items()
+                         if k not in ("pred", "mutual_information")}
+        print(f"{mode:6s} members={r['members_served']:3d} "
+              f"p50={r['p50_ms']:.2f}ms p99={r['p99_ms']:.2f}ms "
+              f"{r['req_per_s']:.0f} req/s")
+    out = {"step": step, "budget": budget, "board": board, "serve": results}
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(out, f, indent=2, default=str)
+        print("wrote", args.json_out)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -17,3 +17,5 @@ def rng():
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running end-to-end tests")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU; skips where none is present")

@@ -1,0 +1,188 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked ``gpu``: each test decides inside itself whether a card is present
+and skips on a CPU-only machine.  On the card run
+
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_kernels.py
+
+(``--noconftest`` because the shared conftest imports JAX, which the GPU
+machine need not have; this file imports torch and numpy only).
+
+Tolerance: rtol 1e-4 / atol 1e-5 — f32 throughout, the kernels sum in a
+different order than the plain versions (FMA chains over shared-memory
+tiles and warp shuffles against cuBLAS), full float32 matmuls (TF32 off).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.activations import ACTIVATION_ORDER
+from repro_torch.core.population import LayeredPopulation
+from repro_torch.kernels import fused_input as fik
+from repro_torch.kernels import fused_layer as flk
+from repro_torch.kernels import infer_head as ihk
+from repro_torch.kernels import ops
+
+pytestmark = pytest.mark.gpu
+
+RTOL, ATOL = 1e-4, 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _t(a, dev, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+
+
+def _close(got, want):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks", [
+    (9, 6, 8, 20), (32, 100, 128, 12), (33, 17, 8, 41), (300, 130, 16, 9)])
+def test_fused_input_matches_plain(dev, b, f, block, n_blocks):
+    rng = np.random.default_rng(b)
+    h = block * n_blocks
+    x = _t(rng.normal(0, 1, (b, f)), dev)
+    w = _t(rng.normal(0, 1, (h, f)) / np.sqrt(f), dev)
+    bias = _t(rng.normal(0, 1, h), dev)
+    mask = _t(rng.random(h) > 0.2, dev)
+    ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
+    n0 = fik.launches
+    got = fik.fused_input_cuda(x, w, bias, mask, ids, block=block)
+    assert fik.launches == n0 + 1
+    _close(got, fik.fused_input_plain(x, w, bias, mask, ids, block=block))
+
+
+@pytest.mark.parametrize("widths,block,b", [
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 11),
+    (((5, 3), (12, 9), (7,), (17, 9, 5), (8, 8), (5, 3), (3, 11, 2),
+      (24, 16), (4,), (9, 9, 9)), 8, 40),
+    (((200, 130), (64, 100), (7,)), 128, 33),
+])
+def test_fused_layer_matches_plain(dev, widths, block, b):
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    lp = LayeredPopulation(5, 3, widths, acts, block=block)
+    rng = np.random.default_rng(b)
+    for l in range(lp.depth - 1):
+        lay = lp.bd_layout(l)
+        pout = lp.layer_pop(l + 1)
+        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
+        wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, block, block))
+                / np.sqrt(block), dev)
+        b_eff = _t(rng.normal(0, 1, lay.n_out_tiles * block), dev)
+        mask = _t(pout.hidden_mask, dev)
+        acts_t = _t(pout.block_act_ids, dev, torch.int32)
+        sched = flk.schedule_on(lay, dev)
+        got = flk.fused_layer_cuda(x, wb, b_eff, mask, acts_t, *sched,
+                                   blk=block)
+        _close(got, flk.fused_layer_plain(x, wb, b_eff, mask, acts_t, *sched,
+                                          blk=block))
+
+
+@pytest.mark.parametrize("log_probs", [False, True])
+@pytest.mark.parametrize("widths,block,o,b", [
+    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9),
+    ((100, 1, 37, 128, 129), 128, 2, 70),
+    ((33, 2, 65), 16, 16, 5),
+])
+def test_infer_head_matches_plain(dev, log_probs, widths, block, o, b):
+    rng = np.random.default_rng(len(widths) + o)
+    blocks = [-(-w // block) for w in widths]
+    seg = np.repeat(np.arange(len(widths)), blocks).astype(np.int32)
+    hh = int(sum(blocks)) * block
+    h = _t(rng.normal(0, 1, (b, hh)), dev)
+    w2 = _t(rng.normal(0, 1, (o, hh)) / 8, dev)
+    b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
+    ptr = ihk.member_ptr(_t(seg, dev, torch.int32), len(widths))
+    got = ihk.infer_head_cuda(h, w2, b2, ptr, block=block,
+                              log_probs=log_probs)
+    _close(got, ihk.infer_head_plain(h, w2, b2, ptr, block=block,
+                                     log_probs=log_probs))
+
+
+_SERVE_WIDTHS = ((5, 3), (12, 9), (7,), (17, 9, 5), (8, 8), (5, 3),
+                 (3, 11, 2), (24, 16), (4,), (9, 9, 9))
+
+
+def _serve_layout():
+    return LayeredPopulation(6, 3, _SERVE_WIDTHS, ACTIVATION_ORDER, block=8)
+
+
+def _params_on(params, device):
+    if isinstance(params, dict):
+        return {k: _params_on(v, device) for k, v in params.items()}
+    if isinstance(params, list):
+        return [_params_on(v, device) for v in params]
+    return params.to(device)
+
+
+def test_forward_on_card_matches_cpu(dev):
+    """The served forward on the card (depth+1 kernel launches) against the
+    same parameters' plain route on the CPU, every activation present."""
+    from repro_torch.core.deep import forward, init_params
+    from repro_torch.launch.launch_count import kernel_launches
+    lp = _serve_layout()
+    p_cpu = init_params(torch.Generator().manual_seed(0), lp)
+    p_dev = _params_on(p_cpu, dev)
+    x = torch.randn(9, 6, generator=torch.Generator().manual_seed(1))
+    before = kernel_launches()
+    got = forward(p_dev, x.to(dev), lp, bd_impl="fused", infer=True,
+                  log_probs=True)
+    after = kernel_launches()
+    assert {k: after[k] - before[k] for k in after} == \
+        {"fused_input": 1, "fused_layer": lp.depth - 1, "infer_head": 1}
+    want = forward(p_cpu, x, lp, bd_impl="einsum", head_impl="xla",
+                   infer=True, log_probs=True)
+    _close(got, want)
+
+
+def test_server_on_card_matches_cpu(dev):
+    """``PopulationServer`` on the card: launch budget, leaderboard and
+    predictions in every mode equal to the same server on the CPU."""
+    from repro_torch.core.deep import init_params
+    from repro_torch.launch.serve_population import PopulationServer
+    lp = _serve_layout()
+    params = init_params(torch.Generator().manual_seed(0), lp)
+    rng = np.random.default_rng(2)
+    xc = rng.normal(0, 1, (40, 6)).astype(np.float32)
+    yc = rng.integers(0, 3, 40)
+    xr = rng.normal(0, 1, (21, 6)).astype(np.float32)
+    cpu, card = (PopulationServer(_params_on(params, d), lp, batch=8, topk=3)
+                 for d in ("cpu", dev))
+    assert card.check_budget() == {"launches": 4, "budget": 4}
+    assert [r["slot"] for r in card.publish(xc, yc)] == \
+        [r["slot"] for r in cpu.publish(xc, yc)]
+    for mode in ("best1", "topk", "all"):
+        np.testing.assert_array_equal(card.run(xr, mode)["pred"],
+                                      cpu.run(xr, mode)["pred"])
+
+
+def test_ops_launch_on_card_and_reject_bad_input(dev):
+    """The dispatch layer launches the kernel for a CUDA tensor (the
+    counter moves) and raises on input the kernel does not take — it never
+    gives way to the plain version."""
+    x = torch.randn(4, 6, device=dev)
+    w = torch.randn(16, 6, device=dev)
+    b = torch.zeros(16, device=dev)
+    ids = np.zeros(2, np.int32)
+    mask = np.ones(16, np.float32)
+    n0 = fik.launches
+    ops.fused_input_infer(x, w, b, ids, mask, block=8)
+    assert fik.launches == n0 + 1
+    with pytest.raises(TypeError):
+        ops.fused_input_infer(x.double(), w, b, ids, mask, block=8)
+    h = torch.randn(3, 16, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        ops.infer_head(h, torch.randn(17, 16, device=dev),
+                       torch.zeros(2, 17, device=dev), np.array([0, 1]),
+                       block_h=8)
