@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Build the PyTorch port's CUDA kernels and serve the paper's population on
-one NVIDIA GPU, end to end, through the entry points a user calls.
+"""Build the PyTorch port's CUDA kernels, then serve and train the paper's
+population on one NVIDIA GPU, end to end, through the entry points a user
+calls.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero, and no result line is printed):
 
   1. the card's name and power limit (``nvidia-smi``);
-  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc);
-  3. the main path, with every kernel counter set to 0 before it and read
+  2. build every kernel from ``src/repro_torch/kernels/csrc`` (nvcc, one
+     process per source, in parallel);
+  3. the serving path, every kernel counter set to 0 before it and read
      after it:
        a. ``parallelmlp-10k`` at full width (10,000 members, 1,280,000
           fused hidden units), random weights from a seeded generator,
@@ -19,14 +21,30 @@ Phases (any failure exits non-zero, and no result line is printed):
           ``--population-depths "64,32,16;13,5;7" --population-acts paper
           --population-features 100 --population-repeats 1000`` (block 8),
           served the same way (launch budget 4);
-  4. each kernel against its plain PyTorch version on the same inputs at
-     the path's shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off), and the
+  4. the training path, the counters set to 0 just before each training
+     run and read just after it (the held-out checks run outside them):
+       a. ``parallelmlp-10k`` at full width trained by
+          ``repro_torch.launch.train.main`` (``--bd-impl fused``, sgd, batch
+          32, 16 steps in chunks of 8, checkpoints every 8 steps), then the
+          trained checkpoint served by ``serve_population.main`` (counted
+          on the serving path);
+       b. the depth-3 population trained with ``--optimizer adamw
+          --grad-clip 1.0 --lr-schedule warmup_cosine``;
+  5. the training step's invariants: one ``opt_step`` is exactly
+     2·(depth+1) kernel launches; a fused step on the card against the
+     plain route on the card and the same step on the CPU (per-member
+     losses, gradients, updated parameters); two fused steps from one
+     state are bitwise equal; then the steady-state step timed (host wall
+     per synchronised step; device time by kernel and the device's idle
+     share from ``torch.profiler``);
+  6. each kernel against its plain PyTorch version on the same inputs at
+     the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off), and the
      served forward against the plain route on the card and on the CPU;
-  5. each kernel, its plain version and the nearest library call timed
+  7. each kernel, its plain version and the nearest library call timed
      with CUDA events; the least time the card could take (bound) from the
      bytes and operations of this run's inputs;
-  6. one JSON line ``{"kernels": [...]}``, then the card's line
-     ``{"ok": true, "device": {...}}`` last.
+  8. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel),
+     then the card's line ``{"ok": true, "device": {...}}`` last.
 """
 import json
 import subprocess
@@ -42,6 +60,20 @@ RTOL, ATOL = 1e-4, 1e-5
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BATCH = 32
+DEPTH3 = dict(depths="64,32,16;13,5;7", acts="paper", features=100,
+              repeats=1000)
+SERVE_KERNELS = ("fused_input", "fused_layer", "infer_head")
+# every ported TPU kernel: its row name → the Pallas function it replaces
+REPLACES = {
+    "fused_input": "src/repro/kernels/fused_input.py:83",
+    "fused_input_bwd": "src/repro/kernels/fused_input.py:242",
+    "fused_layer": "src/repro/kernels/fused_layer.py:98",
+    "fused_layer_dx_dw": "src/repro/kernels/fused_layer.py:287",
+    "infer_head": "src/repro/kernels/infer_head.py:75",
+    "loss_head_fwd": "src/repro/kernels/loss_head.py:101",
+    "loss_head_bwd": "src/repro/kernels/loss_head.py:175",
+}
+SOURCES = {"loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head"}
 
 
 def _require(cond, msg: str):
@@ -76,38 +108,40 @@ def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def trainer_population(depths: str, acts: str, features: int,
-                       classes: int = 2, repeats: int = 1, block: int = 8):
-    """The layered population the trainer builds from its
-    ``--population-*`` flags (members by ';', per-layer widths by ',';
-    activations cycled over members, 'paper' for the ten)."""
-    from repro_torch.core.activations import PAPER_TEN
-    from repro_torch.core.population import LayeredPopulation
-    widths = tuple(tuple(int(w) for w in m.split(","))
-                   for m in depths.split(";") if m.strip())
-    names = PAPER_TEN if acts == "paper" else tuple(
-        a.strip() for a in acts.split(","))
-    n = len(widths) * repeats
-    return LayeredPopulation(features, classes, widths * repeats,
-                             tuple(names[i % len(names)] for i in range(n)),
-                             block=block).sorted()
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
 
 
-def serve(name: str, lp, seed: int, workdir: Path, budget: int):
-    """Init ``lp`` on the card, checkpoint it, and serve the checkpoint
-    through the serving driver.  Returns (params, driver result)."""
+def _close(name, got, want):
+    """Max |err| of ``got`` against ``want`` (tensors or trees), raising
+    outside rtol/atol."""
     import torch
 
-    from repro_torch.checkpoint.checkpoint import save_population
-    from repro_torch.core.deep import init_params
+    from repro_torch.core.tree import tree_leaves
+    err = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        b = b.to(a.device)
+        e = (a - b).abs().max().item() if a.numel() else 0.0
+        _require(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
+                 f"{name}: max |err| {e} (rtol {RTOL}, atol {ATOL})")
+        err = max(err, e)
+    return err
+
+
+# --------------------------------------------------------------------- #
+# the serving path                                                      #
+# --------------------------------------------------------------------- #
+
+def serve_checkpoint(name: str, ckpt: Path, budget: int):
+    """Serve a checkpoint through the serving driver; check its launch
+    budget and that every mode answered."""
+    import torch
+
     from repro_torch.launch import serve_population
-    gen = torch.Generator(device="cuda").manual_seed(seed)
-    params = init_params(gen, lp)
-    ckpt = workdir / name
-    t0 = time.perf_counter()
-    save_population(str(ckpt), 0, params, lp)
-    print(f"[{name}] {lp.describe()}; checkpoint written in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     out = serve_population.main(["--ckpt-dir", str(ckpt), "--requests",
                                  "256", "--batch", str(BATCH)])
@@ -118,7 +152,24 @@ def serve(name: str, lp, seed: int, workdir: Path, budget: int):
     for mode, row in out["serve"].items():
         _require(row["requests"] == 256 and row["req_per_s"] > 0,
                  f"{name}/{mode}: {row}")
-    return params, out
+    return out
+
+
+def serve(name: str, lp, seed: int, workdir: Path, budget: int):
+    """Init ``lp`` on the card, checkpoint it, and serve the checkpoint.
+    Returns (params, driver result)."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import save_population
+    from repro_torch.core.deep import init_params
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = init_params(gen, lp)
+    ckpt = workdir / name
+    t0 = time.perf_counter()
+    save_population(str(ckpt), 0, params, lp)
+    print(f"[{name}] {lp.describe()}; checkpoint written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return params, serve_checkpoint(name, ckpt, budget)
 
 
 def check_forward(name, params, lp, x):
@@ -136,40 +187,202 @@ def check_forward(name, params, lp, x):
                                                      .all()),
              f"{name}: served logits {tuple(got.shape)} not finite "
              f"{want_shape}")
-    err = (got - plain).abs().max().item()
-    _require(torch.allclose(got, plain, rtol=RTOL, atol=ATOL),
-             f"{name}: fused forward vs plain route max |err| {err}")
+    err = _close(f"{name}: fused forward vs plain route", got, plain)
     with torch.inference_mode():
         ref = forward(_to(params, "cpu"), x[:4].cpu(), lp, bd_impl="einsum",
                       head_impl="xla", infer=True)
-    e_cpu = (got[:4].cpu() - ref).abs().max().item()
-    _require(torch.allclose(got[:4].cpu(), ref, rtol=RTOL, atol=ATOL),
-             f"{name}: card vs CPU max |err| {e_cpu}")
+    e_cpu = _close(f"{name}: card vs CPU", got[:4], ref)
     print(f"[{name}] served forward vs plain route: max|err| {err!r} on the "
           f"card, {e_cpu!r} against the CPU", flush=True)
 
 
-def _to(tree, device):
-    if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
-    return tree.to(device)
+# --------------------------------------------------------------------- #
+# the training path                                                     #
+# --------------------------------------------------------------------- #
 
+def _add_counts(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
+def train(name: str, workdir: Path, flags: list):
+    """Train through ``repro_torch.launch.train.main`` (seed 0), the kernel
+    counters set to 0 just before the run and read just after it; then
+    check the per-member losses stay finite and that the mean held-out
+    loss fell below the same seed's initial parameters'.  Returns (params,
+    layout, stats, checkpoint dir, the run's kernel launches)."""
+    import torch
+
+    from repro_torch.core.deep import init_params
+    from repro_torch.core.selection import evaluate_population
+    from repro_torch.data.synthetic import TabularTask
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    ckpt = workdir / f"train-{name}"
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    params, lp, stats = train_driver.main(
+        ["--bd-impl", "fused", "--batch", str(BATCH), "--steps", "16",
+         "--scan-steps", "8", "--ckpt-dir", str(ckpt), "--ckpt-every", "8",
+         "--seed", "0", *flags])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    _require(stats["steps"] == 16 and stats["restarts"] == 0,
+             f"{name}: {stats}")
+    # one backward launch of each kind per step (the forwards also serve
+    # the run's closing leaderboard, so they count more)
+    want = {"fused_input_bwd": 16, "loss_head_fwd": 16, "loss_head_bwd": 16,
+            "fused_layer_dx_dw": 16 * (lp.depth - 1)}
+    _require({k: launches[k] for k in want} == want,
+             f"{name}: training launches {launches}, expected {want}")
+    (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
+                                     n_classes=lp.out_features,
+                                     seed=0).split()
+    init = init_params(torch.Generator(device="cuda").manual_seed(0), lp)
+    before, after = (evaluate_population(p, lp, xte, yte, bd_impl="fused",
+                                         infer=True)[0]
+                     for p in (init, params))
+    _require(bool(torch.isfinite(after).all())
+             and after.mean().item() < before.mean().item(),
+             f"{name}: held-out mean member loss {before.mean().item()} -> "
+             f"{after.mean().item()}")
+    stats["heldout_loss"] = [before.mean().item(), after.mean().item()]
+    print(f"[{name}] trained in {wall:.1f} s (train loop "
+          f"{stats['seconds']:.2f} s): {stats}; kernel launches {launches}",
+          flush=True)
+    return params, lp, stats, ckpt, launches
+
+
+def _step_parts(params, x, y, lp, opt, **route):
+    """One optimizer step, its parts kept: (per, grads, new params)."""
+    import torch
+
+    from repro_torch.core.deep import loss_and_grads
+    from repro_torch.optim.optimizers import apply_updates
+    _, per, grads = loss_and_grads(params, x, y, lp, **route)
+    lr = torch.tensor(1e-2, device=x.device)
+    upd, _ = opt.update(grads, opt.init(params), params, lr)
+    return per, grads, apply_updates(params, upd)
+
+
+def check_train_step(name, params, lp, x, y):
+    """A step's launch budget, its parity with the plain route on the card
+    and with the CPU, and its bitwise reproducibility."""
+    import torch
+
+    from repro_torch.core.deep import opt_step
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.launch_count import (fused_step_budget,
+                                                 kernel_launches,
+                                                 reset_kernel_launches)
+    from repro_torch.optim.optimizers import adamw, sgd
+    opt = sgd()
+    reset_kernel_launches()
+    opt_step(params, opt.init(params), x, y, 1e-2, opt, lp, bd_impl="fused")
+    torch.cuda.synchronize()
+    got = sum(kernel_launches().values())
+    want = fused_step_budget(lp.depth)["total"]
+    _require(got == want, f"{name}: a train step made {got} launches, the "
+             f"budget is 2·(depth+1) = {want}")
+
+    fused = _step_parts(params, x, y, lp, opt, bd_impl="fused")
+    plain = _step_parts(params, x, y, lp, opt, bd_impl="einsum",
+                        loss_impl="xla")
+    errs = [_close(f"{name} step vs plain route: {what}", a, b)
+            for what, a, b in zip(("losses", "grads", "params"), fused,
+                                  plain)]
+    cpu = _step_parts(_to(params, "cpu"), x.cpu(), y.cpu(), lp, opt,
+                      bd_impl="fused")
+    errs_cpu = [_close(f"{name} step vs CPU: {what}", a, b)
+                for what, a, b in zip(("losses", "grads", "params"), fused,
+                                      cpu)]
+
+    clip = adamw(weight_decay=0.01)
+    runs = [opt_step(params, clip.init(params), x, y, 1e-2, clip, lp,
+                     bd_impl="fused", grad_clip=1.0) for _ in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves((runs[0][0], runs[0][1], runs[0][3])),
+        tree_leaves((runs[1][0], runs[1][1], runs[1][3]))))
+    _require(same, f"{name}: two fused steps from one state differ")
+    print(f"[{name}] train step: {got} launches (2·(depth+1)); max|err| "
+          f"losses/grads/params {errs!r} vs the plain route on the card, "
+          f"{errs_cpu!r} vs the CPU; two steps bitwise equal", flush=True)
+
+
+# names of the port's kernels in a profiler trace
+KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
+                  "fused_layer_dx_dw_kernel", "fused_layer_kernel",
+                  "infer_head_kernel", "loss_head_fwd_kernel",
+                  "loss_head_bwd_kernel")
+
+
+def time_train_step(name, params, lp, x, y, adam: bool, iters: int = 20):
+    """Steady-state train step: host wall per synchronised step, and the
+    device time by kernel over 3 profiled steps (``torch.profiler``), from
+    which the device's idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.deep import opt_step
+    from repro_torch.optim.optimizers import adamw, sgd
+    opt = adamw(weight_decay=0.01) if adam else sgd()
+    state = opt.init(params)
+    kw = dict(bd_impl="fused", grad_clip=1.0 if adam else None)
+
+    def step():
+        return opt_step(params, state, x, y, 1e-2, opt, lp, **kw)
+
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / iters * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    by_name, n_kernels = {}, 0
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        sym = next((k for k in KERNEL_SYMBOLS if k in evt.name),
+                   "other: " + evt.name[:60])
+        by_name[sym] = by_name.get(sym, 0.0) + evt.device_time_total / 3e3
+        n_kernels += 1
+    busy = sum(by_name.values())
+    out = {"step_wall_ms": wall_ms, "device_ms": busy if by_name else None,
+           "device_idle_share": 1 - busy / wall_ms if by_name else None,
+           "device_launches": n_kernels / 3,
+           "device_ms_by_kernel": dict(sorted(by_name.items(),
+                                              key=lambda kv: -kv[1])[:12])}
+    print(f"[{name}] train step: {wall_ms:.3f} ms wall; device "
+          f"{out['device_ms']} ms in {out['device_launches']} launches; "
+          f"idle share {out['device_idle_share']}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# kernel rows                                                           #
+# --------------------------------------------------------------------- #
 
 def compare(name, kernel, plain, library, n_bytes, flops, launches, iters):
     """Hold one kernel against its plain version on the same inputs, and
-    time kernel, plain version and library call."""
+    time kernel, plain version and library call.  ``kernel``/``plain``
+    return a tensor or a tuple of tensors."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    _require(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-             f"{name}: kernel vs plain max |err| {err} "
-             f"(rtol {RTOL}, atol {ATOL})")
+    err = _close(f"{name}: kernel vs plain", got, want)
     bound, by = _bound_ms(n_bytes, flops)
     row = {"name": name, "route": "cuda",
-           "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+           "source": ("src/repro_torch/kernels/csrc/"
+                      f"{SOURCES.get(name, name)}.cu"),
+           "replaces": REPLACES[name],
            "launches": launches, "max_abs_err": err, "rtol": RTOL,
            "atol": ATOL,
            "ms": _time_ms(kernel, iters), "plain_ms": _time_ms(plain, iters),
@@ -181,8 +394,36 @@ def compare(name, kernel, plain, library, n_bytes, flops, launches, iters):
     return row
 
 
-def kernel_rows(p10k, lp10k, p3k, lp3k, launches):
-    """Phase 4 + 5: the three kernels at the main path's shapes."""
+def _train_fields(name, kernel, plain, n_bytes, flops, launches, iters):
+    """The with-g' training forward of a serving kernel: extra fields."""
+    import torch
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    err = _close(f"{name} (with g'): kernel vs plain", got, want)
+    bound, by = _bound_ms(n_bytes, flops)
+    out = {"train_launches": launches, "train_max_abs_err": err,
+           "train_ms": _time_ms(kernel, iters),
+           "train_plain_ms": _time_ms(plain, iters),
+           "train_bound_ms": bound, "train_bound_by": by}
+    print(f"[{name} with g'] {out}", flush=True)
+    return out
+
+
+def _sum_rows(rows):
+    """One row for a kernel launched once per mid layer: the launches of
+    one step summed (times and bounds), the worst error."""
+    row = dict(max(rows, key=lambda r: r["bound_ms"]))
+    for key in row:
+        if key.endswith("ms"):
+            row[key] = sum(r[key] for r in rows)
+    for key in ("max_abs_err", "train_max_abs_err"):
+        if key in row:
+            row[key] = max(r[key] for r in rows)
+    return row
+
+
+def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
+    """Phases 6 + 7: every ported kernel at the main paths' shapes."""
     import numpy as np
     import torch
 
@@ -191,31 +432,56 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, launches):
     from repro_torch.kernels import fused_input as fik
     from repro_torch.kernels import fused_layer as flk
     from repro_torch.kernels import infer_head as ihk
+    from repro_torch.kernels import loss_head as lhk
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(7)
-    rows = []
+    rows = {}
 
-    # fused_input at full width: x (32, 100) · W_in (1,280,000, 100)ᵀ
+    # ---- fused_input at full width: x (32, 100) · W_in (1,280,000, 100)ᵀ
     p0 = lp10k.layer_pop(0)
     x = torch.randn(BATCH, lp10k.in_features, generator=gen, device=dev)
     w, b = p10k["w_in"], p10k["b_in"]
     ids = torch.as_tensor(p0.block_act_ids, dtype=torch.int32, device=dev)
     mask = torch.as_tensor(p0.hidden_mask, dtype=torch.float32, device=dev)
     blk = lp10k.block
-    h = fik.fused_input_cuda(x, w, b, mask, ids, block=blk)
+    h, g = fik.fused_input_train_cuda(x, w, b, mask, ids, block=blk)
+    fin = (x, w, b, mask, ids)
 
     def library_input():
         z = torch.addmm(b, x, w.t())
         return apply_activations_sliced(z, p0.act_runs) * mask
 
-    rows.append(compare(
-        "fused_input",
-        lambda: fik.fused_input_cuda(x, w, b, mask, ids, block=blk),
-        lambda: fik.fused_input_plain(x, w, b, mask, ids, block=blk),
-        library_input, _nbytes(x, w, b, mask, ids, h),
-        2 * BATCH * w.shape[0] * w.shape[1], launches["fused_input"], 20))
+    rows["fused_input"] = compare(
+        "fused_input", partial(fik.fused_input_cuda, *fin, block=blk),
+        partial(fik.fused_input_plain, *fin, block=blk), library_input,
+        _nbytes(*fin, h), 2 * BATCH * w.shape[0] * w.shape[1],
+        serve_n["fused_input"], 20)
+    rows["fused_input"].update(_train_fields(
+        "fused_input", partial(fik.fused_input_train_cuda, *fin, block=blk),
+        partial(fik.fused_input_train_plain, *fin, block=blk),
+        _nbytes(*fin, h, g), 2 * BATCH * w.shape[0] * w.shape[1],
+        train_n["fused_input"], 20))
 
-    # infer_head at full width, on the layer-0 activations just computed
+    # ---- fused_input_bwd at full width, as on the path (no dx: x is data)
+    dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-3
+    bwd = (dy, g, x, w)
+    dw = fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1]
+    du = dy * g
+    rows["fused_input_bwd"] = compare(
+        "fused_input_bwd",
+        lambda: fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1],
+        lambda: fik.fused_input_bwd_plain(*bwd, with_dx=False)[1],
+        lambda: torch.mm(du.t(), x), _nbytes(dy, g, x, dw),
+        2 * BATCH * w.shape[0] * w.shape[1], train_n["fused_input_bwd"], 10)
+    got = fik.fused_input_bwd_cuda(*bwd, with_dx=True)
+    err = _close("fused_input_bwd dx", got,
+                 fik.fused_input_bwd_plain(*bwd, with_dx=True))
+    rows["fused_input_bwd"].update(
+        dx_max_abs_err=err,
+        dx_ms=_time_ms(lambda: fik.fused_input_bwd_cuda(*bwd, with_dx=True),
+                       10))
+
+    # ---- infer_head / loss_head at full width, on the layer-0 activations
     w2, b2 = p10k["w_out"], p10k["b_out"]
     seg = torch.as_tensor(p0.block_segment_ids, dtype=torch.int32,
                           device=dev)
@@ -228,21 +494,40 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, launches):
     # one batched GEMM with the bias (every member is `width` units wide)
     hb = h.view(BATCH, n_mem, width).transpose(0, 1)
     wb2 = w2.view(w2.shape[0], n_mem, width).permute(1, 2, 0)
-    rows.append(compare(
-        "infer_head",
-        lambda: ihk.infer_head_cuda(h, w2, b2, ptr, block=blk),
+    rows["infer_head"] = compare(
+        "infer_head", lambda: ihk.infer_head_cuda(h, w2, b2, ptr, block=blk),
         lambda: ihk.infer_head_plain(h, w2, b2, ptr, block=blk),
         lambda: torch.baddbmm(b2[:, None, :], hb, wb2),
         _nbytes(h, w2, b2, ptr, y),
-        2 * BATCH * h.shape[1] * w2.shape[0], launches["infer_head"], 20))
+        2 * BATCH * h.shape[1] * w2.shape[0], serve_n["infer_head"], 20)
     got = ihk.infer_head_cuda(h, w2, b2, ptr, block=blk, log_probs=True)
     want = ihk.infer_head_plain(h, w2, b2, ptr, block=blk, log_probs=True)
-    _require(torch.allclose(got, want, rtol=RTOL, atol=ATOL),
-             "infer_head log_probs: kernel vs plain")
+    _close("infer_head log_probs: kernel vs plain", got, want)
 
-    # fused_layer on the depth-3 population, both mid layers, each fed by
-    # the layer before it as on the path; the row is one forward's worth
-    # (the two launches summed)
+    tgt = torch.randint(0, lp10k.out_features, (BATCH,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    lh = (h, w2, b2, tgt, ptr)
+    per, dl = lhk.loss_head_fwd_cuda(*lh, block=blk, b_real=BATCH)
+    rows["loss_head_fwd"] = compare(
+        "loss_head_fwd",
+        partial(lhk.loss_head_fwd_cuda, *lh, block=blk, b_real=BATCH),
+        partial(lhk.loss_head_fwd_plain, *lh, block=blk, b_real=BATCH),
+        lambda: torch.baddbmm(b2[:, None, :], hb, wb2),
+        _nbytes(*lh, per, dl), 2 * BATCH * h.shape[1] * w2.shape[0],
+        train_n["loss_head_fwd"], 20)
+    dper = torch.ones(n_mem, device=dev)
+    lb = (dper, dl, h, w2, seg)
+    dh, dw2 = lhk.loss_head_bwd_cuda(*lb, block=blk)
+    dlm = dl.transpose(0, 1)                            # (P, B, O)
+    wm = w2.view(w2.shape[0], n_mem, width).permute(1, 0, 2)  # (P, O, width)
+    rows["loss_head_bwd"] = compare(
+        "loss_head_bwd", partial(lhk.loss_head_bwd_cuda, *lb, block=blk),
+        partial(lhk.loss_head_bwd_plain, *lb, block=blk),
+        lambda: torch.bmm(dlm, wm), _nbytes(*lb, dh, dw2),
+        4 * BATCH * h.shape[1] * w2.shape[0], train_n["loss_head_bwd"], 20)
+
+    # ---- the depth-3 population's mid layers, each fed by the layer
+    # before it as on the path; a row is one step's worth (both launches)
     q0 = lp3k.layer_pop(0)
     x3 = torch.randn(BATCH, lp3k.in_features, generator=gen, device=dev)
     hin = fik.fused_input_cuda(
@@ -250,7 +535,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, launches):
         torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
         torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
         block=lp3k.block)
-    layer_rows = []
+    fwd_rows, bwd_rows = [], []
     for l in range(lp3k.depth - 1):
         lay = lp3k.bd_layout(l)
         pout = lp3k.layer_pop(l + 1)
@@ -264,31 +549,49 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, launches):
         a3 = torch.as_tensor(pout.block_act_ids, dtype=torch.int32,
                              device=dev)
         sched = flk.schedule_on(lay, dev)
-        out = flk.fused_layer_cuda(hin, wb, b_eff, m3, a3, *sched, blk=b3)
+        args = (hin, wb, b_eff, m3, a3, *sched)
+        out, g3 = flk.fused_layer_train_cuda(*args, blk=b3)
         # the same block-sparse product as one cuSPARSE BSR matmul (no
         # bias / activation / mask)
         bsr = torch.sparse_bsr_tensor(
             sched[0], sched[1], wb[sched[2].long()],
             size=(lay.n_out_tiles * b3, lay.n_in_tiles * b3),
             check_invariants=True)
-        args = (hin, wb, b_eff, m3, a3, *sched)
-        layer_rows.append(compare(
+        flops = 2 * BATCH * b3 * b3 * lay.n_steps
+        row = compare(
             "fused_layer", partial(flk.fused_layer_cuda, *args, blk=b3),
             partial(flk.fused_layer_plain, *args, blk=b3),
-            partial(torch.matmul, bsr, hin.t()), _nbytes(*args, out),
-            2 * BATCH * b3 * b3 * lay.n_steps, launches["fused_layer"], 50))
+            partial(torch.matmul, bsr, hin.t()),
+            _nbytes(*args, out), flops, serve_n["fused_layer"], 50)
+        row.update(_train_fields(
+            "fused_layer", partial(flk.fused_layer_train_cuda, *args, blk=b3),
+            partial(flk.fused_layer_train_plain, *args, blk=b3),
+            _nbytes(*args, out, g3), flops, train_n["fused_layer"], 50))
+        fwd_rows.append(row)
+
+        rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
+            lay, dev, transposed=True)
+        wb_t = flk.transposed_tiles(wb, perm_t)
+        dy3 = torch.randn(out.shape, generator=gen, device=dev)
+        bargs = (dy3, g3, hin, wb_t, rowptr_t, s_in_t, s_w_t, out_t, in_t)
+        dx3, dwb3 = flk.fused_layer_dx_dw_cuda(*bargs, blk=b3)
+        bsr_t = torch.sparse_bsr_tensor(
+            rowptr_t, s_in_t, wb_t[s_w_t.long()],
+            size=(lay.n_in_tiles * b3, lay.n_out_tiles * b3),
+            check_invariants=True)
+        du3 = dy3 * g3
+        bwd_rows.append(compare(
+            "fused_layer_dx_dw",
+            partial(flk.fused_layer_dx_dw_cuda, *bargs, blk=b3),
+            partial(flk.fused_layer_dx_dw_plain, *bargs, blk=b3),
+            partial(torch.matmul, bsr_t, du3.t()),
+            _nbytes(*bargs, dx3, dwb3),
+            2 * BATCH * b3 * b3 * (lay.n_steps_t + lay.n_param_blocks),
+            train_n["fused_layer_dx_dw"], 50))
         hin = out
-    row = dict(max(layer_rows, key=lambda r: r["bound_ms"]))
-    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-        row[key] = sum(r[key] for r in layer_rows)
-    row["max_abs_err"] = max(r["max_abs_err"] for r in layer_rows)
-    rows.insert(1, row)
-    replaces = {"fused_input": "src/repro/kernels/fused_input.py:83",
-                "fused_layer": "src/repro/kernels/fused_layer.py:98",
-                "infer_head": "src/repro/kernels/infer_head.py:75"}
-    for r in rows:
-        r["replaces"] = replaces[r["name"]]
-    return rows
+    rows["fused_layer"] = _sum_rows(fwd_rows)
+    rows["fused_layer_dx_dw"] = _sum_rows(bwd_rows)
+    return [rows[name] for name in REPLACES]
 
 
 def main() -> int:
@@ -309,6 +612,7 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -323,6 +627,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.launch.launch_count import (kernel_launches,
                                                  reset_kernel_launches)
+    from repro_torch.launch.train import population_from_flags
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
@@ -333,43 +638,88 @@ def main() -> int:
             if "Used" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. the main path
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         workdir = Path(tmp)
         lp10k = parallelmlp_10k.config().model.layered()
-        lp3k = trainer_population("64,32,16;13,5;7", "paper", 100,
-                                  repeats=1000)
+        lp3k = population_from_flags(DEPTH3["depths"], DEPTH3["acts"],
+                                     DEPTH3["features"],
+                                     repeats=DEPTH3["repeats"])
         _require(lp10k.num_members == 10_000
                  and lp10k.layer_pop(0).total_hidden == 1_280_000,
                  "parallelmlp-10k is not at full width")
         _require(lp3k.num_members == 3000 and lp3k.depth == 3,
                  "the trainer population is not 3,000 members deep 3")
+
+        # 3. the serving path
         torch.cuda.reset_peak_memory_stats()
         reset_kernel_launches()
         p10k, out10k = serve("parallelmlp-10k", lp10k, 0, workdir, 2)
         p3k, out3k = serve("trainer-depth3", lp3k, 1, workdir, 4)
         torch.cuda.synchronize()
-        launches = kernel_launches()
-        print(f"main-path kernel launches: {launches}; peak device memory "
+        serve_n = kernel_launches()
+        print(f"serving path kernel launches: {serve_n}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
-        for name, n in launches.items():
-            _require(n > 0, f"kernel {name} was not launched on the main "
-                     "path")
+        for name in SERVE_KERNELS:
+            _require(serve_n[name] > 0, f"kernel {name} was not launched on "
+                     "the serving path")
 
-    # 4 + 5. each kernel against its plain version; timings; outputs
-    x = torch.randn(BATCH, 100, generator=torch.Generator(device="cuda")
-                    .manual_seed(3), device="cuda")
+        # 4. the training path: each run counted alone (train()), the
+        # held-out checks outside the counts; the trained checkpoint's serve
+        # counts on the serving path
+        torch.cuda.reset_peak_memory_stats()
+        t10k, _, stats10k, ck10k, n10k = train(
+            "parallelmlp-10k", workdir, ["--arch", "parallelmlp-10k"])
+        reset_kernel_launches()
+        served = serve_checkpoint("parallelmlp-10k trained", ck10k, 2)
+        torch.cuda.synchronize()
+        serve_n = _add_counts(serve_n, kernel_launches())
+        t3k, _, stats3k, _, n3k = train(
+            "trainer-depth3", workdir,
+            ["--arch", "parallelmlp-10k", "--population-depths",
+             DEPTH3["depths"], "--population-acts", DEPTH3["acts"],
+             "--population-features", str(DEPTH3["features"]),
+             "--population-repeats", str(DEPTH3["repeats"]),
+             "--optimizer", "adamw", "--grad-clip", "1.0",
+             "--lr-schedule", "warmup_cosine"])
+        train_n = _add_counts(n10k, n3k)
+        print(f"training path kernel launches: {train_n}; serving path "
+              f"with the trained checkpoint: {serve_n}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        for name, n in train_n.items():
+            _require(n > 0, f"kernel {name} was not launched on the "
+                     "training path")
+
+    # 5. the training step's invariants, on a batch of the task
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(BATCH, 100, generator=gen, device="cuda")
+    y = torch.randint(0, 2, (BATCH,), generator=gen, device="cuda")
+    check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
+    check_train_step("trainer-depth3", t3k, lp3k, x, y)
+    steps = {"parallelmlp-10k": time_train_step("parallelmlp-10k", t10k,
+                                                lp10k, x, y, adam=False),
+             "trainer-depth3": time_train_step("trainer-depth3", t3k, lp3k,
+                                               x, y, adam=True)}
+
+    # 6 + 7. each kernel against its plain version; timings; outputs
     check_forward("parallelmlp-10k", p10k, lp10k, x)
     check_forward("trainer-depth3", p3k, lp3k, x)
-    rows = kernel_rows(p10k, lp10k, p3k, lp3k, launches)
-    _require(sorted(r["name"] for r in rows) == sorted(libs),
-             "a built kernel has no comparison row")
+    rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n)
+    _require([r["name"] for r in rows] == list(REPLACES),
+             "a ported TPU kernel has no row")
+    _require({Path(r["source"]).stem for r in rows} >= set(libs),
+             "a built kernel library has no row")
 
-    # 6. results
+    # 8. results
     print(json.dumps({"serve": {"parallelmlp-10k": out10k["serve"],
-                                "trainer-depth3": out3k["serve"]}}))
+                                "trainer-depth3": out3k["serve"],
+                                "parallelmlp-10k trained": served["serve"]},
+                      "train": {"parallelmlp-10k": stats10k,
+                                "trainer-depth3": stats3k},
+                      "train_step": steps,
+                      "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,12 @@ Layout:  <dir>/step_<N>/
 
 Keys join dict keys (in sorted order) and list indices with "/", the order
 in which JAX flattens a tree.  Leaves are stored as full host arrays; a
-restore puts them on the device it is given.  Float32 only in this slice.
+restore puts them on the device it is given.  Optimizer state rides in
+the ``extra`` subtree (``save_population(extra_state=...)``), with the
+optimizer's record in ``meta["train"]["optimizer"]``, as in the JAX
+package, so a training run moves between the two packages.  Saves are
+synchronous (``Checkpointer``; the JAX package's off-thread
+``AsyncCheckpointer`` is not ported yet).  Float32 parameters only.
 """
 from __future__ import annotations
 
@@ -176,6 +181,48 @@ def population_meta(layout, params, lifecycle: dict | None = None,
     return meta
 
 
+def lifecycle_from_meta(meta: dict, layout) -> tuple:
+    """Lifecycle state from a checkpoint ``meta`` → ``(rung, member_ids,
+    n_members0)``.  Checkpoints written without the halving lifecycle
+    default to rung 0 with an identity member mapping over the layout's
+    real members."""
+    num_real = getattr(layout, "num_real", layout.num_members)
+    life = meta.get("lifecycle") or {}
+    rung = int(life.get("rung", 0))
+    member_ids = np.asarray(life.get("member_ids", range(num_real)),
+                            dtype=np.int64)
+    if member_ids.shape[0] != num_real:
+        raise ValueError(
+            f"lifecycle meta carries {member_ids.shape[0]} member ids for a "
+            f"layout with {num_real} real members")
+    return rung, member_ids, int(life.get("n_members0", num_real))
+
+
+def optimizer_from_meta(meta: dict):
+    """The optimizer record stored under ``meta["train"]["optimizer"]``
+    (None for checkpoints without one — those carry no optimizer state and
+    may only resume stateless)."""
+    return (meta.get("train") or {}).get("optimizer")
+
+
+def require_optimizer_match(meta: dict, record: dict):
+    """Fail LOUDLY when a resume would reinterpret a stored optimizer state
+    under a different training recipe: the checkpoint's optimizer record
+    must EQUAL the requested one.  Returns the stored record; ``None``
+    means a checkpoint with no optimizer meta (the caller decides whether a
+    stateless resume is acceptable)."""
+    stored = optimizer_from_meta(meta)
+    if stored is None or stored == record:
+        return stored
+    diff = {k: {"checkpoint": stored.get(k), "requested": record.get(k)}
+            for k in sorted(set(stored) | set(record))
+            if stored.get(k) != record.get(k)}
+    raise ValueError(
+        "resume: optimizer config mismatch — the checkpoint's state tree "
+        f"was written by optimizer {stored.get('name')!r} and cannot be "
+        f"reinterpreted under the requested config; differing fields: {diff}")
+
+
 def layout_from_meta(meta: dict):
     from repro_torch.core.population import LayeredPopulation
     p = meta["population"]
@@ -187,19 +234,28 @@ def layout_from_meta(meta: dict):
 
 
 def save_population(directory: str, step: int, params, layout,
-                    keep_last: int = 3, lifecycle: dict | None = None,
+                    keep_last: int = 3, extra_state=None,
+                    lifecycle: dict | None = None,
                     train_meta: dict | None = None) -> str:
     """Checkpoint population parameters WITH their static layout, so
-    ``restore_population`` (in either package) rebuilds both."""
-    return save(directory, step, {"params": params}, keep_last=keep_last,
+    ``restore_population`` (in either package) rebuilds both.
+    ``extra_state`` (the optimizer state) is stored under its own
+    ``extra`` subtree."""
+    tree = {"params": params}
+    if extra_state is not None:
+        tree["extra"] = extra_state
+    return save(directory, step, tree, keep_last=keep_last,
                 meta=population_meta(layout, params, lifecycle=lifecycle,
                                      train_meta=train_meta))
 
 
 def restore_population(directory: str, step: int | None = None,
-                       device="cuda"):
-    """→ (params, layout, step), the parameter tree rebuilt from the stored
-    layout on ``device``.  Layered-schema float32 checkpoints only."""
+                       device="cuda", extra_like=None):
+    """→ (params, layout, step[, extra_state]), the parameter tree rebuilt
+    from the stored layout on ``device``.  Pass ``extra_like`` (a tree
+    shaped like the saved ``extra_state`` — meta tensors are fine, e.g.
+    ``opt.init(deep.abstract_params(layout))``) to restore it too.
+    Layered-schema float32 checkpoints only."""
     from repro_torch.core.deep import abstract_params
     device = resolve(device)
     meta, step = load_meta(directory, step)
@@ -214,8 +270,49 @@ def restore_population(directory: str, step: int | None = None,
     if pmeta.get("dtype", "float32") != "float32":
         raise NotImplementedError(
             f"dtype {pmeta['dtype']!r}: the port restores float32 "
-            "checkpoints only in this slice (ROADMAP.md)")
+            "checkpoints only so far (ROADMAP.md)")
     layout = layout_from_meta(meta)
-    tree, step = restore(directory, {"params": abstract_params(layout)},
-                         step=step, device=device)
+    like = {"params": abstract_params(layout)}
+    if extra_like is not None:
+        like["extra"] = extra_like
+    tree, step = restore(directory, like, step=step, device=device)
+    if extra_like is not None:
+        return tree["params"], layout, step, tree["extra"]
     return tree["params"], layout, step
+
+
+class Checkpointer:
+    """Cadence saves for a training loop: ``maybe_save(step, state)``
+    writes ``state`` (synchronously) when the cadence fires; ``wait`` is
+    the join point of the JAX package's off-thread ``AsyncCheckpointer``
+    and returns at once here.
+
+    ``meta`` is attached to every save (population runs pass the layout
+    meta, so the files stay ``restore_population``-compatible);
+    ``step_map`` turns the caller's step counter into the recorded step (a
+    chunked loop counts chunks, checkpoints carry global steps);
+    ``save_pred`` replaces the ``step % every`` cadence with a predicate on
+    the caller's counter."""
+
+    def __init__(self, directory: str, every: int = 100, keep_last: int = 3,
+                 meta: dict | None = None, step_map=None, save_pred=None):
+        self.directory = directory
+        self.every = every
+        self.keep_last = keep_last
+        self.meta = meta
+        self.step_map = step_map or (lambda s: s)
+        self.save_pred = save_pred
+        self.saved = []
+
+    def maybe_save(self, step: int, state_tree) -> bool:
+        if self.save_pred is not None:
+            if not self.save_pred(step):
+                return False
+        elif not self.every or step % self.every:
+            return False
+        self.saved.append(save(self.directory, self.step_map(step),
+                               state_tree, self.keep_last, meta=self.meta))
+        return True
+
+    def wait(self):
+        """Saves are synchronous: nothing is in flight."""

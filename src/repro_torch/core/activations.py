@@ -74,6 +74,81 @@ PAPER_TEN = ("identity", "sigmoid", "tanh", "relu", "elu", "selu", "gelu",
              "leaky_relu", "hardshrink", "mish")
 
 
+# ---------------------------------------------------------------------- #
+# derivatives — JAX's values (``jax.vjp`` at ones), kinks included       #
+# ---------------------------------------------------------------------- #
+# relu'(0) = 0 (jax.nn.relu's custom jvp); leaky_relu'(0) = 1 (the
+# ``where(x >= 0)`` form); elu'(0) = 1 and selu'(0) = scale·alpha (the
+# ``x > 0`` branch is strict); hardshrink'(±0.5) = 0 (strict inequalities);
+# mish' uses d softplus/dx = exp(x − softplus(x)), logaddexp's jvp.
+_SELU_SCALE = 1.0507009873554804934193349852946
+_SELU_ALPHA = 1.6732632423543772848170429916717
+
+
+def _d_identity(x):
+    return torch.ones_like(x)
+
+
+def _d_sigmoid(x):
+    s = torch.sigmoid(x)
+    return s * (1 - s)
+
+
+def _d_tanh(x):
+    t = torch.tanh(x)
+    return 1 - t * t
+
+
+def _d_relu(x):
+    return (x > 0).to(x.dtype)
+
+
+def _d_elu(x):
+    return torch.where(x > 0, torch.ones_like(x),
+                       torch.exp(torch.where(x > 0, torch.zeros_like(x), x)))
+
+
+def _d_selu(x):
+    return _SELU_SCALE * torch.where(
+        x > 0, torch.ones_like(x),
+        _SELU_ALPHA * torch.exp(torch.where(x > 0, torch.zeros_like(x), x)))
+
+
+def _d_gelu(x):
+    return (0.5 * (1 + torch.erf(x * 0.7071067811865476))
+            + x * torch.exp(-0.5 * x * x) * 0.3989422804014327)
+
+
+def _d_leaky_relu(x):
+    return torch.where(x >= 0, torch.ones_like(x),
+                       torch.full_like(x, 0.01))
+
+
+def _d_hardshrink(x, lambd: float = 0.5):
+    return ((x > lambd) | (x < -lambd)).to(x.dtype)
+
+
+def _d_mish(x):
+    sp = torch.logaddexp(x, torch.zeros_like(x))
+    t = torch.tanh(sp)
+    return t + x * (1 - t * t) * torch.exp(x - sp)
+
+
+ACTIVATION_DERIVS = {
+    "identity": _d_identity,
+    "sigmoid": _d_sigmoid,
+    "tanh": _d_tanh,
+    "relu": _d_relu,
+    "elu": _d_elu,
+    "selu": _d_selu,
+    "gelu": _d_gelu,
+    "leaky_relu": _d_leaky_relu,
+    "hardshrink": _d_hardshrink,
+    "mish": _d_mish,
+}
+ACTIVATION_DERIV_FNS = tuple(ACTIVATION_DERIVS[n] for n in ACTIVATION_ORDER)
+
+
 def apply_activations_sliced(h: torch.Tensor, runs) -> torch.Tensor:
     """Apply per-run activations to contiguous column slices.
 
@@ -88,8 +163,19 @@ def apply_activations_sliced(h: torch.Tensor, runs) -> torch.Tensor:
 def apply_activations_masked(h: torch.Tensor, act_ids) -> torch.Tensor:
     """Branchless: evaluate every activation present, select by per-column
     id.  The oracle, and the plain form the kernels are checked against."""
+    return _select(h, act_ids, ACTIVATION_FNS, torch.zeros_like(h))
+
+
+def apply_activation_derivs_masked(h: torch.Tensor, act_ids) -> torch.Tensor:
+    """The activations' derivatives at ``h``, selected by per-column id —
+    the plain form of the training kernels' g' epilogue.  An id outside
+    ``ACTIVATION_ORDER`` gives NaN, as the kernels do."""
+    return _select(h, act_ids, ACTIVATION_DERIV_FNS,
+                   torch.full_like(h, float("nan")))
+
+
+def _select(h: torch.Tensor, act_ids, fns, out) -> torch.Tensor:
     ids = torch.as_tensor(act_ids, device=h.device)
-    out = torch.zeros_like(h)
-    for i, fn in enumerate(ACTIVATION_FNS):
+    for i, fn in enumerate(fns):
         out = torch.where(ids == i, fn(h), out)
     return out

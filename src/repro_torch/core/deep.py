@@ -1,4 +1,4 @@
-"""Layered ParallelMLPs — the serving subset of the population engine.
+"""Layered ParallelMLPs — the population engine: serving and training.
 
 A ``LayeredPopulation`` runs as one fused network:
 
@@ -8,17 +8,26 @@ A ``LayeredPopulation`` runs as one fused network:
                     l+1 contract only member m's units in layer l);
   * output layer:   the paper's M3 + per-member bias.
 
-``forward(infer=True)`` is the serving path.  With ``bd_impl="fused"``
-each stage is ONE hand-written CUDA kernel (``kernels/ops.py``) — the
-fused input layer, one fused mid layer per projection and the infer head —
-so a request batch costs exactly ``depth + 1`` launches.  ``bd_impl=
-"einsum"`` with ``head_impl="xla"`` is the plain PyTorch path.
+With ``bd_impl="fused"`` each stage is ONE hand-written CUDA kernel per
+direction (``kernels/ops.py``): serving (``forward(infer=True)``) costs
+exactly ``depth + 1`` launches — the fused input layer, one fused mid layer
+per projection and the infer head — and a training step (``fused_loss``
+and its gradient) exactly ``2·(depth + 1)``: the same stages with g' in
+their epilogues, the fused loss head, and one backward launch each.
+``bd_impl="einsum"`` with ``head_impl="xla"`` / ``loss_impl="xla"`` is the
+plain PyTorch path, differentiated by autograd.
+
+Members never mix: every parameter belongs to exactly one member, so
+per-member learning rates (and any per-member optimizer hyperparameter)
+are a broadcast (``member_lr_tree``), and the optimizer engine
+(``opt_step``, ``make_population_train_step``) trains each member exactly
+as it would train alone.
 
 Parameters are a dict tree with the JAX package's layout:
 ``w_in (H0, F)``, ``b_in (H0,)``, ``mid[l] = {"w": [per-bucket
 (n, hout, hin)], "b": (H_{l+1},)}``, ``w_out (O, H_last)``,
 ``b_out (P, O)``; ``params_from_numpy`` carries a JAX-trained tree in.
-Computation is float32 only in this slice.
+Computation is float32 only so far.
 """
 from __future__ import annotations
 
@@ -28,11 +37,16 @@ import torch
 from repro_torch.core.activations import (ACTIVATIONS,
                                           apply_activations_masked,
                                           apply_activations_sliced)
-from repro_torch.core.m3 import HEAD_IMPLS, m3, m3_infer_head
+from repro_torch.core.m3 import (HEAD_IMPLS, LOSS_IMPLS, m3, m3_infer_head,
+                                 m3_loss_head)
 from repro_torch.core.population import LayeredPopulation
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 
-_NOT_YET = ("the port computes in float32 only in this slice; bf16 compute "
+_NOT_YET = ("the port computes in float32 only so far; bf16 compute "
             "and the int8 serve copy are still to be ported (ROADMAP.md)")
+_PALLAS = ("the unfused Pallas-kernel alternatives (block_diag, m3_matmul, "
+           "seg_act) are not ported yet (ROADMAP.md, Queue 2); the fused "
+           "path needs none of them")
 
 
 def _static(lp, name, device, arr, dtype) -> torch.Tensor:
@@ -89,26 +103,28 @@ def pack_weight_tiles(w_buckets, lp: LayeredPopulation, l: int
     return torch.cat(tiles, dim=0)
 
 
-def block_diag_fused_infer(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
-                           l: int, *, bias: torch.Tensor) -> torch.Tensor:
-    """Mid layer l→l+1 as ONE kernel launch: block-diagonal projection +
-    pass-through-gated bias + per-tile activation + padding mask — returns
-    layer l+1's ACTIVATIONS (callers skip the bias add and ``_act``)."""
-    from repro_torch.kernels.ops import fused_layer_infer
+def block_diag_fused(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
+                     l: int, *, bias: torch.Tensor) -> torch.Tensor:
+    """FUSED mid layer: projection + pass-through-gated bias + per-tile
+    activation + padding mask in one kernel launch, with a one-launch
+    backward (``ops.fused_layer``; without a gradient to take it runs the
+    serving kernel) — returns layer l+1's ACTIVATIONS (callers skip the
+    bias add and ``_act``)."""
+    from repro_torch.kernels.ops import fused_layer
     dev = h.device
     pout = lp.layer_pop(l + 1)
     b_eff = bias * _static(lp, ("active", l + 1), dev,
                            lp.active_unit_mask(l + 1), torch.float32)
-    return fused_layer_infer(
+    return fused_layer(
         h, pack_weight_tiles(w_buckets, lp, l), b_eff, lp.bd_layout(l),
         _static(lp, ("block_act", l + 1), dev, pout.block_act_ids,
                 torch.int32),
         _static(lp, ("mask", l + 1), dev, pout.hidden_mask, torch.float32))
 
 
-BD_INFER_IMPLS = {
+BD_IMPLS = {
     "einsum": block_diag_einsum,
-    "fused": block_diag_fused_infer,
+    "fused": block_diag_fused,
 }
 # impls whose kernel epilogue already applies bias + activation + mask
 FUSED_BD_IMPLS = frozenset(["fused"])
@@ -125,25 +141,26 @@ def input_xla(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
     return _act(lp, 0, x @ w_in.t() + b_in, act_impl)
 
 
-def input_fused_infer(x: torch.Tensor, w_in: torch.Tensor,
-                      b_in: torch.Tensor, lp: LayeredPopulation,
-                      act_impl: str = "sliced") -> torch.Tensor:
-    """Input layer as ONE kernel launch: dense GEMM + bias + per-block
-    activation + padding mask (``act_impl`` is ignored: the epilogue IS
-    the activation)."""
-    from repro_torch.kernels.ops import fused_input_infer
+def input_fused(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+                lp: LayeredPopulation, act_impl: str = "sliced"
+                ) -> torch.Tensor:
+    """FUSED input layer: dense GEMM + bias + per-block activation +
+    padding mask in one kernel launch, with a one-launch backward
+    (``ops.fused_input``; without a gradient to take it runs the serving
+    kernel).  ``act_impl`` is ignored: the epilogue IS the activation."""
+    from repro_torch.kernels.ops import fused_input
     dev = x.device
     p0 = lp.layer_pop(0)
-    return fused_input_infer(
+    return fused_input(
         x, w_in, b_in,
         _static(lp, ("block_act", 0), dev, p0.block_act_ids, torch.int32),
         _static(lp, ("mask", 0), dev, p0.hidden_mask, torch.float32),
         block=lp.block)
 
 
-IN_INFER_IMPLS = {
+IN_IMPLS = {
     "xla": input_xla,
-    "fused": input_fused_infer,
+    "fused": input_fused,
 }
 FUSED_IN_IMPLS = frozenset(["fused"])
 
@@ -153,9 +170,9 @@ def _resolve_in_impl(in_impl, bd_impl: str) -> str:
     input kernel, anything else the plain matmul."""
     if in_impl is None:
         return "fused" if bd_impl in FUSED_BD_IMPLS else "xla"
-    if in_impl not in IN_INFER_IMPLS:
+    if in_impl not in IN_IMPLS:
         raise ValueError(f"unknown in_impl {in_impl!r} "
-                         f"(have {sorted(IN_INFER_IMPLS)})")
+                         f"(have {sorted(IN_IMPLS)})")
     return in_impl
 
 
@@ -288,9 +305,7 @@ def _act(lp: LayeredPopulation, l: int, h: torch.Tensor,
         h = apply_activations_masked(
             h, _static(lp, ("act_ids", l), dev, pop.act_ids, torch.int32))
     elif act_impl == "pallas":
-        raise NotImplementedError(
-            "act_impl='pallas' (the seg_act kernel) is not ported yet — "
-            "see ROADMAP.md; the fused path needs no separate activation")
+        raise NotImplementedError(f"act_impl 'pallas': {_PALLAS}")
     else:
         raise ValueError(f"unknown act_impl {act_impl!r}")
     return h * _static(lp, ("mask", l), dev, pop.hidden_mask, torch.float32)
@@ -309,26 +324,24 @@ def check_dtypes(compute_dtype=None, weights_dtype=None):
 
 def _hidden(params, x, lp: LayeredPopulation, bd_impl: str = "einsum",
             act_impl: str = "sliced", compute_dtype=None, in_impl=None,
-            infer: bool = False, weights_dtype=None) -> torch.Tensor:
-    """Input layer + every mid layer → the last hidden activations."""
+            weights_dtype=None) -> torch.Tensor:
+    """Input layer + every mid layer → the last hidden activations.  The
+    fused impls run their forward-only kernels when no gradient is taken
+    (``kernels/ops.py``)."""
     check_dtypes(compute_dtype, weights_dtype)
-    if bd_impl not in BD_INFER_IMPLS:
+    if bd_impl == "pallas" or in_impl == "pallas":
+        raise NotImplementedError(f"bd_impl/in_impl 'pallas': {_PALLAS}")
+    if bd_impl not in BD_IMPLS:
         raise ValueError(f"unknown bd_impl {bd_impl!r} "
-                         f"(have {sorted(BD_INFER_IMPLS)})")
+                         f"(have {sorted(BD_IMPLS)})")
     in_impl = _resolve_in_impl(in_impl, bd_impl)
-    if not infer and (bd_impl in FUSED_BD_IMPLS or in_impl in FUSED_IN_IMPLS):
-        raise NotImplementedError(
-            "the fused kernels are forward-only in this slice (infer=True); "
-            "the training kernels are still to be ported (ROADMAP.md)")
-    h = IN_INFER_IMPLS[in_impl](x, params["w_in"], params["b_in"], lp,
-                                act_impl)
+    h = IN_IMPLS[in_impl](x, params["w_in"], params["b_in"], lp, act_impl)
     for l in range(lp.depth - 1):
         wl = params["mid"][l]["w"]
         if bd_impl in FUSED_BD_IMPLS:
-            h = BD_INFER_IMPLS[bd_impl](h, wl, lp, l,
-                                        bias=params["mid"][l]["b"])
+            h = BD_IMPLS[bd_impl](h, wl, lp, l, bias=params["mid"][l]["b"])
             continue
-        z = BD_INFER_IMPLS[bd_impl](h, wl, lp, l)
+        z = BD_IMPLS[bd_impl](h, wl, lp, l)
         h = z + params["mid"][l]["b"] * _static(
             lp, ("active", l + 1), h.device, lp.active_unit_mask(l + 1),
             torch.float32)
@@ -351,7 +364,7 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
     (``launch_count.fused_infer_budget``).  ``log_probs=True`` returns
     log-probabilities on every route."""
     h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl,
-                infer, weights_dtype)
+                weights_dtype)
     plast = lp.layer_pop(lp.depth - 1)
     if infer:
         if head_impl is None:
@@ -367,6 +380,188 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
                             plast.block_segment_ids, torch.int32))
     y = m3(h, params["w_out"], plast, impl=m3_impl) + params["b_out"][None]
     return torch.log_softmax(y, dim=-1) if log_probs else y
+
+
+# ---------------------------------------------------------------------- #
+# loss, gradients and the training step                                  #
+# ---------------------------------------------------------------------- #
+
+def fused_loss(params, x, targets, lp: LayeredPopulation,
+               m3_impl: str = "bucketed", bd_impl: str = "einsum",
+               act_impl: str = "sliced", compute_dtype=None, in_impl=None,
+               loss_impl=None):
+    """Summed per-member softmax cross-entropy → ``(loss, per)`` with
+    ``per`` (P,) the per-member mean NLL.
+
+    ``loss_impl`` picks the head: ``"xla"`` materialises logits through
+    ``forward`` and runs log_softmax in PyTorch; ``"fused"`` runs
+    projection + softmax-XE + dlogits in one kernel launch per direction
+    (``m3_loss_head``).  The default ``None`` follows ``bd_impl``, so a
+    fused run's forward + backward is ``2·(depth + 1)`` launches at any
+    batch size (``launch_count.fused_step_budget``)."""
+    if loss_impl is None:
+        loss_impl = "fused" if bd_impl in FUSED_BD_IMPLS else "xla"
+    if loss_impl not in LOSS_IMPLS:
+        raise ValueError(f"unknown loss_impl {loss_impl!r} "
+                         f"(have {sorted(LOSS_IMPLS)})")
+    if loss_impl == "fused":
+        h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl)
+        plast = lp.layer_pop(lp.depth - 1)
+        per = m3_loss_head(h, params["w_out"], params["b_out"], targets,
+                           plast, seg=_static(lp, "seg_last", h.device,
+                                              plast.block_segment_ids,
+                                              torch.int32))
+        return per.sum(), per
+    logits = forward(params, x, lp, m3_impl=m3_impl, bd_impl=bd_impl,
+                     act_impl=act_impl, compute_dtype=compute_dtype,
+                     in_impl=in_impl)
+    logp = torch.log_softmax(logits, dim=-1)
+    tgt = torch.as_tensor(targets, device=logits.device).long()
+    nll = -torch.gather(logp, 2, tgt[:, None, None].expand(
+        -1, logp.shape[1], 1))[..., 0]
+    per = nll.mean(dim=0)
+    return per.sum(), per
+
+
+def loss_and_grads(params, x, targets, lp: LayeredPopulation, **kw):
+    """``fused_loss`` and its gradient with respect to every parameter →
+    ``(loss, per, grads)``, all detached (JAX: ``jax.value_and_grad(
+    fused_loss, has_aux=True)``).  ``kw``: ``fused_loss``'s routing."""
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss, per = fused_loss(tree_unflatten(params, leaves), x, targets,
+                               lp, **kw)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    return loss.detach(), per.detach(), tree_unflatten(params, grads)
+
+
+def member_lr_tree(lp: LayeredPopulation, lr) -> dict:
+    """Per-member learning rates (P,) → a scale tree matching
+    ``init_params`` (every parameter belongs to exactly one member, so
+    per-member LRs are a broadcast — the paper's §7 'parallelise the
+    learning rate').  The same expansion serves any per-member optimizer
+    hyperparameter (``sgd(momentum=...)``, ``adamw(weight_decay=...)``).
+    The tree lives on ``lr``'s device (the CPU for a numpy vector)."""
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    dev = lr.device
+
+    def by_unit(l):
+        return lr[_static(lp, ("segment", l), dev,
+                          lp.layer_pop(l).segment_ids, torch.long)]
+
+    tree = {"w_in": by_unit(0)[:, None], "b_in": by_unit(0), "mid": []}
+    for l in range(lp.depth - 1):
+        wl = [lr[m0:m0 + n][:, None, None]
+              for (m0, n, *_rest, real) in lp.proj_buckets(l) if real]
+        tree["mid"].append({"w": wl, "b": by_unit(l + 1)})
+    tree["w_out"] = by_unit(lp.depth - 1)[None, :]
+    tree["b_out"] = lr[:, None]
+    return tree
+
+
+def _lr_on(lr, lp: LayeredPopulation, device):
+    """A scalar or (P,) learning rate as float32 on ``device`` — a (P,)
+    vector expanded through ``member_lr_tree`` — or a scale tree as is."""
+    if isinstance(lr, (dict, list, tuple)):
+        return lr
+    lr = torch.as_tensor(lr, dtype=torch.float32, device=device)
+    return member_lr_tree(lp, lr) if lr.ndim == 1 else lr
+
+
+def sgd_step(params, x, targets, lr, lp: LayeredPopulation,
+             m3_impl: str = "bucketed", bd_impl: str = "einsum",
+             act_impl: str = "sliced", compute_dtype=None):
+    """One fused plain-SGD step, ``p − lr·g`` → ``(params, loss, per)``.
+    ``lr`` may be a scalar or a per-member (P,) vector."""
+    from repro_torch.optim.optimizers import broadcast_lr
+    loss, per, grads = loss_and_grads(
+        params, x, targets, lp, m3_impl=m3_impl, bd_impl=bd_impl,
+        act_impl=act_impl, compute_dtype=compute_dtype)
+    lrs = broadcast_lr(_lr_on(lr, lp, tree_leaves(params)[0].device), grads)
+    return tree_map(lambda p, g, s: p - s * g, params, grads, lrs), loss, per
+
+
+def opt_step(params, opt_state, x, targets, lr, opt, lp: LayeredPopulation,
+             m3_impl: str = "bucketed", bd_impl: str = "einsum",
+             act_impl: str = "sliced", compute_dtype=None, grad_clip=None):
+    """One fused optimizer step with state: fused loss + grads → optional
+    global-norm clip → ``opt.update`` → ``apply_updates`` →
+    ``(params, opt_state, loss, per_member_losses, grad_norm)``;
+    ``grad_norm`` is None unless ``grad_clip`` is set.
+
+    ``opt`` is an ``optim.Optimizer``; ``lr`` a scalar, a per-member (P,)
+    vector (expanded through ``member_lr_tree``) or a scale tree.  With
+    ``opt=sgd()`` the update is bit for bit ``sgd_step``'s ``p − lr·g``:
+    the engine computes ``p + (−lr)·g``, and IEEE negation, product and
+    sum make the two equal (DESIGN.md §8)."""
+    from repro_torch.optim.optimizers import (apply_updates,
+                                              clip_by_global_norm)
+    loss, per, grads = loss_and_grads(
+        params, x, targets, lp, m3_impl=m3_impl, bd_impl=bd_impl,
+        act_impl=act_impl, compute_dtype=compute_dtype)
+    gnorm = None
+    if grad_clip:
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+    lr = _lr_on(lr, lp, tree_leaves(params)[0].device)
+    upd, opt_state = opt.update(grads, opt_state, params, lr)
+    return apply_updates(params, upd), opt_state, loss, per, gnorm
+
+
+def make_population_train_step(lp: LayeredPopulation, *, optimizer,
+                               grad_clip=None, m3_impl: str = "bucketed",
+                               bd_impl: str = "einsum",
+                               act_impl: str = "sliced", scan_steps: int = 1,
+                               compute_dtype=None, lr_schedule=None):
+    """The multi-step population train chunk (JAX: a jitted ``lax.scan``;
+    here a Python loop over the chunk's steps, eagerly).
+
+    ``chunk(params, opt_state, xs, ys, lr) -> (params, opt_state, losses,
+    pers, gnorms)``, ``gnorms`` each step's pre-clip global gradient norm
+    when ``grad_clip`` is set (else None); ``optimizer`` is an
+    ``optim.Optimizer`` (``optim.sgd()`` is plain SGD, bit for bit).
+
+    ``xs``/``ys`` carry a leading step axis of at most ``scan_steps``
+    (a shorter last chunk runs fewer steps).  State stays on the device;
+    ``losses`` (n,) and ``pers`` (n, P) are stacked on the device, so the
+    caller fetches the chunk's metrics once.  ``lr_schedule`` (a
+    ``step -> multiplier`` callable, e.g. ``optim.warmup_cosine(1.0,
+    ...)``) adds a trailing ``step0`` argument, the global step of the
+    chunk's first batch; inner step k trains at ``lr · lr_schedule(step0 +
+    k)``."""
+    if scan_steps < 1:
+        raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
+    route = dict(m3_impl=m3_impl, bd_impl=bd_impl, act_impl=act_impl,
+                 compute_dtype=compute_dtype)
+
+    def lr_at(lr, step):
+        if lr_schedule is None:
+            return lr
+        mult = lr_schedule(step)
+        if isinstance(lr, (dict, list, tuple)):
+            return tree_map(lambda v: v * mult.to(v.device), lr)
+        lr = torch.as_tensor(lr, dtype=torch.float32)
+        return lr * mult.to(lr.device)
+
+    def steps(xs):
+        n = xs.shape[0]
+        if n > scan_steps:
+            raise ValueError(f"{n} steps in a chunk of {scan_steps}")
+        return n
+
+    def chunk(params, opt_state, xs, ys, lr, step0=0):
+        losses, pers, gnorms = [], [], []
+        for k in range(steps(xs)):
+            params, opt_state, loss, per, gnorm = opt_step(
+                params, opt_state, xs[k], ys[k], lr_at(lr, step0 + k),
+                optimizer, lp, grad_clip=grad_clip, **route)
+            losses.append(loss)
+            pers.append(per)
+            gnorms.append(gnorm)
+        return (params, opt_state, torch.stack(losses), torch.stack(pers),
+                torch.stack(gnorms) if grad_clip else None)
+    return chunk
 
 
 # ---------------------------------------------------------------------- #

@@ -9,6 +9,9 @@ For a fused hidden tensor ``h`` (B, total_hidden), a fused output weight
                   (``index_add_``); materialises (B, H, O).
   m3_bucketed   — members bucketed by padded size → one batched matmul per
                   bucket.
+  m3_loss_head  — training: projection + member bias + softmax
+                  cross-entropy in one CUDA kernel per direction
+                  (``kernels/ops.loss_head``); the logits never materialise.
   m3_infer_head — serving: projection + member bias (+ log-softmax) in one
                   CUDA kernel (``kernels/ops.infer_head``).
 
@@ -53,9 +56,36 @@ M3_IMPLS = {
 
 def m3(h: torch.Tensor, w2: torch.Tensor, pop: Population,
        impl: str = "bucketed") -> torch.Tensor:
+    if impl in ("onehot", "pallas"):
+        raise NotImplementedError(
+            f"m3_impl {impl!r} is not ported yet (ROADMAP.md, Queue 1 for "
+            "onehot, Queue 2 for the m3_matmul kernels); use 'bucketed' or "
+            "'scatter'")
     if impl not in M3_IMPLS:
         raise ValueError(f"unknown m3_impl {impl!r} (have {sorted(M3_IMPLS)})")
     return M3_IMPLS[impl](h, w2, pop)
+
+
+def m3_loss_head(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                 targets: torch.Tensor, pop: Population, *,
+                 seg=None) -> torch.Tensor:
+    """The training-time fusion of M3: projection + per-member bias +
+    softmax cross-entropy + dlogits in one kernel launch per direction.
+    Returns the per-member mean NLL (P,) f32.  ``seg``: the layout's
+    ``block_segment_ids``, optionally already on the device."""
+    from repro_torch.kernels.ops import loss_head
+    return loss_head(h, w2, b2, targets,
+                     pop.block_segment_ids if seg is None else seg,
+                     block_h=pop.block)
+
+
+# loss-head impls that bypass logits materialisation; deep.fused_loss
+# routes through this registry
+LOSS_IMPLS = {
+    "xla": None,          # log_softmax over forward() logits (deep.fused_loss)
+    "fused": m3_loss_head,
+}
+FUSED_LOSS_IMPLS = frozenset(["fused"])
 
 
 def m3_infer_head(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,

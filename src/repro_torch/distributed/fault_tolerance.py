@@ -1,0 +1,141 @@
+"""Fault tolerance on one device: the checkpoint/restart loop and the
+straggler watchdog.
+
+The train loop is a RESUMABLE pure function of (checkpoint, step,
+data(step)):
+
+  * ``TrainRunner`` — drives steps, checkpoints on a cadence, and on ANY
+    exception restores the last committed checkpoint (or, before the first
+    one, a host snapshot of the initial state) and replays; the data is
+    step-indexed, so the replay is exact.  ``failure_hook`` injects
+    failures for tests.
+  * ``StragglerPolicy`` — wall-clock per-step watchdog: records slow steps
+    and raises after ``max_strikes`` consecutive ones, so the runner's
+    restart path takes over.
+
+Saves are synchronous (``checkpoint.Checkpointer``).  Not ported yet
+(ROADMAP.md): the off-thread ``AsyncCheckpointer`` and
+``elastic_remesh``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+from repro_torch.checkpoint.checkpoint import (Checkpointer, latest_steps,
+                                               restore)
+from repro_torch.core.tree import tree_leaves, tree_map
+
+
+@dataclasses.dataclass
+class StragglerPolicy:
+    timeout_s: float = 60.0
+    max_strikes: int = 3
+    on_straggler: Optional[Callable[[int, float], None]] = None
+    strikes: int = 0
+    events: list = dataclasses.field(default_factory=list)
+
+    def observe(self, step: int, dt: float):
+        if dt <= self.timeout_s:
+            self.strikes = 0
+            return
+        self.strikes += 1
+        self.events.append((step, dt))
+        if self.on_straggler:
+            self.on_straggler(step, dt)
+        if self.strikes >= self.max_strikes:
+            raise TimeoutError(
+                f"step {step}: {self.strikes} consecutive steps over "
+                f"{self.timeout_s}s — requesting restart")
+
+
+def _host_copy(state):
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+
+class TrainRunner:
+    """Checkpoint/restart training driver.
+
+    ``step_fn(state, step) -> (state, metrics)`` must be pure and
+    replayable; ``state`` is a tree of tensors on one device.
+    ``ckpt_meta`` / ``ckpt_step_map`` / ``ckpt_save_pred`` go to the
+    ``Checkpointer`` (population runs attach the layout and record GLOBAL
+    step numbers while the runner counts chunks); ``ckpt_step_unmap`` maps
+    a restored checkpoint's recorded step back into the runner's step
+    domain.  ``on_restore(step)`` fires after every crash restore with the
+    step the replay re-enters at."""
+
+    def __init__(self, step_fn, state, *, ckpt_dir: str,
+                 ckpt_every: int = 50, keep_last: int = 3,
+                 straggler: StragglerPolicy | None = None,
+                 failure_hook: Optional[Callable[[int], None]] = None,
+                 max_restarts: int = 3, ckpt_meta: dict | None = None,
+                 ckpt_step_map: Optional[Callable[[int], int]] = None,
+                 ckpt_step_unmap: Optional[Callable[[int], int]] = None,
+                 ckpt_save_pred: Optional[Callable[[int], bool]] = None,
+                 on_restore: Optional[Callable[[int], None]] = None):
+        self.step_fn = step_fn
+        self.state = state
+        self.device = tree_leaves(state)[0].device
+        self.ckpt = Checkpointer(ckpt_dir, every=ckpt_every,
+                                 keep_last=keep_last, meta=ckpt_meta,
+                                 step_map=ckpt_step_map,
+                                 save_pred=ckpt_save_pred)
+        self.ckpt_step_unmap = ckpt_step_unmap or (lambda s: s)
+        self.on_restore = on_restore
+        self.straggler = straggler or StragglerPolicy(timeout_s=1e9)
+        self.failure_hook = failure_hook
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.metrics_log = []
+        # host snapshot of the INITIAL state: a failure before the first
+        # committed checkpoint replays from step 0.  Skipped when the
+        # directory already holds a checkpoint (a resume restores from disk)
+        # and freed as soon as one commits.
+        self._init_state_host = (None if latest_steps(ckpt_dir)
+                                 else _host_copy(state))
+
+    def _restore(self) -> int:
+        self.ckpt.wait()
+        steps = latest_steps(self.ckpt.directory)
+        if not steps:
+            if self._init_state_host is None:
+                raise RuntimeError(
+                    f"no committed checkpoint under {self.ckpt.directory} "
+                    "and the initial-state snapshot was already released")
+            self.state = tree_map(lambda t: t.to(self.device),
+                                  self._init_state_host)
+            step = 0
+        else:
+            self.state, saved = restore(self.ckpt.directory, self.state,
+                                        device=self.device)
+            step = self.ckpt_step_unmap(saved) + 1
+        if self.on_restore:
+            self.on_restore(step)
+        return step
+
+    def run(self, num_steps: int, start_step: int = 0) -> int:
+        step = start_step
+        while step < num_steps:
+            try:
+                t0 = time.time()
+                if self.failure_hook:
+                    self.failure_hook(step)
+                self.state, metrics = self.step_fn(self.state, step)
+                self.straggler.observe(step, time.time() - t0)
+                self.metrics_log.append((step, metrics))
+                self.ckpt.maybe_save(step, self.state)
+                if self._init_state_host is not None and self.ckpt.saved:
+                    self._init_state_host = None   # a checkpoint committed
+                step += 1
+            except KeyboardInterrupt:
+                raise
+            except Exception as e:   # noqa: BLE001 — restart on ANY failure
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise RuntimeError(
+                        f"exceeded {self.max_restarts} restarts") from e
+                step = self._restore()
+        self.ckpt.wait()
+        return step

@@ -99,6 +99,26 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+def function(lib: str, name: str, argtypes, restype=ctypes.c_int):
+    """The C entry ``name`` of kernel library ``lib``, typed (every pointer
+    and the stream as ``c_void_p``, every int as ``c_int``)."""
+    fn = getattr(library(lib), name)
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
+
+
+def check_tensors(where: str, ref, *named):
+    """Raise unless every (name, tensor, dtype) lies contiguous, of its
+    dtype, on ``ref``'s CUDA device — what a kernel takes."""
+    for name, t, dt in named:
+        if not t.is_cuda or t.device != ref.device:
+            raise ValueError(f"{where}: {name} must be on {ref.device}")
+        if t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{where}: {name} must be contiguous {dt}, "
+                             f"got {t.dtype}")
+
+
 def check(rc: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:

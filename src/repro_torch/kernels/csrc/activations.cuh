@@ -41,3 +41,46 @@ __device__ __forceinline__ float apply_act(int id, float x) {
       return __int_as_float(0x7fc00000);
   }
 }
+
+// The derivative act'(x), with JAX's values at the kinks (its jax.vjp at
+// ones): relu'(0) = 0, leaky_relu'(0) = 1 (the x >= 0 branch), elu'(0) = 1
+// and selu'(0) = scale·alpha (the x > 0 branch is strict), hardshrink'(±0.5)
+// = 0 (strict inequalities).  mish' takes d softplus/dx = exp(x − softplus),
+// the derivative JAX's logaddexp gives.  Matches
+// repro_torch.core.activations.ACTIVATION_DERIVS.
+__device__ __forceinline__ float apply_act_deriv(int id, float x) {
+  switch (id) {
+    case 0:  // elu
+      return x > 0.f ? 1.f : expf(x);
+    case 1:  // gelu (exact)
+      return 0.5f * (1.f + erff(x * 0.70710678118654752440f)) +
+             x * expf(-0.5f * x * x) * 0.39894228040143267794f;
+    case 2:  // hardshrink
+      return (x > 0.5f || x < -0.5f) ? 1.f : 0.f;
+    case 3:  // identity
+      return 1.f;
+    case 4:  // leaky_relu
+      return x >= 0.f ? 1.f : 0.01f;
+    case 5: {  // mish
+      const float sp = fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
+      const float t = tanhf(sp);
+      return t + x * (1.f - t * t) * expf(x - sp);
+    }
+    case 6:  // relu
+      return x > 0.f ? 1.f : 0.f;
+    case 7:  // selu
+      return x > 0.f ? 1.0507009873554804934f
+                     : 1.0507009873554804934f * 1.6732632423543772848f *
+                           expf(x);
+    case 8: {  // sigmoid
+      const float s = 1.f / (1.f + expf(-x));
+      return s * (1.f - s);
+    }
+    case 9: {  // tanh
+      const float t = tanhf(x);
+      return 1.f - t * t;
+    }
+    default:  // unknown id: poison the output rather than guess
+      return __int_as_float(0x7fc00000);
+  }
+}

@@ -1,17 +1,23 @@
-// Fused input layer, forward only:  y = act(x · Wᵀ + b) · mask
+// Fused input layer, forward:  y = act(x · Wᵀ + b) · mask
+//                    training:  also g' = act'(x · Wᵀ + b) · mask
 //
-// Replaces the TPU kernel repro/kernels/fused_input.py::fused_input_fwd
-// (with_deriv=False), reached through repro/kernels/ops.py::fused_input_infer.
+// Replaces the TPU kernel repro/kernels/fused_input.py::fused_input_fwd,
+// with_deriv=False (serving, repro/kernels/ops.py::fused_input_infer:
+// fused_input_infer_f32 here) and with_deriv=True (training, the forward of
+// ops.py::fused_input's custom VJP: fused_input_train_f32 here).  One kernel
+// template, the flag DERIV selecting the second output.
 //
 // x (B, F), W (H, F), b and mask (H,) f32, act ids one per population block
-// (H / block,) int32 → y (B, H) f32.  The pre-activation z never reaches
-// device memory: the bias, the block's activation and the padding mask are
-// applied to the accumulator in registers.
+// (H / block,) int32 → y (B, H) f32 [and g' (B, H) f32].  The
+// pre-activation z never reaches device memory: the bias, the block's
+// activation (and its derivative) and the padding mask are applied to the
+// accumulator in registers.
 //
 // What bounds it: bytes.  At the paper's 10,000-member width (H = 1,280,000,
 // F = 100) and a flush of B = 32, one launch must read W (512 MB) and write
 // y (164 MB) against 8.2 GFLOP — about 0.2 ms of memory traffic at
-// 3.35 TB/s against 0.12 ms of f32 FMA work.  The design therefore reads W
+// 3.35 TB/s against 0.12 ms of f32 FMA work (the training variant writes
+// g' too: 164 MB more).  The design therefore reads W
 // exactly once per batch tile: a CTA owns a (32 batch rows × 128 hidden
 // units) output tile and walks F in chunks of 16 staged in shared memory.
 // Batch tiles of one hidden tile are adjacent in launch order, so at larger
@@ -37,12 +43,14 @@ constexpr int THREADS = 256;  // 16 × 16 threads
 constexpr int RM = BM / 16;   // rows per thread
 constexpr int RN = BN / 16;   // columns per thread (strided by 16)
 
+template <bool DERIV>
 __global__ void __launch_bounds__(THREADS)
 fused_input_kernel(const float* __restrict__ x, const float* __restrict__ w,
                    const float* __restrict__ bias,
                    const float* __restrict__ mask,
                    const int* __restrict__ act_ids, float* __restrict__ y,
-                   int B, int F, int H, int block, int n_btiles) {
+                   float* __restrict__ g, int B, int F, int H, int block,
+                   int n_btiles) {
   __shared__ float xs[BK][BM + 1];
   __shared__ float ws[BK][BN + 1];
 
@@ -97,9 +105,27 @@ fused_input_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
     for (int i = 0; i < RM; ++i) {
       const int b = b0 + ty * RM + i;
-      if (b < B) y[(size_t)b * H + h] = apply_act(id, acc[i][j] + bb) * mm;
+      if (b >= B) continue;
+      const float u = acc[i][j] + bb;
+      y[(size_t)b * H + h] = apply_act(id, u) * mm;
+      if constexpr (DERIV) g[(size_t)b * H + h] = apply_act_deriv(id, u) * mm;
     }
   }
+}
+
+template <bool DERIV>
+int launch(const float* x, const float* w, const float* bias,
+           const float* mask, const int* act_ids, float* y, float* g, int B,
+           int F, int H, int block, void* stream) {
+  if (B <= 0 || H <= 0) return 0;
+  if (F <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_tiles = n_btiles * ((H + BN - 1) / BN);
+  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  fused_input_kernel<DERIV><<<(unsigned)n_tiles, THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, w, bias, mask, act_ids, y, g, B, F, H, block, (int)n_btiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -108,13 +134,15 @@ extern "C" int fused_input_infer_f32(const float* x, const float* w,
                                      const float* bias, const float* mask,
                                      const int* act_ids, float* y, int B,
                                      int F, int H, int block, void* stream) {
-  if (B <= 0 || H <= 0) return 0;
-  if (F <= 0 || block <= 0) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_tiles = n_btiles * ((H + BN - 1) / BN);
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_input_kernel<<<(unsigned)n_tiles, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, w, bias, mask, act_ids, y, B, F, H, block, (int)n_btiles);
-  return (int)cudaGetLastError();
+  return launch<false>(x, w, bias, mask, act_ids, y, nullptr, B, F, H, block,
+                       stream);
+}
+
+extern "C" int fused_input_train_f32(const float* x, const float* w,
+                                     const float* bias, const float* mask,
+                                     const int* act_ids, float* y, float* g,
+                                     int B, int F, int H, int block,
+                                     void* stream) {
+  return launch<true>(x, w, bias, mask, act_ids, y, g, B, F, H, block,
+                      stream);
 }

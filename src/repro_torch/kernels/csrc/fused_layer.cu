@@ -1,15 +1,20 @@
-// Fused block-diagonal mid layer, forward only:
-//   y[:, o] = act(Σ_{steps s of output tile o} x[:, s_in[s]] · wb[s_w[s]]ᵀ
-//                 + b_eff[o]) · mask[o]
+// Fused block-diagonal mid layer, forward:
+//   y[:, o] = act(u[:, o]) · mask[o],
+//   u[:, o] = Σ_{steps s of output tile o} x[:, s_in[s]] · wb[s_w[s]]ᵀ
+//             + b_eff[o]
+// and, for training, g'[:, o] = act'(u[:, o]) · mask[o] as a second output.
 //
-// Replaces the TPU kernel repro/kernels/fused_layer.py::fused_layer_fwd
-// (with_deriv=False), reached through repro/kernels/ops.py::fused_layer_infer.
+// Replaces the TPU kernel repro/kernels/fused_layer.py::fused_layer_fwd,
+// with_deriv=False (serving, repro/kernels/ops.py::fused_layer_infer:
+// fused_layer_infer_f32 here) and with_deriv=True (training, the forward of
+// ops.py::fused_layer's custom VJP: fused_layer_train_f32 here).  One kernel
+// template, the flag DERIV selecting the second output.
 //
 // x (B, n_in_tiles·blk), wb (n_param_blocks + 1, blk, blk) f32 with the
 // shared identity tile appended (pass-through members), b_eff and mask
 // (n_out_tiles·blk,) f32, one activation id per output tile (int32), and the
 // layout's steps in CSR form: rowptr (n_out_tiles + 1,), s_in and s_w
-// (n_steps,) int32 → y (B, n_out_tiles·blk) f32.
+// (n_steps,) int32 → y [and g'] (B, n_out_tiles·blk) f32.
 //
 // The TPU kernel walks the flat ragged step list on a sequential grid axis
 // and opens/closes a VMEM accumulator on s_first/s_last.  A GPU grid has no
@@ -41,6 +46,7 @@ constexpr int THREADS = 256;
 constexpr int MAX_BLK = 128;
 constexpr int MAX_ACC = BM * MAX_BLK / THREADS;  // outputs per thread (16)
 
+template <bool DERIV>
 __global__ void __launch_bounds__(THREADS)
 fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
                    const float* __restrict__ b_eff,
@@ -48,8 +54,8 @@ fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
                    const int* __restrict__ tile_act,
                    const int* __restrict__ rowptr,
                    const int* __restrict__ s_in, const int* __restrict__ s_w,
-                   float* __restrict__ y, int B, int in_width, int out_width,
-                   int blk, int n_btiles) {
+                   float* __restrict__ y, float* __restrict__ g, int B,
+                   int in_width, int out_width, int blk, int n_btiles) {
   __shared__ float xs[BM][KC + 1];
   __shared__ float ws[MAX_BLK][KC + 1];
 
@@ -100,11 +106,31 @@ fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
     if (o < n_out) {
       const int b = b0 + o / blk;
       const int col = ot * blk + o % blk;
-      if (b < B)
-        y[(size_t)b * out_width + col] =
-            apply_act(act, acc[a] + b_eff[col]) * mask[col];
+      if (b < B) {
+        const float u = acc[a] + b_eff[col];
+        y[(size_t)b * out_width + col] = apply_act(act, u) * mask[col];
+        if constexpr (DERIV)
+          g[(size_t)b * out_width + col] = apply_act_deriv(act, u) * mask[col];
+      }
     }
   }
+}
+
+template <bool DERIV>
+int launch(const float* x, const float* wb, const float* b_eff,
+           const float* mask, const int* tile_act, const int* rowptr,
+           const int* s_in, const int* s_w, float* y, float* g, int B,
+           int n_in_tiles, int n_out_tiles, int blk, void* stream) {
+  if (B <= 0 || n_out_tiles <= 0) return 0;
+  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_tiles = n_btiles * n_out_tiles;
+  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  fused_layer_kernel<DERIV><<<(unsigned)n_tiles, THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g, B,
+      n_in_tiles * blk, n_out_tiles * blk, blk, (int)n_btiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -115,14 +141,17 @@ extern "C" int fused_layer_infer_f32(const float* x, const float* wb,
                                      const int* s_in, const int* s_w,
                                      float* y, int B, int n_in_tiles,
                                      int n_out_tiles, int blk, void* stream) {
-  if (B <= 0 || n_out_tiles <= 0) return 0;
-  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_tiles = n_btiles * n_out_tiles;
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_layer_kernel<<<(unsigned)n_tiles, THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y, B,
-      n_in_tiles * blk, n_out_tiles * blk, blk, (int)n_btiles);
-  return (int)cudaGetLastError();
+  return launch<false>(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y,
+                       nullptr, B, n_in_tiles, n_out_tiles, blk, stream);
+}
+
+extern "C" int fused_layer_train_f32(const float* x, const float* wb,
+                                     const float* b_eff, const float* mask,
+                                     const int* tile_act, const int* rowptr,
+                                     const int* s_in, const int* s_w,
+                                     float* y, float* g, int B,
+                                     int n_in_tiles, int n_out_tiles, int blk,
+                                     void* stream) {
+  return launch<true>(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g,
+                      B, n_in_tiles, n_out_tiles, blk, stream);
 }

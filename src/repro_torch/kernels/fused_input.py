@@ -1,10 +1,18 @@
-"""Fused input layer, forward only: ``y = act(x·Wᵀ + b)·mask``.
+"""Fused input layer: ``y = act(x·Wᵀ + b)·mask`` forward, and its backward.
 
-``fused_input_cuda`` launches the CUDA kernel ``csrc/fused_input.cu`` (the
-port of the TPU kernel ``repro/kernels/fused_input.py::fused_input_fwd``
-with ``with_deriv=False``); ``fused_input_plain`` is the same function in
-plain PyTorch.  Both take x (B, F), w (H, F), bias and mask (H,) f32 and
-per-block activation ids (H / block,) int32, and return y (B, H) f32.
+Forward (serving, and training with the activation derivative):
+``fused_input_cuda`` / ``fused_input_train_cuda`` launch the CUDA kernel
+``csrc/fused_input.cu`` (the port of the TPU kernel
+``repro/kernels/fused_input.py::fused_input_fwd``, ``with_deriv`` False /
+True); the training variant also returns ``g' = act'(x·Wᵀ + b)·mask``.
+Both take x (B, F), w (H, F), bias and mask (H,) f32 and per-block
+activation ids (H / block,) int32, and return (B, H) f32.
+
+Backward: ``fused_input_bwd_cuda`` launches ``csrc/fused_input_bwd.cu``
+(the port of ``fused_input.py::fused_input_bwd``): from dy and g' (B, H),
+x and w it returns dW (H, F) and, when asked, dx (B, F).
+
+Each ``*_plain`` function is the same function in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -12,12 +20,16 @@ import ctypes
 
 import torch
 
-from repro_torch.core.activations import apply_activations_masked
+from repro_torch.core.activations import (apply_activation_derivs_masked,
+                                          apply_activations_masked)
 from repro_torch.kernels import _build
 
-launches = 0          # kernel launches (the CPU dispatch in ops counts too)
+# kernel launches (the CPU dispatch in ops counts its plain calls too):
+launches = 0          # the forward, with or without g'
+bwd_launches = 0      # the backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+DX_BATCH_TILE, DX_FEATURE_TILE = 32, 128   # fused_input_bwd.cu's BB, BF
 
 
 def fused_input_plain(x, w, bias, mask, act_ids, *, block: int):
@@ -26,31 +38,41 @@ def fused_input_plain(x, w, bias, mask, act_ids, *, block: int):
     return apply_activations_masked(z, cols) * mask
 
 
-def _lib():
-    lib = _build.library("fused_input")
-    fn = lib.fused_input_infer_f32
-    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-    fn.restype = _I
-    return fn
+def fused_input_train_plain(x, w, bias, mask, act_ids, *, block: int):
+    """→ (y, g'), both (B, H)."""
+    z = x @ w.t() + bias
+    cols = act_ids.repeat_interleave(block)
+    return (apply_activations_masked(z, cols) * mask,
+            apply_activation_derivs_masked(z, cols) * mask)
+
+
+def fused_input_bwd_plain(dy, g, x, w, *, with_dx: bool):
+    """→ (dx (B, F) or None, dW (H, F)), du = dy·g'."""
+    du = dy * g
+    return (du @ w if with_dx else None), du.t() @ x
+
+
+def _fwd_args(x, w, bias, mask, act_ids, block):
+    b, f = x.shape
+    h = w.shape[0]
+    _build.check_tensors(
+        "fused_input", x,
+        ("x", x, torch.float32),
+        ("w", w, torch.float32),
+        ("bias", bias, torch.float32),
+        ("mask", mask, torch.float32),
+        ("act_ids", act_ids, torch.int32))
+    if w.shape[1] != f or bias.shape != (h,) or mask.shape != (h,) \
+            or act_ids.shape != (h // block,):
+        raise ValueError("fused_input: inconsistent shapes")
+    return b, f, h
 
 
 def fused_input_cuda(x, w, bias, mask, act_ids, *, block: int):
     global launches
-    b, f = x.shape
-    h = w.shape[0]
-    for name, t, dt in (("x", x, torch.float32), ("w", w, torch.float32),
-                        ("bias", bias, torch.float32),
-                        ("mask", mask, torch.float32),
-                        ("act_ids", act_ids, torch.int32)):
-        if not t.is_cuda or t.device != x.device:
-            raise ValueError(f"fused_input: {name} must be on {x.device}")
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"fused_input: {name} must be contiguous {dt}, "
-                             f"got {t.dtype}")
-    if w.shape[1] != f or bias.shape != (h,) or mask.shape != (h,) \
-            or act_ids.shape != (h // block,):
-        raise ValueError("fused_input: inconsistent shapes")
-    fn = _lib()
+    b, f, h = _fwd_args(x, w, bias, mask, act_ids, block)
+    fn = _build.function("fused_input", "fused_input_infer_f32",
+                         [_P] * 6 + [_I] * 4 + [_P])
     y = torch.empty(b, h, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), mask.data_ptr(),
@@ -59,3 +81,58 @@ def fused_input_cuda(x, w, bias, mask, act_ids, *, block: int):
     _build.check(rc, "fused_input")
     launches += 1
     return y
+
+
+def fused_input_train_cuda(x, w, bias, mask, act_ids, *, block: int):
+    """The training forward: one launch → (y, g')."""
+    global launches
+    b, f, h = _fwd_args(x, w, bias, mask, act_ids, block)
+    fn = _build.function("fused_input", "fused_input_train_f32",
+                         [_P] * 7 + [_I] * 4 + [_P])
+    y = torch.empty(b, h, device=x.device, dtype=torch.float32)
+    g = torch.empty_like(y)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), mask.data_ptr(),
+                act_ids.data_ptr(), y.data_ptr(), g.data_ptr(), b, f, h,
+                block, torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "fused_input_train")
+    launches += 1
+    return y, g
+
+
+def fused_input_bwd_cuda(dy, g, x, w, *, with_dx: bool):
+    """One launch → (dx (B, F) or None, dW (H, F)).  The dx path sums
+    partials over fixed hidden chunks in a workspace allocated here."""
+    global bwd_launches
+    b, h = dy.shape
+    f = x.shape[1]
+    _build.check_tensors(
+        "fused_input_bwd", dy,
+        ("dy", dy, torch.float32),
+        ("g", g, torch.float32),
+        ("x", x, torch.float32),
+        ("w", w, torch.float32))
+    if g.shape != (b, h) or x.shape[0] != b or w.shape != (h, f):
+        raise ValueError("fused_input_bwd: inconsistent shapes")
+    fn = _build.function("fused_input_bwd", "fused_input_bwd_f32",
+                         [_P] * 8 + [_I] * 4 + [_P])
+    dw = torch.empty(h, f, device=dy.device, dtype=torch.float32)
+    dx = ws = tickets = None
+    if with_dx:
+        chunks = _build.function("fused_input_bwd", "fused_input_bwd_chunks",
+                                 [_I, ctypes.POINTER(_I)])
+        chunk_h = _I(0)
+        n_chunks = chunks(h, ctypes.byref(chunk_h))
+        dx = torch.empty(b, f, device=dy.device, dtype=torch.float32)
+        ws = torch.empty(n_chunks, b, f, device=dy.device,
+                         dtype=torch.float32)
+        n_groups = -(-b // DX_BATCH_TILE) * -(-f // DX_FEATURE_TILE)
+        tickets = torch.zeros(n_groups, device=dy.device, dtype=torch.int32)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    with torch.cuda.device(dy.device):
+        rc = fn(dy.data_ptr(), g.data_ptr(), x.data_ptr(), w.data_ptr(),
+                dw.data_ptr(), ptr(dx), ptr(ws), ptr(tickets), b, f, h,
+                int(bool(with_dx)), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "fused_input_bwd")
+    bwd_launches += 1
+    return dx, dw

@@ -1,11 +1,22 @@
-"""Public kernel entry points of the serving path, with the JAX package's
-signatures and shape checks (``repro/kernels/ops.py``).
+"""Public kernel entry points, with the JAX package's signatures and shape
+checks (``repro/kernels/ops.py``).
+
+Serving: ``fused_input_infer``, ``fused_layer_infer``, ``infer_head`` —
+forward-only.  Training: ``fused_input``, ``fused_layer``, ``loss_head`` —
+each a ``torch.autograd.Function`` whose forward is one kernel launch
+(the forwards also emit g' = act'(z)·mask, or the loss head its dlogits)
+and whose backward is one more, as the JAX package wraps each
+``pallas_call`` pair in a ``custom_vjp``.  The bias cotangents
+(``Σ_b dy·g'``, ``d_per ⊙ Σ_b dl``) are plain tensor ops outside the
+kernels, as JAX leaves them to XLA.  Without a gradient to take (no input
+requires one, or grad mode is off) the training entries run the serving
+kernels instead, as JAX's primal does.
 
 Dispatch is on the input tensor's device: a CUDA tensor launches the
 hand-written kernel (or raises — there is no fallback), a CPU tensor runs
 the kernel's plain PyTorch version.  The CPU dispatch counts its calls in
-the kernel's launch counter, so the ``depth + 1`` budget holds on either
-device (``launch/launch_count.py``).
+the kernel's launch counter, so the launch budgets hold on either device
+(``launch/launch_count.py``).
 
 Static layout arrays (activation ids, masks, segment ids) may be numpy or
 tensors; callers on the hot path pass tensors already on the device.
@@ -19,6 +30,7 @@ import torch
 from repro_torch.kernels import fused_input as _fik
 from repro_torch.kernels import fused_layer as _flk
 from repro_torch.kernels import infer_head as _ihk
+from repro_torch.kernels import loss_head as _lhk
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -38,16 +50,19 @@ def _as(a, device, dtype) -> torch.Tensor:
 def _require_f32(**tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the serving kernels are "
-                            "float32 only (bf16/int8: see ROADMAP.md)")
+            raise TypeError(f"{name} is {t.dtype}; the kernels are float32 "
+                            "only (bf16/int8: see ROADMAP.md)")
 
 
-def fused_input_infer(x: torch.Tensor, w_in: torch.Tensor,
-                      b_in: torch.Tensor, block_act_ids, mask, *,
-                      block: int) -> torch.Tensor:
-    """Dense input projection + bias + per-block activation + padding mask
-    in one kernel.  x (B, F), w_in (H, F), b_in (H,) → (B, H) of
-    ``act(x·W_inᵀ + b_in)·mask``.  H must be block-aligned."""
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+# --------------------------------------------------------------------- #
+# fused input layer                                                      #
+# --------------------------------------------------------------------- #
+
+def _input_args(x, w_in, b_in, block_act_ids, mask, block):
     h = w_in.shape[0]
     if h % block:
         raise ValueError(f"hidden axis {h} not {block}-aligned")
@@ -63,6 +78,16 @@ def fused_input_infer(x: torch.Tensor, w_in: torch.Tensor,
         raise ValueError(f"{tuple(ids.shape)} activation ids / "
                          f"{tuple(m.shape)} mask for {h // block} blocks of "
                          f"{block}")
+    return ids, m
+
+
+def fused_input_infer(x: torch.Tensor, w_in: torch.Tensor,
+                      b_in: torch.Tensor, block_act_ids, mask, *,
+                      block: int) -> torch.Tensor:
+    """Dense input projection + bias + per-block activation + padding mask
+    in one kernel.  x (B, F), w_in (H, F), b_in (H,) → (B, H) of
+    ``act(x·W_inᵀ + b_in)·mask``.  H must be block-aligned."""
+    ids, m = _input_args(x, w_in, b_in, block_act_ids, mask, block)
     if _on_card(x):
         return _fik.fused_input_cuda(x.contiguous(), w_in.contiguous(),
                                      b_in.contiguous(), m, ids, block=block)
@@ -70,15 +95,58 @@ def fused_input_infer(x: torch.Tensor, w_in: torch.Tensor,
     return _fik.fused_input_plain(x, w_in, b_in, m, ids, block=block)
 
 
-def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
-                      b_eff: torch.Tensor, layout, block_act_ids, mask
-                      ) -> torch.Tensor:
-    """Block-diagonal projection + gated bias + per-tile activation +
-    padding mask in one kernel.  h (B, n_in_tiles·blk), wb
-    (n_param_blocks, blk, blk), b_eff (n_out_tiles·blk,), ``layout`` a
-    ``BlockDiagLayout``, ``block_act_ids`` / ``mask`` of the OUTPUT layer →
-    (B, n_out_tiles·blk).  Pass-through members use the shared identity
-    tile appended here."""
+class _FusedInput(torch.autograd.Function):
+    """Forward: one launch emitting y and g'.  Backward: one launch
+    emitting dW_in (and dx, only when x needs a gradient — the trainer's x
+    is data, so it never does)."""
+
+    @staticmethod
+    def forward(ctx, x, w_in, b_in, ids, m, block):
+        if _on_card(x):
+            y, g = _fik.fused_input_train_cuda(
+                x.contiguous(), w_in.contiguous(), b_in.contiguous(), m, ids,
+                block=block)
+        else:
+            _fik.launches += 1
+            y, g = _fik.fused_input_train_plain(x, w_in, b_in, m, ids,
+                                                block=block)
+        ctx.save_for_backward(x, w_in, g)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w_in, g = ctx.saved_tensors
+        want_dx = ctx.needs_input_grad[0]
+        dy = dy.contiguous()
+        if _on_card(dy):
+            dx, dw = _fik.fused_input_bwd_cuda(
+                dy, g, x.contiguous(), w_in.contiguous(), with_dx=want_dx)
+        else:
+            _fik.bwd_launches += 1
+            dx, dw = _fik.fused_input_bwd_plain(dy, g, x, w_in,
+                                                with_dx=want_dx)
+        db = (dy * g).sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dw, db, None, None, None
+
+
+def fused_input(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
+                block_act_ids, mask, *, block: int) -> torch.Tensor:
+    """The training input layer: ``fused_input_infer``'s function, made
+    differentiable through the fused one-launch backward (JAX:
+    ``ops.fused_input``'s custom VJP).  Runs the serving kernel when no
+    gradient is wanted."""
+    if not _wants_grad(x, w_in, b_in):
+        return fused_input_infer(x, w_in, b_in, block_act_ids, mask,
+                                 block=block)
+    ids, m = _input_args(x, w_in, b_in, block_act_ids, mask, block)
+    return _FusedInput.apply(x, w_in, b_in, ids, m, block)
+
+
+# --------------------------------------------------------------------- #
+# fused block-diagonal mid layer                                        #
+# --------------------------------------------------------------------- #
+
+def _layer_args(h, wb, b_eff, layout, block_act_ids, mask):
     blk = layout.block
     if h.shape[1] != layout.n_in_tiles * blk:
         raise ValueError(f"input axis {h.shape[1]} != "
@@ -91,7 +159,6 @@ def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
         raise ValueError(f"bias shape {tuple(b_eff.shape)} != ({h_out},)")
     _require_f32(h=h, wb=wb, b_eff=b_eff)
     dev = h.device
-    wb_aug = torch.cat([wb, torch.eye(blk, dtype=wb.dtype, device=dev)[None]])
     acts = _as(block_act_ids, dev, torch.int32)
     if tuple(acts.shape) != (layout.n_out_tiles,):
         raise ValueError(f"{tuple(acts.shape)} activation ids for "
@@ -99,7 +166,29 @@ def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
     m = _as(mask, dev, torch.float32)
     if tuple(m.shape) != (h_out,):
         raise ValueError(f"mask shape {tuple(m.shape)} != ({h_out},)")
-    rowptr, s_in, s_w = _flk.schedule_on(layout, dev)
+    return acts, m
+
+
+def _augment(wb: torch.Tensor) -> torch.Tensor:
+    """Append the shared identity tile of pass-through members (not a
+    parameter)."""
+    eye = torch.eye(wb.shape[1], dtype=wb.dtype, device=wb.device)
+    return torch.cat([wb, eye[None]])
+
+
+def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
+                      b_eff: torch.Tensor, layout, block_act_ids, mask
+                      ) -> torch.Tensor:
+    """Block-diagonal projection + gated bias + per-tile activation +
+    padding mask in one kernel.  h (B, n_in_tiles·blk), wb
+    (n_param_blocks, blk, blk), b_eff (n_out_tiles·blk,), ``layout`` a
+    ``BlockDiagLayout``, ``block_act_ids`` / ``mask`` of the OUTPUT layer →
+    (B, n_out_tiles·blk).  Pass-through members use the shared identity
+    tile appended here."""
+    acts, m = _layer_args(h, wb, b_eff, layout, block_act_ids, mask)
+    blk = layout.block
+    wb_aug = _augment(wb)
+    rowptr, s_in, s_w = _flk.schedule_on(layout, h.device)
     if _on_card(h):
         return _flk.fused_layer_cuda(h.contiguous(), wb_aug,
                                      b_eff.contiguous(), m, acts, rowptr,
@@ -109,14 +198,61 @@ def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
                                   s_w, blk=blk)
 
 
-def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
-               block_seg_ids, *, block_h: int,
-               log_probs: bool = False) -> torch.Tensor:
-    """Forward-only output head: M3 projection + per-member bias (+ stable
-    log-softmax) in one kernel.  h (B, H), w_out (O, H), b_out (P, O) →
-    (B, P, O) f32 logits, or log-probabilities with ``log_probs``.  H must
-    be block_h-aligned and every member's blocks contiguous (sorted
-    ``block_seg_ids``)."""
+class _FusedLayer(torch.autograd.Function):
+    """Forward: one launch emitting y and g'.  Backward: one launch
+    emitting dx and dWB over the transposed steps."""
+
+    @staticmethod
+    def forward(ctx, h, wb, b_eff, layout, acts, m):
+        blk = layout.block
+        wb_aug = _augment(wb)
+        rowptr, s_in, s_w = _flk.schedule_on(layout, h.device)
+        args = (h.contiguous(), wb_aug, b_eff.contiguous(), m, acts, rowptr,
+                s_in, s_w)
+        if _on_card(h):
+            y, g = _flk.fused_layer_train_cuda(*args, blk=blk)
+        else:
+            _flk.launches += 1
+            y, g = _flk.fused_layer_train_plain(*args, blk=blk)
+        ctx.layout = layout
+        ctx.save_for_backward(h, wb_aug, g)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, wb_aug, g = ctx.saved_tensors
+        layout = ctx.layout
+        dy = dy.contiguous()
+        (rowptr_t, s_in_t, s_w_t, perm_t, out_tile,
+         in_tile) = _flk.schedule_on(layout, dy.device, transposed=True)
+        args = (dy, g, h.contiguous(), _flk.transposed_tiles(wb_aug, perm_t),
+                rowptr_t, s_in_t, s_w_t, out_tile, in_tile)
+        if _on_card(dy):
+            dx, dwb = _flk.fused_layer_dx_dw_cuda(*args, blk=layout.block)
+        else:
+            _flk.dx_dw_launches += 1
+            dx, dwb = _flk.fused_layer_dx_dw_plain(*args, blk=layout.block)
+        db = (dy * g).sum(0) if ctx.needs_input_grad[2] else None
+        return dx, dwb, db, None, None, None
+
+
+def fused_layer(h: torch.Tensor, wb: torch.Tensor, b_eff: torch.Tensor,
+                layout, block_act_ids, mask) -> torch.Tensor:
+    """The training mid layer: ``fused_layer_infer``'s function, made
+    differentiable through the fused one-launch backward (JAX:
+    ``ops.fused_layer``'s custom VJP).  Runs the serving kernel when no
+    gradient is wanted."""
+    if not _wants_grad(h, wb, b_eff):
+        return fused_layer_infer(h, wb, b_eff, layout, block_act_ids, mask)
+    acts, m = _layer_args(h, wb, b_eff, layout, block_act_ids, mask)
+    return _FusedLayer.apply(h, wb, b_eff, layout, acts, m)
+
+
+# --------------------------------------------------------------------- #
+# output heads                                                          #
+# --------------------------------------------------------------------- #
+
+def _head_args(h, w_out, b_out, block_seg_ids, block_h):
     if h.shape[1] % block_h:
         raise ValueError(f"hidden axis {h.shape[1]} not {block_h}-aligned")
     if w_out.shape[1] != h.shape[1]:
@@ -135,6 +271,18 @@ def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
     if seg.shape[0] != h.shape[1] // block_h:
         raise ValueError(f"{seg.shape[0]} segment ids for "
                          f"{h.shape[1] // block_h} hidden blocks")
+    return seg
+
+
+def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
+               block_seg_ids, *, block_h: int,
+               log_probs: bool = False) -> torch.Tensor:
+    """Forward-only output head: M3 projection + per-member bias (+ stable
+    log-softmax) in one kernel.  h (B, H), w_out (O, H), b_out (P, O) →
+    (B, P, O) f32 logits, or log-probabilities with ``log_probs``.  H must
+    be block_h-aligned and every member's blocks contiguous (sorted
+    ``block_seg_ids``)."""
+    seg = _head_args(h, w_out, b_out, block_seg_ids, block_h)
     ptr = _ihk.member_ptr(seg, b_out.shape[0])
     if _on_card(h):
         return _ihk.infer_head_cuda(h.contiguous(), w_out.contiguous(),
@@ -143,3 +291,52 @@ def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
     _ihk.launches += 1
     return _ihk.infer_head_plain(h, w_out, b_out, ptr, block=block_h,
                                  log_probs=log_probs)
+
+
+class _LossHead(torch.autograd.Function):
+    """Forward: one launch emitting the per-member losses and dlogits.
+    Backward: one launch emitting dh and dW_out."""
+
+    @staticmethod
+    def forward(ctx, h, w_out, b_out, targets, seg, block_h):
+        ptr = _ihk.member_ptr(seg, b_out.shape[0])
+        args = (h.contiguous(), w_out.contiguous(), b_out.contiguous(),
+                targets, ptr)
+        b_real = h.shape[0]
+        if _on_card(h):
+            per, dl = _lhk.loss_head_fwd_cuda(*args, block=block_h,
+                                              b_real=b_real)
+        else:
+            _lhk.fwd_launches += 1
+            per, dl = _lhk.loss_head_fwd_plain(*args, block=block_h,
+                                               b_real=b_real)
+        ctx.block_h = block_h
+        ctx.save_for_backward(h, w_out, dl, seg)
+        return per
+
+    @staticmethod
+    def backward(ctx, dper):
+        h, w_out, dl, seg = ctx.saved_tensors
+        dper = dper.contiguous()
+        args = (dper, dl, h.contiguous(), w_out.contiguous(), seg)
+        if _on_card(dper):
+            dh, dw = _lhk.loss_head_bwd_cuda(*args, block=ctx.block_h)
+        else:
+            _lhk.bwd_launches += 1
+            dh, dw = _lhk.loss_head_bwd_plain(*args, block=ctx.block_h)
+        db = dper[:, None] * dl.sum(0) if ctx.needs_input_grad[2] else None
+        return dh, dw, db, None, None, None
+
+
+def loss_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
+              targets, block_seg_ids, *, block_h: int) -> torch.Tensor:
+    """Output projection + per-member softmax cross-entropy in one kernel,
+    differentiable through a one-launch backward (JAX: ``ops.loss_head``'s
+    custom VJP).  h (B, H), w_out (O, H), b_out (P, O), integer targets
+    (B,) → per-member mean NLL (P,) f32; ``per.sum()`` is the training
+    loss.  The (B, P, O) logits never reach device memory."""
+    seg = _head_args(h, w_out, b_out, block_seg_ids, block_h)
+    tgt = _as(targets, h.device, torch.int32).reshape(-1)
+    if tgt.shape[0] != h.shape[0]:
+        raise ValueError(f"{tgt.shape[0]} targets for {h.shape[0]} rows")
+    return _LossHead.apply(h, w_out, b_out, tgt, seg, block_h)

@@ -1,28 +1,39 @@
-"""Kernel-launch counters and the serving path's launch budget.
+"""Kernel-launch counters and the launch budgets of the two paths.
 
 Each kernel wrapper (``kernels/fused_input.py``, ``fused_layer.py``,
-``infer_head.py``) keeps a plain integer ``launches`` that it raises by one
-where it launches its CUDA kernel; on a CPU tensor the dispatch layer
-(``kernels/ops.py``) counts the plain version's calls in the same counter.
-So the budget below is checked the same way on either device.
+``infer_head.py``, ``loss_head.py``) keeps plain integer counters that it
+raises by one where it launches a CUDA kernel; on a CPU tensor the
+dispatch layer (``kernels/ops.py``) counts the plain version's calls in the
+same counter.  So the budgets below are checked the same way on either
+device.  The training forwards (the kernels with g' in their epilogue)
+count under the serving forwards' names: they are the same kernels.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import fused_input, fused_layer, infer_head
+from repro_torch.kernels import fused_input, fused_layer, infer_head, loss_head
 
-_KERNELS = {"fused_input": fused_input, "fused_layer": fused_layer,
-            "infer_head": infer_head}
+# kernel name → (module, counter attribute)
+_COUNTERS = {
+    "fused_input": (fused_input, "launches"),
+    "fused_input_bwd": (fused_input, "bwd_launches"),
+    "fused_layer": (fused_layer, "launches"),
+    "fused_layer_dx_dw": (fused_layer, "dx_dw_launches"),
+    "infer_head": (infer_head, "launches"),
+    "loss_head_fwd": (loss_head, "fwd_launches"),
+    "loss_head_bwd": (loss_head, "bwd_launches"),
+}
 
 
 def kernel_launches() -> dict[str, int]:
     """{kernel name: launches counted so far}."""
-    return {name: mod.launches for name, mod in _KERNELS.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _COUNTERS.items()}
 
 
 def reset_kernel_launches():
     """Set every kernel's counter to 0."""
-    for mod in _KERNELS.values():
-        mod.launches = 0
+    for mod, attr in _COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def fused_infer_budget(depth: int) -> dict:
@@ -30,3 +41,11 @@ def fused_infer_budget(depth: int) -> dict:
     routing): input + (depth−1) mid layers + infer head = depth+1 launches
     per request batch, independent of batch size."""
     return {"fwd": depth + 1, "total": depth + 1}
+
+
+def fused_step_budget(depth: int) -> dict:
+    """The fused training step (``bd_impl="fused"`` with default input and
+    loss routing): one launch per layer per direction — input + (depth−1)
+    mid layers + loss head — so 2·(depth+1) per step at any batch size."""
+    per_dir = depth + 1
+    return {"fwd": per_dir, "bwd": per_dir, "total": 2 * per_dir}

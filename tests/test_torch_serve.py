@@ -211,7 +211,8 @@ def test_forward_fused_is_depth_plus_one_calls(np_params, x):
     before = launch_count.kernel_launches()
     tdeep.forward(params, _t(x), TLP, bd_impl="fused", infer=True)
     after = launch_count.kernel_launches()
-    assert {k: after[k] - before[k] for k in after} == \
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == \
         {"fused_input": 1, "fused_layer": TLP.depth - 1, "infer_head": 1}
 
 

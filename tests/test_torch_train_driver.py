@@ -1,0 +1,215 @@
+"""The port's training driver held against the JAX package's, on the CPU:
+resume a JAX run in the port (parameters and optimizer state), the port's
+checkpoint restored by JAX, crash replay, and the flags not ported yet.
+
+The JAX driver trains on its einsum route; the port's driver resumes with
+``--device cpu``, where every kernel runs its plain PyTorch version.
+Tolerance: optimizer trajectories, rtol 1e-5 / atol 1e-6
+(tests/test_population_optim.py).
+"""
+import shutil
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from repro.checkpoint import checkpoint as jckpt
+from repro.core import deep as jdeep
+from repro.launch import train as jtrain
+from repro.optim import optimizers as jopt
+from repro_torch.checkpoint import checkpoint as tckpt
+from repro_torch.core import deep as tdeep
+from repro_torch.core.tree import tree_leaves
+from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
+                                                     TrainRunner)
+from repro_torch.launch import train as ttrain
+from repro_torch.optim import optimizers as topt
+
+TRAJ = dict(rtol=1e-5, atol=1e-6)
+RECIPE = ["--arch", "parallelmlp-10k", "--reduced", "--batch", "8",
+          "--samples", "128", "--scan-steps", "2", "--population-depths",
+          "6,4;5;3,4,2", "--population-acts", "relu,tanh,mish",
+          "--population-repeats", "2", "--population-features", "5",
+          "--optimizer", "adamw", "--weight-decay", "0.01", "--grad-clip",
+          "1.0", "--lr-schedule", "warmup_cosine", "--warmup", "3",
+          "--ckpt-every", "2"]
+
+
+def _assert_trees(got, want):
+    gl, wl = tree_leaves(got), jax.tree.leaves(want)
+    assert len(gl) == len(wl)
+    for i, (a, b) in enumerate(zip(gl, wl)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   err_msg=f"leaf {i}", **TRAJ)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(tmp_path_factory):
+    """JAX trains 4 steps and saves; then JAX resumes it to step 8 from a
+    copy.  Returns (the 4-step checkpoint dir, JAX's resumed params)."""
+    base = tmp_path_factory.mktemp("jax")
+    first = base / "first"
+    jtrain.main(RECIPE + ["--steps", "4", "--ckpt-dir", str(first),
+                          "--pipeline", "off"])
+    resumed = base / "resumed"
+    shutil.copytree(first, resumed)
+    params, _ = jtrain.main(RECIPE + ["--steps", "8", "--ckpt-dir",
+                                      str(resumed), "--pipeline", "off",
+                                      "--resume"])
+    return first, jax.device_get(params)
+
+
+def test_port_resumes_a_jax_run(jax_runs, tmp_path, capsys):
+    """The port restores JAX's checkpoint — parameters and AdamW state —
+    continues the run with the same schedule, and lands on JAX's own
+    resumed parameters; its checkpoint then restores in JAX."""
+    first, jax_params = jax_runs
+    ck = tmp_path / "port"
+    shutil.copytree(first, ck)
+    params, lp, stats = ttrain.main(RECIPE + ["--steps", "8", "--ckpt-dir",
+                                              str(ck), "--device", "cpu",
+                                              "--bd-impl", "fused",
+                                              "--resume"])
+    out = capsys.readouterr().out
+    assert "resumed from step 3" in out and "leaderboard:" in out
+    assert "mean member loss" in out and "trained 6 MLPs" in out
+    assert stats["steps"] == 4
+    _assert_trees(params, jax_params)
+
+    # JAX reads the port's final checkpoint: same layout, params, state
+    meta, step = jckpt.load_meta(str(ck))
+    assert step == 7 and meta["train"]["optimizer"]["name"] == "adamw"
+    jlp = jckpt.layout_from_meta(meta)
+    opt = jopt.adamw(weight_decay=0.01)
+    extra_like = jax.eval_shape(opt.init, jdeep.abstract_params(jlp))
+    jp, jl, _, jst = jckpt.restore_population(str(ck),
+                                              extra_like=extra_like)
+    assert jl.widths == lp.widths and jl.activations == lp.activations
+    for a, b in zip(jax.tree.leaves(jp), tree_leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    assert int(jst["count"]) == 8
+    tparams, _, _, tst = tckpt.restore_population(
+        str(ck), device="cpu",
+        extra_like=topt.adamw(weight_decay=0.01).init(
+            tdeep.abstract_params(lp)))
+    for a, b in zip(jax.tree.leaves(jst), tree_leaves(tst)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_resume_rejects_another_optimizer(jax_runs, tmp_path):
+    ck = tmp_path / "port"
+    shutil.copytree(jax_runs[0], ck)
+    bad = [a if a != "adamw" else "momentum" for a in RECIPE]
+    with pytest.raises(ValueError, match="optimizer config mismatch"):
+        ttrain.main(bad + ["--steps", "8", "--ckpt-dir", str(ck),
+                           "--device", "cpu", "--resume"])
+
+
+def test_crash_replay_matches_an_unbroken_run(tmp_path):
+    """``TrainRunner``: a failure mid-run restores the last checkpoint and
+    replays; the result equals a run that never failed, bit for bit, and
+    ``on_restore`` hears the replay's re-entry step."""
+    from repro_torch.core.population import LayeredPopulation
+    lp = LayeredPopulation(4, 2, ((6, 3), (5,)), ("relu", "tanh"))
+    rng = np.random.default_rng(0)
+    xs = torch.as_tensor(rng.normal(0, 1, (6, 8, 4)).astype(np.float32))
+    ys = torch.as_tensor(rng.integers(0, 2, (6, 8)))
+    opt = topt.sgd(momentum=0.9)
+
+    def run(ckpt_dir, fail_at=None):
+        params = tdeep.init_params(torch.Generator().manual_seed(0), lp)
+        failed, restored = [], []
+
+        def step_fn(state, s):
+            p, st, *_ = tdeep.opt_step(state["params"], state["extra"],
+                                       xs[s], ys[s], 0.1, opt, lp,
+                                       bd_impl="fused")
+            return {"params": p, "extra": st}, {}
+
+        def hook(s):
+            if s == fail_at and not failed:
+                failed.append(s)
+                raise RuntimeError("injected failure")
+
+        runner = TrainRunner(step_fn, {"params": params,
+                                       "extra": opt.init(params)},
+                             ckpt_dir=str(ckpt_dir), ckpt_every=2,
+                             failure_hook=hook,
+                             on_restore=restored.append,
+                             straggler=StragglerPolicy(timeout_s=1e9))
+        assert runner.run(6) == 6
+        return runner, restored
+
+    clean, _ = run(tmp_path / "clean")
+    # checkpoints at steps 0, 2, 4: a failure at 5 re-enters at 5, one at 0
+    # (before any checkpoint) replays from the initial-state snapshot
+    broken, restored = run(tmp_path / "broken", fail_at=5)
+    assert broken.restarts == 1 and restored == [5]
+    early, restored = run(tmp_path / "early", fail_at=0)
+    assert restored == [0]
+    for r in (broken, early):
+        for a, b in zip(tree_leaves(r.state), tree_leaves(clean.state)):
+            assert torch.equal(a, b)
+    pol = StragglerPolicy(timeout_s=1.0, max_strikes=2)
+    pol.observe(0, 2.0)
+    with pytest.raises(TimeoutError):
+        pol.observe(1, 3.0)
+    assert pol.events == [(0, 2.0), (1, 3.0)]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--halving", "4:0.5"],
+    ["--halving", "4:0.5", "--refill", "pbt"],
+    ["--per-member-lr"],
+    ["--optimizer", "momentum", "--per-member-momentum"],
+    ["--compute-dtype", "bfloat16"],
+    ["--optimizer", "adafactor"],
+    ["--optimizer", "adamw", "--opt-state-dtype", "bfloat16"],
+    ["--serve-publish"],
+    ["--pipeline", "on"],
+    ["--bd-impl", "pallas"],
+    ["--m3-impl", "pallas"],
+    ["--act-impl", "pallas"],
+], ids=lambda f: " ".join(f))
+def test_unported_flags_raise(flags, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.main(["--arch", "parallelmlp-10k", "--reduced", "--steps",
+                     "2", "--ckpt-dir", str(tmp_path), "--device", "cpu",
+                     *flags])
+
+
+def test_ckpt_dir_defaults_to_a_fresh_temp_dir(tmp_path, monkeypatch,
+                                               capsys):
+    """Without ``--ckpt-dir`` each run checkpoints into a new directory
+    under the temporary root, never a shared fixed path; ``--resume``
+    without it is refused."""
+    monkeypatch.setattr("tempfile.tempdir", str(tmp_path))
+    tiny = ["--arch", "parallelmlp-10k", "--reduced", "--steps", "2",
+            "--batch", "4", "--samples", "64", "--scan-steps", "2",
+            "--population-depths", "4;3", "--population-features", "5",
+            "--ckpt-every", "2", "--device", "cpu"]
+    dirs = []
+    for _ in range(2):
+        ttrain.main(tiny)
+        line = next(s for s in capsys.readouterr().out.splitlines()
+                    if s.startswith("checkpoints: "))
+        dirs.append(line.split(": ", 1)[1])
+    assert dirs[0] != dirs[1]
+    for d in dirs:
+        assert str(tmp_path) in d and tckpt.latest_steps(d) == [1]
+    with pytest.raises(SystemExit, match="--ckpt-dir"):
+        ttrain.main(tiny + ["--resume"])
+
+
+def test_depth_spec_and_population_flags():
+    assert ttrain.parse_depth_spec("64,32,16;13,5;7") == \
+        jtrain.parse_depth_spec("64,32,16;13,5;7") == \
+        ((64, 32, 16), (13, 5), (7,))
+    with pytest.raises(ValueError):
+        ttrain.parse_depth_spec(" ; ")
+    lp = ttrain.population_from_flags("64,32,16;13,5;7", "paper", 100,
+                                      repeats=10)
+    assert lp.num_members == 30 and lp.depth == 3 and lp.block == 8
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrain.main(["--arch", "qwen3-1.7b", "--device", "cpu"])
