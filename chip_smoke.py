@@ -21,13 +21,22 @@ Phases (any failure exits non-zero, and no result line is printed):
           ``--population-depths "64,32,16;13,5;7" --population-acts paper
           --population-features 100 --population-repeats 1000`` (block 8),
           served the same way (launch budget 4);
+       c. the int8 serving path: both checkpoints served again by
+          ``serve_population.main --weights-dtype int8``, each run counted
+          alone: depth+1 launches a forward, int8 kernels only; req/s and
+          p50/p99 per mode beside the f32 serve's; then each checkpoint's
+          int8 copy as the server holds it: device memory with only that
+          copy alive, byte-equal to the copy quantized on the CPU, its
+          size against the f32 tree's, and its forward against the f32
+          kernels on its dequantized tree;
   4. the training path, the counters set to 0 just before each training
      run and read just after it (the held-out checks run outside them):
        a. ``parallelmlp-10k`` at full width trained by
           ``repro_torch.launch.train.main`` (``--bd-impl fused``, sgd, batch
           32, 16 steps in chunks of 8, checkpoints every 8 steps), then the
-          trained checkpoint served by ``serve_population.main`` (counted
-          on the serving path);
+          trained checkpoint served by ``serve_population.main`` in f32
+          and in int8 (counted on the two serving paths; the int8 copy
+          checked as in 3c);
        b. the depth-3 population trained with ``--optimizer adamw
           --grad-clip 1.0 --lr-schedule warmup_cosine``;
   5. the training step's invariants: one ``opt_step`` is exactly
@@ -43,9 +52,12 @@ Phases (any failure exits non-zero, and no result line is printed):
   7. each kernel, its plain version and the nearest library call timed
      with CUDA events; the least time the card could take (bound) from the
      bytes and operations of this run's inputs;
-  8. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel),
-     then the card's line ``{"ok": true, "device": {...}}`` last.
+  8. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel;
+     the int8 rows' library call is the f32 row's on the dequantized
+     weight, the dequantization not timed), then the card's line
+     ``{"ok": true, "device": {...}}`` last.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -63,17 +75,24 @@ BATCH = 32
 DEPTH3 = dict(depths="64,32,16;13,5;7", acts="paper", features=100,
               repeats=1000)
 SERVE_KERNELS = ("fused_input", "fused_layer", "infer_head")
+INT8_KERNELS = ("fused_input_int8", "fused_layer_int8", "infer_head_int8")
 # every ported TPU kernel: its row name → the Pallas function it replaces
 REPLACES = {
     "fused_input": "src/repro/kernels/fused_input.py:83",
+    "fused_input_int8": "src/repro/kernels/fused_input.py:161",
     "fused_input_bwd": "src/repro/kernels/fused_input.py:242",
     "fused_layer": "src/repro/kernels/fused_layer.py:98",
+    "fused_layer_int8": "src/repro/kernels/fused_layer.py:183",
     "fused_layer_dx_dw": "src/repro/kernels/fused_layer.py:287",
     "infer_head": "src/repro/kernels/infer_head.py:75",
+    "infer_head_int8": "src/repro/kernels/infer_head.py:150",
     "loss_head_fwd": "src/repro/kernels/loss_head.py:101",
     "loss_head_bwd": "src/repro/kernels/loss_head.py:175",
 }
-SOURCES = {"loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head"}
+SOURCES = {"loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head",
+           "fused_input_int8": "fused_input",
+           "fused_layer_int8": "fused_layer",
+           "infer_head_int8": "infer_head"}
 
 
 def _require(cond, msg: str):
@@ -136,15 +155,16 @@ def _close(name, got, want):
 # the serving path                                                      #
 # --------------------------------------------------------------------- #
 
-def serve_checkpoint(name: str, ckpt: Path, budget: int):
-    """Serve a checkpoint through the serving driver; check its launch
-    budget and that every mode answered."""
+def serve_checkpoint(name: str, ckpt: Path, budget: int, int8=False):
+    """Serve a checkpoint through the serving driver (its int8 copy with
+    ``int8``); check its launch budget and that every mode answered."""
     import torch
 
     from repro_torch.launch import serve_population
     t0 = time.perf_counter()
-    out = serve_population.main(["--ckpt-dir", str(ckpt), "--requests",
-                                 "256", "--batch", str(BATCH)])
+    out = serve_population.main(
+        ["--ckpt-dir", str(ckpt), "--requests", "256", "--batch", str(BATCH),
+         *(["--weights-dtype", "int8"] if int8 else [])])
     torch.cuda.synchronize()
     print(f"[{name}] served in {time.perf_counter() - t0:.1f} s", flush=True)
     _require(out["budget"] == {"launches": budget, "budget": budget},
@@ -157,7 +177,8 @@ def serve_checkpoint(name: str, ckpt: Path, budget: int):
 
 def serve(name: str, lp, seed: int, workdir: Path, budget: int):
     """Init ``lp`` on the card, checkpoint it, and serve the checkpoint.
-    Returns (params, driver result)."""
+    Returns (checkpoint dir, driver result); the parameters are not kept
+    on the card."""
     import torch
 
     from repro_torch.checkpoint.checkpoint import save_population
@@ -169,7 +190,85 @@ def serve(name: str, lp, seed: int, workdir: Path, budget: int):
     save_population(str(ckpt), 0, params, lp)
     print(f"[{name}] {lp.describe()}; checkpoint written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return params, serve_checkpoint(name, ckpt, budget)
+    del params
+    return ckpt, serve_checkpoint(name, ckpt, budget)
+
+
+def serve_int8(name: str, ckpt: Path, budget: int, f32_out: dict):
+    """Serve ``ckpt``'s int8 copy through the serving driver, counted
+    alone: int8 kernels only, no f32 kernel.  Prints each mode's req/s and
+    p50/p99 beside the f32 serve's.  Returns (driver result, the run's
+    kernel launches)."""
+    import torch
+
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    reset_kernel_launches()
+    out = serve_checkpoint(f"{name} int8", ckpt, budget, int8=True)
+    torch.cuda.synchronize()
+    n = kernel_launches()
+    other = {k: v for k, v in n.items() if k not in INT8_KERNELS and v}
+    _require(not other, f"{name} int8: non-int8 kernels launched {other}")
+    for mode, row in out["serve"].items():
+        ref = f32_out["serve"][mode]
+        print(f"[{name}] {mode:5s} f32 {ref['req_per_s']:.0f} req/s p50 "
+              f"{ref['p50_ms']:.2f} p99 {ref['p99_ms']:.2f} ms | int8 "
+              f"{row['req_per_s']:.0f} req/s p50 {row['p50_ms']:.2f} p99 "
+              f"{row['p99_ms']:.2f} ms", flush=True)
+    return out, n
+
+
+def check_int8(name: str, ckpt: Path, x) -> dict:
+    """The int8 copy as ``PopulationServer(weights_dtype="int8")`` holds
+    it: device memory allocated once it alone is on the card (besides
+    what the caller holds, printed as the baseline), byte-equal to the copy
+    quantized on the CPU from the same masters, its size against the f32
+    tree's, and its forward against the f32 kernels on its dequantized
+    tree."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import restore_population
+    from repro_torch.core.deep import forward
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.serve_population import PopulationServer
+    from repro_torch.quant import (dequantize_population,
+                                   quantize_population, serve_copy_bytes)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    server, _ = PopulationServer.from_checkpoint(
+        str(ckpt), device="cuda", weights_dtype="int8", batch=BATCH)
+    server.check_budget()                # the first consumer: quantizes
+    torch.cuda.synchronize()
+    alloc = torch.cuda.memory_allocated()
+    q, lp = server.params, server.layout
+    masters, _, _ = restore_population(str(ckpt), device="cpu")
+    q_cpu = quantize_population(masters, lp)
+    _require(all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                 for a, b in zip(tree_leaves(q), tree_leaves(q_cpu))),
+             f"{name}: the int8 copy quantized on the card differs from the "
+             "CPU's")
+    n8, n32 = serve_copy_bytes(q), serve_copy_bytes(masters)
+    with torch.inference_mode():
+        got = forward(q, x, lp, bd_impl="fused", infer=True,
+                      weights_dtype="int8")
+        want = forward(dequantize_population(q, lp), x, lp, bd_impl="fused",
+                       infer=True)
+    want_shape = (x.shape[0], lp.num_members, lp.out_features)
+    _require(tuple(got.shape) == want_shape
+             and bool(torch.isfinite(got).all()),
+             f"{name}: int8 logits {tuple(got.shape)} not finite "
+             f"{want_shape}")
+    err = _close(f"{name}: int8 forward vs f32 kernels on the dequantized "
+                 "tree", got, want)
+    out = {"memory_allocated": alloc, "baseline_allocated": base,
+           "serve_copy_bytes": n8, "f32_bytes": n32,
+           "max_abs_err_vs_dequant": err}
+    print(f"[{name}] int8 copy: memory_allocated {alloc} B ({base} B "
+          f"before the server); serve copy {n8} B vs f32 {n32} B "
+          f"({n32 / n8:.2f}x); byte-equal to the CPU's; forward vs f32 "
+          f"kernels on the dequantized tree max|err| {err!r}", flush=True)
+    return out
 
 
 def check_forward(name, params, lp, x):
@@ -422,7 +521,7 @@ def _sum_rows(rows):
     return row
 
 
-def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
+def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n):
     """Phases 6 + 7: every ported kernel at the main paths' shapes."""
     import numpy as np
     import torch
@@ -433,9 +532,12 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
     from repro_torch.kernels import fused_layer as flk
     from repro_torch.kernels import infer_head as ihk
     from repro_torch.kernels import loss_head as lhk
+    from repro_torch.quant import quantize_population
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = {}
+    q10k = quantize_population(p10k, lp10k)
+    q3k = quantize_population(p3k, lp3k)
 
     # ---- fused_input at full width: x (32, 100) · W_in (1,280,000, 100)ᵀ
     p0 = lp10k.layer_pop(0)
@@ -461,6 +563,25 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
         partial(fik.fused_input_train_plain, *fin, block=blk),
         _nbytes(*fin, h, g), 2 * BATCH * w.shape[0] * w.shape[1],
         train_n["fused_input"], 20))
+
+    # ---- fused_input_int8 at full width: x (32, 100) · W_q (1,280,000,
+    # 104) int8ᵀ; the library call is addmm on the dequantized weight
+    wq, wqs = q10k["w_in"], q10k["w_in_scale"]
+    fin8 = (x, wq, wqs, b, mask, ids)
+    h8 = fik.fused_input_int8_cuda(*fin8, block=blk)
+    wdq = wq[:, :x.shape[1]].float() * wqs.repeat_interleave(blk)[:, None]
+
+    def library_input8():
+        z = torch.addmm(b, x, wdq.t())
+        return apply_activations_sliced(z, p0.act_runs) * mask
+
+    rows["fused_input_int8"] = compare(
+        "fused_input_int8", partial(fik.fused_input_int8_cuda, *fin8,
+                                    block=blk),
+        partial(fik.fused_input_int8_plain, *fin8, block=blk),
+        library_input8, _nbytes(*fin8, h8),
+        2 * BATCH * wq.shape[0] * x.shape[1], int8_n["fused_input_int8"], 20)
+    del wdq
 
     # ---- fused_input_bwd at full width, as on the path (no dx: x is data)
     dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-3
@@ -504,6 +625,25 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
     want = ihk.infer_head_plain(h, w2, b2, ptr, block=blk, log_probs=True)
     _close("infer_head log_probs: kernel vs plain", got, want)
 
+    # ---- infer_head_int8 at full width, on the int8 input layer's output;
+    # the library call is the f32 row's baddbmm on the dequantized weight
+    w2q, w2s = q10k["w_out"], q10k["w_out_scale"]
+    head8 = (h8, w2q, w2s, b2, ptr)
+    y8 = ihk.infer_head_int8_cuda(*head8, block=blk)
+    hb8 = h8.view(BATCH, n_mem, width).transpose(0, 1)
+    wb2dq = (w2q.float() * w2s.repeat_interleave(blk)[None, :]).view(
+        w2q.shape[0], n_mem, width).permute(1, 2, 0)
+    rows["infer_head_int8"] = compare(
+        "infer_head_int8", partial(ihk.infer_head_int8_cuda, *head8,
+                                   block=blk),
+        partial(ihk.infer_head_int8_plain, *head8, block=blk),
+        lambda: torch.baddbmm(b2[:, None, :], hb8, wb2dq),
+        _nbytes(*head8, y8), 2 * BATCH * h8.shape[1] * w2q.shape[0],
+        int8_n["infer_head_int8"], 20)
+    got = ihk.infer_head_int8_cuda(*head8, block=blk, log_probs=True)
+    want = ihk.infer_head_int8_plain(*head8, block=blk, log_probs=True)
+    _close("infer_head_int8 log_probs: kernel vs plain", got, want)
+
     tgt = torch.randint(0, lp10k.out_features, (BATCH,), generator=gen,
                         device=dev, dtype=torch.int32)
     lh = (h, w2, b2, tgt, ptr)
@@ -535,7 +675,12 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
         torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
         torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
         block=lp3k.block)
-    fwd_rows, bwd_rows = [], []
+    hin8 = fik.fused_input_int8_cuda(
+        x3, q3k["w_in"], q3k["w_in_scale"], q3k["b_in"],
+        torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
+        torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
+        block=lp3k.block)
+    fwd_rows, bwd_rows, int8_rows = [], [], []
     for l in range(lp3k.depth - 1):
         lay = lp3k.bd_layout(l)
         pout = lp3k.layer_pop(l + 1)
@@ -569,6 +714,26 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
             _nbytes(*args, out, g3), flops, train_n["fused_layer"], 50))
         fwd_rows.append(row)
 
+        # the int8 twin, fed by the int8 path's previous layer; the
+        # library call is the BSR matmul on the dequantized tiles
+        wbq, wbs = q3k["mid"][l]["wb"], q3k["mid"][l]["scale"]
+        b_eff8 = q3k["mid"][l]["b"] * torch.as_tensor(
+            lp3k.active_unit_mask(l + 1), dtype=torch.float32, device=dev)
+        args8 = (hin8, wbq, wbs, b_eff8, m3, a3, *sched)
+        out8 = flk.fused_layer_int8_cuda(*args8, blk=b3)
+        bsr8 = torch.sparse_bsr_tensor(
+            sched[0], sched[1],
+            (wbq.float() * wbs[:, None, None])[sched[2].long()],
+            size=(lay.n_out_tiles * b3, lay.n_in_tiles * b3),
+            check_invariants=True)
+        int8_rows.append(compare(
+            "fused_layer_int8", partial(flk.fused_layer_int8_cuda, *args8,
+                                        blk=b3),
+            partial(flk.fused_layer_int8_plain, *args8, blk=b3),
+            partial(torch.matmul, bsr8, hin8.t()),
+            _nbytes(*args8, out8), flops, int8_n["fused_layer_int8"], 50))
+        hin8 = out8
+
         rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
             lay, dev, transposed=True)
         wb_t = flk.transposed_tiles(wb, perm_t)
@@ -590,6 +755,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n):
             train_n["fused_layer_dx_dw"], 50))
         hin = out
     rows["fused_layer"] = _sum_rows(fwd_rows)
+    rows["fused_layer_int8"] = _sum_rows(int8_rows)
     rows["fused_layer_dx_dw"] = _sum_rows(bwd_rows)
     return [rows[name] for name in REPLACES]
 
@@ -623,6 +789,7 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     # 2. build
+    from repro_torch.checkpoint.checkpoint import restore_population
     from repro_torch.configs import parallelmlp_10k
     from repro_torch.kernels import _build
     from repro_torch.launch.launch_count import (kernel_launches,
@@ -651,11 +818,16 @@ def main() -> int:
         _require(lp3k.num_members == 3000 and lp3k.depth == 3,
                  "the trainer population is not 3,000 members deep 3")
 
+        # a batch of the task for the checks (phases 3c and 5)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        x = torch.randn(BATCH, 100, generator=gen, device="cuda")
+        y = torch.randint(0, 2, (BATCH,), generator=gen, device="cuda")
+
         # 3. the serving path
         torch.cuda.reset_peak_memory_stats()
         reset_kernel_launches()
-        p10k, out10k = serve("parallelmlp-10k", lp10k, 0, workdir, 2)
-        p3k, out3k = serve("trainer-depth3", lp3k, 1, workdir, 4)
+        ck10k0, out10k = serve("parallelmlp-10k", lp10k, 0, workdir, 2)
+        ck3k0, out3k = serve("trainer-depth3", lp3k, 1, workdir, 4)
         torch.cuda.synchronize()
         serve_n = kernel_launches()
         print(f"serving path kernel launches: {serve_n}; peak device memory "
@@ -664,6 +836,19 @@ def main() -> int:
         for name in SERVE_KERNELS:
             _require(serve_n[name] > 0, f"kernel {name} was not launched on "
                      "the serving path")
+
+        # 3c. the int8 serving path, each run counted alone; then the
+        # servers' int8 copies checked with nothing else on the card
+        out8, int8_n = {}, dict.fromkeys(INT8_KERNELS, 0)
+        fresh = (("parallelmlp-10k", ck10k0, 2, out10k),
+                 ("trainer-depth3", ck3k0, 4, out3k))
+        for name, ck, budget, f32_out in fresh:
+            out8[name], n = serve_int8(name, ck, budget, f32_out)
+            int8_n = {k: int8_n[k] + n[k] for k in INT8_KERNELS}
+        int8_copy = {name: check_int8(name, ck, x)
+                     for name, ck, _, _ in fresh}
+        p10k = restore_population(str(ck10k0), device="cuda")[0]
+        p3k = restore_population(str(ck3k0), device="cuda")[0]
 
         # 4. the training path: each run counted alone (train()), the
         # held-out checks outside the counts; the trained checkpoint's serve
@@ -675,6 +860,14 @@ def main() -> int:
         served = serve_checkpoint("parallelmlp-10k trained", ck10k, 2)
         torch.cuda.synchronize()
         serve_n = _add_counts(serve_n, kernel_launches())
+        name = "parallelmlp-10k trained"
+        out8[name], n = serve_int8(name, ck10k, 2, served)
+        int8_n = {k: int8_n[k] + n[k] for k in INT8_KERNELS}
+        int8_copy[name] = check_int8(name, ck10k, x)
+        print(f"int8 serving path kernel launches: {int8_n}", flush=True)
+        for name, n in int8_n.items():
+            _require(n > 0, f"kernel {name} was not launched on the int8 "
+                     "serving path")
         t3k, _, stats3k, _, n3k = train(
             "trainer-depth3", workdir,
             ["--arch", "parallelmlp-10k", "--population-depths",
@@ -689,13 +882,11 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         for name, n in train_n.items():
-            _require(n > 0, f"kernel {name} was not launched on the "
+            _require((n == 0) if name in INT8_KERNELS else (n > 0),
+                     f"kernel {name} was launched {n} times on the "
                      "training path")
 
     # 5. the training step's invariants, on a batch of the task
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn(BATCH, 100, generator=gen, device="cuda")
-    y = torch.randint(0, 2, (BATCH,), generator=gen, device="cuda")
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
     check_train_step("trainer-depth3", t3k, lp3k, x, y)
     steps = {"parallelmlp-10k": time_train_step("parallelmlp-10k", t10k,
@@ -706,7 +897,7 @@ def main() -> int:
     # 6 + 7. each kernel against its plain version; timings; outputs
     check_forward("parallelmlp-10k", p10k, lp10k, x)
     check_forward("trainer-depth3", p3k, lp3k, x)
-    rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n)
+    rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n)
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")
     _require({Path(r["source"]).stem for r in rows} >= set(libs),
@@ -716,6 +907,8 @@ def main() -> int:
     print(json.dumps({"serve": {"parallelmlp-10k": out10k["serve"],
                                 "trainer-depth3": out3k["serve"],
                                 "parallelmlp-10k trained": served["serve"]},
+                      "serve_int8": {k: v["serve"] for k, v in out8.items()},
+                      "int8_copy": int8_copy,
                       "train": {"parallelmlp-10k": stats10k,
                                 "trainer-depth3": stats3k},
                       "train_step": steps,

@@ -27,7 +27,12 @@ Parameters are a dict tree with the JAX package's layout:
 ``w_in (H0, F)``, ``b_in (H0,)``, ``mid[l] = {"w": [per-bucket
 (n, hout, hin)], "b": (H_{l+1},)}``, ``w_out (O, H_last)``,
 ``b_out (P, O)``; ``params_from_numpy`` carries a JAX-trained tree in.
-Computation is float32 only so far.
+
+Serving also runs over the int8 serve copy (``quant.quantize_population``,
+``forward(infer=True, weights_dtype="int8")``): the same depth+1 launches,
+each an int8-weight twin of its f32 kernel that dequantizes inside its tile
+loop.  ``qparams_from_numpy`` carries the JAX package's int8 tree in.
+Activations are computed in float32 only so far.
 """
 from __future__ import annotations
 
@@ -38,12 +43,13 @@ from repro_torch.core.activations import (ACTIVATIONS,
                                           apply_activations_masked,
                                           apply_activations_sliced)
 from repro_torch.core.m3 import (HEAD_IMPLS, LOSS_IMPLS, m3, m3_infer_head,
-                                 m3_loss_head)
+                                 m3_infer_head_int8, m3_loss_head)
 from repro_torch.core.population import LayeredPopulation
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.quant import abstract_qparams
 
-_NOT_YET = ("the port computes in float32 only so far; bf16 compute "
-            "and the int8 serve copy are still to be ported (ROADMAP.md)")
+_NOT_YET = ("the port computes in float32 only so far; the bf16 compute "
+            "policy is still to be ported (ROADMAP.md, Queue 1 item 6)")
 _PALLAS = ("the unfused Pallas-kernel alternatives (block_diag, m3_matmul, "
            "seg_act) are not ported yet (ROADMAP.md, Queue 2); the fused "
            "path needs none of them")
@@ -122,6 +128,25 @@ def block_diag_fused(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
         _static(lp, ("mask", l + 1), dev, pout.hidden_mask, torch.float32))
 
 
+def block_diag_fused_infer_int8(h: torch.Tensor, qlayer: dict,
+                                lp: LayeredPopulation, l: int
+                                ) -> torch.Tensor:
+    """The fused mid layer over the int8 serve copy: ``qlayer`` is one
+    ``quantize_population`` mid entry — the packed, identity-augmented int8
+    tiles, their f32 scales and the f32 bias — so nothing is packed or
+    appended per call; the kernel dequantizes per step.  Forward only."""
+    from repro_torch.kernels.ops import fused_layer_infer_int8
+    dev = h.device
+    pout = lp.layer_pop(l + 1)
+    b_eff = qlayer["b"] * _static(lp, ("active", l + 1), dev,
+                                  lp.active_unit_mask(l + 1), torch.float32)
+    return fused_layer_infer_int8(
+        h, qlayer["wb"], qlayer["scale"], b_eff, lp.bd_layout(l),
+        _static(lp, ("block_act", l + 1), dev, pout.block_act_ids,
+                torch.int32),
+        _static(lp, ("mask", l + 1), dev, pout.hidden_mask, torch.float32))
+
+
 BD_IMPLS = {
     "einsum": block_diag_einsum,
     "fused": block_diag_fused,
@@ -153,6 +178,22 @@ def input_fused(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
     p0 = lp.layer_pop(0)
     return fused_input(
         x, w_in, b_in,
+        _static(lp, ("block_act", 0), dev, p0.block_act_ids, torch.int32),
+        _static(lp, ("mask", 0), dev, p0.hidden_mask, torch.float32),
+        block=lp.block)
+
+
+def input_fused_infer_int8(x: torch.Tensor, w_q: torch.Tensor,
+                           w_scale: torch.Tensor, b_in: torch.Tensor,
+                           lp: LayeredPopulation) -> torch.Tensor:
+    """The fused input layer over the int8 serve copy: the pre-padded int8
+    weight and its per-row-block scales, dequantized inside the kernel.
+    Forward only."""
+    from repro_torch.kernels.ops import fused_input_infer_int8
+    dev = x.device
+    p0 = lp.layer_pop(0)
+    return fused_input_infer_int8(
+        x, w_q, w_scale, b_in,
         _static(lp, ("block_act", 0), dev, p0.block_act_ids, torch.int32),
         _static(lp, ("mask", 0), dev, p0.hidden_mask, torch.float32),
         block=lp.block)
@@ -250,34 +291,34 @@ def init_params(generator: torch.Generator, lp: LayeredPopulation,
     return params
 
 
+def _from_numpy(tree, like, device, where: str):
+    """A tree of numpy arrays → tensors on ``device`` with the dtypes of
+    ``like`` (a tree of meta tensors), every shape checked against it; an
+    int8 leaf must arrive as int8."""
+    if isinstance(like, dict):
+        return {k: _from_numpy(tree[k], v, device, f"{where}{k}/")
+                for k, v in like.items()}
+    if isinstance(like, list):
+        if len(tree) != len(like):
+            raise ValueError(f"{where[:-1]}: {len(tree)} entries, the "
+                             f"layout has {len(like)}")
+        return [_from_numpy(a, b, device, f"{where}{i}/")
+                for i, (a, b) in enumerate(zip(tree, like))]
+    arr = np.asarray(tree)
+    if tuple(arr.shape) != tuple(like.shape):
+        raise ValueError(f"{where[:-1]}: shape {arr.shape} != "
+                         f"{tuple(like.shape)} for this layout")
+    if like.dtype == torch.int8 and arr.dtype != np.int8:
+        raise ValueError(f"{where[:-1]}: {arr.dtype}, the int8 serve copy "
+                         "stores int8")
+    return torch.tensor(arr, dtype=like.dtype, device=device)
+
+
 def params_from_numpy(tree, lp: LayeredPopulation, device="cuda") -> dict:
     """A parameter tree of numpy arrays (e.g. the JAX package's, through
     ``jax.device_get``) → float32 tensors on ``device``, shape-checked
     against ``lp``."""
-    shapes = abstract_params(lp)
-
-    def conv(a, like, where):
-        arr = np.asarray(a)
-        if tuple(arr.shape) != tuple(like.shape):
-            raise ValueError(f"{where}: shape {arr.shape} != "
-                             f"{tuple(like.shape)} for this layout")
-        return torch.tensor(arr, dtype=torch.float32, device=device)
-
-    if len(tree["mid"]) != len(shapes["mid"]):
-        raise ValueError(f"{len(tree['mid'])} mid layers for depth "
-                         f"{lp.depth}")
-    out = {k: conv(tree[k], shapes[k], k)
-           for k in ("w_in", "b_in", "w_out", "b_out")}
-    out["mid"] = []
-    for l, (lay, shp) in enumerate(zip(tree["mid"], shapes["mid"])):
-        if len(lay["w"]) != len(shp["w"]):
-            raise ValueError(f"mid/{l}: {len(lay['w'])} weight buckets, "
-                             f"layout has {len(shp['w'])}")
-        out["mid"].append({
-            "w": [conv(w, s, f"mid/{l}/w/{i}")
-                  for i, (w, s) in enumerate(zip(lay["w"], shp["w"]))],
-            "b": conv(lay["b"], shp["b"], f"mid/{l}/b")})
-    return out
+    return _from_numpy(tree, abstract_params(lp), device, "")
 
 
 def params_to_numpy(params) -> dict:
@@ -287,6 +328,18 @@ def params_to_numpy(params) -> dict:
     if isinstance(params, (list, tuple)):
         return [params_to_numpy(v) for v in params]
     return params.detach().cpu().numpy()
+
+
+def qparams_from_numpy(tree, lp: LayeredPopulation, device="cuda") -> dict:
+    """An int8 serve copy of numpy arrays (e.g. the JAX package's
+    ``quantize_population`` tree, through ``jax.device_get``) → tensors on
+    ``device``, int8 tiles and f32 scales and biases, shape-checked against
+    ``lp`` (``quant.abstract_qparams``)."""
+    return _from_numpy(tree, abstract_qparams(lp), device, "")
+
+
+# the inverse of qparams_from_numpy: the same leaf-by-leaf conversion
+qparams_to_numpy = params_to_numpy
 
 
 # ---------------------------------------------------------------------- #
@@ -311,24 +364,61 @@ def _act(lp: LayeredPopulation, l: int, h: torch.Tensor,
     return h * _static(lp, ("mask", l), dev, pop.hidden_mask, torch.float32)
 
 
+def _resolve_weights_dtype(weights_dtype):
+    """None / "float32" → None (weights consumed as stored); "int8" → the
+    int8 serve-copy route (params must be a ``quantize_population`` tree).
+    Anything else is a ValueError, as in the JAX package: only int8 has
+    fused-dequant serving kernels."""
+    if weights_dtype in (None, "float32", torch.float32):
+        return None
+    if weights_dtype in ("int8", torch.int8):
+        return "int8"
+    raise ValueError(f"unsupported weights_dtype {weights_dtype!r} — only "
+                     "'int8' has fused-dequant serving kernels")
+
+
 def check_dtypes(compute_dtype=None, weights_dtype=None):
-    """Reject what this slice cannot compute, rather than ignore it."""
-    f32 = (None, "float32", torch.float32)
-    if compute_dtype not in f32:
+    """Reject what the port cannot compute, rather than ignore it →
+    the resolved weights dtype (None or "int8")."""
+    if compute_dtype not in (None, "float32", torch.float32):
         raise NotImplementedError(f"compute_dtype={compute_dtype!r}: "
                                   + _NOT_YET)
-    if weights_dtype not in f32:
-        raise NotImplementedError(f"weights_dtype={weights_dtype!r}: "
-                                  + _NOT_YET)
+    return _resolve_weights_dtype(weights_dtype)
+
+
+def _hidden_int8(qparams, x, lp: LayeredPopulation, bd_impl: str, in_impl,
+                 infer: bool) -> torch.Tensor:
+    """The trunk over the int8 serve copy: the fused-dequant input layer
+    and one fused-dequant mid layer per projection."""
+    if not infer:
+        raise ValueError(
+            "weights_dtype='int8' is a serving-only path — the quantized "
+            "copy is not differentiable; pass infer=True")
+    in_impl = _resolve_in_impl(in_impl, bd_impl)
+    if bd_impl not in FUSED_BD_IMPLS or in_impl not in FUSED_IN_IMPLS:
+        raise ValueError(
+            "weights_dtype='int8' needs the fused serving kernels "
+            f"(bd_impl='fused'), got bd_impl={bd_impl!r}, "
+            f"in_impl={in_impl!r}")
+    h = input_fused_infer_int8(x, qparams["w_in"], qparams["w_in_scale"],
+                               qparams["b_in"], lp)
+    for l in range(lp.depth - 1):
+        h = block_diag_fused_infer_int8(h, qparams["mid"][l], lp, l)
+    return h
 
 
 def _hidden(params, x, lp: LayeredPopulation, bd_impl: str = "einsum",
             act_impl: str = "sliced", compute_dtype=None, in_impl=None,
-            weights_dtype=None) -> torch.Tensor:
+            weights_dtype=None, infer: bool = False) -> torch.Tensor:
     """Input layer + every mid layer → the last hidden activations.  The
     fused impls run their forward-only kernels when no gradient is taken
-    (``kernels/ops.py``)."""
-    check_dtypes(compute_dtype, weights_dtype)
+    (``kernels/ops.py``); ``weights_dtype="int8"`` (with ``infer=True``)
+    runs the int8 serve copy through their fused-dequant twins."""
+    if bd_impl.endswith("_int8"):
+        raise ValueError(f"bd_impl {bd_impl!r} is the weights_dtype='int8' "
+                         "route — request it via weights_dtype, not bd_impl")
+    if check_dtypes(compute_dtype, weights_dtype) is not None:
+        return _hidden_int8(params, x, lp, bd_impl, in_impl, infer)
     if bd_impl == "pallas" or in_impl == "pallas":
         raise NotImplementedError(f"bd_impl/in_impl 'pallas': {_PALLAS}")
     if bd_impl not in BD_IMPLS:
@@ -362,16 +452,37 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
     ``log_probs=True``, the log-softmax) in its epilogue, making the whole
     forward exactly depth+1 kernel launches
     (``launch_count.fused_infer_budget``).  ``log_probs=True`` returns
-    log-probabilities on every route."""
+    log-probabilities on every route.
+
+    ``weights_dtype="int8"`` serves the int8 copy (``params`` a
+    ``quant.quantize_population`` tree): every projection runs its
+    fused-dequant twin and the head ``"fused_int8"``, still depth+1
+    launches.  It needs ``infer=True`` and the fused impls;
+    ``"fused_int8"`` serves int8 weights and nothing else."""
+    int8 = _resolve_weights_dtype(weights_dtype) is not None
     h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl,
-                weights_dtype)
+                weights_dtype, infer)
     plast = lp.layer_pop(lp.depth - 1)
     if infer:
         if head_impl is None:
-            head_impl = "fused" if bd_impl in FUSED_BD_IMPLS else "xla"
+            head_impl = (("fused_int8" if int8 else "fused")
+                         if bd_impl in FUSED_BD_IMPLS else "xla")
         if head_impl not in HEAD_IMPLS:
             raise ValueError(f"unknown head_impl {head_impl!r} "
                              f"(have {sorted(HEAD_IMPLS)})")
+        if int8 and head_impl != "fused_int8":
+            raise ValueError(
+                "weights_dtype='int8' serves through head_impl='fused_int8' "
+                f"(the int8 head store has no f32 twin), got {head_impl!r}")
+        if head_impl == "fused_int8":
+            if not int8:
+                raise ValueError("head_impl='fused_int8' needs "
+                                 "weights_dtype='int8'")
+            return m3_infer_head_int8(
+                h, params["w_out"], params["w_out_scale"], params["b_out"],
+                plast, log_probs=log_probs,
+                seg=_static(lp, "seg_last", h.device,
+                            plast.block_segment_ids, torch.int32))
         if head_impl == "fused":
             return m3_infer_head(
                 h, params["w_out"], params["b_out"], plast,

@@ -13,7 +13,8 @@ For a fused hidden tensor ``h`` (B, total_hidden), a fused output weight
                   cross-entropy in one CUDA kernel per direction
                   (``kernels/ops.loss_head``); the logits never materialise.
   m3_infer_head — serving: projection + member bias (+ log-softmax) in one
-                  CUDA kernel (``kernels/ops.infer_head``).
+                  CUDA kernel (``kernels/ops.infer_head``);
+                  ``m3_infer_head_int8`` the same over the int8 serve copy.
 
 Shapes: h (B, H), w2 (O, H) → y (B, P, O).
 """
@@ -101,8 +102,23 @@ def m3_infer_head(h: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                       block_h=pop.block, log_probs=log_probs)
 
 
-# inference head impls — deep.forward(infer=True) routes through this
+def m3_infer_head_int8(h: torch.Tensor, w2_q: torch.Tensor,
+                       w2_scale: torch.Tensor, b2: torch.Tensor,
+                       pop: Population, *, log_probs: bool = False,
+                       seg=None) -> torch.Tensor:
+    """``m3_infer_head`` over the int8 serve copy: the head weight stays
+    int8 on the device, one f32 scale per hidden tile dequantized inside
+    the kernel."""
+    from repro_torch.kernels.ops import infer_head_int8
+    return infer_head_int8(h, w2_q, w2_scale, b2,
+                           pop.block_segment_ids if seg is None else seg,
+                           block_h=pop.block, log_probs=log_probs)
+
+
+# inference head impls — deep.forward(infer=True) routes through this;
+# "fused_int8" serves the int8 copy (weights_dtype="int8") and only it
 HEAD_IMPLS = {
     "xla": None,          # m3 logits + bias / log_softmax in deep.forward
     "fused": m3_infer_head,
+    "fused_int8": m3_infer_head_int8,
 }

@@ -10,6 +10,19 @@
 // ops.py::fused_layer's custom VJP: fused_layer_train_f32 here).  One kernel
 // template, the flag DERIV selecting the second output.
 //
+// The same template, with int8 tiles, replaces
+// repro/kernels/fused_layer.py::fused_layer_int8_fwd (the int8 serve copy,
+// ops.py::fused_layer_infer_int8: fused_layer_infer_i8 here): wb is the
+// packer's (n_param_blocks + 1, blk, blk) int8 array, identity tile already
+// appended, with one f32 scale per tile (n_param_blocks + 1,), 1.0 for the
+// identity.  An output tile sums over several steps, each with its own
+// tile and so its own scale (JAX: sc_ref[w_ids[s]]), so the scale is
+// applied per step: each int8 byte is read from device memory once per
+// CTA, converted to f32 and multiplied by its step's scale as it is staged
+// in shared memory (q·s, then the dot, as in JAX); the FMA loop is the f32
+// kernel's.  A tile at block 8 is 64 bytes; the bytes are loaded one by
+// one, so no load depends on the tile's alignment.
+//
 // x (B, n_in_tiles·blk), wb (n_param_blocks + 1, blk, blk) f32 with the
 // shared identity tile appended (pass-through members), b_eff and mask
 // (n_out_tiles·blk,) f32, one activation id per output tile (int32), and the
@@ -34,6 +47,8 @@
 // of tensor cores, and at blk = 8 a CTA of 256 threads computes only
 // 32 × 8 outputs — many small CTAs.
 #include <climits>
+#include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
@@ -46,9 +61,11 @@ constexpr int THREADS = 256;
 constexpr int MAX_BLK = 128;
 constexpr int MAX_ACC = BM * MAX_BLK / THREADS;  // outputs per thread (16)
 
-template <bool DERIV>
+// W is float (wb_scale unused) or int8_t (wb_scale one f32 per tile).
+template <typename W, bool DERIV>
 __global__ void __launch_bounds__(THREADS)
-fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
+fused_layer_kernel(const float* __restrict__ x, const W* __restrict__ wb,
+                   const float* __restrict__ wb_scale,
                    const float* __restrict__ b_eff,
                    const float* __restrict__ mask,
                    const int* __restrict__ tile_act,
@@ -72,7 +89,9 @@ fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
   const int s_end = rowptr[ot + 1];
   for (int s = rowptr[ot]; s < s_end; ++s) {
     const int in_col0 = s_in[s] * blk;
-    const float* wt = wb + (size_t)s_w[s] * blk * blk;
+    const W* wt = wb + (size_t)s_w[s] * blk * blk;
+    float sc = 1.f;
+    if constexpr (std::is_same<W, int8_t>::value) sc = wb_scale[s_w[s]];
     for (int k0 = 0; k0 < blk; k0 += KC) {
       const int kc = min(KC, blk - k0);
       __syncthreads();  // the previous chunk's reads are done
@@ -83,7 +102,10 @@ fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
       }
       for (int i = t; i < blk * kc; i += THREADS) {
         const int r = i / kc, c = i % kc;
-        ws[r][c] = wt[(size_t)r * blk + k0 + c];
+        if constexpr (std::is_same<W, int8_t>::value)
+          ws[r][c] = (float)wt[(size_t)r * blk + k0 + c] * sc;
+        else
+          ws[r][c] = wt[(size_t)r * blk + k0 + c];
       }
       __syncthreads();
 #pragma unroll
@@ -116,19 +138,20 @@ fused_layer_kernel(const float* __restrict__ x, const float* __restrict__ wb,
   }
 }
 
-template <bool DERIV>
-int launch(const float* x, const float* wb, const float* b_eff,
-           const float* mask, const int* tile_act, const int* rowptr,
-           const int* s_in, const int* s_w, float* y, float* g, int B,
-           int n_in_tiles, int n_out_tiles, int blk, void* stream) {
+template <typename W, bool DERIV>
+int launch(const float* x, const W* wb, const float* wb_scale,
+           const float* b_eff, const float* mask, const int* tile_act,
+           const int* rowptr, const int* s_in, const int* s_w, float* y,
+           float* g, int B, int n_in_tiles, int n_out_tiles, int blk,
+           void* stream) {
   if (B <= 0 || n_out_tiles <= 0) return 0;
   if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
   const long long n_btiles = (B + BM - 1) / BM;
   const long long n_tiles = n_btiles * n_out_tiles;
   if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_layer_kernel<DERIV><<<(unsigned)n_tiles, THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g, B,
+  fused_layer_kernel<W, DERIV><<<(unsigned)n_tiles, THREADS, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      x, wb, wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g, B,
       n_in_tiles * blk, n_out_tiles * blk, blk, (int)n_btiles);
   return (int)cudaGetLastError();
 }
@@ -141,8 +164,9 @@ extern "C" int fused_layer_infer_f32(const float* x, const float* wb,
                                      const int* s_in, const int* s_w,
                                      float* y, int B, int n_in_tiles,
                                      int n_out_tiles, int blk, void* stream) {
-  return launch<false>(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y,
-                       nullptr, B, n_in_tiles, n_out_tiles, blk, stream);
+  return launch<float, false>(x, wb, nullptr, b_eff, mask, tile_act, rowptr,
+                              s_in, s_w, y, nullptr, B, n_in_tiles,
+                              n_out_tiles, blk, stream);
 }
 
 extern "C" int fused_layer_train_f32(const float* x, const float* wb,
@@ -152,6 +176,20 @@ extern "C" int fused_layer_train_f32(const float* x, const float* wb,
                                      float* y, float* g, int B,
                                      int n_in_tiles, int n_out_tiles, int blk,
                                      void* stream) {
-  return launch<true>(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g,
-                      B, n_in_tiles, n_out_tiles, blk, stream);
+  return launch<float, true>(x, wb, nullptr, b_eff, mask, tile_act, rowptr,
+                             s_in, s_w, y, g, B, n_in_tiles, n_out_tiles,
+                             blk, stream);
+}
+
+// wb_q (n_param_blocks + 1, blk, blk) int8, wb_scale (n_param_blocks + 1,).
+extern "C" int fused_layer_infer_i8(const float* x, const int8_t* wb_q,
+                                    const float* wb_scale,
+                                    const float* b_eff, const float* mask,
+                                    const int* tile_act, const int* rowptr,
+                                    const int* s_in, const int* s_w,
+                                    float* y, int B, int n_in_tiles,
+                                    int n_out_tiles, int blk, void* stream) {
+  return launch<int8_t, false>(x, wb_q, wb_scale, b_eff, mask, tile_act,
+                               rowptr, s_in, s_w, y, nullptr, B, n_in_tiles,
+                               n_out_tiles, blk, stream);
 }

@@ -23,7 +23,23 @@
 // Left for later: w2 is re-read per batch row (from L1/L2, not staged in
 // shared memory), and a member narrower than a warp's stride leaves lanes
 // idle; the (B, P, O) store is O floats per row and member.
+//
+// infer_head_i8 replaces repro/kernels/infer_head.py::infer_head_int8_fwd
+// (the int8 serve copy, ops.py::infer_head_int8): w2 is (O, H) int8 with one
+// f32 scale per hidden tile of `block` units (H / block,).  JAX pads O to
+// 128 with zero rows and −1e30 bias columns; here, as in the f32 kernel,
+// O ≤ 16 is used as it is and members are CSR ranges.  One CTA owns one
+// (32-row batch tile, member) pair and walks the member's hidden range in
+// chunks of 256 units: each chunk's int8 weights are read from device
+// memory once, converted to f32 and multiplied by their tile's scale as
+// they are staged in shared memory (q·s, then the dot, as in JAX), then
+// every warp reads them there for its 4 batch rows.  Lanes stride the chunk
+// (coalesced reads of h); a shuffle reduction finishes the O dot products
+// and lane 0 runs the f32 kernel's epilogue.  What bounds it: bytes, as
+// for the f32 head (h is 164 MB at full width and B = 32; w2 shrinks from
+// 10 MB to 2.6 MB).
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -33,6 +49,40 @@ constexpr int BM = 32;          // batch rows per CTA
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_O = 16;
+constexpr int RPW = BM / WARPS;  // batch rows per warp (int8 kernel)
+constexpr int CH = 256;          // hidden units staged per chunk (int8)
+
+// The epilogue of one (row, member): the member bias, the optional stable
+// log-softmax, the store.  acc holds the row's O ≤ N finished dot products.
+template <int N>
+__device__ __forceinline__ void head_epilogue(float (&acc)[N],
+                                              const float* __restrict__ b2,
+                                              float* __restrict__ y, int b,
+                                              int m, int O, int P,
+                                              int log_probs) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int o = 0; o < N; ++o) {
+    if (o < O) {
+      acc[o] += b2[(size_t)m * O + o];
+      mx = fmaxf(mx, acc[o]);
+    }
+  }
+  if (log_probs) {
+    float s = 0.f;
+#pragma unroll
+    for (int o = 0; o < N; ++o)
+      if (o < O) s += expf(acc[o] - mx);
+    const float lse = logf(s) + mx;
+#pragma unroll
+    for (int o = 0; o < N; ++o)
+      if (o < O) acc[o] -= lse;
+  }
+  float* yr = y + ((size_t)b * P + m) * O;
+#pragma unroll
+  for (int o = 0; o < N; ++o)
+    if (o < O) yr[o] = acc[o];
+}
 
 __global__ void __launch_bounds__(THREADS)
 infer_head_kernel(const float* __restrict__ h, const float* __restrict__ w2,
@@ -70,31 +120,89 @@ infer_head_kernel(const float* __restrict__ h, const float* __restrict__ w2,
         acc[o] = v;
       }
     }
-    if (lane == 0) {
-      float mx = -INFINITY;
+    if (lane == 0) head_epilogue(acc, b2, y, b, m, O, P, log_probs);
+  }
+}
+
+// OT: the class count the registers are sized for (O ≤ OT); the launch
+// picks the smallest of 2, 4, 8, 16 that holds O, since RPW × OT
+// accumulators per thread would otherwise cut the CTAs an SM can hold.
+template <int OT>
+__global__ void __launch_bounds__(THREADS)
+infer_head_i8_kernel(const float* __restrict__ h,
+                     const int8_t* __restrict__ w2q,
+                     const float* __restrict__ w2_scale,
+                     const float* __restrict__ b2,
+                     const int* __restrict__ member_ptr,
+                     float* __restrict__ y, int B, int H, int O, int P,
+                     int block, int log_probs, int n_btiles) {
+  __shared__ float ws[OT][CH];  // one chunk's dequantized weights
+
+  const int bt = blockIdx.x % n_btiles;
+  const int m = blockIdx.x / n_btiles;
+  const int j0 = member_ptr[m] * block;
+  const int j1 = member_ptr[m + 1] * block;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  float acc[RPW][OT];
 #pragma unroll
-      for (int o = 0; o < MAX_O; ++o) {
-        if (o < O) {
-          acc[o] += b2[(size_t)m * O + o];
-          mx = fmaxf(mx, acc[o]);
+  for (int r = 0; r < RPW; ++r)
+#pragma unroll
+    for (int o = 0; o < OT; ++o) acc[r][o] = 0.f;
+
+  for (int c0 = j0; c0 < j1; c0 += CH) {
+    const int n = min(CH, j1 - c0);
+    __syncthreads();  // the previous chunk's reads are done
+    for (int i = threadIdx.x; i < O * n; i += THREADS) {
+      const int o = i / n, jj = i % n, j = c0 + jj;
+      ws[o][jj] = (float)w2q[(size_t)o * H + j] * w2_scale[j / block];
+    }
+    __syncthreads();
+    for (int jj = lane; jj < n; jj += 32) {
+      float wv[OT];
+#pragma unroll
+      for (int o = 0; o < OT; ++o) wv[o] = o < O ? ws[o][jj] : 0.f;
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const int b = bt * BM + warp + r * WARPS;
+        if (b < B) {
+          const float hv = h[(size_t)b * H + c0 + jj];
+#pragma unroll
+          for (int o = 0; o < OT; ++o)
+            if (o < O) acc[r][o] = fmaf(hv, wv[o], acc[r][o]);
         }
       }
-      if (log_probs) {
-        float s = 0.f;
-#pragma unroll
-        for (int o = 0; o < MAX_O; ++o)
-          if (o < O) s += expf(acc[o] - mx);
-        const float lse = logf(s) + mx;
-#pragma unroll
-        for (int o = 0; o < MAX_O; ++o)
-          if (o < O) acc[o] -= lse;
-      }
-      float* yr = y + ((size_t)b * P + m) * O;
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O) yr[o] = acc[o];
     }
   }
+
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int b = bt * BM + warp + r * WARPS;
+    if (b >= B) continue;  // uniform across the warp
+#pragma unroll
+    for (int o = 0; o < OT; ++o) {
+      if (o < O) {
+        float v = acc[r][o];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        acc[r][o] = v;
+      }
+    }
+    if (lane == 0) head_epilogue(acc[r], b2, y, b, m, O, P, log_probs);
+  }
+}
+
+template <int OT>
+void launch_i8(const float* h, const int8_t* w2_q, const float* w2_scale,
+               const float* b2, const int* member_ptr, float* y, int B,
+               int H, int O, int P, int block, int log_probs, int n_btiles,
+               unsigned n_tiles, void* stream) {
+  infer_head_i8_kernel<OT><<<n_tiles, THREADS, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      h, w2_q, w2_scale, b2, member_ptr, y, B, H, O, P, block, log_probs,
+      n_btiles);
 }
 
 }  // namespace
@@ -112,5 +220,23 @@ extern "C" int infer_head_f32(const float* h, const float* w2,
                       static_cast<cudaStream_t>(stream)>>>(
       h, w2, b2, member_ptr, y, B, H, O, P, block, log_probs,
       (int)n_btiles);
+  return (int)cudaGetLastError();
+}
+
+// h (B, H) f32, w2_q (O, H) int8, w2_scale (H / block,) f32.
+extern "C" int infer_head_i8(const float* h, const int8_t* w2_q,
+                             const float* w2_scale, const float* b2,
+                             const int* member_ptr, float* y, int B, int H,
+                             int O, int P, int block, int log_probs,
+                             void* stream) {
+  if (B <= 0 || P <= 0) return 0;
+  if (O <= 0 || O > MAX_O || block <= 0) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_tiles = n_btiles * P;
+  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  auto* fn = O <= 2 ? launch_i8<2> : O <= 4 ? launch_i8<4>
+           : O <= 8 ? launch_i8<8> : launch_i8<MAX_O>;
+  fn(h, w2_q, w2_scale, b2, member_ptr, y, B, H, O, P, block, log_probs,
+     (int)n_btiles, (unsigned)n_tiles, stream);
   return (int)cudaGetLastError();
 }

@@ -8,6 +8,12 @@ True); the training variant also returns ``g' = act'(x·Wᵀ + b)·mask``.
 Both take x (B, F), w (H, F), bias and mask (H,) f32 and per-block
 activation ids (H / block,) int32, and return (B, H) f32.
 
+Int8 serving: ``fused_input_int8_cuda`` launches the same kernel with int8
+weights (``csrc/fused_input.cu``, entry ``fused_input_infer_i8``; the port
+of ``fused_input.py::fused_input_int8_fwd``): w_q (H, F_pad) int8 as
+``quant.quantize_population`` stores it, one f32 scale per row block
+(H / block,); x stays (B, F).
+
 Backward: ``fused_input_bwd_cuda`` launches ``csrc/fused_input_bwd.cu``
 (the port of ``fused_input.py::fused_input_bwd``): from dy and g' (B, H),
 x and w it returns dW (H, F) and, when asked, dx (B, F).
@@ -26,6 +32,7 @@ from repro_torch.kernels import _build
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # the forward, with or without g'
+int8_launches = 0     # the forward over int8 weights
 bwd_launches = 0      # the backward
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -44,6 +51,14 @@ def fused_input_train_plain(x, w, bias, mask, act_ids, *, block: int):
     cols = act_ids.repeat_interleave(block)
     return (apply_activations_masked(z, cols) * mask,
             apply_activation_derivs_masked(z, cols) * mask)
+
+
+def fused_input_int8_plain(x, w_q, w_scale, bias, mask, act_ids, *,
+                           block: int):
+    """Dequantize the first F columns of w_q, then ``fused_input_plain``."""
+    w = w_q[:, :x.shape[1]].to(torch.float32) \
+        * w_scale.repeat_interleave(block)[:, None]
+    return fused_input_plain(x, w, bias, mask, act_ids, block=block)
 
 
 def fused_input_bwd_plain(dy, g, x, w, *, with_dx: bool):
@@ -98,6 +113,37 @@ def fused_input_train_cuda(x, w, bias, mask, act_ids, *, block: int):
     _build.check(rc, "fused_input_train")
     launches += 1
     return y, g
+
+
+def fused_input_int8_cuda(x, w_q, w_scale, bias, mask, act_ids, *,
+                          block: int):
+    """One launch → y (B, H); reads only the first F columns of w_q."""
+    global int8_launches
+    b, f = x.shape
+    h, f_pad = w_q.shape
+    _build.check_tensors(
+        "fused_input_int8", x,
+        ("x", x, torch.float32),
+        ("w_q", w_q, torch.int8),
+        ("w_scale", w_scale, torch.float32),
+        ("bias", bias, torch.float32),
+        ("mask", mask, torch.float32),
+        ("act_ids", act_ids, torch.int32))
+    if f_pad < f or h % block or w_scale.shape != (h // block,) \
+            or bias.shape != (h,) or mask.shape != (h,) \
+            or act_ids.shape != (h // block,):
+        raise ValueError("fused_input_int8: inconsistent shapes")
+    fn = _build.function("fused_input", "fused_input_infer_i8",
+                         [_P] * 7 + [_I] * 5 + [_P])
+    y = torch.empty(b, h, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
+                bias.data_ptr(), mask.data_ptr(), act_ids.data_ptr(),
+                y.data_ptr(), b, f, f_pad, h, block,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "fused_input_int8")
+    int8_launches += 1
+    return y
 
 
 def fused_input_bwd_cuda(dy, g, x, w, *, with_dx: bool):

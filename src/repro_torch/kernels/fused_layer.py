@@ -11,6 +11,11 @@ one activation id per output tile (int32) and the layout's steps in CSR
 form (``csr_schedule``), and return (B, n_out_tiles·blk) f32 — the training
 variant also g' of the same shape.
 
+Int8 serving: ``fused_layer_int8_cuda`` launches the same kernel over the
+int8 serve copy (entry ``fused_layer_infer_i8``; the port of
+``fused_layer.py::fused_layer_int8_fwd``): the packer's identity-augmented
+int8 tile array and one f32 scale per tile, 1.0 for the identity.
+
 Backward: ``fused_layer_dx_dw_cuda`` launches ``csrc/fused_layer_dx_dw.cu``
 (the port of ``fused_layer.py::fused_layer_dx_dw``): from dy and g', x, the
 per-member-transposed tiles (``transposed_tiles``) and the transposed
@@ -36,6 +41,7 @@ from repro_torch.kernels import _build
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # the forward, with or without g'
+int8_launches = 0     # the forward over int8 tiles
 dx_dw_launches = 0    # the backward
 MAX_BLOCK = 128       # widest tile the kernel keeps in shared memory
 
@@ -109,6 +115,14 @@ def fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
     return apply_activations_masked(z, tile_act.repeat_interleave(blk)) * mask
 
 
+def fused_layer_int8_plain(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
+                           s_in, s_w, *, blk: int):
+    """Dequantize every tile (q·s), then ``fused_layer_plain``."""
+    wb = wb_q.to(torch.float32) * wb_scale[:, None, None]
+    return fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
+                             blk=blk)
+
+
 def fused_layer_train_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                             *, blk: int):
     """→ (y, g'), both (B, n_out_tiles·blk)."""
@@ -131,12 +145,13 @@ def fused_layer_dx_dw_plain(dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t,
     return dx, dwb
 
 
-def _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, blk):
+def _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, blk,
+              w_dtype=torch.float32):
     n_out = rowptr.shape[0] - 1
     _build.check_tensors(
         "fused_layer", x,
         ("x", x, torch.float32),
-        ("wb", wb, torch.float32),
+        ("wb", wb, w_dtype),
         ("b_eff", b_eff, torch.float32),
         ("mask", mask, torch.float32),
         ("tile_act", tile_act, torch.int32),
@@ -195,6 +210,29 @@ def fused_layer_train_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
     _build.check(rc, "fused_layer_train")
     launches += 1
     return y, g
+
+
+def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
+                          s_in, s_w, *, blk: int):
+    """One launch → y (B, n_out_tiles·blk) over int8 tiles."""
+    global int8_launches
+    b, n_out = _fwd_args(x, wb_q, b_eff, mask, tile_act, rowptr, s_in, s_w,
+                         blk, w_dtype=torch.int8)
+    _build.check_tensors("fused_layer_int8", x,
+                         ("wb_scale", wb_scale, torch.float32))
+    if wb_scale.shape != (wb_q.shape[0],):
+        raise ValueError("fused_layer_int8: one scale per tile")
+    fn = _build.function("fused_layer", "fused_layer_infer_i8",
+                         [_P] * 10 + [_I] * 4 + [_P])
+    y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
+    with torch.cuda.device(x.device):
+        rc = fn(*_ptrs(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
+                       s_in, s_w, y),
+                b, x.shape[1] // blk, n_out, blk,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "fused_layer_int8")
+    int8_launches += 1
+    return y
 
 
 def fused_layer_dx_dw_cuda(dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t,

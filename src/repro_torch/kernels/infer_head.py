@@ -8,6 +8,12 @@ scatter-add form, via ``index_add_``).  Both take h (B, H), w2 (O, H),
 b2 (P, O) f32 and the members' hidden-block ranges in CSR form,
 ``member_ptr`` (P + 1,) int32 in units of ``block`` hidden units, and
 return (B, P, O) f32 logits — log-probabilities under ``log_probs``.
+
+``infer_head_int8_cuda`` launches ``csrc/infer_head.cu``'s int8 kernel (the
+port of ``infer_head.py::infer_head_int8_fwd``): w2 (O, H) int8 with one
+f32 scale per hidden tile (H / block,), dequantized as it is staged in
+shared memory; ``infer_head_int8_plain`` dequantizes, then runs
+``infer_head_plain``.
 """
 from __future__ import annotations
 
@@ -17,7 +23,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-launches = 0          # kernel launches (the CPU dispatch in ops counts too)
+# kernel launches (the CPU dispatch in ops counts its plain calls too):
+launches = 0          # f32 weights
+int8_launches = 0     # int8 weights
 MAX_O = 16            # classes the kernel keeps in registers (infer_head.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -45,33 +53,35 @@ def infer_head_plain(h, w2, b2, member_ptr, *, block: int,
     return torch.log_softmax(y, dim=-1) if log_probs else y
 
 
-def _lib():
-    lib = _build.library("infer_head")
-    fn = lib.infer_head_f32
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
-    fn.restype = _I
-    return fn
+def infer_head_int8_plain(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
+                          log_probs: bool = False):
+    w2 = w2_q.to(torch.float32) * w2_scale.repeat_interleave(block)[None, :]
+    return infer_head_plain(h, w2, b2, member_ptr, block=block,
+                            log_probs=log_probs)
+
+
+def _check(where, h, w2, b2, member_ptr, w_dtype):
+    _build.check_tensors(where, h,
+                         ("h", h, torch.float32), ("w2", w2, w_dtype),
+                         ("b2", b2, torch.float32),
+                         ("member_ptr", member_ptr, torch.int32))
+    o, p = w2.shape[0], b2.shape[0]
+    if w2.shape[1] != h.shape[1] or b2.shape[1] != o \
+            or member_ptr.shape != (p + 1,):
+        raise ValueError(f"{where}: inconsistent shapes")
+    if o > MAX_O:
+        raise ValueError(f"{where}: {o} classes, the kernel supports at "
+                         f"most {MAX_O}")
 
 
 def infer_head_cuda(h, w2, b2, member_ptr, *, block: int,
                     log_probs: bool = False):
     global launches
+    _check("infer_head", h, w2, b2, member_ptr, torch.float32)
     b, hh = h.shape
     o, p = w2.shape[0], b2.shape[0]
-    for name, t, dt in (("h", h, torch.float32), ("w2", w2, torch.float32),
-                        ("b2", b2, torch.float32),
-                        ("member_ptr", member_ptr, torch.int32)):
-        if not t.is_cuda or t.device != h.device:
-            raise ValueError(f"infer_head: {name} must be on {h.device}")
-        if t.dtype != dt or not t.is_contiguous():
-            raise ValueError(f"infer_head: {name} must be contiguous {dt}, "
-                             f"got {t.dtype}")
-    if w2.shape[1] != hh or b2.shape[1] != o or member_ptr.shape != (p + 1,):
-        raise ValueError("infer_head: inconsistent shapes")
-    if o > MAX_O:
-        raise ValueError(f"infer_head: {o} classes, the kernel supports at "
-                         f"most {MAX_O}")
-    fn = _lib()
+    fn = _build.function("infer_head", "infer_head_f32",
+                         [_P] * 5 + [_I] * 6 + [_P])
     y = torch.empty(b, p, o, device=h.device, dtype=torch.float32)
     with torch.cuda.device(h.device):
         rc = fn(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -79,4 +89,27 @@ def infer_head_cuda(h, w2, b2, member_ptr, *, block: int,
                 int(bool(log_probs)), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "infer_head")
     launches += 1
+    return y
+
+
+def infer_head_int8_cuda(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
+                         log_probs: bool = False):
+    global int8_launches
+    _check("infer_head_int8", h, w2_q, b2, member_ptr, torch.int8)
+    _build.check_tensors("infer_head_int8", h,
+                         ("w2_scale", w2_scale, torch.float32))
+    b, hh = h.shape
+    o, p = w2_q.shape[0], b2.shape[0]
+    if hh % block or w2_scale.shape != (hh // block,):
+        raise ValueError("infer_head_int8: one scale per hidden tile")
+    fn = _build.function("infer_head", "infer_head_i8",
+                         [_P] * 6 + [_I] * 6 + [_P])
+    y = torch.empty(b, p, o, device=h.device, dtype=torch.float32)
+    with torch.cuda.device(h.device):
+        rc = fn(h.data_ptr(), w2_q.data_ptr(), w2_scale.data_ptr(),
+                b2.data_ptr(), member_ptr.data_ptr(), y.data_ptr(), b, hh, o,
+                p, block, int(bool(log_probs)),
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "infer_head_int8")
+    int8_launches += 1
     return y

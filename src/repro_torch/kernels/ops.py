@@ -2,8 +2,12 @@
 checks (``repro/kernels/ops.py``).
 
 Serving: ``fused_input_infer``, ``fused_layer_infer``, ``infer_head`` —
-forward-only.  Training: ``fused_input``, ``fused_layer``, ``loss_head`` —
-each a ``torch.autograd.Function`` whose forward is one kernel launch
+forward-only — and their twins over the int8 serve copy
+(``quant.quantize_population``), ``fused_input_infer_int8``,
+``fused_layer_infer_int8`` and ``infer_head_int8``, which dequantize inside
+their kernels: no f32 weight is made per call.  Training:
+``fused_input``, ``fused_layer``, ``loss_head`` — each a
+``torch.autograd.Function`` whose forward is one kernel launch
 (the forwards also emit g' = act'(z)·mask, or the loss head its dlogits)
 and whose backward is one more, as the JAX package wraps each
 ``pallas_call`` pair in a ``custom_vjp``.  The bias cotangents
@@ -20,7 +24,7 @@ the kernel's launch counter, so the launch budgets hold on either device
 
 Static layout arrays (activation ids, masks, segment ids) may be numpy or
 tensors; callers on the hot path pass tensors already on the device.
-F32 only in this slice.
+Activations compute in f32; weights are f32, or int8 on the serving twins.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.kernels import fused_input as _fik
 from repro_torch.kernels import fused_layer as _flk
 from repro_torch.kernels import infer_head as _ihk
 from repro_torch.kernels import loss_head as _lhk
+from repro_torch.quant import _input_f_pad
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -50,8 +55,14 @@ def _as(a, device, dtype) -> torch.Tensor:
 def _require_f32(**tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernels are float32 "
-                            "only (bf16/int8: see ROADMAP.md)")
+            raise TypeError(f"{name} is {t.dtype}; the kernels compute in "
+                            "float32 only (bf16: see ROADMAP.md; int8 "
+                            "weights: the *_int8 entries)")
+
+
+def _require_int8(what: str, t: torch.Tensor):
+    if t.dtype != torch.int8:
+        raise ValueError(f"int8 serve path got {t.dtype} {what}")
 
 
 def _wants_grad(*tensors) -> bool:
@@ -63,14 +74,19 @@ def _wants_grad(*tensors) -> bool:
 # --------------------------------------------------------------------- #
 
 def _input_args(x, w_in, b_in, block_act_ids, mask, block):
-    h = w_in.shape[0]
-    if h % block:
-        raise ValueError(f"hidden axis {h} not {block}-aligned")
     if x.shape[1] != w_in.shape[1]:
         raise ValueError(f"feature axis {x.shape[1]} != {w_in.shape[1]}")
+    _require_f32(w_in=w_in)
+    return _input_common(x, w_in.shape[0], b_in, block_act_ids, mask, block)
+
+
+def _input_common(x, h, b_in, block_act_ids, mask, block):
+    """The checks shared by the f32 and int8 input layers → (ids, mask)."""
+    if h % block:
+        raise ValueError(f"hidden axis {h} not {block}-aligned")
     if tuple(b_in.shape) != (h,):
         raise ValueError(f"bias shape {tuple(b_in.shape)} != ({h},)")
-    _require_f32(x=x, w_in=w_in, b_in=b_in)
+    _require_f32(x=x, b_in=b_in)
     dev = x.device
     ids = _as(block_act_ids, dev, torch.int32)
     m = _as(mask, dev, torch.float32)
@@ -93,6 +109,36 @@ def fused_input_infer(x: torch.Tensor, w_in: torch.Tensor,
                                      b_in.contiguous(), m, ids, block=block)
     _fik.launches += 1
     return _fik.fused_input_plain(x, w_in, b_in, m, ids, block=block)
+
+
+def fused_input_infer_int8(x: torch.Tensor, w_q: torch.Tensor,
+                           w_scale: torch.Tensor, b_in: torch.Tensor,
+                           block_act_ids, mask, *, block: int
+                           ) -> torch.Tensor:
+    """``fused_input_infer`` over the int8 serve copy: ``w_q`` (H, F_pad)
+    int8, stored pre-padded to the JAX kernel's feature tile
+    (``quantize_population``), one f32 scale per hidden row block
+    (H / block,).  x stays (B, F): the kernel reads only the first F
+    weight columns, so no weight byte is padded or upcast per call."""
+    h = w_q.shape[0]
+    _require_int8("input weight", w_q)
+    f_pad = _input_f_pad(x.shape[1])
+    if w_q.shape[1] != f_pad:
+        raise ValueError(
+            f"int8 input weight has F={w_q.shape[1]}, expected the "
+            f"pre-padded {f_pad} (quantize_population stores it padded)")
+    ids, m = _input_common(x, h, b_in, block_act_ids, mask, block)
+    if tuple(w_scale.shape) != (h // block,):
+        raise ValueError(f"scales {tuple(w_scale.shape)} != "
+                         f"({h // block},)")
+    _require_f32(w_scale=w_scale)
+    if _on_card(x):
+        return _fik.fused_input_int8_cuda(
+            x.contiguous(), w_q.contiguous(), w_scale.contiguous(),
+            b_in.contiguous(), m, ids, block=block)
+    _fik.int8_launches += 1
+    return _fik.fused_input_int8_plain(x, w_q, w_scale, b_in, m, ids,
+                                       block=block)
 
 
 class _FusedInput(torch.autograd.Function):
@@ -148,16 +194,23 @@ def fused_input(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
 
 def _layer_args(h, wb, b_eff, layout, block_act_ids, mask):
     blk = layout.block
-    if h.shape[1] != layout.n_in_tiles * blk:
-        raise ValueError(f"input axis {h.shape[1]} != "
-                         f"{layout.n_in_tiles}×{blk}")
     if tuple(wb.shape) != (layout.n_param_blocks, blk, blk):
         raise ValueError(f"weight tiles {tuple(wb.shape)} != "
                          f"({layout.n_param_blocks}, {blk}, {blk})")
+    _require_f32(wb=wb)
+    return _layer_common(h, b_eff, layout, block_act_ids, mask)
+
+
+def _layer_common(h, b_eff, layout, block_act_ids, mask):
+    """The checks shared by the f32 and int8 mid layers → (acts, mask)."""
+    blk = layout.block
+    if h.shape[1] != layout.n_in_tiles * blk:
+        raise ValueError(f"input axis {h.shape[1]} != "
+                         f"{layout.n_in_tiles}×{blk}")
     h_out = layout.n_out_tiles * blk
     if tuple(b_eff.shape) != (h_out,):
         raise ValueError(f"bias shape {tuple(b_eff.shape)} != ({h_out},)")
-    _require_f32(h=h, wb=wb, b_eff=b_eff)
+    _require_f32(h=h, b_eff=b_eff)
     dev = h.device
     acts = _as(block_act_ids, dev, torch.int32)
     if tuple(acts.shape) != (layout.n_out_tiles,):
@@ -196,6 +249,34 @@ def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
     _flk.launches += 1
     return _flk.fused_layer_plain(h, wb_aug, b_eff, m, acts, rowptr, s_in,
                                   s_w, blk=blk)
+
+
+def fused_layer_infer_int8(h: torch.Tensor, wb_q: torch.Tensor,
+                           wb_scale: torch.Tensor, b_eff: torch.Tensor,
+                           layout, block_act_ids, mask) -> torch.Tensor:
+    """``fused_layer_infer`` over the int8 serve copy: ``wb_q`` is the
+    packer's tile array with the identity tile already appended
+    (n_param_blocks + 1, blk, blk) int8, ``wb_scale`` one f32 scale per
+    tile (1.0 for the identity).  Nothing is packed or appended per call."""
+    blk = layout.block
+    _require_int8("weight tiles", wb_q)
+    n_tiles = layout.n_param_blocks + 1
+    if tuple(wb_q.shape) != (n_tiles, blk, blk):
+        raise ValueError(
+            f"weight tiles {tuple(wb_q.shape)} != ({n_tiles}, {blk}, {blk})"
+            " — the int8 store is pre-augmented (identity tile appended by "
+            "quantize_population)")
+    if tuple(wb_scale.shape) != (n_tiles,):
+        raise ValueError(f"scales {tuple(wb_scale.shape)} != ({n_tiles},)")
+    _require_f32(wb_scale=wb_scale)
+    acts, m = _layer_common(h, b_eff, layout, block_act_ids, mask)
+    rowptr, s_in, s_w = _flk.schedule_on(layout, h.device)
+    args = (h.contiguous(), wb_q.contiguous(), wb_scale.contiguous(),
+            b_eff.contiguous(), m, acts, rowptr, s_in, s_w)
+    if _on_card(h):
+        return _flk.fused_layer_int8_cuda(*args, blk=blk)
+    _flk.int8_launches += 1
+    return _flk.fused_layer_int8_plain(*args, blk=blk)
 
 
 class _FusedLayer(torch.autograd.Function):
@@ -253,6 +334,8 @@ def fused_layer(h: torch.Tensor, wb: torch.Tensor, b_eff: torch.Tensor,
 # --------------------------------------------------------------------- #
 
 def _head_args(h, w_out, b_out, block_seg_ids, block_h):
+    """The checks shared by the heads (the caller checks the weight's
+    dtype) → the per-block segment ids on h's device."""
     if h.shape[1] % block_h:
         raise ValueError(f"hidden axis {h.shape[1]} not {block_h}-aligned")
     if w_out.shape[1] != h.shape[1]:
@@ -261,7 +344,7 @@ def _head_args(h, w_out, b_out, block_seg_ids, block_h):
     if b_out.shape[1] != w_out.shape[0]:
         raise ValueError(f"bias {tuple(b_out.shape)} vs {w_out.shape[0]} "
                          "classes")
-    _require_f32(h=h, w_out=w_out, b_out=b_out)
+    _require_f32(h=h, b_out=b_out)
     dev = h.device
     if not isinstance(block_seg_ids, torch.Tensor) \
             and np.any(np.diff(np.asarray(block_seg_ids)) < 0):
@@ -283,6 +366,7 @@ def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
     be block_h-aligned and every member's blocks contiguous (sorted
     ``block_seg_ids``)."""
     seg = _head_args(h, w_out, b_out, block_seg_ids, block_h)
+    _require_f32(w_out=w_out)
     ptr = _ihk.member_ptr(seg, b_out.shape[0])
     if _on_card(h):
         return _ihk.infer_head_cuda(h.contiguous(), w_out.contiguous(),
@@ -291,6 +375,30 @@ def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
     _ihk.launches += 1
     return _ihk.infer_head_plain(h, w_out, b_out, ptr, block=block_h,
                                  log_probs=log_probs)
+
+
+def infer_head_int8(h: torch.Tensor, w_q: torch.Tensor,
+                    w_scale: torch.Tensor, b_out: torch.Tensor,
+                    block_seg_ids, *, block_h: int,
+                    log_probs: bool = False) -> torch.Tensor:
+    """``infer_head`` over the int8 serve copy: ``w_q`` (O, H) int8 with
+    one f32 scale per hidden tile (H / block_h,), dequantized inside the
+    kernel.  The classes are not padded (JAX pads O to 128); members are
+    the same CSR ranges as in the f32 head."""
+    _require_int8("head weight", w_q)
+    seg = _head_args(h, w_q, b_out, block_seg_ids, block_h)
+    if tuple(w_scale.shape) != (h.shape[1] // block_h,):
+        raise ValueError(f"scales {tuple(w_scale.shape)} != "
+                         f"({h.shape[1] // block_h},)")
+    _require_f32(w_scale=w_scale)
+    ptr = _ihk.member_ptr(seg, b_out.shape[0])
+    if _on_card(h):
+        return _ihk.infer_head_int8_cuda(
+            h.contiguous(), w_q.contiguous(), w_scale.contiguous(),
+            b_out.contiguous(), ptr, block=block_h, log_probs=log_probs)
+    _ihk.int8_launches += 1
+    return _ihk.infer_head_int8_plain(h, w_q, w_scale, b_out, ptr,
+                                      block=block_h, log_probs=log_probs)
 
 
 class _LossHead(torch.autograd.Function):
@@ -336,6 +444,7 @@ def loss_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
     (B,) → per-member mean NLL (P,) f32; ``per.sum()`` is the training
     loss.  The (B, P, O) logits never reach device memory."""
     seg = _head_args(h, w_out, b_out, block_seg_ids, block_h)
+    _require_f32(w_out=w_out)
     tgt = _as(targets, h.device, torch.int32).reshape(-1)
     if tgt.shape[0] != h.shape[0]:
         raise ValueError(f"{tgt.shape[0]} targets for {h.shape[0]} rows")

@@ -6,7 +6,9 @@ raises by one where it launches a CUDA kernel; on a CPU tensor the
 dispatch layer (``kernels/ops.py``) counts the plain version's calls in the
 same counter.  So the budgets below are checked the same way on either
 device.  The training forwards (the kernels with g' in their epilogue)
-count under the serving forwards' names: they are the same kernels.
+count under the serving forwards' names: they are the same kernels.  The
+int8 serving kernels count under names of their own (``*_int8``), so a run
+shows which weights it served.
 """
 from __future__ import annotations
 
@@ -15,10 +17,13 @@ from repro_torch.kernels import fused_input, fused_layer, infer_head, loss_head
 # kernel name → (module, counter attribute)
 _COUNTERS = {
     "fused_input": (fused_input, "launches"),
+    "fused_input_int8": (fused_input, "int8_launches"),
     "fused_input_bwd": (fused_input, "bwd_launches"),
     "fused_layer": (fused_layer, "launches"),
+    "fused_layer_int8": (fused_layer, "int8_launches"),
     "fused_layer_dx_dw": (fused_layer, "dx_dw_launches"),
     "infer_head": (infer_head, "launches"),
+    "infer_head_int8": (infer_head, "int8_launches"),
     "loss_head_fwd": (loss_head, "fwd_launches"),
     "loss_head_bwd": (loss_head, "bwd_launches"),
 }
@@ -38,8 +43,9 @@ def reset_kernel_launches():
 
 def fused_infer_budget(depth: int) -> dict:
     """The forward-only serving path (``forward(infer=True)`` with fused
-    routing): input + (depth−1) mid layers + infer head = depth+1 launches
-    per request batch, independent of batch size."""
+    routing, f32 or int8 weights): input + (depth−1) mid layers + infer
+    head = depth+1 launches per request batch, independent of batch
+    size."""
     return {"fwd": depth + 1, "total": depth + 1}
 
 

@@ -23,6 +23,12 @@ calibration split evaluated with the SAME forward-only kernels
 (``publish``); rank 0 becomes ``best1``'s route, the top-k slots become
 ``topk``'s vote.  Shard-pad fillers can never be published or reduced
 over (``core.ensemble`` validates).
+
+``weights_dtype="int8"`` (``--weights-dtype int8``) serves the int8 copy
+(DESIGN.md §12): the server quantizes the restored masters once, on their
+device (``quant.quantize_population``), drops them, and every forward —
+publish, the serve steps, the launch budget — runs the fused-dequant
+kernels, still depth+1 launches.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from repro_torch.core.ensemble import (ENSEMBLE_MODES, ensemble_predict,
 from repro_torch.core.selection import evaluate_population, leaderboard
 from repro_torch.launch.launch_count import (fused_infer_budget,
                                              kernel_launches)
+from repro_torch.quant import serve_copy_bytes
 
 
 class PopulationServer:
@@ -49,14 +56,18 @@ class PopulationServer:
                  act_impl: str = "sliced", compute_dtype=None,
                  weights_dtype=None, batch: int = 32, topk: int = 4,
                  max_latency_ms: float = 5.0):
-        check_dtypes(compute_dtype, weights_dtype)
+        self.weights_dtype = check_dtypes(compute_dtype, weights_dtype)
         self.params = params
         self.layout = layout
         self.device = params["w_in"].device
         self.batch = int(batch)
         self.topk = int(topk)
         self.max_latency_ms = float(max_latency_ms)
-        self._fw = dict(bd_impl=bd_impl, act_impl=act_impl, infer=True)
+        self._fw = dict(bd_impl=bd_impl, act_impl=act_impl, infer=True,
+                        weights_dtype=self.weights_dtype)
+        # the int8 copy is made once from the masters (at the first
+        # consumer of self.params), which are then released
+        self._quantized = self.weights_dtype is None
         self._host = self._staging(layout.in_features)
         self._flip = 0
         self.board = None
@@ -88,7 +99,19 @@ class PopulationServer:
         self.topk = max(1, min(self.topk, real_slots(layout)))
         self.board = None
         self.published = {"all": None}
+        self._quantized = self.weights_dtype is None   # re-quantize fresh
         return self
+
+    def _ensure_quantized(self):
+        """Replace the master weights with the int8 serve copy, once per
+        (re)fresh: every consumer of ``self.params`` (``publish``, the serve
+        steps, ``check_budget``) comes through here, so after the first the
+        server holds no f32 weight, and no reference to the masters."""
+        if self._quantized:
+            return
+        from repro_torch.quant import quantize_population
+        self.params = quantize_population(self.params, self.layout)
+        self._quantized = True
 
     def publish(self, x_calib, y_calib, task: str = "classification",
                 sort_by: str = "loss"):
@@ -96,6 +119,7 @@ class PopulationServer:
         calibration split, scored with the same forward-only kernels the
         serve steps run (in slabs of ``selection.EVAL_SLAB`` rows).
         Returns the leaderboard rows."""
+        self._ensure_quantized()
         losses, accs = evaluate_population(
             self.params, self.layout, x_calib, y_calib, task=task,
             **self._fw)
@@ -120,6 +144,7 @@ class PopulationServer:
         if mode != "all" and mode not in self.published:
             raise ValueError(f"mode {mode!r} needs a published member set "
                              "— call publish() first")
+        self._ensure_quantized()
         ids = self.published.get(mode)
         lp, fw = self.layout, self._fw
 
@@ -195,6 +220,7 @@ class PopulationServer:
         """One serve forward must advance the kernel counters by exactly
         depth+1: input + (depth−1) mid layers + infer head.  Raises
         otherwise."""
+        self._ensure_quantized()
         lp = self.layout
         xb = torch.zeros((self.batch, lp.in_features), device=self.device)
         before = sum(kernel_launches().values())
@@ -217,8 +243,9 @@ class PopulationServer:
 
 
 def main(argv=None) -> dict:
-    """The serving driver.  Returns {"step", "budget", "board", "serve"}
-    (``serve``: the per-mode latency and throughput rows)."""
+    """The serving driver.  Returns {"step", "budget", "board", "serve",
+    "serve_copy_bytes"} (``serve``: the per-mode latency and throughput
+    rows; ``serve_copy_bytes``: the served parameters' device bytes)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt-dir", required=True)
     ap.add_argument("--step", type=int, default=None)
@@ -240,7 +267,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--compute-dtype", default=None,
                     help="float32 only in this port so far")
     ap.add_argument("--weights-dtype", default=None, choices=["int8"],
-                    help="int8 serve copy (not ported yet: raises)")
+                    help="int8: quantize the restored weights once "
+                    "(quant.quantize_population) and serve only the int8 "
+                    "copy through the fused-dequant kernels")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                     "PyTorch versions)")
@@ -254,7 +283,8 @@ def main(argv=None) -> dict:
     server, step = PopulationServer.from_checkpoint(
         args.ckpt_dir, step=args.step, device=args.device, batch=args.batch,
         topk=args.topk, max_latency_ms=args.max_latency_ms,
-        bd_impl=args.bd_impl, act_impl=args.act_impl)
+        bd_impl=args.bd_impl, act_impl=args.act_impl,
+        weights_dtype=args.weights_dtype)
     lp = server.layout
     print(f"restored step {step}: {real_slots(lp)} members "
           f"(+{lp.num_members - real_slots(lp)} fillers), "
@@ -272,6 +302,9 @@ def main(argv=None) -> dict:
         budget = server.check_budget()
         print("launch budget:", budget)
     board = server.publish(xc, yc)
+    served_bytes = serve_copy_bytes(server.params)
+    print(f"serving {args.weights_dtype or 'float32'} weights: "
+          f"{served_bytes} bytes of parameters on {server.device}")
     print(f"published: best1={server.published['best1']} "
           f"topk={server.published['topk']}")
     for row in board[:3]:
@@ -284,7 +317,8 @@ def main(argv=None) -> dict:
         print(f"{mode:6s} members={r['members_served']:3d} "
               f"p50={r['p50_ms']:.2f}ms p99={r['p99_ms']:.2f}ms "
               f"{r['req_per_s']:.0f} req/s")
-    out = {"step": step, "budget": budget, "board": board, "serve": results}
+    out = {"step": step, "budget": budget, "board": board, "serve": results,
+           "serve_copy_bytes": served_bytes}
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(out, f, indent=2, default=str)

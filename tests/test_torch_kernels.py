@@ -359,3 +359,133 @@ def test_train_step_on_card_matches_cpu(dev):
         for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
             _close(a, b)
 
+
+
+# --------------------------------------------------------------------- #
+# the int8 serving kernels                                              #
+# --------------------------------------------------------------------- #
+
+def _int8(rng, shape, dev):
+    return _t(rng.integers(-127, 128, shape), dev, torch.int8)
+
+
+def _scales(rng, n, dev):
+    """Scales of weights up to about 1 in magnitude (max|w| / 127), as the
+    packer gives for the populations' init."""
+    return _t(rng.random(n) * 0.006 + 1e-3, dev)
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks", [
+    (9, 6, 8, 20), (32, 100, 128, 12), (33, 17, 8, 41), (70, 130, 16, 9)])
+def test_fused_input_int8_matches_plain(dev, b, f, block, n_blocks):
+    """Batches off the 32-row tile, block 8 to 128; the pad columns of the
+    pre-padded weight hold junk, which the kernel must not read."""
+    from repro_torch.quant import _input_f_pad
+    rng = np.random.default_rng(b + 1)
+    h = block * n_blocks
+    x = _t(rng.normal(0, 1, (b, f)), dev)
+    w_q = _int8(rng, (h, _input_f_pad(f)), dev)
+    w_s = _scales(rng, n_blocks, dev)
+    bias = _t(rng.normal(0, 1, h), dev)
+    mask = _t(rng.random(h) > 0.2, dev)
+    ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
+    n0 = fik.int8_launches
+    got = fik.fused_input_int8_cuda(x, w_q, w_s, bias, mask, ids,
+                                    block=block)
+    assert fik.int8_launches == n0 + 1
+    _close(got, fik.fused_input_int8_plain(x, w_q, w_s, bias, mask, ids,
+                                           block=block))
+
+
+@pytest.mark.parametrize("widths,block,b", _TRAIN_GRID)
+def test_fused_layer_int8_matches_plain(dev, widths, block, b):
+    """Pass-through steps on the appended identity tile (scale 1.0), every
+    tile its own scale, block 8 to 128, batches off the tile."""
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    lp = LayeredPopulation(5, 3, widths, acts, block=block)
+    rng = np.random.default_rng(b + 2)
+    for l in range(lp.depth - 1):
+        lay = lp.bd_layout(l)
+        pout = lp.layer_pop(l + 1)
+        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
+        wb_q = _int8(rng, (lay.n_param_blocks + 1, block, block), dev)
+        wb_q[-1] = torch.eye(block, device=dev, dtype=torch.int8)
+        wb_s = _scales(rng, lay.n_param_blocks + 1, dev)
+        wb_s[-1] = 1.0
+        b_eff = _t(rng.normal(0, 1, lay.n_out_tiles * block), dev)
+        mask = _t(pout.hidden_mask, dev)
+        acts_t = _t(pout.block_act_ids, dev, torch.int32)
+        sched = flk.schedule_on(lay, dev)
+        args = (x, wb_q, wb_s, b_eff, mask, acts_t, *sched)
+        n0 = flk.int8_launches
+        got = flk.fused_layer_int8_cuda(*args, blk=block)
+        assert flk.int8_launches == n0 + 1
+        _close(got, flk.fused_layer_int8_plain(*args, blk=block))
+
+
+@pytest.mark.parametrize("log_probs", [False, True])
+@pytest.mark.parametrize("widths,block,o,b", [
+    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9),
+    ((100, 1, 37, 128, 129, 600), 128, 2, 70),   # members over 256 units
+    ((33, 2, 700), 8, 16, 33),
+])
+def test_infer_head_int8_matches_plain(dev, log_probs, widths, block, o, b):
+    rng = np.random.default_rng(len(widths) + o + 1)
+    blocks = [-(-w // block) for w in widths]
+    seg = np.repeat(np.arange(len(widths)), blocks).astype(np.int32)
+    hh = int(sum(blocks)) * block
+    h = _t(rng.normal(0, 1, (b, hh)), dev)
+    w_q = _int8(rng, (o, hh), dev)
+    w_s = _scales(rng, hh // block, dev)
+    b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
+    ptr = ihk.member_ptr(_t(seg, dev, torch.int32), len(widths))
+    n0 = ihk.int8_launches
+    got = ihk.infer_head_int8_cuda(h, w_q, w_s, b2, ptr, block=block,
+                                   log_probs=log_probs)
+    assert ihk.int8_launches == n0 + 1
+    _close(got, ihk.infer_head_int8_plain(h, w_q, w_s, b2, ptr, block=block,
+                                          log_probs=log_probs))
+
+
+def test_int8_server_on_card_matches_cpu(dev):
+    """The int8 serve copy on the card: quantized there byte-equal to the
+    CPU's, its forward depth+1 int8 launches and none of the f32 kernels,
+    equal to the f32 forward of the dequantized tree on the CPU, and the
+    server's predictions equal to the same server on the CPU."""
+    from repro_torch.core.deep import forward, init_params
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.launch_count import kernel_launches
+    from repro_torch.launch.serve_population import PopulationServer
+    from repro_torch.quant import dequantize_population, quantize_population
+    lp = _serve_layout()
+    params = init_params(torch.Generator().manual_seed(0), lp)
+    q_cpu = quantize_population(params, lp)
+    q_dev = quantize_population(_params_on(params, dev), lp)
+    assert all(torch.equal(a.cpu(), b) for a, b in
+               zip(tree_leaves(q_dev), tree_leaves(q_cpu)))
+    x = torch.randn(9, 6, generator=torch.Generator().manual_seed(1))
+    before = kernel_launches()
+    got = forward(q_dev, x.to(dev), lp, bd_impl="fused", infer=True,
+                  weights_dtype="int8", log_probs=True)
+    after = kernel_launches()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == \
+        {"fused_input_int8": 1, "fused_layer_int8": lp.depth - 1,
+         "infer_head_int8": 1}
+    want = forward(dequantize_population(q_cpu, lp), x, lp,
+                   bd_impl="einsum", head_impl="xla", infer=True,
+                   log_probs=True)
+    _close(got, want)
+    rng = np.random.default_rng(2)
+    xc = rng.normal(0, 1, (40, 6)).astype(np.float32)
+    yc = rng.integers(0, 3, 40)
+    xr = rng.normal(0, 1, (21, 6)).astype(np.float32)
+    cpu, card = (PopulationServer(_params_on(params, d), lp, batch=8, topk=3,
+                                  weights_dtype="int8")
+                 for d in ("cpu", dev))
+    assert card.check_budget() == {"launches": 4, "budget": 4}
+    assert [r["slot"] for r in card.publish(xc, yc)] == \
+        [r["slot"] for r in cpu.publish(xc, yc)]
+    for mode in ("best1", "topk", "all"):
+        np.testing.assert_array_equal(card.run(xr, mode)["pred"],
+                                      cpu.run(xr, mode)["pred"])

@@ -240,12 +240,14 @@ def test_params_carry_and_init_distribution(np_params):
 
 
 def test_rejects_unported_dtypes(np_params):
+    """bf16 compute is not ported yet (the int8 serve copy is:
+    tests/test_torch_quant.py)."""
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
-    for kw in ({"compute_dtype": "bfloat16"}, {"weights_dtype": "int8"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdeep.forward(params, torch.zeros(2, 6), TLP, infer=True, **kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tserve.PopulationServer(params, TLP, **kw)
+    kw = {"compute_dtype": "bfloat16"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdeep.forward(params, torch.zeros(2, 6), TLP, infer=True, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tserve.PopulationServer(params, TLP, **kw)
 
 
 def test_cuda_entry_points_never_fall_back():
@@ -420,6 +422,9 @@ def test_serve_main_on_cpu(np_params, tmp_path, capsys):
     for row in out["serve"].values():
         assert row["requests"] == 20 and row["p99_ms"] >= row["p50_ms"] > 0
     assert "published: best1=" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        tserve.main(["--ckpt-dir", str(tmp_path), "--device", "cpu",
-                     "--weights-dtype", "int8"])
+    out8 = tserve.main(["--ckpt-dir", str(tmp_path), "--requests", "20",
+                        "--batch", "8", "--calib-samples", "32",
+                        "--device", "cpu", "--weights-dtype", "int8"])
+    assert out8["budget"] == {"launches": 4, "budget": 4}
+    assert out8["serve_copy_bytes"] < out["serve_copy_bytes"] / 2
+    assert set(out8["serve"]) == {"best1", "topk", "all"}

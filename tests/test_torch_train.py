@@ -130,7 +130,8 @@ def test_fused_step_is_two_depth_plus_one_launches(np_params, batches):
     assert {k: after[k] - before[k] for k in after} == {
         "fused_input": 1, "fused_input_bwd": 1, "fused_layer": 2,
         "fused_layer_dx_dw": 2, "infer_head": 0, "loss_head_fwd": 1,
-        "loss_head_bwd": 1}
+        "loss_head_bwd": 1, "fused_input_int8": 0, "fused_layer_int8": 0,
+        "infer_head_int8": 0}
     assert launch_count.fused_step_budget(3) == {"fwd": 4, "bwd": 4,
                                                  "total": 8}
 
