@@ -29,6 +29,14 @@ Phases (any failure exits non-zero, and no result line is printed):
           copy alive, byte-equal to the copy quantized on the CPU, its
           size against the f32 tree's, and its forward against the f32
           kernels on its dequantized tree;
+       d. the unfused route (the block-diagonal GEMM and segmented-
+          activation kernels): both checkpoints served again by
+          ``serve_population.main --bd-impl pallas --act-impl pallas``,
+          each run counted alone: every forward exactly ``seg_act`` ×depth
+          and ``block_diag_fwd`` ×(depth−1), nothing else; req/s and
+          p50/p99 per mode beside the fused serve's; then each
+          checkpoint's unfused forward (logits, and the ``all`` ensemble's
+          probabilities) against the fused route's;
   4. the training path, the counters set to 0 just before each training
      run and read just after it (the held-out checks run outside them):
        a. ``parallelmlp-10k`` at full width trained by
@@ -39,13 +47,19 @@ Phases (any failure exits non-zero, and no result line is printed):
           checked as in 3c);
        b. the depth-3 population trained with ``--optimizer adamw
           --grad-clip 1.0 --lr-schedule warmup_cosine``;
+       c. the same, on the unfused route (``--bd-impl pallas --act-impl
+          pallas``);
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
      losses, gradients, updated parameters); two fused steps from one
-     state are bitwise equal; then the steady-state step timed (host wall
-     per synchronised step; device time by kernel and the device's idle
-     share from ``torch.profiler``);
+     state are bitwise equal; one unfused step launches ``seg_act``,
+     ``seg_act_bwd`` ×depth, ``block_diag_fwd`` ×2(depth−1) and
+     ``block_diag_dw`` ×(depth−1) and matches the fused step from the same
+     state; then the steady-state step timed (host wall per synchronised
+     step; device time by kernel and the device's idle share from
+     ``torch.profiler``), the depth-3 step fused and unfused in turns
+     (fused, unfused, unfused, fused);
   6. each kernel against its plain PyTorch version on the same inputs at
      the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off), and the
      served forward against the plain route on the card and on the CPU;
@@ -54,8 +68,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      bytes and operations of this run's inputs;
   8. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel;
      the int8 rows' library call is the f32 row's on the dequantized
-     weight, the dequantization not timed), then the card's line
-     ``{"ok": true, "device": {...}}`` last.
+     weight, the dequantization not timed; ``seg_act``/``seg_act_bwd`` have
+     none, and say why), then the card's line ``{"ok": true, "device":
+     {...}}`` last.
 """
 import gc
 import json
@@ -76,6 +91,10 @@ DEPTH3 = dict(depths="64,32,16;13,5;7", acts="paper", features=100,
               repeats=1000)
 SERVE_KERNELS = ("fused_input", "fused_layer", "infer_head")
 INT8_KERNELS = ("fused_input_int8", "fused_layer_int8", "infer_head_int8")
+UNFUSED = ["--bd-impl", "pallas", "--act-impl", "pallas"]
+UNFUSED_KERNELS = ("block_diag_fwd", "block_diag_dw", "seg_act",
+                   "seg_act_bwd")
+SERVE_REQUESTS = 256
 # every ported TPU kernel: its row name → the Pallas function it replaces
 REPLACES = {
     "fused_input": "src/repro/kernels/fused_input.py:83",
@@ -88,11 +107,17 @@ REPLACES = {
     "infer_head_int8": "src/repro/kernels/infer_head.py:150",
     "loss_head_fwd": "src/repro/kernels/loss_head.py:101",
     "loss_head_bwd": "src/repro/kernels/loss_head.py:175",
+    "block_diag_fwd": "src/repro/kernels/block_diag.py:82",
+    "block_diag_dw": "src/repro/kernels/block_diag.py:138",
+    "seg_act": "src/repro/kernels/seg_act.py:27",
+    "seg_act_bwd": "src/repro/kernels/seg_act.py:65",
 }
 SOURCES = {"loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head",
            "fused_input_int8": "fused_input",
            "fused_layer_int8": "fused_layer",
-           "infer_head_int8": "infer_head"}
+           "infer_head_int8": "infer_head",
+           "block_diag_fwd": "block_diag", "block_diag_dw": "block_diag",
+           "seg_act_bwd": "seg_act"}
 
 
 def _require(cond, msg: str):
@@ -155,22 +180,24 @@ def _close(name, got, want):
 # the serving path                                                      #
 # --------------------------------------------------------------------- #
 
-def serve_checkpoint(name: str, ckpt: Path, budget: int, int8=False):
-    """Serve a checkpoint through the serving driver (its int8 copy with
-    ``int8``); check its launch budget and that every mode answered."""
+def serve_checkpoint(name: str, ckpt: Path, budget, flags=()):
+    """Serve a checkpoint through the serving driver with extra ``flags``;
+    check its launch budget (None: the unfused route has none) and that
+    every mode answered."""
     import torch
 
     from repro_torch.launch import serve_population
     t0 = time.perf_counter()
     out = serve_population.main(
-        ["--ckpt-dir", str(ckpt), "--requests", "256", "--batch", str(BATCH),
-         *(["--weights-dtype", "int8"] if int8 else [])])
+        ["--ckpt-dir", str(ckpt), "--requests", str(SERVE_REQUESTS),
+         "--batch", str(BATCH), *flags])
     torch.cuda.synchronize()
     print(f"[{name}] served in {time.perf_counter() - t0:.1f} s", flush=True)
-    _require(out["budget"] == {"launches": budget, "budget": budget},
+    want = None if budget is None else {"launches": budget, "budget": budget}
+    _require(out["budget"] == want,
              f"{name}: launch budget {out['budget']}, expected {budget}")
     for mode, row in out["serve"].items():
-        _require(row["requests"] == 256 and row["req_per_s"] > 0,
+        _require(row["requests"] == SERVE_REQUESTS and row["req_per_s"] > 0,
                  f"{name}/{mode}: {row}")
     return out
 
@@ -204,18 +231,86 @@ def serve_int8(name: str, ckpt: Path, budget: int, f32_out: dict):
     from repro_torch.launch.launch_count import (kernel_launches,
                                                  reset_kernel_launches)
     reset_kernel_launches()
-    out = serve_checkpoint(f"{name} int8", ckpt, budget, int8=True)
+    out = serve_checkpoint(f"{name} int8", ckpt, budget,
+                           ["--weights-dtype", "int8"])
     torch.cuda.synchronize()
     n = kernel_launches()
     other = {k: v for k, v in n.items() if k not in INT8_KERNELS and v}
     _require(not other, f"{name} int8: non-int8 kernels launched {other}")
-    for mode, row in out["serve"].items():
-        ref = f32_out["serve"][mode]
-        print(f"[{name}] {mode:5s} f32 {ref['req_per_s']:.0f} req/s p50 "
-              f"{ref['p50_ms']:.2f} p99 {ref['p99_ms']:.2f} ms | int8 "
-              f"{row['req_per_s']:.0f} req/s p50 {row['p50_ms']:.2f} p99 "
-              f"{row['p99_ms']:.2f} ms", flush=True)
+    _print_beside(name, ("f32", "int8"), f32_out, out)
     return out, n
+
+
+def _print_beside(name: str, labels, ref_out: dict, out: dict):
+    """Each mode's req/s and p50/p99 of two serves of one checkpoint."""
+    for mode, row in out["serve"].items():
+        ref = ref_out["serve"][mode]
+        print(f"[{name}] {mode:5s} {labels[0]} {ref['req_per_s']:.0f} req/s "
+              f"p50 {ref['p50_ms']:.2f} p99 {ref['p99_ms']:.2f} ms | "
+              f"{labels[1]} {row['req_per_s']:.0f} req/s p50 "
+              f"{row['p50_ms']:.2f} p99 {row['p99_ms']:.2f} ms", flush=True)
+
+
+def serve_unfused(name: str, ckpt: Path, lp, fused_out: dict):
+    """Serve ``ckpt`` on the unfused route through the serving driver,
+    counted alone: every forward (one calibration slab, then per mode a
+    warm-up and one per flush) exactly ``unfused_infer_launches``, no other
+    kernel.  Prints each mode's req/s and p50/p99 beside the fused serve's.
+    Returns (driver result, the run's kernel launches)."""
+    import torch
+
+    from repro_torch.core.selection import EVAL_SLAB
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches,
+                                                 unfused_infer_launches)
+    reset_kernel_launches()
+    out = serve_checkpoint(f"{name} unfused", ckpt, None, UNFUSED)
+    torch.cuda.synchronize()
+    n = kernel_launches()
+    forwards = -(-512 // EVAL_SLAB) + len(out["serve"]) * (
+        1 + -(-SERVE_REQUESTS // BATCH))
+    want = {k: forwards * v
+            for k, v in unfused_infer_launches(lp.depth).items() if v}
+    _require({k: v for k, v in n.items() if v} == want,
+             f"{name} unfused: launches {n}, expected {want} ({forwards} "
+             "forwards)")
+    _print_beside(name, ("fused", "unfused"), fused_out, out)
+    return out, n
+
+
+def check_unfused_forward(name: str, ckpt: Path, x) -> float:
+    """One unfused forward of ``ckpt``'s parameters: exactly
+    ``unfused_infer_launches``; its logits and the ``all`` ensemble's
+    probabilities against the fused route's."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import restore_population
+    from repro_torch.core.deep import forward
+    from repro_torch.core.ensemble import ensemble_predict
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches,
+                                                 unfused_infer_launches)
+    params, lp, _ = restore_population(str(ckpt), device="cuda")
+    with torch.inference_mode():
+        reset_kernel_launches()
+        got = forward(params, x, lp, bd_impl="pallas", act_impl="pallas",
+                      infer=True)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in kernel_launches().items() if v}
+        want = forward(params, x, lp, bd_impl="fused", infer=True)
+        probs = [ensemble_predict(y, lp, "all")["probs"] for y in (got, want)]
+    per = {k: v for k, v in unfused_infer_launches(lp.depth).items() if v}
+    _require(n == per, f"{name}: an unfused forward launched {n}, expected "
+             f"{per}")
+    _require(tuple(got.shape) == (x.shape[0], lp.num_members,
+                                  lp.out_features)
+             and bool(torch.isfinite(got).all()),
+             f"{name}: unfused logits {tuple(got.shape)} not finite")
+    err = max(_close(f"{name}: unfused vs fused logits", got, want),
+              _close(f"{name}: unfused vs fused ensemble", *probs))
+    print(f"[{name}] unfused forward: launches {n}; vs the fused route "
+          f"max|err| {err!r}", flush=True)
+    return err
 
 
 def check_int8(name: str, ckpt: Path, x) -> dict:
@@ -303,12 +398,13 @@ def _add_counts(a: dict, b: dict) -> dict:
     return {k: a[k] + b[k] for k in a}
 
 
-def train(name: str, workdir: Path, flags: list):
-    """Train through ``repro_torch.launch.train.main`` (seed 0), the kernel
-    counters set to 0 just before the run and read just after it; then
-    check the per-member losses stay finite and that the mean held-out
-    loss fell below the same seed's initial parameters'.  Returns (params,
-    layout, stats, checkpoint dir, the run's kernel launches)."""
+def train(name: str, workdir: Path, flags: list, unfused: bool = False):
+    """Train through ``repro_torch.launch.train.main`` (seed 0; the fused
+    route, or with ``unfused`` the unfused one), the kernel counters set to
+    0 just before the run and read just after it; then check the
+    per-member losses stay finite and that the mean held-out loss fell
+    below the same seed's initial parameters'.  Returns (params, layout,
+    stats, checkpoint dir, the run's kernel launches)."""
     import torch
 
     from repro_torch.core.deep import init_params
@@ -323,7 +419,7 @@ def train(name: str, workdir: Path, flags: list):
     params, lp, stats = train_driver.main(
         ["--bd-impl", "fused", "--batch", str(BATCH), "--steps", "16",
          "--scan-steps", "8", "--ckpt-dir", str(ckpt), "--ckpt-every", "8",
-         "--seed", "0", *flags])
+         "--seed", "0", *flags, *(UNFUSED if unfused else [])])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
@@ -331,8 +427,16 @@ def train(name: str, workdir: Path, flags: list):
              f"{name}: {stats}")
     # one backward launch of each kind per step (the forwards also serve
     # the run's closing leaderboard, so they count more)
-    want = {"fused_input_bwd": 16, "loss_head_fwd": 16, "loss_head_bwd": 16,
-            "fused_layer_dx_dw": 16 * (lp.depth - 1)}
+    if unfused:
+        want = {"seg_act_bwd": 16 * lp.depth,
+                "block_diag_dw": 16 * (lp.depth - 1)}
+        other = {k: v for k, v in launches.items()
+                 if v and k not in UNFUSED_KERNELS}
+        _require(not other, f"{name}: fused kernels launched {other}")
+    else:
+        want = {"fused_input_bwd": 16, "loss_head_fwd": 16,
+                "loss_head_bwd": 16,
+                "fused_layer_dx_dw": 16 * (lp.depth - 1)}
     _require({k: launches[k] for k in want} == want,
              f"{name}: training launches {launches}, expected {want}")
     (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
@@ -409,17 +513,50 @@ def check_train_step(name, params, lp, x, y):
           f"{errs_cpu!r} vs the CPU; two steps bitwise equal", flush=True)
 
 
+def check_unfused_step(name, params, lp, x, y):
+    """One unfused step's launches, kernel by kernel, and its parity with
+    the fused step from the same state."""
+    import torch
+
+    from repro_torch.core.deep import opt_step
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches,
+                                                 unfused_step_launches)
+    from repro_torch.optim.optimizers import sgd
+    opt = sgd()
+    reset_kernel_launches()
+    opt_step(params, opt.init(params), x, y, 1e-2, opt, lp,
+             bd_impl="pallas", act_impl="pallas")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernel_launches().items() if v}
+    want = unfused_step_launches(lp.depth)
+    _require(got == want, f"{name}: an unfused step launched {got}, "
+             f"expected {want}")
+    unfused = _step_parts(params, x, y, lp, opt, bd_impl="pallas",
+                          act_impl="pallas")
+    fused = _step_parts(params, x, y, lp, opt, bd_impl="fused")
+    errs = [_close(f"{name} unfused step vs fused: {what}", a, b)
+            for what, a, b in zip(("losses", "grads", "params"), unfused,
+                                  fused)]
+    print(f"[{name}] unfused train step: launches {got}; max|err| "
+          f"losses/grads/params {errs!r} vs the fused step", flush=True)
+
+
 # names of the port's kernels in a profiler trace
 KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
                   "fused_layer_dx_dw_kernel", "fused_layer_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
-                  "loss_head_bwd_kernel")
+                  "loss_head_bwd_kernel", "block_diag_fwd_kernel",
+                  "block_diag_dw_kernel", "seg_act_fwd_kernel",
+                  "seg_act_bwd_kernel")
 
 
-def time_train_step(name, params, lp, x, y, adam: bool, iters: int = 20):
-    """Steady-state train step: host wall per synchronised step, and the
-    device time by kernel over 3 profiled steps (``torch.profiler``), from
-    which the device's idle share of the step."""
+def time_train_step(name, params, lp, x, y, adam: bool,
+                    unfused: bool = False, iters: int = 20):
+    """Steady-state train step (the fused route, or with ``unfused`` the
+    unfused one): host wall per synchronised step, and the device time by
+    kernel over 3 profiled steps (``torch.profiler``), from which the
+    device's idle share of the step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -427,7 +564,9 @@ def time_train_step(name, params, lp, x, y, adam: bool, iters: int = 20):
     from repro_torch.optim.optimizers import adamw, sgd
     opt = adamw(weight_decay=0.01) if adam else sgd()
     state = opt.init(params)
-    kw = dict(bd_impl="fused", grad_clip=1.0 if adam else None)
+    route = (dict(bd_impl="pallas", act_impl="pallas") if unfused
+             else dict(bd_impl="fused"))
+    kw = dict(route, grad_clip=1.0 if adam else None)
 
     def step():
         return opt_step(params, state, x, y, 1e-2, opt, lp, **kw)
@@ -472,7 +611,8 @@ def time_train_step(name, params, lp, x, y, adam: bool, iters: int = 20):
 def compare(name, kernel, plain, library, n_bytes, flops, launches, iters):
     """Hold one kernel against its plain version on the same inputs, and
     time kernel, plain version and library call.  ``kernel``/``plain``
-    return a tensor or a tuple of tensors."""
+    return a tensor or a tuple of tensors; ``library`` is a callable, or a
+    string saying why no single PyTorch call computes the function."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
@@ -486,7 +626,10 @@ def compare(name, kernel, plain, library, n_bytes, flops, launches, iters):
            "atol": ATOL,
            "ms": _time_ms(kernel, iters), "plain_ms": _time_ms(plain, iters),
            "bound_ms": bound, "bound_by": by,
-           "library_ms": _time_ms(library, iters)}
+           "library_ms": (None if isinstance(library, str)
+                          else _time_ms(library, iters))}
+    if isinstance(library, str):
+        row["library_none"] = library
     print(f"[{name}] max|err| {err!r}  kernel {row['ms']!r} ms  plain "
           f"{row['plain_ms']!r} ms  library {row['library_ms']!r} ms  bound "
           f"{bound!r} ms ({by}: {n_bytes} B, {flops} FLOP)", flush=True)
@@ -513,25 +656,28 @@ def _sum_rows(rows):
     one step summed (times and bounds), the worst error."""
     row = dict(max(rows, key=lambda r: r["bound_ms"]))
     for key in row:
-        if key.endswith("ms"):
+        if key.endswith("ms") and row[key] is not None:
             row[key] = sum(r[key] for r in rows)
-    for key in ("max_abs_err", "train_max_abs_err"):
+    for key in ("max_abs_err", "train_max_abs_err", "dh_max_abs_err"):
         if key in row:
             row[key] = max(r[key] for r in rows)
     return row
 
 
-def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n):
+def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
+                unfused_serve_n, unfused_train_n):
     """Phases 6 + 7: every ported kernel at the main paths' shapes."""
     import numpy as np
     import torch
 
     from repro_torch.core.activations import apply_activations_sliced
     from repro_torch.core.deep import pack_weight_tiles
+    from repro_torch.kernels import block_diag as bdk
     from repro_torch.kernels import fused_input as fik
     from repro_torch.kernels import fused_layer as flk
     from repro_torch.kernels import infer_head as ihk
     from repro_torch.kernels import loss_head as lhk
+    from repro_torch.kernels import seg_act as sak
     from repro_torch.quant import quantize_population
     dev = torch.device("cuda")
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -680,7 +826,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n):
         torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
         torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
         block=lp3k.block)
-    fwd_rows, bwd_rows, int8_rows = [], [], []
+    fwd_rows, bwd_rows, int8_rows, bd_rows, dw_rows = [], [], [], [], []
     for l in range(lp3k.depth - 1):
         lay = lp3k.bd_layout(l)
         pout = lp3k.layer_pop(l + 1)
@@ -753,10 +899,78 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n):
             _nbytes(*bargs, dx3, dwb3),
             2 * BATCH * b3 * b3 * (lay.n_steps_t + lay.n_param_blocks),
             train_n["fused_layer_dx_dw"], 50))
+
+        # the unfused route's block-diagonal GEMM on the same tiles: the
+        # forward (library: the BSR matmul above), its dh on the
+        # transposed tiles and steps, and dWB (library: one bmm on the
+        # tiles gathered beforehand, the gather not timed)
+        bd_args = (hin, wb, *sched)
+        y_bd = bdk.block_diag_fwd_cuda(*bd_args, blk=b3)
+        row = compare(
+            "block_diag_fwd", partial(bdk.block_diag_fwd_cuda, *bd_args,
+                                      blk=b3),
+            partial(bdk.block_diag_fwd_plain, *bd_args, blk=b3),
+            partial(torch.matmul, bsr, hin.t()), _nbytes(*bd_args, y_bd),
+            flops, unfused_serve_n["block_diag_fwd"], 50)
+        dh_args = (dy3, wb_t, rowptr_t, s_in_t, s_w_t)
+        dh3 = bdk.block_diag_fwd_cuda(*dh_args, blk=b3)
+        dh_bound, _ = _bound_ms(_nbytes(*dh_args, dh3),
+                                2 * BATCH * b3 * b3 * lay.n_steps_t)
+        row.update(
+            train_launches=unfused_train_n["block_diag_fwd"],
+            dh_max_abs_err=_close("block_diag_fwd dh: kernel vs plain", dh3,
+                                  bdk.block_diag_fwd_plain(*dh_args,
+                                                           blk=b3)),
+            dh_ms=_time_ms(partial(bdk.block_diag_fwd_cuda, *dh_args,
+                                   blk=b3), 50),
+            dh_bound_ms=dh_bound,
+            dh_library_ms=_time_ms(partial(torch.matmul, bsr_t, dy3.t()),
+                                   50))
+        bd_rows.append(row)
+        dw_args = (dy3, hin, out_t, in_t)
+        dwb_bd = bdk.block_diag_dw_cuda(*dw_args, blk=b3)
+        _require(torch.equal(dwb_bd, bdk.block_diag_dw_cuda(*dw_args,
+                                                            blk=b3)),
+                 "block_diag_dw: two launches on the same inputs differ")
+        dyg = dy3.view(BATCH, -1, b3)[:, out_t.long()].permute(1, 2, 0) \
+            .contiguous()
+        xg = hin.view(BATCH, -1, b3)[:, in_t.long()].transpose(0, 1) \
+            .contiguous()
+        dw_rows.append(compare(
+            "block_diag_dw", partial(bdk.block_diag_dw_cuda, *dw_args,
+                                     blk=b3),
+            partial(bdk.block_diag_dw_plain, *dw_args, blk=b3),
+            partial(torch.bmm, dyg, xg), _nbytes(*dw_args, dwb_bd),
+            2 * BATCH * b3 * b3 * lay.n_param_blocks,
+            unfused_train_n["block_diag_dw"], 50))
         hin = out
     rows["fused_layer"] = _sum_rows(fwd_rows)
     rows["fused_layer_int8"] = _sum_rows(int8_rows)
     rows["fused_layer_dx_dw"] = _sum_rows(bwd_rows)
+    rows["block_diag_fwd"] = _sum_rows(bd_rows)
+    rows["block_diag_dw"] = _sum_rows(dw_rows)
+
+    # ---- seg_act / seg_act_bwd at full width, on the input layer's
+    # pre-activation (the unfused route's input layer: addmm, then seg_act);
+    # last, so that the rows above draw the inputs they drew before these
+    z = torch.addmm(b, x, w.t())
+    y_sa = sak.seg_act_cuda(z, ids, mask, blk=blk)
+    no_call = ("no single PyTorch call applies a different activation to "
+               "each block of columns")
+    rows["seg_act"] = compare(
+        "seg_act", partial(sak.seg_act_cuda, z, ids, mask, blk=blk),
+        partial(sak.seg_act_plain, z, ids, mask, blk=blk), no_call,
+        _nbytes(z, ids, mask, y_sa), 2 * z.numel(),
+        unfused_serve_n["seg_act"], 20)
+    rows["seg_act"]["train_launches"] = unfused_train_n["seg_act"]
+    dz = torch.randn(z.shape, generator=gen, device=dev)
+    dh_sa = sak.seg_act_bwd_cuda(z, dz, ids, mask, blk=blk)
+    rows["seg_act_bwd"] = compare(
+        "seg_act_bwd", partial(sak.seg_act_bwd_cuda, z, dz, ids, mask,
+                               blk=blk),
+        partial(sak.seg_act_bwd_plain, z, dz, ids, mask, blk=blk), no_call,
+        _nbytes(z, dz, ids, mask, dh_sa), 3 * z.numel(),
+        unfused_train_n["seg_act_bwd"], 20)
     return [rows[name] for name in REPLACES]
 
 
@@ -847,6 +1061,20 @@ def main() -> int:
             int8_n = {k: int8_n[k] + n[k] for k in INT8_KERNELS}
         int8_copy = {name: check_int8(name, ck, x)
                      for name, ck, _, _ in fresh}
+
+        # 3d. the unfused route, each serve counted alone; then one
+        # forward of each checkpoint against the fused route
+        out_u, unfused_serve_n = {}, dict.fromkeys(UNFUSED_KERNELS, 0)
+        for (name, ck, _, f32_out), lp in zip(fresh, (lp10k, lp3k)):
+            out_u[name], n = serve_unfused(name, ck, lp, f32_out)
+            unfused_serve_n = _add_counts(unfused_serve_n, n)
+        unfused_err = {name: check_unfused_forward(name, ck, x)
+                       for name, ck, _, _ in fresh}
+        print(f"unfused serving path kernel launches: {unfused_serve_n}",
+              flush=True)
+        for name in ("seg_act", "block_diag_fwd"):
+            _require(unfused_serve_n[name] > 0, f"kernel {name} was not "
+                     "launched on the unfused serving path")
         p10k = restore_population(str(ck10k0), device="cuda")[0]
         p3k = restore_population(str(ck3k0), device="cuda")[0]
 
@@ -868,36 +1096,53 @@ def main() -> int:
         for name, n in int8_n.items():
             _require(n > 0, f"kernel {name} was not launched on the int8 "
                      "serving path")
-        t3k, _, stats3k, _, n3k = train(
-            "trainer-depth3", workdir,
-            ["--arch", "parallelmlp-10k", "--population-depths",
-             DEPTH3["depths"], "--population-acts", DEPTH3["acts"],
-             "--population-features", str(DEPTH3["features"]),
-             "--population-repeats", str(DEPTH3["repeats"]),
-             "--optimizer", "adamw", "--grad-clip", "1.0",
-             "--lr-schedule", "warmup_cosine"])
+        depth3 = ["--arch", "parallelmlp-10k", "--population-depths",
+                  DEPTH3["depths"], "--population-acts", DEPTH3["acts"],
+                  "--population-features", str(DEPTH3["features"]),
+                  "--population-repeats", str(DEPTH3["repeats"]),
+                  "--optimizer", "adamw", "--grad-clip", "1.0",
+                  "--lr-schedule", "warmup_cosine"]
+        t3k, _, stats3k, _, n3k = train("trainer-depth3", workdir, depth3)
         train_n = _add_counts(n10k, n3k)
         print(f"training path kernel launches: {train_n}; serving path "
               f"with the trained checkpoint: {serve_n}; peak device memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
               flush=True)
         for name, n in train_n.items():
-            _require((n == 0) if name in INT8_KERNELS else (n > 0),
-                     f"kernel {name} was launched {n} times on the "
-                     "training path")
+            _require((n == 0) if name in INT8_KERNELS + UNFUSED_KERNELS
+                     else (n > 0), f"kernel {name} was launched {n} times "
+                     "on the training path")
+
+        # 4c. the unfused route's training, counted alone
+        _, _, stats3u, _, unfused_train_n = train(
+            "trainer-depth3 unfused", workdir, depth3, unfused=True)
+        for name in UNFUSED_KERNELS:
+            _require(unfused_train_n[name] > 0, f"kernel {name} was not "
+                     "launched on the unfused training path")
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
     check_train_step("trainer-depth3", t3k, lp3k, x, y)
+    check_unfused_step("trainer-depth3", t3k, lp3k, x, y)
     steps = {"parallelmlp-10k": time_train_step("parallelmlp-10k", t10k,
-                                                lp10k, x, y, adam=False),
-             "trainer-depth3": time_train_step("trainer-depth3", t3k, lp3k,
-                                               x, y, adam=True)}
+                                                lp10k, x, y, adam=False)}
+    # the depth-3 step from one state, fused and unfused in turns
+    for key, unfused in (("trainer-depth3", False),
+                         ("trainer-depth3 unfused", True),
+                         ("trainer-depth3 unfused (2)", True),
+                         ("trainer-depth3 (2)", False)):
+        steps[key] = time_train_step(key, t3k, lp3k, x, y, adam=True,
+                                     unfused=unfused)
 
     # 6 + 7. each kernel against its plain version; timings; outputs
     check_forward("parallelmlp-10k", p10k, lp10k, x)
     check_forward("trainer-depth3", p3k, lp3k, x)
-    rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n)
+    # the rows are timed on an emptied allocator cache: left as the earlier
+    # phases leave it, the f32 fused_layer row read 4-5 % slower on the H100
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
+                       unfused_serve_n, unfused_train_n)
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")
     _require({Path(r["source"]).stem for r in rows} >= set(libs),
@@ -909,8 +1154,12 @@ def main() -> int:
                                 "parallelmlp-10k trained": served["serve"]},
                       "serve_int8": {k: v["serve"] for k, v in out8.items()},
                       "int8_copy": int8_copy,
+                      "serve_unfused": {k: v["serve"]
+                                        for k, v in out_u.items()},
+                      "unfused_vs_fused_max_abs_err": unfused_err,
                       "train": {"parallelmlp-10k": stats10k,
-                                "trainer-depth3": stats3k},
+                                "trainer-depth3": stats3k,
+                                "trainer-depth3 unfused": stats3u},
                       "train_step": steps,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))

@@ -15,7 +15,13 @@ per projection and the infer head — and a training step (``fused_loss``
 and its gradient) exactly ``2·(depth + 1)``: the same stages with g' in
 their epilogues, the fused loss head, and one backward launch each.
 ``bd_impl="einsum"`` with ``head_impl="xla"`` / ``loss_impl="xla"`` is the
-plain PyTorch path, differentiated by autograd.
+plain PyTorch path, differentiated by autograd.  ``bd_impl="pallas"`` with
+``act_impl="pallas"`` is the unfused route over hand-written kernels: each
+mid layer is a bare block-diagonal GEMM kernel, the gated bias as a tensor
+op, then the segmented-activation kernel (the input layer: a plain matmul,
+then the same activation kernel), each differentiable through its own
+backward kernels — ``depth`` + ``depth − 1`` launches a forward
+(``launch_count.unfused_infer_launches``).
 
 Members never mix: every parameter belongs to exactly one member, so
 per-member learning rates (and any per-member optimizer hyperparameter)
@@ -50,9 +56,6 @@ from repro_torch.quant import abstract_qparams
 
 _NOT_YET = ("the port computes in float32 only so far; the bf16 compute "
             "policy is still to be ported (ROADMAP.md, Queue 1 item 6)")
-_PALLAS = ("the unfused Pallas-kernel alternatives (block_diag, m3_matmul, "
-           "seg_act) are not ported yet (ROADMAP.md, Queue 2); the fused "
-           "path needs none of them")
 
 
 def _static(lp, name, device, arr, dtype) -> torch.Tensor:
@@ -109,6 +112,16 @@ def pack_weight_tiles(w_buckets, lp: LayeredPopulation, l: int
     return torch.cat(tiles, dim=0)
 
 
+def block_diag_pallas(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
+                      l: int) -> torch.Tensor:
+    """The bare projection through the block-diagonal GEMM kernel, with its
+    two-launch backward (``ops.block_diag_gemm``); callers add the bias and
+    run ``_act``."""
+    from repro_torch.kernels.ops import block_diag_gemm
+    return block_diag_gemm(h, pack_weight_tiles(w_buckets, lp, l),
+                           lp.bd_layout(l))
+
+
 def block_diag_fused(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
                      l: int, *, bias: torch.Tensor) -> torch.Tensor:
     """FUSED mid layer: projection + pass-through-gated bias + per-tile
@@ -149,6 +162,7 @@ def block_diag_fused_infer_int8(h: torch.Tensor, qlayer: dict,
 
 BD_IMPLS = {
     "einsum": block_diag_einsum,
+    "pallas": block_diag_pallas,
     "fused": block_diag_fused,
 }
 # impls whose kernel epilogue already applies bias + activation + mask
@@ -349,7 +363,9 @@ qparams_to_numpy = params_to_numpy
 def _act(lp: LayeredPopulation, l: int, h: torch.Tensor,
          act_impl: str = "sliced") -> torch.Tensor:
     """Per-layer activation + padding mask: ``sliced`` (one pass per
-    contiguous activation run) or ``masked`` (branchless select)."""
+    contiguous activation run), ``masked`` (branchless select) or
+    ``pallas`` (the segmented-activation kernel, mask fused, one launch per
+    direction)."""
     pop = lp.layer_pop(l)
     dev = h.device
     if act_impl == "sliced":
@@ -358,7 +374,11 @@ def _act(lp: LayeredPopulation, l: int, h: torch.Tensor,
         h = apply_activations_masked(
             h, _static(lp, ("act_ids", l), dev, pop.act_ids, torch.int32))
     elif act_impl == "pallas":
-        raise NotImplementedError(f"act_impl 'pallas': {_PALLAS}")
+        from repro_torch.kernels.ops import seg_act
+        return seg_act(h, _static(lp, ("block_act", l), dev,
+                                  pop.block_act_ids, torch.int32),
+                       _static(lp, ("mask", l), dev, pop.hidden_mask,
+                               torch.float32), block=lp.block)
     else:
         raise ValueError(f"unknown act_impl {act_impl!r}")
     return h * _static(lp, ("mask", l), dev, pop.hidden_mask, torch.float32)
@@ -419,8 +439,6 @@ def _hidden(params, x, lp: LayeredPopulation, bd_impl: str = "einsum",
                          "route — request it via weights_dtype, not bd_impl")
     if check_dtypes(compute_dtype, weights_dtype) is not None:
         return _hidden_int8(params, x, lp, bd_impl, in_impl, infer)
-    if bd_impl == "pallas" or in_impl == "pallas":
-        raise NotImplementedError(f"bd_impl/in_impl 'pallas': {_PALLAS}")
     if bd_impl not in BD_IMPLS:
         raise ValueError(f"unknown bd_impl {bd_impl!r} "
                          f"(have {sorted(BD_IMPLS)})")

@@ -1,0 +1,211 @@
+// Ragged block-diagonal GEMM (the unfused mid-layer projection), forward
+// and weight gradient:
+//   forward:  y[:, o] = Σ_{steps s of row o} x[:, s_in[s]] · wb[s_w[s]]ᵀ
+//   dW:       dWB[q]  = Σ_b dy[b, wb_out_tile[q]]ᵀ · x[b, wb_in_tile[q]]
+//
+// Replaces the TPU kernels repro/kernels/block_diag.py::block_diag_fwd
+// (block_diag_fwd_f32 here) and ::block_diag_dw (block_diag_dw_f32 here),
+// the pair behind repro/kernels/ops.py::block_diag_gemm's custom VJP.  As
+// there, the forward kernel is also the backward's dh: fed dy, the
+// per-member-transposed tiles and the transposed steps it computes
+// dh[:, i] = Σ_{transposed steps s of input tile i} dy[:, s_in_t[s]] ·
+// wb_t[s_w_t[s]]ᵀ.  wb is the (n_param_blocks + 1, blk, blk) tile array
+// with the shared identity tile last (pass-through members); the steps come
+// in CSR form (rowptr (n_rows + 1,), s_in, s_w (n_steps,) int32), one row
+// per output tile.  x (B, n_in_tiles·blk) → y (B, n_rows·blk) f32;
+// dy (B, n_out_tiles·blk), x → dWB (n_param_blocks, blk, blk) f32.
+//
+// The TPU kernels walk a sequential grid: the forward opens and flushes a
+// VMEM accumulator on s_first/s_last as it passes an output tile's run of
+// steps, and dW carries each tile's sum across the inner batch-tile axis.
+// A GPU grid has no order, so every output has one owner that loops
+// privately:
+//   * forward: one CTA per (32-row batch tile, output tile) walks that
+//     tile's CSR row, staging each (32 × blk) input tile and blk × blk
+//     weight tile in shared memory, accumulates in registers and writes
+//     once;
+//   * dW: one CTA per group of parameter tiles (128 / blk of them, so a
+//     CTA has 128·blk outputs) loops over every batch row in a fixed
+//     order, 32 rows at a time.  No floating-point atomics: launched twice
+//     on the same inputs it gives the same bits.
+// Any block up to 128 (block 8, the LayeredPopulation default, included).
+//
+// What bounds it: bytes at training and serving batch sizes.  A step reads
+// one blk × blk weight tile and one (32 × blk) input tile for 2·32·blk²
+// FLOP (16 FLOP per weight byte at B = 32), below the card's f32 ridge
+// (67 TFLOP/s over 3.35 TB/s = 20); dW reads dy and x once per parameter
+// tile.  At block 8 a forward CTA computes only 32 × 8 outputs, so the
+// kernel is many small CTAs, latency rather than bandwidth: left for later,
+// with tensor cores and double-buffered tile loads.
+#include <climits>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int MAX_BLK = 128;
+// forward
+constexpr int BM = 32;                               // batch rows per CTA
+constexpr int KC = 32;                               // reduction chunk
+constexpr int MAX_ACC_F = BM * MAX_BLK / THREADS;    // 16
+// dW
+constexpr int KB = 32;                               // batch rows per chunk
+constexpr int W_COLS = 128;                          // G·blk ≤ 128 columns
+constexpr int MAX_ACC_W = W_COLS * MAX_BLK / THREADS;  // 64
+
+__global__ void __launch_bounds__(THREADS)
+block_diag_fwd_kernel(const float* __restrict__ x,
+                      const float* __restrict__ wb,
+                      const int* __restrict__ rowptr,
+                      const int* __restrict__ s_in,
+                      const int* __restrict__ s_w, float* __restrict__ y,
+                      int B, int in_width, int out_width, int blk,
+                      int n_btiles) {
+  __shared__ float xs[BM][KC + 1];
+  __shared__ float ws[MAX_BLK][KC + 1];
+
+  const int bt = blockIdx.x % n_btiles;
+  const int ot = blockIdx.x / n_btiles;
+  const int b0 = bt * BM;
+  const int t = threadIdx.x;
+  const int n_out = BM * blk;  // (row, column) outputs of this CTA
+
+  float acc[MAX_ACC_F];
+#pragma unroll
+  for (int a = 0; a < MAX_ACC_F; ++a) acc[a] = 0.f;
+
+  const int s_end = rowptr[ot + 1];
+  for (int s = rowptr[ot]; s < s_end; ++s) {
+    const int col0 = s_in[s] * blk;
+    const float* wt = wb + (size_t)s_w[s] * blk * blk;
+    for (int k0 = 0; k0 < blk; k0 += KC) {
+      const int kc = min(KC, blk - k0);
+      __syncthreads();  // the previous chunk's reads are done
+      for (int i = t; i < BM * kc; i += THREADS) {
+        const int r = i / kc, c = i % kc;
+        const int b = b0 + r;
+        xs[r][c] = b < B ? x[(size_t)b * in_width + col0 + k0 + c] : 0.f;
+      }
+      for (int i = t; i < blk * kc; i += THREADS) {
+        const int r = i / kc, c = i % kc;
+        ws[r][c] = wt[(size_t)r * blk + k0 + c];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int a = 0; a < MAX_ACC_F; ++a) {
+        const int o = t + a * THREADS;
+        if (o < n_out) {
+          const int r = o / blk, col = o % blk;
+          float sum = acc[a];
+          for (int c = 0; c < kc; ++c) sum = fmaf(xs[r][c], ws[col][c], sum);
+          acc[a] = sum;
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < MAX_ACC_F; ++a) {
+    const int o = t + a * THREADS;
+    if (o < n_out) {
+      const int b = b0 + o / blk;
+      if (b < B) y[(size_t)b * out_width + ot * blk + o % blk] = acc[a];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+block_diag_dw_kernel(const float* __restrict__ dy,
+                     const float* __restrict__ x,
+                     const int* __restrict__ wb_out_tile,
+                     const int* __restrict__ wb_in_tile,
+                     float* __restrict__ dwb, int B, int out_width,
+                     int in_width, int blk, int n_param, int tiles_per_cta) {
+  __shared__ float us[KB][W_COLS + 1];
+  __shared__ float xs[KB][W_COLS + 1];
+
+  const int t = threadIdx.x;
+  const int q0 = blockIdx.x * tiles_per_cta;
+  const int nq = min(tiles_per_cta, n_param - q0);
+  const int bb = blk * blk;
+  const int n_out = nq * bb;
+  const int cols = nq * blk;
+
+  float acc[MAX_ACC_W];
+#pragma unroll
+  for (int a = 0; a < MAX_ACC_W; ++a) acc[a] = 0.f;
+
+  for (int b0 = 0; b0 < B; b0 += KB) {
+    __syncthreads();  // the previous chunk's reads are done
+    for (int i = t; i < KB * cols; i += THREADS) {
+      const int k = i / cols, c = i % cols;
+      const int gq = c / blk, e = c % blk;
+      const int b = b0 + k;
+      float u = 0.f, xv = 0.f;
+      if (b < B) {
+        u = dy[(size_t)b * out_width + wb_out_tile[q0 + gq] * blk + e];
+        xv = x[(size_t)b * in_width + wb_in_tile[q0 + gq] * blk + e];
+      }
+      us[k][c] = u;
+      xs[k][c] = xv;
+    }
+    __syncthreads();
+    const int kb = min(KB, B - b0);
+#pragma unroll
+    for (int a = 0; a < MAX_ACC_W; ++a) {
+      const int o = t + a * THREADS;
+      if (o < n_out) {
+        const int gq = o / bb, rem = o % bb;
+        const int ru = gq * blk + rem / blk;   // output unit of the tile
+        const int cx = gq * blk + rem % blk;   // input unit of the tile
+        float sum = acc[a];
+        for (int k = 0; k < kb; ++k) sum = fmaf(us[k][ru], xs[k][cx], sum);
+        acc[a] = sum;
+      }
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < MAX_ACC_W; ++a) {
+    const int o = t + a * THREADS;
+    if (o < n_out) dwb[(size_t)q0 * bb + o] = acc[a];
+  }
+}
+
+}  // namespace
+
+// x (B, n_in_tiles·blk), wb (n_tiles, blk, blk), CSR steps over n_rows
+// output tiles → y (B, n_rows·blk).
+extern "C" int block_diag_fwd_f32(const float* x, const float* wb,
+                                  const int* rowptr, const int* s_in,
+                                  const int* s_w, float* y, int B,
+                                  int n_in_tiles, int n_rows, int blk,
+                                  void* stream) {
+  if (B <= 0 || n_rows <= 0) return 0;
+  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_ctas = n_btiles * n_rows;
+  if (n_ctas > INT_MAX) return (int)cudaErrorInvalidValue;
+  block_diag_fwd_kernel<<<(unsigned)n_ctas, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      x, wb, rowptr, s_in, s_w, y, B, n_in_tiles * blk, n_rows * blk, blk,
+      (int)n_btiles);
+  return (int)cudaGetLastError();
+}
+
+// dy (B, n_out_tiles·blk), x (B, n_in_tiles·blk), each parameter tile's
+// output and input tile (n_param,) → dWB (n_param, blk, blk).
+extern "C" int block_diag_dw_f32(const float* dy, const float* x,
+                                 const int* wb_out_tile,
+                                 const int* wb_in_tile, float* dwb, int B,
+                                 int n_out_tiles, int n_in_tiles,
+                                 int n_param, int blk, void* stream) {
+  if (n_param <= 0) return 0;
+  if (blk <= 0 || blk > MAX_BLK || B < 0) return (int)cudaErrorInvalidValue;
+  const int tiles_per_cta = W_COLS / blk;
+  const long long n_ctas = (n_param + tiles_per_cta - 1) / tiles_per_cta;
+  block_diag_dw_kernel<<<(unsigned)n_ctas, THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      dy, x, wb_out_tile, wb_in_tile, dwb, B, n_out_tiles * blk,
+      n_in_tiles * blk, blk, n_param, tiles_per_cta);
+  return (int)cudaGetLastError();
+}

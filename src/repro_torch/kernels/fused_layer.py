@@ -38,6 +38,8 @@ import torch
 from repro_torch.core.activations import (apply_activation_derivs_masked,
                                           apply_activations_masked)
 from repro_torch.kernels import _build
+from repro_torch.kernels.block_diag import (block_diag_dw_plain,
+                                            block_diag_fwd_plain)
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # the forward, with or without g'
@@ -95,23 +97,9 @@ def transposed_tiles(wb_aug: torch.Tensor, perm_t: torch.Tensor
     return wb_aug[perm_t.long()].transpose(1, 2).contiguous()
 
 
-def _block_diag(x, wb, rowptr, s_in, s_w, blk: int):
-    """Σ over each CSR row's steps of x[:, s_in]·wb[s_w]ᵀ → (B, rows·blk)."""
-    b = x.shape[0]
-    n_rows = rowptr.shape[0] - 1
-    s_out = torch.repeat_interleave(
-        torch.arange(n_rows, device=x.device),
-        (rowptr[1:] - rowptr[:-1]).long())
-    xt = x.reshape(b, -1, blk)[:, s_in.long()]                 # (B, S, blk)
-    prod = torch.einsum("bsk,srk->bsr", xt, wb[s_w.long()])    # (B, S, blk)
-    z = torch.zeros(b, n_rows, blk, device=x.device, dtype=torch.float32)
-    z.index_add_(1, s_out, prod)
-    return z.reshape(b, n_rows * blk)
-
-
 def fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
                       blk: int):
-    z = _block_diag(x, wb, rowptr, s_in, s_w, blk) + b_eff
+    z = block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, blk=blk) + b_eff
     return apply_activations_masked(z, tile_act.repeat_interleave(blk)) * mask
 
 
@@ -126,7 +114,7 @@ def fused_layer_int8_plain(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
 def fused_layer_train_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                             *, blk: int):
     """→ (y, g'), both (B, n_out_tiles·blk)."""
-    z = _block_diag(x, wb, rowptr, s_in, s_w, blk) + b_eff
+    z = block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, blk=blk) + b_eff
     cols = tile_act.repeat_interleave(blk)
     return (apply_activations_masked(z, cols) * mask,
             apply_activation_derivs_masked(z, cols) * mask)
@@ -136,13 +124,9 @@ def fused_layer_dx_dw_plain(dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t,
                             wb_out_tile, wb_in_tile, *, blk: int):
     """→ (dx (B, n_in_tiles·blk), dWB (n_param_blocks, blk, blk)),
     du = dy·g'."""
-    b = dy.shape[0]
     du = dy * g
-    dx = _block_diag(du, wb_t, rowptr_t, s_in_t, s_w_t, blk)
-    dwb = torch.einsum("bqr,bqc->qrc",
-                       du.reshape(b, -1, blk)[:, wb_out_tile.long()],
-                       x.reshape(b, -1, blk)[:, wb_in_tile.long()])
-    return dx, dwb
+    dx = block_diag_fwd_plain(du, wb_t, rowptr_t, s_in_t, s_w_t, blk=blk)
+    return dx, block_diag_dw_plain(du, x, wb_out_tile, wb_in_tile, blk=blk)
 
 
 def _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, blk,

@@ -10,7 +10,10 @@ their kernels: no f32 weight is made per call.  Training:
 ``torch.autograd.Function`` whose forward is one kernel launch
 (the forwards also emit g' = act'(z)·mask, or the loss head its dlogits)
 and whose backward is one more, as the JAX package wraps each
-``pallas_call`` pair in a ``custom_vjp``.  The bias cotangents
+``pallas_call`` pair in a ``custom_vjp``.  The unfused route's two
+stages, ``block_diag_gemm`` (the bare block-diagonal projection; its
+backward is two launches, dh and dWB) and ``seg_act`` (the per-block
+activation with the mask), are differentiable the same way.  The bias cotangents
 (``Σ_b dy·g'``, ``d_per ⊙ Σ_b dl``) are plain tensor ops outside the
 kernels, as JAX leaves them to XLA.  Without a gradient to take (no input
 requires one, or grad mode is off) the training entries run the serving
@@ -31,10 +34,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.kernels import block_diag as _bdk
 from repro_torch.kernels import fused_input as _fik
 from repro_torch.kernels import fused_layer as _flk
 from repro_torch.kernels import infer_head as _ihk
 from repro_torch.kernels import loss_head as _lhk
+from repro_torch.kernels import seg_act as _sak
 from repro_torch.quant import _input_f_pad
 
 
@@ -327,6 +332,121 @@ def fused_layer(h: torch.Tensor, wb: torch.Tensor, b_eff: torch.Tensor,
         return fused_layer_infer(h, wb, b_eff, layout, block_act_ids, mask)
     acts, m = _layer_args(h, wb, b_eff, layout, block_act_ids, mask)
     return _FusedLayer.apply(h, wb, b_eff, layout, acts, m)
+
+
+# --------------------------------------------------------------------- #
+# unfused mid layer: block-diagonal GEMM, then segmented activation     #
+# --------------------------------------------------------------------- #
+
+def _bd_fwd(x, wb_aug, rowptr, s_in, s_w, blk):
+    if _on_card(x):
+        return _bdk.block_diag_fwd_cuda(x, wb_aug, rowptr, s_in, s_w, blk=blk)
+    _bdk.fwd_launches += 1
+    return _bdk.block_diag_fwd_plain(x, wb_aug, rowptr, s_in, s_w, blk=blk)
+
+
+class _BlockDiag(torch.autograd.Function):
+    """Forward: one launch.  Backward: dh from the forward kernel on the
+    transposed tiles and steps, and dWB over the parameter tiles only (the
+    identity tile is not a parameter)."""
+
+    @staticmethod
+    def forward(ctx, h, wb, layout):
+        wb_aug = _augment(wb)
+        ctx.layout = layout
+        ctx.save_for_backward(h, wb_aug)
+        return _bd_fwd(h.contiguous(), wb_aug,
+                       *_flk.schedule_on(layout, h.device), layout.block)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, wb_aug = ctx.saved_tensors
+        layout, blk = ctx.layout, ctx.layout.block
+        dy = dy.contiguous()
+        (rowptr_t, s_in_t, s_w_t, perm_t, out_tile,
+         in_tile) = _flk.schedule_on(layout, dy.device, transposed=True)
+        dh = dwb = None
+        if ctx.needs_input_grad[0]:
+            dh = _bd_fwd(dy, _flk.transposed_tiles(wb_aug, perm_t), rowptr_t,
+                         s_in_t, s_w_t, blk)
+        if ctx.needs_input_grad[1]:
+            args = (dy, h.contiguous(), out_tile, in_tile)
+            if _on_card(dy):
+                dwb = _bdk.block_diag_dw_cuda(*args, blk=blk)
+            else:
+                _bdk.dw_launches += 1
+                dwb = _bdk.block_diag_dw_plain(*args, blk=blk)
+        return dh, dwb, None
+
+
+def block_diag_gemm(h: torch.Tensor, wb: torch.Tensor, layout
+                    ) -> torch.Tensor:
+    """The bare block-diagonal member projection (JAX:
+    ``ops.block_diag_gemm``'s custom VJP): h (B, n_in_tiles·blk), wb
+    (n_param_blocks, blk, blk), ``layout`` a ``BlockDiagLayout`` → (B,
+    n_out_tiles·blk).  Pass-through members are copied through the shared
+    identity tile appended here, and get no weight gradient."""
+    blk = layout.block
+    if h.shape[1] != layout.n_in_tiles * blk:
+        raise ValueError(f"input axis {h.shape[1]} != "
+                         f"{layout.n_in_tiles}×{blk}")
+    if tuple(wb.shape) != (layout.n_param_blocks, blk, blk):
+        raise ValueError(f"weight tiles {tuple(wb.shape)} != "
+                         f"({layout.n_param_blocks}, {blk}, {blk})")
+    _require_f32(h=h, wb=wb)
+    if _wants_grad(h, wb):
+        return _BlockDiag.apply(h, wb, layout)
+    return _bd_fwd(h.contiguous(), _augment(wb),
+                   *_flk.schedule_on(layout, h.device), blk)
+
+
+def _seg_fwd(h, ids, m, block):
+    if _on_card(h):
+        return _sak.seg_act_cuda(h, ids, m, blk=block)
+    _sak.launches += 1
+    return _sak.seg_act_plain(h, ids, m, blk=block)
+
+
+class _SegAct(torch.autograd.Function):
+    """Forward: one launch.  Backward: one launch of (dy·mask)·act'(h)."""
+
+    @staticmethod
+    def forward(ctx, h, ids, m, block):
+        ctx.block = block
+        ctx.save_for_backward(h, ids, m)
+        return _seg_fwd(h.contiguous(), ids, m, block)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, ids, m = ctx.saved_tensors
+        args = (h.contiguous(), dy.contiguous(), ids, m)
+        if _on_card(dy):
+            dh = _sak.seg_act_bwd_cuda(*args, blk=ctx.block)
+        else:
+            _sak.bwd_launches += 1
+            dh = _sak.seg_act_bwd_plain(*args, blk=ctx.block)
+        return dh, None, None, None
+
+
+def seg_act(h: torch.Tensor, block_act_ids, mask, *, block: int
+            ) -> torch.Tensor:
+    """One-pass per-block activation + padding mask (JAX: ``ops.seg_act``'s
+    custom VJP): h (B, H) f32, one activation id per block of ``block``
+    columns, mask (H,) → ``act(h)·mask`` (B, H).  Differentiable through a
+    one-launch backward."""
+    hh = h.shape[1]
+    if hh % block:
+        raise ValueError(f"hidden axis {hh} not {block}-aligned")
+    _require_f32(h=h)
+    ids = _as(block_act_ids, h.device, torch.int32)
+    m = _as(mask, h.device, torch.float32)
+    if tuple(ids.shape) != (hh // block,) or tuple(m.shape) != (hh,):
+        raise ValueError(f"{tuple(ids.shape)} activation ids / "
+                         f"{tuple(m.shape)} mask for {hh // block} blocks "
+                         f"of {block}")
+    if _wants_grad(h):
+        return _SegAct.apply(h, ids, m, block)
+    return _seg_fwd(h.contiguous(), ids, m, block)
 
 
 # --------------------------------------------------------------------- #

@@ -1,18 +1,21 @@
 """Kernel-launch counters and the launch budgets of the two paths.
 
 Each kernel wrapper (``kernels/fused_input.py``, ``fused_layer.py``,
-``infer_head.py``, ``loss_head.py``) keeps plain integer counters that it
-raises by one where it launches a CUDA kernel; on a CPU tensor the
-dispatch layer (``kernels/ops.py``) counts the plain version's calls in the
-same counter.  So the budgets below are checked the same way on either
+``infer_head.py``, ``loss_head.py``, ``block_diag.py``, ``seg_act.py``)
+keeps plain integer counters that it raises by one where it launches a
+CUDA kernel; on a CPU tensor the dispatch layer (``kernels/ops.py``)
+counts the plain version's calls in the same counter.  So the budgets below are checked the same way on either
 device.  The training forwards (the kernels with g' in their epilogue)
 count under the serving forwards' names: they are the same kernels.  The
 int8 serving kernels count under names of their own (``*_int8``), so a run
-shows which weights it served.
+shows which weights it served.  The unfused route's backward dh is the
+forward block-diagonal kernel on transposed tiles, and counts as
+``block_diag_fwd``, as in the JAX package.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import fused_input, fused_layer, infer_head, loss_head
+from repro_torch.kernels import (block_diag, fused_input, fused_layer,
+                                 infer_head, loss_head, seg_act)
 
 # kernel name → (module, counter attribute)
 _COUNTERS = {
@@ -26,6 +29,10 @@ _COUNTERS = {
     "infer_head_int8": (infer_head, "int8_launches"),
     "loss_head_fwd": (loss_head, "fwd_launches"),
     "loss_head_bwd": (loss_head, "bwd_launches"),
+    "block_diag_fwd": (block_diag, "fwd_launches"),
+    "block_diag_dw": (block_diag, "dw_launches"),
+    "seg_act": (seg_act, "launches"),
+    "seg_act_bwd": (seg_act, "bwd_launches"),
 }
 
 
@@ -55,3 +62,19 @@ def fused_step_budget(depth: int) -> dict:
     mid layers + loss head — so 2·(depth+1) per step at any batch size."""
     per_dir = depth + 1
     return {"fwd": per_dir, "bwd": per_dir, "total": 2 * per_dir}
+
+
+def unfused_infer_launches(depth: int) -> dict:
+    """The unfused route's forward (``bd_impl="pallas"``,
+    ``act_impl="pallas"``; the input projection and the head are plain
+    PyTorch): one ``seg_act`` per layer and one ``block_diag_fwd`` per mid
+    layer, per request batch."""
+    return {"seg_act": depth, "block_diag_fwd": depth - 1}
+
+
+def unfused_step_launches(depth: int) -> dict:
+    """The unfused route's training step: the forward's launches, then per
+    layer one ``seg_act_bwd`` and per mid layer dh (a ``block_diag_fwd``
+    on the transposed tiles) and one ``block_diag_dw``."""
+    return {"seg_act": depth, "seg_act_bwd": depth,
+            "block_diag_fwd": 2 * (depth - 1), "block_diag_dw": depth - 1}

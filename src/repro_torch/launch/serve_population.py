@@ -12,8 +12,10 @@ Request lifecycle:
      zero-padded to the full batch);
   3. one eager step per ensemble mode, under ``torch.inference_mode()``,
      runs the forward-only fused path (``deep.forward(infer=True)``:
-     depth+1 kernel launches) and reduces the (B, P, O) member outputs on
-     the card (``core.ensemble``): best-member routing, top-k soft-vote or
+     depth+1 kernel launches; or, with ``bd_impl="pallas"``, the unfused
+     route's block-diagonal GEMM and segmented-activation kernels) and
+     reduces the (B, P, O) member outputs on the card
+     (``core.ensemble``): best-member routing, top-k soft-vote or
      all-members soft-vote, each with disagreement uncertainty;
   4. per-request latency = flush wait + step wall; the driver reports
      p50/p99 and req/s per mode.
@@ -53,7 +55,7 @@ class PopulationServer:
     parameters live on.  ``modes``: any of ``("best1", "topk", "all")``."""
 
     def __init__(self, params, layout, *, bd_impl: str = "fused",
-                 act_impl: str = "sliced", compute_dtype=None,
+                 act_impl: str = "pallas", compute_dtype=None,
                  weights_dtype=None, batch: int = 32, topk: int = 4,
                  max_latency_ms: float = 5.0):
         self.weights_dtype = check_dtypes(compute_dtype, weights_dtype)
@@ -259,10 +261,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--sharded", action="store_true",
                     help="shard the population over the visible cards "
                     "(not ported yet: raises)")
-    ap.add_argument("--bd-impl", default="fused", choices=["fused", "einsum"])
-    ap.add_argument("--act-impl", default="sliced",
-                    choices=["sliced", "masked"],
-                    help="activation pass of the unfused route (the fused "
+    ap.add_argument("--bd-impl", default="fused",
+                    choices=["fused", "pallas", "einsum"])
+    ap.add_argument("--act-impl", default="pallas",
+                    choices=["pallas", "sliced", "masked"],
+                    help="activation pass of the unfused routes (the fused "
                     "kernels apply the activation in their epilogue)")
     ap.add_argument("--compute-dtype", default=None,
                     help="float32 only in this port so far")

@@ -8,14 +8,17 @@ parameters and optimizer state on the device, and train in chunks of
 under a ``TrainRunner`` — cadence checkpoints carrying the layout and the
 optimizer state, crash replay from the last checkpoint.  ``--bd-impl
 fused`` runs every step as exactly 2·(depth+1) hand-written CUDA kernel
-launches.  The run ends with a leaderboard over the held-out split, scored
-on the serving kernels.
+launches; ``--bd-impl pallas --act-impl pallas`` runs the unfused route
+over the block-diagonal GEMM and segmented-activation kernels.  The run
+ends with a leaderboard over the held-out split, scored on the run's own
+route (the serving kernels under ``--bd-impl fused``).
 
 Single device: the population is not shard-padded.  Flags whose paths are
 not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
 ``--halving``, ``--refill``, ``--per-member-*``, ``--compute-dtype
 bfloat16``, ``--optimizer adafactor``, ``--opt-state-dtype bfloat16``,
-``--serve-publish``, ``--pipeline on`` and the ``pallas`` impls.
+``--serve-publish``, ``--pipeline on``, ``--m3-impl pallas`` and
+``--m3-impl onehot``.
 ``--pipeline`` defaults to ``off`` here (the JAX package's trajectory is
 bit-identical either way).
 """
@@ -87,9 +90,8 @@ def check_supported(args):
          f"from a live run is {_QUEUE1}, item 6)"),
         (args.pipeline == "on", "--pipeline on: the streaming data plane "
          f"is {_QUEUE1}, item 7)"),
-        ("pallas" in (args.bd_impl, args.m3_impl, args.act_impl),
-         "the 'pallas' impls: the unfused Pallas kernels are not ported yet "
-         "(ROADMAP.md, Queue 2)"),
+        (args.m3_impl == "pallas", "--m3-impl pallas: the m3_matmul "
+         "kernels are not ported yet (ROADMAP.md, Queue 2)"),
         (args.m3_impl == "onehot", f"--m3-impl onehot is {_QUEUE1}, item 1)"),
     ]
     for bad, why in unsupported:
@@ -292,7 +294,8 @@ def run_population(arch, args):
                                 train_meta=train_meta)
 
     losses, accs = evaluate_population(params, lp, xte, yte,
-                                       bd_impl=args.bd_impl, infer=True)
+                                       bd_impl=args.bd_impl,
+                                       act_impl=args.act_impl, infer=True)
     print("leaderboard:")
     for row in leaderboard(lp, losses, accs, k=min(10, lp.num_real),
                            member_ids=member_ids):
@@ -335,16 +338,19 @@ def main(argv=None):
                     choices=["scatter", "onehot", "bucketed", "pallas"])
     ap.add_argument("--bd-impl", default="einsum",
                     choices=["einsum", "pallas", "fused"],
-                    help="mid-layer projection: per-bucket einsum, or the "
-                         "FUSED kernels (projection + bias + activation in "
-                         "one launch per direction)")
+                    help="mid-layer projection: per-bucket einsum, the "
+                         "block-diagonal GEMM kernel (pallas: bias and "
+                         "activation after it), or the FUSED kernels "
+                         "(projection + bias + activation in one launch "
+                         "per direction)")
     ap.add_argument("--compute-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--rung-eval-batches", type=int, default=0,
                     help="halving rungs only (not ported yet)")
     ap.add_argument("--act-impl", default="sliced",
                     choices=["sliced", "masked", "pallas"],
-                    help="per-layer activation of the unfused route")
+                    help="per-layer activation of the unfused route "
+                         "(pallas: the segmented-activation kernel)")
     ap.add_argument("--scan-steps", type=int, default=8,
                     help="optimizer steps per chunk (metrics are fetched "
                          "once per chunk)")

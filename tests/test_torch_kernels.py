@@ -489,3 +489,110 @@ def test_int8_server_on_card_matches_cpu(dev):
     for mode in ("best1", "topk", "all"):
         np.testing.assert_array_equal(card.run(xr, mode)["pred"],
                                       cpu.run(xr, mode)["pred"])
+
+
+# --------------------------------------------------------------------- #
+# the unfused route: block-diagonal GEMM and segmented activation       #
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("b,block,n_blocks,offset", [
+    (9, 8, 20, 0), (32, 16, 13, 0), (33, 128, 7, 0), (5, 8, 3, 1),
+    (7, 3, 5, 0)])
+def test_seg_act_and_bwd_match_plain(dev, b, block, n_blocks, offset):
+    """Every activation, the padding mask, pre-activations on the kinks;
+    16-byte vector access, and the scalar path (an unaligned view, a width
+    not a multiple of 4)."""
+    from repro_torch.kernels import seg_act as sak
+    rng = np.random.default_rng(b + block)
+    hh = block * n_blocks
+    vals = rng.normal(0, 2, (b, hh)).astype(np.float32)
+    vals[:, ::3] = _kinks(hh)[::3]
+    store = torch.zeros(b * hh + offset, device=dev)
+    h = store[offset:].view(b, hh)
+    h.copy_(_t(vals, dev))
+    dy = _t(rng.normal(0, 1, (b, hh)), dev)
+    ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
+    mask = _t(rng.random(hh) > 0.2, dev)
+    n0, m0 = sak.launches, sak.bwd_launches
+    got = sak.seg_act_cuda(h, ids, mask, blk=block)
+    dh = sak.seg_act_bwd_cuda(h, dy, ids, mask, blk=block)
+    assert (sak.launches, sak.bwd_launches) == (n0 + 1, m0 + 1)
+    _close(got, sak.seg_act_plain(h, ids, mask, blk=block))
+    _close(dh, sak.seg_act_bwd_plain(h, dy, ids, mask, blk=block))
+
+
+@pytest.mark.parametrize("widths,block,b", _TRAIN_GRID)
+def test_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b):
+    """The forward, the dh pass (the same kernel on the transposed tiles
+    and steps, pass-through members through the identity tile) and dWB;
+    dWB twice on the same inputs is bitwise equal (no atomics)."""
+    from repro_torch.kernels import block_diag as bdk
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    lp = LayeredPopulation(5, 3, widths, acts, block=block)
+    rng = np.random.default_rng(b)
+    for l in range(lp.depth - 1):
+        lay = lp.bd_layout(l)
+        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
+        wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, block, block))
+                / np.sqrt(block), dev)
+        wb[-1] = torch.eye(block, device=dev)
+        sched = flk.schedule_on(lay, dev)
+        n0 = bdk.fwd_launches
+        y = bdk.block_diag_fwd_cuda(x, wb, *sched, blk=block)
+        assert bdk.fwd_launches == n0 + 1
+        _close(y, bdk.block_diag_fwd_plain(x, wb, *sched, blk=block))
+        rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
+            lay, dev, transposed=True)
+        wb_t = flk.transposed_tiles(wb, perm_t)
+        dy = _t(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
+        dh = bdk.block_diag_fwd_cuda(dy, wb_t, rowptr_t, s_in_t, s_w_t,
+                                     blk=block)
+        _close(dh, bdk.block_diag_fwd_plain(dy, wb_t, rowptr_t, s_in_t,
+                                            s_w_t, blk=block))
+        m0 = bdk.dw_launches
+        dwb = bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=block)
+        assert bdk.dw_launches == m0 + 1
+        _close(dwb, bdk.block_diag_dw_plain(dy, x, out_t, in_t, blk=block))
+        assert torch.equal(dwb, bdk.block_diag_dw_cuda(dy, x, out_t, in_t,
+                                                       blk=block))
+
+
+def test_unfused_route_on_card_matches_cpu(dev):
+    """The unfused route (bd_impl="pallas", act_impl="pallas") on the card:
+    its forward's and its step's launches, and both against the same route
+    on the CPU (the kernels' plain versions) and the fused route on the
+    card."""
+    from repro_torch.core import deep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 unfused_infer_launches,
+                                                 unfused_step_launches)
+    lp = _serve_layout()
+    p_cpu = deep.init_params(torch.Generator().manual_seed(0), lp)
+    p_dev = _params_on(p_cpu, dev)
+    x = torch.randn(33, 6, generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 3, (33,), generator=torch.Generator().manual_seed(2))
+    unfused = dict(bd_impl="pallas", act_impl="pallas")
+
+    def moved(fn):
+        before = kernel_launches()
+        out = fn()
+        after = kernel_launches()
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    got, n = moved(lambda: deep.forward(p_dev, x.to(dev), lp, infer=True,
+                                        **unfused))
+    assert n == unfused_infer_launches(lp.depth)
+    _close(got, deep.forward(p_cpu, x, lp, infer=True, **unfused))
+    _close(got, deep.forward(p_dev, x.to(dev), lp, bd_impl="fused",
+                             infer=True))
+    (_, per, grads), n = moved(lambda: deep.loss_and_grads(
+        p_dev, x.to(dev), y.to(dev), lp, **unfused))
+    assert n == unfused_step_launches(lp.depth)
+    for want in (deep.loss_and_grads(p_cpu, x, y, lp, **unfused),
+                 deep.loss_and_grads(p_dev, x.to(dev), y.to(dev), lp,
+                                     bd_impl="fused")):
+        _close(per, want[1])
+        for a, b in zip(tree_leaves(grads), tree_leaves(want[2])):
+            _close(a, b)

@@ -168,9 +168,9 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
     ["--optimizer", "adamw", "--opt-state-dtype", "bfloat16"],
     ["--serve-publish"],
     ["--pipeline", "on"],
-    ["--bd-impl", "pallas"],
     ["--m3-impl", "pallas"],
-    ["--act-impl", "pallas"],
+    ["--m3-impl", "onehot"],
+    ["--bd-impl", "pallas", "--act-impl", "pallas", "--m3-impl", "pallas"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
