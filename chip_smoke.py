@@ -49,20 +49,37 @@ Phases (any failure exits non-zero, and no result line is printed):
           --grad-clip 1.0 --lr-schedule warmup_cosine``;
        c. the same, on the unfused route (``--bd-impl pallas --act-impl
           pallas``);
+       d. the paper's single-layer ParallelMLP (``core/parallel_mlp``) at
+          the full width of ``parallelmlp-10k``: ``init_params`` from a
+          seeded generator, 16 ``sgd_step``s at batch 32 with
+          ``m3_impl="pallas"`` (exactly one launch of each M3 kernel a
+          step, no other kernel), the held-out loss below the same seed's
+          initial loss, then ``evaluate_population`` (512 held-out rows),
+          ``select_best`` and ``leaderboard`` on the M3 kernels, the best
+          member's standalone forward against its column of the fused
+          logits, and a ``"single"`` checkpoint round trip;
+       e. the depth-3 population on the unfused route with ``--m3-impl
+          pallas`` (every unfused stage on its kernel);
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
      losses, gradients, updated parameters); two fused steps from one
-     state are bitwise equal; one unfused step launches ``seg_act``,
+     state are bitwise equal; one single-layer step (path 4d) launches the
+     three M3 kernels once each, matches the same step with
+     ``m3_impl="bucketed"`` on the card and on the CPU, and two such steps
+     from one state are bitwise equal; one unfused step launches ``seg_act``,
      ``seg_act_bwd`` ×depth, ``block_diag_fwd`` ×2(depth−1) and
      ``block_diag_dw`` ×(depth−1) and matches the fused step from the same
      state; then the steady-state step timed (host wall per synchronised
      step; device time by kernel and the device's idle share from
      ``torch.profiler``), the depth-3 step fused and unfused in turns
-     (fused, unfused, unfused, fused);
+     (fused, unfused, unfused, fused), and the single-layer step with
+     ``m3_impl`` pallas and bucketed in turns (pallas, bucketed, bucketed,
+     pallas);
   6. each kernel against its plain PyTorch version on the same inputs at
-     the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off), and the
-     served forward against the plain route on the card and on the CPU;
+     the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off; the M3
+     kernels at both path 4d's and path 4e's head), and the served
+     forward against the plain route on the card and on the CPU;
   7. each kernel, its plain version and the nearest library call timed
      with CUDA events; the least time the card could take (bound) from the
      bytes and operations of this run's inputs;
@@ -94,6 +111,7 @@ INT8_KERNELS = ("fused_input_int8", "fused_layer_int8", "infer_head_int8")
 UNFUSED = ["--bd-impl", "pallas", "--act-impl", "pallas"]
 UNFUSED_KERNELS = ("block_diag_fwd", "block_diag_dw", "seg_act",
                    "seg_act_bwd")
+M3_KERNELS = ("m3_matmul_fwd", "m3_matmul_dh", "m3_matmul_dw")
 SERVE_REQUESTS = 256
 # every ported TPU kernel: its row name → the Pallas function it replaces
 REPLACES = {
@@ -109,6 +127,9 @@ REPLACES = {
     "loss_head_bwd": "src/repro/kernels/loss_head.py:175",
     "block_diag_fwd": "src/repro/kernels/block_diag.py:82",
     "block_diag_dw": "src/repro/kernels/block_diag.py:138",
+    "m3_matmul_fwd": "src/repro/kernels/m3_matmul.py:53",
+    "m3_matmul_dh": "src/repro/kernels/m3_matmul.py:92",
+    "m3_matmul_dw": "src/repro/kernels/m3_matmul.py:138",
     "seg_act": "src/repro/kernels/seg_act.py:27",
     "seg_act_bwd": "src/repro/kernels/seg_act.py:65",
 }
@@ -117,7 +138,8 @@ SOURCES = {"loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head",
            "fused_layer_int8": "fused_layer",
            "infer_head_int8": "infer_head",
            "block_diag_fwd": "block_diag", "block_diag_dw": "block_diag",
-           "seg_act_bwd": "seg_act"}
+           "seg_act_bwd": "seg_act", "m3_matmul_fwd": "m3_matmul",
+           "m3_matmul_dh": "m3_matmul", "m3_matmul_dw": "m3_matmul"}
 
 
 def _require(cond, msg: str):
@@ -394,21 +416,27 @@ def check_forward(name, params, lp, x):
 # the training path                                                     #
 # --------------------------------------------------------------------- #
 
+def m3_only(n: dict) -> dict:
+    return {k: n[k] for k in M3_KERNELS}
+
+
 def _add_counts(a: dict, b: dict) -> dict:
     return {k: a[k] + b[k] for k in a}
 
 
-def train(name: str, workdir: Path, flags: list, unfused: bool = False):
+def train(name: str, workdir: Path, flags: list, unfused: bool = False,
+          m3: bool = False):
     """Train through ``repro_torch.launch.train.main`` (seed 0; the fused
-    route, or with ``unfused`` the unfused one), the kernel counters set to
-    0 just before the run and read just after it; then check the
-    per-member losses stay finite and that the mean held-out loss fell
-    below the same seed's initial parameters'.  Returns (params, layout,
-    stats, checkpoint dir, the run's kernel launches)."""
+    route, or with ``unfused`` the unfused one, with ``m3`` its head on the
+    M3 kernels too), the kernel counters set to 0 just before the run and
+    read just after it; then check the per-member losses stay finite and
+    that the mean held-out loss fell below the same seed's initial
+    parameters'.  Returns (params, layout, stats, checkpoint dir, the
+    run's kernel launches)."""
     import torch
 
     from repro_torch.core.deep import init_params
-    from repro_torch.core.selection import evaluate_population
+    from repro_torch.core.selection import EVAL_SLAB, evaluate_population
     from repro_torch.data.synthetic import TabularTask
     from repro_torch.launch import train as train_driver
     from repro_torch.launch.launch_count import (kernel_launches,
@@ -419,29 +447,34 @@ def train(name: str, workdir: Path, flags: list, unfused: bool = False):
     params, lp, stats = train_driver.main(
         ["--bd-impl", "fused", "--batch", str(BATCH), "--steps", "16",
          "--scan-steps", "8", "--ckpt-dir", str(ckpt), "--ckpt-every", "8",
-         "--seed", "0", *flags, *(UNFUSED if unfused else [])])
+         "--seed", "0", *flags, *(UNFUSED if unfused else []),
+         *(["--m3-impl", "pallas"] if m3 else [])])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     _require(stats["steps"] == 16 and stats["restarts"] == 0,
              f"{name}: {stats}")
+    (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
+                                     n_classes=lp.out_features,
+                                     seed=0).split()
     # one backward launch of each kind per step (the forwards also serve
     # the run's closing leaderboard, so they count more)
     if unfused:
         want = {"seg_act_bwd": 16 * lp.depth,
                 "block_diag_dw": 16 * (lp.depth - 1)}
+        allowed = UNFUSED_KERNELS + (M3_KERNELS if m3 else ())
         other = {k: v for k, v in launches.items()
-                 if v and k not in UNFUSED_KERNELS}
-        _require(not other, f"{name}: fused kernels launched {other}")
+                 if v and k not in allowed}
+        _require(not other, f"{name}: other kernels launched {other}")
+        if m3:   # 16 steps, then the leaderboard's forwards on the head
+            want.update(m3_matmul_fwd=16 + -(-len(yte) // EVAL_SLAB),
+                        m3_matmul_dh=16, m3_matmul_dw=16)
     else:
         want = {"fused_input_bwd": 16, "loss_head_fwd": 16,
                 "loss_head_bwd": 16,
                 "fused_layer_dx_dw": 16 * (lp.depth - 1)}
     _require({k: launches[k] for k in want} == want,
              f"{name}: training launches {launches}, expected {want}")
-    (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
-                                     n_classes=lp.out_features,
-                                     seed=0).split()
     init = init_params(torch.Generator(device="cuda").manual_seed(0), lp)
     before, after = (evaluate_population(p, lp, xte, yte, bd_impl="fused",
                                          infer=True)[0]
@@ -542,24 +575,146 @@ def check_unfused_step(name, params, lp, x, y):
           f"losses/grads/params {errs!r} vs the fused step", flush=True)
 
 
+def train_single(name: str, pop, workdir: Path):
+    """Path 4d, the paper's single-layer ParallelMLP at full width:
+    ``init_params`` on the card from a seeded generator, 16 ``sgd_step``s
+    (batch 32, lr 1e-2, ``m3_impl="pallas"``) on the task's training
+    split, the kernel counters set to 0 just before the steps and read
+    just after them (exactly ``m3_step_launches`` a step, no other
+    kernel); then the held-out loss against the same seed's initial
+    parameters', ``evaluate_population`` → ``select_best`` →
+    ``leaderboard`` on 512 held-out rows and the M3 kernels, the best
+    member's standalone forward against its column of the fused logits,
+    and a ``"single"`` checkpoint round trip.  Returns (trained params,
+    stats, the steps' kernel launches)."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import (restore_population,
+                                                   save_population)
+    from repro_torch.core import parallel_mlp as pm
+    from repro_torch.core.selection import (evaluate_population,
+                                            leaderboard, select_best)
+    from repro_torch.data.synthetic import TabularTask
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 m3_step_launches,
+                                                 reset_kernel_launches)
+    (xtr, ytr), (xte, yte) = TabularTask(4096, pop.in_features,
+                                         n_classes=pop.out_features,
+                                         seed=0).split()
+    xte, yte = xte[:512], yte[:512]
+    xs = torch.as_tensor(xtr[:16 * BATCH], device="cuda").view(16, BATCH, -1)
+    ys = torch.as_tensor(ytr[:16 * BATCH], device="cuda").view(16, BATCH)
+    params = pm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                            pop)
+    before, _ = evaluate_population(params, pop, xte, yte, m3_impl="pallas")
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    pers = []
+    for k in range(16):
+        params, _, per = pm.sgd_step(params, xs[k], ys[k], 1e-2, pop,
+                                     m3_impl="pallas")
+        pers.append(per)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    want = {k: 16 * v for k, v in m3_step_launches().items()}
+    _require({k: v for k, v in launches.items() if v} == want,
+             f"{name}: 16 steps launched {launches}, expected {want}")
+    losses, accs = evaluate_population(params, pop, xte, yte,
+                                       m3_impl="pallas")
+    _require(bool(torch.isfinite(losses).all())
+             and losses.mean().item() < before.mean().item(),
+             f"{name}: held-out mean member loss {before.mean().item()} -> "
+             f"{losses.mean().item()}")
+    m, best = select_best(params, pop, losses)
+    rows = leaderboard(pop, losses, accs, k=10)
+    _require(rows[0]["member"] == m and len(rows) == 10, f"{name}: {rows}")
+    for row in rows:
+        print(f"[{name}]  #{row['rank']:2d} member {row['member']:5d} "
+              f"hidden={row['hidden']:3d} {row['activation']:11s} "
+              f"loss={row['loss']:.4f} acc={row['acc']:.3f}")
+    xb = torch.as_tensor(xte[:BATCH], device="cuda")
+    with torch.inference_mode():
+        fused = pm.forward(params, xb, pop, m3_impl="pallas")
+        alone = pm.member_forward(best, xb)
+    err_member = _close(f"{name}: best member standalone vs its fused "
+                        "logits", alone, fused[:, m])
+    ckpt = workdir / name
+    save_population(str(ckpt), 15, params, pop)
+    back, lay, step = restore_population(str(ckpt), device="cuda")
+    _require(step == 15 and lay == pop
+             and all(torch.equal(back[k], params[k]) for k in pm.KEYS),
+             f"{name}: the single-layer checkpoint did not round-trip")
+    stats = {"steps": 16, "steps_wall_s": wall,
+             "first_batch_loss": pers[0].mean().item(),
+             "last_batch_loss": pers[-1].mean().item(),
+             "heldout_loss": [before.mean().item(), losses.mean().item()],
+             "best": {"member": m, "hidden": rows[0]["hidden"],
+                      "activation": rows[0]["activation"],
+                      "loss": rows[0]["loss"], "acc": rows[0]["acc"]},
+             "best_member_max_abs_err": err_member}
+    print(f"[{name}] {pop.describe()}; 16 sgd steps in {wall:.2f} s; "
+          f"launches {launches}; {stats}", flush=True)
+    return params, stats, launches
+
+
+def _single_parts(params, x, y, pop, m3_impl):
+    """One single-layer SGD step, its parts kept: (per, grads, new)."""
+    from repro_torch.core import parallel_mlp as pm
+    _, per, grads = pm.loss_and_grads(params, x, y, pop, m3_impl=m3_impl)
+    new, _, _ = pm.sgd_step(params, x, y, 1e-2, pop, m3_impl=m3_impl)
+    return per, grads, new
+
+
+def check_single_step(name, params, pop, x, y):
+    """Path 4d's step: its launches, its parity with the bucketed M3 on the
+    card and on the CPU, and its bitwise reproducibility."""
+    import torch
+
+    from repro_torch.core import parallel_mlp as pm
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 m3_step_launches,
+                                                 reset_kernel_launches)
+    reset_kernel_launches()
+    pm.sgd_step(params, x, y, 1e-2, pop, m3_impl="pallas")
+    torch.cuda.synchronize()
+    got = {k: v for k, v in kernel_launches().items() if v}
+    _require(got == m3_step_launches(), f"{name}: a step launched {got}")
+    kernel = _single_parts(params, x, y, pop, "pallas")
+    errs = [_close(f"{name} step vs bucketed on the card: {what}", a, b)
+            for what, a, b in zip(("losses", "grads", "params"), kernel,
+                                  _single_parts(params, x, y, pop,
+                                                "bucketed"))]
+    cpu = _single_parts(_to(params, "cpu"), x.cpu(), y.cpu(), pop,
+                        "bucketed")
+    errs_cpu = [_close(f"{name} step vs bucketed on the CPU: {what}", a, b)
+                for what, a, b in zip(("losses", "grads", "params"), kernel,
+                                      cpu)]
+    runs = [pm.sgd_step(params, x, y, 1e-2, pop, m3_impl="pallas")
+            for _ in range(2)]
+    same = all(torch.equal(runs[0][0][k], runs[1][0][k]) for k in pm.KEYS) \
+        and torch.equal(runs[0][2], runs[1][2])
+    _require(same, f"{name}: two steps from one state differ")
+    print(f"[{name}] step: launches {got}; max|err| losses/grads/params "
+          f"{errs!r} vs bucketed on the card, {errs_cpu!r} vs bucketed on "
+          "the CPU; two steps bitwise equal", flush=True)
+
+
 # names of the port's kernels in a profiler trace
 KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
                   "fused_layer_dx_dw_kernel", "fused_layer_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
                   "loss_head_bwd_kernel", "block_diag_fwd_kernel",
                   "block_diag_dw_kernel", "seg_act_fwd_kernel",
-                  "seg_act_bwd_kernel")
+                  "seg_act_bwd_kernel", "m3_fwd_kernel", "m3_dh_kernel",
+                  "m3_dw_kernel")
 
 
 def time_train_step(name, params, lp, x, y, adam: bool,
                     unfused: bool = False, iters: int = 20):
     """Steady-state train step (the fused route, or with ``unfused`` the
-    unfused one): host wall per synchronised step, and the device time by
-    kernel over 3 profiled steps (``torch.profiler``), from which the
-    device's idle share of the step."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    unfused one): see ``time_step``."""
     from repro_torch.core.deep import opt_step
     from repro_torch.optim.optimizers import adamw, sgd
     opt = adamw(weight_decay=0.01) if adam else sgd()
@@ -567,9 +722,16 @@ def time_train_step(name, params, lp, x, y, adam: bool,
     route = (dict(bd_impl="pallas", act_impl="pallas") if unfused
              else dict(bd_impl="fused"))
     kw = dict(route, grad_clip=1.0 if adam else None)
+    return time_step(name, lambda: opt_step(params, state, x, y, 1e-2, opt,
+                                            lp, **kw), iters)
 
-    def step():
-        return opt_step(params, state, x, y, 1e-2, opt, lp, **kw)
+
+def time_step(name, step, iters: int = 20):
+    """A steady-state step ``step()``: host wall per synchronised step, and
+    the device time by kernel over 3 profiled steps (``torch.profiler``),
+    from which the device's idle share of the step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
@@ -665,7 +827,7 @@ def _sum_rows(rows):
 
 
 def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
-                unfused_serve_n, unfused_train_n):
+                unfused_serve_n, unfused_train_n, m3_n):
     """Phases 6 + 7: every ported kernel at the main paths' shapes."""
     import numpy as np
     import torch
@@ -677,6 +839,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     from repro_torch.kernels import fused_layer as flk
     from repro_torch.kernels import infer_head as ihk
     from repro_torch.kernels import loss_head as lhk
+    from repro_torch.kernels import m3_matmul as m3k
     from repro_torch.kernels import seg_act as sak
     from repro_torch.quant import quantize_population
     dev = torch.device("cuda")
@@ -971,6 +1134,63 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         partial(sak.seg_act_bwd_plain, z, dz, ids, mask, blk=blk), no_call,
         _nbytes(z, dz, ids, mask, dh_sa), 3 * z.numel(),
         unfused_train_n["seg_act_bwd"], 20)
+
+    # ---- m3_matmul at path 4d's full width (block 128: every member one
+    # 128-unit tile) on the layer-0 activations, and at path 4e's head (the
+    # depth-3 population's last layer, block 8, 1-2 tiles a member); the
+    # library call is the bucketed M3's einsum at block 128 (one size
+    # bucket), used nowhere on the kernels' route
+    gen3 = torch.Generator(device="cuda").manual_seed(11)
+    o = w2.shape[0]
+    dy_a = torch.randn(BATCH, n_mem, o, generator=gen3, device=dev)
+    hv, wv = h.view(BATCH, n_mem, width), w2.view(o, n_mem, width)
+    plast = lp3k.layer_pop(lp3k.depth - 1)
+    w2_b = p3k["w_out"]
+    seg_b = torch.as_tensor(plast.block_segment_ids, dtype=torch.int32,
+                            device=dev)
+    ptr_b = ihk.member_ptr(seg_b, lp3k.num_members)
+    dy_b = torch.randn(BATCH, lp3k.num_members, o, generator=gen3,
+                       device=dev)
+    _require(tuple(hin.shape) == (BATCH, plast.total_hidden),
+             "the depth-3 population's last hidden layer is not the head's "
+             "input")
+    flops_a = 2 * BATCH * h.shape[1] * o
+    flops_b = 2 * BATCH * hin.shape[1] * o
+    # name → ((kernel, plain), args at path 4d, args at path 4e, library);
+    # each function's inputs and output are the same tensors' sizes as its
+    # arguments (y and dy, dh and h, dw2 and w2), which gives its bytes
+    cases = {
+        "m3_matmul_fwd": ((m3k.m3_matmul_fwd_cuda, m3k.m3_matmul_fwd_plain),
+                          (h, w2, ptr), (hin, w2_b, ptr_b),
+                          partial(torch.einsum, "bnh,onh->bno", hv, wv),
+                          (dy_a,), (dy_b,)),
+        "m3_matmul_dh": ((m3k.m3_matmul_dh_cuda, m3k.m3_matmul_dh_plain),
+                         (dy_a, w2, seg), (dy_b, w2_b, seg_b),
+                         partial(torch.einsum, "bno,onh->bnh", dy_a, wv),
+                         (h,), (hin,)),
+        "m3_matmul_dw": ((m3k.m3_matmul_dw_cuda, m3k.m3_matmul_dw_plain),
+                         (dy_a, h, seg), (dy_b, hin, seg_b),
+                         partial(torch.einsum, "bnh,bno->onh", hv, dy_a),
+                         (w2,), (w2_b,)),
+    }
+    for name, ((cuda, plain), args_a, args_b, library, out_a, out_b) in \
+            cases.items():
+        rows[name] = compare(
+            name, partial(cuda, *args_a, block=blk),
+            partial(plain, *args_a, block=blk), library,
+            _nbytes(*args_a, *out_a), flops_a, m3_n[name], 20)
+        kb = partial(cuda, *args_b, block=lp3k.block)
+        got_b = kb()
+        rows[name].update(
+            path_b_max_abs_err=_close(
+                f"{name} at path 4e's head: kernel vs plain", got_b,
+                plain(*args_b, block=lp3k.block)),
+            path_b_ms=_time_ms(kb, 50),
+            path_b_bound_ms=_bound_ms(_nbytes(*args_b, *out_b), flops_b)[0])
+    dw_a = m3k.m3_matmul_dw_cuda(*cases["m3_matmul_dw"][1], block=blk)
+    _require(torch.equal(dw_a, m3k.m3_matmul_dw_cuda(
+        *cases["m3_matmul_dw"][1], block=blk)),
+        "m3_matmul_dw: two launches on the same inputs differ")
     return [rows[name] for name in REPLACES]
 
 
@@ -1110,8 +1330,8 @@ def main() -> int:
               flush=True)
         for name, n in train_n.items():
             _require((n == 0) if name in INT8_KERNELS + UNFUSED_KERNELS
-                     else (n > 0), f"kernel {name} was launched {n} times "
-                     "on the training path")
+                     + M3_KERNELS else (n > 0), f"kernel {name} was "
+                     f"launched {n} times on the training path")
 
         # 4c. the unfused route's training, counted alone
         _, _, stats3u, _, unfused_train_n = train(
@@ -1119,6 +1339,22 @@ def main() -> int:
         for name in UNFUSED_KERNELS:
             _require(unfused_train_n[name] > 0, f"kernel {name} was not "
                      "launched on the unfused training path")
+
+        # 4d. path A, the paper's single-layer ParallelMLP at full width,
+        # its 16 steps counted alone (train_single)
+        pop10k = parallelmlp_10k.config().model
+        t_single, stats_single, n_single = train_single(
+            "parallelmlp-10k single", pop10k, workdir)
+        # 4e. path B, the depth-3 trainer with every unfused stage on its
+        # kernel (--m3-impl pallas too), counted alone
+        _, _, stats3m, _, n3m = train("trainer-depth3 unfused m3", workdir,
+                                      depth3, unfused=True, m3=True)
+        m3_n = {k: n_single[k] + n3m[k] for k in M3_KERNELS}
+        print(f"M3 kernel launches: path 4d {m3_only(n_single)}; path 4e "
+              f"{m3_only(n3m)}", flush=True)
+        for name in M3_KERNELS + UNFUSED_KERNELS:
+            _require(n3m[name] > 0, f"kernel {name} was not launched on "
+                     "path 4e")
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -1133,6 +1369,14 @@ def main() -> int:
                          ("trainer-depth3 (2)", False)):
         steps[key] = time_train_step(key, t3k, lp3k, x, y, adam=True,
                                      unfused=unfused)
+    # path 4d's step: invariants, then m3_impl pallas and bucketed in turns
+    check_single_step("parallelmlp-10k single", t_single, pop10k, x, y)
+    from repro_torch.core.parallel_mlp import sgd_step
+    for impl, run in (("pallas", ""), ("bucketed", ""), ("bucketed", " (2)"),
+                      ("pallas", " (2)")):
+        key = f"parallelmlp-10k single {impl}{run}"
+        steps[key] = time_step(key, partial(sgd_step, t_single, x, y, 1e-2,
+                                            pop10k, m3_impl=impl))
 
     # 6 + 7. each kernel against its plain version; timings; outputs
     check_forward("parallelmlp-10k", p10k, lp10k, x)
@@ -1142,7 +1386,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
-                       unfused_serve_n, unfused_train_n)
+                       unfused_serve_n, unfused_train_n, m3_n)
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")
     _require({Path(r["source"]).stem for r in rows} >= set(libs),
@@ -1159,7 +1403,9 @@ def main() -> int:
                       "unfused_vs_fused_max_abs_err": unfused_err,
                       "train": {"parallelmlp-10k": stats10k,
                                 "trainer-depth3": stats3k,
-                                "trainer-depth3 unfused": stats3u},
+                                "trainer-depth3 unfused": stats3u,
+                                "parallelmlp-10k single": stats_single,
+                                "trainer-depth3 unfused m3": stats3m},
                       "train_step": steps,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))

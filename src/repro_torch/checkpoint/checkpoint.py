@@ -161,9 +161,15 @@ def population_meta(layout, params, lifecycle: dict | None = None,
         layout = layout.layered()
     if not isinstance(layout, LayeredPopulation):
         raise TypeError(f"not a population layout: {type(layout)}")
-    if "w_in" not in params:
-        raise TypeError("the port writes the layered parameter schema "
-                        f"(w_in/b_in/mid/w_out/b_out), got {sorted(params)}")
+    # two parameter schemas share the layout format, as in the JAX
+    # package: the layered engine (w_in/b_in/mid/w_out/b_out) and the
+    # single-layer module (parallel_mlp: w1/b1/w2/b2)
+    if "w_in" in params:
+        schema, first = "layered", params["w_in"]
+    elif "w1" in params:
+        schema, first = "single", params["w1"]
+    else:
+        raise TypeError(f"unrecognised population params: {sorted(params)}")
     meta = {"population": {
         "in_features": layout.in_features,
         "out_features": layout.out_features,
@@ -171,8 +177,8 @@ def population_meta(layout, params, lifecycle: dict | None = None,
         "activations": [list(a) for a in layout.activations],
         "block": layout.block,
         "n_pad": layout.n_pad,
-        "schema": "layered",
-        "dtype": str(params["w_in"].dtype).removeprefix("torch."),
+        "schema": schema,
+        "dtype": str(first.dtype).removeprefix("torch."),
     }}
     if lifecycle is not None:
         meta["lifecycle"] = dict(lifecycle)
@@ -252,27 +258,36 @@ def save_population(directory: str, step: int, params, layout,
 def restore_population(directory: str, step: int | None = None,
                        device="cuda", extra_like=None):
     """→ (params, layout, step[, extra_state]), the parameter tree rebuilt
-    from the stored layout on ``device``.  Pass ``extra_like`` (a tree
-    shaped like the saved ``extra_state`` — meta tensors are fine, e.g.
-    ``opt.init(deep.abstract_params(layout))``) to restore it too.
-    Layered-schema float32 checkpoints only."""
-    from repro_torch.core.deep import abstract_params
+    from the stored layout on ``device``.  The layout matches the params:
+    a ``LayeredPopulation`` for layered-schema checkpoints, a
+    ``Population`` for single-layer (``parallel_mlp``) ones.  Pass
+    ``extra_like`` (a tree shaped like the saved ``extra_state`` — meta
+    tensors are fine, e.g. ``opt.init(deep.abstract_params(layout))``) to
+    restore it too.  Float32 checkpoints only."""
+    from repro_torch.core import deep, parallel_mlp
+    from repro_torch.core.population import Population
     device = resolve(device)
     meta, step = load_meta(directory, step)
     if "population" not in meta:
         raise ValueError(f"{directory} step {step}: not a population "
                          "checkpoint (no layout meta)")
     pmeta = meta["population"]
-    if pmeta.get("schema", "layered") != "layered":
-        raise NotImplementedError(
-            f"schema {pmeta['schema']!r}: the port restores the layered "
-            "schema only (ROADMAP.md)")
     if pmeta.get("dtype", "float32") != "float32":
         raise NotImplementedError(
             f"dtype {pmeta['dtype']!r}: the port restores float32 "
             "checkpoints only so far (ROADMAP.md)")
     layout = layout_from_meta(meta)
-    like = {"params": abstract_params(layout)}
+    schema = pmeta.get("schema", "layered")
+    if schema == "single":
+        layout = Population(layout.in_features, layout.out_features,
+                            tuple(w[0] for w in layout.widths),
+                            tuple(a[0] for a in layout.activations),
+                            block=layout.block)
+        like = {"params": parallel_mlp.abstract_params(layout)}
+    elif schema == "layered":
+        like = {"params": deep.abstract_params(layout)}
+    else:
+        raise ValueError(f"unknown parameter schema {schema!r}")
     if extra_like is not None:
         like["extra"] = extra_like
     tree, step = restore(directory, like, step=step, device=device)

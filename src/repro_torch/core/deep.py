@@ -52,22 +52,11 @@ from repro_torch.core.m3 import (HEAD_IMPLS, LOSS_IMPLS, m3, m3_infer_head,
                                  m3_infer_head_int8, m3_loss_head)
 from repro_torch.core.population import LayeredPopulation
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.device import layout_tensor as _static
 from repro_torch.quant import abstract_qparams
 
 _NOT_YET = ("the port computes in float32 only so far; the bf16 compute "
             "policy is still to be ported (ROADMAP.md, Queue 1 item 6)")
-
-
-def _static(lp, name, device, arr, dtype) -> torch.Tensor:
-    """A static layout array as a tensor on ``device``, built once per
-    (layout, device) and kept on the layout instance, so the serving path
-    copies no layout data to the card per call."""
-    cache = lp.__dict__.setdefault("_device_cache", {})
-    key = (name, str(torch.device(device)))
-    if key not in cache:
-        cache[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
-                                     device=device)
-    return cache[key]
 
 
 # ---------------------------------------------------------------------- #

@@ -7,8 +7,13 @@ For a fused hidden tensor ``h`` (B, total_hidden), a fused output weight
 
   m3_scatter    — the paper's own GPU form: broadcast product + scatter-add
                   (``index_add_``); materialises (B, H, O).
+  m3_onehot     — one einsum against a one-hot member selector (H, P):
+                  dense, P× redundant work; small sizes only.
   m3_bucketed   — members bucketed by padded size → one batched matmul per
                   bucket.
+  m3_pallas     — the segment-blocked matmul kernels (``kernels/ops
+                  .m3_matmul``: one CUDA launch forward, dh and dW2
+                  backward), the port of the JAX package's Pallas M3.
   m3_loss_head  — training: projection + member bias + softmax
                   cross-entropy in one CUDA kernel per direction
                   (``kernels/ops.loss_head``); the logits never materialise.
@@ -23,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.population import Population
+from repro_torch.device import layout_tensor
 
 
 def m3_scatter(h: torch.Tensor, w2: torch.Tensor, pop: Population,
@@ -34,6 +40,16 @@ def m3_scatter(h: torch.Tensor, w2: torch.Tensor, pop: Population,
     y = torch.zeros(h.shape[0], pop.num_members, w2.shape[0],
                     device=h.device, dtype=torch.float32)
     return y.index_add_(1, seg.long(), h[:, :, None] * w2.t()[None])
+
+
+def m3_onehot(h: torch.Tensor, w2: torch.Tensor, pop: Population
+              ) -> torch.Tensor:
+    """y[b, m, o] = Σ_j h[b, j]·w2[o, j]·sel[j, m] with sel the one-hot
+    member selector (H, P) — plain PyTorch, not a kernel."""
+    sel = torch.nn.functional.one_hot(
+        torch.as_tensor(pop.segment_ids, device=h.device).long(),
+        pop.num_members).to(h.dtype)
+    return torch.einsum("bj,oj,jm->bmo", h, w2, sel)
 
 
 def m3_bucketed(h: torch.Tensor, w2: torch.Tensor, pop: Population
@@ -49,19 +65,36 @@ def m3_bucketed(h: torch.Tensor, w2: torch.Tensor, pop: Population
     return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim=1)
 
 
+def block_seg_on(pop: Population, device) -> tuple:
+    """The layout's per-block member ids (int32) and their CSR form
+    (``kernels/infer_head.member_ptr``'s (P + 1,) row pointers: the member
+    offsets in blocks) on ``device``, built once per (layout, device)."""
+    return (layout_tensor(pop, "block_seg", device, pop.block_segment_ids,
+                          torch.int32),
+            layout_tensor(pop, "member_ptr", device, pop.offsets // pop.block,
+                          torch.int32))
+
+
+def m3_pallas(h: torch.Tensor, w2: torch.Tensor, pop: Population
+              ) -> torch.Tensor:
+    """The segment-blocked matmul kernels: one launch forward; dh and dW2
+    backward (``kernels/ops.m3_matmul``)."""
+    from repro_torch.kernels.ops import m3_matmul
+    seg, ptr = block_seg_on(pop, h.device)
+    return m3_matmul(h, w2, seg, pop.num_members, block_h=pop.block,
+                     member_ptr=ptr)
+
+
 M3_IMPLS = {
     "scatter": m3_scatter,
+    "onehot": m3_onehot,
     "bucketed": m3_bucketed,
+    "pallas": m3_pallas,
 }
 
 
 def m3(h: torch.Tensor, w2: torch.Tensor, pop: Population,
        impl: str = "bucketed") -> torch.Tensor:
-    if impl in ("onehot", "pallas"):
-        raise NotImplementedError(
-            f"m3_impl {impl!r} is not ported yet (ROADMAP.md, Queue 1 for "
-            "onehot, Queue 2 for the m3_matmul kernels); use 'bucketed' or "
-            "'scatter'")
     if impl not in M3_IMPLS:
         raise ValueError(f"unknown m3_impl {impl!r} (have {sorted(M3_IMPLS)})")
     return M3_IMPLS[impl](h, w2, pop)

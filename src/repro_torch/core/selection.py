@@ -1,15 +1,18 @@
 """Model selection over a trained population (paper §5: "perform model
 selection in the large pool of trained MLPs"): evaluate → select →
-leaderboard, for the layered engine's ``LayeredPopulation`` (a single-layer
-``Population`` enters through ``.layered()``)."""
+leaderboard, over both layouts — the single-layer ``Population`` (the
+paper's ``parallel_mlp``, ``w1/b1/w2/b2``) and the layered engine's
+``LayeredPopulation`` — dispatching the forward and the member extraction
+to the matching module, as the JAX package does."""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
 from repro_torch.core import deep as _deep
+from repro_torch.core import parallel_mlp as _pmlp
 from repro_torch.core.parallel_mlp import member_accuracy, member_losses
-from repro_torch.core.population import LayeredPopulation
+from repro_torch.core.population import LayeredPopulation, Population
 
 # rows per evaluation forward: at the paper's full width (1,280,000 fused
 # hidden units) the hidden activations of one slab are 512 × 1.28M f32 =
@@ -17,10 +20,28 @@ from repro_torch.core.population import LayeredPopulation
 EVAL_SLAB = 512
 
 
-def _require_layered(pop):
-    if not isinstance(pop, LayeredPopulation):
-        raise TypeError(f"selection takes a LayeredPopulation, got "
-                        f"{type(pop).__name__} (use Population.layered())")
+def _require_layout(pop):
+    if not isinstance(pop, (LayeredPopulation, Population)):
+        raise TypeError(f"selection takes a Population or a "
+                        f"LayeredPopulation, got {type(pop).__name__}")
+
+
+def _forward(params, x, layout, **fw):
+    if isinstance(layout, LayeredPopulation):
+        return _deep.forward(params, x, layout, **fw)
+    if fw.pop("infer", False):
+        raise ValueError("infer=True eval routes through the layered "
+                         "engine — single-layer Population has no "
+                         "forward-only kernel path")
+    return _pmlp.forward(params, x, layout, **fw)
+
+
+def extract_member(params, layout, m: int) -> dict:
+    """Standalone params of member m, whichever layout trained them."""
+    _require_layout(layout)
+    if isinstance(layout, LayeredPopulation):
+        return _deep.extract_member(params, layout, m)
+    return _pmlp.extract_member(params, layout, m)
 
 
 def _numpy(a) -> np.ndarray:
@@ -41,11 +62,14 @@ def evaluate_population(params, pop, x, targets,
     """Per-member mean loss (and accuracy) over an eval split, in slabs of
     ``batch_size`` rows on the parameters' device.  Forward kwargs pass
     straight to ``deep.forward`` — ``infer=True`` with ``bd_impl="fused"``
-    scores on the serving kernels.  ``x``/``targets`` may be numpy arrays
-    or tensors.  Returns (losses (P,), accuracies (P,) or None) as f32
-    tensors on that device."""
-    _require_layered(pop)
-    dev = params["w_in"].device
+    scores on the serving kernels — or, for a single-layer
+    ``Population``, to ``parallel_mlp.forward`` (``m3_impl``,
+    ``act_impl``).  ``x``/``targets`` may be numpy arrays or tensors.
+    Returns (losses (P,), accuracies (P,) or None) as f32 tensors on that
+    device."""
+    _require_layout(pop)
+    dev = params["w_in" if isinstance(pop, LayeredPopulation)
+                 else "w1"].device
     tdtype = torch.long if task == "classification" else torch.float32
     n = x.shape[0]
     loss_sum = torch.zeros(pop.num_members, device=dev)
@@ -54,7 +78,7 @@ def evaluate_population(params, pop, x, targets,
         for i in range(0, n, batch_size):
             xb = _tensor(x[i:i + batch_size], dev, torch.float32)
             tb = _tensor(targets[i:i + batch_size], dev, tdtype)
-            logits = _deep.forward(params, xb, pop, **fw)
+            logits = _forward(params, xb, pop, **fw)
             loss_sum += member_losses(logits, tb, task) * xb.shape[0]
             if task == "classification":
                 acc_sum += member_accuracy(logits, tb) * xb.shape[0]
@@ -71,13 +95,14 @@ def _num_real(pop) -> int:
 def select_best(params, pop, losses) -> tuple[int, dict]:
     """Best member by eval loss → (index, standalone params).  Shard-pad
     filler members (trailing) never win."""
-    _require_layered(pop)
     m = int(np.argmin(_numpy(losses)[:_num_real(pop)]))
-    return m, _deep.extract_member(params, pop, m)
+    return m, extract_member(params, pop, m)
 
 
 def _member_arch(pop, m: int):
-    return pop.widths[m], "/".join(dict.fromkeys(pop.activations[m]))
+    if isinstance(pop, LayeredPopulation):
+        return pop.widths[m], "/".join(dict.fromkeys(pop.activations[m]))
+    return pop.hidden_sizes[m], pop.activations[m]
 
 
 def _check_member_ids(member_ids, nr: int):
@@ -156,7 +181,8 @@ def member_metrics(pop, losses, accs=None, member_ids=None, lineage=None):
         hidden, act = _member_arch(pop, m)
         mid = m if member_ids is None else int(member_ids[m])
         row = dict(member=mid, slot=m, hidden=hidden, activation=act,
-                   depth=len(hidden), loss=float(losses[m]))
+                   depth=len(hidden) if isinstance(hidden, tuple) else 1,
+                   loss=float(losses[m]))
         if accs is not None:
             row["acc"] = float(accs[m])
         lin = _lineage_entry(lineage, mid)

@@ -1,10 +1,12 @@
-"""The device an entry point runs on.
+"""The device an entry point runs on, and the device copies of a layout's
+static arrays.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 There is no fallback: asking for the card where there is none raises.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -20,3 +22,18 @@ def resolve(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"no path for device {dev}")
     return dev
+
+
+def layout_tensor(layout, name, device, arr, dtype) -> torch.Tensor:
+    """A static layout array as a tensor on ``device``, built once per
+    (layout, name, device) and kept on the layout instance, so the hot
+    path copies no layout data per call.  Built as a normal tensor even
+    when first asked for under ``inference_mode``, so that training may
+    save it for backward."""
+    cache = layout.__dict__.setdefault("_device_cache", {})
+    key = (name, str(torch.device(device)))
+    if key not in cache:
+        with torch.inference_mode(False):
+            cache[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
+                                         device=device)
+    return cache[key]

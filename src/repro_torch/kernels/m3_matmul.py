@@ -1,0 +1,145 @@
+"""Segment-blocked matmul — the paper's M3 — forward and both gradients.
+
+``m3_matmul_fwd_cuda`` launches ``csrc/m3_matmul.cu`` (entry
+``m3_fwd_f32``, the port of the TPU kernel
+``repro/kernels/m3_matmul.py::m3_matmul_fwd``): h (B, H), w2 (O, H) f32
+and the members' hidden-block ranges in CSR form (``infer_head.member_ptr``,
+(P + 1,) int32 in units of ``block`` units) → y (B, P, O) f32,
+``y[b, m, o] = Σ_{j in member m} h[b, j]·w2[o, j]``.
+
+``m3_matmul_dh_cuda`` (entry ``m3_dh_f32``, the port of
+``m3_matmul.py::m3_matmul_dh``): dy (B, P, O), w2 and the per-block member
+ids (H / block,) int32 → dh (B, H).  ``m3_matmul_dw_cuda`` (entry
+``m3_dw_f32``, the port of ``m3_matmul.py::m3_matmul_dw``): dy, h and the
+same ids → dw2 (O, H).
+
+Each ``*_plain`` function is the same function in plain PyTorch: the
+forward in the paper's scatter-add form (``index_add_`` over the
+broadcast product), the two gradients as its transposes (a gather of dy by
+member, then a sum over the classes or the batch).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+# kernel launches (the CPU dispatch in ops counts its plain calls too):
+fwd_launches = 0      # the forward
+dh_launches = 0       # the backward's dh
+dw_launches = 0       # the backward's dW
+MAX_BLOCK = 128       # widest hidden block the kernels take
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _unit_members(member_ptr, block: int, device) -> torch.Tensor:
+    """CSR block ranges → the member id of every hidden unit (H,)."""
+    p = member_ptr.shape[0] - 1
+    widths = (member_ptr[1:] - member_ptr[:-1]).long() * block
+    return torch.repeat_interleave(torch.arange(p, device=device), widths)
+
+
+def m3_matmul_fwd_plain(h, w2, member_ptr, *, block: int):
+    """Σ over each member's units of h[:, j]·w2[:, j] → (B, P, O)."""
+    p = member_ptr.shape[0] - 1
+    y = torch.zeros(h.shape[0], p, w2.shape[0], device=h.device,
+                    dtype=torch.float32)
+    return y.index_add_(1, _unit_members(member_ptr, block, h.device),
+                        h[:, :, None] * w2.t()[None])
+
+
+def m3_matmul_dh_plain(dy, w2, block_seg_ids, *, block: int):
+    """dh[b, j] = Σ_o dy[b, seg(j), o]·w2[o, j] → (B, H)."""
+    seg = block_seg_ids.long().repeat_interleave(block)
+    return (dy[:, seg, :] * w2.t()[None]).sum(-1)
+
+
+def m3_matmul_dw_plain(dy, h, block_seg_ids, *, block: int):
+    """dw2[o, j] = Σ_b h[b, j]·dy[b, seg(j), o] → (O, H)."""
+    seg = block_seg_ids.long().repeat_interleave(block)
+    return torch.einsum("bj,bjo->oj", h, dy[:, seg, :])
+
+
+def _check(where: str, ref, named, block: int):
+    _build.check_tensors(where, ref, *named)
+    if not 1 <= block <= MAX_BLOCK:
+        raise ValueError(f"{where}: block {block} outside the kernel's "
+                         f"[1, {MAX_BLOCK}]")
+
+
+def m3_matmul_fwd_cuda(h, w2, member_ptr, *, block: int):
+    """One launch → y (B, P, O), P = len(member_ptr) − 1."""
+    global fwd_launches
+    _check("m3_matmul_fwd", h, (("h", h, torch.float32),
+                                ("w2", w2, torch.float32),
+                                ("member_ptr", member_ptr, torch.int32)),
+           block)
+    b, hh = h.shape
+    o, p = w2.shape[0], member_ptr.shape[0] - 1
+    if w2.dim() != 2 or w2.shape[1] != hh or hh % block or p < 1:
+        raise ValueError("m3_matmul_fwd: inconsistent shapes")
+    fn = _build.function("m3_matmul", "m3_fwd_f32",
+                         [_P] * 4 + [_I, _L, _I, _I, _I, _P])
+    y = torch.empty(b, p, o, device=h.device, dtype=torch.float32)
+    with torch.cuda.device(h.device):
+        rc = fn(h.data_ptr(), w2.data_ptr(), member_ptr.data_ptr(),
+                y.data_ptr(), b, hh, o, p, block,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "m3_matmul_fwd")
+    fwd_launches += 1
+    return y
+
+
+def _check_grad(where, dy, w_or_h, seg, block):
+    b, p, o = dy.shape
+    hh = seg.shape[0] * block
+    if seg.dim() != 1 or w_or_h.dim() != 2 or w_or_h.shape[1] != hh:
+        raise ValueError(f"{where}: inconsistent shapes")
+    return b, p, o, hh
+
+
+def m3_matmul_dh_cuda(dy, w2, block_seg_ids, *, block: int):
+    """One launch → dh (B, H)."""
+    global dh_launches
+    _check("m3_matmul_dh", dy, (("dy", dy, torch.float32),
+                                ("w2", w2, torch.float32),
+                                ("block_seg_ids", block_seg_ids,
+                                 torch.int32)), block)
+    b, p, o, hh = _check_grad("m3_matmul_dh", dy, w2, block_seg_ids, block)
+    if w2.shape[0] != o:
+        raise ValueError("m3_matmul_dh: inconsistent shapes")
+    fn = _build.function("m3_matmul", "m3_dh_f32",
+                         [_P] * 4 + [_I, _L, _I, _I, _I, _P])
+    dh = torch.empty(b, hh, device=dy.device, dtype=torch.float32)
+    with torch.cuda.device(dy.device):
+        rc = fn(dy.data_ptr(), w2.data_ptr(), block_seg_ids.data_ptr(),
+                dh.data_ptr(), b, hh, o, p, block,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "m3_matmul_dh")
+    dh_launches += 1
+    return dh
+
+
+def m3_matmul_dw_cuda(dy, h, block_seg_ids, *, block: int):
+    """One launch → dw2 (O, H)."""
+    global dw_launches
+    _check("m3_matmul_dw", dy, (("dy", dy, torch.float32),
+                                ("h", h, torch.float32),
+                                ("block_seg_ids", block_seg_ids,
+                                 torch.int32)), block)
+    b, p, o, hh = _check_grad("m3_matmul_dw", dy, h, block_seg_ids, block)
+    if h.shape[0] != b:
+        raise ValueError("m3_matmul_dw: inconsistent shapes")
+    fn = _build.function("m3_matmul", "m3_dw_f32",
+                         [_P] * 4 + [_I, _L, _I, _I, _I, _P])
+    dw = torch.empty(o, hh, device=dy.device, dtype=torch.float32)
+    with torch.cuda.device(dy.device):
+        rc = fn(h.data_ptr(), dy.data_ptr(), block_seg_ids.data_ptr(),
+                dw.data_ptr(), b, hh, o, p, block,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "m3_matmul_dw")
+    dw_launches += 1
+    return dw

@@ -13,9 +13,10 @@ and whose backward is one more, as the JAX package wraps each
 ``pallas_call`` pair in a ``custom_vjp``.  The unfused route's two
 stages, ``block_diag_gemm`` (the bare block-diagonal projection; its
 backward is two launches, dh and dWB) and ``seg_act`` (the per-block
-activation with the mask), are differentiable the same way.  The bias cotangents
-(``Σ_b dy·g'``, ``d_per ⊙ Σ_b dl``) are plain tensor ops outside the
-kernels, as JAX leaves them to XLA.  Without a gradient to take (no input
+activation with the mask), are differentiable the same way, and so is
+``m3_matmul``, the bare M3 projection (backward: dh, then dW2).  The bias
+cotangents (``Σ_b dy·g'``, ``d_per ⊙ Σ_b dl``) are plain tensor ops
+outside the kernels, as JAX leaves them to XLA.  Without a gradient to take (no input
 requires one, or grad mode is off) the training entries run the serving
 kernels instead, as JAX's primal does.
 
@@ -39,6 +40,7 @@ from repro_torch.kernels import fused_input as _fik
 from repro_torch.kernels import fused_layer as _flk
 from repro_torch.kernels import infer_head as _ihk
 from repro_torch.kernels import loss_head as _lhk
+from repro_torch.kernels import m3_matmul as _m3k
 from repro_torch.kernels import seg_act as _sak
 from repro_torch.quant import _input_f_pad
 
@@ -447,6 +449,86 @@ def seg_act(h: torch.Tensor, block_act_ids, mask, *, block: int
     if _wants_grad(h):
         return _SegAct.apply(h, ids, m, block)
     return _seg_fwd(h.contiguous(), ids, m, block)
+
+
+# --------------------------------------------------------------------- #
+# M3: the segment-blocked output projection                             #
+# --------------------------------------------------------------------- #
+
+def _m3_fwd(h, w2, ptr, block):
+    if _on_card(h):
+        return _m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=block)
+    _m3k.fwd_launches += 1
+    return _m3k.m3_matmul_fwd_plain(h, w2, ptr, block=block)
+
+
+class _M3Matmul(torch.autograd.Function):
+    """Forward: one launch.  Backward: dh (only when h needs a gradient),
+    then dW2 (only when w2 does), one launch each."""
+
+    @staticmethod
+    def forward(ctx, h, w2, seg, ptr, block):
+        ctx.block = block
+        ctx.save_for_backward(h, w2, seg)
+        return _m3_fwd(h.contiguous(), w2.contiguous(), ptr, block)
+
+    @staticmethod
+    def backward(ctx, dy):
+        h, w2, seg = ctx.saved_tensors
+        block, dy = ctx.block, dy.contiguous()
+        dh = dw = None
+        if ctx.needs_input_grad[0]:
+            args = (dy, w2.contiguous(), seg)
+            if _on_card(dy):
+                dh = _m3k.m3_matmul_dh_cuda(*args, block=block)
+            else:
+                _m3k.dh_launches += 1
+                dh = _m3k.m3_matmul_dh_plain(*args, block=block)
+        if ctx.needs_input_grad[1]:
+            args = (dy, h.contiguous(), seg)
+            if _on_card(dy):
+                dw = _m3k.m3_matmul_dw_cuda(*args, block=block)
+            else:
+                _m3k.dw_launches += 1
+                dw = _m3k.m3_matmul_dw_plain(*args, block=block)
+        return dh, dw, None, None, None
+
+
+def m3_matmul(h: torch.Tensor, w2: torch.Tensor, block_seg_ids,
+              num_members: int, *, block_h: int,
+              member_ptr=None) -> torch.Tensor:
+    """The segment-blocked matmul (JAX: ``ops.m3_matmul``'s custom VJP):
+    h (B, H), w2 (O, H), one member id per hidden block of ``block_h``
+    units (sorted: every member's blocks contiguous) → y (B, P, O) f32,
+    ``y[b, m, o] = Σ_{j in member m} h[b, j]·w2[o, j]``.  Differentiable
+    through two backward launches (dh, dW2).  H must already be
+    block_h-aligned.  Nothing is padded: JAX pads B to its batch tile and
+    O to 128 lanes for the TPU; the kernels take both as they are.
+    ``member_ptr``: the ids' CSR form (``infer_head.member_ptr``) already
+    on h's device, so a caller on the hot path skips its rebuild (a
+    ``bincount``, which waits for the device)."""
+    if h.dim() != 2 or h.shape[1] % block_h:
+        raise ValueError(f"hidden axis {h.shape[-1]} not {block_h}-aligned")
+    if w2.dim() != 2 or w2.shape[1] != h.shape[1]:
+        raise ValueError(f"w2 {tuple(w2.shape)} does not match hidden axis "
+                         f"{h.shape[1]}")
+    _require_f32(h=h, w2=w2)
+    if not isinstance(block_seg_ids, torch.Tensor) \
+            and np.any(np.diff(np.asarray(block_seg_ids)) < 0):
+        raise ValueError("m3_matmul: members' hidden blocks must be "
+                         "contiguous (sorted block_seg_ids)")
+    seg = _as(block_seg_ids, h.device, torch.int32)
+    if tuple(seg.shape) != (h.shape[1] // block_h,):
+        raise ValueError(f"{tuple(seg.shape)} segment ids for "
+                         f"{h.shape[1] // block_h} hidden blocks")
+    ptr = (_ihk.member_ptr(seg, num_members) if member_ptr is None
+           else member_ptr)
+    if tuple(ptr.shape) != (num_members + 1,):
+        raise ValueError(f"member_ptr {tuple(ptr.shape)} for {num_members} "
+                         "members")
+    if _wants_grad(h, w2):
+        return _M3Matmul.apply(h, w2, seg, ptr, block_h)
+    return _m3_fwd(h.contiguous(), w2.contiguous(), ptr, block_h)
 
 
 # --------------------------------------------------------------------- #

@@ -1,7 +1,8 @@
 """Kernel-launch counters and the launch budgets of the two paths.
 
 Each kernel wrapper (``kernels/fused_input.py``, ``fused_layer.py``,
-``infer_head.py``, ``loss_head.py``, ``block_diag.py``, ``seg_act.py``)
+``infer_head.py``, ``loss_head.py``, ``block_diag.py``, ``seg_act.py``,
+``m3_matmul.py``)
 keeps plain integer counters that it raises by one where it launches a
 CUDA kernel; on a CPU tensor the dispatch layer (``kernels/ops.py``)
 counts the plain version's calls in the same counter.  So the budgets below are checked the same way on either
@@ -15,7 +16,7 @@ forward block-diagonal kernel on transposed tiles, and counts as
 from __future__ import annotations
 
 from repro_torch.kernels import (block_diag, fused_input, fused_layer,
-                                 infer_head, loss_head, seg_act)
+                                 infer_head, loss_head, m3_matmul, seg_act)
 
 # kernel name → (module, counter attribute)
 _COUNTERS = {
@@ -33,6 +34,9 @@ _COUNTERS = {
     "block_diag_dw": (block_diag, "dw_launches"),
     "seg_act": (seg_act, "launches"),
     "seg_act_bwd": (seg_act, "bwd_launches"),
+    "m3_matmul_fwd": (m3_matmul, "fwd_launches"),
+    "m3_matmul_dh": (m3_matmul, "dh_launches"),
+    "m3_matmul_dw": (m3_matmul, "dw_launches"),
 }
 
 
@@ -64,17 +68,32 @@ def fused_step_budget(depth: int) -> dict:
     return {"fwd": per_dir, "bwd": per_dir, "total": 2 * per_dir}
 
 
-def unfused_infer_launches(depth: int) -> dict:
+def m3_step_launches() -> dict:
+    """The M3 head of one training step (``m3_impl="pallas"`` on an
+    unfused loss — the single-layer ``parallel_mlp`` and the layered
+    engine's ``loss_impl="xla"``): one forward, then dh and dW2."""
+    return {"m3_matmul_fwd": 1, "m3_matmul_dh": 1, "m3_matmul_dw": 1}
+
+
+def unfused_infer_launches(depth: int, m3_impl: str = "bucketed") -> dict:
     """The unfused route's forward (``bd_impl="pallas"``,
-    ``act_impl="pallas"``; the input projection and the head are plain
-    PyTorch): one ``seg_act`` per layer and one ``block_diag_fwd`` per mid
-    layer, per request batch."""
-    return {"seg_act": depth, "block_diag_fwd": depth - 1}
+    ``act_impl="pallas"``; the input projection is plain PyTorch): one
+    ``seg_act`` per layer and one ``block_diag_fwd`` per mid layer, per
+    request batch; with ``m3_impl="pallas"`` the head is one
+    ``m3_matmul_fwd`` too (else plain PyTorch)."""
+    out = {"seg_act": depth, "block_diag_fwd": depth - 1}
+    if m3_impl == "pallas":
+        out["m3_matmul_fwd"] = 1
+    return out
 
 
-def unfused_step_launches(depth: int) -> dict:
+def unfused_step_launches(depth: int, m3_impl: str = "bucketed") -> dict:
     """The unfused route's training step: the forward's launches, then per
     layer one ``seg_act_bwd`` and per mid layer dh (a ``block_diag_fwd``
-    on the transposed tiles) and one ``block_diag_dw``."""
-    return {"seg_act": depth, "seg_act_bwd": depth,
-            "block_diag_fwd": 2 * (depth - 1), "block_diag_dw": depth - 1}
+    on the transposed tiles) and one ``block_diag_dw``; with
+    ``m3_impl="pallas"`` the head's ``m3_step_launches`` too."""
+    out = {"seg_act": depth, "seg_act_bwd": depth,
+           "block_diag_fwd": 2 * (depth - 1), "block_diag_dw": depth - 1}
+    if m3_impl == "pallas":
+        out.update(m3_step_launches())
+    return out

@@ -9,16 +9,19 @@ under a ``TrainRunner`` — cadence checkpoints carrying the layout and the
 optimizer state, crash replay from the last checkpoint.  ``--bd-impl
 fused`` runs every step as exactly 2·(depth+1) hand-written CUDA kernel
 launches; ``--bd-impl pallas --act-impl pallas`` runs the unfused route
-over the block-diagonal GEMM and segmented-activation kernels.  The run
-ends with a leaderboard over the held-out split, scored on the run's own
-route (the serving kernels under ``--bd-impl fused``).
+over the block-diagonal GEMM and segmented-activation kernels, and
+``--m3-impl pallas`` its output head over the segment-blocked matmul
+kernels (``--m3-impl`` picks the head of every route but ``--bd-impl
+fused``, whose fused loss head runs no M3, as in the JAX package).  The
+run ends with a leaderboard over the held-out split, scored on the run's
+own route (the serving kernels under ``--bd-impl fused``, else the run's
+``--act-impl`` and ``--m3-impl``).
 
 Single device: the population is not shard-padded.  Flags whose paths are
 not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
 ``--halving``, ``--refill``, ``--per-member-*``, ``--compute-dtype
 bfloat16``, ``--optimizer adafactor``, ``--opt-state-dtype bfloat16``,
-``--serve-publish``, ``--pipeline on``, ``--m3-impl pallas`` and
-``--m3-impl onehot``.
+``--serve-publish`` and ``--pipeline on``.
 ``--pipeline`` defaults to ``off`` here (the JAX package's trajectory is
 bit-identical either way).
 """
@@ -90,9 +93,6 @@ def check_supported(args):
          f"from a live run is {_QUEUE1}, item 6)"),
         (args.pipeline == "on", "--pipeline on: the streaming data plane "
          f"is {_QUEUE1}, item 7)"),
-        (args.m3_impl == "pallas", "--m3-impl pallas: the m3_matmul "
-         "kernels are not ported yet (ROADMAP.md, Queue 2)"),
-        (args.m3_impl == "onehot", f"--m3-impl onehot is {_QUEUE1}, item 1)"),
     ]
     for bad, why in unsupported:
         if bad:
@@ -295,7 +295,8 @@ def run_population(arch, args):
 
     losses, accs = evaluate_population(params, lp, xte, yte,
                                        bd_impl=args.bd_impl,
-                                       act_impl=args.act_impl, infer=True)
+                                       act_impl=args.act_impl,
+                                       m3_impl=args.m3_impl, infer=True)
     print("leaderboard:")
     for row in leaderboard(lp, losses, accs, k=min(10, lp.num_real),
                            member_ids=member_ids):

@@ -596,3 +596,79 @@ def test_unfused_route_on_card_matches_cpu(dev):
         _close(per, want[1])
         for a, b in zip(tree_leaves(grads), tree_leaves(want[2])):
             _close(a, b)
+
+
+# --------------------------------------------------------------------- #
+# M3: the segment-blocked matmul and its two gradients                  #
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("sizes,block,o,b,offset", [
+    ((3, 9, 1, 20, 5), 1, 2, 7, 0),
+    ((3, 9, 1, 20, 5), 8, 5, 33, 0),
+    ((17, 40, 2, 8, 30, 16), 16, 2, 9, 0),
+    ((100, 1, 57, 128), 128, 2, 32, 0),
+    ((5, 12, 7), 8, 20, 11, 0),
+    ((5, 12, 7), 8, 3, 6, 1),
+])
+def test_m3_matmul_kernels_match_plain(dev, sizes, block, o, b, offset):
+    """Forward, dh and dW2 against their plain versions: blocks 1 to 128,
+    class counts in the small and the 16-wide register instance and
+    beyond (O = 20), padded units, the scalar instance (block 1, or an
+    unaligned view of h); dW2 twice is bitwise equal (no atomics)."""
+    from repro_torch.core.population import Population
+    from repro_torch.kernels import m3_matmul as m3k
+    pop = Population(4, o, sizes, ("relu",) * len(sizes), block=block)
+    rng = np.random.default_rng(b + block + o)
+    hh = pop.total_hidden
+    store = torch.zeros(b * hh + offset, device=dev)
+    h = store[offset:].view(b, hh)
+    h.copy_(_t(rng.normal(0, 1, (b, hh)) * pop.hidden_mask, dev))
+    w2 = _t(rng.normal(0, 1, (o, hh)), dev)
+    dy = _t(rng.normal(0, 1, (b, pop.num_members, o)), dev)
+    seg = _t(pop.block_segment_ids, dev, torch.int32)
+    ptr = ihk.member_ptr(seg, pop.num_members)
+    counts = (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches)
+    y = m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=block)
+    dh = m3k.m3_matmul_dh_cuda(dy, w2, seg, block=block)
+    dw = m3k.m3_matmul_dw_cuda(dy, h, seg, block=block)
+    assert (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches) == \
+        tuple(c + 1 for c in counts)
+    _close(y, m3k.m3_matmul_fwd_plain(h, w2, ptr, block=block))
+    _close(dh, m3k.m3_matmul_dh_plain(dy, w2, seg, block=block))
+    _close(dw, m3k.m3_matmul_dw_plain(dy, h, seg, block=block))
+    assert torch.equal(dw, m3k.m3_matmul_dw_cuda(dy, h, seg, block=block))
+
+
+def test_m3_matmul_empty_member_and_autograd_on_card(dev):
+    """A member that owns no block gets y = 0; ``ops.m3_matmul`` on the
+    card launches one forward and, backward, dh then dW2, and matches the
+    same call on the CPU; it rejects what the kernels do not take."""
+    from repro_torch.kernels import m3_matmul as m3k
+    h = torch.randn(5, 24, device=dev)
+    w2 = torch.randn(3, 24, device=dev)
+    ptr = torch.tensor([0, 1, 1, 3], dtype=torch.int32, device=dev)
+    y = m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=8)
+    assert torch.all(y[:, 1] == 0)
+    _close(y, m3k.m3_matmul_fwd_plain(h, w2, ptr, block=8))
+    seg = np.array([0, 0, 1, 2, 2], np.int32)
+    hc = torch.randn(6, 40).requires_grad_(True)
+    wc = torch.randn(2, 40).requires_grad_(True)
+    dy = torch.randn(6, 3, 2)
+    hd = hc.detach().to(dev).requires_grad_(True)
+    wd = wc.detach().to(dev).requires_grad_(True)
+    counts = (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches)
+    yd = ops.m3_matmul(hd, wd, seg, 3, block_h=8)
+    gd = torch.autograd.grad(yd, (hd, wd), dy.to(dev))
+    assert (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches) == \
+        tuple(c + 1 for c in counts)
+    yc = ops.m3_matmul(hc, wc, seg, 3, block_h=8)
+    gc = torch.autograd.grad(yc, (hc, wc), dy)
+    _close(yd.detach(), yc.detach())
+    for a, b in zip(gd, gc):
+        _close(a, b)
+    with pytest.raises(ValueError):
+        m3k.m3_matmul_fwd_cuda(h, w2, ptr.long(), block=8)
+    with pytest.raises(ValueError):
+        m3k.m3_matmul_dh_cuda(torch.randn(5, 3, 3, device=dev), w2,
+                              torch.zeros(3, dtype=torch.int32, device=dev),
+                              block=129)

@@ -1,6 +1,7 @@
 """The port's training driver held against the JAX package's, on the CPU:
 resume a JAX run in the port (parameters and optimizer state), the port's
-checkpoint restored by JAX, crash replay, and the flags not ported yet.
+checkpoint restored by JAX, crash replay, the M3 routes (``--m3-impl
+pallas|onehot``), and the flags not ported yet.
 
 The JAX driver trains on its einsum route; the port's driver resumes with
 ``--device cpu``, where every kernel runs its plain PyTorch version.
@@ -168,15 +169,38 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
     ["--optimizer", "adamw", "--opt-state-dtype", "bfloat16"],
     ["--serve-publish"],
     ["--pipeline", "on"],
-    ["--m3-impl", "pallas"],
-    ["--m3-impl", "onehot"],
-    ["--bd-impl", "pallas", "--act-impl", "pallas", "--m3-impl", "pallas"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["--arch", "parallelmlp-10k", "--reduced", "--steps",
                      "2", "--ckpt-dir", str(tmp_path), "--device", "cpu",
                      *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--m3-impl", "pallas"],
+    ["--m3-impl", "onehot"],
+    ["--bd-impl", "pallas", "--act-impl", "pallas", "--m3-impl", "pallas"],
+], ids=lambda f: " ".join(f))
+def test_m3_impl_flags_resume_as_jax(jax_runs, flags, tmp_path, capsys):
+    """``--m3-impl pallas|onehot`` reach the step: JAX's 4-step run resumed
+    to step 6 on the same route by both trainers (JAX's kernels in
+    interpret mode) lands on the same parameters, within the route
+    tolerance of tests/test_torch_unfused.py."""
+    resume = RECIPE + ["--steps", "6", "--resume", *flags]
+    ck_j, ck_t = tmp_path / "jax", tmp_path / "port"
+    shutil.copytree(jax_runs[0], ck_j)
+    shutil.copytree(jax_runs[0], ck_t)
+    want, _ = jtrain.main(resume + ["--ckpt-dir", str(ck_j), "--pipeline",
+                                    "off"])
+    params, _, stats = ttrain.main(resume + ["--ckpt-dir", str(ck_t),
+                                             "--device", "cpu"])
+    assert stats["steps"] == 2 and "leaderboard:" in capsys.readouterr().out
+    gl, wl = tree_leaves(params), jax.tree.leaves(jax.device_get(want))
+    assert len(gl) == len(wl)
+    for i, (a, b) in enumerate(zip(gl, wl)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                   err_msg=f"leaf {i}", rtol=1e-4, atol=1e-6)
 
 
 def test_ckpt_dir_defaults_to_a_fresh_temp_dir(tmp_path, monkeypatch,

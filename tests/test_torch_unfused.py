@@ -265,10 +265,28 @@ def test_train_main_unfused_on_cpu_restores_in_jax(tmp_path, capsys):
         np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
-def test_m3_pallas_still_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ttrain.main(TRAIN + ["--ckpt-dir", str(tmp_path), "--m3-impl",
-                             "pallas"])
+def test_train_main_unfused_m3_pallas_on_cpu(tmp_path, capsys):
+    """``train.main`` with every unfused stage on its kernels
+    (``--m3-impl pallas`` too): each step exactly
+    ``unfused_step_launches(depth, "pallas")`` (the closing leaderboard
+    adds forwards only), the trained parameters those of the same run
+    with the plain M3 head, and JAX restores the checkpoint to them."""
+    ck = tmp_path / "ck"
+    (params, lp, stats), n = _moved(lambda: ttrain.main(
+        TRAIN + ["--ckpt-dir", str(ck), "--m3-impl", "pallas"]))
+    assert stats["steps"] == 4 and "leaderboard:" in capsys.readouterr().out
+    step = tlc.unfused_step_launches(lp.depth, "pallas")
+    for k in ("seg_act_bwd", "block_diag_dw", "m3_matmul_dh",
+              "m3_matmul_dw"):
+        assert n[k] == 4 * step[k], k
+    assert n["m3_matmul_fwd"] > 4 and set(n) == set(step)
+    want, _, _ = ttrain.main(TRAIN + ["--ckpt-dir", str(tmp_path / "b")])
+    for a, b in zip(tree_leaves(params), tree_leaves(want)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), **ROUTE)
+    jp, jl, jstep = jckpt.restore_population(str(ck))
+    assert jstep == 3 and jl.widths == lp.widths
+    for a, b in zip(jax.tree.leaves(jp), tree_leaves(params)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
 
 
 def test_serve_main_unfused_on_cpu(np_params, tmp_path, capsys):
