@@ -76,18 +76,39 @@ Phases (any failure exits non-zero, and no result line is printed):
      (fused, unfused, unfused, fused), and the single-layer step with
      ``m3_impl`` pallas and bucketed in turns (pallas, bucketed, bucketed,
      pallas);
-  6. each kernel against its plain PyTorch version on the same inputs at
-     the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off; the M3
-     kernels at both path 4d's and path 4e's head), and the served
-     forward against the plain route on the card and on the CPU;
-  7. each kernel, its plain version and the nearest library call timed
+  6. the JAX package's kernel API (``ops.flash_attention``,
+     ``ops.moe_gemm``) at three model configurations' full widths, seeded
+     random inputs, the counters set to 0 just before and read just after:
+     qwen3-1.7b attention (B 2, S 4096, H 16, Hkv 8, dh 128, causal)
+     forward in f32 and bf16, then an f32 forward and backward on the
+     model layout's transposed views; h2o-danube-
+     3-4b's (B 1, S 8192, H 32, Hkv 8, dh 120, window 4096) bf16 forward;
+     deepseek-moe-16b's two expert projections (64 experts, D 2048, F 1408)
+     over the capacity buffer of 4096 tokens top-6 (512 rows an expert,
+     T = 32,768) in f32 and bf16, and both over a seeded top-6 routing with
+     every expert's run padded to 128 rows, some empty.  Exactly one launch
+     a forward, none in the backward; the outputs finite and against the
+     plain versions (attention: the dense oracle, f32 at rtol 1e-4 / atol
+     1e-5, bf16 at rtol 1e-2 and a per-element atol of 2^-8 times the
+     attention of |v|, the most that rounding p to bf16 can move an
+     output; the gradients at 2e-4 against autograd of the oracle, which
+     is what the backward runs: a check of its wiring, not of a kernel;
+     grouped GEMM: f32 at rtol 1e-4 / atol 1e-4, bf16 at 1e-2);
+  7. each kernel against its plain PyTorch version on the same inputs at
+     the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off, unless a
+     row says otherwise; the M3 kernels at both path 4d's and path 4e's
+     head), and the served forward against the plain route on the card
+     and on the CPU;
+  8. each kernel, its plain version and the nearest library call timed
      with CUDA events; the least time the card could take (bound) from the
-     bytes and operations of this run's inputs;
-  8. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel;
-     the int8 rows' library call is the f32 row's on the dequantized
-     weight, the dequantization not timed; ``seg_act``/``seg_act_bwd`` have
-     none, and say why), then the card's line ``{"ok": true, "device":
-     {...}}`` last.
+     bytes and operations of this run's inputs (f32 at 67 TFLOP/s, bf16 at
+     the tensor cores' 989);
+  9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
+     nineteen; the int8 rows' library call is the f32 row's on the
+     dequantized weight, the dequantization not timed; ``seg_act``/
+     ``seg_act_bwd`` have none, and say why; the two rows of phase 6 carry
+     their bf16 runs as ``bf16_*`` fields), then the card's line
+     ``{"ok": true, "device": {...}}`` last.
 """
 import gc
 import json
@@ -113,6 +134,34 @@ UNFUSED_KERNELS = ("block_diag_fwd", "block_diag_dw", "seg_act",
                    "seg_act_bwd")
 M3_KERNELS = ("m3_matmul_fwd", "m3_matmul_dh", "m3_matmul_dw")
 SERVE_REQUESTS = 256
+# the JAX package's kernel API at three model configurations' widths (the
+# port has no LM configs yet; the shapes are those of src/repro/configs/):
+# qwen3_1_7b.py attention at the train_4k shape; h2o_danube_3_4b.py's
+# sliding-window attention (d_head 3840 / 32 = 120); deepseek_moe_16b.py's
+# routed experts over the capacity buffer nn/ffn.py::moe_apply_dense builds
+# for 4096 tokens (top-6 of 64, factor 1.25: 480 rows an expert, rounded up
+# to 512 so that every run is block_t = 128-aligned)
+QWEN3 = dict(b=2, s=4096, h=16, hkv=8, dh=128, window=0)
+DANUBE = dict(b=1, s=8192, h=32, hkv=8, dh=120, window=4096)
+MOE = dict(experts=64, d=2048, f=1408, top_k=6, tokens=4096, capacity=512,
+           block_t=128)
+LM_KERNELS = ("flash_attention", "moe_gemm")
+# the dense bf16 tensor-core peak (NVIDIA H100 SXM data sheet)
+BF16_FLOP_PER_S = 989e12
+# bf16 attention against its dense plain version, per output element: the
+# kernel rounds each p to bf16 (unit roundoff 2^-8) before the PV product,
+# which moves an output by at most 2^-8 · Σ_j p_j |v_j| / l, the attention
+# of |v| (``_flash_bf16_tol``); each side rounds o to bf16 once (2^-8
+# relative each: rtol 1e-2).  A constant atol would be the size of the
+# outputs themselves at S 4096, where |o| is about 0.03.
+FLASH_BF16_RTOL = 1e-2
+# the grouped GEMM in bf16 at 1e-2: both round the same f32 sums to bf16
+# once, and a sum order apart a value may land on the neighbouring bf16
+MOE_BF16_TOL = (1e-2, 1e-2)
+# the grouped GEMM in f32: each output is a sum of 1408 or 2048 products
+# of order 1/sqrt(D), ~20× the terms of the population kernels' sums, and
+# two summation orders differ by up to ~1e-5 absolute on N(0, 1) outputs
+MOE_F32_TOL = (RTOL, 1e-4)
 # every ported TPU kernel: its row name → the Pallas function it replaces
 REPLACES = {
     "fused_input": "src/repro/kernels/fused_input.py:83",
@@ -132,8 +181,11 @@ REPLACES = {
     "m3_matmul_dw": "src/repro/kernels/m3_matmul.py:138",
     "seg_act": "src/repro/kernels/seg_act.py:27",
     "seg_act_bwd": "src/repro/kernels/seg_act.py:65",
+    "flash_attention": "src/repro/kernels/flash_attn.py:86",
+    "moe_gemm": "src/repro/kernels/moe_gemm.py:42",
 }
-SOURCES = {"loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head",
+SOURCES = {"flash_attention": "flash_attn",
+           "loss_head_fwd": "loss_head", "loss_head_bwd": "loss_head",
            "fused_input_int8": "fused_input",
            "fused_layer_int8": "fused_layer",
            "infer_head_int8": "infer_head",
@@ -164,9 +216,10 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(n_bytes: int, flops: int) -> tuple[float, str]:
+def _bound_ms(n_bytes: int, flops: int,
+              peak: float = F32_FLOP_PER_S) -> tuple[float, str]:
     t_mem = n_bytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
@@ -182,18 +235,27 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _close(name, got, want):
+def _close(name, got, want, tol=(RTOL, ATOL)):
     """Max |err| of ``got`` against ``want`` (tensors or trees), raising
-    outside rtol/atol."""
+    outside ``tol`` = (rtol, atol); bf16 tensors compare in f32.  ``atol``
+    may be a tensor, one allowance per element of a single output."""
     import torch
 
     from repro_torch.core.tree import tree_leaves
+    rtol, atol = tol
     err = 0.0
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
-        b = b.to(a.device)
+        a, b = a.float(), b.to(a.device).float()
         e = (a - b).abs().max().item() if a.numel() else 0.0
-        _require(torch.allclose(a, b, rtol=RTOL, atol=ATOL),
-                 f"{name}: max |err| {e} (rtol {RTOL}, atol {ATOL})")
+        if torch.is_tensor(atol):
+            share = ((a - b).abs() / (atol + rtol * b.abs())).max().item()
+            print(f"[{name}] max |err| {e!r}, at most {share!r} of its "
+                  "per-element tolerance", flush=True)
+            _require(share <= 1.0, f"{name}: max |err| {e}, {share} of the "
+                     f"per-element tolerance (rtol {rtol})")
+        else:
+            _require(torch.allclose(a, b, rtol=rtol, atol=atol),
+                     f"{name}: max |err| {e} (rtol {rtol}, atol {atol})")
         err = max(err, e)
     return err
 
@@ -767,31 +829,408 @@ def time_step(name, step, iters: int = 20):
 
 
 # --------------------------------------------------------------------- #
+# the kernel API at LM widths: flash attention and the grouped GEMM     #
+# --------------------------------------------------------------------- #
+
+def _moe_ids(counts, block_t: int, device):
+    """Per-expert row counts → (per-block expert ids, each run's first
+    row), every run padded up to a multiple of ``block_t``."""
+    import torch
+    blocks = (counts + block_t - 1) // block_t
+    ids = torch.repeat_interleave(
+        torch.arange(counts.numel(), device=device), blocks).to(torch.int32)
+    start = torch.cumsum(blocks * block_t, 0) - blocks * block_t
+    return ids, start
+
+
+def lm_inputs():
+    """The phase's inputs, made on the card from a seeded generator:
+    qwen3-1.7b's q, k, v (f32, and a bf16 copy), h2o-danube-3-4b's (bf16),
+    deepseek-moe-16b's capacity buffer and expert weights for both
+    projections (f32, and bf16 copies; weights at the 1/sqrt(fan-in) scale
+    of an init), and a seeded top-6 routing of 4096 tokens with each
+    expert's run padded to 128 rows and the last eight experts given no
+    token (ragged runs, some empty)."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    c, d = QWEN3, DANUBE
+    qkv = (randn(c["b"], c["h"], c["s"], c["dh"]),
+           randn(c["b"], c["hkv"], c["s"], c["dh"]),
+           randn(c["b"], c["hkv"], c["s"], c["dh"]))
+    qkv_d = tuple(randn(d["b"], n, d["s"], d["dh"]).bfloat16()
+                  for n in (d["h"], d["hkv"], d["hkv"]))
+    m = MOE
+    e, dm, f = m["experts"], m["d"], m["f"]
+    t = e * m["capacity"]
+    moe = {"ids": _moe_ids(torch.full((e,), m["capacity"], device=dev),
+                           m["block_t"], dev)[0],
+           "up": (randn(t, dm), randn(e, dm, f, scale=dm ** -0.5)),
+           "down": (randn(t, f), randn(e, f, dm, scale=f ** -0.5))}
+    # the ragged layout: tokens routed top-6, grouped by expert
+    logits = randn(m["tokens"], e)
+    logits[:, e - 8:] = float("-inf")
+    flat = logits.topk(m["top_k"], dim=-1).indices.reshape(-1)
+    counts = torch.bincount(flat, minlength=e)
+    ids_r, start = _moe_ids(counts, m["block_t"], dev)
+    order = torch.argsort(flat, stable=True)
+    sorted_e = flat[order]
+    rank = torch.arange(flat.numel(), device=dev) - (
+        torch.cumsum(counts, 0) - counts)[sorted_e]
+    x_r = torch.zeros(int(ids_r.numel()) * m["block_t"], dm, device=dev)
+    x_r[start[sorted_e] + rank] = randn(m["tokens"], dm)[order // m["top_k"]]
+    moe["ragged"] = {"ids": ids_r, "x": x_r,
+                     "counts": counts.tolist()}
+    return {"qwen3": qkv, "danube": qkv_d, "moe": moe}
+
+
+def lm_path(inp):
+    """Phase 6: the JAX package's kernel API (``ops.flash_attention``,
+    ``ops.moe_gemm``) driven at full model widths, every kernel counter set
+    to 0 just before and read just after: qwen3-1.7b attention forward in
+    f32 and bf16, then an f32 forward and backward (each forward exactly
+    one flash launch, the backward none; that forward takes the model
+    layout's transposed views); h2o-danube-3-4b's windowed bf16
+    forward; deepseek-moe-16b's two projections over the capacity buffer in
+    f32 and bf16, then both over the ragged routing (one launch each).
+    Returns (outputs, the phase's kernel launches)."""
+    import torch
+
+    from repro_torch.kernels import flash_attn as fak
+    from repro_torch.kernels import ops
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    from repro_torch.kernels import grouped_gemm as moek
+
+    def once(counter, fn):
+        mod = fak if counter == "flash" else moek
+        n0 = mod.launches
+        out = fn()
+        _require(mod.launches == n0 + 1, f"{counter}: a forward launched "
+                 f"{mod.launches - n0} kernels, expected 1")
+        return out
+
+    q, k, v = inp["qwen3"]
+    sc = QWEN3["dh"] ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    qkv16 = tuple(t.bfloat16() for t in (q, k, v))
+    qd, kd, vd = inp["danube"]
+    mo = inp["moe"]
+    bt = MOE["block_t"]
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    out = {"qwen3_f32": once("flash", lambda: ops.flash_attention(
+        q, k, v, sc, True, 0)),
+        "qwen3_bf16": once("flash", lambda: ops.flash_attention(
+            *qkv16, sc, True, 0))}
+    # the model's layout: leaves (B, S, heads, dh), attended as strided
+    # (B, heads, S, dh) views
+    leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+              for t in (q, k, v)]
+    o = once("flash", lambda: ops.flash_attention(
+        *(t.transpose(1, 2) for t in leaves), sc, True, 0))
+    n_fwd = fak.launches
+    o.backward(do)
+    torch.cuda.synchronize()
+    _require(fak.launches == n_fwd, "flash_attention: the backward "
+             f"launched {fak.launches - n_fwd} flash kernels, expected 0")
+    out["qwen3_grads"] = [t.grad.transpose(1, 2) for t in leaves]
+    out["qwen3_grad_out"] = o.detach()
+    out["danube_bf16"] = once("flash", lambda: ops.flash_attention(
+        qd, kd, vd, DANUBE["dh"] ** -0.5, True, DANUBE["window"]))
+    for proj in ("up", "down"):
+        x, w = mo[proj]
+        out[f"moe_{proj}_f32"] = once("moe", lambda: ops.moe_gemm(
+            x, w, mo["ids"], block_t=bt))
+        out[f"moe_{proj}_bf16"] = once("moe", lambda: ops.moe_gemm(
+            x.bfloat16(), w.bfloat16(), mo["ids"], block_t=bt))
+    rg = mo["ragged"]
+    out["moe_ragged_up"] = once("moe", lambda: ops.moe_gemm(
+        rg["x"], mo["up"][1], rg["ids"], block_t=bt))
+    out["moe_ragged_down"] = once("moe", lambda: ops.moe_gemm(
+        out["moe_ragged_up"], mo["down"][1], rg["ids"], block_t=bt))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k_: v_ for k_, v_ in kernel_launches().items() if v_}
+    _require(n == {"flash_attention": 4, "moe_gemm": 6},
+             f"the kernel API phase launched {n}, expected 4 flash and 6 "
+             "grouped-GEMM launches and nothing else")
+    print(f"[lm kernels] phase in {wall:.2f} s; launches {n}; ragged "
+          f"routing: {len(rg['counts'])} experts, runs {min(rg['counts'])}"
+          f"-{max(rg['counts'])} tokens, "
+          f"{sum(c == 0 for c in rg['counts'])} empty, T = "
+          f"{rg['x'].shape[0]}", flush=True)
+    return out, n
+
+
+def _by_head_group(fn, q, k, v, **kw):
+    """``fn`` over one kv head (and its query heads) at a time, the
+    results joined: the dense (Sq, Sk) scores of one group only."""
+    import torch
+    g = q.shape[1] // k.shape[1]
+    return torch.cat([fn(q[:, i * g:(i + 1) * g], k[:, i:i + 1],
+                         v[:, i:i + 1], **kw)
+                      for i in range(k.shape[1])], dim=1)
+
+
+def _flash_bf16_tol(plain, q, k, v, **kw):
+    """(rtol, per-element atol) of a bf16 attention output against
+    ``plain`` on the same inputs (see FLASH_BF16_RTOL): 2^-8 times the
+    attention of |v| in f32, plus ATOL."""
+    a = plain(q.float(), k.float(), v.float().abs(), **kw)
+    return FLASH_BF16_RTOL, a.mul_(2.0 ** -8).add_(ATOL)
+
+
+def _flash_p_rounded(q, k, v, *, scale, causal, window):
+    """The dense oracle with each p rounded to bf16 before the PV product,
+    as the kernel rounds it (against the row's final max, where the kernel
+    rounds against its running one) → f32.  Used for a second reading of
+    the bf16 kernel's error only."""
+    import torch
+
+    from repro_torch.kernels.flash_attn import NEG_INF, attention_mask
+    g = q.shape[1] // k.shape[1]
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                     k.repeat_interleave(g, dim=1).float()) * scale
+    ok = attention_mask(q.shape[2], k.shape[2], causal=causal, window=window,
+                        device=q.device)
+    s = torch.where(ok, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    del s
+    o = torch.einsum("bhqk,bhkd->bhqd", p.bfloat16().float(),
+                     v.repeat_interleave(g, dim=1).float())
+    return o / p.sum(-1, keepdim=True)
+
+
+def _pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """Unmasked (q, k) pairs of one head: what the attention must
+    compute."""
+    import numpy as np
+    qp = np.arange(sq)
+    lo = np.maximum(qp - window + 1, 0) if window > 0 else np.zeros_like(qp)
+    hi = np.minimum(qp, sk - 1) if causal else np.full_like(qp, sk - 1)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def check_lm_outputs(inp, out):
+    """The phase's outputs: finite, of the expected shapes, each against
+    its plain version on the card (flash: the dense oracle at rtol 1e-4 /
+    atol 1e-5 in f32 and at the per-element bound of ``_flash_bf16_tol``
+    in bf16, danube's by head group, with a second reading of the bf16
+    error against ``_flash_p_rounded``; the grouped GEMM against the
+    per-block bmm).  The backward's gradients are held against autograd of
+    the dense version: the backward is that same autograd, so this checks
+    the Function's wiring (each gradient to its input, through the strided
+    views) and exercises no kernel.  Returns {check: max |err|}."""
+    import torch
+
+    from repro_torch.kernels import grouped_gemm as moek
+    from repro_torch.kernels.flash_attn import flash_attn_dense
+    q, k, v = inp["qwen3"]
+    sc = QWEN3["dh"] ** -0.5
+    errs = {}
+    qkv16 = tuple(t.bfloat16() for t in (q, k, v))
+    kw = dict(scale=sc, causal=True, window=0)
+    for key, args in (("qwen3_f32", (q, k, v)), ("qwen3_bf16", qkv16)):
+        got = out[key]
+        _require(got.shape == q.shape and got.dtype == args[0].dtype
+                 and bool(torch.isfinite(got).all()),
+                 f"{key}: {tuple(got.shape)} {got.dtype} not finite")
+        tol = ((RTOL, ATOL) if key == "qwen3_f32"
+               else _flash_bf16_tol(flash_attn_dense, *args, **kw))
+        errs[key] = _close(key, got, flash_attn_dense(*args, **kw), tol)
+        del tol
+    errs["qwen3_bf16_vs_p_rounded"] = (
+        out["qwen3_bf16"].float() - _flash_p_rounded(*qkv16, **kw)
+    ).abs().max().item()
+    _require(torch.equal(out["qwen3_grad_out"], out["qwen3_f32"]),
+             "flash_attention: the forward under autograd differs from the "
+             "same forward without it")
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    do = torch.randn(q.shape, generator=gen, device="cuda")
+    flash_attn_dense(*leaves, **kw).backward(do)
+    errs["qwen3_grads_wiring"] = max(
+        _close(f"qwen3 d{n}", got, t.grad, (2e-4, 2e-4))
+        for n, got, t in zip("qkv", out["qwen3_grads"], leaves))
+    del leaves, qkv16
+    qd, kd, vd = inp["danube"]
+    got = out["danube_bf16"]
+    _require(got.shape == qd.shape and bool(torch.isfinite(got).all()),
+             "danube: output not finite")
+    kw = dict(scale=DANUBE["dh"] ** -0.5, causal=True,
+              window=DANUBE["window"])
+    dense_g = partial(_by_head_group, flash_attn_dense)
+    errs["danube_bf16"] = _close(
+        "danube_bf16", got, dense_g(qd, kd, vd, **kw),
+        _flash_bf16_tol(dense_g, qd, kd, vd, **kw))
+    errs["danube_bf16_vs_p_rounded"] = (got.float() - _by_head_group(
+        _flash_p_rounded, qd, kd, vd, **kw)).abs().max().item()
+    mo = inp["moe"]
+    for proj in ("up", "down"):
+        x, w = mo[proj]
+        for dt, tol in (("f32", MOE_F32_TOL), ("bf16", MOE_BF16_TOL)):
+            key = f"moe_{proj}_{dt}"
+            xx, ww = (x, w) if dt == "f32" else (x.bfloat16(), w.bfloat16())
+            got = out[key]
+            _require(got.shape == (x.shape[0], w.shape[2])
+                     and got.dtype == xx.dtype
+                     and bool(torch.isfinite(got).all()),
+                     f"{key}: {tuple(got.shape)} not finite")
+            errs[key] = _close(key, got, moek.moe_gemm_dense(
+                xx, ww, mo["ids"], block_t=MOE["block_t"]), tol)
+    rg = mo["ragged"]
+    want_up = moek.moe_gemm_dense(rg["x"], mo["up"][1], rg["ids"],
+                                  block_t=MOE["block_t"])
+    errs["moe_ragged"] = max(
+        _close("moe ragged up", out["moe_ragged_up"], want_up, MOE_F32_TOL),
+        _close("moe ragged down", out["moe_ragged_down"],
+               moek.moe_gemm_dense(out["moe_ragged_up"], mo["down"][1],
+                                   rg["ids"], block_t=MOE["block_t"]),
+               MOE_F32_TOL))
+    print(f"[lm kernels] max|err| against the plain versions: {errs}",
+          flush=True)
+    return errs
+
+
+def _prefixed(prefix: str, row: dict) -> dict:
+    keys = ("max_abs_err", "rtol", "atol", "atol_per_element", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "library_none")
+    return {f"{prefix}_{k}": row[k] for k in keys if k in row}
+
+
+def lm_rows(inp, lm_n):
+    """The two rows of the kernel API: ``flash_attention`` at qwen3-1.7b's
+    shape in f32 (library: ``scaled_dot_product_attention`` with
+    ``is_causal`` and ``enable_gqa``), its bf16 times beside them
+    (``bf16_*``), and h2o-danube-3-4b's windowed bf16 forward
+    (``danube_*``; library: the same call with the window as a boolean
+    mask; the plain version by head group); ``moe_gemm`` as both
+    deepseek-moe-16b projections over the capacity buffer summed, f32
+    (library: ``torch.bmm`` on the (64, 512, D) buffer, the einsum of
+    ``nn/ffn.py::_expert_ffn``), bf16 beside it, and the ragged routing's
+    up projection (``ragged_*``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as fak
+    from repro_torch.kernels import grouped_gemm as moek
+    sdpa = F.scaled_dot_product_attention
+
+    def flash_row(qkv, causal, window, tol, peak, plain, library, iters):
+        q = qkv[0]
+        sc = q.shape[-1] ** -0.5
+        n_pairs = _pairs(q.shape[2], qkv[1].shape[2], causal, window)
+        if tol is None:
+            tol = _flash_bf16_tol(plain, *qkv, scale=sc, causal=causal,
+                                  window=window)
+        return compare(
+            "flash_attention",
+            partial(fak.flash_attention_cuda, *qkv, scale=sc, causal=causal,
+                    window=window),
+            partial(plain, *qkv, scale=sc, causal=causal, window=window),
+            library, _nbytes(*qkv, q),
+            4 * q.shape[0] * q.shape[1] * q.shape[3] * n_pairs,
+            lm_n["flash_attention"], iters, tol, peak)
+
+    q, k, v = inp["qwen3"]
+    sc = QWEN3["dh"] ** -0.5
+    row = flash_row((q, k, v), True, 0, (RTOL, ATOL), F32_FLOP_PER_S,
+                    fak.flash_attn_dense,
+                    lambda: sdpa(q, k, v, is_causal=True, scale=sc,
+                                 enable_gqa=True), 5)
+    q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
+    row.update(_prefixed("bf16", flash_row(
+        (q16, k16, v16), True, 0, None, BF16_FLOP_PER_S,
+        fak.flash_attn_dense,
+        lambda: sdpa(q16, k16, v16, is_causal=True, scale=sc,
+                     enable_gqa=True), 5)))
+    del q16, k16, v16
+    qd, kd, vd = inp["danube"]
+    sd = DANUBE["dh"] ** -0.5
+    mask = fak.attention_mask(DANUBE["s"], DANUBE["s"], causal=True,
+                              window=DANUBE["window"], device=qd.device)
+    row.update(_prefixed("danube_bf16", flash_row(
+        (qd, kd, vd), True, DANUBE["window"], None,
+        BF16_FLOP_PER_S, partial(_by_head_group, fak.flash_attn_dense),
+        lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sd, enable_gqa=True),
+        3)))
+    rows = {"flash_attention": row}
+
+    mo, bt = inp["moe"], MOE["block_t"]
+    e, cap = MOE["experts"], MOE["capacity"]
+
+    def moe_row(x, w, ids, tol, peak, library, iters=5):
+        return compare(
+            "moe_gemm", partial(moek.moe_gemm_cuda, x, w, ids, block_t=bt),
+            partial(moek.moe_gemm_dense, x, w, ids, block_t=bt), library,
+            _nbytes(x, w) + x.shape[0] * w.shape[2] * x.element_size(),
+            2 * x.shape[0] * x.shape[1] * w.shape[2], lm_n["moe_gemm"],
+            iters, tol, peak)
+
+    def projections(dt, tol, peak):
+        out = []
+        for proj in ("up", "down"):
+            x, w = mo[proj]
+            if dt is not None:
+                x, w = x.to(dt), w.to(dt)
+            xb = x.view(e, cap, x.shape[1])
+            out.append(moe_row(x, w, mo["ids"], tol, peak,
+                               partial(torch.bmm, xb, w)))
+        return _sum_rows(out)
+
+    row = projections(None, MOE_F32_TOL, F32_FLOP_PER_S)
+    row.update(_prefixed("bf16", projections(torch.bfloat16, MOE_BF16_TOL,
+                                             BF16_FLOP_PER_S)))
+    rg = mo["ragged"]
+    row.update(_prefixed("ragged", moe_row(
+        rg["x"], mo["up"][1], rg["ids"], MOE_F32_TOL, F32_FLOP_PER_S,
+        "ragged runs: no single PyTorch call")))
+    row["ragged_counts"] = rg["counts"]
+    rows["moe_gemm"] = row
+    return rows
+
+
+# --------------------------------------------------------------------- #
 # kernel rows                                                           #
 # --------------------------------------------------------------------- #
 
-def compare(name, kernel, plain, library, n_bytes, flops, launches, iters):
+def compare(name, kernel, plain, library, n_bytes, flops, launches, iters,
+            tol=(RTOL, ATOL), peak=F32_FLOP_PER_S):
     """Hold one kernel against its plain version on the same inputs, and
     time kernel, plain version and library call.  ``kernel``/``plain``
     return a tensor or a tuple of tensors; ``library`` is a callable, or a
-    string saying why no single PyTorch call computes the function."""
+    string saying why no single PyTorch call computes the function.
+    ``tol``: (rtol, atol) of the comparison; ``peak``: the operand type's
+    peak FLOP/s, for the bound."""
     import torch
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = _close(f"{name}: kernel vs plain", got, want)
-    bound, by = _bound_ms(n_bytes, flops)
+    err = _close(f"{name}: kernel vs plain", got, want, tol)
+    del got, want
+    bound, by = _bound_ms(n_bytes, flops, peak)
     row = {"name": name, "route": "cuda",
            "source": ("src/repro_torch/kernels/csrc/"
                       f"{SOURCES.get(name, name)}.cu"),
            "replaces": REPLACES[name],
-           "launches": launches, "max_abs_err": err, "rtol": RTOL,
-           "atol": ATOL,
+           "launches": launches, "max_abs_err": err, "rtol": tol[0],
+           "atol": (tol[1].max().item() if torch.is_tensor(tol[1])
+                    else tol[1]),
            "ms": _time_ms(kernel, iters), "plain_ms": _time_ms(plain, iters),
            "bound_ms": bound, "bound_by": by,
            "library_ms": (None if isinstance(library, str)
                           else _time_ms(library, iters))}
     if isinstance(library, str):
         row["library_none"] = library
+    if torch.is_tensor(tol[1]):
+        row["atol_per_element"] = True
     print(f"[{name}] max|err| {err!r}  kernel {row['ms']!r} ms  plain "
           f"{row['plain_ms']!r} ms  library {row['library_ms']!r} ms  bound "
           f"{bound!r} ms ({by}: {n_bytes} B, {flops} FLOP)", flush=True)
@@ -828,7 +1267,8 @@ def _sum_rows(rows):
 
 def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                 unfused_serve_n, unfused_train_n, m3_n):
-    """Phases 6 + 7: every ported kernel at the main paths' shapes."""
+    """Phases 7 + 8: every population kernel at the main paths'
+    shapes."""
     import numpy as np
     import torch
 
@@ -1191,7 +1631,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     _require(torch.equal(dw_a, m3k.m3_matmul_dw_cuda(
         *cases["m3_matmul_dw"][1], block=blk)),
         "m3_matmul_dw: two launches on the same inputs differ")
-    return [rows[name] for name in REPLACES]
+    return rows
 
 
 def main() -> int:
@@ -1330,8 +1770,9 @@ def main() -> int:
               flush=True)
         for name, n in train_n.items():
             _require((n == 0) if name in INT8_KERNELS + UNFUSED_KERNELS
-                     + M3_KERNELS else (n > 0), f"kernel {name} was "
-                     f"launched {n} times on the training path")
+                     + M3_KERNELS + LM_KERNELS else (n > 0),
+                     f"kernel {name} was launched {n} times on the "
+                     "training path")
 
         # 4c. the unfused route's training, counted alone
         _, _, stats3u, _, unfused_train_n = train(
@@ -1378,7 +1819,16 @@ def main() -> int:
         steps[key] = time_step(key, partial(sgd_step, t_single, x, y, 1e-2,
                                             pop10k, m3_impl=impl))
 
-    # 6 + 7. each kernel against its plain version; timings; outputs
+    # 6. the kernel API at LM widths, counted alone; then its outputs
+    # against the plain versions
+    lm_in = lm_inputs()
+    lm_out, lm_n = lm_path(lm_in)
+    lm_err = check_lm_outputs(lm_in, lm_out)
+    # freed before the population rows, which are timed as before this
+    # phase existed; its rows are timed last on the same inputs made anew
+    del lm_in, lm_out
+
+    # 7 + 8. each kernel against its plain version; timings; outputs
     check_forward("parallelmlp-10k", p10k, lp10k, x)
     check_forward("trainer-depth3", p3k, lp3k, x)
     # the rows are timed on an emptied allocator cache: left as the earlier
@@ -1387,12 +1837,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                        unfused_serve_n, unfused_train_n, m3_n)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows.update(lm_rows(lm_inputs(), lm_n))
+    rows = [rows[name] for name in REPLACES if name in rows]
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")
     _require({Path(r["source"]).stem for r in rows} >= set(libs),
              "a built kernel library has no row")
 
-    # 8. results
+    # 9. results
     print(json.dumps({"serve": {"parallelmlp-10k": out10k["serve"],
                                 "trainer-depth3": out3k["serve"],
                                 "parallelmlp-10k trained": served["serve"]},
@@ -1407,6 +1861,7 @@ def main() -> int:
                                 "parallelmlp-10k single": stats_single,
                                 "trainer-depth3 unfused m3": stats3m},
                       "train_step": steps,
+                      "lm_kernels_max_abs_err": lm_err,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,81 @@
+"""Grouped GEMM over tokens sorted by expert — the MoE expert projection.
+
+``moe_gemm_cuda`` launches ``csrc/moe_gemm.cu`` (entries ``moe_gemm_f32``
+and ``moe_gemm_bf16``, the port of the TPU kernel
+``repro/kernels/moe_gemm.py::moe_gemm``): x (T, D) and w (E, D, F) of one
+dtype, f32 or bf16, and one int32 expert id per run of ``block_t`` rows
+→ y (T, F) in x's dtype, ``y[t] = x[t] · w[e(t)]``, summed in f32.
+
+``moe_gemm_dense`` is the same function in plain PyTorch, the port of the
+JAX package's oracle ``repro/kernels/ref.py::moe_gemm_ref`` with
+``expand_block_ids``.  The oracle gathers a (T, D, F) weight per row; the
+plain version gathers one (D, F) weight per run of ``block_t`` rows and
+takes one f32 batched product — the same sums, at a size the card holds at
+full width.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+# kernel launches (the CPU dispatch in ops counts its plain calls too)
+launches = 0
+DTYPES = {torch.float32: "moe_gemm_f32", torch.bfloat16: "moe_gemm_bf16"}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def expand_block_ids(block_ids, block: int) -> np.ndarray:
+    """Per-block id array → per-unit id array."""
+    return np.repeat(np.asarray(block_ids), block)
+
+
+def moe_gemm_dense(x, w, block_expert_ids, *, block_t: int):
+    """y[t] = x[t] · w[e(t)] in f32 → (T, F) in x's dtype."""
+    t, d = x.shape
+    ids = block_expert_ids.long()
+    xb = x.float().reshape(t // block_t, block_t, d)
+    return torch.bmm(xb, w[ids].float()).reshape(t, -1).to(x.dtype)
+
+
+def check_shapes(x, w, ids, block_t: int):
+    """Raise unless x (T, D), w (E, D, F) and ids (T / block_t,) fit and x
+    and w share one dtype, f32 or bf16."""
+    if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
+        raise ValueError(f"x {tuple(x.shape)} and w {tuple(w.shape)}: "
+                         "expected (T, D) and (E, D, F)")
+    if x.shape[0] % block_t:
+        raise ValueError(f"token axis {x.shape[0]} not {block_t}-aligned")
+    if tuple(ids.shape) != (x.shape[0] // block_t,):
+        raise ValueError(f"{tuple(ids.shape)} expert ids for "
+                         f"{x.shape[0] // block_t} runs of {block_t} rows")
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w are {x.dtype}, {w.dtype}; the kernel "
+                        "takes one dtype, float32 or bfloat16")
+
+
+def moe_gemm_cuda(x, w, block_expert_ids, *, block_t: int):
+    """One launch → y (T, F) in x's dtype."""
+    global launches
+    check_shapes(x, w, block_expert_ids, block_t)
+    _build.check_tensors("moe_gemm", x, ("x", x, x.dtype), ("w", w, x.dtype),
+                         ("block_expert_ids", block_expert_ids, torch.int32))
+    if block_t % 8:
+        raise ValueError(f"moe_gemm: block_t {block_t} is not a multiple of "
+                         "8 (the kernel's row tiles)")
+    t, d = x.shape
+    e, _, f = w.shape
+    fn = _build.function("moe_gemm", DTYPES[x.dtype],
+                         [_P] * 4 + [_L] + [_I] * 4 + [_P])
+    y = torch.empty(t, f, device=x.device, dtype=x.dtype)
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), w.data_ptr(), block_expert_ids.data_ptr(),
+                y.data_ptr(), t, d, f, e, block_t,
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "moe_gemm")
+    launches += 1
+    return y

@@ -26,6 +26,12 @@ the kernel's plain PyTorch version.  The CPU dispatch counts its calls in
 the kernel's launch counter, so the launch budgets hold on either device
 (``launch/launch_count.py``).
 
+The two kernels of the JAX package's public kernel API that no population
+path runs, ``flash_attention`` (differentiable: its backward recomputes
+through the dense plain version, as JAX's custom VJP recomputes through
+its oracle) and ``moe_gemm`` (forward only, as in JAX), take f32 or bf16
+operands of one dtype and return their result in that dtype.
+
 Static layout arrays (activation ids, masks, segment ids) may be numpy or
 tensors; callers on the hot path pass tensors already on the device.
 Activations compute in f32; weights are f32, or int8 on the serving twins.
@@ -36,11 +42,13 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import block_diag as _bdk
+from repro_torch.kernels import flash_attn as _fak
 from repro_torch.kernels import fused_input as _fik
 from repro_torch.kernels import fused_layer as _flk
 from repro_torch.kernels import infer_head as _ihk
 from repro_torch.kernels import loss_head as _lhk
 from repro_torch.kernels import m3_matmul as _m3k
+from repro_torch.kernels import grouped_gemm as _moek
 from repro_torch.kernels import seg_act as _sak
 from repro_torch.quant import _input_f_pad
 
@@ -651,3 +659,87 @@ def loss_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
     if tgt.shape[0] != h.shape[0]:
         raise ValueError(f"{tgt.shape[0]} targets for {h.shape[0]} rows")
     return _LossHead.apply(h, w_out, b_out, tgt, seg, block_h)
+
+
+# --------------------------------------------------------------------- #
+# flash attention                                                       #
+# --------------------------------------------------------------------- #
+
+def _flash_fwd(q, k, v, scale, causal, window):
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if _on_card(q):
+        return _fak.flash_attention_cuda(q, k, v, scale=scale, causal=causal,
+                                         window=window)
+    _fak.check_shapes(q, k, v)
+    _fak.launches += 1
+    return _fak.flash_attn_dense(q, k, v, scale=scale, causal=causal,
+                                 window=window)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: one launch.  Backward: no kernel — the dense plain version
+    recomputed from q, k, v and differentiated by autograd, the JAX
+    package's own design (``ops._flash_bwd`` takes the VJP of
+    ``ref.flash_attn_ref``), not a fallback."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, window):
+        ctx.attn = (scale, causal, window)
+        ctx.save_for_backward(q, k, v)
+        return _flash_fwd(q, k, v, scale, causal, window)
+
+    @staticmethod
+    def backward(ctx, do):
+        scale, causal, window = ctx.attn
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            o = _fak.flash_attn_dense(*qkv, scale=scale, causal=causal,
+                                      window=window)
+            grads = iter(torch.autograd.grad(
+                o, [t for t in qkv if t.requires_grad], do))
+        return (*(next(grads) if n else None for n in need), None, None,
+                None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float, causal: bool = True, window: int = 0,
+                    block_q: int = 512, block_k: int = 512) -> torch.Tensor:
+    """Flash attention forward in one kernel (JAX: ``ops.flash_attention``,
+    whose ``interpret`` switch has no meaning here).  q (B, H, Sq, dh), k
+    and v (B, Hkv, Sk, dh), one dtype, f32 or bf16, H a multiple of Hkv →
+    o (B, H, Sq, dh) in q's dtype: ``softmax(scale·q kᵀ, masked)·v`` with
+    positions from 0 on both axes, ``causal`` keeping q_pos ≥ k_pos and a
+    ``window`` > 0 keeping q_pos − k_pos < window.  Differentiable: the
+    backward recomputes through ``flash_attn_dense`` (no backward kernel,
+    as in JAX).  ``block_q`` and ``block_k`` are the TPU's tiles; they are
+    accepted and do not change the result (the kernel picks its own)."""
+    window = int(window or 0)
+    if _wants_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, scale, causal, window)
+    return _flash_fwd(q, k, v, scale, causal, window)
+
+
+# --------------------------------------------------------------------- #
+# grouped GEMM                                                          #
+# --------------------------------------------------------------------- #
+
+def moe_gemm(x: torch.Tensor, w: torch.Tensor, block_expert_ids, *,
+             block_t: int = 128, block_d: int = 512,
+             block_f: int = 512) -> torch.Tensor:
+    """Tokens-sorted-by-expert grouped GEMM in one kernel (JAX:
+    ``ops.moe_gemm``): x (T, D), w (E, D, F) of one dtype, f32 or bf16,
+    one expert id per run of ``block_t`` rows → y (T, F) in x's dtype,
+    ``y[t] = x[t]·w[e(t)]`` summed in f32.  T must be block_t-aligned
+    (capacity padding upstream); D and F are taken as they are (JAX pads
+    them to its tiles).  Forward only, as in JAX.  ``block_d`` and
+    ``block_f`` are the TPU's tiles; they are accepted and do not change
+    the result."""
+    ids = _as(block_expert_ids, x.device, torch.int32)
+    if _on_card(x):
+        return _moek.moe_gemm_cuda(x.contiguous(), w.contiguous(), ids,
+                                   block_t=block_t)
+    _moek.check_shapes(x, w, ids, block_t)
+    _moek.launches += 1
+    return _moek.moe_gemm_dense(x, w, ids, block_t=block_t)

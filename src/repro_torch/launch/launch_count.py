@@ -2,8 +2,8 @@
 
 Each kernel wrapper (``kernels/fused_input.py``, ``fused_layer.py``,
 ``infer_head.py``, ``loss_head.py``, ``block_diag.py``, ``seg_act.py``,
-``m3_matmul.py``)
-keeps plain integer counters that it raises by one where it launches a
+``m3_matmul.py``, ``flash_attn.py``, ``grouped_gemm.py``) keeps plain integer
+counters that it raises by one where it launches a
 CUDA kernel; on a CPU tensor the dispatch layer (``kernels/ops.py``)
 counts the plain version's calls in the same counter.  So the budgets below are checked the same way on either
 device.  The training forwards (the kernels with g' in their epilogue)
@@ -11,12 +11,15 @@ count under the serving forwards' names: they are the same kernels.  The
 int8 serving kernels count under names of their own (``*_int8``), so a run
 shows which weights it served.  The unfused route's backward dh is the
 forward block-diagonal kernel on transposed tiles, and counts as
-``block_diag_fwd``, as in the JAX package.
+``block_diag_fwd``, as in the JAX package.  ``flash_attention`` counts its
+forwards only: its backward recomputes through the dense plain version and
+launches nothing.
 """
 from __future__ import annotations
 
-from repro_torch.kernels import (block_diag, fused_input, fused_layer,
-                                 infer_head, loss_head, m3_matmul, seg_act)
+from repro_torch.kernels import (block_diag, flash_attn, fused_input,
+                                 fused_layer, grouped_gemm, infer_head,
+                                 loss_head, m3_matmul, seg_act)
 
 # kernel name → (module, counter attribute)
 _COUNTERS = {
@@ -37,6 +40,8 @@ _COUNTERS = {
     "m3_matmul_fwd": (m3_matmul, "fwd_launches"),
     "m3_matmul_dh": (m3_matmul, "dh_launches"),
     "m3_matmul_dw": (m3_matmul, "dw_launches"),
+    "flash_attention": (flash_attn, "launches"),
+    "moe_gemm": (grouped_gemm, "launches"),
 }
 
 

@@ -12,6 +12,7 @@ Tolerance: rtol 1e-4 / atol 1e-5 — f32 throughout, the kernels sum in a
 different order than the plain versions (FMA chains over shared-memory
 tiles and warp shuffles against cuBLAS), full float32 matmuls (TF32 off).
 """
+
 import numpy as np
 import pytest
 import torch
@@ -672,3 +673,112 @@ def test_m3_matmul_empty_member_and_autograd_on_card(dev):
         m3k.m3_matmul_dh_cuda(torch.randn(5, 3, 3, device=dev), w2,
                               torch.zeros(3, dtype=torch.int32, device=dev),
                               block=129)
+
+
+# flash attention and the grouped GEMM take f32 or bf16: f32 at the file's
+# tolerance; bf16 attention per element: the kernel rounds each p to bf16
+# (unit roundoff 2^-8) before the PV product, which moves an output by at
+# most 2^-8 times the attention of |v|, and each side rounds o to bf16 once
+# (rtol 1e-2); the grouped GEMM at 1e-2 (both round the same f32 sums to
+# bf16 once; a sum order apart, a value may round to the neighbouring bf16)
+_FLASH_BF16_RTOL = 1e-2
+_MOE_BF16_TOL = 1e-2
+_FLASH_GRID = [
+    (2, 4, 2, 64, 64, 16, True, 0),       # GQA causal
+    (1, 2, 2, 48, 80, 8, True, 0),         # Sq != Sk
+    (2, 4, 1, 64, 64, 16, True, 24),       # MQA + sliding window
+    (1, 3, 3, 33, 65, 16, False, 0),       # non-causal, ragged
+    (1, 8, 2, 128, 128, 32, True, 0),      # wider heads
+    (1, 4, 2, 200, 150, 120, True, 40),    # dh 120 (h2o-danube-3-4b)
+    (1, 2, 1, 40, 20, 8, True, 4),         # fully masked rows 23-39
+    (1, 2, 1, 40, 20, 8, False, 4),
+    (1, 2, 2, 130, 300, 128, False, 0),    # dh 128, several k tiles
+]
+
+
+def _close_tol(got, want, tol):
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,sq,sk,dh,causal,window", _FLASH_GRID)
+def test_flash_attention_matches_dense(dev, dtype, b, h, hkv, sq, sk, dh,
+                                       causal, window):
+    from repro_torch.kernels import flash_attn as fak
+    rng = np.random.default_rng(sq * sk + dh)
+    q = _t(rng.normal(0, 1, (b, h, sq, dh)), dev).to(dtype)
+    k = _t(rng.normal(0, 1, (b, hkv, sk, dh)), dev).to(dtype)
+    v = _t(rng.normal(0, 1, (b, hkv, sk, dh)), dev).to(dtype)
+    scale = dh ** -0.5
+    n0 = fak.launches
+    got = ops.flash_attention(q, k, v, scale, causal, window)
+    assert fak.launches == n0 + 1 and got.dtype == dtype
+    want = fak.flash_attn_dense(q, k, v, scale=scale, causal=causal,
+                                window=window)
+    if dtype == torch.float32:
+        _close(got, want)
+        return
+    kw = dict(scale=scale, causal=causal, window=window)
+    atol = fak.flash_attn_dense(q.float(), k.float(), v.float().abs(), **kw)
+    err = (got.float() - want.float()).abs()
+    allowed = atol * 2.0 ** -8 + ATOL + _FLASH_BF16_RTOL * want.float().abs()
+    assert bool((err <= allowed).all()), \
+        f"max |err| {err.max().item()}, {(err / allowed).max().item()} of " \
+        "the per-element tolerance"
+
+
+@pytest.mark.parametrize("model_layout", [False, True])
+def test_flash_attention_gradients_on_card(dev, model_layout):
+    """One launch forward, none backward; the gradients are autograd of the
+    dense version, on the card as on the CPU.  ``model_layout``: the leaves
+    are (B, S, heads, dh) and attend as transposed (B, heads, S, dh)
+    views."""
+    from repro_torch.kernels import flash_attn as fak
+    rng = np.random.default_rng(5)
+    arrs = [rng.normal(0, 1, s) for s in ((2, 4, 48, 16), (2, 2, 56, 16),
+                                          (2, 2, 56, 16))]
+    if model_layout:
+        arrs = [a.transpose(0, 2, 1, 3) for a in arrs]
+
+    def attend(leaves):
+        if model_layout:
+            leaves = [t.transpose(1, 2) for t in leaves]
+        o = ops.flash_attention(*leaves, 0.25, True, 9)
+        (o ** 2).sum().backward()
+        return o.detach()
+
+    dev_in = [_t(a, dev).requires_grad_() for a in arrs]
+    cpu_in = [_t(a, "cpu").requires_grad_() for a in arrs]
+    n0 = fak.launches
+    o = attend(dev_in)
+    assert fak.launches == n0 + 1
+    _close(o, attend(cpu_in))
+    for a, c in zip(dev_in, cpu_in):
+        _close(a.grad, c.grad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("e,d,f,block_t,runs", [
+    (2, 16, 24, 8, (1, 3)), (4, 32, 16, 8, (2, 1, 1, 3)),
+    (1, 8, 8, 8, (2,)), (3, 40, 1408, 64, (1, 0, 2)),
+    (4, 136, 72, 128, (0, 2, 1, 0))])
+def test_moe_gemm_matches_dense(dev, dtype, e, d, f, block_t, runs):
+    from repro_torch.kernels import grouped_gemm as moek
+    rng = np.random.default_rng(d * f)
+    eids = np.repeat(np.arange(e, dtype=np.int32), runs)
+    t = int(eids.size) * block_t
+    x = _t(rng.normal(0, 1, (t, d)), dev).to(dtype)
+    w = _t(rng.normal(0, 1, (e, d, f)), dev).to(dtype)
+    n0 = moek.launches
+    got = ops.moe_gemm(x, w, eids, block_t=block_t)
+    assert moek.launches == n0 + 1 and got.dtype == dtype
+    want = moek.moe_gemm_dense(x, w, _t(eids, dev, torch.int32),
+                               block_t=block_t)
+    if dtype == torch.float32:
+        _close(got, want)
+    else:
+        _close_tol(got, want, _MOE_BF16_TOL)
+    with pytest.raises(ValueError):
+        ops.moe_gemm(x[:-1], w, eids, block_t=block_t)

@@ -195,4 +195,5 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.core.tree", "repro_torch.kernels.loss_head",
             "repro_torch.optim.optimizers", "repro_torch.launch.train",
             "repro_torch.distributed.fault_tolerance",
-            "repro_torch.configs"} <= set(mods)
+            "repro_torch.configs", "repro_torch.kernels.flash_attn",
+            "repro_torch.kernels.grouped_gemm"} <= set(mods)

@@ -133,7 +133,8 @@ def test_fused_step_is_two_depth_plus_one_launches(np_params, batches):
         "loss_head_bwd": 1, "fused_input_int8": 0, "fused_layer_int8": 0,
         "infer_head_int8": 0, "block_diag_fwd": 0, "block_diag_dw": 0,
         "seg_act": 0, "seg_act_bwd": 0, "m3_matmul_fwd": 0,
-        "m3_matmul_dh": 0, "m3_matmul_dw": 0}
+        "m3_matmul_dh": 0, "m3_matmul_dw": 0, "flash_attention": 0,
+        "moe_gemm": 0}
     assert launch_count.fused_step_budget(3) == {"fwd": 4, "bwd": 4,
                                                  "total": 8}
 
