@@ -86,8 +86,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      deepseek-moe-16b's two expert projections (64 experts, D 2048, F 1408)
      over the capacity buffer of 4096 tokens top-6 (512 rows an expert,
      T = 32,768) in f32 and bf16, and both over a seeded top-6 routing with
-     every expert's run padded to 128 rows, some empty.  Exactly one launch
-     a forward, none in the backward; the outputs finite and against the
+     every expert's run padded to 128 rows, some empty (f32; the up
+     projection in bf16 too).  Exactly one launch a forward, none in the
+     backward (4 flash, 7 grouped-GEMM launches), every bf16 launch on the
+     tensor-core design and every f32 one on the FMA design (each
+     wrapper's ``kernel_path``, and the kernel ``torch.profiler`` saw
+     launched); the outputs finite and against the
      plain versions (attention: the dense oracle, f32 at rtol 1e-4 / atol
      1e-5, bf16 at rtol 1e-2 and a per-element atol of 2^-8 times the
      attention of |v|, the most that rounding p to bf16 can move an
@@ -107,7 +111,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
      ``seg_act_bwd`` have none, and say why; the two rows of phase 6 carry
-     their bf16 runs as ``bf16_*`` fields), then the card's line
+     their bf16 runs as ``bf16_*`` fields, each run's design as ``*path``
+     and the tensor-core kernels' ptxas report as ``ptxas``), then the
+     card's line
      ``{"ok": true, "device": {...}}`` last.
 """
 import gc
@@ -896,9 +902,14 @@ def lm_path(inp):
     one flash launch, the backward none; that forward takes the model
     layout's transposed views); h2o-danube-3-4b's windowed bf16
     forward; deepseek-moe-16b's two projections over the capacity buffer in
-    f32 and bf16, then both over the ragged routing (one launch each).
-    Returns (outputs, the phase's kernel launches)."""
+    f32 and bf16, then both over the ragged routing and the up projection
+    again in bf16 (one launch each; every bf16 launch on the tensor cores,
+    every f32 one on the FMA units: by each wrapper's ``kernel_path``, and
+    by the name of the kernel ``torch.profiler`` saw run).  Returns
+    (outputs, the phase's kernel launches, {output: the design that ran}).
+    """
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attn as fak
     from repro_torch.kernels import ops
@@ -906,12 +917,22 @@ def lm_path(inp):
                                                  reset_kernel_launches)
     from repro_torch.kernels import grouped_gemm as moek
 
-    def once(counter, fn):
+    wants = []
+
+    def once(key, counter, fn, d=None):
+        """``fn``'s one launch, its output ``key``; ``d``: a projection's
+        input width."""
         mod = fak if counter == "flash" else moek
         n0 = mod.launches
         out = fn()
-        _require(mod.launches == n0 + 1, f"{counter}: a forward launched "
+        want = "wgmma" if out.dtype == torch.bfloat16 else "fma"
+        path = (fak.kernel_path(out.dtype, out.shape[-1]) if mod is fak else
+                moek.kernel_path(out.dtype, d, out.shape[-1], bt))
+        _require(path == want, f"{key}: a {out.dtype} forward took the "
+                 f"{path} design, expected {want}")
+        _require(mod.launches == n0 + 1, f"{key}: a forward launched "
                  f"{mod.launches - n0} kernels, expected 1")
+        wants.append((key, counter, want))
         return out
 
     q, k, v = inp["qwen3"]
@@ -922,51 +943,88 @@ def lm_path(inp):
     qd, kd, vd = inp["danube"]
     mo = inp["moe"]
     bt = MOE["block_t"]
-    torch.cuda.synchronize()
-    reset_kernel_launches()
-    t0 = time.perf_counter()
-    out = {"qwen3_f32": once("flash", lambda: ops.flash_attention(
-        q, k, v, sc, True, 0)),
-        "qwen3_bf16": once("flash", lambda: ops.flash_attention(
-            *qkv16, sc, True, 0))}
-    # the model's layout: leaves (B, S, heads, dh), attended as strided
-    # (B, heads, S, dh) views
-    leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_()
-              for t in (q, k, v)]
-    o = once("flash", lambda: ops.flash_attention(
-        *(t.transpose(1, 2) for t in leaves), sc, True, 0))
-    n_fwd = fak.launches
-    o.backward(do)
-    torch.cuda.synchronize()
-    _require(fak.launches == n_fwd, "flash_attention: the backward "
-             f"launched {fak.launches - n_fwd} flash kernels, expected 0")
-    out["qwen3_grads"] = [t.grad.transpose(1, 2) for t in leaves]
-    out["qwen3_grad_out"] = o.detach()
-    out["danube_bf16"] = once("flash", lambda: ops.flash_attention(
-        qd, kd, vd, DANUBE["dh"] ** -0.5, True, DANUBE["window"]))
-    for proj in ("up", "down"):
-        x, w = mo[proj]
-        out[f"moe_{proj}_f32"] = once("moe", lambda: ops.moe_gemm(
-            x, w, mo["ids"], block_t=bt))
-        out[f"moe_{proj}_bf16"] = once("moe", lambda: ops.moe_gemm(
-            x.bfloat16(), w.bfloat16(), mo["ids"], block_t=bt))
     rg = mo["ragged"]
-    out["moe_ragged_up"] = once("moe", lambda: ops.moe_gemm(
-        rg["x"], mo["up"][1], rg["ids"], block_t=bt))
-    out["moe_ragged_down"] = once("moe", lambda: ops.moe_gemm(
-        out["moe_ragged_up"], mo["down"][1], rg["ids"], block_t=bt))
+    d_up, d_down = MOE["d"], MOE["f"]
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    n = {k_: v_ for k_, v_ in kernel_launches().items() if v_}
-    _require(n == {"flash_attention": 4, "moe_gemm": 6},
-             f"the kernel API phase launched {n}, expected 4 flash and 6 "
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        out = {"qwen3_f32": once("qwen3_f32", "flash",
+                                 lambda: ops.flash_attention(
+                                     q, k, v, sc, True, 0)),
+               "qwen3_bf16": once("qwen3_bf16", "flash",
+                                  lambda: ops.flash_attention(
+                                      *qkv16, sc, True, 0))}
+        # the model's layout: leaves (B, S, heads, dh), attended as strided
+        # (B, heads, S, dh) views
+        leaves = [t.detach().transpose(1, 2).contiguous().requires_grad_()
+                  for t in (q, k, v)]
+        o = once("qwen3_grad_out", "flash", lambda: ops.flash_attention(
+            *(t.transpose(1, 2) for t in leaves), sc, True, 0))
+        n_fwd = fak.launches
+        o.backward(do)
+        torch.cuda.synchronize()
+        _require(fak.launches == n_fwd, "flash_attention: the backward "
+                 f"launched {fak.launches - n_fwd} flash kernels, expected 0")
+        out["qwen3_grads"] = [t.grad.transpose(1, 2) for t in leaves]
+        out["qwen3_grad_out"] = o.detach()
+        out["danube_bf16"] = once("danube_bf16", "flash",
+                                  lambda: ops.flash_attention(
+                                      qd, kd, vd, DANUBE["dh"] ** -0.5, True,
+                                      DANUBE["window"]))
+        for proj in ("up", "down"):
+            x, w = mo[proj]
+            key = f"moe_{proj}"
+            out[f"{key}_f32"] = once(f"{key}_f32", "moe", lambda: ops.moe_gemm(
+                x, w, mo["ids"], block_t=bt), x.shape[1])
+            out[f"{key}_bf16"] = once(f"{key}_bf16", "moe",
+                                      lambda: ops.moe_gemm(
+                                          x.bfloat16(), w.bfloat16(),
+                                          mo["ids"], block_t=bt), x.shape[1])
+        out["moe_ragged_up"] = once("moe_ragged_up", "moe",
+                                    lambda: ops.moe_gemm(
+                                        rg["x"], mo["up"][1], rg["ids"],
+                                        block_t=bt), d_up)
+        out["moe_ragged_down"] = once("moe_ragged_down", "moe",
+                                      lambda: ops.moe_gemm(
+                                          out["moe_ragged_up"], mo["down"][1],
+                                          rg["ids"], block_t=bt), d_down)
+        out["moe_ragged_up_bf16"] = once(
+            "moe_ragged_up_bf16", "moe", lambda: ops.moe_gemm(
+                rg["x"].bfloat16(), mo["up"][1].bfloat16(), rg["ids"],
+                block_t=bt), d_up)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = {k_: v_ for k_, v_ in kernel_launches().items() if v_}
+    _require(n == {"flash_attention": 4, "moe_gemm": 7},
+             f"the kernel API phase launched {n}, expected 4 flash and 7 "
              "grouped-GEMM launches and nothing else")
+    # which kernels the card ran, in launch order, against each launch's
+    # design: the tensor-core kernels are the *wgmma_kernel entries
+    ran = [e.name for e in sorted(prof.events(),
+                                  key=lambda e: e.time_range.start)
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and ("flash_attn" in e.name or "moe_gemm" in e.name)]
+    _require(len(ran) == len(wants), f"the profiler saw {len(ran)} kernel "
+             f"API launches, expected {len(wants)}: {ran}")
+    designs = {}
+    for (key, counter, want), name in zip(wants, ran):
+        got = "wgmma" if "wgmma_kernel" in name else "fma"
+        _require(got == want and ("flash_attn" if counter == "flash"
+                                  else "moe_gemm") in name,
+                 f"{key}: the card ran {name!r}, expected the {counter} "
+                 f"kernel's {want} design")
+        designs[key] = got
+    print("[lm kernels] kernels the card ran: "
+          f"{[n.removeprefix('void ').rsplit('(', 1)[0] for n in ran]}",
+          flush=True)
     print(f"[lm kernels] phase in {wall:.2f} s; launches {n}; ragged "
           f"routing: {len(rg['counts'])} experts, runs {min(rg['counts'])}"
           f"-{max(rg['counts'])} tokens, "
           f"{sum(c == 0 for c in rg['counts'])} empty, T = "
           f"{rg['x'].shape[0]}", flush=True)
-    return out, n
+    return out, n, designs
 
 
 def _by_head_group(fn, q, k, v, **kw):
@@ -1094,6 +1152,10 @@ def check_lm_outputs(inp, out):
                moek.moe_gemm_dense(out["moe_ragged_up"], mo["down"][1],
                                    rg["ids"], block_t=MOE["block_t"]),
                MOE_F32_TOL))
+    errs["moe_ragged_up_bf16"] = _close(
+        "moe ragged up bf16", out["moe_ragged_up_bf16"],
+        moek.moe_gemm_dense(rg["x"].bfloat16(), mo["up"][1].bfloat16(),
+                            rg["ids"], block_t=MOE["block_t"]), MOE_BF16_TOL)
     print(f"[lm kernels] max|err| against the plain versions: {errs}",
           flush=True)
     return errs
@@ -1102,11 +1164,44 @@ def check_lm_outputs(inp, out):
 def _prefixed(prefix: str, row: dict) -> dict:
     keys = ("max_abs_err", "rtol", "atol", "atol_per_element", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "library_none")
+            "library_none", "path")
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
 
-def lm_rows(inp, lm_n):
+def _ptxas(lib: str) -> dict:
+    """The report of ``nvcc -Xptxas -v`` in ``build/kernels/<lib>.log``,
+    printed: {kernel: registers, static shared-memory bytes, spill bytes},
+    each kernel named as ``c++filt`` demangles it, without its
+    parameters."""
+    import re
+    import shutil
+
+    from repro_torch.kernels import _build
+    out, cur = {}, None
+    for line in (_build.BUILD_DIR / f"{lib}.log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            cur = out.setdefault(m[1], {})
+        elif m := re.search(r"Function properties for (\w+)", line):
+            cur = out.get(m[1])
+        elif cur is not None and "spill" in line:
+            cur["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        elif cur is not None and (m := re.search(r"Used (\d+) reg", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m[1]), smem_bytes=int(smem[1]) if smem
+                       else 0)
+    syms, tool = list(out), shutil.which("c++filt")
+    names = syms if not (tool and syms) else [
+        d.removeprefix("void ").rsplit("(", 1)[0] for d in subprocess.run(
+            [tool, *syms], check=True, capture_output=True, text=True,
+            timeout=60).stdout.splitlines()]
+    out = dict(zip(names, out.values()))
+    for name, report in out.items():
+        print(f"  ptxas {lib}: {name} {report}", flush=True)
+    return out
+
+
+def lm_rows(inp, lm_n, designs, ptxas):
     """The two rows of the kernel API: ``flash_attention`` at qwen3-1.7b's
     shape in f32 (library: ``scaled_dot_product_attention`` with
     ``is_causal`` and ``enable_gqa``), its bf16 times beside them
@@ -1116,7 +1211,12 @@ def lm_rows(inp, lm_n):
     deepseek-moe-16b projections over the capacity buffer summed, f32
     (library: ``torch.bmm`` on the (64, 512, D) buffer, the einsum of
     ``nn/ffn.py::_expert_ffn``), bf16 beside it, and the ragged routing's
-    up projection (``ragged_*``)."""
+    up projection in f32 (``ragged_*``) and bf16 (``ragged_bf16_*``).
+    Each run carries the design phase 6 saw the same shape and dtype run
+    (``*path``: ``designs``, from ``lm_path``), and each row the ptxas
+    report of its library's kernels (``ptxas``, from ``_ptxas``).  The
+    ragged rows' library call is ``torch._grouped_mm`` over the runs where
+    this PyTorch has it and it matches the plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -1124,14 +1224,15 @@ def lm_rows(inp, lm_n):
     from repro_torch.kernels import grouped_gemm as moek
     sdpa = F.scaled_dot_product_attention
 
-    def flash_row(qkv, causal, window, tol, peak, plain, library, iters):
+    def flash_row(qkv, causal, window, tol, peak, plain, library, iters,
+                  path):
         q = qkv[0]
         sc = q.shape[-1] ** -0.5
         n_pairs = _pairs(q.shape[2], qkv[1].shape[2], causal, window)
         if tol is None:
             tol = _flash_bf16_tol(plain, *qkv, scale=sc, causal=causal,
                                   window=window)
-        return compare(
+        row = compare(
             "flash_attention",
             partial(fak.flash_attention_cuda, *qkv, scale=sc, causal=causal,
                     window=window),
@@ -1139,19 +1240,21 @@ def lm_rows(inp, lm_n):
             library, _nbytes(*qkv, q),
             4 * q.shape[0] * q.shape[1] * q.shape[3] * n_pairs,
             lm_n["flash_attention"], iters, tol, peak)
+        row["path"] = path
+        return row
 
     q, k, v = inp["qwen3"]
     sc = QWEN3["dh"] ** -0.5
     row = flash_row((q, k, v), True, 0, (RTOL, ATOL), F32_FLOP_PER_S,
                     fak.flash_attn_dense,
                     lambda: sdpa(q, k, v, is_causal=True, scale=sc,
-                                 enable_gqa=True), 5)
+                                 enable_gqa=True), 5, designs["qwen3_f32"])
     q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
     row.update(_prefixed("bf16", flash_row(
         (q16, k16, v16), True, 0, None, BF16_FLOP_PER_S,
         fak.flash_attn_dense,
         lambda: sdpa(q16, k16, v16, is_causal=True, scale=sc,
-                     enable_gqa=True), 5)))
+                     enable_gqa=True), 5, designs["qwen3_bf16"])))
     del q16, k16, v16
     qd, kd, vd = inp["danube"]
     sd = DANUBE["dh"] ** -0.5
@@ -1161,19 +1264,45 @@ def lm_rows(inp, lm_n):
         (qd, kd, vd), True, DANUBE["window"], None,
         BF16_FLOP_PER_S, partial(_by_head_group, fak.flash_attn_dense),
         lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sd, enable_gqa=True),
-        3)))
+        3, designs["danube_bf16"])))
+    row["ptxas"] = ptxas["flash_attn"]
     rows = {"flash_attention": row}
 
     mo, bt = inp["moe"], MOE["block_t"]
     e, cap = MOE["experts"], MOE["capacity"]
 
-    def moe_row(x, w, ids, tol, peak, library, iters=5):
-        return compare(
+    def moe_row(x, w, ids, tol, peak, library, path, iters=5):
+        # bytes: x and ids read, y written, and the weights of the experts
+        # that ids names (an expert with no run is never read)
+        used = w[:1].numel() * w.element_size() * int(
+            ids[(ids >= 0) & (ids < w.shape[0])].unique().numel())
+        row = compare(
             "moe_gemm", partial(moek.moe_gemm_cuda, x, w, ids, block_t=bt),
             partial(moek.moe_gemm_dense, x, w, ids, block_t=bt), library,
-            _nbytes(x, w) + x.shape[0] * w.shape[2] * x.element_size(),
+            _nbytes(x, ids) + used + x.shape[0] * w.shape[2]
+            * x.element_size(),
             2 * x.shape[0] * x.shape[1] * w.shape[2], lm_n["moe_gemm"],
             iters, tol, peak)
+        row["path"] = path
+        return row
+
+    def grouped_mm(x, w, ids, tol):
+        """``torch._grouped_mm`` over the runs (expert e's rows end at
+        offs[e]; the runs are in expert order), or why it cannot stand as
+        the library call."""
+        if not hasattr(torch, "_grouped_mm"):
+            return "ragged runs: this PyTorch has no torch._grouped_mm"
+        _require(bool((ids[1:] >= ids[:-1]).all()), "ragged runs out of "
+                 "expert order")
+        runs = torch.bincount(ids.long(), minlength=w.shape[0])
+        offs = torch.cumsum(runs * bt, 0).to(torch.int32)
+        fn = partial(torch._grouped_mm, x, w, offs=offs)
+        try:
+            _close(f"torch._grouped_mm {x.dtype}", fn(),
+                   moek.moe_gemm_dense(x, w, ids, block_t=bt), tol)
+        except RuntimeError as err:
+            return f"ragged runs: torch._grouped_mm: {err}"[:200]
+        return fn
 
     def projections(dt, tol, peak):
         out = []
@@ -1182,18 +1311,25 @@ def lm_rows(inp, lm_n):
             if dt is not None:
                 x, w = x.to(dt), w.to(dt)
             xb = x.view(e, cap, x.shape[1])
+            key = f"moe_{proj}_{'bf16' if dt else 'f32'}"
             out.append(moe_row(x, w, mo["ids"], tol, peak,
-                               partial(torch.bmm, xb, w)))
+                               partial(torch.bmm, xb, w), designs[key]))
         return _sum_rows(out)
 
     row = projections(None, MOE_F32_TOL, F32_FLOP_PER_S)
     row.update(_prefixed("bf16", projections(torch.bfloat16, MOE_BF16_TOL,
                                              BF16_FLOP_PER_S)))
     rg = mo["ragged"]
-    row.update(_prefixed("ragged", moe_row(
-        rg["x"], mo["up"][1], rg["ids"], MOE_F32_TOL, F32_FLOP_PER_S,
-        "ragged runs: no single PyTorch call")))
+    for prefix, dt, tol, peak in (
+            ("ragged", torch.float32, MOE_F32_TOL, F32_FLOP_PER_S),
+            ("ragged_bf16", torch.bfloat16, MOE_BF16_TOL, BF16_FLOP_PER_S)):
+        x, w = rg["x"].to(dt), mo["up"][1].to(dt)
+        row.update(_prefixed(prefix, moe_row(
+            x, w, rg["ids"], tol, peak, grouped_mm(x, w, rg["ids"], tol),
+            designs["moe_ragged_up" + prefix.removeprefix("ragged")])))
+        del x, w
     row["ragged_counts"] = rg["counts"]
+    row["ptxas"] = ptxas["moe_gemm"]
     rows["moe_gemm"] = row
     return rows
 
@@ -1673,11 +1809,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for name in sorted(libs):
-        for line in (_build.BUILD_DIR / f"{name}.log").read_text() \
-                .splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    ptxas = {name: _ptxas(name) for name in sorted(libs)}
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -1822,7 +1954,7 @@ def main() -> int:
     # 6. the kernel API at LM widths, counted alone; then its outputs
     # against the plain versions
     lm_in = lm_inputs()
-    lm_out, lm_n = lm_path(lm_in)
+    lm_out, lm_n, lm_designs = lm_path(lm_in)
     lm_err = check_lm_outputs(lm_in, lm_out)
     # freed before the population rows, which are timed as before this
     # phase existed; its rows are timed last on the same inputs made anew
@@ -1839,7 +1971,7 @@ def main() -> int:
                        unfused_serve_n, unfused_train_n, m3_n)
     gc.collect()
     torch.cuda.empty_cache()
-    rows.update(lm_rows(lm_inputs(), lm_n))
+    rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas))
     rows = [rows[name] for name in REPLACES if name in rows]
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")

@@ -29,31 +29,55 @@
 //
 // The TPU grid is (B·H, Sq/block_q, Sk/block_k) with the k blocks innermost
 // and (m, l, acc) carried in VMEM scratch from one k step to the next.  A
-// GPU grid has no order, so here one CTA owns one (b·h, 64-row q tile) and
-// walks the 64-column k tiles in order inside itself:
-//   * 256 threads as 16 × 16: thread (ty, tx) holds the scores of rows
-//     4·ty..4·ty+3 and columns tx + 16·c (c < 4), and the output of the
-//     same rows at columns tx + 16·c (c < 8, d < dh), all in registers;
-//   * Q stays in shared memory for the whole walk; K and then V of a tile
-//     take turns in one buffer (row stride dh + 4, so the 16-byte reads of
-//     a quarter-warp hit distinct banks), the tile's p in another;
-//   * a row's max and sum are shuffles across the 16 lanes that hold it;
-//   * a tile that is masked for every row of the CTA is skipped only when
-//     every row of the CTA has a real column somewhere (then the skipped
-//     columns would have added exactly 0); a CTA holding a fully masked row
-//     walks every tile, so that row keeps the oracle's value.
+// GPU grid has no order, so here one CTA owns one (b·h, q tile) and walks
+// the k tiles in order inside itself, (m, l, acc) in f32 registers.  Two
+// designs, one per dtype (flash_attn.kernel_path):
+//
+// * bf16: the tensor cores (FlashAttention-3's shape, made simple).  A CTA
+//   owns 128 q rows: two consumer warpgroups of 64 rows and one producer
+//   warpgroup, of which one thread issues every TMA load.  Q is loaded
+//   once; K and V tiles of 64 columns stream through a ring of STAGES
+//   buffers (one full mbarrier each for K and for V, one empty), by 3-D
+//   maps over (dh, S, B·heads) with 128-byte swizzle, so rows past Sq or Sk
+//   read as zeros and never come from the next head.  dh is padded to DP =
+//   64 or 128 in shared memory (zeros past dh from the same out-of-bounds
+//   fill; dh 128 is two 64-column boxes, the descriptor advanced between
+//   them).  Per tile a consumer warpgroup issues S = Q·Kᵀ as
+//   wgmma.m64n64k16 (both operands K-major in shared memory), applies the
+//   scale, the masks and the online softmax to the accumulator registers
+//   (a row's 64 columns lie in one quad of lanes: max and sum are two
+//   shuffles), rounds p to bf16 pairs in registers — the A operand layout
+//   of the next product — and issues O += P·V as wgmma.m64n{DP}k16 with A
+//   from registers and V MN-major through the transpose bit.  l sums the
+//   unrounded p.  exp(x) is computed as exp2f(x · log2 e).  Only tiles on
+//   the causal diagonal, at the window's edge or past Sk mask per element.
+//   CTAs take the longest causal q tiles first.
+// * f32: the FMA units.  A CTA owns 64 q rows, 256 threads as 16 × 16:
+//   thread (ty, tx) holds the scores of rows 4·ty..4·ty+3 and columns
+//   tx + 16·c (c < 4), and the output of the same rows at columns
+//   tx + 16·c (c < 8, d < dh), all in registers; Q stays in shared memory
+//   for the whole walk; K and then V of a 64-column tile take turns in one
+//   buffer (row stride dh + 4, so the 16-byte reads of a quarter-warp hit
+//   distinct banks), the tile's p in another; a row's max and sum are
+//   shuffles across the 16 lanes that hold it.
+//
+// Both skip a k tile that is masked for every row of the CTA only when
+// every row of the CTA has a real column somewhere (then the skipped
+// columns would have added exactly 0); a CTA holding a fully masked row
+// walks every tile, so that row keeps the oracle's value.
 //
 // What bounds it: operations.  At qwen3-1.7b's training shape (B 2, H 16,
-// S 4096, dh 128, causal) the kernel reads q, k, v and writes o once,
-// 201 MB (0.06 ms at 3.35 TB/s), for 4·dh FLOP per unmasked (q, k) pair,
-// 137 GFLOP (2.05 ms at the f32 rate of 67 TFLOP/s, 0.139 ms at bf16's
-// dense tensor-core 989).  This first kernel runs on the FMA units with
-// shared-memory operands, for both dtypes: tensor cores (wgmma on bf16
-// tiles), a pipelined K/V ring and a larger q tile are left for later.
+// S 4096, dh 128, causal) the kernel reads q, k, v and writes o once (f32
+// 201 MB, 0.06 ms at 3.35 TB/s; bf16 half that) for 4·dh FLOP per
+// unmasked (q, k) pair, 137.4 GFLOP: 0.139 ms at bf16's dense tensor-core
+// 989 TFLOP/s, 2.05 ms at the f32 rate of 67.  At h2o-danube-3-4b's (B 1,
+// S 8192, H 32, Hkv 8, dh 120, window 4096) 386.6 GFLOP, 0.391 ms in bf16.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -72,18 +96,7 @@ __host__ __device__ constexpr size_t smem_floats(int dh) {
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
-__device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) {
-  *p = __float2bfloat16(v);
-}
-// p as the PV product sees it: rounded to v's dtype
-__device__ __forceinline__ float round_as(float v, float) { return v; }
-__device__ __forceinline__ float round_as(float v, __nv_bfloat16) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 // rows × dh elements of T from global (row stride dh) into f32 shared
 // memory (row stride ld), in 16-byte pieces; rows ≥ n_real are zeros
@@ -225,7 +238,7 @@ flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int kp = k0 + tx + 16 * c;
         const float p = kp < Sk ? expf(s[i][c] - m_new) : 0.f;
         psum += p;
-        Ps[(r0 + i) * PS + tx + 16 * c] = round_as(p, T());
+        Ps[(r0 + i) * PS + tx + 16 * c] = p;
       }
       l[i] = l[i] * alpha + row_sum16(psum);
       m[i] = m_new;
@@ -291,6 +304,301 @@ int launch(const T* q, const T* k, const T* v, T* o, int B, int H, int Hkv,
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16 on the tensor cores -------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128;  // q rows per CTA: two consumer warpgroups
+constexpr int BK = 64;   // k columns per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int DP>
+struct Shape {
+  static constexpr int NB = DP / 64;            // 64-column boxes a row
+  static constexpr int STAGES = DP == 128 ? 3 : 4;
+  static constexpr int Q_BOX = BQ * 128;        // bytes of one Q box
+  static constexpr int KV_BOX = BK * 128;       // bytes of one K or V box
+  static constexpr int Q_BYTES = NB * Q_BOX;
+  static constexpr int KV_BYTES = NB * KV_BOX;
+  static constexpr size_t SMEM = 1024 + Q_BYTES +
+                                 (size_t)STAGES * 2 * KV_BYTES +
+                                 (1 + 3 * STAGES) * 8;
+};
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+template <int DP>
+__device__ __forceinline__ void pv(float (&o)[DP / 2], const uint32_t (&a)[4],
+                                   uint64_t db);
+template <>
+__device__ __forceinline__ void pv<64>(float (&o)[32], const uint32_t (&a)[4],
+                                       uint64_t db) {
+  hopper::wgmma_m64n64_rs<1>(o, a, db, 1);
+}
+template <>
+__device__ __forceinline__ void pv<128>(float (&o)[64],
+                                        const uint32_t (&a)[4], uint64_t db) {
+  hopper::wgmma_m64n128_rs<1>(o, a, db, 1);
+}
+
+// grid (B·H, q tiles); 256 consumer threads, then the producer warpgroup
+template <int DP>
+__global__ void __launch_bounds__(384, 1)
+flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                        const __grid_constant__ CUtensorMap kmap,
+                        const __grid_constant__ CUtensorMap vmap,
+                        bf16* __restrict__ o, int H, int Hkv, int Sq, int Sk,
+                        int dh, float scale, int causal, int window) {
+  using namespace hopper;
+  using S_ = Shape<DP>;
+  constexpr int STAGES = S_::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint8_t* Qs = smem;
+  uint8_t* KV = Qs + S_::Q_BYTES;  // stage s: K at 2s, V at 2s + 1
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(
+      KV + (size_t)STAGES * 2 * S_::KV_BYTES);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const int kvh = b * Hkv + h / (H / Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
+  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int n_k = (Sk + BK - 1) / BK;
+  // the k tiles to walk: all of them if some row of the CTA lies past
+  // Sk + window − 2 (a fully masked row: only a window can empty a row);
+  // else only those with a column some row of the CTA attends
+  int kt_lo = 0, kt_hi = n_k;
+  if (window <= 0 || q_last <= Sk + window - 2) {
+    if (causal) kt_hi = min(n_k, q_last / BK + 1);
+    if (window > 0) kt_lo = max(0, q0 - window + 1) / BK;
+  }
+  const int n_iter = kt_hi - kt_lo;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 8);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {  // the producer: one thread issues every load
+    if (threadIdx.x == 256) {
+      mbar_arrive_expect_tx(q_full, S_::Q_BYTES);
+#pragma unroll
+      for (int nb = 0; nb < S_::NB; ++nb)
+        tma_load_3d(Qs + nb * S_::Q_BOX, &qmap, q_full, nb * 64, q0, bh);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % STAGES;
+        const int k0 = (kt_lo + it) * BK;
+        mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+        uint8_t* Ks = KV + (size_t)(2 * s) * S_::KV_BYTES;
+        uint8_t* Vs = Ks + S_::KV_BYTES;
+        mbar_arrive_expect_tx(&k_full[s], S_::KV_BYTES);
+#pragma unroll
+        for (int nb = 0; nb < S_::NB; ++nb)
+          tma_load_3d(Ks + nb * S_::KV_BOX, &kmap, &k_full[s], nb * 64, k0,
+                      kvh);
+        mbar_arrive_expect_tx(&v_full[s], S_::KV_BYTES);
+#pragma unroll
+        for (int nb = 0; nb < S_::NB; ++nb)
+          tma_load_3d(Vs + nb * S_::KV_BOX, &vmap, &v_full[s], nb * 64, k0,
+                      kvh);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int rq0 = q0 + wg * 64;                        // this warpgroup's rows
+  const int qrow = rq0 + (tid / 32) * 16 + lane / 4;   // and qrow + 8
+  float acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % STAGES;
+    const uint32_t ph = (it / STAGES) & 1;
+    const int k0 = (kt_lo + it) * BK;
+    const uint8_t* Ks = KV + (size_t)(2 * s) * S_::KV_BYTES;
+    const uint8_t* Vs = Ks + S_::KV_BYTES;
+
+    // S = Q·Kᵀ over DP / 16 slices of 16
+    float sc[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = 0.f;
+    mbar_wait(&k_full[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      const int nb = ks / 4, kk = ks % 4;
+      const uint64_t da =
+          desc_sw128(Qs + nb * S_::Q_BOX + wg * 64 * 128 + kk * 32, 16, 1024);
+      const uint64_t db = desc_sw128(Ks + nb * S_::KV_BOX + kk * 32, 16, 1024);
+      wgmma_m64n64_ss<0>(sc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // the scale on the f32 dot product; masks where the tile needs them
+    const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > rq0) ||
+                      (window > 0 && rq0 + 63 - k0 >= window);
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int qp = qrow + 8 * i;
+            const int kp = k0 + 8 * j + 2 * (lane % 4) + c;
+            bool ok = true;
+            if (causal) ok = ok && qp >= kp;
+            if (window > 0) ok = ok && qp - kp < window;
+            float& v = sc[4 * j + 2 * i + c];
+            v = kp < Sk ? (ok ? v * scale : NEG_INF)
+                        : -INFINITY;  // past Sk: out of the sums
+          }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] *= scale;
+    }
+
+    // the online softmax of this thread's two rows
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * i], sc[4 * j + 2 * i + 1]));
+      const float m_new = fmaxf(m[i], quad_max(mx));
+      alpha[i] = exp2f((m[i] - m_new) * LOG2E);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& v = sc[4 * j + 2 * i + c];
+          v = exp2f((v - m_new) * LOG2E);
+          sum += v;
+        }
+      l[i] = l[i] * alpha[i] + quad_sum(sum);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      acc[4 * j] *= alpha[0];
+      acc[4 * j + 1] *= alpha[0];
+      acc[4 * j + 2] *= alpha[1];
+      acc[4 * j + 3] *= alpha[1];
+    }
+
+    // p as bf16 A fragments: columns 16kk.. of the tile, in place
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+
+    // O += P·V: V's 16-row slices 2048 bytes apart, its second 64-column
+    // box KV_BOX bytes away
+    mbar_wait(&v_full[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      pv<DP>(acc, pa[kk], desc_sw128(Vs + kk * 2048, S_::KV_BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qp = qrow + 8 * i;
+    if (qp >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    bf16* orow = o + ((size_t)bh * Sq + qp) * dh;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int d = 8 * j + 2 * (lane % 4);
+      if (d < dh)  // dh % 8 == 0: a pair is wholly inside or outside
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            acc[4 * j + 2 * i] * inv, acc[4 * j + 2 * i + 1] * inv);
+    }
+  }
+}
+
+template <int DP>
+int launch_dp(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+              int H, int Hkv, int Sq, int Sk, int dh, float scale, int causal,
+              int window, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  const cuuint64_t row = (cuuint64_t)dh * 2;
+  const cuuint64_t qdims[3] = {(cuuint64_t)dh, (cuuint64_t)Sq,
+                               (cuuint64_t)B * H};
+  const cuuint64_t qstr[2] = {row, row * Sq};
+  const cuuint32_t qbox[3] = {64, BQ, 1};
+  const cuuint64_t kdims[3] = {(cuuint64_t)dh, (cuuint64_t)Sk,
+                               (cuuint64_t)B * Hkv};
+  const cuuint64_t kstr[2] = {row, row * Sk};
+  const cuuint32_t kbox[3] = {64, BK, 1};
+  int rc = hopper::make_map_bf16(&qm, q, 3, qdims, qstr, qbox);
+  if (!rc) rc = hopper::make_map_bf16(&km, k, 3, kdims, kstr, kbox);
+  if (!rc) rc = hopper::make_map_bf16(&vm, v, 3, kdims, kstr, kbox);
+  if (rc) return rc;
+  const size_t smem = Shape<DP>::SMEM;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_wgmma_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * H), (Sq + BQ - 1) / BQ);
+  flash_attn_wgmma_kernel<DP><<<grid, 384, smem, stream>>>(
+      qm, km, vm, o, H, Hkv, Sq, Sk, dh, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+           int H, int Hkv, int Sq, int Sk, int dh, float scale, int causal,
+           int window, void* stream) {
+  if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq < 0 || Sk <= 0 ||
+      dh < 8 || dh > MAX_DH || dh % 8)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return 0;
+  if ((long long)B * H > 65535 || (Sq + BQ - 1) / BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dh <= 64 ? launch_dp<64>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
+                                  causal, window, s)
+                  : launch_dp<128>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
+                                   causal, window, s);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // q (B, H, Sq, dh), k/v (B, Hkv, Sk, dh) f32 → o (B, H, Sq, dh) f32.
@@ -303,13 +611,14 @@ extern "C" int flash_attn_fwd_f32(const float* q, const float* k,
                 stream);
 }
 
-// The same over bf16 q, k, v → o bf16 (f32 running sums).
+// The same over bf16 q, k, v → o bf16 (f32 running sums), on the tensor
+// cores.
 extern "C" int flash_attn_fwd_bf16(const __nv_bfloat16* q,
                                    const __nv_bfloat16* k,
                                    const __nv_bfloat16* v, __nv_bfloat16* o,
                                    int B, int H, int Hkv, int Sq, int Sk,
                                    int dh, float scale, int causal,
                                    int window, void* stream) {
-  return launch(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal, window,
-                stream);
+  return tc::launch(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal, window,
+                    stream);
 }

@@ -8,32 +8,54 @@
 // pallas_call behind repro/kernels/ops.py::moe_gemm (forward only: JAX
 // defines no VJP for it).  x, w and y all f32 (moe_gemm_f32) or all bf16
 // (moe_gemm_bf16); the sum over D runs in f32 in both, and y is rounded to
-// x's dtype once.  D and F are any sizes: the kernel masks the ragged edges
-// (deepseek-moe-16b's F = 1408 is no multiple of the TPU's 512), so nothing
-// is padded in memory.  block_t is a multiple of 8.
+// x's dtype once.  D and F are any sizes: the kernels mask the ragged
+// edges (deepseek-moe-16b's F = 1408 is no multiple of the TPU's 512), so
+// nothing is padded in memory.  block_t is a multiple of 8.  An expert id
+// outside [0, E) gives NaN rows, and its tile is not read.
 //
 // The TPU kernel's grid is (T/block_t, F/block_f, D/block_d) with D
 // innermost, an f32 VMEM accumulator carried across it, and the tile's
 // expert id scalar-prefetched into the W BlockSpec's index map.  Here one
-// CTA owns one (TM-row, 64-column) output tile, reads its expert id from
-// the int32 id tensor on the device, and loops over D itself in chunks of
-// 16: each chunk stages x's (TM × 16) and w's (16 × 64) tiles in shared
-// memory as f32, and 256 threads accumulate RM × CN outputs each in
-// registers (TM = 64 with 4 × 4 per thread when block_t is a multiple of
-// 64, as the MoE layer's 128; else TM = 8 with 1 × 2).  The sum over D has
-// one order inside one CTA: no atomics.  An expert id outside [0, E) gives
-// NaN rows (the tile is not read out of bounds).
+// CTA owns one output tile, reads its expert id from the int32 id tensor
+// on the device, and loops over D itself.  Two designs, chosen by shape,
+// the same rule as grouped_gemm.kernel_path:
 //
-// What bounds it: operations.  At deepseek-moe-16b's widths (64 experts, a
-// capacity buffer of 512 rows each, T = 32,768, D 2048, F 1408) one
-// projection is 2·T·D·F = 189 GFLOP (2.82 ms at the f32 rate of
-// 67 TFLOP/s, 0.191 ms at bf16's dense tensor-core 989) for 1.19 GB of
-// f32 bytes (0.36 ms at 3.35 TB/s).  This first kernel is an FMA tiling
-// for both dtypes; tensor cores (wgmma over TMA-fed bf16 tiles) and larger
-// register tiles are left for later.
+// * bf16 with D % 8 == 0, F % 8 == 0 and block_t % 64 == 0 (every LM
+//   configuration of the JAX package): the tensor cores.  A CTA owns a
+//   (TM × 128) tile, TM = 128 where block_t % 128 == 0 and 64 otherwise, so
+//   the tile lies inside one expert's run.  One producer warpgroup (one
+//   thread) streams x's (TM × 64) K-major tile and w[e]'s (64 × 128)
+//   MN-major tile, as two 64-column boxes, by TMA (a 2-D map over x, a 3-D
+//   map over w, 128-byte swizzle; out-of-bounds D and F read as zeros)
+//   through a ring of STAGES buffers, one full and one empty mbarrier
+//   each.  TM / 64 consumer warpgroups each issue wgmma.m64n128k16 (B
+//   through the transpose bit) over their 64 rows, four per 64-deep chunk,
+//   keeping one chunk's group in flight while the next chunk's loads land;
+//   the sums stay in the f32 accumulators and y is rounded to bf16 once and
+//   stored masked at F.  CTAs walk groups of 512 rows (one expert's
+//   capacity run at deepseek-moe-16b) with the row tile fastest, so w[e]'s
+//   columns are read from HBM about once and from L2 by the group's other
+//   row tiles.  TMA needs 16-byte row strides (D, F multiples of 8) and
+//   wgmma 64-row tiles inside one expert, hence the rule.
+// * every other shape, and f32: an FMA tiling.  A CTA owns a (TM-row,
+//   64-column) tile and loops over D in chunks of 16: each chunk stages x's
+//   (TM × 16) and w's (16 × 64) tiles in shared memory as f32, and 256
+//   threads accumulate RM × CN outputs each in registers (TM = 64 with
+//   4 × 4 a thread when block_t is a multiple of 64; else TM = 8 with
+//   1 × 2).  The sum over D has one order inside one CTA: no atomics.
+//
+// What bounds it: operations, and in bf16 only just.  At deepseek-moe-16b's
+// widths (64 experts, a capacity buffer of 512 rows each, T = 32,768, D
+// 2048, F 1408) one projection is 2·T·D·F = 189 GFLOP: 0.191 ms at bf16's
+// dense tensor-core 989 TFLOP/s, against 0.60 GB of bf16 bytes (x 134 MB,
+// w 369 MB, y 92 MB) in 0.18 ms at 3.35 TB/s; in f32, 2.82 ms at
+// 67 TFLOP/s for 1.19 GB (0.36 ms).
+#include <climits>
 #include <cmath>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -149,6 +171,178 @@ int launch(const T* x, const T* w, const int* eid, T* y, long long Tn, int D,
   return (int)cudaGetLastError();
 }
 
+
+// ---- bf16 on the tensor cores -------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int TN = 128;          // output columns per CTA
+constexpr int KC = 64;           // D per chunk: one 128-byte swizzle span
+constexpr int STAGES = 5;        // chunks in the ring
+constexpr int GROUP_ROWS = 512;  // rows a CTA group walks, row tile fastest
+constexpr int B_HALF = KC * 64 * 2;  // one 64-column box of w's tile
+
+__host__ __device__ constexpr int stage_bytes(int nc) {
+  return nc * 64 * KC * 2 + 2 * B_HALF;
+}
+__host__ __device__ constexpr size_t smem_bytes(int nc) {
+  return 1024 + (size_t)STAGES * stage_bytes(nc) + 2 * STAGES * 8;
+}
+
+// NC consumer warpgroups, TM = 64·NC rows; one producer warpgroup after them
+template <int NC>
+__global__ void __launch_bounds__((NC + 1) * 128, 1)
+moe_gemm_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const int* __restrict__ eid, bf16* __restrict__ y,
+                      int D, int F, int E, int block_t, int n_t, int n_f) {
+  using namespace hopper;
+  constexpr int TM = 64 * NC;
+  constexpr int A_BYTES = TM * KC * 2;
+  constexpr int STAGE = stage_bytes(NC);
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  // this CTA's tile: groups of G row tiles × every column tile, the row
+  // tile fastest inside a group
+  constexpr int G = GROUP_ROWS / TM;
+  const int group = blockIdx.x / (G * n_f);
+  const int first = group * G;
+  const int rows_g = min(G, n_t - first);
+  const int r = blockIdx.x - group * G * n_f;
+  const int t0 = (first + r % rows_g) * TM;
+  const int f0 = (r / rows_g) * TN;
+  const int e = eid[t0 / block_t];  // TM divides block_t: one expert
+  const bool valid = e >= 0 && e < E;
+  const int nk = (D + KC - 1) / KC;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NC * 4);  // lane 0 of every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == NC) {  // the producer: one thread issues every load
+    if (threadIdx.x == NC * 128 && valid) {
+      const bool second = f0 + 64 < F;  // a box wholly past F is not loaded
+      const uint32_t bytes = A_BYTES + (second ? 2 : 1) * B_HALF;
+      for (int kc = 0; kc < nk; ++kc) {
+        const int s = kc % STAGES;
+        mbar_wait(&empty[s], ((kc / STAGES) & 1) ^ 1);
+        uint8_t* st = smem + s * STAGE;
+        mbar_arrive_expect_tx(&full[s], bytes);
+        tma_load_2d(st, &xmap, &full[s], kc * KC, t0);
+        tma_load_3d(st + A_BYTES, &wmap, &full[s], f0, kc * KC, e);
+        if (second)
+          tma_load_3d(st + A_BYTES + B_HALF, &wmap, &full[s], f0 + 64,
+                      kc * KC, e);
+      }
+    }
+    return;
+  }
+
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int row0 = t0 + wg * 64 + (tid / 32) * 16 + lane / 4;
+  if (!valid) {
+    for (int idx = tid; idx < 64 * TN; idx += 128) {
+      const int c = f0 + idx % TN;
+      if (c < F)
+        y[(size_t)(t0 + wg * 64 + idx / TN) * F + c] = __float2bfloat16(NAN);
+    }
+    return;
+  }
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc % STAGES;
+    mbar_wait(&full[s], (kc / STAGES) & 1);
+    const uint8_t* st = smem + s * STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      // A: this warpgroup's 64 rows, 16 deep (32 bytes further per step);
+      // B: 16 rows of w (2048 bytes per step), the second box LBO away
+      const uint64_t da = desc_sw128(st + wg * 64 * 128 + ks * 32, 16, 1024);
+      const uint64_t db = desc_sw128(st + A_BYTES + ks * 2048, B_HALF, 1024);
+      wgmma_m64n128_ss<1>(acc, da, db, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done: free it
+    if (kc > 0 && lane == 0) mbar_arrive(&empty[(kc - 1) % STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int c = f0 + 8 * j + 2 * (lane % 4);
+    if (c < F) {  // F % 8 == 0: a pair is wholly inside or outside
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(y + (size_t)(row0 + 8 * i) * F +
+                                           c) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int NC>
+int launch_nc(const bf16* x, const bf16* w, const int* eid, bf16* y,
+              long long Tn, int D, int F, int E, int block_t,
+              cudaStream_t stream) {
+  constexpr int TM = 64 * NC;
+  const long long n_t = Tn / TM, n_f = (F + TN - 1) / TN;
+  if (n_t * n_f > INT_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap xm, wm;
+  const cuuint64_t xdims[2] = {(cuuint64_t)D, (cuuint64_t)Tn};
+  const cuuint64_t xstr[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t xbox[2] = {KC, TM};
+  const cuuint64_t wdims[3] = {(cuuint64_t)F, (cuuint64_t)D, (cuuint64_t)E};
+  const cuuint64_t wstr[2] = {(cuuint64_t)F * 2, (cuuint64_t)D * F * 2};
+  const cuuint32_t wbox[3] = {64, KC, 1};
+  int rc = hopper::make_map_bf16(&xm, x, 2, xdims, xstr, xbox);
+  if (rc) return rc;
+  rc = hopper::make_map_bf16(&wm, w, 3, wdims, wstr, wbox);
+  if (rc) return rc;
+  const size_t smem = smem_bytes(NC);
+  const cudaError_t err = cudaFuncSetAttribute(
+      moe_gemm_wgmma_kernel<NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  moe_gemm_wgmma_kernel<NC><<<(unsigned)(n_t * n_f), (NC + 1) * 128, smem,
+                              stream>>>(xm, wm, eid, y, D, F, E, block_t,
+                                        (int)n_t, (int)n_f);
+  return (int)cudaGetLastError();
+}
+
+// the shape rule (grouped_gemm.kernel_path): the tensor cores take it
+bool takes(int D, int F, int block_t) {
+  return D % 8 == 0 && F % 8 == 0 && block_t % 64 == 0;
+}
+
+// a shape that takes() holds
+int launch(const bf16* x, const bf16* w, const int* eid, bf16* y,
+           long long Tn, int D, int F, int E, int block_t, void* stream) {
+  if (Tn < 0 || D <= 0 || F <= 0 || E <= 0 || block_t <= 0 || Tn % block_t)
+    return (int)cudaErrorInvalidValue;
+  if (Tn == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return block_t % 128 == 0
+             ? launch_nc<2>(x, w, eid, y, Tn, D, F, E, block_t, s)
+             : launch_nc<1>(x, w, eid, y, Tn, D, F, E, block_t, s);
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // x (T, D), w (E, D, F), eid (T / block_t,) int32 → y (T, F), f32.
@@ -158,9 +352,12 @@ extern "C" int moe_gemm_f32(const float* x, const float* w, const int* eid,
   return launch(x, w, eid, y, T, D, F, E, block_t, stream);
 }
 
-// The same over bf16 x, w → y bf16 (f32 sums).
+// The same over bf16 x, w → y bf16 (f32 sums): on the tensor cores where
+// D % 8 == 0, F % 8 == 0 and block_t % 64 == 0, else the FMA tiling.
 extern "C" int moe_gemm_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
                              const int* eid, __nv_bfloat16* y, long long T,
                              int D, int F, int E, int block_t, void* stream) {
+  if (tc::takes(D, F, block_t))
+    return tc::launch(x, w, eid, y, T, D, F, E, block_t, stream);
   return launch(x, w, eid, y, T, D, F, E, block_t, stream);
 }

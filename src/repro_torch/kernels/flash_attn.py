@@ -6,7 +6,10 @@ query heads.
 kernel ``repro/kernels/flash_attn.py::flash_attention_fwd``): q (B, H, Sq,
 dh), k and v (B, Hkv, Sk, dh) of one dtype, f32 or bf16, H a multiple of
 Hkv → o (B, H, Sq, dh) in q's dtype.  Query head h reads kv head
-h // (H / Hkv); kv is never repeated in memory.
+h // (H / Hkv); kv is never repeated in memory.  ``kernel_path`` names the
+design a launch takes: bf16 runs on the tensor cores (``"wgmma"``: TMA-fed
+K/V tiles, p rounded to bf16 in registers as the A operand of the PV
+product), f32 on the FMA units (``"fma"``).
 
 ``flash_attn_dense`` is the same function in plain PyTorch, the port of
 the JAX package's oracle ``repro/kernels/ref.py::flash_attn_ref``: the
@@ -33,6 +36,18 @@ DTYPES = {torch.float32: "flash_attn_fwd_f32",
           torch.bfloat16: "flash_attn_fwd_bf16"}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def kernel_path(dtype, dh: int) -> str:
+    """The design ``flash_attention_cuda`` launches for heads of width
+    ``dh`` in ``dtype``: ``"wgmma"`` for bf16, ``"fma"`` for f32."""
+    if dtype not in DTYPES:
+        raise TypeError(f"flash_attention takes float32 or bfloat16, not "
+                        f"{dtype}")
+    if dh % 8 or not 8 <= dh <= MAX_DH:
+        raise ValueError(f"flash_attention: head width {dh} is not a "
+                         f"multiple of 8 in [8, {MAX_DH}]")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def attention_mask(sq: int, sk: int, *, causal: bool, window: int,
@@ -88,9 +103,7 @@ def flash_attention_cuda(q, k, v, *, scale: float, causal: bool,
                          ("k", k, q.dtype), ("v", v, q.dtype))
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if dh % 8 or not 8 <= dh <= MAX_DH:
-        raise ValueError(f"flash_attention: head width {dh} is not a "
-                         f"multiple of 8 in [8, {MAX_DH}]")
+    kernel_path(q.dtype, dh)  # raises on a head width no kernel takes
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must start 16-byte "
                          "aligned")

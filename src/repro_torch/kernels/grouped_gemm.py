@@ -5,6 +5,10 @@ and ``moe_gemm_bf16``, the port of the TPU kernel
 ``repro/kernels/moe_gemm.py::moe_gemm``): x (T, D) and w (E, D, F) of one
 dtype, f32 or bf16, and one int32 expert id per run of ``block_t`` rows
 → y (T, F) in x's dtype, ``y[t] = x[t] · w[e(t)]``, summed in f32.
+``kernel_path`` names the design a launch takes, by shape: bf16 with D and F
+multiples of 8 and ``block_t`` a multiple of 64 runs on the tensor cores
+(``"wgmma"``: TMA-fed tiles, f32 accumulators), everything else, f32
+included, on the FMA units (``"fma"``).  The C entry applies the same rule.
 
 ``moe_gemm_dense`` is the same function in plain PyTorch, the port of the
 JAX package's oracle ``repro/kernels/ref.py::moe_gemm_ref`` with
@@ -27,6 +31,19 @@ launches = 0
 DTYPES = {torch.float32: "moe_gemm_f32", torch.bfloat16: "moe_gemm_bf16"}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def kernel_path(dtype, d: int, f: int, block_t: int) -> str:
+    """The design ``moe_gemm_cuda`` launches for x (T, ``d``), w (E, ``d``,
+    ``f``) of ``dtype`` in runs of ``block_t`` rows: ``"wgmma"`` (the tensor
+    cores: TMA needs 16-byte row strides, wgmma 64-row tiles inside one
+    expert's run) or ``"fma"``."""
+    if dtype not in DTYPES:
+        raise TypeError(f"moe_gemm takes float32 or bfloat16, not {dtype}")
+    if dtype == torch.bfloat16 and d % 8 == 0 and f % 8 == 0 \
+            and block_t % 64 == 0:
+        return "wgmma"
+    return "fma"
 
 
 def expand_block_ids(block_ids, block: int) -> np.ndarray:
@@ -69,6 +86,10 @@ def moe_gemm_cuda(x, w, block_expert_ids, *, block_t: int):
                          "8 (the kernel's row tiles)")
     t, d = x.shape
     e, _, f = w.shape
+    if kernel_path(x.dtype, d, f, block_t) == "wgmma" and \
+            (x.data_ptr() % 16 or w.data_ptr() % 16):
+        raise ValueError("moe_gemm: x and w must start 16-byte aligned "
+                         "(the tensor-core path loads them by TMA)")
     fn = _build.function("moe_gemm", DTYPES[x.dtype],
                          [_P] * 4 + [_L] + [_I] * 4 + [_P])
     y = torch.empty(t, f, device=x.device, dtype=x.dtype)

@@ -151,3 +151,19 @@ def test_flash_rejects_bad_operands():
     with pytest.raises(TypeError):
         ops.flash_attention(q, torch.zeros(1, 1, 4, 8, dtype=torch.float64),
                             torch.zeros(1, 1, 4, 8, dtype=torch.float64), 1.0)
+
+
+@pytest.mark.parametrize("dtype,dh,path", [
+    (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.float32, 8, "fma"), (torch.float32, 128, "fma")])
+def test_kernel_path(dtype, dh, path):
+    assert fak.kernel_path(dtype, dh) == path
+
+
+@pytest.mark.parametrize("dtype,dh,err", [
+    (torch.bfloat16, 12, ValueError), (torch.bfloat16, 136, ValueError),
+    (torch.float16, 64, TypeError)])
+def test_kernel_path_rejects_what_no_kernel_takes(dtype, dh, err):
+    with pytest.raises(err):
+        fak.kernel_path(dtype, dh)

@@ -693,6 +693,12 @@ _FLASH_GRID = [
     (1, 2, 1, 40, 20, 8, True, 4),         # fully masked rows 23-39
     (1, 2, 1, 40, 20, 8, False, 4),
     (1, 2, 2, 130, 300, 128, False, 0),    # dh 128, several k tiles
+    # the tensor-core kernel's 128-row q tiles and 64-column k tiles
+    (1, 8, 2, 129, 129, 64, True, 0),      # one row past a q tile, GQA 4
+    (1, 4, 1, 257, 190, 128, True, 0),     # Sq != Sk across both tilings
+    (2, 4, 1, 257, 300, 120, False, 100),  # dh 120, a window, not causal
+    (1, 4, 4, 300, 130, 64, True, 50),     # rows 179-299 fully masked
+    (1, 8, 2, 129, 257, 128, False, 0),    # dh 128 (two boxes), GQA 4
 ]
 
 
@@ -763,7 +769,12 @@ def test_flash_attention_gradients_on_card(dev, model_layout):
 @pytest.mark.parametrize("e,d,f,block_t,runs", [
     (2, 16, 24, 8, (1, 3)), (4, 32, 16, 8, (2, 1, 1, 3)),
     (1, 8, 8, 8, (2,)), (3, 40, 1408, 64, (1, 0, 2)),
-    (4, 136, 72, 128, (0, 2, 1, 0))])
+    (4, 136, 72, 128, (0, 2, 1, 0)),
+    # the tensor-core path's edges: D and F no multiples of its 64 / 128
+    # tiles, block_t 64 beside 128 and 192, empty experts, full widths
+    (3, 40, 24, 64, (2, 0, 1)), (2, 136, 72, 64, (1, 3)),
+    (3, 136, 24, 128, (1, 0, 2)), (2, 64, 200, 192, (1, 1)),
+    (2, 2048, 1408, 128, (2, 1))])
 def test_moe_gemm_matches_dense(dev, dtype, e, d, f, block_t, runs):
     from repro_torch.kernels import grouped_gemm as moek
     rng = np.random.default_rng(d * f)
@@ -782,3 +793,57 @@ def test_moe_gemm_matches_dense(dev, dtype, e, d, f, block_t, runs):
         _close_tol(got, want, _MOE_BF16_TOL)
     with pytest.raises(ValueError):
         ops.moe_gemm(x[:-1], w, eids, block_t=block_t)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("block_t", [8, 64, 128])
+def test_moe_gemm_expert_id_past_e_gives_nan_rows(dev, dtype, block_t):
+    """An expert id equal to E: that run's rows come out NaN (nothing is
+    read out of bounds), the other runs as the dense version."""
+    from repro_torch.kernels import grouped_gemm as moek
+    rng = np.random.default_rng(block_t)
+    e, d, f = 3, 72, 136
+    eids = np.array([0, e, 2, 1], np.int32)
+    x = _t(rng.normal(0, 1, (eids.size * block_t, d)), dev).to(dtype)
+    w = _t(rng.normal(0, 1, (e, d, f)), dev).to(dtype)
+    tensor_cores = dtype == torch.bfloat16 and block_t % 64 == 0
+    assert moek.kernel_path(dtype, d, f, block_t) == \
+        ("wgmma" if tensor_cores else "fma")
+    got = ops.moe_gemm(x, w, eids, block_t=block_t)
+    torch.cuda.synchronize()
+    runs = got.view(eids.size, block_t, f)
+    assert bool(torch.isnan(runs[1]).all())
+    keep = [0, 2, 3]
+    want = moek.moe_gemm_dense(
+        x.view(eids.size, block_t, d)[keep].reshape(-1, d), w,
+        _t(eids[keep], dev, torch.int32), block_t=block_t)
+    if dtype == torch.float32:
+        _close(runs[keep].reshape(-1, f), want)
+    else:
+        _close_tol(runs[keep].reshape(-1, f), want, _MOE_BF16_TOL)
+
+
+def test_bf16_kernels_run_on_the_tensor_cores(dev):
+    """The built libraries' bf16 kernels hold HGMMA (wgmma) in their SASS,
+    and the FMA kernels none: a build without the tensor-core instructions
+    fails here, not only in its speed."""
+    import os
+    import shutil
+    import subprocess
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "",
+                                                     "bin", "cuobjdump")
+    assert os.path.exists(tool), "cuobjdump not found (PATH / CUDA_HOME)"
+    paths = _build.build_all()
+    for lib in ("moe_gemm", "flash_attn"):
+        sass = subprocess.run([tool, "-sass", str(paths[lib])], check=True,
+                              capture_output=True, text=True).stdout
+        funcs = {f.split()[0]: f for f in sass.split("Function : ")[1:]}
+        tc = [name for name in funcs if "wgmma" in name]
+        assert tc, f"{lib}: no tensor-core kernel among {sorted(funcs)}"
+        for name, body in funcs.items():
+            assert ("HGMMA" in body) == (name in tc), \
+                f"{lib}: {name} {'lacks' if name in tc else 'has'} HGMMA"

@@ -82,3 +82,22 @@ def test_misaligned_tokens_raise_in_both_packages(rng):
         ops.moe_gemm(torch.from_numpy(x), torch.from_numpy(w), eids,
                      block_t=8)
     assert moek.launches == n0
+
+
+@pytest.mark.parametrize("dtype,d,f,block_t,path", [
+    (torch.bfloat16, 2048, 1408, 128, "wgmma"),   # deepseek-moe-16b up
+    (torch.bfloat16, 1408, 2048, 64, "wgmma"),    # and down, 64-row runs
+    (torch.bfloat16, 40, 24, 192, "wgmma"),       # ragged D and F edges
+    (torch.bfloat16, 2048, 1408, 8, "fma"),       # runs below a wgmma tile
+    (torch.bfloat16, 2048, 1408, 96, "fma"),
+    (torch.bfloat16, 12, 1408, 128, "fma"),       # rows not 16-byte strided
+    (torch.bfloat16, 2048, 20, 128, "fma"),
+    (torch.float32, 2048, 1408, 128, "fma"),      # f32 keeps the FMA kernel
+])
+def test_kernel_path(dtype, d, f, block_t, path):
+    assert moek.kernel_path(dtype, d, f, block_t) == path
+
+
+def test_kernel_path_rejects_other_dtypes():
+    with pytest.raises(TypeError):
+        moek.kernel_path(torch.float16, 2048, 1408, 128)
