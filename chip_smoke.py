@@ -101,12 +101,19 @@ Phases (any failure exits non-zero, and no result line is printed):
   7. each kernel against its plain PyTorch version on the same inputs at
      the paths' shapes (rtol 1e-4 / atol 1e-5, f32, TF32 off, unless a
      row says otherwise; the M3 kernels at both path 4d's and path 4e's
-     head), and the served forward against the plain route on the card
-     and on the CPU;
+     head; the loss-head kernels at ``parallelmlp-10k``'s and at the
+     depth-3 population's head, block 8), and the served forward against
+     the plain route on the card and on the CPU;
   8. each kernel, its plain version and the nearest library call timed
      with CUDA events; the least time the card could take (bound) from the
      bytes and operations of this run's inputs (f32 at 67 TFLOP/s, bf16 at
-     the tensor cores' 989);
+     the tensor cores' 989); the loss-head rows also carry each kernel's
+     device time from ``torch.profiler`` (``device_ms``: at block 8 the
+     event time is the host's launch time), the design each launch took
+     (``path``, by ``kernel_path``), the depth-3 head as ``depth3_*``, and
+     the fewest PyTorch calls that compute the kernel's whole function,
+     checked against it and timed (``library_full_ms``, named in
+     ``library_full_calls``; ``library_ms`` stays the single call);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -220,6 +227,32 @@ def _time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
+    """Mean device time of one launch of the kernel named ``kernel`` over
+    ``iters`` calls of ``fn``, after warm-up, from ``torch.profiler`` (at a
+    small shape the CUDA-event time of back-to-back calls is the host's
+    time to launch), and the number of launches the profiler saw: late in
+    this script's process it has missed the first ones of a short window,
+    and the mean is over those it saw."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evts = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.name]
+    _require(0 < len(evts) <= iters, f"the profiler saw {len(evts)} "
+             f"{kernel} launches in {iters} calls")
+    return sum(e.device_time_total for e in evts) / len(evts) / 1e3, \
+        len(evts)
 
 
 def _bound_ms(n_bytes: int, flops: int,
@@ -1163,7 +1196,8 @@ def check_lm_outputs(inp, out):
 
 def _prefixed(prefix: str, row: dict) -> dict:
     keys = ("max_abs_err", "rtol", "atol", "atol_per_element", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "device_ms", "device_launches_seen", "plain_ms", "bound_ms",
+            "bound_by", "library_ms",
             "library_none", "path")
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
@@ -1339,17 +1373,19 @@ def lm_rows(inp, lm_n, designs, ptxas):
 # --------------------------------------------------------------------- #
 
 def compare(name, kernel, plain, library, n_bytes, flops, launches, iters,
-            tol=(RTOL, ATOL), peak=F32_FLOP_PER_S):
+            tol=(RTOL, ATOL), peak=F32_FLOP_PER_S, label=None):
     """Hold one kernel against its plain version on the same inputs, and
     time kernel, plain version and library call.  ``kernel``/``plain``
     return a tensor or a tuple of tensors; ``library`` is a callable, or a
     string saying why no single PyTorch call computes the function.
     ``tol``: (rtol, atol) of the comparison; ``peak``: the operand type's
-    peak FLOP/s, for the bound."""
+    peak FLOP/s, for the bound; ``label``: the run's name in the log (the
+    row's name if None)."""
     import torch
+    label = label or name
     got, want = kernel(), plain()
     torch.cuda.synchronize()
-    err = _close(f"{name}: kernel vs plain", got, want, tol)
+    err = _close(f"{label}: kernel vs plain", got, want, tol)
     del got, want
     bound, by = _bound_ms(n_bytes, flops, peak)
     row = {"name": name, "route": "cuda",
@@ -1367,7 +1403,7 @@ def compare(name, kernel, plain, library, n_bytes, flops, launches, iters,
         row["library_none"] = library
     if torch.is_tensor(tol[1]):
         row["atol_per_element"] = True
-    print(f"[{name}] max|err| {err!r}  kernel {row['ms']!r} ms  plain "
+    print(f"[{label}] max|err| {err!r}  kernel {row['ms']!r} ms  plain "
           f"{row['plain_ms']!r} ms  library {row['library_ms']!r} ms  bound "
           f"{bound!r} ms ({by}: {n_bytes} B, {flops} FLOP)", flush=True)
     return row
@@ -1550,6 +1586,17 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         partial(lhk.loss_head_bwd_plain, *lb, block=blk),
         lambda: torch.bmm(dlm, wm), _nbytes(*lb, dh, dw2),
         4 * BATCH * h.shape[1] * w2.shape[0], train_n["loss_head_bwd"], 20)
+    for key, fields in zip(("loss_head_fwd", "loss_head_bwd"),
+                           loss_head_library_full(lh, lb, hb, wb2, wm,
+                                                  (per, dl), (dh, dw2))):
+        rows[key].update(fields)
+    for key, fields in _loss_head_fields(
+            {"loss_head_fwd": partial(lhk.loss_head_fwd_cuda, *lh, block=blk,
+                                      b_real=BATCH),
+             "loss_head_bwd": partial(lhk.loss_head_bwd_cuda, *lb,
+                                      block=blk)},
+            blk, h, w2, dh, dw2).items():
+        rows[key].update(fields)
 
     # ---- the depth-3 population's mid layers, each fed by the layer
     # before it as on the path; a row is one step's worth (both launches)
@@ -1767,7 +1814,107 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     _require(torch.equal(dw_a, m3k.m3_matmul_dw_cuda(
         *cases["m3_matmul_dw"][1], block=blk)),
         "m3_matmul_dw: two launches on the same inputs differ")
+
+    # ---- loss_head at the depth-3 population's head (block 8, members 8
+    # or 16 units wide), on its last hidden layer: extra fields of the two
+    # rows
+    gen_lh = torch.Generator(device="cuda").manual_seed(12)
+    tgt_b = torch.randint(0, o, (BATCH,), generator=gen_lh, device=dev,
+                          dtype=torch.int32)
+    lh_b = (hin, w2_b, p3k["b_out"], tgt_b, ptr_b)
+    blk_b = lp3k.block
+    per_b, dl_b = lhk.loss_head_fwd_cuda(*lh_b, block=blk_b, b_real=BATCH)
+    lb_b = (torch.ones(lp3k.num_members, device=dev), dl_b, hin, w2_b, seg_b)
+    dh_b, dw_b = lhk.loss_head_bwd_cuda(*lb_b, block=blk_b)
+    no_call = ("no single PyTorch call: the members are 8 and 16 units "
+               "wide")
+    kernels = {"loss_head_fwd": partial(lhk.loss_head_fwd_cuda, *lh_b,
+                                        block=blk_b, b_real=BATCH),
+               "loss_head_bwd": partial(lhk.loss_head_bwd_cuda, *lb_b,
+                                        block=blk_b)}
+    plains = {"loss_head_fwd": partial(lhk.loss_head_fwd_plain, *lh_b,
+                                       block=blk_b, b_real=BATCH),
+              "loss_head_bwd": partial(lhk.loss_head_bwd_plain, *lb_b,
+                                       block=blk_b)}
+    work = {"loss_head_fwd": (_nbytes(*lh_b, per_b, dl_b), flops_b),
+            "loss_head_bwd": (_nbytes(*lb_b, dh_b, dw_b), 2 * flops_b)}
+    fields = _loss_head_fields(kernels, blk_b, hin, w2_b, dh_b, dw_b)
+    for key, kernel in kernels.items():
+        row = compare(key, kernel, plains[key], no_call, *work[key], None, 50,
+                      label=f"{key} at the depth-3 head")
+        row.update(fields[key])
+        rows[key].update(_prefixed("depth3", row))
     return rows
+
+
+def _loss_head_fields(kernels, block, h, w2, dh, dw):
+    """Extra fields of the two loss-head rows at one shape, from
+    ``kernels`` {row name: a call of its kernel}: the design each launch
+    took (``kernel_path``; None on a tree whose loss_head module has no
+    such rule: this script also runs on the tree before the kernels'
+    redesign) and the kernel's device time from ``torch.profiler``."""
+    from repro_torch.kernels import loss_head as lhk
+    rule = getattr(lhk, "kernel_path", None)
+    paths = ((None, None) if rule is None
+             else (rule(block, h, w2), rule(block, h, w2, dh, dw)))
+    out = {}
+    for (key, fn), path in zip(kernels.items(), paths):
+        ms, seen = _device_ms(fn, f"{key}_kernel", 50)
+        out[key] = {"path": path, "device_ms": ms,
+                    "device_launches_seen": seen}
+    return out
+
+
+def loss_head_library_full(lh, lb, hb, wb2, wm, fwd_out, bwd_out):
+    """The fewest PyTorch calls that compute each loss-head kernel's whole
+    function at ``parallelmlp-10k``'s shape (every member one width, so
+    batched GEMMs over the members' (P, B, width) views), checked against
+    the kernels' outputs and then timed: fields ``library_full_ms`` and
+    ``library_full_calls`` of each row."""
+    import torch
+    h, w2, b2, tgt, _ = lh
+    dper, dl = lb[0], lb[1]
+    b, hh = h.shape
+    o = w2.shape[0]
+    # the targets' masks, made once, outside the time: (B, O) and (B, 1)
+    t = tgt.long()
+    valid = (t >= 0).float()[:, None]
+    onehot = (torch.arange(o, device=h.device)[None] == t[:, None]).float()
+    nll_w = -onehot * valid / BATCH
+    scale = valid / BATCH
+    neg_onehot = -onehot * scale
+
+    def fwd():
+        z = torch.baddbmm(b2[:, None, :], hb, wb2)          # (P, B, O)
+        ls = torch.log_softmax(z, -1)
+        per = (ls * nll_w).sum((1, 2))
+        return per, torch.addcmul(neg_onehot, ls.exp(),
+                                  scale).transpose(0, 1).contiguous()
+
+    def bwd():
+        g = (dl * dper[None, :, None]).transpose(0, 1)     # (P, B, O)
+        dh = torch.bmm(g, wm).transpose(0, 1).reshape(b, hh)
+        dw = torch.bmm(g.transpose(1, 2), hb).transpose(0, 1).reshape(o, hh)
+        return dh, dw
+
+    mb_a_float = 4e-6
+    calls = (
+        "baddbmm: the (P, B, O) logits; log_softmax; mul + sum: the "
+        "per-member NLL; exp + addcmul: dl; one layout copy, dl to (B, P, "
+        f"O) ({mb_a_float * dl.numel():.2f} MB); the targets' one-hot and "
+        "row masks made once, outside the time",
+        "mul: dl · d_per; bmm: dh as (P, B, width); bmm: dW as (P, O, "
+        f"width); two layout copies, dh to (B, H) ({mb_a_float * b * hh:.2f}"
+        f" MB) and dW to (O, H) ({mb_a_float * o * hh:.2f} MB)")
+    out = []
+    for name, fn, want, what in (("loss_head_fwd", fwd, fwd_out, calls[0]),
+                                 ("loss_head_bwd", bwd, bwd_out, calls[1])):
+        err = _close(f"{name}: library calls vs kernel", fn(), want)
+        out.append({"library_full_ms": _time_ms(fn, 20),
+                    "library_full_calls": what,
+                    "library_full_max_abs_err": err})
+        print(f"[{name}] library, the whole function: {out[-1]}", flush=True)
+    return out
 
 
 def main() -> int:

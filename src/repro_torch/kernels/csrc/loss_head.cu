@@ -16,163 +16,562 @@
 // O ≤ 16.  The bias cotangent d_per ⊙ Σ_b dl stays a plain tensor op
 // outside, as the JAX package leaves it to XLA.
 //
+// What bounds them: bytes.  At the paper's 10,000-member width and B = 32
+// the forward reads h (164 MB) and w2 (10 MB) for 20 MFLOP, the backward
+// reads them again and writes dh (164 MB) and dW (10 MB): 0.053 ms and
+// 0.105 ms at 3.35 TB/s, two orders of magnitude below the FMA units'
+// line.  So the design is about bytes in flight and latency, nothing else:
+//   * every thread owns VW consecutive hidden units (VW = 4: one 16-byte
+//     load or store per row; VW = 1, the scalar instance of the same
+//     code, where a block is not a multiple of 4 or a pointer is not
+//     16-byte aligned: kernel_path() in loss_head.py holds the same rule)
+//     and keeps its w2 columns in registers, loaded once;
+//   * it streams h rows with R of them in flight (R · OT = 16 floats),
+//     and the forward issues the next R rows before it reduces these;
+//   * a CTA is 256 threads in 1, 2, 4 or 8 lanes of rows over one tile of
+//     units, the fewest lanes that still give the grid two CTAs an SM: at
+//     block 128 one lane over 1024 units, at the depth-3 head (H 32,000)
+//     eight over 128, so a narrow layer fills the card without long
+//     serial loops in a few threads;
+//   * what a CTA needs besides h and w2 (its members' starts and biases,
+//     the targets, the blocks' member ids and d_per) is loaded once into
+//     shared memory, and the forward finds its members with a k-ary search
+//     over member_ptr (two rounds at P = 10,000), so no schedule is built
+//     on the host and no loop waits on one global load after another.
 // The TPU forward sums per-member losses into a (1, P) scratch across its
-// whole sequential grid, and the backward accumulates dW over batch tiles
-// in VMEM.  A GPU grid has no order, so every output has exactly one owner
-// CTA that loops privately and writes it once:
-//   * forward: one CTA per member loops over the member's contiguous hidden
-//     range (lanes stride the units, a shuffle finishes the O dot
-//     products) and over every batch row (warps take rows); lane 0 runs the
-//     softmax-XE epilogue on the logits in registers and writes dl; the
-//     member's loss is summed over warps in a fixed order and written once.
-//   * backward, one grid of two roles split by blockIdx: role A, a CTA per
-//     (32-row batch tile, 256-unit hidden tile), writes dh (each thread one
-//     unit, its O weights in registers); role B, a CTA per 256-unit hidden
-//     tile, loops over every batch row for dW.
-// No floating-point atomics: a step is bitwise reproducible.
-//
-// What bounds it: bytes.  At the paper's 10,000-member width and B = 32 the
-// forward reads h (164 MB) and w2 (10 MB) for 20 MFLOP; the backward reads
-// h and w2 again and writes dh (164 MB) and dW (10 MB): about 0.05 ms and
-// 0.1 ms at 3.35 TB/s.  Both kernels stream h once, in rows, coalesced.
-//
-// Left for later: w2 is re-read per batch row in the forward (from L1/L2);
-// a member narrower than 32 units leaves lanes idle; one CTA per member
-// means B rows run on one SM (B = 32 on the training path).
+// sequential grid, and the backward accumulates dW over batch tiles in
+// VMEM.  A GPU grid has no order, so every output has exactly one owner
+// that writes it once, and every sum runs in a fixed order (no
+// floating-point atomics: a step is bitwise reproducible):
+//   * forward: member m belongs to the CTA whose tile holds its first unit
+//     (the last CTA also takes members that start at or past its tile's
+//     end; fwd_cta_members() in loss_head.py is the same rule).  A CTA
+//     walks its members' units a tile at a time (a member wider than a
+//     tile spans several), writes each thread's partial logits to shared
+//     memory, and one thread per (row, member) sums them in unit order;
+//     after the last tile one thread per (row, member) runs the softmax
+//     cross-entropy (expf once a class) and writes dl, consecutive
+//     members' rows side by side, and one thread per member sums its
+//     losses over the rows in order.
+//   * backward, one role: a CTA takes a tile of units (not aligned to
+//     members), stages dl · d_per of the blocks the tile touches in shared
+//     memory, a chunk of rows at a time (dl is read once a block, not once
+//     a unit), then streams h and writes dh row by row while it
+//     accumulates dW in registers; the lanes' dW sums are added in lane
+//     order and written once: one pass over exactly the bound's bytes.
+#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
 constexpr int MAX_O = 16;
-constexpr int BWD_BM = 32;      // batch rows per dh CTA
-constexpr int BWD_BN = THREADS; // hidden units per backward CTA
+constexpr int MAX_THREADS = 256;  // threads a CTA
+constexpr int MAX_LANES = 8;      // row lanes: at least 32 unit slots
+constexpr int FWD_MAX_MEMBERS = 64;     // members a forward CTA holds at once
+constexpr int BWD_STAGE_FLOATS = 8192;  // the backward's dl stage (32 KB)
 
-__global__ void __launch_bounds__(THREADS)
-loss_head_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w2,
-                     const float* __restrict__ b2,
-                     const int* __restrict__ targets,
-                     const int* __restrict__ member_ptr,
-                     float* __restrict__ per, float* __restrict__ dl, int B,
-                     int H, int O, int P, int block, float inv_b) {
-  __shared__ float warp_nll[WARPS];
-  const int m = blockIdx.x;
-  const int j0 = member_ptr[m] * block;
-  const int j1 = member_ptr[m + 1] * block;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+// O rounded up to the register width the kernels are instantiated at
+int classes_tile(int O) { return O <= 2 ? 2 : O <= 4 ? 4 : O <= 8 ? 8 : 16; }
 
-  float nll_sum = 0.f;  // this warp's rows, meaningful in lane 0
-  for (int b = warp; b < B; b += WARPS) {
-    float acc[MAX_O];
+// rows of h in flight per thread
+template <int OT>
+__host__ __device__ constexpr int rows_in_flight() { return 16 / OT; }
+// the forward's rows of logits held in shared memory at once: a multiple
+// of its row group, R · lanes
+template <int OT>
+__host__ __device__ constexpr int fwd_rows_held(int lanes) {
+  return 64 / OT > rows_in_flight<OT>() * lanes ? 64 / OT
+                                                 : rows_in_flight<OT>() * lanes;
+}
+
+// blocks a backward tile of U units touches (it need not start on one)
+__host__ __device__ inline int bwd_max_blocks(int U, int block) {
+  return (U - 1) / block + 2;
+}
+
+// floats of the backward's stage: dl · d_per of `rows` rows, and after the
+// rows the lanes' dW sums (T · VW floats) where there are several lanes
+__host__ __device__ inline int bwd_stage_floats(int rows, int max_blk,
+                                                int ot, int t_vw, int lanes) {
+  const int stage = rows * max_blk * ot;
+  return lanes > 1 && t_vw > stage ? t_vw : stage;
+}
+
+template <int VW>
+__device__ __forceinline__ void load_units(float (&v)[VW],
+                                           const float* __restrict__ p) {
+  if constexpr (VW == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
 #pragma unroll
-    for (int o = 0; o < MAX_O; ++o) acc[o] = 0.f;
-    const float* hr = h + (size_t)b * H;
-    for (int j = j0 + lane; j < j1; j += 32) {
-      const float hv = hr[j];
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O) acc[o] = fmaf(hv, w2[(size_t)o * H + j], acc[o]);
-    }
-#pragma unroll
-    for (int o = 0; o < MAX_O; ++o) {
-      if (o < O) {
-        float v = acc[o];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        acc[o] = v;
-      }
-    }
-    if (lane == 0) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o) {
-        if (o < O) {
-          acc[o] += b2[(size_t)m * O + o];
-          mx = fmaxf(mx, acc[o]);
-        }
-      }
-      float den = 0.f;
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O) den += expf(acc[o] - mx);
-      const float lse = logf(den) + mx;
-      const int tgt = targets[b];
-      const float valid = tgt >= 0 ? 1.f : 0.f;
-      float zt = 0.f;
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O && o == tgt) zt = acc[o];
-      nll_sum += (lse - zt) * valid;
-      float* dr = dl + ((size_t)b * P + m) * O;
-      const float scale = valid * inv_b;
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O)
-          dr[o] = (expf(acc[o] - mx) / den - (o == tgt ? 1.f : 0.f)) * scale;
-    }
-  }
-  if (lane == 0) warp_nll[warp] = nll_sum;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.f;
-    for (int w = 0; w < WARPS; ++w) s += warp_nll[w];  // fixed order
-    per[m] = s * inv_b;
+    for (int i = 0; i < VW; ++i) v[i] = p[i];
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-loss_head_bwd_kernel(const float* __restrict__ dper,
-                     const float* __restrict__ dl, const float* __restrict__ h,
-                     const float* __restrict__ w2,
-                     const int* __restrict__ block_seg,
-                     float* __restrict__ dh, float* __restrict__ dw, int B,
-                     int H, int O, int P, int block, int n_dh_ctas,
-                     int n_btiles) {
-  if ((int)blockIdx.x < n_dh_ctas) {
-    // role A: dh for one (batch tile, hidden tile)
-    const int bt = blockIdx.x % n_btiles;
-    const int j = (blockIdx.x / n_btiles) * BWD_BN + threadIdx.x;
-    if (j >= H) return;
-    const int m = block_seg[j / block];
-    const float s = dper[m];
-    float wj[MAX_O];
+template <int VW>
+__device__ __forceinline__ void store_units(float* __restrict__ p,
+                                            const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
 #pragma unroll
-    for (int o = 0; o < MAX_O; ++o)
-      wj[o] = o < O ? w2[(size_t)o * H + j] : 0.f;
-    const int b1 = min(B, (bt + 1) * BWD_BM);
-    for (int b = bt * BWD_BM; b < b1; ++b) {
-      const float* dr = dl + ((size_t)b * P + m) * O;
-      float v = 0.f;
+    for (int i = 0; i < VW; ++i) p[i] = v[i];
+  }
+}
+
+// rows b0, b0 + 1, ... b0 + R − 1 of h at unit j; rows from the n-th on
+// read as zeros
+template <int R, int VW>
+__device__ __forceinline__ void load_rows(float (&hv)[R][VW],
+                                          const float* __restrict__ h, int H,
+                                          int j, int b0, int n) {
 #pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O) v = fmaf(dr[o] * s, wj[o], v);
-      dh[(size_t)b * H + j] = v;
+  for (int r = 0; r < R; ++r) {
+    if (r < n) {
+      load_units<VW>(hv[r], h + (size_t)(b0 + r) * H + j);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VW; ++v) hv[r][v] = 0.f;
     }
+  }
+}
+
+// The first members whose first unit lies at or past u0 and u1 (P if
+// none), found by the whole CTA together: each round every thread tests
+// one of blockDim.x evenly spaced candidates for each, and the count of
+// those below the unit (a prefix, the starts being sorted) narrows the
+// range to one spacing.  Two rounds at P = 10,000 and 256 threads, the two
+// searches' loads in flight together.  Every thread must call it.
+__device__ void first_members_from(const int* __restrict__ member_ptr, int P,
+                                   int block, long long u0, long long u1,
+                                   int& m0, int& m1) {
+  int lo[2] = {0, 0}, hi[2] = {P, P};  // each answer lies in [lo, hi]
+  const long long unit[2] = {u0, u1};
+  while (lo[0] < hi[0] || lo[1] < hi[1]) {
+    int step[2], below[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      step[k] = (hi[k] - lo[k] + blockDim.x - 1) / blockDim.x;
+      const int idx = lo[k] + threadIdx.x * step[k];
+      below[k] = idx < hi[k] && (long long)member_ptr[idx] * block < unit[k]
+                     ? 1 : 0;
+    }
+    const int cnt[2] = {__syncthreads_count(below[0]),
+                        __syncthreads_count(below[1])};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (lo[k] == hi[k]) continue;
+      if (cnt[k] == 0) {
+        hi[k] = lo[k];
+      } else {
+        hi[k] = min(hi[k], lo[k] + cnt[k] * step[k]);
+        lo[k] += (cnt[k] - 1) * step[k] + 1;
+      }
+    }
+  }
+  m0 = lo[0];
+  m1 = lo[1];
+}
+
+template <int OT, int VW>
+__device__ __forceinline__ void fwd_body(
+    const float* __restrict__ h, const float* __restrict__ w2,
+    const float* __restrict__ b2, const int* __restrict__ targets,
+    const int* __restrict__ member_ptr, float* __restrict__ per,
+    float* __restrict__ dl, int B, int H, int O, int P, int block,
+    float inv_b, int n_tiles, int lanes, int mb_cap) {
+  constexpr int R = rows_in_flight<OT>();
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int TQ = T / lanes;         // unit slots; lanes of rows share them
+  const int q = tid % TQ, lane = tid / TQ;
+  const int U = VW * TQ;            // the tile
+  const int GR = R * lanes;         // rows a group
+  const int RB = fwd_rows_held<OT>(lanes);
+  const int pad = TQ + TQ / 32;     // one float of padding every 32 slots
+  extern __shared__ float smem[];
+  float* part = smem;                            // [GR][OT][pad]
+  float* z = part + GR * OT * pad;               // [RB][mb_cap][OT]
+  float* nll = z + RB * mb_cap * OT;             // [RB][mb_cap]
+  float* nll_acc = nll + RB * mb_cap;            // [mb_cap]
+  float* bias = nll_acc + mb_cap;                // [mb_cap][OT]
+  int* mstart = reinterpret_cast<int*>(bias + mb_cap * OT);  // [mb_cap + 1]
+  int* tgt = mstart + mb_cap + 1;                // [RB]
+
+  // this CTA's members [m0, m1); the last CTA also takes those that start
+  // at or past its tile's end
+  const int c = blockIdx.x;
+  int m0, m1;
+  first_members_from(member_ptr, P, block, (long long)c * U,
+                     c + 1 == n_tiles ? LLONG_MAX : (long long)(c + 1) * U,
+                     m0, m1);
+
+  for (int mb0 = m0; mb0 < m1; mb0 += mb_cap) {
+    const int nb = min(mb_cap, m1 - mb0);
+    __syncthreads();  // the previous batch is done with its shared arrays
+    for (int i = tid; i <= nb; i += T) mstart[i] = member_ptr[mb0 + i] * block;
+    for (int i = tid; i < nb * OT; i += T) {
+      const int o = i % OT;
+      bias[i] = o < O ? b2[(size_t)(mb0 + i / OT) * O + o] : 0.f;
+    }
+    for (int i = tid; i < nb; i += T) nll_acc[i] = 0.f;
+    __syncthreads();
+    const int ustart = mstart[0], uend = mstart[nb];
+
+    for (int r0 = 0; r0 < B; r0 += RB) {
+      const int nr = min(RB, B - r0);
+      __syncthreads();  // the previous chunk's epilogue and sums are done
+      for (int i = tid; i < RB * mb_cap * OT; i += T) z[i] = 0.f;
+      for (int i = tid; i < nr; i += T) tgt[i] = targets[r0 + i];
+      __syncthreads();
+
+      for (int u0 = ustart; u0 < uend; u0 += U) {
+        const int j = u0 + VW * q;  // this thread's first unit
+        const bool act = j < uend;
+        const int u1 = min(u0 + U, uend);
+        float w[OT][VW];
+#pragma unroll
+        for (int o = 0; o < OT; ++o) {
+          if (act && o < O) {
+            load_units<VW>(w[o], w2 + (size_t)o * H + j);
+          } else {
+#pragma unroll
+            for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
+          }
+        }
+        // this lane's rows of a group: g + lane·R ... g + lane·R + R − 1
+        float hv[R][VW];
+        load_rows<R, VW>(hv, h, H, j, r0 + lane * R,
+                         act ? nr - lane * R : 0);
+        for (int g = 0; g < nr; g += GR) {
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+#pragma unroll
+            for (int o = 0; o < OT; ++o) {
+              float s = 0.f;
+#pragma unroll
+              for (int v = 0; v < VW; ++v) s = fmaf(hv[r][v], w[o][v], s);
+              part[((lane * R + r) * OT + o) * pad + q + q / 32] = s;
+            }
+          }
+          const int gn = g + GR + lane * R;  // in flight during the reduce
+          if (g + GR < nr)
+            load_rows<R, VW>(hv, h, H, j, r0 + gn, act ? nr - gn : 0);
+          __syncthreads();
+          // one thread per (row, member): the member's slots in order
+          for (int p = tid; p < GR * nb; p += T) {
+            const int i = p % nb, r = p / nb;
+            const int a = max(mstart[i], u0), e = min(mstart[i + 1], u1);
+            if (g + r >= nr || a >= e) continue;
+            float s[OT];
+#pragma unroll
+            for (int o = 0; o < OT; ++o) s[o] = 0.f;
+            for (int t = (a - u0) / VW; t < (e - u0 + VW - 1) / VW; ++t) {
+#pragma unroll
+              for (int o = 0; o < OT; ++o)
+                s[o] += part[(r * OT + o) * pad + t + t / 32];
+            }
+            float* zr = z + ((g + r) * mb_cap + i) * OT;
+#pragma unroll
+            for (int o = 0; o < OT; ++o) zr[o] += s[o];
+          }
+          __syncthreads();
+        }
+      }
+
+      // epilogue: one thread per (row, member), consecutive members on
+      // consecutive threads (their dl rows are contiguous)
+      for (int p = tid; p < nr * nb; p += T) {
+        const int i = p % nb, rr = p / nb;
+        const int m = mb0 + i, b = r0 + rr;
+        const float* zr = z + (rr * mb_cap + i) * OT;
+        float zz[OT], ex[OT];
+        float mx = -INFINITY;
+#pragma unroll
+        for (int o = 0; o < OT; ++o) {
+          if (o < O) {
+            zz[o] = zr[o] + bias[i * OT + o];
+            mx = fmaxf(mx, zz[o]);
+          }
+        }
+        float den = 0.f;
+#pragma unroll
+        for (int o = 0; o < OT; ++o) {
+          if (o < O) {
+            ex[o] = expf(zz[o] - mx);
+            den += ex[o];
+          }
+        }
+        const float lse = logf(den) + mx;
+        const int t_b = tgt[rr];
+        const float valid = t_b >= 0 ? 1.f : 0.f;
+        float zt = 0.f;
+#pragma unroll
+        for (int o = 0; o < OT; ++o)
+          if (o < O && o == t_b) zt = zz[o];
+        nll[rr * mb_cap + i] = (lse - zt) * valid;
+        const float scale = valid * inv_b;
+        float* dr = dl + ((size_t)b * P + m) * O;
+#pragma unroll
+        for (int o = 0; o < OT; ++o)
+          if (o < O) dr[o] = (ex[o] / den - (o == t_b ? 1.f : 0.f)) * scale;
+      }
+      __syncthreads();
+      for (int i = tid; i < nb; i += T) {
+        float s = nll_acc[i];
+        for (int rr = 0; rr < nr; ++rr) s += nll[rr * mb_cap + i];
+        nll_acc[i] = s;
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < nb; i += T) per[mb0 + i] = nll_acc[i] * inv_b;
+  }
+}
+
+template <int OT, int VW>
+__device__ __forceinline__ void bwd_body(
+    const float* __restrict__ dper, const float* __restrict__ dl,
+    const float* __restrict__ h, const float* __restrict__ w2,
+    const int* __restrict__ block_seg, float* __restrict__ dh,
+    float* __restrict__ dw, int B, int H, int O, int P, int block,
+    int lanes, int rows) {
+  constexpr int R = rows_in_flight<OT>();
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int TQ = T / lanes;          // unit slots; lanes of rows share them
+  const int q = tid % TQ, lane = tid / TQ;
+  const int U = VW * TQ;             // the tile
+  const int GR = R * lanes;          // rows a group
+  const int t0 = blockIdx.x * U;     // the tile's first unit
+  const int kb0 = t0 / block;        // its first block
+  const int nblk = (min(t0 + U, H) - 1) / block - kb0 + 1;
+  const int max_blk = bwd_max_blocks(U, block);
+  const int j = t0 + VW * q;         // this thread's first unit
+  const bool act = j < H;
+  const int slot = act ? j / block - kb0 : 0;  // its block in the stage
+  extern __shared__ float smem[];
+  float* stage = smem;               // [rows][nblk][OT]; then the dW sums
+  float* sdper = stage + bwd_stage_floats(rows, max_blk, OT, T * VW, lanes);
+  int* sseg = reinterpret_cast<int*>(sdper + max_blk);
+
+  for (int k = tid; k < nblk; k += T) {
+    const int m = block_seg[kb0 + k];
+    sseg[k] = m;
+    sdper[k] = dper[m];
+  }
+  float w[OT][VW], acc[OT][VW];
+#pragma unroll
+  for (int o = 0; o < OT; ++o) {
+    if (act && o < O) {
+      load_units<VW>(w[o], w2 + (size_t)o * H + j);
+    } else {
+#pragma unroll
+      for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
+    }
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[o][v] = 0.f;
+  }
+
+  for (int r0 = 0; r0 < B; r0 += rows) {
+    const int nr = min(rows, B - r0);
+    __syncthreads();  // sseg / sdper written, the previous stage consumed
+#pragma unroll 4
+    for (int i = tid; i < nr * nblk * OT; i += T) {
+      const int o = i % OT, k = (i / OT) % nblk, rr = i / (OT * nblk);
+      stage[i] = o < O ? dl[((size_t)(r0 + rr) * P + sseg[k]) * O + o] *
+                             sdper[k]
+                       : 0.f;
+    }
+    __syncthreads();
+    if (!act) continue;
+    // this lane's rows of a group: g + lane·R ... g + lane·R + R − 1
+    for (int g = lane * R; g < nr; g += GR) {
+      float hv[R][VW];
+      load_rows<R, VW>(hv, h, H, j, r0 + g, nr - g);
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        if (g + r >= nr) break;
+        const float* gr = stage + ((g + r) * nblk + slot) * OT;
+        float d[VW];
+#pragma unroll
+        for (int v = 0; v < VW; ++v) d[v] = 0.f;
+#pragma unroll
+        for (int o = 0; o < OT; ++o) {
+          const float gv = gr[o];
+#pragma unroll
+          for (int v = 0; v < VW; ++v) {
+            d[v] = fmaf(gv, w[o][v], d[v]);
+            acc[o][v] = fmaf(gv, hv[r][v], acc[o][v]);
+          }
+        }
+        store_units<VW>(dh + (size_t)(r0 + g + r) * H + j, d);
+      }
+    }
+  }
+  if (lanes == 1) {
+    if (!act) return;
+#pragma unroll
+    for (int o = 0; o < OT; ++o)
+      if (o < O) store_units<VW>(dw + (size_t)o * H + j, acc[o]);
     return;
   }
-  // role B: dW for one hidden tile, over every batch row
-  const int j = (blockIdx.x - n_dh_ctas) * BWD_BN + threadIdx.x;
-  if (j >= H) return;
-  const int m = block_seg[j / block];
-  const float s = dper[m];
-  float acc[MAX_O];
+  // dW: the lanes' sums added in lane order, one class at a time
 #pragma unroll
-  for (int o = 0; o < MAX_O; ++o) acc[o] = 0.f;
-  for (int b = 0; b < B; ++b) {
-    const float hv = h[(size_t)b * H + j];
-    const float* dr = dl + ((size_t)b * P + m) * O;
+  for (int o = 0; o < OT; ++o) {
+    if (o >= O) break;
+    __syncthreads();
+    store_units<VW>(stage + (lane * TQ + q) * VW, acc[o]);
+    __syncthreads();
+    if (lane == 0 && act) {
+      float s[VW];
 #pragma unroll
-    for (int o = 0; o < MAX_O; ++o)
-      if (o < O) acc[o] = fmaf(dr[o] * s, hv, acc[o]);
+      for (int v = 0; v < VW; ++v) s[v] = 0.f;
+      for (int l = 0; l < lanes; ++l) {
+#pragma unroll
+        for (int v = 0; v < VW; ++v) s[v] += stage[(l * TQ + q) * VW + v];
+      }
+      store_units<VW>(dw + (size_t)o * H + j, s);
+    }
   }
-#pragma unroll
-  for (int o = 0; o < MAX_O; ++o)
-    if (o < O) dw[(size_t)o * H + j] = acc[o];
+}
+
+// The two designs of each kernel, one name each, so that a profiler trace
+// says which ran.
+#define LOSS_HEAD_FWD_PARAMS                                                \
+  const float *__restrict__ h, const float *__restrict__ w2,                \
+      const float *__restrict__ b2, const int *__restrict__ targets,        \
+      const int *__restrict__ member_ptr, float *__restrict__ per,          \
+      float *__restrict__ dl, int B, int H, int O, int P, int block,        \
+      float inv_b, int n_tiles, int lanes, int mb_cap
+#define LOSS_HEAD_FWD_ARGS                                                  \
+  h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,       \
+      n_tiles, lanes, mb_cap
+#define LOSS_HEAD_BWD_PARAMS                                                \
+  const float *__restrict__ dper, const float *__restrict__ dl,             \
+      const float *__restrict__ h, const float *__restrict__ w2,            \
+      const int *__restrict__ block_seg, float *__restrict__ dh,            \
+      float *__restrict__ dw, int B, int H, int O, int P, int block,         \
+      int lanes, int rows
+#define LOSS_HEAD_BWD_ARGS \
+  dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows
+
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_fwd_kernel_vec4(LOSS_HEAD_FWD_PARAMS) {
+  fwd_body<OT, 4>(LOSS_HEAD_FWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_fwd_kernel_scalar(LOSS_HEAD_FWD_PARAMS) {
+  fwd_body<OT, 1>(LOSS_HEAD_FWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_bwd_kernel_vec4(LOSS_HEAD_BWD_PARAMS) {
+  bwd_body<OT, 4>(LOSS_HEAD_BWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_bwd_kernel_scalar(LOSS_HEAD_BWD_PARAMS) {
+  bwd_body<OT, 1>(LOSS_HEAD_BWD_ARGS);
+}
+
+// kernel_path() in loss_head.py: 16-byte loads need a block of a multiple
+// of 4 units (so a thread's 4 units share a member), rows of a multiple of
+// 4 floats and 16-byte-aligned tensors
+bool takes_vec4(int block, int H, const void* const* ptrs, int n) {
+  if (block % 4 != 0 || H % 4 != 0) return false;
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  return true;
+}
+
+// Row lanes a CTA splits into: the fewest of 1, 2, 4, 8 whose tiles of
+// vw · MAX_THREADS / lanes units still give the grid two CTAs an SM.
+int cta_lanes(int H, int vw) {
+  int dev = 0, n_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+  const long long want = 2LL * (n_sm > 0 ? n_sm : 1);
+  int lanes = 1;
+  while (lanes < MAX_LANES) {
+    const long long tile = (long long)vw * (MAX_THREADS / lanes);
+    if (((long long)H + tile - 1) / tile >= want) break;
+    lanes *= 2;
+  }
+  return lanes;
+}
+
+constexpr size_t SMEM_LIMIT = 48 * 1024;  // without the opt-in attribute
+
+template <int OT>
+int launch_fwd(const float* h, const float* w2, const float* b2,
+               const int* targets, const int* member_ptr, float* per,
+               float* dl, int B, int H, int O, int P, int block, float inv_b,
+               cudaStream_t stream) {
+  const void* ptrs[] = {h, w2};
+  const bool vec = takes_vec4(block, H, ptrs, 2);
+  const int vw = vec ? 4 : 1;
+  const int lanes = cta_lanes(H, vw);
+  const int tq = MAX_THREADS / lanes;
+  const int tile = vw * tq;
+  const long long n_tiles = H > 0 ? ((long long)H + tile - 1) / tile : 1;
+  const int mb_cap = std::min(FWD_MAX_MEMBERS, (tile + block - 1) / block);
+  const int rb = fwd_rows_held<OT>(lanes);
+  const size_t smem =
+      sizeof(float) * ((size_t)rows_in_flight<OT>() * lanes * OT *
+                           (tq + tq / 32) +
+                       (size_t)rb * mb_cap * (OT + 1) + mb_cap +
+                       (size_t)mb_cap * OT) +
+      sizeof(int) * (mb_cap + 1 + rb);
+  if (n_tiles > 0x7fffffff || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (vec)
+    loss_head_fwd_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                    stream>>>(
+        h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,
+        (int)n_tiles, lanes, mb_cap);
+  else
+    loss_head_fwd_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                      stream>>>(
+        h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,
+        (int)n_tiles, lanes, mb_cap);
+  return (int)cudaGetLastError();
+}
+
+template <int OT>
+int launch_bwd(const float* dper, const float* dl, const float* h,
+               const float* w2, const int* block_seg, float* dh, float* dw,
+               int B, int H, int O, int P, int block, cudaStream_t stream) {
+  const void* ptrs[] = {h, w2, dh, dw};
+  const bool vec = takes_vec4(block, H, ptrs, 4);
+  const int vw = vec ? 4 : 1;
+  const int lanes = cta_lanes(H, vw);
+  const int tile = vw * (MAX_THREADS / lanes);
+  const long long n_tiles = ((long long)H + tile - 1) / tile;
+  const int max_blk = bwd_max_blocks(tile, block);
+  const int rows =
+      std::min(B, std::max(1, BWD_STAGE_FLOATS / (max_blk * OT)));
+  const size_t smem =
+      sizeof(float) * ((size_t)bwd_stage_floats(rows, max_blk, OT,
+                                                MAX_THREADS * vw, lanes) +
+                       max_blk) +
+      sizeof(int) * max_blk;
+  if (n_tiles > 0x7fffffff || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  if (vec)
+    loss_head_bwd_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                    stream>>>(
+        dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows);
+  else
+    loss_head_bwd_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                      stream>>>(
+        dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -183,11 +582,19 @@ extern "C" int loss_head_fwd_f32(const float* h, const float* w2,
                                  int B, int H, int O, int P, int block,
                                  float inv_b, void* stream) {
   if (P <= 0) return 0;
-  if (B <= 0 || O <= 0 || O > MAX_O || block <= 0)
+  if (B <= 0 || H < 0 || O <= 0 || O > MAX_O || block <= 0)
     return (int)cudaErrorInvalidValue;
-  loss_head_fwd_kernel<<<P, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_fwd<2>(h, w2, b2, targets, member_ptr, per, dl, B,
+                                 H, O, P, block, inv_b, s);
+    case 4: return launch_fwd<4>(h, w2, b2, targets, member_ptr, per, dl, B,
+                                 H, O, P, block, inv_b, s);
+    case 8: return launch_fwd<8>(h, w2, b2, targets, member_ptr, per, dl, B,
+                                 H, O, P, block, inv_b, s);
+    default: return launch_fwd<16>(h, w2, b2, targets, member_ptr, per, dl,
+                                   B, H, O, P, block, inv_b, s);
+  }
 }
 
 extern "C" int loss_head_bwd_f32(const float* dper, const float* dl,
@@ -198,13 +605,15 @@ extern "C" int loss_head_bwd_f32(const float* dper, const float* dl,
   if (H <= 0) return 0;
   if (B <= 0 || O <= 0 || O > MAX_O || block <= 0 || P <= 0)
     return (int)cudaErrorInvalidValue;
-  const long long n_htiles = (H + BWD_BN - 1) / BWD_BN;
-  const long long n_btiles = (B + BWD_BM - 1) / BWD_BM;
-  const long long n_dh = n_btiles * n_htiles;
-  if (n_dh + n_htiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  loss_head_bwd_kernel<<<(unsigned)(n_dh + n_htiles), THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, (int)n_dh,
-      (int)n_btiles);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_bwd<2>(dper, dl, h, w2, block_seg, dh, dw, B, H, O,
+                                 P, block, s);
+    case 4: return launch_bwd<4>(dper, dl, h, w2, block_seg, dh, dw, B, H, O,
+                                 P, block, s);
+    case 8: return launch_bwd<8>(dper, dl, h, w2, block_seg, dh, dw, B, H, O,
+                                 P, block, s);
+    default: return launch_bwd<16>(dper, dl, h, w2, block_seg, dh, dw, B, H,
+                                   O, P, block, s);
+  }
 }

@@ -294,36 +294,83 @@ def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b):
         _close(dwb, wdwb)
 
 
-@pytest.mark.parametrize("widths,block,o,b", [
-    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9),
-    ((100, 1, 37, 128, 129), 128, 2, 70),
-    ((33, 2, 65), 16, 16, 5),
+# several hundred narrow members, 8 or 16 units at block 8, as at the head
+# of the trainer's depth-3 population
+_NARROW = tuple(int(w) for w in
+                np.random.default_rng(5).choice([8, 16], 300))
+
+
+def _loss_head_kernels_run(fn):
+    """``fn()``'s result and the loss-head kernels the card ran for it, by
+    the names ``torch.profiler`` records."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "loss_head" in e.name]
+    return out, names
+
+
+@pytest.mark.parametrize("widths,block,o,b,shift", [
+    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9, 0),
+    ((100, 1, 37, 128, 129), 128, 2, 70, 0),
+    ((33, 2, 65), 16, 16, 5, 0),
+    (_NARROW, 8, 2, 32, 0),
+    (_NARROW, 8, 16, 257, 0),
+    (_NARROW, 8, 2, 1, 0),
+    ((40, 5000, 16, 24), 8, 2, 32, 0),      # a member wider than a CTA tile
+    ((40, 5000, 16, 24), 8, 1, 257, 0),
+    ((128,) * 40, 128, 2, 32, 0),
+    ((7, 13, 30, 2, 64, 9), 6, 2, 32, 0),   # a block not a multiple of 4
+    (_NARROW[:80], 8, 2, 32, 1),            # h 4 bytes off: the scalar path
 ])
-def test_loss_head_matches_plain(dev, widths, block, o, b):
+def test_loss_head_matches_plain(dev, widths, block, o, b, shift):
+    """Each launch against the plain version, on the design ``kernel_path``
+    names (the kernel ``torch.profiler`` saw run); two launches on the same
+    inputs bitwise equal."""
     rng = np.random.default_rng(len(widths) + o)
     blocks = [-(-w // block) for w in widths]
     seg = _t(np.repeat(np.arange(len(widths)), blocks), dev, torch.int32)
     hh = int(sum(blocks)) * block
-    h = _t(rng.normal(0, 1, (b, hh)), dev)
+    # h's storage starts `shift` floats past a (256-byte aligned) allocation
+    h = torch.empty(b * hh + shift, device=dev)[shift:].view(b, hh)
+    h.copy_(_t(rng.normal(0, 1, (b, hh)), dev))
     w2 = _t(rng.normal(0, 1, (o, hh)) / 8, dev)
     b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
     tgt = rng.integers(0, o, b)
-    tgt[-2:] = -1                                    # pad rows
+    pads = min(2, b - 1)
+    tgt[b - pads:] = -1                              # pad rows
     tgt = _t(tgt, dev, torch.int32)
     ptr = ihk.member_ptr(seg, len(widths))
+    path = lhk.kernel_path(block, h, w2)
+    assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                    else "scalar")
+    fwd = (h, w2, b2, tgt, ptr)
     n0, m0 = lhk.fwd_launches, lhk.bwd_launches
-    per, dl = lhk.loss_head_fwd_cuda(h, w2, b2, tgt, ptr, block=block,
-                                     b_real=b - 2)
-    wper, wdl = lhk.loss_head_fwd_plain(h, w2, b2, tgt, ptr, block=block,
-                                        b_real=b - 2)
+    (per, dl), ran = _loss_head_kernels_run(lambda: lhk.loss_head_fwd_cuda(
+        *fwd, block=block, b_real=b - pads))
+    assert len(ran) == 1 and f"loss_head_fwd_kernel_{path}" in ran[0], ran
+    wper, wdl = lhk.loss_head_fwd_plain(*fwd, block=block, b_real=b - pads)
     _close(per, wper)
     _close(dl, wdl)
+    again = lhk.loss_head_fwd_cuda(*fwd, block=block, b_real=b - pads)
+    assert torch.equal(per, again[0]) and torch.equal(dl, again[1])
     dper = _t(rng.normal(0, 1, len(widths)), dev)
-    dh, dw = lhk.loss_head_bwd_cuda(dper, dl, h, w2, seg, block=block)
+    (dh, dw), ran = _loss_head_kernels_run(lambda: lhk.loss_head_bwd_cuda(
+        dper, dl, h, w2, seg, block=block))
+    assert lhk.kernel_path(block, h, w2, dh, dw) == path
+    assert len(ran) == 1 and f"loss_head_bwd_kernel_{path}" in ran[0], ran
     wdh, wdw = lhk.loss_head_bwd_plain(dper, dl, h, w2, seg, block=block)
-    assert (lhk.fwd_launches, lhk.bwd_launches) == (n0 + 1, m0 + 1)
+    assert (lhk.fwd_launches, lhk.bwd_launches) == (n0 + 2, m0 + 1)
     _close(dh, wdh)
     _close(dw, wdw)
+    again = lhk.loss_head_bwd_cuda(dper, dl, h, w2, seg, block=block)
+    assert torch.equal(dh, again[0]) and torch.equal(dw, again[1])
 
 
 def test_train_step_on_card_matches_cpu(dev):
