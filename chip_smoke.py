@@ -91,7 +91,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      backward (4 flash, 7 grouped-GEMM launches), every bf16 launch on the
      tensor-core design and every f32 one on the FMA design (each
      wrapper's ``kernel_path``, and the kernel ``torch.profiler`` saw
-     launched); the outputs finite and against the
+     launched: ``*wgmma_kernel``, and for the grouped GEMM's f32 launches
+     the SIMT GEMM ``moe_gemm_simt_kernel``); the outputs finite and
+     against the
      plain versions (attention: the dense oracle, f32 at rtol 1e-4 / atol
      1e-5, bf16 at rtol 1e-2 and a per-element atol of 2^-8 times the
      attention of |v|, the most that rounding p to bf16 can move an
@@ -107,13 +109,17 @@ Phases (any failure exits non-zero, and no result line is printed):
   8. each kernel, its plain version and the nearest library call timed
      with CUDA events; the least time the card could take (bound) from the
      bytes and operations of this run's inputs (f32 at 67 TFLOP/s, bf16 at
-     the tensor cores' 989); the loss-head rows also carry each kernel's
-     device time from ``torch.profiler`` (``device_ms``: at block 8 the
-     event time is the host's launch time), the design each launch took
-     (``path``, by ``kernel_path``), the depth-3 head as ``depth3_*``, and
-     the fewest PyTorch calls that compute the kernel's whole function,
-     checked against it and timed (``library_full_ms``, named in
-     ``library_full_calls``; ``library_ms`` stays the single call);
+     the tensor cores' 989); the ``infer_head`` and loss-head rows also
+     carry each kernel's device time from ``torch.profiler``
+     (``device_ms``: at block 8 the event time is the host's launch time),
+     the design each launch took (``path``, by ``kernel_path``) and the
+     depth-3 head as ``depth3_*``; ``infer_head`` its log-probabilities
+     instance's times (``log_probs_*``) and its f32 kernels' ptxas report;
+     the loss-head rows the fewest PyTorch calls that compute the kernel's
+     whole function, checked against it and timed (``library_full_ms``,
+     named in ``library_full_calls``; ``library_ms`` stays the single
+     call); the grouped GEMM's f32 runs the FMA instance they took
+     (``fma_instance``: tile rows, vec4 or scalar);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -1041,6 +1047,10 @@ def lm_path(inp):
            and ("flash_attn" in e.name or "moe_gemm" in e.name)]
     _require(len(ran) == len(wants), f"the profiler saw {len(ran)} kernel "
              f"API launches, expected {len(wants)}: {ran}")
+    # the grouped GEMM's FMA design is the SIMT GEMM on a tree that names
+    # its instances (fma_instance); this script also runs on the tree
+    # before that kernel, whose f32 launches are checked by design only
+    simt = hasattr(moek, "fma_instance")
     designs = {}
     for (key, counter, want), name in zip(wants, ran):
         got = "wgmma" if "wgmma_kernel" in name else "fma"
@@ -1048,6 +1058,10 @@ def lm_path(inp):
                                   else "moe_gemm") in name,
                  f"{key}: the card ran {name!r}, expected the {counter} "
                  f"kernel's {want} design")
+        _require(not (simt and counter == "moe" and want == "fma")
+                 or "moe_gemm_simt_kernel" in name,
+                 f"{key}: the card ran {name!r}, expected the SIMT GEMM "
+                 "(moe_gemm_simt_kernel)")
         designs[key] = got
     print("[lm kernels] kernels the card ran: "
           f"{[n.removeprefix('void ').rsplit('(', 1)[0] for n in ran]}",
@@ -1198,7 +1212,9 @@ def _prefixed(prefix: str, row: dict) -> dict:
     keys = ("max_abs_err", "rtol", "atol", "atol_per_element", "ms",
             "device_ms", "device_launches_seen", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
-            "library_none", "path")
+            "library_none", "path", "log_probs_max_abs_err", "log_probs_ms",
+            "log_probs_device_ms", "log_probs_device_launches_seen",
+            "fma_instance")
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
 
@@ -1318,6 +1334,9 @@ def lm_rows(inp, lm_n, designs, ptxas):
             2 * x.shape[0] * x.shape[1] * w.shape[2], lm_n["moe_gemm"],
             iters, tol, peak)
         row["path"] = path
+        if path == "fma" and hasattr(moek, "fma_instance"):
+            row["fma_instance"] = moek.fma_instance(
+                x.shape[1], w.shape[2], bt, x, w)
         return row
 
     def grouped_mm(x, w, ids, tol):
@@ -1544,7 +1563,10 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         2 * BATCH * h.shape[1] * w2.shape[0], serve_n["infer_head"], 20)
     got = ihk.infer_head_cuda(h, w2, b2, ptr, block=blk, log_probs=True)
     want = ihk.infer_head_plain(h, w2, b2, ptr, block=blk, log_probs=True)
-    _close("infer_head log_probs: kernel vs plain", got, want)
+    rows["infer_head"]["log_probs_max_abs_err"] = _close(
+        "infer_head log_probs: kernel vs plain", got, want)
+    rows["infer_head"].update(_infer_head_fields(
+        partial(ihk.infer_head_cuda, h, w2, b2, ptr, block=blk), blk, h, w2))
 
     # ---- infer_head_int8 at full width, on the int8 input layer's output;
     # the library call is the f32 row's baddbmm on the dequantized weight
@@ -1844,7 +1866,43 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                       label=f"{key} at the depth-3 head")
         row.update(fields[key])
         rows[key].update(_prefixed("depth3", row))
+
+    # ---- infer_head at the same head, the serving forward's last launch
+    ih_b = (hin, w2_b, p3k["b_out"], ptr_b)
+    y_b = ihk.infer_head_cuda(*ih_b, block=blk_b)
+    row = compare("infer_head", partial(ihk.infer_head_cuda, *ih_b,
+                                        block=blk_b),
+                  partial(ihk.infer_head_plain, *ih_b, block=blk_b), no_call,
+                  _nbytes(*ih_b, y_b), flops_b, None, 50,
+                  label="infer_head at the depth-3 head")
+    row["log_probs_max_abs_err"] = _close(
+        "infer_head log_probs at the depth-3 head: kernel vs plain",
+        ihk.infer_head_cuda(*ih_b, block=blk_b, log_probs=True),
+        ihk.infer_head_plain(*ih_b, block=blk_b, log_probs=True))
+    row.update(_infer_head_fields(partial(ihk.infer_head_cuda, *ih_b,
+                                          block=blk_b), blk_b, hin, w2_b))
+    rows["infer_head"].update(_prefixed("depth3", row))
     return rows
+
+
+def _infer_head_fields(kernel, block, h, w2):
+    """Extra fields of the ``infer_head`` row at one shape, from ``kernel``
+    (a call of the f32 kernel): the design the launch took
+    (``kernel_path``; None on a tree whose infer_head module has no such
+    rule: this script also runs on the tree before the kernel's
+    redesign), the kernel's device time from ``torch.profiler``, and the
+    log-probabilities instance's times beside the logits'."""
+    from repro_torch.kernels import infer_head as ihk
+    rule = getattr(ihk, "kernel_path", None)
+    lp = partial(kernel, log_probs=True)
+    ms, seen = _device_ms(kernel, "infer_head_kernel", 50)
+    lp_ms, lp_seen = _device_ms(lp, "infer_head_kernel", 50)
+    out = {"path": None if rule is None else rule(block, h, w2),
+           "device_ms": ms, "device_launches_seen": seen,
+           "log_probs_ms": _time_ms(lp, 50), "log_probs_device_ms": lp_ms,
+           "log_probs_device_launches_seen": lp_seen}
+    print(f"[infer_head at block {block}] {out}", flush=True)
+    return out
 
 
 def _loss_head_fields(kernels, block, h, w2, dh, dw):
@@ -2119,6 +2177,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas))
+    rows["infer_head"]["ptxas"] = {k: v for k, v in ptxas["infer_head"].items()
+                                   if "infer_head_kernel" in k}
     rows = [rows[name] for name in REPLACES if name in rows]
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")

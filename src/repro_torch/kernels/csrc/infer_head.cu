@@ -11,18 +11,20 @@
 //
 // The TPU kernel finds member edges from neighbouring segment ids and
 // rewrites its member's output block once per hidden tile (the last write
-// wins, on a sequential grid).  Here one CTA owns one (32-row batch tile,
-// member) pair, loops over the member's contiguous hidden range and writes
-// y[b, m, :] exactly once.  Each warp takes batch rows; its lanes stride the
-// member's hidden units (coalesced reads of h and w2), and a shuffle
-// reduction finishes the O dot products before lane 0 runs the epilogue.
+// wins, on a sequential grid).  Here every output has one owner that
+// writes it once.
 //
 // What bounds it: bytes.  At the paper's 10,000-member width and B = 32 it
 // reads h (164 MB) and w2 (10 MB) for 10 MFLOP — about 0.05 ms at 3.35 TB/s.
-//
-// Left for later: w2 is re-read per batch row (from L1/L2, not staged in
-// shared memory), and a member narrower than a warp's stride leaves lanes
-// idle; the (B, P, O) store is O floats per row and member.
+// So it is the training loss head's forward without the loss: the
+// streaming core of head_stream.cuh (16-byte loads of h, or 4-byte ones in
+// the scalar instance where kernel_path() in infer_head.py says so; w2 in
+// registers; 16 / OT rows in flight; 256-thread CTAs in lanes of rows; a
+// member owned by the CTA whose tile holds its first unit; partial logits
+// added in unit order in shared memory), then one thread per (row,
+// member), consecutive members on consecutive threads, adds the bias,
+// applies the optional log-softmax and stores y[b, m, :] once
+// (head_epilogue, the int8 kernel's epilogue too).
 //
 // infer_head_i8 replaces repro/kernels/infer_head.py::infer_head_int8_fwd
 // (the int8 serve copy, ops.py::infer_head_int8): w2 is (O, H) int8 with one
@@ -43,14 +45,18 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "head_stream.cuh"
+
 namespace {
 
+using namespace head;
+
+// the int8 kernel's CTAs
 constexpr int BM = 32;          // batch rows per CTA
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int MAX_O = 16;
-constexpr int RPW = BM / WARPS;  // batch rows per warp (int8 kernel)
-constexpr int CH = 256;          // hidden units staged per chunk (int8)
+constexpr int RPW = BM / WARPS;  // batch rows per warp
+constexpr int CH = 256;          // hidden units staged per chunk
 
 // The epilogue of one (row, member): the member bias, the optional stable
 // log-softmax, the store.  acc holds the row's O ≤ N finished dot products.
@@ -84,44 +90,92 @@ __device__ __forceinline__ void head_epilogue(float (&acc)[N],
     if (o < O) yr[o] = acc[o];
 }
 
-__global__ void __launch_bounds__(THREADS)
-infer_head_kernel(const float* __restrict__ h, const float* __restrict__ w2,
-                  const float* __restrict__ b2,
-                  const int* __restrict__ member_ptr, float* __restrict__ y,
-                  int B, int H, int O, int P, int block, int log_probs,
-                  int n_btiles) {
-  const int bt = blockIdx.x % n_btiles;
-  const int m = blockIdx.x / n_btiles;
-  const int j0 = member_ptr[m] * block;
-  const int j1 = member_ptr[m + 1] * block;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
+template <int OT, int VW>
+__device__ __forceinline__ void infer_body(
+    const float* __restrict__ h, const float* __restrict__ w2,
+    const float* __restrict__ b2, const int* __restrict__ member_ptr,
+    float* __restrict__ y, int B, int H, int O, int P, int block,
+    int log_probs, int n_tiles, int lanes, int mb_cap) {
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int TQ = T / lanes;
+  const int RB = fwd_rows_held<OT>(lanes);
+  extern __shared__ float smem[];
+  float* part = smem;  // [R · lanes][OT][pad], stream_logits' partials
+  float* z = part + rows_in_flight<OT>() * lanes * OT * (TQ + TQ / 32);
+  // z: [RB][mb_cap][OT]
+  int* mstart = reinterpret_cast<int*>(z + RB * mb_cap * OT);  // [mb_cap + 1]
 
-  for (int rr = warp; rr < BM; rr += WARPS) {
-    const int b = bt * BM + rr;
-    if (b >= B) break;  // uniform across the warp
-    float acc[MAX_O];
+  int m0, m1;
+  cta_members(member_ptr, P, block, VW * TQ, n_tiles, m0, m1);
+
+  for (int mb0 = m0; mb0 < m1; mb0 += mb_cap) {
+    const int nb = min(mb_cap, m1 - mb0);
+    __syncthreads();  // the previous batch is done with its shared arrays
+    for (int i = tid; i <= nb; i += T) mstart[i] = member_ptr[mb0 + i] * block;
+    for (int r0 = 0; r0 < B; r0 += RB) {
+      const int nr = min(RB, B - r0);
+      __syncthreads();  // the previous chunk's epilogue is done
+      for (int i = tid; i < RB * mb_cap * OT; i += T) z[i] = 0.f;
+      __syncthreads();
+
+      stream_logits<OT, VW>(h, w2, H, O, r0, nr, mstart, nb, mb_cap, lanes,
+                            part, z);
+
+      // one thread per (row, member), consecutive members on consecutive
+      // threads (their y rows are contiguous)
+      for (int p = tid; p < nr * nb; p += T) {
+        const int i = p % nb, rr = p / nb;
+        const float* zr = z + (rr * mb_cap + i) * OT;
+        float acc[OT];
 #pragma unroll
-    for (int o = 0; o < MAX_O; ++o) acc[o] = 0.f;
-    const float* hr = h + (size_t)b * H;
-    for (int j = j0 + lane; j < j1; j += 32) {
-      const float hv = hr[j];
-#pragma unroll
-      for (int o = 0; o < MAX_O; ++o)
-        if (o < O) acc[o] = fmaf(hv, w2[(size_t)o * H + j], acc[o]);
-    }
-#pragma unroll
-    for (int o = 0; o < MAX_O; ++o) {
-      if (o < O) {
-        float v = acc[o];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        acc[o] = v;
+        for (int o = 0; o < OT; ++o) acc[o] = zr[o];
+        head_epilogue(acc, b2, y, r0 + rr, mb0 + i, O, P, log_probs);
       }
     }
-    if (lane == 0) head_epilogue(acc, b2, y, b, m, O, P, log_probs);
   }
+}
+
+// The two designs, one name each, so that a profiler trace says which ran.
+#define INFER_HEAD_PARAMS                                                   \
+  const float *__restrict__ h, const float *__restrict__ w2,                \
+      const float *__restrict__ b2, const int *__restrict__ member_ptr,     \
+      float *__restrict__ y, int B, int H, int O, int P, int block,         \
+      int log_probs, int n_tiles, int lanes, int mb_cap
+#define INFER_HEAD_ARGS                                                   \
+  h, w2, b2, member_ptr, y, B, H, O, P, block, log_probs, n_tiles, lanes,  \
+      mb_cap
+
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_kernel_vec4(INFER_HEAD_PARAMS) {
+  infer_body<OT, 4>(INFER_HEAD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_kernel_scalar(INFER_HEAD_PARAMS) {
+  infer_body<OT, 1>(INFER_HEAD_ARGS);
+}
+
+template <int OT>
+int launch_f32(const float* h, const float* w2, const float* b2,
+               const int* member_ptr, float* y, int B, int H, int O, int P,
+               int block, int log_probs, cudaStream_t stream) {
+  const void* ptrs[] = {h, w2};
+  const FwdShape sh = fwd_shape(H, block, ptrs, 2);
+  // the streaming core's partials and z, then mstart
+  const size_t smem = sizeof(float) * stream_smem_floats<OT>(sh) +
+                      sizeof(int) * (sh.mb_cap + 1);
+  if (sh.n_tiles > INT_MAX || smem > SMEM_LIMIT)
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes, mb_cap = sh.mb_cap;
+  if (sh.vec)
+    infer_head_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                 stream>>>(INFER_HEAD_ARGS);
+  else
+    infer_head_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                   stream>>>(INFER_HEAD_ARGS);
+  return (int)cudaGetLastError();
 }
 
 // OT: the class count the registers are sized for (O ≤ OT); the launch
@@ -212,15 +266,19 @@ extern "C" int infer_head_f32(const float* h, const float* w2,
                               float* y, int B, int H, int O, int P,
                               int block, int log_probs, void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (O <= 0 || O > MAX_O || block <= 0) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_tiles = n_btiles * P;
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  infer_head_kernel<<<(unsigned)n_tiles, THREADS, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      h, w2, b2, member_ptr, y, B, H, O, P, block, log_probs,
-      (int)n_btiles);
-  return (int)cudaGetLastError();
+  if (H < 0 || O <= 0 || O > MAX_O || block <= 0)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_f32<2>(h, w2, b2, member_ptr, y, B, H, O, P, block,
+                                 log_probs, s);
+    case 4: return launch_f32<4>(h, w2, b2, member_ptr, y, B, H, O, P, block,
+                                 log_probs, s);
+    case 8: return launch_f32<8>(h, w2, b2, member_ptr, y, B, H, O, P, block,
+                                 log_probs, s);
+    default: return launch_f32<16>(h, w2, b2, member_ptr, y, B, H, O, P,
+                                   block, log_probs, s);
+  }
 }
 
 // h (B, H) f32, w2_q (O, H) int8, w2_scale (H / block,) f32.

@@ -59,33 +59,22 @@
 //     a unit), then streams h and writes dh row by row while it
 //     accumulates dW in registers; the lanes' dW sums are added in lane
 //     order and written once: one pass over exactly the bound's bytes.
+// The forward's streaming core (stream_logits), the member rule and the
+// helpers both kernels use live in head_stream.cuh, which infer_head.cu's
+// f32 kernel instantiates with its own epilogue.
 #include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "head_stream.cuh"
+
 namespace {
 
-constexpr int MAX_O = 16;
-constexpr int MAX_THREADS = 256;  // threads a CTA
-constexpr int MAX_LANES = 8;      // row lanes: at least 32 unit slots
-constexpr int FWD_MAX_MEMBERS = 64;     // members a forward CTA holds at once
+using namespace head;
+
 constexpr int BWD_STAGE_FLOATS = 8192;  // the backward's dl stage (32 KB)
-
-// O rounded up to the register width the kernels are instantiated at
-int classes_tile(int O) { return O <= 2 ? 2 : O <= 4 ? 4 : O <= 8 ? 8 : 16; }
-
-// rows of h in flight per thread
-template <int OT>
-__host__ __device__ constexpr int rows_in_flight() { return 16 / OT; }
-// the forward's rows of logits held in shared memory at once: a multiple
-// of its row group, R · lanes
-template <int OT>
-__host__ __device__ constexpr int fwd_rows_held(int lanes) {
-  return 64 / OT > rows_in_flight<OT>() * lanes ? 64 / OT
-                                                 : rows_in_flight<OT>() * lanes;
-}
 
 // blocks a backward tile of U units touches (it need not start on one)
 __host__ __device__ inline int bwd_max_blocks(int U, int block) {
@@ -100,83 +89,6 @@ __host__ __device__ inline int bwd_stage_floats(int rows, int max_blk,
   return lanes > 1 && t_vw > stage ? t_vw : stage;
 }
 
-template <int VW>
-__device__ __forceinline__ void load_units(float (&v)[VW],
-                                           const float* __restrict__ p) {
-  if constexpr (VW == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-#pragma unroll
-    for (int i = 0; i < VW; ++i) v[i] = p[i];
-  }
-}
-
-template <int VW>
-__device__ __forceinline__ void store_units(float* __restrict__ p,
-                                            const float (&v)[VW]) {
-  if constexpr (VW == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-#pragma unroll
-    for (int i = 0; i < VW; ++i) p[i] = v[i];
-  }
-}
-
-// rows b0, b0 + 1, ... b0 + R − 1 of h at unit j; rows from the n-th on
-// read as zeros
-template <int R, int VW>
-__device__ __forceinline__ void load_rows(float (&hv)[R][VW],
-                                          const float* __restrict__ h, int H,
-                                          int j, int b0, int n) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    if (r < n) {
-      load_units<VW>(hv[r], h + (size_t)(b0 + r) * H + j);
-    } else {
-#pragma unroll
-      for (int v = 0; v < VW; ++v) hv[r][v] = 0.f;
-    }
-  }
-}
-
-// The first members whose first unit lies at or past u0 and u1 (P if
-// none), found by the whole CTA together: each round every thread tests
-// one of blockDim.x evenly spaced candidates for each, and the count of
-// those below the unit (a prefix, the starts being sorted) narrows the
-// range to one spacing.  Two rounds at P = 10,000 and 256 threads, the two
-// searches' loads in flight together.  Every thread must call it.
-__device__ void first_members_from(const int* __restrict__ member_ptr, int P,
-                                   int block, long long u0, long long u1,
-                                   int& m0, int& m1) {
-  int lo[2] = {0, 0}, hi[2] = {P, P};  // each answer lies in [lo, hi]
-  const long long unit[2] = {u0, u1};
-  while (lo[0] < hi[0] || lo[1] < hi[1]) {
-    int step[2], below[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      step[k] = (hi[k] - lo[k] + blockDim.x - 1) / blockDim.x;
-      const int idx = lo[k] + threadIdx.x * step[k];
-      below[k] = idx < hi[k] && (long long)member_ptr[idx] * block < unit[k]
-                     ? 1 : 0;
-    }
-    const int cnt[2] = {__syncthreads_count(below[0]),
-                        __syncthreads_count(below[1])};
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      if (lo[k] == hi[k]) continue;
-      if (cnt[k] == 0) {
-        hi[k] = lo[k];
-      } else {
-        hi[k] = min(hi[k], lo[k] + cnt[k] * step[k]);
-        lo[k] += (cnt[k] - 1) * step[k] + 1;
-      }
-    }
-  }
-  m0 = lo[0];
-  m1 = lo[1];
-}
-
 template <int OT, int VW>
 __device__ __forceinline__ void fwd_body(
     const float* __restrict__ h, const float* __restrict__ w2,
@@ -184,31 +96,22 @@ __device__ __forceinline__ void fwd_body(
     const int* __restrict__ member_ptr, float* __restrict__ per,
     float* __restrict__ dl, int B, int H, int O, int P, int block,
     float inv_b, int n_tiles, int lanes, int mb_cap) {
-  constexpr int R = rows_in_flight<OT>();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
-  const int TQ = T / lanes;         // unit slots; lanes of rows share them
-  const int q = tid % TQ, lane = tid / TQ;
-  const int U = VW * TQ;            // the tile
-  const int GR = R * lanes;         // rows a group
+  const int TQ = T / lanes;
   const int RB = fwd_rows_held<OT>(lanes);
-  const int pad = TQ + TQ / 32;     // one float of padding every 32 slots
   extern __shared__ float smem[];
-  float* part = smem;                            // [GR][OT][pad]
-  float* z = part + GR * OT * pad;               // [RB][mb_cap][OT]
+  float* part = smem;  // [R · lanes][OT][pad], stream_logits' partials
+  float* z = part + rows_in_flight<OT>() * lanes * OT * (TQ + TQ / 32);
+  // z: [RB][mb_cap][OT]
   float* nll = z + RB * mb_cap * OT;             // [RB][mb_cap]
   float* nll_acc = nll + RB * mb_cap;            // [mb_cap]
   float* bias = nll_acc + mb_cap;                // [mb_cap][OT]
   int* mstart = reinterpret_cast<int*>(bias + mb_cap * OT);  // [mb_cap + 1]
   int* tgt = mstart + mb_cap + 1;                // [RB]
 
-  // this CTA's members [m0, m1); the last CTA also takes those that start
-  // at or past its tile's end
-  const int c = blockIdx.x;
   int m0, m1;
-  first_members_from(member_ptr, P, block, (long long)c * U,
-                     c + 1 == n_tiles ? LLONG_MAX : (long long)(c + 1) * U,
-                     m0, m1);
+  cta_members(member_ptr, P, block, VW * TQ, n_tiles, m0, m1);
 
   for (int mb0 = m0; mb0 < m1; mb0 += mb_cap) {
     const int nb = min(mb_cap, m1 - mb0);
@@ -220,8 +123,6 @@ __device__ __forceinline__ void fwd_body(
     }
     for (int i = tid; i < nb; i += T) nll_acc[i] = 0.f;
     __syncthreads();
-    const int ustart = mstart[0], uend = mstart[nb];
-
     for (int r0 = 0; r0 < B; r0 += RB) {
       const int nr = min(RB, B - r0);
       __syncthreads();  // the previous chunk's epilogue and sums are done
@@ -229,59 +130,8 @@ __device__ __forceinline__ void fwd_body(
       for (int i = tid; i < nr; i += T) tgt[i] = targets[r0 + i];
       __syncthreads();
 
-      for (int u0 = ustart; u0 < uend; u0 += U) {
-        const int j = u0 + VW * q;  // this thread's first unit
-        const bool act = j < uend;
-        const int u1 = min(u0 + U, uend);
-        float w[OT][VW];
-#pragma unroll
-        for (int o = 0; o < OT; ++o) {
-          if (act && o < O) {
-            load_units<VW>(w[o], w2 + (size_t)o * H + j);
-          } else {
-#pragma unroll
-            for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
-          }
-        }
-        // this lane's rows of a group: g + lane·R ... g + lane·R + R − 1
-        float hv[R][VW];
-        load_rows<R, VW>(hv, h, H, j, r0 + lane * R,
-                         act ? nr - lane * R : 0);
-        for (int g = 0; g < nr; g += GR) {
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-#pragma unroll
-            for (int o = 0; o < OT; ++o) {
-              float s = 0.f;
-#pragma unroll
-              for (int v = 0; v < VW; ++v) s = fmaf(hv[r][v], w[o][v], s);
-              part[((lane * R + r) * OT + o) * pad + q + q / 32] = s;
-            }
-          }
-          const int gn = g + GR + lane * R;  // in flight during the reduce
-          if (g + GR < nr)
-            load_rows<R, VW>(hv, h, H, j, r0 + gn, act ? nr - gn : 0);
-          __syncthreads();
-          // one thread per (row, member): the member's slots in order
-          for (int p = tid; p < GR * nb; p += T) {
-            const int i = p % nb, r = p / nb;
-            const int a = max(mstart[i], u0), e = min(mstart[i + 1], u1);
-            if (g + r >= nr || a >= e) continue;
-            float s[OT];
-#pragma unroll
-            for (int o = 0; o < OT; ++o) s[o] = 0.f;
-            for (int t = (a - u0) / VW; t < (e - u0 + VW - 1) / VW; ++t) {
-#pragma unroll
-              for (int o = 0; o < OT; ++o)
-                s[o] += part[(r * OT + o) * pad + t + t / 32];
-            }
-            float* zr = z + ((g + r) * mb_cap + i) * OT;
-#pragma unroll
-            for (int o = 0; o < OT; ++o) zr[o] += s[o];
-          }
-          __syncthreads();
-        }
-      }
+      stream_logits<OT, VW>(h, w2, H, O, r0, nr, mstart, nb, mb_cap, lanes,
+                            part, z);
 
       // epilogue: one thread per (row, member), consecutive members on
       // consecutive threads (their dl rows are contiguous)
@@ -480,66 +330,33 @@ loss_head_bwd_kernel_scalar(LOSS_HEAD_BWD_PARAMS) {
   bwd_body<OT, 1>(LOSS_HEAD_BWD_ARGS);
 }
 
-// kernel_path() in loss_head.py: 16-byte loads need a block of a multiple
-// of 4 units (so a thread's 4 units share a member), rows of a multiple of
-// 4 floats and 16-byte-aligned tensors
-bool takes_vec4(int block, int H, const void* const* ptrs, int n) {
-  if (block % 4 != 0 || H % 4 != 0) return false;
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
-  return true;
-}
-
-// Row lanes a CTA splits into: the fewest of 1, 2, 4, 8 whose tiles of
-// vw · MAX_THREADS / lanes units still give the grid two CTAs an SM.
-int cta_lanes(int H, int vw) {
-  int dev = 0, n_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
-  const long long want = 2LL * (n_sm > 0 ? n_sm : 1);
-  int lanes = 1;
-  while (lanes < MAX_LANES) {
-    const long long tile = (long long)vw * (MAX_THREADS / lanes);
-    if (((long long)H + tile - 1) / tile >= want) break;
-    lanes *= 2;
-  }
-  return lanes;
-}
-
-constexpr size_t SMEM_LIMIT = 48 * 1024;  // without the opt-in attribute
-
 template <int OT>
 int launch_fwd(const float* h, const float* w2, const float* b2,
                const int* targets, const int* member_ptr, float* per,
                float* dl, int B, int H, int O, int P, int block, float inv_b,
                cudaStream_t stream) {
   const void* ptrs[] = {h, w2};
-  const bool vec = takes_vec4(block, H, ptrs, 2);
-  const int vw = vec ? 4 : 1;
-  const int lanes = cta_lanes(H, vw);
-  const int tq = MAX_THREADS / lanes;
-  const int tile = vw * tq;
-  const long long n_tiles = H > 0 ? ((long long)H + tile - 1) / tile : 1;
-  const int mb_cap = std::min(FWD_MAX_MEMBERS, (tile + block - 1) / block);
-  const int rb = fwd_rows_held<OT>(lanes);
+  const FwdShape sh = fwd_shape(H, block, ptrs, 2);
+  const int rb = fwd_rows_held<OT>(sh.lanes), mb_cap = sh.mb_cap;
+  // the streaming core's partials and z, then nll, nll_acc, bias, mstart,
+  // tgt
   const size_t smem =
-      sizeof(float) * ((size_t)rows_in_flight<OT>() * lanes * OT *
-                           (tq + tq / 32) +
-                       (size_t)rb * mb_cap * (OT + 1) + mb_cap +
-                       (size_t)mb_cap * OT) +
+      sizeof(float) * (stream_smem_floats<OT>(sh) + (size_t)rb * mb_cap +
+                       mb_cap + (size_t)mb_cap * OT) +
       sizeof(int) * (mb_cap + 1 + rb);
-  if (n_tiles > 0x7fffffff || smem > SMEM_LIMIT)
+  if (sh.n_tiles > 0x7fffffff || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
-  if (vec)
+  const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes;
+  if (sh.vec)
     loss_head_fwd_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
                                     stream>>>(
         h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,
-        (int)n_tiles, lanes, mb_cap);
+        n_tiles, lanes, mb_cap);
   else
     loss_head_fwd_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
                                       stream>>>(
         h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,
-        (int)n_tiles, lanes, mb_cap);
+        n_tiles, lanes, mb_cap);
   return (int)cudaGetLastError();
 }
 

@@ -37,12 +37,33 @@
 //   columns are read from HBM about once and from L2 by the group's other
 //   row tiles.  TMA needs 16-byte row strides (D, F multiples of 8) and
 //   wgmma 64-row tiles inside one expert, hence the rule.
-// * every other shape, and f32: an FMA tiling.  A CTA owns a (TM-row,
-//   64-column) tile and loops over D in chunks of 16: each chunk stages x's
-//   (TM × 16) and w's (16 × 64) tiles in shared memory as f32, and 256
-//   threads accumulate RM × CN outputs each in registers (TM = 64 with
-//   4 × 4 a thread when block_t is a multiple of 64; else TM = 8 with
-//   1 × 2).  The sum over D has one order inside one CTA: no atomics.
+// * every other shape, and f32: the FMA units, in f32.  Where block_t is a
+//   multiple of 64, a register-tiled, software-pipelined SIMT GEMM
+//   (moe_gemm_simt_kernel).  A CTA of 256 threads owns a (TM × 128) tile
+//   inside one expert's run, TM = 128 where block_t % 128 == 0 and 64
+//   otherwise, and walks its groups of 512 rows with the row tile fastest
+//   (as the tensor-core kernel does, so a column tile of w[e] comes from
+//   HBM about once and from L2 for the run's other row tiles).  Each thread
+//   holds a (TM / 16 × 8) accumulator tile in registers: 8 warps in 2 × 4,
+//   a warp's 8 × 4 threads each owning rows at a stride of 32 and columns
+//   at a stride of 16 in groups of 4, so that every fragment is one float4
+//   from shared memory and a warp's float4 reads touch distinct banks or
+//   the same address: 64 FMAs for 4 shared loads a k-step at TM = 128.
+//   D is walked in chunks of 16 through two shared-memory stages: while
+//   chunk k's FMAs run, chunk k + 1's loads are in flight (w's rows,
+//   contiguous in F, by 16-byte cp.async straight into the next stage; x's
+//   rows by 16-byte loads into registers, stored K-major after the FMAs
+//   with the 8-float groups XOR-swizzled by the k row, so that the
+//   transposing stores and the float4 reads are both free of bank
+//   conflicts); one __syncthreads a chunk.  16-byte loads need D and F
+//   multiples of 4 and x, w, y 16-byte aligned (grouped_gemm.fma_instance
+//   holds the same rule); otherwise the scalar instance of the same code
+//   loads element by element, masked at the D and F edges.  bf16 operands
+//   are converted to f32 as they are staged (no cp.async there).
+//   Where block_t is not a multiple of 64, an 8-row tiling
+//   (moe_gemm_kernel): a CTA owns (8 × 64) outputs, stages x's (8 × 16)
+//   and w's (16 × 64) tiles per chunk of 16, 1 × 2 outputs a thread.
+//   Either way the sum over D has one order inside one CTA: no atomics.
 //
 // What bounds it: operations, and in bf16 only just.  At deepseek-moe-16b's
 // widths (64 experts, a capacity buffer of 512 rows each, T = 32,768, D
@@ -52,8 +73,10 @@
 // 67 TFLOP/s for 1.19 GB (0.36 ms).
 #include <climits>
 #include <cmath>
+#include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -72,7 +95,8 @@ __device__ __forceinline__ void from_f32(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16(v);
 }
 
-// TM rows per CTA, RM rows × CN columns per thread
+// The 8-row tiling (block_t not a multiple of 64): TM rows per CTA, RM rows
+// × CN columns per thread
 template <typename T, int TM, int RM, int CN>
 __global__ void __launch_bounds__(THREADS)
 moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
@@ -82,7 +106,7 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   constexpr int NY = TM / RM;          // threads along the rows
   static_assert(NX * NY == THREADS, "thread layout");
   constexpr int LA = TM + 4;           // row stride of the transposed x tile
-  __shared__ __align__(16) float As[KD][LA];
+  __shared__ float As[KD][LA];
   __shared__ float Bs[KD][TN];
 
   const int t0 = blockIdx.x * TM;
@@ -121,13 +145,8 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
       float a[RM], b[CN];
-      if constexpr (RM == 4) {
-        const float4 a4 = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-        a[0] = a4.x; a[1] = a4.y; a[2] = a4.z; a[3] = a4.w;
-      } else {
 #pragma unroll
-        for (int i = 0; i < RM; ++i) a[i] = As[kk][ty * RM + i];
-      }
+      for (int i = 0; i < RM; ++i) a[i] = As[kk][ty * RM + i];
 #pragma unroll
       for (int j = 0; j < CN; ++j) b[j] = Bs[kk][tx + NX * j];
 #pragma unroll
@@ -149,6 +168,268 @@ moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// ---- the FMA path at block_t % 64 == 0: a register-tiled SIMT GEMM ----
+
+namespace simt {
+
+constexpr int TN = 128;          // output columns per CTA
+constexpr int KC = 16;           // D per chunk
+constexpr int GROUP_ROWS = 512;  // rows a CTA group walks, row tile fastest
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// four consecutive elements, 16 (f32) or 8 (bf16) bytes, as f32
+__device__ __forceinline__ void load4(float (&v)[4], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+}
+__device__ __forceinline__ void load4(float (&v)[4], const __nv_bfloat16* p) {
+  const uint2 t = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&t.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&t.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 t;
+  t.x = *reinterpret_cast<const uint32_t*>(&lo);
+  t.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = t;
+}
+
+// TM rows per CTA (128 or 64); VEC: 16-byte loads (the vec4 instance)
+template <typename T, int TM, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+moe_gemm_simt_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                     const int* __restrict__ eid, T* __restrict__ y, int D,
+                     int F, int E, int block_t, int n_t, int n_f) {
+  constexpr int RM = TM / 16;                 // rows a thread: 8 or 4
+  constexpr int WR = TM / 2;                  // rows a warp (2 × 4 warps)
+  constexpr int KQ = KC / 4;                  // 4-groups of a row's chunk
+  constexpr int GA = TM * KQ / THREADS;       // x's 4-groups a thread
+  constexpr int GB = KC * TN / 4 / THREADS;   // w's 4-groups a thread
+  constexpr bool ASYNC_W = VEC && std::is_same<T, float>::value;
+  static_assert(RM % 4 == 0 && TM * KQ % THREADS == 0 &&
+                KC * TN % (4 * THREADS) == 0 && 32 % KQ == 0, "tile shape");
+  // x K-major, [stage][k][row ^ swizzle(k)]; w [stage][k][column]
+  __shared__ __align__(16) float As[2][KC][TM];
+  __shared__ __align__(16) float Bs[2][KC][TN];
+
+  // this CTA's tile: groups of G row tiles × every column tile, the row
+  // tile fastest inside a group
+  constexpr int G = GROUP_ROWS / TM;
+  const int group = blockIdx.x / (G * n_f);
+  const int first = group * G;
+  const int rows_g = min(G, n_t - first);
+  const int r = blockIdx.x - group * G * n_f;
+  const int t0 = (first + r % rows_g) * TM;
+  const int f0 = (r / rows_g) * TN;
+  const int e = eid[t0 / block_t];  // TM divides block_t: one expert
+  const int tid = threadIdx.x;
+
+  if (e < 0 || e >= E) {
+    for (int idx = tid; idx < TM * TN; idx += THREADS) {
+      const int c = f0 + idx % TN;
+      if (c < F) from_f32(NAN, y + (size_t)(t0 + idx / TN) * F + c);
+    }
+    return;
+  }
+  const T* xg = x + (size_t)t0 * D;
+  const T* wg = w + (size_t)e * D * F;
+
+  // x's 4-group f of a chunk: row f / KQ, k's 4-group kq = f % KQ (a
+  // warp reads 32 / KQ rows × 16·KQ contiguous bytes); stored at
+  // As[k][row ^ (kq · 32 / KQ)], so a warp's 32 transposing stores hit 32
+  // banks
+  float ra[GA][4];
+  auto load_x = [&](int k0) {
+#pragma unroll
+    for (int g = 0; g < GA; ++g) {
+      const int f = g * THREADS + tid, m = f / KQ, k = k0 + (f % KQ) * 4;
+      const T* p = xg + (size_t)m * D + k;
+      if constexpr (VEC) {
+        if (k < D) {
+          load4(ra[g], p);
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) ra[g][v] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) ra[g][v] = k + v < D ? to_f32(p[v]) : 0.f;
+      }
+    }
+  };
+  auto store_x = [&](int s) {
+#pragma unroll
+    for (int g = 0; g < GA; ++g) {
+      const int f = g * THREADS + tid, m = f / KQ, kq = f % KQ;
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        As[s][kq * 4 + v][m ^ (kq * 32 / KQ)] = ra[g][v];
+    }
+  };
+  // w's 4-group g of a chunk: k row f / 32, columns (f % 32) · 4 (a warp
+  // reads one row's 512 contiguous bytes); rows past D, columns past F
+  // read as zeros
+  float rb[ASYNC_W ? 1 : GB][4];
+  auto load_w = [&](int k0, int s) {
+#pragma unroll
+    for (int g = 0; g < GB; ++g) {
+      const int f = g * THREADS + tid, kk = f / 32, c = (f % 32) * 4;
+      const int k = k0 + kk, col = f0 + c;
+      const T* p = wg + (size_t)k * F + col;
+      if constexpr (ASYNC_W) {
+        const bool in = k < D && col < F;
+        cp_async16(&Bs[s][kk][c], in ? p : wg, in);
+      } else if constexpr (VEC) {
+        if (k < D && col < F) {
+          load4(rb[g], p);
+        } else {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) rb[g][v] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          rb[g][v] = k < D && col + v < F ? to_f32(p[v]) : 0.f;
+      }
+    }
+  };
+  auto store_w = [&](int s) {
+    if constexpr (!ASYNC_W) {
+#pragma unroll
+      for (int g = 0; g < GB; ++g) {
+        const int f = g * THREADS + tid;
+        store4(&Bs[s][f / 32][(f % 32) * 4], rb[g]);
+      }
+    }
+  };
+
+  // the thread's outputs: rows row0 + 32·gi + i, columns col0 + 16·h + j
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = (warp / 4) * WR + (lane / 4) * 4;
+  const int col0 = (warp % 4) * 32 + (lane % 4) * 4;
+  float acc[RM][8];
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  const int nk = (D + KC - 1) / KC;
+  load_x(0);
+  load_w(0, 0);
+  store_x(0);
+  store_w(0);
+  cp_async_wait_all();
+  __syncthreads();
+  for (int kc = 0; kc < nk; ++kc) {
+    const int s = kc & 1;
+    const bool more = kc + 1 < nk;
+    if (more) {  // the next chunk's loads, in flight during the FMAs
+      load_x((kc + 1) * KC);
+      load_w((kc + 1) * KC, s ^ 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KC; ++kk) {
+      const int sw = (kk / 4) * (32 / KQ);
+      float a[RM], b[8];
+#pragma unroll
+      for (int gi = 0; gi < RM / 4; ++gi) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&As[s][kk][(row0 + 32 * gi) ^ sw]);
+        a[4 * gi] = t.x; a[4 * gi + 1] = t.y;
+        a[4 * gi + 2] = t.z; a[4 * gi + 3] = t.w;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 t =
+            *reinterpret_cast<const float4*>(&Bs[s][kk][col0 + 16 * h]);
+        b[4 * h] = t.x; b[4 * h + 1] = t.y;
+        b[4 * h + 2] = t.z; b[4 * h + 3] = t.w;
+      }
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) {  // the next stage, read by no thread since the last barrier
+      store_x(s ^ 1);
+      store_w(s ^ 1);
+      cp_async_wait_all();
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    T* yr = y + (size_t)(t0 + row0 + 32 * (i / 4) + i % 4) * F;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = f0 + col0 + 16 * h;
+      if constexpr (VEC) {
+        if (c < F) store4(yr + c, &acc[i][4 * h]);  // F % 4 == 0
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < F) from_f32(acc[i][4 * h + j], yr + c + j);
+      }
+    }
+  }
+}
+
+template <typename T, int TM, bool VEC>
+int launch_at(const T* x, const T* w, const int* eid, T* y, long long Tn,
+              int D, int F, int E, int block_t, cudaStream_t stream) {
+  const long long n_t = Tn / TM, n_f = (F + TN - 1) / TN;
+  if (n_t * n_f > INT_MAX) return (int)cudaErrorInvalidValue;
+  moe_gemm_simt_kernel<T, TM, VEC><<<(unsigned)(n_t * n_f), THREADS, 0,
+                                     stream>>>(x, w, eid, y, D, F, E, block_t,
+                                               (int)n_t, (int)n_f);
+  return (int)cudaGetLastError();
+}
+
+// grouped_gemm.fma_instance: 16-byte loads need D and F multiples of 4 and
+// x, w, y 16-byte aligned
+bool takes_vec4(int D, int F, const void* x, const void* w, const void* y) {
+  const auto al = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return D % 4 == 0 && F % 4 == 0 && al(x) && al(w) && al(y);
+}
+
+// block_t % 64 == 0: 128-row tiles where block_t % 128 == 0, else 64
+template <typename T>
+int launch(const T* x, const T* w, const int* eid, T* y, long long Tn, int D,
+           int F, int E, int block_t, cudaStream_t s) {
+  const bool vec = takes_vec4(D, F, x, w, y);
+  if (block_t % 128 == 0)
+    return vec ? launch_at<T, 128, true>(x, w, eid, y, Tn, D, F, E, block_t, s)
+               : launch_at<T, 128, false>(x, w, eid, y, Tn, D, F, E, block_t,
+                                          s);
+  return vec ? launch_at<T, 64, true>(x, w, eid, y, Tn, D, F, E, block_t, s)
+             : launch_at<T, 64, false>(x, w, eid, y, Tn, D, F, E, block_t, s);
+}
+
+}  // namespace simt
+
+// The FMA path: the SIMT GEMM where block_t is a multiple of 64, else the
+// 8-row tiling.
 template <typename T>
 int launch(const T* x, const T* w, const int* eid, T* y, long long Tn, int D,
            int F, int E, int block_t, void* stream) {
@@ -156,18 +437,15 @@ int launch(const T* x, const T* w, const int* eid, T* y, long long Tn, int D,
       Tn % block_t)
     return (int)cudaErrorInvalidValue;
   if (Tn == 0) return 0;
-  const bool wide = block_t % 64 == 0;
-  const long long n_t = Tn / (wide ? 64 : 8);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (block_t % 64 == 0)
+    return simt::launch(x, w, eid, y, Tn, D, F, E, block_t, s);
+  const long long n_t = Tn / 8;
   const long long n_f = (F + TN - 1) / TN;
   if (n_t > 0x7fffffffLL || n_f > 65535) return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)n_t, (unsigned)n_f);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wide)
-    moe_gemm_kernel<T, 64, 4, 4><<<grid, THREADS, 0, s>>>(x, w, eid, y, D, F,
-                                                          E, block_t);
-  else
-    moe_gemm_kernel<T, 8, 1, 2><<<grid, THREADS, 0, s>>>(x, w, eid, y, D, F,
-                                                         E, block_t);
+  moe_gemm_kernel<T, 8, 1, 2><<<grid, THREADS, 0, s>>>(x, w, eid, y, D, F, E,
+                                                       block_t);
   return (int)cudaGetLastError();
 }
 

@@ -9,6 +9,10 @@ dtype, f32 or bf16, and one int32 expert id per run of ``block_t`` rows
 multiples of 8 and ``block_t`` a multiple of 64 runs on the tensor cores
 (``"wgmma"``: TMA-fed tiles, f32 accumulators), everything else, f32
 included, on the FMA units (``"fma"``).  The C entry applies the same rule.
+``fma_instance`` names the FMA kernel's instance: a register-tiled SIMT
+GEMM over 128- or 64-row tiles where ``block_t`` allows, with 16-byte
+loads (``"vec4"``) or element by element (``"scalar"``), else an 8-row
+tiling.
 
 ``moe_gemm_dense`` is the same function in plain PyTorch, the port of the
 JAX package's oracle ``repro/kernels/ref.py::moe_gemm_ref`` with
@@ -44,6 +48,21 @@ def kernel_path(dtype, d: int, f: int, block_t: int) -> str:
             and block_t % 64 == 0:
         return "wgmma"
     return "fma"
+
+
+def fma_instance(d: int, f: int, block_t: int, *tensors) -> tuple[int, str]:
+    """The instance of the FMA kernel a ``"fma"`` launch takes, as (tile
+    rows, ``"vec4"`` or ``"scalar"``), by the rule of ``csrc/moe_gemm.cu``:
+    the SIMT GEMM (``moe_gemm_simt_kernel``) over 128-row tiles where
+    ``block_t`` is a multiple of 128, else over 64-row ones where it is a
+    multiple of 64, with 16-byte loads where ``d`` and ``f`` are multiples
+    of 4 and every tensor given (x, w, y) starts on a 16-byte boundary;
+    else the 8-row tiling (``moe_gemm_kernel``), element by element."""
+    if block_t % 64:
+        return 8, "scalar"
+    vec = d % 4 == 0 and f % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+    return 128 if block_t % 128 == 0 else 64, "vec4" if vec else "scalar"
 
 
 def expand_block_ids(block_ids, block: int) -> np.ndarray:

@@ -9,6 +9,13 @@ b2 (P, O) f32 and the members' hidden-block ranges in CSR form,
 ``member_ptr`` (P + 1,) int32 in units of ``block`` hidden units, and
 return (B, P, O) f32 logits — log-probabilities under ``log_probs``.
 
+The f32 kernel streams h with 16-byte loads (``"vec4"``) or, where the
+block or a tensor does not allow it, with 4-byte ones (``"scalar"``, the
+same kernel's other instance): ``kernel_path`` says which, by the rule the
+C entries apply.  ``cta_members`` is its member-to-CTA rule.  Both rules
+are those of the streaming core ``csrc/head_stream.cuh``, which the
+training loss head's forward (``loss_head.py``) shares.
+
 ``infer_head_int8_cuda`` launches ``csrc/infer_head.cu``'s int8 kernel (the
 port of ``infer_head.py::infer_head_int8_fwd``): w2 (O, H) int8 with one
 f32 scale per hidden tile (H / block,), dequantized as it is staged in
@@ -17,6 +24,7 @@ shared memory; ``infer_head_int8_plain`` dequantizes, then runs
 """
 from __future__ import annotations
 
+import bisect
 import ctypes
 
 import torch
@@ -29,6 +37,36 @@ int8_launches = 0     # int8 weights
 MAX_O = 16            # classes the kernel keeps in registers (infer_head.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def kernel_path(block: int, *tensors) -> str:
+    """The design a launch of the streaming head kernels (this module's f32
+    kernel, ``loss_head.py``'s two) takes: ``"vec4"`` where ``block`` is a
+    multiple of 4 (a thread's 4 units then lie in one member) and every
+    tensor the kernel walks 4 units at a time (h and w2; the loss head's
+    backward's dh and dW too) starts on a 16-byte boundary with rows of a
+    multiple of 4 floats, else ``"scalar"``.
+    ``csrc/head_stream.cuh::takes_vec4`` is the same rule."""
+    vec = block % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0 for t in tensors)
+    return "vec4" if vec else "scalar"
+
+
+def cta_members(member_ptr, cta: int, *, block: int, hidden: int,
+                tile: int) -> range:
+    """The members that CTA ``cta`` of a streaming head forward (this
+    module's f32 kernel, ``loss_head_fwd``) owns, by the rule the kernels
+    apply (``csrc/head_stream.cuh::cta_members``): member m belongs to the
+    CTA whose ``tile`` units hold its first unit ``member_ptr[m] * block``,
+    and the last CTA also takes the members that start at or past its
+    tile's end.  A CTA's members run from the first member starting at or
+    past its tile's first unit to the first one starting at or past the
+    next tile's."""
+    starts = [int(s) * block for s in member_ptr[:-1]]
+    n_tiles = max(1, -(-hidden // tile))
+    end = (len(starts) if cta + 1 == n_tiles
+           else bisect.bisect_left(starts, (cta + 1) * tile))
+    return range(bisect.bisect_left(starts, cta * tile), end)
 
 
 def member_ptr(block_seg_ids: torch.Tensor, num_members: int) -> torch.Tensor:

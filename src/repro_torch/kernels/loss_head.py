@@ -19,50 +19,26 @@ Both kernels stream h with 16-byte loads (``"vec4"``) or, where the block
 or a tensor does not allow it, with 4-byte ones (``"scalar"``, the same
 kernel's other instance): ``kernel_path`` says which, by the rule the C
 entries apply.  ``fwd_cta_members`` is the forward's member-to-CTA rule as
-the kernel applies it.
+the kernel applies it.  The forward shares its streaming core with the
+serving head (``csrc/head_stream.cuh``), and both rules are
+``infer_head.py``'s.
 """
 from __future__ import annotations
 
-import bisect
 import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.infer_head import MAX_O, infer_head_plain
+from repro_torch.kernels.infer_head import (MAX_O, infer_head_plain,
+                                            kernel_path)
+from repro_torch.kernels.infer_head import cta_members as fwd_cta_members
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too)
 fwd_launches = 0
 bwd_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-
-
-def kernel_path(block: int, *tensors) -> str:
-    """The design a launch takes: ``"vec4"`` where ``block`` is a multiple
-    of 4 (a thread's 4 units then lie in one member) and every tensor the
-    kernel walks 4 units at a time (h and w2; the backward's dh and dW too)
-    starts on a 16-byte boundary with rows of a multiple of 4 floats, else
-    ``"scalar"``.  ``csrc/loss_head.cu::takes_vec4`` is the same rule."""
-    vec = block % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0 for t in tensors)
-    return "vec4" if vec else "scalar"
-
-
-def fwd_cta_members(member_ptr, cta: int, *, block: int, hidden: int,
-                    tile: int) -> range:
-    """The members that CTA ``cta`` of the forward owns, by the rule the
-    kernel applies (``csrc/loss_head.cu::fwd_body``): member m belongs to
-    the CTA whose ``tile`` units hold its first unit ``member_ptr[m] *
-    block``, and the last CTA also takes the members that start at or past
-    its tile's end.  A CTA's members run from the first member starting at
-    or past its tile's first unit to the first one starting at or past the
-    next tile's."""
-    starts = [int(s) * block for s in member_ptr[:-1]]
-    n_tiles = max(1, -(-hidden // tile))
-    end = (len(starts) if cta + 1 == n_tiles
-           else bisect.bisect_left(starts, (cta + 1) * tile))
-    return range(bisect.bisect_left(starts, cta * tile), end)
 
 
 def loss_head_fwd_plain(h, w2, b2, targets, member_ptr, *, block: int,

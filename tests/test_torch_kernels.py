@@ -49,6 +49,22 @@ def _close(got, want):
                                rtol=RTOL, atol=ATOL)
 
 
+def _kernels_run(fn, word: str):
+    """``fn()``'s result and the names, as ``torch.profiler`` records them,
+    of the kernels the card ran for it whose name holds ``word``."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and word in e.name]
+    return out, names
+
+
 @pytest.mark.parametrize("b,f,block,n_blocks", [
     (9, 6, 8, 20), (32, 100, 128, 12), (33, 17, 8, 41), (300, 130, 16, 9)])
 def test_fused_input_matches_plain(dev, b, f, block, n_blocks):
@@ -91,25 +107,57 @@ def test_fused_layer_matches_plain(dev, widths, block, b):
                                           blk=block))
 
 
+# several hundred members 8 or 16 units wide, as at the depth-3 head
+_HEAD_NARROW = tuple(int(w) for w in
+                     np.random.default_rng(6).choice([8, 16], 300))
+_HEAD_EMPTY = (0, 0, 8, 0, 16) + (0,) * 70 + (24, 0, 0)
+
+
 @pytest.mark.parametrize("log_probs", [False, True])
-@pytest.mark.parametrize("widths,block,o,b", [
-    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9),
-    ((100, 1, 37, 128, 129), 128, 2, 70),
-    ((33, 2, 65), 16, 16, 5),
+@pytest.mark.parametrize("widths,block,o,b,shift", [
+    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9, 0),
+    ((100, 1, 37, 128, 129), 128, 2, 70, 0),
+    ((33, 2, 65), 16, 16, 5, 0),
+    ((128,) * 40, 128, 2, 33, 0),           # parallelmlp-10k's members
+    (_HEAD_NARROW, 8, 2, 32, 0),            # the depth-3 head's
+    (_HEAD_NARROW, 8, 16, 257, 0),
+    (_HEAD_NARROW, 8, 5, 1, 0),
+    (_HEAD_EMPTY, 8, 5, 31, 0),             # empty members, first and last
+    ((1024, 1024, 2048, 40), 128, 1, 33, 0),  # members a tile wide or more
+    ((40, 5000, 16, 24), 8, 2, 257, 0),     # a member over several tiles
+    ((7, 13, 30, 2, 64, 9), 6, 2, 31, 0),   # blocks not a multiple of 4
+    ((5, 10, 35, 5, 0, 15) * 20, 5, 16, 33, 0),
+    ((3, 1, 0, 7, 2) * 50, 1, 1, 257, 0),
+    ((128,) * 40, 128, 2, 31, 1),           # h 4 bytes off: the scalar path
+    (_HEAD_NARROW, 8, 5, 33, 2),
 ])
-def test_infer_head_matches_plain(dev, log_probs, widths, block, o, b):
+def test_infer_head_matches_plain(dev, log_probs, widths, block, o, b,
+                                  shift):
+    """Each launch against the plain version, on the design ``kernel_path``
+    names (the kernel ``torch.profiler`` saw run); two launches on the same
+    inputs bitwise equal."""
     rng = np.random.default_rng(len(widths) + o)
     blocks = [-(-w // block) for w in widths]
     seg = np.repeat(np.arange(len(widths)), blocks).astype(np.int32)
     hh = int(sum(blocks)) * block
-    h = _t(rng.normal(0, 1, (b, hh)), dev)
+    # h's storage starts `shift` floats past a (256-byte aligned) allocation
+    h = torch.empty(b * hh + shift, device=dev)[shift:].view(b, hh)
+    h.copy_(_t(rng.normal(0, 1, (b, hh)), dev))
     w2 = _t(rng.normal(0, 1, (o, hh)) / 8, dev)
     b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
     ptr = ihk.member_ptr(_t(seg, dev, torch.int32), len(widths))
-    got = ihk.infer_head_cuda(h, w2, b2, ptr, block=block,
-                              log_probs=log_probs)
+    path = ihk.kernel_path(block, h, w2)
+    assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                    else "scalar")
+    n0 = ihk.launches
+    got, ran = _kernels_run(lambda: ihk.infer_head_cuda(
+        h, w2, b2, ptr, block=block, log_probs=log_probs), "infer_head")
+    assert ihk.launches == n0 + 1
+    assert len(ran) == 1 and f"infer_head_kernel_{path}" in ran[0], ran
     _close(got, ihk.infer_head_plain(h, w2, b2, ptr, block=block,
                                      log_probs=log_probs))
+    assert torch.equal(got, ihk.infer_head_cuda(h, w2, b2, ptr, block=block,
+                                                log_probs=log_probs))
 
 
 _SERVE_WIDTHS = ((5, 3), (12, 9), (7,), (17, 9, 5), (8, 8), (5, 3),
@@ -300,22 +348,6 @@ _NARROW = tuple(int(w) for w in
                 np.random.default_rng(5).choice([8, 16], 300))
 
 
-def _loss_head_kernels_run(fn):
-    """``fn()``'s result and the loss-head kernels the card ran for it, by
-    the names ``torch.profiler`` records."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in sorted(prof.events(),
-                                    key=lambda e: e.time_range.start)
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and "loss_head" in e.name]
-    return out, names
-
-
 @pytest.mark.parametrize("widths,block,o,b,shift", [
     ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9, 0),
     ((100, 1, 37, 128, 129), 128, 2, 70, 0),
@@ -352,8 +384,8 @@ def test_loss_head_matches_plain(dev, widths, block, o, b, shift):
                     else "scalar")
     fwd = (h, w2, b2, tgt, ptr)
     n0, m0 = lhk.fwd_launches, lhk.bwd_launches
-    (per, dl), ran = _loss_head_kernels_run(lambda: lhk.loss_head_fwd_cuda(
-        *fwd, block=block, b_real=b - pads))
+    (per, dl), ran = _kernels_run(lambda: lhk.loss_head_fwd_cuda(
+        *fwd, block=block, b_real=b - pads), "loss_head")
     assert len(ran) == 1 and f"loss_head_fwd_kernel_{path}" in ran[0], ran
     wper, wdl = lhk.loss_head_fwd_plain(*fwd, block=block, b_real=b - pads)
     _close(per, wper)
@@ -361,8 +393,8 @@ def test_loss_head_matches_plain(dev, widths, block, o, b, shift):
     again = lhk.loss_head_fwd_cuda(*fwd, block=block, b_real=b - pads)
     assert torch.equal(per, again[0]) and torch.equal(dl, again[1])
     dper = _t(rng.normal(0, 1, len(widths)), dev)
-    (dh, dw), ran = _loss_head_kernels_run(lambda: lhk.loss_head_bwd_cuda(
-        dper, dl, h, w2, seg, block=block))
+    (dh, dw), ran = _kernels_run(lambda: lhk.loss_head_bwd_cuda(
+        dper, dl, h, w2, seg, block=block), "loss_head")
     assert lhk.kernel_path(block, h, w2, dh, dw) == path
     assert len(ran) == 1 and f"loss_head_bwd_kernel_{path}" in ran[0], ran
     wdh, wdw = lhk.loss_head_bwd_plain(dper, dl, h, w2, seg, block=block)
@@ -813,25 +845,51 @@ def test_flash_attention_gradients_on_card(dev, model_layout):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("e,d,f,block_t,runs", [
-    (2, 16, 24, 8, (1, 3)), (4, 32, 16, 8, (2, 1, 1, 3)),
-    (1, 8, 8, 8, (2,)), (3, 40, 1408, 64, (1, 0, 2)),
-    (4, 136, 72, 128, (0, 2, 1, 0)),
+@pytest.mark.parametrize("e,d,f,block_t,runs,shift", [
+    (2, 16, 24, 8, (1, 3), 0), (4, 32, 16, 8, (2, 1, 1, 3), 0),
+    (1, 8, 8, 8, (2,), 0), (3, 40, 1408, 64, (1, 0, 2), 0),
+    (4, 136, 72, 128, (0, 2, 1, 0), 0),
     # the tensor-core path's edges: D and F no multiples of its 64 / 128
     # tiles, block_t 64 beside 128 and 192, empty experts, full widths
-    (3, 40, 24, 64, (2, 0, 1)), (2, 136, 72, 64, (1, 3)),
-    (3, 136, 24, 128, (1, 0, 2)), (2, 64, 200, 192, (1, 1)),
-    (2, 2048, 1408, 128, (2, 1))])
-def test_moe_gemm_matches_dense(dev, dtype, e, d, f, block_t, runs):
+    (3, 40, 24, 64, (2, 0, 1), 0), (2, 136, 72, 64, (1, 3), 0),
+    (3, 136, 24, 128, (1, 0, 2), 0), (2, 64, 200, 192, (1, 1), 0),
+    (2, 2048, 1408, 128, (2, 1), 0),
+    # the SIMT GEMM's scalar instance: D or F no multiple of 4, or x off a
+    # 16-byte boundary; its vec4 instance in bf16 (D, F no multiples of 8)
+    (3, 37, 101, 64, (1, 0, 2), 0), (2, 37, 101, 128, (2, 1), 0),
+    (2, 37, 101, 192, (1, 1), 0), (2, 2048, 101, 128, (1, 1), 0),
+    (2, 37, 1408, 192, (1, 2), 0), (2, 36, 100, 128, (1, 2), 1),
+    (2, 36, 100, 64, (2, 1), 0)])
+def test_moe_gemm_matches_dense(dev, dtype, e, d, f, block_t, runs, shift):
+    """Each launch against the dense version, on the kernel its design and
+    (on the FMA path) its instance name: ``*wgmma_kernel``,
+    ``moe_gemm_simt_kernel<T, rows, vec4>`` or the 8-row
+    ``moe_gemm_kernel``, as ``torch.profiler`` saw it run."""
     from repro_torch.kernels import grouped_gemm as moek
     rng = np.random.default_rng(d * f)
     eids = np.repeat(np.arange(e, dtype=np.int32), runs)
     t = int(eids.size) * block_t
-    x = _t(rng.normal(0, 1, (t, d)), dev).to(dtype)
+    # x's storage starts `shift` elements past a (256-byte aligned) one
+    x = torch.empty(t * d + shift, device=dev, dtype=dtype)[shift:]
+    x = x.view(t, d)
+    x.copy_(_t(rng.normal(0, 1, (t, d)), dev))
     w = _t(rng.normal(0, 1, (e, d, f)), dev).to(dtype)
     n0 = moek.launches
-    got = ops.moe_gemm(x, w, eids, block_t=block_t)
+    got, ran = _kernels_run(lambda: ops.moe_gemm(x, w, eids, block_t=block_t),
+                            "moe_gemm")
     assert moek.launches == n0 + 1 and got.dtype == dtype
+    assert len(ran) == 1, ran
+    if moek.kernel_path(dtype, d, f, block_t) == "wgmma":
+        assert "moe_gemm_wgmma_kernel" in ran[0], ran
+    else:
+        rows, loads = moek.fma_instance(d, f, block_t, x, w, got)
+        assert loads == ("vec4" if d % 4 == 0 and f % 4 == 0 and not shift
+                         and rows != 8 else "scalar")
+        c_type = "float" if dtype == torch.float32 else "__nv_bfloat16"
+        kernel = "moe_gemm_kernel" if rows == 8 else (
+            f"moe_gemm_simt_kernel<{c_type}, {rows}, "
+            f"{'true' if loads == 'vec4' else 'false'}>")
+        assert kernel in ran[0], ran
     want = moek.moe_gemm_dense(x, w, _t(eids, dev, torch.int32),
                                block_t=block_t)
     if dtype == torch.float32:
@@ -843,7 +901,7 @@ def test_moe_gemm_matches_dense(dev, dtype, e, d, f, block_t, runs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("block_t", [8, 64, 128])
+@pytest.mark.parametrize("block_t", [8, 64, 128, 192])
 def test_moe_gemm_expert_id_past_e_gives_nan_rows(dev, dtype, block_t):
     """An expert id equal to E: that run's rows come out NaN (nothing is
     read out of bounds), the other runs as the dense version."""

@@ -101,3 +101,34 @@ def test_kernel_path(dtype, d, f, block_t, path):
 def test_kernel_path_rejects_other_dtypes():
     with pytest.raises(TypeError):
         moek.kernel_path(torch.float16, 2048, 1408, 128)
+
+
+def _at(n: int, shift: int) -> torch.Tensor:
+    """A float32 tensor of ``n`` elements whose storage starts ``shift``
+    floats past a 16-byte boundary."""
+    buf = torch.zeros(n + 8)
+    base = (-buf.data_ptr() // 4) % 4
+    return buf[base + shift:base + shift + n]
+
+
+@pytest.mark.parametrize("block_t", [8, 64, 128, 192])
+@pytest.mark.parametrize("d,f,shift", [
+    (2048, 1408, 0),    # deepseek-moe-16b's widths
+    (40, 24, 0),
+    (37, 1408, 0),      # D not a multiple of 4
+    (2048, 101, 0),     # F not
+    (37, 101, 0),
+    (2048, 1408, 1),    # x 4 bytes off a 16-byte boundary
+    (2048, 1408, 2),
+])
+def test_fma_instance_rule(d, f, shift, block_t):
+    """The FMA kernel's instance: 128-row SIMT tiles where block_t is a
+    multiple of 128, 64-row ones where it is a multiple of 64, else the
+    8-row tiling; 16-byte loads where D and F are multiples of 4 and every
+    tensor is 16-byte aligned."""
+    x, w, y = _at(8, shift), _at(8, 0), _at(8, 0)
+    rows, loads = moek.fma_instance(d, f, block_t, x, w, y)
+    assert rows == (128 if block_t % 128 == 0 else
+                    64 if block_t % 64 == 0 else 8)
+    vec = d % 4 == 0 and f % 4 == 0 and shift == 0 and rows != 8
+    assert loads == ("vec4" if vec else "scalar")
