@@ -119,7 +119,14 @@ Phases (any failure exits non-zero, and no result line is printed):
      whole function, checked against it and timed (``library_full_ms``,
      named in ``library_full_calls``; ``library_ms`` stays the single
      call); the grouped GEMM's f32 runs the FMA instance they took
-     (``fma_instance``: tile rows, vec4 or scalar);
+     (``fma_instance``: tile rows, vec4 or scalar); ``fused_layer_dx_dw``
+     its device time and the whole function in PyTorch calls (dy·g', the
+     transposed BSR matmul, a bmm on tiles gathered in the timed call:
+     ``library_full_*``; ``library_ms`` stays the dx-only BSR matmul);
+     ``m3_matmul_dh`` its device time at both shapes (``device_ms``,
+     ``path_b_device_ms``); both, and ``infer_head``, their kernels' ptxas
+     report; ``fused_layer_dx_dw`` and ``m3_matmul_dh`` two launches on
+     the same inputs bitwise equal;
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -241,20 +248,27 @@ def _device_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
     small shape the CUDA-event time of back-to-back calls is the host's
     time to launch), and the number of launches the profiler saw: late in
     this script's process it has missed the first ones of a short window,
-    and the mean is over those it saw."""
+    and the mean is over those it saw; a window that saw none is profiled
+    again, up to three times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.name]
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in e.name]
+        if evts:
+            break
+        # a window late in the process may record no kernel at all
+        print(f"[{kernel}] the profiler saw no launch in {iters} calls "
+              f"(window {attempt + 1}); profiling again", flush=True)
     _require(0 < len(evts) <= iters, f"the profiler saw {len(evts)} "
              f"{kernel} launches in {iters} calls")
     return sum(e.device_time_total for e in evts) / len(evts) / 1e3, \
@@ -1450,7 +1464,8 @@ def _sum_rows(rows):
     for key in row:
         if key.endswith("ms") and row[key] is not None:
             row[key] = sum(r[key] for r in rows)
-    for key in ("max_abs_err", "train_max_abs_err", "dh_max_abs_err"):
+    for key in ("max_abs_err", "train_max_abs_err", "dh_max_abs_err",
+                "library_full_max_abs_err"):
         if key in row:
             row[key] = max(r[key] for r in rows)
     return row
@@ -1692,21 +1707,36 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             lay, dev, transposed=True)
         wb_t = flk.transposed_tiles(wb, perm_t)
         dy3 = torch.randn(out.shape, generator=gen, device=dev)
-        bargs = (dy3, g3, hin, wb_t, rowptr_t, s_in_t, s_w_t, out_t, in_t)
+        if hasattr(flk, "dx_dw_schedule_on"):
+            # the member-owned backward: the parameter tiles as the forward
+            # reads them, and the layout's work units
+            bargs = (dy3, g3, hin, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
+        else:  # the tree before it: transposed tiles and steps
+            bargs = (dy3, g3, hin, wb_t, rowptr_t, s_in_t, s_w_t, out_t,
+                     in_t)
         dx3, dwb3 = flk.fused_layer_dx_dw_cuda(*bargs, blk=b3)
+        _require(all(torch.equal(a, b) for a, b in zip(
+            (dx3, dwb3), flk.fused_layer_dx_dw_cuda(*bargs, blk=b3))),
+            "fused_layer_dx_dw: two launches on the same inputs differ")
         bsr_t = torch.sparse_bsr_tensor(
             rowptr_t, s_in_t, wb_t[s_w_t.long()],
             size=(lay.n_in_tiles * b3, lay.n_out_tiles * b3),
             check_invariants=True)
         du3 = dy3 * g3
-        bwd_rows.append(compare(
-            "fused_layer_dx_dw",
-            partial(flk.fused_layer_dx_dw_cuda, *bargs, blk=b3),
+        kernel = partial(flk.fused_layer_dx_dw_cuda, *bargs, blk=b3)
+        row = compare(
+            "fused_layer_dx_dw", kernel,
             partial(flk.fused_layer_dx_dw_plain, *bargs, blk=b3),
             partial(torch.matmul, bsr_t, du3.t()),
-            _nbytes(*bargs, dx3, dwb3),
+            # the bytes of the transposed route's arguments, as every PR
+            # counted them: the tile array is as large either way
+            _nbytes(dy3, g3, hin, wb_t, rowptr_t, s_in_t, s_w_t, out_t, in_t,
+                    dx3, dwb3),
             2 * BATCH * b3 * b3 * (lay.n_steps_t + lay.n_param_blocks),
-            train_n["fused_layer_dx_dw"], 50))
+            train_n["fused_layer_dx_dw"], 50)
+        row.update(_dx_dw_fields(kernel, dy3, g3, hin, bsr_t, out_t, in_t,
+                                 b3, (dx3, dwb3)))
+        bwd_rows.append(row)
 
         # the unfused route's block-diagonal GEMM on the same tiles: the
         # forward (library: the BSR matmul above), its dh on the
@@ -1832,6 +1862,19 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                 plain(*args_b, block=lp3k.block)),
             path_b_ms=_time_ms(kb, 50),
             path_b_bound_ms=_bound_ms(_nbytes(*args_b, *out_b), flops_b)[0])
+        if name == "m3_matmul_dh":
+            # device time beside the events: at path 4e's head the events
+            # time the wrapper's host cost
+            ka = partial(cuda, *args_a, block=blk)
+            _require(torch.equal(ka(), ka()), "m3_matmul_dh: two launches "
+                     "on the same inputs differ")
+            ms, seen = _device_ms(ka, "m3_dh_kernel", 50)
+            ms_b, seen_b = _device_ms(kb, "m3_dh_kernel", 50)
+            rows[name].update(device_ms=ms, device_launches_seen=seen,
+                              path_b_device_ms=ms_b,
+                              path_b_device_launches_seen=seen_b)
+            print(f"[{name}] device {ms!r} ms ({seen} seen); path 4e's head "
+                  f"{ms_b!r} ms ({seen_b} seen)", flush=True)
     dw_a = m3k.m3_matmul_dw_cuda(*cases["m3_matmul_dw"][1], block=blk)
     _require(torch.equal(dw_a, m3k.m3_matmul_dw_cuda(
         *cases["m3_matmul_dw"][1], block=blk)),
@@ -1883,6 +1926,35 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                                           block=blk_b), blk_b, hin, w2_b))
     rows["infer_head"].update(_prefixed("depth3", row))
     return rows
+
+
+def _dx_dw_fields(kernel, dy, g, x, bsr_t, out_t, in_t, blk, want):
+    """Extra fields of the ``fused_layer_dx_dw`` row at one mid layer: the
+    kernel's device time from ``torch.profiler``, and the fewest PyTorch
+    calls that compute its whole function, checked against its outputs
+    and timed (``library_full_*``; ``library_ms`` is dx alone)."""
+    import torch
+    b = dy.shape[0]
+    q_out, q_in = out_t.long(), in_t.long()
+
+    def full():
+        du = dy * g
+        dx = torch.matmul(bsr_t, du.t()).t().contiguous()
+        dw = torch.bmm(du.view(b, -1, blk)[:, q_out].permute(1, 2, 0),
+                       x.view(b, -1, blk)[:, q_in].transpose(0, 1))
+        return dx, dw
+
+    ms, seen = _device_ms(kernel, "fused_layer_dx_dw_kernel", 50)
+    out = {"device_ms": ms, "device_launches_seen": seen,
+           "library_full_max_abs_err": _close(
+               "fused_layer_dx_dw: library calls vs kernel", full(), want),
+           "library_full_ms": _time_ms(full, 50),
+           "library_full_calls": (
+               "mul: du = dy·g'; the transposed BSR matmul: dx, and one "
+               "layout copy of it to (B, n_in·blk); two gathers of du and "
+               "x by parameter tile and bmm: dWB, all in the timed call")}
+    print(f"[fused_layer_dx_dw] {out}", flush=True)
+    return out
 
 
 def _infer_head_fields(kernel, block, h, w2):
@@ -2177,8 +2249,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas))
-    rows["infer_head"]["ptxas"] = {k: v for k, v in ptxas["infer_head"].items()
-                                   if "infer_head_kernel" in k}
+    for row, lib, kernel in (("infer_head", "infer_head", "infer_head_kernel"),
+                             ("fused_layer_dx_dw", "fused_layer_dx_dw",
+                              "fused_layer_dx_dw_kernel"),
+                             ("m3_matmul_dh", "m3_matmul", "m3_dh_kernel")):
+        rows[row]["ptxas"] = {k: v for k, v in ptxas[lib].items()
+                              if kernel in k}
     rows = [rows[name] for name in REPLACES if name in rows]
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")

@@ -1,202 +1,331 @@
-// Fused block-diagonal mid layer, backward:  du = dy ⊙ g'  (in registers)
-//   dx[:, i] = Σ_{transposed steps s of input tile i}
-//                du[:, s_in_t[s]] · wb_t[s_w_t[s]]ᵀ
-//   dWB[q]   = Σ_b du[b, wb_out_tile[q]]ᵀ · x[b, wb_in_tile[q]]
+// Fused block-diagonal mid layer, backward, one member-owned pass:
+//   du   = dy ⊙ g'
+//   dx_m = du_m · W_m        (B × ib·blk: the member's input columns)
+//   dW_m = du_mᵀ · x_m       (every parameter tile of the member)
+//   pass-through members: dx = du on their tiles, no dW.
 //
 // Replaces the TPU kernel repro/kernels/fused_layer.py::fused_layer_dx_dw,
 // the backward of repro/kernels/ops.py::fused_layer's custom VJP.  dy, g'
-// (B, n_out_tiles·blk), x (B, n_in_tiles·blk), the per-member-transposed
-// tile array wb_t (n_param_blocks + 1, blk, blk) with the identity tile
-// last (built as ops.py::_bd_transposed_tiles builds it), the transposed
-// steps in CSR form (rowptr_t over input tiles, s_in_t, s_w_t) and each
-// parameter tile's output and input tile (wb_out_tile, wb_in_tile) →
-// dx (B, n_in_tiles·blk), dWB (n_param_blocks, blk, blk) f32.  The bias
-// cotangent Σ_b du stays a plain tensor op outside, as in the JAX package.
+// (B, n_out_tiles·blk), x (B, n_in_tiles·blk), the parameter tiles wb
+// (n_param_blocks, blk, blk) member-major as the forward reads them (tile
+// (r, c) of a member is its output tile r, input tile c: wb[q + r·ld + c],
+// each tile [output unit][input unit]), and the work units and jobs of
+// fused_layer.py::dx_dw_units → dx (B, n_in_tiles·blk) and dWB
+// (n_param_blocks, blk, blk) f32.  The bias cotangent Σ_b du stays a plain
+// tensor op outside, as in the JAX package.
 //
-// The TPU kernel walks the transposed steps on its outer grid axis and the
-// batch tiles on the inner one, carrying dx run sums in a (B, blk) scratch
-// and each dw tile across the inner batch tiles.  A GPU grid has no order,
-// so one launch runs two roles split by blockIdx, every output with one
-// owner:
-//   * role A, a CTA per (32-row batch tile, input tile), walks that tile's
-//     run of transposed steps — pass-through steps through the identity
-//     tile — and writes dx once (the forward kernel's loop, with du formed
-//     from dy and g' as the tile is staged);
-//   * role B, a CTA per group of parameter tiles (128 / blk of them, so a
-//     CTA has 128·blk outputs), loops privately over every batch tile.
-//     Pass-through steps have no parameter tile, so they write no dW.
-// No floating-point atomics: a step is bitwise reproducible.  Any block up
-// to 128 (block 8, the LayeredPopulation default, included).
+// The TPU kernel walks the transposed steps on a sequential grid, carrying
+// dx run sums and each dW tile across batch tiles in VMEM.  Here the
+// layout's member-major rectangles do the work: a unit is one member, or
+// one chunk [c0, c1) of its input-tile columns, and owns dx[:, c0:c1] and
+// dW[all rows, c0:c1] — every output has one owner, no atomics, one fixed
+// summation order: a step is bitwise reproducible.  A unit stages du (formed
+// once from dy and g'), its x columns and its weight columns in shared
+// memory, then forms dx from du and W and dW from du and x, each thread a
+// 4 × 4 register tile fed by two 16-byte shared-memory reads per 16 FMA.
+// Members wider than a stage are walked in chunks: 64 columns, 32 output
+// units, 32 batch rows at a time, dx summed in registers over the output
+// chunks, dW added into its own slice in global memory, in order, over the
+// batch chunks.
 //
-// What bounds it: bytes at training batch sizes.  Per parameter tile the
-// kernel reads the weight tile once and does 4·B·blk² FLOP (dx and dW):
-// at B = 32 that is 32 FLOP per weight byte, near the card's f32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20); dy, g' and x are read once per role.
+// Packing: a job is one CTA of 128 threads.  A unit of more than 8 output
+// or 16 input units takes the whole CTA (team job); smaller ones and
+// pass-through runs go a warp each, four to a CTA (warp job), so a block-8
+// member no longer costs a CTA for 256 outputs.  The warp jobs come first,
+// so that these short, latency-bound jobs run beside the first wave of
+// team jobs (heaviest first) and not in a tail of their own.  Any block 1–128,
+// any B (16-byte global accesses where blk % 4 == 0 and the pointers
+// allow; else a scalar instance).
 //
-// Left for later: plain FMA (no tensor cores), no double buffering, and at
-// blk = 8 a dx CTA computes only 32 × 8 outputs — many small CTAs.
+// What bounds it: bytes.  dy, g', x, the tiles, dx and dWB each cross
+// memory once (a member wider than 64 columns re-reads its du per column
+// chunk, from L2); at B = 32 the 4·B·blk² FLOP per tile are 32 FLOP per
+// weight byte, under the card's f32 ridge once the FMAs are register-tiled.
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_BLK = 128;
-// role A (dx)
-constexpr int BM = 32;                              // batch rows per CTA
-constexpr int KC = 32;                              // reduction chunk
-constexpr int MAX_ACC_A = BM * MAX_BLK / THREADS;   // 16
-// role B (dW)
-constexpr int KB = 32;                              // batch rows per chunk
-constexpr int WB_COLS = 128;                        // G·blk ≤ 128 columns
-constexpr int MAX_ACC_B = WB_COLS * MAX_BLK / THREADS;  // 64
-constexpr int SMEM_A = BM * (KC + 1) + MAX_BLK * (KC + 1);
-constexpr int SMEM_B = 2 * KB * (WB_COLS + 1);
-constexpr int SMEM = SMEM_A > SMEM_B ? SMEM_A : SMEM_B;
+constexpr int UNIT_INTS = 8;  // in0, nc, out0, no, q, ld, warp, 0
 
-__global__ void __launch_bounds__(THREADS)
-fused_layer_dx_dw_kernel(const float* __restrict__ dy,
-                         const float* __restrict__ g,
-                         const float* __restrict__ x,
-                         const float* __restrict__ wb_t,
-                         const int* __restrict__ rowptr_t,
-                         const int* __restrict__ s_in_t,
-                         const int* __restrict__ s_w_t,
-                         const int* __restrict__ wb_out_tile,
-                         const int* __restrict__ wb_in_tile,
-                         float* __restrict__ dx, float* __restrict__ dwb,
-                         int B, int in_width, int out_width, int blk,
-                         int n_param, int tiles_per_cta, int n_dx_ctas,
-                         int n_btiles) {
-  __shared__ float smem[SMEM];
-  const int t = threadIdx.x;
+// a stage: x [BCH][CWM], W [OCH][CWM], du [BCH][OCH], duᵀ [OCH][BCH + 4]
+template <int BCH_, int OCH_, int CWM_>
+struct Stage {
+  static constexpr int BCH = BCH_, OCH = OCH_, CWM = CWM_;
+  static constexpr int DUT_LD = BCH + 4;  // 16-byte rows, 4-way staging
+  static constexpr int X = 0;
+  static constexpr int W = X + BCH * CWM;
+  static constexpr int DU = W + OCH * CWM;
+  static constexpr int DUT = DU + BCH * OCH;
+  static constexpr int FLOATS = DUT + OCH * DUT_LD;
+  // the 4-row register tiles must cover BCH batch rows and OCH output units
+  // with ≥ 8 thread rows: at most NT / 8 column groups of 4
+  static_assert(BCH <= 32 && OCH <= 32 && CWM % 4 == 0 && OCH % 4 == 0,
+                "stage shape");
+};
+using TeamStage = Stage<32, 32, 64>;  // the whole CTA on one unit
+using WarpStage = Stage<32, 8, 16>;   // one warp on one unit
+static_assert(TeamStage::CWM <= THREADS / 2 && WarpStage::CWM <= 32 / 2,
+              "a column group of 4 per thread, at least 8 thread rows");
+constexpr int SMEM = TeamStage::FLOATS > WARPS * WarpStage::FLOATS
+                         ? TeamStage::FLOATS
+                         : WARPS * WarpStage::FLOATS;
 
-  if ((int)blockIdx.x < n_dx_ctas) {
-    // ---- role A: dx of one (batch tile, input tile)
-    float(*us)[KC + 1] = reinterpret_cast<float(*)[KC + 1]>(smem);
-    float(*ws)[KC + 1] =
-        reinterpret_cast<float(*)[KC + 1]>(smem + BM * (KC + 1));
-    const int bt = blockIdx.x % n_btiles;
-    const int it = blockIdx.x / n_btiles;
-    const int b0 = bt * BM;
-    const int n_out = BM * blk;
-    float acc[MAX_ACC_A];
+struct Args {
+  const float* dy;  // read through the read-only path (__ldg)
+  const float* g;
+  const float* x;
+  const float* wb;
+  float* dx;
+  float* dwb;
+  int B, in_w, out_w, blk;
+};
+
+template <int NT>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (NT == THREADS)
+    __syncthreads();
+  else
+    __syncwarp();
+}
+
+template <int V>
+__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+    p[0] = v[0];
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a,
+                                       const float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w};
+  const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-    for (int a = 0; a < MAX_ACC_A; ++a) acc[a] = 0.f;
-    const int s_end = rowptr_t[it + 1];
-    for (int s = rowptr_t[it]; s < s_end; ++s) {
-      const int col0 = s_in_t[s] * blk;   // a tile of the layer above
-      const float* wt = wb_t + (size_t)s_w_t[s] * blk * blk;
-      for (int k0 = 0; k0 < blk; k0 += KC) {
-        const int kc = min(KC, blk - k0);
-        __syncthreads();  // the previous chunk's reads are done
-        for (int i = t; i < BM * kc; i += THREADS) {
-          const int r = i / kc, c = i % kc;
-          const int b = b0 + r;
-          const size_t at = (size_t)b * out_width + col0 + k0 + c;
-          us[r][c] = b < B ? dy[at] * g[at] : 0.f;
-        }
-        for (int i = t; i < blk * kc; i += THREADS) {
-          const int r = i / kc, c = i % kc;
-          ws[r][c] = wt[(size_t)r * blk + k0 + c];
-        }
-        __syncthreads();
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int a = 0; a < MAX_ACC_A; ++a) {
-          const int o = t + a * THREADS;
-          if (o < n_out) {
-            const int r = o / blk, col = o % blk;
-            float sum = acc[a];
-            for (int c = 0; c < kc; ++c) sum = fmaf(us[r][c], ws[col][c], sum);
-            acc[a] = sum;
+    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+}
+
+// dx = du on a run of pass-through tiles
+template <int NT, int V>
+__device__ void pass_through(const int* u, const Args& a, int l) {
+  const int in0 = u[0], nc = u[1], out0 = u[2];
+  const int nv = nc * a.blk / V;
+  const long long n = (long long)a.B * nv;
+  for (long long i = l; i < n; i += NT) {
+    const int b = (int)(i / nv);
+    const int c = (int)(i - (long long)b * nv) * V;
+    const size_t at = (size_t)b * a.out_w + (size_t)out0 * a.blk + c;
+    float d[V], gv[V];
+    load<V>(a.dy + at, d);
+    load<V>(a.g + at, gv);
+#pragma unroll
+    for (int e = 0; e < V; ++e) d[e] *= gv[e];
+    store<V>(a.dx + (size_t)b * a.in_w + (size_t)in0 * a.blk + c, d);
+  }
+}
+
+// one unit on NT threads (lane l) over the stage at `s`
+template <int NT, class S, int V>
+__device__ void run_unit(const int* u, const Args& a, float* s, int l) {
+  if (u[4] < 0) {
+    pass_through<NT, V>(u, a, l);
+    return;
+  }
+  const int in0 = u[0], nc = u[1], out0 = u[2], no = u[3], q = u[4],
+            ld = u[5];
+  const int blk = a.blk;
+  const int ncols = nc * blk, nouts = no * blk;
+  const size_t xcol = (size_t)in0 * blk, ycol = (size_t)out0 * blk;
+  float* xs = s + S::X;
+  float* ws = s + S::W;
+  float* dus = s + S::DU;
+  float* dut = s + S::DUT;
+  for (int cc0 = 0; cc0 < ncols; cc0 += S::CWM) {
+    const int cw = min(S::CWM, ncols - cc0);
+    const int txn = (cw + 3) >> 2;  // column groups of 4
+    const int tx = l % txn, ty = l / txn;
+    const int j0 = tx * 4, r0 = ty * 4;  // a 4 × 4 tile of each product
+    for (int b0 = 0; b0 < a.B; b0 += S::BCH) {
+      const int bc = min(S::BCH, a.B - b0);
+      float adx[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) adx[i][j] = 0.f;
+      for (int u0 = 0; u0 < nouts; u0 += S::OCH) {
+        const int oc = min(S::OCH, nouts - u0);
+        team_sync<NT>();  // the previous stage's readers are done
+        if (u0 == 0) {    // x: bc rows × cw columns
+          const int nv = cw / V;
+          for (int i = l; i < bc * nv; i += NT) {
+            const int r = i / nv, j = (i - r * nv) * V;
+            float v[V];
+            load<V>(a.x + (size_t)(b0 + r) * a.in_w + xcol + cc0 + j, v);
+#pragma unroll
+            for (int e = 0; e < V; ++e) xs[r * S::CWM + j + e] = v[e];
+          }
+        }
+        {  // du = dy · g': bc rows × oc units, in both layouts
+          const int nv = oc / V;
+          for (int i = l; i < bc * nv; i += NT) {
+            const int r = i / nv, c = (i - r * nv) * V;
+            const size_t at = (size_t)(b0 + r) * a.out_w + ycol + u0 + c;
+            float d[V], gv[V];
+            load<V>(a.dy + at, d);
+            load<V>(a.g + at, gv);
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              const float v = d[e] * gv[e];
+              dus[r * S::OCH + c + e] = v;
+              dut[(c + e) * S::DUT_LD + r] = v;
+            }
+          }
+        }
+        {  // W: oc output units × cw input units, from the member's tiles
+          const int nv = cw / V;
+          for (int i = l; i < oc * nv; i += NT) {
+            const int r = i / nv, j = (i - r * nv) * V;
+            const int ua = u0 + r, ja = cc0 + j;
+            const size_t tile = (size_t)q + (size_t)(ua / blk) * ld + ja / blk;
+            float v[V];
+            load<V>(a.wb + (tile * blk + ua % blk) * blk + ja % blk, v);
+#pragma unroll
+            for (int e = 0; e < V; ++e) ws[r * S::CWM + j + e] = v[e];
+          }
+        }
+        team_sync<NT>();
+        if (r0 < bc) {  // dx rows r0.., columns j0..: Σ over this chunk's units
+          for (int k = 0; k < oc; ++k)
+            fma4x4(adx, lds4(dut + k * S::DUT_LD + r0),
+                   lds4(ws + k * S::CWM + j0));
+        }
+        if (r0 < oc) {  // dW rows (units) r0.., columns j0..: Σ over bc rows
+          float adw[4][4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) adw[i][j] = 0.f;
+          for (int k = 0; k < bc; ++k)
+            fma4x4(adw, lds4(dus + k * S::OCH + r0), lds4(xs + k * S::CWM + j0));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int ua = u0 + r0 + i;
+            if (r0 + i >= oc) break;
+            const size_t row = (size_t)q + (size_t)(ua / blk) * ld;
+            const int au = ua % blk;
+            if constexpr (V == 4) {
+              if (j0 < cw) {  // 4 columns of one tile (blk % 4 == 0)
+                const int ja = cc0 + j0;
+                float* p = a.dwb + ((row + ja / blk) * blk + au) * blk + ja % blk;
+                float4 o = make_float4(adw[i][0], adw[i][1], adw[i][2],
+                                       adw[i][3]);
+                if (b0 > 0) {  // this unit's own slice, chunks in order
+                  const float4 was = *reinterpret_cast<const float4*>(p);
+                  o.x += was.x; o.y += was.y; o.z += was.z; o.w += was.w;
+                }
+                *reinterpret_cast<float4*>(p) = o;
+              }
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (j0 + j < cw) {
+                  const int ja = cc0 + j0 + j;
+                  float* p =
+                      a.dwb + ((row + ja / blk) * blk + au) * blk + ja % blk;
+                  *p = b0 > 0 ? *p + adw[i][j] : adw[i][j];
+                }
+              }
+            }
+          }
+        }
+      }
+      if (r0 < bc) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r0 + i >= bc) break;
+          float* p = a.dx + (size_t)(b0 + r0 + i) * a.in_w + xcol + cc0 + j0;
+          if constexpr (V == 4) {
+            if (j0 < cw)
+              *reinterpret_cast<float4*>(p) =
+                  make_float4(adx[i][0], adx[i][1], adx[i][2], adx[i][3]);
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (j0 + j < cw) p[j] = adx[i][j];
           }
         }
       }
     }
-#pragma unroll
-    for (int a = 0; a < MAX_ACC_A; ++a) {
-      const int o = t + a * THREADS;
-      if (o < n_out) {
-        const int b = b0 + o / blk;
-        if (b < B) dx[(size_t)b * in_width + it * blk + o % blk] = acc[a];
-      }
-    }
-    return;
   }
+}
 
-  // ---- role B: dW of tiles q0 .. q0 + tiles_per_cta over every batch row
-  float(*us)[WB_COLS + 1] = reinterpret_cast<float(*)[WB_COLS + 1]>(smem);
-  float(*xs)[WB_COLS + 1] =
-      reinterpret_cast<float(*)[WB_COLS + 1]>(smem + KB * (WB_COLS + 1));
-  const int q0 = (blockIdx.x - n_dx_ctas) * tiles_per_cta;
-  const int nq = min(tiles_per_cta, n_param - q0);
-  const int bb = blk * blk;
-  const int n_out = nq * bb;
-  const int cols = nq * blk;
-  float acc[MAX_ACC_B];
-#pragma unroll
-  for (int a = 0; a < MAX_ACC_B; ++a) acc[a] = 0.f;
-  for (int b0 = 0; b0 < B; b0 += KB) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = t; i < KB * cols; i += THREADS) {
-      const int k = i / cols, c = i % cols;
-      const int gq = c / blk, e = c % blk;
-      const int b = b0 + k;
-      float u = 0.f, xv = 0.f;
-      if (b < B) {
-        const size_t au =
-            (size_t)b * out_width + wb_out_tile[q0 + gq] * blk + e;
-        u = dy[au] * g[au];
-        xv = x[(size_t)b * in_width + wb_in_tile[q0 + gq] * blk + e];
-      }
-      us[k][c] = u;
-      xs[k][c] = xv;
-    }
-    __syncthreads();
-    const int kb = min(KB, B - b0);
-#pragma unroll
-    for (int a = 0; a < MAX_ACC_B; ++a) {
-      const int o = t + a * THREADS;
-      if (o < n_out) {
-        const int gq = o / bb, rem = o % bb;
-        const int ru = gq * blk + rem / blk;   // output unit of the tile
-        const int cx = gq * blk + rem % blk;   // input unit of the tile
-        float sum = acc[a];
-        for (int k = 0; k < kb; ++k) sum = fmaf(us[k][ru], xs[k][cx], sum);
-        acc[a] = sum;
-      }
-    }
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+fused_layer_dx_dw_kernel(Args a, const int* __restrict__ units,
+                         const int* __restrict__ job_ptr) {
+  __shared__ __align__(16) float smem[SMEM];
+  const int u_lo = job_ptr[blockIdx.x], u_hi = job_ptr[blockIdx.x + 1];
+  if (u_lo >= u_hi) return;
+  if (units[(size_t)u_lo * UNIT_INTS + 6] == 0) {  // team job
+    for (int k = u_lo; k < u_hi; ++k)
+      run_unit<THREADS, TeamStage, V>(units + (size_t)k * UNIT_INTS, a, smem,
+                                      threadIdx.x);
+  } else {  // warp job: a unit a warp
+    const int w = threadIdx.x >> 5;
+    for (int k = u_lo + w; k < u_hi; k += WARPS)
+      run_unit<32, WarpStage, V>(units + (size_t)k * UNIT_INTS, a,
+                                 smem + w * WarpStage::FLOATS,
+                                 threadIdx.x & 31);
   }
-#pragma unroll
-  for (int a = 0; a < MAX_ACC_B; ++a) {
-    const int o = t + a * THREADS;
-    if (o < n_out) dwb[(size_t)q0 * bb + o] = acc[a];
-  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
+// dy, g (B, n_out_tiles·blk), x (B, n_in_tiles·blk), wb (n_param, blk, blk),
+// units (n_units, 8) and job_ptr (n_jobs + 1,) int32 → dx, dwb.
 extern "C" int fused_layer_dx_dw_f32(const float* dy, const float* g,
-                                     const float* x, const float* wb_t,
-                                     const int* rowptr_t, const int* s_in_t,
-                                     const int* s_w_t, const int* wb_out_tile,
-                                     const int* wb_in_tile, float* dx,
-                                     float* dwb, int B, int n_in_tiles,
-                                     int n_out_tiles, int n_param, int blk,
-                                     void* stream) {
-  if (B <= 0) return 0;
-  if (blk <= 0 || blk > MAX_BLK || n_param < 0)
+                                     const float* x, const float* wb,
+                                     const int* units, const int* job_ptr,
+                                     float* dx, float* dwb, int B,
+                                     int n_in_tiles, int n_out_tiles, int blk,
+                                     int n_jobs, void* stream) {
+  if (blk <= 0 || blk > MAX_BLK || B < 0 || n_jobs < 0)
     return (int)cudaErrorInvalidValue;
-  const int tiles_per_cta = WB_COLS / blk;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_dx = n_btiles * n_in_tiles;
-  const long long n_dw = (n_param + tiles_per_cta - 1) / tiles_per_cta;
-  if (n_dx + n_dw > INT_MAX) return (int)cudaErrorInvalidValue;
-  if (n_dx + n_dw == 0) return 0;
-  fused_layer_dx_dw_kernel<<<(unsigned)(n_dx + n_dw), THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t, wb_out_tile, wb_in_tile, dx,
-      dwb, B, n_in_tiles * blk, n_out_tiles * blk, blk, n_param,
-      tiles_per_cta, (int)n_dx, (int)n_btiles);
+  if ((long long)n_in_tiles * blk > INT_MAX ||
+      (long long)n_out_tiles * blk > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n_jobs == 0) return 0;
+  const Args a{dy, g, x, wb, dx, dwb, B, n_in_tiles * blk, n_out_tiles * blk,
+               blk};
+  const bool v4 = blk % 4 == 0 && aligned16(dy) && aligned16(g) &&
+                  aligned16(x) && aligned16(wb) && aligned16(dx) &&
+                  aligned16(dwb);
+  auto* kernel = v4 ? fused_layer_dx_dw_kernel<4> : fused_layer_dx_dw_kernel<1>;
+  kernel<<<(unsigned)n_jobs, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, units, job_ptr);
   return (int)cudaGetLastError();
 }

@@ -26,21 +26,29 @@
 // atomics; y is written once.  A member that owns no block gets y = 0 (the
 // JAX kernel never visits its output block and leaves it unwritten).
 //
-// dh is one pass over (B, H) with a gather: each thread owns VEC columns of
-// one member (VEC = 4, 16-byte accesses, when block, H and the pointers
-// allow; else a scalar instance), keeps their weights in registers and
-// walks ROWS batch rows, reading dy[b, seg, :] from L1/L2.
+// dh is a pure store stream: it writes (B, H) and reads only w2 and a small
+// dy.  A persistent grid, sized by the SM count and the CTAs that fit one,
+// walks tasks of one column chunk (256·VEC columns) by one block of up to 8
+// batch rows.  Before any store a task stages dy[b, seg(k), :] for its rows
+// and hidden blocks k in shared memory (one sweep, one barrier) and holds
+// its columns' weights in registers (VEC = 4, 16-byte accesses, when block,
+// H and the pointers allow; else a scalar instance); the store loop has no
+// global load, keeps its rows' stores in flight and writes evict-first
+// (st.global.cs), so the stream does not push the operands out of L2.
+// Eight-row tasks keep the last wave of a grid-stride loop short.  Beyond
+// 16 classes the weights and dy come from L1/L2 per row.
 //
 // The TPU dW carries each tile's sum across the batch-tile grid axis.  Here
 // one thread owns VEC columns j and loops b = 0..B−1 in order, so the sum
-// has one fixed order and no float atomics: dW is bitwise reproducible.
+// has one fixed order and no float atomics: dW is bitwise reproducible, as
+// is dh (one thread per output, one order over the classes).
 //
 // What bounds them: bytes.  At the paper's full width (B = 32, H =
 // 1,280,000, P = 10,000, O = 2) each kernel moves h or dh (164 MB), w2 or
 // dw2 (10 MB) and y or dy (2.6 MB), about 0.053 ms at 3.35 TB/s, for 8·B·H
 // FLOP (0.005 ms at 67 TFLOP/s).  Left for later: w2 is re-read from L1
-// per batch row in the forward, and dh's CTAs of other row groups re-read
-// it from L2.
+// per batch row in the forward.
+#include <algorithm>
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,7 +58,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BT = 16;     // batch rows per warp task (forward)
-constexpr int ROWS = 16;   // batch rows per CTA (dh)
+constexpr int DH_ROWS = 8;       // batch rows of a dh task: stores in flight
+constexpr int DH_STAGE = 4352;   // staged dy floats: ≥ 16 classes × 257 blocks
 
 template <int VEC>
 __device__ __forceinline__ void load(const float* __restrict__ p,
@@ -132,57 +141,107 @@ m3_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w2,
   }
 }
 
+// a store that is not read again here: evict-first (st.global.cs)
+template <int VEC>
+__device__ __forceinline__ void store_stream(float* __restrict__ p,
+                                             const float (&v)[VEC]) {
+  if constexpr (VEC == 4)
+    __stcs(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  else
+    __stcs(p, v[0]);
+}
+
+// SMs of the current device (cached per device)
+int sm_count() {
+  static int count[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev] > 0 ? count[dev] : 1;
+}
+
+// dh: a persistent grid of THREADS-thread CTAs walks tasks of one
+// column chunk (THREADS·VEC columns) by one row block (up to DH_ROWS
+// batch rows) in a grid-stride loop.  Before any store a task stages the
+// dy[b, seg(k), :] of its blocks k and rows in shared memory (one load
+// sweep, one barrier) and holds its columns' weights in registers; the
+// store loop then reads only shared memory and keeps its rows' stores in
+// flight, with the evict-first hint.  O > 16: the weights and dy come from
+// L1/L2 per row.
 template <int VEC, int OT>
 __global__ void __launch_bounds__(THREADS)
 m3_dh_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
              const int* __restrict__ seg, float* __restrict__ dh, int B,
-             long long H, int O, int P, int block) {
-  const long long c0 = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
-  if (c0 >= H) return;
-  const int s = seg[c0 / block];  // VEC = 4 only when block % 4 == 0
-  const int b_end = min(B, (int)(blockIdx.y + 1) * ROWS);
-  if (O <= OT) {
-    float w[OT][VEC];
+             long long H, int O, int P, int block, int rows,
+             long long n_tasks, int n_rblocks) {
+  __shared__ float dys[DH_STAGE];  // [row][block of the chunk][class]
+  constexpr long long CC = (long long)THREADS * VEC;
+  for (long long task = blockIdx.x; task < n_tasks; task += gridDim.x) {
+    const long long c_lo = task / n_rblocks * CC;
+    const int b0 = (int)(task % n_rblocks) * rows;
+    const int nr = min(rows, B - b0);
+    const long long c_hi = c_lo + CC < H ? c_lo + CC : H;
+    const long long k_lo = c_lo / block;
+    const long long c0 = c_lo + (long long)threadIdx.x * VEC;
+    const bool live = c0 < c_hi;  // VEC = 4 only when block % 4 == 0
+    if constexpr (OT == 0) {
+      if (!live) continue;
+      const int s = seg[c0 / block];
+      for (int r = 0; r < nr; ++r) {
+        const float* d = dy + ((size_t)(b0 + r) * P + s) * O;
+        float acc[VEC];
 #pragma unroll
-    for (int o = 0; o < OT; ++o) {
-      if (o < O) {
-        load<VEC>(w2 + (size_t)o * H + c0, w[o]);
-      } else {
+        for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+        for (int o = 0; o < O; ++o) {
+          const float gv = __ldg(d + o);
+          float wv[VEC];
+          load<VEC>(w2 + (size_t)o * H + c0, wv);
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) w[o][e] = 0.f;
+          for (int e = 0; e < VEC; ++e) acc[e] = fmaf(gv, wv[e], acc[e]);
+        }
+        store_stream<VEC>(dh + (size_t)(b0 + r) * H + c0, acc);
       }
-    }
-#pragma unroll 4
-    for (int b = blockIdx.y * ROWS; b < b_end; ++b) {
-      const float* d = dy + ((size_t)b * P + s) * O;
-      float acc[VEC];
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    } else {
+      const int per_row = (int)((c_hi - 1) / block - k_lo + 1) * O;
+      __syncthreads();  // the previous task's readers are done
+      for (int i = threadIdx.x; i < nr * per_row; i += THREADS) {
+        const int r = i / per_row, rem = i - r * per_row;
+        const int k = rem / O, o = rem - k * O;
+        dys[i] = __ldg(dy + ((size_t)(b0 + r) * P + __ldg(seg + k_lo + k)) *
+                                O + o);
+      }
+      float w[OT][VEC];
 #pragma unroll
       for (int o = 0; o < OT; ++o) {
-        if (o < O) {
-          const float g = __ldg(d + o);
+        if (live && o < O) {
+          load<VEC>(w2 + (size_t)o * H + c0, w[o]);
+        } else {
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[e] = fmaf(g, w[o][e], acc[e]);
+          for (int e = 0; e < VEC; ++e) w[o][e] = 0.f;
         }
       }
-      store<VEC>(dh + (size_t)b * H + c0, acc);
-    }
-  } else {
-    // more classes than registers: the weights re-read per row (L1)
-    for (int b = blockIdx.y * ROWS; b < b_end; ++b) {
-      const float* d = dy + ((size_t)b * P + s) * O;
-      float acc[VEC];
+      __syncthreads();
+      if (!live) continue;
+      const float* d = dys + (c0 / block - k_lo) * O;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
-      for (int o = 0; o < O; ++o) {
-        const float g = __ldg(d + o);
-        float wv[VEC];
-        load<VEC>(w2 + (size_t)o * H + c0, wv);
+      for (int r = 0; r < DH_ROWS; ++r) {
+        if (r < nr) {
+          float acc[VEC];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[e] = fmaf(g, wv[e], acc[e]);
+          for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+#pragma unroll
+          for (int o = 0; o < OT; ++o) {
+            if (o < O) {
+              const float gv = d[r * per_row + o];
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) acc[e] = fmaf(gv, w[o][e], acc[e]);
+            }
+          }
+          store_stream<VEC>(dh + (size_t)(b0 + r) * H + c0, acc);
+        }
       }
-      store<VEC>(dh + (size_t)b * H + c0, acc);
     }
   }
 }
@@ -245,11 +304,26 @@ void fwd(const float* h, const float* w2, const int* member_ptr, float* y,
 }
 
 template <int VEC, int OT>
-void dh_launch(const float* dy, const float* w2, const int* seg, float* dh,
-               int B, long long H, int O, int P, int block, dim3 grid,
-               cudaStream_t s) {
-  m3_dh_kernel<VEC, OT><<<grid, THREADS, 0, s>>>(dy, w2, seg, dh, B, H, O, P,
-                                                 block);
+int dh_launch(const float* dy, const float* w2, const int* seg, float* dh,
+              int B, long long H, int O, int P, int block, cudaStream_t s) {
+  // blocks one chunk can touch, and the rows whose dy fits the stage
+  const long long cc = (long long)THREADS * VEC;
+  const long long nb = (cc + block - 2) / block + 1;
+  const int rows = OT == 0 ? DH_ROWS
+                           : (int)std::min<long long>(DH_ROWS,
+                                                      DH_STAGE / (nb * O));
+  const long long n_rblocks = (B + rows - 1) / rows;
+  const long long n_tasks = (H + cc - 1) / cc * n_rblocks;
+  static int per_sm = 0;  // resident CTAs an SM, the same on every H100
+  if (per_sm == 0 && cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &per_sm, m3_dh_kernel<VEC, OT>, THREADS, 0) !=
+                         cudaSuccess)
+    return (int)cudaGetLastError();
+  const long long grid =
+      std::min<long long>(n_tasks, (long long)sm_count() * std::max(per_sm, 1));
+  m3_dh_kernel<VEC, OT><<<(unsigned)grid, THREADS, 0, s>>>(
+      dy, w2, seg, dh, B, H, O, P, block, rows, n_tasks, (int)n_rblocks);
+  return (int)cudaGetLastError();
 }
 
 template <int VEC, int OT>
@@ -260,7 +334,7 @@ void dw_launch(const float* h, const float* dy, const int* seg, float* dw,
                                                  block);
 }
 
-// the column grid of dh and dW: one thread per VEC columns
+// the column grid of dW: one thread per VEC columns
 bool col_grid(long long H, int vec, unsigned* gx) {
   const long long n = (H / vec + THREADS - 1) / THREADS;
   if (n > 0x7fffffffLL) return false;
@@ -295,15 +369,12 @@ extern "C" int m3_dh_f32(const float* dy, const float* w2, const int* seg,
   if (bad_args(B, H, O, P, block)) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
   const bool v4 = vec4(H, block, w2, dh);
-  unsigned gx;
-  const long long gy = (B + ROWS - 1) / ROWS;
-  if (!col_grid(H, v4 ? 4 : 1, &gx) || gy > 65535)
-    return (int)cudaErrorInvalidValue;
-  auto* fn = v4 ? (O <= 4 ? dh_launch<4, 4> : dh_launch<4, 16>)
-                : (O <= 4 ? dh_launch<1, 4> : dh_launch<1, 16>);
-  fn(dy, w2, seg, dh, B, H, O, P, block, dim3(gx, (unsigned)gy),
-     static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  auto* fn = v4 ? (O <= 4 ? dh_launch<4, 4>
+                          : O <= 16 ? dh_launch<4, 16> : dh_launch<4, 0>)
+                : (O <= 4 ? dh_launch<1, 4>
+                          : O <= 16 ? dh_launch<1, 16> : dh_launch<1, 0>);
+  return fn(dy, w2, seg, dh, B, H, O, P, block,
+            static_cast<cudaStream_t>(stream));
 }
 
 // h (B, H), dy (B, P, O), seg (H / block,) → dw2 (O, H).

@@ -18,8 +18,12 @@ int8 tile array and one f32 scale per tile, 1.0 for the identity.
 
 Backward: ``fused_layer_dx_dw_cuda`` launches ``csrc/fused_layer_dx_dw.cu``
 (the port of ``fused_layer.py::fused_layer_dx_dw``): from dy and g', x, the
-per-member-transposed tiles (``transposed_tiles``) and the transposed
-steps (``csr_schedule(layout, transposed=True)``) it returns dx and dWB.
+parameter tiles wb (n_param_blocks, blk, blk) as the forward reads them
+(member-major, no identity tile) and the layout's work units and jobs
+(``dx_dw_units``, cached per device by ``dx_dw_schedule_on``) it returns
+dx (B, n_in_tiles·blk) and dWB (n_param_blocks, blk, blk), member by
+member.  ``transposed_tiles`` (the JAX package's per-member-transposed
+tiles) feeds the unfused route's dh.
 
 Each ``*_plain`` function is the same function in plain PyTorch.
 
@@ -38,14 +42,18 @@ import torch
 from repro_torch.core.activations import (apply_activation_derivs_masked,
                                           apply_activations_masked)
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_diag import (block_diag_dw_plain,
-                                            block_diag_fwd_plain)
+from repro_torch.kernels.block_diag import block_diag_fwd_plain
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # the forward, with or without g'
 int8_launches = 0     # the forward over int8 tiles
 dx_dw_launches = 0    # the backward
 MAX_BLOCK = 128       # widest tile the kernel keeps in shared memory
+# the backward's packing (csrc/fused_layer_dx_dw.cu): a CTA's column chunk,
+# the largest unit a warp takes, and the units of a warp job (one a warp)
+TEAM_COLS = 64
+WARP_OUT, WARP_COLS = 8, 16
+WARP_JOB = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -97,6 +105,95 @@ def transposed_tiles(wb_aug: torch.Tensor, perm_t: torch.Tensor
     return wb_aug[perm_t.long()].transpose(1, 2).contiguous()
 
 
+def _split(n: int, most: int) -> list[int]:
+    """[0, n) in ⌈n / most⌉ near-equal chunks → their bounds."""
+    k = -(-n // most)
+    return [i * n // k for i in range(k + 1)]
+
+
+def dx_dw_units(layout) -> tuple[np.ndarray, np.ndarray]:
+    """The backward kernel's work from a ``BlockDiagLayout`` → (units
+    (n_units, 8) int32, job_ptr (n_jobs + 1,) int32).
+
+    A unit is (in0, nc, out0, no, q, ld, warp, 0): dx input tiles
+    [in0, in0 + nc) from output tiles [out0, out0 + no) of one member, its
+    tile (r, c) the parameter tile q + r·ld + c — a real member, or a
+    chunk of at most ``TEAM_COLS`` units of its input-tile columns — or,
+    with q = −1, a pass-through run (dx tile in0 + k = du tile out0 + k,
+    no = nc).  Each dx column and each parameter tile has exactly one unit.
+    Real members are the rectangles ``wb_out_tile``/``wb_in_tile`` trace
+    (tile q = base + r·ib + c), pass-through runs the transposed steps
+    through the identity tile.
+
+    Jobs are CTAs: a real unit wider than ``WARP_OUT`` output or
+    ``WARP_COLS`` input units takes one CTA; the others and the
+    pass-through runs (a copy) go one a warp, ``WARP_JOB`` to a CTA
+    (``warp`` = 1).  The warp jobs come first, then the CTA jobs heaviest
+    first: the short, latency-bound warp jobs run beside the first wave
+    instead of in a tail of their own."""
+    blk = layout.block
+    n_param = layout.n_param_blocks
+    out_t = np.asarray(layout.wb_out_tile, np.int64)
+    in_t = np.asarray(layout.wb_in_tile, np.int64)
+    per_unit = max(1, TEAM_COLS // blk)
+    units = []
+
+    def add(in0, nc, out0, no, q, ld):
+        warp = q < 0 or (no * blk <= WARP_OUT and nc * blk <= WARP_COLS)
+        units.append((in0, nc, out0, no, q, ld, int(warp), 0))
+
+    q = 0
+    while q < n_param:
+        o0, i0 = out_t[q], in_t[q]
+        ib = 1
+        while q + ib < n_param and out_t[q + ib] == o0 \
+                and in_t[q + ib] == i0 + ib:
+            ib += 1
+        ob = 1
+        while q + ob * ib < n_param and out_t[q + ob * ib] == o0 + ob \
+                and in_t[q + ob * ib] == i0:
+            ob += 1
+        r, c = np.divmod(np.arange(ob * ib), ib)
+        if not (np.array_equal(out_t[q:q + ob * ib], o0 + r)
+                and np.array_equal(in_t[q:q + ob * ib], i0 + c)):
+            raise ValueError("fused_layer_dx_dw: parameter tiles are not "
+                             "member-major rectangles")
+        bounds = _split(ib, per_unit)
+        for c0, c1 in zip(bounds[:-1], bounds[1:]):
+            add(i0 + c0, c1 - c0, o0, ob, q + c0, ib)
+        q += ob * ib
+
+    ident = np.asarray(layout.s_w_t, np.int64) == n_param
+    t_dx = np.asarray(layout.s_out_t, np.int64)[ident]
+    t_du = np.asarray(layout.s_in_t, np.int64)[ident]
+    cut = np.flatnonzero((np.diff(t_dx) != 1) | (np.diff(t_du) != 1)) + 1
+    for run_dx, run_du in zip(np.split(t_dx, cut), np.split(t_du, cut)):
+        bounds = _split(len(run_dx), per_unit) if len(run_dx) else [0]
+        for c0, c1 in zip(bounds[:-1], bounds[1:]):
+            add(run_dx[c0], c1 - c0, run_du[c0], c1 - c0, -1, 0)
+
+    arr = np.asarray(units, np.int64).reshape(-1, 8)
+    warp = np.flatnonzero(arr[:, 6] == 1)
+    team = np.flatnonzero(arr[:, 6] == 0)
+    team = team[np.argsort(-arr[team, 3] * arr[team, 1], kind="stable")]
+    ptr = list(range(0, len(warp), WARP_JOB)) + list(
+        range(len(warp), len(arr) + 1))
+    return (np.ascontiguousarray(arr[np.concatenate([warp, team])],
+                                 np.int32),
+            np.asarray(ptr, np.int32))
+
+
+def dx_dw_schedule_on(layout, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``dx_dw_units`` as int32 tensors on ``device``, built once per
+    (layout, device) and kept on the layout instance."""
+    cache = layout.__dict__.setdefault("_csr_cache", {})
+    key = (str(torch.device(device)), "dx_dw")
+    if key not in cache:
+        cache[key] = tuple(torch.from_numpy(a).to(device)
+                           for a in dx_dw_units(layout))
+    return cache[key]
+
+
 def fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
                       blk: int):
     z = block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, blk=blk) + b_eff
@@ -120,13 +217,41 @@ def fused_layer_train_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
             apply_activation_derivs_masked(z, cols) * mask)
 
 
-def fused_layer_dx_dw_plain(dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t,
-                            wb_out_tile, wb_in_tile, *, blk: int):
-    """→ (dx (B, n_in_tiles·blk), dWB (n_param_blocks, blk, blk)),
-    du = dy·g'."""
-    du = dy * g
-    dx = block_diag_fwd_plain(du, wb_t, rowptr_t, s_in_t, s_w_t, blk=blk)
-    return dx, block_diag_dw_plain(du, x, wb_out_tile, wb_in_tile, blk=blk)
+def _unit_tiles(units):
+    """Every tile a unit owns → (real, q, out tile, in tile), one entry per
+    tile: a real unit's (r, c) rectangle (q = its parameter tile), a
+    pass-through run's c-th tile (real False, q < 0)."""
+    u = units.long()
+    in0, nc, out0, no, q0, ld = u[:, :6].unbind(1)
+    real = q0 >= 0
+    n = torch.where(real, no * nc, nc)
+    uid = torch.repeat_interleave(torch.arange(u.shape[0],
+                                               device=u.device), n)
+    start = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    k = torch.arange(uid.shape[0], device=u.device) - start
+    rt = real[uid]
+    r = torch.where(rt, k // nc[uid], k)
+    c = torch.where(rt, k % nc[uid], k)
+    return rt, q0[uid] + r * ld[uid] + c, out0[uid] + r, in0[uid] + c
+
+
+def fused_layer_dx_dw_plain(dy, g, x, wb, units, job_ptr, *, blk: int):
+    """→ (dx (B, n_in_tiles·blk), dWB (n_param_blocks, blk, blk)), du =
+    dy·g': each real tile (r, c) of a unit adds du_r·W_rc to dx_c and owns
+    dW_rc = du_rᵀ·x_c; a pass-through tile copies du into dx.  ``job_ptr``
+    (the kernel's packing) does not change the function."""
+    b = dy.shape[0]
+    du = (dy * g).reshape(b, -1, blk)
+    xt = x.reshape(b, -1, blk)
+    rt, q, o_t, i_t = _unit_tiles(units)
+    dx = torch.zeros_like(xt)
+    du_r = du[:, o_t[rt]]
+    dx.index_add_(1, i_t[rt],
+                  torch.einsum("bsr,src->bsc", du_r, wb[q[rt]]))
+    dx[:, i_t[~rt]] = du[:, o_t[~rt]]
+    dwb = torch.zeros_like(wb)
+    dwb[q[rt]] = torch.einsum("bsr,bsc->src", du_r, xt[:, i_t[rt]])
+    return dx.reshape(b, -1), dwb
 
 
 def _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, blk,
@@ -219,39 +344,33 @@ def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
     return y
 
 
-def fused_layer_dx_dw_cuda(dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t,
-                           wb_out_tile, wb_in_tile, *, blk: int):
+def fused_layer_dx_dw_cuda(dy, g, x, wb, units, job_ptr, *, blk: int):
     """One launch → (dx (B, n_in_tiles·blk), dWB (n_param, blk, blk))."""
     global dx_dw_launches
     b = dy.shape[0]
-    n_in = rowptr_t.shape[0] - 1
-    n_param = wb_out_tile.shape[0]
     _build.check_tensors(
         "fused_layer_dx_dw", dy,
         ("dy", dy, torch.float32),
         ("g", g, torch.float32),
         ("x", x, torch.float32),
-        ("wb_t", wb_t, torch.float32),
-        ("rowptr_t", rowptr_t, torch.int32),
-        ("s_in_t", s_in_t, torch.int32),
-        ("s_w_t", s_w_t, torch.int32),
-        ("wb_out_tile", wb_out_tile, torch.int32),
-        ("wb_in_tile", wb_in_tile, torch.int32))
+        ("wb", wb, torch.float32),
+        ("units", units, torch.int32),
+        ("job_ptr", job_ptr, torch.int32))
     _check_block(blk)
-    if g.shape != dy.shape or dy.shape[1] % blk or x.shape != (b, n_in * blk) \
-            or wb_t.shape != (n_param + 1, blk, blk) \
-            or s_in_t.shape != s_w_t.shape \
-            or wb_in_tile.shape != (n_param,):
+    if g.shape != dy.shape or dy.dim() != 2 or dy.shape[1] % blk \
+            or x.dim() != 2 or x.shape[0] != b or x.shape[1] % blk \
+            or wb.dim() != 3 or wb.shape[1:] != (blk, blk) \
+            or units.dim() != 2 or units.shape[1] != 8 \
+            or job_ptr.dim() != 1:
         raise ValueError("fused_layer_dx_dw: inconsistent shapes")
     fn = _build.function("fused_layer_dx_dw", "fused_layer_dx_dw_f32",
-                         [_P] * 11 + [_I] * 5 + [_P])
-    dx = torch.empty(b, n_in * blk, device=dy.device, dtype=torch.float32)
-    dwb = torch.empty(n_param, blk, blk, device=dy.device,
-                      dtype=torch.float32)
+                         [_P] * 8 + [_I] * 5 + [_P])
+    dx = torch.empty_like(x)
+    dwb = torch.empty_like(wb)
     with torch.cuda.device(dy.device):
-        rc = fn(*_ptrs(dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t, wb_out_tile,
-                       wb_in_tile, dx, dwb),
-                b, n_in, dy.shape[1] // blk, n_param, blk,
+        rc = fn(*_ptrs(dy, g, x, wb, units, job_ptr, dx, dwb),
+                b, x.shape[1] // blk, dy.shape[1] // blk, blk,
+                job_ptr.shape[0] - 1,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer_dx_dw")
     dx_dw_launches += 1

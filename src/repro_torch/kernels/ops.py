@@ -296,7 +296,7 @@ def fused_layer_infer_int8(h: torch.Tensor, wb_q: torch.Tensor,
 
 class _FusedLayer(torch.autograd.Function):
     """Forward: one launch emitting y and g'.  Backward: one launch
-    emitting dx and dWB over the transposed steps."""
+    emitting dx and dWB, member by member (``fused_layer.dx_dw_units``)."""
 
     @staticmethod
     def forward(ctx, h, wb, b_eff, layout, acts, m):
@@ -319,10 +319,9 @@ class _FusedLayer(torch.autograd.Function):
         h, wb_aug, g = ctx.saved_tensors
         layout = ctx.layout
         dy = dy.contiguous()
-        (rowptr_t, s_in_t, s_w_t, perm_t, out_tile,
-         in_tile) = _flk.schedule_on(layout, dy.device, transposed=True)
-        args = (dy, g, h.contiguous(), _flk.transposed_tiles(wb_aug, perm_t),
-                rowptr_t, s_in_t, s_w_t, out_tile, in_tile)
+        # the parameter tiles as the forward read them (a view, no copy)
+        args = (dy, g, h.contiguous(), wb_aug[:layout.n_param_blocks],
+                *_flk.dx_dw_schedule_on(layout, dy.device))
         if _on_card(dy):
             dx, dwb = _flk.fused_layer_dx_dw_cuda(*args, blk=layout.block)
         else:

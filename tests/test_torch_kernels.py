@@ -304,6 +304,10 @@ _TRAIN_GRID = [
       (24, 16), (4,), (9, 9, 9)), 8, 40),
     (((40, 20), (17, 33, 9), (7,)), 16, 70),
     (((200, 130), (64, 100), (7,)), 128, 33),
+    # a block-8 member wider than one unit of the backward (16 input
+    # tiles: two units; 96 output units: three chunks) and a batch past
+    # its 32-row chunks (dW added over chunks in order)
+    (((128, 96), (13, 5), (7,)), 8, 300),
 ]
 
 
@@ -329,17 +333,17 @@ def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b):
                                              *sched, blk=block)
         _close(y, wy)
         _close(g, wg)
-        rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
-            lay, dev, transposed=True)
-        wb_t = flk.transposed_tiles(wb, perm_t)
         dy = _t(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
-        args = (dy, g, x, wb_t, rowptr_t, s_in_t, s_w_t, out_t, in_t)
+        args = (dy, g, x, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
         n0 = flk.dx_dw_launches
         dx, dwb = flk.fused_layer_dx_dw_cuda(*args, blk=block)
         assert flk.dx_dw_launches == n0 + 1
         wdx, wdwb = flk.fused_layer_dx_dw_plain(*args, blk=block)
         _close(dx, wdx)
         _close(dwb, wdwb)
+        # one owner per output, a fixed order: bitwise reproducible
+        again = flk.fused_layer_dx_dw_cuda(*args, blk=block)
+        assert torch.equal(dx, again[0]) and torch.equal(dwb, again[1])
 
 
 # several hundred narrow members, 8 or 16 units at block 8, as at the head
@@ -689,12 +693,17 @@ def test_unfused_route_on_card_matches_cpu(dev):
     ((100, 1, 57, 128), 128, 2, 32, 0),
     ((5, 12, 7), 8, 20, 11, 0),
     ((5, 12, 7), 8, 3, 6, 1),
+    # dh's row blocks: O = 20 past a chunk of columns, a batch that leaves
+    # a partial row block, a block that straddles dh's column chunks
+    ((300, 129, 57, 700), 128, 20, 37, 0),
+    ((300, 129, 57, 700), 128, 2, 29, 0),
+    ((90, 37, 260), 12, 16, 13, 0),
 ])
 def test_m3_matmul_kernels_match_plain(dev, sizes, block, o, b, offset):
     """Forward, dh and dW2 against their plain versions: blocks 1 to 128,
     class counts in the small and the 16-wide register instance and
     beyond (O = 20), padded units, the scalar instance (block 1, or an
-    unaligned view of h); dW2 twice is bitwise equal (no atomics)."""
+    unaligned view of h); dh and dW2 twice are bitwise equal."""
     from repro_torch.core.population import Population
     from repro_torch.kernels import m3_matmul as m3k
     pop = Population(4, o, sizes, ("relu",) * len(sizes), block=block)
@@ -717,6 +726,7 @@ def test_m3_matmul_kernels_match_plain(dev, sizes, block, o, b, offset):
     _close(dh, m3k.m3_matmul_dh_plain(dy, w2, seg, block=block))
     _close(dw, m3k.m3_matmul_dw_plain(dy, h, seg, block=block))
     assert torch.equal(dw, m3k.m3_matmul_dw_cuda(dy, h, seg, block=block))
+    assert torch.equal(dh, m3k.m3_matmul_dh_cuda(dy, w2, seg, block=block))
 
 
 def test_m3_matmul_empty_member_and_autograd_on_card(dev):

@@ -190,8 +190,9 @@ def test_fused_layer_train_plain_matches_jax(block, l, kinks):
 
 @pytest.mark.parametrize("block,l", [(8, 0), (8, 1), (16, 0)])
 def test_fused_layer_dx_dw_plain_matches_jax(block, l):
-    """The one-pass backward over the transposed steps, pass-through
-    (identity-tile) steps included: dx and every parameter tile's dW."""
+    """The one-pass backward, member by member over the member-major
+    tiles, pass-through members included, against JAX's kernel over the
+    transposed steps: dx and every parameter tile's dW."""
     jlp = JLayered(6, 3, _WIDTHS, jact.ACTIVATION_ORDER, block=block)
     tlp = TLayered(6, 3, _WIDTHS, jact.ACTIVATION_ORDER, block=block)
     lay, jlay, x, wb, _, _, _ = _layer_case(jlp, tlp, l, False, 10 + l)
@@ -205,16 +206,65 @@ def test_fused_layer_dx_dw_plain_matches_jax(block, l):
         n_in_tiles=jlay.n_in_tiles, n_steps_t=jlay.n_steps_t,
         n_param_blocks=jlay.n_param_blocks, block=block, block_b=BLOCK_B,
         interpret=True)
-    rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
-        lay, "cpu", transposed=True)
+    perm_t = flk.schedule_on(lay, "cpu", transposed=True)[3]
     wb_aug = torch.cat([_t(wb), torch.eye(block)[None]])
     tiles = flk.transposed_tiles(wb_aug, perm_t)
     np.testing.assert_array_equal(tiles.numpy(), wb_t)
-    dx, dwb = flk.fused_layer_dx_dw_plain(_t(dy), _t(g), _t(x), tiles,
-                                          rowptr_t, s_in_t, s_w_t, out_t,
-                                          in_t, blk=block)
+    dx, dwb = flk.fused_layer_dx_dw_plain(
+        _t(dy), _t(g), _t(x), wb_aug[:lay.n_param_blocks],
+        *flk.dx_dw_schedule_on(lay, "cpu"), blk=block)
     np.testing.assert_allclose(dx.numpy(), _np(jdx), **GRAD)
     np.testing.assert_allclose(dwb.numpy(), _np(jdwb), **GRAD)
+
+
+@pytest.mark.parametrize("widths,block,l", [
+    (_WIDTHS, 8, 0), (_WIDTHS, 8, 1), (_WIDTHS, 16, 0), (_WIDTHS, 16, 1),
+    # block 128: a member of 3 input tiles split into one-tile units
+    (((300, 200), (5,), (130, 7)), 128, 0),
+    # block 8: a member of 64 input tiles split into chunks of 8
+    (((512, 384), (13, 5), (7,)), 8, 0),
+    # every unit a warp's (no whole-CTA job)
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 1),
+])
+def test_dx_dw_units_cover_each_output_once(widths, block, l):
+    """The backward's work units cover every dx column and every
+    parameter tile exactly once, pass-through tiles only in dx; a unit
+    reads the tiles of its member's rectangle; jobs hold one unit of the
+    whole-CTA kind or up to ``WARP_JOB`` of the warp kind, warp jobs
+    first."""
+    lay = TLayered(6, 3, widths, jact.ACTIVATION_ORDER[:len(widths)],
+                   block=block).bd_layout(l)
+    units, ptr = flk.dx_dw_units(lay)
+    dx_cover = np.zeros(lay.n_in_tiles, int)
+    dw_cover = np.zeros(lay.n_param_blocks, int)
+    pass_tiles = set()
+    for in0, nc, out0, no, q, ld, warp, _ in units:
+        assert nc >= 1 and no >= 1
+        dx_cover[in0:in0 + nc] += 1
+        if q < 0:
+            assert no == nc and warp == 1
+            pass_tiles.update(range(in0, in0 + nc))
+            continue
+        assert nc * block <= max(block, flk.TEAM_COLS)
+        r, c = np.divmod(np.arange(no * nc), nc)
+        q_all = q + r * ld + c
+        dw_cover[q_all] += 1
+        np.testing.assert_array_equal(np.asarray(lay.wb_out_tile)[q_all],
+                                      out0 + r)
+        np.testing.assert_array_equal(np.asarray(lay.wb_in_tile)[q_all],
+                                      in0 + c)
+    np.testing.assert_array_equal(dx_cover, 1)
+    np.testing.assert_array_equal(dw_cover, 1)
+    ident = np.asarray(lay.s_w_t) == lay.n_param_blocks
+    assert pass_tiles == set(np.asarray(lay.s_out_t)[ident].tolist())
+    assert ptr[0] == 0 and ptr[-1] == len(units)
+    for lo, hi in zip(ptr[:-1], ptr[1:]):
+        kinds = set(units[lo:hi, 6].tolist())
+        assert len(kinds) == 1
+        assert hi - lo == 1 if kinds == {0} else 1 <= hi - lo <= flk.WARP_JOB
+    assert np.all(np.diff(units[:, 6]) <= 0)           # warp jobs first
+    if widths[0] == (512, 384):
+        assert (units[:, 4] >= 0).sum() > 3     # the wide member was split
 
 
 def test_transposed_csr_rows_are_the_transposed_runs():
