@@ -142,6 +142,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from contextlib import contextmanager
 from functools import partial
 from pathlib import Path
 
@@ -151,6 +152,7 @@ RTOL, ATOL = 1e-4, 1e-5
 MEM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BATCH = 32
+PROFILE_PAD_S = 0.1   # idle host time at each end of a profiler window
 DEPTH3 = dict(depths="64,32,16;13,5;7", acts="paper", features=100,
               repeats=1000)
 SERVE_KERNELS = ("fused_input", "fused_layer", "infer_head")
@@ -242,37 +244,57 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, kernel: str, iters: int = 20) -> tuple[float, int]:
+@contextmanager
+def _profiled():
+    """``torch.profiler`` (CPU and CUDA activity) over the body, the window
+    opened and closed with ``PROFILE_PAD_S`` of idle host time.  The
+    profiler keeps only the device activity whose timestamps, moved onto
+    the host's clock, fall inside its window, and the two clocks disagree
+    by a varying amount (at times a kernel "starts" 0.1 ms or more before
+    its launch call: ``lag`` in ``_device_ms``): without the pad a window
+    loses the launches of its first stretch, and a short one all of them.
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
+def _device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time of one launch of the kernel named ``kernel`` over
     ``iters`` calls of ``fn``, after warm-up, from ``torch.profiler`` (at a
     small shape the CUDA-event time of back-to-back calls is the host's
-    time to launch), and the number of launches the profiler saw: late in
-    this script's process it has missed the first ones of a short window,
-    and the mean is over those it saw; a window that saw none is profiled
-    again, up to three times."""
+    time to launch); the profiler must see every launch.  Also
+    printed: the least time from a launch's host call to its kernel's
+    start on the device (``lag``), below 0 where the profiler's device and
+    host clocks disagree."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        evts = [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and kernel in e.name]
-        if evts:
-            break
-        # a window late in the process may record no kernel at all
-        print(f"[{kernel}] the profiler saw no launch in {iters} calls "
-              f"(window {attempt + 1}); profiling again", flush=True)
-    _require(0 < len(evts) <= iters, f"the profiler saw {len(evts)} "
+    with _profiled() as prof:
+        for _ in range(iters):
+            fn()
+    cuda = torch.autograd.DeviceType.CUDA
+    evts = [e for e in prof.events()
+            if e.device_type == cuda and kernel in e.name]
+    raw = prof.profiler.kineto_results.events()
+    called = {e.correlation_id(): e.start_ns() for e in raw
+              if e.device_type() != cuda and "LaunchKernel" in e.name()}
+    lags = [e.start_ns() - called[e.correlation_id()] for e in raw
+            if e.device_type() == cuda and kernel in e.name()
+            and e.correlation_id() in called]
+    print(f"[{kernel}] profiler window: {len(evts)} of {iters} launches "
+          f"seen; lag from launch call to kernel start "
+          f"{min(lags, default=float('nan')) / 1e3!r} us (least)",
+          flush=True)
+    _require(len(evts) == iters, f"the profiler saw {len(evts)} "
              f"{kernel} launches in {iters} calls")
-    return sum(e.device_time_total for e in evts) / len(evts) / 1e3, \
-        len(evts)
+    return sum(e.device_time_total for e in evts) / iters / 1e3
 
 
 def _bound_ms(n_bytes: int, flops: int,
@@ -852,7 +874,6 @@ def time_step(name, step, iters: int = 20):
     the device time by kernel over 3 profiled steps (``torch.profiler``),
     from which the device's idle share of the step."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         step()
@@ -862,11 +883,9 @@ def time_step(name, step, iters: int = 20):
         step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / iters * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         for _ in range(3):
             step()
-        torch.cuda.synchronize()
     by_name, n_kernels = {}, 0
     for evt in prof.events():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
@@ -962,7 +981,6 @@ def lm_path(inp):
     (outputs, the phase's kernel launches, {output: the design that ran}).
     """
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import flash_attn as fak
     from repro_torch.kernels import ops
@@ -999,8 +1017,7 @@ def lm_path(inp):
     rg = mo["ragged"]
     d_up, d_down = MOE["d"], MOE["f"]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _profiled() as prof:
         reset_kernel_launches()
         t0 = time.perf_counter()
         out = {"qwen3_f32": once("qwen3_f32", "flash",
@@ -1061,10 +1078,6 @@ def lm_path(inp):
            and ("flash_attn" in e.name or "moe_gemm" in e.name)]
     _require(len(ran) == len(wants), f"the profiler saw {len(ran)} kernel "
              f"API launches, expected {len(wants)}: {ran}")
-    # the grouped GEMM's FMA design is the SIMT GEMM on a tree that names
-    # its instances (fma_instance); this script also runs on the tree
-    # before that kernel, whose f32 launches are checked by design only
-    simt = hasattr(moek, "fma_instance")
     designs = {}
     for (key, counter, want), name in zip(wants, ran):
         got = "wgmma" if "wgmma_kernel" in name else "fma"
@@ -1072,7 +1085,7 @@ def lm_path(inp):
                                   else "moe_gemm") in name,
                  f"{key}: the card ran {name!r}, expected the {counter} "
                  f"kernel's {want} design")
-        _require(not (simt and counter == "moe" and want == "fma")
+        _require(not (counter == "moe" and want == "fma")
                  or "moe_gemm_simt_kernel" in name,
                  f"{key}: the card ran {name!r}, expected the SIMT GEMM "
                  "(moe_gemm_simt_kernel)")
@@ -1224,11 +1237,10 @@ def check_lm_outputs(inp, out):
 
 def _prefixed(prefix: str, row: dict) -> dict:
     keys = ("max_abs_err", "rtol", "atol", "atol_per_element", "ms",
-            "device_ms", "device_launches_seen", "plain_ms", "bound_ms",
+            "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
             "library_none", "path", "log_probs_max_abs_err", "log_probs_ms",
-            "log_probs_device_ms", "log_probs_device_launches_seen",
-            "fma_instance")
+            "log_probs_device_ms", "fma_instance")
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
 
@@ -1348,7 +1360,7 @@ def lm_rows(inp, lm_n, designs, ptxas):
             2 * x.shape[0] * x.shape[1] * w.shape[2], lm_n["moe_gemm"],
             iters, tol, peak)
         row["path"] = path
-        if path == "fma" and hasattr(moek, "fma_instance"):
+        if path == "fma":
             row["fma_instance"] = moek.fma_instance(
                 x.shape[1], w.shape[2], bt, x, w)
         return row
@@ -1707,13 +1719,9 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             lay, dev, transposed=True)
         wb_t = flk.transposed_tiles(wb, perm_t)
         dy3 = torch.randn(out.shape, generator=gen, device=dev)
-        if hasattr(flk, "dx_dw_schedule_on"):
-            # the member-owned backward: the parameter tiles as the forward
-            # reads them, and the layout's work units
-            bargs = (dy3, g3, hin, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
-        else:  # the tree before it: transposed tiles and steps
-            bargs = (dy3, g3, hin, wb_t, rowptr_t, s_in_t, s_w_t, out_t,
-                     in_t)
+        # the parameter tiles as the forward reads them, and the layout's
+        # work units
+        bargs = (dy3, g3, hin, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
         dx3, dwb3 = flk.fused_layer_dx_dw_cuda(*bargs, blk=b3)
         _require(all(torch.equal(a, b) for a, b in zip(
             (dx3, dwb3), flk.fused_layer_dx_dw_cuda(*bargs, blk=b3))),
@@ -1728,11 +1736,11 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             "fused_layer_dx_dw", kernel,
             partial(flk.fused_layer_dx_dw_plain, *bargs, blk=b3),
             partial(torch.matmul, bsr_t, du3.t()),
-            # the bytes of the transposed route's arguments, as every PR
-            # counted them: the tile array is as large either way
-            _nbytes(dy3, g3, hin, wb_t, rowptr_t, s_in_t, s_w_t, out_t, in_t,
-                    dx3, dwb3),
-            2 * BATCH * b3 * b3 * (lay.n_steps_t + lay.n_param_blocks),
+            # what the kernel moves: its arguments and outputs; dx and dW
+            # are one product each a parameter tile (pass-through tiles
+            # are copies)
+            _nbytes(*bargs, dx3, dwb3),
+            4 * BATCH * b3 * b3 * lay.n_param_blocks,
             train_n["fused_layer_dx_dw"], 50)
         row.update(_dx_dw_fields(kernel, dy3, g3, hin, bsr_t, out_t, in_t,
                                  b3, (dx3, dwb3)))
@@ -1868,13 +1876,11 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             ka = partial(cuda, *args_a, block=blk)
             _require(torch.equal(ka(), ka()), "m3_matmul_dh: two launches "
                      "on the same inputs differ")
-            ms, seen = _device_ms(ka, "m3_dh_kernel", 50)
-            ms_b, seen_b = _device_ms(kb, "m3_dh_kernel", 50)
-            rows[name].update(device_ms=ms, device_launches_seen=seen,
-                              path_b_device_ms=ms_b,
-                              path_b_device_launches_seen=seen_b)
-            print(f"[{name}] device {ms!r} ms ({seen} seen); path 4e's head "
-                  f"{ms_b!r} ms ({seen_b} seen)", flush=True)
+            ms = _device_ms(ka, "m3_dh_kernel", 50)
+            ms_b = _device_ms(kb, "m3_dh_kernel", 50)
+            rows[name].update(device_ms=ms, path_b_device_ms=ms_b)
+            print(f"[{name}] device {ms!r} ms; path 4e's head {ms_b!r} ms",
+                  flush=True)
     dw_a = m3k.m3_matmul_dw_cuda(*cases["m3_matmul_dw"][1], block=blk)
     _require(torch.equal(dw_a, m3k.m3_matmul_dw_cuda(
         *cases["m3_matmul_dw"][1], block=blk)),
@@ -1944,8 +1950,7 @@ def _dx_dw_fields(kernel, dy, g, x, bsr_t, out_t, in_t, blk, want):
                        x.view(b, -1, blk)[:, q_in].transpose(0, 1))
         return dx, dw
 
-    ms, seen = _device_ms(kernel, "fused_layer_dx_dw_kernel", 50)
-    out = {"device_ms": ms, "device_launches_seen": seen,
+    out = {"device_ms": _device_ms(kernel, "fused_layer_dx_dw_kernel", 50),
            "library_full_max_abs_err": _close(
                "fused_layer_dx_dw: library calls vs kernel", full(), want),
            "library_full_ms": _time_ms(full, 50),
@@ -1960,19 +1965,15 @@ def _dx_dw_fields(kernel, dy, g, x, bsr_t, out_t, in_t, blk, want):
 def _infer_head_fields(kernel, block, h, w2):
     """Extra fields of the ``infer_head`` row at one shape, from ``kernel``
     (a call of the f32 kernel): the design the launch took
-    (``kernel_path``; None on a tree whose infer_head module has no such
-    rule: this script also runs on the tree before the kernel's
-    redesign), the kernel's device time from ``torch.profiler``, and the
-    log-probabilities instance's times beside the logits'."""
+    (``kernel_path``), the kernel's device time from ``torch.profiler``,
+    and the log-probabilities instance's times beside the logits'."""
     from repro_torch.kernels import infer_head as ihk
-    rule = getattr(ihk, "kernel_path", None)
     lp = partial(kernel, log_probs=True)
-    ms, seen = _device_ms(kernel, "infer_head_kernel", 50)
-    lp_ms, lp_seen = _device_ms(lp, "infer_head_kernel", 50)
-    out = {"path": None if rule is None else rule(block, h, w2),
-           "device_ms": ms, "device_launches_seen": seen,
-           "log_probs_ms": _time_ms(lp, 50), "log_probs_device_ms": lp_ms,
-           "log_probs_device_launches_seen": lp_seen}
+    ms = _device_ms(kernel, "infer_head_kernel", 50)
+    lp_ms = _device_ms(lp, "infer_head_kernel", 50)
+    out = {"path": ihk.kernel_path(block, h, w2),
+           "device_ms": ms,
+           "log_probs_ms": _time_ms(lp, 50), "log_probs_device_ms": lp_ms}
     print(f"[infer_head at block {block}] {out}", flush=True)
     return out
 
@@ -1980,18 +1981,15 @@ def _infer_head_fields(kernel, block, h, w2):
 def _loss_head_fields(kernels, block, h, w2, dh, dw):
     """Extra fields of the two loss-head rows at one shape, from
     ``kernels`` {row name: a call of its kernel}: the design each launch
-    took (``kernel_path``; None on a tree whose loss_head module has no
-    such rule: this script also runs on the tree before the kernels'
-    redesign) and the kernel's device time from ``torch.profiler``."""
+    took (``kernel_path``) and the kernel's device time from
+    ``torch.profiler``."""
     from repro_torch.kernels import loss_head as lhk
-    rule = getattr(lhk, "kernel_path", None)
-    paths = ((None, None) if rule is None
-             else (rule(block, h, w2), rule(block, h, w2, dh, dw)))
+    paths = (lhk.kernel_path(block, h, w2),
+             lhk.kernel_path(block, h, w2, dh, dw))
     out = {}
     for (key, fn), path in zip(kernels.items(), paths):
-        ms, seen = _device_ms(fn, f"{key}_kernel", 50)
-        out[key] = {"path": path, "device_ms": ms,
-                    "device_launches_seen": seen}
+        out[key] = {"path": path,
+                    "device_ms": _device_ms(fn, f"{key}_kernel", 50)}
     return out
 
 

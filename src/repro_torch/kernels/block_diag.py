@@ -41,7 +41,7 @@ def block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, *, blk: int):
         (rowptr[1:] - rowptr[:-1]).long())
     xt = x.reshape(b, -1, blk)[:, s_in.long()]                 # (B, S, blk)
     prod = torch.einsum("bsk,srk->bsr", xt, wb[s_w.long()])    # (B, S, blk)
-    z = torch.zeros(b, n_rows, blk, device=x.device, dtype=torch.float32)
+    z = torch.zeros(b, n_rows, blk, device=x.device, dtype=prod.dtype)
     z.index_add_(1, s_out, prod)
     return z.reshape(b, n_rows * blk)
 

@@ -305,6 +305,17 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// The packing's shapes, which fused_layer.py::dx_dw_units restates:
+// a team stage's columns, a warp stage's output units and columns, and the
+// warps of a CTA (the units of a warp job).
+extern "C" int fused_layer_dx_dw_stages(int* out) {
+  out[0] = TeamStage::CWM;
+  out[1] = WarpStage::OCH;
+  out[2] = WarpStage::CWM;
+  out[3] = WARPS;
+  return 0;
+}
+
 // dy, g (B, n_out_tiles·blk), x (B, n_in_tiles·blk), wb (n_param, blk, blk),
 // units (n_units, 8) and job_ptr (n_jobs + 1,) int32 → dx, dwb.
 extern "C" int fused_layer_dx_dw_f32(const float* dy, const float* g,

@@ -49,7 +49,8 @@ launches = 0          # the forward, with or without g'
 int8_launches = 0     # the forward over int8 tiles
 dx_dw_launches = 0    # the backward
 MAX_BLOCK = 128       # widest tile the kernel keeps in shared memory
-# the backward's packing (csrc/fused_layer_dx_dw.cu): a CTA's column chunk,
+# the backward's packing, the stage shapes of csrc/fused_layer_dx_dw.cu
+# (``kernel_stages`` reads them from the library): a CTA's column chunk,
 # the largest unit a warp takes, and the units of a warp job (one a warp)
 TEAM_COLS = 64
 WARP_OUT, WARP_COLS = 8, 16
@@ -183,15 +184,63 @@ def dx_dw_units(layout) -> tuple[np.ndarray, np.ndarray]:
             np.asarray(ptr, np.int32))
 
 
+def units_reach(units, job_ptr) -> tuple[int, int, int]:
+    """The (input tiles, output tiles, parameter tiles) a units table
+    touches: each count one past the highest index any unit reads or
+    writes.  Raises on a table no layout gives (a negative index or extent,
+    jobs out of order or past the table)."""
+    u = np.asarray(units, np.int64).reshape(-1, 8)
+    ptr = np.asarray(job_ptr, np.int64)
+    in0, nc, out0, no, q, ld = u[:, :6].T
+    real = q >= 0
+    if np.any(u[:, [0, 2]] < 0) or np.any(nc < 1) or np.any(no < 1) \
+            or np.any(ld[real] < nc[real]) or np.any(~real & (no != nc)) \
+            or ptr.size < 1 or ptr[0] < 0 or ptr[-1] > len(u) \
+            or np.any(np.diff(ptr) < 0):
+        raise ValueError("fused_layer_dx_dw: not a units table of "
+                         "dx_dw_units")
+    last_q = q + (no - 1) * ld + nc
+    return (int((in0 + nc).max(initial=0)), int((out0 + no).max(initial=0)),
+            int(last_q[real].max(initial=0)))
+
+
 def dx_dw_schedule_on(layout, device) -> tuple[torch.Tensor, torch.Tensor]:
     """``dx_dw_units`` as int32 tensors on ``device``, built once per
-    (layout, device) and kept on the layout instance."""
+    (layout, device) and kept on the layout instance; the units tensor
+    carries its ``units_reach`` for the wrapper's check."""
     cache = layout.__dict__.setdefault("_csr_cache", {})
     key = (str(torch.device(device)), "dx_dw")
     if key not in cache:
+        units, ptr = dx_dw_units(layout)
         cache[key] = tuple(torch.from_numpy(a).to(device)
-                           for a in dx_dw_units(layout))
+                           for a in (units, ptr))
+        cache[key][0].dx_dw_reach = units_reach(units, ptr)
     return cache[key]
+
+
+def check_reach(units, job_ptr, x, dy, wb, *, blk: int):
+    """Raise unless the units stay inside x's input tiles, dy's output
+    tiles and wb's parameter tiles: a table built for another layout would
+    send the kernel past them.  A table from ``dx_dw_schedule_on`` carries
+    its reach; any other is read back once and stamped."""
+    reach = getattr(units, "dx_dw_reach", None)
+    if reach is None:
+        reach = units_reach(units.cpu().numpy(), job_ptr.cpu().numpy())
+        units.dx_dw_reach = reach
+    have = (x.shape[1] // blk, dy.shape[1] // blk, wb.shape[0])
+    if any(r > h for r, h in zip(reach, have)):
+        raise ValueError(f"fused_layer_dx_dw: the units reach (input, "
+                         f"output, parameter) tiles {reach}, the tensors "
+                         f"hold {have}: built for another layout")
+
+
+def kernel_stages() -> tuple[int, int, int, int]:
+    """(``TEAM_COLS``, ``WARP_OUT``, ``WARP_COLS``, ``WARP_JOB``) as the
+    kernel's stage shapes set them, read from its library."""
+    out = (ctypes.c_int * 4)()
+    _build.function("fused_layer_dx_dw", "fused_layer_dx_dw_stages",
+                    [_P])(out)
+    return tuple(out)
 
 
 def fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
@@ -363,6 +412,7 @@ def fused_layer_dx_dw_cuda(dy, g, x, wb, units, job_ptr, *, blk: int):
             or units.dim() != 2 or units.shape[1] != 8 \
             or job_ptr.dim() != 1:
         raise ValueError("fused_layer_dx_dw: inconsistent shapes")
+    check_reach(units, job_ptr, x, dy, wb, blk=blk)
     fn = _build.function("fused_layer_dx_dw", "fused_layer_dx_dw_f32",
                          [_P] * 8 + [_I] * 5 + [_P])
     dx = torch.empty_like(x)

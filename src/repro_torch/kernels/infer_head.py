@@ -85,7 +85,7 @@ def infer_head_plain(h, w2, b2, member_ptr, *, block: int,
     b, p, o = h.shape[0], b2.shape[0], w2.shape[0]
     widths = (member_ptr[1:] - member_ptr[:-1]).long() * block
     seg = torch.repeat_interleave(torch.arange(p, device=h.device), widths)
-    y = torch.zeros(b, p, o, device=h.device, dtype=torch.float32)
+    y = torch.zeros(b, p, o, device=h.device, dtype=h.dtype)
     y.index_add_(1, seg, h[:, :, None] * w2.t()[None])
     y = y + b2[None]
     return torch.log_softmax(y, dim=-1) if log_probs else y

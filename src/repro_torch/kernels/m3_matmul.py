@@ -46,7 +46,7 @@ def m3_matmul_fwd_plain(h, w2, member_ptr, *, block: int):
     """Σ over each member's units of h[:, j]·w2[:, j] → (B, P, O)."""
     p = member_ptr.shape[0] - 1
     y = torch.zeros(h.shape[0], p, w2.shape[0], device=h.device,
-                    dtype=torch.float32)
+                    dtype=h.dtype)
     return y.index_add_(1, _unit_members(member_ptr, block, h.device),
                         h[:, :, None] * w2.t()[None])
 

@@ -11,7 +11,10 @@ machine need not have; this file imports torch and numpy only).
 Tolerance: rtol 1e-4 / atol 1e-5 — f32 throughout, the kernels sum in a
 different order than the plain versions (FMA chains over shared-memory
 tiles and warp shuffles against cuBLAS), full float32 matmuls (TF32 off).
+A plain version that sums with ``index_add_`` runs in f64 (``_f64``).
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -49,15 +52,30 @@ def _close(got, want):
                                rtol=RTOL, atol=ATOL)
 
 
+def _f64(*tensors):
+    """The f32 tensors in f64, the rest as they are: for the plain versions
+    that sum with ``index_add_``, whose f32 order on the card varies per
+    run (two f32 orders of a sum over hundreds of products differ by about
+    atol), the exact sum is the reference."""
+    return tuple(t.double() if t.dtype == torch.float32 else t
+                 for t in tensors)
+
+
 def _kernels_run(fn, word: str):
     """``fn()``'s result and the names, as ``torch.profiler`` records them,
-    of the kernels the card ran for it whose name holds ``word``."""
+    of the kernels the card ran for it whose name holds ``word``.  The
+    window opens and closes with 0.1 s of idle host time: the profiler
+    keeps only device activity that falls inside its window on the host's
+    clock, and its device timestamps can run 0.1 ms or more ahead of that
+    clock, so an unpadded window around one launch may record none."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.1)
         out = fn()
         torch.cuda.synchronize()
+        time.sleep(0.1)
     names = [e.name for e in sorted(prof.events(),
                                     key=lambda e: e.time_range.start)
              if e.device_type == torch.autograd.DeviceType.CUDA
@@ -103,8 +121,8 @@ def test_fused_layer_matches_plain(dev, widths, block, b):
         sched = flk.schedule_on(lay, dev)
         got = flk.fused_layer_cuda(x, wb, b_eff, mask, acts_t, *sched,
                                    blk=block)
-        _close(got, flk.fused_layer_plain(x, wb, b_eff, mask, acts_t, *sched,
-                                          blk=block))
+        _close(got, flk.fused_layer_plain(
+            *_f64(x, wb, b_eff, mask, acts_t, *sched), blk=block))
 
 
 # several hundred members 8 or 16 units wide, as at the depth-3 head
@@ -154,7 +172,7 @@ def test_infer_head_matches_plain(dev, log_probs, widths, block, o, b,
         h, w2, b2, ptr, block=block, log_probs=log_probs), "infer_head")
     assert ihk.launches == n0 + 1
     assert len(ran) == 1 and f"infer_head_kernel_{path}" in ran[0], ran
-    _close(got, ihk.infer_head_plain(h, w2, b2, ptr, block=block,
+    _close(got, ihk.infer_head_plain(*_f64(h, w2, b2, ptr), block=block,
                                      log_probs=log_probs))
     assert torch.equal(got, ihk.infer_head_cuda(h, w2, b2, ptr, block=block,
                                                 log_probs=log_probs))
@@ -304,10 +322,10 @@ _TRAIN_GRID = [
       (24, 16), (4,), (9, 9, 9)), 8, 40),
     (((40, 20), (17, 33, 9), (7,)), 16, 70),
     (((200, 130), (64, 100), (7,)), 128, 33),
-    # a block-8 member wider than one unit of the backward (16 input
-    # tiles: two units; 96 output units: three chunks) and a batch past
+    # a block-8 member wider than one unit of the backward (64 input
+    # tiles: eight units; 384 output units: twelve chunks) and a batch past
     # its 32-row chunks (dW added over chunks in order)
-    (((128, 96), (13, 5), (7,)), 8, 300),
+    (((512, 384), (13, 5), (7,)), 8, 300),
 ]
 
 
@@ -329,8 +347,8 @@ def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b):
         sched = flk.schedule_on(lay, dev)
         y, g = flk.fused_layer_train_cuda(x, wb, b_eff, mask, acts_t, *sched,
                                           blk=block)
-        wy, wg = flk.fused_layer_train_plain(x, wb, b_eff, mask, acts_t,
-                                             *sched, blk=block)
+        wy, wg = flk.fused_layer_train_plain(
+            *_f64(x, wb, b_eff, mask, acts_t, *sched), blk=block)
         _close(y, wy)
         _close(g, wg)
         dy = _t(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
@@ -338,12 +356,40 @@ def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b):
         n0 = flk.dx_dw_launches
         dx, dwb = flk.fused_layer_dx_dw_cuda(*args, blk=block)
         assert flk.dx_dw_launches == n0 + 1
-        wdx, wdwb = flk.fused_layer_dx_dw_plain(*args, blk=block)
+        wdx, wdwb = flk.fused_layer_dx_dw_plain(*_f64(*args), blk=block)
         _close(dx, wdx)
         _close(dwb, wdwb)
         # one owner per output, a fixed order: bitwise reproducible
         again = flk.fused_layer_dx_dw_cuda(*args, blk=block)
         assert torch.equal(dx, again[0]) and torch.equal(dwb, again[1])
+
+
+def test_dx_dw_packing_matches_the_kernels_stages(dev):
+    """The packing constants ``dx_dw_units`` cuts by are the kernel's
+    stage shapes."""
+    assert flk.kernel_stages() == (flk.TEAM_COLS, flk.WARP_OUT,
+                                   flk.WARP_COLS, flk.WARP_JOB)
+
+
+def test_fused_layer_dx_dw_refuses_another_layouts_units(dev):
+    """Units of a wider layout would send the kernel past x, dy and wb:
+    the wrapper refuses them before any launch."""
+    small = LayeredPopulation(5, 3, ((24,), (13, 5)), ("relu", "tanh"),
+                              block=8).bd_layout(0)
+    wide = LayeredPopulation(5, 3, ((512, 384), (13, 5)), ("relu", "tanh"),
+                             block=8).bd_layout(0)
+    x = torch.zeros(4, small.n_in_tiles * 8, device=dev)
+    dy = torch.zeros(4, small.n_out_tiles * 8, device=dev)
+    wb = torch.zeros(small.n_param_blocks, 8, 8, device=dev)
+    flk.fused_layer_dx_dw_cuda(dy, dy, x, wb,
+                               *flk.dx_dw_schedule_on(small, dev), blk=8)
+    n0 = flk.dx_dw_launches
+    for units, ptr in (flk.dx_dw_schedule_on(wide, dev),
+                       tuple(torch.from_numpy(a).to(dev)
+                             for a in flk.dx_dw_units(wide))):
+        with pytest.raises(ValueError, match="another layout"):
+            flk.fused_layer_dx_dw_cuda(dy, dy, x, wb, units, ptr, blk=8)
+    assert flk.dx_dw_launches == n0
 
 
 # several hundred narrow members, 8 or 16 units at block 8, as at the head
@@ -391,7 +437,8 @@ def test_loss_head_matches_plain(dev, widths, block, o, b, shift):
     (per, dl), ran = _kernels_run(lambda: lhk.loss_head_fwd_cuda(
         *fwd, block=block, b_real=b - pads), "loss_head")
     assert len(ran) == 1 and f"loss_head_fwd_kernel_{path}" in ran[0], ran
-    wper, wdl = lhk.loss_head_fwd_plain(*fwd, block=block, b_real=b - pads)
+    wper, wdl = lhk.loss_head_fwd_plain(*_f64(*fwd), block=block,
+                                        b_real=b - pads)
     _close(per, wper)
     _close(dl, wdl)
     again = lhk.loss_head_fwd_cuda(*fwd, block=block, b_real=b - pads)
@@ -504,7 +551,7 @@ def test_fused_layer_int8_matches_plain(dev, widths, block, b):
         n0 = flk.int8_launches
         got = flk.fused_layer_int8_cuda(*args, blk=block)
         assert flk.int8_launches == n0 + 1
-        _close(got, flk.fused_layer_int8_plain(*args, blk=block))
+        _close(got, flk.fused_layer_int8_plain(*_f64(*args), blk=block))
 
 
 @pytest.mark.parametrize("log_probs", [False, True])
@@ -527,8 +574,8 @@ def test_infer_head_int8_matches_plain(dev, log_probs, widths, block, o, b):
     got = ihk.infer_head_int8_cuda(h, w_q, w_s, b2, ptr, block=block,
                                    log_probs=log_probs)
     assert ihk.int8_launches == n0 + 1
-    _close(got, ihk.infer_head_int8_plain(h, w_q, w_s, b2, ptr, block=block,
-                                          log_probs=log_probs))
+    _close(got, ihk.infer_head_int8_plain(*_f64(h, w_q, w_s, b2, ptr),
+                                          block=block, log_probs=log_probs))
 
 
 def test_int8_server_on_card_matches_cpu(dev):
@@ -624,19 +671,20 @@ def test_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b):
         n0 = bdk.fwd_launches
         y = bdk.block_diag_fwd_cuda(x, wb, *sched, blk=block)
         assert bdk.fwd_launches == n0 + 1
-        _close(y, bdk.block_diag_fwd_plain(x, wb, *sched, blk=block))
+        _close(y, bdk.block_diag_fwd_plain(*_f64(x, wb, *sched), blk=block))
         rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
             lay, dev, transposed=True)
         wb_t = flk.transposed_tiles(wb, perm_t)
         dy = _t(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
         dh = bdk.block_diag_fwd_cuda(dy, wb_t, rowptr_t, s_in_t, s_w_t,
                                      blk=block)
-        _close(dh, bdk.block_diag_fwd_plain(dy, wb_t, rowptr_t, s_in_t,
-                                            s_w_t, blk=block))
+        _close(dh, bdk.block_diag_fwd_plain(
+            *_f64(dy, wb_t, rowptr_t, s_in_t, s_w_t), blk=block))
         m0 = bdk.dw_launches
         dwb = bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=block)
         assert bdk.dw_launches == m0 + 1
-        _close(dwb, bdk.block_diag_dw_plain(dy, x, out_t, in_t, blk=block))
+        _close(dwb, bdk.block_diag_dw_plain(*_f64(dy, x, out_t, in_t),
+                                            blk=block))
         assert torch.equal(dwb, bdk.block_diag_dw_cuda(dy, x, out_t, in_t,
                                                        blk=block))
 
@@ -722,7 +770,7 @@ def test_m3_matmul_kernels_match_plain(dev, sizes, block, o, b, offset):
     dw = m3k.m3_matmul_dw_cuda(dy, h, seg, block=block)
     assert (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches) == \
         tuple(c + 1 for c in counts)
-    _close(y, m3k.m3_matmul_fwd_plain(h, w2, ptr, block=block))
+    _close(y, m3k.m3_matmul_fwd_plain(*_f64(h, w2, ptr), block=block))
     _close(dh, m3k.m3_matmul_dh_plain(dy, w2, seg, block=block))
     _close(dw, m3k.m3_matmul_dw_plain(dy, h, seg, block=block))
     assert torch.equal(dw, m3k.m3_matmul_dw_cuda(dy, h, seg, block=block))

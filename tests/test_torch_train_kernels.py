@@ -267,6 +267,41 @@ def test_dx_dw_units_cover_each_output_once(widths, block, l):
         assert (units[:, 4] >= 0).sum() > 3     # the wide member was split
 
 
+@pytest.mark.parametrize("widths,block", [
+    (_WIDTHS, 8), (_WIDTHS, 16), (((300, 200), (5,), (130, 7)), 128),
+    (((512, 384), (13, 5), (7,)), 8)])
+def test_dx_dw_units_reach_ties_them_to_their_layout(widths, block):
+    """A units table reaches exactly its layout's input and parameter
+    tiles and no output tile past it; ``check_reach`` takes it with that
+    layout's tensors and refuses it with a narrower layout's, and refuses
+    tables ``dx_dw_units`` never gives."""
+    lp = TLayered(6, 3, widths, jact.ACTIVATION_ORDER[:len(widths)],
+                  block=block)
+    lay = lp.bd_layout(0)
+    units, ptr = flk.dx_dw_schedule_on(lay, "cpu")
+    n_in, n_out, n_param = flk.units_reach(units.numpy(), ptr.numpy())
+    assert (n_in, n_param) == (lay.n_in_tiles, lay.n_param_blocks)
+    assert n_out <= lay.n_out_tiles
+    assert units.dx_dw_reach == (n_in, n_out, n_param)
+
+    def tensors(lay):
+        return (torch.zeros(2, lay.n_in_tiles * block),
+                torch.zeros(2, lay.n_out_tiles * block),
+                torch.zeros(lay.n_param_blocks, block, block))
+
+    flk.check_reach(units, ptr, *tensors(lay), blk=block)
+    narrow = TLayered(6, 3, ((4, 3), (3,)), ("relu", "tanh"),
+                      block=block).bd_layout(0)
+    with pytest.raises(ValueError, match="another layout"):
+        flk.check_reach(units, ptr, *tensors(narrow), blk=block)
+    bad = units.numpy().copy()
+    bad[0, 1] = 0                                   # a unit of no columns
+    with pytest.raises(ValueError, match="not a units table"):
+        flk.units_reach(bad, ptr.numpy())
+    with pytest.raises(ValueError, match="not a units table"):
+        flk.units_reach(units.numpy(), ptr.numpy()[::-1])
+
+
 def test_transposed_csr_rows_are_the_transposed_runs():
     lay = TLayered(6, 3, _WIDTHS, jact.ACTIVATION_ORDER, block=8).bd_layout(0)
     rowptr, s_in, s_w = flk.csr_schedule(lay, transposed=True)
