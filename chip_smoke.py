@@ -3,7 +3,11 @@
 population on one NVIDIA GPU, end to end, through the entry points a user
 calls.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+``--parent DIR`` (another checkout, e.g. the parent commit's ``git
+archive``) also holds the f32 ``infer_head`` and ``loss_head_fwd`` outputs
+bitwise to that tree's kernels at both heads' shapes (phase 8).
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -124,9 +128,19 @@ Phases (any failure exits non-zero, and no result line is printed):
      transposed BSR matmul, a bmm on tiles gathered in the timed call:
      ``library_full_*``; ``library_ms`` stays the dx-only BSR matmul);
      ``m3_matmul_dh`` its device time at both shapes (``device_ms``,
-     ``path_b_device_ms``); both, and ``infer_head``, their kernels' ptxas
-     report; ``fused_layer_dx_dw`` and ``m3_matmul_dh`` two launches on
-     the same inputs bitwise equal;
+     ``path_b_device_ms``); ``fused_input_bwd`` its device time, the
+     instance it took (``path``, by ``bwd_path``), dy·g' then ``mm`` as
+     ``library_full_*`` (``library_ms`` stays the ``mm`` of duᵀ·x) and dx
+     beside dW (``dx_*``); ``infer_head_int8`` its design (``path``), its
+     device time, the depth-3 head as ``depth3_*`` and whether it is
+     bitwise the f32 kernel on the dequantized weight
+     (``bitwise_f32_dequantized``, required where both take the same
+     instance); these rows, and ``infer_head``, their kernels' ptxas
+     report; ``fused_layer_dx_dw``, ``m3_matmul_dh`` and ``fused_input_bwd``
+     (with and without dx) two launches on the same inputs bitwise equal;
+     with ``--parent``, the f32 ``infer_head`` (logits and
+     log-probabilities) and ``loss_head_fwd`` bitwise the other tree's
+     kernels at both shapes;
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -1240,7 +1254,7 @@ def _prefixed(prefix: str, row: dict) -> dict:
             "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
             "library_none", "path", "log_probs_max_abs_err", "log_probs_ms",
-            "log_probs_device_ms", "fma_instance")
+            "log_probs_device_ms", "fma_instance", "bitwise_f32_dequantized")
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
 
@@ -1484,9 +1498,10 @@ def _sum_rows(rows):
 
 
 def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
-                unfused_serve_n, unfused_train_n, m3_n):
+                unfused_serve_n, unfused_train_n, m3_n, parent_libs=None):
     """Phases 7 + 8: every population kernel at the main paths'
-    shapes."""
+    shapes; with ``parent_libs`` (``--parent``) the f32 heads' outputs also
+    against another tree's kernels (``same_as_parent``)."""
     import numpy as np
     import torch
 
@@ -1554,20 +1569,41 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-3
     bwd = (dy, g, x, w)
     dw = fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1]
+    _require(torch.equal(dw, fik.fused_input_bwd_cuda(*bwd,
+                                                      with_dx=False)[1]),
+             "fused_input_bwd: two launches on the same inputs differ")
     du = dy * g
+
+    def dw_kernel():
+        return fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1]
+
+    def library_full():
+        return torch.mm((dy * g).t(), x)
+
     rows["fused_input_bwd"] = compare(
-        "fused_input_bwd",
-        lambda: fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1],
+        "fused_input_bwd", dw_kernel,
         lambda: fik.fused_input_bwd_plain(*bwd, with_dx=False)[1],
         lambda: torch.mm(du.t(), x), _nbytes(dy, g, x, dw),
         2 * BATCH * w.shape[0] * w.shape[1], train_n["fused_input_bwd"], 10)
     got = fik.fused_input_bwd_cuda(*bwd, with_dx=True)
     err = _close("fused_input_bwd dx", got,
                  fik.fused_input_bwd_plain(*bwd, with_dx=True))
-    rows["fused_input_bwd"].update(
-        dx_max_abs_err=err,
-        dx_ms=_time_ms(lambda: fik.fused_input_bwd_cuda(*bwd, with_dx=True),
-                       10))
+    _require(all(torch.equal(a, b) for a, b in zip(
+        got, fik.fused_input_bwd_cuda(*bwd, with_dx=True))),
+        "fused_input_bwd with dx: two launches on the same inputs differ")
+    fields = {
+        "path": fik.bwd_path(dy, g, x, dw),
+        "device_ms": _device_ms(dw_kernel, "fused_input_bwd_kernel", 20),
+        "library_full_max_abs_err": _close(
+            "fused_input_bwd: library calls vs kernel", library_full(), dw),
+        "library_full_ms": _time_ms(library_full, 10),
+        "library_full_calls": "mul: du = dy·g'; mm: duᵀ·x, in the timed call",
+        "dx_max_abs_err": err,
+        "dx_ms": _time_ms(lambda: fik.fused_input_bwd_cuda(*bwd,
+                                                           with_dx=True), 10)}
+    print(f"[fused_input_bwd] {fields}", flush=True)
+    rows["fused_input_bwd"].update(fields)
+    del got, du
 
     # ---- infer_head / loss_head at full width, on the layer-0 activations
     w2, b2 = p10k["w_out"], p10k["b_out"]
@@ -1612,7 +1648,10 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         int8_n["infer_head_int8"], 20)
     got = ihk.infer_head_int8_cuda(*head8, block=blk, log_probs=True)
     want = ihk.infer_head_int8_plain(*head8, block=blk, log_probs=True)
-    _close("infer_head_int8 log_probs: kernel vs plain", got, want)
+    rows["infer_head_int8"]["log_probs_max_abs_err"] = _close(
+        "infer_head_int8 log_probs: kernel vs plain", got, want)
+    del wb2dq
+    rows["infer_head_int8"].update(_infer_head_int8_fields(head8, blk))
 
     tgt = torch.randint(0, lp10k.out_features, (BATCH,), generator=gen,
                         device=dev, dtype=torch.int32)
@@ -1639,6 +1678,8 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                            loss_head_library_full(lh, lb, hb, wb2, wm,
                                                   (per, dl), (dh, dw2))):
         rows[key].update(fields)
+    if parent_libs:
+        same_as_parent(parent_libs, "parallelmlp-10k", lh, blk)
     for key, fields in _loss_head_fields(
             {"loss_head_fwd": partial(lhk.loss_head_fwd_cuda, *lh, block=blk,
                                       b_real=BATCH),
@@ -1931,6 +1972,24 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     row.update(_infer_head_fields(partial(ihk.infer_head_cuda, *ih_b,
                                           block=blk_b), blk_b, hin, w2_b))
     rows["infer_head"].update(_prefixed("depth3", row))
+    if parent_libs:
+        same_as_parent(parent_libs, "the depth-3 head", lh_b, blk_b)
+
+    # ---- infer_head_int8 at the same head, the int8 serving forward's last
+    # launch, on the int8 path's last hidden layer
+    ih8_b = (hin8, q3k["w_out"], q3k["w_out_scale"], q3k["b_out"], ptr_b)
+    y8_b = ihk.infer_head_int8_cuda(*ih8_b, block=blk_b)
+    row = compare("infer_head_int8", partial(ihk.infer_head_int8_cuda, *ih8_b,
+                                             block=blk_b),
+                  partial(ihk.infer_head_int8_plain, *ih8_b, block=blk_b),
+                  no_call, _nbytes(*ih8_b, y8_b), flops_b, None, 50,
+                  label="infer_head_int8 at the depth-3 head")
+    row["log_probs_max_abs_err"] = _close(
+        "infer_head_int8 log_probs at the depth-3 head: kernel vs plain",
+        ihk.infer_head_int8_cuda(*ih8_b, block=blk_b, log_probs=True),
+        ihk.infer_head_int8_plain(*ih8_b, block=blk_b, log_probs=True))
+    row.update(_infer_head_int8_fields(ih8_b, blk_b))
+    rows["infer_head_int8"].update(_prefixed("depth3", row))
     return rows
 
 
@@ -1976,6 +2035,96 @@ def _infer_head_fields(kernel, block, h, w2):
            "log_probs_ms": _time_ms(lp, 50), "log_probs_device_ms": lp_ms}
     print(f"[infer_head at block {block}] {out}", flush=True)
     return out
+
+
+def _infer_head_int8_fields(args, block):
+    """Extra fields of the ``infer_head_int8`` row at one shape, from its
+    arguments (h, w2_q, w2_scale, b2, member_ptr): the design the launch
+    took (``kernel_path`` of an int8 w2), the kernel's device time from
+    ``torch.profiler``, and whether its output is bitwise the f32
+    kernel's on the dequantized weight (``bitwise_f32_dequantized``;
+    required where both take the same instance, else None)."""
+    import torch
+
+    from repro_torch.kernels import infer_head as ihk
+    h, w2q, w2s, b2, ptr = args
+    kernel = partial(ihk.infer_head_int8_cuda, *args, block=block)
+    path = ihk.kernel_path(block, h, w2q)
+    w2dq = w2q.float() * w2s.repeat_interleave(block)[None, :]
+    same = None
+    if ihk.kernel_path(block, h, w2dq) == path:
+        for lp in (False, True):
+            same = torch.equal(kernel(log_probs=lp), ihk.infer_head_cuda(
+                h, w2dq, b2, ptr, block=block, log_probs=lp))
+            _require(same, f"infer_head_int8 at block {block} (log_probs "
+                     f"{lp}): not bitwise the f32 kernel on the dequantized "
+                     "weight")
+    out = {"path": path,
+           "device_ms": _device_ms(kernel, "infer_head_i8_kernel", 50),
+           "bitwise_f32_dequantized": same}
+    print(f"[infer_head_int8 at block {block}] {out}", flush=True)
+    return out
+
+
+def parent_libs(parent: Path) -> dict:
+    """``--parent``: the ``infer_head`` and ``loss_head`` kernel libraries of
+    another checkout of the repository, built by that tree's own
+    ``_build.build_all`` in a subprocess (at once where that tree's own
+    run has built them): {name: ctypes.CDLL}."""
+    import ctypes
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.kernels import _build; "
+            "print(json.dumps({k: str(v) for k, v in "
+            "_build.build_all().items()}))")
+    out = subprocess.run([sys.executable, "-c", code, str(parent / "src")],
+                         check=True, capture_output=True, text=True,
+                         timeout=600)
+    paths = json.loads(out.stdout.strip().splitlines()[-1])
+    print(f"--parent {parent}: {paths['infer_head']}, {paths['loss_head']}",
+          flush=True)
+    return {k: ctypes.CDLL(paths[k]) for k in ("infer_head", "loss_head")}
+
+
+def same_as_parent(libs, name, lh, block):
+    """The f32 ``infer_head`` (logits and log-probabilities) and
+    ``loss_head_fwd`` outputs of this tree's kernels on ``lh`` = (h, w2,
+    b2, targets, member_ptr) against the C entries of ``libs``
+    (``parent_libs``), which keep their signatures: bitwise, or fail."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import infer_head as ihk
+    from repro_torch.kernels import loss_head as lhk
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    h, w2, b2, tgt, ptr = lh
+    b, hh = h.shape
+    o, p = w2.shape[0], b2.shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    ih = libs["infer_head"].infer_head_f32
+    ih.argtypes, ih.restype = [P] * 5 + [I] * 6 + [P], I
+    lf = libs["loss_head"].loss_head_fwd_f32
+    lf.argtypes, lf.restype = [P] * 7 + [I] * 5 + [F, P], I
+    for lp in (0, 1):
+        y = torch.empty(b, p, o, device=h.device)
+        _require(ih(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                    ptr.data_ptr(), y.data_ptr(), b, hh, o, p, block, lp,
+                    stream) == 0, "the parent's infer_head_f32 failed")
+        _require(torch.equal(y, ihk.infer_head_cuda(
+            h, w2, b2, ptr, block=block, log_probs=bool(lp))),
+            f"infer_head at {name} (log_probs {lp}): not bitwise the "
+            "parent's")
+    per = torch.empty(p, device=h.device)
+    dl = torch.empty(b, p, o, device=h.device)
+    _require(lf(h.data_ptr(), w2.data_ptr(), b2.data_ptr(), tgt.data_ptr(),
+                ptr.data_ptr(), per.data_ptr(), dl.data_ptr(), b, hh, o, p,
+                block, 1.0 / b, stream) == 0,
+             "the parent's loss_head_fwd_f32 failed")
+    got = lhk.loss_head_fwd_cuda(*lh, block=block, b_real=b)
+    _require(torch.equal(per, got[0]) and torch.equal(dl, got[1]),
+             f"loss_head_fwd at {name}: not bitwise the parent's")
+    print(f"[{name}] infer_head (logits, log-probs) and loss_head_fwd "
+          "bitwise the parent's", flush=True)
 
 
 def _loss_head_fields(kernels, block, h, w2, dh, dw):
@@ -2046,6 +2195,13 @@ def loss_head_library_full(lh, lb, hb, wb2, wm, fwd_out, bwd_out):
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="another checkout of the repository (e.g. the "
+                    "parent commit's git archive): hold the f32 infer_head "
+                    "and loss_head_fwd outputs bitwise to its kernels'")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -2085,6 +2241,7 @@ def main() -> int:
     print(f"built {sorted(libs)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
     ptxas = {name: _ptxas(name) for name in sorted(libs)}
+    parent = parent_libs(args.parent.resolve()) if args.parent else None
 
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
@@ -2243,11 +2400,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
-                       unfused_serve_n, unfused_train_n, m3_n)
+                       unfused_serve_n, unfused_train_n, m3_n, parent)
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas))
     for row, lib, kernel in (("infer_head", "infer_head", "infer_head_kernel"),
+                             ("infer_head_int8", "infer_head",
+                              "infer_head_i8_kernel"),
+                             ("fused_input_bwd", "fused_input_bwd",
+                              "fused_input_bwd_kernel"),
                              ("fused_layer_dx_dw", "fused_layer_dx_dw",
                               "fused_layer_dx_dw_kernel"),
                              ("m3_matmul_dh", "m3_matmul", "m3_dh_kernel")):

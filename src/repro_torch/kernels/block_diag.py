@@ -33,17 +33,21 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, *, blk: int):
-    """Σ over each CSR row's steps of x[:, s_in]·wb[s_w]ᵀ → (B, rows·blk)."""
+    """Σ over each CSR row's steps of x[:, s_in]·wb[s_w]ᵀ → (B, rows·blk)
+    in x's dtype; products and sums in f32 (f64 for f64 inputs), as JAX's
+    kernel accumulates."""
     b = x.shape[0]
+    acc = torch.promote_types(x.dtype, torch.float32)
     n_rows = rowptr.shape[0] - 1
     s_out = torch.repeat_interleave(
         torch.arange(n_rows, device=x.device),
         (rowptr[1:] - rowptr[:-1]).long())
-    xt = x.reshape(b, -1, blk)[:, s_in.long()]                 # (B, S, blk)
-    prod = torch.einsum("bsk,srk->bsr", xt, wb[s_w.long()])    # (B, S, blk)
-    z = torch.zeros(b, n_rows, blk, device=x.device, dtype=prod.dtype)
+    xt = x.to(acc).reshape(b, -1, blk)[:, s_in.long()]         # (B, S, blk)
+    prod = torch.einsum("bsk,srk->bsr", xt,
+                        wb[s_w.long()].to(acc))                # (B, S, blk)
+    z = torch.zeros(b, n_rows, blk, device=x.device, dtype=acc)
     z.index_add_(1, s_out, prod)
-    return z.reshape(b, n_rows * blk)
+    return z.reshape(b, n_rows * blk).to(x.dtype)
 
 
 def block_diag_dw_plain(dy, x, wb_out_tile, wb_in_tile, *, blk: int):

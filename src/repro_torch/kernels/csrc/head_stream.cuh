@@ -1,17 +1,27 @@
 // The streaming core of the output head's forward, shared by the serving
-// head (infer_head.cu, the logits) and the training loss head's forward
-// (loss_head.cu, the logits fused with softmax cross-entropy):
+// head (infer_head.cu, the logits over f32 or int8 weights) and the
+// training loss head's forward (loss_head.cu, the logits fused with softmax
+// cross-entropy):
 //
 //   z[b, m, :] = Σ_{j in member m} h[b, j] · w2[:, j]
 //
-// h (B, H), w2 (O, H) f32, O ≤ 16, the members' hidden ranges in CSR form
+// h (B, H) f32, w2 (O, H), O ≤ 16, the members' hidden ranges in CSR form
 // over blocks of `block` units.  What bounds it is bytes (h and w2 read
 // once), so the design is about bytes in flight and latency:
 //   * every thread owns VW consecutive hidden units (VW = 4: one 16-byte
-//     load a row; VW = 1, the scalar instance of the same code, where a
-//     block is not a multiple of 4 or a pointer not 16-byte aligned:
-//     kernel_path() in infer_head.py holds the same rule, takes_vec4 here)
-//     and keeps its w2 columns in registers, loaded once a tile;
+//     load of h a row; VW = 1, the scalar instance of the same code, where
+//     a block is not a multiple of 4, a row not a multiple of 4 units or a
+//     tensor not aligned to 4 of its elements: kernel_path() in
+//     infer_head.py holds the same rule, takes_vec4 here) and keeps its w2
+//     columns in registers, loaded once a tile by the weight policy:
+//       - F32Weights: w2 f32, VW floats a class in one load;
+//       - I8Weights: w2 int8 with one f32 scale per block of units; VW
+//         int8 a class in one load (4 bytes at VW = 4), dequantized in
+//         registers as q · s with the scale of the block that holds them
+//         (block % 4 == 0 at VW = 4, so a thread's units share one block).
+//     Both hand stream_logits the same f32 weights for the same values
+//     (q · s is exact-rounded either way), so the int8 kernel is bitwise
+//     the f32 kernel on the dequantized weight at the same instance;
 //   * it streams h rows with R of them in flight (R · OT = 16 floats) and
 //     issues the next R rows before it reduces these;
 //   * a CTA is 256 threads in 1, 2, 4 or 8 lanes of rows over one tile of
@@ -98,6 +108,54 @@ __device__ __forceinline__ void load_rows(float (&hv)[R][VW],
   }
 }
 
+// The weight policies: the w[OT][VW] a thread holds for its units j … j +
+// VW − 1, class o < O, zeros past O or where the thread has no units.
+struct F32Weights {
+  const float* __restrict__ w2;  // (O, H)
+  int H;
+  template <int OT, int VW>
+  __device__ __forceinline__ void load(float (&w)[OT][VW], int O, int j,
+                                       bool act) const {
+#pragma unroll
+    for (int o = 0; o < OT; ++o) {
+      if (act && o < O) {
+        load_units<VW>(w[o], w2 + (size_t)o * H + j);
+      } else {
+#pragma unroll
+        for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
+      }
+    }
+  }
+};
+
+struct I8Weights {
+  const int8_t* __restrict__ q;      // (O, H)
+  const float* __restrict__ scale;   // (H / block,)
+  int H, block;
+  template <int OT, int VW>
+  __device__ __forceinline__ void load(float (&w)[OT][VW], int O, int j,
+                                       bool act) const {
+    const float s = act ? scale[j / block] : 0.f;
+#pragma unroll
+    for (int o = 0; o < OT; ++o) {
+      if (act && o < O) {
+        const int8_t* p = q + (size_t)o * H + j;
+        if constexpr (VW == 4) {
+          const char4 t = *reinterpret_cast<const char4*>(p);
+          w[o][0] = (float)t.x * s; w[o][1] = (float)t.y * s;
+          w[o][2] = (float)t.z * s; w[o][3] = (float)t.w * s;
+        } else {
+#pragma unroll
+          for (int v = 0; v < VW; ++v) w[o][v] = (float)p[v] * s;
+        }
+      } else {
+#pragma unroll
+        for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
+      }
+    }
+  }
+};
+
 // The first members whose first unit lies at or past u0 and u1 (P if
 // none), found by the whole CTA together: each round every thread tests
 // one of blockDim.x evenly spaced candidates for each, and the count of
@@ -148,16 +206,17 @@ __device__ inline void cta_members(const int* __restrict__ member_ptr, int P,
 }
 
 // Adds to z[(r · mb_cap + i) · OT + o] the dot products of rows r0 … r0 +
-// nr − 1 of h with w2's class o over the units of members i = 0 … nb − 1,
-// whose first units mstart[0 … nb] (in shared memory, mstart[nb] the end)
-// bound them.  part is the [R · lanes][OT][pad] shared scratch of the
-// partials.  Every thread must call it, after a barrier that makes
-// mstart and z visible; z is complete for every thread when it returns.
-template <int OT, int VW>
+// nr − 1 of h with w2's class o (loaded by the weight policy wl) over the
+// units of members i = 0 … nb − 1, whose first units mstart[0 … nb] (in
+// shared memory, mstart[nb] the end) bound them.  part is the [R ·
+// lanes][OT][pad] shared scratch of the partials.  Every thread must call
+// it, after a barrier that makes mstart and z visible; z is complete for
+// every thread when it returns.
+template <int OT, int VW, class W>
 __device__ __forceinline__ void stream_logits(
-    const float* __restrict__ h, const float* __restrict__ w2, int H, int O,
-    int r0, int nr, const int* mstart, int nb, int mb_cap, int lanes,
-    float* part, float* z) {
+    const float* __restrict__ h, const W& wl, int H, int O, int r0, int nr,
+    const int* mstart, int nb, int mb_cap, int lanes, float* part,
+    float* z) {
   constexpr int R = rows_in_flight<OT>();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -173,15 +232,7 @@ __device__ __forceinline__ void stream_logits(
     const bool act = j < uend;
     const int u1 = min(u0 + U, uend);
     float w[OT][VW];
-#pragma unroll
-    for (int o = 0; o < OT; ++o) {
-      if (act && o < O) {
-        load_units<VW>(w[o], w2 + (size_t)o * H + j);
-      } else {
-#pragma unroll
-        for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
-      }
-    }
+    wl.template load<OT, VW>(w, O, j, act);
     // this lane's rows of a group: g + lane·R ... g + lane·R + R − 1
     float hv[R][VW];
     load_rows<R, VW>(hv, h, H, j, r0 + lane * R, act ? nr - lane * R : 0);
@@ -222,13 +273,18 @@ __device__ __forceinline__ void stream_logits(
   }
 }
 
-// kernel_path() in infer_head.py: 16-byte loads need a block of a multiple
-// of 4 units (so a thread's 4 units share a member), rows of a multiple of
-// 4 floats and 16-byte-aligned tensors
-inline bool takes_vec4(int block, int H, const void* const* ptrs, int n) {
+// kernel_path() in infer_head.py: VW = 4 needs a block of a multiple of 4
+// units (so a thread's 4 units share a member and a scale), rows of a
+// multiple of 4 units and every tensor walked 4 units at a time aligned to
+// 4 of its elements: the f32 ones (ptrs) to 16 bytes, the int8 ones (ptrs8)
+// to 4
+inline bool takes_vec4(int block, int H, const void* const* ptrs, int n,
+                       const void* const* ptrs8 = nullptr, int n8 = 0) {
   if (block % 4 != 0 || H % 4 != 0) return false;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+  for (int i = 0; i < n8; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs8[i]) % 4 != 0) return false;
   return true;
 }
 
@@ -248,18 +304,18 @@ inline int cta_lanes(int H, int vw) {
   return lanes;
 }
 
-// A forward launch's shape: the instance (vec4 or scalar), the lanes, the
-// tile of units, the CTAs (one if H is 0: it owns every member) and the
-// members a CTA holds at once.
+// A forward launch's shape: the instance (vec4 or scalar, by takes_vec4),
+// the lanes, the tile of units, the CTAs (one if H is 0: it owns every
+// member) and the members a CTA holds at once.
 struct FwdShape {
   bool vec;
   int lanes, tile, mb_cap;
   long long n_tiles;
 };
 
-inline FwdShape fwd_shape(int H, int block, const void* const* ptrs, int n) {
+inline FwdShape fwd_shape(int H, int block, bool vec) {
   FwdShape s;
-  s.vec = takes_vec4(block, H, ptrs, n);
+  s.vec = vec;
   s.lanes = cta_lanes(H, s.vec ? 4 : 1);
   s.tile = (s.vec ? 4 : 1) * (MAX_THREADS / s.lanes);
   s.n_tiles = H > 0 ? ((long long)H + s.tile - 1) / s.tile : 1;

@@ -29,17 +29,20 @@
 // infer_head_i8 replaces repro/kernels/infer_head.py::infer_head_int8_fwd
 // (the int8 serve copy, ops.py::infer_head_int8): w2 is (O, H) int8 with one
 // f32 scale per hidden tile of `block` units (H / block,).  JAX pads O to
-// 128 with zero rows and −1e30 bias columns; here, as in the f32 kernel,
-// O ≤ 16 is used as it is and members are CSR ranges.  One CTA owns one
-// (32-row batch tile, member) pair and walks the member's hidden range in
-// chunks of 256 units: each chunk's int8 weights are read from device
-// memory once, converted to f32 and multiplied by their tile's scale as
-// they are staged in shared memory (q·s, then the dot, as in JAX), then
-// every warp reads them there for its 4 batch rows.  Lanes stride the chunk
-// (coalesced reads of h); a shuffle reduction finishes the O dot products
-// and lane 0 runs the f32 kernel's epilogue.  What bounds it: bytes, as
-// for the f32 head (h is 164 MB at full width and B = 32; w2 shrinks from
-// 10 MB to 2.6 MB).
+// 128 with zero rows and −1e30 bias columns and dequantizes each weight
+// tile (q·s) before its dot; here O ≤ 16 is used as it is, members are CSR
+// ranges, and the kernel is the f32 kernel with another weight policy
+// (head_stream.cuh's I8Weights): a thread's 4 units of a class come in one
+// 4-byte load and are dequantized in registers, once a tile, with the
+// scale of the block that holds them (q·s, then the dot, as in JAX).  The
+// rest (h streamed with 16-byte loads, rows in flight, members owned by
+// the CTA that holds their first unit, partials added in unit order,
+// head_epilogue) is the f32 kernel's, so where both take the same instance
+// its output is bitwise the f32 kernel's on the dequantized weight.  Its
+// own alignment rule (kernel_path() in infer_head.py): h 16-byte aligned,
+// w2_q 4-byte aligned, block and H multiples of 4 for the vec4 instance,
+// else the scalar one.  What bounds it: bytes, as for the f32 head (h is
+// 164 MB at full width and B = 32; w2 shrinks from 10 MB to 2.6 MB).
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -50,13 +53,6 @@
 namespace {
 
 using namespace head;
-
-// the int8 kernel's CTAs
-constexpr int BM = 32;          // batch rows per CTA
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int RPW = BM / WARPS;  // batch rows per warp
-constexpr int CH = 256;          // hidden units staged per chunk
 
 // The epilogue of one (row, member): the member bias, the optional stable
 // log-softmax, the store.  acc holds the row's O ≤ N finished dot products.
@@ -90,9 +86,9 @@ __device__ __forceinline__ void head_epilogue(float (&acc)[N],
     if (o < O) yr[o] = acc[o];
 }
 
-template <int OT, int VW>
+template <int OT, int VW, class W>
 __device__ __forceinline__ void infer_body(
-    const float* __restrict__ h, const float* __restrict__ w2,
+    const float* __restrict__ h, const W& wl,
     const float* __restrict__ b2, const int* __restrict__ member_ptr,
     float* __restrict__ y, int B, int H, int O, int P, int block,
     int log_probs, int n_tiles, int lanes, int mb_cap) {
@@ -119,7 +115,7 @@ __device__ __forceinline__ void infer_body(
       for (int i = tid; i < RB * mb_cap * OT; i += T) z[i] = 0.f;
       __syncthreads();
 
-      stream_logits<OT, VW>(h, w2, H, O, r0, nr, mstart, nb, mb_cap, lanes,
+      stream_logits<OT, VW>(h, wl, H, O, r0, nr, mstart, nb, mb_cap, lanes,
                             part, z);
 
       // one thread per (row, member), consecutive members on consecutive
@@ -136,25 +132,54 @@ __device__ __forceinline__ void infer_body(
   }
 }
 
-// The two designs, one name each, so that a profiler trace says which ran.
+// The designs, one name each, so that a profiler trace says which ran.
 #define INFER_HEAD_PARAMS                                                   \
   const float *__restrict__ h, const float *__restrict__ w2,                \
       const float *__restrict__ b2, const int *__restrict__ member_ptr,     \
       float *__restrict__ y, int B, int H, int O, int P, int block,         \
       int log_probs, int n_tiles, int lanes, int mb_cap
-#define INFER_HEAD_ARGS                                                   \
-  h, w2, b2, member_ptr, y, B, H, O, P, block, log_probs, n_tiles, lanes,  \
-      mb_cap
+#define INFER_HEAD_I8_PARAMS                                                \
+  const float *__restrict__ h, const int8_t *__restrict__ w2q,              \
+      const float *__restrict__ w2_scale, const float *__restrict__ b2,     \
+      const int *__restrict__ member_ptr, float *__restrict__ y, int B,     \
+      int H, int O, int P, int block, int log_probs, int n_tiles,           \
+      int lanes, int mb_cap
+#define INFER_HEAD_BODY_ARGS                                                \
+  b2, member_ptr, y, B, H, O, P, block, log_probs, n_tiles, lanes, mb_cap
 
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_kernel_vec4(INFER_HEAD_PARAMS) {
-  infer_body<OT, 4>(INFER_HEAD_ARGS);
+  infer_body<OT, 4>(h, F32Weights{w2, H}, INFER_HEAD_BODY_ARGS);
 }
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_kernel_scalar(INFER_HEAD_PARAMS) {
-  infer_body<OT, 1>(INFER_HEAD_ARGS);
+  infer_body<OT, 1>(h, F32Weights{w2, H}, INFER_HEAD_BODY_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_i8_kernel_vec4(INFER_HEAD_I8_PARAMS) {
+  infer_body<OT, 4>(h, I8Weights{w2q, w2_scale, H, block},
+                    INFER_HEAD_BODY_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_i8_kernel_scalar(INFER_HEAD_I8_PARAMS) {
+  infer_body<OT, 1>(h, I8Weights{w2q, w2_scale, H, block},
+                    INFER_HEAD_BODY_ARGS);
+}
+
+// The launch shape of either weight type: fwd_shape, and the shared memory
+// of the streaming core's partials and z, then mstart; false where the
+// grid or the shared memory is out of range.
+template <int OT>
+bool head_launch_shape(int H, int block, bool vec, FwdShape& sh,
+                       size_t& smem) {
+  sh = fwd_shape(H, block, vec);
+  smem = sizeof(float) * stream_smem_floats<OT>(sh) +
+         sizeof(int) * (sh.mb_cap + 1);
+  return sh.n_tiles <= INT_MAX && smem <= SMEM_LIMIT;
 }
 
 template <int OT>
@@ -162,101 +187,45 @@ int launch_f32(const float* h, const float* w2, const float* b2,
                const int* member_ptr, float* y, int B, int H, int O, int P,
                int block, int log_probs, cudaStream_t stream) {
   const void* ptrs[] = {h, w2};
-  const FwdShape sh = fwd_shape(H, block, ptrs, 2);
-  // the streaming core's partials and z, then mstart
-  const size_t smem = sizeof(float) * stream_smem_floats<OT>(sh) +
-                      sizeof(int) * (sh.mb_cap + 1);
-  if (sh.n_tiles > INT_MAX || smem > SMEM_LIMIT)
+  FwdShape sh;
+  size_t smem;
+  if (!head_launch_shape<OT>(H, block, takes_vec4(block, H, ptrs, 2), sh,
+                             smem))
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes, mb_cap = sh.mb_cap;
   if (sh.vec)
     infer_head_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
-                                 stream>>>(INFER_HEAD_ARGS);
+                                 stream>>>(
+        h, w2, INFER_HEAD_BODY_ARGS);
   else
     infer_head_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
-                                   stream>>>(INFER_HEAD_ARGS);
+                                   stream>>>(
+        h, w2, INFER_HEAD_BODY_ARGS);
   return (int)cudaGetLastError();
 }
 
-// OT: the class count the registers are sized for (O ≤ OT); the launch
-// picks the smallest of 2, 4, 8, 16 that holds O, since RPW × OT
-// accumulators per thread would otherwise cut the CTAs an SM can hold.
 template <int OT>
-__global__ void __launch_bounds__(THREADS)
-infer_head_i8_kernel(const float* __restrict__ h,
-                     const int8_t* __restrict__ w2q,
-                     const float* __restrict__ w2_scale,
-                     const float* __restrict__ b2,
-                     const int* __restrict__ member_ptr,
-                     float* __restrict__ y, int B, int H, int O, int P,
-                     int block, int log_probs, int n_btiles) {
-  __shared__ float ws[OT][CH];  // one chunk's dequantized weights
-
-  const int bt = blockIdx.x % n_btiles;
-  const int m = blockIdx.x / n_btiles;
-  const int j0 = member_ptr[m] * block;
-  const int j1 = member_ptr[m + 1] * block;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  float acc[RPW][OT];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r)
-#pragma unroll
-    for (int o = 0; o < OT; ++o) acc[r][o] = 0.f;
-
-  for (int c0 = j0; c0 < j1; c0 += CH) {
-    const int n = min(CH, j1 - c0);
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = threadIdx.x; i < O * n; i += THREADS) {
-      const int o = i / n, jj = i % n, j = c0 + jj;
-      ws[o][jj] = (float)w2q[(size_t)o * H + j] * w2_scale[j / block];
-    }
-    __syncthreads();
-    for (int jj = lane; jj < n; jj += 32) {
-      float wv[OT];
-#pragma unroll
-      for (int o = 0; o < OT; ++o) wv[o] = o < O ? ws[o][jj] : 0.f;
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const int b = bt * BM + warp + r * WARPS;
-        if (b < B) {
-          const float hv = h[(size_t)b * H + c0 + jj];
-#pragma unroll
-          for (int o = 0; o < OT; ++o)
-            if (o < O) acc[r][o] = fmaf(hv, wv[o], acc[r][o]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int b = bt * BM + warp + r * WARPS;
-    if (b >= B) continue;  // uniform across the warp
-#pragma unroll
-    for (int o = 0; o < OT; ++o) {
-      if (o < O) {
-        float v = acc[r][o];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        acc[r][o] = v;
-      }
-    }
-    if (lane == 0) head_epilogue(acc[r], b2, y, b, m, O, P, log_probs);
-  }
-}
-
-template <int OT>
-void launch_i8(const float* h, const int8_t* w2_q, const float* w2_scale,
-               const float* b2, const int* member_ptr, float* y, int B,
-               int H, int O, int P, int block, int log_probs, int n_btiles,
-               unsigned n_tiles, void* stream) {
-  infer_head_i8_kernel<OT><<<n_tiles, THREADS, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      h, w2_q, w2_scale, b2, member_ptr, y, B, H, O, P, block, log_probs,
-      n_btiles);
+int launch_i8(const float* h, const int8_t* w2q, const float* w2_scale,
+              const float* b2, const int* member_ptr, float* y, int B, int H,
+              int O, int P, int block, int log_probs, cudaStream_t stream) {
+  const void* ptrs[] = {h};
+  const void* ptrs8[] = {w2q};
+  FwdShape sh;
+  size_t smem;
+  if (!head_launch_shape<OT>(H, block,
+                             takes_vec4(block, H, ptrs, 1, ptrs8, 1), sh,
+                             smem))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes, mb_cap = sh.mb_cap;
+  if (sh.vec)
+    infer_head_i8_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                    stream>>>(
+        h, w2q, w2_scale, INFER_HEAD_BODY_ARGS);
+  else
+    infer_head_i8_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                      stream>>>(
+        h, w2q, w2_scale, INFER_HEAD_BODY_ARGS);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -288,13 +257,17 @@ extern "C" int infer_head_i8(const float* h, const int8_t* w2_q,
                              int O, int P, int block, int log_probs,
                              void* stream) {
   if (B <= 0 || P <= 0) return 0;
-  if (O <= 0 || O > MAX_O || block <= 0) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_tiles = n_btiles * P;
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  auto* fn = O <= 2 ? launch_i8<2> : O <= 4 ? launch_i8<4>
-           : O <= 8 ? launch_i8<8> : launch_i8<MAX_O>;
-  fn(h, w2_q, w2_scale, b2, member_ptr, y, B, H, O, P, block, log_probs,
-     (int)n_btiles, (unsigned)n_tiles, stream);
-  return (int)cudaGetLastError();
+  if (H < 0 || O <= 0 || O > MAX_O || block <= 0 || H % block)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_i8<2>(h, w2_q, w2_scale, b2, member_ptr, y, B, H,
+                                O, P, block, log_probs, s);
+    case 4: return launch_i8<4>(h, w2_q, w2_scale, b2, member_ptr, y, B, H,
+                                O, P, block, log_probs, s);
+    case 8: return launch_i8<8>(h, w2_q, w2_scale, b2, member_ptr, y, B, H,
+                                O, P, block, log_probs, s);
+    default: return launch_i8<16>(h, w2_q, w2_scale, b2, member_ptr, y, B,
+                                  H, O, P, block, log_probs, s);
+  }
 }

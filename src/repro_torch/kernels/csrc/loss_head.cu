@@ -61,7 +61,7 @@
 //     order and written once: one pass over exactly the bound's bytes.
 // The forward's streaming core (stream_logits), the member rule and the
 // helpers both kernels use live in head_stream.cuh, which infer_head.cu's
-// f32 kernel instantiates with its own epilogue.
+// kernels (f32 and int8 weights) instantiate with their own epilogue.
 #include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
@@ -130,8 +130,8 @@ __device__ __forceinline__ void fwd_body(
       for (int i = tid; i < nr; i += T) tgt[i] = targets[r0 + i];
       __syncthreads();
 
-      stream_logits<OT, VW>(h, w2, H, O, r0, nr, mstart, nb, mb_cap, lanes,
-                            part, z);
+      stream_logits<OT, VW>(h, F32Weights{w2, H}, H, O, r0, nr, mstart, nb,
+                            mb_cap, lanes, part, z);
 
       // epilogue: one thread per (row, member), consecutive members on
       // consecutive threads (their dl rows are contiguous)
@@ -336,7 +336,7 @@ int launch_fwd(const float* h, const float* w2, const float* b2,
                float* dl, int B, int H, int O, int P, int block, float inv_b,
                cudaStream_t stream) {
   const void* ptrs[] = {h, w2};
-  const FwdShape sh = fwd_shape(H, block, ptrs, 2);
+  const FwdShape sh = fwd_shape(H, block, takes_vec4(block, H, ptrs, 2));
   const int rb = fwd_rows_held<OT>(sh.lanes), mb_cap = sh.mb_cap;
   // the streaming core's partials and z, then nll, nll_acc, bias, mstart,
   // tgt

@@ -16,7 +16,10 @@ of ``fused_input.py::fused_input_int8_fwd``): w_q (H, F_pad) int8 as
 
 Backward: ``fused_input_bwd_cuda`` launches ``csrc/fused_input_bwd.cu``
 (the port of ``fused_input.py::fused_input_bwd``): from dy and g' (B, H),
-x and w it returns dW (H, F) and, when asked, dx (B, F).
+x and w it returns dW (H, F) and, when asked, dx (B, F).  Its dW streams
+16-byte copies and stores (``"vec4"``) or, where a shape or a tensor does
+not allow it, 4-byte ones (``"scalar"``, the same kernel's other
+instance): ``bwd_path`` says which, by the rule the C entry applies.
 
 Each ``*_plain`` function is the same function in plain PyTorch.
 """
@@ -65,6 +68,18 @@ def fused_input_bwd_plain(dy, g, x, w, *, with_dx: bool):
     """→ (dx (B, F) or None, dW (H, F)), du = dy·g'."""
     du = dy * g
     return (du @ w if with_dx else None), du.t() @ x
+
+
+def bwd_path(dy, g, x, dw) -> str:
+    """The instance a ``fused_input_bwd`` launch takes: ``"vec4"`` where F
+    and H are multiples of 4 and dy, g', x and dW start on a 16-byte
+    boundary (a thread's 4 features are one float4 of a dW row, dy and g'
+    come in 16-byte copies along H), else ``"scalar"``.
+    ``csrc/fused_input_bwd.cu::fused_input_bwd_f32`` applies the same
+    rule."""
+    vec = x.shape[1] % 4 == 0 and dy.shape[1] % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (dy, g, x, dw))
+    return "vec4" if vec else "scalar"
 
 
 def _fwd_args(x, w, bias, mask, act_ids, block):

@@ -18,9 +18,10 @@ training loss head's forward (``loss_head.py``) shares.
 
 ``infer_head_int8_cuda`` launches ``csrc/infer_head.cu``'s int8 kernel (the
 port of ``infer_head.py::infer_head_int8_fwd``): w2 (O, H) int8 with one
-f32 scale per hidden tile (H / block,), dequantized as it is staged in
-shared memory; ``infer_head_int8_plain`` dequantizes, then runs
-``infer_head_plain``.
+f32 scale per hidden tile (H / block,), on the same streaming core, each
+thread's weights dequantized in registers once a tile; its ``kernel_path``
+is the same rule, applied to an int8 w2 (4-byte alignment).
+``infer_head_int8_plain`` dequantizes, then runs ``infer_head_plain``.
 """
 from __future__ import annotations
 
@@ -40,15 +41,17 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def kernel_path(block: int, *tensors) -> str:
-    """The design a launch of the streaming head kernels (this module's f32
-    kernel, ``loss_head.py``'s two) takes: ``"vec4"`` where ``block`` is a
-    multiple of 4 (a thread's 4 units then lie in one member) and every
-    tensor the kernel walks 4 units at a time (h and w2; the loss head's
-    backward's dh and dW too) starts on a 16-byte boundary with rows of a
-    multiple of 4 floats, else ``"scalar"``.
+    """The design a launch of the streaming head kernels (this module's two,
+    ``loss_head.py``'s two) takes: ``"vec4"`` where ``block`` is a multiple
+    of 4 (a thread's 4 units then lie in one member and share one scale)
+    and every tensor the kernel walks 4 units at a time (h and w2 or w2_q;
+    the loss head's backward's dh and dW too) has rows of a multiple of 4
+    units and starts on a boundary of 4 of its elements (16 bytes for f32,
+    4 for int8: one load of a thread's 4 units), else ``"scalar"``.
     ``csrc/head_stream.cuh::takes_vec4`` is the same rule."""
     vec = block % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 and t.shape[-1] % 4 == 0 for t in tensors)
+        t.data_ptr() % (4 * t.element_size()) == 0 and t.shape[-1] % 4 == 0
+        for t in tensors)
     return "vec4" if vec else "scalar"
 
 
@@ -82,11 +85,14 @@ def member_ptr(block_seg_ids: torch.Tensor, num_members: int) -> torch.Tensor:
 
 def infer_head_plain(h, w2, b2, member_ptr, *, block: int,
                      log_probs: bool = False):
+    """Products and sums in f32 (f64 for f64 inputs), whatever the operands'
+    dtype, as JAX's kernel accumulates; the output is f32 (f64)."""
     b, p, o = h.shape[0], b2.shape[0], w2.shape[0]
+    acc = torch.promote_types(h.dtype, torch.float32)
     widths = (member_ptr[1:] - member_ptr[:-1]).long() * block
     seg = torch.repeat_interleave(torch.arange(p, device=h.device), widths)
-    y = torch.zeros(b, p, o, device=h.device, dtype=h.dtype)
-    y.index_add_(1, seg, h[:, :, None] * w2.t()[None])
+    y = torch.zeros(b, p, o, device=h.device, dtype=acc)
+    y.index_add_(1, seg, h.to(acc)[:, :, None] * w2.to(acc).t()[None])
     y = y + b2[None]
     return torch.log_softmax(y, dim=-1) if log_probs else y
 

@@ -43,12 +43,15 @@ def _unit_members(member_ptr, block: int, device) -> torch.Tensor:
 
 
 def m3_matmul_fwd_plain(h, w2, member_ptr, *, block: int):
-    """Σ over each member's units of h[:, j]·w2[:, j] → (B, P, O)."""
+    """Σ over each member's units of h[:, j]·w2[:, j] → (B, P, O) in h's
+    dtype; products and sums in f32 (f64 for f64 inputs), as JAX's kernel
+    accumulates."""
     p = member_ptr.shape[0] - 1
-    y = torch.zeros(h.shape[0], p, w2.shape[0], device=h.device,
-                    dtype=h.dtype)
+    acc = torch.promote_types(h.dtype, torch.float32)
+    y = torch.zeros(h.shape[0], p, w2.shape[0], device=h.device, dtype=acc)
     return y.index_add_(1, _unit_members(member_ptr, block, h.device),
-                        h[:, :, None] * w2.t()[None])
+                        h.to(acc)[:, :, None] * w2.to(acc).t()[None]
+                        ).to(h.dtype)
 
 
 def m3_matmul_dh_plain(dy, w2, block_seg_ids, *, block: int):

@@ -1,9 +1,9 @@
 """The serving head (``repro_torch.kernels.infer_head``) on the CPU: the
-host-side rules of its f32 kernel, which it shares with the loss head's
-forward through ``csrc/head_stream.cuh`` — which design a launch takes
-(``kernel_path``) and which CTA owns each member (``cta_members``) — and
-its plain version against the JAX package's head on members that the
-kernel's tiles cut in every way.  The kernel itself runs only on the card
+host-side rules of its kernels, which share the loss head's forward's
+streaming core ``csrc/head_stream.cuh`` — which design a launch takes
+(``kernel_path``, over f32 or int8 weights) and which CTA owns each member
+(``cta_members``) — and its plain version against the JAX package's head
+on members that the kernel's tiles cut in every way.  The kernel itself runs only on the card
 (tests/test_torch_kernels.py).
 
 Tolerance of the JAX comparison: rtol 1e-5 / atol 1e-6, as in
@@ -47,6 +47,33 @@ def _at(shape, shift: int) -> torch.Tensor:
 def test_kernel_path_rule(block, shifts, cols, want):
     h, w2 = (_at((3, cols), s) for s in shifts)
     assert ihk.kernel_path(block, h, w2) == want
+
+
+def _at8(shape, shift: int) -> torch.Tensor:
+    """An int8 tensor whose storage starts ``shift`` bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 32, dtype=torch.int8)
+    base = (-buf.data_ptr()) % 16
+    return buf[base + shift:base + shift + n].view(shape)
+
+
+@pytest.mark.parametrize("block,shifts,cols,want", [
+    (128, (0, 0), 1024, "vec4"),     # parallelmlp-10k's head
+    (8, (0, 0), 64, "vec4"),         # the depth-3 population's head
+    (8, (0, 4), 64, "vec4"),         # w2_q 4-byte aligned is enough
+    (4, (0, 8), 12, "vec4"),
+    (8, (0, 1), 64, "scalar"),       # w2_q off a 4-byte boundary
+    (8, (0, 2), 64, "scalar"),
+    (8, (1, 0), 64, "scalar"),       # h 4 bytes off a 16-byte boundary
+    (6, (0, 0), 36, "scalar"),       # a block not a multiple of 4
+    (8, (0, 0), 62, "scalar"),       # rows not a multiple of 4 units
+])
+def test_kernel_path_rule_int8(block, shifts, cols, want):
+    """The int8 head's rule: h aligned to 16 bytes, w2_q to 4 (one load of
+    a thread's 4 int8 units)."""
+    h, w2_q = _at((3, cols), shifts[0]), _at8((2, cols), shifts[1])
+    assert ihk.kernel_path(block, h, w2_q) == want
 
 
 def _member_ptr(widths, block):

@@ -294,24 +294,55 @@ def test_fused_input_train_matches_plain(dev, b, f, block, n_blocks):
     _close(g, wg)
 
 
+def _shifted(a, shift: int, dev):
+    """``a`` on the card in a tensor whose storage starts ``shift``
+    elements past a (256-byte aligned) allocation."""
+    a = np.asarray(a)
+    t = torch.empty(a.size + shift, device=dev,
+                    dtype=torch.int8 if a.dtype == np.int8 else
+                    torch.float32)[shift:].view(a.shape)
+    t.copy_(torch.as_tensor(a))
+    return t
+
+
 @pytest.mark.parametrize("with_dx", [False, True])
-@pytest.mark.parametrize("b,f,h", [(9, 6, 64), (32, 100, 8192),
-                                   (70, 130, 4104)])
-def test_fused_input_bwd_matches_plain(dev, with_dx, b, f, h):
+@pytest.mark.parametrize("b,f,h,shift", [
+    (9, 6, 64, 0), (32, 100, 8192, 0), (70, 130, 4104, 0),
+    (32, 100, 8196, 0),     # H not a multiple of a task's 80 rows
+    (32, 102, 4100, 0),     # F % 4 != 0: the scalar instance
+    (33, 1030, 260, 0),     # F over 1024 (two feature groups a thread), B 33
+    (40, 1028, 204, 0),     # the same on the vec4 instance, B 40
+    (300, 100, 1000, 0),    # B over nine batch chunks, added in order
+    (1, 100, 4000, 0),      # B 1
+    (32, 100, 8192, 1),     # dy 4 bytes off a 16-byte boundary: scalar
+    (32, 101, 8190, 3),     # dy off, F and H not multiples of 4
+])
+def test_fused_input_bwd_matches_plain(dev, with_dx, b, f, h, shift):
+    """dW (and dx) against the plain version, on the instance ``bwd_path``
+    names (the kernel ``torch.profiler`` saw run); two launches on the same
+    inputs bitwise equal."""
     rng = np.random.default_rng(h)
-    dy = _t(rng.normal(0, 1, (b, h)), dev)
+    dy = _shifted(rng.normal(0, 1, (b, h)).astype(np.float32), shift, dev)
     g = _t(rng.random((b, h)) * (rng.random(h) > 0.2), dev)
     x = _t(rng.normal(0, 1, (b, f)), dev)
     w = _t(rng.normal(0, 1, (h, f)) / np.sqrt(f), dev)
+    path = fik.bwd_path(dy, g, x, torch.empty(4, device=dev))
+    assert path == ("vec4" if f % 4 == 0 and h % 4 == 0 and shift % 4 == 0
+                    else "scalar")
     n0 = fik.bwd_launches
-    dx, dw = fik.fused_input_bwd_cuda(dy, g, x, w, with_dx=with_dx)
+    (dx, dw), ran = _kernels_run(lambda: fik.fused_input_bwd_cuda(
+        dy, g, x, w, with_dx=with_dx), "fused_input_bwd")
     assert fik.bwd_launches == n0 + 1
+    assert len(ran) == 1 and ("fused_input_bwd_kernel<%d>"
+                              % (4 if path == "vec4" else 1)) in ran[0], ran
     wdx, wdw = fik.fused_input_bwd_plain(dy, g, x, w, with_dx=with_dx)
     _close(dw, wdw)
+    again_dx, again_dw = fik.fused_input_bwd_cuda(dy, g, x, w,
+                                                  with_dx=with_dx)
+    assert torch.equal(dw, again_dw)      # one owner, one order
     if with_dx:
         _close(dx, wdx)
-        again, _ = fik.fused_input_bwd_cuda(dy, g, x, w, with_dx=True)
-        assert torch.equal(dx, again)     # ordered reduction: reproducible
+        assert torch.equal(dx, again_dx)  # ordered reduction: reproducible
     else:
         assert dx is None
 
@@ -555,27 +586,54 @@ def test_fused_layer_int8_matches_plain(dev, widths, block, b):
 
 
 @pytest.mark.parametrize("log_probs", [False, True])
-@pytest.mark.parametrize("widths,block,o,b", [
-    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9),
-    ((100, 1, 37, 128, 129, 600), 128, 2, 70),   # members over 256 units
-    ((33, 2, 700), 8, 16, 33),
+@pytest.mark.parametrize("widths,block,o,b,shifts", [
+    ((5, 12, 7, 17, 8, 3, 24, 4, 9, 1), 8, 3, 9, (0, 0)),
+    ((100, 1, 37, 128, 129, 600), 128, 2, 70, (0, 0)),  # over 256 units
+    ((33, 2, 700), 8, 16, 33, (0, 0)),
+    ((128,) * 40, 128, 2, 32, (0, 0)),     # parallelmlp-10k's members
+    (_HEAD_NARROW, 8, 2, 32, (0, 0)),      # the depth-3 head's, block 8
+    (_HEAD_NARROW, 8, 16, 257, (0, 0)),
+    (_HEAD_EMPTY, 8, 5, 31, (0, 0)),       # empty members, first and last
+    ((40, 5000, 16, 24), 8, 2, 33, (0, 0)),  # a member over several tiles
+    ((7, 13, 30, 2, 64, 9), 6, 2, 31, (0, 0)),  # block 6: the scalar path
+    ((128,) * 40, 128, 2, 32, (1, 0)),     # h 4 bytes off: scalar
+    (_HEAD_NARROW, 8, 2, 32, (0, 2)),      # w2_q 2 bytes off: scalar
 ])
-def test_infer_head_int8_matches_plain(dev, log_probs, widths, block, o, b):
+def test_infer_head_int8_matches_plain(dev, log_probs, widths, block, o, b,
+                                       shifts):
+    """Each launch against the plain version, on the design ``kernel_path``
+    names for an int8 w2 (the kernel ``torch.profiler`` saw run); two
+    launches on the same inputs bitwise equal, and bitwise the f32
+    kernel's output on the dequantized weight where both take the same
+    instance."""
     rng = np.random.default_rng(len(widths) + o + 1)
     blocks = [-(-w // block) for w in widths]
     seg = np.repeat(np.arange(len(widths)), blocks).astype(np.int32)
     hh = int(sum(blocks)) * block
-    h = _t(rng.normal(0, 1, (b, hh)), dev)
-    w_q = _int8(rng, (o, hh), dev)
+    h = _shifted(rng.normal(0, 1, (b, hh)).astype(np.float32), shifts[0],
+                 dev)
+    w_q = _shifted(rng.integers(-127, 128, (o, hh)).astype(np.int8),
+                   shifts[1], dev)
     w_s = _scales(rng, hh // block, dev)
     b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
     ptr = ihk.member_ptr(_t(seg, dev, torch.int32), len(widths))
+    path = ihk.kernel_path(block, h, w_q)
+    assert path == ("vec4" if block % 4 == 0 and shifts[0] % 4 == 0
+                    and shifts[1] % 4 == 0 else "scalar")
     n0 = ihk.int8_launches
-    got = ihk.infer_head_int8_cuda(h, w_q, w_s, b2, ptr, block=block,
-                                   log_probs=log_probs)
+    got, ran = _kernels_run(lambda: ihk.infer_head_int8_cuda(
+        h, w_q, w_s, b2, ptr, block=block, log_probs=log_probs),
+        "infer_head")
     assert ihk.int8_launches == n0 + 1
+    assert len(ran) == 1 and f"infer_head_i8_kernel_{path}" in ran[0], ran
     _close(got, ihk.infer_head_int8_plain(*_f64(h, w_q, w_s, b2, ptr),
                                           block=block, log_probs=log_probs))
+    assert torch.equal(got, ihk.infer_head_int8_cuda(
+        h, w_q, w_s, b2, ptr, block=block, log_probs=log_probs))
+    w_dq = w_q.float() * w_s.repeat_interleave(block)[None, :]
+    if ihk.kernel_path(block, h, w_dq) == path:
+        assert torch.equal(got, ihk.infer_head_cuda(
+            h, w_dq, b2, ptr, block=block, log_probs=log_probs))
 
 
 def test_int8_server_on_card_matches_cpu(dev):

@@ -167,6 +167,33 @@ def _jax_ids(jlay, transposed):
     return [jnp.asarray(a) for a in jops._bd_ids(jlay, transposed)]
 
 
+def _f32_at(shape, shift: int) -> torch.Tensor:
+    """A float32 tensor whose storage starts ``shift`` floats past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8)
+    base = (-buf.data_ptr() // 4) % 4
+    return buf[base + shift:base + shift + n].view(shape)
+
+
+@pytest.mark.parametrize("f,h,shifts,want", [
+    (100, 1_280_000, (0, 0, 0), "vec4"),  # parallelmlp-10k's input layer
+    (100, 88_000, (0, 0, 0), "vec4"),     # the depth-3 population's
+    (1028, 204, (0, 0, 0), "vec4"),
+    (102, 4100, (0, 0, 0), "scalar"),     # F not a multiple of 4
+    (100, 8190, (0, 0, 0), "scalar"),     # H not a multiple of 4
+    (100, 8192, (1, 0, 0), "scalar"),     # dy 4 bytes off
+    (100, 8192, (0, 2, 0), "scalar"),     # g' off
+    (100, 8192, (0, 0, 3), "scalar"),     # x off
+])
+def test_fused_input_bwd_path_rule(f, h, shifts, want):
+    """The backward's instance: 16-byte copies along H and float4 rows of
+    dW need F and H multiples of 4 and dy, g', x, dW 16-byte aligned."""
+    dy, g = (_f32_at((1, h), s) for s in shifts[:2])
+    x = _f32_at((1, f), shifts[2])
+    assert fik.bwd_path(dy, g, x, _f32_at((4,), 0)) == want
+
+
 @pytest.mark.parametrize("kinks", [False, True], ids=["random", "kinks"])
 @pytest.mark.parametrize("block,l", [(8, 0), (8, 1), (16, 0)])
 def test_fused_layer_train_plain_matches_jax(block, l, kinks):
