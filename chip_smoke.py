@@ -7,7 +7,9 @@ calls.
 
 ``--parent DIR`` (another checkout, e.g. the parent commit's ``git
 archive``) also holds the f32 ``infer_head`` and ``loss_head_fwd`` outputs
-bitwise to that tree's kernels at both heads' shapes (phase 8).
+bitwise to that tree's kernels at both heads' shapes, and the input layer's
+(``fused_input`` y, its training launch's y and g', ``fused_input_int8``
+y) at both input-layer shapes (phase 8).
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -119,6 +121,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      the design each launch took (``path``, by ``kernel_path``) and the
      depth-3 head as ``depth3_*``; ``infer_head`` its log-probabilities
      instance's times (``log_probs_*``) and its f32 kernels' ptxas report;
+     ``fused_input`` and ``fused_input_int8`` the instance each launch
+     takes (``path``, ``train_path``, by ``fwd_path``), their device times
+     (``device_ms``, ``train_device_ms``), the depth-3 input layer (block
+     8, H 88,000) as ``depth3_*``, two launches on the same inputs bitwise
+     equal, and (int8) whether it is bitwise the f32 kernel on the
+     dequantized weight (``bitwise_f32_dequantized``, required where both
+     take the same instance), and every instance's ptxas report;
      the loss-head rows the fewest PyTorch calls that compute the kernel's
      whole function, checked against it and timed (``library_full_ms``,
      named in ``library_full_calls``; ``library_ms`` stays the single
@@ -140,7 +149,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      (with and without dx) two launches on the same inputs bitwise equal;
      with ``--parent``, the f32 ``infer_head`` (logits and
      log-probabilities) and ``loss_head_fwd`` bitwise the other tree's
-     kernels at both shapes;
+     kernels at both shapes, and ``fused_input`` (y; y and g') and
+     ``fused_input_int8`` at both input-layer shapes;
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -1254,7 +1264,10 @@ def _prefixed(prefix: str, row: dict) -> dict:
             "device_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms",
             "library_none", "path", "log_probs_max_abs_err", "log_probs_ms",
-            "log_probs_device_ms", "fma_instance", "bitwise_f32_dequantized")
+            "log_probs_device_ms", "fma_instance", "bitwise_f32_dequantized",
+            "train_max_abs_err", "train_ms", "train_plain_ms",
+            "train_bound_ms", "train_bound_by", "train_path",
+            "train_device_ms")
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
 
@@ -1281,8 +1294,14 @@ def _ptxas(lib: str) -> dict:
             cur.update(registers=int(m[1]), smem_bytes=int(smem[1]) if smem
                        else 0)
     syms, tool = list(out), shutil.which("c++filt")
+    anon = "(anonymous namespace)::"
+
+    def bare(d):  # the name without its parameters
+        d = d.removeprefix("void ")
+        return (anon if d.startswith(anon) else "") + \
+            d.removeprefix(anon).split("(", 1)[0]
     names = syms if not (tool and syms) else [
-        d.removeprefix("void ").rsplit("(", 1)[0] for d in subprocess.run(
+        bare(d) for d in subprocess.run(
             [tool, *syms], check=True, capture_output=True, text=True,
             timeout=60).stdout.splitlines()]
     out = dict(zip(names, out.values()))
@@ -1500,8 +1519,9 @@ def _sum_rows(rows):
 def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                 unfused_serve_n, unfused_train_n, m3_n, parent_libs=None):
     """Phases 7 + 8: every population kernel at the main paths'
-    shapes; with ``parent_libs`` (``--parent``) the f32 heads' outputs also
-    against another tree's kernels (``same_as_parent``)."""
+    shapes; with ``parent_libs`` (``--parent``) the f32 heads' and the
+    input layer's outputs also against another tree's kernels
+    (``same_as_parent``, ``same_input_as_parent``)."""
     import numpy as np
     import torch
 
@@ -1545,6 +1565,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         partial(fik.fused_input_train_plain, *fin, block=blk),
         _nbytes(*fin, h, g), 2 * BATCH * w.shape[0] * w.shape[1],
         train_n["fused_input"], 20))
+    rows["fused_input"].update(_fused_input_fields(fin, blk))
 
     # ---- fused_input_int8 at full width: x (32, 100) · W_q (1,280,000,
     # 104) int8ᵀ; the library call is addmm on the dequantized weight
@@ -1564,6 +1585,9 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         library_input8, _nbytes(*fin8, h8),
         2 * BATCH * wq.shape[0] * x.shape[1], int8_n["fused_input_int8"], 20)
     del wdq
+    rows["fused_input_int8"].update(_fused_input_int8_fields(fin8, blk))
+    if parent_libs:
+        same_input_as_parent(parent_libs, "parallelmlp-10k", fin, fin8, blk)
 
     # ---- fused_input_bwd at full width, as on the path (no dx: x is data)
     dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-3
@@ -1692,16 +1716,18 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     # before it as on the path; a row is one step's worth (both launches)
     q0 = lp3k.layer_pop(0)
     x3 = torch.randn(BATCH, lp3k.in_features, generator=gen, device=dev)
-    hin = fik.fused_input_cuda(
-        x3, p3k["w_in"], p3k["b_in"],
-        torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
-        torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
-        block=lp3k.block)
-    hin8 = fik.fused_input_int8_cuda(
-        x3, q3k["w_in"], q3k["w_in_scale"], q3k["b_in"],
-        torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
-        torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
-        block=lp3k.block)
+    m0 = torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev)
+    a0 = torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev)
+    fin3 = (x3, p3k["w_in"], p3k["b_in"], m0, a0)
+    fin83 = (x3, q3k["w_in"], q3k["w_in_scale"], q3k["b_in"], m0, a0)
+    hin = fik.fused_input_cuda(*fin3, block=lp3k.block)
+    hin8 = fik.fused_input_int8_cuda(*fin83, block=lp3k.block)
+    for key, fields in _depth3_input_rows(fin3, fin83, lp3k.block, hin,
+                                          hin8).items():
+        rows[key].update(fields)
+    if parent_libs:
+        same_input_as_parent(parent_libs, "the depth-3 input layer", fin3,
+                             fin83, lp3k.block)
     fwd_rows, bwd_rows, int8_rows, bd_rows, dw_rows = [], [], [], [], []
     for l in range(lp3k.depth - 1):
         lay = lp3k.bd_layout(l)
@@ -1993,6 +2019,97 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     return rows
 
 
+def _fused_input_fields(fin, block):
+    """Extra fields of the ``fused_input`` row at one shape, from its
+    arguments (x, w, bias, mask, act_ids): the instance its serving and
+    training launches take (``path``, ``train_path``, by ``fwd_path``), both
+    kernels' device times from ``torch.profiler``; two launches on the same
+    inputs bitwise equal, and the training launch's y bitwise the serving
+    launch's (one FMA chain, one epilogue)."""
+    import torch
+
+    from repro_torch.kernels import fused_input as fik
+    x, w = fin[:2]
+    serve = partial(fik.fused_input_cuda, *fin, block=block)
+    train = partial(fik.fused_input_train_cuda, *fin, block=block)
+    y, (yt, gt) = serve(), train()
+    _require(torch.equal(y, serve()) and all(
+        torch.equal(a, b) for a, b in zip((yt, gt), train())),
+        f"fused_input at block {block}: two launches on the same inputs "
+        "differ")
+    _require(torch.equal(yt, y), f"fused_input at block {block}: the "
+             "training launch's y is not the serving launch's")
+    out = {"path": fik.fwd_path(x, w, y),
+           "train_path": fik.fwd_path(x, w, yt, gt),
+           "device_ms": _device_ms(serve, "fused_input_kernel", 20),
+           "train_device_ms": _device_ms(train, "fused_input_kernel", 20)}
+    print(f"[fused_input at block {block}] {out}", flush=True)
+    return out
+
+
+def _fused_input_int8_fields(fin8, block):
+    """Extra fields of the ``fused_input_int8`` row at one shape, from its
+    arguments (x, w_q, w_scale, bias, mask, act_ids): the instance it takes
+    (``fwd_path`` of the int8 weight), its device time, two launches bitwise
+    equal, and whether its output is bitwise the f32 kernel's on the
+    dequantized weight (``bitwise_f32_dequantized``; required where both
+    take the same instance, else None)."""
+    import torch
+
+    from repro_torch.kernels import fused_input as fik
+    x, wq, ws, b, m, ids = fin8
+    kernel = partial(fik.fused_input_int8_cuda, *fin8, block=block)
+    y8 = kernel()
+    _require(torch.equal(y8, kernel()), f"fused_input_int8 at block {block}:"
+             " two launches on the same inputs differ")
+    path = fik.fwd_path(x, wq, y8)
+    wdq = (wq[:, :x.shape[1]].float()
+           * ws.repeat_interleave(block)[:, None]).contiguous()
+    yf = fik.fused_input_cuda(x, wdq, b, m, ids, block=block)
+    same = None
+    if fik.fwd_path(x, wdq, yf) == path:
+        same = torch.equal(y8, yf)
+        _require(same, f"fused_input_int8 at block {block}: not bitwise the "
+                 "f32 kernel on the dequantized weight")
+    del wdq, yf
+    out = {"path": path,
+           "device_ms": _device_ms(kernel, "fused_input_kernel", 20),
+           "bitwise_f32_dequantized": same}
+    print(f"[fused_input_int8 at block {block}] {out}", flush=True)
+    return out
+
+
+def _depth3_input_rows(fin, fin8, block, h, h8):
+    """The input layer's rows at the depth-3 population's shape (x (32,
+    100), W (88,000, 100), block 8), serving, training (``train_*``) and
+    int8, as ``depth3_*`` fields of rows 1 and 2.  No single PyTorch call
+    computes the per-block activations at block 8."""
+    from repro_torch.kernels import fused_input as fik
+    x, w = fin[:2]
+    no_call = "no single PyTorch call: a different activation per 8 units"
+    flops = 2 * BATCH * w.shape[0] * w.shape[1]
+    row = compare("fused_input",
+                  partial(fik.fused_input_cuda, *fin, block=block),
+                  partial(fik.fused_input_plain, *fin, block=block), no_call,
+                  _nbytes(*fin, h), flops, None, 50,
+                  label="fused_input at the depth-3 input layer")
+    train = _train_fields(
+        "fused_input at the depth-3 input layer",
+        partial(fik.fused_input_train_cuda, *fin, block=block),
+        partial(fik.fused_input_train_plain, *fin, block=block),
+        _nbytes(*fin, h, h), flops, None, 50)   # g' is y's size
+    row.update({k: v for k, v in train.items() if k != "train_launches"})
+    row.update(_fused_input_fields(fin, block))
+    row8 = compare("fused_input_int8",
+                   partial(fik.fused_input_int8_cuda, *fin8, block=block),
+                   partial(fik.fused_input_int8_plain, *fin8, block=block),
+                   no_call, _nbytes(*fin8, h8), flops, None, 50,
+                   label="fused_input_int8 at the depth-3 input layer")
+    row8.update(_fused_input_int8_fields(fin8, block))
+    return {"fused_input": _prefixed("depth3", row),
+            "fused_input_int8": _prefixed("depth3", row8)}
+
+
 def _dx_dw_fields(kernel, dy, g, x, bsr_t, out_t, in_t, blk, want):
     """Extra fields of the ``fused_layer_dx_dw`` row at one mid layer: the
     kernel's device time from ``torch.profiler``, and the fewest PyTorch
@@ -2067,10 +2184,10 @@ def _infer_head_int8_fields(args, block):
 
 
 def parent_libs(parent: Path) -> dict:
-    """``--parent``: the ``infer_head`` and ``loss_head`` kernel libraries of
-    another checkout of the repository, built by that tree's own
-    ``_build.build_all`` in a subprocess (at once where that tree's own
-    run has built them): {name: ctypes.CDLL}."""
+    """``--parent``: the ``infer_head``, ``loss_head`` and ``fused_input``
+    kernel libraries of another checkout of the repository, built by that
+    tree's own ``_build.build_all`` in a subprocess (at once where that
+    tree's own run has built them): {name: ctypes.CDLL}."""
     import ctypes
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from repro_torch.kernels import _build; "
@@ -2080,9 +2197,9 @@ def parent_libs(parent: Path) -> dict:
                          check=True, capture_output=True, text=True,
                          timeout=600)
     paths = json.loads(out.stdout.strip().splitlines()[-1])
-    print(f"--parent {parent}: {paths['infer_head']}, {paths['loss_head']}",
-          flush=True)
-    return {k: ctypes.CDLL(paths[k]) for k in ("infer_head", "loss_head")}
+    names = ("infer_head", "loss_head", "fused_input")
+    print(f"--parent {parent}: {[paths[k] for k in names]}", flush=True)
+    return {k: ctypes.CDLL(paths[k]) for k in names}
 
 
 def same_as_parent(libs, name, lh, block):
@@ -2125,6 +2242,56 @@ def same_as_parent(libs, name, lh, block):
              f"loss_head_fwd at {name}: not bitwise the parent's")
     print(f"[{name}] infer_head (logits, log-probs) and loss_head_fwd "
           "bitwise the parent's", flush=True)
+
+
+def _same_bits(a, b) -> bool:
+    """f32 tensors equal bit for bit (a signed zero or a NaN's payload
+    counts, where ``torch.equal`` would let -0 pass for +0)."""
+    import torch
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def same_input_as_parent(libs, name, fin, fin8, block):
+    """The input layer's outputs of this tree's kernels — y, the training
+    launch's (y, g') and the int8 y — on fin = (x, w, bias, mask, act_ids)
+    and fin8 = (x, w_q, w_scale, bias, mask, act_ids) against the C entries
+    of ``libs`` (``parent_libs``), which keep their signatures: bitwise, or
+    fail."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import fused_input as fik
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib = libs["fused_input"]
+    fi, ft, f8 = (lib.fused_input_infer_f32, lib.fused_input_train_f32,
+                  lib.fused_input_infer_i8)
+    fi.argtypes, fi.restype = [P] * 6 + [I] * 4 + [P], I
+    ft.argtypes, ft.restype = [P] * 7 + [I] * 4 + [P], I
+    f8.argtypes, f8.restype = [P] * 7 + [I] * 5 + [P], I
+    x, w, b, m, ids = fin
+    bb, f = x.shape
+    h = w.shape[0]
+    ptr = [t.data_ptr() for t in (x, w, b, m, ids)]
+    stream = torch.cuda.current_stream().cuda_stream
+    y, g = (torch.empty(bb, h, device=x.device) for _ in range(2))
+    _require(fi(*ptr, y.data_ptr(), bb, f, h, block, stream) == 0,
+             "the parent's fused_input_infer_f32 failed")
+    _require(_same_bits(y, fik.fused_input_cuda(*fin, block=block)),
+             f"fused_input at {name}: not bitwise the parent's")
+    _require(ft(*ptr, y.data_ptr(), g.data_ptr(), bb, f, h, block,
+                stream) == 0, "the parent's fused_input_train_f32 failed")
+    got = fik.fused_input_train_cuda(*fin, block=block)
+    _require(_same_bits(y, got[0]) and _same_bits(g, got[1]),
+             f"fused_input (with g') at {name}: not bitwise the parent's")
+    wq = fin8[1]
+    _require(f8(*[t.data_ptr() for t in fin8], y.data_ptr(), bb, f,
+                wq.shape[1], h, block, stream) == 0,
+             "the parent's fused_input_infer_i8 failed")
+    _require(_same_bits(y, fik.fused_input_int8_cuda(*fin8, block=block)),
+             f"fused_input_int8 at {name}: not bitwise the parent's")
+    print(f"[{name}] fused_input (y; y, g') and fused_input_int8 bitwise the "
+          "parent's", flush=True)
 
 
 def _loss_head_fields(kernels, block, h, w2, dh, dw):
@@ -2199,8 +2366,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout of the repository (e.g. the "
-                    "parent commit's git archive): hold the f32 infer_head "
-                    "and loss_head_fwd outputs bitwise to its kernels'")
+                    "parent commit's git archive): hold the f32 infer_head, "
+                    "loss_head_fwd and input-layer outputs bitwise to its "
+                    "kernels'")
     args = ap.parse_args()
     try:
         import torch
@@ -2404,16 +2572,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas))
-    for row, lib, kernel in (("infer_head", "infer_head", "infer_head_kernel"),
-                             ("infer_head_int8", "infer_head",
-                              "infer_head_i8_kernel"),
-                             ("fused_input_bwd", "fused_input_bwd",
-                              "fused_input_bwd_kernel"),
-                             ("fused_layer_dx_dw", "fused_layer_dx_dw",
-                              "fused_layer_dx_dw_kernel"),
-                             ("m3_matmul_dh", "m3_matmul", "m3_dh_kernel")):
+    for row, lib, words in (
+            ("fused_input", "fused_input", ("fused_input_kernel", "float")),
+            ("fused_input_int8", "fused_input",
+             ("fused_input_kernel", "signed char")),
+            ("infer_head", "infer_head", ("infer_head_kernel",)),
+            ("infer_head_int8", "infer_head", ("infer_head_i8_kernel",)),
+            ("fused_input_bwd", "fused_input_bwd",
+             ("fused_input_bwd_kernel",)),
+            ("fused_layer_dx_dw", "fused_layer_dx_dw",
+             ("fused_layer_dx_dw_kernel",)),
+            ("m3_matmul_dh", "m3_matmul", ("m3_dh_kernel",))):
         rows[row]["ptxas"] = {k: v for k, v in ptxas[lib].items()
-                              if kernel in k}
+                              if all(word in k for word in words)}
     rows = [rows[name] for name in REPLACES if name in rows]
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")

@@ -14,6 +14,12 @@ of ``fused_input.py::fused_input_int8_fwd``): w_q (H, F_pad) int8 as
 ``quant.quantize_population`` stores it, one f32 scale per row block
 (H / block,); x stays (B, F).
 
+The forward streams W through each warp's ring of shared-memory stages
+(16-byte copies, 4 int8 weights a copy, and 16-byte stores of y and g':
+``"vec4"``) or, where a shape or a tensor does not allow it, with 4-byte
+copies and stores (``"scalar"``, the same kernel's other instance):
+``fwd_path`` says which, by the rule the C entries apply.
+
 Backward: ``fused_input_bwd_cuda`` launches ``csrc/fused_input_bwd.cu``
 (the port of ``fused_input.py::fused_input_bwd``): from dy and g' (B, H),
 x and w it returns dW (H, F) and, when asked, dx (B, F).  Its dW streams
@@ -82,9 +88,24 @@ def bwd_path(dy, g, x, dw) -> str:
     return "vec4" if vec else "scalar"
 
 
+def fwd_path(x, w, y, g=None) -> str:
+    """The instance a forward launch takes: ``"vec4"`` where F, H and w's
+    row stride (F, or F_pad for int8 weights) are multiples of 4 and x, w,
+    y (and g') start on a 16-byte boundary (W rows and x come in 16-byte
+    copies, 4 int8 weights a copy, y and g' leave in 16-byte stores), else
+    ``"scalar"``.  ``csrc/fused_input.cu::launch`` applies the same rule."""
+    vec = x.shape[1] % 4 == 0 and w.shape[0] % 4 == 0 \
+        and w.shape[1] % 4 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (x, w, y, g) if t is not None)
+    return "vec4" if vec else "scalar"
+
+
 def _fwd_args(x, w, bias, mask, act_ids, block):
     b, f = x.shape
     h = w.shape[0]
+    if w.shape[1] != f or bias.shape != (h,) or mask.shape != (h,) \
+            or act_ids.shape != (h // block,):
+        raise ValueError("fused_input: inconsistent shapes")
     _build.check_tensors(
         "fused_input", x,
         ("x", x, torch.float32),
@@ -92,9 +113,6 @@ def _fwd_args(x, w, bias, mask, act_ids, block):
         ("bias", bias, torch.float32),
         ("mask", mask, torch.float32),
         ("act_ids", act_ids, torch.int32))
-    if w.shape[1] != f or bias.shape != (h,) or mask.shape != (h,) \
-            or act_ids.shape != (h // block,):
-        raise ValueError("fused_input: inconsistent shapes")
     return b, f, h
 
 
@@ -136,6 +154,10 @@ def fused_input_int8_cuda(x, w_q, w_scale, bias, mask, act_ids, *,
     global int8_launches
     b, f = x.shape
     h, f_pad = w_q.shape
+    if f_pad < f or h % block or w_scale.shape != (h // block,) \
+            or bias.shape != (h,) or mask.shape != (h,) \
+            or act_ids.shape != (h // block,):
+        raise ValueError("fused_input_int8: inconsistent shapes")
     _build.check_tensors(
         "fused_input_int8", x,
         ("x", x, torch.float32),
@@ -144,10 +166,6 @@ def fused_input_int8_cuda(x, w_q, w_scale, bias, mask, act_ids, *,
         ("bias", bias, torch.float32),
         ("mask", mask, torch.float32),
         ("act_ids", act_ids, torch.int32))
-    if f_pad < f or h % block or w_scale.shape != (h // block,) \
-            or bias.shape != (h,) or mask.shape != (h,) \
-            or act_ids.shape != (h // block,):
-        raise ValueError("fused_input_int8: inconsistent shapes")
     fn = _build.function("fused_input", "fused_input_infer_i8",
                          [_P] * 7 + [_I] * 5 + [_P])
     y = torch.empty(b, h, device=x.device, dtype=torch.float32)

@@ -83,20 +83,57 @@ def _kernels_run(fn, word: str):
     return out, names
 
 
-@pytest.mark.parametrize("b,f,block,n_blocks", [
-    (9, 6, 8, 20), (32, 100, 128, 12), (33, 17, 8, 41), (300, 130, 16, 9)])
-def test_fused_input_matches_plain(dev, b, f, block, n_blocks):
-    rng = np.random.default_rng(b)
+# The forward's shapes: the four first cases of each test are the port's
+# first ones; the rest reach each instance and edge of the W-streaming
+# kernel (64-unit warp tiles, 8 batch rows a thread, F in stages).
+_FWD_GRID = [
+    (9, 6, 8, 20, 0), (32, 100, 128, 12, 0), (33, 17, 8, 41, 0),
+    (32, 100, 8, 13, 0),      # block 8; H 104, not a multiple of a tile
+    (32, 100, 128, 5, 0),     # B 32, block 128: a tile within one block
+    (16, 100, 64, 3, 0),      # B < 32: a 16-row batch tile
+    (3, 100, 8, 9, 0),        # B < 32: a 4-row batch tile
+    (300, 100, 128, 2, 0),    # B > 32: ten batch tiles
+    (32, 100, 8, 13, 1),      # x 4 bytes off a 16-byte boundary: scalar
+    (5, 101, 8, 9, 0),        # F % 4 != 0: scalar, a tail of single steps
+    (33, 1030, 8, 5, 0),      # F over many stages, x not resident
+]
+
+
+def _fwd_inputs(rng, b, f, block, n_blocks, shift, dev):
     h = block * n_blocks
-    x = _t(rng.normal(0, 1, (b, f)), dev)
+    x = _shifted(rng.normal(0, 1, (b, f)).astype(np.float32), shift, dev)
     w = _t(rng.normal(0, 1, (h, f)) / np.sqrt(f), dev)
     bias = _t(rng.normal(0, 1, h), dev)
     mask = _t(rng.random(h) > 0.2, dev)
     ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
+    return x, w, bias, mask, ids
+
+
+def _fwd_instance(ran, path):
+    """The profiler saw one launch, of the instance ``fwd_path`` names."""
+    assert len(ran) == 1 and ("fused_input_kernel<%d,"
+                              % (4 if path == "vec4" else 1)) in ran[0], ran
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks,shift",
+                         _FWD_GRID + [(300, 130, 16, 9, 0)])
+def test_fused_input_matches_plain(dev, b, f, block, n_blocks, shift):
+    """y against the plain version, on the instance ``fwd_path`` names (the
+    kernel ``torch.profiler`` saw run); two launches bitwise equal."""
+    rng = np.random.default_rng(b)
+    x, w, bias, mask, ids = _fwd_inputs(rng, b, f, block, n_blocks, shift,
+                                        dev)
     n0 = fik.launches
-    got = fik.fused_input_cuda(x, w, bias, mask, ids, block=block)
+    got, ran = _kernels_run(lambda: fik.fused_input_cuda(
+        x, w, bias, mask, ids, block=block), "fused_input_kernel")
     assert fik.launches == n0 + 1
+    path = fik.fwd_path(x, w, got)
+    assert path == ("vec4" if f % 4 == 0 and w.shape[0] % 4 == 0
+                    and shift % 4 == 0 else "scalar")
+    _fwd_instance(ran, path)
     _close(got, fik.fused_input_plain(x, w, bias, mask, ids, block=block))
+    assert torch.equal(got, fik.fused_input_cuda(x, w, bias, mask, ids,
+                                                 block=block))
 
 
 @pytest.mark.parametrize("widths,block,b", [
@@ -268,24 +305,29 @@ def _kinks(n_cols: int) -> np.ndarray:
     return np.resize(vals, n_cols)
 
 
-@pytest.mark.parametrize("b,f,block,n_blocks", [
-    (9, 6, 8, 20), (32, 100, 128, 12), (33, 17, 8, 41), (70, 130, 16, 9)])
-def test_fused_input_train_matches_plain(dev, b, f, block, n_blocks):
+@pytest.mark.parametrize("b,f,block,n_blocks,shift",
+                         _FWD_GRID + [(70, 130, 16, 9, 0)])
+def test_fused_input_train_matches_plain(dev, b, f, block, n_blocks, shift):
+    """(y, g') against the plain version, on the instance ``fwd_path``
+    names; y bitwise the serving launch's, two launches bitwise equal; and
+    pre-activations at the activations' kinks."""
     rng = np.random.default_rng(b)
-    h = block * n_blocks
-    x = _t(rng.normal(0, 1, (b, f)), dev)
-    w = _t(rng.normal(0, 1, (h, f)) / np.sqrt(f), dev)
-    bias = _t(rng.normal(0, 1, h), dev)
-    mask = _t(rng.random(h) > 0.2, dev)
-    ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
+    x, w, bias, mask, ids = _fwd_inputs(rng, b, f, block, n_blocks, shift,
+                                        dev)
     n0 = fik.launches
-    y, g = fik.fused_input_train_cuda(x, w, bias, mask, ids, block=block)
+    (y, g), ran = _kernels_run(lambda: fik.fused_input_train_cuda(
+        x, w, bias, mask, ids, block=block), "fused_input_kernel")
     assert fik.launches == n0 + 1
+    _fwd_instance(ran, fik.fwd_path(x, w, y, g))
     wy, wg = fik.fused_input_train_plain(x, w, bias, mask, ids, block=block)
     _close(y, wy)
     _close(g, wg)
+    assert torch.equal(y, fik.fused_input_cuda(x, w, bias, mask, ids,
+                                               block=block))
+    again = fik.fused_input_train_cuda(x, w, bias, mask, ids, block=block)
+    assert torch.equal(y, again[0]) and torch.equal(g, again[1])
     # kinks: x = 0 makes the pre-activation exactly the bias
-    kb = _t(_kinks(h), dev)
+    kb = _t(_kinks(w.shape[0]), dev)
     y, g = fik.fused_input_train_cuda(torch.zeros_like(x), w, kb, mask, ids,
                                       block=block)
     wy, wg = fik.fused_input_train_plain(torch.zeros_like(x), w, kb, mask,
@@ -537,26 +579,37 @@ def _scales(rng, n, dev):
     return _t(rng.random(n) * 0.006 + 1e-3, dev)
 
 
-@pytest.mark.parametrize("b,f,block,n_blocks", [
-    (9, 6, 8, 20), (32, 100, 128, 12), (33, 17, 8, 41), (70, 130, 16, 9)])
-def test_fused_input_int8_matches_plain(dev, b, f, block, n_blocks):
+@pytest.mark.parametrize("b,f,block,n_blocks,shift",
+                         _FWD_GRID + [(70, 130, 16, 9, 0)])
+def test_fused_input_int8_matches_plain(dev, b, f, block, n_blocks, shift):
     """Batches off the 32-row tile, block 8 to 128; the pad columns of the
-    pre-padded weight hold junk, which the kernel must not read."""
+    pre-padded weight hold junk, which the kernel must not read.  The
+    instance ``fwd_path`` names; bitwise the f32 kernel on the dequantized
+    weight where both take the same instance; two launches bitwise equal."""
     from repro_torch.quant import _input_f_pad
     rng = np.random.default_rng(b + 1)
     h = block * n_blocks
-    x = _t(rng.normal(0, 1, (b, f)), dev)
+    x = _shifted(rng.normal(0, 1, (b, f)).astype(np.float32), shift, dev)
     w_q = _int8(rng, (h, _input_f_pad(f)), dev)
     w_s = _scales(rng, n_blocks, dev)
     bias = _t(rng.normal(0, 1, h), dev)
     mask = _t(rng.random(h) > 0.2, dev)
     ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
     n0 = fik.int8_launches
-    got = fik.fused_input_int8_cuda(x, w_q, w_s, bias, mask, ids,
-                                    block=block)
+    got, ran = _kernels_run(lambda: fik.fused_input_int8_cuda(
+        x, w_q, w_s, bias, mask, ids, block=block), "fused_input_kernel")
     assert fik.int8_launches == n0 + 1
+    path = fik.fwd_path(x, w_q, got)
+    _fwd_instance(ran, path)
     _close(got, fik.fused_input_int8_plain(x, w_q, w_s, bias, mask, ids,
                                            block=block))
+    assert torch.equal(got, fik.fused_input_int8_cuda(
+        x, w_q, w_s, bias, mask, ids, block=block))
+    w_dq = (w_q[:, :f].float() * w_s.repeat_interleave(block)[:, None]
+            ).contiguous()
+    y32 = fik.fused_input_cuda(x, w_dq, bias, mask, ids, block=block)
+    if fik.fwd_path(x, w_dq, y32) == path:
+        assert torch.equal(got, y32)
 
 
 @pytest.mark.parametrize("widths,block,b", _TRAIN_GRID)
