@@ -7,9 +7,12 @@ calls.
 
 ``--parent DIR`` (another checkout, e.g. the parent commit's ``git
 archive``) also holds the f32 ``infer_head`` and ``loss_head_fwd`` outputs
-bitwise to that tree's kernels at both heads' shapes, and the input layer's
+bitwise to that tree's kernels at both heads' shapes, the input layer's
 (``fused_input`` y, its training launch's y and g', ``fused_input_int8``
-y) at both input-layer shapes (phase 8).
+y) at both input-layer shapes, and the mid layers' (``fused_layer`` y and
+y, g', ``fused_layer_int8`` y, ``block_diag_fwd`` y and dh) at both
+depth-3 mid layers, timing the parent's mid-layer kernels beside them
+(phase 8).
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -137,7 +140,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      transposed BSR matmul, a bmm on tiles gathered in the timed call:
      ``library_full_*``; ``library_ms`` stays the dx-only BSR matmul);
      ``m3_matmul_dh`` its device time at both shapes (``device_ms``,
-     ``path_b_device_ms``); ``fused_input_bwd`` its device time, the
+     ``path_b_device_ms``); ``fused_layer`` and ``block_diag_fwd`` (the
+     group core) their device times (``device_ms``, and
+     ``train_device_ms`` or the dh pass's ``dh_device_ms``), each launch's
+     instance (``path``, ``train_path``, ``dh_path``, by
+     ``block_diag.fwd_path``), two launches on the same inputs bitwise
+     equal, and their ptxas report; ``fused_input_bwd`` its device time, the
      instance it took (``path``, by ``bwd_path``), dy·g' then ``mm`` as
      ``library_full_*`` (``library_ms`` stays the ``mm`` of duᵀ·x) and dx
      beside dW (``dx_*``); ``infer_head_int8`` its design (``path``), its
@@ -149,8 +157,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      (with and without dx) two launches on the same inputs bitwise equal;
      with ``--parent``, the f32 ``infer_head`` (logits and
      log-probabilities) and ``loss_head_fwd`` bitwise the other tree's
-     kernels at both shapes, and ``fused_input`` (y; y and g') and
-     ``fused_input_int8`` at both input-layer shapes;
+     kernels at both shapes, ``fused_input`` (y; y and g') and
+     ``fused_input_int8`` at both input-layer shapes, and ``fused_layer``
+     (y; y and g'), ``fused_layer_int8`` and ``block_diag_fwd`` (y and
+     dh) at both depth-3 mid layers, with the parent's device times of
+     rows 4 and 11 (``parent_*device_ms``);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -870,9 +881,10 @@ def check_single_step(name, params, pop, x, y):
 
 # names of the port's kernels in a profiler trace
 KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
-                  "fused_layer_dx_dw_kernel", "fused_layer_kernel",
+                  "fused_layer_dx_dw_kernel", "fused_layer_group_kernel",
+                  "fused_layer_i8_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
-                  "loss_head_bwd_kernel", "block_diag_fwd_kernel",
+                  "loss_head_bwd_kernel", "block_diag_group_kernel",
                   "block_diag_dw_kernel", "seg_act_fwd_kernel",
                   "seg_act_bwd_kernel", "m3_fwd_kernel", "m3_dh_kernel",
                   "m3_dw_kernel")
@@ -1519,9 +1531,10 @@ def _sum_rows(rows):
 def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                 unfused_serve_n, unfused_train_n, m3_n, parent_libs=None):
     """Phases 7 + 8: every population kernel at the main paths'
-    shapes; with ``parent_libs`` (``--parent``) the f32 heads' and the
-    input layer's outputs also against another tree's kernels
-    (``same_as_parent``, ``same_input_as_parent``)."""
+    shapes; with ``parent_libs`` (``--parent``) the f32 heads', the input
+    layer's and the mid layers' outputs also against another tree's
+    kernels (``same_as_parent``, ``same_input_as_parent``,
+    ``same_mid_as_parent``)."""
     import numpy as np
     import torch
 
@@ -1760,6 +1773,10 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             "fused_layer", partial(flk.fused_layer_train_cuda, *args, blk=b3),
             partial(flk.fused_layer_train_plain, *args, blk=b3),
             _nbytes(*args, out, g3), flops, train_n["fused_layer"], 50))
+        row.update(_mid_fwd_fields(
+            "fused_layer", f"mid layer {l}",
+            partial(flk.fused_layer_cuda, *args, blk=b3),
+            partial(flk.fused_layer_train_cuda, *args, blk=b3), args[:2]))
         fwd_rows.append(row)
 
         # the int8 twin, fed by the int8 path's previous layer; the
@@ -1839,6 +1856,17 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             dh_bound_ms=dh_bound,
             dh_library_ms=_time_ms(partial(torch.matmul, bsr_t, dy3.t()),
                                    50))
+        row.update(_mid_fwd_fields(
+            "block_diag_fwd", f"mid layer {l}",
+            partial(bdk.block_diag_fwd_cuda, *bd_args, blk=b3),
+            partial(bdk.block_diag_fwd_cuda, *dh_args, blk=b3), bd_args[:2],
+            dh_args[:2]))
+        if parent_libs:
+            theirs = same_mid_as_parent(parent_libs, f"mid layer {l}", args,
+                                        args8, dh_args, b3)
+            for r, fields in ((row, theirs["block_diag_fwd"]),
+                              (fwd_rows[-1], theirs["fused_layer"])):
+                r.update(fields)
         bd_rows.append(row)
         dw_args = (dy3, hin, out_t, in_t)
         dwb_bd = bdk.block_diag_dw_cuda(*dw_args, blk=b3)
@@ -2138,6 +2166,33 @@ def _dx_dw_fields(kernel, dy, g, x, bsr_t, out_t, in_t, blk, want):
     return out
 
 
+def _mid_fwd_fields(name, where, kernel, second, xw, dh_xw=None):
+    """Extra fields of row 4 (``fused_layer``) or row 11
+    (``block_diag_fwd``) at one mid layer: the instance each launch takes
+    (``path``, and ``train_path`` for the training launch or ``dh_path``
+    for the dh pass, by ``block_diag.fwd_path``), the group kernel's device
+    times from ``torch.profiler`` (``device_ms``, and ``train_device_ms``
+    or ``dh_device_ms``); two launches on the same inputs bitwise equal.
+    ``second`` is the training launch (row 4, returning (y, g')) or the dh
+    pass (row 11, on ``dh_xw``)."""
+    from repro_torch.kernels import block_diag as bdk
+    word = ("fused_layer_group_kernel" if name == "fused_layer"
+            else "block_diag_group_kernel")
+    y, y2, again = kernel(), second(), second()
+    twice = zip(y2, again) if dh_xw is None else ((y2, again),)
+    _require(_same_bits(y, kernel())
+             and all(_same_bits(a, b) for a, b in twice),
+             f"{name} at {where}: two launches on the same inputs differ")
+    key = "train" if dh_xw is None else "dh"
+    out = {"path": bdk.fwd_path(*xw, y),
+           f"{key}_path": (bdk.fwd_path(*xw, *y2) if dh_xw is None
+                           else bdk.fwd_path(*dh_xw, y2)),
+           "device_ms": _device_ms(kernel, word, 50),
+           f"{key}_device_ms": _device_ms(second, word, 50)}
+    print(f"[{name} at {where}] {out}", flush=True)
+    return out
+
+
 def _infer_head_fields(kernel, block, h, w2):
     """Extra fields of the ``infer_head`` row at one shape, from ``kernel``
     (a call of the f32 kernel): the design the launch took
@@ -2184,8 +2239,9 @@ def _infer_head_int8_fields(args, block):
 
 
 def parent_libs(parent: Path) -> dict:
-    """``--parent``: the ``infer_head``, ``loss_head`` and ``fused_input``
-    kernel libraries of another checkout of the repository, built by that
+    """``--parent``: the ``infer_head``, ``loss_head``, ``fused_input``,
+    ``block_diag`` and ``fused_layer`` kernel libraries of another checkout
+    of the repository, built by that
     tree's own ``_build.build_all`` in a subprocess (at once where that
     tree's own run has built them): {name: ctypes.CDLL}."""
     import ctypes
@@ -2197,7 +2253,8 @@ def parent_libs(parent: Path) -> dict:
                          check=True, capture_output=True, text=True,
                          timeout=600)
     paths = json.loads(out.stdout.strip().splitlines()[-1])
-    names = ("infer_head", "loss_head", "fused_input")
+    names = ("infer_head", "loss_head", "fused_input", "block_diag",
+             "fused_layer")
     print(f"--parent {parent}: {[paths[k] for k in names]}", flush=True)
     return {k: ctypes.CDLL(paths[k]) for k in names}
 
@@ -2294,6 +2351,92 @@ def same_input_as_parent(libs, name, fin, fin8, block):
           "parent's", flush=True)
 
 
+def same_mid_as_parent(libs, name, args, args8, dh_args, block):
+    """A mid layer's forward outputs of this tree's kernels against the C
+    entries of ``libs`` (``parent_libs``), called with their own CSR
+    signatures (x, wb, [b_eff, mask, tile_act,] rowptr, s_in, s_w, y, …):
+    ``fused_layer`` y and (y, g') and ``block_diag_fwd`` y on args = (x,
+    wb, b_eff, mask, tile_act, rowptr, s_in, s_w), its dh on dh_args = (dy,
+    wb_t, rowptr_t, s_in_t, s_w_t), ``fused_layer_int8`` y on args8 = (x,
+    wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w): bitwise, or
+    fail.  Returns the parent kernels' device times from ``torch.profiler``
+    as {row: fields} (``parent_device_ms`` and ``parent_train_device_ms``
+    or ``parent_dh_device_ms``)."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import block_diag as bdk
+    from repro_torch.kernels import fused_layer as flk
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fl, bd = libs["fused_layer"], libs["block_diag"]
+    fi, ft, f8 = (fl.fused_layer_infer_f32, fl.fused_layer_train_f32,
+                  fl.fused_layer_infer_i8)
+    fi.argtypes, fi.restype = [P] * 9 + [I] * 4 + [P], I
+    ft.argtypes, ft.restype = [P] * 10 + [I] * 4 + [P], I
+    f8.argtypes, f8.restype = [P] * 10 + [I] * 4 + [P], I
+    bf = bd.block_diag_fwd_f32
+    bf.argtypes, bf.restype = [P] * 6 + [I] * 4 + [P], I
+    stream = torch.cuda.current_stream().cuda_stream
+    x, wb = args[:2]
+    b, n_in = x.shape[0], x.shape[1] // block
+    n_out = args[5].shape[0] - 1
+    y, g = (torch.empty(b, n_out * block, device=x.device)
+            for _ in range(2))
+    ptr = [t.data_ptr() for t in args]
+    bd_ptr = [t.data_ptr() for t in (x, wb, *args[5:])]
+    dy = dh_args[0]
+    dh = torch.empty(b, (dh_args[2].shape[0] - 1) * block, device=x.device)
+    dh_ptr = [t.data_ptr() for t in dh_args]
+
+    def serve():
+        return fi(*ptr, y.data_ptr(), b, n_in, n_out, block, stream)
+
+    def train():
+        return ft(*ptr, y.data_ptr(), g.data_ptr(), b, n_in, n_out, block,
+                  stream)
+
+    def fwd():
+        return bf(*bd_ptr, y.data_ptr(), b, n_in, n_out, block, stream)
+
+    def dh_pass():
+        return bf(*dh_ptr, dh.data_ptr(), b, dy.shape[1] // block,
+                  dh_args[2].shape[0] - 1, block, stream)
+
+    _require(serve() == 0, "the parent's fused_layer_infer_f32 failed")
+    _require(_same_bits(y, flk.fused_layer_cuda(*args, blk=block)),
+             f"fused_layer at {name}: not bitwise the parent's")
+    _require(train() == 0, "the parent's fused_layer_train_f32 failed")
+    got = flk.fused_layer_train_cuda(*args, blk=block)
+    _require(_same_bits(y, got[0]) and _same_bits(g, got[1]),
+             f"fused_layer (with g') at {name}: not bitwise the parent's")
+    _require(f8(*[t.data_ptr() for t in args8], y.data_ptr(), b, n_in,
+                n_out, block, stream) == 0,
+             "the parent's fused_layer_infer_i8 failed")
+    _require(_same_bits(y, flk.fused_layer_int8_cuda(*args8, blk=block)),
+             f"fused_layer_int8 at {name}: not bitwise the parent's")
+    _require(fwd() == 0, "the parent's block_diag_fwd_f32 failed")
+    _require(_same_bits(y, bdk.block_diag_fwd_cuda(x, wb, *args[5:],
+                                                   blk=block)),
+             f"block_diag_fwd at {name}: not bitwise the parent's")
+    _require(dh_pass() == 0, "the parent's block_diag_fwd_f32 (dh) failed")
+    _require(_same_bits(dh, bdk.block_diag_fwd_cuda(*dh_args, blk=block)),
+             f"block_diag_fwd dh at {name}: not bitwise the parent's")
+    out = {"fused_layer": {
+               "parent_device_ms": _device_ms(serve, "fused_layer_kernel", 50),
+               "parent_train_device_ms": _device_ms(
+                   train, "fused_layer_kernel", 50)},
+           "block_diag_fwd": {
+               "parent_device_ms": _device_ms(fwd, "block_diag_fwd_kernel",
+                                              50),
+               "parent_dh_device_ms": _device_ms(
+                   dh_pass, "block_diag_fwd_kernel", 50)}}
+    print(f"[{name}] fused_layer (y; y, g'), fused_layer_int8 and "
+          f"block_diag_fwd (y, dh) bitwise the parent's; the parent's "
+          f"device times {out}", flush=True)
+    return out
+
+
 def _loss_head_fields(kernels, block, h, w2, dh, dw):
     """Extra fields of the two loss-head rows at one shape, from
     ``kernels`` {row name: a call of its kernel}: the design each launch
@@ -2367,8 +2510,8 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout of the repository (e.g. the "
                     "parent commit's git archive): hold the f32 infer_head, "
-                    "loss_head_fwd and input-layer outputs bitwise to its "
-                    "kernels'")
+                    "loss_head_fwd, input-layer and mid-layer outputs "
+                    "bitwise to its kernels'")
     args = ap.parse_args()
     try:
         import torch
@@ -2582,7 +2725,9 @@ def main() -> int:
              ("fused_input_bwd_kernel",)),
             ("fused_layer_dx_dw", "fused_layer_dx_dw",
              ("fused_layer_dx_dw_kernel",)),
-            ("m3_matmul_dh", "m3_matmul", ("m3_dh_kernel",))):
+            ("m3_matmul_dh", "m3_matmul", ("m3_dh_kernel",)),
+            ("fused_layer", "fused_layer", ("fused_layer_group_kernel",)),
+            ("block_diag_fwd", "block_diag", ("block_diag_group_kernel",))):
         rows[row]["ptxas"] = {k: v for k, v in ptxas[lib].items()
                               if all(word in k for word in words)}
     rows = [rows[name] for name in REPLACES if name in rows]

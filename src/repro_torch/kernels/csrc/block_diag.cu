@@ -11,19 +11,21 @@
 // dh[:, i] = Σ_{transposed steps s of input tile i} dy[:, s_in_t[s]] ·
 // wb_t[s_w_t[s]]ᵀ.  wb is the (n_param_blocks + 1, blk, blk) tile array
 // with the shared identity tile last (pass-through members); the steps come
-// in CSR form (rowptr (n_rows + 1,), s_in, s_w (n_steps,) int32), one row
-// per output tile.  x (B, n_in_tiles·blk) → y (B, n_rows·blk) f32;
-// dy (B, n_out_tiles·blk), x → dWB (n_param_blocks, blk, blk) f32.
+// in CSR form (s_in, s_w (n_steps,) int32, one CSR row per output tile),
+// walked by the group table of block_diag.py::fwd_groups.  x (B,
+// n_in_tiles·blk) → y (B, n_rows·blk) f32; dy (B, n_out_tiles·blk), x →
+// dWB (n_param_blocks, blk, blk) f32.
 //
 // The TPU kernels walk a sequential grid: the forward opens and flushes a
 // VMEM accumulator on s_first/s_last as it passes an output tile's run of
 // steps, and dW carries each tile's sum across the inner batch-tile axis.
 // A GPU grid has no order, so every output has one owner that loops
 // privately:
-//   * forward: one CTA per (32-row batch tile, output tile) walks that
-//     tile's CSR row, staging each (32 × blk) input tile and blk × blk
-//     weight tile in shared memory, accumulates in registers and writes
-//     once;
+//   * forward: block_diag_core.cuh, shared with fused_layer.cu's forward:
+//     one warp owning each group of rows (a member's output tiles, which
+//     read the same input tiles, or a run of pass-through tiles), x and
+//     the tiles staged once a group with cp.async in two stages, a 4 × 8
+//     register tile a lane; this file's epilogue stores u;
 //   * dW: one CTA per group of parameter tiles (128 / blk of them, so a
 //     CTA has 128·blk outputs) loops over every batch row in a fixed
 //     order, 32 rows at a time, and adds each chunk's sum to the total (one
@@ -35,86 +37,21 @@
 // What bounds it: bytes at training and serving batch sizes.  A step reads
 // one blk × blk weight tile and one (32 × blk) input tile for 2·32·blk²
 // FLOP (16 FLOP per weight byte at B = 32), below the card's f32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20); dW reads dy and x once per parameter
-// tile.  At block 8 a forward CTA computes only 32 × 8 outputs, so the
-// kernel is many small CTAs, latency rather than bandwidth: left for later,
-// with tensor cores and double-buffered tile loads.
+// (67 TFLOP/s over 3.35 TB/s = 20); the forward reads each x column and
+// tile of a group once; dW reads dy and x once per parameter tile.
 #include <climits>
 #include <cuda_runtime.h>
+
+#include "block_diag_core.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_BLK = 128;
-// forward
-constexpr int BM = 32;                               // batch rows per CTA
-constexpr int KC = 32;                               // reduction chunk
-constexpr int MAX_ACC_F = BM * MAX_BLK / THREADS;    // 16
 // dW
 constexpr int KB = 32;                               // batch rows per chunk
 constexpr int W_COLS = 128;                          // G·blk ≤ 128 columns
 constexpr int MAX_ACC_W = W_COLS * MAX_BLK / THREADS;  // 64
-
-__global__ void __launch_bounds__(THREADS)
-block_diag_fwd_kernel(const float* __restrict__ x,
-                      const float* __restrict__ wb,
-                      const int* __restrict__ rowptr,
-                      const int* __restrict__ s_in,
-                      const int* __restrict__ s_w, float* __restrict__ y,
-                      int B, int in_width, int out_width, int blk,
-                      int n_btiles) {
-  __shared__ float xs[BM][KC + 1];
-  __shared__ float ws[MAX_BLK][KC + 1];
-
-  const int bt = blockIdx.x % n_btiles;
-  const int ot = blockIdx.x / n_btiles;
-  const int b0 = bt * BM;
-  const int t = threadIdx.x;
-  const int n_out = BM * blk;  // (row, column) outputs of this CTA
-
-  float acc[MAX_ACC_F];
-#pragma unroll
-  for (int a = 0; a < MAX_ACC_F; ++a) acc[a] = 0.f;
-
-  const int s_end = rowptr[ot + 1];
-  for (int s = rowptr[ot]; s < s_end; ++s) {
-    const int col0 = s_in[s] * blk;
-    const float* wt = wb + (size_t)s_w[s] * blk * blk;
-    for (int k0 = 0; k0 < blk; k0 += KC) {
-      const int kc = min(KC, blk - k0);
-      __syncthreads();  // the previous chunk's reads are done
-      for (int i = t; i < BM * kc; i += THREADS) {
-        const int r = i / kc, c = i % kc;
-        const int b = b0 + r;
-        xs[r][c] = b < B ? x[(size_t)b * in_width + col0 + k0 + c] : 0.f;
-      }
-      for (int i = t; i < blk * kc; i += THREADS) {
-        const int r = i / kc, c = i % kc;
-        ws[r][c] = wt[(size_t)r * blk + k0 + c];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < MAX_ACC_F; ++a) {
-        const int o = t + a * THREADS;
-        if (o < n_out) {
-          const int r = o / blk, col = o % blk;
-          float sum = acc[a];
-          for (int c = 0; c < kc; ++c) sum = fmaf(xs[r][c], ws[col][c], sum);
-          acc[a] = sum;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int a = 0; a < MAX_ACC_F; ++a) {
-    const int o = t + a * THREADS;
-    if (o < n_out) {
-      const int b = b0 + o / blk;
-      if (b < B) y[(size_t)b * out_width + ot * blk + o % blk] = acc[a];
-    }
-  }
-}
 
 __global__ void __launch_bounds__(THREADS)
 block_diag_dw_kernel(const float* __restrict__ dy,
@@ -173,25 +110,71 @@ block_diag_dw_kernel(const float* __restrict__ dy,
   }
 }
 
+// the forward's epilogue: u as it is, from the lane's registers, 16-byte
+// evict-first stores where the vec4 instance runs
+struct StoreU {
+  template <int V>
+  __device__ __forceinline__ void run(const bdcore::Args& a,
+                                      const bdcore::Rec& q, int lane,
+                                      const float (&acc)[bdcore::RPL]
+                                                        [bdcore::CG],
+                                      float*) const {
+    int tile, ncol;
+    size_t col0;
+    if (!bdcore::lane_cols(q, a, lane, tile, col0, ncol)) return;
+    const int b0 = q.bt * bdcore::BT, nb = min(bdcore::BT, a.B - b0);
+#pragma unroll
+    for (int i = 0; i < bdcore::RPL; ++i) {
+      const int b = (lane & 7) + 8 * i;
+      if (b >= nb) break;
+      float* y = a.y + (size_t)(b0 + b) * a.out_w + col0;
+      if constexpr (V == 4) {
+#pragma unroll
+        for (int c = 0; c < bdcore::CG; c += 4)
+          if (c < ncol)
+            __stcs(reinterpret_cast<float4*>(y + c),
+                   make_float4(acc[i][c], acc[i][c + 1], acc[i][c + 2],
+                               acc[i][c + 3]));
+      } else {
+#pragma unroll
+        for (int c = 0; c < bdcore::CG; ++c)
+          if (c < ncol) __stcs(y + c, acc[i][c]);
+      }
+    }
+  }
+};
+
+template <int V>
+__global__ void __launch_bounds__(bdcore::THREADS, 3)
+block_diag_group_kernel(bdcore::Args a) {
+  bdcore::run_groups<V, StoreU>(a);
+}
+
 }  // namespace
 
-// x (B, n_in_tiles·blk), wb (n_tiles, blk, blk), CSR steps over n_rows
-// output tiles → y (B, n_rows·blk).
+// The group core's register tile, which block_diag.py restates
+// (GROUP_COLS, LANE_COLS): a warp's columns and a lane's.
+extern "C" int block_diag_core_shapes(int* out) {
+  out[0] = bdcore::NG * bdcore::CG;
+  out[1] = bdcore::CG;
+  return 0;
+}
+
+// x (B, n_in_tiles·blk), wb (n_tiles, blk, blk), the CSR steps' s_in and
+// s_w, and the group table (n_groups, 7) of its n_rows rows → y (B,
+// n_rows·blk).
 extern "C" int block_diag_fwd_f32(const float* x, const float* wb,
-                                  const int* rowptr, const int* s_in,
-                                  const int* s_w, float* y, int B,
+                                  const int* s_in, const int* s_w,
+                                  const int* groups, float* y, int B,
                                   int n_in_tiles, int n_rows, int blk,
-                                  void* stream) {
-  if (B <= 0 || n_rows <= 0) return 0;
-  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_ctas = n_btiles * n_rows;
-  if (n_ctas > INT_MAX) return (int)cudaErrorInvalidValue;
-  block_diag_fwd_kernel<<<(unsigned)n_ctas, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, wb, rowptr, s_in, s_w, y, B, n_in_tiles * blk, n_rows * blk, blk,
-      (int)n_btiles);
-  return (int)cudaGetLastError();
+                                  int n_groups, void* stream) {
+  if (n_rows <= 0) return 0;
+  bdcore::Args a{x,       wb,      s_in,    s_w,        groups,
+                 y,       nullptr, nullptr, nullptr,    nullptr,
+                 B,       n_in_tiles, n_rows, blk,      n_groups};
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(block_diag_group_kernel<4>),
+      reinterpret_cast<const void*>(block_diag_group_kernel<1>), a, stream);
 }
 
 // dy (B, n_out_tiles·blk), x (B, n_in_tiles·blk), each parameter tile's

@@ -7,51 +7,53 @@
 // Replaces the TPU kernel repro/kernels/fused_layer.py::fused_layer_fwd,
 // with_deriv=False (serving, repro/kernels/ops.py::fused_layer_infer:
 // fused_layer_infer_f32 here) and with_deriv=True (training, the forward of
-// ops.py::fused_layer's custom VJP: fused_layer_train_f32 here).  One kernel
-// template, the flag DERIV selecting the second output.
-//
-// The same template, with int8 tiles, replaces
-// repro/kernels/fused_layer.py::fused_layer_int8_fwd (the int8 serve copy,
-// ops.py::fused_layer_infer_int8: fused_layer_infer_i8 here): wb is the
-// packer's (n_param_blocks + 1, blk, blk) int8 array, identity tile already
-// appended, with one f32 scale per tile (n_param_blocks + 1,), 1.0 for the
-// identity.  An output tile sums over several steps, each with its own
-// tile and so its own scale (JAX: sc_ref[w_ids[s]]), so the scale is
-// applied per step: each int8 byte is read from device memory once per
-// CTA, converted to f32 and multiplied by its step's scale as it is staged
-// in shared memory (q·s, then the dot, as in JAX); the FMA loop is the f32
-// kernel's.  A tile at block 8 is 64 bytes; the bytes are loaded one by
-// one, so no load depends on the tile's alignment.
+// ops.py::fused_layer's custom VJP: fused_layer_train_f32 here), and
+// ::fused_layer_int8_fwd (the int8 serve copy, ops.py::fused_layer_infer_i8:
+// fused_layer_infer_i8 here).
 //
 // x (B, n_in_tiles·blk), wb (n_param_blocks + 1, blk, blk) f32 with the
 // shared identity tile appended (pass-through members), b_eff and mask
 // (n_out_tiles·blk,) f32, one activation id per output tile (int32), and the
-// layout's steps in CSR form: rowptr (n_out_tiles + 1,), s_in and s_w
-// (n_steps,) int32 → y [and g'] (B, n_out_tiles·blk) f32.
+// layout's steps in CSR form (one CSR row per output tile) → y [and g']
+// (B, n_out_tiles·blk) f32.
 //
 // The TPU kernel walks the flat ragged step list on a sequential grid axis
 // and opens/closes a VMEM accumulator on s_first/s_last.  A GPU grid has no
-// order, so here one CTA owns one (32-row batch tile, output tile) pair and
-// loops privately over that tile's run of steps (rowptr[o] .. rowptr[o+1]),
-// accumulating in registers; the epilogue then adds the gated bias, applies
-// the tile's activation and the mask.  Nothing is shared between CTAs.
+// order, so every output has one owner that loops privately over its run of
+// steps, in CSR order.
+//
+// f32: the product is block_diag_core.cuh, block_diag.cu's forward: one
+// warp owning each group of rows of block_diag.py::fwd_groups (a member's output tiles over its input tiles,
+// or a run of pass-through tiles through the identity tile), x and the
+// tiles staged once a group with cp.async in two stages, a 4 × 8 register
+// tile a lane.  This file's epilogue adds the gated bias, applies the
+// tile's activation (and its derivative) and the mask: the warp stages u in
+// shared memory and shares its outputs out over all 32 lanes (a group of
+// one 8-unit tile would leave 24 idle), each lane 4 columns of one output
+// tile, so it looks the activation up once and runs that one activation's
+// code in a loop over its rows (a member's tiles share one, so a warp on
+// one member does not diverge); y (and g') leave 16 bytes at a time,
+// evict-first, where the vec4 instance runs.
+//
+// int8 (wb the packer's (n_param_blocks + 1, blk, blk) int8 array, identity
+// tile appended, one f32 scale per tile, 1.0 for the identity): one CTA per
+// (32-row batch tile, output tile) walks that tile's CSR row (rowptr),
+// staging each 32 × KC slice of x and of the step's tile (each byte
+// converted and multiplied by its step's scale, q·s, then the dot, as in
+// JAX) in shared memory, and accumulating in registers.  Its redesign, as
+// an int8 weight policy of the core, is a later item.
 //
 // What bounds it: bytes at serving batch sizes.  Each step reads one
 // blk × blk weight tile and one (32 × blk) input tile and does 2·32·blk²
 // FLOP: 16 FLOP per weight byte at B = 32, below the card's f32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20).  Batch tiles of one output tile are
-// adjacent in launch order, so larger batches re-read weight tiles from L2.
-// Works for any blk ≤ 128 (block 8, the LayeredPopulation default, included).
-//
-// Left for later: no double buffering of the tile loads, plain FMA instead
-// of tensor cores, and at blk = 8 a CTA of 256 threads computes only
-// 32 × 8 outputs — many small CTAs.
+// (67 TFLOP/s over 3.35 TB/s = 20).  Works for any blk ≤ 128 (block 8, the
+// LayeredPopulation default, included).
 #include <climits>
 #include <cstdint>
-#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
+#include "block_diag_core.cuh"
 
 namespace {
 
@@ -61,18 +63,19 @@ constexpr int THREADS = 256;
 constexpr int MAX_BLK = 128;
 constexpr int MAX_ACC = BM * MAX_BLK / THREADS;  // outputs per thread (16)
 
-// W is float (wb_scale unused) or int8_t (wb_scale one f32 per tile).
-template <typename W, bool DERIV>
+// the int8 forward: wb_q int8 tiles, wb_scale one f32 per tile
 __global__ void __launch_bounds__(THREADS)
-fused_layer_kernel(const float* __restrict__ x, const W* __restrict__ wb,
-                   const float* __restrict__ wb_scale,
-                   const float* __restrict__ b_eff,
-                   const float* __restrict__ mask,
-                   const int* __restrict__ tile_act,
-                   const int* __restrict__ rowptr,
-                   const int* __restrict__ s_in, const int* __restrict__ s_w,
-                   float* __restrict__ y, float* __restrict__ g, int B,
-                   int in_width, int out_width, int blk, int n_btiles) {
+fused_layer_i8_kernel(const float* __restrict__ x,
+                      const int8_t* __restrict__ wb,
+                      const float* __restrict__ wb_scale,
+                      const float* __restrict__ b_eff,
+                      const float* __restrict__ mask,
+                      const int* __restrict__ tile_act,
+                      const int* __restrict__ rowptr,
+                      const int* __restrict__ s_in,
+                      const int* __restrict__ s_w, float* __restrict__ y,
+                      int B, int in_width, int out_width, int blk,
+                      int n_btiles) {
   __shared__ float xs[BM][KC + 1];
   __shared__ float ws[MAX_BLK][KC + 1];
 
@@ -89,9 +92,8 @@ fused_layer_kernel(const float* __restrict__ x, const W* __restrict__ wb,
   const int s_end = rowptr[ot + 1];
   for (int s = rowptr[ot]; s < s_end; ++s) {
     const int in_col0 = s_in[s] * blk;
-    const W* wt = wb + (size_t)s_w[s] * blk * blk;
-    float sc = 1.f;
-    if constexpr (std::is_same<W, int8_t>::value) sc = wb_scale[s_w[s]];
+    const int8_t* wt = wb + (size_t)s_w[s] * blk * blk;
+    const float sc = wb_scale[s_w[s]];
     for (int k0 = 0; k0 < blk; k0 += KC) {
       const int kc = min(KC, blk - k0);
       __syncthreads();  // the previous chunk's reads are done
@@ -102,10 +104,7 @@ fused_layer_kernel(const float* __restrict__ x, const W* __restrict__ wb,
       }
       for (int i = t; i < blk * kc; i += THREADS) {
         const int r = i / kc, c = i % kc;
-        if constexpr (std::is_same<W, int8_t>::value)
-          ws[r][c] = (float)wt[(size_t)r * blk + k0 + c] * sc;
-        else
-          ws[r][c] = wt[(size_t)r * blk + k0 + c];
+        ws[r][c] = (float)wt[(size_t)r * blk + k0 + c] * sc;
       }
       __syncthreads();
 #pragma unroll
@@ -131,57 +130,151 @@ fused_layer_kernel(const float* __restrict__ x, const W* __restrict__ wb,
       if (b < B) {
         const float u = acc[a] + b_eff[col];
         y[(size_t)b * out_width + col] = apply_act(act, u) * mask[col];
-        if constexpr (DERIV)
-          g[(size_t)b * out_width + col] = apply_act_deriv(act, u) * mask[col];
       }
     }
   }
 }
 
-template <typename W, bool DERIV>
-int launch(const float* x, const W* wb, const float* wb_scale,
-           const float* b_eff, const float* mask, const int* tile_act,
-           const int* rowptr, const int* s_in, const int* s_w, float* y,
-           float* g, int B, int n_in_tiles, int n_out_tiles, int blk,
-           void* stream) {
-  if (B <= 0 || n_out_tiles <= 0) return 0;
-  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_tiles = n_btiles * n_out_tiles;
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_layer_kernel<W, DERIV><<<(unsigned)n_tiles, THREADS, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      x, wb, wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g, B,
-      n_in_tiles * blk, n_out_tiles * blk, blk, (int)n_btiles);
-  return (int)cudaGetLastError();
+// the f32 forward's epilogue: y = act(u + b_eff)·mask (and g' =
+// act'(u + b_eff)·mask), the replaced kernel's expressions.  The lanes
+// stage u (B rows × the group's ≤ 32 columns) in the stage just
+// multiplied, then share the outputs out: a lane takes V consecutive
+// columns of one output tile (one activation) and every (32 / quads)-th
+// row, so a group of one 8-unit tile keeps all 32 lanes busy, and runs
+// that activation's code in a loop over its rows.
+template <bool DERIV>
+struct ActOut {
+  static constexpr int ZLD = 36;  // a staged row: ≤ 32 columns, 4 (mod 8)
+
+  template <int V>
+  __device__ __forceinline__ static void store(float* p, const float* v) {
+    if constexpr (V == 4)
+      __stcs(reinterpret_cast<float4*>(p),
+             make_float4(v[0], v[1], v[2], v[3]));
+    else
+      __stcs(p, v[0]);
+  }
+
+  template <int V, int ACT>
+  __device__ static void rows(const bdcore::Args& a, const float* z,
+                              size_t at, int row, int nb, int step,
+                              const float (&bias)[V], const float (&m)[V]) {
+#pragma unroll 1
+    for (int b = row; b < nb; b += step) {
+      float yv[V], gv[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float u = z[b * ZLD + e] + bias[e];
+        yv[e] = apply_act(ACT, u) * m[e];
+        if constexpr (DERIV) gv[e] = apply_act_deriv(ACT, u) * m[e];
+      }
+      const size_t o = at + (size_t)b * a.out_w;
+      store<V>(a.y + o, yv);
+      if constexpr (DERIV) store<V>(a.g + o, gv);
+    }
+  }
+
+  template <int V>
+  __device__ __forceinline__ void run(const bdcore::Args& a,
+                                      const bdcore::Rec& q, int lane,
+                                      const float (&acc)[bdcore::RPL]
+                                                        [bdcore::CG],
+                                      float* z) const {
+    const int nr = bdcore::nr_of(q.bits), nu = bdcore::nu_of(q.bits);
+    const int b0 = q.bt * bdcore::BT, nb = min(bdcore::BT, a.B - b0);
+    __syncwarp();  // every lane is done reading the stage
+    int ub;
+    const int r = bdcore::col_row(nu, lane >> 3, ub);
+    if (r < nr) {
+#pragma unroll
+      for (int i = 0; i < bdcore::RPL; ++i) {
+        const int b = (lane & 7) + 8 * i;
+        if (b >= nb) break;
+#pragma unroll
+        for (int c = 0; c < bdcore::CG; ++c)
+          if (ub + c < nu) z[b * ZLD + r * nu + ub + c] = acc[i][c];
+      }
+    }
+    __syncwarp();
+    const int quads = nr * nu / V, step = 32 / quads;
+    if (lane >= step * quads) return;
+    const int c = (lane % quads) * V, rr = c / nu;
+    const int tile = q.row0 + rr;
+    const size_t col = (size_t)tile * a.blk + bdcore::u0_of(q.bits) + c -
+                       rr * nu;
+    float bias[V], m[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      bias[e] = __ldg(a.b_eff + col + e);
+      m[e] = __ldg(a.mask + col + e);
+    }
+    const float* zc = z + c;
+    const size_t at = (size_t)b0 * a.out_w + col;
+    const int row = lane / quads;
+    switch (__ldg(a.tile_act + tile)) {
+#define FL_ACT(id)                                         \
+  case id:                                                 \
+    rows<V, id>(a, zc, at, row, nb, step, bias, m);        \
+    break;
+      FL_ACT(0) FL_ACT(1) FL_ACT(2) FL_ACT(3) FL_ACT(4)
+      FL_ACT(5) FL_ACT(6) FL_ACT(7) FL_ACT(8) FL_ACT(9)
+#undef FL_ACT
+      default:  // an unknown id: apply_act's poison
+        rows<V, -1>(a, zc, at, row, nb, step, bias, m);
+    }
+  }
+};
+
+static_assert(bdcore::BT * ActOut<false>::ZLD <= bdcore::STAGE_FLOATS,
+              "u of a group fits the stage");
+
+template <int V, bool DERIV>
+__global__ void __launch_bounds__(bdcore::THREADS, 3)
+fused_layer_group_kernel(bdcore::Args a) {
+  bdcore::run_groups<V, ActOut<DERIV>>(a);
 }
 
 }  // namespace
 
+// x (B, n_in_tiles·blk), wb (n_tiles, blk, blk), b_eff, mask, tile_act, the
+// CSR steps' s_in and s_w, and the group table (n_groups, 7) of its
+// n_out_tiles rows (block_diag.py::fwd_groups) → y (and g').
 extern "C" int fused_layer_infer_f32(const float* x, const float* wb,
                                      const float* b_eff, const float* mask,
-                                     const int* tile_act, const int* rowptr,
-                                     const int* s_in, const int* s_w,
+                                     const int* tile_act, const int* s_in,
+                                     const int* s_w, const int* groups,
                                      float* y, int B, int n_in_tiles,
-                                     int n_out_tiles, int blk, void* stream) {
-  return launch<float, false>(x, wb, nullptr, b_eff, mask, tile_act, rowptr,
-                              s_in, s_w, y, nullptr, B, n_in_tiles,
-                              n_out_tiles, blk, stream);
+                                     int n_out_tiles, int blk, int n_groups,
+                                     void* stream) {
+  if (n_out_tiles <= 0) return 0;
+  bdcore::Args a{x,     wb,      s_in,  s_w,      groups,
+                 y,     nullptr, b_eff, mask,     tile_act,
+                 B,     n_in_tiles, n_out_tiles, blk, n_groups};
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(fused_layer_group_kernel<4, false>),
+      reinterpret_cast<const void*>(fused_layer_group_kernel<1, false>), a,
+      stream);
 }
 
 extern "C" int fused_layer_train_f32(const float* x, const float* wb,
                                      const float* b_eff, const float* mask,
-                                     const int* tile_act, const int* rowptr,
-                                     const int* s_in, const int* s_w,
+                                     const int* tile_act, const int* s_in,
+                                     const int* s_w, const int* groups,
                                      float* y, float* g, int B,
                                      int n_in_tiles, int n_out_tiles, int blk,
-                                     void* stream) {
-  return launch<float, true>(x, wb, nullptr, b_eff, mask, tile_act, rowptr,
-                             s_in, s_w, y, g, B, n_in_tiles, n_out_tiles,
-                             blk, stream);
+                                     int n_groups, void* stream) {
+  if (n_out_tiles <= 0) return 0;
+  bdcore::Args a{x,     wb,      s_in,  s_w,      groups,
+                 y,     g,       b_eff, mask,     tile_act,
+                 B,     n_in_tiles, n_out_tiles, blk, n_groups};
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(fused_layer_group_kernel<4, true>),
+      reinterpret_cast<const void*>(fused_layer_group_kernel<1, true>), a,
+      stream);
 }
 
-// wb_q (n_param_blocks + 1, blk, blk) int8, wb_scale (n_param_blocks + 1,).
+// wb_q (n_param_blocks + 1, blk, blk) int8, wb_scale (n_param_blocks + 1,),
+// the CSR steps (rowptr, s_in, s_w) → y.
 extern "C" int fused_layer_infer_i8(const float* x, const int8_t* wb_q,
                                     const float* wb_scale,
                                     const float* b_eff, const float* mask,
@@ -189,7 +282,14 @@ extern "C" int fused_layer_infer_i8(const float* x, const int8_t* wb_q,
                                     const int* s_in, const int* s_w,
                                     float* y, int B, int n_in_tiles,
                                     int n_out_tiles, int blk, void* stream) {
-  return launch<int8_t, false>(x, wb_q, wb_scale, b_eff, mask, tile_act,
-                               rowptr, s_in, s_w, y, nullptr, B, n_in_tiles,
-                               n_out_tiles, blk, stream);
+  if (B <= 0 || n_out_tiles <= 0) return 0;
+  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
+  const long long n_btiles = (B + BM - 1) / BM;
+  const long long n_tiles = n_btiles * n_out_tiles;
+  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
+  fused_layer_i8_kernel<<<(unsigned)n_tiles, THREADS, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w, y, B,
+      n_in_tiles * blk, n_out_tiles * blk, blk, (int)n_btiles);
+  return (int)cudaGetLastError();
 }

@@ -9,10 +9,12 @@ True).  Both take x (B, n_in_tiles·blk), the identity-augmented tile array
 wb (n_param_blocks + 1, blk, blk), b_eff and mask (n_out_tiles·blk,) f32,
 one activation id per output tile (int32) and the layout's steps in CSR
 form (``csr_schedule``), and return (B, n_out_tiles·blk) f32 — the training
-variant also g' of the same shape.
+variant also g' of the same shape.  The product is the unfused forward's
+(``csrc/block_diag_core.cuh``, walking ``block_diag.fwd_groups``; the
+instance by ``block_diag.fwd_path``), with this layer's epilogue.
 
-Int8 serving: ``fused_layer_int8_cuda`` launches the same kernel over the
-int8 serve copy (entry ``fused_layer_infer_i8``; the port of
+Int8 serving: ``fused_layer_int8_cuda`` launches a kernel of its own over
+the int8 serve copy (entry ``fused_layer_infer_i8``; the port of
 ``fused_layer.py::fused_layer_int8_fwd``): the packer's identity-augmented
 int8 tile array and one f32 scale per tile, 1.0 for the identity.
 
@@ -30,7 +32,9 @@ Each ``*_plain`` function is the same function in plain PyTorch.
 The TPU kernels walk the flat ``BlockDiagLayout`` steps in order on a
 sequential grid axis.  Each output tile's steps are consecutive there, so
 the port turns them into CSR rows once per layout: ``rowptr[o]`` ..
-``rowptr[o + 1]`` are output tile o's steps, which one CTA walks privately.
+``rowptr[o + 1]`` are output tile o's steps, which one owner walks
+privately, in order (the f32 forward: a warp owning the group of rows of
+one member, ``block_diag.fwd_groups``).
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import torch
 from repro_torch.core.activations import (apply_activation_derivs_masked,
                                           apply_activations_masked)
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_diag import block_diag_fwd_plain
+from repro_torch.kernels.block_diag import (_split, block_diag_fwd_plain,
+                                            checked_groups, stamp_groups)
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # the forward, with or without g'
@@ -83,18 +88,23 @@ def csr_schedule(layout, transposed: bool = False
 def schedule_on(layout, device, transposed: bool = False
                 ) -> tuple[torch.Tensor, ...]:
     """``csr_schedule`` as int32 tensors on ``device``, built once per
-    (layout, device, direction) and kept on the layout instance.  The
+    (layout, device, direction) and kept on the layout instance, its
+    ``rowptr`` carrying the forward kernel's group table
+    (``block_diag.stamp_groups``) for the wrappers.  The
     transposed schedule also carries ``perm_t``, ``wb_out_tile`` and
-    ``wb_in_tile``."""
+    ``wb_in_tile``.  They are ordinary tensors even under
+    ``torch.inference_mode``, so that their table is kept there too."""
     cache = layout.__dict__.setdefault("_csr_cache", {})
     key = (str(torch.device(device)), transposed)
     if key not in cache:
-        arrs = csr_schedule(layout, transposed)
+        arrs = csr = csr_schedule(layout, transposed)
         if transposed:
             arrs += tuple(np.asarray(a, np.int32) for a in (
                 layout.perm_t, layout.wb_out_tile, layout.wb_in_tile))
-        cache[key] = tuple(torch.from_numpy(np.ascontiguousarray(a))
-                           .to(device) for a in arrs)
+        with torch.inference_mode(False):
+            cache[key] = tuple(torch.from_numpy(np.ascontiguousarray(a))
+                               .to(device) for a in arrs)
+        stamp_groups(*cache[key][:3], layout.block, arrs=csr)
     return cache[key]
 
 
@@ -104,12 +114,6 @@ def transposed_tiles(wb_aug: torch.Tensor, perm_t: torch.Tensor
     (``ops._bd_transposed_tiles``): the identity-augmented tile array
     permuted into transposed step order, each tile transposed."""
     return wb_aug[perm_t.long()].transpose(1, 2).contiguous()
-
-
-def _split(n: int, most: int) -> list[int]:
-    """[0, n) in ⌈n / most⌉ near-equal chunks → their bounds."""
-    k = -(-n // most)
-    return [i * n // k for i in range(k + 1)]
 
 
 def dx_dw_units(layout) -> tuple[np.ndarray, np.ndarray]:
@@ -336,15 +340,18 @@ def _ptrs(*tensors):
 
 def fused_layer_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
                      blk: int):
+    """One launch → y (B, n_out_tiles·blk), walking the CSR's group table
+    (``block_diag.groups_on``)."""
     global launches
     b, n_out = _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk)
+    groups = checked_groups("fused_layer", x, wb, rowptr, s_in, s_w, blk)
     fn = _build.function("fused_layer", "fused_layer_infer_f32",
-                         [_P] * 9 + [_I] * 4 + [_P])
+                         [_P] * 9 + [_I] * 5 + [_P])
     y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        rc = fn(*_ptrs(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y),
-                b, x.shape[1] // blk, n_out, blk,
+        rc = fn(*_ptrs(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y),
+                b, x.shape[1] // blk, n_out, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer")
     launches += 1
@@ -357,13 +364,15 @@ def fused_layer_train_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
     global launches
     b, n_out = _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk)
+    groups = checked_groups("fused_layer", x, wb, rowptr, s_in, s_w, blk)
     fn = _build.function("fused_layer", "fused_layer_train_f32",
-                         [_P] * 10 + [_I] * 4 + [_P])
+                         [_P] * 10 + [_I] * 5 + [_P])
     y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
     g = torch.empty_like(y)
     with torch.cuda.device(x.device):
-        rc = fn(*_ptrs(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, y, g),
-                b, x.shape[1] // blk, n_out, blk,
+        rc = fn(*_ptrs(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y,
+                       g),
+                b, x.shape[1] // blk, n_out, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer_train")
     launches += 1

@@ -14,6 +14,7 @@ tiles and warp shuffles against cuBLAS), full float32 matmuls (TF32 off).
 A plain version that sums with ``index_add_`` runs in f64 (``_f64``).
 """
 
+import functools
 import time
 
 import numpy as np
@@ -26,7 +27,7 @@ from repro_torch.kernels import fused_input as fik
 from repro_torch.kernels import fused_layer as flk
 from repro_torch.kernels import infer_head as ihk
 from repro_torch.kernels import loss_head as lhk
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 
 pytestmark = pytest.mark.gpu
 
@@ -39,7 +40,18 @@ def dev():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is false)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    _load_kernels()
     return torch.device("cuda")
+
+
+@functools.cache
+def _load_kernels():
+    """Build and load every kernel library once, before any test opens a
+    ``torch.profiler`` window (``_kernels_run``): in a run whose first
+    window held the build and the first load (H100, torch 2.11), no window
+    of the process recorded the kernels' device activity."""
+    for name in _build.kernel_names():
+        _build.library(name)
 
 
 def _t(a, dev, dtype=torch.float32):
@@ -136,30 +148,69 @@ def test_fused_input_matches_plain(dev, b, f, block, n_blocks, shift):
                                                  block=block))
 
 
-@pytest.mark.parametrize("widths,block,b", [
-    (((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 11),
+# The mid layer's forward (block_diag and fused_layer, one group core)
+# beyond each test's first cases: a block that is not a multiple of 4 (the
+# scalar instance), storage 4 or 12 bytes off a 16-byte boundary (scalar),
+# B = 1 and B = 300 (ten batch tiles a group).  (widths, block, B, shift)
+_MID_FWD_EXTRA = [
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 6, 300, 0),
+    (((40, 20), (17, 33, 9), (7,)), 5, 33, 0),
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 1, 0),
+    (((64, 32, 16), (13, 5), (7,)) * 4, 8, 32, 1),
+    (((200, 130), (64, 100), (7,)), 128, 300, 3),
+]
+
+
+def _group_instance(ran, path, word):
+    """The profiler saw one launch, of the group core's instance
+    ``block_diag.fwd_path`` names."""
+    assert len(ran) == 1 and ("%s<%d" % (word, 4 if path == "vec4" else 1)
+                              ) in ran[0], ran
+
+
+def _mid_x_wb(rng, lay, block, b, shift, dev):
+    """x and the identity-augmented tiles of one mid layer, each stored
+    ``shift`` floats into its allocation."""
+    x = rng.normal(0, 1, (b, lay.n_in_tiles * block)).astype(np.float32)
+    wb = (rng.normal(0, 1, (lay.n_param_blocks + 1, block, block))
+          / np.sqrt(block)).astype(np.float32)
+    return _shifted(x, shift, dev), _shifted(wb, shift, dev)
+
+
+@pytest.mark.parametrize("widths,block,b,shift", [
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 11, 0),
     (((5, 3), (12, 9), (7,), (17, 9, 5), (8, 8), (5, 3), (3, 11, 2),
-      (24, 16), (4,), (9, 9, 9)), 8, 40),
-    (((200, 130), (64, 100), (7,)), 128, 33),
-])
-def test_fused_layer_matches_plain(dev, widths, block, b):
+      (24, 16), (4,), (9, 9, 9)), 8, 40, 0),
+    (((200, 130), (64, 100), (7,)), 128, 33, 0),
+] + _MID_FWD_EXTRA)
+def test_fused_layer_matches_plain(dev, widths, block, b, shift):
+    """y against the plain version, on the instance ``block_diag.fwd_path``
+    names (the kernel ``torch.profiler`` saw run); two launches bitwise
+    equal."""
+    from repro_torch.kernels import block_diag as bdk
     acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
     lp = LayeredPopulation(5, 3, widths, acts, block=block)
     rng = np.random.default_rng(b)
     for l in range(lp.depth - 1):
         lay = lp.bd_layout(l)
         pout = lp.layer_pop(l + 1)
-        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
-        wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, block, block))
-                / np.sqrt(block), dev)
+        x, wb = _mid_x_wb(rng, lay, block, b, shift, dev)
         b_eff = _t(rng.normal(0, 1, lay.n_out_tiles * block), dev)
         mask = _t(pout.hidden_mask, dev)
         acts_t = _t(pout.block_act_ids, dev, torch.int32)
         sched = flk.schedule_on(lay, dev)
-        got = flk.fused_layer_cuda(x, wb, b_eff, mask, acts_t, *sched,
-                                   blk=block)
-        _close(got, flk.fused_layer_plain(
-            *_f64(x, wb, b_eff, mask, acts_t, *sched), blk=block))
+        args = (x, wb, b_eff, mask, acts_t, *sched)
+        n0 = flk.launches
+        got, ran = _kernels_run(lambda: flk.fused_layer_cuda(*args,
+                                                             blk=block),
+                                "fused_layer_group_kernel")
+        assert flk.launches == n0 + 1
+        path = bdk.fwd_path(x, wb, got)
+        assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                        else "scalar")
+        _group_instance(ran, path, "fused_layer_group_kernel")
+        _close(got, flk.fused_layer_plain(*_f64(*args), blk=block))
+        assert torch.equal(got, flk.fused_layer_cuda(*args, blk=block))
 
 
 # several hundred members 8 or 16 units wide, as at the depth-3 head
@@ -402,28 +453,42 @@ _TRAIN_GRID = [
 ]
 
 
-@pytest.mark.parametrize("widths,block,b", _TRAIN_GRID)
-def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b):
+# (widths, block, B, shift): _TRAIN_GRID, then the forward's extra shapes
+_MID_GRID = [(w, block, b, 0) for w, block, b in _TRAIN_GRID] \
+    + _MID_FWD_EXTRA
+
+
+@pytest.mark.parametrize("widths,block,b,shift", _MID_GRID)
+def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b,
+                                                 shift):
+    """The training forward (y, g') on the instance ``block_diag.fwd_path``
+    names, two launches bitwise equal and y bitwise the serving launch's;
+    then the one-pass backward, bitwise reproducible."""
+    from repro_torch.kernels import block_diag as bdk
     acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
     lp = LayeredPopulation(5, 3, widths, acts, block=block)
     rng = np.random.default_rng(b)
     for l in range(lp.depth - 1):
         lay = lp.bd_layout(l)
         pout = lp.layer_pop(l + 1)
-        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
-        wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, block, block))
-                / np.sqrt(block), dev)
+        x, wb = _mid_x_wb(rng, lay, block, b, shift, dev)
         wb[-1] = torch.eye(block, device=dev)
         b_eff = _t(rng.normal(0, 1, lay.n_out_tiles * block), dev)
         mask = _t(pout.hidden_mask, dev)
         acts_t = _t(pout.block_act_ids, dev, torch.int32)
         sched = flk.schedule_on(lay, dev)
-        y, g = flk.fused_layer_train_cuda(x, wb, b_eff, mask, acts_t, *sched,
-                                          blk=block)
-        wy, wg = flk.fused_layer_train_plain(
-            *_f64(x, wb, b_eff, mask, acts_t, *sched), blk=block)
+        fargs = (x, wb, b_eff, mask, acts_t, *sched)
+        (y, g), ran = _kernels_run(
+            lambda: flk.fused_layer_train_cuda(*fargs, blk=block),
+            "fused_layer_group_kernel")
+        _group_instance(ran, bdk.fwd_path(x, wb, y, g),
+                        "fused_layer_group_kernel")
+        wy, wg = flk.fused_layer_train_plain(*_f64(*fargs), blk=block)
         _close(y, wy)
         _close(g, wg)
+        again = flk.fused_layer_train_cuda(*fargs, blk=block)
+        assert torch.equal(y, again[0]) and torch.equal(g, again[1])
+        assert torch.equal(y, flk.fused_layer_cuda(*fargs, blk=block))
         dy = _t(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
         args = (dy, g, x, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
         n0 = flk.dx_dw_launches
@@ -435,6 +500,111 @@ def test_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b):
         # one owner per output, a fixed order: bitwise reproducible
         again = flk.fused_layer_dx_dw_cuda(*args, blk=block)
         assert torch.equal(dx, again[0]) and torch.equal(dwb, again[1])
+
+
+def test_group_core_shapes_match_the_kernel(dev):
+    """The register tile ``block_diag.fwd_groups`` cuts by is the
+    kernel's."""
+    from repro_torch.kernels import block_diag as bdk
+    assert bdk.core_shapes() == (bdk.GROUP_COLS, bdk.LANE_COLS)
+
+
+@pytest.mark.parametrize("block,b", [(8, 33), (5, 7)])
+def test_group_core_reads_the_indices_of_a_general_csr(dev, block, b):
+    """A CSR whose tiles follow no rule of a layout (its weight tiles
+    renumbered at random, one member's input tiles reversed in its first
+    row): the forward (block_diag and fused_layer), reading s_in and s_w,
+    still matches the plain version."""
+    from repro_torch.kernels import block_diag as bdk
+    rng = np.random.default_rng(block)
+    lp = LayeredPopulation(5, 3, ((24,), (13, 5), (17, 9), (32, 16, 8)),
+                           ("relu", "tanh", "gelu", "elu"), block=block)
+    lay = lp.bd_layout(0)
+    rowptr, s_in, s_w = flk.csr_schedule(lay)
+    perm = rng.permutation(lay.n_param_blocks + 1)
+    s_w = perm[s_w].astype(np.int32)
+    s_in = s_in.copy()
+    s_in[rowptr[0]:rowptr[1]] = s_in[rowptr[0]:rowptr[1]][::-1]
+    sched = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                  for a in (rowptr, s_in, s_w))
+    x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
+    wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, block, block)), dev)
+    _close(bdk.block_diag_fwd_cuda(x, wb, *sched, blk=block),
+           bdk.block_diag_fwd_plain(*_f64(x, wb, *sched), blk=block))
+    pout = lp.layer_pop(1)
+    args = (x, wb, _t(rng.normal(0, 1, lay.n_out_tiles * block), dev),
+            _t(pout.hidden_mask, dev),
+            _t(pout.block_act_ids, dev, torch.int32), *sched)
+    y, g = flk.fused_layer_train_cuda(*args, blk=block)
+    wy, wg = flk.fused_layer_train_plain(*_f64(*args), blk=block)
+    _close(y, wy)
+    _close(g, wg)
+
+
+def test_mid_forward_refuses_another_layouts_groups(dev):
+    """A schedule (and its group table) of a wider layout would send the
+    kernel past x and wb: every forward wrapper refuses it before any
+    launch."""
+    small = LayeredPopulation(5, 3, ((24,), (13, 5)), ("relu", "tanh"),
+                              block=8).bd_layout(0)
+    wide = LayeredPopulation(5, 3, ((512, 384), (13, 5)), ("relu", "tanh"),
+                             block=8).bd_layout(0)
+    x = torch.zeros(4, small.n_in_tiles * 8, device=dev)
+    wb = torch.zeros(small.n_param_blocks + 1, 8, 8, device=dev)
+    vec = torch.zeros(wide.n_out_tiles * 8, device=dev)
+    ids = torch.zeros(wide.n_out_tiles, dtype=torch.int32, device=dev)
+    from repro_torch.kernels import block_diag as bdk
+    sched = flk.schedule_on(wide, dev)
+    n0, m0 = bdk.fwd_launches, flk.launches
+    for call in (lambda: bdk.block_diag_fwd_cuda(x, wb, *sched, blk=8),
+                 lambda: flk.fused_layer_cuda(x, wb, vec, vec, ids, *sched,
+                                              blk=8),
+                 lambda: flk.fused_layer_train_cuda(x, wb, vec, vec, ids,
+                                                    *sched, blk=8)):
+        with pytest.raises(ValueError, match="another layout"):
+            call()
+    assert (bdk.fwd_launches, flk.launches) == (n0, m0)
+
+
+@pytest.mark.parametrize("change", ["other_s_w", "s_w_in_place", "planted"])
+def test_mid_forward_follows_the_csr_it_is_given(dev, change):
+    """A schedule's rowptr, its table kept, launched with another s_w of
+    the same size, with its s_w changed in place, or with another layout's
+    table planted on it: every forward wrapper computes the CSR it is
+    given, as the plain version does."""
+    from repro_torch.kernels import block_diag as bdk
+    rng = np.random.default_rng(5)
+    lp = LayeredPopulation(5, 3, ((24,), (13, 5), (17, 9), (32, 16, 8)),
+                           ("relu", "tanh", "gelu", "elu"), block=8)
+    lay = lp.bd_layout(0)
+    pout = lp.layer_pop(1)
+    rowptr, s_in, s_w = (t.clone() for t in flk.schedule_on(lay, dev))
+    x = _t(rng.normal(0, 1, (9, lay.n_in_tiles * 8)), dev)
+    wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, 8, 8)), dev)
+    ep = (_t(rng.normal(0, 1, lay.n_out_tiles * 8), dev),
+          _t(pout.hidden_mask, dev),
+          _t(pout.block_act_ids, dev, torch.int32))
+    bdk.block_diag_fwd_cuda(x, wb, rowptr, s_in, s_w, blk=8)  # keeps one
+    perm = torch.from_numpy(rng.permutation(lay.n_param_blocks + 1)
+                            .astype(np.int32)).to(dev)
+    if change == "other_s_w":
+        s_w = perm[s_w.long()]
+    elif change == "s_w_in_place":
+        s_w.copy_(perm[s_w.long()])
+    else:
+        wide = LayeredPopulation(5, 3, ((512, 384), (13, 5)),
+                                 ("relu", "tanh"), block=8).bd_layout(0)
+        rowptr.bd_groups = flk.schedule_on(wide, dev)[0].bd_groups
+    sched = (rowptr, s_in, s_w)
+    _close(bdk.block_diag_fwd_cuda(x, wb, *sched, blk=8),
+           bdk.block_diag_fwd_plain(*_f64(x, wb, *sched), blk=8))
+    args = (x, wb, *ep, *sched)
+    _close(flk.fused_layer_cuda(*args, blk=8),
+           flk.fused_layer_plain(*_f64(*args), blk=8))
+    y, g = flk.fused_layer_train_cuda(*args, blk=8)
+    wy, wg = flk.fused_layer_train_plain(*_f64(*args), blk=8)
+    _close(y, wy)
+    _close(g, wg)
 
 
 def test_dx_dw_packing_matches_the_kernels_stages(dev):
@@ -763,34 +933,41 @@ def test_seg_act_and_bwd_match_plain(dev, b, block, n_blocks, offset):
     _close(dh, sak.seg_act_bwd_plain(h, dy, ids, mask, blk=block))
 
 
-@pytest.mark.parametrize("widths,block,b", _TRAIN_GRID)
-def test_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b):
+@pytest.mark.parametrize("widths,block,b,shift", _MID_GRID)
+def test_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b, shift):
     """The forward, the dh pass (the same kernel on the transposed tiles
-    and steps, pass-through members through the identity tile) and dWB;
-    dWB twice on the same inputs is bitwise equal (no atomics)."""
+    and steps, pass-through members through the identity tile), each on
+    the instance ``fwd_path`` names and bitwise equal launched twice, and
+    dWB; dWB twice on the same inputs is bitwise equal (no atomics)."""
     from repro_torch.kernels import block_diag as bdk
     acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
     lp = LayeredPopulation(5, 3, widths, acts, block=block)
     rng = np.random.default_rng(b)
+    word = "block_diag_group_kernel"
     for l in range(lp.depth - 1):
         lay = lp.bd_layout(l)
-        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
-        wb = _t(rng.normal(0, 1, (lay.n_param_blocks + 1, block, block))
-                / np.sqrt(block), dev)
+        x, wb = _mid_x_wb(rng, lay, block, b, shift, dev)
         wb[-1] = torch.eye(block, device=dev)
         sched = flk.schedule_on(lay, dev)
         n0 = bdk.fwd_launches
-        y = bdk.block_diag_fwd_cuda(x, wb, *sched, blk=block)
+        y, ran = _kernels_run(
+            lambda: bdk.block_diag_fwd_cuda(x, wb, *sched, blk=block), word)
         assert bdk.fwd_launches == n0 + 1
+        _group_instance(ran, bdk.fwd_path(x, wb, y), word)
         _close(y, bdk.block_diag_fwd_plain(*_f64(x, wb, *sched), blk=block))
+        assert torch.equal(y, bdk.block_diag_fwd_cuda(x, wb, *sched,
+                                                      blk=block))
         rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
             lay, dev, transposed=True)
         wb_t = flk.transposed_tiles(wb, perm_t)
-        dy = _t(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
-        dh = bdk.block_diag_fwd_cuda(dy, wb_t, rowptr_t, s_in_t, s_w_t,
-                                     blk=block)
-        _close(dh, bdk.block_diag_fwd_plain(
-            *_f64(dy, wb_t, rowptr_t, s_in_t, s_w_t), blk=block))
+        dy = _shifted(rng.normal(0, 1, (b, lay.n_out_tiles * block))
+                      .astype(np.float32), shift, dev)
+        dh_args = (dy, wb_t, rowptr_t, s_in_t, s_w_t)
+        dh, ran = _kernels_run(
+            lambda: bdk.block_diag_fwd_cuda(*dh_args, blk=block), word)
+        _group_instance(ran, bdk.fwd_path(dy, wb_t, dh), word)
+        _close(dh, bdk.block_diag_fwd_plain(*_f64(*dh_args), blk=block))
+        assert torch.equal(dh, bdk.block_diag_fwd_cuda(*dh_args, blk=block))
         m0 = bdk.dw_launches
         dwb = bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=block)
         assert bdk.dw_launches == m0 + 1
