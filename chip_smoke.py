@@ -10,9 +10,9 @@ archive``) also holds the f32 ``infer_head`` and ``loss_head_fwd`` outputs
 bitwise to that tree's kernels at both heads' shapes, the input layer's
 (``fused_input`` y, its training launch's y and g', ``fused_input_int8``
 y) at both input-layer shapes, and the mid layers' (``fused_layer`` y and
-y, g', ``fused_layer_int8`` y, ``block_diag_fwd`` y and dh) at both
-depth-3 mid layers, timing the parent's mid-layer kernels beside them
-(phase 8).
+y, g', ``fused_layer_int8`` y, ``block_diag_fwd`` y and dh,
+``block_diag_dw`` dWB) at both depth-3 mid layers, timing the parent's
+mid-layer kernels beside them (phase 8).
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -145,7 +145,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``train_device_ms`` or the dh pass's ``dh_device_ms``), each launch's
      instance (``path``, ``train_path``, ``dh_path``, by
      ``block_diag.fwd_path``), two launches on the same inputs bitwise
-     equal, and their ptxas report; ``fused_input_bwd`` its device time, the
+     equal, and their ptxas report; ``fused_layer_int8`` the same of its
+     group kernel (``device_ms``, ``path`` by ``fwd_path`` of the int8
+     tiles, ptxas) and whether it is bitwise the f32 group kernel on the
+     dequantized tiles (``bitwise_f32_dequantized``, required where both
+     take the same instance); ``block_diag_dw`` its member-owned kernel's
+     device time, instance (``path``, by ``block_diag.dw_path``) and
+     ptxas report, two launches bitwise equal; ``fused_input_bwd`` its device time, the
      instance it took (``path``, by ``bwd_path``), dy·g' then ``mm`` as
      ``library_full_*`` (``library_ms`` stays the ``mm`` of duᵀ·x) and dx
      beside dW (``dx_*``); ``infer_head_int8`` its design (``path``), its
@@ -159,9 +165,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      log-probabilities) and ``loss_head_fwd`` bitwise the other tree's
      kernels at both shapes, ``fused_input`` (y; y and g') and
      ``fused_input_int8`` at both input-layer shapes, and ``fused_layer``
-     (y; y and g'), ``fused_layer_int8`` and ``block_diag_fwd`` (y and
-     dh) at both depth-3 mid layers, with the parent's device times of
-     rows 4 and 11 (``parent_*device_ms``);
+     (y; y and g'), ``fused_layer_int8``, ``block_diag_fwd`` (y and dh)
+     and ``block_diag_dw`` at both depth-3 mid layers, with the parent's
+     device times of rows 4, 5, 11 and 12 (``parent_*device_ms``);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -882,10 +888,10 @@ def check_single_step(name, params, pop, x, y):
 # names of the port's kernels in a profiler trace
 KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
                   "fused_layer_dx_dw_kernel", "fused_layer_group_kernel",
-                  "fused_layer_i8_kernel",
+                  "fused_layer_i8_group_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
                   "loss_head_bwd_kernel", "block_diag_group_kernel",
-                  "block_diag_dw_kernel", "seg_act_fwd_kernel",
+                  "block_diag_dw_member_kernel", "seg_act_fwd_kernel",
                   "seg_act_bwd_kernel", "m3_fwd_kernel", "m3_dh_kernel",
                   "m3_dw_kernel")
 
@@ -1797,6 +1803,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             partial(flk.fused_layer_int8_plain, *args8, blk=b3),
             partial(torch.matmul, bsr8, hin8.t()),
             _nbytes(*args8, out8), flops, int8_n["fused_layer_int8"], 50))
+        int8_rows[-1].update(_mid_int8_fields(f"mid layer {l}", args8, b3))
         hin8 = out8
 
         rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
@@ -1861,17 +1868,17 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             partial(bdk.block_diag_fwd_cuda, *bd_args, blk=b3),
             partial(bdk.block_diag_fwd_cuda, *dh_args, blk=b3), bd_args[:2],
             dh_args[:2]))
-        if parent_libs:
-            theirs = same_mid_as_parent(parent_libs, f"mid layer {l}", args,
-                                        args8, dh_args, b3)
-            for r, fields in ((row, theirs["block_diag_fwd"]),
-                              (fwd_rows[-1], theirs["fused_layer"])):
-                r.update(fields)
-        bd_rows.append(row)
         dw_args = (dy3, hin, out_t, in_t)
+        theirs = (same_mid_as_parent(parent_libs, f"mid layer {l}", args,
+                                     args8, dh_args, dw_args, b3)
+                  if parent_libs else {})
+        for r, key in ((row, "block_diag_fwd"), (fwd_rows[-1], "fused_layer"),
+                       (int8_rows[-1], "fused_layer_int8")):
+            r.update(theirs.get(key, {}))
+        bd_rows.append(row)
         dwb_bd = bdk.block_diag_dw_cuda(*dw_args, blk=b3)
-        _require(torch.equal(dwb_bd, bdk.block_diag_dw_cuda(*dw_args,
-                                                            blk=b3)),
+        _require(_same_bits(dwb_bd, bdk.block_diag_dw_cuda(*dw_args,
+                                                           blk=b3)),
                  "block_diag_dw: two launches on the same inputs differ")
         dyg = dy3.view(BATCH, -1, b3)[:, out_t.long()].permute(1, 2, 0) \
             .contiguous()
@@ -1884,9 +1891,21 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
             partial(torch.bmm, dyg, xg), _nbytes(*dw_args, dwb_bd),
             2 * BATCH * b3 * b3 * lay.n_param_blocks,
             unfused_train_n["block_diag_dw"], 50))
+        dw_kernel = partial(bdk.block_diag_dw_cuda, *dw_args, blk=b3)
+        dw_rows[-1].update(
+            path=bdk.dw_path(dy3, hin, dwb_bd),
+            device_ms=_device_ms(dw_kernel, "block_diag_dw_member_kernel",
+                                 50),
+            **theirs.get("block_diag_dw", {}))
+        print(f"[block_diag_dw at mid layer {l}] path "
+              f"{dw_rows[-1]['path']} device {dw_rows[-1]['device_ms']!r} "
+              "ms", flush=True)
         hin = out
     rows["fused_layer"] = _sum_rows(fwd_rows)
     rows["fused_layer_int8"] = _sum_rows(int8_rows)
+    rows["fused_layer_int8"]["bitwise_f32_dequantized"] = (
+        None if any(r["bitwise_f32_dequantized"] is None for r in int8_rows)
+        else all(r["bitwise_f32_dequantized"] for r in int8_rows))
     rows["fused_layer_dx_dw"] = _sum_rows(bwd_rows)
     rows["block_diag_fwd"] = _sum_rows(bd_rows)
     rows["block_diag_dw"] = _sum_rows(dw_rows)
@@ -2193,6 +2212,38 @@ def _mid_fwd_fields(name, where, kernel, second, xw, dh_xw=None):
     return out
 
 
+def _mid_int8_fields(where, args8, block):
+    """Extra fields of row 5 (``fused_layer_int8``) at one mid layer, from
+    its arguments (x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in,
+    s_w): the instance the launch takes (``path``, ``block_diag.fwd_path``
+    of the int8 tiles), the int8 group kernel's device time from
+    ``torch.profiler``, two launches on the same inputs bitwise equal, and
+    whether its output is bitwise the f32 group kernel's on the tiles
+    dequantized as q·scale (``bitwise_f32_dequantized``; required where
+    both take the same instance, else None)."""
+    from repro_torch.kernels import block_diag as bdk
+    from repro_torch.kernels import fused_layer as flk
+    x, wbq, wbs = args8[:3]
+    kernel = partial(flk.fused_layer_int8_cuda, *args8, blk=block)
+    y = kernel()
+    _require(_same_bits(y, kernel()),
+             f"fused_layer_int8 at {where}: two launches on the same inputs "
+             "differ")
+    path = bdk.fwd_path(x, wbq, y)
+    wdq = wbq.float() * wbs[:, None, None]
+    y32 = flk.fused_layer_cuda(x, wdq, *args8[3:], blk=block)
+    same = None
+    if bdk.fwd_path(x, wdq, y32) == path:
+        same = _same_bits(y, y32)
+        _require(same, f"fused_layer_int8 at {where}: not bitwise the f32 "
+                 "kernel on the dequantized tiles")
+    out = {"path": path,
+           "device_ms": _device_ms(kernel, "fused_layer_i8_group_kernel", 50),
+           "bitwise_f32_dequantized": same}
+    print(f"[fused_layer_int8 at {where}] {out}", flush=True)
+    return out
+
+
 def _infer_head_fields(kernel, block, h, w2):
     """Extra fields of the ``infer_head`` row at one shape, from ``kernel``
     (a call of the f32 kernel): the design the launch took
@@ -2351,17 +2402,22 @@ def same_input_as_parent(libs, name, fin, fin8, block):
           "parent's", flush=True)
 
 
-def same_mid_as_parent(libs, name, args, args8, dh_args, block):
-    """A mid layer's forward outputs of this tree's kernels against the C
-    entries of ``libs`` (``parent_libs``), called with their own CSR
-    signatures (x, wb, [b_eff, mask, tile_act,] rowptr, s_in, s_w, y, …):
-    ``fused_layer`` y and (y, g') and ``block_diag_fwd`` y on args = (x,
-    wb, b_eff, mask, tile_act, rowptr, s_in, s_w), its dh on dh_args = (dy,
-    wb_t, rowptr_t, s_in_t, s_w_t), ``fused_layer_int8`` y on args8 = (x,
-    wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w): bitwise, or
-    fail.  Returns the parent kernels' device times from ``torch.profiler``
-    as {row: fields} (``parent_device_ms`` and ``parent_train_device_ms``
-    or ``parent_dh_device_ms``)."""
+def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
+    """A mid layer's outputs of this tree's kernels against the C entries of
+    ``libs`` (``parent_libs``), called with their own signatures: the
+    forward's group-table entries (x, wb, [b_eff, mask, tile_act,] s_in,
+    s_w, groups, y, …), ``fused_layer_infer_i8``'s CSR one (x, wb_q,
+    wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w, y, …) and
+    ``block_diag_dw_f32``'s tile lists (dy, x, wb_out_tile, wb_in_tile,
+    dwb, …).  ``fused_layer`` y and (y, g') and ``block_diag_fwd`` y on
+    args = (x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w), its dh on
+    dh_args = (dy, wb_t, rowptr_t, s_in_t, s_w_t), ``fused_layer_int8`` y
+    on args8 = (x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in,
+    s_w), ``block_diag_dw`` dWB on dw_args = (dy, x, wb_out_tile,
+    wb_in_tile), and dWB again on a 300-row dy and x: bitwise, or fail.
+    Returns the parent kernels' device times from ``torch.profiler`` as
+    {row: fields} (``parent_device_ms``, and ``parent_train_device_ms`` or
+    ``parent_dh_device_ms``)."""
     import ctypes
 
     import torch
@@ -2372,36 +2428,53 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, block):
     fl, bd = libs["fused_layer"], libs["block_diag"]
     fi, ft, f8 = (fl.fused_layer_infer_f32, fl.fused_layer_train_f32,
                   fl.fused_layer_infer_i8)
-    fi.argtypes, fi.restype = [P] * 9 + [I] * 4 + [P], I
-    ft.argtypes, ft.restype = [P] * 10 + [I] * 4 + [P], I
+    fi.argtypes, fi.restype = [P] * 9 + [I] * 5 + [P], I
+    ft.argtypes, ft.restype = [P] * 10 + [I] * 5 + [P], I
     f8.argtypes, f8.restype = [P] * 10 + [I] * 4 + [P], I
-    bf = bd.block_diag_fwd_f32
-    bf.argtypes, bf.restype = [P] * 6 + [I] * 4 + [P], I
+    bf, bw = bd.block_diag_fwd_f32, bd.block_diag_dw_f32
+    bf.argtypes, bf.restype = [P] * 6 + [I] * 5 + [P], I
+    bw.argtypes, bw.restype = [P] * 5 + [I] * 5 + [P], I
     stream = torch.cuda.current_stream().cuda_stream
     x, wb = args[:2]
     b, n_in = x.shape[0], x.shape[1] // block
     n_out = args[5].shape[0] - 1
     y, g = (torch.empty(b, n_out * block, device=x.device)
             for _ in range(2))
-    ptr = [t.data_ptr() for t in args]
-    bd_ptr = [t.data_ptr() for t in (x, wb, *args[5:])]
-    dy = dh_args[0]
-    dh = torch.empty(b, (dh_args[2].shape[0] - 1) * block, device=x.device)
-    dh_ptr = [t.data_ptr() for t in dh_args]
+    groups = bdk.groups_on(*args[5:], block)
+    ptr = [t.data_ptr() for t in (*args[:5], *args[6:], groups)]
+    bd_ptr = [t.data_ptr() for t in (x, wb, *args[6:], groups)]
+    dy, wb_t, rowptr_t = dh_args[:3]
+    groups_t = bdk.groups_on(*dh_args[2:], block)
+    n_rows_t = rowptr_t.shape[0] - 1
+    dh = torch.empty(b, n_rows_t * block, device=x.device)
+    dh_ptr = [t.data_ptr() for t in (dy, wb_t, *dh_args[3:], groups_t)]
+    out_t = dw_args[2]
+    dwb = torch.empty(out_t.shape[0], block, block, device=x.device)
 
     def serve():
-        return fi(*ptr, y.data_ptr(), b, n_in, n_out, block, stream)
+        return fi(*ptr, y.data_ptr(), b, n_in, n_out, block,
+                  groups.shape[0], stream)
 
     def train():
         return ft(*ptr, y.data_ptr(), g.data_ptr(), b, n_in, n_out, block,
-                  stream)
+                  groups.shape[0], stream)
+
+    def int8():
+        return f8(*[t.data_ptr() for t in args8], y.data_ptr(), b, n_in,
+                  n_out, block, stream)
 
     def fwd():
-        return bf(*bd_ptr, y.data_ptr(), b, n_in, n_out, block, stream)
+        return bf(*bd_ptr, y.data_ptr(), b, n_in, n_out, block,
+                  groups.shape[0], stream)
 
     def dh_pass():
-        return bf(*dh_ptr, dh.data_ptr(), b, dy.shape[1] // block,
-                  dh_args[2].shape[0] - 1, block, stream)
+        return bf(*dh_ptr, dh.data_ptr(), b, dy.shape[1] // block, n_rows_t,
+                  block, groups_t.shape[0], stream)
+
+    def dw():
+        return bw(*[t.data_ptr() for t in dw_args], dwb.data_ptr(), b,
+                  dy.shape[1] // block, x.shape[1] // block, out_t.shape[0],
+                  block, stream)
 
     _require(serve() == 0, "the parent's fused_layer_infer_f32 failed")
     _require(_same_bits(y, flk.fused_layer_cuda(*args, blk=block)),
@@ -2410,9 +2483,7 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, block):
     got = flk.fused_layer_train_cuda(*args, blk=block)
     _require(_same_bits(y, got[0]) and _same_bits(g, got[1]),
              f"fused_layer (with g') at {name}: not bitwise the parent's")
-    _require(f8(*[t.data_ptr() for t in args8], y.data_ptr(), b, n_in,
-                n_out, block, stream) == 0,
-             "the parent's fused_layer_infer_i8 failed")
+    _require(int8() == 0, "the parent's fused_layer_infer_i8 failed")
     _require(_same_bits(y, flk.fused_layer_int8_cuda(*args8, blk=block)),
              f"fused_layer_int8 at {name}: not bitwise the parent's")
     _require(fwd() == 0, "the parent's block_diag_fwd_f32 failed")
@@ -2422,18 +2493,41 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, block):
     _require(dh_pass() == 0, "the parent's block_diag_fwd_f32 (dh) failed")
     _require(_same_bits(dh, bdk.block_diag_fwd_cuda(*dh_args, blk=block)),
              f"block_diag_fwd dh at {name}: not bitwise the parent's")
+    _require(dw() == 0, "the parent's block_diag_dw_f32 failed")
+    _require(_same_bits(dwb, bdk.block_diag_dw_cuda(*dw_args, blk=block)),
+             f"block_diag_dw at {name}: not bitwise the parent's")
+    # B = 300, ten 32-row chunks, the last one short: the chunk sums are
+    # added in the parent's order
+    gen = torch.Generator(device=x.device).manual_seed(300)
+    dw300 = tuple(torch.randn(300, t.shape[1], device=x.device,
+                              generator=gen) for t in dw_args[:2])
+    dw300 += tuple(dw_args[2:])
+    _require(bw(*[t.data_ptr() for t in dw300], dwb.data_ptr(), 300,
+                dw300[0].shape[1] // block, dw300[1].shape[1] // block,
+                out_t.shape[0], block, stream) == 0,
+             "the parent's block_diag_dw_f32 (B = 300) failed")
+    _require(_same_bits(dwb, bdk.block_diag_dw_cuda(*dw300, blk=block)),
+             f"block_diag_dw at {name}, B = 300: not bitwise the parent's")
     out = {"fused_layer": {
-               "parent_device_ms": _device_ms(serve, "fused_layer_kernel", 50),
+               "parent_device_ms": _device_ms(serve,
+                                              "fused_layer_group_kernel", 50),
                "parent_train_device_ms": _device_ms(
-                   train, "fused_layer_kernel", 50)},
+                   train, "fused_layer_group_kernel", 50)},
+           "fused_layer_int8": {
+               "parent_device_ms": _device_ms(int8, "fused_layer_i8_kernel",
+                                              50)},
            "block_diag_fwd": {
-               "parent_device_ms": _device_ms(fwd, "block_diag_fwd_kernel",
+               "parent_device_ms": _device_ms(fwd, "block_diag_group_kernel",
                                               50),
                "parent_dh_device_ms": _device_ms(
-                   dh_pass, "block_diag_fwd_kernel", 50)}}
-    print(f"[{name}] fused_layer (y; y, g'), fused_layer_int8 and "
-          f"block_diag_fwd (y, dh) bitwise the parent's; the parent's "
-          f"device times {out}", flush=True)
+                   dh_pass, "block_diag_group_kernel", 50)},
+           "block_diag_dw": {
+               "parent_device_ms": _device_ms(dw, "block_diag_dw_kernel",
+                                              50)}}
+    print(f"[{name}] fused_layer (y; y, g'), fused_layer_int8, "
+          f"block_diag_fwd (y, dh) and block_diag_dw (B = {b} and 300) "
+          f"bitwise the parent's; "
+          f"the parent's device times {out}", flush=True)
     return out
 
 
@@ -2727,7 +2821,11 @@ def main() -> int:
              ("fused_layer_dx_dw_kernel",)),
             ("m3_matmul_dh", "m3_matmul", ("m3_dh_kernel",)),
             ("fused_layer", "fused_layer", ("fused_layer_group_kernel",)),
-            ("block_diag_fwd", "block_diag", ("block_diag_group_kernel",))):
+            ("fused_layer_int8", "fused_layer",
+             ("fused_layer_i8_group_kernel",)),
+            ("block_diag_fwd", "block_diag", ("block_diag_group_kernel",)),
+            ("block_diag_dw", "block_diag",
+             ("block_diag_dw_member_kernel",))):
         rows[row]["ptxas"] = {k: v for k, v in ptxas[lib].items()
                               if all(word in k for word in words)}
     rows = [rows[name] for name in REPLACES if name in rows]

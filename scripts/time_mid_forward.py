@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the mid layers' forward kernels of one source tree on the card.
+"""Time the mid layers' kernels of one source tree on the card.
 
     python3 scripts/time_mid_forward.py TREE LABEL [--population smoke|mixed]
     python3 scripts/time_mid_forward.py --compare LABEL_A LABEL_B
@@ -10,8 +10,9 @@ depth-3 population's two mid layers at B = 32 (``smoke``: the population
 ``chip_smoke.py`` trains, its members sorted; ``mixed``: the same members
 unsorted, so that no two pass-through members are neighbours), and prints each layer's device time from ``torch.profiler``
 (``chip_smoke._device_ms``, 50 launches) of ``block_diag_fwd`` (forward and
-the dh pass) and ``fused_layer`` (serve, and with g'), then their sums.
-Inputs come from a seeded generator.  The outputs are saved under
+the dh pass), ``fused_layer`` (serve, and with g'), ``fused_layer_int8``
+(its tiles quantized per tile, q = round(w / s), s = max|w| / 127) and
+``block_diag_dw``, then their sums.  Inputs come from a seeded generator.  The outputs are saved under
 ``build/mid_forward/LABEL.pt``; ``--compare`` says whether two saved runs
 are bit for bit equal.  Needs one card; a tree's kernels build under its
 own ``build/kernels``.
@@ -65,7 +66,8 @@ def main(tree: Path, label: str, kind: str):
     def t(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
 
-    outs, sums = {}, dict(bd=0.0, dh=0.0, serve=0.0, train=0.0)
+    outs = {}
+    sums = dict(bd=0.0, dh=0.0, serve=0.0, train=0.0, int8=0.0, dw=0.0)
     for l in range(lp.depth - 1):
         lay, pout = lp.bd_layout(l), lp.layer_pop(l + 1)
         x = t(rng.normal(0, 1, (cs.BATCH, lay.n_in_tiles * lay.block)))
@@ -75,11 +77,16 @@ def main(tree: Path, label: str, kind: str):
         args = (x, wb, t(rng.normal(0, 1, lay.n_out_tiles * lay.block)),
                 t(pout.hidden_mask), t(pout.block_act_ids, torch.int32),
                 *flk.schedule_on(lay, dev))
-        rowptr_t, s_in_t, s_w_t, perm_t = flk.schedule_on(
-            lay, dev, transposed=True)[:4]
+        rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
+            lay, dev, transposed=True)
         dh_args = (t(rng.normal(0, 1, (cs.BATCH,
                                        lay.n_out_tiles * lay.block))),
                    flk.transposed_tiles(wb, perm_t), rowptr_t, s_in_t, s_w_t)
+        scale = wb.abs().amax((1, 2)) / 127
+        scale[-1] = 1.0
+        wb_q = torch.round(wb / scale[:, None, None]).clamp(-127, 127) \
+            .to(torch.int8)
+        args8 = (x, wb_q, scale, *args[2:])
         runs = {
             "bd": (lambda: bdk.block_diag_fwd_cuda(x, wb, *args[5:],
                                                    blk=lay.block),
@@ -90,7 +97,13 @@ def main(tree: Path, label: str, kind: str):
                       "fused_layer"),
             "train": (lambda: flk.fused_layer_train_cuda(*args,
                                                          blk=lay.block),
-                      "fused_layer")}
+                      "fused_layer"),
+            "int8": (lambda: flk.fused_layer_int8_cuda(*args8,
+                                                       blk=lay.block),
+                     "fused_layer_i8"),
+            "dw": (lambda: bdk.block_diag_dw_cuda(dh_args[0], x, out_t, in_t,
+                                                  blk=lay.block),
+                   "block_diag_dw")}
         ms = {}
         for key, (fn, word) in runs.items():
             got = fn()

@@ -17,6 +17,10 @@ tiles — owned by one warp.
 ``block_diag_dw_cuda`` (entry ``block_diag_dw_f32``, the port of
 ``block_diag.py::block_diag_dw``): dy (B, n_out_tiles·blk), x and each
 parameter tile's output and input tile → dWB (n_param_blocks, blk, blk).
+The kernel walks the member-owned units of ``dw_units``
+(``csrc/member_units.cuh``, the packing ``fused_layer``'s backward
+shares): a member's rectangle of parameter tiles, or a chunk of its
+columns, or one tile where the list traces no rectangle.
 
 Each ``*_plain`` function is the same function in plain PyTorch.
 """
@@ -38,6 +42,14 @@ MAX_BLOCK = 128       # widest tile the kernels keep in shared memory
 # of one output tile, a warp's GROUP_COLS columns
 GROUP_COLS, LANE_COLS = 32, 8
 GROUP_INTS = 7        # row0, nr, u0, nu, L, diag, s0
+# the member-owned units' packing, the stage shapes of
+# csrc/member_units.cuh (``fused_layer.kernel_stages`` reads them from the
+# library): a CTA's column chunk, the largest unit a warp takes, and the
+# units of a warp job (one a warp)
+TEAM_COLS = 64
+WARP_OUT, WARP_COLS = 8, 16
+WARP_JOB = 4
+UNIT_INTS = 8         # in0, nc, out0, no, q, ld, warp, 0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -136,12 +148,36 @@ def _versions(*tensors) -> tuple[int, ...] | None:
     return tuple(t._version for t in tensors)
 
 
-def stamp_groups(rowptr: torch.Tensor, s_in: torch.Tensor,
-                 s_w: torch.Tensor, blk: int, arrs=None) -> torch.Tensor:
-    """The group table of the CSR schedule (rowptr, s_in, s_w) — built from
+def _keep(owner: torch.Tensor, attr: str, others, blk: int, value):
+    """Keep ``value`` on ``owner`` as ``attr``, with what it was built
+    from (``attr``_src: the value, ``others``, the block and the tensors'
+    version counters) for ``_kept``."""
+    setattr(owner, attr, value)
+    setattr(owner, attr + "_src",
+            (value, tuple(others), blk, _versions(owner, *others)))
+    return value
+
+
+def _kept(owner: torch.Tensor, attr: str, others, blk: int, build):
+    """The value kept on ``owner`` as ``attr`` where it was built from
+    ``owner`` and these very ``others`` at this block and none of them has
+    changed since (their version counters), else ``build()``, kept now.
+    Inference tensors keep no version counters: theirs is built at every
+    call."""
+    value = getattr(owner, attr, None)
+    src = getattr(owner, attr + "_src", None)
+    versions = _versions(owner, *others)
+    if versions is None or src is None or src[0] is not value \
+            or any(a is not b for a, b in zip(src[1], others)) \
+            or src[2:] != (blk, versions):
+        value = _keep(owner, attr, others, blk, build())
+    return value
+
+
+def _groups_table(rowptr, s_in, s_w, blk: int, arrs=None) -> torch.Tensor:
+    """The group table of the CSR schedule (rowptr, s_in, s_w), built from
     its arrays ``arrs`` where the caller holds them, else from the CSR read
-    back once — as an int32 tensor on ``rowptr``'s device, kept on
-    ``rowptr`` for ``groups_on`` with what it was built from and the input
+    back once, as an int32 tensor on ``rowptr``'s device carrying the input
     and weight tiles the CSR names (``bd_tiles``).  Raises on arrays that
     are not a CSR schedule."""
     if arrs is None:
@@ -153,25 +189,24 @@ def stamp_groups(rowptr: torch.Tensor, s_in: torch.Tensor,
         raise ValueError("block_diag_fwd: not a CSR schedule")
     t = torch.from_numpy(fwd_groups(rp, si, blk)).to(rowptr.device)
     t.bd_tiles = (int(si.max(initial=-1)) + 1, int(sw.max(initial=-1)) + 1)
-    t.bd_src = (s_in, s_w, blk, _versions(rowptr, s_in, s_w))
-    rowptr.bd_groups = t
     return t
+
+
+def stamp_groups(rowptr: torch.Tensor, s_in: torch.Tensor,
+                 s_w: torch.Tensor, blk: int, arrs=None) -> torch.Tensor:
+    """The CSR's group table (``_groups_table``), built now and kept on
+    ``rowptr`` for ``groups_on``."""
+    return _keep(rowptr, "bd_groups", (s_in, s_w), blk,
+                 _groups_table(rowptr, s_in, s_w, blk, arrs))
 
 
 def groups_on(rowptr, s_in, s_w, blk: int) -> torch.Tensor:
     """The group table of a CSR schedule: the one kept on ``rowptr``
     (``fused_layer.schedule_on`` keeps one there) where it was built from
     these very ``s_in`` and ``s_w`` at this block and none of the three has
-    changed since, else one built now (``stamp_groups``).  A CSR of
-    inference tensors keeps no version counters, so that its table is
-    built at every call."""
-    t = getattr(rowptr, "bd_groups", None)
-    src = getattr(t, "bd_src", None)
-    versions = _versions(rowptr, s_in, s_w)
-    if versions is None or src is None or src[0] is not s_in \
-            or src[1] is not s_w or src[2:] != (blk, versions):
-        t = stamp_groups(rowptr, s_in, s_w, blk)
-    return t
+    changed since, else one built now (``_kept``)."""
+    return _kept(rowptr, "bd_groups", (s_in, s_w), blk,
+                 lambda: _groups_table(rowptr, s_in, s_w, blk))
 
 
 def checked_groups(where: str, x, wb, rowptr, s_in, s_w,
@@ -190,13 +225,175 @@ def checked_groups(where: str, x, wb, rowptr, s_in, s_w,
 
 def fwd_path(x, wb, y, g=None) -> str:
     """The instance a forward launch takes: ``"vec4"`` where the block is
-    a multiple of 4 and x, wb, y (and g') start on a 16-byte boundary (x
-    and the tiles come in 16-byte copies, a lane's outputs leave in
-    16-byte stores), else ``"scalar"``.  ``csrc/block_diag_core.cuh::
-    launch_groups`` applies the same rule."""
-    vec = wb.shape[-1] % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, wb, y, g) if t is not None)
+    a multiple of 4, x, y (and g') start on a 16-byte boundary and the
+    tiles wb on a 16-byte one, or int8 tiles on a 4-byte one (x and f32
+    tiles come in 16-byte copies, int8 tiles 4 bytes a copy, a lane's
+    outputs leave in 16-byte stores), else ``"scalar"``.
+    ``csrc/block_diag_core.cuh::launch_groups`` applies the same rule."""
+    align = 4 if wb.dtype == torch.int8 else 16
+    vec = wb.shape[-1] % 4 == 0 and wb.data_ptr() % align == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (x, y, g) if t is not None)
     return "vec4" if vec else "scalar"
+
+
+def dw_path(dy, x, dwb) -> str:
+    """The instance a ``block_diag_dw`` launch takes: ``"vec4"`` where the
+    block is a multiple of 4 and dy, x and dWB start on a 16-byte boundary
+    (16-byte loads of dy and x, 16-byte stores of dWB), else ``"scalar"``.
+    ``csrc/block_diag.cu::block_diag_dw_f32`` applies the same rule."""
+    vec = dwb.shape[-1] % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (dy, x, dwb))
+    return "vec4" if vec else "scalar"
+
+
+def member_rects(out_tile, in_tile, strict: str | None = None
+                 ) -> list[tuple[int, int, int, int, int]]:
+    """Each parameter tile's output and input tile → the rectangles they
+    trace, (q, o0, ob, i0, ib) each: tiles q .. q + ob·ib − 1, tile q + r·ib
+    + c of output tile o0 + r and input tile i0 + c (a member of the
+    layout, member-major).  Every tile lies in exactly one.  A run of tiles
+    that starts like a rectangle but breaks off inside it is refused where
+    ``strict`` names the caller, else its first tile is a 1 × 1 rectangle
+    and the scan goes on from the next."""
+    out_t = np.asarray(out_tile, np.int64)
+    in_t = np.asarray(in_tile, np.int64)
+    n, q, rects = out_t.size, 0, []
+    while q < n:
+        o0, i0 = out_t[q], in_t[q]
+        ib = 1
+        while q + ib < n and out_t[q + ib] == o0 and in_t[q + ib] == i0 + ib:
+            ib += 1
+        ob = 1
+        while q + ob * ib < n and out_t[q + ob * ib] == o0 + ob \
+                and in_t[q + ob * ib] == i0:
+            ob += 1
+        r, c = np.divmod(np.arange(ob * ib), ib)
+        if not (np.array_equal(out_t[q:q + ob * ib], o0 + r)
+                and np.array_equal(in_t[q:q + ob * ib], i0 + c)):
+            if strict:
+                raise ValueError(f"{strict}: parameter tiles are not "
+                                 "member-major rectangles")
+            ob = ib = 1
+        rects.append((q, int(o0), ob, int(i0), ib))
+        q += ob * ib
+    return rects
+
+
+def member_units(rects, blk: int) -> list[tuple[int, ...]]:
+    """Rectangles (``member_rects``) → the units that own their tiles,
+    (in0, nc, out0, no, q, ld, warp, 0) each: a rectangle, or a chunk of
+    at most ``TEAM_COLS`` units of its input-tile columns (near-equal),
+    tile (r, c) the parameter tile q + r·ld + c; ``warp`` = 1 where it fits
+    a warp's stage (at most ``WARP_OUT`` output and ``WARP_COLS`` input
+    units)."""
+    per_unit = max(1, TEAM_COLS // blk)
+    units = []
+    for q, o0, ob, i0, ib in rects:
+        bounds = _split(ib, per_unit)
+        for c0, c1 in zip(bounds[:-1], bounds[1:]):
+            warp = ob * blk <= WARP_OUT and (c1 - c0) * blk <= WARP_COLS
+            units.append((i0 + c0, c1 - c0, o0, ob, q + c0, ib, int(warp),
+                          0))
+    return units
+
+
+def pack_jobs(units) -> tuple[np.ndarray, np.ndarray]:
+    """Units → (units (n_units, 8) int32 in job order, job_ptr (n_jobs +
+    1,) int32): a job is a CTA, one whole-CTA unit (``warp`` 0) or up to
+    ``WARP_JOB`` warp units.  The warp jobs come first, then the CTA jobs
+    heaviest first: the short, latency-bound warp jobs run beside the
+    first wave instead of in a tail of their own."""
+    arr = np.asarray(units, np.int64).reshape(-1, UNIT_INTS)
+    warp = np.flatnonzero(arr[:, 6] == 1)
+    team = np.flatnonzero(arr[:, 6] == 0)
+    team = team[np.argsort(-arr[team, 3] * arr[team, 1], kind="stable")]
+    ptr = list(range(0, len(warp), WARP_JOB)) + list(
+        range(len(warp), len(arr) + 1))
+    return (np.ascontiguousarray(arr[np.concatenate([warp, team])],
+                                 np.int32),
+            np.asarray(ptr, np.int32))
+
+
+def units_reach(units, job_ptr) -> tuple[int, int, int]:
+    """The (input tiles, output tiles, parameter tiles) a units table
+    touches: each count one past the highest index any unit reads or
+    writes.  Raises on a table neither ``member_units`` nor
+    ``fused_layer.dx_dw_units`` gives (a negative index or extent, jobs
+    out of order or past the table)."""
+    u = np.asarray(units, np.int64).reshape(-1, UNIT_INTS)
+    ptr = np.asarray(job_ptr, np.int64)
+    in0, nc, out0, no, q, ld = u[:, :6].T
+    real = q >= 0
+    if np.any(u[:, [0, 2]] < 0) or np.any(nc < 1) or np.any(no < 1) \
+            or np.any(ld[real] < nc[real]) or np.any(~real & (no != nc)) \
+            or ptr.size < 1 or ptr[0] < 0 or ptr[-1] > len(u) \
+            or np.any(np.diff(ptr) < 0):
+        raise ValueError("not a units table of member units "
+                         "(block_diag.dw_units, fused_layer.dx_dw_units)")
+    last_q = q + (no - 1) * ld + nc
+    return (int((in0 + nc).max(initial=0)), int((out0 + no).max(initial=0)),
+            int(last_q[real].max(initial=0)))
+
+
+def dw_units(wb_out_tile, wb_in_tile, blk: int
+             ) -> tuple[np.ndarray, np.ndarray]:
+    """The ``block_diag_dw`` kernel's work from each parameter tile's
+    output and input tile → (units (n_units, 8) int32, job_ptr (n_jobs +
+    1,) int32): ``member_rects`` (consecutive tiles that trace a
+    member-major rectangle form one, any other tile is one alone, so every
+    tile list runs), cut into ``member_units`` and packed into jobs
+    (``pack_jobs``).  Each parameter tile has exactly one unit."""
+    return pack_jobs(member_units(member_rects(wb_out_tile, wb_in_tile),
+                                  blk))
+
+
+def dw_units_on(wb_out_tile, wb_in_tile, blk: int
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``dw_units`` as int32 tensors on ``wb_out_tile``'s device, kept on
+    ``wb_out_tile`` and used again for this very ``wb_in_tile`` at this
+    block while neither tensor has changed (``_kept``).  The units tensor
+    carries its ``units_reach``."""
+    def build():
+        units, ptr = dw_units(wb_out_tile.cpu().numpy(),
+                              wb_in_tile.cpu().numpy(), blk)
+        t = tuple(torch.from_numpy(a).to(wb_out_tile.device)
+                  for a in (units, ptr))
+        t[0].bd_reach = units_reach(units, ptr)
+        return t
+
+    return _kept(wb_out_tile, "bd_dw_units", (wb_in_tile,), blk, build)
+
+
+def checked_dw_units(dy, x, wb_out_tile, wb_in_tile, blk: int
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The units a ``block_diag_dw`` launch walks (``dw_units_on``); raises
+    unless they stay inside x's input tiles, dy's output tiles and the
+    n_param = len(wb_out_tile) tiles of dWB."""
+    units, ptr = dw_units_on(wb_out_tile, wb_in_tile, blk)
+    have = (x.shape[1] // blk, dy.shape[1] // blk, wb_out_tile.shape[0])
+    if any(r > h for r, h in zip(units.bd_reach, have)):
+        raise ValueError(f"block_diag_dw: the units reach (input, output, "
+                         f"parameter) tiles {units.bd_reach}, the tensors "
+                         f"hold {have}")
+    return units, ptr
+
+
+def unit_tiles(units):
+    """Every tile a unit owns → (real, q, out tile, in tile), one entry per
+    tile: a real unit's (r, c) rectangle (q = its parameter tile), a
+    pass-through run's c-th tile (real False, q < 0)."""
+    u = units.long()
+    in0, nc, out0, no, q0, ld = u[:, :6].unbind(1)
+    real = q0 >= 0
+    n = torch.where(real, no * nc, nc)
+    uid = torch.repeat_interleave(torch.arange(u.shape[0],
+                                               device=u.device), n)
+    start = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
+    k = torch.arange(uid.shape[0], device=u.device) - start
+    rt = real[uid]
+    r = torch.where(rt, k // nc[uid], k)
+    c = torch.where(rt, k % nc[uid], k)
+    return rt, q0[uid] + r * ld[uid] + c, out0[uid] + r, in0[uid] + c
 
 
 def core_shapes() -> tuple[int, int]:
@@ -270,7 +467,8 @@ def block_diag_fwd_cuda(x, wb, rowptr, s_in, s_w, *, blk: int):
 
 
 def block_diag_dw_cuda(dy, x, wb_out_tile, wb_in_tile, *, blk: int):
-    """One launch → dWB (n_param, blk, blk), n_param = len(wb_out_tile)."""
+    """One launch → dWB (n_param, blk, blk), n_param = len(wb_out_tile),
+    walking the tiles' member-owned units (``checked_dw_units``)."""
     global dw_launches
     _build.check_tensors(
         "block_diag_dw", dy,
@@ -284,15 +482,16 @@ def block_diag_dw_cuda(dy, x, wb_out_tile, wb_in_tile, *, blk: int):
             or dy.shape[1] % blk or x.shape[1] % blk \
             or wb_in_tile.shape != (n_param,):
         raise ValueError("block_diag_dw: inconsistent shapes")
+    units, ptr = checked_dw_units(dy, x, wb_out_tile, wb_in_tile, blk)
     fn = _build.function("block_diag", "block_diag_dw_f32",
                          [_P] * 5 + [_I] * 5 + [_P])
     dwb = torch.empty(n_param, blk, blk, device=dy.device,
                       dtype=torch.float32)
     with torch.cuda.device(dy.device):
-        rc = fn(dy.data_ptr(), x.data_ptr(), wb_out_tile.data_ptr(),
-                wb_in_tile.data_ptr(), dwb.data_ptr(), dy.shape[0],
-                dy.shape[1] // blk, x.shape[1] // blk, n_param, blk,
-                torch.cuda.current_stream().cuda_stream)
+        rc = fn(dy.data_ptr(), x.data_ptr(), units.data_ptr(),
+                ptr.data_ptr(), dwb.data_ptr(), dy.shape[0],
+                dy.shape[1] // blk, x.shape[1] // blk, blk,
+                ptr.shape[0] - 1, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "block_diag_dw")
     dw_launches += 1
     return dwb

@@ -26,88 +26,141 @@
 //     read the same input tiles, or a run of pass-through tiles), x and
 //     the tiles staged once a group with cp.async in two stages, a 4 × 8
 //     register tile a lane; this file's epilogue stores u;
-//   * dW: one CTA per group of parameter tiles (128 / blk of them, so a
-//     CTA has 128·blk outputs) loops over every batch row in a fixed
-//     order, 32 rows at a time, and adds each chunk's sum to the total (one
-//     running f32 sum over B = 300 rows strays about 1e-5 from the exact
-//     sum).  No floating-point atomics: launched twice on the same inputs
-//     it gives the same bits.
+//   * dW: member-owned units (member_units.cuh, the packing of
+//     fused_layer_dx_dw.cu, from block_diag.py::dw_units): a unit is a
+//     member's rectangle of parameter tiles — ob output tiles × ib input
+//     tiles, tile (r, c) at q + r·ib + c, the layout's member-major order —
+//     or a chunk of its input-tile columns, or one tile where the tile
+//     list traces no rectangle.  A unit stages its dy columns (32 rows ×
+//     ob·blk) and x columns (32 rows × its columns) once per 32-row batch
+//     chunk with 16-byte loads, forms every dW tile of the rectangle from
+//     shared memory in 4 × 4 register tiles, adds each chunk's sum to its
+//     total in registers, in chunk order (one running f32 sum over B = 300
+//     rows strays about 1e-5 from the exact sum), and writes its
+//     contiguous run of dWB once, 16 bytes at a time, evict-first.  Each
+//     output has one owner, no floating-point atomics: launched twice on
+//     the same inputs it gives the same bits, and every element's chain
+//     (each chunk's sum from 0 over its rows in order, then the sums added
+//     in order) is the one of the per-tile kernel it replaced.
 // Any block up to 128 (block 8, the LayeredPopulation default, included).
 //
 // What bounds it: bytes at training and serving batch sizes.  A step reads
 // one blk × blk weight tile and one (32 × blk) input tile for 2·32·blk²
 // FLOP (16 FLOP per weight byte at B = 32), below the card's f32 ridge
 // (67 TFLOP/s over 3.35 TB/s = 20); the forward reads each x column and
-// tile of a group once; dW reads dy and x once per parameter tile.
+// tile of a group once; dW reads a member's dy and x columns once a
+// column chunk (a member at most 64 units wide: once) and writes each dW
+// tile once.
 #include <climits>
 #include <cuda_runtime.h>
 
 #include "block_diag_core.cuh"
+#include "member_units.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int MAX_BLK = 128;
-// dW
-constexpr int KB = 32;                               // batch rows per chunk
-constexpr int W_COLS = 128;                          // G·blk ≤ 128 columns
-constexpr int MAX_ACC_W = W_COLS * MAX_BLK / THREADS;  // 64
 
-__global__ void __launch_bounds__(THREADS)
-block_diag_dw_kernel(const float* __restrict__ dy,
-                     const float* __restrict__ x,
-                     const int* __restrict__ wb_out_tile,
-                     const int* __restrict__ wb_in_tile,
-                     float* __restrict__ dwb, int B, int out_width,
-                     int in_width, int blk, int n_param, int tiles_per_cta) {
-  __shared__ float us[KB][W_COLS + 1];
-  __shared__ float xs[KB][W_COLS + 1];
+struct DwArgs {
+  const float* dy;
+  const float* x;
+  float* dwb;
+  int B, out_w, in_w, blk;
+};
 
-  const int t = threadIdx.x;
-  const int q0 = blockIdx.x * tiles_per_cta;
-  const int nq = min(tiles_per_cta, n_param - q0);
-  const int bb = blk * blk;
-  const int n_out = nq * bb;
-  const int cols = nq * blk;
-
-  float acc[MAX_ACC_W];
+// dW of one unit (in0, nc, out0, no, q, ld) on NT threads (lane l) over
+// the stage at `s`: per chunk of ≤ S::OCH output units × ≤ S::CWM input
+// units, a thread's 4 × 4 tile of it (output units r0.., input units j0..)
+// summed over the batch 32 rows at a time
+template <int V>
+struct DwUnit {
+  template <int NT, class S>
+  __device__ static void run(const int* u, const DwArgs& a, float* s,
+                             int l) {
+    using namespace munits;
+    const int in0 = u[0], nc = u[1], out0 = u[2], no = u[3], q = u[4],
+              ld = u[5];
+    const int blk = a.blk;
+    const int ncols = nc * blk, nouts = no * blk;
+    const size_t xcol = (size_t)in0 * blk, ycol = (size_t)out0 * blk;
+    float* xs = s + S::X;
+    float* dys = s + S::DY;
+    for (int u0 = 0; u0 < nouts; u0 += S::OCH) {
+      const int oc = min(S::OCH, nouts - u0);
+      for (int cc0 = 0; cc0 < ncols; cc0 += S::CWM) {
+        const int cw = min(S::CWM, ncols - cc0);
+        const int txn = (cw + 3) >> 2;  // column groups of 4
+        const int j0 = l % txn * 4, r0 = l / txn * 4;
+        float tot[4][4];
 #pragma unroll
-  for (int a = 0; a < MAX_ACC_W; ++a) acc[a] = 0.f;
-
-  for (int b0 = 0; b0 < B; b0 += KB) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = t; i < KB * cols; i += THREADS) {
-      const int k = i / cols, c = i % cols;
-      const int gq = c / blk, e = c % blk;
-      const int b = b0 + k;
-      float u = 0.f, xv = 0.f;
-      if (b < B) {
-        u = dy[(size_t)b * out_width + wb_out_tile[q0 + gq] * blk + e];
-        xv = x[(size_t)b * in_width + wb_in_tile[q0 + gq] * blk + e];
-      }
-      us[k][c] = u;
-      xs[k][c] = xv;
-    }
-    __syncthreads();
-    const int kb = min(KB, B - b0);
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int a = 0; a < MAX_ACC_W; ++a) {
-      const int o = t + a * THREADS;
-      if (o < n_out) {
-        const int gq = o / bb, rem = o % bb;
-        const int ru = gq * blk + rem / blk;   // output unit of the tile
-        const int cx = gq * blk + rem % blk;   // input unit of the tile
-        float sum = 0.f;  // this chunk's sum, then added to the total
-        for (int k = 0; k < kb; ++k) sum = fmaf(us[k][ru], xs[k][cx], sum);
-        acc[a] += sum;
+          for (int j = 0; j < 4; ++j) tot[i][j] = 0.f;
+        for (int b0 = 0; b0 < a.B; b0 += S::BCH) {
+          const int bc = min(S::BCH, a.B - b0);
+          team_sync<NT>();  // the previous chunk's readers are done
+          stage_rows<NT, V>(xs, S::CWM,
+                            a.x + (size_t)b0 * a.in_w + xcol + cc0, a.in_w,
+                            bc, cw, l);
+          stage_rows<NT, V>(dys, S::OCH,
+                            a.dy + (size_t)b0 * a.out_w + ycol + u0,
+                            a.out_w, bc, oc, l);
+          team_sync<NT>();
+          if (r0 < oc) {  // this chunk's sum, from 0, then into the total
+            float acc[4][4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+            for (int k = 0; k < bc; ++k)
+              fma4x4(acc, lds4(dys + k * S::OCH + r0),
+                     lds4(xs + k * S::CWM + j0));
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int j = 0; j < 4; ++j) tot[i][j] += acc[i][j];
+          }
+        }
+        if (r0 >= oc) continue;
+        // output unit u0 + r0 + i: row tile rt, unit au of it (stepped)
+        int rt = (u0 + r0) / blk, au = (u0 + r0) - rt * blk;
+        const int ja = cc0 + j0, ct = ja / blk, jc = ja - ct * blk;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (r0 + i >= oc) break;
+          const size_t row = (size_t)q + (size_t)rt * ld;
+          if constexpr (V == 4) {  // 4 columns of one tile (blk % 4 == 0)
+            __stcs(reinterpret_cast<float4*>(
+                       a.dwb + ((row + ct) * blk + au) * blk + jc),
+                   make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]));
+          } else {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (j0 + j >= cw) break;
+              const int jb = ja + j;
+              __stcs(a.dwb + ((row + jb / blk) * blk + au) * blk + jb % blk,
+                     tot[i][j]);
+            }
+          }
+          if (++au == blk) au = 0, ++rt;
+        }
       }
     }
   }
-#pragma unroll
-  for (int a = 0; a < MAX_ACC_W; ++a) {
-    const int o = t + a * THREADS;
-    if (o < n_out) dwb[(size_t)q0 * bb + o] = acc[a];
-  }
+};
+
+constexpr int DW_SMEM =
+    munits::TeamStage::DW_FLOATS > munits::WARPS * munits::WarpStage::DW_FLOATS
+        ? munits::TeamStage::DW_FLOATS
+        : munits::WARPS * munits::WarpStage::DW_FLOATS;
+
+template <int V>
+__global__ void __launch_bounds__(munits::THREADS)
+block_diag_dw_member_kernel(DwArgs a, const int* __restrict__ units,
+                            const int* __restrict__ job_ptr) {
+  __shared__ __align__(16) float smem[DW_SMEM];
+  munits::run_job<DwUnit<V>>(a, units, job_ptr, smem,
+                             munits::WarpStage::DW_FLOATS);
 }
 
 // the forward's epilogue: u as it is, from the lane's registers, 16-byte
@@ -177,20 +230,26 @@ extern "C" int block_diag_fwd_f32(const float* x, const float* wb,
       reinterpret_cast<const void*>(block_diag_group_kernel<1>), a, stream);
 }
 
-// dy (B, n_out_tiles·blk), x (B, n_in_tiles·blk), each parameter tile's
-// output and input tile (n_param,) → dWB (n_param, blk, blk).
+// dy (B, n_out_tiles·blk), x (B, n_in_tiles·blk), the units (n_units, 8)
+// and job_ptr (n_jobs + 1,) int32 of block_diag.py::dw_units → dWB
+// (n_param, blk, blk), every tile of which some unit owns.
 extern "C" int block_diag_dw_f32(const float* dy, const float* x,
-                                 const int* wb_out_tile,
-                                 const int* wb_in_tile, float* dwb, int B,
-                                 int n_out_tiles, int n_in_tiles,
-                                 int n_param, int blk, void* stream) {
-  if (n_param <= 0) return 0;
-  if (blk <= 0 || blk > MAX_BLK || B < 0) return (int)cudaErrorInvalidValue;
-  const int tiles_per_cta = W_COLS / blk;
-  const long long n_ctas = (n_param + tiles_per_cta - 1) / tiles_per_cta;
-  block_diag_dw_kernel<<<(unsigned)n_ctas, THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      dy, x, wb_out_tile, wb_in_tile, dwb, B, n_out_tiles * blk,
-      n_in_tiles * blk, blk, n_param, tiles_per_cta);
+                                 const int* units, const int* job_ptr,
+                                 float* dwb, int B, int n_out_tiles,
+                                 int n_in_tiles, int blk, int n_jobs,
+                                 void* stream) {
+  if (blk <= 0 || blk > MAX_BLK || B < 0 || n_jobs < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)n_in_tiles * blk > INT_MAX ||
+      (long long)n_out_tiles * blk > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (n_jobs == 0) return 0;
+  const DwArgs a{dy, x, dwb, B, n_out_tiles * blk, n_in_tiles * blk, blk};
+  const bool v4 = blk % 4 == 0 && munits::aligned16(dy) &&
+                  munits::aligned16(x) && munits::aligned16(dwb);
+  auto* kernel =
+      v4 ? block_diag_dw_member_kernel<4> : block_diag_dw_member_kernel<1>;
+  kernel<<<(unsigned)n_jobs, munits::THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(a, units, job_ptr);
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,9 @@
 // The block-sparse product shared by the unfused forward (block_diag.cu)
-// and the fused mid layer's forward (fused_layer.cu):
+// and the fused mid layer's forward (fused_layer.cu, f32 and int8 tiles):
 //   u[:, o] = Σ_{steps s of CSR row o} x[:, s_in[s]] · wb[s_w[s]]ᵀ
-// walked by the groups of block_diag.py::fwd_groups, one warp a group, and
+// walked by the groups of block_diag.py::fwd_groups, one warp a group, with
+// the tiles read through a weight policy (F32W: f32 tiles; I8W: int8 tiles
+// and one f32 scale a tile, each weight formed as (float)q · scale) and u
 // handed to an epilogue policy (u stored as it is, or bias, activation,
 // mask and g').
 //
@@ -87,6 +89,8 @@ struct Args {
   const float* mask;
   const int* tile_act;
   int B, in_w, out_w, blk, n_groups;
+  const int8_t* wq = nullptr;      // I8W: the int8 tiles (wb unused)
+  const float* wscale = nullptr;   // I8W: one scale a tile
 };
 
 // a group as its warp holds it (the table's row, packed): bits = nr | nu << 3
@@ -142,6 +146,13 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// 4 bytes global → shared (.ca), of any type
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
+}
+
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
@@ -173,13 +184,105 @@ __device__ __forceinline__ int col_row(int nu, int col_group, int& ub) {
   return r;
 }
 
+// The weight policies: how column slot n of a stage (kc deep, ld apart)
+// gets piece q (V deep, from element `at` of tile `tile`, the chunk's js-th
+// step) of its tile row, and how the landed stage becomes f32 slots
+// (row_first: the column's group row where the piece is the first of its
+// step in the chunk and the column its row's first, else −1).
+// F32W copies the f32 tile row as it is.
+struct F32W {
+  template <int V>
+  __device__ __forceinline__ static void copy(const Args& a, float* ws,
+                                              const Chunk& h, int n, int q,
+                                              size_t at, int, int, int) {
+    cp_async<V, true>(ws + n * h.ld + q * V, a.wb + at);
+  }
+  template <int V>
+  __device__ __forceinline__ static void land(const Args&, const Chunk&,
+                                              int, float*, int) {}
+};
+
+// I8W: int8 tiles, one f32 scale a tile, each weight (float)q · scale —
+// the value the f32 instance reads from tiles dequantized the same way, so
+// that the two give the same bits.  vec4: a piece is 4 bytes (a quarter of
+// the f32 copy); the bytes (column n's kc of them at byte n·(kc + 4)) and
+// each step's scale (group row r's at float 8·(kc + 4) + r·(kc/4 + 1) +
+// js, copied with the step's first piece in the chunk of the row's first
+// column: the row's columns share its tile) land in the stage's W slots,
+// and `land` turns them into the f32 slots in place: a lane a column
+// reads its bytes and scales, the warp syncs, the lane writes its kc
+// floats.  Scalar (a block not a multiple of 4, or wq off a 4-byte
+// boundary): a piece is one byte, loaded and converted at issue.
+struct I8W {
+  __device__ __forceinline__ static int bytes_words(int kc) {
+    return kc / 4 + 1;
+  }
+  template <int V>
+  __device__ __forceinline__ static void copy(const Args& a, float* ws,
+                                              const Chunk& h, int n, int q,
+                                              size_t at, int tile, int js,
+                                              int row_first) {
+    if constexpr (V == 4) {
+      const int nw = bytes_words(h.kc);
+      cp_async4(ws + n * nw + q, a.wq + at);
+      if (row_first >= 0)
+        cp_async4(ws + NG * CG * nw + row_first * nw + js, a.wscale + tile);
+    } else {
+      ws[n * h.ld + q] = (float)__ldg(a.wq + at) * __ldg(a.wscale + tile);
+    }
+  }
+  template <int V>
+  __device__ __forceinline__ static void land(const Args& a, const Chunk& h,
+                                              int bits, float* slot,
+                                              int lane) {
+    if constexpr (V == 4) {
+      float* ws = slot + h.panels * BT * h.ld;
+      const int nw = bytes_words(h.kc), np = h.kc / 4;
+      // piece p's step in the chunk, counted up as its depth crosses a
+      // tile row's end (a diag chunk ends with its one step); a division
+      // by the block a piece made the depth-3 int8 forward 10 % slower
+      // (NVIDIA H100 80GB HBM3, 700.00 W)
+      int kk = h.k0 % a.blk, js = 0;
+      int ub;
+      const int r = col_row(nu_of(bits), lane / CG, ub);
+      const bool used = r < nr_of(bits) && ub + lane % CG < nu_of(bits);
+      const uint32_t* wb = reinterpret_cast<const uint32_t*>(ws) + lane * nw;
+      const float* sc = ws + NG * CG * nw + r * nw;
+      uint32_t w[KC / 4];
+      float s[KC / 4];
+#pragma unroll
+      for (int p = 0; p < KC / 4; ++p) {
+        if (used && p < np) {
+          w[p] = wb[p];
+          s[p] = sc[js];
+        }
+        kk += 4;
+        if (kk == a.blk) kk = 0, ++js;
+      }
+      __syncwarp();  // every lane has read its bytes before any is written
+#pragma unroll
+      for (int p = 0; p < KC / 4; ++p)
+        if (used && p < np) {
+          float v[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)  // byte e, sign-extended
+            v[e] = (float)((int)(w[p] << (24 - 8 * e)) >> 24) * s[p];
+          *reinterpret_cast<float4*>(ws + lane * h.ld + 4 * p) =
+              make_float4(v[0], v[1], v[2], v[3]);
+        }
+      __syncwarp();  // every slot is written before any lane reads it
+    }
+  }
+};
+static_assert(NG * CG == 32, "I8W::land converts a column slot a lane");
+
 // one chunk's copies, spread over the warp: lane l copies piece
 // q = l mod npp (V floats deep) of rows l / npp, l / npp + 32 / npp, …,
 // each tile's index read from s_in or s_w.  x streams through L2; the tiles come through L1, because the
 // pass-through groups all read one identity tile: from L2 alone, a
 // thousand warps queue on its two lines (on an H100, at the depth-3
 // population's second mid layer, 15.2 µs a launch against 7.3 through L1).
-template <int V>
+template <int V, class Wt>
 __device__ void issue(const Packed& g, int bt, int c, const Args& a,
                       float* slot, int lane) {
   const Chunk h = chunk_of(g.L, g.bits, bt, c, a);
@@ -208,14 +311,16 @@ __device__ void issue(const Packed& g, int bt, int c, const Args& a,
         a.x + (size_t)(h.b0 + b) * a.in_w + (size_t)tile * blk + kk);
   }
   float* ws = slot + h.panels * BT * h.ld;
+  const int js = j - (diag ? 0 : h.k0 / blk);  // the step in the chunk
   for (int n = lane >> lg; n < NG * CG; n += step) {
     int ub;
     const int r = col_row(nu, n / CG, ub);
     const int u = ub + n % CG;
     if (r >= nr || u >= nu) continue;
     const int tile = __ldg(a.s_w + g.s0 + r * g.L + j);
-    cp_async<V, true>(ws + n * h.ld + q * V,
-                      a.wb + ((size_t)tile * blk + u0 + u) * blk + kk);
+    Wt::template copy<V>(a, ws, h, n, q,
+                         ((size_t)tile * blk + u0 + u) * blk + kk, tile, js,
+                         u == 0 && (q == 0 || kk < V) ? r : -1);
   }
 }
 
@@ -300,10 +405,11 @@ __device__ __forceinline__ bool lane_cols(const Rec& q, const Args& a,
 
 // The warp's loop over its group's chunks (its batch tiles, each over the
 // reduction): chunk i + 1 is copied into the other stage while chunk i is
-// multiplied.  A finished batch tile goes through the epilogue policy,
-// Epi::run<V>(args, chunk record, lane, acc, stage), the stage just
-// multiplied being free until the next copy into it.
-template <int V, class Epi>
+// multiplied, once the weight policy has landed it.  A finished batch tile
+// goes through the epilogue policy, Epi::run<V>(args, chunk record, lane,
+// acc, stage), the stage just multiplied being free until the next copy
+// into it.
+template <int V, class Epi, class Wt = F32W>
 __device__ void run_groups(const Args& a) {
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -313,7 +419,7 @@ __device__ void run_groups(const Args& a) {
   const Packed g = load_group(a, gi, lane);
   const int nc = n_chunks(g.L, a.blk);
   const int total = (a.B + BT - 1) / BT * nc;
-  issue<V>(g, 0, 0, a, ring, lane);
+  issue<V, Wt>(g, 0, 0, a, ring, lane);
   cp_async_commit();
   float acc[RPL][CG];
 #pragma unroll
@@ -322,13 +428,15 @@ __device__ void run_groups(const Args& a) {
     for (int c = 0; c < CG; ++c) acc[i][c] = 0.f;
   for (int i = 0; i < total; ++i) {
     if (i + 1 < total)
-      issue<V>(g, (i + 1) / nc, (i + 1) % nc, a,
+      issue<V, Wt>(g, (i + 1) / nc, (i + 1) % nc, a,
                ring + ((i + 1) & 1) * STAGE_FLOATS, lane);
     cp_async_commit();
     cp_async_wait<1>();
     __syncwarp();
     const Rec q{g.row0, g.L, g.bits, i / nc, i % nc, nc};
     float* slot = ring + (i & 1) * STAGE_FLOATS;
+    Wt::template land<V>(a, chunk_of(q.L, q.bits, q.bt, q.c, a), q.bits,
+                         slot, lane);
     compute<V>(q, a, slot, lane, acc);
     if (q.c == nc - 1) {  // the batch tile is done: its epilogue
       Epi().template run<V>(a, q, lane, acc, slot);
@@ -347,8 +455,9 @@ inline bool aligned16(const void* p) {
 }
 
 // Launch `vec4` or `scalar` (the rule of block_diag.py::fwd_path: a block
-// that is a multiple of 4, and x, wb, y and g' on 16-byte boundaries), one
-// warp a group.
+// that is a multiple of 4, x, y and g' on 16-byte boundaries, and the f32
+// tiles wb on a 16-byte boundary or the int8 tiles wq on a 4-byte one),
+// one warp a group.
 inline int launch_groups(const void* vec4, const void* scalar, Args a,
                          void* stream) {
   if (a.blk <= 0 || a.blk > MAX_BLK || a.B < 0 || a.n_groups < 0)
@@ -359,7 +468,10 @@ inline int launch_groups(const void* vec4, const void* scalar, Args a,
   a.in_w *= a.blk;
   a.out_w *= a.blk;
   if (a.B == 0 || a.n_groups == 0) return 0;
-  const bool v4 = a.blk % 4 == 0 && aligned16(a.x) && aligned16(a.wb) &&
+  const bool w_ok = a.wq != nullptr
+                        ? reinterpret_cast<uintptr_t>(a.wq) % 4 == 0
+                        : aligned16(a.wb);
+  const bool v4 = a.blk % 4 == 0 && aligned16(a.x) && w_ok &&
                   aligned16(a.y) && (a.g == nullptr || aligned16(a.g));
   const void* kernel = v4 ? vec4 : scalar;
   const cudaError_t err = cudaFuncSetAttribute(

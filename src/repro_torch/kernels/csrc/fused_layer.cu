@@ -35,20 +35,19 @@
 // one member does not diverge); y (and g') leave 16 bytes at a time,
 // evict-first, where the vec4 instance runs.
 //
-// int8 (wb the packer's (n_param_blocks + 1, blk, blk) int8 array, identity
-// tile appended, one f32 scale per tile, 1.0 for the identity): one CTA per
-// (32-row batch tile, output tile) walks that tile's CSR row (rowptr),
-// staging each 32 × KC slice of x and of the step's tile (each byte
-// converted and multiplied by its step's scale, q·s, then the dot, as in
-// JAX) in shared memory, and accumulating in registers.  Its redesign, as
-// an int8 weight policy of the core, is a later item.
+// int8 (wb_q the packer's (n_param_blocks + 1, blk, blk) int8 array,
+// identity tile appended, one f32 scale per tile, 1.0 for the identity):
+// the same core and epilogue under the core's I8W weight policy — the
+// tiles cross memory as bytes, a quarter of the f32 traffic, and each
+// weight is formed as (float)q · scale before the FMA chain, as the
+// replaced kernel forms it (so its bits are the f32 instance's on tiles
+// dequantized the same way).
 //
 // What bounds it: bytes at serving batch sizes.  Each step reads one
 // blk × blk weight tile and one (32 × blk) input tile and does 2·32·blk²
-// FLOP: 16 FLOP per weight byte at B = 32, below the card's f32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20).  Works for any blk ≤ 128 (block 8, the
-// LayeredPopulation default, included).
-#include <climits>
+// FLOP: 16 FLOP per weight byte at B = 32 (64 over int8 tiles), below the
+// card's f32 ridge (67 TFLOP/s over 3.35 TB/s = 20) for f32 tiles.  Works
+// for any blk ≤ 128 (block 8, the LayeredPopulation default, included).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -57,85 +56,7 @@
 
 namespace {
 
-constexpr int BM = 32;          // batch rows per CTA
-constexpr int KC = 32;          // reduction chunk staged in shared memory
-constexpr int THREADS = 256;
-constexpr int MAX_BLK = 128;
-constexpr int MAX_ACC = BM * MAX_BLK / THREADS;  // outputs per thread (16)
-
-// the int8 forward: wb_q int8 tiles, wb_scale one f32 per tile
-__global__ void __launch_bounds__(THREADS)
-fused_layer_i8_kernel(const float* __restrict__ x,
-                      const int8_t* __restrict__ wb,
-                      const float* __restrict__ wb_scale,
-                      const float* __restrict__ b_eff,
-                      const float* __restrict__ mask,
-                      const int* __restrict__ tile_act,
-                      const int* __restrict__ rowptr,
-                      const int* __restrict__ s_in,
-                      const int* __restrict__ s_w, float* __restrict__ y,
-                      int B, int in_width, int out_width, int blk,
-                      int n_btiles) {
-  __shared__ float xs[BM][KC + 1];
-  __shared__ float ws[MAX_BLK][KC + 1];
-
-  const int bt = blockIdx.x % n_btiles;
-  const int ot = blockIdx.x / n_btiles;
-  const int b0 = bt * BM;
-  const int t = threadIdx.x;
-  const int n_out = BM * blk;  // outputs of this CTA: (row, column) pairs
-
-  float acc[MAX_ACC];
-#pragma unroll
-  for (int a = 0; a < MAX_ACC; ++a) acc[a] = 0.f;
-
-  const int s_end = rowptr[ot + 1];
-  for (int s = rowptr[ot]; s < s_end; ++s) {
-    const int in_col0 = s_in[s] * blk;
-    const int8_t* wt = wb + (size_t)s_w[s] * blk * blk;
-    const float sc = wb_scale[s_w[s]];
-    for (int k0 = 0; k0 < blk; k0 += KC) {
-      const int kc = min(KC, blk - k0);
-      __syncthreads();  // the previous chunk's reads are done
-      for (int i = t; i < BM * kc; i += THREADS) {
-        const int r = i / kc, c = i % kc;
-        const int b = b0 + r;
-        xs[r][c] = b < B ? x[(size_t)b * in_width + in_col0 + k0 + c] : 0.f;
-      }
-      for (int i = t; i < blk * kc; i += THREADS) {
-        const int r = i / kc, c = i % kc;
-        ws[r][c] = (float)wt[(size_t)r * blk + k0 + c] * sc;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int a = 0; a < MAX_ACC; ++a) {
-        const int o = t + a * THREADS;
-        if (o < n_out) {
-          const int r = o / blk, col = o % blk;
-          float sum = acc[a];
-          for (int c = 0; c < kc; ++c) sum = fmaf(xs[r][c], ws[col][c], sum);
-          acc[a] = sum;
-        }
-      }
-    }
-  }
-
-  const int act = tile_act[ot];
-#pragma unroll
-  for (int a = 0; a < MAX_ACC; ++a) {
-    const int o = t + a * THREADS;
-    if (o < n_out) {
-      const int b = b0 + o / blk;
-      const int col = ot * blk + o % blk;
-      if (b < B) {
-        const float u = acc[a] + b_eff[col];
-        y[(size_t)b * out_width + col] = apply_act(act, u) * mask[col];
-      }
-    }
-  }
-}
-
-// the f32 forward's epilogue: y = act(u + b_eff)·mask (and g' =
+// the forward's epilogue: y = act(u + b_eff)·mask (and g' =
 // act'(u + b_eff)·mask), the replaced kernel's expressions.  The lanes
 // stage u (B rows × the group's ≤ 32 columns) in the stage just
 // multiplied, then share the outputs out: a lane takes V consecutive
@@ -234,6 +155,12 @@ fused_layer_group_kernel(bdcore::Args a) {
   bdcore::run_groups<V, ActOut<DERIV>>(a);
 }
 
+template <int V>
+__global__ void __launch_bounds__(bdcore::THREADS, 3)
+fused_layer_i8_group_kernel(bdcore::Args a) {
+  bdcore::run_groups<V, ActOut<false>, bdcore::I8W>(a);
+}
+
 }  // namespace
 
 // x (B, n_in_tiles·blk), wb (n_tiles, blk, blk), b_eff, mask, tile_act, the
@@ -274,22 +201,23 @@ extern "C" int fused_layer_train_f32(const float* x, const float* wb,
 }
 
 // wb_q (n_param_blocks + 1, blk, blk) int8, wb_scale (n_param_blocks + 1,),
-// the CSR steps (rowptr, s_in, s_w) → y.
+// b_eff, mask, tile_act, the CSR steps' s_in and s_w, and the group table
+// (n_groups, 7) → y.
 extern "C" int fused_layer_infer_i8(const float* x, const int8_t* wb_q,
                                     const float* wb_scale,
                                     const float* b_eff, const float* mask,
-                                    const int* tile_act, const int* rowptr,
-                                    const int* s_in, const int* s_w,
+                                    const int* tile_act, const int* s_in,
+                                    const int* s_w, const int* groups,
                                     float* y, int B, int n_in_tiles,
-                                    int n_out_tiles, int blk, void* stream) {
-  if (B <= 0 || n_out_tiles <= 0) return 0;
-  if (blk <= 0 || blk > MAX_BLK) return (int)cudaErrorInvalidValue;
-  const long long n_btiles = (B + BM - 1) / BM;
-  const long long n_tiles = n_btiles * n_out_tiles;
-  if (n_tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_layer_i8_kernel<<<(unsigned)n_tiles, THREADS, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w, y, B,
-      n_in_tiles * blk, n_out_tiles * blk, blk, (int)n_btiles);
-  return (int)cudaGetLastError();
+                                    int n_out_tiles, int blk, int n_groups,
+                                    void* stream) {
+  if (n_out_tiles <= 0) return 0;
+  bdcore::Args a{x,     nullptr, s_in,  s_w,      groups,
+                 y,     nullptr, b_eff, mask,     tile_act,
+                 B,     n_in_tiles, n_out_tiles, blk, n_groups,
+                 wb_q,  wb_scale};
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(fused_layer_i8_group_kernel<4>),
+      reinterpret_cast<const void*>(fused_layer_i8_group_kernel<1>), a,
+      stream);
 }

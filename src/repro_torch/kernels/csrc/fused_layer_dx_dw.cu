@@ -28,10 +28,11 @@
 // chunks, dW added into its own slice in global memory, in order, over the
 // batch chunks.
 //
-// Packing: a job is one CTA of 128 threads.  A unit of more than 8 output
-// or 16 input units takes the whole CTA (team job); smaller ones and
-// pass-through runs go a warp each, four to a CTA (warp job), so a block-8
-// member no longer costs a CTA for 256 outputs.  The warp jobs come first,
+// Packing (member_units.cuh, shared with block_diag.cu's dW): a job is one
+// CTA of 128 threads.  A unit of more than 8 output or 16 input units takes
+// the whole CTA (team job); smaller ones and pass-through runs go a warp
+// each, four to a CTA (warp job), so a block-8 member no longer costs a CTA
+// for 256 outputs.  The warp jobs come first,
 // so that these short, latency-bound jobs run beside the first wave of
 // team jobs (heaviest first) and not in a tail of their own.  Any block 1–128,
 // any B (16-byte global accesses where blk % 4 == 0 and the pointers
@@ -45,32 +46,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "member_units.cuh"
+
 namespace {
 
-constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_BLK = 128;
-constexpr int UNIT_INTS = 8;  // in0, nc, out0, no, q, ld, warp, 0
+using namespace munits;
 
-// a stage: x [BCH][CWM], W [OCH][CWM], du [BCH][OCH], duᵀ [OCH][BCH + 4]
-template <int BCH_, int OCH_, int CWM_>
-struct Stage {
-  static constexpr int BCH = BCH_, OCH = OCH_, CWM = CWM_;
-  static constexpr int DUT_LD = BCH + 4;  // 16-byte rows, 4-way staging
-  static constexpr int X = 0;
-  static constexpr int W = X + BCH * CWM;
-  static constexpr int DU = W + OCH * CWM;
-  static constexpr int DUT = DU + BCH * OCH;
-  static constexpr int FLOATS = DUT + OCH * DUT_LD;
-  // the 4-row register tiles must cover BCH batch rows and OCH output units
-  // with ≥ 8 thread rows: at most NT / 8 column groups of 4
-  static_assert(BCH <= 32 && OCH <= 32 && CWM % 4 == 0 && OCH % 4 == 0,
-                "stage shape");
-};
-using TeamStage = Stage<32, 32, 64>;  // the whole CTA on one unit
-using WarpStage = Stage<32, 8, 16>;   // one warp on one unit
-static_assert(TeamStage::CWM <= THREADS / 2 && WarpStage::CWM <= 32 / 2,
-              "a column group of 4 per thread, at least 8 thread rows");
 constexpr int SMEM = TeamStage::FLOATS > WARPS * WarpStage::FLOATS
                          ? TeamStage::FLOATS
                          : WARPS * WarpStage::FLOATS;
@@ -84,46 +65,6 @@ struct Args {
   float* dwb;
   int B, in_w, out_w, blk;
 };
-
-template <int NT>
-__device__ __forceinline__ void team_sync() {
-  if constexpr (NT == THREADS)
-    __syncthreads();
-  else
-    __syncwarp();
-}
-
-template <int V>
-__device__ __forceinline__ void load(const float* p, float (&v)[V]) {
-  if constexpr (V == 4) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = __ldg(p);
-  }
-}
-
-template <int V>
-__device__ __forceinline__ void store(float* p, const float (&v)[V]) {
-  if constexpr (V == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    p[0] = v[0];
-}
-
-__device__ __forceinline__ float4 lds4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a,
-                                       const float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-}
 
 // dx = du on a run of pass-through tiles
 template <int NT, int V>
@@ -175,7 +116,10 @@ __device__ void run_unit(const int* u, const Args& a, float* s, int l) {
       for (int u0 = 0; u0 < nouts; u0 += S::OCH) {
         const int oc = min(S::OCH, nouts - u0);
         team_sync<NT>();  // the previous stage's readers are done
-        if (u0 == 0) {    // x: bc rows × cw columns
+        if (u0 == 0) {    // x: bc rows × cw columns (this kernel's own
+          // loop: with a shared staging helper here nvcc 12.8 gave the
+          // vec4 instance 96 registers and a 16-byte spill, against 87
+          // and none)
           const int nv = cw / V;
           for (int i = l; i < bc * nv; i += NT) {
             const int r = i / nv, j = (i - r * nv) * V;
@@ -280,34 +224,28 @@ __device__ void run_unit(const int* u, const Args& a, float* s, int l) {
 }
 
 template <int V>
+struct DxDw {
+  template <int NT, class S>
+  __device__ __forceinline__ static void run(const int* u, const Args& a,
+                                             float* s, int l) {
+    run_unit<NT, S, V>(u, a, s, l);
+  }
+};
+
+template <int V>
 __global__ void __launch_bounds__(THREADS)
 fused_layer_dx_dw_kernel(Args a, const int* __restrict__ units,
                          const int* __restrict__ job_ptr) {
   __shared__ __align__(16) float smem[SMEM];
-  const int u_lo = job_ptr[blockIdx.x], u_hi = job_ptr[blockIdx.x + 1];
-  if (u_lo >= u_hi) return;
-  if (units[(size_t)u_lo * UNIT_INTS + 6] == 0) {  // team job
-    for (int k = u_lo; k < u_hi; ++k)
-      run_unit<THREADS, TeamStage, V>(units + (size_t)k * UNIT_INTS, a, smem,
-                                      threadIdx.x);
-  } else {  // warp job: a unit a warp
-    const int w = threadIdx.x >> 5;
-    for (int k = u_lo + w; k < u_hi; k += WARPS)
-      run_unit<32, WarpStage, V>(units + (size_t)k * UNIT_INTS, a,
-                                 smem + w * WarpStage::FLOATS,
-                                 threadIdx.x & 31);
-  }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  run_job<DxDw<V>>(a, units, job_ptr, smem, WarpStage::FLOATS);
 }
 
 }  // namespace
 
-// The packing's shapes, which fused_layer.py::dx_dw_units restates:
-// a team stage's columns, a warp stage's output units and columns, and the
-// warps of a CTA (the units of a warp job).
+// The packing's shapes (member_units.cuh), which block_diag.py restates
+// for member_units and pack_jobs: a team stage's columns, a warp stage's
+// output units and columns, and the warps of a CTA (the units of a warp
+// job).
 extern "C" int fused_layer_dx_dw_stages(int* out) {
   out[0] = TeamStage::CWM;
   out[1] = WarpStage::OCH;

@@ -13,18 +13,22 @@ variant also g' of the same shape.  The product is the unfused forward's
 (``csrc/block_diag_core.cuh``, walking ``block_diag.fwd_groups``; the
 instance by ``block_diag.fwd_path``), with this layer's epilogue.
 
-Int8 serving: ``fused_layer_int8_cuda`` launches a kernel of its own over
-the int8 serve copy (entry ``fused_layer_infer_i8``; the port of
+Int8 serving: ``fused_layer_int8_cuda`` launches the same core under its
+int8 weight policy over the int8 serve copy (entry
+``fused_layer_infer_i8``; the port of
 ``fused_layer.py::fused_layer_int8_fwd``): the packer's identity-augmented
-int8 tile array and one f32 scale per tile, 1.0 for the identity.
+int8 tile array and one f32 scale per tile, 1.0 for the identity, each
+weight formed as q·scale; the instance by ``block_diag.fwd_path`` of the
+int8 tiles.
 
 Backward: ``fused_layer_dx_dw_cuda`` launches ``csrc/fused_layer_dx_dw.cu``
 (the port of ``fused_layer.py::fused_layer_dx_dw``): from dy and g', x, the
 parameter tiles wb (n_param_blocks, blk, blk) as the forward reads them
 (member-major, no identity tile) and the layout's work units and jobs
-(``dx_dw_units``, cached per device by ``dx_dw_schedule_on``) it returns
-dx (B, n_in_tiles·blk) and dWB (n_param_blocks, blk, blk), member by
-member.  ``transposed_tiles`` (the JAX package's per-member-transposed
+(``dx_dw_units``, cached per device by ``dx_dw_schedule_on``; the
+member units and job packing of ``block_diag.member_units`` /
+``pack_jobs``, which the unfused dW shares) it returns dx (B,
+n_in_tiles·blk) and dWB (n_param_blocks, blk, blk), member by member.  ``transposed_tiles`` (the JAX package's per-member-transposed
 tiles) feeds the unfused route's dh.
 
 Each ``*_plain`` function is the same function in plain PyTorch.
@@ -46,20 +50,15 @@ import torch
 from repro_torch.core.activations import (apply_activation_derivs_masked,
                                           apply_activations_masked)
 from repro_torch.kernels import _build
-from repro_torch.kernels.block_diag import (_split, block_diag_fwd_plain,
-                                            checked_groups, stamp_groups)
+from repro_torch.kernels.block_diag import (
+    TEAM_COLS, _split, block_diag_fwd_plain, checked_groups, member_rects,
+    member_units, pack_jobs, stamp_groups, unit_tiles, units_reach)
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # the forward, with or without g'
 int8_launches = 0     # the forward over int8 tiles
 dx_dw_launches = 0    # the backward
 MAX_BLOCK = 128       # widest tile the kernel keeps in shared memory
-# the backward's packing, the stage shapes of csrc/fused_layer_dx_dw.cu
-# (``kernel_stages`` reads them from the library): a CTA's column chunk,
-# the largest unit a warp takes, and the units of a warp job (one a warp)
-TEAM_COLS = 64
-WARP_OUT, WARP_COLS = 8, 16
-WARP_JOB = 4
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -137,75 +136,19 @@ def dx_dw_units(layout) -> tuple[np.ndarray, np.ndarray]:
     first: the short, latency-bound warp jobs run beside the first wave
     instead of in a tail of their own."""
     blk = layout.block
-    n_param = layout.n_param_blocks
-    out_t = np.asarray(layout.wb_out_tile, np.int64)
-    in_t = np.asarray(layout.wb_in_tile, np.int64)
+    units = member_units(member_rects(layout.wb_out_tile, layout.wb_in_tile,
+                                      strict="fused_layer_dx_dw"), blk)
     per_unit = max(1, TEAM_COLS // blk)
-    units = []
-
-    def add(in0, nc, out0, no, q, ld):
-        warp = q < 0 or (no * blk <= WARP_OUT and nc * blk <= WARP_COLS)
-        units.append((in0, nc, out0, no, q, ld, int(warp), 0))
-
-    q = 0
-    while q < n_param:
-        o0, i0 = out_t[q], in_t[q]
-        ib = 1
-        while q + ib < n_param and out_t[q + ib] == o0 \
-                and in_t[q + ib] == i0 + ib:
-            ib += 1
-        ob = 1
-        while q + ob * ib < n_param and out_t[q + ob * ib] == o0 + ob \
-                and in_t[q + ob * ib] == i0:
-            ob += 1
-        r, c = np.divmod(np.arange(ob * ib), ib)
-        if not (np.array_equal(out_t[q:q + ob * ib], o0 + r)
-                and np.array_equal(in_t[q:q + ob * ib], i0 + c)):
-            raise ValueError("fused_layer_dx_dw: parameter tiles are not "
-                             "member-major rectangles")
-        bounds = _split(ib, per_unit)
-        for c0, c1 in zip(bounds[:-1], bounds[1:]):
-            add(i0 + c0, c1 - c0, o0, ob, q + c0, ib)
-        q += ob * ib
-
-    ident = np.asarray(layout.s_w_t, np.int64) == n_param
+    ident = np.asarray(layout.s_w_t, np.int64) == layout.n_param_blocks
     t_dx = np.asarray(layout.s_out_t, np.int64)[ident]
     t_du = np.asarray(layout.s_in_t, np.int64)[ident]
     cut = np.flatnonzero((np.diff(t_dx) != 1) | (np.diff(t_du) != 1)) + 1
     for run_dx, run_du in zip(np.split(t_dx, cut), np.split(t_du, cut)):
         bounds = _split(len(run_dx), per_unit) if len(run_dx) else [0]
         for c0, c1 in zip(bounds[:-1], bounds[1:]):
-            add(run_dx[c0], c1 - c0, run_du[c0], c1 - c0, -1, 0)
-
-    arr = np.asarray(units, np.int64).reshape(-1, 8)
-    warp = np.flatnonzero(arr[:, 6] == 1)
-    team = np.flatnonzero(arr[:, 6] == 0)
-    team = team[np.argsort(-arr[team, 3] * arr[team, 1], kind="stable")]
-    ptr = list(range(0, len(warp), WARP_JOB)) + list(
-        range(len(warp), len(arr) + 1))
-    return (np.ascontiguousarray(arr[np.concatenate([warp, team])],
-                                 np.int32),
-            np.asarray(ptr, np.int32))
-
-
-def units_reach(units, job_ptr) -> tuple[int, int, int]:
-    """The (input tiles, output tiles, parameter tiles) a units table
-    touches: each count one past the highest index any unit reads or
-    writes.  Raises on a table no layout gives (a negative index or extent,
-    jobs out of order or past the table)."""
-    u = np.asarray(units, np.int64).reshape(-1, 8)
-    ptr = np.asarray(job_ptr, np.int64)
-    in0, nc, out0, no, q, ld = u[:, :6].T
-    real = q >= 0
-    if np.any(u[:, [0, 2]] < 0) or np.any(nc < 1) or np.any(no < 1) \
-            or np.any(ld[real] < nc[real]) or np.any(~real & (no != nc)) \
-            or ptr.size < 1 or ptr[0] < 0 or ptr[-1] > len(u) \
-            or np.any(np.diff(ptr) < 0):
-        raise ValueError("fused_layer_dx_dw: not a units table of "
-                         "dx_dw_units")
-    last_q = q + (no - 1) * ld + nc
-    return (int((in0 + nc).max(initial=0)), int((out0 + no).max(initial=0)),
-            int(last_q[real].max(initial=0)))
+            units.append((run_dx[c0], c1 - c0, run_du[c0], c1 - c0, -1, 0,
+                          1, 0))
+    return pack_jobs(units)
 
 
 def dx_dw_schedule_on(layout, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -270,24 +213,6 @@ def fused_layer_train_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
             apply_activation_derivs_masked(z, cols) * mask)
 
 
-def _unit_tiles(units):
-    """Every tile a unit owns → (real, q, out tile, in tile), one entry per
-    tile: a real unit's (r, c) rectangle (q = its parameter tile), a
-    pass-through run's c-th tile (real False, q < 0)."""
-    u = units.long()
-    in0, nc, out0, no, q0, ld = u[:, :6].unbind(1)
-    real = q0 >= 0
-    n = torch.where(real, no * nc, nc)
-    uid = torch.repeat_interleave(torch.arange(u.shape[0],
-                                               device=u.device), n)
-    start = torch.repeat_interleave(torch.cumsum(n, 0) - n, n)
-    k = torch.arange(uid.shape[0], device=u.device) - start
-    rt = real[uid]
-    r = torch.where(rt, k // nc[uid], k)
-    c = torch.where(rt, k % nc[uid], k)
-    return rt, q0[uid] + r * ld[uid] + c, out0[uid] + r, in0[uid] + c
-
-
 def fused_layer_dx_dw_plain(dy, g, x, wb, units, job_ptr, *, blk: int):
     """→ (dx (B, n_in_tiles·blk), dWB (n_param_blocks, blk, blk)), du =
     dy·g': each real tile (r, c) of a unit adds du_r·W_rc to dx_c and owns
@@ -296,7 +221,7 @@ def fused_layer_dx_dw_plain(dy, g, x, wb, units, job_ptr, *, blk: int):
     b = dy.shape[0]
     du = (dy * g).reshape(b, -1, blk)
     xt = x.reshape(b, -1, blk)
-    rt, q, o_t, i_t = _unit_tiles(units)
+    rt, q, o_t, i_t = unit_tiles(units)
     dx = torch.zeros_like(xt)
     du_r = du[:, o_t[rt]]
     dx.index_add_(1, i_t[rt],
@@ -381,7 +306,8 @@ def fused_layer_train_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
 
 def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
                           s_in, s_w, *, blk: int):
-    """One launch → y (B, n_out_tiles·blk) over int8 tiles."""
+    """One launch → y (B, n_out_tiles·blk) over int8 tiles, walking the
+    CSR's group table (``block_diag.groups_on``)."""
     global int8_launches
     b, n_out = _fwd_args(x, wb_q, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk, w_dtype=torch.int8)
@@ -389,13 +315,15 @@ def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
                          ("wb_scale", wb_scale, torch.float32))
     if wb_scale.shape != (wb_q.shape[0],):
         raise ValueError("fused_layer_int8: one scale per tile")
+    groups = checked_groups("fused_layer_int8", x, wb_q, rowptr, s_in, s_w,
+                            blk)
     fn = _build.function("fused_layer", "fused_layer_infer_i8",
-                         [_P] * 10 + [_I] * 4 + [_P])
+                         [_P] * 10 + [_I] * 5 + [_P])
     y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
     with torch.cuda.device(x.device):
-        rc = fn(*_ptrs(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
-                       s_in, s_w, y),
-                b, x.shape[1] // blk, n_out, blk,
+        rc = fn(*_ptrs(x, wb_q, wb_scale, b_eff, mask, tile_act, s_in, s_w,
+                       groups, y),
+                b, x.shape[1] // blk, n_out, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer_int8")
     int8_launches += 1

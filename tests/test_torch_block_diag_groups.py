@@ -3,8 +3,8 @@ host rules, on the CPU: each output tile in exactly one group, a group's
 rows reading the same input tiles (or a run of pass-through tiles), steps
 in CSR order, wide members split; the table kept for the CSR tensors it
 was built from, and the tiles its CSR names refusing another layout's
-tensors; and ``fwd_path``, the vec4 / scalar rule the C entries
-apply.  The kernel itself runs only on the card
+tensors; and ``fwd_path`` (f32 and int8 tiles) and ``dw_path``, the
+vec4 / scalar rules the C entries apply.  The kernel itself runs only on the card
 (tests/test_torch_kernels.py); the plain version it is held to is held to
 the JAX package's kernel in tests/test_torch_unfused.py.
 """
@@ -296,12 +296,13 @@ def test_groups_under_inference_mode():
     np.testing.assert_array_equal(again.numpy(), kept.numpy())
 
 
-def _at(shape, shift: int) -> torch.Tensor:
-    """A float32 tensor whose storage starts ``shift`` floats past a
-    16-byte boundary."""
+def _at(shape, shift: int, dtype=torch.float32) -> torch.Tensor:
+    """A tensor whose storage starts ``shift`` elements past a 16-byte
+    boundary."""
     n = int(np.prod(shape))
-    buf = torch.zeros(n + 8)
-    base = (-buf.data_ptr() // 4) % 4
+    size = torch.empty(0, dtype=dtype).element_size()
+    buf = torch.zeros(n + 64, dtype=dtype)
+    base = (-buf.data_ptr() % 16) // size
     return buf[base + shift:base + shift + n].view(shape)
 
 
@@ -327,6 +328,41 @@ def test_fwd_path_rule(block, shifts, want):
     assert bdk.fwd_path(x, wb, y, g) == want
 
 
+@pytest.mark.parametrize("block,shifts,want", [
+    (8, (0, 0, 0), "vec4"),       # the depth-3 population's block
+    (8, (0, 4, 0), "vec4"),       # wb_q 4 bytes past a 16-byte boundary
+    (128, (0, 12, 0), "vec4"),
+    (8, (0, 2, 0), "scalar"),     # wb_q 2 bytes off: not whole 4-byte pieces
+    (8, (0, 1, 0), "scalar"),
+    (6, (0, 0, 0), "scalar"),     # a tile row of 6 bytes
+    (5, (0, 0, 0), "scalar"),
+    (8, (1, 0, 0), "scalar"),     # x 4 bytes off
+    (8, (0, 0, 3), "scalar"),     # y off
+])
+def test_fwd_path_rule_int8(block, shifts, want):
+    """Over int8 tiles a copy is 4 bytes of a tile row: the block a
+    multiple of 4 and wb_q on a 4-byte boundary, x and y on 16-byte ones."""
+    x = _at((3, 4 * block), shifts[0])
+    wb_q = _at((5, block, block), shifts[1], torch.int8)
+    y = _at((3, 2 * block), shifts[2])
+    assert bdk.fwd_path(x, wb_q, y) == want
+
+
+@pytest.mark.parametrize("block,shifts,want", [
+    (8, (0, 0, 0), "vec4"), (128, (0, 0, 0), "vec4"),
+    (6, (0, 0, 0), "scalar"), (5, (0, 0, 0), "scalar"),
+    (8, (1, 0, 0), "scalar"), (8, (0, 2, 0), "scalar"),
+    (8, (0, 0, 3), "scalar"),
+])
+def test_dw_path_rule(block, shifts, want):
+    """``block_diag_dw``'s 16-byte loads of dy and x and stores of dWB
+    need a block that is a multiple of 4 and each on a 16-byte boundary."""
+    dy = _at((3, 2 * block), shifts[0])
+    x = _at((3, 4 * block), shifts[1])
+    dwb = _at((5, block, block), shifts[2])
+    assert bdk.dw_path(dy, x, dwb) == want
+
+
 def test_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers take CUDA tensors only (the CPU runs the plain
     versions)."""
@@ -342,3 +378,6 @@ def test_wrappers_refuse_cpu_tensors():
         flk.fused_layer_cuda(x, wb, vec, vec, ids, *sched, blk=8)
     with pytest.raises(ValueError, match="must be on"):
         flk.fused_layer_train_cuda(x, wb, vec, vec, ids, *sched, blk=8)
+    with pytest.raises(ValueError, match="must be on"):
+        flk.fused_layer_int8_cuda(x, wb.to(torch.int8), torch.ones(len(wb)),
+                                  vec, vec, ids, *sched, blk=8)

@@ -556,14 +556,21 @@ def test_mid_forward_refuses_another_layouts_groups(dev):
     from repro_torch.kernels import block_diag as bdk
     sched = flk.schedule_on(wide, dev)
     n0, m0 = bdk.fwd_launches, flk.launches
+    wb_q = torch.zeros(small.n_param_blocks + 1, 8, 8, dtype=torch.int8,
+                       device=dev)
+    scale = torch.ones(small.n_param_blocks + 1, device=dev)
+    i0 = flk.int8_launches
     for call in (lambda: bdk.block_diag_fwd_cuda(x, wb, *sched, blk=8),
                  lambda: flk.fused_layer_cuda(x, wb, vec, vec, ids, *sched,
                                               blk=8),
                  lambda: flk.fused_layer_train_cuda(x, wb, vec, vec, ids,
-                                                    *sched, blk=8)):
+                                                    *sched, blk=8),
+                 lambda: flk.fused_layer_int8_cuda(x, wb_q, scale, vec, vec,
+                                                   ids, *sched, blk=8)):
         with pytest.raises(ValueError, match="another layout"):
             call()
-    assert (bdk.fwd_launches, flk.launches) == (n0, m0)
+    assert (bdk.fwd_launches, flk.launches, flk.int8_launches) == (n0, m0,
+                                                                    i0)
 
 
 @pytest.mark.parametrize("change", ["other_s_w", "s_w_in_place", "planted"])
@@ -610,8 +617,26 @@ def test_mid_forward_follows_the_csr_it_is_given(dev, change):
 def test_dx_dw_packing_matches_the_kernels_stages(dev):
     """The packing constants ``dx_dw_units`` cuts by are the kernel's
     stage shapes."""
-    assert flk.kernel_stages() == (flk.TEAM_COLS, flk.WARP_OUT,
-                                   flk.WARP_COLS, flk.WARP_JOB)
+    from repro_torch.kernels import block_diag as bdk
+    assert flk.kernel_stages() == (bdk.TEAM_COLS, bdk.WARP_OUT,
+                                   bdk.WARP_COLS, bdk.WARP_JOB)
+
+
+def test_block_diag_dw_refuses_another_layouts_tiles(dev):
+    """Tile lists of a wider layout would send the dW kernel past dy and
+    x: the wrapper refuses them before any launch."""
+    from repro_torch.kernels import block_diag as bdk
+    small = LayeredPopulation(5, 3, ((24,), (13, 5)), ("relu", "tanh"),
+                              block=8).bd_layout(0)
+    wide = LayeredPopulation(5, 3, ((512, 384), (13, 5)), ("relu", "tanh"),
+                             block=8).bd_layout(0)
+    x = torch.zeros(4, small.n_in_tiles * 8, device=dev)
+    dy = torch.zeros(4, small.n_out_tiles * 8, device=dev)
+    out_t, in_t = flk.schedule_on(wide, dev, transposed=True)[4:]
+    n0 = bdk.dw_launches
+    with pytest.raises(ValueError, match="block_diag_dw: the units reach"):
+        bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=8)
+    assert bdk.dw_launches == n0
 
 
 def test_fused_layer_dx_dw_refuses_another_layouts_units(dev):
@@ -782,18 +807,33 @@ def test_fused_input_int8_matches_plain(dev, b, f, block, n_blocks, shift):
         assert torch.equal(got, y32)
 
 
-@pytest.mark.parametrize("widths,block,b", _TRAIN_GRID)
-def test_fused_layer_int8_matches_plain(dev, widths, block, b):
+@pytest.mark.parametrize("widths,block,b,shift", _MID_GRID + [
+    # x on a 16-byte boundary, wb_q 4 bytes past one: the vec4 instance
+    (((64, 32, 16), (13, 5), (7,)) * 4, 8, 32, 4),
+    # block 12: a 32-deep chunk starts inside a tile row and crosses its
+    # end; block 4: four tiles a group row
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 12, 33, 0),
+    (((40, 20), (17, 33, 9), (7,)), 4, 9, 0)])
+def test_fused_layer_int8_matches_plain(dev, widths, block, b, shift):
     """Pass-through steps on the appended identity tile (scale 1.0), every
-    tile its own scale, block 8 to 128, batches off the tile."""
+    tile its own scale, blocks 5 to 128, batches off the tile, storage off
+    a 16-byte boundary: on the group kernel's instance ``fwd_path`` names
+    for the int8 tiles (the kernel ``torch.profiler`` saw run); two
+    launches bitwise equal, and bitwise the f32 group kernel on the
+    dequantized tiles where both take the same instance."""
+    from repro_torch.kernels import block_diag as bdk
     acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
     lp = LayeredPopulation(5, 3, widths, acts, block=block)
     rng = np.random.default_rng(b + 2)
+    word = "fused_layer_i8_group_kernel"
     for l in range(lp.depth - 1):
         lay = lp.bd_layout(l)
         pout = lp.layer_pop(l + 1)
-        x = _t(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev)
-        wb_q = _int8(rng, (lay.n_param_blocks + 1, block, block), dev)
+        x = _shifted(rng.normal(0, 1, (b, lay.n_in_tiles * block))
+                     .astype(np.float32), shift, dev)
+        wb_q = _shifted(rng.integers(-127, 128, (lay.n_param_blocks + 1,
+                                                 block, block))
+                        .astype(np.int8), shift, dev)
         wb_q[-1] = torch.eye(block, device=dev, dtype=torch.int8)
         wb_s = _scales(rng, lay.n_param_blocks + 1, dev)
         wb_s[-1] = 1.0
@@ -803,9 +843,19 @@ def test_fused_layer_int8_matches_plain(dev, widths, block, b):
         sched = flk.schedule_on(lay, dev)
         args = (x, wb_q, wb_s, b_eff, mask, acts_t, *sched)
         n0 = flk.int8_launches
-        got = flk.fused_layer_int8_cuda(*args, blk=block)
+        got, ran = _kernels_run(
+            lambda: flk.fused_layer_int8_cuda(*args, blk=block), word)
         assert flk.int8_launches == n0 + 1
+        path = bdk.fwd_path(x, wb_q, got)
+        assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                        else "scalar")
+        _group_instance(ran, path, word)
         _close(got, flk.fused_layer_int8_plain(*_f64(*args), blk=block))
+        assert torch.equal(got, flk.fused_layer_int8_cuda(*args, blk=block))
+        wdq = wb_q.float() * wb_s[:, None, None]
+        y32 = flk.fused_layer_cuda(x, wdq, *args[3:], blk=block)
+        if bdk.fwd_path(x, wdq, y32) == path:
+            assert torch.equal(got.view(torch.int32), y32.view(torch.int32))
 
 
 @pytest.mark.parametrize("log_probs", [False, True])
@@ -969,12 +1019,29 @@ def test_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b, shift):
         _close(dh, bdk.block_diag_fwd_plain(*_f64(*dh_args), blk=block))
         assert torch.equal(dh, bdk.block_diag_fwd_cuda(*dh_args, blk=block))
         m0 = bdk.dw_launches
-        dwb = bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=block)
+        dwb, ran = _kernels_run(
+            lambda: bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=block),
+            "block_diag_dw_member_kernel")
         assert bdk.dw_launches == m0 + 1
+        assert len(ran) == 1 and ("block_diag_dw_member_kernel<%d>" % (
+            4 if bdk.dw_path(dy, x, dwb) == "vec4" else 1)) in ran[0], ran
         _close(dwb, bdk.block_diag_dw_plain(*_f64(dy, x, out_t, in_t),
                                             blk=block))
         assert torch.equal(dwb, bdk.block_diag_dw_cuda(dy, x, out_t, in_t,
                                                        blk=block))
+        if b > 32:  # the sums of 32-row chunks, added in order, in f32
+            chunked = torch.zeros_like(dwb)
+            for b0 in range(0, b, 32):
+                chunked += bdk.block_diag_dw_plain(
+                    dy[b0:b0 + 32], x[b0:b0 + 32], out_t, in_t, blk=block)
+            _close(dwb, chunked)
+        # the tiles in a shuffled list: no rectangle, every tile alone, each
+        # tile's sum the same chain
+        perm = torch.from_numpy(rng.permutation(out_t.shape[0])).to(dev)
+        dwb_s = bdk.block_diag_dw_cuda(dy, x, out_t[perm].contiguous(),
+                                       in_t[perm].contiguous(), blk=block)
+        assert torch.equal(dwb_s.view(torch.int32),
+                           dwb[perm].view(torch.int32))
 
 
 def test_unfused_route_on_card_matches_cpu(dev):

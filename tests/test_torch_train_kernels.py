@@ -25,6 +25,7 @@ from repro.core.population import LayeredPopulation as JLayered
 from repro.kernels import ops as jops
 from repro_torch.core import activations as tact
 from repro_torch.core.population import LayeredPopulation as TLayered
+from repro_torch.kernels import block_diag as bdk
 from repro_torch.kernels import fused_input as fik
 from repro_torch.kernels import fused_layer as flk
 from repro_torch.kernels import infer_head as ihk
@@ -272,7 +273,7 @@ def test_dx_dw_units_cover_each_output_once(widths, block, l):
             assert no == nc and warp == 1
             pass_tiles.update(range(in0, in0 + nc))
             continue
-        assert nc * block <= max(block, flk.TEAM_COLS)
+        assert nc * block <= max(block, bdk.TEAM_COLS)
         r, c = np.divmod(np.arange(no * nc), nc)
         q_all = q + r * ld + c
         dw_cover[q_all] += 1
@@ -288,7 +289,7 @@ def test_dx_dw_units_cover_each_output_once(widths, block, l):
     for lo, hi in zip(ptr[:-1], ptr[1:]):
         kinds = set(units[lo:hi, 6].tolist())
         assert len(kinds) == 1
-        assert hi - lo == 1 if kinds == {0} else 1 <= hi - lo <= flk.WARP_JOB
+        assert hi - lo == 1 if kinds == {0} else 1 <= hi - lo <= bdk.WARP_JOB
     assert np.all(np.diff(units[:, 6]) <= 0)           # warp jobs first
     if widths[0] == (512, 384):
         assert (units[:, 4] >= 0).sum() > 3     # the wide member was split
@@ -306,7 +307,7 @@ def test_dx_dw_units_reach_ties_them_to_their_layout(widths, block):
                   block=block)
     lay = lp.bd_layout(0)
     units, ptr = flk.dx_dw_schedule_on(lay, "cpu")
-    n_in, n_out, n_param = flk.units_reach(units.numpy(), ptr.numpy())
+    n_in, n_out, n_param = bdk.units_reach(units.numpy(), ptr.numpy())
     assert (n_in, n_param) == (lay.n_in_tiles, lay.n_param_blocks)
     assert n_out <= lay.n_out_tiles
     assert units.dx_dw_reach == (n_in, n_out, n_param)
@@ -324,9 +325,9 @@ def test_dx_dw_units_reach_ties_them_to_their_layout(widths, block):
     bad = units.numpy().copy()
     bad[0, 1] = 0                                   # a unit of no columns
     with pytest.raises(ValueError, match="not a units table"):
-        flk.units_reach(bad, ptr.numpy())
+        bdk.units_reach(bad, ptr.numpy())
     with pytest.raises(ValueError, match="not a units table"):
-        flk.units_reach(units.numpy(), ptr.numpy()[::-1])
+        bdk.units_reach(units.numpy(), ptr.numpy()[::-1])
 
 
 def test_transposed_csr_rows_are_the_transposed_runs():
