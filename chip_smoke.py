@@ -6,13 +6,14 @@ calls.
     python3 chip_smoke.py [--parent DIR]
 
 ``--parent DIR`` (another checkout, e.g. the parent commit's ``git
-archive``) also holds the f32 ``infer_head`` and ``loss_head_fwd`` outputs
-bitwise to that tree's kernels at both heads' shapes, the input layer's
+archive``) also holds the ``infer_head`` (f32 and int8), ``loss_head_fwd``
+and ``loss_head_bwd`` outputs bitwise to that tree's kernels at both heads'
+shapes, the M3 dW at path 4d's, the input layer's
 (``fused_input`` y, its training launch's y and g', ``fused_input_int8``
 y) at both input-layer shapes, and the mid layers' (``fused_layer`` y and
 y, g', ``fused_layer_int8`` y, ``block_diag_fwd`` y and dh,
 ``block_diag_dw`` dWB) at both depth-3 mid layers, timing the parent's
-mid-layer kernels beside them (phase 8).
+mid-layer kernels and M3 forward and dW beside them (phase 8).
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -81,8 +82,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      ``block_diag_dw`` ×(depth−1) and matches the fused step from the same
      state; then the steady-state step timed (host wall per synchronised
      step; device time by kernel and the device's idle share from
-     ``torch.profiler``), the depth-3 step fused and unfused in turns
-     (fused, unfused, unfused, fused), and the single-layer step with
+     ``torch.profiler``), the depth-3 step fused, unfused and unfused
+     with the M3 head (path 4e) in turns (fused, unfused, M3, M3, unfused,
+     fused), and the single-layer step with
      ``m3_impl`` pallas and bucketed in turns (pallas, bucketed, bucketed,
      pallas);
   6. the JAX package's kernel API (``ops.flash_attention``,
@@ -139,8 +141,19 @@ Phases (any failure exits non-zero, and no result line is printed):
      its device time and the whole function in PyTorch calls (dy·g', the
      transposed BSR matmul, a bmm on tiles gathered in the timed call:
      ``library_full_*``; ``library_ms`` stays the dx-only BSR matmul);
-     ``m3_matmul_dh`` its device time at both shapes (``device_ms``,
-     ``path_b_device_ms``); ``fused_layer`` and ``block_diag_fwd`` (the
+     the three ``m3_matmul`` rows their device times at both shapes
+     (``device_ms``, ``path_b_device_ms``), two launches on the same inputs
+     bitwise equal at both, and at path 4e's head (members 8 and 16
+     units wide) a CSR library call each (``path_b_library_ms``, its
+     device time ``path_b_library_device_ms``, its result held to the
+     plain version: ``torch.matmul`` on w2 laid out beforehand as a
+     CSR matrix for the forward and dh, ``torch.sparse.sampled_addmm`` on
+     its pattern for dW); the forward and dW (on the heads'
+     cores) each launch's instance (``path``, ``path_b_path``, by
+     ``kernel_path``) and whether they are bitwise ``infer_head``'s logits
+     with a zero bias and ``loss_head_bwd``'s dW with d_per ones
+     (``bitwise_*``, required where both take one instance), and all three
+     their ptxas report; ``fused_layer`` and ``block_diag_fwd`` (the
      group core) their device times (``device_ms``, and
      ``train_device_ms`` or the dh pass's ``dh_device_ms``), each launch's
      instance (``path``, ``train_path``, ``dh_path``, by
@@ -159,15 +172,16 @@ Phases (any failure exits non-zero, and no result line is printed):
      bitwise the f32 kernel on the dequantized weight
      (``bitwise_f32_dequantized``, required where both take the same
      instance); these rows, and ``infer_head``, their kernels' ptxas
-     report; ``fused_layer_dx_dw``, ``m3_matmul_dh`` and ``fused_input_bwd``
-     (with and without dx) two launches on the same inputs bitwise equal;
-     with ``--parent``, the f32 ``infer_head`` (logits and
-     log-probabilities) and ``loss_head_fwd`` bitwise the other tree's
-     kernels at both shapes, ``fused_input`` (y; y and g') and
+     report; ``fused_layer_dx_dw`` and ``fused_input_bwd`` (with and
+     without dx) two launches on the same inputs bitwise equal; with
+     ``--parent``, ``infer_head`` (f32 and int8, logits and
+     log-probabilities), ``loss_head_fwd`` and ``loss_head_bwd`` (dh, dW)
+     bitwise the other tree's kernels at both shapes, the M3 dW at path
+     4d's, ``fused_input`` (y; y and g') and
      ``fused_input_int8`` at both input-layer shapes, and ``fused_layer``
      (y; y and g'), ``fused_layer_int8``, ``block_diag_fwd`` (y and dh)
      and ``block_diag_dw`` at both depth-3 mid layers, with the parent's
-     device times of rows 4, 5, 11 and 12 (``parent_*device_ms``);
+     device times of rows 4, 5, 11, 12, 13 and 15 (``parent_*device_ms``);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -309,10 +323,11 @@ def _device_ms(fn, kernel: str, iters: int = 20) -> float:
     """Mean device time of one launch of the kernel named ``kernel`` over
     ``iters`` calls of ``fn``, after warm-up, from ``torch.profiler`` (at a
     small shape the CUDA-event time of back-to-back calls is the host's
-    time to launch); the profiler must see every launch.  Also
-    printed: the least time from a launch's host call to its kernel's
-    start on the device (``lag``), below 0 where the profiler's device and
-    host clocks disagree."""
+    time to launch); the profiler must see every launch.  ``kernel`` ""
+    takes all that one call runs on the card (a library call may launch
+    several kernels, fills and copies).  Also printed: the least time from
+    a launch's host call to its kernel's start on the device (``lag``),
+    below 0 where the profiler's device and host clocks disagree."""
     import torch
     for _ in range(3):
         fn()
@@ -333,8 +348,9 @@ def _device_ms(fn, kernel: str, iters: int = 20) -> float:
           f"seen; lag from launch call to kernel start "
           f"{min(lags, default=float('nan')) / 1e3!r} us (least)",
           flush=True)
-    _require(len(evts) == iters, f"the profiler saw {len(evts)} "
-             f"{kernel} launches in {iters} calls")
+    _require(len(evts) == iters or (not kernel and len(evts) > iters),
+             f"the profiler saw {len(evts)} {kernel} launches in {iters} "
+             "calls")
     return sum(e.device_time_total for e in evts) / iters / 1e3
 
 
@@ -892,20 +908,24 @@ KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
                   "loss_head_bwd_kernel", "block_diag_group_kernel",
                   "block_diag_dw_member_kernel", "seg_act_fwd_kernel",
-                  "seg_act_bwd_kernel", "m3_fwd_kernel", "m3_dh_kernel",
-                  "m3_dw_kernel")
+                  "seg_act_bwd_kernel", "m3_fwd_stream_kernel",
+                  "m3_dh_kernel", "m3_dw_stream_kernel")
 
 
 def time_train_step(name, params, lp, x, y, adam: bool,
-                    unfused: bool = False, iters: int = 20):
+                    unfused: bool = False, m3: bool = False,
+                    iters: int = 20):
     """Steady-state train step (the fused route, or with ``unfused`` the
-    unfused one): see ``time_step``."""
+    unfused one, with ``m3`` its head on the M3 kernels too): see
+    ``time_step``."""
     from repro_torch.core.deep import opt_step
     from repro_torch.optim.optimizers import adamw, sgd
     opt = adamw(weight_decay=0.01) if adam else sgd()
     state = opt.init(params)
     route = (dict(bd_impl="pallas", act_impl="pallas") if unfused
              else dict(bd_impl="fused"))
+    if m3:
+        route["m3_impl"] = "pallas"
     kw = dict(route, grad_clip=1.0 if adam else None)
     return time_step(name, lambda: opt_step(params, state, x, y, 1e-2, opt,
                                             lp, **kw), iters)
@@ -1722,7 +1742,7 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                                                   (per, dl), (dh, dw2))):
         rows[key].update(fields)
     if parent_libs:
-        same_as_parent(parent_libs, "parallelmlp-10k", lh, blk)
+        same_as_parent(parent_libs, "parallelmlp-10k", lh, lb, head8, blk)
     for key, fields in _loss_head_fields(
             {"loss_head_fwd": partial(lhk.loss_head_fwd_cuda, *lh, block=blk,
                                       b_real=BATCH),
@@ -1936,7 +1956,8 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     # 128-unit tile) on the layer-0 activations, and at path 4e's head (the
     # depth-3 population's last layer, block 8, 1-2 tiles a member); the
     # library call is the bucketed M3's einsum at block 128 (one size
-    # bucket), used nowhere on the kernels' route
+    # bucket), at path 4e's head a CSR product (members 8 and 16 units
+    # wide: no one dense call), each used nowhere on the kernels' route
     gen3 = torch.Generator(device="cuda").manual_seed(11)
     o = w2.shape[0]
     dy_a = torch.randn(BATCH, n_mem, o, generator=gen3, device=dev)
@@ -1948,57 +1969,74 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     ptr_b = ihk.member_ptr(seg_b, lp3k.num_members)
     dy_b = torch.randn(BATCH, lp3k.num_members, o, generator=gen3,
                        device=dev)
+    blk_b = lp3k.block
+    no_call = ("no single PyTorch call: the members are 8 and 16 units "
+               "wide")
+    csr_b = _m3_csr_library(hin, w2_b, seg_b, dy_b, blk_b)
     _require(tuple(hin.shape) == (BATCH, plast.total_hidden),
              "the depth-3 population's last hidden layer is not the head's "
              "input")
     flops_a = 2 * BATCH * h.shape[1] * o
     flops_b = 2 * BATCH * hin.shape[1] * o
-    # name → ((kernel, plain), args at path 4d, args at path 4e, library);
-    # each function's inputs and output are the same tensors' sizes as its
-    # arguments (y and dy, dh and h, dw2 and w2), which gives its bytes
+    # name → ((kernel, plain), args at path 4d, args at path 4e, library,
+    # outputs at 4d, at 4e, the kernel's name in a trace); each function's
+    # inputs and output are the same tensors' sizes as its arguments (y and
+    # dy, dh and h, dw2 and w2), which gives its bytes
     cases = {
         "m3_matmul_fwd": ((m3k.m3_matmul_fwd_cuda, m3k.m3_matmul_fwd_plain),
                           (h, w2, ptr), (hin, w2_b, ptr_b),
                           partial(torch.einsum, "bnh,onh->bno", hv, wv),
-                          (dy_a,), (dy_b,)),
+                          (dy_a,), (dy_b,), "m3_fwd_stream_kernel"),
         "m3_matmul_dh": ((m3k.m3_matmul_dh_cuda, m3k.m3_matmul_dh_plain),
                          (dy_a, w2, seg), (dy_b, w2_b, seg_b),
                          partial(torch.einsum, "bno,onh->bnh", dy_a, wv),
-                         (h,), (hin,)),
+                         (h,), (hin,), "m3_dh_kernel"),
         "m3_matmul_dw": ((m3k.m3_matmul_dw_cuda, m3k.m3_matmul_dw_plain),
                          (dy_a, h, seg), (dy_b, hin, seg_b),
                          partial(torch.einsum, "bnh,bno->onh", hv, dy_a),
-                         (w2,), (w2_b,)),
+                         (w2,), (w2_b,), "m3_dw_stream_kernel"),
     }
-    for name, ((cuda, plain), args_a, args_b, library, out_a, out_b) in \
-            cases.items():
+    for name, ((cuda, plain), args_a, args_b, library, out_a, out_b,
+               symbol) in cases.items():
+        ka = partial(cuda, *args_a, block=blk)
+        kb = partial(cuda, *args_b, block=blk_b)
         rows[name] = compare(
-            name, partial(cuda, *args_a, block=blk),
-            partial(plain, *args_a, block=blk), library,
+            name, ka, partial(plain, *args_a, block=blk), library,
             _nbytes(*args_a, *out_a), flops_a, m3_n[name], 20)
-        kb = partial(cuda, *args_b, block=lp3k.block)
-        got_b = kb()
         rows[name].update(
             path_b_max_abs_err=_close(
-                f"{name} at path 4e's head: kernel vs plain", got_b,
-                plain(*args_b, block=lp3k.block)),
+                f"{name} at path 4e's head: kernel vs plain", kb(),
+                plain(*args_b, block=blk_b)),
             path_b_ms=_time_ms(kb, 50),
             path_b_bound_ms=_bound_ms(_nbytes(*args_b, *out_b), flops_b)[0])
-        if name == "m3_matmul_dh":
-            # device time beside the events: at path 4e's head the events
-            # time the wrapper's host cost
-            ka = partial(cuda, *args_a, block=blk)
-            _require(torch.equal(ka(), ka()), "m3_matmul_dh: two launches "
-                     "on the same inputs differ")
-            ms = _device_ms(ka, "m3_dh_kernel", 50)
-            ms_b = _device_ms(kb, "m3_dh_kernel", 50)
-            rows[name].update(device_ms=ms, path_b_device_ms=ms_b)
-            print(f"[{name}] device {ms!r} ms; path 4e's head {ms_b!r} ms",
-                  flush=True)
-    dw_a = m3k.m3_matmul_dw_cuda(*cases["m3_matmul_dw"][1], block=blk)
-    _require(torch.equal(dw_a, m3k.m3_matmul_dw_cuda(
-        *cases["m3_matmul_dw"][1], block=blk)),
-        "m3_matmul_dw: two launches on the same inputs differ")
+        lib_b, to_kernel = csr_b[name]
+        rows[name].update(
+            path_b_library_max_abs_err=_close(
+                f"{name} at path 4e's head: CSR library call vs plain",
+                to_kernel(lib_b()), plain(*args_b, block=blk_b)),
+            path_b_library_ms=_time_ms(lib_b, 50),
+            path_b_library_device_ms=_device_ms(lib_b, "", 50),
+            path_b_library=("torch.matmul (CSR)" if name != "m3_matmul_dw"
+                            else "torch.sparse.sampled_addmm (CSR)"))
+        for k in (ka, kb):
+            _require(torch.equal(k(), k()), f"{name}: two launches on the "
+                     "same inputs differ")
+        # device time beside the events: at path 4e's head the events time
+        # the wrapper's host cost
+        ms, ms_b = _device_ms(ka, symbol, 50), _device_ms(kb, symbol, 50)
+        rows[name].update(device_ms=ms, path_b_device_ms=ms_b)
+        print(f"[{name}] device {ms!r} ms; path 4e's head {ms_b!r} ms; two "
+              "launches bitwise equal at both; path 4e's library call "
+              f"{rows[name]['path_b_library_ms']!r} ms, device "
+              f"{rows[name]['path_b_library_device_ms']!r} ms", flush=True)
+    at_a, at_b = (h, w2, ptr, seg, dy_a, blk), (hin, w2_b, ptr_b, seg_b,
+                                                 dy_b, blk_b)
+    for name, fields in _m3_on_heads(at_a, at_b).items():
+        rows[name].update(fields)
+    if parent_libs:
+        for name, fields in same_m3_as_parent(parent_libs, at_a,
+                                              at_b).items():
+            rows[name].update(fields)
 
     # ---- loss_head at the depth-3 population's head (block 8, members 8
     # or 16 units wide), on its last hidden layer: extra fields of the two
@@ -2007,12 +2045,9 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     tgt_b = torch.randint(0, o, (BATCH,), generator=gen_lh, device=dev,
                           dtype=torch.int32)
     lh_b = (hin, w2_b, p3k["b_out"], tgt_b, ptr_b)
-    blk_b = lp3k.block
     per_b, dl_b = lhk.loss_head_fwd_cuda(*lh_b, block=blk_b, b_real=BATCH)
     lb_b = (torch.ones(lp3k.num_members, device=dev), dl_b, hin, w2_b, seg_b)
     dh_b, dw_b = lhk.loss_head_bwd_cuda(*lb_b, block=blk_b)
-    no_call = ("no single PyTorch call: the members are 8 and 16 units "
-               "wide")
     kernels = {"loss_head_fwd": partial(lhk.loss_head_fwd_cuda, *lh_b,
                                         block=blk_b, b_real=BATCH),
                "loss_head_bwd": partial(lhk.loss_head_bwd_cuda, *lb_b,
@@ -2045,8 +2080,6 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     row.update(_infer_head_fields(partial(ihk.infer_head_cuda, *ih_b,
                                           block=blk_b), blk_b, hin, w2_b))
     rows["infer_head"].update(_prefixed("depth3", row))
-    if parent_libs:
-        same_as_parent(parent_libs, "the depth-3 head", lh_b, blk_b)
 
     # ---- infer_head_int8 at the same head, the int8 serving forward's last
     # launch, on the int8 path's last hidden layer
@@ -2063,6 +2096,9 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         ihk.infer_head_int8_plain(*ih8_b, block=blk_b, log_probs=True))
     row.update(_infer_head_int8_fields(ih8_b, blk_b))
     rows["infer_head_int8"].update(_prefixed("depth3", row))
+    if parent_libs:
+        same_as_parent(parent_libs, "the depth-3 head", lh_b, lb_b, ih8_b,
+                       blk_b)
     return rows
 
 
@@ -2291,10 +2327,10 @@ def _infer_head_int8_fields(args, block):
 
 def parent_libs(parent: Path) -> dict:
     """``--parent``: the ``infer_head``, ``loss_head``, ``fused_input``,
-    ``block_diag`` and ``fused_layer`` kernel libraries of another checkout
-    of the repository, built by that
-    tree's own ``_build.build_all`` in a subprocess (at once where that
-    tree's own run has built them): {name: ctypes.CDLL}."""
+    ``block_diag``, ``fused_layer`` and ``m3_matmul`` kernel libraries of
+    another checkout of the repository, built by that tree's own
+    ``_build.build_all`` in a subprocess (at once where that tree's own run
+    has built them): {name: ctypes.CDLL}."""
     import ctypes
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from repro_torch.kernels import _build; "
@@ -2305,16 +2341,19 @@ def parent_libs(parent: Path) -> dict:
                          timeout=600)
     paths = json.loads(out.stdout.strip().splitlines()[-1])
     names = ("infer_head", "loss_head", "fused_input", "block_diag",
-             "fused_layer")
+             "fused_layer", "m3_matmul")
     print(f"--parent {parent}: {[paths[k] for k in names]}", flush=True)
     return {k: ctypes.CDLL(paths[k]) for k in names}
 
 
-def same_as_parent(libs, name, lh, block):
-    """The f32 ``infer_head`` (logits and log-probabilities) and
-    ``loss_head_fwd`` outputs of this tree's kernels on ``lh`` = (h, w2,
-    b2, targets, member_ptr) against the C entries of ``libs``
-    (``parent_libs``), which keep their signatures: bitwise, or fail."""
+def same_as_parent(libs, name, lh, lb, ih8, block):
+    """The f32 ``infer_head`` (logits and log-probabilities),
+    ``loss_head_fwd``, ``loss_head_bwd`` (dh and dW) and ``infer_head_int8``
+    (logits and log-probabilities) outputs of this tree's kernels on ``lh``
+    = (h, w2, b2, targets, member_ptr), ``lb`` = (d_per, dl, h, w2,
+    block_seg) and ``ih8`` = (h, w2_q, w2_scale, b2, member_ptr) against the
+    C entries of ``libs`` (``parent_libs``), which keep their signatures:
+    bitwise, or fail."""
     import ctypes
 
     import torch
@@ -2328,8 +2367,12 @@ def same_as_parent(libs, name, lh, block):
     stream = torch.cuda.current_stream().cuda_stream
     ih = libs["infer_head"].infer_head_f32
     ih.argtypes, ih.restype = [P] * 5 + [I] * 6 + [P], I
+    i8 = libs["infer_head"].infer_head_i8
+    i8.argtypes, i8.restype = [P] * 6 + [I] * 6 + [P], I
     lf = libs["loss_head"].loss_head_fwd_f32
     lf.argtypes, lf.restype = [P] * 7 + [I] * 5 + [F, P], I
+    lbw = libs["loss_head"].loss_head_bwd_f32
+    lbw.argtypes, lbw.restype = [P] * 7 + [I] * 5 + [P], I
     for lp in (0, 1):
         y = torch.empty(b, p, o, device=h.device)
         _require(ih(h.data_ptr(), w2.data_ptr(), b2.data_ptr(),
@@ -2338,6 +2381,13 @@ def same_as_parent(libs, name, lh, block):
         _require(torch.equal(y, ihk.infer_head_cuda(
             h, w2, b2, ptr, block=block, log_probs=bool(lp))),
             f"infer_head at {name} (log_probs {lp}): not bitwise the "
+            "parent's")
+        _require(i8(*[t.data_ptr() for t in ih8], y.data_ptr(), b, hh, o, p,
+                    block, lp, stream) == 0,
+                 "the parent's infer_head_i8 failed")
+        _require(_same_bits(y, ihk.infer_head_int8_cuda(
+            *ih8, block=block, log_probs=bool(lp))),
+            f"infer_head_int8 at {name} (log_probs {lp}): not bitwise the "
             "parent's")
     per = torch.empty(p, device=h.device)
     dl = torch.empty(b, p, o, device=h.device)
@@ -2348,8 +2398,144 @@ def same_as_parent(libs, name, lh, block):
     got = lhk.loss_head_fwd_cuda(*lh, block=block, b_real=b)
     _require(torch.equal(per, got[0]) and torch.equal(dl, got[1]),
              f"loss_head_fwd at {name}: not bitwise the parent's")
-    print(f"[{name}] infer_head (logits, log-probs) and loss_head_fwd "
-          "bitwise the parent's", flush=True)
+    dh, dw = torch.empty(b, hh, device=h.device), torch.empty_like(w2)
+    _require(lbw(*[t.data_ptr() for t in lb], dh.data_ptr(), dw.data_ptr(),
+                 b, hh, o, p, block, stream) == 0,
+             "the parent's loss_head_bwd_f32 failed")
+    got = lhk.loss_head_bwd_cuda(*lb, block=block)
+    _require(_same_bits(dh, got[0]) and _same_bits(dw, got[1]),
+             f"loss_head_bwd at {name}: not bitwise the parent's")
+    print(f"[{name}] infer_head (logits, log-probs), infer_head_int8 (the "
+          "same), loss_head_fwd and loss_head_bwd (dh, dW) bitwise the "
+          "parent's", flush=True)
+
+
+def _m3_csr_library(h, w2, seg, dy, block):
+    """One PyTorch call for each M3 function at a shape whose members no
+    single dense call covers (path 4e's head: 8 and 16 units wide), on
+    w2 laid out beforehand as a CSR matrix (a row a (member, class), a
+    column a unit; nothing of the layout timed): the forward and dh are
+    cuSPARSE products, dW the sampled product on the same pattern.  Returns
+    {row: (call, its output in the kernel's layout)}; each call's result is
+    in the CSR's transposed layout, which ``to_kernel`` undoes."""
+    import warnings
+
+    import torch
+    warnings.filterwarnings("ignore", "Sparse CSR tensor support")
+    warnings.filterwarnings("ignore", "Sparse invariant checks")
+    b, p, o = dy.shape
+    hh = h.shape[1]
+    unit = seg.long().repeat_interleave(block)
+    j = torch.arange(hh, device=h.device).repeat(o)
+    row = unit[j] * o + torch.arange(o, device=h.device).repeat_interleave(hh)
+    vals = w2.reshape(-1)
+
+    def csr(idx, shape, v):
+        return torch.sparse_coo_tensor(idx, v, shape).coalesce() \
+            .to_sparse_csr()
+    wt = csr(torch.stack([row, j]), (p * o, hh), vals)     # (P·O, H)
+    w = csr(torch.stack([j, row]), (hh, p * o), vals)      # (H, P·O)
+    pattern = torch.sparse_csr_tensor(
+        wt.crow_indices(), wt.col_indices(), torch.zeros_like(wt.values()),
+        wt.shape)
+    ht = h.t().contiguous()
+    dyt = dy.reshape(b, p * o).t().contiguous()
+
+    def dw_dense(d):
+        r = torch.repeat_interleave(torch.arange(p * o, device=h.device),
+                                    d.crow_indices().diff())
+        out = torch.zeros(o, hh, device=h.device)
+        out[r % o, d.col_indices()] = d.values()
+        return out
+    return {
+        "m3_matmul_fwd": (partial(torch.matmul, wt, ht),
+                          lambda y: y.t().reshape(b, p, o)),
+        "m3_matmul_dh": (partial(torch.matmul, w, dyt), lambda d: d.t()),
+        "m3_matmul_dw": (partial(torch.sparse.sampled_addmm, pattern, dyt, h,
+                                 beta=0.0), dw_dense)}
+
+
+def _m3_on_heads(at_a, at_b):
+    """Rows 13 and 15 on the heads' cores, at path 4d (``at_a``) and path
+    4e's head (``at_b``), each (h, w2, member_ptr, block_seg, dy, block):
+    the instance each launch takes (``path``, ``path_b_path``, by
+    ``m3_matmul.kernel_path``), and the outputs bit for bit the heads'
+    kernels' where both take one instance — the forward ``infer_head``'s
+    logits with a zero bias (``bitwise_infer_head``), dW ``loss_head_bwd``'s
+    dW with d_per ones (``bitwise_loss_head_bwd``; None where the
+    instances differ) — or fail.  Returns {row: fields}."""
+    import torch
+
+    from repro_torch.kernels import infer_head as ihk
+    from repro_torch.kernels import loss_head as lhk
+    from repro_torch.kernels import m3_matmul as m3k
+    out = {"m3_matmul_fwd": {}, "m3_matmul_dw": {}}
+    for pre, (h, w2, ptr, seg, dy, block) in (("", at_a), ("path_b_", at_b)):
+        p, o = ptr.shape[0] - 1, w2.shape[0]
+        y = m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=block)
+        dw = m3k.m3_matmul_dw_cuda(dy, h, seg, block=block)
+        fwd_path = m3k.kernel_path(block, h, w2)
+        dw_path = m3k.kernel_path(block, h, dw)
+        _require(ihk.kernel_path(block, h, w2) == fwd_path
+                 and torch.equal(y, ihk.infer_head_cuda(
+                     h, w2, torch.zeros(p, o, device=h.device), ptr,
+                     block=block)),
+                 f"m3_matmul_fwd at block {block}: not bitwise infer_head's "
+                 "zero-bias logits")
+        dh_l, dw_l = lhk.loss_head_bwd_cuda(torch.ones(p, device=h.device),
+                                            dy, h, w2, seg, block=block)
+        same = None
+        if lhk.kernel_path(block, h, w2, dh_l, dw_l) == dw_path:
+            same = torch.equal(dw, dw_l)
+            _require(same, f"m3_matmul_dw at block {block}: not bitwise "
+                     "loss_head_bwd's dW with d_per ones")
+        out["m3_matmul_fwd"].update({f"{pre}path": fwd_path,
+                                     f"{pre}bitwise_infer_head": True})
+        out["m3_matmul_dw"].update({f"{pre}path": dw_path,
+                                    f"{pre}bitwise_loss_head_bwd": same})
+    print(f"[m3_matmul on the heads' cores] {out}", flush=True)
+    return out
+
+
+def same_m3_as_parent(libs, at_a, at_b):
+    """The parent's M3 forward and dW through its C entries ``m3_fwd_f32``
+    and ``m3_dw_f32`` (their signatures unchanged) at path 4d (``at_a``)
+    and path 4e's head (``at_b``), each (h, w2, member_ptr, block_seg, dy,
+    block): dW at path 4d bitwise this tree's (one lane there: the same
+    chain over the rows), or fail; and their device times from
+    ``torch.profiler`` as {row: {parent_device_ms,
+    parent_path_b_device_ms}}."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import m3_matmul as m3k
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fwd, dw = libs["m3_matmul"].m3_fwd_f32, libs["m3_matmul"].m3_dw_f32
+    for fn in (fwd, dw):
+        fn.argtypes, fn.restype = [P] * 4 + [I, L, I, I, I, P], I
+    stream = torch.cuda.current_stream().cuda_stream
+    out = {"m3_matmul_fwd": {}, "m3_matmul_dw": {}}
+    for key, (h, w2, ptr, seg, dy, block) in (
+            ("parent_device_ms", at_a), ("parent_path_b_device_ms", at_b)):
+        b, hh = h.shape
+        o, p = w2.shape[0], ptr.shape[0] - 1
+        y, dwp = torch.empty(b, p, o, device=h.device), torch.empty_like(w2)
+        run_fwd = partial(fwd, h.data_ptr(), w2.data_ptr(), ptr.data_ptr(),
+                          y.data_ptr(), b, hh, o, p, block, stream)
+        run_dw = partial(dw, h.data_ptr(), dy.data_ptr(), seg.data_ptr(),
+                         dwp.data_ptr(), b, hh, o, p, block, stream)
+        _require(run_fwd() == 0 and run_dw() == 0,
+                 "the parent's m3_fwd_f32 or m3_dw_f32 failed")
+        if key == "parent_device_ms":
+            _require(_same_bits(dwp, m3k.m3_matmul_dw_cuda(dy, h, seg,
+                                                           block=block)),
+                     "m3_matmul_dw at path 4d: not bitwise the parent's")
+        out["m3_matmul_fwd"][key] = _device_ms(run_fwd, "m3_fwd", 50)
+        out["m3_matmul_dw"][key] = _device_ms(run_dw, "m3_dw", 50)
+    print(f"[m3_matmul] dW at path 4d bitwise the parent's; the parent's "
+          f"device times {out}", flush=True)
+    return out
 
 
 def _same_bits(a, b) -> bool:
@@ -2405,11 +2591,11 @@ def same_input_as_parent(libs, name, fin, fin8, block):
 def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
     """A mid layer's outputs of this tree's kernels against the C entries of
     ``libs`` (``parent_libs``), called with their own signatures: the
-    forward's group-table entries (x, wb, [b_eff, mask, tile_act,] s_in,
-    s_w, groups, y, …), ``fused_layer_infer_i8``'s CSR one (x, wb_q,
-    wb_scale, b_eff, mask, tile_act, rowptr, s_in, s_w, y, …) and
-    ``block_diag_dw_f32``'s tile lists (dy, x, wb_out_tile, wb_in_tile,
-    dwb, …).  ``fused_layer`` y and (y, g') and ``block_diag_fwd`` y on
+    forward's group-table entries (x, wb or wb_q and wb_scale, [b_eff,
+    mask, tile_act,] s_in, s_w, groups, y, …) and ``block_diag_dw_f32``'s
+    member units (dy, x, units, job_ptr, dwb, …; the tables of
+    ``block_diag.checked_dw_units``).  ``fused_layer`` y and (y, g') and
+    ``block_diag_fwd`` y on
     args = (x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w), its dh on
     dh_args = (dy, wb_t, rowptr_t, s_in_t, s_w_t), ``fused_layer_int8`` y
     on args8 = (x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in,
@@ -2430,7 +2616,7 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
                   fl.fused_layer_infer_i8)
     fi.argtypes, fi.restype = [P] * 9 + [I] * 5 + [P], I
     ft.argtypes, ft.restype = [P] * 10 + [I] * 5 + [P], I
-    f8.argtypes, f8.restype = [P] * 10 + [I] * 4 + [P], I
+    f8.argtypes, f8.restype = [P] * 10 + [I] * 5 + [P], I
     bf, bw = bd.block_diag_fwd_f32, bd.block_diag_dw_f32
     bf.argtypes, bf.restype = [P] * 6 + [I] * 5 + [P], I
     bw.argtypes, bw.restype = [P] * 5 + [I] * 5 + [P], I
@@ -2459,9 +2645,11 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
         return ft(*ptr, y.data_ptr(), g.data_ptr(), b, n_in, n_out, block,
                   groups.shape[0], stream)
 
+    i8_ptr = [t.data_ptr() for t in (*args8[:6], *args8[7:], groups)]
+
     def int8():
-        return f8(*[t.data_ptr() for t in args8], y.data_ptr(), b, n_in,
-                  n_out, block, stream)
+        return f8(*i8_ptr, y.data_ptr(), b, n_in, n_out, block,
+                  groups.shape[0], stream)
 
     def fwd():
         return bf(*bd_ptr, y.data_ptr(), b, n_in, n_out, block,
@@ -2471,10 +2659,18 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
         return bf(*dh_ptr, dh.data_ptr(), b, dy.shape[1] // block, n_rows_t,
                   block, groups_t.shape[0], stream)
 
-    def dw():
-        return bw(*[t.data_ptr() for t in dw_args], dwb.data_ptr(), b,
-                  dy.shape[1] // block, x.shape[1] // block, out_t.shape[0],
-                  block, stream)
+    def dw_call(dy_, x_):
+        """The parent's dW of dy_ and x_ over the tiles of dw_args."""
+        units, jobs = bdk.checked_dw_units(dy_, x_, *dw_args[2:], block)
+
+        def call():
+            return bw(dy_.data_ptr(), x_.data_ptr(), units.data_ptr(),
+                      jobs.data_ptr(), dwb.data_ptr(), dy_.shape[0],
+                      dy_.shape[1] // block, x_.shape[1] // block, block,
+                      jobs.shape[0] - 1, stream)
+        return call
+
+    dw = dw_call(*dw_args[:2])
 
     _require(serve() == 0, "the parent's fused_layer_infer_f32 failed")
     _require(_same_bits(y, flk.fused_layer_cuda(*args, blk=block)),
@@ -2502,9 +2698,7 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
     dw300 = tuple(torch.randn(300, t.shape[1], device=x.device,
                               generator=gen) for t in dw_args[:2])
     dw300 += tuple(dw_args[2:])
-    _require(bw(*[t.data_ptr() for t in dw300], dwb.data_ptr(), 300,
-                dw300[0].shape[1] // block, dw300[1].shape[1] // block,
-                out_t.shape[0], block, stream) == 0,
+    _require(dw_call(*dw300[:2])() == 0,
              "the parent's block_diag_dw_f32 (B = 300) failed")
     _require(_same_bits(dwb, bdk.block_diag_dw_cuda(*dw300, blk=block)),
              f"block_diag_dw at {name}, B = 300: not bitwise the parent's")
@@ -2514,16 +2708,16 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
                "parent_train_device_ms": _device_ms(
                    train, "fused_layer_group_kernel", 50)},
            "fused_layer_int8": {
-               "parent_device_ms": _device_ms(int8, "fused_layer_i8_kernel",
-                                              50)},
+               "parent_device_ms": _device_ms(
+                   int8, "fused_layer_i8_group_kernel", 50)},
            "block_diag_fwd": {
                "parent_device_ms": _device_ms(fwd, "block_diag_group_kernel",
                                               50),
                "parent_dh_device_ms": _device_ms(
                    dh_pass, "block_diag_group_kernel", 50)},
            "block_diag_dw": {
-               "parent_device_ms": _device_ms(dw, "block_diag_dw_kernel",
-                                              50)}}
+               "parent_device_ms": _device_ms(
+                   dw, "block_diag_dw_member_kernel", 50)}}
     print(f"[{name}] fused_layer (y; y, g'), fused_layer_int8, "
           f"block_diag_fwd (y, dh) and block_diag_dw (B = {b} and 300) "
           f"bitwise the parent's; "
@@ -2603,9 +2797,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", type=Path, default=None,
                     help="another checkout of the repository (e.g. the "
-                    "parent commit's git archive): hold the f32 infer_head, "
-                    "loss_head_fwd, input-layer and mid-layer outputs "
-                    "bitwise to its kernels'")
+                    "parent commit's git archive): hold the output heads', "
+                    "the path-4d M3 dW's, the input-layer and mid-layer "
+                    "outputs bitwise to its kernels'")
     args = ap.parse_args()
     try:
         import torch
@@ -2772,13 +2966,16 @@ def main() -> int:
     check_unfused_step("trainer-depth3", t3k, lp3k, x, y)
     steps = {"parallelmlp-10k": time_train_step("parallelmlp-10k", t10k,
                                                 lp10k, x, y, adam=False)}
-    # the depth-3 step from one state, fused and unfused in turns
-    for key, unfused in (("trainer-depth3", False),
-                         ("trainer-depth3 unfused", True),
-                         ("trainer-depth3 unfused (2)", True),
-                         ("trainer-depth3 (2)", False)):
+    # the depth-3 step from one state, fused, unfused and unfused with the
+    # M3 head (path 4e) in turns
+    for key, unfused, m3 in (("trainer-depth3", False, False),
+                             ("trainer-depth3 unfused", True, False),
+                             ("trainer-depth3 unfused m3", True, True),
+                             ("trainer-depth3 unfused m3 (2)", True, True),
+                             ("trainer-depth3 unfused (2)", True, False),
+                             ("trainer-depth3 (2)", False, False)):
         steps[key] = time_train_step(key, t3k, lp3k, x, y, adam=True,
-                                     unfused=unfused)
+                                     unfused=unfused, m3=m3)
     # path 4d's step: invariants, then m3_impl pallas and bucketed in turns
     check_single_step("parallelmlp-10k single", t_single, pop10k, x, y)
     from repro_torch.core.parallel_mlp import sgd_step
@@ -2819,7 +3016,9 @@ def main() -> int:
              ("fused_input_bwd_kernel",)),
             ("fused_layer_dx_dw", "fused_layer_dx_dw",
              ("fused_layer_dx_dw_kernel",)),
+            ("m3_matmul_fwd", "m3_matmul", ("m3_fwd_stream_kernel",)),
             ("m3_matmul_dh", "m3_matmul", ("m3_dh_kernel",)),
+            ("m3_matmul_dw", "m3_matmul", ("m3_dw_stream_kernel",)),
             ("fused_layer", "fused_layer", ("fused_layer_group_kernel",)),
             ("fused_layer_int8", "fused_layer",
              ("fused_layer_i8_group_kernel",)),

@@ -1,7 +1,8 @@
 // The streaming core of the output head's forward, shared by the serving
-// head (infer_head.cu, the logits over f32 or int8 weights) and the
-// training loss head's forward (loss_head.cu, the logits fused with softmax
-// cross-entropy):
+// head (infer_head.cu, the logits over f32 or int8 weights), the training
+// loss head's forward (loss_head.cu, the logits fused with softmax
+// cross-entropy) and the M3 forward (m3_matmul.cu, the logits as they are,
+// the classes 16 at a time):
 //
 //   z[b, m, :] = Σ_{j in member m} h[b, j] · w2[:, j]
 //
@@ -37,7 +38,10 @@
 //     a tile spans several), writes each thread's partial logits to shared
 //     memory, and one thread per (row, member) adds them in unit order: no
 //     floating-point atomics, every sum in a fixed order.
-// Each kernel runs its own epilogue on the finished z (stream_logits).
+// Each kernel runs its own epilogue on the finished z: stream_members (the
+// member loop around stream_logits, infer_head.cu's and m3_matmul.cu's)
+// hands it to an epilogue functor; loss_head.cu runs its own loop.  The
+// backward role (dh and dW of the same heads) is head_bwd.cuh.
 #pragma once
 
 #include <climits>
@@ -273,13 +277,68 @@ __device__ __forceinline__ void stream_logits(
   }
 }
 
+// A streaming head forward's member loop: this CTA's members
+// (cta_members) mb_cap at a time, the rows fwd_rows_held at a time; z from
+// stream_logits, then one thread per (row, member), consecutive members on
+// consecutive threads, hands its O ≤ OT finished dot products (zeros past
+// O) to the kernel's epilogue, epi(acc, b, m).  Shared memory (dynamic,
+// head_launch_shape's size): stream_logits' partials, z [rows held][mb_cap]
+// [OT], mstart [mb_cap + 1].  Every thread must call it; it may be called
+// again in the same launch (its first barrier comes before its first
+// shared-memory write).
+template <int OT, int VW, class W, class Epi>
+__device__ __forceinline__ void stream_members(
+    const float* __restrict__ h, const W& wl,
+    const int* __restrict__ member_ptr, int B, int H, int O, int P,
+    int block, int n_tiles, int lanes, int mb_cap, const Epi& epi) {
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int TQ = T / lanes;
+  const int RB = fwd_rows_held<OT>(lanes);
+  extern __shared__ float smem[];
+  float* part = smem;  // [R · lanes][OT][pad], stream_logits' partials
+  float* z = part + rows_in_flight<OT>() * lanes * OT * (TQ + TQ / 32);
+  // z: [RB][mb_cap][OT]
+  int* mstart = reinterpret_cast<int*>(z + RB * mb_cap * OT);  // [mb_cap + 1]
+
+  int m0, m1;
+  cta_members(member_ptr, P, block, VW * TQ, n_tiles, m0, m1);
+
+  for (int mb0 = m0; mb0 < m1; mb0 += mb_cap) {
+    const int nb = min(mb_cap, m1 - mb0);
+    __syncthreads();  // the previous batch is done with its shared arrays
+    for (int i = tid; i <= nb; i += T) mstart[i] = member_ptr[mb0 + i] * block;
+    for (int r0 = 0; r0 < B; r0 += RB) {
+      const int nr = min(RB, B - r0);
+      __syncthreads();  // the previous chunk's epilogue is done
+      for (int i = tid; i < RB * mb_cap * OT; i += T) z[i] = 0.f;
+      __syncthreads();
+
+      stream_logits<OT, VW>(h, wl, H, O, r0, nr, mstart, nb, mb_cap, lanes,
+                            part, z);
+
+      // one thread per (row, member), consecutive members on consecutive
+      // threads (their output rows are contiguous)
+      for (int p = tid; p < nr * nb; p += T) {
+        const int i = p % nb, rr = p / nb;
+        const float* zr = z + (rr * mb_cap + i) * OT;
+        float acc[OT];
+#pragma unroll
+        for (int o = 0; o < OT; ++o) acc[o] = zr[o];
+        epi(acc, r0 + rr, mb0 + i);
+      }
+    }
+  }
+}
+
 // kernel_path() in infer_head.py: VW = 4 needs a block of a multiple of 4
 // units (so a thread's 4 units share a member and a scale), rows of a
 // multiple of 4 units and every tensor walked 4 units at a time aligned to
 // 4 of its elements: the f32 ones (ptrs) to 16 bytes, the int8 ones (ptrs8)
 // to 4
-inline bool takes_vec4(int block, int H, const void* const* ptrs, int n,
-                       const void* const* ptrs8 = nullptr, int n8 = 0) {
+inline bool takes_vec4(int block, long long H, const void* const* ptrs,
+                       int n, const void* const* ptrs8 = nullptr,
+                       int n8 = 0) {
   if (block % 4 != 0 || H % 4 != 0) return false;
   for (int i = 0; i < n; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
@@ -331,6 +390,18 @@ size_t stream_smem_floats(const FwdShape& s) {
   const int tq = MAX_THREADS / s.lanes;
   return (size_t)rows_in_flight<OT>() * s.lanes * OT * (tq + tq / 32) +
          (size_t)fwd_rows_held<OT>(s.lanes) * s.mb_cap * OT;
+}
+
+// A stream_members launch's shape: fwd_shape, and the shared memory of the
+// streaming core's partials and z, then mstart; false where the grid or
+// the shared memory is out of range.
+template <int OT>
+bool head_launch_shape(int H, int block, bool vec, FwdShape& sh,
+                       size_t& smem) {
+  sh = fwd_shape(H, block, vec);
+  smem = sizeof(float) * stream_smem_floats<OT>(sh) +
+         sizeof(int) * (sh.mb_cap + 1);
+  return sh.n_tiles <= INT_MAX && smem <= SMEM_LIMIT;
 }
 
 }  // namespace head

@@ -21,10 +21,11 @@
 // the scalar instance where kernel_path() in infer_head.py says so; w2 in
 // registers; 16 / OT rows in flight; 256-thread CTAs in lanes of rows; a
 // member owned by the CTA whose tile holds its first unit; partial logits
-// added in unit order in shared memory), then one thread per (row,
-// member), consecutive members on consecutive threads, adds the bias,
-// applies the optional log-softmax and stores y[b, m, :] once
-// (head_epilogue, the int8 kernel's epilogue too).
+// added in unit order in shared memory; its member loop stream_members,
+// which the M3 forward of m3_matmul.cu runs too), then one thread per
+// (row, member), consecutive members on consecutive threads, adds the
+// bias, applies the optional log-softmax and stores y[b, m, :] once
+// (HeadEpilogue, the int8 kernel's epilogue too).
 //
 // infer_head_i8 replaces repro/kernels/infer_head.py::infer_head_int8_fwd
 // (the int8 serve copy, ops.py::infer_head_int8): w2 is (O, H) int8 with one
@@ -37,7 +38,7 @@
 // scale of the block that holds them (q·s, then the dot, as in JAX).  The
 // rest (h streamed with 16-byte loads, rows in flight, members owned by
 // the CTA that holds their first unit, partials added in unit order,
-// head_epilogue) is the f32 kernel's, so where both take the same instance
+// HeadEpilogue) is the f32 kernel's, so where both take the same instance
 // its output is bitwise the f32 kernel's on the dequantized weight.  Its
 // own alignment rule (kernel_path() in infer_head.py): h 16-byte aligned,
 // w2_q 4-byte aligned, block and H multiples of 4 for the vec4 instance,
@@ -54,83 +55,40 @@ namespace {
 
 using namespace head;
 
-// The epilogue of one (row, member): the member bias, the optional stable
-// log-softmax, the store.  acc holds the row's O ≤ N finished dot products.
-template <int N>
-__device__ __forceinline__ void head_epilogue(float (&acc)[N],
-                                              const float* __restrict__ b2,
-                                              float* __restrict__ y, int b,
-                                              int m, int O, int P,
-                                              int log_probs) {
-  float mx = -INFINITY;
+// The epilogue of one (row, member), stream_members' epilogue functor: the
+// member bias, the optional stable log-softmax, the store.  acc holds the
+// row's O ≤ N finished dot products.
+struct HeadEpilogue {
+  const float* __restrict__ b2;
+  float* __restrict__ y;
+  int O, P, log_probs;
+  template <int N>
+  __device__ __forceinline__ void operator()(float (&acc)[N], int b,
+                                             int m) const {
+    float mx = -INFINITY;
 #pragma unroll
-  for (int o = 0; o < N; ++o) {
-    if (o < O) {
-      acc[o] += b2[(size_t)m * O + o];
-      mx = fmaxf(mx, acc[o]);
-    }
-  }
-  if (log_probs) {
-    float s = 0.f;
-#pragma unroll
-    for (int o = 0; o < N; ++o)
-      if (o < O) s += expf(acc[o] - mx);
-    const float lse = logf(s) + mx;
-#pragma unroll
-    for (int o = 0; o < N; ++o)
-      if (o < O) acc[o] -= lse;
-  }
-  float* yr = y + ((size_t)b * P + m) * O;
-#pragma unroll
-  for (int o = 0; o < N; ++o)
-    if (o < O) yr[o] = acc[o];
-}
-
-template <int OT, int VW, class W>
-__device__ __forceinline__ void infer_body(
-    const float* __restrict__ h, const W& wl,
-    const float* __restrict__ b2, const int* __restrict__ member_ptr,
-    float* __restrict__ y, int B, int H, int O, int P, int block,
-    int log_probs, int n_tiles, int lanes, int mb_cap) {
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int TQ = T / lanes;
-  const int RB = fwd_rows_held<OT>(lanes);
-  extern __shared__ float smem[];
-  float* part = smem;  // [R · lanes][OT][pad], stream_logits' partials
-  float* z = part + rows_in_flight<OT>() * lanes * OT * (TQ + TQ / 32);
-  // z: [RB][mb_cap][OT]
-  int* mstart = reinterpret_cast<int*>(z + RB * mb_cap * OT);  // [mb_cap + 1]
-
-  int m0, m1;
-  cta_members(member_ptr, P, block, VW * TQ, n_tiles, m0, m1);
-
-  for (int mb0 = m0; mb0 < m1; mb0 += mb_cap) {
-    const int nb = min(mb_cap, m1 - mb0);
-    __syncthreads();  // the previous batch is done with its shared arrays
-    for (int i = tid; i <= nb; i += T) mstart[i] = member_ptr[mb0 + i] * block;
-    for (int r0 = 0; r0 < B; r0 += RB) {
-      const int nr = min(RB, B - r0);
-      __syncthreads();  // the previous chunk's epilogue is done
-      for (int i = tid; i < RB * mb_cap * OT; i += T) z[i] = 0.f;
-      __syncthreads();
-
-      stream_logits<OT, VW>(h, wl, H, O, r0, nr, mstart, nb, mb_cap, lanes,
-                            part, z);
-
-      // one thread per (row, member), consecutive members on consecutive
-      // threads (their y rows are contiguous)
-      for (int p = tid; p < nr * nb; p += T) {
-        const int i = p % nb, rr = p / nb;
-        const float* zr = z + (rr * mb_cap + i) * OT;
-        float acc[OT];
-#pragma unroll
-        for (int o = 0; o < OT; ++o) acc[o] = zr[o];
-        head_epilogue(acc, b2, y, r0 + rr, mb0 + i, O, P, log_probs);
+    for (int o = 0; o < N; ++o) {
+      if (o < O) {
+        acc[o] += b2[(size_t)m * O + o];
+        mx = fmaxf(mx, acc[o]);
       }
     }
+    if (log_probs) {
+      float s = 0.f;
+#pragma unroll
+      for (int o = 0; o < N; ++o)
+        if (o < O) s += expf(acc[o] - mx);
+      const float lse = logf(s) + mx;
+#pragma unroll
+      for (int o = 0; o < N; ++o)
+        if (o < O) acc[o] -= lse;
+    }
+    float* yr = y + ((size_t)b * P + m) * O;
+#pragma unroll
+    for (int o = 0; o < N; ++o)
+      if (o < O) yr[o] = acc[o];
   }
-}
+};
 
 // The designs, one name each, so that a profiler trace says which ran.
 #define INFER_HEAD_PARAMS                                                   \
@@ -145,41 +103,32 @@ __device__ __forceinline__ void infer_body(
       int H, int O, int P, int block, int log_probs, int n_tiles,           \
       int lanes, int mb_cap
 #define INFER_HEAD_BODY_ARGS                                                \
+  member_ptr, B, H, O, P, block, n_tiles, lanes, mb_cap,                    \
+      HeadEpilogue{b2, y, O, P, log_probs}
+#define INFER_HEAD_LAUNCH_ARGS                                              \
   b2, member_ptr, y, B, H, O, P, block, log_probs, n_tiles, lanes, mb_cap
 
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_kernel_vec4(INFER_HEAD_PARAMS) {
-  infer_body<OT, 4>(h, F32Weights{w2, H}, INFER_HEAD_BODY_ARGS);
+  stream_members<OT, 4>(h, F32Weights{w2, H}, INFER_HEAD_BODY_ARGS);
 }
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_kernel_scalar(INFER_HEAD_PARAMS) {
-  infer_body<OT, 1>(h, F32Weights{w2, H}, INFER_HEAD_BODY_ARGS);
+  stream_members<OT, 1>(h, F32Weights{w2, H}, INFER_HEAD_BODY_ARGS);
 }
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_i8_kernel_vec4(INFER_HEAD_I8_PARAMS) {
-  infer_body<OT, 4>(h, I8Weights{w2q, w2_scale, H, block},
-                    INFER_HEAD_BODY_ARGS);
+  stream_members<OT, 4>(h, I8Weights{w2q, w2_scale, H, block},
+                        INFER_HEAD_BODY_ARGS);
 }
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_i8_kernel_scalar(INFER_HEAD_I8_PARAMS) {
-  infer_body<OT, 1>(h, I8Weights{w2q, w2_scale, H, block},
-                    INFER_HEAD_BODY_ARGS);
-}
-
-// The launch shape of either weight type: fwd_shape, and the shared memory
-// of the streaming core's partials and z, then mstart; false where the
-// grid or the shared memory is out of range.
-template <int OT>
-bool head_launch_shape(int H, int block, bool vec, FwdShape& sh,
-                       size_t& smem) {
-  sh = fwd_shape(H, block, vec);
-  smem = sizeof(float) * stream_smem_floats<OT>(sh) +
-         sizeof(int) * (sh.mb_cap + 1);
-  return sh.n_tiles <= INT_MAX && smem <= SMEM_LIMIT;
+  stream_members<OT, 1>(h, I8Weights{w2q, w2_scale, H, block},
+                        INFER_HEAD_BODY_ARGS);
 }
 
 template <int OT>
@@ -196,11 +145,11 @@ int launch_f32(const float* h, const float* w2, const float* b2,
   if (sh.vec)
     infer_head_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
                                  stream>>>(
-        h, w2, INFER_HEAD_BODY_ARGS);
+        h, w2, INFER_HEAD_LAUNCH_ARGS);
   else
     infer_head_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
                                    stream>>>(
-        h, w2, INFER_HEAD_BODY_ARGS);
+        h, w2, INFER_HEAD_LAUNCH_ARGS);
   return (int)cudaGetLastError();
 }
 
@@ -220,11 +169,11 @@ int launch_i8(const float* h, const int8_t* w2q, const float* w2_scale,
   if (sh.vec)
     infer_head_i8_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
                                     stream>>>(
-        h, w2q, w2_scale, INFER_HEAD_BODY_ARGS);
+        h, w2q, w2_scale, INFER_HEAD_LAUNCH_ARGS);
   else
     infer_head_i8_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
                                       stream>>>(
-        h, w2q, w2_scale, INFER_HEAD_BODY_ARGS);
+        h, w2q, w2_scale, INFER_HEAD_LAUNCH_ARGS);
   return (int)cudaGetLastError();
 }
 

@@ -53,41 +53,29 @@
 //     cross-entropy (expf once a class) and writes dl, consecutive
 //     members' rows side by side, and one thread per member sums its
 //     losses over the rows in order.
-//   * backward, one role: a CTA takes a tile of units (not aligned to
-//     members), stages dl · d_per of the blocks the tile touches in shared
-//     memory, a chunk of rows at a time (dl is read once a block, not once
-//     a unit), then streams h and writes dh row by row while it
-//     accumulates dW in registers; the lanes' dW sums are added in lane
-//     order and written once: one pass over exactly the bound's bytes.
+//   * backward, one role (head_bwd.cuh's stream_bwd, with dh; the M3 dW of
+//     m3_matmul.cu runs it without dh and d_per): a CTA takes a tile of
+//     units (not aligned to members), stages dl · d_per of the blocks the
+//     tile touches in shared memory, a chunk of rows at a time (dl is read
+//     once a block, not once a unit), then streams h and writes dh row by
+//     row while it accumulates dW in registers; the lanes' dW sums are
+//     added in lane order and written once: one pass over exactly the
+//     bound's bytes.
 // The forward's streaming core (stream_logits), the member rule and the
 // helpers both kernels use live in head_stream.cuh, which infer_head.cu's
-// kernels (f32 and int8 weights) instantiate with their own epilogue.
-#include <algorithm>
+// kernels (f32 and int8 weights) and the M3 forward instantiate with their
+// own epilogue (stream_members).
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "head_bwd.cuh"
 #include "head_stream.cuh"
 
 namespace {
 
 using namespace head;
-
-constexpr int BWD_STAGE_FLOATS = 8192;  // the backward's dl stage (32 KB)
-
-// blocks a backward tile of U units touches (it need not start on one)
-__host__ __device__ inline int bwd_max_blocks(int U, int block) {
-  return (U - 1) / block + 2;
-}
-
-// floats of the backward's stage: dl · d_per of `rows` rows, and after the
-// rows the lanes' dW sums (T · VW floats) where there are several lanes
-__host__ __device__ inline int bwd_stage_floats(int rows, int max_blk,
-                                                int ot, int t_vw, int lanes) {
-  const int stage = rows * max_blk * ot;
-  return lanes > 1 && t_vw > stage ? t_vw : stage;
-}
 
 template <int OT, int VW>
 __device__ __forceinline__ void fwd_body(
@@ -182,113 +170,6 @@ __device__ __forceinline__ void fwd_body(
   }
 }
 
-template <int OT, int VW>
-__device__ __forceinline__ void bwd_body(
-    const float* __restrict__ dper, const float* __restrict__ dl,
-    const float* __restrict__ h, const float* __restrict__ w2,
-    const int* __restrict__ block_seg, float* __restrict__ dh,
-    float* __restrict__ dw, int B, int H, int O, int P, int block,
-    int lanes, int rows) {
-  constexpr int R = rows_in_flight<OT>();
-  const int T = blockDim.x;
-  const int tid = threadIdx.x;
-  const int TQ = T / lanes;          // unit slots; lanes of rows share them
-  const int q = tid % TQ, lane = tid / TQ;
-  const int U = VW * TQ;             // the tile
-  const int GR = R * lanes;          // rows a group
-  const int t0 = blockIdx.x * U;     // the tile's first unit
-  const int kb0 = t0 / block;        // its first block
-  const int nblk = (min(t0 + U, H) - 1) / block - kb0 + 1;
-  const int max_blk = bwd_max_blocks(U, block);
-  const int j = t0 + VW * q;         // this thread's first unit
-  const bool act = j < H;
-  const int slot = act ? j / block - kb0 : 0;  // its block in the stage
-  extern __shared__ float smem[];
-  float* stage = smem;               // [rows][nblk][OT]; then the dW sums
-  float* sdper = stage + bwd_stage_floats(rows, max_blk, OT, T * VW, lanes);
-  int* sseg = reinterpret_cast<int*>(sdper + max_blk);
-
-  for (int k = tid; k < nblk; k += T) {
-    const int m = block_seg[kb0 + k];
-    sseg[k] = m;
-    sdper[k] = dper[m];
-  }
-  float w[OT][VW], acc[OT][VW];
-#pragma unroll
-  for (int o = 0; o < OT; ++o) {
-    if (act && o < O) {
-      load_units<VW>(w[o], w2 + (size_t)o * H + j);
-    } else {
-#pragma unroll
-      for (int v = 0; v < VW; ++v) w[o][v] = 0.f;
-    }
-#pragma unroll
-    for (int v = 0; v < VW; ++v) acc[o][v] = 0.f;
-  }
-
-  for (int r0 = 0; r0 < B; r0 += rows) {
-    const int nr = min(rows, B - r0);
-    __syncthreads();  // sseg / sdper written, the previous stage consumed
-#pragma unroll 4
-    for (int i = tid; i < nr * nblk * OT; i += T) {
-      const int o = i % OT, k = (i / OT) % nblk, rr = i / (OT * nblk);
-      stage[i] = o < O ? dl[((size_t)(r0 + rr) * P + sseg[k]) * O + o] *
-                             sdper[k]
-                       : 0.f;
-    }
-    __syncthreads();
-    if (!act) continue;
-    // this lane's rows of a group: g + lane·R ... g + lane·R + R − 1
-    for (int g = lane * R; g < nr; g += GR) {
-      float hv[R][VW];
-      load_rows<R, VW>(hv, h, H, j, r0 + g, nr - g);
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        if (g + r >= nr) break;
-        const float* gr = stage + ((g + r) * nblk + slot) * OT;
-        float d[VW];
-#pragma unroll
-        for (int v = 0; v < VW; ++v) d[v] = 0.f;
-#pragma unroll
-        for (int o = 0; o < OT; ++o) {
-          const float gv = gr[o];
-#pragma unroll
-          for (int v = 0; v < VW; ++v) {
-            d[v] = fmaf(gv, w[o][v], d[v]);
-            acc[o][v] = fmaf(gv, hv[r][v], acc[o][v]);
-          }
-        }
-        store_units<VW>(dh + (size_t)(r0 + g + r) * H + j, d);
-      }
-    }
-  }
-  if (lanes == 1) {
-    if (!act) return;
-#pragma unroll
-    for (int o = 0; o < OT; ++o)
-      if (o < O) store_units<VW>(dw + (size_t)o * H + j, acc[o]);
-    return;
-  }
-  // dW: the lanes' sums added in lane order, one class at a time
-#pragma unroll
-  for (int o = 0; o < OT; ++o) {
-    if (o >= O) break;
-    __syncthreads();
-    store_units<VW>(stage + (lane * TQ + q) * VW, acc[o]);
-    __syncthreads();
-    if (lane == 0 && act) {
-      float s[VW];
-#pragma unroll
-      for (int v = 0; v < VW; ++v) s[v] = 0.f;
-      for (int l = 0; l < lanes; ++l) {
-#pragma unroll
-        for (int v = 0; v < VW; ++v) s[v] += stage[(l * TQ + q) * VW + v];
-      }
-      store_units<VW>(dw + (size_t)o * H + j, s);
-    }
-  }
-}
-
 // The two designs of each kernel, one name each, so that a profiler trace
 // says which ran.
 #define LOSS_HEAD_FWD_PARAMS                                                \
@@ -307,7 +188,7 @@ __device__ __forceinline__ void bwd_body(
       float *__restrict__ dw, int B, int H, int O, int P, int block,         \
       int lanes, int rows
 #define LOSS_HEAD_BWD_ARGS \
-  dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows
+  dper, dl, O, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows
 
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
@@ -322,12 +203,12 @@ loss_head_fwd_kernel_scalar(LOSS_HEAD_FWD_PARAMS) {
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 loss_head_bwd_kernel_vec4(LOSS_HEAD_BWD_PARAMS) {
-  bwd_body<OT, 4>(LOSS_HEAD_BWD_ARGS);
+  stream_bwd<OT, 4, true>(LOSS_HEAD_BWD_ARGS);
 }
 template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 loss_head_bwd_kernel_scalar(LOSS_HEAD_BWD_PARAMS) {
-  bwd_body<OT, 1>(LOSS_HEAD_BWD_ARGS);
+  stream_bwd<OT, 1, true>(LOSS_HEAD_BWD_ARGS);
 }
 
 template <int OT>
@@ -344,7 +225,7 @@ int launch_fwd(const float* h, const float* w2, const float* b2,
       sizeof(float) * (stream_smem_floats<OT>(sh) + (size_t)rb * mb_cap +
                        mb_cap + (size_t)mb_cap * OT) +
       sizeof(int) * (mb_cap + 1 + rb);
-  if (sh.n_tiles > 0x7fffffff || smem > SMEM_LIMIT)
+  if (sh.n_tiles > INT_MAX || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes;
   if (sh.vec)
@@ -365,28 +246,17 @@ int launch_bwd(const float* dper, const float* dl, const float* h,
                const float* w2, const int* block_seg, float* dh, float* dw,
                int B, int H, int O, int P, int block, cudaStream_t stream) {
   const void* ptrs[] = {h, w2, dh, dw};
-  const bool vec = takes_vec4(block, H, ptrs, 4);
-  const int vw = vec ? 4 : 1;
-  const int lanes = cta_lanes(H, vw);
-  const int tile = vw * (MAX_THREADS / lanes);
-  const long long n_tiles = ((long long)H + tile - 1) / tile;
-  const int max_blk = bwd_max_blocks(tile, block);
-  const int rows =
-      std::min(B, std::max(1, BWD_STAGE_FLOATS / (max_blk * OT)));
-  const size_t smem =
-      sizeof(float) * ((size_t)bwd_stage_floats(rows, max_blk, OT,
-                                                MAX_THREADS * vw, lanes) +
-                       max_blk) +
-      sizeof(int) * max_blk;
-  if (n_tiles > 0x7fffffff || smem > SMEM_LIMIT)
+  BwdShape sh;
+  if (!bwd_shape<OT>(B, H, block, takes_vec4(block, H, ptrs, 4), sh))
     return (int)cudaErrorInvalidValue;
-  if (vec)
-    loss_head_bwd_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
-                                    stream>>>(
+  const int lanes = sh.lanes, rows = sh.rows;
+  if (sh.vec)
+    loss_head_bwd_kernel_vec4<OT><<<(unsigned)sh.n_tiles, MAX_THREADS,
+                                    sh.smem, stream>>>(
         dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows);
   else
-    loss_head_bwd_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
-                                      stream>>>(
+    loss_head_bwd_kernel_scalar<OT><<<(unsigned)sh.n_tiles, MAX_THREADS,
+                                      sh.smem, stream>>>(
         dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows);
   return (int)cudaGetLastError();
 }

@@ -7,57 +7,74 @@
 // Replaces the TPU kernels repro/kernels/m3_matmul.py::m3_matmul_fwd
 // (m3_fwd_f32 here), ::m3_matmul_dh (m3_dh_f32) and ::m3_matmul_dw
 // (m3_dw_f32), the three pallas_calls of repro/kernels/ops.py::m3_matmul's
-// custom VJP.  h (B, H), w2 (O, H), dy (B, P, O) f32 row-major; members own
-// contiguous runs of hidden blocks of `block` units (1 ≤ block ≤ 128), given
-// as CSR row pointers member_ptr (P + 1,) int32 over blocks for the forward
-// and as per-block member ids seg (H / block,) int32 for the gradients.  Any
-// class count O: accumulators live in registers for O ≤ OT, with OT = 4 or
-// 16 picked at launch; beyond 16 the forward and dW walk the classes in
-// chunks of 16 and dh re-reads the weights per row.
+// custom VJP.  h (B, H), w2 (O, H), dy (B, P, O) f32 row-major, H ≤
+// INT_MAX; members own contiguous runs of hidden blocks of `block` units
+// (1 ≤ block ≤ 128), given as CSR row pointers member_ptr (P + 1,) int32
+// over blocks for the forward and as per-block member ids seg (H / block,)
+// int32 for the gradients.  Any class count O.
 //
-// The TPU forward walks a sequential grid and opens a VMEM accumulator when
-// the segment id changes, flushing it on the member's last tile.  A GPU
-// grid has no order, so here one warp owns one (batch tile, member) pair:
-// it walks the member's column range [member_ptr[m]·block,
-// member_ptr[m+1]·block), its lanes split into groups of L (the smallest
-// power of two covering the member's 16-byte vectors, at most 32), one
-// group per batch row, and a butterfly of shuffles inside each group
-// finishes the dot products in a fixed order before one lane stores.  No
-// atomics; y is written once.  A member that owns no block gets y = 0 (the
-// JAX kernel never visits its output block and leaves it unwritten).
+// The forward is the output heads' logits without a bias, and the dW is
+// the loss head's dW without d_per, so both run the heads' streaming
+// cores, under kernel names of their own:
+//   * forward (m3_fwd_stream_kernel_*): head_stream.cuh's stream_members,
+//     as infer_head.cu's f32 kernel runs it — each thread holds VW units'
+//     w2 in registers once a tile, streams h with 16 / OT rows in flight
+//     (16-byte loads in the vec4 instance, 4-byte ones in the scalar one),
+//     256-thread CTAs in lanes of rows, member m owned by the CTA whose
+//     tile holds its first unit, partial dot products added in unit order
+//     in shared memory — with an epilogue that stores z as it is: one
+//     owner per (row, member) writes y once, and a member that owns no
+//     block gets y = 0 (the JAX kernel never visits its output block and
+//     leaves it unwritten).  Its sums are infer_head's, so y is bitwise
+//     infer_head's logits with a zero bias where both take one instance.
+//   * dW (m3_dw_stream_kernel_*): head_bwd.cuh's stream_bwd without dh
+//     and without d_per — a CTA takes a tile of units, stages dy of the
+//     blocks it touches in shared memory, streams h and keeps dW in
+//     registers, the lanes' sums added in lane order.  At one lane (block
+//     128 at the paper's width: 1,250 tiles of 1,024 units) each column's
+//     sum runs b = 0 … B − 1 with fmaf, the chain of the kernel it
+//     replaced, whose bits it keeps; at the depth-3 head (H 32,000) eight
+//     lanes over 128-unit tiles give 250 CTAs.  Its dW is bitwise
+//     loss_head's with d_per = 1 where both take one instance.
+// Beyond 16 classes both walk them 16 at a time inside the launch (the
+// head cores hold at most head::MAX_O in registers): the weight or dy
+// pointer offset by o0, y and dW written at stride O.  Only the 16-class
+// instances carry that loop (around the core it cost the forward's
+// 2-class instance 17 registers).  Instances: vec4
+// where block and H are multiples of 4 and the tensors walked 4 units at a
+// time (h and w2; h and dW) are 16-byte aligned, else scalar (takes_vec4;
+// kernel_path() in m3_matmul.py).
 //
 // dh is a pure store stream: it writes (B, H) and reads only w2 and a small
 // dy.  A persistent grid, sized by the SM count and the CTAs that fit one,
 // walks tasks of one column chunk (256·VEC columns) by one block of up to 8
 // batch rows.  Before any store a task stages dy[b, seg(k), :] for its rows
 // and hidden blocks k in shared memory (one sweep, one barrier) and holds
-// its columns' weights in registers (VEC = 4, 16-byte accesses, when block,
-// H and the pointers allow; else a scalar instance); the store loop has no
-// global load, keeps its rows' stores in flight and writes evict-first
-// (st.global.cs), so the stream does not push the operands out of L2.
+// its columns' weights in registers (VEC = 4, 16-byte accesses, where
+// takes_vec4 of w2 and dh allows; else a scalar instance); the store loop
+// has no global load, keeps its rows' stores in flight and writes
+// evict-first (st.global.cs), so the stream does not push the operands out
+// of L2.
 // Eight-row tasks keep the last wave of a grid-stride loop short.  Beyond
-// 16 classes the weights and dy come from L1/L2 per row.
+// 16 classes the weights and dy come from L1/L2 per row.  One thread per
+// output, one order over the classes.
 //
-// The TPU dW carries each tile's sum across the batch-tile grid axis.  Here
-// one thread owns VEC columns j and loops b = 0..B−1 in order, so the sum
-// has one fixed order and no float atomics: dW is bitwise reproducible, as
-// is dh (one thread per output, one order over the classes).
-//
-// What bounds them: bytes.  At the paper's full width (B = 32, H =
-// 1,280,000, P = 10,000, O = 2) each kernel moves h or dh (164 MB), w2 or
-// dw2 (10 MB) and y or dy (2.6 MB), about 0.053 ms at 3.35 TB/s, for 8·B·H
-// FLOP (0.005 ms at 67 TFLOP/s).  Left for later: w2 is re-read from L1
-// per batch row in the forward.
+// Every sum has one fixed order and no float atomics: all three are
+// bitwise reproducible.  What bounds them: bytes.  At the paper's full
+// width (B = 32, H = 1,280,000, P = 10,000, O = 2) each kernel moves h or
+// dh (164 MB), w2 or dw2 (10 MB) and y or dy (2.6 MB), about 0.053 ms at
+// 3.35 TB/s, for 4·B·H FLOP (0.002 ms at 67 TFLOP/s); at the depth-3 head
+// (H 32,000, P 3,000) 4.9 MB, 0.0015 ms.
 #include <algorithm>
 #include <climits>
-#include <cstdint>
 #include <cuda_runtime.h>
+
+#include "head_bwd.cuh"
+#include "head_stream.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int BT = 16;     // batch rows per warp task (forward)
+constexpr int THREADS = 256;     // dh's CTAs
 constexpr int DH_ROWS = 8;       // batch rows of a dh task: stores in flight
 constexpr int DH_STAGE = 4352;   // staged dy floats: ≥ 16 classes × 257 blocks
 
@@ -69,75 +86,6 @@ __device__ __forceinline__ void load(const float* __restrict__ p,
     v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
   } else {
     v[0] = __ldg(p);
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store(float* __restrict__ p,
-                                      const float (&v)[VEC]) {
-  if constexpr (VEC == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  else
-    p[0] = v[0];
-}
-
-template <int VEC, int OT>
-__global__ void __launch_bounds__(THREADS)
-m3_fwd_kernel(const float* __restrict__ h, const float* __restrict__ w2,
-              const int* __restrict__ member_ptr, float* __restrict__ y,
-              int B, long long H, int O, int P, int block, int n_btiles) {
-  const int lane = threadIdx.x & 31;
-  const long long task = (long long)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (task >= (long long)P * n_btiles) return;  // uniform across the warp
-  const int m = (int)(task / n_btiles);
-  const int b0 = (int)(task % n_btiles) * BT;
-  const long long j0 = (long long)member_ptr[m] * block;
-  const int nv = (int)(((long long)member_ptr[m + 1] * block - j0) / VEC);
-  int L = 1;  // lanes per batch row
-  while (L < 32 && L < nv) L <<= 1;
-  const int R = 32 / L;  // batch rows per pass of the warp
-  const int sub = lane & (L - 1);
-  const int n_rows = BT > R ? BT : R;  // BT % R == 0 whenever R < BT
-  for (int o0 = 0; o0 < O; o0 += OT) {
-    const int oc = min(OT, O - o0);
-    // every lane makes the same number of passes (the shuffles need all 32)
-#pragma unroll 2
-    for (int r = lane / L; r < n_rows; r += R) {
-      const int b = b0 + r;
-      const bool live = r < BT && b < B;
-      float acc[OT];
-#pragma unroll
-      for (int o = 0; o < OT; ++o) acc[o] = 0.f;
-      if (live) {
-        const float* hr = h + (size_t)b * H + j0;
-        for (int v = sub; v < nv; v += L) {
-          float hv[VEC];
-          load<VEC>(hr + (size_t)v * VEC, hv);
-#pragma unroll
-          for (int o = 0; o < OT; ++o) {
-            if (o < oc) {
-              float wv[VEC];
-              load<VEC>(w2 + (size_t)(o0 + o) * H + j0 + (size_t)v * VEC, wv);
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) acc[o] = fmaf(hv[e], wv[e], acc[o]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int o = 0; o < OT; ++o) {
-        if (o < oc) {
-          for (int off = L >> 1; off > 0; off >>= 1)
-            acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
-        }
-      }
-      if (live && sub == 0) {
-        float* yr = y + ((size_t)b * P + m) * O + o0;
-#pragma unroll
-        for (int o = 0; o < OT; ++o)
-          if (o < oc) yr[o] = acc[o];
-      }
-    }
   }
 }
 
@@ -246,61 +194,9 @@ m3_dh_kernel(const float* __restrict__ dy, const float* __restrict__ w2,
   }
 }
 
-template <int VEC, int OT>
-__global__ void __launch_bounds__(THREADS)
-m3_dw_kernel(const float* __restrict__ h, const float* __restrict__ dy,
-             const int* __restrict__ seg, float* __restrict__ dw, int B,
-             long long H, int O, int P, int block) {
-  const long long c0 = ((long long)blockIdx.x * THREADS + threadIdx.x) * VEC;
-  if (c0 >= H) return;
-  const int s = seg[c0 / block];  // VEC = 4 only when block % 4 == 0
-  for (int o0 = 0; o0 < O; o0 += OT) {
-    const int oc = min(OT, O - o0);
-    float acc[OT][VEC];
-#pragma unroll
-    for (int o = 0; o < OT; ++o)
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[o][e] = 0.f;
-#pragma unroll 4
-    for (int b = 0; b < B; ++b) {
-      float hv[VEC];
-      load<VEC>(h + (size_t)b * H + c0, hv);
-      const float* d = dy + ((size_t)b * P + s) * O + o0;
-#pragma unroll
-      for (int o = 0; o < OT; ++o) {
-        if (o < oc) {
-          const float g = __ldg(d + o);
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[o][e] = fmaf(hv[e], g, acc[o][e]);
-        }
-      }
-    }
-#pragma unroll
-    for (int o = 0; o < OT; ++o)
-      if (o < oc) store<VEC>(dw + (size_t)(o0 + o) * H + c0, acc[o]);
-  }
-}
-
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 bool bad_args(int B, long long H, int O, int P, int block) {
   return B < 0 || H < 0 || O <= 0 || P <= 0 || block < 1 || block > 128 ||
          H % block;
-}
-
-// 16-byte accesses need every member edge, row and pointer 16-byte aligned
-bool vec4(long long H, int block, const void* a, const void* b) {
-  return block % 4 == 0 && H % 4 == 0 && aligned16(a) && aligned16(b);
-}
-
-template <int VEC, int OT>
-void fwd(const float* h, const float* w2, const int* member_ptr, float* y,
-         int B, long long H, int O, int P, int block, int n_btiles,
-         unsigned grid, cudaStream_t s) {
-  m3_fwd_kernel<VEC, OT><<<grid, THREADS, 0, s>>>(h, w2, member_ptr, y, B, H,
-                                                  O, P, block, n_btiles);
 }
 
 template <int VEC, int OT>
@@ -326,21 +222,120 @@ int dh_launch(const float* dy, const float* w2, const int* seg, float* dh,
   return (int)cudaGetLastError();
 }
 
-template <int VEC, int OT>
-void dw_launch(const float* h, const float* dy, const int* seg, float* dw,
-               int B, long long H, int O, int P, int block, unsigned grid,
-               cudaStream_t s) {
-  m3_dw_kernel<VEC, OT><<<grid, THREADS, 0, s>>>(h, dy, seg, dw, B, H, O, P,
-                                                 block);
+// The forward's epilogue: z as it is, classes o0 … o0 + oc − 1 of y
+struct M3Store {
+  float* __restrict__ y;
+  int P, O, o0, oc;
+  template <int N>
+  __device__ __forceinline__ void operator()(float (&acc)[N], int b,
+                                             int m) const {
+    float* yr = y + ((size_t)b * P + m) * O + o0;
+#pragma unroll
+    for (int o = 0; o < N; ++o)
+      if (o < oc) yr[o] = acc[o];
+  }
+};
+
+// The forward's and dW's instances, one name each, so that a profiler
+// trace tells them from the heads' kernels on the same cores.
+#define M3_FWD_PARAMS                                                       \
+  const float *__restrict__ h, const float *__restrict__ w2,                \
+      const int *__restrict__ member_ptr, float *__restrict__ y, int B,     \
+      int H, int O, int P, int block, int n_tiles, int lanes, int mb_cap
+#define M3_FWD_ARGS \
+  h, w2, member_ptr, y, B, H, O, P, block, n_tiles, lanes, mb_cap
+#define M3_DW_PARAMS                                                        \
+  const float *__restrict__ h, const float *__restrict__ dy,                \
+      const int *__restrict__ seg, float *__restrict__ dw, int B, int H,    \
+      int O, int P, int block, int lanes, int rows
+#define M3_DW_ARGS h, dy, seg, dw, B, H, O, P, block, lanes, rows
+
+// The classes in one pass where O ≤ OT < 16, else 16 at a time
+template <int OT, int VW>
+__device__ __forceinline__ void fwd_body(M3_FWD_PARAMS) {
+  if constexpr (OT < head::MAX_O) {
+    head::stream_members<OT, VW>(h, head::F32Weights{w2, H}, member_ptr, B,
+                                 H, O, P, block, n_tiles, lanes, mb_cap,
+                                 M3Store{y, P, O, 0, O});
+  } else {
+    for (int o0 = 0; o0 < O; o0 += OT) {
+      const int oc = min(OT, O - o0);
+      head::stream_members<OT, VW>(
+          h, head::F32Weights{w2 + (size_t)o0 * H, H}, member_ptr, B, H, oc,
+          P, block, n_tiles, lanes, mb_cap, M3Store{y, P, O, o0, oc});
+    }
+  }
 }
 
-// the column grid of dW: one thread per VEC columns
-bool col_grid(long long H, int vec, unsigned* gx) {
-  const long long n = (H / vec + THREADS - 1) / THREADS;
-  if (n > 0x7fffffffLL) return false;
-  *gx = (unsigned)n;
-  return true;
+template <int OT, int VW>
+__device__ __forceinline__ void dw_body(M3_DW_PARAMS) {
+  if constexpr (OT < head::MAX_O) {
+    head::stream_bwd<OT, VW, false>(nullptr, dy, O, h, nullptr, seg, nullptr,
+                                    dw, B, H, O, P, block, lanes, rows);
+  } else {
+    for (int o0 = 0; o0 < O; o0 += OT)
+      head::stream_bwd<OT, VW, false>(nullptr, dy + o0, O, h, nullptr, seg,
+                                      nullptr, dw + (size_t)o0 * H, B, H,
+                                      min(OT, O - o0), P, block, lanes, rows);
+  }
 }
+
+template <int OT>
+__global__ void __launch_bounds__(head::MAX_THREADS)
+m3_fwd_stream_kernel_vec4(M3_FWD_PARAMS) {
+  fwd_body<OT, 4>(M3_FWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(head::MAX_THREADS)
+m3_fwd_stream_kernel_scalar(M3_FWD_PARAMS) {
+  fwd_body<OT, 1>(M3_FWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(head::MAX_THREADS)
+m3_dw_stream_kernel_vec4(M3_DW_PARAMS) {
+  dw_body<OT, 4>(M3_DW_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(head::MAX_THREADS)
+m3_dw_stream_kernel_scalar(M3_DW_PARAMS) {
+  dw_body<OT, 1>(M3_DW_ARGS);
+}
+
+template <int OT>
+int fwd_launch(const float* h, const float* w2, const int* member_ptr,
+               float* y, int B, int H, int O, int P, int block,
+               cudaStream_t s) {
+  const void* ptrs[] = {h, w2};
+  head::FwdShape sh;
+  size_t smem;
+  if (!head::head_launch_shape<OT>(
+          H, block, head::takes_vec4(block, H, ptrs, 2), sh, smem))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes, mb_cap = sh.mb_cap;
+  auto* kernel = sh.vec ? m3_fwd_stream_kernel_vec4<OT>
+                        : m3_fwd_stream_kernel_scalar<OT>;
+  kernel<<<(unsigned)n_tiles, head::MAX_THREADS, smem, s>>>(M3_FWD_ARGS);
+  return (int)cudaGetLastError();
+}
+
+template <int OT>
+int dw_launch(const float* h, const float* dy, const int* seg, float* dw,
+              int B, int H, int O, int P, int block, cudaStream_t s) {
+  const void* ptrs[] = {h, dw};
+  head::BwdShape sh;
+  if (!head::bwd_shape<OT>(B, H, block, head::takes_vec4(block, H, ptrs, 2),
+                           sh))
+    return (int)cudaErrorInvalidValue;
+  const int lanes = sh.lanes, rows = sh.rows;
+  auto* kernel = sh.vec ? m3_dw_stream_kernel_vec4<OT>
+                        : m3_dw_stream_kernel_scalar<OT>;
+  kernel<<<(unsigned)sh.n_tiles, head::MAX_THREADS, sh.smem, s>>>(
+      M3_DW_ARGS);
+  return (int)cudaGetLastError();
+}
+
+// the class tile of the two streaming kernels: O, or 16 at a time beyond
+int classes_tile(int O) { return head::classes_tile(std::min(O, head::MAX_O)); }
 
 }  // namespace
 
@@ -348,19 +343,20 @@ bool col_grid(long long H, int vec, unsigned* gx) {
 extern "C" int m3_fwd_f32(const float* h, const float* w2,
                           const int* member_ptr, float* y, int B, long long H,
                           int O, int P, int block, void* stream) {
-  if (bad_args(B, H, O, P, block)) return (int)cudaErrorInvalidValue;
+  if (bad_args(B, H, O, P, block) || H > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const long long n_btiles = (B + BT - 1) / BT;
-  const long long n_grid = (n_btiles * P + WARPS - 1) / WARPS;
-  if (n_grid > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool v4 = vec4(H, block, h, w2);
-  auto* fn = v4 ? (O <= 4 ? fwd<4, 4> : fwd<4, 16>)
-                : (O <= 4 ? fwd<1, 4> : fwd<1, 16>);
-  fn(h, w2, member_ptr, y, B, H, O, P, block, (int)n_btiles,
-     (unsigned)n_grid, s);
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int h32 = (int)H;
+  switch (classes_tile(O)) {
+    case 2: return fwd_launch<2>(h, w2, member_ptr, y, B, h32, O, P, block, s);
+    case 4: return fwd_launch<4>(h, w2, member_ptr, y, B, h32, O, P, block, s);
+    case 8: return fwd_launch<8>(h, w2, member_ptr, y, B, h32, O, P, block, s);
+    default:
+      return fwd_launch<16>(h, w2, member_ptr, y, B, h32, O, P, block, s);
+  }
 }
+
 
 // dy (B, P, O), w2 (O, H), seg (H / block,) → dh (B, H).
 extern "C" int m3_dh_f32(const float* dy, const float* w2, const int* seg,
@@ -368,7 +364,8 @@ extern "C" int m3_dh_f32(const float* dy, const float* w2, const int* seg,
                          int block, void* stream) {
   if (bad_args(B, H, O, P, block)) return (int)cudaErrorInvalidValue;
   if (B == 0 || H == 0) return 0;
-  const bool v4 = vec4(H, block, w2, dh);
+  const void* ptrs[] = {w2, dh};
+  const bool v4 = head::takes_vec4(block, H, ptrs, 2);
   auto* fn = v4 ? (O <= 4 ? dh_launch<4, 4>
                           : O <= 16 ? dh_launch<4, 16> : dh_launch<4, 0>)
                 : (O <= 4 ? dh_launch<1, 4>
@@ -377,18 +374,20 @@ extern "C" int m3_dh_f32(const float* dy, const float* w2, const int* seg,
             static_cast<cudaStream_t>(stream));
 }
 
+
 // h (B, H), dy (B, P, O), seg (H / block,) → dw2 (O, H).
 extern "C" int m3_dw_f32(const float* h, const float* dy, const int* seg,
                          float* dw, int B, long long H, int O, int P,
                          int block, void* stream) {
-  if (bad_args(B, H, O, P, block)) return (int)cudaErrorInvalidValue;
+  if (bad_args(B, H, O, P, block) || H > INT_MAX)
+    return (int)cudaErrorInvalidValue;
   if (H == 0) return 0;
-  const bool v4 = vec4(H, block, h, dw);
-  unsigned gx;
-  if (!col_grid(H, v4 ? 4 : 1, &gx)) return (int)cudaErrorInvalidValue;
-  auto* fn = v4 ? (O <= 4 ? dw_launch<4, 4> : dw_launch<4, 16>)
-                : (O <= 4 ? dw_launch<1, 4> : dw_launch<1, 16>);
-  fn(h, dy, seg, dw, B, H, O, P, block, gx,
-     static_cast<cudaStream_t>(stream));
-  return (int)cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  const int h32 = (int)H;
+  switch (classes_tile(O)) {
+    case 2: return dw_launch<2>(h, dy, seg, dw, B, h32, O, P, block, s);
+    case 4: return dw_launch<4>(h, dy, seg, dw, B, h32, O, P, block, s);
+    case 8: return dw_launch<8>(h, dy, seg, dw, B, h32, O, P, block, s);
+    default: return dw_launch<16>(h, dy, seg, dw, B, h32, O, P, block, s);
+  }
 }

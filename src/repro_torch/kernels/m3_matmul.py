@@ -5,13 +5,22 @@
 ``repro/kernels/m3_matmul.py::m3_matmul_fwd``): h (B, H), w2 (O, H) f32
 and the members' hidden-block ranges in CSR form (``infer_head.member_ptr``,
 (P + 1,) int32 in units of ``block`` units) → y (B, P, O) f32,
-``y[b, m, o] = Σ_{j in member m} h[b, j]·w2[o, j]``.
+``y[b, m, o] = Σ_{j in member m} h[b, j]·w2[o, j]``.  It is the output
+heads' logits without a bias, on their streaming core
+(``csrc/head_stream.cuh``, as ``infer_head.py``'s f32 kernel runs it).
 
 ``m3_matmul_dh_cuda`` (entry ``m3_dh_f32``, the port of
 ``m3_matmul.py::m3_matmul_dh``): dy (B, P, O), w2 and the per-block member
-ids (H / block,) int32 → dh (B, H).  ``m3_matmul_dw_cuda`` (entry
-``m3_dw_f32``, the port of ``m3_matmul.py::m3_matmul_dw``): dy, h and the
-same ids → dw2 (O, H).
+ids (H / block,) int32 → dh (B, H), a store stream of its own.
+``m3_matmul_dw_cuda`` (entry ``m3_dw_f32``, the port of
+``m3_matmul.py::m3_matmul_dw``): dy, h and the same ids → dw2 (O, H), the
+loss head's backward role without dh and d_per (``csrc/head_bwd.cuh``).
+
+The forward and dW take any class count (16 at a time inside the launch)
+and H up to 2**31 − 1.  Each launch takes the vec4 or the scalar instance
+of its kernel by ``kernel_path`` — ``infer_head.kernel_path``, the rule of
+the C code — over the tensors it walks 4 units at a time: h and w2 for the
+forward, h and dw2 for dW.
 
 Each ``*_plain`` function is the same function in plain PyTorch: the
 forward in the paper's scatter-add form (``index_add_`` over the
@@ -25,12 +34,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.infer_head import kernel_path
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 fwd_launches = 0      # the forward
 dh_launches = 0       # the backward's dh
 dw_launches = 0       # the backward's dW
 MAX_BLOCK = 128       # widest hidden block the kernels take
+MAX_HIDDEN = 2**31 - 1  # H the forward's and dW's int indices reach
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -66,11 +77,14 @@ def m3_matmul_dw_plain(dy, h, block_seg_ids, *, block: int):
     return torch.einsum("bj,bjo->oj", h, dy[:, seg, :])
 
 
-def _check(where: str, ref, named, block: int):
+def _check(where: str, ref, named, block: int, hidden: int | None = None):
     _build.check_tensors(where, ref, *named)
     if not 1 <= block <= MAX_BLOCK:
         raise ValueError(f"{where}: block {block} outside the kernel's "
                          f"[1, {MAX_BLOCK}]")
+    if hidden is not None and hidden > MAX_HIDDEN:
+        raise ValueError(f"{where}: H = {hidden} past the kernel's "
+                         f"{MAX_HIDDEN}")
 
 
 def m3_matmul_fwd_cuda(h, w2, member_ptr, *, block: int):
@@ -79,7 +93,7 @@ def m3_matmul_fwd_cuda(h, w2, member_ptr, *, block: int):
     _check("m3_matmul_fwd", h, (("h", h, torch.float32),
                                 ("w2", w2, torch.float32),
                                 ("member_ptr", member_ptr, torch.int32)),
-           block)
+           block, h.shape[-1])
     b, hh = h.shape
     o, p = w2.shape[0], member_ptr.shape[0] - 1
     if w2.dim() != 2 or w2.shape[1] != hh or hh % block or p < 1:
@@ -132,7 +146,7 @@ def m3_matmul_dw_cuda(dy, h, block_seg_ids, *, block: int):
     _check("m3_matmul_dw", dy, (("dy", dy, torch.float32),
                                 ("h", h, torch.float32),
                                 ("block_seg_ids", block_seg_ids,
-                                 torch.int32)), block)
+                                 torch.int32)), block, h.shape[-1])
     b, p, o, hh = _check_grad("m3_matmul_dw", dy, h, block_seg_ids, block)
     if h.shape[0] != b:
         raise ValueError("m3_matmul_dw: inconsistent shapes")

@@ -1167,6 +1167,93 @@ def test_m3_matmul_empty_member_and_autograd_on_card(dev):
                               block=129)
 
 
+@pytest.mark.parametrize("o", [2, 5, 16, 20])
+@pytest.mark.parametrize("sizes,block,b,offset", [
+    ((16, 5, 7) * 30, 8, 32, 0),       # path 4e's head widths: 8 lanes
+    ((100, 1, 57, 128) * 5, 128, 32, 0),   # the paper's members
+    ((128, 5), 8, 9, 0),               # H 136: one 128-unit tile and 8 more
+    ((128,) * 2112 + (8,), 8, 5, 0),   # H 270,344: 264 tiles of 1,024 (one
+    # lane) and 8 units more
+    ((5, 12, 7), 8, 11, 1),            # h an unaligned view: scalar
+])
+def test_m3_matmul_matches_the_heads(dev, sizes, block, o, b, offset):
+    """The M3 forward runs the heads' streaming core and dW the loss head's
+    backward role: y is ``infer_head``'s logits with a zero bias and dW
+    ``loss_head_bwd``'s dW with d_per = 1, bit for bit, wherever both take
+    the same instance (``kernel_path``); beyond 16 classes y chunk by chunk
+    of 16 classes against ``infer_head`` on the chunk's rows of w2 (the
+    sums do not depend on the class tile), dW's first chunk against the
+    loss head's (the same class tile), and both against the plain
+    versions.  Each wrapper launches its kernel once, under its own name
+    and instance; two launches on the same inputs are bitwise equal."""
+    from repro_torch.core.population import Population
+    from repro_torch.kernels import m3_matmul as m3k
+    pop = Population(4, o, sizes, ("relu",) * len(sizes), block=block)
+    rng = np.random.default_rng(b + block + o)
+    hh, p = pop.total_hidden, pop.num_members
+    store = torch.zeros(b * hh + offset, device=dev)
+    h = store[offset:].view(b, hh)
+    h.copy_(_t(rng.normal(0, 1, (b, hh)) * pop.hidden_mask, dev))
+    w2 = _t(rng.normal(0, 1, (o, hh)), dev)
+    dy = _t(rng.normal(0, 1, (b, p, o)), dev)
+    seg = _t(pop.block_segment_ids, dev, torch.int32)
+    ptr = ihk.member_ptr(seg, p)
+    counts = (m3k.fwd_launches, m3k.dw_launches)
+    y, fwd_names = _kernels_run(
+        lambda: m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=block),
+        "m3_fwd_stream_kernel")
+    dw, dw_names = _kernels_run(
+        lambda: m3k.m3_matmul_dw_cuda(dy, h, seg, block=block),
+        "m3_dw_stream_kernel")
+    assert (m3k.fwd_launches, m3k.dw_launches) == \
+        tuple(c + 1 for c in counts)
+    fwd_path = m3k.kernel_path(block, h, w2)
+    assert len(fwd_names) == 1 and fwd_path in fwd_names[0]
+    assert len(dw_names) == 1 \
+        and m3k.kernel_path(block, h, dw) in dw_names[0]
+    _close(y, m3k.m3_matmul_fwd_plain(*_f64(h, w2, ptr), block=block))
+    _close(dw, m3k.m3_matmul_dw_plain(dy, h, seg, block=block))
+    assert torch.equal(y, m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=block))
+    assert torch.equal(dw, m3k.m3_matmul_dw_cuda(dy, h, seg, block=block))
+    for o0 in range(0, o, ihk.MAX_O):
+        oc = min(ihk.MAX_O, o - o0)
+        wc = w2[o0:o0 + oc]
+        assert ihk.kernel_path(block, h, wc) == fwd_path
+        assert torch.equal(y[..., o0:o0 + oc], ihk.infer_head_cuda(
+            h, wc, torch.zeros(p, oc, device=dev), ptr, block=block))
+    oc = min(ihk.MAX_O, o)
+    dyc = dy[..., :oc].contiguous()
+    dh_l, dw_l = lhk.loss_head_bwd_cuda(torch.ones(p, device=dev), dyc, h,
+                                        w2[:oc], seg, block=block)
+    if lhk.kernel_path(block, h, w2[:oc], dh_l, dw_l) == \
+            m3k.kernel_path(block, h, dw):
+        assert torch.equal(dw[:oc], dw_l)
+
+
+def test_m3_matmul_refuses_a_hidden_axis_past_int32(dev, monkeypatch):
+    """The forward and dW index H as a 32-bit int: their C entries return
+    cudaErrorInvalidValue for H = 2**31 before they touch a pointer, and
+    the wrappers refuse a wider H themselves (here the limit lowered to 8
+    units)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import m3_matmul as m3k
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for entry in ("m3_fwd_f32", "m3_dw_f32"):
+        fn = _build.function("m3_matmul", entry, [P] * 4 + [I, L, I, I, I, P])
+        assert fn(None, None, None, None, 4, 2**31, 2, 1, 8, None) == 1
+    monkeypatch.setattr(m3k, "MAX_HIDDEN", 8)
+    h = torch.randn(3, 16, device=dev)
+    seg = torch.tensor([0, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="past"):
+        m3k.m3_matmul_fwd_cuda(h, torch.randn(2, 16, device=dev),
+                               ihk.member_ptr(seg, 2), block=8)
+    with pytest.raises(ValueError, match="past"):
+        m3k.m3_matmul_dw_cuda(torch.randn(3, 2, 2, device=dev), h, seg,
+                              block=8)
+
+
 # flash attention and the grouped GEMM take f32 or bf16: f32 at the file's
 # tolerance; bf16 attention per element: the kernel rounds each p to bf16
 # (unit roundoff 2^-8) before the PV product, which moves an output by at

@@ -1,7 +1,9 @@
 """The port's M3 held against the JAX package on the CPU: the segment-
-blocked matmul (``ops.m3_matmul``) and its gradients, the four M3
-implementations, and the layered engine's head under ``m3_impl="pallas"``
-and ``"onehot"``.
+blocked matmul (``ops.m3_matmul``) and its gradients (also at path 4e's
+member widths), the four M3 implementations, and the layered engine's head
+under ``m3_impl="pallas"`` and ``"onehot"``; and the instance rule of the
+M3 kernels (``m3_matmul.kernel_path``), which run only on the card
+(tests/test_torch_kernels.py).
 
 Same numpy inputs go through both packages.  JAX runs its Pallas kernels
 in interpret mode, as tests/test_m3.py does; the port runs each kernel's
@@ -27,6 +29,7 @@ from repro_torch.core.m3 import M3_IMPLS as TM3
 from repro_torch.core.population import LayeredPopulation as TLayered
 from repro_torch.core.population import Population as TPopulation
 from repro_torch.core.tree import tree_leaves
+from repro_torch.kernels import infer_head as ihk
 from repro_torch.kernels import m3_matmul as m3k
 from repro_torch.kernels import ops as tops
 from repro_torch.launch import launch_count as tlc
@@ -136,6 +139,77 @@ def test_m3_plain_versions_give_an_empty_member_zero():
     torch.testing.assert_close(dh[:, :8], dy[:, 0] @ w2[:, :8])
     dw = m3k.m3_matmul_dw_plain(dy, h, seg, block=8)
     torch.testing.assert_close(dw[:, 8:], dy[:, 2].t() @ h[:, 8:])
+
+
+def _at(shape, shift: int) -> torch.Tensor:
+    """A float32 tensor whose storage starts ``shift`` floats past a
+    16-byte boundary."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 8)
+    base = (-buf.data_ptr() // 4) % 4
+    return buf[base + shift:base + shift + n].view(shape)
+
+
+@pytest.mark.parametrize("block,shifts,cols,o,want", [
+    (128, (0, 0), 1024, 2, "vec4"),   # path 4d's members
+    (8, (0, 0), 64, 2, "vec4"),       # path 4e's head
+    (4, (0, 0), 12, 5, "vec4"),
+    (8, (0, 0), 64, 20, "vec4"),      # past 16 classes: the same instance
+    (8, (1, 0), 64, 20, "scalar"),    # h 4 bytes off a 16-byte boundary
+    (8, (0, 2), 64, 20, "scalar"),    # w2 (forward) or dw2 (dW) off
+    (128, (3, 1), 1024, 2, "scalar"),
+    (6, (0, 0), 36, 2, "scalar"),     # a block not a multiple of 4
+    (1, (0, 0), 64, 16, "scalar"),
+])
+def test_kernel_path_rule(block, shifts, cols, o, want):
+    """The instance an M3 forward (h, w2) or dW (h, dw2) launch takes:
+    vec4 where the block and H are multiples of 4 and both tensors start
+    on 16 bytes, else scalar, whatever the class count (beyond 16 the
+    kernels walk the classes 16 at a time in the same instance)."""
+    h, second = _at((3, cols), shifts[0]), _at((o, cols), shifts[1])
+    assert m3k.kernel_path(block, h, second) == want
+
+
+# path 4e's member widths (the depth-3 head's "…,16;…,5;7" padded to 16, 8
+# and 8 units at block 8), and an empty member
+HEAD_WIDTHS = (16, 5, 7, 0, 7, 16, 5, 16)
+
+
+@pytest.mark.parametrize("o", [2, 20])
+def test_m3_at_path_4e_widths_matches_jax(o):
+    """The plain versions, and ``ops.m3_matmul``'s forward and VJP, against
+    JAX's ``ops.m3_matmul`` (interpret) at path 4e's member widths, block 8,
+    with padded units and a member that owns no block (its y is 0 here;
+    the JAX kernel leaves it unwritten, so it is left out there)."""
+    blocks = [-(-w // 8) for w in HEAD_WIDTHS]
+    seg = np.repeat(np.arange(len(HEAD_WIDTHS)), blocks).astype(np.int32)
+    mask = np.concatenate([np.arange(n * 8) < w
+                           for w, n in zip(HEAD_WIDTHS, blocks)])
+    p, hh = len(HEAD_WIDTHS), 8 * sum(blocks)
+    rng = np.random.default_rng(o)
+    h = (rng.normal(0, 1, (7, hh)) * mask).astype(np.float32)
+    w2 = rng.normal(0, 1, (o, hh)).astype(np.float32)
+    dy = rng.normal(0, 1, (7, p, o)).astype(np.float32)
+    jy, vjp = jax.vjp(lambda a, w: jops.m3_matmul(
+        a, w, seg.copy(), p, block_h=8, interpret=True),
+        jnp.asarray(h), jnp.asarray(w2))
+    jdh, jdw = vjp(jnp.asarray(dy))
+    live = np.array(blocks) > 0
+    tseg = _t(seg, torch.int32)
+    plain = (m3k.m3_matmul_fwd_plain(_t(h), _t(w2), ihk.member_ptr(tseg, p),
+                                     block=8),
+             m3k.m3_matmul_dh_plain(_t(dy), _t(w2), tseg, block=8),
+             m3k.m3_matmul_dw_plain(_t(dy), _t(h), tseg, block=8))
+    th = _t(h).requires_grad_(True)
+    tw = _t(w2).requires_grad_(True)
+    ty = tops.m3_matmul(th, tw, seg, p, block_h=8)
+    via_ops = (ty.detach(), *torch.autograd.grad(ty, (th, tw), _t(dy)))
+    for y, dh, dw in (plain, via_ops):
+        assert torch.all(y[:, ~live] == 0)
+        np.testing.assert_allclose(y[:, live].numpy(),
+                                   np.asarray(jy)[:, live], **FWD)
+        np.testing.assert_allclose(dh.numpy(), np.asarray(jdh), **GRAD)
+        np.testing.assert_allclose(dw.numpy(), np.asarray(jdw), **GRAD)
 
 
 @pytest.mark.parametrize("impl", sorted(JM3))
