@@ -182,11 +182,22 @@ Phases (any failure exits non-zero, and no result line is printed):
      (y; y and g'), ``fused_layer_int8``, ``block_diag_fwd`` (y and dh)
      and ``block_diag_dw`` at both depth-3 mid layers, with the parent's
      device times of rows 4, 5, 11, 12, 13 and 15 (``parent_*device_ms``);
+     the rows of ``infer_head``, ``infer_head_int8``, ``loss_head_fwd``
+     and ``loss_head_bwd`` at the depth-3 head path 4e's CSR product as
+     their library call (``depth3_library_*``: the logits only, on the
+     dequantized weight for int8; dh only for ``loss_head_bwd``), held to
+     the plain version and timed by events and ``torch.profiler``; the f32
+     flash attention at qwen3-1.7b's and h2o-danube-3-4b's shapes
+     (``danube_f32_*``) its device time, two launches bitwise equal and
+     (``--parent``) the parent kernel's device time and the max
+     |difference| of the two trees' outputs (``*parent_*``);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
      ``seg_act_bwd`` have none, and say why; the two rows of phase 6 carry
-     their bf16 runs as ``bf16_*`` fields, each run's design as ``*path``
+     their bf16 runs as ``bf16_*`` fields (flash also danube's f32 and
+     bf16 runs as ``danube_f32_*``, ``danube_bf16_*``), each run's design
+     as ``*path``
      and the tensor-core kernels' ptxas report as ``ptxas``), then the
      card's line
      ``{"ok": true, "device": {...}}`` last.
@@ -985,7 +996,8 @@ def _moe_ids(counts, block_t: int, device):
 
 def lm_inputs():
     """The phase's inputs, made on the card from a seeded generator:
-    qwen3-1.7b's q, k, v (f32, and a bf16 copy), h2o-danube-3-4b's (bf16),
+    qwen3-1.7b's q, k, v (f32, and a bf16 copy), h2o-danube-3-4b's (f32,
+    and a bf16 copy),
     deepseek-moe-16b's capacity buffer and expert weights for both
     projections (f32, and bf16 copies; weights at the 1/sqrt(fan-in) scale
     of an init), and a seeded top-6 routing of 4096 tokens with each
@@ -1002,7 +1014,7 @@ def lm_inputs():
     qkv = (randn(c["b"], c["h"], c["s"], c["dh"]),
            randn(c["b"], c["hkv"], c["s"], c["dh"]),
            randn(c["b"], c["hkv"], c["s"], c["dh"]))
-    qkv_d = tuple(randn(d["b"], n, d["s"], d["dh"]).bfloat16()
+    qkv_d = tuple(randn(d["b"], n, d["s"], d["dh"])
                   for n in (d["h"], d["hkv"], d["hkv"]))
     m = MOE
     e, dm, f = m["experts"], m["d"], m["f"]
@@ -1025,7 +1037,8 @@ def lm_inputs():
     x_r[start[sorted_e] + rank] = randn(m["tokens"], dm)[order // m["top_k"]]
     moe["ragged"] = {"ids": ids_r, "x": x_r,
                      "counts": counts.tolist()}
-    return {"qwen3": qkv, "danube": qkv_d, "moe": moe}
+    return {"qwen3": qkv, "danube_f32": qkv_d,
+            "danube": tuple(t.bfloat16() for t in qkv_d), "moe": moe}
 
 
 def lm_path(inp):
@@ -1297,10 +1310,47 @@ def check_lm_outputs(inp, out):
     return errs
 
 
+def _flash_f32_fields(kernel, qkv, scale, causal, window, parent_libs):
+    """The f32 flash kernel's device time (``device_ms``), two launches on
+    the same inputs bitwise equal (``bitwise_repeat``), and with
+    ``parent_libs`` the parent's f32 kernel through its C entry
+    ``flash_attn_fwd_f32`` (signature unchanged): its device time
+    (``parent_device_ms``) and the max |difference| of the two trees'
+    outputs (``parent_max_abs_err``)."""
+    import ctypes
+
+    import torch
+    out = kernel()
+    _require(torch.equal(out, kernel()), "flash_attention f32: two "
+             "launches on the same inputs differ")
+    fields = {"bitwise_repeat": True,
+              "device_ms": _device_ms(kernel, "flash_attn_fwd_kernel", 10)}
+    if parent_libs:
+        q, k, v = qkv
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn = parent_libs["flash_attn"].flash_attn_fwd_f32
+        fn.argtypes, fn.restype = [P] * 4 + [I] * 6 + [F, I, I, P], I
+        o = torch.empty_like(q)
+        run = partial(fn, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), q.shape[0], q.shape[1], k.shape[1],
+                      q.shape[2], k.shape[2], q.shape[3], scale, int(causal),
+                      window, torch.cuda.current_stream().cuda_stream)
+        _require(run() == 0, "the parent's flash_attn_fwd_f32 failed")
+        torch.cuda.synchronize()
+        fields["parent_max_abs_err"] = (o - out).abs().max().item()
+        fields["parent_device_ms"] = _device_ms(run, "flash_attn_fwd_kernel",
+                                                10)
+    print(f"[flash_attention f32, dh {qkv[0].shape[-1]}] {fields}",
+          flush=True)
+    return fields
+
+
 def _prefixed(prefix: str, row: dict) -> dict:
     keys = ("max_abs_err", "rtol", "atol", "atol_per_element", "ms",
             "device_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms",
+            "bound_by", "library_ms", "library_device_ms",
+            "library_max_abs_err", "library", "bitwise_repeat",
+            "parent_device_ms", "parent_max_abs_err",
             "library_none", "path", "log_probs_max_abs_err", "log_probs_ms",
             "log_probs_device_ms", "fma_instance", "bitwise_f32_dequantized",
             "train_max_abs_err", "train_ms", "train_plain_ms",
@@ -1348,22 +1398,28 @@ def _ptxas(lib: str) -> dict:
     return out
 
 
-def lm_rows(inp, lm_n, designs, ptxas):
+def lm_rows(inp, lm_n, designs, ptxas, parent_libs=None):
     """The two rows of the kernel API: ``flash_attention`` at qwen3-1.7b's
     shape in f32 (library: ``scaled_dot_product_attention`` with
     ``is_causal`` and ``enable_gqa``), its bf16 times beside them
-    (``bf16_*``), and h2o-danube-3-4b's windowed bf16 forward
-    (``danube_*``; library: the same call with the window as a boolean
-    mask; the plain version by head group); ``moe_gemm`` as both
+    (``bf16_*``), and h2o-danube-3-4b's windowed forward in f32
+    (``danube_f32_*``) and bf16 (``danube_bf16_*``; library: the same call
+    with the window as a boolean mask; the plain version by head group);
+    the f32 runs also their kernel's device time (``device_ms``), two
+    launches bitwise equal, and with ``parent_libs`` (``--parent``) the
+    parent's f32 kernel through its C entry: its device time
+    (``parent_device_ms``) and the max |difference| of the two trees'
+    outputs (``parent_max_abs_err``); ``moe_gemm`` as both
     deepseek-moe-16b projections over the capacity buffer summed, f32
     (library: ``torch.bmm`` on the (64, 512, D) buffer, the einsum of
     ``nn/ffn.py::_expert_ffn``), bf16 beside it, and the ragged routing's
     up projection in f32 (``ragged_*``) and bf16 (``ragged_bf16_*``).
     Each run carries the design phase 6 saw the same shape and dtype run
     (``*path``: ``designs``, from ``lm_path``), and each row the ptxas
-    report of its library's kernels (``ptxas``, from ``_ptxas``).  The
-    ragged rows' library call is ``torch._grouped_mm`` over the runs where
-    this PyTorch has it and it matches the plain version."""
+    report of its library's kernels (``ptxas``, from ``_ptxas``; the f32
+    flash kernel's qwen3-1.7b instance must not spill).  The ragged rows'
+    library call is ``torch._grouped_mm`` over the runs where this PyTorch
+    has it and it matches the plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -1379,15 +1435,18 @@ def lm_rows(inp, lm_n, designs, ptxas):
         if tol is None:
             tol = _flash_bf16_tol(plain, *qkv, scale=sc, causal=causal,
                                   window=window)
+        kernel = partial(fak.flash_attention_cuda, *qkv, scale=sc,
+                         causal=causal, window=window)
         row = compare(
-            "flash_attention",
-            partial(fak.flash_attention_cuda, *qkv, scale=sc, causal=causal,
-                    window=window),
+            "flash_attention", kernel,
             partial(plain, *qkv, scale=sc, causal=causal, window=window),
             library, _nbytes(*qkv, q),
             4 * q.shape[0] * q.shape[1] * q.shape[3] * n_pairs,
             lm_n["flash_attention"], iters, tol, peak)
         row["path"] = path
+        if q.dtype == torch.float32:
+            row.update(_flash_f32_fields(kernel, qkv, sc, causal, window,
+                                         parent_libs))
         return row
 
     q, k, v = inp["qwen3"]
@@ -1403,16 +1462,29 @@ def lm_rows(inp, lm_n, designs, ptxas):
         lambda: sdpa(q16, k16, v16, is_causal=True, scale=sc,
                      enable_gqa=True), 5, designs["qwen3_bf16"])))
     del q16, k16, v16
-    qd, kd, vd = inp["danube"]
     sd = DANUBE["dh"] ** -0.5
     mask = fak.attention_mask(DANUBE["s"], DANUBE["s"], causal=True,
-                              window=DANUBE["window"], device=qd.device)
-    row.update(_prefixed("danube_bf16", flash_row(
-        (qd, kd, vd), True, DANUBE["window"], None,
-        BF16_FLOP_PER_S, partial(_by_head_group, fak.flash_attn_dense),
-        lambda: sdpa(qd, kd, vd, attn_mask=mask, scale=sd, enable_gqa=True),
-        3, designs["danube_bf16"])))
+                              window=DANUBE["window"], device=q.device)
+    # danube in f32 (timed here only: phase 6 runs its bf16 forward) and
+    # bf16
+    for prefix, key, tol, peak in (
+            ("danube_f32", "danube_f32", (RTOL, ATOL), F32_FLOP_PER_S),
+            ("danube_bf16", "danube", None, BF16_FLOP_PER_S)):
+        qkv_d = inp[key]
+        row.update(_prefixed(prefix, flash_row(
+            qkv_d, True, DANUBE["window"], tol, peak,
+            partial(_by_head_group, fak.flash_attn_dense),
+            partial(sdpa, *qkv_d, attn_mask=mask, scale=sd,
+                    enable_gqa=True), 3,
+            designs.get(prefix) or fak.kernel_path(qkv_d[0].dtype,
+                                                   DANUBE["dh"]))))
+        del qkv_d
     row["ptxas"] = ptxas["flash_attn"]
+    qwen3_instance = [r for name, r in row["ptxas"].items()
+                      if "flash_attn_fwd_kernel<128>" in name]
+    _require(len(qwen3_instance) == 1
+             and qwen3_instance[0].get("spill_bytes") == 0,
+             f"flash_attn_fwd_kernel<128> spills: {qwen3_instance}")
     rows = {"flash_attention": row}
 
     mo, bt = inp["moe"], MOE["block_t"]
@@ -1970,8 +2042,6 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     dy_b = torch.randn(BATCH, lp3k.num_members, o, generator=gen3,
                        device=dev)
     blk_b = lp3k.block
-    no_call = ("no single PyTorch call: the members are 8 and 16 units "
-               "wide")
     csr_b = _m3_csr_library(hin, w2_b, seg_b, dy_b, blk_b)
     _require(tuple(hin.shape) == (BATCH, plast.total_hidden),
              "the depth-3 population's last hidden layer is not the head's "
@@ -2059,20 +2129,36 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     work = {"loss_head_fwd": (_nbytes(*lh_b, per_b, dl_b), flops_b),
             "loss_head_bwd": (_nbytes(*lb_b, dh_b, dw_b), 2 * flops_b)}
     fields = _loss_head_fields(kernels, blk_b, hin, w2_b, dh_b, dw_b)
+    # the library calls of rows 7-10 here: path 4e's CSR products on the
+    # same head (_m3_csr_library), the logits only (rows 7-9) and dh only
+    # (row 10), each held to the plain version's logits or dh
+    ih_b = (hin, w2_b, p3k["b_out"], ptr_b)
+    logits_b = ihk.infer_head_plain(*ih_b, block=blk_b)
+    csr_dh = _m3_csr_library(hin, w2_b, seg_b, dl_b, blk_b)["m3_matmul_dh"]
+    libraries = {
+        "loss_head_fwd": (*csr_b["m3_matmul_fwd"], logits_b,
+                          "torch.matmul (CSR), logits only", p3k["b_out"]),
+        "loss_head_bwd": (*csr_dh, plains["loss_head_bwd"]()[0],
+                          "torch.matmul (CSR), dh only")}
     for key, kernel in kernels.items():
-        row = compare(key, kernel, plains[key], no_call, *work[key], None, 50,
+        row = compare(key, kernel, plains[key], libraries[key][0],
+                      *work[key], None, 50,
                       label=f"{key} at the depth-3 head")
         row.update(fields[key])
+        row.update(_depth3_head_library(key, *libraries[key]))
         rows[key].update(_prefixed("depth3", row))
 
     # ---- infer_head at the same head, the serving forward's last launch
-    ih_b = (hin, w2_b, p3k["b_out"], ptr_b)
     y_b = ihk.infer_head_cuda(*ih_b, block=blk_b)
     row = compare("infer_head", partial(ihk.infer_head_cuda, *ih_b,
                                         block=blk_b),
-                  partial(ihk.infer_head_plain, *ih_b, block=blk_b), no_call,
-                  _nbytes(*ih_b, y_b), flops_b, None, 50,
-                  label="infer_head at the depth-3 head")
+                  partial(ihk.infer_head_plain, *ih_b, block=blk_b),
+                  csr_b["m3_matmul_fwd"][0], _nbytes(*ih_b, y_b), flops_b,
+                  None, 50, label="infer_head at the depth-3 head")
+    row.update(_depth3_head_library("infer_head", *csr_b["m3_matmul_fwd"],
+                                    logits_b,
+                                    "torch.matmul (CSR), logits only",
+                                    p3k["b_out"]))
     row["log_probs_max_abs_err"] = _close(
         "infer_head log_probs at the depth-3 head: kernel vs plain",
         ihk.infer_head_cuda(*ih_b, block=blk_b, log_probs=True),
@@ -2085,11 +2171,21 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     # launch, on the int8 path's last hidden layer
     ih8_b = (hin8, q3k["w_out"], q3k["w_out_scale"], q3k["b_out"], ptr_b)
     y8_b = ihk.infer_head_int8_cuda(*ih8_b, block=blk_b)
+    w2_b8 = q3k["w_out"].float() * q3k["w_out_scale"].repeat_interleave(
+        blk_b)[None, :]  # dequantized, as the int8 plain version does
+    csr8 = _m3_csr_library(hin8, w2_b8, seg_b, dy_b,
+                           blk_b)["m3_matmul_fwd"]
     row = compare("infer_head_int8", partial(ihk.infer_head_int8_cuda, *ih8_b,
                                              block=blk_b),
                   partial(ihk.infer_head_int8_plain, *ih8_b, block=blk_b),
-                  no_call, _nbytes(*ih8_b, y8_b), flops_b, None, 50,
+                  csr8[0], _nbytes(*ih8_b, y8_b), flops_b, None, 50,
                   label="infer_head_int8 at the depth-3 head")
+    row.update(_depth3_head_library(
+        "infer_head_int8", *csr8,
+        ihk.infer_head_int8_plain(*ih8_b, block=blk_b),
+        "torch.matmul (CSR) on the dequantized weight, logits only",
+        q3k["b_out"]))
+    del w2_b8, csr8
     row["log_probs_max_abs_err"] = _close(
         "infer_head_int8 log_probs at the depth-3 head: kernel vs plain",
         ihk.infer_head_int8_cuda(*ih8_b, block=blk_b, log_probs=True),
@@ -2327,10 +2423,10 @@ def _infer_head_int8_fields(args, block):
 
 def parent_libs(parent: Path) -> dict:
     """``--parent``: the ``infer_head``, ``loss_head``, ``fused_input``,
-    ``block_diag``, ``fused_layer`` and ``m3_matmul`` kernel libraries of
-    another checkout of the repository, built by that tree's own
-    ``_build.build_all`` in a subprocess (at once where that tree's own run
-    has built them): {name: ctypes.CDLL}."""
+    ``block_diag``, ``fused_layer``, ``m3_matmul`` and ``flash_attn``
+    kernel libraries of another checkout of the repository, built by that
+    tree's own ``_build.build_all`` in a subprocess (at once where that
+    tree's own run has built them): {name: ctypes.CDLL}."""
     import ctypes
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from repro_torch.kernels import _build; "
@@ -2341,7 +2437,7 @@ def parent_libs(parent: Path) -> dict:
                          timeout=600)
     paths = json.loads(out.stdout.strip().splitlines()[-1])
     names = ("infer_head", "loss_head", "fused_input", "block_diag",
-             "fused_layer", "m3_matmul")
+             "fused_layer", "m3_matmul", "flash_attn")
     print(f"--parent {parent}: {[paths[k] for k in names]}", flush=True)
     return {k: ctypes.CDLL(paths[k]) for k in names}
 
@@ -2453,6 +2549,21 @@ def _m3_csr_library(h, w2, seg, dy, block):
         "m3_matmul_dh": (partial(torch.matmul, w, dyt), lambda d: d.t()),
         "m3_matmul_dw": (partial(torch.sparse.sampled_addmm, pattern, dyt, h,
                                  beta=0.0), dw_dense)}
+
+
+def _depth3_head_library(name, call, to_kernel, want, label, bias=None):
+    """A head row's CSR library call at the depth-3 head (``call`` and
+    ``to_kernel`` from ``_m3_csr_library``): its result (plus ``bias``,
+    outside the timed call, where ``want`` is the logits) held to the plain
+    version, its device time and its name, as fields of the row."""
+    got = to_kernel(call())
+    fields = {"library_max_abs_err": _close(
+                  f"{name} at the depth-3 head: CSR library call vs plain",
+                  got if bias is None else got + bias, want),
+              "library_device_ms": _device_ms(call, "", 50),
+              "library": label}
+    print(f"[{name} at the depth-3 head] {fields}", flush=True)
+    return fields
 
 
 def _m3_on_heads(at_a, at_b):
@@ -2799,7 +2910,8 @@ def main() -> int:
                     help="another checkout of the repository (e.g. the "
                     "parent commit's git archive): hold the output heads', "
                     "the path-4d M3 dW's, the input-layer and mid-layer "
-                    "outputs bitwise to its kernels'")
+                    "outputs bitwise to its kernels', and time its f32 "
+                    "flash attention beside this tree's")
     args = ap.parse_args()
     try:
         import torch
@@ -3005,7 +3117,7 @@ def main() -> int:
                        unfused_serve_n, unfused_train_n, m3_n, parent)
     gc.collect()
     torch.cuda.empty_cache()
-    rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas))
+    rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas, parent))
     for row, lib, words in (
             ("fused_input", "fused_input", ("fused_input_kernel", "float")),
             ("fused_input_int8", "fused_input",

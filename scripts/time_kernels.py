@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time a set of the population kernels of one source tree on the card.
 
-    python3 scripts/time_kernels.py TREE LABEL --set mid|heads
+    python3 scripts/time_kernels.py TREE LABEL --set mid|heads|flash
             [--population smoke|mixed]
     python3 scripts/time_kernels.py --compare LABEL_A LABEL_B
 
@@ -22,11 +22,16 @@ of each kernel of the set, on inputs made from a seeded generator:
   O 2) and path 4e's head (the depth-3 population's last layer: block 8,
   H 32,000, P 3,000) — ``m3_matmul_fwd``, ``m3_matmul_dh``,
   ``m3_matmul_dw``, the f32 ``infer_head`` and ``loss_head_bwd`` (d_per
-  ones) on the same inputs.
+  ones) on the same inputs;
+* ``flash``: the f32 flash attention forward (``flash_attention_cuda``) at
+  ``chip_smoke.py``'s two attention shapes, qwen3-1.7b's (B 2, S 4096, H
+  16, Hkv 8, dh 128, causal) and h2o-danube-3-4b's (B 1, S 8192, H 32, Hkv
+  8, dh 120, causal, window 4096), q, k, v from N(0, 1).
 
 The outputs are saved under ``build/time_kernels/LABEL.pt``; ``--compare``
-says, for each, whether two saved runs are bit for bit equal.  Needs one
-card; a tree's kernels build under its own ``build/kernels``.
+says, for each, whether two saved runs are bit for bit equal, and their
+max |difference|.  Needs one card; a tree's kernels build under its own
+``build/kernels``.
 """
 import argparse
 import sys
@@ -42,6 +47,8 @@ def compare(a: str, b: str) -> bool:
     same = {k: torch.equal(x[k].view(torch.int32), y[k].view(torch.int32))
             for k in x if k in y}
     print(f"{a} and {b} bitwise equal: {same}")
+    print(f"{a} and {b} max |difference|: "
+          + str({k: (x[k] - y[k]).abs().max().item() for k in same}))
     return x.keys() == y.keys() and all(same.values())
 
 
@@ -156,6 +163,25 @@ def heads_runs(cs, dev):
                 dper, dy, h, w2, seg, block=blk), "loss_head_bwd_kernel")}
 
 
+def flash_runs(cs, dev):
+    """Yields (shape, {key: (launch, the word its kernel's trace name
+    holds)}) for the f32 flash attention at qwen3-1.7b's and
+    h2o-danube-3-4b's shapes."""
+    from functools import partial
+
+    import torch
+
+    from repro_torch.kernels import flash_attn as fak
+    gen = torch.Generator(device=dev).manual_seed(26)
+    for name, c in (("qwen3", cs.QWEN3), ("danube", cs.DANUBE)):
+        q, k, v = (torch.randn(c["b"], n, c["s"], c["dh"], generator=gen,
+                               device=dev)
+                   for n in (c["h"], c["hkv"], c["hkv"]))
+        yield name, {"f32": (partial(
+            fak.flash_attention_cuda, q, k, v, scale=c["dh"] ** -0.5,
+            causal=True, window=c["window"]), "flash_attn_fwd_kernel")}
+
+
 def main(tree: Path, label: str, kset: str, kind: str):
     sys.path[:0] = [str(tree / "src"), str(ROOT)]
     import torch
@@ -166,8 +192,9 @@ def main(tree: Path, label: str, kset: str, kind: str):
         raise SystemExit(f"repro_torch came from {repro_torch.__file__}")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    groups = (mid_runs(cs, dev, kind) if kset == "mid"
-              else heads_runs(cs, dev))
+    groups = {"mid": lambda: mid_runs(cs, dev, kind),
+              "heads": lambda: heads_runs(cs, dev),
+              "flash": lambda: flash_runs(cs, dev)}[kset]()
     outs, sums = {}, {}
     for group, runs in groups:  # each group timed before the next is made
         ms = {}
@@ -191,7 +218,7 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("tree", nargs="?", type=Path)
     ap.add_argument("label", nargs="?")
-    ap.add_argument("--set", dest="kset", choices=("mid", "heads"))
+    ap.add_argument("--set", dest="kset", choices=("mid", "heads", "flash"))
     ap.add_argument("--population", choices=("smoke", "mixed"),
                     default="smoke", help="the mid set's population")
     ap.add_argument("--compare", nargs=2, metavar="LABEL")

@@ -52,26 +52,52 @@
 //   unrounded p.  exp(x) is computed as exp2f(x · log2 e).  Only tiles on
 //   the causal diagonal, at the window's edge or past Sk mask per element.
 //   CTAs take the longest causal q tiles first.
-// * f32: the FMA units.  A CTA owns 64 q rows, 256 threads as 16 × 16:
-//   thread (ty, tx) holds the scores of rows 4·ty..4·ty+3 and columns
-//   tx + 16·c (c < 4), and the output of the same rows at columns
-//   tx + 16·c (c < 8, d < dh), all in registers; Q stays in shared memory
-//   for the whole walk; K and then V of a 64-column tile take turns in one
-//   buffer (row stride dh + 4, so the 16-byte reads of a quarter-warp hit
-//   distinct banks), the tile's p in another; a row's max and sum are
-//   shuffles across the 16 lanes that hold it.
+// * f32: the FMA units, in full f32 (no TF32: the f32 API's contract is
+//   its plain version at rtol 1e-4 / atol 1e-5), both products as
+//   register-tiled SIMT GEMMs.  A CTA of 256 threads owns 128 q rows and
+//   walks k tiles of 64 columns.  Thread (ty, tx), tx the lane's low four
+//   bits, owns rows 4·ty..4·ty+3 and 64+4·ty..64+4·ty+3: their scores at
+//   columns tx + 16·c (c < 4, 32 in registers) and their outputs at columns
+//   4·tx + 64·g (g < DP / 64, 4 each: 64 accumulators at DP 128), so a
+//   row's 16 threads are one half-warp and its max is four shuffles.  Q,
+//   K and V are staged row-major in shared memory by 16-byte cp.async
+//   (Q once; K and V each in their own two-stage ring, one cp.async group
+//   each: tile k + 1's K and V land while tile k's two products run, two
+//   __syncthreads a tile).  S = Q·Kᵀ reads a 4-deep slice of each of its
+//   rows and columns as one float4 (128 FMAs for 12 loads: an 8 × 4 tile a
+//   thread cannot grow, since two stages of 128-column K and V tiles do not
+//   fit beside Q); p goes to shared memory column by column, so the PV
+//   product reads a thread's 8 rows of p as two float4s and its 4·DP/64
+//   columns of a V row as DP/64 float4s (64 FMAs for 4 loads at DP 128).
+//   K's, Q's and p's 16-byte chunks are XOR-swizzled by their row (K: r % 8,
+//   Q: r / 4 % 8, p: the column % 8), so that every fragment read and
+//   every p store of a warp is free of bank conflicts.  Instances by the
+//   head width padded to DP = 64 or 128 (flash_attn.fma_width); the d loop
+//   runs to dh.  exp(x) is exp2f(x · log2 e); l is summed per thread and
+//   across the half-warp once, at the end, in one fixed tree; each output
+//   has one owner and one order of sums, so two launches are bitwise
+//   equal.  Only edge tiles mask per element; CTAs take the longest causal
+//   q tiles first.
 //
-// Both skip a k tile that is masked for every row of the CTA only when
-// every row of the CTA has a real column somewhere (then the skipped
-// columns would have added exactly 0); a CTA holding a fully masked row
-// walks every tile, so that row keeps the oracle's value.
+// Both walk only the k tiles [kt_lo, kt_hi) that hold a column some row of
+// the CTA attends, and mask per element only the edge tiles among them
+// (the causal diagonal, the window's edge, past Sk); a CTA holding a fully
+// masked row walks every tile, so that row keeps the oracle's value (the
+// skipped columns of the other rows would have added exactly 0).  The f32
+// rule is flash_attn.tile_walk in Python.
 //
 // What bounds it: operations.  At qwen3-1.7b's training shape (B 2, H 16,
 // S 4096, dh 128, causal) the kernel reads q, k, v and writes o once (f32
 // 201 MB, 0.06 ms at 3.35 TB/s; bf16 half that) for 4·dh FLOP per
 // unmasked (q, k) pair, 137.4 GFLOP: 0.139 ms at bf16's dense tensor-core
 // 989 TFLOP/s, 2.05 ms at the f32 rate of 67.  At h2o-danube-3-4b's (B 1,
-// S 8192, H 32, Hkv 8, dh 120, window 4096) 386.6 GFLOP, 0.391 ms in bf16.
+// S 8192, H 32, Hkv 8, dh 120, window 4096) 386.6 GFLOP, 0.391 ms in bf16
+// and 5.77 ms in f32.  The f32 kernel issues 16 FMAs a shared-memory load
+// in PV and 10.7 in QKᵀ, with 8 warps an SM (registers for 64
+// accumulators, 32 scores and the fragments); at the 65 % of the FMA peak
+// that the SIMT GEMM of moe_gemm.cu reaches it would take 3.2 ms at
+// qwen3-1.7b's shape, about 3 % above the bound's work from the diagonal
+// tiles' masked half.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -81,49 +107,69 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int BQ = 64;            // q rows per CTA
-constexpr int BK = 64;            // k columns per tile
-constexpr int RQ = 4;             // q rows per thread
-constexpr int CK = BK / 16;       // k columns per thread
 constexpr int MAX_DH = 128;
-constexpr int CD = MAX_DH / 16;   // output columns per thread (at most)
-constexpr int PS = BK + 4;        // row stride of the p tile
 constexpr float NEG_INF = -1e30f;
 
-__host__ __device__ constexpr size_t smem_floats(int dh) {
-  return (size_t)BQ * dh + (size_t)BK * (dh + 4) + (size_t)BQ * PS;
+// ---- f32 on the FMA units -----------------------------------------------
+
+namespace f32 {
+
+constexpr int THREADS = 256;
+constexpr int BQ = 128;  // q rows per CTA
+constexpr int BK = 64;   // k columns per tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Q, two stages of K and of V, and the p tile (229,376 bytes at DP 128)
+template <int DP>
+constexpr size_t smem_bytes() {
+  return ((size_t)BQ * DP + 4 * (size_t)BK * DP + (size_t)BK * BQ) *
+         sizeof(float);
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ void from_f32(float v, float* p) { *p = v; }
-
-// rows × dh elements of T from global (row stride dh) into f32 shared
-// memory (row stride ld), in 16-byte pieces; rows ≥ n_real are zeros
-template <typename T>
-__device__ void load_tile(const T* __restrict__ g, float* __restrict__ s,
-                          int rows, int n_real, int dh, int ld) {
-  constexpr int V = 16 / sizeof(T);
-  const int per_row = dh / V;
-  for (int idx = threadIdx.x; idx < rows * per_row; idx += THREADS) {
-    const int r = idx / per_row;
-    const int c = (idx - r * per_row) * V;
-    float* dst = s + r * ld + c;
-    if (r < n_real) {
-      const uint4 raw = __ldg(reinterpret_cast<const uint4*>(
-          g + (size_t)r * dh + c));
-      const T* vals = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<float4*>(dst + e) =
-            make_float4(to_f32(vals[e]), to_f32(vals[e + 1]),
-                        to_f32(vals[e + 2]), to_f32(vals[e + 3]));
-    } else {
-#pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<float4*>(dst + e) = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
+// the k tiles [lo, hi) a CTA of rows q0..q_last walks: every tile if some
+// row lies past Sk + window − 2 (a fully masked row: only a window can
+// empty a row), else only the tiles with a column some row attends
+// (flash_attn.tile_walk is the same rule)
+__device__ __forceinline__ void tile_range(int q0, int q_last, int Sk,
+                                           int causal, int window, int& lo,
+                                           int& hi) {
+  const int n_k = (Sk + BK - 1) / BK;
+  lo = 0;
+  hi = n_k;
+  if (window <= 0 || q_last <= Sk + window - 2) {
+    if (causal) hi = min(n_k, q_last / BK + 1);
+    if (window > 0) lo = max(0, q0 - window + 1) / BK;
   }
+}
+
+// whether the tile at k0 holds a column that is masked for some row of the
+// CTA or lies past Sk: only such a tile masks per element
+__device__ __forceinline__ bool edge_tile(int k0, int q0, int q_last, int Sk,
+                                          int causal, int window) {
+  return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
+         (window > 0 && q_last - k0 >= window);
+}
+
+// ROWS rows of DP floats into shared memory by 16-byte cp.async, from
+// global rows of dh floats: chunk c of row r lands at chunk c ^ swz(r);
+// rows at or past n_real and chunks past dh are zeros
+template <int DP, int ROWS, typename Swz>
+__device__ __forceinline__ void stage(float* s, const float* g, int n_real,
+                                      int dh, Swz swz) {
+  constexpr int CH = DP / 4;
+  static_assert(ROWS * CH % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int u = 0; u < ROWS * CH / THREADS; ++u) {
+    const int idx = u * THREADS + threadIdx.x;
+    const int r = idx / CH, c = idx % CH;
+    const bool in = r < n_real && 4 * c < dh;
+    hopper::cp_async16(s + r * DP + 4 * (c ^ swz(r)),
+                       in ? g + (size_t)r * dh + 4 * c : g, in);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
 __device__ __forceinline__ float row_max16(float v) {
@@ -140,169 +186,230 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
-flash_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, T* __restrict__ o, int H,
-                      int Hkv, int Sq, int Sk, int dh, float scale,
+// grid (B·H, q tiles), 256 threads; DP: the head width padded to 64 or 128
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      int H, int Hkv, int Sq, int Sk, int dh, float scale,
                       int causal, int window) {
+  constexpr int CO = DP / 64;  // 4-column output groups a thread
   extern __shared__ float4 smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);    // BQ × dh
-  float* KVs = Qs + BQ * dh;                          // BK × (dh + 4)
-  float* Ps = KVs + BK * (dh + 4);                    // BQ × PS
-  const int ldkv = dh + 4;
+  // Q (BQ × DP), chunk c of row r at c ^ (r / 4 % 8); K (two stages of
+  // BK × DP), chunk c of row r at c ^ (r % 8); V (two stages, row-major);
+  // p (BK columns of BQ rows), chunk c of column j at c ^ (j % 8)
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + BQ * DP;
+  float* Vs = Ks + 2 * BK * DP;
+  float* Ps = Vs + 2 * BK * DP;
 
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.x;
   const int b = bh / H, h = bh - b * H;
   const int kvh = b * Hkv + h / (H / Hkv);
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest tiles first
   const int q_last = min(q0 + BQ, Sq) - 1;
-  const T* qg = q + ((size_t)bh * Sq + q0) * dh;
-  const T* kg = k + (size_t)kvh * Sk * dh;
-  const T* vg = v + (size_t)kvh * Sk * dh;
+  const float* kg = k + (size_t)kvh * Sk * dh;
+  const float* vg = v + (size_t)kvh * Sk * dh;
+  int kt_lo, kt_hi;
+  tile_range(q0, q_last, Sk, causal, window, kt_lo, kt_hi);
+  const int n_iter = kt_hi - kt_lo;
 
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int r0 = ty * RQ;
+  // tile kt's K and V into stage st, one cp.async group each
+  const auto stage_kv = [&](int kt, int st) {
+    const int k0 = kt * BK;
+    stage<DP, BK>(Ks + st * BK * DP, kg + (size_t)k0 * dh, Sk - k0, dh,
+                  [](int r) { return r & 7; });
+    hopper::cp_async_commit();
+    stage<DP, BK>(Vs + st * BK * DP, vg + (size_t)k0 * dh, Sk - k0, dh,
+                  [](int) { return 0; });
+    hopper::cp_async_commit();
+  };
+  stage<DP, BQ>(Qs, q + ((size_t)bh * Sq + q0) * dh, Sq - q0, dh,
+                [](int r) { return (r >> 2) & 7; });  // in K's first group
+  stage_kv(kt_lo, 0);
 
-  load_tile(qg, Qs, BQ, Sq - q0, dh, dh);
+  // thread (ty, tx), a warp's two ty sharing every tx: rows 4·ty + i and
+  // 64 + 4·ty + i (i < 4), score columns tx + 16·c (c < 4), output
+  // columns 4·tx + 64·g + e (g < CO, e < 4); a row's 16 threads are a
+  // half-warp
+  const int lane = threadIdx.x & 31;
+  const int tx = lane & 15, ty = 2 * (threadIdx.x >> 5) + (lane >> 4);
+  const int qsw = ty & 7, ksw = tx & 7;  // Q's and K's (and p's) swizzles
+  const float* qs = Qs + 4 * ty * DP;
+  const int nch = dh / 4;
 
-  float m[RQ], l[RQ], acc[RQ][CD];
+  float acc[8][4 * CO], m[8], l[8];  // l: this thread's share of the sum
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
+  for (int i = 0; i < 8; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) acc[i][c] = 0.f;
+    for (int j = 0; j < 4 * CO; ++j) acc[i][j] = 0.f;
   }
 
-  // every row of the tile has a real column unless some row lies past
-  // Sk + window − 2 (only a window can empty a row)
-  const bool rows_all_real = window <= 0 || q_last <= Sk + window - 2;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    const int k_end = min(k0 + BK, Sk) - 1;
-    const bool all_masked = (causal && k0 > q_last) ||
-                            (window > 0 && q0 - k_end >= window);
-    if (all_masked && rows_all_real) continue;  // uniform across the CTA
-
-    __syncthreads();  // the previous tile's V and p are consumed
-    load_tile(kg + (size_t)k0 * dh, KVs, BK, Sk - k0, dh, ldkv);
-    __syncthreads();
-
-    // scores: s[i][c] = q[r0 + i] · k[tx + 16c]
-    float s[RQ][CK];
-#pragma unroll
-    for (int i = 0; i < RQ; ++i)
-#pragma unroll
-      for (int c = 0; c < CK; ++c) s[i][c] = 0.f;
-    for (int d = 0; d < dh; d += 4) {
-      float4 qv[RQ], kv[CK];
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(Qs + (r0 + i) * dh + d);
-#pragma unroll
-      for (int c = 0; c < CK; ++c)
-        kv[c] = *reinterpret_cast<const float4*>(KVs + (tx + 16 * c) * ldkv
-                                                 + d);
-#pragma unroll
-      for (int i = 0; i < RQ; ++i)
-#pragma unroll
-        for (int c = 0; c < CK; ++c) {
-          s[i][c] = fmaf(qv[i].x, kv[c].x, s[i][c]);
-          s[i][c] = fmaf(qv[i].y, kv[c].y, s[i][c]);
-          s[i][c] = fmaf(qv[i].z, kv[c].z, s[i][c]);
-          s[i][c] = fmaf(qv[i].w, kv[c].w, s[i][c]);
-        }
+  for (int it = 0; it < n_iter; ++it) {
+    const int st = it & 1;
+    const int k0 = (kt_lo + it) * BK;
+    hopper::cp_async_wait<1>();  // this thread's K (and Q) of tile it
+    __syncthreads();             // everyone's; tile it − 1 is done with
+    if (it + 1 < n_iter) {       // the other stage
+      stage_kv(kt_lo + it + 1, st ^ 1);
+    } else {                     // empty groups keep the waits' counts
+      hopper::cp_async_commit();
+      hopper::cp_async_commit();
     }
 
-    // mask, then the online softmax of each row
+    // s[i][c] = q[row i] · k[column c], each over d in order
+    const float* ks = Ks + st * BK * DP + tx * DP;
+    float s[8][4];
 #pragma unroll
-    for (int i = 0; i < RQ; ++i) {
-      const int qp = q0 + r0 + i;
-      float tile_max = -INFINITY;
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const int kp = k0 + tx + 16 * c;
-        bool ok = true;
-        if (causal) ok = ok && qp >= kp;
-        if (window > 0) ok = ok && qp - kp < window;
-        const float sc = ok ? s[i][c] * scale : NEG_INF;
-        s[i][c] = kp < Sk ? sc : -INFINITY;  // past Sk: out of the sums
-        tile_max = fmaxf(tile_max, s[i][c]);
+      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+#pragma unroll 4
+    for (int ch = 0; ch < nch; ++ch) {
+      float4 kf[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        kf[c] = ld4(ks + 16 * c * DP + 4 * (ch ^ ksw));
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 qf =
+            ld4(qs + ((i & 3) + 64 * (i >> 2)) * DP + 4 * (ch ^ qsw));
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[i][c] = fmaf(qf.x, kf[c].x, s[i][c]);
+          s[i][c] = fmaf(qf.y, kf[c].y, s[i][c]);
+          s[i][c] = fmaf(qf.z, kf[c].z, s[i][c]);
+          s[i][c] = fmaf(qf.w, kf[c].w, s[i][c]);
+        }
       }
-      const float m_new = fmaxf(m[i], row_max16(tile_max));
-      const float alpha = expf(m[i] - m_new);
-      float psum = 0.f;
+    }
+
+    // the scale on the f32 dot product; masks where the tile needs them;
+    // then the online softmax of each row, exp(x) as exp2f(x · log2 e)
+    const bool edge = edge_tile(k0, q0, q_last, Sk, causal, window);
+    float alpha[8];
 #pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const int kp = k0 + tx + 16 * c;
-        const float p = kp < Sk ? expf(s[i][c] - m_new) : 0.f;
-        psum += p;
-        Ps[(r0 + i) * PS + tx + 16 * c] = p;
+    for (int i = 0; i < 8; ++i) {
+      const int qp = q0 + 4 * ty + (i & 3) + 64 * (i >> 2);
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float& x = s[i][c];
+        if (edge) {
+          const int kp = k0 + tx + 16 * c;
+          bool ok = true;
+          if (causal) ok = ok && qp >= kp;
+          if (window > 0) ok = ok && qp - kp < window;
+          x = kp < Sk ? (ok ? x * scale : NEG_INF)
+                      : -INFINITY;  // past Sk: out of the sums
+        } else {
+          x *= scale;
+        }
+        mx = fmaxf(mx, x);
       }
-      l[i] = l[i] * alpha + row_sum16(psum);
+      const float m_new = fmaxf(m[i], row_max16(mx));
+      alpha[i] = exp2f((m[i] - m_new) * LOG2E);
       m[i] = m_new;
+      float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < CD; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < 4; ++c) {
+        s[i][c] = exp2f((s[i][c] - m_new) * LOG2E);
+        sum += s[i][c];
+      }
+      l[i] = l[i] * alpha[i] + sum;
     }
+    // p, column by column: a column's rows 4·ty.. and 64 + 4·ty.. are its
+    // 16-byte chunks ty and 16 + ty
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float* pc = Ps + (tx + 16 * c) * BQ;
+      *reinterpret_cast<float4*>(pc + 4 * (ty ^ ksw)) =
+          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+      *reinterpret_cast<float4*>(pc + 4 * ((16 + ty) ^ ksw)) =
+          make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4 * CO; ++j) acc[i][j] *= alpha[i];
+    hopper::cp_async_wait<2>();  // this thread's V of tile it
+    __syncthreads();             // everyone's V and p
 
-    __syncthreads();  // every thread is done with K; p is written
-    load_tile(vg + (size_t)k0 * dh, KVs, BK, Sk - k0, dh, ldkv);
-    __syncthreads();
-
-    // acc[i][c] += Σ_j p[r0 + i][j] · v[j][tx + 16c]
-    const int kn = min(BK, Sk - k0);
-    for (int j = 0; j < kn; ++j) {
-      float p[RQ];
+    // acc[i][·] += Σ_j p[row i][j] · v[j][·], j in order
+    const float* vs = Vs + st * BK * DP + 4 * tx;
+#pragma unroll 8
+    for (int j = 0; j < BK; ++j) {
+      const float* pc = Ps + j * BQ;
+      const float4 p0 = ld4(pc + 4 * (ty ^ (j & 7)));
+      const float4 p1 = ld4(pc + 4 * ((16 + ty) ^ (j & 7)));
+      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
 #pragma unroll
-      for (int i = 0; i < RQ; ++i) p[i] = Ps[(r0 + i) * PS + j];
-      const float* vr = KVs + j * ldkv + tx;
+      for (int g = 0; g < CO; ++g) {
+        const float4 vf = ld4(vs + j * DP + 64 * g);
 #pragma unroll
-      for (int c = 0; c < CD; ++c) {
-        if (tx + 16 * c < dh) {
-          const float vv = vr[16 * c];
-#pragma unroll
-          for (int i = 0; i < RQ; ++i) acc[i][c] = fmaf(p[i], vv, acc[i][c]);
+        for (int i = 0; i < 8; ++i) {
+          acc[i][4 * g] = fmaf(p[i], vf.x, acc[i][4 * g]);
+          acc[i][4 * g + 1] = fmaf(p[i], vf.y, acc[i][4 * g + 1]);
+          acc[i][4 * g + 2] = fmaf(p[i], vf.z, acc[i][4 * g + 2]);
+          acc[i][4 * g + 3] = fmaf(p[i], vf.w, acc[i][4 * g + 3]);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int i = 0; i < RQ; ++i) {
-    const int qp = q0 + r0 + i;
+  for (int i = 0; i < 8; ++i) {
+    const float li = row_sum16(l[i]);  // the same tree in every lane
+    const int qp = q0 + 4 * ty + (i & 3) + 64 * (i >> 2);
     if (qp >= Sq) continue;
-    const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = o + ((size_t)bh * Sq + qp) * dh;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    float* orow = o + ((size_t)bh * Sq + qp) * dh;
 #pragma unroll
-    for (int c = 0; c < CD; ++c) {
-      const int d = tx + 16 * c;
-      if (d < dh) from_f32(acc[i][c] * inv, orow + d);
+    for (int g = 0; g < CO; ++g) {
+      const int d = 4 * tx + 64 * g;
+      if (d < dh)  // dh % 8 == 0: a 4-group is wholly inside or outside
+        *reinterpret_cast<float4*>(orow + d) = make_float4(
+            acc[i][4 * g] * inv, acc[i][4 * g + 1] * inv,
+            acc[i][4 * g + 2] * inv, acc[i][4 * g + 3] * inv);
     }
   }
 }
 
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, int B, int H, int Hkv,
-           int Sq, int Sk, int dh, float scale, int causal, int window,
-           void* stream) {
+template <int DP>
+int launch_dp(const float* q, const float* k, const float* v, float* o,
+              int B, int H, int Hkv, int Sq, int Sk, int dh, float scale,
+              int causal, int window, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DP>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((unsigned)(B * H), (Sq + BQ - 1) / BQ);
+  flash_attn_fwd_kernel<DP><<<grid, THREADS, smem, stream>>>(
+      q, k, v, o, H, Hkv, Sq, Sk, dh, scale, causal, window);
+  return (int)cudaGetLastError();
+}
+
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int H, int Hkv, int Sq, int Sk, int dh, float scale, int causal,
+           int window, void* stream) {
   if (B < 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq < 0 || Sk <= 0 ||
       dh < 8 || dh > MAX_DH || dh % 8)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
-  const long long n_bh = (long long)B * H;
-  if (n_bh > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_floats(dh) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)(smem_floats(MAX_DH) * sizeof(float)));
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Sq + BQ - 1) / BQ, (unsigned)n_bh);
-  flash_attn_fwd_kernel<T><<<grid, THREADS, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, o, H, Hkv, Sq, Sk, dh, scale, causal, window);
-  return (int)cudaGetLastError();
+  if ((long long)B * H > 65535 || (Sq + BQ - 1) / BQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // flash_attn.fma_width: the narrowest instance that holds dh
+  return dh <= 64 ? launch_dp<64>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
+                                  causal, window, s)
+                  : launch_dp<128>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
+                                   causal, window, s);
 }
+
+}  // namespace f32
 
 
 // ---- bf16 on the tensor cores -------------------------------------------
@@ -607,8 +714,8 @@ extern "C" int flash_attn_fwd_f32(const float* q, const float* k,
                                   int Hkv, int Sq, int Sk, int dh,
                                   float scale, int causal, int window,
                                   void* stream) {
-  return launch(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal, window,
-                stream);
+  return f32::launch(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal, window,
+                     stream);
 }
 
 // The same over bf16 q, k, v → o bf16 (f32 running sums), on the tensor

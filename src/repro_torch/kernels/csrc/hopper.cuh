@@ -1,9 +1,11 @@
-// Hopper (sm_90a) building blocks of the tensor-core kernels (moe_gemm.cu,
-// flash_attn.cu), in inline PTX:
+// Hopper (sm_90a) building blocks of the kernels of moe_gemm.cu and
+// flash_attn.cu, in inline PTX:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and try-wait on a phase parity;
 //   * TMA tile loads (cp.async.bulk.tensor, 2-D and 3-D) that complete on
 //     an mbarrier;
+//   * 16-byte cp.async copies (zero fill past an edge), commit and wait
+//     (the SIMT GEMM of moe_gemm.cu and the f32 flash attention);
 //   * wgmma: fence, commit_group, wait_group, the shared-memory matrix
 //     descriptor of a 128-byte-swizzled tile, and the bf16 → f32 shapes
 //     the two kernels issue (m64n64k16 and m64n128k16, A from shared memory
@@ -103,6 +105,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// ---- cp.async (16-byte copies into shared memory, no TMA) -------------
+
+// 16 bytes global → shared through L2 only; `full` false fills the 16 bytes
+// with zeros and reads nothing (src-size 0), so `src` need only be a valid
+// address
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // ---- wgmma ------------------------------------------------------------

@@ -176,16 +176,8 @@ constexpr int TN = 128;          // output columns per CTA
 constexpr int KC = 16;           // D per chunk
 constexpr int GROUP_ROWS = 512;  // rows a CTA group walks, row tile fastest
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  // src-size 0 fills the 16 bytes with zeros and reads nothing
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+using hopper::cp_async16;
+using hopper::cp_async_wait_all;
 
 // four consecutive elements, 16 (f32) or 8 (bf16) bytes, as f32
 __device__ __forceinline__ void load4(float (&v)[4], const float* p) {

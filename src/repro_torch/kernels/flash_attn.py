@@ -9,7 +9,11 @@ Hkv → o (B, H, Sq, dh) in q's dtype.  Query head h reads kv head
 h // (H / Hkv); kv is never repeated in memory.  ``kernel_path`` names the
 design a launch takes: bf16 runs on the tensor cores (``"wgmma"``: TMA-fed
 K/V tiles, p rounded to bf16 in registers as the A operand of the PV
-product), f32 on the FMA units (``"fma"``).
+product), f32 on the FMA units (``"fma"``: register-tiled SIMT products
+over 128-row q tiles and 64-column k tiles fed by a cp.async ring, in an
+instance for heads up to ``fma_width(dh)`` wide).  ``tile_walk`` is the f32
+kernel's rule for which k tiles a q tile walks and which of them it masks
+per element.
 
 ``flash_attn_dense`` is the same function in plain PyTorch, the port of
 the JAX package's oracle ``repro/kernels/ref.py::flash_attn_ref``: the
@@ -34,6 +38,8 @@ MAX_DH = 128          # widest head the kernel takes (a multiple of 8)
 NEG_INF = -1e30       # the score of a masked (q, k) pair
 DTYPES = {torch.float32: "flash_attn_fwd_f32",
           torch.bfloat16: "flash_attn_fwd_bf16"}
+FMA_BQ, FMA_BK = 128, 64   # the f32 kernel's q rows a CTA, k columns a tile
+FMA_WIDTHS = (64, 128)     # its instances' padded head widths
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -48,6 +54,39 @@ def kernel_path(dtype, dh: int) -> str:
         raise ValueError(f"flash_attention: head width {dh} is not a "
                          f"multiple of 8 in [8, {MAX_DH}]")
     return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def fma_width(dh: int) -> int:
+    """The padded head width of the f32 kernel's instance for heads of width
+    ``dh``: the narrowest of ``FMA_WIDTHS`` that holds it."""
+    kernel_path(torch.float32, dh)
+    return next(w for w in FMA_WIDTHS if dh <= w)
+
+
+def tile_walk(sq: int, sk: int, bq: int, bk: int, causal: bool,
+              window: int) -> list[tuple[int, int, list[bool]]]:
+    """The f32 kernel's tile walk (``csrc/flash_attn.cu``, ``tile_range``
+    and ``edge_tile``) for q tiles of ``bq`` rows and k tiles of ``bk``
+    columns: per q tile, the k tiles [kt_lo, kt_hi) it walks and, for each
+    of them, whether it masks per element (a column masked for some row of
+    the tile, or past Sk).  Every tile is walked where some row of the q
+    tile is fully masked (past Sk + window − 2: only a window can empty a
+    row), else only the tiles with a column some row attends."""
+    n_k = -(-sk // bk)
+    walk = []
+    for q0 in range(0, sq, bq):
+        q_last = min(q0 + bq, sq) - 1
+        lo, hi = 0, n_k
+        if window <= 0 or q_last <= sk + window - 2:
+            if causal:
+                hi = min(n_k, q_last // bk + 1)
+            if window > 0:
+                lo = max(0, q0 - window + 1) // bk
+        edge = [k0 + bk > sk or (causal and k0 + bk - 1 > q0)
+                or (window > 0 and q_last - k0 >= window)
+                for k0 in range(lo * bk, hi * bk, bk)]
+        walk.append((lo, hi, edge))
+    return walk
 
 
 def attention_mask(sq: int, sk: int, *, causal: bool, window: int,

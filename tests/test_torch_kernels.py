@@ -1278,6 +1278,19 @@ _FLASH_GRID = [
     (2, 4, 1, 257, 300, 120, False, 100),  # dh 120, a window, not causal
     (1, 4, 4, 300, 130, 64, True, 50),     # rows 179-299 fully masked
     (1, 8, 2, 129, 257, 128, False, 0),    # dh 128 (two boxes), GQA 4
+    # the f32 kernel's 128-row q tiles and 64-column k tiles, at each of
+    # its instances (fma_width: 64 for dh 8-64, 128 for dh 72-128)
+    (1, 2, 1, 127, 127, 8, True, 0),       # Sq one short of a q tile
+    (1, 2, 1, 127, 127, 128, False, 0),    # the same, DP 128
+    (1, 4, 2, 128, 200, 64, True, 0),      # Sq one q tile, Sk > Sq
+    (1, 4, 2, 129, 129, 72, True, 0),      # one row past it; dh 72
+    (1, 2, 2, 128, 65, 120, False, 0),     # Sk one past a k tile
+    (1, 2, 1, 129, 65, 16, True, 0),       # the same, causal, DP 64
+    (1, 4, 1, 256, 256, 128, True, 40),    # window edges inside tiles
+    (1, 2, 1, 300, 190, 56, False, 90),    # the same, not causal, DP 64
+    (1, 2, 1, 256, 100, 72, False, 50),    # q tile 1: rows 148+ fully
+    (1, 2, 1, 256, 100, 32, True, 50),     # masked beside real rows
+    (2, 4, 2, 384, 384, 120, True, 0),     # dh 120, three q tiles
 ]
 
 
@@ -1312,6 +1325,29 @@ def test_flash_attention_matches_dense(dev, dtype, b, h, hkv, sq, sk, dh,
     assert bool((err <= allowed).all()), \
         f"max |err| {err.max().item()}, {(err / allowed).max().item()} of " \
         "the per-element tolerance"
+
+
+@pytest.mark.parametrize("b,h,hkv,sq,sk,dh,causal,window", [
+    (1, 4, 2, 300, 300, 128, True, 0), (1, 4, 1, 200, 150, 120, True, 40),
+    (1, 2, 1, 256, 100, 72, False, 50), (1, 4, 2, 129, 65, 64, True, 0),
+    (1, 2, 1, 70, 90, 8, False, 0)])
+def test_flash_attention_f32_is_reproducible(dev, b, h, hkv, sq, sk, dh,
+                                             causal, window):
+    """Two f32 launches on the same inputs are bitwise equal (each output
+    has one owner and one order of sums), on the instance ``fma_width``
+    names, as ``torch.profiler`` saw it run."""
+    from repro_torch.kernels import flash_attn as fak
+    rng = np.random.default_rng(sq + dh)
+    q = _t(rng.normal(0, 1, (b, h, sq, dh)), dev)
+    k = _t(rng.normal(0, 1, (b, hkv, sk, dh)), dev)
+    v = _t(rng.normal(0, 1, (b, hkv, sk, dh)), dev)
+    kw = dict(scale=dh ** -0.5, causal=causal, window=window)
+    first, ran = _kernels_run(
+        lambda: fak.flash_attention_cuda(q, k, v, **kw), "flash_attn")
+    assert len(ran) == 1 and \
+        f"flash_attn_fwd_kernel<{fak.fma_width(dh)}>" in ran[0], ran
+    assert torch.equal(first, fak.flash_attention_cuda(q, k, v, **kw))
+    _close(first, fak.flash_attn_dense(q, k, v, **kw))
 
 
 @pytest.mark.parametrize("model_layout", [False, True])
