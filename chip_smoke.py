@@ -70,6 +70,21 @@ Phases (any failure exits non-zero, and no result line is printed):
           logits, and a ``"single"`` checkpoint round trip;
        e. the depth-3 population on the unfused route with ``--m3-impl
           pallas`` (every unfused stage on its kernel);
+       f. the paper's Tables 1-2 at its exact layout (hidden 1..100 × the
+          ten activations × 10 repeats, F 100, block 1: 10,000 members,
+          505,000 fused units) through ``repro_torch.launch.paper_tables``:
+          (i) one cell of the grid by ``paper_tables.run`` (samples 1,000,
+          batch 32, 10 epochs, seq-sample 25, ``m3_impl="pallas"``), the
+          counters zeroed before each arm and read after it — exactly one
+          launch of each M3 kernel a parallel step, the warm-up too, and
+          none in the sequential arm — and its CSV row; (ii) independence:
+          8 ``parallel_train`` steps from one seeded state and
+          ``sequential_train`` on the same batches for 3 sampled members
+          of different activations and sizes, each member's parameters
+          against ``extract_member`` of the fused state within rtol 2e-4 /
+          atol 2e-5; (iii) ``examples/torch_feature_selection.py`` at its
+          own sizes with ``--m3-impl pallas``: every masked w1 entry
+          exactly 0 after every step, one launch of each M3 kernel a step;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -86,7 +101,8 @@ Phases (any failure exits non-zero, and no result line is printed):
      with the M3 head (path 4e) in turns (fused, unfused, M3, M3, unfused,
      fused), and the single-layer step with
      ``m3_impl`` pallas and bucketed in turns (pallas, bucketed, bucketed,
-     pallas);
+     pallas), then path 4f's two arms a step each (the fused step at
+     block 1 on the M3 kernels; a sampled member's eager step);
   6. the JAX package's kernel API (``ops.flash_attention``,
      ``ops.moe_gemm``) at three model configurations' full widths, seeded
      random inputs, the counters set to 0 just before and read just after:
@@ -190,7 +206,13 @@ Phases (any failure exits non-zero, and no result line is printed):
      flash attention at qwen3-1.7b's and h2o-danube-3-4b's shapes
      (``danube_f32_*``) its device time, two launches bitwise equal and
      (``--parent``) the parent kernel's device time and the max
-     |difference| of the two trees' outputs (``*parent_*``);
+     |difference| of the two trees' outputs (``*parent_*``); the three
+     ``m3_matmul`` rows also at path 4f's block-1 head (B 32, H 505,000,
+     P 10,000, O 2, the scalar instances) on its trained hidden layer:
+     against the plain version, two launches bitwise equal, the kernel,
+     plain version and CSR library call timed, device times, the byte
+     bound and the instance (``block1_*``; ``block1_launches`` the grid
+     cell's parallel arm);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
@@ -204,6 +226,7 @@ Phases (any failure exits non-zero, and no result line is printed):
 """
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -227,6 +250,12 @@ UNFUSED = ["--bd-impl", "pallas", "--act-impl", "pallas"]
 UNFUSED_KERNELS = ("block_diag_fwd", "block_diag_dw", "seg_act",
                    "seg_act_bwd")
 M3_KERNELS = ("m3_matmul_fwd", "m3_matmul_dh", "m3_matmul_dw")
+# path 4f: one cell of the paper's Tables 1-2 (paper_tables --full --block
+# 1: 10,000 members, 505,000 fused units), batch BATCH; the two arms' state
+# held member by member at tests/test_independence.py's tolerance
+PAPER = dict(samples=1000, features=100, models=10_000, repeats=10,
+             block=1, epochs=10, seq_sample=25)
+INDEPENDENCE_TOL = (2e-4, 2e-5)
 SERVE_REQUESTS = 256
 # the JAX package's kernel API at three model configurations' widths (the
 # port has no LM configs yet; the shapes are those of src/repro/configs/):
@@ -976,6 +1005,238 @@ def time_step(name, step, iters: int = 20):
     print(f"[{name}] train step: {wall_ms:.3f} ms wall; device "
           f"{out['device_ms']} ms in {out['device_launches']} launches; "
           f"idle share {out['device_idle_share']}", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------- #
+# the paper's tables (path 4f)                                          #
+# --------------------------------------------------------------------- #
+
+def paper_pop():
+    """The paper's exact layout, ``paper_tables --full --block 1``: hidden
+    1..100 × the ten activations × 10 repeats at F = 100, block 1 —
+    10,000 members, 505,000 fused hidden units."""
+    from repro_torch.core.activations import PAPER_TEN
+    from repro_torch.core.population import Population
+    pop = Population.grid(PAPER["features"], 2, range(1, 101), PAPER_TEN,
+                          repeats=PAPER["repeats"], block=PAPER["block"])
+    _require((pop.num_members, pop.total_hidden) == (10_000, 505_000),
+             f"the paper's layout is {pop.describe()}")
+    return pop
+
+
+def _counted(fn):
+    """``fn()`` with every kernel counter set to 0 just before it and read
+    just after it → (its value, {kernel: launches} of the kernels it
+    launched)."""
+    import torch
+
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: v for k, v in kernel_launches().items() if v}
+
+
+def paper_cell(name: str):
+    """Path 4f (i): one cell of the paper's grid through
+    ``paper_tables.run`` (samples 1,000, features 100, batch 32, the
+    ``--full`` population at block 1, 10 epochs, seq-sample 25,
+    ``m3_impl="pallas"``), the counters zeroed before each arm and read
+    after it: every parallel step, the warm-up too, exactly one launch of
+    each M3 kernel and no other; the sequential arm none.  Returns (the CSV
+    row as a dict with each arm's per-step time, {arm: launches})."""
+    from repro_torch.launch import paper_tables as pt
+    from repro_torch.launch.launch_count import m3_step_launches
+    counts = {}
+
+    def around(arm, fn):
+        out, counts[arm] = _counted(fn)
+        return out
+    p = PAPER
+    rows = pt.run([p["samples"]], [p["features"]], [BATCH], p["models"],
+                  p["repeats"], p["epochs"], p["seq_sample"], p["block"],
+                  m3_impl="pallas", device="cuda", around_arm=around)
+    per_epoch = p["samples"] // BATCH
+    steps = per_epoch * p["epochs"]
+    want = {k: (steps + 1) * v for k, v in m3_step_launches().items()}
+    _require(counts["parallel"] == want, f"{name}: the parallel arm "
+             f"launched {counts['parallel']}, expected {want}")
+    _require(counts["sequential"] == {}, f"{name}: the sequential arm "
+             f"launched {counts['sequential']}")
+    row = dict(zip(pt.HEADER.split(","), rows[0]))
+    _require(all(v > 0 for v in rows[0][4:6])
+             and all(math.isfinite(v) for v in rows[0][4:]),
+             f"{name}: {row}")
+    row.update(parallel_step_ms=row["parallel_s"] / steps * 1e3,
+               sequential_member_step_ms=row["sequential_s"]
+               / (row["members"] * steps) * 1e3)
+    print(f"[{name}] {row}; launches {counts}", flush=True)
+    return row, counts
+
+
+def paper_independence(name: str):
+    """Path 4f (ii), the paper's central property on the card: from one
+    seeded state (TF32 off), 8 ``parallel_train`` steps on the M3 kernels,
+    and ``sequential_train`` on the same 8 batches for 3 members of the
+    grid's stratified sample with different activations and hidden sizes;
+    each member's w1, b1, w2, b2 against ``extract_member`` of the parallel
+    state within rtol 2e-4 / atol 2e-5 (tests/test_independence.py).
+    Returns (the trained state, the layout, a batch (x, y) of the task on
+    the card, {member: max |err|}, the parallel steps' launches, the
+    members held)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import parallel_mlp as pm
+    from repro_torch.data.synthetic import TabularTask
+    from repro_torch.launch import paper_tables as pt
+    from repro_torch.launch.launch_count import m3_step_launches
+    pop = paper_pop()
+    task = TabularTask(PAPER["samples"], PAPER["features"], n_classes=2,
+                       seed=1)
+    start = pm.init_params(torch.Generator(device="cuda").manual_seed(0),
+                           pop)
+    par, n = _counted(lambda: pt.parallel_train(start, pop, task, BATCH, 8,
+                                                0.01, "pallas"))
+    want = {k: 8 * v for k, v in m3_step_launches().items()}
+    _require(n == want, f"{name}: 8 parallel steps launched {n}")
+    picked = []
+    for m in np.linspace(0, pop.num_members - 1,
+                         PAPER["seq_sample"]).astype(int).tolist():
+        if all(pop.activations[m] != pop.activations[q]
+               and pop.hidden_sizes[m] != pop.hidden_sizes[q]
+               for q in picked):
+            picked.append(m)
+    picked = picked[:3]
+    _require(len(picked) == 3, f"{name}: sample {picked}")
+    errs = {}
+    for m in picked:
+        alone, n = _counted(lambda: pt.sequential_train(
+            pt.own_member(start, pop, m), task, BATCH, 8, 0.01))
+        _require(n == {}, f"{name}: the sequential arm launched {n}")
+        fused = pm.extract_member(par, pop, m)
+        errs[m] = _close(f"{name}: member {m} ({pop.activations[m]}, "
+                         f"{pop.hidden_sizes[m]} units) alone vs fused",
+                         {k: alone[k] for k in pm.KEYS},
+                         {k: fused[k] for k in pm.KEYS},
+                         tol=INDEPENDENCE_TOL)
+    print(f"[{name}] 8 steps: launches {want}; members "
+          f"{[(m, pop.activations[m], pop.hidden_sizes[m]) for m in picked]}"
+          f" trained alone match the fused state: max |err| {errs}",
+          flush=True)
+    batch = tuple(torch.as_tensor(a, device="cuda")
+                  for a in task.batch(0, BATCH))
+    return par, pop, batch, errs, want, picked
+
+
+def paper_step_times(params, pop, x, y, m: int):
+    """Path 4f's two arms a step at a time in the steady state
+    (``time_step``): the fused ``sgd_step`` on the M3 kernels, and member
+    ``m``'s standalone eager step (``paper_tables.member_step``, the
+    sequential arm's), each on batch (x, y) already on the card."""
+    from repro_torch.core import parallel_mlp as pm
+    from repro_torch.launch import paper_tables as pt
+    member = pt.own_member(params, pop, m)
+    return {name: time_step(name, step) for name, step in (
+        ("paper-tables parallel step",
+         partial(pm.sgd_step, params, x, y, 0.01, pop, m3_impl="pallas")),
+        (f"paper-tables member {m} step",
+         partial(pt.member_step, member, x, y, 0.01)))}
+
+
+def paper_feature_selection(name: str):
+    """Path 4f (iii): ``examples/torch_feature_selection.py`` at its own
+    sizes (F 16, N 4096, 64 members of 8 units, block 8, 150 steps) on the
+    card with ``--m3-impl pallas``: every masked w1 entry exactly 0.0 after
+    every step, one launch of each M3 kernel a step (and the closing
+    forward's), and how many of the 3 signal features it recovered."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_feature_selection",
+        ROOT / "examples" / "torch_feature_selection.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    res, n = _counted(lambda: example.main(["--device", "cuda",
+                                            "--m3-impl", "pallas"]))
+    steps = res["steps"]
+    want = {"m3_matmul_fwd": steps + 1, "m3_matmul_dh": steps,
+            "m3_matmul_dw": steps}
+    _require(n == want, f"{name}: launched {n}, expected {want}")
+    _require(res["masked_max_abs"] == 0.0,
+             f"{name}: a masked w1 entry reached {res['masked_max_abs']}")
+    print(f"[{name}] {steps} steps: launches {n}; masked w1 entries 0.0 "
+          f"after every step; recovered {res['recovered']}/3 signal "
+          f"features (top-3 {res['top3']})", flush=True)
+    return res, n
+
+
+def m3_block1_fields(params, pop, x, launches):
+    """Rows 13–15 at path 4f's head, the paper's block-1 layout (B 32, H
+    505,000, P 10,000, O 2: the scalar instances) on the hidden layer of
+    path 4f's trained state: each kernel against its plain version (rtol
+    1e-4 / atol 1e-5), two launches bitwise equal, timed beside the plain
+    version and the CSR library call (``_m3_csr_library``), its device
+    time, its byte bound and the instance it took, as fields
+    ``block1_*`` of the rows ({row: fields})."""
+    import torch
+
+    from repro_torch.core.activations import apply_activations_sliced
+    from repro_torch.kernels import m3_matmul as m3k
+    dev = x.device
+    h = apply_activations_sliced(
+        torch.addmm(params["b1"], x, params["w1"].t()), pop.act_runs
+    ).contiguous()
+    w2, o, hh = params["w2"], params["w2"].shape[0], pop.total_hidden
+    seg = torch.as_tensor(pop.block_segment_ids, dtype=torch.int32,
+                          device=dev)
+    ptr = torch.as_tensor(pop.offsets // pop.block, dtype=torch.int32,
+                          device=dev)
+    dy = torch.randn(BATCH, pop.num_members, o, device=dev,
+                     generator=torch.Generator(device="cuda").manual_seed(13))
+    csr = _m3_csr_library(h, w2, seg, dy, pop.block)
+    dh_out, dw_out = torch.empty_like(h), torch.empty_like(w2)
+    # name → (kernel, plain, arguments, outputs, its name in a trace, the
+    # tensors it walks by units: kernel_path's)
+    cases = {
+        "m3_matmul_fwd": (m3k.m3_matmul_fwd_cuda, m3k.m3_matmul_fwd_plain,
+                          (h, w2, ptr), (dy,), "m3_fwd_stream_kernel",
+                          (h, w2)),
+        "m3_matmul_dh": (m3k.m3_matmul_dh_cuda, m3k.m3_matmul_dh_plain,
+                         (dy, w2, seg), (dh_out,), "m3_dh_kernel",
+                         (w2, dh_out)),
+        "m3_matmul_dw": (m3k.m3_matmul_dw_cuda, m3k.m3_matmul_dw_plain,
+                         (dy, h, seg), (dw_out,), "m3_dw_stream_kernel",
+                         (h, dw_out)),
+    }
+    out = {}
+    for name, (cuda, plain, args, outs, symbol, walked) in cases.items():
+        kern = partial(cuda, *args, block=pop.block)
+        ref = partial(plain, *args, block=pop.block)
+        want = ref()
+        err = _close(f"{name} at block 1: kernel vs plain", kern(), want)
+        _require(torch.equal(kern(), kern()),
+                 f"{name} at block 1: two launches differ")
+        call, to_kernel = csr[name]
+        lib_err = _close(f"{name} at block 1: CSR library call vs plain",
+                         to_kernel(call()), want)
+        del want
+        bound, by = _bound_ms(_nbytes(*args, *outs), 2 * BATCH * hh * o)
+        out[name] = {
+            "block1_launches": launches[name], "block1_max_abs_err": err,
+            "block1_path": m3k.kernel_path(pop.block, *walked),
+            "block1_ms": _time_ms(kern, 20),
+            "block1_device_ms": _device_ms(kern, symbol, 20),
+            "block1_plain_ms": _time_ms(ref, 5),
+            "block1_bound_ms": bound, "block1_bound_by": by,
+            "block1_library_ms": _time_ms(call, 20),
+            "block1_library_device_ms": _device_ms(call, "", 20),
+            "block1_library_max_abs_err": lib_err,
+            "block1_library": ("torch.matmul (CSR)" if name != "m3_matmul_dw"
+                               else "torch.sparse.sampled_addmm (CSR)")}
+        print(f"[{name} at block 1] {out[name]}", flush=True)
     return out
 
 
@@ -3065,12 +3326,21 @@ def main() -> int:
         # kernel (--m3-impl pallas too), counted alone
         _, _, stats3m, _, n3m = train("trainer-depth3 unfused m3", workdir,
                                       depth3, unfused=True, m3=True)
-        m3_n = {k: n_single[k] + n3m[k] for k in M3_KERNELS}
-        print(f"M3 kernel launches: path 4d {m3_only(n_single)}; path 4e "
-              f"{m3_only(n3m)}", flush=True)
         for name in M3_KERNELS + UNFUSED_KERNELS:
             _require(n3m[name] > 0, f"kernel {name} was not launched on "
                      "path 4e")
+        # 4f. the paper's tables at its block-1 layout: one cell of the
+        # grid through paper_tables.run (each arm counted alone), the two
+        # arms' independence, and the feature-selection example
+        paper_row, paper_n = paper_cell("paper-tables cell")
+        p4f, pop4f, b4f, indep_err, n_indep, held = paper_independence(
+            "paper-tables independence")
+        feat, n_feat = paper_feature_selection("feature selection")
+        n4f = {k: paper_n["parallel"][k] + n_indep[k] + n_feat[k]
+               for k in M3_KERNELS}
+        m3_n = {k: n_single[k] + n3m[k] + n4f[k] for k in M3_KERNELS}
+        print(f"M3 kernel launches: path 4d {m3_only(n_single)}; path 4e "
+              f"{m3_only(n3m)}; path 4f {n4f}", flush=True)
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -3096,6 +3366,8 @@ def main() -> int:
         key = f"parallelmlp-10k single {impl}{run}"
         steps[key] = time_step(key, partial(sgd_step, t_single, x, y, 1e-2,
                                             pop10k, m3_impl=impl))
+    # path 4f's two arms a step at a time
+    steps.update(paper_step_times(p4f, pop4f, *b4f, held[1]))
 
     # 6. the kernel API at LM widths, counted alone; then its outputs
     # against the plain versions
@@ -3109,12 +3381,17 @@ def main() -> int:
     # 7 + 8. each kernel against its plain version; timings; outputs
     check_forward("parallelmlp-10k", p10k, lp10k, x)
     check_forward("trainer-depth3", p3k, lp3k, x)
+    # rows 13-15 at path 4f's block-1 head, before the other rows
+    block1 = m3_block1_fields(p4f, pop4f, b4f[0], paper_n["parallel"])
+    del p4f, b4f
     # the rows are timed on an emptied allocator cache: left as the earlier
     # phases leave it, the f32 fused_layer row read 4-5 % slower on the H100
     gc.collect()
     torch.cuda.empty_cache()
     rows = kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                        unfused_serve_n, unfused_train_n, m3_n, parent)
+    for name, fields in block1.items():
+        rows[name].update(fields)
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas, parent))
@@ -3160,6 +3437,10 @@ def main() -> int:
                                 "parallelmlp-10k single": stats_single,
                                 "trainer-depth3 unfused m3": stats3m},
                       "train_step": steps,
+                      "paper_tables": {
+                          "cell": paper_row, "launches": paper_n,
+                          "independence_max_abs_err": indep_err,
+                          "feature_selection": feat},
                       "lm_kernels_max_abs_err": lm_err,
                       "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": rows}))

@@ -1,2 +1,2 @@
-"""Population layout, activations, the fused forward and the serving-side
-reductions (ensembles, selection)."""
+"""Population layout, activations, the fused forward, feature selection
+and the serving-side reductions (ensembles, selection)."""

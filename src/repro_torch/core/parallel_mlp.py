@@ -159,8 +159,13 @@ def sgd_step(params, x, targets, lr, pop: Population,
     loss, per, grads = loss_and_grads(params, x, targets, pop, task,
                                       m3_impl=m3_impl, act_impl=act_impl)
     dev = params["w1"].device
-    lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
-    if lr.ndim == 0:
+    if isinstance(lr, (int, float)):
+        # a Python number multiplies as it is: a 0-dim tensor made from it
+        # on the card would be a blocking host→device copy every step
+        lr = float(lr)
+    else:
+        lr = torch.as_tensor(lr, dtype=torch.float32, device=dev)
+    if isinstance(lr, float) or lr.ndim == 0:
         scale = dict.fromkeys(KEYS, lr)
     else:  # per-member lr vector → expanded along the fused axes
         per_unit = lr[layout_tensor(pop, "segment_ids", dev, pop.segment_ids,

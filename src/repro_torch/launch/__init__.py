@@ -1,1 +1,2 @@
-"""Entry points: the population server and the kernel-launch budget."""
+"""Entry points: the population server, the kernel-launch budget and the
+paper's Tables 1–2 (``paper_tables``)."""

@@ -165,8 +165,10 @@ def test_apply_activations_sliced_and_masked_match_jax():
 
 
 def test_port_imports_neither_jax_nor_repro():
-    """Import every module of ``repro_torch`` in a fresh interpreter: no
-    ``jax`` and no ``repro`` module may load."""
+    """Import every module of ``repro_torch`` and the example twins
+    (``examples/torch_*.py``) in a fresh interpreter where ``jax``,
+    ``jaxlib`` and ``repro`` cannot be imported: each import must succeed,
+    and no such module may load."""
     import repro_torch
     root = os.path.dirname(repro_torch.__file__)
     mods = []
@@ -177,10 +179,22 @@ def test_port_imports_neither_jax_nor_repro():
                                       os.path.dirname(root))
                 mod = rel[:-3].replace(os.sep, ".")
                 mods.append(mod.removesuffix(".__init__"))
+    examples = os.path.join(os.path.dirname(os.path.dirname(root)),
+                            "examples")
+    twins = sorted(os.path.join(examples, f) for f in os.listdir(examples)
+                   if f.startswith("torch_") and f.endswith(".py"))
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.abc, importlib.util, sys\n"
+        "class Refuse(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in ('jax', 'jaxlib', 'repro'):\n"
+        "            raise ImportError(f'{name} is not importable here')\n"
+        "sys.meta_path.insert(0, Refuse())\n"
         f"for m in {sorted(mods)!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({twins!r}):\n"
+        "    spec = importlib.util.spec_from_file_location(f'twin{i}', path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
@@ -190,10 +204,15 @@ def test_port_imports_neither_jax_nor_repro():
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert len(mods) >= 33
-    # the training slice's modules are among those imported
+    assert len(mods) >= 35
+    assert [os.path.basename(t) for t in twins] == [
+        "torch_feature_selection.py", "torch_quickstart.py"]
+    # the training slice's modules and the paper's workflow are among
+    # those imported
     assert {"repro_torch.core.tree", "repro_torch.kernels.loss_head",
             "repro_torch.optim.optimizers", "repro_torch.launch.train",
             "repro_torch.distributed.fault_tolerance",
             "repro_torch.configs", "repro_torch.kernels.flash_attn",
-            "repro_torch.kernels.grouped_gemm"} <= set(mods)
+            "repro_torch.kernels.grouped_gemm",
+            "repro_torch.core.feature_selection",
+            "repro_torch.launch.paper_tables"} <= set(mods)
