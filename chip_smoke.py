@@ -85,6 +85,30 @@ Phases (any failure exits non-zero, and no result line is printed):
           atol 2e-5; (iii) ``examples/torch_feature_selection.py`` at its
           own sizes with ``--m3-impl pallas``: every masked w1 entry
           exactly 0 after every step, one launch of each M3 kernel a step;
+       g. the lifecycle and the refill search (``core/lifecycle.py``,
+          ``repro_torch.search``), each run through ``train.main`` with the
+          counters set to 0 just before it and read just after it: the
+          10k ladder (sgd, 24 steps, ``--halving "8:0.5,16:0.5"
+          --rung-eval-batches 4``: 10,000 → 5,000 → 2,500 members, fused
+          width 1,280,000 → 640,000 → 320,000); the depth-3 population
+          under AdamW and clipping (a constant lr) with ``--halving
+          "8:0.5"``, with ``--refill arch --search-space ...`` and with
+          ``--refill pbt --per-member-lr``.  Checked: every segment
+          exactly 2·(depth+1) launches a step, kernel by kernel, and no
+          other kernel; the members (and the 10k fused width) after each
+          rung; a pbt rung builds no table and reuses its chunk, and no
+          segment after a rung builds one; each rung's saved state, a
+          step on the fused route against the plain route on the card;
+          the survivors' held-out loss falls; the depth-3 halving run
+          stopped at step 12 and resumed against the straight run; the
+          compaction (10k, depth 3), growth and refill on the card bitwise
+          the same on the CPU.  Printed: each rung's eval, gather and
+          table-build time and the run's device memory after it; each
+          segment's step wall; the 10k ladder's device time a step and
+          idle share by segment (a second run without checkpoints, a
+          third under ``torch.profiler``) and its model-steps/s against
+          the same 24 steps without ``--halving``; the steady-state step
+          (``time_train_step``) of each rung's layout;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -256,6 +280,12 @@ M3_KERNELS = ("m3_matmul_fwd", "m3_matmul_dh", "m3_matmul_dw")
 PAPER = dict(samples=1000, features=100, models=10_000, repeats=10,
              block=1, epochs=10, seq_sample=25)
 INDEPENDENCE_TOL = (2e-4, 2e-5)
+# path 4g: the successive-halving ladder at full width and the depth-3
+# population's three lifecycle runs, 24 steps each
+LIFECYCLE_STEPS = 24
+LADDER10K = ["--arch", "parallelmlp-10k", "--halving", "8:0.5,16:0.5",
+             "--rung-eval-batches", "4"]
+ARCH_SPACE = "widths=64,32,16|13,5|7|32,16;acts=relu,tanh,gelu"
 SERVE_REQUESTS = 256
 # the JAX package's kernel API at three model configurations' widths (the
 # port has no LM configs yet; the shapes are those of src/repro/configs/):
@@ -1238,6 +1268,454 @@ def m3_block1_fields(params, pop, x, launches):
                                else "torch.sparse.sampled_addmm (CSR)")}
         print(f"[{name} at block 1] {out[name]}", flush=True)
     return out
+
+
+# --------------------------------------------------------------------- #
+# the lifecycle and the refill search (path 4g)                         #
+# --------------------------------------------------------------------- #
+
+def depth3_flags() -> list:
+    """The trainer flags of the depth-3 population (phase 4b)."""
+    return ["--arch", "parallelmlp-10k", "--population-depths",
+            DEPTH3["depths"], "--population-acts", DEPTH3["acts"],
+            "--population-features", str(DEPTH3["features"]),
+            "--population-repeats", str(DEPTH3["repeats"]),
+            "--optimizer", "adamw", "--grad-clip", "1.0",
+            "--lr-schedule", "warmup_cosine"]
+
+
+def check_batch():
+    """The batch of the task the checks use (phases 3c, 4g and 5), made on
+    the card from a seeded generator."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(BATCH, 100, generator=gen, device="cuda")
+    y = torch.randint(0, 2, (BATCH,), generator=gen, device="cuda")
+    return x, y
+
+
+def lifecycle_process(workdir: Path) -> tuple:
+    """Path 4g in a process of its own (``chip_smoke.py --lifecycle DIR``,
+    waited for): a young process, whose ``torch.profiler`` windows see
+    every launch, and whose windows leave the later phases' as they were
+    (with path 4g in this process, each later window lost one launch on
+    the H100).  Returns (the results, the kernel launches of its runs)."""
+    out = workdir / "lifecycle"
+    out.mkdir()
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--lifecycle", str(out)], timeout=900)
+    _require(r.returncode == 0, f"path 4g exited {r.returncode}")
+    got = json.loads((out / "lifecycle.json").read_text())
+    return got["results"], got["launches"]
+
+
+def _segment_want(n: int, depth: int) -> dict:
+    """A fused training segment's launches: 2·(depth+1) a step, kernel by
+    kernel (the training forwards count under the serving names)."""
+    want = {"fused_input": n, "fused_input_bwd": n, "loss_head_fwd": n,
+            "loss_head_bwd": n}
+    if depth > 1:
+        want.update(fused_layer=n * (depth - 1),
+                    fused_layer_dx_dw=n * (depth - 1))
+    return want
+
+
+def lifecycle_train(name: str, workdir: Path, flags: list,
+                    steps: int = LIFECYCLE_STEPS, ckpt_every: int = 8,
+                    ckpt: Path | None = None, profile: bool = False):
+    """One ``repro_torch.launch.train.main`` run of path 4g on the fused
+    route (batch 32, chunks of 8, seed 0), the kernel counters set to 0
+    just before it and read just after it, optionally under
+    ``torch.profiler``.  Returns (params, layout, stats, checkpoint dir,
+    launches, profiler or None)."""
+    import torch
+
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    ckpt = ckpt or workdir / f"life-{name}"
+    argv = ["--bd-impl", "fused", "--batch", str(BATCH), "--steps",
+            str(steps), "--scan-steps", "8", "--ckpt-dir", str(ckpt),
+            "--ckpt-every", str(ckpt_every), "--seed", "0", *flags]
+    prof = None
+    base = torch.cuda.memory_allocated()
+    reset_kernel_launches()
+    if profile:
+        with _profiled() as prof:
+            params, lp, stats = train_driver.main(argv)
+    else:
+        params, lp, stats = train_driver.main(argv)
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    _require(stats["restarts"] == 0, f"{name}: {stats['restarts']} restarts")
+    for r in stats["rungs"]:
+        # the run's own device memory after the rung (the earlier phases'
+        # tensors are still allocated)
+        r["run_memory"] = r["memory_allocated"] - base
+        print(f"[{name}] rung {r['rung']} @ step {r['step']}: "
+              f"{r['members_before']} -> {r['members']} members, fused "
+              f"{r['fused_hidden']}; eval {r['eval_s'] * 1e3:.2f} ms, "
+              f"gather {r['gather_s'] * 1e3:.2f} ms, tables "
+              f"{r['tables_s'] * 1e3:.2f} ms ({r['tables_built']} built); "
+              f"run memory {r['run_memory'] / 2**20:.1f} MiB", flush=True)
+    return params, lp, stats, ckpt, launches, prof
+
+
+def check_ladder(name: str, stats: dict, launches: dict, members: list,
+                 pbt: bool = False, hidden0: list | None = None):
+    """Path 4g's invariants of one run: every segment exactly 2·(depth+1)
+    launches a step, kernel by kernel, and no kernel but the fused
+    route's in the run; the live members (and, given, the first layer's
+    fused width) after each rung; a ``pbt`` rung builds no table, and no
+    segment after a rung builds one (the rung built the new layout's)."""
+    for s in stats["segments"]:
+        want = _segment_want(s["end"] - s["start"], s["depth"])
+        _require(s["launches"] == want, f"{name}: segment [{s['start']}, "
+                 f"{s['end']}) launched {s['launches']}, expected {want}")
+    other = {k: v for k, v in launches.items()
+             if v and k not in SERVE_KERNELS + ("fused_input_bwd",
+                                                "fused_layer_dx_dw",
+                                                "loss_head_fwd",
+                                                "loss_head_bwd")}
+    _require(not other, f"{name}: other kernels launched {other}")
+    got = [r["members"] for r in stats["rungs"]]
+    _require(got == members, f"{name}: members after the rungs {got}, "
+             f"expected {members}")
+    if hidden0 is not None:
+        got = [r["fused_hidden"][0] for r in stats["rungs"]]
+        _require(got == hidden0, f"{name}: fused width after the rungs "
+                 f"{got}, expected {hidden0}")
+    for r in stats["rungs"]:
+        _require((r["tables_built"] == 0) if pbt else (r["tables_built"] > 0),
+                 f"{name}: rung {r['rung']} built {r['tables_built']} "
+                 "tables")
+    after = [s["tables_built"] for s in stats["segments"][1:]]
+    _require(not any(after), f"{name}: segments after a rung built "
+             f"{after} tables")
+
+
+def segment_rows(name: str, stats: dict, walls: dict | None = None,
+                 prof=None) -> list:
+    """One row per segment: steps, members, fused widths, step wall (host,
+    synchronised at the segment's end; ``walls`` the unprofiled run's
+    stats where ``prof`` comes from a profiled run) and, from ``prof``,
+    the device time a step and the device's idle share of the wall.  The
+    profiler's kernels are cut into segments by the run's launch counts
+    (a segment's launches, then the next rung's eval's)."""
+    import torch
+    raw = ours = []
+    if prof is not None:
+        cuda = torch.autograd.DeviceType.CUDA
+        raw = sorted((e for e in prof.profiler.kineto_results.events()
+                      if e.device_type() == cuda), key=lambda e: e.start_ns())
+        ours = [e for e in raw if any(k in e.name() for k in KERNEL_SYMBOLS)]
+    rows, idx = [], 0
+    walls = walls or stats
+    for k, (s, w) in enumerate(zip(stats["segments"], walls["segments"])):
+        n = s["end"] - s["start"]
+        row = {"steps": [s["start"], s["end"]], "members": s["members"],
+               "fused_hidden": s["fused_hidden"],
+               "step_wall_ms": w["seconds"] / n * 1e3}
+        if prof is not None:
+            if k:
+                idx += stats["rungs"][k - 1]["eval_launches"]
+            count = sum(s["launches"].values())
+            seg = ours[idx: idx + count]
+            _require(len(seg) == count, f"{name}: the profiler saw "
+                     f"{len(seg)} of segment {k}'s {count} launches")
+            idx += count
+            t0 = seg[0].start_ns()
+            t1 = seg[-1].start_ns() + seg[-1].duration_ns()
+            busy = sum(e.duration_ns() for e in raw
+                       if t0 <= e.start_ns() < t1) / 1e6
+            row.update(device_ms=busy / n,
+                       device_idle_share=1 - busy / n / row["step_wall_ms"])
+        rows.append(row)
+        print(f"[{name}] segment {k}: {row}", flush=True)
+    return rows
+
+
+def heldout_fall(name: str, params, lp, ckpt: Path, lp0) -> list:
+    """The held-out mean loss of the run's seed members (original ids
+    below the population's size: survivors, not newborns) at the seed's
+    initial parameters and at the end; raises unless it fell."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import load_meta
+    from repro_torch.core.deep import init_params
+    from repro_torch.core.selection import evaluate_population
+    from repro_torch.data.synthetic import TabularTask
+    (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
+                                     n_classes=lp.out_features,
+                                     seed=0).split()
+    ids = load_meta(str(ckpt))[0]["lifecycle"]["member_ids"]
+    seeds = [s for s, m in enumerate(ids) if m < lp0.num_members]
+    init = init_params(torch.Generator(device="cuda").manual_seed(0), lp0)
+    before = evaluate_population(init, lp0, xte, yte, bd_impl="fused",
+                                 infer=True)[0]
+    after = evaluate_population(params, lp, xte, yte, bd_impl="fused",
+                                infer=True)[0]
+    del init
+    b = before[[ids[s] for s in seeds]].mean().item()
+    a = after[seeds].mean().item()
+    _require(bool(torch.isfinite(after).all()) and a < b,
+             f"{name}: the survivors' held-out mean loss {b} -> {a}")
+    print(f"[{name}] held-out mean loss of {len(seeds)} seed members "
+          f"{b!r} -> {a!r}", flush=True)
+    return [b, a]
+
+
+def check_rung_steps(name: str, ckpt: Path, steps: list, x, y,
+                     adam: bool = False) -> tuple:
+    """The state each rung force-saved (its new layout): one step on the
+    fused route against the plain route on the card (per-member losses,
+    gradients, updated parameters), then its steady-state step timed
+    (``time_train_step``: sgd, or AdamW with clipping).  Returns (max
+    |err| by step, the timings by step)."""
+    from repro_torch.checkpoint.checkpoint import restore_population
+    from repro_torch.optim.optimizers import sgd
+    errs, timed = {}, {}
+    for step in steps:
+        params, lp, _ = restore_population(str(ckpt), step=step,
+                                           device="cuda")
+        fused = _step_parts(params, x, y, lp, sgd(), bd_impl="fused")
+        plain = _step_parts(params, x, y, lp, sgd(), bd_impl="einsum",
+                            loss_impl="xla")
+        errs[step] = [_close(f"{name} step {step} vs plain: {what}", a, b)
+                      for what, a, b in zip(("losses", "grads", "params"),
+                                            fused, plain)]
+        print(f"[{name}] after the rung at step {step} ({lp.num_real} "
+              f"members, depth {lp.depth}): max|err| losses/grads/params "
+              f"{errs[step]!r} vs the plain route on the card", flush=True)
+        timed[step] = time_train_step(f"{name} after the rung at {step}",
+                                      params, lp, x, y, adam=adam)
+        timed[step].update(members=lp.num_real, fused_hidden=[
+            lp.layer_pop(l).total_hidden for l in range(lp.depth)])
+    return errs, timed
+
+
+def _same_trees(a, b) -> bool:
+    """Two trees of f32 or int32 tensors equal leaf by leaf, dtype and
+    bits (``_same_bits``), wherever each leaf lies."""
+    from repro_torch.core.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        p.dtype == q.dtype and p.shape == q.shape
+        and _same_bits(p.cpu(), q.cpu()) for p, q in zip(la, lb))
+
+
+def gathers_bitwise(name: str, params, lp, opt, x, y, grow: bool):
+    """The lifecycle's three tree operations on the card against the same
+    operations on the CPU copy (numpy host gather), bitwise: compaction
+    of parameters and optimizer moments (after one step, so the moments
+    are live) to half the members by random losses; with ``grow``, a
+    growth of the compacted population by members of the menu and a
+    constant-size refill of the pruned slots.  Each timed on the card
+    (host wall, synchronised)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import lifecycle as life
+    from repro_torch.core.deep import opt_step
+    from repro_torch.launch.train import fresh_member_params
+    state = opt.init(params)
+    params, state, *_ = opt_step(params, state, x, y, 1e-2, opt, lp,
+                                 bd_impl="fused")
+    losses = np.random.default_rng(7).random(lp.num_real)
+    keep = life.survivors(losses, 0.5)
+    cpu_p, cpu_s = _to(params, "cpu"), _to(state, "cpu")
+    out, times = {}, {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        times[key] = (time.perf_counter() - t0) * 1e3
+        return r
+
+    lp_k, card_p, card_s = timed("compact_ms", lambda: life.compact(
+        lp, params, state, keep))
+    _, host_p, host_s = life.compact(lp, cpu_p, cpu_s, keep, gather="host")
+    out["compact"] = _same_trees((card_p, card_s), (host_p, host_s))
+    if grow:
+        widths = ((32, 16), (13, 5), (64, 32, 16), (7,))
+        acts = ("relu", "tanh", "gelu", "relu")
+        pos = lp_k.grow_positions(widths, acts)
+        fresh_lp = lp_k.grow(widths, acts, pos).subset(tuple(sorted(pos)))
+        fresh = fresh_member_params(0, 1, fresh_lp, "cuda")
+        grown = timed("grow_ms", lambda: life.grow(
+            lp_k, card_p, card_s, widths, acts, pos, fresh))
+        host_g = life.grow(lp_k, host_p, host_s, widths, acts, pos,
+                           _to(fresh, "cpu"), gather="host")
+        out["grow"] = grown[0] == host_g[0] and _same_trees(
+            grown[1:], host_g[1:])
+        pruned = [m for m in range(lp.num_real) if m not in set(keep)]
+        twins = {}
+        for m in keep:
+            twins.setdefault((lp.widths[m], lp.activations[m]), int(m))
+        asg = tuple((s, twins.get((lp.widths[s], lp.activations[s]), -1))
+                    for s in pruned)
+        fs = [s for s, p in asg if p < 0]
+        fresh = None
+        if fs:
+            from repro_torch.core.population import LayeredPopulation
+            fresh = fresh_member_params(0, 1, LayeredPopulation(
+                lp.in_features, lp.out_features,
+                tuple(lp.widths[s] for s in fs),
+                tuple(lp.activations[s] for s in fs), block=lp.block),
+                "cuda")
+        card_r = timed("refill_ms", lambda: (
+            life.refill_params(lp, params, asg, fresh),
+            life.refill_state(state, lp, [s for s, _ in asg])))
+        host_r = (life.refill_params(lp, cpu_p, asg,
+                                     None if fresh is None
+                                     else _to(fresh, "cpu"), gather="host"),
+                  life.refill_state(cpu_s, lp, [s for s, _ in asg]))
+        out["refill"] = _same_trees(card_r, host_r)
+    for key, same in out.items():
+        _require(same, f"{name}: {key} on the card differs from the CPU's")
+    print(f"[{name}] {', '.join(out)} on the card bitwise the CPU's; "
+          f"times {times!r} ms", flush=True)
+    return {"bitwise_cpu": out, **times}
+
+
+def lifecycle_path(workdir: Path) -> tuple:
+    """Path 4g: the 10k ladder (sgd, ``--halving "8:0.5,16:0.5"
+    --rung-eval-batches 4``: 10,000 → 5,000 → 2,500 members, fused width
+    1,280,000 → 640,000 → 320,000), its rungs' states stepped against the
+    plain route, the ladder again under the profiler and without
+    checkpoints beside the same 24 steps without ``--halving``; the
+    depth-3 population under AdamW three ways (``--halving "8:0.5"``, with
+    a mid-ladder resume against the straight run; ``--refill arch``;
+    ``--refill pbt --per-member-lr``); the gathers on the card against the
+    CPU.  Returns (the results, the kernel launches of the runs)."""
+    import torch
+
+    from repro_torch.configs import parallelmlp_10k
+    from repro_torch.launch.train import population_from_flags
+    lp10k = parallelmlp_10k.config().model.layered()
+    depth3 = depth3_flags()
+    x, y = check_batch()
+    res, n_all = {}, {}
+
+    def count(n):
+        for k, v in n.items():
+            n_all[k] = n_all.get(k, 0) + v
+
+    # the 10k ladder with rung checkpoints (every member pads to one
+    # block, so the fused width halves with the members)
+    name = "lifecycle 10k"
+    n0, h0 = lp10k.num_members, lp10k.layer_pop(0).total_hidden
+    p, lp, st, ck, n, _ = lifecycle_train(name, workdir, LADDER10K)
+    count(n)
+    check_ladder(name, st, n, [n0 // 2, n0 // 4],
+                 hidden0=[h0 // 2, h0 // 4])
+    _require(lp.num_real == n0 // 4
+             and lp.layer_pop(0).total_hidden == h0 // 4,
+             f"{name}: ended at {lp.describe()}")
+    held = heldout_fall(name, p, lp, ck, lp10k)
+    rung_steps, rung_times = check_rung_steps(name, ck, [7, 15], x, y)
+    del p
+    res[name] = {"rungs": st["rungs"], "heldout_loss": held,
+                 "rung_step_max_abs_err": rung_steps,
+                 "rung_steps": rung_times,
+                 "chunk_builds": st["chunk_builds"]}
+    # the depth-3 population, AdamW + clipping, three ways
+    lp3 = population_from_flags(DEPTH3["depths"], DEPTH3["acts"],
+                                DEPTH3["features"],
+                                repeats=DEPTH3["repeats"])
+    n3 = lp3.num_members
+    # a constant lr: a cosine schedule spans --steps, so a run stopped at
+    # step 12 would not be a prefix of the 24-step run it is held to
+    cut = depth3.index("--lr-schedule")
+    depth3 = depth3[:cut] + depth3[cut + 2:]
+    for key, flags, members, pbt in (
+            ("halving", ["--halving", "8:0.5"], [n3 // 2], False),
+            ("arch", ["--halving", "8:0.5", "--refill", "arch",
+                      "--search-space", ARCH_SPACE], [n3], False),
+            ("pbt", ["--halving", "8:0.5", "--refill", "pbt",
+                     "--per-member-lr"], [n3], True)):
+        name = f"lifecycle depth-3 {key}"
+        p, lp, st, ck, n, _ = lifecycle_train(name, workdir,
+                                              depth3 + flags)
+        count(n)
+        check_ladder(name, st, n, members, pbt=pbt)
+        errs, timed = check_rung_steps(name, ck, [7], x, y, adam=True)
+        out = {"segments": segment_rows(name, st), "rungs": st["rungs"],
+               "heldout_loss": heldout_fall(name, p, lp, ck, lp3),
+               "rung_step_max_abs_err": errs, "rung_steps": timed,
+               "chunk_builds": st["chunk_builds"],
+               "explored": st["explored"], "layout": lp.describe()}
+        if key == "pbt":
+            _require(st["chunk_builds"] == 1, f"{name}: "
+                     f"{st['chunk_builds']} chunks for a constant layout")
+        if key == "halving":
+            # stop at step 12 (past the rung), resume to 24: the straight
+            # run's parameters
+            half = workdir / "life-resume"
+            lifecycle_train(name + " to 12", workdir, depth3 + flags,
+                            steps=12, ckpt=half)
+            r, lp_r, _, _, _, _ = lifecycle_train(
+                name + " resumed", workdir, depth3 + flags + ["--resume"],
+                ckpt=half)
+            _require(lp_r == lp, f"{name}: the resumed layout differs")
+            out["resume_max_abs_err"] = _close(
+                f"{name} resumed vs straight", r, p, (1e-5, 1e-6))
+            out["resume_bitwise"] = _same_trees(r, p)
+            print(f"[{name}] mid-ladder resume vs the straight run: "
+                  f"max|err| {out['resume_max_abs_err']!r}, bitwise "
+                  f"{out['resume_bitwise']}", flush=True)
+            out["gathers"] = gathers_bitwise(name, p, lp, _adamw(), x, y,
+                                             grow=False)
+        if key == "arch":
+            out["gathers"] = gathers_bitwise(name, p, lp, _adamw(), x, y,
+                                             grow=True)
+        res[name] = out
+        del p
+    # the 10k compaction on the card against the CPU's (sgd: no moments)
+    from repro_torch.checkpoint.checkpoint import restore_population
+    from repro_torch.optim.optimizers import sgd
+    p10, lp5k, _ = restore_population(str(workdir / "life-lifecycle 10k"),
+                                      step=7, device="cuda")
+    res["lifecycle 10k"]["gathers"] = gathers_bitwise(
+        "lifecycle 10k", p10, lp5k, sgd(), x, y, grow=False)
+    del p10
+    torch.cuda.empty_cache()
+    # last (the profiler's longest window), the same 10k ladder without
+    # checkpoints: walls; then under the profiler: device time a step by
+    # segment; then the 24 steps without the ladder
+    name = "lifecycle 10k"
+    _, _, st_w, _, n, _ = lifecycle_train(
+        name + " (walls)", workdir, LADDER10K, ckpt_every=0)
+    count(n)
+    _, _, st_p, _, n, prof = lifecycle_train(
+        name + " (profiled)", workdir, LADDER10K, ckpt_every=0,
+        profile=True)
+    count(n)
+    segs = segment_rows(name, st_p, walls=st_w, prof=prof)
+    del prof
+    _, _, st_b, _, n, _ = lifecycle_train(
+        "10k without halving", workdir,
+        LADDER10K[:LADDER10K.index("--halving")], ckpt_every=0)
+    count(n)
+    rate = st_w["member_steps"] / st_w["seconds"]
+    rate_b = st_b["member_steps"] / st_b["seconds"]
+    print(f"[{name}] {rate!r} model-steps/s over the ladder's train loop "
+          f"against {rate_b!r} without --halving ({rate / rate_b!r}×)",
+          flush=True)
+    res[name].update({
+        "segments": segs, "rungs_without_checkpoints": st_w["rungs"],
+        "model_steps_per_s": rate, "model_steps_per_s_without_halving": rate_b,
+        "loop_seconds": [st_w["seconds"], st_b["seconds"]],
+        "member_steps": [st_w["member_steps"], st_b["member_steps"]]})
+    return res, n_all
+
+
+def _adamw():
+    from repro_torch.optim.optimizers import adamw
+    return adamw(weight_decay=0.01)
 
 
 # --------------------------------------------------------------------- #
@@ -3173,6 +3651,8 @@ def main() -> int:
                     "the path-4d M3 dW's, the input-layer and mid-layer "
                     "outputs bitwise to its kernels', and time its f32 "
                     "flash attention beside this tree's")
+    ap.add_argument("--lifecycle", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4g's own process
     args = ap.parse_args()
     try:
         import torch
@@ -3191,6 +3671,13 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.lifecycle:
+        from repro_torch.kernels import _build
+        _build.build_all()
+        res, n = lifecycle_path(args.lifecycle)
+        (args.lifecycle / "lifecycle.json").write_text(
+            json.dumps({"results": res, "launches": n}))
+        return 0
     t_start = time.perf_counter()
 
     # 1. the card
@@ -3229,9 +3716,7 @@ def main() -> int:
                  "the trainer population is not 3,000 members deep 3")
 
         # a batch of the task for the checks (phases 3c and 5)
-        gen = torch.Generator(device="cuda").manual_seed(3)
-        x = torch.randn(BATCH, 100, generator=gen, device="cuda")
-        y = torch.randint(0, 2, (BATCH,), generator=gen, device="cuda")
+        x, y = check_batch()
 
         # 3. the serving path
         torch.cuda.reset_peak_memory_stats()
@@ -3292,12 +3777,7 @@ def main() -> int:
         for name, n in int8_n.items():
             _require(n > 0, f"kernel {name} was not launched on the int8 "
                      "serving path")
-        depth3 = ["--arch", "parallelmlp-10k", "--population-depths",
-                  DEPTH3["depths"], "--population-acts", DEPTH3["acts"],
-                  "--population-features", str(DEPTH3["features"]),
-                  "--population-repeats", str(DEPTH3["repeats"]),
-                  "--optimizer", "adamw", "--grad-clip", "1.0",
-                  "--lr-schedule", "warmup_cosine"]
+        depth3 = depth3_flags()
         t3k, _, stats3k, _, n3k = train("trainer-depth3", workdir, depth3)
         train_n = _add_counts(n10k, n3k)
         print(f"training path kernel launches: {train_n}; serving path "
@@ -3341,6 +3821,12 @@ def main() -> int:
         m3_n = {k: n_single[k] + n3m[k] + n4f[k] for k in M3_KERNELS}
         print(f"M3 kernel launches: path 4d {m3_only(n_single)}; path 4e "
               f"{m3_only(n3m)}; path 4f {n4f}", flush=True)
+        # 4g. the lifecycle: the 10k ladder, the depth-3 population's three
+        # runs, each counted alone, and the gathers on the card
+        t0 = time.perf_counter()
+        life, life_n = lifecycle_process(workdir)
+        print(f"[lifecycle] path 4g in {time.perf_counter() - t0:.1f} s; "
+              f"kernel launches {life_n}", flush=True)
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -3392,6 +3878,9 @@ def main() -> int:
                        unfused_serve_n, unfused_train_n, m3_n, parent)
     for name, fields in block1.items():
         rows[name].update(fields)
+    for name, n in life_n.items():
+        if n:
+            rows[name]["lifecycle_launches"] = n
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas, parent))
@@ -3437,6 +3926,7 @@ def main() -> int:
                                 "parallelmlp-10k single": stats_single,
                                 "trainer-depth3 unfused m3": stats3m},
                       "train_step": steps,
+                      "lifecycle": life,
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,

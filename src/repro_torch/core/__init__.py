@@ -1,2 +1,3 @@
-"""Population layout, activations, the fused forward, feature selection
-and the serving-side reductions (ensembles, selection)."""
+"""Population layout, activations, the fused forward, feature selection,
+the halving lifecycle (``lifecycle``) and the serving-side reductions
+(ensembles, selection)."""

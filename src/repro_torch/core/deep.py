@@ -294,6 +294,116 @@ def init_params(generator: torch.Generator, lp: LayeredPopulation,
     return params
 
 
+def _fill_layout(lp: LayeredPopulation,
+                 lp_pad: LayeredPopulation) -> LayeredPopulation:
+    """The filler-members-only layout of a ``lp.shard_pad(n)`` extension
+    (validated: pads are trailing and the real prefix is untouched)."""
+    if (lp_pad.num_real != lp.num_members
+            or lp_pad.widths[:lp.num_members] != lp.widths
+            or lp_pad.depth != lp.depth):
+        raise ValueError("lp_pad is not a shard-padded extension of lp")
+    return LayeredPopulation(
+        lp.in_features, lp.out_features,
+        lp_pad.widths[lp_pad.num_real:],
+        lp_pad.activations[lp_pad.num_real:], block=lp.block)
+
+
+def _concat_pad(params: dict, fp: dict, depth: int) -> dict:
+    """Append a filler-members tree ``fp`` behind ``params`` on every
+    member-major axis (the trailing-pad embedding of ``pad_state``)."""
+    return {
+        "w_in": torch.cat([params["w_in"], fp["w_in"]], dim=0),
+        "b_in": torch.cat([params["b_in"], fp["b_in"]], dim=0),
+        "mid": [{"w": list(params["mid"][l]["w"]) + list(fp["mid"][l]["w"]),
+                 "b": torch.cat([params["mid"][l]["b"], fp["mid"][l]["b"]],
+                                dim=0)}
+                for l in range(depth - 1)],
+        "w_out": torch.cat([params["w_out"], fp["w_out"]], dim=1),
+        "b_out": torch.cat([params["b_out"], fp["b_out"]], dim=0),
+    }
+
+
+def _zeros_like_abstract(ref, dtype, device) -> dict:
+    """A tree of zeros with the shapes of ``ref`` (e.g. ``abstract_params``)
+    in ``dtype`` on ``device``."""
+    return tree_map(lambda s: torch.zeros(tuple(s.shape), dtype=dtype,
+                                          device=device), ref)
+
+
+def map_params_subtrees(tree, ref, fn, op: str = "map"):
+    """Apply ``fn`` to every params-shaped subtree of an optimizer-state
+    tree (structure AND leaf shapes matching ``ref``, a live or abstract
+    ``init_params`` tree), passing scalar leaves (step counts: 0-dim
+    tensors) through.  The one structural rule for moving optimizer state
+    through layout changes (``lifecycle.compact``, ``pad_state``,
+    ``grow_state``, ``optim.scale_member_moments``).  Anything else
+    raises."""
+    from repro_torch.core.tree import tree_structure
+    p_def = tree_structure(ref)
+    p_shapes = [tuple(x.shape) for x in tree_leaves(ref)]
+
+    def params_like(node):
+        if not isinstance(node, dict) or tree_structure(node) != p_def:
+            return False
+        return [tuple(getattr(x, "shape", ()))
+                for x in tree_leaves(node)] == p_shapes
+
+    def walk(node, path):
+        if params_like(node):
+            return fn(node)
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(walk(v, path + (i,))
+                              for i, v in enumerate(node))
+        if getattr(node, "ndim", None) == 0 or np.isscalar(node):
+            return node
+        raise ValueError(
+            f"{op}: optimizer-state leaf {'/'.join(map(str, path))} is "
+            "neither a scalar nor part of a params-shaped subtree")
+
+    return walk(tree, ())
+
+
+def pad_state(opt_state, lp: LayeredPopulation, lp_pad: LayeredPopulation):
+    """Embed an optimizer state into the shard-padded layout ``lp_pad``:
+    every params-shaped subtree gains ZERO moments for the filler members
+    (what a fresh ``opt.init`` gives them), scalar leaves pass through and
+    each subtree keeps its dtype.  ``lp_pad == lp`` (one device) returns
+    the state as it is."""
+    if lp_pad == lp:
+        return opt_state
+    fill_abs = abstract_params(_fill_layout(lp, lp_pad))
+
+    def pad_sub(node):
+        leaf = tree_leaves(node)[0]
+        return _concat_pad(node, _zeros_like_abstract(fill_abs, leaf.dtype,
+                                                      leaf.device), lp.depth)
+
+    return map_params_subtrees(opt_state, abstract_params(lp), pad_sub,
+                               op="pad_state")
+
+
+def grow_state(opt_state, lp: LayeredPopulation, lp_new: LayeredPopulation,
+               positions, gather: str = "device"):
+    """Splice an optimizer state into a GROWN layout (``lp_new ==
+    lp.grow(...)``): the survivors' moments ride through bit for bit
+    (``lifecycle.grow_params``), the new members at ``positions`` get ZERO
+    moments, as ``opt.init`` gives a newborn.  Scalar leaves pass through;
+    each subtree keeps its dtype."""
+    from repro_torch.core.lifecycle import grow_params
+    positions = tuple(int(p) for p in positions)
+    fresh_abs = abstract_params(lp_new.subset(tuple(sorted(positions))))
+
+    def grow_sub(node):
+        leaf = tree_leaves(node)[0]
+        zeros = _zeros_like_abstract(fresh_abs, leaf.dtype, leaf.device)
+        return grow_params(lp, lp_new, node, positions, zeros, gather=gather)
+
+    return map_params_subtrees(opt_state, abstract_params(lp), grow_sub,
+                               op="grow_state")
+
+
 def _from_numpy(tree, like, device, where: str):
     """A tree of numpy arrays → tensors on ``device`` with the dtypes of
     ``like`` (a tree of meta tensors), every shape checked against it; an
@@ -577,6 +687,51 @@ def member_lr_tree(lp: LayeredPopulation, lr) -> dict:
     tree["w_out"] = by_unit(lp.depth - 1)[None, :]
     tree["b_out"] = lr[:, None]
     return tree
+
+
+def build_tables(lp: LayeredPopulation, device, bd_impl: str = "einsum",
+                 act_impl: str = "sliced", m3_impl: str = "bucketed",
+                 per_member: bool = False):
+    """Build now, once, the device tables that a training step of this
+    layout on this route and its evaluation read on ``device`` (static
+    masks and ids, the mid layers' schedules and work tables, the head's
+    segment ids; with ``per_member`` those of ``member_lr_tree``), so that
+    a layout made at a rung boundary pays for them there and its first
+    step builds none.  Each is kept on the layout instance (or on its
+    tensors), as at first use; ``device.table_builds`` counts those
+    built."""
+    from repro_torch.kernels import block_diag as _bd
+    from repro_torch.kernels import fused_layer as _fl
+    # the device as a tensor on it reports it ("cuda:0", not "cuda"): the
+    # caches are keyed by that name
+    dev = torch.empty(0, device=device).device
+    fused = bd_impl in FUSED_BD_IMPLS
+    for l in range(lp.depth):
+        pop = lp.layer_pop(l)
+        _static(lp, ("mask", l), dev, pop.hidden_mask, torch.float32)
+        if per_member:
+            _static(lp, ("segment", l), dev, pop.segment_ids, torch.long)
+        if fused or act_impl == "pallas":
+            _static(lp, ("block_act", l), dev, pop.block_act_ids,
+                    torch.int32)
+        if act_impl == "masked" and not fused:
+            _static(lp, ("act_ids", l), dev, pop.act_ids, torch.int32)
+        if l:
+            _static(lp, ("active", l), dev, lp.active_unit_mask(l),
+                    torch.float32)
+    for l in range(lp.depth - 1):
+        if fused:
+            _fl.schedule_on(lp.bd_layout(l), dev)
+            _fl.dx_dw_schedule_on(lp.bd_layout(l), dev)
+        elif bd_impl == "pallas":
+            _fl.schedule_on(lp.bd_layout(l), dev)
+            t = _fl.schedule_on(lp.bd_layout(l), dev, transposed=True)
+            _bd.dw_units_on(t[4], t[5], lp.block)
+    plast = lp.layer_pop(lp.depth - 1)
+    _static(lp, "seg_last", dev, plast.block_segment_ids, torch.int32)
+    if m3_impl == "pallas" and not fused:
+        from repro_torch.core.m3 import block_seg_on
+        block_seg_on(plast, dev)
 
 
 def _lr_on(lr, lp: LayeredPopulation, device):

@@ -553,6 +553,109 @@ class LayeredPopulation:
         return dataclasses.replace(self, widths=widths, activations=acts,
                                    n_pad=self.n_pad + d)
 
+    def _sort_key(self, m: int):
+        """The member-ordering key of ``sorted()``, exposed so growth can
+        insert new members at their sorted-merge position."""
+        return (len(self.widths[m]),
+                tuple(_round_up(h, self.block) for h in self.widths[m]),
+                self.activations[m], self.widths[m])
+
+    def grow_positions(self, widths, activations) -> tuple:
+        """Insert positions (indices into the GROWN layout) that place each
+        new ``(widths, activations)`` member at its sorted-merge slot: after
+        every existing member whose sort key is <= its own, so a sorted
+        layout stays sorted after :meth:`grow`.  Equal-key new members keep
+        their given order.  If the existing real members are not sorted,
+        the new members append at the end."""
+        acts = tuple(_normalise_member_acts(a, len(tuple(w)), j)
+                     for j, (w, a) in enumerate(zip(widths, activations)))
+        widths = tuple(tuple(int(h) for h in w) for w in widths)
+        old_keys = [self._sort_key(m) for m in range(self.num_real)]
+        if any(old_keys[i] > old_keys[i + 1]
+               for i in range(len(old_keys) - 1)):
+            return tuple(self.num_real + j for j in range(len(widths)))
+
+        def key(j):
+            return (len(widths[j]),
+                    tuple(_round_up(h, self.block) for h in widths[j]),
+                    acts[j], widths[j])
+        positions = [0] * len(widths)
+        oi = 0                      # old members already passed
+        for placed, j in enumerate(sorted(range(len(widths)), key=key)):
+            while oi < len(old_keys) and old_keys[oi] <= key(j):
+                oi += 1
+            positions[j] = oi + placed
+        return tuple(positions)
+
+    def grow(self, widths, activations, positions) -> "LayeredPopulation":
+        """A fresh layout with new REAL members spliced in, the inverse of
+        :meth:`subset` (``core/lifecycle.py``).  ``positions[j]`` is the
+        index in the result where new member ``j`` lands; the existing
+        members fill the rest in order, so ``grown.subset(rest) == self``.
+        Needs a layout without shard-pad fillers; the depth extends when a
+        new member is deeper than every existing one."""
+        if self.n_pad:
+            raise ValueError(
+                "grow: layout carries shard-pad fillers; grow the real "
+                "layout (compact / subset first), then shard_pad the result")
+        widths = tuple(tuple(int(h) for h in w) for w in widths)
+        acts = tuple(_normalise_member_acts(a, len(w), j)
+                     for j, (w, a) in enumerate(zip(widths, activations)))
+        if len(widths) != len(acts) or not widths:
+            raise ValueError("grow: need at least one new member, with one "
+                             "activation spec per member")
+        positions = tuple(int(p) for p in positions)
+        if len(positions) != len(widths):
+            raise ValueError(
+                f"grow: {len(positions)} positions for {len(widths)} new "
+                "members")
+        n_total = self.num_real + len(widths)
+        for p in positions:
+            if not 0 <= p < n_total:
+                raise ValueError(
+                    f"grow: position {p} out of range [0, {n_total})")
+        if len(set(positions)) != len(positions):
+            raise ValueError(f"grow: duplicate positions in {positions}")
+        pos_map = dict(zip(positions, range(len(widths))))
+        out_w, out_a = [], []
+        oi = 0
+        for m in range(n_total):
+            if m in pos_map:
+                out_w.append(widths[pos_map[m]])
+                out_a.append(acts[pos_map[m]])
+            else:
+                out_w.append(self.widths[oi])
+                out_a.append(self.activations[oi])
+                oi += 1
+        return LayeredPopulation(self.in_features, self.out_features,
+                                 tuple(out_w), tuple(out_a),
+                                 block=self.block)
+
+    def subset(self, keep) -> "LayeredPopulation":
+        """A fresh layout of the given REAL members only, the lifecycle's
+        compaction primitive (``core/lifecycle.py``).  ``keep`` is strictly
+        increasing; member order is kept, so buckets split by a pruned
+        member merge again, and the depth shrinks when the deepest members
+        go.  The new instance starts with empty device caches."""
+        keep = tuple(int(m) for m in keep)
+        if not keep:
+            raise ValueError("subset: empty keep set")
+        prev = -1
+        for m in keep:
+            if not 0 <= m < self.num_real:
+                raise ValueError(
+                    f"subset: member {m} out of range [0, {self.num_real}) "
+                    "(shard-pad fillers cannot survive)")
+            if m <= prev:
+                raise ValueError(
+                    "subset: keep indices must be strictly increasing, got "
+                    f"{keep}")
+            prev = m
+        return LayeredPopulation(
+            self.in_features, self.out_features,
+            tuple(self.widths[m] for m in keep),
+            tuple(self.activations[m] for m in keep), block=self.block)
+
     def describe(self) -> str:
         by_depth = collections.Counter(self.member_depths)
         pad = f", pad={self.n_pad}" if self.n_pad else ""

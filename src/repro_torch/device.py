@@ -3,11 +3,17 @@ static arrays.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 There is no fallback: asking for the card where there is none raises.
+
+``table_builds`` counts the device tables built for layouts (a static
+layout array here, a kernel's schedule or work table in ``kernels/``): a
+rung that keeps its layout must build none.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+table_builds = 0     # device tables built for layouts so far
 
 
 def resolve(device=None) -> torch.device:
@@ -30,9 +36,11 @@ def layout_tensor(layout, name, device, arr, dtype) -> torch.Tensor:
     path copies no layout data per call.  Built as a normal tensor even
     when first asked for under ``inference_mode``, so that training may
     save it for backward."""
+    global table_builds
     cache = layout.__dict__.setdefault("_device_cache", {})
     key = (name, str(torch.device(device)))
     if key not in cache:
+        table_builds += 1
         with torch.inference_mode(False):
             cache[key] = torch.as_tensor(np.asarray(arr), dtype=dtype,
                                          device=device)

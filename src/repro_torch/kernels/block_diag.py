@@ -31,6 +31,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.kernels import _build
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
@@ -170,6 +171,7 @@ def _kept(owner: torch.Tensor, attr: str, others, blk: int, build):
     if versions is None or src is None or src[0] is not value \
             or any(a is not b for a, b in zip(src[1], others)) \
             or src[2:] != (blk, versions):
+        _device.table_builds += 1
         value = _keep(owner, attr, others, blk, build())
     return value
 

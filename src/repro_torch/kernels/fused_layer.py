@@ -47,6 +47,7 @@ import ctypes
 import numpy as np
 import torch
 
+from repro_torch import device as _device
 from repro_torch.core.activations import (apply_activation_derivs_masked,
                                           apply_activations_masked)
 from repro_torch.kernels import _build
@@ -96,6 +97,7 @@ def schedule_on(layout, device, transposed: bool = False
     cache = layout.__dict__.setdefault("_csr_cache", {})
     key = (str(torch.device(device)), transposed)
     if key not in cache:
+        _device.table_builds += 1
         arrs = csr = csr_schedule(layout, transposed)
         if transposed:
             arrs += tuple(np.asarray(a, np.int32) for a in (
@@ -158,6 +160,7 @@ def dx_dw_schedule_on(layout, device) -> tuple[torch.Tensor, torch.Tensor]:
     cache = layout.__dict__.setdefault("_csr_cache", {})
     key = (str(torch.device(device)), "dx_dw")
     if key not in cache:
+        _device.table_builds += 1
         units, ptr = dx_dw_units(layout)
         cache[key] = tuple(torch.from_numpy(a).to(device)
                            for a in (units, ptr))

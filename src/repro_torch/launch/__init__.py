@@ -1,2 +1,3 @@
-"""Entry points: the population server, the kernel-launch budget and the
-paper's Tables 1–2 (``paper_tables``)."""
+"""Entry points: the population trainer (with the halving lifecycle and
+the refill search), the population server, the kernel-launch budget and
+the paper's Tables 1–2 (``paper_tables``)."""

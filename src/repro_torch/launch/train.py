@@ -17,11 +17,34 @@ run ends with a leaderboard over the held-out split, scored on the run's
 own route (the serving kernels under ``--bd-impl fused``, else the run's
 ``--act-impl`` and ``--m3-impl``).
 
+``--halving "500:0.5,1000:0.25"`` adds the successive-halving lifecycle
+(``core/lifecycle.py``): the run is split into rung segments; at each rung
+boundary the population is evaluated on ``--rung-eval-batches`` batches of
+the held-out split, on the run's own route, the best ``keep_frac`` survive,
+and they are COMPACTED into a freshly built, smaller layout whose device
+tables are built there (``deep.build_tables``), before the next segment.
+``--refill pbt|arch`` (``repro_torch.search``) puts clones of survivors
+with perturbed recipes, or fresh members, into the freed slots: ``pbt``
+keeps the layout (no table is rebuilt), ``arch`` samples architectures
+from ``--search-space`` and grows the layout.  ``--per-member-lr`` /
+``--per-member-momentum`` / ``--per-member-weight-decay`` race one
+recipe per member.  Checkpoints carry the lifecycle (rung, slot →
+original member ids, the recipe vectors, and under ``--refill`` the id
+counter and the lineage), so ``--resume`` continues a ladder mid-way, in
+either package.
+
+Deliberate differences from the JAX driver (ROADMAP.md): rungs score on
+the run's own route; the per-member vectors and newborns are drawn from
+``torch.Generator``s (``SearchSpace.init_*``, ``fresh_member_params``),
+other numbers than ``jax.random``'s; the recipe vectors are always written
+into the lifecycle meta, and ``--resume`` with a per-member flag raises on
+a checkpoint without them (a JAX run without ``--refill``): the port cannot
+redraw JAX's vector.
+
 Single device: the population is not shard-padded.  Flags whose paths are
 not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
-``--halving``, ``--refill``, ``--per-member-*``, ``--compute-dtype
-bfloat16``, ``--optimizer adafactor``, ``--opt-state-dtype bfloat16``,
-``--serve-publish`` and ``--pipeline on``.
+``--compute-dtype bfloat16``, ``--optimizer adafactor``,
+``--opt-state-dtype bfloat16``, ``--serve-publish`` and ``--pipeline on``.
 ``--pipeline`` defaults to ``off`` here (the JAX package's trajectory is
 bit-identical either way).
 """
@@ -73,16 +96,6 @@ def check_supported(args):
     """Raise ``NotImplementedError`` for every flag whose path the port
     does not have yet."""
     unsupported = [
-        (args.halving, "--halving: the successive-halving lifecycle is "
-         f"{_QUEUE1}, item 5)"),
-        (args.refill != "off", "--refill: the slot-refill search is "
-         f"{_QUEUE1}, item 5)"),
-        (args.search_space, "--search-space: the search space is "
-         f"{_QUEUE1}, item 5)"),
-        (args.per_member_lr or args.per_member_momentum
-         or args.per_member_weight_decay,
-         "--per-member-*: the per-member recipe vectors draw through "
-         f"search/space.py, {_QUEUE1}, item 5)"),
         (args.compute_dtype != "float32", "--compute-dtype bfloat16: the "
          f"bf16 policy is {_QUEUE1}, item 6)"),
         (args.optimizer == "adafactor", "--optimizer adafactor is "
@@ -99,34 +112,78 @@ def check_supported(args):
             raise NotImplementedError(why)
 
 
+def check_recipe_flags(args, opt_name: str):
+    """The JAX driver's checks of the per-member flags against the
+    optimizer (``SystemExit``, as there)."""
+    if args.per_member_momentum and opt_name != "momentum":
+        raise SystemExit("--per-member-momentum needs --optimizer momentum")
+    if args.per_member_weight_decay and opt_name != "adamw":
+        raise SystemExit(
+            "--per-member-weight-decay needs --optimizer adamw/adafactor")
+    if args.per_member_weight_decay and args.weight_decay <= 0:
+        raise SystemExit("--per-member-weight-decay scales --weight-decay; "
+                         "set it > 0")
+
+
 def optimizer_record(arch, args, opt_name: str, grad_clip) -> dict:
     """The record checkpoints carry under ``meta["train"]["optimizer"]`` —
-    the JAX package's schema, so a resume in either package validates it."""
+    the JAX package's schema, so a resume in either package validates it:
+    the per-member flags, and the seed wherever a vector or the refill
+    controller's rng depends on it."""
     rec = {"name": opt_name, "lr": float(arch.lr),
            "grad_clip": float(grad_clip or 0.0),
-           "per_member_lr": False, "per_member_momentum": False,
-           "per_member_weight_decay": False}
+           "per_member_lr": bool(args.per_member_lr),
+           "per_member_momentum": bool(args.per_member_momentum),
+           "per_member_weight_decay": bool(args.per_member_weight_decay)}
     if opt_name == "momentum":
         rec["momentum"] = float(args.momentum)
     if opt_name in ("adamw", "adafactor"):
         rec["weight_decay"] = float(args.weight_decay)
     if opt_name == "adamw":
         rec["state_dtype"] = args.opt_state_dtype
+    if (args.per_member_lr or args.per_member_momentum
+            or args.per_member_weight_decay):
+        rec["seed"] = int(args.seed)
+    if args.refill != "off":
+        rec["refill"] = args.refill
+        rec["seed"] = int(args.seed)
+        if args.search_space:
+            rec["search_space"] = args.search_space
     return rec
 
 
-def _build_opt(opt_name: str, args):
-    from repro_torch.optim.optimizers import adamw, sgd
-    if opt_name == "sgd":
-        return sgd()
-    if opt_name == "momentum":
-        return sgd(momentum=args.momentum)
-    return adamw(weight_decay=args.weight_decay)
+def fresh_member_params(seed: int, rung: int, fresh_lp, device) -> dict:
+    """The parameters of the members born at rung ``rung``, for their own
+    layout ``fresh_lp``: ``deep.init_params`` from a ``torch.Generator``
+    on ``device`` seeded from ``(seed, 5000 + rung)``, so a resumed run
+    draws the same newborns (the JAX package folds the same numbers into
+    its ``jax.random`` key: the same distribution, other numbers)."""
+    from repro_torch.core.deep import init_params
+    state = np.random.SeedSequence([int(seed), 5000 + int(rung)])
+    gen = torch.Generator(device=device).manual_seed(
+        int(state.generate_state(1, np.uint32)[0]))
+    return init_params(gen, fresh_lp)
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _memory(device):
+    return (torch.cuda.memory_allocated(device) if device.type == "cuda"
+            else None)
 
 
 def run_population(arch, args):
     """Fused population training on one device → ``(params, layout,
-    stats)``; ``stats``: first/last mean member loss, steps, seconds."""
+    stats)``; ``stats``: first/last mean member loss, steps, seconds,
+    restarts, member steps, chunk builds, and with ``--halving`` one entry
+    per trained segment (``segments``: steps, members, fused widths,
+    seconds, kernel launches, tables built) and per rung (``rungs``: the
+    eval, the gather and the table build, each timed, and the device
+    memory after)."""
+    from repro_torch import device as device_mod
     from repro_torch.checkpoint.checkpoint import (latest_steps,
                                                    layout_from_meta,
                                                    lifecycle_from_meta,
@@ -136,15 +193,31 @@ def run_population(arch, args):
                                                    restore_population,
                                                    save_population)
     from repro_torch.core import deep
-    from repro_torch.core.population import Population
+    from repro_torch.core.lifecycle import (HalvingSchedule, compact, grow,
+                                            refill_params, refill_state,
+                                            survivors)
+    from repro_torch.core.population import LayeredPopulation, Population
     from repro_torch.core.selection import evaluate_population, leaderboard
     from repro_torch.data.synthetic import TabularTask
     from repro_torch.device import resolve
     from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
                                                          TrainRunner)
-    from repro_torch.optim.optimizers import warmup_cosine
+    from repro_torch.launch.launch_count import kernel_launches
+    from repro_torch.optim.optimizers import adamw, sgd, warmup_cosine
+    from repro_torch.search import RefillController, SearchSpace
 
     check_supported(args)
+    schedule = HalvingSchedule.parse(args.halving) if args.halving else None
+    refill_mode = args.refill
+    space = SearchSpace.parse(args.search_space)
+    controller = None
+    if refill_mode != "off":
+        if schedule is None:
+            raise SystemExit("--refill needs --halving (rung boundaries "
+                             "are where slots free up)")
+        controller = RefillController(space, mode=refill_mode,
+                                      seed=args.seed,
+                                      exploit_frac=args.refill_exploit_frac)
     if args.ckpt_dir is None:
         if args.resume:
             raise SystemExit("--resume needs --ckpt-dir")
@@ -155,7 +228,10 @@ def run_population(arch, args):
     grad_clip = args.grad_clip if args.grad_clip else None
     if opt_name not in ("sgd", "momentum", "adamw"):
         raise SystemExit(f"unknown optimizer {opt_name!r}")
+    check_recipe_flags(args, opt_name)
     opt_record = optimizer_record(arch, args, opt_name, grad_clip)
+    route = dict(bd_impl=args.bd_impl, act_impl=args.act_impl,
+                 m3_impl=args.m3_impl)
 
     if args.population_depths:
         lp = population_from_flags(
@@ -170,6 +246,7 @@ def run_population(arch, args):
 
     start = 0
     rung = 0
+    life = {}
     resuming = bool(args.resume and latest_steps(args.ckpt_dir))
     if resuming:
         meta, last = load_meta(args.ckpt_dir)
@@ -179,33 +256,111 @@ def run_population(arch, args):
                 f"--resume: the checkpoint at step {last} carries no "
                 "optimizer state; it can only resume with the stateless "
                 "'--optimizer sgd'")
-        lp_meta = layout_from_meta(meta)
-        if lp_meta.n_pad:
+        lp = layout_from_meta(meta)
+        if lp.n_pad:
             raise NotImplementedError(
                 "--resume: the checkpoint's layout is shard-padded for a "
                 "multi-device mesh; multi-GPU is not ported yet "
                 "(ROADMAP.md, Queue 1, item 8)")
-        rung, member_ids, n0 = lifecycle_from_meta(meta, lp_meta)
-        if rung:
-            raise NotImplementedError(
-                "--resume: the checkpoint is mid-way through a halving "
-                f"ladder; the lifecycle is {_QUEUE1}, item 5)")
-        opt = _build_opt(opt_name, args)
-        if stored is None:
-            params, lp, _ = restore_population(args.ckpt_dir, device=device)
-            opt_state = opt.init(params)
-        else:
-            params, lp, _, opt_state = restore_population(
-                args.ckpt_dir, device=device,
-                extra_like=opt.init(deep.abstract_params(lp_meta)))
+        rung, member_ids, n0 = lifecycle_from_meta(meta, lp)
+        life = meta.get("lifecycle") or {}
         start = last + 1
-        print(f"resumed from step {last}")
     else:
         n0 = lp.num_members
         member_ids = np.arange(n0)
+
+    # ---- per-member recipe vectors over the ORIGINAL n0 members, indexed
+    # by original id (a refilled member appends its recipe at its fresh
+    # id); a resume reads them from the lifecycle meta, never redraws
+    def recipe_vector(flag, key, what, draw):
+        if not flag:
+            return None
+        if not resuming:
+            return draw()
+        if key not in life:
+            raise ValueError(
+                f"--resume with {what}: the checkpoint's lifecycle meta "
+                f"has no {key!r} (a JAX run without --refill writes none); "
+                "the JAX package draws the vector with jax.random, which "
+                "the port cannot redraw, and a different vector beneath "
+                "the restored state would silently change every member's "
+                "recipe")
+        return np.asarray(life[key], np.float32)
+
+    lr0 = recipe_vector(args.per_member_lr, "lr_vec", "--per-member-lr",
+                        lambda: space.init_lr(args.seed, n0, arch.lr))
+    mom0 = recipe_vector(args.per_member_momentum, "mom_vec",
+                         "--per-member-momentum",
+                         lambda: space.init_momentum(args.seed, n0))
+    wd0 = recipe_vector(args.per_member_weight_decay, "wd_vec",
+                        "--per-member-weight-decay",
+                        lambda: space.init_wd(args.seed, n0,
+                                              args.weight_decay))
+    if lr0 is not None:
+        print(f"per-member learning rates in "
+              f"[{arch.lr * space.lr_scale[0]:.4f}, "
+              f"{arch.lr * space.lr_scale[1]:.4f}]")
+    if mom0 is not None:
+        print(f"per-member momentum in [{space.momentum_range[0]:.2f}, "
+              f"{space.momentum_range[1]:.2f}]")
+    if wd0 is not None:
+        print(f"per-member weight decay in "
+              f"[{args.weight_decay * space.wd_scale[0]:.5f}, "
+              f"{args.weight_decay * space.wd_scale[1]:.5f}]")
+
+    # ---- lineage: original id → (parent id, birth rung); ids come from a
+    # counter above every id issued, so a newborn never aliases a seed
+    next_id = int(n0)
+    lineage = {}
+    if resuming and refill_mode != "off":
+        next_id = int(life.get("next_id", n0))
+        lineage = {int(k): (int(v[0]), int(v[1]))
+                   for k, v in (life.get("lineage") or {}).items()}
+
+    def member_tree(vec0, lp):
+        """A recipe vector indexed down to the layout's slots, expanded to
+        a scale tree on the device: copied there once per layout or
+        recipe change, not once a step."""
+        v = torch.as_tensor(vec0[member_ids], device=device)
+        return deep.member_lr_tree(lp, v)
+
+    # bumped by every build_opt: part of the chunk cache's key, so a
+    # rebuilt optimizer (new momentum / decay trees) builds a new chunk,
+    # while a rung that changes neither (the constant-size refill with
+    # per-member lr only) reuses it
+    opt_epoch = 0
+
+    def build_opt(lp):
+        nonlocal opt_epoch
+        opt_epoch += 1
+        if opt_name == "sgd":
+            return sgd()
+        if opt_name == "momentum":
+            return sgd(momentum=args.momentum if mom0 is None
+                       else member_tree(mom0, lp))
+        return adamw(weight_decay=args.weight_decay if wd0 is None
+                     else member_tree(wd0, lp))
+
+    if resuming:
+        opt = build_opt(lp)
+        if stored is None:
+            params, lp_ckpt, _ = restore_population(args.ckpt_dir,
+                                                    device=device)
+            opt_state = opt.init(params)
+        else:
+            params, lp_ckpt, _, opt_state = restore_population(
+                args.ckpt_dir, device=device,
+                extra_like=opt.init(deep.abstract_params(lp)))
+        if lp_ckpt != lp:
+            raise ValueError("--resume: the checkpoint's layout does not "
+                             "match its meta")
+        print(f"resumed from step {last}"
+              + (f" (rung {rung}, {lp.num_real} survivors)"
+                 if rung else ""))
+    else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
         params = deep.init_params(gen, lp)
-        opt = _build_opt(opt_name, args)
+        opt = build_opt(lp)
         opt_state = opt.init(params)
     print(f"population: {lp.describe()}  optimizer: {opt_name}"
           + (f" (grad clip {grad_clip})" if grad_clip else ""))
@@ -213,96 +368,288 @@ def run_population(arch, args):
     task = TabularTask(args.samples, lp.in_features,
                        n_classes=lp.out_features, seed=args.seed)
     (_, _), (xte, yte) = task.split()
-    lifecycle = {"rung": rung, "n_members0": int(n0),
-                 "member_ids": [int(i) for i in member_ids]}
+
+    def lifecycle_meta():
+        m = {"rung": rung, "n_members0": int(n0),
+             "member_ids": [int(i) for i in member_ids]}
+        if refill_mode != "off":
+            m["next_id"] = int(next_id)
+            m["lineage"] = {str(k): [int(p), int(b)]
+                            for k, (p, b) in sorted(lineage.items())}
+        for key, vec in (("lr_vec", lr0), ("mom_vec", mom0),
+                         ("wd_vec", wd0)):
+            if vec is not None:
+                m[key] = [float(v) for v in vec]
+        return m
+
     train_meta = {"compute_dtype": args.compute_dtype,
                   "bd_impl": args.bd_impl, "act_impl": args.act_impl,
                   "optimizer": opt_record, "lr_schedule": args.lr_schedule}
     lr_sched = (warmup_cosine(1.0, args.warmup, args.steps)
                 if args.lr_schedule == "warmup_cosine" else None)
-    chunk_fn = deep.make_population_train_step(
-        lp, optimizer=opt, grad_clip=grad_clip, m3_impl=args.m3_impl,
-        bd_impl=args.bd_impl, act_impl=args.act_impl, scan_steps=scan,
-        lr_schedule=lr_sched)
 
     total = args.steps
-    n_chunks = (total - start + scan - 1) // scan
     print_every = max(50 // scan, 1)
-    stats = {}
+    stats = {"restarts": 0, "member_steps": 0, "chunk_builds": 0,
+             "refilled": 0, "segments": [], "rungs": []}
+    # the chunk of the current (layout, optimizer epoch): a rung boundary
+    # that changes neither reuses it, with every table of the layout
+    chunk = {}
 
-    def step_fn(state, c):
-        g0 = start + c * scan
-        n = min(scan, total - g0)
-        xs, ys = task.batch_slab(g0, n, args.batch)
-        p, st, _losses, pers, gnorms = chunk_fn(
-            state["params"], state["extra"],
-            torch.from_numpy(xs).to(device), torch.from_numpy(ys).to(device),
-            arch.lr, g0)
-        # one fetch per chunk; the mean runs over REAL members only
-        per = pers[:, :lp.num_real].cpu().numpy()
-        stats.setdefault("first_loss", float(per[0].mean()))
-        mean = float(per[-1].mean())
-        stats["last_loss"] = mean
-        metrics = {"loss": mean, "step": g0 + n - 1}
-        if gnorms is not None:
-            metrics["grad_norm"] = float(gnorms[n - 1].cpu())
-        if c % print_every == 0:
-            gn = (f"  grad norm {metrics['grad_norm']:.3f}"
-                  if gnorms is not None else "")
-            print(f"step {g0 + n - 1:4d}  mean member loss {mean:.4f}{gn}")
-        return {"params": p, "extra": st}, metrics
+    def train_segment(params, opt_state, lp, opt, seg_start, seg_end):
+        """Global steps [seg_start, seg_end) under the current layout, in
+        chunks of ``scan`` steps under a ``TrainRunner``."""
+        key = (lp, opt_epoch)
+        if key not in chunk:
+            chunk.clear()
+            chunk[key] = deep.make_population_train_step(
+                lp, optimizer=opt, grad_clip=grad_clip, scan_steps=scan,
+                lr_schedule=lr_sched, **route)
+            stats["chunk_builds"] += 1
+        chunk_fn = chunk[key]
+        lr = arch.lr if lr0 is None else member_tree(lr0, lp)
+        n_chunks = (seg_end - seg_start + scan - 1) // scan
 
-    def chunk_crosses_cadence(c):
-        # chunk c covers global steps [g0, g1): checkpoint iff one of them
-        # completes a --ckpt-every multiple
-        if not args.ckpt_every:
-            return False
-        g0 = start + c * scan
-        g1 = min(g0 + scan, total)
-        return g1 // args.ckpt_every > g0 // args.ckpt_every
+        def step_fn(state, c):
+            g0 = seg_start + c * scan
+            n = min(scan, seg_end - g0)
+            xs, ys = task.batch_slab(g0, n, args.batch)
+            p, st, _losses, pers, gnorms = chunk_fn(
+                state["params"], state["extra"],
+                torch.from_numpy(xs).to(device),
+                torch.from_numpy(ys).to(device), lr, g0)
+            # one fetch per chunk; the mean runs over REAL members only
+            per = pers[:, :lp.num_real].cpu().numpy()
+            stats.setdefault("first_loss", float(per[0].mean()))
+            mean = float(per[-1].mean())
+            stats["last_loss"] = mean
+            metrics = {"loss": mean, "step": g0 + n - 1}
+            if gnorms is not None:
+                metrics["grad_norm"] = float(gnorms[n - 1].cpu())
+            if c % print_every == 0:
+                gn = (f"  grad norm {metrics['grad_norm']:.3f}"
+                      if gnorms is not None else "")
+                print(f"step {g0 + n - 1:4d}  mean member loss "
+                      f"{mean:.4f}{gn}")
+            return {"params": p, "extra": st}, metrics
 
-    runner = TrainRunner(
-        step_fn, {"params": params, "extra": opt_state},
-        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-        straggler=StragglerPolicy(timeout_s=args.straggler_timeout),
-        ckpt_meta=population_meta(lp, params, lifecycle=lifecycle,
-                                  train_meta=train_meta),
-        ckpt_step_map=lambda c: min(start + (c + 1) * scan, total) - 1,
-        ckpt_step_unmap=lambda g: (g + 1 - start) // scan - 1,
-        ckpt_save_pred=chunk_crosses_cadence)
+        def chunk_crosses_cadence(c):
+            # chunk c covers global steps [g0, g1): checkpoint iff one of
+            # them completes a --ckpt-every multiple
+            if not args.ckpt_every:
+                return False
+            g0 = seg_start + c * scan
+            g1 = min(g0 + scan, seg_end)
+            return g1 // args.ckpt_every > g0 // args.ckpt_every
+
+        runner = TrainRunner(
+            step_fn, {"params": params, "extra": opt_state},
+            ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+            straggler=StragglerPolicy(timeout_s=args.straggler_timeout),
+            ckpt_meta=population_meta(lp, params,
+                                      lifecycle=lifecycle_meta(),
+                                      train_meta=train_meta),
+            ckpt_step_map=lambda c: min(seg_start + (c + 1) * scan,
+                                        seg_end) - 1,
+            ckpt_step_unmap=lambda g: (g + 1 - seg_start) // scan - 1,
+            ckpt_save_pred=chunk_crosses_cadence)
+        n_before = kernel_launches()
+        tables_before = device_mod.table_builds
+        t0 = time.perf_counter()
+        runner.run(n_chunks)
+        _sync(device)
+        n_after = kernel_launches()
+        stats["segments"].append({
+            "start": seg_start, "end": seg_end, "members": lp.num_real,
+            "depth": lp.depth,
+            "fused_hidden": [lp.layer_pop(l).total_hidden
+                             for l in range(lp.depth)],
+            "seconds": time.perf_counter() - t0,
+            "launches": {k: n_after[k] - n_before[k] for k in n_after
+                         if n_after[k] != n_before[k]},
+            "tables_built": device_mod.table_builds - tables_before})
+        stats["restarts"] += runner.restarts
+        stats["member_steps"] += lp.num_real * (seg_end - seg_start)
+        return runner.state["params"], runner.state["extra"]
+
+    # rung segments: [0, b0) prune [b0, b1) prune ... [b_last, total).  A
+    # resumed run re-enters the ladder at its checkpointed rung (the
+    # boundaries before it are already applied to the layout)
+    segments = schedule.segments(total) if schedule else ((total, None),)
+    n_eval = len(yte)
+    if args.rung_eval_batches:
+        n_eval = min(n_eval, args.rung_eval_batches * args.batch)
     t0 = time.time()
-    runner.run(n_chunks)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    pos = start
+    for i in range(min(rung, len(segments) - 1) if schedule else 0,
+                   len(segments)):
+        seg_end, keep_frac = segments[i]
+        if pos < seg_end:
+            params, opt_state = train_segment(params, opt_state, lp, opt,
+                                              pos, seg_end)
+            pos = seg_end
+        if keep_frac is None:
+            continue
+        # ---- rung boundary: eval (on the run's own route), prune, then
+        # refill in place, compact, or compact and grow; the new layout's
+        # device tables are built here, not in the next segment's step
+        tables_before = device_mod.table_builds
+        launches_before = sum(kernel_launches().values())
+        t_r = time.perf_counter()
+        losses, _ = evaluate_population(params, lp, xte[:n_eval],
+                                        yte[:n_eval], infer=True, **route)
+        n_before = lp.num_real
+        rung_losses = losses.cpu().numpy()[:n_before]
+        keep = survivors(rung_losses, keep_frac)
+        t_eval = time.perf_counter() - t_r
+        eval_launches = sum(kernel_launches().values()) - launches_before
+        rung = i + 1
+        plan = None
+        if controller is not None:
+            plan = controller.plan(
+                lp, rung_losses, keep, member_ids, rung=rung,
+                next_id=next_id, base_lr=arch.lr,
+                lr=None if lr0 is None else lr0[member_ids],
+                momentum=None if mom0 is None else mom0[member_ids],
+                wd=None if wd0 is None else wd0[member_ids],
+                base_momentum=args.momentum, base_wd=args.weight_decay)
+            # refilled recipes append at their fresh ids (plan order is id
+            # order); survivors' entries are untouched
+            for f in plan.members:
+                lineage[f.member_id] = (f.parent_id, f.birth_rung)
+                if lr0 is not None:
+                    lr0 = np.append(lr0, np.float32(f.lr))
+                if mom0 is not None:
+                    mom0 = np.append(mom0, np.float32(f.momentum))
+                if wd0 is not None:
+                    wd0 = np.append(wd0, np.float32(f.wd))
+            next_id += len(plan.members)
+            stats["refilled"] += len(plan.members)
+        t_g = time.perf_counter()
+        if refill_mode == "pbt":
+            # the population size is held: the layout, its tables and the
+            # chunk stay; one gather/scatter and a moment mask
+            fresh = None
+            fm = plan.fresh_members
+            if fm:
+                fresh = fresh_member_params(
+                    args.seed, rung,
+                    LayeredPopulation(lp.in_features, lp.out_features,
+                                      tuple(f.widths for f in fm),
+                                      tuple(f.acts for f in fm),
+                                      block=lp.block), device)
+            params = refill_params(lp, params, plan.assignments, fresh)
+            opt_state = refill_state(opt_state, lp, plan.slots)
+            member_ids = member_ids.copy()
+            for f in plan.members:
+                member_ids[f.slot] = f.member_id
+            if mom0 is not None or wd0 is not None:
+                opt = build_opt(lp)       # new recipe trees: a new chunk
+            hit = (lp, opt_epoch) in chunk
+            n_ex = sum(1 for f in plan.members if f.origin == "exploit")
+            msg = (f"pruned {n_before - len(keep)}/{n_before}, refilled in "
+                   f"place ({n_ex} exploit, {len(plan.members) - n_ex} "
+                   "fresh) -> layout unchanged, chunk "
+                   + ("cache-hit (zero re-jit)" if hit else "rebuild"))
+        else:
+            kept_ids = member_ids[keep]
+            lp_new, params, opt_state = compact(lp, params, opt_state, keep)
+            member_ids = kept_ids
+            msg = f"kept {len(keep)}/{n_before} members -> "
+            if refill_mode == "arch":
+                widths_new = tuple(f.widths for f in plan.members)
+                acts_new = tuple(f.acts for f in plan.members)
+                positions = lp_new.grow_positions(widths_new, acts_new)
+                lp_grown = lp_new.grow(widths_new, acts_new, positions)
+                fresh = fresh_member_params(
+                    args.seed, rung, lp_grown.subset(tuple(sorted(
+                        positions))), device)
+                lp_new, params, opt_state = grow(
+                    lp_new, params, opt_state, widths_new, acts_new,
+                    positions, fresh)
+                pos_of = {p: j for j, p in enumerate(positions)}
+                ids, oi = [], 0
+                for slot in range(lp_new.num_real):
+                    if slot in pos_of:
+                        ids.append(plan.members[pos_of[slot]].member_id)
+                    else:
+                        ids.append(member_ids[oi])
+                        oi += 1
+                member_ids = np.asarray(ids, member_ids.dtype)
+                msg = (f"kept {len(keep)}/{n_before}, grew "
+                       f"{len(plan.members)} sampled archs -> ")
+            lp = lp_new
+            opt = build_opt(lp)
+            msg += lp.describe()
+        _sync(device)
+        t_gather = time.perf_counter() - t_g
+        t_b = time.perf_counter()
+        if refill_mode != "pbt":
+            deep.build_tables(lp, device, per_member=lr0 is not None
+                              or mom0 is not None or wd0 is not None,
+                              **route)
+            _sync(device)
+        t_tables = time.perf_counter() - t_b
+        print(f"rung {i} @ step {pos - 1}: {msg}")
+        stats["rungs"].append({
+            "rung": rung, "step": pos - 1, "members_before": n_before,
+            "members": lp.num_real, "depth": lp.depth,
+            "fused_hidden": [lp.layer_pop(l).total_hidden
+                             for l in range(lp.depth)],
+            "eval_s": t_eval, "eval_launches": eval_launches,
+            "gather_s": t_gather, "tables_s": t_tables,
+            "tables_built": device_mod.table_builds - tables_before,
+            "memory_allocated": _memory(device)})
+        if args.ckpt_every:
+            # force-save the post-rung state at the last COMPLETED step,
+            # overwriting any cadence save of it: the latest checkpoint
+            # always matches the live layout
+            save_population(args.ckpt_dir, pos - 1, params, lp,
+                            extra_state=opt_state,
+                            lifecycle=lifecycle_meta(),
+                            train_meta=train_meta)
+    _sync(device)
     dt = time.time() - t0
-    params, opt_state = runner.state["params"], runner.state["extra"]
 
     steps_run = max(total - start, 0)
-    stats.update(steps=steps_run, seconds=dt, restarts=runner.restarts)
+    stats.update(steps=steps_run, seconds=dt, explored=next_id)
     if steps_run:
         loss0 = stats.get("first_loss", 0.0)
         loss = stats.get("last_loss", 0.0)
-        print(f"trained {lp.num_real} MLPs × {steps_run} steps in "
-              f"{dt:.1f}s ({lp.num_real * steps_run / max(dt, 1e-9):.0f} "
+        pop_desc = (f"{n0}->{lp.num_real}" if lp.num_real != n0
+                    else f"{lp.num_real}")
+        print(f"trained {pop_desc} MLPs × {steps_run} steps in "
+              f"{dt:.1f}s ({stats['member_steps'] / max(dt, 1e-9):.0f} "
               f"model-steps/s); loss {loss0:.4f} -> {loss:.4f}")
+        if refill_mode != "off":
+            print(f"explored {next_id} models ({stats['refilled']} "
+                  f"refilled) in {dt:.1f}s ({next_id / max(dt, 1e-9):.2f} "
+                  f"models/s); {stats['chunk_builds']} chunk builds")
         if args.ckpt_every:
             # final checkpoint ONLY if the cadence didn't just write it
             saved = latest_steps(args.ckpt_dir)
             if not saved or saved[-1] != total - 1:
                 save_population(args.ckpt_dir, total - 1, params, lp,
-                                extra_state=opt_state, lifecycle=lifecycle,
+                                extra_state=opt_state,
+                                lifecycle=lifecycle_meta(),
                                 train_meta=train_meta)
 
-    losses, accs = evaluate_population(params, lp, xte, yte,
-                                       bd_impl=args.bd_impl,
-                                       act_impl=args.act_impl,
-                                       m3_impl=args.m3_impl, infer=True)
+    losses, accs = evaluate_population(params, lp, xte, yte, infer=True,
+                                       **route)
     print("leaderboard:")
     for row in leaderboard(lp, losses, accs, k=min(10, lp.num_real),
-                           member_ids=member_ids):
+                           member_ids=member_ids,
+                           lineage=lineage if refill_mode != "off"
+                           else None):
+        lin = ""
+        if "lineage" in row:
+            li = row["lineage"]
+            lin = (f"  born r{li['born_rung']}"
+                   + (f" of {li['parent']}" if li["parent"] >= 0
+                      else " fresh" if li["born_rung"] else " seed"))
         print(f"  #{row['rank']:2d} member {row['member']:4d} "
               f"hidden={row['hidden']} {row['activation']:11s} "
-              f"loss={row['loss']:.4f} acc={row['acc']:.3f}")
+              f"loss={row['loss']:.4f} acc={row['acc']:.3f}{lin}")
     return params, lp, stats
 
 
@@ -347,7 +694,10 @@ def main(argv=None):
     ap.add_argument("--compute-dtype", default="float32",
                     choices=["float32", "bfloat16"])
     ap.add_argument("--rung-eval-batches", type=int, default=0,
-                    help="halving rungs only (not ported yet)")
+                    help="halving rungs: evaluate only this many --batch-"
+                         "sized held-out batches at each rung boundary (0 = "
+                         "the whole split; the closing leaderboard always "
+                         "scores the whole split)")
     ap.add_argument("--act-impl", default="sliced",
                     choices=["sliced", "masked", "pallas"],
                     help="per-layer activation of the unfused route "
@@ -375,11 +725,26 @@ def main(argv=None):
                     choices=["float32", "bfloat16"])
     ap.add_argument("--per-member-momentum", action="store_true")
     ap.add_argument("--per-member-weight-decay", action="store_true")
-    ap.add_argument("--halving", default=None)
+    ap.add_argument("--halving", default=None,
+                    help='successive-halving rungs "STEP:KEEP,..." (e.g. '
+                         '"500:0.5,1000:0.25"): after each listed global '
+                         "step keep the best fraction of the members and "
+                         "compact the layout (rungs at or past --steps "
+                         "never fire; resume with the same spec)")
     ap.add_argument("--refill", default="off",
-                    choices=["off", "pbt", "arch"])
-    ap.add_argument("--search-space", default=None)
-    ap.add_argument("--refill-exploit-frac", type=float, default=0.5)
+                    choices=["off", "pbt", "arch"],
+                    help="refill the slots a --halving rung frees: 'pbt' "
+                         "clones same-arch survivors with perturbed recipes "
+                         "(fresh members where none matches) and keeps the "
+                         "layout; 'arch' samples architectures from "
+                         "--search-space and grows the layout")
+    ap.add_argument("--search-space", default=None,
+                    help="search-space spec for --refill and the "
+                         "--per-member-* ranges, ';'-separated, e.g. "
+                         "\"widths=64,32|16,8;acts=relu,tanh;lr=0.3..3\"")
+    ap.add_argument("--refill-exploit-frac", type=float, default=0.5,
+                    help="--refill pbt: clones draw from the best FRAC of "
+                         "the slot-arch-matching survivors")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                          "PyTorch versions)")

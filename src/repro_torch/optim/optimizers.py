@@ -204,6 +204,29 @@ def apply_updates(params, updates):
                     updates)
 
 
+def scale_member_moments(state, ref, scale_tree):
+    """Multiply every params-shaped moment of an optimizer state (sgd
+    ``mu``, adamw ``m`` and ``v``) by a params-structured tree of masks or
+    scales, each broadcastable against its parameter along the
+    member-major axes (numpy arrays or tensors); scalar leaves (step
+    counts) pass through and each moment keeps its dtype.  The in-place
+    twin of re-initialising members' moments
+    (``lifecycle.refill_state``).  ``ref``: the params tree (live or
+    ``abstract_params``) of the current layout."""
+    if isinstance(state, dict) and "leaves" in state:
+        raise NotImplementedError(
+            "scale_member_moments of an adafactor state: the adafactor "
+            f"optimizer {_NOT_YET}, item 2)")
+    from repro_torch.core.deep import map_params_subtrees
+
+    def scale_leaf(mom, mk):
+        return mom * torch.as_tensor(mk, dtype=mom.dtype, device=mom.device)
+
+    return map_params_subtrees(
+        state, ref, lambda node: tree_map(scale_leaf, node, scale_tree),
+        op="scale_member_moments")
+
+
 # --------------------------------------------------------------------- #
 # LR schedules: step → float32 multiplier (a 0-d tensor on the CPU)     #
 # --------------------------------------------------------------------- #

@@ -215,4 +215,6 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs", "repro_torch.kernels.flash_attn",
             "repro_torch.kernels.grouped_gemm",
             "repro_torch.core.feature_selection",
-            "repro_torch.launch.paper_tables"} <= set(mods)
+            "repro_torch.launch.paper_tables", "repro_torch.core.lifecycle",
+            "repro_torch.search", "repro_torch.search.space",
+            "repro_torch.search.controller"} <= set(mods)

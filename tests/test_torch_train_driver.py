@@ -1,7 +1,9 @@
 """The port's training driver held against the JAX package's, on the CPU:
 resume a JAX run in the port (parameters and optimizer state), the port's
 checkpoint restored by JAX, crash replay, the M3 routes (``--m3-impl
-pallas|onehot``), and the flags not ported yet.
+pallas|onehot``), the lifecycle and recipe flags (``--halving``,
+``--refill``, ``--per-member-*``) run to their end, and the flags not
+ported yet.
 
 The JAX driver trains on its einsum route; the port's driver resumes with
 ``--device cpu``, where every kernel runs its plain PyTorch version.
@@ -19,6 +21,7 @@ from repro.checkpoint import checkpoint as jckpt
 from repro.core import deep as jdeep
 from repro.launch import train as jtrain
 from repro.optim import optimizers as jopt
+from repro_torch import search as tsearch
 from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.core import deep as tdeep
 from repro_torch.core.tree import tree_leaves
@@ -160,12 +163,9 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--halving", "4:0.5"],
-    ["--halving", "4:0.5", "--refill", "pbt"],
-    ["--per-member-lr"],
-    ["--optimizer", "momentum", "--per-member-momentum"],
     ["--compute-dtype", "bfloat16"],
     ["--optimizer", "adafactor"],
+    ["--optimizer", "adafactor", "--halving", "4:0.5"],
     ["--optimizer", "adamw", "--opt-state-dtype", "bfloat16"],
     ["--serve-publish"],
     ["--pipeline", "on"],
@@ -175,6 +175,63 @@ def test_unported_flags_raise(flags, tmp_path):
         ttrain.main(["--arch", "parallelmlp-10k", "--reduced", "--steps",
                      "2", "--ckpt-dir", str(tmp_path), "--device", "cpu",
                      *flags])
+
+
+TINY = ["--arch", "parallelmlp-10k", "--reduced", "--steps", "4",
+        "--batch", "4", "--samples", "64", "--scan-steps", "2",
+        "--population-depths", "4;3;5,2;6", "--population-features", "5",
+        "--ckpt-every", "2", "--device", "cpu"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--halving", "2:0.5"],
+    ["--halving", "2:0.5", "--refill", "pbt"],
+    ["--per-member-lr"],
+    ["--optimizer", "momentum", "--per-member-momentum"],
+], ids=lambda f: " ".join(f))
+def test_lifecycle_flags_run(flags, tmp_path):
+    """The lifecycle and recipe flags (Queue 1 item 5) run to their end
+    on the CPU, and the checkpoint's lifecycle meta says what they did."""
+    params, lp, stats = ttrain.main(TINY + flags + ["--ckpt-dir",
+                                                    str(tmp_path)])
+    assert stats["steps"] == 4
+    meta, step = tckpt.load_meta(str(tmp_path))
+    life = meta["lifecycle"]
+    assert step == 3 and life["n_members0"] == 4
+    assert len(life["member_ids"]) == lp.num_real
+    rec = meta["train"]["optimizer"]
+    if "--halving" in flags:
+        assert life["rung"] == 1 and len(stats["rungs"]) == 1
+    if "--refill" in flags:
+        assert lp.num_real == 4 and rec["refill"] == "pbt"
+        assert life["next_id"] == 6 and len(life["lineage"]) == 2
+        assert sorted(life["member_ids"])[-2:] == [4, 5]
+    elif "--halving" in flags:
+        assert lp.num_real == 2 and "next_id" not in life
+    if "--per-member-lr" in flags:
+        assert rec["per_member_lr"] and rec["seed"] == 0
+        assert np.asarray(life["lr_vec"], np.float32).tobytes() == \
+            tsearch.SearchSpace().init_lr(0, 4, rec["lr"]).tobytes()
+    if "--per-member-momentum" in flags:
+        assert rec["per_member_momentum"] and len(life["mom_vec"]) == 4
+
+
+def test_refill_needs_halving(tmp_path):
+    with pytest.raises(SystemExit, match="--halving"):
+        ttrain.main(TINY + ["--refill", "pbt", "--ckpt-dir",
+                            str(tmp_path)])
+
+
+def test_per_member_resume_of_a_jax_run_without_vectors(tmp_path):
+    """A JAX ``--per-member-lr`` run without ``--refill`` stores no lr
+    vector: the port refuses to resume it (it cannot redraw JAX's
+    ``jax.random`` vector) and says why."""
+    flags = [a for a in TINY if a not in ("--device", "cpu")]
+    jtrain.main(flags + ["--per-member-lr", "--steps", "2", "--pipeline",
+                         "off", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="lr_vec"):
+        ttrain.main(TINY + ["--per-member-lr", "--resume", "--ckpt-dir",
+                            str(tmp_path)])
 
 
 @pytest.mark.parametrize("flags", [
