@@ -109,6 +109,29 @@ Phases (any failure exits non-zero, and no result line is printed):
           third under ``torch.profiler``) and its model-steps/s against
           the same 24 steps without ``--halving``; the steady-state step
           (``time_train_step``) of each rung's layout;
+       h. the optimizers and the checkpoint (a process of its own, as 4g):
+          ``parallelmlp-10k``'s fused step at batch 32 under sgd, AdamW
+          (f32 state), AdamW (bf16 state) and adafactor, in turns: exactly
+          2·(depth+1) = 4 launches a step, the state's bytes read from its
+          tensors against those of the shapes (``STATE_BYTES_10K``), the
+          steady step's wall, device time and idle share; an update of
+          the bf16 AdamW and adafactor on the card against the CPU at the
+          10k shapes, from one state with live moments (f32 within rtol
+          1e-5 / atol 1e-6, bf16 within one ulp); the 10k ladder under ``--optimizer adafactor
+          --weight-decay 0.001`` (24 steps, checkpoints every 8 through
+          the ``AsyncCheckpointer``: each rung's saved state's statistics
+          fresh zeros with its bf16 momentum carried, the momentum's
+          gather on the card bitwise the CPU's, the held-out loss falling,
+          a run stopped at step 12 and resumed bitwise the straight run);
+          the depth-3 population (clip 1.0, constant lr) under adafactor
+          with ``--halving "8:0.5"`` and ``--refill arch``, and ``--refill
+          pbt --per-member-lr``, and under AdamW with ``--opt-state-dtype
+          bfloat16 --halving "8:0.5"`` (4g's checks of each run); the 10k
+          parameters and adafactor state (806,560,420 B): the time
+          ``maybe_save`` holds the loop and its worker's write against a
+          synchronous ``save``, the checkpoint restored bitwise on the
+          card and on the CPU, and a ``TrainRunner`` crash replay with
+          async saves bitwise an unbroken run;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -984,13 +1007,15 @@ KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
 
 def time_train_step(name, params, lp, x, y, adam: bool,
                     unfused: bool = False, m3: bool = False,
-                    iters: int = 20):
+                    iters: int = 20, opt=None):
     """Steady-state train step (the fused route, or with ``unfused`` the
-    unfused one, with ``m3`` its head on the M3 kernels too): see
-    ``time_step``."""
+    unfused one, with ``m3`` its head on the M3 kernels too) under sgd, or
+    with ``adam`` AdamW clipped at 1.0 (``opt``: another optimizer in its
+    place, clipped the same way): see ``time_step``."""
     from repro_torch.core.deep import opt_step
     from repro_torch.optim.optimizers import adamw, sgd
-    opt = adamw(weight_decay=0.01) if adam else sgd()
+    if opt is None:
+        opt = adamw(weight_decay=0.01) if adam else sgd()
     state = opt.init(params)
     route = (dict(bd_impl="pallas", act_impl="pallas") if unfused
              else dict(bd_impl="fused"))
@@ -1467,12 +1492,12 @@ def heldout_fall(name: str, params, lp, ckpt: Path, lp0) -> list:
 
 
 def check_rung_steps(name: str, ckpt: Path, steps: list, x, y,
-                     adam: bool = False) -> tuple:
+                     adam: bool = False, opt=None) -> tuple:
     """The state each rung force-saved (its new layout): one step on the
     fused route against the plain route on the card (per-member losses,
     gradients, updated parameters), then its steady-state step timed
-    (``time_train_step``: sgd, or AdamW with clipping).  Returns (max
-    |err| by step, the timings by step)."""
+    (``time_train_step``: sgd, or AdamW with clipping, or ``opt`` with
+    clipping).  Returns (max |err| by step, the timings by step)."""
     from repro_torch.checkpoint.checkpoint import restore_population
     from repro_torch.optim.optimizers import sgd
     errs, timed = {}, {}
@@ -1489,15 +1514,15 @@ def check_rung_steps(name: str, ckpt: Path, steps: list, x, y,
               f"members, depth {lp.depth}): max|err| losses/grads/params "
               f"{errs[step]!r} vs the plain route on the card", flush=True)
         timed[step] = time_train_step(f"{name} after the rung at {step}",
-                                      params, lp, x, y, adam=adam)
+                                      params, lp, x, y, adam=adam, opt=opt)
         timed[step].update(members=lp.num_real, fused_hidden=[
             lp.layer_pop(l).total_hidden for l in range(lp.depth)])
     return errs, timed
 
 
 def _same_trees(a, b) -> bool:
-    """Two trees of f32 or int32 tensors equal leaf by leaf, dtype and
-    bits (``_same_bits``), wherever each leaf lies."""
+    """Two trees of tensors equal leaf by leaf, dtype and bits
+    (``_same_bits``), wherever each leaf lies."""
     from repro_torch.core.tree import tree_leaves
     la, lb = tree_leaves(a), tree_leaves(b)
     return len(la) == len(lb) and all(
@@ -1716,6 +1741,427 @@ def lifecycle_path(workdir: Path) -> tuple:
 def _adamw():
     from repro_torch.optim.optimizers import adamw
     return adamw(weight_decay=0.01)
+
+
+# --------------------------------------------------------------------- #
+# the optimizers and the checkpoint (path 4h)                           #
+# --------------------------------------------------------------------- #
+
+# the optimizer state's bytes at parallelmlp-10k, from its shapes (count
+# apart): 131,860,000 f32 parameters (w_in 1,280,000 × 100, b_in, w_out
+# 2 × 1,280,000, b_out 10,000 × 2); AdamW m and v in f32 or bf16;
+# adafactor m in bf16 and 3,850,104 f32 statistics (w_in's v_row and
+# v_col, b_in's v, w_out's, b_out's)
+STATE_BYTES_10K = {"sgd": 0, "adamw": 1_054_880_000,
+                   "adamw bf16": 527_440_000, "adafactor": 279_120_416}
+OPTIM_ORDER = ("sgd", "adamw", "adamw bf16", "adafactor")
+
+
+def _optimizer(name: str):
+    """Path 4h's optimizers by name, as the trainer builds them."""
+    import torch
+
+    from repro_torch.optim.optimizers import adafactor, adamw, sgd
+    return {"sgd": sgd, "adamw": lambda: adamw(weight_decay=0.01),
+            "adamw bf16": lambda: adamw(weight_decay=0.01,
+                                        state_dtype=torch.bfloat16),
+            "adafactor": lambda: adafactor(weight_decay=0.001)}[name]()
+
+
+def optim_process(workdir: Path) -> tuple:
+    """Path 4h in a process of its own (``chip_smoke.py --optim DIR``,
+    waited for), as path 4g, so that its profiler windows leave the later
+    phases' whole.  Returns (the results, the kernel launches of its
+    runs)."""
+    out = workdir / "optim"
+    out.mkdir()
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--optim", str(out)], timeout=900)
+    _require(r.returncode == 0, f"path 4h exited {r.returncode}")
+    got = json.loads((out / "optim.json").read_text())
+    return got["results"], got["launches"]
+
+
+def state_bytes(state) -> tuple:
+    """(bytes of the optimizer state's tensors but the step count, the
+    count's bytes), read from the tensors."""
+    from repro_torch.core.tree import tree_leaves
+    sizes = [t.numel() * t.element_size() for t in tree_leaves(state)]
+    count = state["count"]
+    return sum(sizes) - count.numel() * count.element_size(), \
+        count.numel() * count.element_size()
+
+
+def _close_state(name, got, want, tol=(1e-5, 1e-6)) -> float:
+    """Two optimizer trees leaf by leaf: f32 within ``tol``; bf16 each
+    element equal or one ulp apart, or within ``tol`` (a near-zero
+    moment); int32 equal.  Returns the largest f32 |err|."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+    err = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a, b = a.cpu(), b.cpu()
+        _require(a.dtype == b.dtype and a.shape == b.shape,
+                 f"{name}: leaf {i} {a.dtype}{tuple(a.shape)} against "
+                 f"{b.dtype}{tuple(b.shape)}")
+        if a.dtype == torch.bfloat16:
+            ulps = (a.view(torch.int16).int() - b.view(torch.int16).int())
+            near = (a.float() - b.float()).abs() <= tol[1] + tol[0] * \
+                b.float().abs()
+            _require(bool((near | (ulps.abs() <= 1)).all()),
+                     f"{name}: bf16 leaf {i} {ulps.abs().max().item()} "
+                     "ulps apart")
+        elif a.dtype == torch.float32:
+            err = max(err, _close(f"{name} leaf {i}", a, b, tol))
+        else:
+            _require(torch.equal(a, b), f"{name}: leaf {i} differs")
+    return err
+
+
+def optimizer_steps_10k(name: str, lp, x, y, count) -> dict:
+    """``parallelmlp-10k``'s fused step under each optimizer, in turns
+    (sgd, adamw, adamw bf16, adafactor, then the reverse): the launches of
+    one step (exactly 2·(depth+1) = 4, kernel by kernel; given to
+    ``count``), the state's bytes from its tensors against
+    ``STATE_BYTES_10K``, and the steady step (``time_step``: wall, device
+    ms, idle share)."""
+    import torch
+
+    from repro_torch.core.deep import init_params, opt_step
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), lp)
+    out = {}
+    for run, key in enumerate(OPTIM_ORDER + OPTIM_ORDER[::-1]):
+        opt = _optimizer(key)
+        state = opt.init(params)
+        label = f"{name} {key}" + (" (2)" if run >= len(OPTIM_ORDER) else "")
+        reset_kernel_launches()
+        opt_step(params, state, x, y, 1e-2, opt, lp, bd_impl="fused")
+        torch.cuda.synchronize()
+        n = {k: v for k, v in kernel_launches().items() if v}
+        count(n)
+        _require(n == _segment_want(1, lp.depth), f"{label}: a step "
+                 f"launched {n}, expected 2·(depth+1)")
+        nbytes, count_bytes = state_bytes(state)
+        _require(nbytes == STATE_BYTES_10K[key] and count_bytes == 4,
+                 f"{label}: optimizer state {nbytes} + {count_bytes} B, "
+                 f"expected {STATE_BYTES_10K[key]} + 4")
+        row = time_step(label, lambda: opt_step(params, state, x, y, 1e-2,
+                                                opt, lp, bd_impl="fused"))
+        row.update(launches=sum(n.values()), state_bytes=nbytes,
+                   count_bytes=count_bytes)
+        print(f"[{label}] optimizer state {nbytes} B + {count_bytes} B "
+              "count", flush=True)
+        out[label] = row
+        del state
+    return out
+
+
+def update_card_vs_cpu(name: str, lp) -> dict:
+    """An update of adamw bf16 and adafactor on the card against the same
+    update on the CPU, same inputs at ``parallelmlp-10k``'s shapes: seeded
+    parameters and gradients, and the state one update on the card left
+    (live moments, its bf16 bits shared by both sides: a bf16 moment that
+    rounds the other way on one side would move the next update by most
+    of an ulp).  The update and f32 state within rtol 1e-5 / atol 1e-6,
+    bf16 leaves within one ulp (``_close_state``; the two devices reduce
+    in different orders)."""
+    import torch
+
+    from repro_torch.core.deep import init_params
+    from repro_torch.core.tree import tree_map
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    params = init_params(gen, lp)
+    grads = [tree_map(lambda p: torch.randn(p.shape, generator=gen,
+                                            device="cuda"), params)
+             for _ in range(2)]
+    out = {}
+    for key in ("adamw bf16", "adafactor"):
+        opt = _optimizer(key)
+        _, st = opt.update(grads[0], opt.init(params), params, 1e-2)
+        card = opt.update(grads[1], st, params, 1e-2)
+        cpu = opt.update(_to(grads[1], "cpu"), _to(st, "cpu"),
+                         _to(params, "cpu"), 1e-2)
+        out[key] = _close_state(f"{name} {key} card vs CPU", card, cpu)
+        print(f"[{name} {key}] an update on the card against the CPU: "
+              f"f32 max|err| {out[key]!r}, bf16 leaves within one ulp",
+              flush=True)
+        del st, card, cpu
+    return {"max_abs_err": out}
+
+
+def _adafactor_state_at(ckpt: Path, step: int):
+    """(params, layout, adafactor state) of a checkpoint's step."""
+    from repro_torch.checkpoint.checkpoint import (layout_from_meta,
+                                                   load_meta,
+                                                   restore_population)
+    from repro_torch.core.deep import abstract_params
+    lp = layout_from_meta(load_meta(str(ckpt), step)[0])
+    like = _optimizer("adafactor").init(abstract_params(lp))
+    params, lp, _, state = restore_population(str(ckpt), step=step,
+                                              device="cuda", extra_like=like)
+    return params, lp, state
+
+
+def check_rewarmed(name: str, ckpt: Path, step: int):
+    """A compacting rung's saved adafactor state: its statistics fresh
+    zeros on the new layout, its bf16 momentum carried (live), its count
+    the steps taken."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.optim.optimizers import is_state_leaf
+    _, lp, st = _adafactor_state_at(ckpt, step)
+    for leaf in tree_leaves(st["leaves"], is_leaf=is_state_leaf):
+        _require(all(not leaf[k].any() for k in ("v", "v_row", "v_col")
+                     if k in leaf), f"{name}: a statistic of step {step}'s "
+                 "state is not zero")
+        _require(str(leaf["m"].dtype) == "torch.bfloat16"
+                 and bool(leaf["m"].any()),
+                 f"{name}: step {step}'s momentum is not carried")
+    _require(int(st["count"]) == step + 1, f"{name}: count "
+             f"{int(st['count'])} at step {step}")
+    print(f"[{name}] the state saved at the rung of step {step} "
+          f"({lp.num_real} members): statistics zero, bf16 momentum "
+          f"carried, count {int(st['count'])}", flush=True)
+
+
+def factored_gather_bitwise(name: str, ckpt: Path, step: int) -> dict:
+    """``compact_factored`` of a rung's saved adafactor state to half its
+    members (random losses) on the card against the same on the CPU (the
+    numpy host gather): parameters and bf16 momentum bitwise; timed on the
+    card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import lifecycle as life
+    params, lp, state = _adafactor_state_at(ckpt, step)
+    keep = life.survivors(np.random.default_rng(7).random(lp.num_real), 0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, card_p, card_c = life.compact_factored(lp, params, state, keep)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _, host_p, host_c = life.compact_factored(lp, _to(params, "cpu"),
+                                              _to(state, "cpu"), keep,
+                                              gather="host")
+    same = _same_trees((card_p, card_c["m"]), (host_p, host_c["m"]))
+    _require(same, f"{name}: compact_factored on the card differs from the "
+             "CPU's")
+    print(f"[{name}] compact_factored of step {step}'s state "
+          f"({lp.num_real} -> {len(keep)} members) on the card bitwise the "
+          f"CPU's; {ms!r} ms", flush=True)
+    return {"bitwise_cpu": same, "compact_factored_ms": ms}
+
+
+def adafactor_ladder_10k(name: str, workdir: Path, lp10k, x, y,
+                         count) -> dict:
+    """The 10k ladder under adafactor (``--weight-decay 0.001``), 24 steps,
+    checkpoints every 8 through the ``AsyncCheckpointer``: 10,000 → 5,000
+    → 2,500 members at 4 launches a step, each rung's saved state
+    re-warmed (``check_rewarmed``), stepped against the plain route and
+    its steady adafactor step timed (``check_rung_steps``), its momentum
+    gather bitwise the CPU's, the held-out loss falling, and a run
+    stopped at step 12 and resumed bitwise the straight run."""
+    flags = LADDER10K + ["--optimizer", "adafactor", "--weight-decay",
+                         "0.001"]
+    n0, h0 = lp10k.num_members, lp10k.layer_pop(0).total_hidden
+    p, lp, st, ck, n, _ = lifecycle_train(name, workdir, flags)
+    count(n)
+    check_ladder(name, st, n, [n0 // 2, n0 // 4], hidden0=[h0 // 2, h0 // 4])
+    out = {"rungs": st["rungs"], "segments": segment_rows(name, st),
+           "heldout_loss": heldout_fall(name, p, lp, ck, lp10k)}
+    for step in (7, 15):
+        check_rewarmed(name, ck, step)
+    out["rung_step_max_abs_err"], out["rung_steps"] = check_rung_steps(
+        name, ck, [7, 15], x, y, opt=_optimizer("adafactor"))
+    out["gather"] = factored_gather_bitwise(name, ck, 15)
+    half = workdir / "optim-10k-resume"
+    _, _, _, _, n, _ = lifecycle_train(name + " to 12", workdir, flags,
+                                       steps=12, ckpt=half)
+    count(n)
+    r, lp_r, _, _, n, _ = lifecycle_train(name + " resumed", workdir,
+                                          flags + ["--resume"], ckpt=half)
+    count(n)
+    _require(lp_r == lp, f"{name}: the resumed layout differs")
+    out["resume_bitwise"] = _same_trees(r, p)
+    _require(out["resume_bitwise"], f"{name}: the run resumed at step 12 "
+             "differs from the straight run")
+    print(f"[{name}] resumed at step 12: bitwise the straight run",
+          flush=True)
+    del p, r
+    return out
+
+
+def depth3_optim_runs(workdir: Path, x, y, count) -> dict:
+    """The depth-3 population (clip 1.0, a constant lr) under adafactor
+    with ``--halving "8:0.5"`` and ``--refill arch``, and with ``--refill
+    pbt --per-member-lr``, and under AdamW with a bf16 state and
+    ``--halving "8:0.5"``: path 4g's checks of each run (``check_ladder``,
+    ``check_rung_steps``, ``heldout_fall``), the pbt rung 0 tables and one
+    chunk, each rung's steady step timed under the run's optimizer."""
+    from repro_torch.launch.train import population_from_flags
+    lp3 = population_from_flags(DEPTH3["depths"], DEPTH3["acts"],
+                                DEPTH3["features"],
+                                repeats=DEPTH3["repeats"])
+    n3 = lp3.num_members
+    base = depth3_flags()
+    base = base[:base.index("--optimizer")] + ["--grad-clip", "1.0"]
+    af = ["--optimizer", "adafactor", "--halving", "8:0.5"]
+    res = {}
+    for key, flags, members, pbt, opt in (
+            ("adafactor arch", af + ["--refill", "arch", "--search-space",
+                                     ARCH_SPACE], [n3], False, "adafactor"),
+            ("adafactor pbt", af + ["--refill", "pbt", "--per-member-lr"],
+             [n3], True, "adafactor"),
+            ("adamw bf16", ["--optimizer", "adamw", "--opt-state-dtype",
+                            "bfloat16", "--halving", "8:0.5"], [n3 // 2],
+             False, "adamw bf16")):
+        name = f"optim depth-3 {key}"
+        p, lp, st, ck, n, _ = lifecycle_train(name, workdir, base + flags)
+        count(n)
+        check_ladder(name, st, n, members, pbt=pbt)
+        errs, timed = check_rung_steps(name, ck, [7], x, y, adam=True,
+                                       opt=_optimizer(opt))
+        res[name] = {"segments": segment_rows(name, st), "rungs": st["rungs"],
+                     "heldout_loss": heldout_fall(name, p, lp, ck, lp3),
+                     "rung_step_max_abs_err": errs, "rung_steps": timed,
+                     "chunk_builds": st["chunk_builds"],
+                     "layout": lp.describe()}
+        if pbt:
+            _require(st["chunk_builds"] == 1, f"{name}: "
+                     f"{st['chunk_builds']} chunks for a constant layout")
+        del p
+    return res
+
+
+def checkpoint_10k(name: str, workdir: Path, lp, x, y, count) -> dict:
+    """``parallelmlp-10k``'s parameters and adafactor state (one step in,
+    so the bf16 momentum is live; 806,560,420 B): the time ``maybe_save``
+    holds the loop (the host snapshot) and the worker's write, against a
+    synchronous ``save`` of the same tree, in turns (sync, async, async,
+    sync); the async checkpoint restored on the card and on the CPU,
+    bitwise; then a ``TrainRunner`` crash replay (4 steps, saves every 2,
+    a failure at step 3) bitwise an unbroken run on the card."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.deep import abstract_params, init_params, opt_step
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.distributed.fault_tolerance import TrainRunner
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    opt = _optimizer("adafactor")
+    params = init_params(torch.Generator(device="cuda").manual_seed(0), lp)
+    reset_kernel_launches()
+    params, state, *_ = opt_step(params, opt.init(params), x, y, 1e-2, opt,
+                                 lp, bd_impl="fused")
+    tree = {"params": params, "extra": state}
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    out = {"tree_bytes": nbytes, "sync_save_ms": [], "hold_ms": [],
+           "write_ms": []}
+    for k, mode in enumerate(("sync", "async", "async", "sync")):
+        d = workdir / f"optim-ckpt-{k}"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "sync":
+            ckpt.save(str(d), 0, tree)
+            out["sync_save_ms"].append((time.perf_counter() - t0) * 1e3)
+        else:
+            saver = ckpt.AsyncCheckpointer(str(d), every=1)
+            saver.maybe_save(0, tree)
+            t1 = time.perf_counter()
+            saver.wait()
+            out["hold_ms"].append((t1 - t0) * 1e3)
+            out["write_ms"].append((time.perf_counter() - t1) * 1e3)
+    print(f"[{name}] {nbytes} B: maybe_save holds the loop "
+          f"{out['hold_ms']!r} ms, its worker writes {out['write_ms']!r} "
+          f"ms; a synchronous save {out['sync_save_ms']!r} ms", flush=True)
+    like = {"params": abstract_params(lp),
+            "extra": opt.init(abstract_params(lp))}
+    out["restore_bitwise"] = {}
+    for dev in ("cuda", "cpu"):
+        got, _ = ckpt.restore(str(workdir / "optim-ckpt-1"), like,
+                              device=dev)
+        out["restore_bitwise"][dev] = _same_trees(got, tree)
+        _require(out["restore_bitwise"][dev], f"{name}: the bf16 state "
+                 f"saved from the card restores differently on {dev}")
+        del got
+    for k in range(4):
+        shutil.rmtree(workdir / f"optim-ckpt-{k}")
+    # crash replay: 4 steps on 4 batches of the task
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    xs = torch.randn(4, BATCH, lp.in_features, generator=gen, device="cuda")
+    ys = torch.randint(0, lp.out_features, (4, BATCH), generator=gen,
+                       device="cuda")
+
+    def run(d, fail_at=None):
+        failed, restored = [], []
+
+        def step_fn(st, s):
+            p, o, *_ = opt_step(st["params"], st["extra"], xs[s], ys[s],
+                                1e-2, opt, lp, bd_impl="fused")
+            return {"params": p, "extra": o}, {}
+
+        def hook(s):
+            if s == fail_at and not failed:
+                failed.append(s)
+                raise RuntimeError("injected failure")
+
+        runner = TrainRunner(step_fn, tree, ckpt_dir=str(d), ckpt_every=2,
+                             failure_hook=hook, on_restore=restored.append)
+        _require(runner.run(4) == 4, f"{name}: the runner stopped early")
+        return runner, restored
+
+    clean, _ = run(workdir / "optim-replay-clean")
+    broken, restored = run(workdir / "optim-replay-broken", fail_at=3)
+    torch.cuda.synchronize()
+    count(kernel_launches())
+    out["replay_bitwise"] = broken.restarts == 1 and restored == [3] and \
+        _same_trees(broken.state, clean.state)
+    _require(out["replay_bitwise"], f"{name}: the crash replay "
+             f"({broken.restarts} restarts, re-entered at {restored}) "
+             "differs from the unbroken run")
+    print(f"[{name}] crash replay with async saves: re-entered at step "
+          f"{restored}, bitwise the unbroken run", flush=True)
+    for d in ("clean", "broken"):
+        shutil.rmtree(workdir / f"optim-replay-{d}")
+    return out
+
+
+def optim_path(workdir: Path) -> tuple:
+    """Path 4h: ``parallelmlp-10k``'s fused step under sgd, AdamW (f32 and
+    bf16 state) and adafactor in turns; the update on the card against the
+    CPU; the 10k ladder under adafactor; the depth-3 population under
+    adafactor (``--refill arch``, ``--refill pbt --per-member-lr``) and
+    under AdamW with a bf16 state; the 10k checkpoint through the
+    ``AsyncCheckpointer``.  Returns (the results, the kernel launches of
+    its training runs)."""
+    import torch
+
+    from repro_torch.configs import parallelmlp_10k
+    lp10k = parallelmlp_10k.config().model.layered()
+    x, y = check_batch()
+    n_all = {}
+
+    def count(n):
+        for k, v in n.items():
+            n_all[k] = n_all.get(k, 0) + v
+
+    res = {"steps": optimizer_steps_10k("optim 10k", lp10k, x, y, count),
+           "update_card_vs_cpu": update_card_vs_cpu("optim 10k", lp10k)}
+    torch.cuda.empty_cache()
+    res["ladder"] = adafactor_ladder_10k("optim 10k adafactor ladder",
+                                         workdir, lp10k, x, y, count)
+    torch.cuda.empty_cache()
+    res.update(depth3_optim_runs(workdir, x, y, count))
+    torch.cuda.empty_cache()
+    res["checkpoint"] = checkpoint_10k("optim 10k checkpoint", workdir,
+                                       lp10k, x, y, count)
+    return res, n_all
 
 
 # --------------------------------------------------------------------- #
@@ -3389,10 +3835,11 @@ def same_m3_as_parent(libs, at_a, at_b):
 
 
 def _same_bits(a, b) -> bool:
-    """f32 tensors equal bit for bit (a signed zero or a NaN's payload
-    counts, where ``torch.equal`` would let -0 pass for +0)."""
+    """Tensors of one dtype equal bit for bit (a signed zero or a NaN's
+    payload counts, where ``torch.equal`` would let -0 pass for +0)."""
     import torch
-    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    bits = {4: torch.int32, 2: torch.int16, 1: torch.int8}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
 def same_input_as_parent(libs, name, fin, fin8, block):
@@ -3653,6 +4100,8 @@ def main() -> int:
                     "flash attention beside this tree's")
     ap.add_argument("--lifecycle", type=Path, default=None,
                     help=argparse.SUPPRESS)   # path 4g's own process
+    ap.add_argument("--optim", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4h's own process
     args = ap.parse_args()
     try:
         import torch
@@ -3671,13 +4120,15 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if args.lifecycle:
-        from repro_torch.kernels import _build
-        _build.build_all()
-        res, n = lifecycle_path(args.lifecycle)
-        (args.lifecycle / "lifecycle.json").write_text(
-            json.dumps({"results": res, "launches": n}))
-        return 0
+    for out, path, key in ((args.lifecycle, lifecycle_path, "lifecycle"),
+                           (args.optim, optim_path, "optim")):
+        if out:
+            from repro_torch.kernels import _build
+            _build.build_all()
+            res, n = path(out)
+            (out / f"{key}.json").write_text(
+                json.dumps({"results": res, "launches": n}))
+            return 0
     t_start = time.perf_counter()
 
     # 1. the card
@@ -3827,6 +4278,13 @@ def main() -> int:
         life, life_n = lifecycle_process(workdir)
         print(f"[lifecycle] path 4g in {time.perf_counter() - t0:.1f} s; "
               f"kernel launches {life_n}", flush=True)
+        # 4h. the optimizers and the checkpoint: the 10k step under each
+        # optimizer, adafactor's 10k ladder, the depth-3 runs, the 10k
+        # checkpoint off the training thread
+        t0 = time.perf_counter()
+        optim, optim_n = optim_process(workdir)
+        print(f"[optim] path 4h in {time.perf_counter() - t0:.1f} s; "
+              f"kernel launches {optim_n}", flush=True)
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -3878,9 +4336,11 @@ def main() -> int:
                        unfused_serve_n, unfused_train_n, m3_n, parent)
     for name, fields in block1.items():
         rows[name].update(fields)
-    for name, n in life_n.items():
-        if n:
-            rows[name]["lifecycle_launches"] = n
+    for field, counts in (("lifecycle_launches", life_n),
+                          ("optim_launches", optim_n)):
+        for name, n in counts.items():
+            if n:
+                rows[name][field] = n
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas, parent))
@@ -3927,6 +4387,7 @@ def main() -> int:
                                 "trainer-depth3 unfused m3": stats3m},
                       "train_step": steps,
                       "lifecycle": life,
+                      "optim": optim,
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,

@@ -11,23 +11,31 @@ Layout:  <dir>/step_<N>/
 
 Keys join dict keys (in sorted order) and list indices with "/", the order
 in which JAX flattens a tree.  Leaves are stored as full host arrays; a
-restore puts them on the device it is given.  Optimizer state rides in
-the ``extra`` subtree (``save_population(extra_state=...)``), with the
-optimizer's record in ``meta["train"]["optimizer"]``, as in the JAX
-package, so a training run moves between the two packages.  Saves are
-synchronous (``Checkpointer``; the JAX package's off-thread
-``AsyncCheckpointer`` is not ported yet).  Float32 parameters only.
+restore puts them on the device it is given.  A bf16 leaf is stored as its
+raw bits (an unsigned 16-bit array, manifest dtype ``"bfloat16"``), as the
+JAX package stores it, and a restore reinterprets those bits, never casts
+them: both packages write the same bytes for the same tree.  Optimizer
+state rides in the ``extra`` subtree (``save_population(extra_state=...)``),
+with the optimizer's record in ``meta["train"]["optimizer"]``, as in the
+JAX package, so a training run moves between the two packages.
+
+``AsyncCheckpointer`` takes a training loop's cadence saves off its
+thread: it snapshots every leaf to the host before it returns, then a
+worker thread serialises and writes.  Unlike the JAX package's, a write
+that fails is raised at the next ``wait`` or ``maybe_save``.
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 import time
 
 import numpy as np
 import torch
 
+from repro_torch.core.tree import tree_map
 from repro_torch.device import resolve
 
 
@@ -56,10 +64,28 @@ def _unflatten_like(like, leaves: dict, prefix: str = ""):
     return leaves[prefix[:-1]]
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf) -> tuple:
+    """A leaf → (the host array stored, the dtype its manifest records):
+    bf16 as its raw bits, a uint16 array (numpy has no bf16)."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _from_host(arr: np.ndarray, stored: str) -> torch.Tensor:
+    """A stored array → a CPU tensor of its manifest dtype: raw bf16 bits
+    are reinterpreted, never cast."""
+    if stored == str(arr.dtype):
+        return torch.as_tensor(arr)
+    if stored == "bfloat16" and arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    raise ValueError(f"stored as {arr.dtype} under manifest dtype "
+                     f"{stored!r}: not a bit pattern the port can read")
 
 
 def save(directory: str, step: int, state_tree, keep_last: int = 3,
@@ -70,9 +96,10 @@ def save(directory: str, step: int, state_tree, keep_last: int = 3,
     tgt = os.path.join(directory, f"step_{step:08d}")
     tmp = tgt + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    host = {k: _host(v) for k, v in _flatten_with_paths(state_tree).items()}
-    manifest = {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
-                for k, a in host.items()}
+    host, manifest = {}, {}
+    for key, leaf in _flatten_with_paths(state_tree).items():
+        host[key], dtype = _host(leaf)
+        manifest[key] = {"shape": list(host[key].shape), "dtype": dtype}
     np.savez(os.path.join(tmp, "arrays.npz"), **host)
     with open(os.path.join(tmp, "tree.json"), "w") as f:
         json.dump({"step": step, "manifest": manifest, "meta": meta or {}},
@@ -116,7 +143,9 @@ def restore(directory: str, like_tree, step: int | None = None,
             device="cuda"):
     """Restore into the structure of ``like_tree`` (tensors — meta tensors
     are fine — giving each leaf's shape and dtype) on ``device``.  Leaves
-    the like-tree does not name are ignored.  Returns (tree, step)."""
+    the like-tree does not name are ignored; a leaf stored in another
+    dtype than its prototype's is cast after its bits are read, as the JAX
+    package does.  Returns (tree, step)."""
     dev = resolve(device)
     step = _pick_step(directory, step)
     path = os.path.join(directory, f"step_{step:08d}")
@@ -131,12 +160,8 @@ def restore(directory: str, like_tree, step: int | None = None,
             if tuple(arr.shape) != tuple(proto.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != "
                                  f"{tuple(proto.shape)}")
-            if manifest[key]["dtype"] != str(arr.dtype):
-                raise NotImplementedError(
-                    f"{key}: stored as {manifest[key]['dtype']} (raw bits); "
-                    "the port restores float32 checkpoints only in this "
-                    "slice (ROADMAP.md)")
-            out[key] = torch.as_tensor(arr).to(device=dev, dtype=proto.dtype)
+            out[key] = _from_host(arr, manifest[key]["dtype"]).to(
+                device=dev, dtype=proto.dtype)
     return _unflatten_like(like_tree, out), step
 
 
@@ -255,6 +280,10 @@ def save_population(directory: str, step: int, params, layout,
                                      train_meta=train_meta))
 
 
+# the parameter dtypes a population checkpoint may record
+PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def restore_population(directory: str, step: int | None = None,
                        device="cuda", extra_like=None):
     """→ (params, layout, step[, extra_state]), the parameter tree rebuilt
@@ -263,7 +292,9 @@ def restore_population(directory: str, step: int | None = None,
     ``Population`` for single-layer (``parallel_mlp``) ones.  Pass
     ``extra_like`` (a tree shaped like the saved ``extra_state`` — meta
     tensors are fine, e.g. ``opt.init(deep.abstract_params(layout))``) to
-    restore it too.  Float32 checkpoints only."""
+    restore it too.  The parameters come back in the dtype the checkpoint
+    records (float32, or bf16 — which training and serving do not take
+    yet: ``deep.check_dtypes``)."""
     from repro_torch.core import deep, parallel_mlp
     from repro_torch.core.population import Population
     device = resolve(device)
@@ -272,10 +303,9 @@ def restore_population(directory: str, step: int | None = None,
         raise ValueError(f"{directory} step {step}: not a population "
                          "checkpoint (no layout meta)")
     pmeta = meta["population"]
-    if pmeta.get("dtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"dtype {pmeta['dtype']!r}: the port restores float32 "
-            "checkpoints only so far (ROADMAP.md)")
+    dtype = PARAM_DTYPES.get(pmeta.get("dtype", "float32"))
+    if dtype is None:
+        raise ValueError(f"unknown parameter dtype {pmeta['dtype']!r}")
     layout = layout_from_meta(meta)
     schema = pmeta.get("schema", "layered")
     if schema == "single":
@@ -283,9 +313,9 @@ def restore_population(directory: str, step: int | None = None,
                             tuple(w[0] for w in layout.widths),
                             tuple(a[0] for a in layout.activations),
                             block=layout.block)
-        like = {"params": parallel_mlp.abstract_params(layout)}
+        like = {"params": parallel_mlp.abstract_params(layout, dtype)}
     elif schema == "layered":
-        like = {"params": deep.abstract_params(layout)}
+        like = {"params": deep.abstract_params(layout, dtype)}
     else:
         raise ValueError(f"unknown parameter schema {schema!r}")
     if extra_like is not None:
@@ -296,11 +326,23 @@ def restore_population(directory: str, step: int | None = None,
     return tree["params"], layout, step
 
 
-class Checkpointer:
-    """Cadence saves for a training loop: ``maybe_save(step, state)``
-    writes ``state`` (synchronously) when the cadence fires; ``wait`` is
-    the join point of the JAX package's off-thread ``AsyncCheckpointer``
-    and returns at once here.
+def _snapshot(leaf):
+    """A leaf's host copy, independent of the live tensor (a later update
+    in place cannot reach it); the copy is complete when this returns."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True)
+    return np.array(leaf)
+
+
+class AsyncCheckpointer:
+    """Cadence saves for a training loop, off its thread:
+    ``maybe_save(step, state)`` waits for the previous write, snapshots
+    every leaf to the host (synchronously: the snapshot is complete when
+    it returns), and hands serialisation and the write to a daemon thread,
+    which touches no CUDA state; ``wait`` joins the write in flight (call
+    it before exit and before a restore).  A write that failed raises at
+    the next ``wait`` or ``maybe_save`` (the JAX package's worker loses
+    it).
 
     ``meta`` is attached to every save (population runs pass the layout
     meta, so the files stay ``restore_population``-compatible);
@@ -318,6 +360,8 @@ class Checkpointer:
         self.step_map = step_map or (lambda s: s)
         self.save_pred = save_pred
         self.saved = []
+        self._thread: threading.Thread | None = None
+        self._error: tuple | None = None
 
     def maybe_save(self, step: int, state_tree) -> bool:
         if self.save_pred is not None:
@@ -325,9 +369,28 @@ class Checkpointer:
                 return False
         elif not self.every or step % self.every:
             return False
-        self.saved.append(save(self.directory, self.step_map(step),
-                               state_tree, self.keep_last, meta=self.meta))
+        self.wait()
+        host_tree = tree_map(_snapshot, state_tree)
+        rec_step = self.step_map(step)
+
+        def work():
+            try:
+                self.saved.append(save(self.directory, rec_step, host_tree,
+                                       self.keep_last, meta=self.meta))
+            except Exception as e:   # noqa: BLE001 — re-raised by wait()
+                self._error = (rec_step, e)
+
+        self._thread = threading.Thread(target=work, daemon=True,
+                                        name=f"checkpoint-{rec_step}")
+        self._thread.start()
         return True
 
     def wait(self):
-        """Saves are synchronous: nothing is in flight."""
+        """Join the write in flight; raise if it failed."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            (step, err), self._error = self._error, None
+            raise RuntimeError(f"checkpoint write of step {step} to "
+                               f"{self.directory} failed") from err

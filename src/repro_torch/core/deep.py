@@ -323,7 +323,7 @@ def _concat_pad(params: dict, fp: dict, depth: int) -> dict:
     }
 
 
-def _zeros_like_abstract(ref, dtype, device) -> dict:
+def zeros_like_abstract(ref, dtype, device) -> dict:
     """A tree of zeros with the shapes of ``ref`` (e.g. ``abstract_params``)
     in ``dtype`` on ``device``."""
     return tree_map(lambda s: torch.zeros(tuple(s.shape), dtype=dtype,
@@ -360,7 +360,9 @@ def map_params_subtrees(tree, ref, fn, op: str = "map"):
             return node
         raise ValueError(
             f"{op}: optimizer-state leaf {'/'.join(map(str, path))} is "
-            "neither a scalar nor part of a params-shaped subtree")
+            "neither a scalar nor part of a params-shaped subtree (factored "
+            "moments, e.g. adafactor's v_row/v_col, are not compactable "
+            "member-major)")
 
     return walk(tree, ())
 
@@ -377,8 +379,8 @@ def pad_state(opt_state, lp: LayeredPopulation, lp_pad: LayeredPopulation):
 
     def pad_sub(node):
         leaf = tree_leaves(node)[0]
-        return _concat_pad(node, _zeros_like_abstract(fill_abs, leaf.dtype,
-                                                      leaf.device), lp.depth)
+        return _concat_pad(node, zeros_like_abstract(fill_abs, leaf.dtype,
+                                                     leaf.device), lp.depth)
 
     return map_params_subtrees(opt_state, abstract_params(lp), pad_sub,
                                op="pad_state")
@@ -390,14 +392,16 @@ def grow_state(opt_state, lp: LayeredPopulation, lp_new: LayeredPopulation,
     lp.grow(...)``): the survivors' moments ride through bit for bit
     (``lifecycle.grow_params``), the new members at ``positions`` get ZERO
     moments, as ``opt.init`` gives a newborn.  Scalar leaves pass through;
-    each subtree keeps its dtype."""
+    each subtree keeps its dtype.  A factored adafactor state raises
+    ``ValueError`` (the trainer grows adafactor's carried momentum with
+    ``lifecycle.grow_params``)."""
     from repro_torch.core.lifecycle import grow_params
     positions = tuple(int(p) for p in positions)
     fresh_abs = abstract_params(lp_new.subset(tuple(sorted(positions))))
 
     def grow_sub(node):
         leaf = tree_leaves(node)[0]
-        zeros = _zeros_like_abstract(fresh_abs, leaf.dtype, leaf.device)
+        zeros = zeros_like_abstract(fresh_abs, leaf.dtype, leaf.device)
         return grow_params(lp, lp_new, node, positions, zeros, gather=gather)
 
     return map_params_subtrees(opt_state, abstract_params(lp), grow_sub,

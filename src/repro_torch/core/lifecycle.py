@@ -11,7 +11,10 @@ layout (the JAX package's ``repro.core.lifecycle``, DESIGN.md §6, §13).
   * Compaction is a pure gather.  Members are independent, so removing
     losers cannot change a survivor's computation: ``compact`` copies each
     survivor's padded slices bit for bit, optimizer moments (sgd ``mu``,
-    adamw ``m``/``v``) through the same index maps.
+    adamw ``m``/``v``) through the same index maps.  Adafactor's factored
+    statistics mix members and cannot be gathered: ``compact_factored``
+    carries its momentum and count, and the trainer re-initialises the
+    rest on the new layout.
   * Growth (``grow``) is its inverse: new members spliced in at their
     sorted-merge positions, survivors bit for bit, newborns from a fresh
     init with zero moments.  The constant-size refill (``refill_params``,
@@ -25,8 +28,8 @@ layout (the JAX package's ``repro.core.lifecycle``, DESIGN.md §6, §13).
 host once per (layouts, keep | positions | assignments) and copied once
 (a small bounded cache keyed by the layouts' fields, so it keeps no layout
 instance, and with it no layout's device tables, alive).
-``gather="host"`` is the numpy path; the two are bitwise equal (both only
-copy values).
+``gather="host"`` is the numpy path (bf16 leaves cross it as their raw
+16-bit patterns); the two are bitwise equal (both only copy values).
 """
 from __future__ import annotations
 
@@ -37,9 +40,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.population import LayeredPopulation
-
-_ITEM2 = ("the adafactor optimizer is not ported yet (ROADMAP.md, Queue 1, "
-          "item 2)")
 
 
 # ---------------------------------------------------------------------- #
@@ -221,11 +221,24 @@ def _run(plan_key, build, apply, trees, gather: str):
         return apply(_Torch, _plan_on(plan_key, device, build), *trees)
     if gather != "host":
         raise ValueError(f"gather must be 'device' or 'host', got {gather!r}")
-    host = [None if t is None else
-            tree_map(lambda x: x.detach().cpu().numpy(), t) for t in trees]
+    # numpy has no bf16: such leaves cross as int16 bit patterns (a tree
+    # of moments holds one dtype; parameters are never int16)
+    host = [None if t is None else tree_map(_bits_to_numpy, t)
+            for t in trees]
     out = apply(_Numpy, build(), *host)
-    return tree_map(lambda a: torch.from_numpy(np.ascontiguousarray(a))
-                    .to(device), out)
+    return tree_map(lambda a: _bits_from_numpy(a).to(device), out)
+
+
+def _bits_to_numpy(x: torch.Tensor) -> np.ndarray:
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        x = x.view(torch.int16)
+    return x.numpy()
+
+
+def _bits_from_numpy(a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    return t.view(torch.bfloat16) if t.dtype == torch.int16 else t
 
 
 # ---------------------------------------------------------------------- #
@@ -324,13 +337,12 @@ def compact(pop: LayeredPopulation, params, opt_state, keep,
     ``new_pop = pop.subset(keep)``, a freshly built layout (its device
     tables are built at first use); ``params`` and every params-shaped
     subtree of ``opt_state`` are gathered bit for bit, scalar leaves pass
-    through.  An adafactor state raises (Queue 1 item 2)."""
+    through.  An adafactor state raises ``ValueError``: its factored
+    statistics are not member-major (:func:`compact_factored`)."""
     if not isinstance(pop, LayeredPopulation):
         raise TypeError(
             f"compact expects a LayeredPopulation, got {type(pop).__name__} "
             "(lift single-layer layouts with Population.layered() first)")
-    if isinstance(opt_state, dict) and "leaves" in opt_state:
-        raise NotImplementedError("compact of an adafactor state: " + _ITEM2)
     new_pop = pop.subset(keep)
     new_params = compact_params(pop, new_pop, params, keep, gather=gather)
     if opt_state is None:
@@ -342,9 +354,36 @@ def compact(pop: LayeredPopulation, params, opt_state, keep,
         op="compact")
 
 
-def compact_factored(pop, params, opt_state, keep, gather: str = "device"):
-    """The adafactor-aware compaction of the JAX package: not ported."""
-    raise NotImplementedError("compact_factored: " + _ITEM2)
+def compact_factored(pop: LayeredPopulation, params, opt_state, keep,
+                     gather: str = "device"):
+    """Adafactor-aware rung compaction → ``(new_pop, new_params, carry)``.
+    ``opt_state`` must be an adafactor state (``{"count", "leaves"}``, a
+    per-param dict of ``v`` or ``v_row`` + ``v_col`` and optionally
+    ``m``).  The factored statistics reduce over the fused hidden axis, so
+    no member-major gather recovers a survivor's: they are DROPPED.  The
+    carry holds what survives the rung: ``m``, the params-shaped momentum
+    tree gathered through the parameters' index maps (bit for bit, its
+    dtype kept; None without momentum), and ``count``.  The trainer
+    re-initialises the statistics on the new layout and merges the carry
+    back in (``launch.train.rewarm_adafactor_state``): the second moment
+    re-warms in ~1/(1−b2) steps."""
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.optim.optimizers import is_state_leaf
+    if not (isinstance(opt_state, dict) and "leaves" in opt_state):
+        raise ValueError(
+            "compact_factored expects an adafactor state "
+            "({'count', 'leaves'}); use compact() for params-shaped states")
+    new_pop = pop.subset(keep)
+    new_params = compact_params(pop, new_pop, params, keep, gather=gather)
+    leaves = opt_state["leaves"]
+    flat = tree_leaves(leaves, is_leaf=is_state_leaf)
+    m = None
+    if flat and all("m" in st for st in flat):
+        m = compact_params(pop, new_pop,
+                           tree_map(lambda st: st["m"], leaves,
+                                    is_leaf=is_state_leaf),
+                           keep, gather=gather)
+    return new_pop, new_params, {"count": opt_state["count"], "m": m}
 
 
 # ---------------------------------------------------------------------- #
@@ -472,15 +511,14 @@ def grow(pop: LayeredPopulation, params, opt_state, new_widths, new_acts,
     tree on ``pop.grow(...).subset(sorted(positions))`` (the driver draws
     it with ``launch.train.fresh_member_params``); their moments are
     zero, the survivors' parameters and moments ride through bit for
-    bit."""
+    bit.  An adafactor state raises ``ValueError`` (``deep.grow_state``):
+    the trainer grows its carried momentum with :func:`grow_params`."""
     from repro_torch.core.deep import grow_state
     new_pop = pop.grow(new_widths, new_acts, positions)
     new_params = grow_params(pop, new_pop, params, positions, fresh,
                              gather=gather)
     if opt_state is None:
         return new_pop, new_params, None
-    if isinstance(opt_state, dict) and "leaves" in opt_state:
-        raise NotImplementedError("grow of an adafactor state: " + _ITEM2)
     return new_pop, new_params, grow_state(opt_state, pop, new_pop,
                                            positions, gather=gather)
 
@@ -675,8 +713,11 @@ def member_moment_mask(lp: LayeredPopulation, slots) -> dict:
 def refill_state(opt_state, lp: LayeredPopulation, slots):
     """Zero the refilled slots' moments in place (what ``opt.init`` would
     give the newborns), survivors' moments and scalar counts untouched:
-    sgd (its count only), momentum ``mu``, adamw ``m``/``v``.  An
-    adafactor state raises (Queue 1 item 2)."""
+    sgd (its count only), momentum ``mu``, adamw ``m``/``v`` (their dtype
+    kept), adafactor ``m`` and unfactored ``v``.  Adafactor's factored
+    ``v_row``/``v_col`` mix members along their reduced axis and stay
+    STALE: they re-warm in ~1/(1−b2) steps, the same cost as riding
+    adafactor through a compacting rung."""
     if opt_state is None or not slots:
         return opt_state
     from repro_torch.core.deep import abstract_params

@@ -13,9 +13,11 @@ data(step)):
     and raises after ``max_strikes`` consecutive ones, so the runner's
     restart path takes over.
 
-Saves are synchronous (``checkpoint.Checkpointer``).  Not ported yet
-(ROADMAP.md): the off-thread ``AsyncCheckpointer`` and
-``elastic_remesh``.
+Saves go through ``checkpoint.AsyncCheckpointer``: the state is
+snapshotted to the host at the save, the write runs off the training
+thread, and every restore joins the write in flight first.  A write that
+fails raises at the next save (a restart, like any failure) or at the
+run's end.  Not ported yet (ROADMAP.md): ``elastic_remesh``.
 """
 from __future__ import annotations
 
@@ -23,8 +25,8 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
-from repro_torch.checkpoint.checkpoint import (Checkpointer, latest_steps,
-                                               restore)
+from repro_torch.checkpoint.checkpoint import (AsyncCheckpointer,
+                                               latest_steps, restore)
 from repro_torch.core.tree import tree_leaves, tree_map
 
 
@@ -60,10 +62,10 @@ class TrainRunner:
     ``step_fn(state, step) -> (state, metrics)`` must be pure and
     replayable; ``state`` is a tree of tensors on one device.
     ``ckpt_meta`` / ``ckpt_step_map`` / ``ckpt_save_pred`` go to the
-    ``Checkpointer`` (population runs attach the layout and record GLOBAL
-    step numbers while the runner counts chunks); ``ckpt_step_unmap`` maps
-    a restored checkpoint's recorded step back into the runner's step
-    domain.  ``on_restore(step)`` fires after every crash restore with the
+    ``AsyncCheckpointer`` (population runs attach the layout and record
+    GLOBAL step numbers while the runner counts chunks);
+    ``ckpt_step_unmap`` maps a restored checkpoint's recorded step back
+    into the runner's step domain.  ``on_restore(step)`` fires after every crash restore with the
     step the replay re-enters at."""
 
     def __init__(self, step_fn, state, *, ckpt_dir: str,
@@ -78,10 +80,10 @@ class TrainRunner:
         self.step_fn = step_fn
         self.state = state
         self.device = tree_leaves(state)[0].device
-        self.ckpt = Checkpointer(ckpt_dir, every=ckpt_every,
-                                 keep_last=keep_last, meta=ckpt_meta,
-                                 step_map=ckpt_step_map,
-                                 save_pred=ckpt_save_pred)
+        self.ckpt = AsyncCheckpointer(ckpt_dir, every=ckpt_every,
+                                      keep_last=keep_last, meta=ckpt_meta,
+                                      step_map=ckpt_step_map,
+                                      save_pred=ckpt_save_pred)
         self.ckpt_step_unmap = ckpt_step_unmap or (lambda s: s)
         self.on_restore = on_restore
         self.straggler = straggler or StragglerPolicy(timeout_s=1e9)

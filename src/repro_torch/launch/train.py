@@ -41,10 +41,17 @@ into the lifecycle meta, and ``--resume`` with a per-member flag raises on
 a checkpoint without them (a JAX run without ``--refill``): the port cannot
 redraw JAX's vector.
 
+``--optimizer {sgd,momentum,adamw,adafactor}`` picks the optimizer;
+``--opt-state-dtype bfloat16`` stores AdamW's moments in bf16.  At a
+compacting rung adafactor's factored statistics cannot be gathered: the
+rung carries its momentum and count (``lifecycle.compact_factored``, grown
+with the layout under ``--refill arch``) into a fresh state on the new
+layout (``rewarm_adafactor_state``).  Checkpoints are written off the
+training thread (``checkpoint.AsyncCheckpointer``).
+
 Single device: the population is not shard-padded.  Flags whose paths are
 not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
-``--compute-dtype bfloat16``, ``--optimizer adafactor``,
-``--opt-state-dtype bfloat16``, ``--serve-publish`` and ``--pipeline on``.
+``--compute-dtype bfloat16``, ``--serve-publish`` and ``--pipeline on``.
 ``--pipeline`` defaults to ``off`` here (the JAX package's trajectory is
 bit-identical either way).
 """
@@ -98,10 +105,6 @@ def check_supported(args):
     unsupported = [
         (args.compute_dtype != "float32", "--compute-dtype bfloat16: the "
          f"bf16 policy is {_QUEUE1}, item 6)"),
-        (args.optimizer == "adafactor", "--optimizer adafactor is "
-         f"{_QUEUE1}, item 2)"),
-        (args.opt_state_dtype != "float32", "--opt-state-dtype bfloat16 is "
-         f"{_QUEUE1}, item 2)"),
         (args.serve_publish, "--serve-publish: PopulationServer.refresh "
          f"from a live run is {_QUEUE1}, item 6)"),
         (args.pipeline == "on", "--pipeline on: the streaming data plane "
@@ -113,16 +116,22 @@ def check_supported(args):
 
 
 def check_recipe_flags(args, opt_name: str):
-    """The JAX driver's checks of the per-member flags against the
-    optimizer (``SystemExit``, as there)."""
+    """The JAX driver's checks of the per-member and state-dtype flags
+    against the optimizer (``SystemExit``, as there)."""
     if args.per_member_momentum and opt_name != "momentum":
         raise SystemExit("--per-member-momentum needs --optimizer momentum")
-    if args.per_member_weight_decay and opt_name != "adamw":
+    if args.per_member_weight_decay and opt_name not in ("adamw",
+                                                         "adafactor"):
         raise SystemExit(
             "--per-member-weight-decay needs --optimizer adamw/adafactor")
     if args.per_member_weight_decay and args.weight_decay <= 0:
         raise SystemExit("--per-member-weight-decay scales --weight-decay; "
                          "set it > 0")
+    if args.opt_state_dtype != "float32" and opt_name != "adamw":
+        raise SystemExit(
+            "--opt-state-dtype applies to --optimizer adamw only "
+            "(sgd/momentum moments are f32; adafactor manages its own "
+            "state dtypes) — it would be silently ignored here")
 
 
 def optimizer_record(arch, args, opt_name: str, grad_clip) -> dict:
@@ -165,6 +174,23 @@ def fresh_member_params(seed: int, rung: int, fresh_lp, device) -> dict:
     return init_params(gen, fresh_lp)
 
 
+def rewarm_adafactor_state(fresh, carried):
+    """A fresh (all-zero) adafactor state on a rung's new layout with the
+    carry of ``lifecycle.compact_factored`` merged in: its momentum tree
+    (None without momentum) and step count.  The factored ``v_row``/
+    ``v_col`` stay the fresh zeros — they reduce over the fused hidden
+    axis, so survivors' statistics mix members and cannot be gathered;
+    zeroing them costs the ~1/(1−b2)-step re-warm."""
+    from repro_torch.core.tree import tree_map
+    from repro_torch.optim.optimizers import is_state_leaf
+    if carried["m"] is None:
+        return {**fresh, "count": carried["count"]}
+    return {"count": carried["count"],
+            "leaves": tree_map(lambda st, m: {**st, "m": m},
+                               fresh["leaves"], carried["m"],
+                               is_leaf=is_state_leaf)}
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -193,9 +219,10 @@ def run_population(arch, args):
                                                    restore_population,
                                                    save_population)
     from repro_torch.core import deep
-    from repro_torch.core.lifecycle import (HalvingSchedule, compact, grow,
-                                            refill_params, refill_state,
-                                            survivors)
+    from repro_torch.core.lifecycle import (HalvingSchedule, compact,
+                                            compact_factored, grow,
+                                            grow_params, refill_params,
+                                            refill_state, survivors)
     from repro_torch.core.population import LayeredPopulation, Population
     from repro_torch.core.selection import evaluate_population, leaderboard
     from repro_torch.data.synthetic import TabularTask
@@ -203,7 +230,8 @@ def run_population(arch, args):
     from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
                                                          TrainRunner)
     from repro_torch.launch.launch_count import kernel_launches
-    from repro_torch.optim.optimizers import adamw, sgd, warmup_cosine
+    from repro_torch.optim.optimizers import (adafactor, adamw, sgd,
+                                              warmup_cosine)
     from repro_torch.search import RefillController, SearchSpace
 
     check_supported(args)
@@ -226,7 +254,7 @@ def run_population(arch, args):
     device = resolve(args.device)
     opt_name = args.optimizer or arch.optimizer
     grad_clip = args.grad_clip if args.grad_clip else None
-    if opt_name not in ("sgd", "momentum", "adamw"):
+    if opt_name not in ("sgd", "momentum", "adamw", "adafactor"):
         raise SystemExit(f"unknown optimizer {opt_name!r}")
     check_recipe_flags(args, opt_name)
     opt_record = optimizer_record(arch, args, opt_name, grad_clip)
@@ -338,8 +366,10 @@ def run_population(arch, args):
         if opt_name == "momentum":
             return sgd(momentum=args.momentum if mom0 is None
                        else member_tree(mom0, lp))
-        return adamw(weight_decay=args.weight_decay if wd0 is None
-                     else member_tree(wd0, lp))
+        wd = args.weight_decay if wd0 is None else member_tree(wd0, lp)
+        if opt_name == "adamw":
+            return adamw(weight_decay=wd, state_dtype=args.opt_state_dtype)
+        return adafactor(weight_decay=wd)
 
     if resuming:
         opt = build_opt(lp)
@@ -553,7 +583,16 @@ def run_population(arch, args):
                    + ("cache-hit (zero re-jit)" if hit else "rebuild"))
         else:
             kept_ids = member_ids[keep]
-            lp_new, params, opt_state = compact(lp, params, opt_state, keep)
+            carry = None
+            if opt_name == "adafactor":
+                # the factored statistics cannot ride the member-major
+                # gather: carry the momentum and the count, re-init the rest
+                lp_new, params, carry = compact_factored(lp, params,
+                                                         opt_state, keep)
+                opt_state = None
+            else:
+                lp_new, params, opt_state = compact(lp, params, opt_state,
+                                                    keep)
             member_ids = kept_ids
             msg = f"kept {len(keep)}/{n_before} members -> "
             if refill_mode == "arch":
@@ -561,9 +600,16 @@ def run_population(arch, args):
                 acts_new = tuple(f.acts for f in plan.members)
                 positions = lp_new.grow_positions(widths_new, acts_new)
                 lp_grown = lp_new.grow(widths_new, acts_new, positions)
-                fresh = fresh_member_params(
-                    args.seed, rung, lp_grown.subset(tuple(sorted(
-                        positions))), device)
+                fresh_lp = lp_grown.subset(tuple(sorted(positions)))
+                fresh = fresh_member_params(args.seed, rung, fresh_lp,
+                                            device)
+                if carry is not None and carry["m"] is not None:
+                    m = carry["m"]
+                    carry = {**carry, "m": grow_params(
+                        lp_new, lp_grown, m, positions,
+                        deep.zeros_like_abstract(
+                            deep.abstract_params(fresh_lp),
+                            m["w_in"].dtype, device))}
                 lp_new, params, opt_state = grow(
                     lp_new, params, opt_state, widths_new, acts_new,
                     positions, fresh)
@@ -580,6 +626,8 @@ def run_population(arch, args):
                        f"{len(plan.members)} sampled archs -> ")
             lp = lp_new
             opt = build_opt(lp)
+            if carry is not None:
+                opt_state = rewarm_adafactor_state(opt.init(params), carry)
             msg += lp.describe()
         _sync(device)
         t_gather = time.perf_counter() - t_g

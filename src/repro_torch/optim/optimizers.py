@@ -1,24 +1,32 @@
 """Optimizers — functional, over parameter trees (nested dicts and lists of
 tensors), with the JAX package's update rules and state trees.
 
-  * ``sgd``    — momentum optional; the paper trains with plain SGD.
-  * ``adamw``  — decoupled weight decay.
+  * ``sgd``        — momentum optional; the paper trains with plain SGD.
+  * ``adamw``      — decoupled weight decay; ``state_dtype=torch.bfloat16``
+    stores m and v in bf16 (half the optimizer memory), the moment math in
+    float32.
+  * ``adafactor``  — factored second moment (row and column statistics of
+    every matrix, O(n+m) per matrix), bf16 momentum, an RMS-clipped
+    update.
 
 API: ``Optimizer(init, update)``.
   init(params) -> state
   update(grads, state, params, lr) -> (updates, new_state)   # updates: deltas
 
 The state trees keep the JAX package's keys (``count``, ``mu``, ``m``,
-``v``), so a checkpointed state moves between the two packages.
+``v``; adafactor ``count`` and ``leaves``, a parameter tree of per-param
+dicts ``{"m", "v" | "v_row" + "v_col"}``), so a checkpointed state moves
+between the two packages.
 
 ``lr`` may be a scalar OR a tree of per-leaf scale tensors matching the
 parameter tree (broadcastable against each leaf) — how per-member learning
 rates reach fused populations: ``core.deep.member_lr_tree`` expands a (P,)
 vector into such a tree.  SGD's ``momentum`` and AdamW's ``weight_decay``
-take a scalar or such a tree the same way.
+take a scalar or such a tree the same way, and so does adafactor's
+``weight_decay``.
 
-Not ported yet (ROADMAP.md): ``adafactor`` and a bfloat16 state dtype; both
-raise ``NotImplementedError``.
+The update rules are the JAX package's, in plain PyTorch (JAX computes
+them in plain ``jnp`` too, outside any kernel).
 """
 from __future__ import annotations
 
@@ -30,9 +38,6 @@ import torch
 
 from repro_torch.core.tree import (tree_leaves, tree_map, tree_structure,
                                    tree_unflatten)
-
-_NOT_YET = "is not ported yet (ROADMAP.md, Queue 1)"
-
 
 def _f32(v, like: torch.Tensor) -> torch.Tensor:
     """A scalar hyperparameter as a float32 tensor on ``like``'s device, so
@@ -99,6 +104,11 @@ class Optimizer:
     update: Callable[..., tuple]
 
 
+def _dtype(dtype) -> torch.dtype:
+    """A state dtype given as a ``torch.dtype`` or its name."""
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
 def _count0(params) -> torch.Tensor:
     return torch.zeros((), dtype=torch.int32,
                        device=tree_leaves(params)[0].device)
@@ -145,16 +155,16 @@ def sgd(momentum=0.0, nesterov: bool = False) -> Optimizer:
 def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
           weight_decay=0.1, state_dtype=torch.float32) -> Optimizer:
     """AdamW with decoupled weight decay (a scalar or a per-leaf scale
-    tree).  Moments are float32; a bfloat16 state is not ported yet."""
-    if state_dtype not in (torch.float32, "float32"):
-        raise NotImplementedError(f"adamw state_dtype={state_dtype!r} "
-                                  + _NOT_YET)
+    tree).  ``state_dtype=torch.bfloat16`` stores m and v in bf16 (half
+    the optimizer memory); the moment math stays float32 and its results
+    are rounded to the state dtype on the way out."""
+    state_dtype = _dtype(state_dtype)
     decoupled = hyper_on(weight_decay)
 
     def init(params):
         return {"count": _count0(params),
-                "m": tree_zeros_like(params, torch.float32),
-                "v": tree_zeros_like(params, torch.float32)}
+                "m": tree_zeros_like(params, state_dtype),
+                "v": tree_zeros_like(params, state_dtype)}
 
     def update(grads, state, params, lr):
         c = state["count"] + 1
@@ -164,12 +174,12 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
 
         def leaf(g, m, v, p, l, wd):
             gf = g.float()
-            m32 = b1 * m + (1 - b1) * gf
-            v32 = b2 * v + (1 - b2) * gf * gf
+            m32 = b1 * m.float() + (1 - b1) * gf
+            v32 = b2 * v.float() + (1 - b2) * gf * gf
             step = (m32 / bc1) / (torch.sqrt(v32 / bc2) + eps)
             if wd is not None:
                 step = step + wd * p.float()
-            return -l * step, m32, v32
+            return -l * step, m32.to(state_dtype), v32.to(state_dtype)
 
         flat_g = tree_leaves(grads)
         flat_wd = (tree_leaves(broadcast_scale(weight_decay, grads,
@@ -187,8 +197,91 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
     return Optimizer(init, update)
 
 
-def adafactor(*args, **kwargs) -> Optimizer:
-    raise NotImplementedError("the adafactor optimizer " + _NOT_YET)
+# --------------------------------------------------------------------- #
+# Adafactor (factored v, bf16 momentum)                                 #
+# --------------------------------------------------------------------- #
+
+def _factored(shape) -> bool:
+    return len(shape) >= 2 and shape[-1] >= 2 and shape[-2] >= 2
+
+
+def is_state_leaf(x) -> bool:
+    """An adafactor per-parameter state dict ``{"v" | "v_row" + "v_col"
+    [, "m"]}``: one leaf of ``state["leaves"]`` (JAX's ``is_state_leaf``)."""
+    return isinstance(x, dict) and ("v" in x or "v_row" in x)
+
+
+def adafactor(b2: float = 0.99, eps: float = 1e-30, momentum: float = 0.9,
+              momentum_dtype=torch.bfloat16, weight_decay=0.0,
+              clip_threshold: float = 1.0) -> Optimizer:
+    """Adafactor: a leaf of rank ≥ 2 whose two trailing dims are ≥ 2 keeps
+    its second moment factored, ``v_row`` over ``shape[:-1]`` and
+    ``v_col`` over ``shape[:-2] + shape[-1:]``; any other leaf a plain
+    ``v``.  The update is ``g · rsqrt(v̂)``, clipped to an RMS of at most
+    ``clip_threshold`` over the whole leaf, then averaged into a momentum
+    stored in ``momentum_dtype`` (bf16; the update uses the float32 value
+    before rounding).  ``weight_decay`` may be a scalar or a per-leaf
+    scale tree, like :func:`adamw`; ``momentum`` is a scalar."""
+    momentum_dtype = _dtype(momentum_dtype)
+    decoupled = hyper_on(weight_decay)
+
+    def init(params):
+        def leaf(p):
+            f32 = dict(dtype=torch.float32, device=p.device)
+            if _factored(p.shape):
+                st = {"v_row": torch.zeros(p.shape[:-1], **f32),
+                      "v_col": torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                           **f32)}
+            else:
+                st = {"v": torch.zeros(p.shape, **f32)}
+            if momentum:
+                st["m"] = torch.zeros(p.shape, dtype=momentum_dtype,
+                                      device=p.device)
+            return st
+        return {"count": _count0(params), "leaves": tree_map(leaf, params)}
+
+    def update(grads, state, params, lr):
+        c = state["count"] + 1
+
+        def leaf(g, st, p, l, wd):
+            gf = g.float()
+            g2 = gf * gf + eps
+            new_st = {}
+            if "v" in st:
+                v = b2 * st["v"] + (1 - b2) * g2
+                u = gf * torch.rsqrt(v + eps)
+                new_st["v"] = v
+            else:
+                v_row = b2 * st["v_row"] + (1 - b2) * g2.mean(-1)
+                v_col = b2 * st["v_col"] + (1 - b2) * g2.mean(-2)
+                r = v_row / torch.clamp(v_row.mean(-1, keepdim=True),
+                                        min=eps)
+                u = gf * torch.rsqrt(r[..., None] * v_col[..., None, :]
+                                     + eps)
+                new_st["v_row"], new_st["v_col"] = v_row, v_col
+            u_rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            u = u / torch.clamp(u_rms / clip_threshold, min=1.0)
+            if momentum:
+                m = momentum * st["m"].float() + (1 - momentum) * u
+                new_st["m"] = m.to(momentum_dtype)
+                u = m
+            if wd is not None:
+                u = u + wd * p.float()
+            return -l * u, new_st
+
+        flat_g = tree_leaves(grads)
+        flat_wd = (tree_leaves(broadcast_scale(weight_decay, grads,
+                                               "weight_decay"))
+                   if decoupled else [None] * len(flat_g))
+        out = [leaf(*a) for a in zip(
+            flat_g, tree_leaves(state["leaves"], is_leaf=is_state_leaf),
+            tree_leaves(params), tree_leaves(broadcast_lr(lr, grads)),
+            flat_wd)]
+        return (tree_unflatten(grads, [o[0] for o in out]),
+                {"count": c,
+                 "leaves": tree_unflatten(grads, [o[1] for o in out])})
+
+    return Optimizer(init, update)
 
 
 OPTIMIZERS = {"sgd": sgd, "adamw": adamw, "adafactor": adafactor}
@@ -205,23 +298,36 @@ def apply_updates(params, updates):
 
 
 def scale_member_moments(state, ref, scale_tree):
-    """Multiply every params-shaped moment of an optimizer state (sgd
-    ``mu``, adamw ``m`` and ``v``) by a params-structured tree of masks or
-    scales, each broadcastable against its parameter along the
-    member-major axes (numpy arrays or tensors); scalar leaves (step
-    counts) pass through and each moment keeps its dtype.  The in-place
-    twin of re-initialising members' moments
+    """Multiply every params-shaped moment of an optimizer state by a
+    params-structured tree of masks or scales, each broadcastable against
+    its parameter along the member-major axes (numpy arrays or tensors):
+    sgd ``mu``, adamw ``m`` and ``v``; of an adafactor state, each
+    parameter's ``m`` and unfactored ``v``, while the factored
+    ``v_row``/``v_col`` statistics mix members along their reduced axis
+    and pass through untouched (stale; they re-warm in ~1/(1−b2) steps).
+    Scalar leaves (step counts) pass through and each moment keeps its
+    dtype.  The in-place twin of re-initialising members' moments
     (``lifecycle.refill_state``).  ``ref``: the params tree (live or
     ``abstract_params``) of the current layout."""
-    if isinstance(state, dict) and "leaves" in state:
-        raise NotImplementedError(
-            "scale_member_moments of an adafactor state: the adafactor "
-            f"optimizer {_NOT_YET}, item 2)")
-    from repro_torch.core.deep import map_params_subtrees
-
     def scale_leaf(mom, mk):
         return mom * torch.as_tensor(mk, dtype=mom.dtype, device=mom.device)
 
+    if isinstance(state, dict) and "leaves" in state:       # adafactor
+        flat_st = tree_leaves(state["leaves"], is_leaf=is_state_leaf)
+        flat_mk = tree_leaves(scale_tree)
+        if len(flat_mk) != len(flat_st):
+            raise ValueError("scale_member_moments: scale tree does not "
+                             "match the adafactor state's param structure")
+        out = []
+        for st, mk in zip(flat_st, flat_mk):
+            new = dict(st)
+            for key in ("v", "m"):
+                if key in st:
+                    new[key] = scale_leaf(st[key], mk)
+            out.append(new)
+        return {**state, "leaves": tree_unflatten(
+            state["leaves"], out, is_leaf=is_state_leaf)}
+    from repro_torch.core.deep import map_params_subtrees
     return map_params_subtrees(
         state, ref, lambda node: tree_map(scale_leaf, node, scale_tree),
         op="scale_member_moments")

@@ -2,9 +2,10 @@
 trainer's ``--halving``) held against the JAX package's on the CPU.
 
 Schedules, survivors, ``subset`` layouts and compaction (parameters and
-sgd / momentum / AdamW moments) on the same numpy inputs: layouts equal
-field by field, gathers bitwise equal, the port's host and device gathers
-bitwise equal.  A survivor's trajectory after compaction holds to its
+sgd / momentum / AdamW moments; adafactor's carry through
+``compact_factored``) on the same numpy inputs: layouts equal field by
+field, gathers bitwise equal, the port's host and device gathers bitwise
+equal.  A survivor's trajectory after compaction holds to its
 never-pruned trajectory at the optimizer tolerance (rtol 1e-5 / atol 1e-6,
 tests/test_population_optim.py).  Driver: a JAX ``--halving`` run stopped
 mid-ladder and resumed by the port lands on JAX's straight run; the port's
@@ -16,6 +17,7 @@ import functools
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -65,8 +67,19 @@ def same_bits(got, want):
     assert len(gl) == len(wl)
     for i, (a, b) in enumerate(zip(gl, wl)):
         b = np.asarray(b)
+        if b.dtype == jnp.bfloat16:    # numpy has no bf16: its bits
+            assert a.dtype == torch.bfloat16, i
+            a, b = a.view(torch.int16), b.view(np.int16)
         assert a.dtype == torch.from_numpy(b).dtype, i
         assert a.numpy().tobytes() == b.tobytes(), f"leaf {i}"
+
+
+def to_torch(a) -> torch.Tensor:
+    """A numpy array as a tensor, bf16 through its bits."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.tensor(a)
 
 
 def both_params(seed=0):
@@ -97,9 +110,9 @@ def trained_states(opt: str):
     sj = jax.tree.map(
         lambda a: (rng.normal(0, 0.1, a.shape).astype(a.dtype) if a.ndim
                    else np.asarray(2, a.dtype)),
-        jax.device_get(OPTS[opt](jopt).init(pj)))
-    st = jax.tree.map(lambda a: torch.tensor(np.asarray(a)), sj)
-    assert jax.tree.structure(OPTS[opt](topt).init(pt)) \
+        jax.device_get(ALL_OPTS[opt](jopt).init(pj)))
+    st = jax.tree.map(to_torch, sj)
+    assert jax.tree.structure(ALL_OPTS[opt](topt).init(pt)) \
         == jax.tree.structure(st)
     return pj, sj, pt, st
 
@@ -107,6 +120,10 @@ def trained_states(opt: str):
 OPTS = {"sgd": lambda o: o.sgd(),
         "momentum": lambda o: o.sgd(momentum=0.9),
         "adamw": lambda o: o.adamw(weight_decay=0.01)}
+# adafactor's state is not params-shaped: compact_factored, not compact
+FACTORED = {"adafactor": lambda o: o.adafactor(),
+            "adafactor momentum 0": lambda o: o.adafactor(momentum=0.0)}
+ALL_OPTS = {**OPTS, **FACTORED}
 
 
 # --------------------------------------------------------------------- #
@@ -233,12 +250,38 @@ def test_trajectory_after_compaction_equals_never_pruned():
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TRAJ)
 
 
-def test_adafactor_state_raises_naming_item_2():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tlife.compact(TLP, both_params()[1], {"count": 0, "leaves": {}},
-                      [0, 1])
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tlife.compact_factored(TLP, None, None, [0])
+@pytest.mark.parametrize("keep", KEEPS, ids=str)
+def test_compact_factored_bitwise_jax(keep):
+    """``compact_factored`` of an adafactor state with live moments: the
+    parameters and the carried bf16 momentum bitwise JAX's (the port's
+    host and device gathers bitwise equal), the count carried, the
+    factored statistics dropped."""
+    pj, sj, pt, st = trained_states("adafactor")
+    nj, qj, cj = jlife.compact_factored(JLP, pj, sj, keep, gather="host")
+    nt, qt, ct = tlife.compact_factored(TLP, pt, st, keep)
+    _, qh, ch = tlife.compact_factored(TLP, pt, st, keep, gather="host")
+    check_layout(nj, nt)
+    same_bits(qt, qj)
+    same_bits(ct["m"], jax.device_get(cj["m"]))
+    assert tree_leaves(ct["m"])[0].dtype == torch.bfloat16
+    assert sorted(ct) == ["count", "m"] and int(ct["count"]) == 2
+    for a, b in zip(tree_leaves((qt, ct)), tree_leaves((qh, ch))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_compact_factored_without_momentum_and_validation():
+    """Without momentum the carry's ``m`` is None; a params-shaped state
+    belongs to ``compact`` and an adafactor state to ``compact_factored``,
+    each refused by the other with ``ValueError``, as in JAX."""
+    pj, sj, pt, st = trained_states("adafactor momentum 0")
+    nj, _, cj = jlife.compact_factored(JLP, pj, sj, [1, 4])
+    nt, qt, ct = tlife.compact_factored(TLP, pt, st, [1, 4])
+    assert cj["m"] is None and ct["m"] is None and int(ct["count"]) == 2
+    check_layout(nj, nt)
+    with pytest.raises(ValueError, match="adafactor"):
+        tlife.compact_factored(TLP, pt, {"mu": pt}, [0])
+    with pytest.raises(ValueError, match="compactable"):
+        tlife.compact(TLP, pt, st, [0, 1])
 
 
 def test_device_plans_keep_no_layout_alive():

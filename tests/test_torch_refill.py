@@ -4,8 +4,9 @@
 on the CPU.
 
 Growth and refill on the same numpy inputs are bitwise JAX's (parameters,
-and sgd / momentum / AdamW moments), the port's host and device gathers
-bitwise equal, grow-then-compact a bitwise round trip; the controller's
+and sgd / momentum / AdamW moments; adafactor's ``m`` and unfactored ``v``
+zeroed in place, its factored statistics untouched), the port's host and
+device gathers bitwise equal, grow-then-compact a bitwise round trip; the controller's
 plans equal JAX's in every field over three rungs.  Driver: JAX's
 ``--refill pbt --per-member-lr`` run stopped between rungs and resumed by
 the port (its newborns fed JAX's draw through ``fresh_member_params``)
@@ -18,6 +19,7 @@ import functools
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -51,6 +53,10 @@ NEW = [(((13, 5), (8,)), (("tanh", "gelu"), "relu")),
 OPTS = {"sgd": lambda o: o.sgd(),
         "momentum": lambda o: o.sgd(momentum=0.9),
         "adamw": lambda o: o.adamw(weight_decay=0.01)}
+# states a refill scales in place but growth cannot splice
+SCALED = {**OPTS, "adafactor": lambda o: o.adafactor(),
+          "adamw bf16": lambda o: o.adamw(weight_decay=0.01,
+                                          state_dtype="bfloat16")}
 _BD_FIELDS = [f.name for f in dataclasses.fields(jpop.BlockDiagLayout)]
 
 
@@ -72,8 +78,19 @@ def same_bits(got, want):
     assert len(gl) == len(wl)
     for i, (a, b) in enumerate(zip(gl, wl)):
         b = np.asarray(b)
+        if b.dtype == jnp.bfloat16:    # numpy has no bf16: its bits
+            assert a.dtype == torch.bfloat16, i
+            a, b = a.view(torch.int16), b.view(np.int16)
         assert a.dtype == torch.from_numpy(np.array(b)).dtype, i
         assert a.numpy().tobytes() == b.tobytes(), f"leaf {i}"
+
+
+def to_torch(a) -> torch.Tensor:
+    """A numpy array as a tensor, bf16 through its bits."""
+    a = np.asarray(a)
+    if a.dtype == jnp.bfloat16:
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.tensor(a)
 
 
 def numpy_tree(jl, seed):
@@ -97,9 +114,8 @@ def states(opt: str):
     sj = jax.tree.map(
         lambda a: (rng.normal(0, 0.1, a.shape).astype(a.dtype) if a.ndim
                    else np.asarray(2, a.dtype)),
-        jax.device_get(OPTS[opt](jopt).init(pj)))
-    return (pj, sj, port_tree(pj, TLP),
-            jax.tree.map(lambda a: torch.tensor(np.asarray(a)), sj))
+        jax.device_get(SCALED[opt](jopt).init(pj)))
+    return pj, sj, port_tree(pj, TLP), jax.tree.map(to_torch, sj)
 
 
 # --------------------------------------------------------------------- #
@@ -158,6 +174,23 @@ def test_grow_state_bitwise_jax(opt):
         same_bits(tdeep.grow_state(st, TLP, tg, pos, gather=g), want)
 
 
+def test_grow_state_rejects_factored_adafactor():
+    """JAX's test: the factored ``v_row``/``v_col`` reduce over the fused
+    axis and cannot be spliced member-major, so ``grow_state`` (and
+    ``lifecycle.grow``) raise; the trainer grows adafactor's carried
+    momentum with ``grow_params``."""
+    w, a = NEW[0]
+    pos = TLP.grow_positions(w, a)
+    grown = TLP.grow(w, a, pos)
+    _, _, pt, st = states("adafactor")
+    with pytest.raises(ValueError, match="grow_state"):
+        tdeep.grow_state(st, TLP, grown, pos)
+    fresh = tdeep.init_params(torch.Generator().manual_seed(0),
+                              grown.subset(tuple(sorted(pos))))
+    with pytest.raises(ValueError, match="grow_state"):
+        tlife.grow(TLP, pt, st, w, a, pos, fresh)
+
+
 # --------------------------------------------------------------------- #
 # constant-size refill                                                  #
 # --------------------------------------------------------------------- #
@@ -193,7 +226,7 @@ def test_refill_params_bitwise_jax():
         tlife.refill_params(TLP, pt, asg)
 
 
-@pytest.mark.parametrize("opt", sorted(OPTS))
+@pytest.mark.parametrize("opt", sorted(SCALED))
 def test_refill_state_and_moment_mask_bitwise_jax(opt):
     slots = [0, 3, TLP.num_real - 1]
     mj, mt = jlife.member_moment_mask(JLP, slots), \
@@ -208,9 +241,24 @@ def test_refill_state_and_moment_mask_bitwise_jax(opt):
     assert tlife.refill_state(st, TLP, []) is st
 
 
-def test_scale_member_moments_refuses_adafactor():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        topt.scale_member_moments({"count": 0, "leaves": {}}, None, None)
+def test_scale_member_moments_of_adafactor():
+    """The factored branch: ``m`` and unfactored ``v`` zeroed at the
+    refilled slots (bf16 kept), ``v_row``/``v_col`` passed through as the
+    same tensors; a scale tree of another structure raises, as in JAX."""
+    _, _, pt, st = states("adafactor")
+    out = topt.scale_member_moments(
+        st, pt, tlife.member_moment_mask(TLP, [1]))
+    for new, old in zip(tree_leaves(out["leaves"], is_leaf=topt.is_state_leaf),
+                        tree_leaves(st["leaves"], is_leaf=topt.is_state_leaf)):
+        for key in ("v_row", "v_col"):
+            if key in old:
+                assert new[key] is old[key]
+        assert new["m"].dtype == torch.bfloat16
+    assert not out["leaves"]["b_out"]["m"][1].any()
+    assert torch.equal(out["leaves"]["b_out"]["m"][0],
+                       st["leaves"]["b_out"]["m"][0])
+    with pytest.raises(ValueError, match="scale tree"):
+        topt.scale_member_moments(st, pt, {"w_in": np.ones(1)})
 
 
 # --------------------------------------------------------------------- #

@@ -140,16 +140,13 @@ def test_fused_step_is_two_depth_plus_one_launches(np_params, batches):
 
 
 def test_rejects_unported_routes(np_params, batches):
-    """bf16 compute and two optimizer features are not ported yet (the M3
-    routes are: tests/test_torch_m3.py holds them against JAX)."""
+    """bf16 compute is not ported yet (the M3 routes are:
+    tests/test_torch_m3.py holds them against JAX; adafactor and the bf16
+    AdamW state: tests/test_torch_adafactor.py)."""
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
     x, y = _t(batches[0][0]), _t(batches[1][0], torch.long)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdeep.fused_loss(params, x, y, TLP, compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.adamw(state_dtype=torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        topt.make_optimizer("adafactor")
 
 
 # --------------------------------------------------------------------- #

@@ -2,8 +2,9 @@
 resume a JAX run in the port (parameters and optimizer state), the port's
 checkpoint restored by JAX, crash replay, the M3 routes (``--m3-impl
 pallas|onehot``), the lifecycle and recipe flags (``--halving``,
-``--refill``, ``--per-member-*``) run to their end, and the flags not
-ported yet.
+``--refill``, ``--per-member-*``) run to their end, adafactor and the
+bf16 AdamW state through a halving ladder resumed mid-ladder across the
+packages in both directions, and the flags not ported yet.
 
 The JAX driver trains on its einsum route; the port's driver resumes with
 ``--device cpu``, where every kernel runs its plain PyTorch version.
@@ -164,9 +165,6 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ["--compute-dtype", "bfloat16"],
-    ["--optimizer", "adafactor"],
-    ["--optimizer", "adafactor", "--halving", "4:0.5"],
-    ["--optimizer", "adamw", "--opt-state-dtype", "bfloat16"],
     ["--serve-publish"],
     ["--pipeline", "on"],
 ], ids=lambda f: " ".join(f))
@@ -294,3 +292,156 @@ def test_depth_spec_and_population_flags():
     assert lp.num_members == 30 and lp.depth == 3 and lp.block == 8
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ttrain.main(["--arch", "qwen3-1.7b", "--device", "cpu"])
+
+
+# --------------------------------------------------------------------- #
+# adafactor and the bf16 AdamW state through a ladder, both packages    #
+# --------------------------------------------------------------------- #
+
+LADDER = TINY + ["--halving", "2:0.5,4:0.5"]
+OPTIMIZERS = {
+    "adafactor": ["--optimizer", "adafactor", "--weight-decay", "0.001"],
+    "adafactor pbt": ["--optimizer", "adafactor", "--refill", "pbt"],
+    "adafactor arch": ["--optimizer", "adafactor", "--refill", "arch",
+                       "--search-space", "widths=4,2|3;acts=relu,tanh"],
+    "adamw bf16": ["--optimizer", "adamw", "--opt-state-dtype", "bfloat16",
+                   "--weight-decay", "0.01"],
+}
+
+
+def jax_newborns(seed, rung, fresh_lp, device):
+    """``fresh_member_params`` drawing as the JAX driver draws."""
+    from repro.core import population as jpop
+    jl = jpop.LayeredPopulation(fresh_lp.in_features, fresh_lp.out_features,
+                                fresh_lp.widths, fresh_lp.activations,
+                                block=fresh_lp.block)
+    p = jdeep.init_params(jax.random.fold_in(jax.random.PRNGKey(seed),
+                                             5000 + rung), jl)
+    return tdeep.params_from_numpy(jax.device_get(p), fresh_lp,
+                                   device=device)
+
+
+@pytest.mark.parametrize("name", sorted(OPTIMIZERS))
+def test_optimizer_ladder_resumes_across_packages(name, tmp_path,
+                                                  monkeypatch, capsys):
+    """A 6-step ladder (4 → 2 → 1 members, or refilled to 4) stopped at
+    step 4, between its rungs: JAX's checkpoint resumed by the port lands
+    on JAX's straight run, and the port's resumed by JAX on the port's
+    straight run (layout, lifecycle meta, parameters; the port's newborns
+    drawn as JAX draws them); the checkpoints carry the state's bf16
+    leaves as bf16."""
+    flags = LADDER + OPTIMIZERS[name]
+    jflags = [a for a in flags if a not in ("--device", "cpu")] + [
+        "--pipeline", "off"]
+    monkeypatch.setattr(ttrain, "fresh_member_params", jax_newborns)
+    meta = {}
+
+    def lifecycle(d):
+        return tckpt.load_meta(str(tmp_path / d))[0]["lifecycle"]
+
+    for d, run, more in (("jax4", jtrain.main, jflags),
+                         ("jax6", jtrain.main, jflags + ["--steps", "6"]),
+                         ("port4", ttrain.main, flags),
+                         ("port6", ttrain.main, flags + ["--steps", "6"])):
+        meta[d] = run(more + ["--ckpt-dir", str(tmp_path / d)])
+    assert lifecycle("jax4")["rung"] == lifecycle("port4")["rung"] == 1
+    with np.load(tmp_path / "port4" / "step_00000003" / "arrays.npz") as z:
+        m = "extra/m/w_in" if "adamw" in name else "extra/leaves/w_in/m"
+        assert z[m].dtype == np.uint16
+    capsys.readouterr()
+    params, lp, stats = ttrain.main(flags + ["--steps", "6", "--resume",
+                                             "--ckpt-dir",
+                                             str(tmp_path / "jax4")])
+    assert "resumed from step 3 (rung 1" in capsys.readouterr().out
+    assert stats["steps"] == 2 and lp.widths == meta["jax6"][1].widths
+    assert lifecycle("jax4") == lifecycle("jax6")
+    _assert_trees(params, jax.device_get(meta["jax6"][0]))
+    back, blp = jtrain.main(jflags + ["--steps", "6", "--resume",
+                                      "--ckpt-dir", str(tmp_path / "port4")])
+    assert blp.widths == meta["port6"][1].widths
+    assert lifecycle("port4") == lifecycle("port6")
+    _assert_trees(meta["port6"][0], jax.device_get(back))
+
+
+def test_adafactor_rung_rewarms_the_factored_state(tmp_path):
+    """The state a compacting rung leaves (force-saved at step 1): a fresh
+    init's on the new layout (``rewarm_adafactor_state``), its factored
+    and unfactored statistics zero, the momentum carried (bf16, live) and
+    the count 2; ``rewarm`` without momentum keeps the fresh state."""
+    ttrain.main(TINY + ["--optimizer", "adafactor", "--halving", "2:0.5",
+                        "--steps", "3", "--ckpt-dir", str(tmp_path)])
+    meta, _ = tckpt.load_meta(str(tmp_path), step=1)
+    lp = tckpt.layout_from_meta(meta)
+    opt = topt.adafactor()
+    _, lp1, _, st = tckpt.restore_population(
+        str(tmp_path), step=1, device="cpu",
+        extra_like=opt.init(tdeep.abstract_params(lp)))
+    assert lp1.num_real == 2 and int(st["count"]) == 2
+    for leaf in tree_leaves(st["leaves"], is_leaf=topt.is_state_leaf):
+        assert leaf["m"].dtype == torch.bfloat16 and leaf["m"].any()
+        for key in ("v", "v_row", "v_col"):
+            if key in leaf:
+                assert not leaf[key].any()
+    fresh = topt.adafactor(momentum=0.0).init(tdeep.abstract_params(lp))
+    count = torch.tensor(5, dtype=torch.int32)
+    out = ttrain.rewarm_adafactor_state(fresh, {"count": count, "m": None})
+    assert out["leaves"] is fresh["leaves"] and out["count"] is count
+
+
+def test_adafactor_crash_replay_matches_an_unbroken_run(tmp_path):
+    """``TrainRunner`` over adafactor (bf16 momentum) with its
+    off-thread saves: a failure restores the last checkpoint and replays,
+    bit for bit the unbroken run."""
+    from repro_torch.core.population import LayeredPopulation
+    lp = LayeredPopulation(4, 2, ((6, 3), (5,)), ("relu", "tanh"))
+    rng = np.random.default_rng(0)
+    xs = torch.as_tensor(rng.normal(0, 1, (6, 8, 4)).astype(np.float32))
+    ys = torch.as_tensor(rng.integers(0, 2, (6, 8)))
+    opt = topt.adafactor(weight_decay=0.001)
+
+    def run(ckpt_dir, fail_at=None):
+        params = tdeep.init_params(torch.Generator().manual_seed(0), lp)
+        failed, restored = [], []
+
+        def step_fn(state, s):
+            p, st, *_ = tdeep.opt_step(state["params"], state["extra"],
+                                       xs[s], ys[s], 0.1, opt, lp,
+                                       bd_impl="fused")
+            return {"params": p, "extra": st}, {}
+
+        def hook(s):
+            if s == fail_at and not failed:
+                failed.append(s)
+                raise RuntimeError("injected failure")
+
+        runner = TrainRunner(step_fn, {"params": params,
+                                       "extra": opt.init(params)},
+                             ckpt_dir=str(ckpt_dir), ckpt_every=2,
+                             failure_hook=hook, on_restore=restored.append)
+        assert runner.run(6) == 6
+        return runner, restored
+
+    clean, _ = run(tmp_path / "clean")
+    broken, restored = run(tmp_path / "broken", fail_at=5)
+    assert broken.restarts == 1 and restored == [5]
+    assert tckpt.latest_steps(str(tmp_path / "broken")) == [0, 2, 4]
+    leaves = tree_leaves(clean.state)
+    assert any(t.dtype == torch.bfloat16 for t in leaves)
+    for a, b in zip(tree_leaves(broken.state), leaves):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_opt_state_dtype_needs_adamw_and_resume_checks_it(tmp_path):
+    """``--opt-state-dtype bfloat16`` with another optimizer exits, as in
+    JAX; a resume under another state dtype than the checkpoint's is the
+    mismatch JAX's check names (bf16 moments read as f32)."""
+    for opt in ("momentum", "adafactor"):
+        with pytest.raises(SystemExit, match="adamw only"):
+            ttrain.main(TINY + ["--optimizer", opt, "--opt-state-dtype",
+                                "bfloat16", "--ckpt-dir", str(tmp_path)])
+    ttrain.main(TINY + ["--optimizer", "adamw", "--steps", "2",
+                        "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="state_dtype"):
+        ttrain.main(TINY + ["--optimizer", "adamw", "--opt-state-dtype",
+                            "bfloat16", "--resume", "--ckpt-dir",
+                            str(tmp_path)])
