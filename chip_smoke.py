@@ -132,6 +132,31 @@ Phases (any failure exits non-zero, and no result line is printed):
           synchronous ``save``, the checkpoint restored bitwise on the
           card and on the CPU, and a ``TrainRunner`` crash replay with
           async saves bitwise an unbroken run;
+       i. the bf16 compute policy on the fused route (a process of its
+          own, as 4g; alone: ``chip_smoke.py --bf16 DIR``): (i) both
+          checkpoints of phase 3 served by ``serve_population.main`` in
+          f32 and under ``--compute-dtype bfloat16`` in turns, each bf16
+          run counted alone (every forward depth+1 launches of the bf16
+          instances, nothing else), req/s and p50/p99 per mode beside the
+          f32 serve's, the bf16 logits within JAX's policy tolerance
+          (rtol 1e-1 / atol 5e-2) of the f32 ones; (ii) ``parallelmlp-10k``
+          trained by ``train.main --bd-impl fused --compute-dtype
+          bfloat16`` (sgd, batch 32, 16 steps in chunks of 8, checkpoints
+          every 8), counted alone: 2·(depth+1) bf16 launches a step and
+          no f32 population kernel in the loop, f32 masters in the
+          checkpoint and the policy in its meta, the held-out loss
+          falling, one step on the card against the CPU's plain versions
+          within the CPU tests' slice tolerance (losses 2e-2, gradients
+          and parameters rtol 1e-2 / atol 1e-3), the steady step (wall,
+          device ms, idle share, the casts and other non-population
+          kernels apart) beside the f32 step, in turns; (iii) the depth-3
+          population under ``--optimizer adamw --grad-clip 1.0
+          --compute-dtype bfloat16 --halving "8:0.5" --serve-publish``:
+          each segment 2·(depth+1) bf16 launches a step, a ``published:``
+          set at the rung and at the end, the last a fresh
+          ``PopulationServer``'s on the final checkpoint; (iv) the bf16
+          instances of rows 1, 3, 4, 6, 7, 9 and 10 at the main paths'
+          shapes (``bf16_*`` fields of their rows);
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -995,7 +1020,11 @@ def check_single_step(name, params, pop, x, y):
 
 
 # names of the port's kernels in a profiler trace
-KERNEL_SYMBOLS = ("fused_input_bwd_kernel", "fused_input_kernel",
+KERNEL_SYMBOLS = ("fused_input_bwd_bf16_kernel",
+                  "fused_layer_dx_dw_bf16_kernel",
+                  "fused_layer_bf16_group_kernel", "infer_head_bf16_kernel",
+                  "loss_head_fwd_bf16_kernel", "loss_head_bwd_bf16_kernel",
+                  "fused_input_bwd_kernel", "fused_input_kernel",
                   "fused_layer_dx_dw_kernel", "fused_layer_group_kernel",
                   "fused_layer_i8_group_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
@@ -2161,6 +2190,611 @@ def optim_path(workdir: Path) -> tuple:
     torch.cuda.empty_cache()
     res["checkpoint"] = checkpoint_10k("optim 10k checkpoint", workdir,
                                        lp10k, x, y, count)
+    return res, n_all
+
+
+# --------------------------------------------------------------------- #
+# the bf16 compute policy (path 4i)                                     #
+# --------------------------------------------------------------------- #
+
+# the fused route's bf16 instances, by counter, and the kernel row each
+# belongs to
+BF16_ROWS = {"fused_input_bf16": "fused_input",
+             "fused_input_bwd_bf16": "fused_input_bwd",
+             "fused_layer_bf16": "fused_layer",
+             "fused_layer_dx_dw_bf16": "fused_layer_dx_dw",
+             "infer_head_bf16": "infer_head",
+             "loss_head_fwd_bf16": "loss_head_fwd",
+             "loss_head_bwd_bf16": "loss_head_bwd"}
+BF16_KERNELS = tuple(BF16_ROWS)
+# JAX's own tolerance of bf16 compute against f32 (tests/test_infer_path.py)
+BF16_POLICY_TOL = (1e-1, 5e-2)
+# the CPU tests' slice tolerances under the policy
+# (tests/test_torch_bf16_policy.py): losses, gradients
+BF16_FWD_TOL, BF16_GRAD_TOL = (2e-2, 2e-2), (1e-2, 1e-3)
+
+
+def bf16_ulps(a, b, atol: float = 0.0) -> int:
+    """The largest distance between two bf16 tensors in bf16 ulps (steps
+    of the bf16 grid, ±0 one point), over the elements more than ``atol``
+    apart (0: every element)."""
+    import torch
+    _require(a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape,
+             f"bf16_ulps: {a.dtype} {tuple(a.shape)} against {b.dtype} "
+             f"{tuple(b.shape)}")
+
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v + 32768), v)
+
+    d = (key(a) - key(b.to(a.device))).abs()
+    if atol:
+        d = d[(a.float() - b.to(a.device).float()).abs() > atol]
+    return int(d.max().item()) if d.numel() else 0
+
+
+def bf16_process(workdir: Path) -> tuple:
+    """Path 4i in a process of its own (``chip_smoke.py --bf16 DIR``,
+    waited for), as 4g and 4h, on the checkpoints phase 3 served.
+    Returns (the results, the kernel launches of its runs, each bf16
+    kernel row's fields)."""
+    out = workdir / "bf16"
+    out.mkdir()
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                        "--bf16", str(out)], timeout=900)
+    _require(r.returncode == 0, f"path 4i exited {r.returncode}")
+    got = json.loads((out / "bf16.json").read_text())
+    return got["results"], got["launches"], got["results"].pop(
+        "kernel_rows")
+
+
+def serve_bf16(name: str, ckpt: Path, lp, x) -> tuple:
+    """(i) ``ckpt`` served by ``serve_population.main`` in f32 and under
+    ``--compute-dtype bfloat16`` in turns, each bf16 run counted alone:
+    every forward ``depth+1`` launches of the bf16 instances, nothing
+    else; req/s and p50/p99 per mode beside the f32 serve's; then, on a
+    batch, the bf16 served forward's logits against the same forward on
+    the CPU (the plain versions, the CPU tests' slice tolerance) and
+    against the f32 forward's within JAX's policy tolerance for every
+    member but the hardshrink ones: hardshrink jumps by λ = 0.5 at ±λ, so
+    a unit within a bf16 rounding of it lands on the other side under the
+    policy and moves its member's logits by up to λ·|w_out| (0.29 at a
+    3-unit member); their largest difference and the count beyond the
+    tolerance are printed.  Returns (results, the bf16 runs'
+    launches)."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import restore_population
+    from repro_torch.core.deep import forward
+    from repro_torch.launch.launch_count import (fused_infer_kernels,
+                                                 kernel_launches,
+                                                 reset_kernel_launches)
+    budget = lp.depth + 1
+    f32_out = serve_checkpoint(f"{name} f32", ckpt, budget)
+    reset_kernel_launches()
+    out = serve_checkpoint(f"{name} bf16", ckpt, budget,
+                           ["--compute-dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    n = {k: v for k, v in kernel_launches().items() if v}
+    per = fused_infer_kernels(lp.depth, "bfloat16")
+    forwards = n.get("infer_head_bf16", 0)
+    _require(forwards > 0 and n == {k: v * forwards for k, v in per.items()},
+             f"{name} bf16: the serving launches {n}, expected {per} a "
+             "forward, bf16 instances only")
+    _print_beside(name, ("f32", "bf16"), f32_out, out)
+    params = restore_population(str(ckpt), device="cuda")[0]
+    with torch.inference_mode():
+        f32 = forward(params, x, lp, bd_impl="fused", infer=True)
+        bf = forward(params, x, lp, bd_impl="fused", infer=True,
+                     compute_dtype="bfloat16")
+        cpu = forward(_to(params, "cpu"), x.cpu(), lp, bd_impl="fused",
+                      infer=True, compute_dtype="bfloat16")
+    _require(bf.dtype == torch.float32, f"{name}: bf16 logits {bf.dtype}")
+    err_cpu = _close(f"{name}: bf16 served logits vs the CPU's", bf, cpu,
+                     BF16_FWD_TOL)
+    jumps = torch.tensor(["hardshrink" in a for a in lp.activations],
+                         device=bf.device)
+    err = _close(f"{name}: bf16 served logits vs f32 (every member but "
+                 "the hardshrink ones)", bf[:, ~jumps], f32[:, ~jumps],
+                 BF16_POLICY_TOL)
+    rtol, atol = BF16_POLICY_TOL
+    d = (bf - f32).abs()[:, jumps]
+    beyond = int((d > atol + rtol * f32[:, jumps].abs()).sum().item())
+    hard = d.max().item() if d.numel() else 0.0
+    print(f"[{name}] hardshrink members: bf16 logits up to {hard!r} from "
+          f"f32, {beyond} of {d.numel()} beyond the policy tolerance",
+          flush=True)
+    return {"serve": out["serve"], "serve_f32": f32_out["serve"],
+            "logits_vs_cpu_max_abs_err": err_cpu,
+            "logits_vs_f32_max_abs_err": err,
+            "hardshrink_logits_vs_f32_max_abs_err": hard,
+            "hardshrink_logits_beyond_policy_tol": beyond,
+            "forwards": forwards}, n
+
+
+def _step_bf16(params, x, y, lp, **kw):
+    """One sgd step under the policy on the fused route, its parts kept:
+    (per, grads, new params)."""
+    return _step_parts(params, x, y, lp, _optimizer("sgd"), bd_impl="fused",
+                       compute_dtype="bfloat16", **kw)
+
+
+def train_bf16_10k(name: str, workdir: Path, lp, x, y) -> tuple:
+    """(ii) ``parallelmlp-10k`` trained by ``train.main --bd-impl fused
+    --compute-dtype bfloat16`` (sgd, batch 32, 16 steps in chunks of 8,
+    checkpoints every 8), counted alone: each step 2·(depth+1) bf16
+    launches and no f32 population kernel in the loop (the closing
+    leaderboard is f32); f32 masters in the checkpoint, the policy in its
+    meta; the held-out loss falls; one step on the card against the same
+    step on the CPU (the plain versions) within the CPU tests' slice
+    tolerance; the steady step (wall, device ms, idle share, the cast
+    passes apart) beside the f32 step, in turns.  Returns (results, the
+    run's launches)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import load_meta
+    from repro_torch.core.deep import init_params, opt_step
+    from repro_torch.core.selection import evaluate_population
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data.synthetic import TabularTask
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (fused_step_kernels,
+                                                 kernel_launches,
+                                                 reset_kernel_launches)
+    ckpt = workdir / f"train-{name}"
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    params, lp, stats = train_driver.main(
+        ["--arch", "parallelmlp-10k", "--bd-impl", "fused",
+         "--compute-dtype", "bfloat16", "--batch", str(BATCH), "--steps",
+         "16", "--scan-steps", "8", "--ckpt-dir", str(ckpt), "--ckpt-every",
+         "8", "--seed", "0"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = {k: v for k, v in kernel_launches().items() if v}
+    seg = stats["segments"][0]
+    want = {k: 16 * v for k, v in fused_step_kernels(lp.depth,
+                                                     "bfloat16").items()}
+    _require(stats["steps"] == 16 and seg["launches"] == want,
+             f"{name}: the training loop launched {seg['launches']}, "
+             f"expected {want}")
+    meta, step = load_meta(str(ckpt))
+    _require(step == 15 and meta["train"]["compute_dtype"] == "bfloat16",
+             f"{name}: checkpoint step {step}, meta {meta['train']}")
+    with np.load(ckpt / "step_00000015" / "arrays.npz") as z:
+        kinds = {str(z[k].dtype) for k in z.files if k.startswith("params/")}
+    _require(kinds == {"float32"}, f"{name}: checkpointed masters {kinds}")
+    _require(all(p.dtype == torch.float32 for p in tree_leaves(params)),
+             f"{name}: live masters not f32")
+    (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
+                                     n_classes=lp.out_features,
+                                     seed=0).split()
+    init = init_params(torch.Generator(device="cuda").manual_seed(0), lp)
+    before, after = (evaluate_population(p, lp, xte, yte, bd_impl="fused",
+                                         infer=True)[0]
+                     for p in (init, params))
+    del init
+    _require(bool(torch.isfinite(after).all())
+             and after.mean().item() < before.mean().item(),
+             f"{name}: held-out mean member loss {before.mean().item()} -> "
+             f"{after.mean().item()}")
+    res = {"stats": stats, "wall_s": wall,
+           "heldout_loss": [before.mean().item(), after.mean().item()]}
+    print(f"[{name}] trained in {wall:.1f} s: held-out mean loss "
+          f"{res['heldout_loss']!r}; kernel launches {n}", flush=True)
+
+    # one step on the card against the CPU's plain versions
+    card = _step_bf16(params, x, y, lp)
+    cpu = _step_bf16(_to(params, "cpu"), x.cpu(), y.cpu(), lp)
+    res["step_vs_cpu_max_abs_err"] = [
+        _close(f"{name} bf16 step vs CPU: {what}", a, b, tol)
+        for what, a, b, tol in zip(("losses", "grads", "params"), card, cpu,
+                                   (BF16_FWD_TOL, BF16_GRAD_TOL,
+                                    BF16_GRAD_TOL))]
+    del card, cpu
+    # the steady step, f32 and bf16 in turns, from one state; the cast
+    # passes (dtype-converting copies: the masters to bf16, the bf16
+    # gradients back to f32) apart
+    opt = _optimizer("sgd")
+    state = opt.init(params)
+    steps = {}
+    for key, cd in (("f32", None), ("bf16", "bfloat16"),
+                    ("bf16 (2)", "bfloat16"), ("f32 (2)", None)):
+        step = partial(opt_step, params, state, x, y, 1e-2, opt, lp,
+                       bd_impl="fused", compute_dtype=cd)
+        steps[key] = time_step(f"{name} step {key}", step)
+        by = steps[key]["device_ms_by_kernel"]
+        steps[key]["other_device_ms"] = sum(
+            v for k, v in by.items() if k.startswith("other: "))
+        steps[key]["cast_device_ms"] = _named_device_ms(step,
+                                                        "direct_copy")
+    res["steps"] = steps
+    print(f"[{name}] steady step wall / device ms / non-population "
+          "kernels / casts: " + "; ".join(
+              f"{k} {v['step_wall_ms']!r} / {v['device_ms']!r} / "
+              f"{v['other_device_ms']!r} / {v['cast_device_ms']!r}"
+              for k, v in steps.items()), flush=True)
+    return res, n
+
+
+def _named_device_ms(fn, word: str, iters: int = 3) -> float:
+    """The device time a call of ``fn`` spends in kernels whose name holds
+    ``word``, over ``iters`` profiled calls (``torch.profiler``)."""
+    import torch
+    with _profiled() as prof:
+        for _ in range(iters):
+            fn()
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and word in e.name) / iters / 1e3
+
+
+def depth3_bf16_publish(name: str, workdir: Path) -> tuple:
+    """(iii) The depth-3 population under ``--optimizer adamw --grad-clip
+    1.0 --compute-dtype bfloat16 --halving "8:0.5" --serve-publish``,
+    counted alone: each segment 2·(depth+1) bf16 launches a step; a
+    ``published:`` set at the rung and at the end; the last equals a fresh
+    f32 ``PopulationServer``'s on the final checkpoint.  Returns (results,
+    the run's launches)."""
+    import torch
+
+    from repro_torch.data.synthetic import TabularTask
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (fused_step_kernels,
+                                                 kernel_launches,
+                                                 reset_kernel_launches)
+    from repro_torch.launch.serve_population import PopulationServer
+    ckpt = workdir / f"train-{name}"
+    reset_kernel_launches()
+    params, lp, stats = train_driver.main(
+        ["--bd-impl", "fused", "--batch", str(BATCH), "--steps", "16",
+         "--scan-steps", "8", "--ckpt-dir", str(ckpt), "--ckpt-every", "8",
+         "--seed", "0", *depth3_flags()[:-2], "--compute-dtype", "bfloat16",
+         "--halving", "8:0.5", "--serve-publish"])
+    torch.cuda.synchronize()
+    n = {k: v for k, v in kernel_launches().items() if v}
+    for seg in stats["segments"]:
+        want = {k: (seg["end"] - seg["start"]) * v for k, v in
+                fused_step_kernels(seg["depth"], "bfloat16").items()}
+        _require(seg["launches"] == want, f"{name}: segment "
+                 f"{seg['start']}-{seg['end']} launched {seg['launches']}, "
+                 f"expected {want}")
+    pub = stats.get("published", [])
+    _require([p["step"] for p in pub] == [7, 15],
+             f"{name}: published at {pub}")
+    (_, _), (xte, yte) = TabularTask(2048, lp.in_features,
+                                     n_classes=lp.out_features,
+                                     seed=0).split()
+    fresh, _ = PopulationServer.from_checkpoint(
+        str(ckpt), device="cuda", bd_impl="fused", act_impl="sliced",
+        batch=BATCH, topk=min(4, lp.num_real))
+    fresh.publish(xte, yte)
+    same = (fresh.published["best1"] == pub[-1]["best1"]
+            and fresh.published["topk"] == pub[-1]["topk"])
+    _require(same, f"{name}: the last published set {pub[-1]} is not a "
+             f"fresh server's {fresh.published}")
+    print(f"[{name}] {lp.num_real} members after the rung; published "
+          f"{pub}; a fresh server on the final checkpoint publishes the "
+          "same set", flush=True)
+    return {"published": pub, "members": lp.num_real,
+            "segments": stats["segments"]}, n
+
+
+def _bf16_fields(prefix, kernel, plain, library, n_bytes, flops, iters,
+                 word, f32_out=(), label=""):
+    """One bf16 instance against its plain version on the same bf16
+    inputs, with ``prefix``-named fields: the largest distance of its bf16
+    outputs from the plain version's in bf16 ulps (must be ≤ 1; also over
+    the elements more than the f32 atol apart), its f32 outputs (indices
+    ``f32_out``) within the f32 tolerance, two launches bitwise equal, the
+    time (CUDA events) and device time (``torch.profiler``, kernels named
+    ``word``), the plain version's and the library call's time (or why
+    there is none) and the bound (bf16 bytes; the bf16 peak)."""
+    import torch
+    got, want, again = kernel(), plain(), kernel()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    again = again if isinstance(again, tuple) else (again,)
+    torch.cuda.synchronize()
+    ulps, ulps_far, err = 0, 0, 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i in f32_out:
+            err = max(err, _close(f"{label}: f32 output {i} vs plain", a, b))
+        else:
+            ulps = max(ulps, bf16_ulps(a, b))
+            ulps_far = max(ulps_far, bf16_ulps(a, b, ATOL))
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    del got, want, again
+    bound, by = _bound_ms(n_bytes, flops, BF16_FLOP_PER_S)
+    lib_ms, lib_none = None, None
+    if isinstance(library, str):
+        lib_none = library
+    else:
+        try:
+            lib_ms = _time_ms(library, iters)
+        except (RuntimeError, NotImplementedError) as e:
+            lib_none = f"the library call fails on bf16: {str(e)[:160]}"
+    out = {prefix + "max_ulps": ulps,
+           prefix + "max_ulps_beyond_f32_atol": ulps_far,
+           prefix + "bitwise_repeat": bitwise,
+           prefix + "ms": _time_ms(kernel, iters),
+           prefix + "device_ms": _device_ms(kernel, word, iters),
+           prefix + "plain_ms": _time_ms(plain, iters),
+           prefix + "library_ms": lib_ms,
+           prefix + "bound_ms": bound, prefix + "bound_by": by}
+    if f32_out:
+        out[prefix + "max_abs_err"] = err
+    if lib_none:
+        out[prefix + "library_none"] = lib_none
+    print(f"[{label}] {out}", flush=True)
+    _require(ulps_far <= 1 and bitwise, f"{label}: {ulps_far} bf16 ulps "
+             f"from the plain version (strictly {ulps}), bitwise repeat "
+             f"{bitwise}")
+    return out
+
+
+def _sum_fields(rows: list) -> dict:
+    """Fields of a kernel launched once per mid layer: times and bounds
+    summed, the worst distance, every run bitwise."""
+    out = dict(rows[0])
+    for key in out:
+        vals = [r[key] for r in rows]
+        if key.endswith("_ms") and all(v is not None for v in vals):
+            out[key] = sum(vals)
+        elif key.endswith("ulps") or key.endswith("atol"):
+            out[key] = max(vals)
+        elif key.endswith("bitwise_repeat"):
+            out[key] = all(vals)
+    return out
+
+
+def bf16_kernel_fields(p10k, lp10k, p3k, lp3k) -> dict:
+    """(iv) The bf16 instances of rows 1, 3, 4, 6, 7, 9 and 10 at the main
+    paths' shapes (``parallelmlp-10k`` B 32 for the input layer and the
+    heads, the depth-3 population's two mid layers summed), each fed as on
+    the path: ``bf16_*`` fields of their rows (``_bf16_fields``).  The
+    library calls take bf16 operands where the f32 row's call has them:
+    addmm, mm, baddbmm, bmm and the BSR matmul."""
+    import torch
+
+    from repro_torch.core.activations import apply_activations_sliced
+    from repro_torch.core.deep import pack_weight_tiles
+    from repro_torch.kernels import fused_input as fik
+    from repro_torch.kernels import fused_layer as flk
+    from repro_torch.kernels import infer_head as ihk
+    from repro_torch.kernels import loss_head as lhk
+    bf = torch.bfloat16
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {}
+    n_b = BATCH * 2   # a bf16 row of the batch
+
+    # row 1 (and its training launch) at full width
+    p0 = lp10k.layer_pop(0)
+    blk = lp10k.block
+    x = torch.randn(BATCH, lp10k.in_features, generator=gen,
+                    device=dev).to(bf)
+    w, b = p10k["w_in"].to(bf), p10k["b_in"]
+    ids = torch.as_tensor(p0.block_act_ids, dtype=torch.int32, device=dev)
+    mask = torch.as_tensor(p0.hidden_mask, dtype=torch.float32, device=dev)
+    fin = (x, w, b, mask, ids)
+    h, g = fik.fused_input_train_cuda(*fin, block=blk)
+    flops = 2 * BATCH * w.shape[0] * w.shape[1]
+    _require(fik.fwd_path(x, w, h, g) == "vec4",
+             "fused_input bf16: not the vec4 instance at F = 100")
+    b16 = b.to(bf)
+
+    def library_input():
+        z = torch.addmm(b16, x, w.t())
+        return apply_activations_sliced(z, p0.act_runs) * mask
+
+    rows["fused_input"] = _bf16_fields(
+        "bf16_", partial(fik.fused_input_cuda, *fin, block=blk),
+        partial(fik.fused_input_plain, *fin, block=blk), library_input,
+        _nbytes(*fin, h), flops, 20, "fused_input_kernel<4, __nv_bfloat16",
+        label="fused_input bf16")
+    rows["fused_input"].update(_bf16_fields(
+        "bf16_train_", partial(fik.fused_input_train_cuda, *fin, block=blk),
+        partial(fik.fused_input_train_plain, *fin, block=blk),
+        "the f32 row's library call has no g'", _nbytes(*fin, h, g), flops,
+        20, "fused_input_kernel<4, __nv_bfloat16",
+        label="fused_input bf16 with g'"))
+    rows["fused_input"]["bf16_path"] = "vec4"
+
+    # row 3, as on the path (no dx)
+    dy = (torch.randn(h.shape, generator=gen, device=dev) * 1e-3).to(bf)
+    bwd = (dy, g, x, w)
+    dw = fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1]
+    du = dy * g
+    rows["fused_input_bwd"] = _bf16_fields(
+        "bf16_", lambda: fik.fused_input_bwd_cuda(*bwd, with_dx=False)[1],
+        lambda: fik.fused_input_bwd_plain(*bwd, with_dx=False)[1],
+        lambda: torch.mm(du.t(), x), _nbytes(dy, g, x, dw), flops, 10,
+        "fused_input_bwd_bf16_kernel", label="fused_input_bwd bf16")
+    rows["fused_input_bwd"]["bf16_path"] = fik.bwd_path(dy, g, x, dw)
+    del dw, du, bwd, dy
+
+    # rows 7, 9, 10 at full width on the layer-0 activations
+    w2, b2 = p10k["w_out"].to(bf), p10k["b_out"]
+    seg = torch.as_tensor(p0.block_segment_ids, dtype=torch.int32,
+                          device=dev)
+    ptr = ihk.member_ptr(seg, lp10k.num_members)
+    n_mem = lp10k.num_members
+    width = p0.total_hidden // n_mem
+    hb = h.view(BATCH, n_mem, width).transpose(0, 1)
+    wb2 = w2.view(w2.shape[0], n_mem, width).permute(1, 2, 0)
+    b2b = b2.to(bf)[:, None, :]
+    y = ihk.infer_head_cuda(h, w2, b2, ptr, block=blk)
+    hflops = 2 * BATCH * h.shape[1] * w2.shape[0]
+    rows["infer_head"] = _bf16_fields(
+        "bf16_", lambda: ihk.infer_head_cuda(h, w2, b2, ptr, block=blk),
+        lambda: ihk.infer_head_plain(h, w2, b2, ptr, block=blk),
+        lambda: torch.baddbmm(b2b, hb, wb2), _nbytes(h, w2, b2, ptr, y),
+        hflops, 20, "infer_head_bf16_kernel", f32_out=(0,),
+        label="infer_head bf16")
+    rows["infer_head"].update(_bf16_fields(
+        "bf16_log_probs_",
+        lambda: ihk.infer_head_cuda(h, w2, b2, ptr, block=blk,
+                                    log_probs=True),
+        lambda: ihk.infer_head_plain(h, w2, b2, ptr, block=blk,
+                                     log_probs=True),
+        "no one PyTorch call adds the bias and the log-softmax",
+        _nbytes(h, w2, b2, ptr, y), hflops, 20, "infer_head_bf16_kernel",
+        f32_out=(0,), label="infer_head bf16 log_probs"))
+    tgt = torch.randint(0, lp10k.out_features, (BATCH,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    lh = (h, w2, b2, tgt, ptr)
+    per, dl = lhk.loss_head_fwd_cuda(*lh, block=blk, b_real=BATCH)
+    rows["loss_head_fwd"] = _bf16_fields(
+        "bf16_", partial(lhk.loss_head_fwd_cuda, *lh, block=blk,
+                         b_real=BATCH),
+        partial(lhk.loss_head_fwd_plain, *lh, block=blk, b_real=BATCH),
+        lambda: torch.baddbmm(b2b, hb, wb2), _nbytes(*lh, per, dl), hflops,
+        20, "loss_head_fwd_bf16_kernel", f32_out=(0, 1),
+        label="loss_head_fwd bf16")
+    dper = torch.ones(n_mem, device=dev)
+    lb = (dper, dl, h, w2, seg)
+    dh, dw2 = lhk.loss_head_bwd_cuda(*lb, block=blk)
+    dlm = dl.transpose(0, 1).to(bf)                      # (P, B, O)
+    wm = w2.view(w2.shape[0], n_mem, width).permute(1, 0, 2)
+    rows["loss_head_bwd"] = _bf16_fields(
+        "bf16_", partial(lhk.loss_head_bwd_cuda, *lb, block=blk),
+        partial(lhk.loss_head_bwd_plain, *lb, block=blk),
+        lambda: torch.bmm(dlm, wm), _nbytes(*lb, dh, dw2), 2 * hflops, 20,
+        "loss_head_bwd_bf16_kernel", label="loss_head_bwd bf16")
+    for key in ("infer_head", "loss_head_fwd", "loss_head_bwd"):
+        rows[key]["bf16_path"] = ihk.kernel_path(blk, h, w2)
+    del h, g, dl, dh, dw2, hb, wb2, dlm, wm, x, w, w2
+
+    # rows 4 and 6 at the depth-3 population's mid layers, each fed by the
+    # layer before it
+    q0 = lp3k.layer_pop(0)
+    x3 = torch.randn(BATCH, lp3k.in_features, generator=gen,
+                     device=dev).to(bf)
+    hin = fik.fused_input_cuda(
+        x3, p3k["w_in"].to(bf), p3k["b_in"],
+        torch.as_tensor(q0.hidden_mask, dtype=torch.float32, device=dev),
+        torch.as_tensor(q0.block_act_ids, dtype=torch.int32, device=dev),
+        block=lp3k.block)
+    fwd, bwd_rows = [], []
+    for l in range(lp3k.depth - 1):
+        lay = lp3k.bd_layout(l)
+        pout = lp3k.layer_pop(l + 1)
+        b3 = lay.block
+        wb = torch.cat([pack_weight_tiles(p3k["mid"][l]["w"], lp3k, l),
+                        torch.eye(b3, device=dev)[None]]).to(bf)
+        b_eff = p3k["mid"][l]["b"] * torch.as_tensor(
+            lp3k.active_unit_mask(l + 1), dtype=torch.float32, device=dev)
+        m3 = torch.as_tensor(pout.hidden_mask, dtype=torch.float32,
+                             device=dev)
+        a3 = torch.as_tensor(pout.block_act_ids, dtype=torch.int32,
+                             device=dev)
+        sched = flk.schedule_on(lay, dev)
+        args = (hin, wb, b_eff, m3, a3, *sched)
+        out, g3 = flk.fused_layer_train_cuda(*args, blk=b3)
+        bsr = torch.sparse_bsr_tensor(
+            sched[0], sched[1], wb[sched[2].long()],
+            size=(lay.n_out_tiles * b3, lay.n_in_tiles * b3),
+            check_invariants=True)
+        flops = 2 * BATCH * b3 * b3 * lay.n_steps
+        row = _bf16_fields(
+            "bf16_", partial(flk.fused_layer_cuda, *args, blk=b3),
+            partial(flk.fused_layer_plain, *args, blk=b3),
+            partial(torch.matmul, bsr, hin.t()), _nbytes(*args, out), flops,
+            50, "fused_layer_bf16_group_kernel",
+            label=f"fused_layer bf16 mid layer {l}")
+        row.update(_bf16_fields(
+            "bf16_train_", partial(flk.fused_layer_train_cuda, *args, blk=b3),
+            partial(flk.fused_layer_train_plain, *args, blk=b3),
+            "the f32 row's library call has no bias, activation or g'",
+            _nbytes(*args, out, g3), flops, 50,
+            "fused_layer_bf16_group_kernel",
+            label=f"fused_layer bf16 with g' mid layer {l}"))
+        fwd.append(row)
+        rowptr_t, s_in_t, s_w_t, perm_t, _, _ = flk.schedule_on(
+            lay, dev, transposed=True)
+        wb_t = flk.transposed_tiles(wb, perm_t)
+        dy3 = torch.randn(out.shape, generator=gen, device=dev).to(bf)
+        bargs = (dy3, g3, hin, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
+        dx3, dwb3 = flk.fused_layer_dx_dw_cuda(*bargs, blk=b3)
+        bsr_t = torch.sparse_bsr_tensor(
+            rowptr_t, s_in_t, wb_t[s_w_t.long()],
+            size=(lay.n_in_tiles * b3, lay.n_out_tiles * b3),
+            check_invariants=True)
+        du3 = dy3 * g3
+        bwd_rows.append(_bf16_fields(
+            "bf16_", partial(flk.fused_layer_dx_dw_cuda, *bargs, blk=b3),
+            partial(flk.fused_layer_dx_dw_plain, *bargs, blk=b3),
+            partial(torch.matmul, bsr_t, du3.t()),
+            _nbytes(*bargs, dx3, dwb3), 4 * BATCH * b3 * b3
+            * lay.n_param_blocks, 50, "fused_layer_dx_dw_bf16_kernel",
+            label=f"fused_layer_dx_dw bf16 mid layer {l}"))
+        hin = out
+    rows["fused_layer"] = _sum_fields(fwd)
+    rows["fused_layer_dx_dw"] = _sum_fields(bwd_rows)
+    for key in ("fused_layer", "fused_layer_dx_dw"):
+        rows[key]["bf16_summed_over"] = "the depth-3 population's 2 mid layers"
+    return rows
+
+
+def bf16_path(workdir: Path) -> tuple:
+    """Path 4i: the bf16 compute policy on the fused route.  (i) both
+    phase-3 checkpoints (beside ``workdir``; made as phase 3 makes them
+    where they are missing, when path 4i runs alone: ``chip_smoke.py
+    --bf16 DIR``) served under ``--compute-dtype bfloat16``; (ii)
+    ``parallelmlp-10k`` trained under it; (iii) the depth-3 population
+    under AdamW, a halving rung and ``--serve-publish``; (iv) the bf16
+    instances of the kernel rows (under ``"kernel_rows"``).  Returns (the
+    results, the kernel launches of (i)-(iii))."""
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import (restore_population,
+                                                   save_population)
+    from repro_torch.configs import parallelmlp_10k
+    from repro_torch.core.deep import init_params
+    from repro_torch.launch.train import population_from_flags
+    lp10k = parallelmlp_10k.config().model.layered()
+    lp3k = population_from_flags(DEPTH3["depths"], DEPTH3["acts"],
+                                 DEPTH3["features"],
+                                 repeats=DEPTH3["repeats"])
+    ck10k, ck3k = workdir.parent / "parallelmlp-10k", \
+        workdir.parent / "trainer-depth3"
+    for ck, lp, seed in ((ck10k, lp10k, 0), (ck3k, lp3k, 1)):
+        if not ck.exists():
+            save_population(str(ck), 0, init_params(
+                torch.Generator(device="cuda").manual_seed(seed), lp), lp)
+    x, y = check_batch()
+    n_all = {}
+
+    def count(n):
+        for k, v in n.items():
+            n_all[k] = n_all.get(k, 0) + v
+
+    res = {}
+    for name, ck, lp in (("parallelmlp-10k", ck10k, lp10k),
+                         ("trainer-depth3", ck3k, lp3k)):
+        res[f"serve {name}"], n = serve_bf16(f"bf16 {name}", ck, lp, x)
+        count(n)
+    torch.cuda.empty_cache()
+    res["train parallelmlp-10k"], n = train_bf16_10k(
+        "bf16 parallelmlp-10k", workdir, lp10k, x, y)
+    count(n)
+    torch.cuda.empty_cache()
+    res["train trainer-depth3"], n = depth3_bf16_publish(
+        "bf16 trainer-depth3", workdir)
+    count(n)
+    for name in BF16_KERNELS:
+        _require(n_all.get(name, 0) > 0, f"kernel {name} was not launched "
+                 "on path 4i")
+    torch.cuda.empty_cache()
+    p10k = restore_population(str(ck10k), device="cuda")[0]
+    p3k = restore_population(str(ck3k), device="cuda")[0]
+    rows = bf16_kernel_fields(p10k, lp10k, p3k, lp3k)
+    for counter, row in BF16_ROWS.items():
+        rows[row]["bf16_launches"] = n_all[counter]
+    res["kernel_rows"] = rows
     return res, n_all
 
 
@@ -4102,6 +4736,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # path 4g's own process
     ap.add_argument("--optim", type=Path, default=None,
                     help=argparse.SUPPRESS)   # path 4h's own process
+    ap.add_argument("--bf16", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4i's own process
     args = ap.parse_args()
     try:
         import torch
@@ -4121,7 +4757,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for out, path, key in ((args.lifecycle, lifecycle_path, "lifecycle"),
-                           (args.optim, optim_path, "optim")):
+                           (args.optim, optim_path, "optim"),
+                           (args.bf16, bf16_path, "bf16")):
         if out:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -4237,7 +4874,7 @@ def main() -> int:
               flush=True)
         for name, n in train_n.items():
             _require((n == 0) if name in INT8_KERNELS + UNFUSED_KERNELS
-                     + M3_KERNELS + LM_KERNELS else (n > 0),
+                     + M3_KERNELS + LM_KERNELS + BF16_KERNELS else (n > 0),
                      f"kernel {name} was launched {n} times on the "
                      "training path")
 
@@ -4285,6 +4922,13 @@ def main() -> int:
         optim, optim_n = optim_process(workdir)
         print(f"[optim] path 4h in {time.perf_counter() - t0:.1f} s; "
               f"kernel launches {optim_n}", flush=True)
+        # 4i. the bf16 compute policy on the fused route: both checkpoints
+        # served, the 10k trained, the depth-3 ladder with --serve-publish,
+        # the bf16 instances of the kernel rows
+        t0 = time.perf_counter()
+        bf16, bf16_n, bf16_rows = bf16_process(workdir)
+        print(f"[bf16] path 4i in {time.perf_counter() - t0:.1f} s; "
+              f"kernel launches {bf16_n}", flush=True)
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -4336,6 +4980,8 @@ def main() -> int:
                        unfused_serve_n, unfused_train_n, m3_n, parent)
     for name, fields in block1.items():
         rows[name].update(fields)
+    for name, fields in bf16_rows.items():
+        rows[name].update(fields)
     for field, counts in (("lifecycle_launches", life_n),
                           ("optim_launches", optim_n)):
         for name, n in counts.items():
@@ -4345,7 +4991,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas, parent))
     for row, lib, words in (
-            ("fused_input", "fused_input", ("fused_input_kernel", "float")),
+            ("fused_input", "fused_input", ("fused_input_kernel", ", float,")),
             ("fused_input_int8", "fused_input",
              ("fused_input_kernel", "signed char")),
             ("infer_head", "infer_head", ("infer_head_kernel",)),
@@ -4365,6 +5011,18 @@ def main() -> int:
              ("block_diag_dw_member_kernel",))):
         rows[row]["ptxas"] = {k: v for k, v in ptxas[lib].items()
                               if all(word in k for word in words)}
+    for row, lib, word in (
+            ("fused_input", "fused_input", "__nv_bfloat16"),
+            ("fused_input_bwd", "fused_input_bwd",
+             "fused_input_bwd_bf16_kernel"),
+            ("fused_layer", "fused_layer", "fused_layer_bf16_group_kernel"),
+            ("fused_layer_dx_dw", "fused_layer_dx_dw",
+             "fused_layer_dx_dw_bf16_kernel"),
+            ("infer_head", "infer_head", "infer_head_bf16_kernel"),
+            ("loss_head_fwd", "loss_head", "loss_head_fwd_bf16_kernel"),
+            ("loss_head_bwd", "loss_head", "loss_head_bwd_bf16_kernel")):
+        rows[row]["bf16_ptxas"] = {k: v for k, v in ptxas[lib].items()
+                                   if word in k}
     rows = [rows[name] for name in REPLACES if name in rows]
     _require([r["name"] for r in rows] == list(REPLACES),
              "a ported TPU kernel has no row")
@@ -4388,6 +5046,7 @@ def main() -> int:
                       "train_step": steps,
                       "lifecycle": life,
                       "optim": optim,
+                      "bf16": bf16,
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,

@@ -38,7 +38,18 @@ Serving also runs over the int8 serve copy (``quant.quantize_population``,
 ``forward(infer=True, weights_dtype="int8")``): the same depth+1 launches,
 each an int8-weight twin of its f32 kernel that dequantizes inside its tile
 loop.  ``qparams_from_numpy`` carries the JAX package's int8 tree in.
-Activations are computed in float32 only so far.
+
+``compute_dtype="bfloat16"`` is the mixed-precision policy (DESIGN.md §7),
+with the JAX package's rounding points: the matmul OPERANDS (activations
+and weights) are cast to bf16 at every projection boundary, the kernels
+(or the plain route's matmuls) sum in f32, and the biases, the logits, the
+loss, the f32 master parameters and their gradients stay f32.  On the
+fused route every launch is the kernel's bf16 instance (the same depth+1
+and 2·(depth+1) launches); the plain route (``bd_impl="einsum"``, any
+``m3_impl`` but ``"pallas"``, any ``act_impl``) runs it in plain PyTorch.
+bf16 on the unfused route's kernels (``bd_impl="pallas"``,
+``m3_impl="pallas"``) and over the int8 copy is still to be ported
+(ROADMAP.md, Queue 1 item 6b): ``check_dtypes`` raises for it.
 """
 from __future__ import annotations
 
@@ -48,15 +59,17 @@ import torch
 from repro_torch.core.activations import (ACTIVATIONS,
                                           apply_activations_masked,
                                           apply_activations_sliced)
-from repro_torch.core.m3 import (HEAD_IMPLS, LOSS_IMPLS, m3, m3_infer_head,
-                                 m3_infer_head_int8, m3_loss_head)
+from repro_torch.core.m3 import (HEAD_IMPLS, LOSS_IMPLS, acc_dtype, m3,
+                                 m3_infer_head, m3_infer_head_int8,
+                                 m3_loss_head)
 from repro_torch.core.population import LayeredPopulation
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import layout_tensor as _static
 from repro_torch.quant import abstract_qparams
 
-_NOT_YET = ("the port computes in float32 only so far; the bf16 compute "
-            "policy is still to be ported (ROADMAP.md, Queue 1 item 6)")
+_ITEM_6B = ("is not ported yet: the bf16 compute policy runs on the fused "
+            "kernels and the plain route; the unfused route's kernels and "
+            "the int8 serve copy under it are ROADMAP.md, Queue 1 item 6b")
 
 
 # ---------------------------------------------------------------------- #
@@ -66,15 +79,19 @@ _NOT_YET = ("the port computes in float32 only so far; the bf16 compute "
 def block_diag_einsum(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
                       l: int) -> torch.Tensor:
     """h (B, H_l) → (B, H_{l+1}) as one batched einsum per bucket;
-    pass-through buckets are slice copies."""
+    pass-through buckets are slice copies.  Sums in f32 whatever the
+    operands' dtype and returns h's (JAX: ``preferred_element_type`` f32,
+    then ``astype(h.dtype)``)."""
     b = h.shape[0]
+    acc = acc_dtype(h)
     outs = []
     wi = 0
     for (m0, n, hin, hout, off_in, off_out, real) in lp.proj_buckets(l):
         if real:
             hh = h[:, off_in: off_in + n * hin].reshape(b, n, hin)
-            outs.append(torch.einsum("bnh,noh->bno", hh, w_buckets[wi])
-                        .reshape(b, n * hout))
+            outs.append(torch.einsum("bnh,noh->bno", hh.to(acc),
+                                     w_buckets[wi].to(acc))
+                        .to(h.dtype).reshape(b, n * hout))
             wi += 1
         else:
             outs.append(h[:, off_in: off_in + n * hin])
@@ -117,14 +134,16 @@ def block_diag_fused(h: torch.Tensor, w_buckets, lp: LayeredPopulation,
     activation + padding mask in one kernel launch, with a one-launch
     backward (``ops.fused_layer``; without a gradient to take it runs the
     serving kernel) — returns layer l+1's ACTIVATIONS (callers skip the
-    bias add and ``_act``)."""
+    bias add and ``_act``).  The bias stays f32; the packed tiles follow
+    h's dtype (JAX: ``wb.astype(h.dtype)``)."""
     from repro_torch.kernels.ops import fused_layer
     dev = h.device
     pout = lp.layer_pop(l + 1)
     b_eff = bias * _static(lp, ("active", l + 1), dev,
                            lp.active_unit_mask(l + 1), torch.float32)
     return fused_layer(
-        h, pack_weight_tiles(w_buckets, lp, l), b_eff, lp.bd_layout(l),
+        h, pack_weight_tiles(w_buckets, lp, l).to(h.dtype), b_eff,
+        lp.bd_layout(l),
         _static(lp, ("block_act", l + 1), dev, pout.block_act_ids,
                 torch.int32),
         _static(lp, ("mask", l + 1), dev, pout.hidden_mask, torch.float32))
@@ -165,8 +184,11 @@ FUSED_BD_IMPLS = frozenset(["fused"])
 def input_xla(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
               lp: LayeredPopulation, act_impl: str = "sliced"
               ) -> torch.Tensor:
-    """Input projection as a plain matmul + bias + the per-layer ``_act``."""
-    return _act(lp, 0, x @ w_in.t() + b_in, act_impl)
+    """Input projection as a plain matmul (summed in f32: bf16 operands are
+    widened, as JAX's ``preferred_element_type`` f32) + bias + the
+    per-layer ``_act``."""
+    acc = acc_dtype(x)
+    return _act(lp, 0, x.to(acc) @ w_in.to(acc).t() + b_in, act_impl)
 
 
 def input_fused(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor,
@@ -500,13 +522,41 @@ def _resolve_weights_dtype(weights_dtype):
                      "'int8' has fused-dequant serving kernels")
 
 
-def check_dtypes(compute_dtype=None, weights_dtype=None):
+def resolve_compute_dtype(compute_dtype):
+    """None / "float32" → None (operands as stored, the f32 path);
+    "bfloat16" → ``torch.bfloat16``, the dtype operands are cast to.
+    Parameters, accumulators, loss and evaluation stay f32 regardless.
+    Anything else is a ValueError."""
+    if compute_dtype in (None, "float32", torch.float32):
+        return None
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return torch.bfloat16
+    raise ValueError(f"unsupported compute_dtype {compute_dtype!r} "
+                     "(float32 or bfloat16)")
+
+
+def check_dtypes(compute_dtype=None, weights_dtype=None, bd_impl=None,
+                 m3_impl=None):
     """Reject what the port cannot compute, rather than ignore it →
-    the resolved weights dtype (None or "int8")."""
-    if compute_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(f"compute_dtype={compute_dtype!r}: "
-                                  + _NOT_YET)
-    return _resolve_weights_dtype(weights_dtype)
+    the resolved weights dtype (None or "int8").  Under bf16 compute the
+    unfused route's kernels (``bd_impl="pallas"``, ``m3_impl="pallas"``)
+    and the int8 copy raise ``NotImplementedError`` (Queue 1 item 6b), on
+    any device."""
+    wd = _resolve_weights_dtype(weights_dtype)
+    if resolve_compute_dtype(compute_dtype) is not None:
+        for bad, what in ((wd is not None, "weights_dtype='int8'"),
+                          (bd_impl == "pallas", "bd_impl='pallas'"),
+                          (m3_impl == "pallas", "m3_impl='pallas'")):
+            if bad:
+                raise NotImplementedError(
+                    f"compute_dtype='bfloat16' with {what} " + _ITEM_6B)
+    return wd
+
+
+def _caster(compute_dtype):
+    """The policy's cast of an operand: bf16, or the identity."""
+    cd = resolve_compute_dtype(compute_dtype)
+    return (lambda a: a) if cd is None else (lambda a: a.to(cd))
 
 
 def _hidden_int8(qparams, x, lp: LayeredPopulation, bd_impl: str, in_impl,
@@ -536,23 +586,29 @@ def _hidden(params, x, lp: LayeredPopulation, bd_impl: str = "einsum",
     """Input layer + every mid layer → the last hidden activations.  The
     fused impls run their forward-only kernels when no gradient is taken
     (``kernels/ops.py``); ``weights_dtype="int8"`` (with ``infer=True``)
-    runs the int8 serve copy through their fused-dequant twins."""
+    runs the int8 serve copy through their fused-dequant twins.  Under
+    ``compute_dtype="bfloat16"`` x, h and every weight are cast to bf16 at
+    each projection (JAX's ``cast``); a fused layer returns bf16
+    activations, a plain one adds its f32 bias to the bf16 sum (f32)."""
     if bd_impl.endswith("_int8"):
         raise ValueError(f"bd_impl {bd_impl!r} is the weights_dtype='int8' "
                          "route — request it via weights_dtype, not bd_impl")
-    if check_dtypes(compute_dtype, weights_dtype) is not None:
+    if check_dtypes(compute_dtype, weights_dtype, bd_impl) is not None:
         return _hidden_int8(params, x, lp, bd_impl, in_impl, infer)
     if bd_impl not in BD_IMPLS:
         raise ValueError(f"unknown bd_impl {bd_impl!r} "
                          f"(have {sorted(BD_IMPLS)})")
+    cast = _caster(compute_dtype)
     in_impl = _resolve_in_impl(in_impl, bd_impl)
-    h = IN_IMPLS[in_impl](x, params["w_in"], params["b_in"], lp, act_impl)
+    h = IN_IMPLS[in_impl](cast(x), cast(params["w_in"]), params["b_in"], lp,
+                          act_impl)
     for l in range(lp.depth - 1):
-        wl = params["mid"][l]["w"]
+        hb = cast(h)
+        wl = [cast(w) for w in params["mid"][l]["w"]]
         if bd_impl in FUSED_BD_IMPLS:
-            h = BD_IMPLS[bd_impl](h, wl, lp, l, bias=params["mid"][l]["b"])
+            h = BD_IMPLS[bd_impl](hb, wl, lp, l, bias=params["mid"][l]["b"])
             continue
-        z = BD_IMPLS[bd_impl](h, wl, lp, l)
+        z = BD_IMPLS[bd_impl](hb, wl, lp, l)
         h = z + params["mid"][l]["b"] * _static(
             lp, ("active", l + 1), h.device, lp.active_unit_mask(l + 1),
             torch.float32)
@@ -579,8 +635,12 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
     ``quant.quantize_population`` tree): every projection runs its
     fused-dequant twin and the head ``"fused_int8"``, still depth+1
     launches.  It needs ``infer=True`` and the fused impls;
-    ``"fused_int8"`` serves int8 weights and nothing else."""
+    ``"fused_int8"`` serves int8 weights and nothing else.
+
+    ``compute_dtype="bfloat16"``: the bf16 policy (module docstring); the
+    logits come back f32."""
     int8 = _resolve_weights_dtype(weights_dtype) is not None
+    cast = _caster(compute_dtype)
     h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl,
                 weights_dtype, infer)
     plast = lp.layer_pop(lp.depth - 1)
@@ -606,11 +666,15 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
                             plast.block_segment_ids, torch.int32))
         if head_impl == "fused":
             return m3_infer_head(
-                h, params["w_out"], params["b_out"], plast,
+                cast(h), cast(params["w_out"]), params["b_out"], plast,
                 log_probs=log_probs,
                 seg=_static(lp, "seg_last", h.device,
                             plast.block_segment_ids, torch.int32))
-    y = m3(h, params["w_out"], plast, impl=m3_impl) + params["b_out"][None]
+    check_dtypes(compute_dtype, m3_impl=m3_impl)
+    y = m3(cast(h), cast(params["w_out"]), plast, impl=m3_impl)
+    if y.dtype == torch.bfloat16:
+        y = y.float()
+    y = y + params["b_out"][None]
     return torch.log_softmax(y, dim=-1) if log_probs else y
 
 
@@ -637,12 +701,13 @@ def fused_loss(params, x, targets, lp: LayeredPopulation,
         raise ValueError(f"unknown loss_impl {loss_impl!r} "
                          f"(have {sorted(LOSS_IMPLS)})")
     if loss_impl == "fused":
+        cast = _caster(compute_dtype)
         h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl)
         plast = lp.layer_pop(lp.depth - 1)
-        per = m3_loss_head(h, params["w_out"], params["b_out"], targets,
-                           plast, seg=_static(lp, "seg_last", h.device,
-                                              plast.block_segment_ids,
-                                              torch.int32))
+        per = m3_loss_head(cast(h), cast(params["w_out"]), params["b_out"],
+                           targets, plast,
+                           seg=_static(lp, "seg_last", h.device,
+                                       plast.block_segment_ids, torch.int32))
         return per.sum(), per
     logits = forward(params, x, lp, m3_impl=m3_impl, bd_impl=bd_impl,
                      act_impl=act_impl, compute_dtype=compute_dtype,

@@ -31,32 +31,45 @@ from repro_torch.core.population import Population
 from repro_torch.device import layout_tensor
 
 
+def acc_dtype(t: torch.Tensor) -> torch.dtype:
+    """The accumulator dtype of operands of ``t``'s dtype: f32 for f32 and
+    bf16 (a product of two bf16 values is exact in f32), f64 for f64."""
+    return torch.promote_types(t.dtype, torch.float32)
+
+
 def m3_scatter(h: torch.Tensor, w2: torch.Tensor, pop: Population,
                seg: torch.Tensor | None = None) -> torch.Tensor:
     """The paper's M3: S[b, j, o] = h[b, j]·w2[o, j], scatter-added over j
-    by member.  ``seg``: ``pop.segment_ids`` already on h's device."""
+    by member.  ``seg``: ``pop.segment_ids`` already on h's device.  bf16
+    operands: S in bf16, summed in f32 (JAX ``m3.py:51``) → f32."""
     if seg is None:
         seg = torch.as_tensor(pop.segment_ids, device=h.device)
     y = torch.zeros(h.shape[0], pop.num_members, w2.shape[0],
-                    device=h.device, dtype=torch.float32)
-    return y.index_add_(1, seg.long(), h[:, :, None] * w2.t()[None])
+                    device=h.device, dtype=acc_dtype(h))
+    return y.index_add_(1, seg.long(),
+                        (h[:, :, None] * w2.t()[None]).to(y.dtype))
 
 
 def m3_onehot(h: torch.Tensor, w2: torch.Tensor, pop: Population
               ) -> torch.Tensor:
     """y[b, m, o] = Σ_j h[b, j]·w2[o, j]·sel[j, m] with sel the one-hot
-    member selector (H, P) — plain PyTorch, not a kernel."""
+    member selector (H, P) — plain PyTorch, not a kernel.  Summed in f32
+    whatever the operands' dtype (JAX: ``preferred_element_type``)."""
+    acc = acc_dtype(h)
     sel = torch.nn.functional.one_hot(
         torch.as_tensor(pop.segment_ids, device=h.device).long(),
-        pop.num_members).to(h.dtype)
-    return torch.einsum("bj,oj,jm->bmo", h, w2, sel)
+        pop.num_members).to(acc)
+    return torch.einsum("bj,oj,jm->bmo", h.to(acc), w2.to(acc), sel)
 
 
 def m3_bucketed(h: torch.Tensor, w2: torch.Tensor, pop: Population
                 ) -> torch.Tensor:
     """Reshape each equal-size run of members to (B, n, hs) and
-    batched-matmul against (n, O, hs)."""
+    batched-matmul against (n, O, hs), summed in f32 whatever the operands'
+    dtype (JAX: ``preferred_element_type``)."""
     b, o = h.shape[0], w2.shape[0]
+    acc = acc_dtype(h)
+    h, w2 = h.to(acc), w2.to(acc)
     pieces = []
     for (m0, n, hs, col0) in pop.size_buckets():
         hh = h[:, col0: col0 + n * hs].reshape(b, n, hs)

@@ -119,6 +119,26 @@ def check_tensors(where: str, ref, *named):
                              f"got {t.dtype}")
 
 
+def operand_suffix(where: str, t) -> str:
+    """The C entry's suffix by the operands' dtype: ``"f32"``, or ``"bf16"``
+    (the bf16 compute policy's instance); anything else raises."""
+    import torch
+    if t.dtype == torch.float32:
+        return "f32"
+    if t.dtype == torch.bfloat16:
+        return "bf16"
+    raise ValueError(f"{where}: no instance for {t.dtype} operands "
+                     "(float32 or bfloat16)")
+
+
+def count(counters: dict, name: str, dtype) -> None:
+    """Add one launch to a kernel module's counter ``name`` (``counters``:
+    its ``globals()`` or ``vars(module)``) or, for bf16 operands, to its
+    ``bf16_`` twin."""
+    import torch
+    counters[("bf16_" + name) if dtype == torch.bfloat16 else name] += 1
+
+
 def check(rc: int, name: str):
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if rc != 0:

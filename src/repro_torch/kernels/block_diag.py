@@ -230,11 +230,15 @@ def fwd_path(x, wb, y, g=None) -> str:
     a multiple of 4, x, y (and g') start on a 16-byte boundary and the
     tiles wb on a 16-byte one, or int8 tiles on a 4-byte one (x and f32
     tiles come in 16-byte copies, int8 tiles 4 bytes a copy, a lane's
-    outputs leave in 16-byte stores), else ``"scalar"``.
-    ``csrc/block_diag_core.cuh::launch_groups`` applies the same rule."""
-    align = 4 if wb.dtype == torch.int8 else 16
+    outputs leave in 16-byte stores; under the bf16 policy x, the tiles, y
+    and g' on 8-byte boundaries, 4 values a load or a store), else
+    ``"scalar"``.  ``csrc/block_diag_core.cuh::launch_groups`` applies the
+    same rule."""
+    bf16 = x.dtype == torch.bfloat16
+    align = 4 if wb.dtype == torch.int8 else 8 if bf16 else 16
     vec = wb.shape[-1] % 4 == 0 and wb.data_ptr() % align == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (x, y, g) if t is not None)
+        t.data_ptr() % (8 if bf16 else 16) == 0
+        for t in (x, y, g) if t is not None)
     return "vec4" if vec else "scalar"
 
 

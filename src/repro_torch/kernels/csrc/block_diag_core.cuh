@@ -3,9 +3,10 @@
 //   u[:, o] = Σ_{steps s of CSR row o} x[:, s_in[s]] · wb[s_w[s]]ᵀ
 // walked by the groups of block_diag.py::fwd_groups, one warp a group, with
 // the tiles read through a weight policy (F32W: f32 tiles; I8W: int8 tiles
-// and one f32 scale a tile, each weight formed as (float)q · scale) and u
-// handed to an epilogue policy (u stored as it is, or bias, activation,
-// mask and g').
+// and one f32 scale a tile, each weight formed as (float)q · scale; BF16W:
+// the bf16 compute policy, bf16 x and tiles widened to f32 as they are
+// staged) and u handed to an epilogue policy (u stored as it is, or bias,
+// activation, mask and g').
 //
 // A group (row0, nr, u0, nu, L, diag, s0) is nr consecutive CSR rows of L
 // steps each, from step s0 on, and their output units [u0, u0 + nu):
@@ -46,7 +47,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace bdcore {
+
+using bf16x::bf16;
 
 constexpr int WARPS = 4;              // warps a CTA, each on its own group
 constexpr int THREADS = 32 * WARPS;
@@ -91,6 +96,10 @@ struct Args {
   int B, in_w, out_w, blk, n_groups;
   const int8_t* wq = nullptr;      // I8W: the int8 tiles (wb unused)
   const float* wscale = nullptr;   // I8W: one scale a tile
+  const bf16* xh = nullptr;        // BF16W: x and the tiles (x, wb unused)
+  const bf16* wh = nullptr;
+  bf16* yh = nullptr;              // a bf16 epilogue's y and g' (y, g unused)
+  bf16* gh = nullptr;
 };
 
 // a group as its warp holds it (the table's row, packed): bits = nr | nu << 3
@@ -189,8 +198,14 @@ __device__ __forceinline__ int col_row(int nu, int col_group, int& ub) {
 // step) of its tile row, and how the landed stage becomes f32 slots
 // (row_first: the column's group row where the piece is the first of its
 // step in the chunk and the column its row's first, else −1).
-// F32W copies the f32 tile row as it is.
+// copy_x stages V deep of x's row from element `at` at `dst` (f32 slots).
+// F32W copies the f32 tile row and x as they are.
 struct F32W {
+  template <int V>
+  __device__ __forceinline__ static void copy_x(const Args& a, float* dst,
+                                                size_t at) {
+    cp_async<V, false>(dst, a.x + at);
+  }
   template <int V>
   __device__ __forceinline__ static void copy(const Args& a, float* ws,
                                               const Chunk& h, int n, int q,
@@ -216,6 +231,11 @@ struct F32W {
 struct I8W {
   __device__ __forceinline__ static int bytes_words(int kc) {
     return kc / 4 + 1;
+  }
+  template <int V>
+  __device__ __forceinline__ static void copy_x(const Args& a, float* dst,
+                                                size_t at) {
+    cp_async<V, false>(dst, a.x + at);
   }
   template <int V>
   __device__ __forceinline__ static void copy(const Args& a, float* ws,
@@ -276,6 +296,35 @@ struct I8W {
 };
 static_assert(NG * CG == 32, "I8W::land converts a column slot a lane");
 
+// BF16W: the bf16 compute policy.  x and the tiles are bf16; each piece is
+// loaded (8 bytes at V = 4, one value else) and widened into the stage's
+// f32 slots as it is issued — a load and a store, not a cp.async, so the
+// copy is not in flight behind the other stage's product — and the f32
+// product runs as over f32 tiles (a widened bf16 value is exact).
+struct BF16W {
+  template <int V>
+  __device__ __forceinline__ static void widen_to(float* dst, const bf16* p) {
+    if constexpr (V == 4)
+      *reinterpret_cast<float4*>(dst) = bf16x::ldg4(p);
+    else
+      *dst = __bfloat162float(*p);
+  }
+  template <int V>
+  __device__ __forceinline__ static void copy_x(const Args& a, float* dst,
+                                                size_t at) {
+    widen_to<V>(dst, a.xh + at);
+  }
+  template <int V>
+  __device__ __forceinline__ static void copy(const Args& a, float* ws,
+                                              const Chunk& h, int n, int q,
+                                              size_t at, int, int, int) {
+    widen_to<V>(ws + n * h.ld + q * V, a.wh + at);
+  }
+  template <int V>
+  __device__ __forceinline__ static void land(const Args&, const Chunk&,
+                                              int, float*, int) {}
+};
+
 // one chunk's copies, spread over the warp: lane l copies piece
 // q = l mod npp (V floats deep) of rows l / npp, l / npp + 32 / npp, …,
 // each tile's index read from s_in or s_w.  x streams through L2; the tiles come through L1, because the
@@ -306,9 +355,9 @@ __device__ void issue(const Packed& g, int bt, int c, const Args& a,
     const int pn = i / BT, b = i - pn * BT;
     if (b >= h.nb) continue;
     const int tile = diag ? __ldg(a.s_in + g.s0 + pn) : x_tile;
-    cp_async<V, false>(
-        slot + i * h.ld + q * V,
-        a.x + (size_t)(h.b0 + b) * a.in_w + (size_t)tile * blk + kk);
+    Wt::template copy_x<V>(
+        a, slot + i * h.ld + q * V,
+        (size_t)(h.b0 + b) * a.in_w + (size_t)tile * blk + kk);
   }
   float* ws = slot + h.panels * BT * h.ld;
   const int js = j - (diag ? 0 : h.k0 / blk);  // the step in the chunk
@@ -456,8 +505,9 @@ inline bool aligned16(const void* p) {
 
 // Launch `vec4` or `scalar` (the rule of block_diag.py::fwd_path: a block
 // that is a multiple of 4, x, y and g' on 16-byte boundaries, and the f32
-// tiles wb on a 16-byte boundary or the int8 tiles wq on a 4-byte one),
-// one warp a group.
+// tiles wb on a 16-byte boundary or the int8 tiles wq on a 4-byte one;
+// under the bf16 policy x, the tiles, y and g' on 8-byte boundaries), one
+// warp a group.
 inline int launch_groups(const void* vec4, const void* scalar, Args a,
                          void* stream) {
   if (a.blk <= 0 || a.blk > MAX_BLK || a.B < 0 || a.n_groups < 0)
@@ -468,11 +518,18 @@ inline int launch_groups(const void* vec4, const void* scalar, Args a,
   a.in_w *= a.blk;
   a.out_w *= a.blk;
   if (a.B == 0 || a.n_groups == 0) return 0;
-  const bool w_ok = a.wq != nullptr
+  using bf16x::aligned8;
+  const bool bf = a.xh != nullptr;
+  const bool w_ok = bf ? aligned8(a.wh)
+                    : a.wq != nullptr
                         ? reinterpret_cast<uintptr_t>(a.wq) % 4 == 0
                         : aligned16(a.wb);
-  const bool v4 = a.blk % 4 == 0 && aligned16(a.x) && w_ok &&
-                  aligned16(a.y) && (a.g == nullptr || aligned16(a.g));
+  const bool v4 =
+      a.blk % 4 == 0 && w_ok &&
+      (bf ? aligned8(a.xh) && aligned8(a.yh) &&
+                (a.gh == nullptr || aligned8(a.gh))
+          : aligned16(a.x) && aligned16(a.y) &&
+                (a.g == nullptr || aligned16(a.g)));
   const void* kernel = v4 ? vec4 : scalar;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);

@@ -14,6 +14,18 @@
 // (B, F) and the kernel reads only the first F bytes of each weight row.
 // Each hidden row block of `block` rows has one f32 scale (H / block,).
 //
+// Under the bf16 compute policy (DESIGN.md §7) the same template with bf16
+// weights replaces fused_input_fwd on bf16 operands (fused_input_infer_bf16
+// and fused_input_train_bf16 here): x and W bf16, y and g' bf16, each
+// rounded once from its f32 value; the bias, the mask and every sum f32.
+// x is widened into the same f32 shared rows; W crosses memory and the
+// ring as bf16 (half the bytes), 4 values an 8-byte cp.async, widened in
+// registers as a thread loads its 8 units' weights (a bf16 row of F = 100
+// is 200 bytes, 8-byte aligned, so the vec4 instance takes it without a
+// padded copy); y and g' leave 4 values an 8-byte store.  Bound at 10k,
+// B 32: 348 MB of bytes, 0.10 ms (g' 0.13); the FMA loop, unchanged, is
+// what sets its time.
+//
 // x (B, F), W (H, F), b and mask (H,) f32, act ids one per population block
 // (H / block,) int32 → y (B, H) f32 [and g' (B, H) f32].  The
 // pre-activation z never reaches device memory: the bias, the block's
@@ -88,8 +100,11 @@
 #include <cuda_runtime.h>
 
 #include "activations.cuh"
+#include "bf16.cuh"
 
 namespace {
+
+using bf16x::bf16;
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -164,6 +179,15 @@ inline Plan make_plan(int B, int F, int H, int block, int w_size) {
   return p;
 }
 
+// The activations' type of an instance: bf16 with bf16 weights (the
+// compute policy casts both operands), else f32
+template <typename W>
+using Act = typename std::conditional<std::is_same<W, bf16>::value, bf16,
+                                      float>::type;
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
 // ---- copies ------------------------------------------------------------
 
 template <int BYTES>
@@ -171,6 +195,9 @@ __device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src) : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
                  "l"(src) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
@@ -185,15 +212,29 @@ __device__ __forceinline__ void cp_async_wait_ring() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(STAGES - 2) : "memory");
 }
 
-// VEC elements from global to shared memory: a cp.async of 16 or 4 bytes,
-// or (one int8) a load and a store
+// VEC elements from global to shared memory: a cp.async of 16, 8 or 4
+// bytes, or (one int8, one bf16) a load and a store
 template <int VEC, typename W>
 __device__ __forceinline__ void copy_elems(W* dst, const W* src) {
   constexpr int BYTES = VEC * (int)sizeof(W);
-  if constexpr (BYTES == 16 || BYTES == 4)
+  if constexpr (BYTES == 16 || BYTES == 8 || BYTES == 4)
     cp_async<BYTES>(dst, src);
+  else if constexpr (std::is_same<W, bf16>::value)
+    *dst = *src;
   else
     *dst = __ldg(src);
+}
+
+// VEC bf16 activations from global memory, widened into f32 shared slots
+// (a load and a store: the stage holds x as f32 whatever its type)
+template <int VEC>
+__device__ __forceinline__ void copy_elems_widened(float* dst,
+                                                   const bf16* src) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) = bf16x::ldg4(src);
+  } else {
+    *dst = __bfloat162float(*src);
+  }
 }
 
 // A warp's copy of rows 0 … nr − 1 of per_row groups of VEC elements:
@@ -215,13 +256,24 @@ __device__ __forceinline__ void copy_rows(int nr, int per_row, int lane,
 // ---- the weight policies ----------------------------------------------
 
 // a thread's U units' weights at features k … k + 3 (row[j] the unit's
-// shared row), as f32: stored f32 as they are; int8 as (float)q · s[j]
+// shared row), as f32: stored f32 as they are; bf16 widened (one 8-byte
+// load); int8 as (float)q · s[j]
 __device__ __forceinline__ void weights4(float (&wv)[U][4],
                                          const float* const (&row)[U],
                                          const float (&)[U], int k) {
 #pragma unroll
   for (int j = 0; j < U; ++j) {
     const float4 t = *reinterpret_cast<const float4*>(row[j] + k);
+    wv[j][0] = t.x; wv[j][1] = t.y; wv[j][2] = t.z; wv[j][3] = t.w;
+  }
+}
+
+__device__ __forceinline__ void weights4(float (&wv)[U][4],
+                                         const bf16* const (&row)[U],
+                                         const float (&)[U], int k) {
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const float4 t = bf16x::load4(row[j] + k);
     wv[j][0] = t.x; wv[j][1] = t.y; wv[j][2] = t.z; wv[j][3] = t.w;
   }
 }
@@ -247,6 +299,9 @@ __device__ __forceinline__ float weight1(const float* row, float, int k) {
 }
 __device__ __forceinline__ float weight1(const int8_t* row, float s, int k) {
   return (float)row[k] * s;
+}
+__device__ __forceinline__ float weight1(const bf16* row, float, int k) {
+  return __bfloat162float(row[k]);
 }
 
 // acc[i][j] += Σ_k x[row 4i, k] · w[unit j, k] over the span's nk
@@ -309,11 +364,11 @@ struct Units {
 // the warp tile's units h0 … < H.  ID ≥ 0: every unit takes activation ID;
 // else each its own (ids[32 · j]: this lane's unit j).  Every lane of the
 // warp calls it.
-template <int ID, int VEC, bool DERIV>
+template <int ID, int VEC, bool DERIV, typename X>
 __device__ __forceinline__ void out_rows(int n, const Units& un, float* zb,
                                          float* dz, const int* ids,
-                                         float* __restrict__ y,
-                                         float* __restrict__ g, int b0,
+                                         X* __restrict__ y,
+                                         X* __restrict__ g, int b0,
                                          int B, int H, int h0, int ug,
                                          bool contig) {
 #pragma unroll 1
@@ -333,19 +388,30 @@ __device__ __forceinline__ void out_rows(int n, const Units& un, float* zb,
 #pragma unroll
     for (int pass = 0; pass < (DERIV ? 2 : 1); ++pass) {
       const float* src = pass ? dz : zr;
-      float* out = pass ? g : y;
+      X* out = pass ? g : y;
       float v[U];
 #pragma unroll
       for (int e = 0; e < U; ++e)  // unit U · ug + e of the tile
         v[e] = (contig ? src[8 * e + ug] : src[8 * ug + e]) * un.mo[e];
       if (b < B) {
-        if constexpr (VEC == 4) {
+        if constexpr (VEC == 4 && std::is_same<X, bf16>::value) {
+          // bf16: 4 values packed in an 8-byte store
+#pragma unroll
+          for (int c = 0; c < U / 4; ++c)
+            if (4 * c < left)
+              bf16x::store4<true>(out + at + 4 * c, v[4 * c], v[4 * c + 1],
+                                  v[4 * c + 2], v[4 * c + 3]);
+        } else if constexpr (VEC == 4) {
 #pragma unroll
           for (int c = 0; c < U / 4; ++c)
             if (4 * c < left)
               __stcs(reinterpret_cast<float4*>(out + at + 4 * c),
                      make_float4(v[4 * c], v[4 * c + 1], v[4 * c + 2],
                                  v[4 * c + 3]));
+        } else if constexpr (std::is_same<X, bf16>::value) {
+#pragma unroll
+          for (int e = 0; e < U; ++e)
+            if (e < left) bf16x::store1<true>(out + at + e, v[e]);
         } else {
 #pragma unroll
           for (int e = 0; e < U; ++e)
@@ -359,13 +425,13 @@ __device__ __forceinline__ void out_rows(int n, const Units& un, float* zb,
 
 // The epilogue of a batch tile: z to the warp's z tile, then out_rows with
 // the activation chosen once where all the warp's units share one.
-template <int VEC, bool DERIV, int RB>
+template <int VEC, bool DERIV, int RB, typename X>
 __device__ __forceinline__ void epilogue(const float (&acc)[RB][U],
                                          const Units& un, bool one_id,
                                          float* zb, float* dz,
                                          const int* ids,
-                                         float* __restrict__ y,
-                                         float* __restrict__ g, int bt0,
+                                         X* __restrict__ y,
+                                         X* __restrict__ g, int bt0,
                                          int bg, int B, int H, int h0,
                                          int ug, bool contig) {
 #pragma unroll
@@ -395,20 +461,23 @@ __device__ __forceinline__ void epilogue(const float (&acc)[RB][U],
                            contig);
 }
 
-// W is float (w_scale unused, ldw = F) or int8_t (w_scale one f32 per row
-// block, ldw = F_pad the row stride).  VEC first, so the name the profiler
-// records begins with the instance: fused_input_kernel<4, …> or <1, …>.
+// W is float (w_scale unused, ldw = F), bf16 (the compute policy: x, y
+// and g' bf16 too, Act<W>; w_scale unused, ldw = F) or int8_t (w_scale one
+// f32 per row block, ldw = F_pad the row stride).  VEC first, so the name
+// the profiler records begins with the instance: fused_input_kernel<4, …>
+// or <1, …>.
 template <int VEC, typename W, bool DERIV, int RB>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_input_kernel(const float* __restrict__ x, const W* __restrict__ w,
+fused_input_kernel(const Act<W>* __restrict__ x, const W* __restrict__ w,
                    const float* __restrict__ w_scale, int ldw,
                    const float* __restrict__ bias,
                    const float* __restrict__ mask,
-                   const int* __restrict__ act_ids, float* __restrict__ y,
-                   float* __restrict__ g, int B, int F, int H, int block,
+                   const int* __restrict__ act_ids, Act<W>* __restrict__ y,
+                   Act<W>* __restrict__ g, int B, int F, int H, int block,
                    Plan p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool INT8 = std::is_same<W, int8_t>::value;
+  constexpr bool BF16 = std::is_same<W, bf16>::value;
   const int t = threadIdx.x;
   const int lane = t % 32, warp = t / 32;
   const int bg = lane / 8, ug = lane % 8;  // batch group, unit group
@@ -419,7 +488,7 @@ fused_input_kernel(const float* __restrict__ x, const W* __restrict__ w,
     const int n = p.n_bt * p.bt * F;
     for (int i = t; i < n; i += THREADS) {
       const int b = i / F, k = i - b * F;
-      xres[b * p.sx + k] = b < B ? x[(size_t)b * F + k] : 0.f;
+      xres[b * p.sx + k] = b < B ? widen(x[(size_t)b * F + k]) : 0.f;
     }
     __syncthreads();
   }
@@ -468,10 +537,23 @@ fused_input_kernel(const float* __restrict__ x, const W* __restrict__ w,
       if (!p.resident) {
         float* xs = reinterpret_cast<float*>(st + p.w_bytes);
         const int b0 = bt * p.bt;
-        copy_rows<VEC, float>(
-            min(p.bt, B - b0), per_row, lane,
-            [&](int r) { return xs + r * p.sx; },
-            [&](int r) { return x + (size_t)(b0 + r) * F + k0; });
+        if constexpr (BF16) {  // widened on the way: loads and stores
+          int r = lane / per_row, c = lane - r * per_row;
+          const int nr = min(p.bt, B - b0);
+          const int dr = 32 / per_row, dc = 32 - dr * per_row;
+          while (r < nr) {
+            copy_elems_widened<VEC>(xs + r * p.sx + c * VEC,
+                                    x + (size_t)(b0 + r) * F + k0 + c * VEC);
+            r += dr;
+            c += dc;
+            if (c >= per_row) { c -= per_row; ++r; }
+          }
+        } else {
+          copy_rows<VEC, float>(
+              min(p.bt, B - b0), per_row, lane,
+              [&](int r) { return xs + r * p.sx; },
+              [&](int r) { return x + (size_t)(b0 + r) * F + k0; });
+        }
       }
     }
     cp_async_commit();
@@ -550,10 +632,10 @@ bool aligned16(const void* p) {
 // one instance's launch: as many CTAs as fit the card at once, at most one
 // per 8 warp tiles
 template <int VEC, typename W, bool DERIV, int RB>
-int launch_instance(const Plan& p, const float* x, const W* w,
+int launch_instance(const Plan& p, const Act<W>* x, const W* w,
                     const float* w_scale, int ldw, const float* bias,
-                    const float* mask, const int* act_ids, float* y,
-                    float* g, int B, int F, int H, int block,
+                    const float* mask, const int* act_ids, Act<W>* y,
+                    Act<W>* g, int B, int F, int H, int block,
                     cudaStream_t stream) {
   auto kernel = fused_input_kernel<VEC, W, DERIV, RB>;
   static bool opted_in = false;
@@ -583,9 +665,9 @@ int launch_instance(const Plan& p, const float* x, const W* w,
 }
 
 template <int VEC, typename W, bool DERIV>
-int launch_rows(const Plan& p, const float* x, const W* w,
+int launch_rows(const Plan& p, const Act<W>* x, const W* w,
                 const float* w_scale, int ldw, const float* bias,
-                const float* mask, const int* act_ids, float* y, float* g,
+                const float* mask, const int* act_ids, Act<W>* y, Act<W>* g,
                 int B, int F, int H, int block, cudaStream_t stream) {
   switch (p.rb) {
     case 1:
@@ -608,20 +690,23 @@ int launch_rows(const Plan& p, const float* x, const W* w,
 }
 
 // The vec4 instance where F, H and the weight row stride are multiples of
-// 4 and x, W, y and g' start on a 16-byte boundary (fwd_path() in
-// fused_input.py), else the scalar one.
+// 4 and x, W, y and g' start on a 16-byte boundary — an 8-byte one for
+// bf16, whose 4 values a copy are 8 bytes (fwd_path() in fused_input.py) —
+// else the scalar one.
 template <typename W, bool DERIV>
-int launch(const float* x, const W* w, const float* w_scale, int ldw,
-           const float* bias, const float* mask, const int* act_ids, float* y,
-           float* g, int B, int F, int H, int block, void* stream) {
+int launch(const Act<W>* x, const W* w, const float* w_scale, int ldw,
+           const float* bias, const float* mask, const int* act_ids,
+           Act<W>* y, Act<W>* g, int B, int F, int H, int block,
+           void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (F <= 0 || block <= 0 || ldw < F) return (int)cudaErrorInvalidValue;
   if ((long long)B * F > INT_MAX) return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(B, F, H, block, (int)sizeof(W));
   const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = F % 4 == 0 && H % 4 == 0 && ldw % 4 == 0 &&
-                   aligned16(x) && aligned16(w) && aligned16(y) &&
-                   (g == nullptr || aligned16(g));
+  const auto al = std::is_same<W, bf16>::value ? bf16x::aligned8
+                                               : aligned16;
+  const bool vec = F % 4 == 0 && H % 4 == 0 && ldw % 4 == 0 && al(x) &&
+                   al(w) && al(y) && (g == nullptr || al(g));
   return (vec ? launch_rows<4, W, DERIV> : launch_rows<1, W, DERIV>)(
       p, x, w, w_scale, ldw, bias, mask, act_ids, y, g, B, F, H, block, s);
 }
@@ -643,6 +728,25 @@ extern "C" int fused_input_train_f32(const float* x, const float* w,
                                      void* stream) {
   return launch<float, true>(x, w, nullptr, F, bias, mask, act_ids, y, g, B,
                              F, H, block, stream);
+}
+
+// The bf16 compute policy: x (B, F), w (H, F) bf16, bias and mask f32 →
+// y [and g'] (B, H) bf16, each rounded once from its f32 value.
+extern "C" int fused_input_infer_bf16(const bf16* x, const bf16* w,
+                                      const float* bias, const float* mask,
+                                      const int* act_ids, bf16* y, int B,
+                                      int F, int H, int block, void* stream) {
+  return launch<bf16, false>(x, w, nullptr, F, bias, mask, act_ids, y,
+                             nullptr, B, F, H, block, stream);
+}
+
+extern "C" int fused_input_train_bf16(const bf16* x, const bf16* w,
+                                      const float* bias, const float* mask,
+                                      const int* act_ids, bf16* y, bf16* g,
+                                      int B, int F, int H, int block,
+                                      void* stream) {
+  return launch<bf16, true>(x, w, nullptr, F, bias, mask, act_ids, y, g, B,
+                            F, H, block, stream);
 }
 
 // x (B, F) f32, w_q (H, F_pad) int8, w_scale (H / block,) f32.

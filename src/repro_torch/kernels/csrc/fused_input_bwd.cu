@@ -47,6 +47,14 @@
 //     Its CTAs follow role A's in the grid.
 // No floating-point atomics: a step is bitwise reproducible.
 //
+// Under the bf16 compute policy the same body replaces fused_input_bwd on
+// bf16 operands (fused_input_bwd_bf16 here, kernel fused_input_bwd_bf16_
+// kernel): dy, g', x and W bf16; du = dy · g' rounded to bf16, as the TPU
+// kernel multiplies two bf16 tiles; dW (and dx) rounded once from their
+// f32 sums.  A stage holds dy and g' as bf16 (4 values an 8-byte
+// cp.async); past one 32-row batch chunk dW's running sums live in an f32
+// scratch the wrapper allocates.  Bound at 10k, B 32: 420 MB, 0.125 ms.
+//
 // Left for later: role A reaches about two thirds of its byte bound at F =
 // 100.  Its registers are held to 128 (two CTAs an SM, which role B's 256
 // CTAs need for one wave in the same launch), so a thread takes 2 features
@@ -57,8 +65,13 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
+
+#include "bf16.cuh"
 
 namespace {
+
+using bf16x::bf16;
 
 constexpr int THREADS = 256;
 // role A (dW)
@@ -107,14 +120,28 @@ __host__ __device__ inline int smem_floats(int rows) {
 }
 
 template <int BYTES>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (BYTES == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
                  "l"(src) : "memory");
+  else if constexpr (BYTES == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src) : "memory");
   else
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
                  "l"(src) : "memory");
+}
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(bf16 v) { return __bfloat162float(v); }
+
+// du = dy · g' as the replaced kernel forms it: f32 as it is; from bf16
+// tiles the product of two bf16 values, itself a bf16 value (rounded to
+// nearest even; repro/kernels/fused_input.py:216)
+__device__ __forceinline__ float du_of(float d, float g) { return d * g; }
+__device__ __forceinline__ float du_of(bf16 d, bf16 g) {
+  return bf16x::round_bf16(__bfloat162float(d) * __bfloat162float(g));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -143,6 +170,19 @@ __device__ __forceinline__ void load_f(float (&v)[FPT],
   }
 }
 
+// bf16 x: one 4-byte load of the pair at VEC = 4, else two 2-byte ones
+template <int VEC>
+__device__ __forceinline__ void load_f(float (&v)[FPT],
+                                       const bf16* __restrict__ p, int n) {
+  if constexpr (VEC == 4) {
+    const float2 t = bf16x::load2(p);
+    v[0] = t.x; v[1] = t.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < FPT; ++i) v[i] = i < n ? widen(p[i]) : 0.f;
+  }
+}
+
 // a dW store that is not read again here: evict-first; past the first
 // batch chunk the chunk's sum is added to the thread's own earlier store
 template <int VEC>
@@ -161,16 +201,45 @@ __device__ __forceinline__ void store_f(float* __restrict__ p,
   }
 }
 
+// bf16 dW: the f32 sum rounded once.  Past one batch chunk the chunks'
+// sums run in the f32 scratch dws as the f32 instance runs them in dW
+// (each added to the thread's own earlier store, in chunk order), and the
+// last chunk's total is rounded into dW.
+template <int VEC>
+__device__ __forceinline__ void store_f(bf16* __restrict__ p,
+                                        float* __restrict__ ws,
+                                        float (&v)[FPT], int n, bool add,
+                                        bool last) {
+  if (!last) {
+    store_f<VEC>(ws, v, n, add);
+    return;
+  }
+  if (add) {
+#pragma unroll
+    for (int i = 0; i < FPT; ++i)
+      if (i < n) v[i] = __ldcg(ws + i) + v[i];
+  }
+  if constexpr (VEC == 4) {
+    __stcs(reinterpret_cast<unsigned*>(p), bf16x::pack2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < FPT; ++i)
+      if (i < n) bf16x::store1<true>(p + i, v[i]);
+  }
+}
+
 // A thread's ROWS_PER_LANE rows rl, rl + nrl, ... of a stage at features
 // f0 … f0 + FPT − 1: each sum over the stage's nb batch rows in ascending
 // order (FULL: nb == AB, no check), ROWS_AT_ONCE rows side by side, then
-// stored (added to the earlier chunks' sum where `add`).
-template <bool FULL, int VEC>
+// stored (added to the earlier chunks' sum where `add`; a bf16 dW through
+// its f32 scratch dws until the `last` chunk).
+template <bool FULL, int VEC, typename T>
 __device__ __forceinline__ void row_sums(const float* du_cur,
                                          const float (&xr)[AB][FPT], int rl,
                                          int nrl, int nb, int nr,
-                                         long long h0, float* __restrict__ dw,
-                                         int F, int f0, bool add) {
+                                         long long h0, T* __restrict__ dw,
+                                         float* __restrict__ dws, int F,
+                                         int f0, bool add, bool last) {
 #pragma unroll 1
   for (int k = 0; k < ROWS_PER_LANE; k += ROWS_AT_ONCE) {
     const float* d[ROWS_AT_ONCE];
@@ -213,19 +282,27 @@ __device__ __forceinline__ void row_sums(const float* du_cur,
 #pragma unroll
     for (int j = 0; j < ROWS_AT_ONCE; ++j) {
       const int r = rl + (k + j) * nrl;
-      if (r < nr)
-        store_f<VEC>(dw + (size_t)(h0 + r) * F + f0, acc[j], F - f0, add);
+      if (r < nr) {
+        const size_t at = (size_t)(h0 + r) * F + f0;
+        if constexpr (std::is_same<T, bf16>::value)
+          store_f<VEC>(dw + at, dws + at, acc[j], F - f0, add, last);
+        else
+          store_f<VEC>(dw + at, acc[j], F - f0, add);
+      }
     }
   }
 }
 
 // Role A: this CTA's tasks blockIdx.x, blockIdx.x + n_ctas, ..., each in
 // n_chunks stages of AB batch rows.
-template <int VEC>
-__device__ __forceinline__ void dw_role(const float* __restrict__ dy,
-                                        const float* __restrict__ g,
-                                        const float* __restrict__ x,
-                                        float* __restrict__ dw, int B, int F,
+// T: the operands' type, float or bf16 (a bf16 stage holds dy and g' as
+// they are, in the first half of its f32 buffer: 4 values an 8-byte copy).
+template <int VEC, typename T>
+__device__ __forceinline__ void dw_role(const T* __restrict__ dy,
+                                        const T* __restrict__ g,
+                                        const T* __restrict__ x,
+                                        T* __restrict__ dw,
+                                        float* __restrict__ dws, int B, int F,
                                         int H, int n_ctas, float* smem) {
   const DwShape sh = dw_shape(B, F, H);
   const int rows = sh.rows;
@@ -251,13 +328,17 @@ __device__ __forceinline__ void dw_role(const float* __restrict__ dy,
       const int nb = min(AB, B - b0);
       const int per_b = (int)min((long long)rows, H - h0) / VEC;
       const int dq = THREADS / per_b, dv = THREADS - dq * per_b;
-      float* dst = smem + (s % STAGES) * 2 * AB * rows;
+      T* dst = reinterpret_cast<T*>(smem + (s % STAGES) * 2 * AB * rows);
       int q = t / per_b, v = t - q * per_b;
       while (q < 2 * nb) {
         const int which = q >= nb, b = q - which * nb;
-        cp_async<4 * VEC>(dst + (which * AB + b) * rows + v * VEC,
-                          (which ? g : dy) + (size_t)(b0 + b) * H + h0 +
-                              v * VEC);
+        T* to = dst + (which * AB + b) * rows + v * VEC;
+        const T* from =
+            (which ? g : dy) + (size_t)(b0 + b) * H + h0 + v * VEC;
+        if constexpr (sizeof(T) * VEC >= 4)
+          cp_async<(int)sizeof(T) * VEC>(to, from);
+        else
+          *to = *from;  // one bf16: a load and a store
         q += dq;
         v += dv;
         if (v >= per_b) { v -= per_b; ++q; }
@@ -276,15 +357,17 @@ __device__ __forceinline__ void dw_role(const float* __restrict__ dy,
     const long long h0 = (cta + s / sh.n_chunks * n_ctas) * rows;
     const int nb = min(AB, B - (int)(s % sh.n_chunks) * AB);
     const int nr = (int)min((long long)rows, H - h0);
-    const float* sdy = smem + (s % STAGES) * 2 * AB * rows;
-    const float* sg = sdy + AB * rows;
+    const T* sdy = reinterpret_cast<const T*>(smem +
+                                              (s % STAGES) * 2 * AB * rows);
+    const T* sg = sdy + AB * rows;
     float* du = du_s + (s & 1) * rows * DU_LD;
     for (int r = r_t, b4 = b4_t; b4 < AB;) {
       float v[4];
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int b = b4 + k;
-        v[k] = b < nb && r < nr ? sdy[b * rows + r] * sg[b * rows + r] : 0.f;
+        v[k] = b < nb && r < nr ? du_of(sdy[b * rows + r], sg[b * rows + r])
+                                : 0.f;
       }
       *reinterpret_cast<float4*>(du + r * DU_LD + b4) =
           make_float4(v[0], v[1], v[2], v[3]);
@@ -327,26 +410,28 @@ __device__ __forceinline__ void dw_role(const float* __restrict__ dy,
           }
         }
       }
+      const bool last = c == sh.n_chunks - 1;
       if (nb == AB)
-        row_sums<true, VEC>(du_cur, xr, rl, sh.nrl, nb, nr, h0, dw, F, f0,
-                            c > 0);
+        row_sums<true, VEC>(du_cur, xr, rl, sh.nrl, nb, nr, h0, dw, dws, F,
+                            f0, c > 0, last);
       else
-        row_sums<false, VEC>(du_cur, xr, rl, sh.nrl, nb, nr, h0, dw, F, f0,
-                             c > 0);
+        row_sums<false, VEC>(du_cur, xr, rl, sh.nrl, nb, nr, h0, dw, dws, F,
+                             f0, c > 0, last);
     }
   }
 }
 
-template <int VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-fused_input_bwd_kernel(const float* __restrict__ dy,
-                       const float* __restrict__ g,
-                       const float* __restrict__ x,
-                       const float* __restrict__ w, float* __restrict__ dw,
-                       float* __restrict__ dx, float* __restrict__ ws,
-                       int* __restrict__ tickets, int B, int F, int H,
-                       int n_ftiles, int n_dw_ctas, int n_chunks,
-                       int chunk_h) {
+// The kernel's body.  T float, or bf16 under the compute policy: dy, g', x
+// and W bf16, du rounded to bf16, dW and dx rounded once from their f32
+// sums (dws: dW's f32 scratch past one batch chunk; ws holds dx's f32
+// partials either way)
+template <int VEC, typename T>
+__device__ __forceinline__ void bwd_body(
+    const T* __restrict__ dy, const T* __restrict__ g,
+    const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ dw,
+    float* __restrict__ dws, T* __restrict__ dx, float* __restrict__ ws,
+    int* __restrict__ tickets, int B, int F, int H, int n_ftiles,
+    int n_dw_ctas, int n_chunks, int chunk_h) {
   extern __shared__ __align__(16) float smem[];
   __shared__ int is_last;
   const int t = threadIdx.x;
@@ -354,7 +439,7 @@ fused_input_bwd_kernel(const float* __restrict__ dy,
   const int ty = t / 32;
 
   if ((int)blockIdx.x < n_dw_ctas) {
-    dw_role<VEC>(dy, g, x, dw, B, F, H, n_dw_ctas, smem);
+    dw_role<VEC, T>(dy, g, x, dw, dws, B, F, H, n_dw_ctas, smem);
     return;
   }
 
@@ -379,12 +464,12 @@ fused_input_bwd_kernel(const float* __restrict__ dy,
       const int bb = i / BK, k = i % BK;
       const int b = b0 + bb, hh = hk + k;
       const size_t at = (size_t)b * H + hh;
-      du_s[bb][k] = (b < B && hh < he) ? dy[at] * g[at] : 0.f;
+      du_s[bb][k] = (b < B && hh < he) ? du_of(dy[at], g[at]) : 0.f;
     }
     for (int i = t; i < BK * BF; i += THREADS) {
       const int k = i / BF, c = i % BF;
       const int hh = hk + k, f = f0 + c;
-      w_s[k][c] = (hh < he && f < F) ? w[(size_t)hh * F + f] : 0.f;
+      w_s[k][c] = (hh < he && f < F) ? widen(w[(size_t)hh * F + f]) : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -440,9 +525,51 @@ fused_input_bwd_kernel(const float* __restrict__ dy,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int f = f0 + tx + 32 * j;
-      if (b < B && f < F) dx[(size_t)b * F + f] = s[i][j];
+      if (b < B && f < F) {
+        if constexpr (std::is_same<T, bf16>::value)
+          dx[(size_t)b * F + f] = __float2bfloat16_rn(s[i][j]);
+        else
+          dx[(size_t)b * F + f] = s[i][j];
+      }
     }
   }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_input_bwd_kernel(const float* __restrict__ dy,
+                       const float* __restrict__ g,
+                       const float* __restrict__ x,
+                       const float* __restrict__ w, float* __restrict__ dw,
+                       float* __restrict__ dx, float* __restrict__ ws,
+                       int* __restrict__ tickets, int B, int F, int H,
+                       int n_ftiles, int n_dw_ctas, int n_chunks,
+                       int chunk_h) {
+  bwd_body<VEC, float>(dy, g, x, w, dw, nullptr, dx, ws, tickets, B, F, H,
+                       n_ftiles, n_dw_ctas, n_chunks, chunk_h);
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+fused_input_bwd_bf16_kernel(const bf16* __restrict__ dy,
+                            const bf16* __restrict__ g,
+                            const bf16* __restrict__ x,
+                            const bf16* __restrict__ w, bf16* __restrict__ dw,
+                            float* __restrict__ dws, bf16* __restrict__ dx,
+                            float* __restrict__ ws, int* __restrict__ tickets,
+                            int B, int F, int H, int n_ftiles, int n_dw_ctas,
+                            int n_chunks, int chunk_h) {
+  bwd_body<VEC, bf16>(dy, g, x, w, dw, dws, dx, ws, tickets, B, F, H,
+                      n_ftiles, n_dw_ctas, n_chunks, chunk_h);
+}
+
+// the kernel of an instance, as the runtime API's function handle
+template <int VEC, typename T>
+const void* bwd_kernel() {
+  if constexpr (std::is_same<T, bf16>::value)
+    return reinterpret_cast<const void*>(fused_input_bwd_bf16_kernel<VEC>);
+  else
+    return reinterpret_cast<const void*>(fused_input_bwd_kernel<VEC>);
 }
 
 }  // namespace
@@ -476,9 +603,9 @@ bool aligned16(const void* p) {
 
 // one launch of either instance: role A's persistent CTAs (the SMs times
 // the CTAs that fit one, at most one a task), then role B's
-template <int VEC>
-int launch(const float* dy, const float* g, const float* x, const float* w,
-           float* dw, float* dx, float* ws, int* tickets, int B, int F, int H,
+template <int VEC, typename T>
+int launch(const T* dy, const T* g, const T* x, const T* w, T* dw,
+           float* dws, T* dx, float* ws, int* tickets, int B, int F, int H,
            int with_dx, cudaStream_t stream) {
   const DwShape sh = dw_shape(B, F, H);
   const size_t smem = sizeof(float) * smem_floats(sh.rows);
@@ -488,7 +615,7 @@ int launch(const float* dy, const float* g, const float* x, const float* w,
   if (allowed == 0) {
     const size_t most =
         sizeof(float) * smem_floats(MAX_ROW_LANES * ROWS_PER_LANE);
-    if (cudaFuncSetAttribute(fused_input_bwd_kernel<VEC>,
+    if (cudaFuncSetAttribute(bwd_kernel<VEC, T>(),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)most) != cudaSuccess)
       return (int)cudaGetLastError();
@@ -497,7 +624,7 @@ int launch(const float* dy, const float* g, const float* x, const float* w,
   if (smem > allowed) return (int)cudaErrorInvalidValue;
   if (smem != at_smem) {
     if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per_sm, fused_input_bwd_kernel<VEC>, THREADS, smem) !=
+            &per_sm, bwd_kernel<VEC, T>(), THREADS, smem) !=
         cudaSuccess)
       return (int)cudaGetLastError();
     at_smem = smem;
@@ -510,10 +637,16 @@ int launch(const float* dy, const float* g, const float* x, const float* w,
   const long long n_dx =
       with_dx ? (long long)n_chunks * ((B + BB - 1) / BB) * n_ftiles : 0;
   if (n_dw + n_dx > INT_MAX) return (int)cudaErrorInvalidValue;
-  fused_input_bwd_kernel<VEC><<<(unsigned)(n_dw + n_dx), THREADS, smem,
-                                stream>>>(
-      dy, g, x, w, dw, dx, ws, tickets, B, F, H, (int)n_ftiles, (int)n_dw,
-      n_chunks, chunk_h);
+  if constexpr (std::is_same<T, bf16>::value)
+    fused_input_bwd_bf16_kernel<VEC><<<(unsigned)(n_dw + n_dx), THREADS,
+                                       smem, stream>>>(
+        dy, g, x, w, dw, dws, dx, ws, tickets, B, F, H, (int)n_ftiles,
+        (int)n_dw, n_chunks, chunk_h);
+  else
+    fused_input_bwd_kernel<VEC><<<(unsigned)(n_dw + n_dx), THREADS, smem,
+                                  stream>>>(
+        dy, g, x, w, dw, dx, ws, tickets, B, F, H, (int)n_ftiles, (int)n_dw,
+        n_chunks, chunk_h);
   return (int)cudaGetLastError();
 }
 
@@ -532,6 +665,26 @@ extern "C" int fused_input_bwd_f32(const float* dy, const float* g,
   const auto s = static_cast<cudaStream_t>(stream);
   const bool vec = F % 4 == 0 && H % 4 == 0 && aligned16(dy) &&
                    aligned16(g) && aligned16(x) && aligned16(dw);
-  return (vec ? launch<4> : launch<1>)(dy, g, x, w, dw, dx, ws, tickets, B,
-                                       F, H, with_dx, s);
+  return (vec ? launch<4, float> : launch<1, float>)(
+      dy, g, x, w, dw, nullptr, dx, ws, tickets, B, F, H, with_dx, s);
+}
+
+// The bf16 compute policy: dy, g', x, W bf16 → dW [, dx] bf16.  dws holds
+// H · F floats (dW's f32 sums, allocated by the wrapper) where B > 32,
+// else may be null.  The vec4 instance where
+// F and H are multiples of 4 and dy, g', x and dW are 8-byte aligned (4
+// values a copy), else the scalar one.
+extern "C" int fused_input_bwd_bf16(const bf16* dy, const bf16* g,
+                                    const bf16* x, const bf16* w, bf16* dw,
+                                    float* dws, bf16* dx, float* ws,
+                                    int* tickets, int B, int F, int H,
+                                    int with_dx, void* stream) {
+  if (H <= 0 || F <= 0) return 0;
+  if (B <= 0 || (B > AB && dws == nullptr)) return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool vec = F % 4 == 0 && H % 4 == 0 && bf16x::aligned8(dy) &&
+                   bf16x::aligned8(g) && bf16x::aligned8(x) &&
+                   bf16x::aligned8(dw);
+  return (vec ? launch<4, bf16> : launch<1, bf16>)(
+      dy, g, x, w, dw, dws, dx, ws, tickets, B, F, H, with_dx, s);
 }

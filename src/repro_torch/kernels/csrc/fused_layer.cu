@@ -43,6 +43,12 @@
 // replaced kernel forms it (so its bits are the f32 instance's on tiles
 // dequantized the same way).
 //
+// bf16 (the compute policy; fused_layer_infer_bf16 / fused_layer_train_bf16,
+// kernel fused_layer_bf16_group_kernel): the same core under its BF16W
+// policy (x and the tiles bf16, widened into the f32 stage as a chunk is
+// issued) and this epilogue storing y and g' in bf16, each rounded once
+// from its f32 value, 4 values an 8-byte store (a lane's 4 columns).
+//
 // What bounds it: bytes at serving batch sizes.  Each step reads one
 // blk × blk weight tile and one (32 × blk) input tile and does 2·32·blk²
 // FLOP: 16 FLOP per weight byte at B = 32 (64 over int8 tiles), below the
@@ -57,13 +63,15 @@
 namespace {
 
 // the forward's epilogue: y = act(u + b_eff)·mask (and g' =
-// act'(u + b_eff)·mask), the replaced kernel's expressions.  The lanes
+// act'(u + b_eff)·mask), the replaced kernel's expressions; with BF (the
+// bf16 compute policy) y and g' go to a.yh and a.gh, each rounded once to
+// bf16, 4 values packed in an 8-byte store where the vec4 instance runs.  The lanes
 // stage u (B rows × the group's ≤ 32 columns) in the stage just
 // multiplied, then share the outputs out: a lane takes V consecutive
 // columns of one output tile (one activation) and every (32 / quads)-th
 // row, so a group of one 8-unit tile keeps all 32 lanes busy, and runs
 // that activation's code in a loop over its rows.
-template <bool DERIV>
+template <bool DERIV, bool BF = false>
 struct ActOut {
   static constexpr int ZLD = 36;  // a staged row: ≤ 32 columns, 4 (mod 8)
 
@@ -74,6 +82,14 @@ struct ActOut {
              make_float4(v[0], v[1], v[2], v[3]));
     else
       __stcs(p, v[0]);
+  }
+  template <int V>
+  __device__ __forceinline__ static void store(bdcore::bf16* p,
+                                               const float* v) {
+    if constexpr (V == 4)
+      bf16x::store4<true>(p, v[0], v[1], v[2], v[3]);
+    else
+      bf16x::store1<true>(p, v[0]);
   }
 
   template <int V, int ACT>
@@ -90,8 +106,13 @@ struct ActOut {
         if constexpr (DERIV) gv[e] = apply_act_deriv(ACT, u) * m[e];
       }
       const size_t o = at + (size_t)b * a.out_w;
-      store<V>(a.y + o, yv);
-      if constexpr (DERIV) store<V>(a.g + o, gv);
+      if constexpr (BF) {
+        store<V>(a.yh + o, yv);
+        if constexpr (DERIV) store<V>(a.gh + o, gv);
+      } else {
+        store<V>(a.y + o, yv);
+        if constexpr (DERIV) store<V>(a.g + o, gv);
+      }
     }
   }
 
@@ -161,6 +182,37 @@ fused_layer_i8_group_kernel(bdcore::Args a) {
   bdcore::run_groups<V, ActOut<false>, bdcore::I8W>(a);
 }
 
+template <int V, bool DERIV>
+__global__ void __launch_bounds__(bdcore::THREADS, 3)
+fused_layer_bf16_group_kernel(bdcore::Args a) {
+  bdcore::run_groups<V, ActOut<DERIV, true>, bdcore::BF16W>(a);
+}
+
+// the bf16 entries' launch: y (and g') bf16, x and the tiles bf16
+int launch_bf16(const bdcore::bf16* x, const bdcore::bf16* wb,
+                const float* b_eff, const float* mask, const int* tile_act,
+                const int* s_in, const int* s_w, const int* groups,
+                bdcore::bf16* y, bdcore::bf16* g, int B, int n_in_tiles,
+                int n_out_tiles, int blk, int n_groups, void* stream) {
+  if (n_out_tiles <= 0) return 0;
+  bdcore::Args a{nullptr, nullptr, s_in,  s_w,      groups,
+                 nullptr, nullptr, b_eff, mask,     tile_act,
+                 B,       n_in_tiles, n_out_tiles, blk, n_groups};
+  a.xh = x;
+  a.wh = wb;
+  a.yh = y;
+  a.gh = g;
+  if (g == nullptr)
+    return bdcore::launch_groups(
+        reinterpret_cast<const void*>(fused_layer_bf16_group_kernel<4, false>),
+        reinterpret_cast<const void*>(fused_layer_bf16_group_kernel<1, false>),
+        a, stream);
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(fused_layer_bf16_group_kernel<4, true>),
+      reinterpret_cast<const void*>(fused_layer_bf16_group_kernel<1, true>),
+      a, stream);
+}
+
 }  // namespace
 
 // x (B, n_in_tiles·blk), wb (n_tiles, blk, blk), b_eff, mask, tile_act, the
@@ -220,4 +272,32 @@ extern "C" int fused_layer_infer_i8(const float* x, const int8_t* wb_q,
       reinterpret_cast<const void*>(fused_layer_i8_group_kernel<4>),
       reinterpret_cast<const void*>(fused_layer_i8_group_kernel<1>), a,
       stream);
+}
+
+// The bf16 compute policy: x (B, n_in_tiles·blk) and wb (n_tiles, blk, blk)
+// bf16, b_eff, mask f32 → y (and g') bf16, each rounded once from its f32
+// value; the group table as for the f32 entries.
+extern "C" int fused_layer_infer_bf16(const bdcore::bf16* x,
+                                      const bdcore::bf16* wb,
+                                      const float* b_eff, const float* mask,
+                                      const int* tile_act, const int* s_in,
+                                      const int* s_w, const int* groups,
+                                      bdcore::bf16* y, int B, int n_in_tiles,
+                                      int n_out_tiles, int blk, int n_groups,
+                                      void* stream) {
+  return launch_bf16(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y,
+                     nullptr, B, n_in_tiles, n_out_tiles, blk, n_groups,
+                     stream);
+}
+
+extern "C" int fused_layer_train_bf16(const bdcore::bf16* x,
+                                      const bdcore::bf16* wb,
+                                      const float* b_eff, const float* mask,
+                                      const int* tile_act, const int* s_in,
+                                      const int* s_w, const int* groups,
+                                      bdcore::bf16* y, bdcore::bf16* g, int B,
+                                      int n_in_tiles, int n_out_tiles,
+                                      int blk, int n_groups, void* stream) {
+  return launch_bf16(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y, g,
+                     B, n_in_tiles, n_out_tiles, blk, n_groups, stream);
 }

@@ -38,6 +38,12 @@
 // any B (16-byte global accesses where blk % 4 == 0 and the pointers
 // allow; else a scalar instance).
 //
+// bf16 (the compute policy; fused_layer_dx_dw_bf16, kernel
+// fused_layer_dx_dw_bf16_kernel): the same units over bf16 dy, g', x and
+// tiles (8-byte loads, widened), du rounded to bf16 as the TPU kernel
+// forms it from two bf16 tiles, dx and dWB stored in bf16, each rounded
+// once (dWB's chunk sums in an f32 scratch past one 32-row batch chunk).
+//
 // What bounds it: bytes.  dy, g', x, the tiles, dx and dWB each cross
 // memory once (a member wider than 64 columns re-reads its du per column
 // chunk, from L2); at B = 32 the 4·B·blk² FLOP per tile are 32 FLOP per
@@ -45,6 +51,7 @@
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "member_units.cuh"
 
@@ -56,19 +63,35 @@ constexpr int SMEM = TeamStage::FLOATS > WARPS * WarpStage::FLOATS
                          ? TeamStage::FLOATS
                          : WARPS * WarpStage::FLOATS;
 
+// T float, or bf16 under the compute policy: dy, g', x and the tiles bf16,
+// du = dy · g' rounded to bf16 (repro/kernels/fused_layer.py:261), dx and
+// dWB rounded once from their f32 sums; dws is dWB's f32 scratch where B
+// spans more than one batch chunk (the chunks' sums added there, in
+// order, as the f32 instance adds them in dWB), else null.
+template <typename T>
 struct Args {
-  const float* dy;  // read through the read-only path (__ldg)
-  const float* g;
-  const float* x;
-  const float* wb;
-  float* dx;
-  float* dwb;
+  const T* dy;  // read through the read-only path (__ldg)
+  const T* g;
+  const T* x;
+  const T* wb;
+  T* dx;
+  T* dwb;
   int B, in_w, out_w, blk;
+  float* dws = nullptr;
 };
 
+// du = dy · g' as the replaced kernel forms it
+template <typename T>
+__device__ __forceinline__ float du_of(float d, float g) {
+  if constexpr (std::is_same<T, bf16>::value)
+    return bf16x::round_bf16(d * g);
+  else
+    return d * g;
+}
+
 // dx = du on a run of pass-through tiles
-template <int NT, int V>
-__device__ void pass_through(const int* u, const Args& a, int l) {
+template <int NT, int V, typename T>
+__device__ void pass_through(const int* u, const Args<T>& a, int l) {
   const int in0 = u[0], nc = u[1], out0 = u[2];
   const int nv = nc * a.blk / V;
   const long long n = (long long)a.B * nv;
@@ -80,14 +103,15 @@ __device__ void pass_through(const int* u, const Args& a, int l) {
     load<V>(a.dy + at, d);
     load<V>(a.g + at, gv);
 #pragma unroll
-    for (int e = 0; e < V; ++e) d[e] *= gv[e];
+    for (int e = 0; e < V; ++e) d[e] = du_of<T>(d[e], gv[e]);
     store<V>(a.dx + (size_t)b * a.in_w + (size_t)in0 * a.blk + c, d);
   }
 }
 
 // one unit on NT threads (lane l) over the stage at `s`
-template <int NT, class S, int V>
-__device__ void run_unit(const int* u, const Args& a, float* s, int l) {
+template <int NT, class S, int V, typename T>
+__device__ void run_unit(const int* u, const Args<T>& a, float* s, int l) {
+  constexpr bool BF = std::is_same<T, bf16>::value;
   if (u[4] < 0) {
     pass_through<NT, V>(u, a, l);
     return;
@@ -139,7 +163,7 @@ __device__ void run_unit(const int* u, const Args& a, float* s, int l) {
             load<V>(a.g + at, gv);
 #pragma unroll
             for (int e = 0; e < V; ++e) {
-              const float v = d[e] * gv[e];
+              const float v = du_of<T>(d[e], gv[e]);
               dus[r * S::OCH + c + e] = v;
               dut[(c + e) * S::DUT_LD + r] = v;
             }
@@ -177,7 +201,25 @@ __device__ void run_unit(const int* u, const Args& a, float* s, int l) {
             if (r0 + i >= oc) break;
             const size_t row = (size_t)q + (size_t)(ua / blk) * ld;
             const int au = ua % blk;
-            if constexpr (V == 4) {
+            if constexpr (BF) {
+              // the chunks' sums in the f32 scratch, the last one's total
+              // rounded into dWB
+              const bool last = b0 + S::BCH >= a.B;
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (j0 + j < cw) {
+                  const int ja = cc0 + j0 + j;
+                  const size_t at =
+                      ((row + ja / blk) * blk + au) * blk + ja % blk;
+                  float v = adw[i][j];
+                  if (b0 > 0) v = a.dws[at] + v;
+                  if (last)
+                    a.dwb[at] = __float2bfloat16_rn(v);
+                  else
+                    a.dws[at] = v;
+                }
+              }
+            } else if constexpr (V == 4) {
               if (j0 < cw) {  // 4 columns of one tile (blk % 4 == 0)
                 const int ja = cc0 + j0;
                 float* p = a.dwb + ((row + ja / blk) * blk + au) * blk + ja % blk;
@@ -207,8 +249,17 @@ __device__ void run_unit(const int* u, const Args& a, float* s, int l) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (r0 + i >= bc) break;
-          float* p = a.dx + (size_t)(b0 + r0 + i) * a.in_w + xcol + cc0 + j0;
-          if constexpr (V == 4) {
+          T* p = a.dx + (size_t)(b0 + r0 + i) * a.in_w + xcol + cc0 + j0;
+          if constexpr (BF) {
+            if constexpr (V == 4) {
+              if (j0 < cw)
+                bf16x::store4(p, adx[i][0], adx[i][1], adx[i][2], adx[i][3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (j0 + j < cw) p[j] = __float2bfloat16_rn(adx[i][j]);
+            }
+          } else if constexpr (V == 4) {
             if (j0 < cw)
               *reinterpret_cast<float4*>(p) =
                   make_float4(adx[i][0], adx[i][1], adx[i][2], adx[i][3]);
@@ -225,8 +276,8 @@ __device__ void run_unit(const int* u, const Args& a, float* s, int l) {
 
 template <int V>
 struct DxDw {
-  template <int NT, class S>
-  __device__ __forceinline__ static void run(const int* u, const Args& a,
+  template <int NT, class S, typename T>
+  __device__ __forceinline__ static void run(const int* u, const Args<T>& a,
                                              float* s, int l) {
     run_unit<NT, S, V>(u, a, s, l);
   }
@@ -234,8 +285,16 @@ struct DxDw {
 
 template <int V>
 __global__ void __launch_bounds__(THREADS)
-fused_layer_dx_dw_kernel(Args a, const int* __restrict__ units,
+fused_layer_dx_dw_kernel(Args<float> a, const int* __restrict__ units,
                          const int* __restrict__ job_ptr) {
+  __shared__ __align__(16) float smem[SMEM];
+  run_job<DxDw<V>>(a, units, job_ptr, smem, WarpStage::FLOATS);
+}
+
+template <int V>
+__global__ void __launch_bounds__(THREADS)
+fused_layer_dx_dw_bf16_kernel(Args<bf16> a, const int* __restrict__ units,
+                              const int* __restrict__ job_ptr) {
   __shared__ __align__(16) float smem[SMEM];
   run_job<DxDw<V>>(a, units, job_ptr, smem, WarpStage::FLOATS);
 }
@@ -268,12 +327,43 @@ extern "C" int fused_layer_dx_dw_f32(const float* dy, const float* g,
       (long long)n_out_tiles * blk > INT_MAX)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || n_jobs == 0) return 0;
-  const Args a{dy, g, x, wb, dx, dwb, B, n_in_tiles * blk, n_out_tiles * blk,
-               blk};
+  const Args<float> a{dy, g, x, wb, dx, dwb, B, n_in_tiles * blk,
+                      n_out_tiles * blk, blk};
   const bool v4 = blk % 4 == 0 && aligned16(dy) && aligned16(g) &&
                   aligned16(x) && aligned16(wb) && aligned16(dx) &&
                   aligned16(dwb);
   auto* kernel = v4 ? fused_layer_dx_dw_kernel<4> : fused_layer_dx_dw_kernel<1>;
+  kernel<<<(unsigned)n_jobs, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      a, units, job_ptr);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 compute policy: dy, g, x, wb bf16 → dx, dwb bf16; dws
+// (n_param, blk, blk) floats where B > 32 (dWB's f32 sums), else may be
+// null.  The vec4 instance where blk % 4 == 0 and the bf16 tensors are
+// 8-byte aligned (4 values a load).
+extern "C" int fused_layer_dx_dw_bf16(const bf16* dy, const bf16* g,
+                                      const bf16* x, const bf16* wb,
+                                      const int* units, const int* job_ptr,
+                                      bf16* dx, bf16* dwb, float* dws, int B,
+                                      int n_in_tiles, int n_out_tiles,
+                                      int blk, int n_jobs, void* stream) {
+  if (blk <= 0 || blk > MAX_BLK || B < 0 || n_jobs < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((long long)n_in_tiles * blk > INT_MAX ||
+      (long long)n_out_tiles * blk > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || n_jobs == 0) return 0;
+  if (B > TeamStage::BCH && dws == nullptr) return (int)cudaErrorInvalidValue;
+  Args<bf16> a{dy, g, x, wb, dx, dwb, B, n_in_tiles * blk,
+               n_out_tiles * blk, blk};
+  a.dws = dws;
+  using bf16x::aligned8;
+  const bool v4 = blk % 4 == 0 && aligned8(dy) && aligned8(g) &&
+                  aligned8(x) && aligned8(wb) && aligned8(dx) &&
+                  aligned8(dwb);
+  auto* kernel = v4 ? fused_layer_dx_dw_bf16_kernel<4>
+                    : fused_layer_dx_dw_bf16_kernel<1>;
   kernel<<<(unsigned)n_jobs, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, units, job_ptr);
   return (int)cudaGetLastError();

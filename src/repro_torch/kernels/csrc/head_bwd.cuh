@@ -46,19 +46,28 @@ __host__ __device__ inline int bwd_stage_floats(int rows, int max_blk,
   return lanes > 1 && t_vw > stage ? t_vw : stage;
 }
 
+template <typename E>
+struct given {  // E named, never deduced
+  using type = E;
+};
+
 // One CTA's tile: writes its units' dW once, and with DH (the loss head's
 // role) its dh, g being dl · d_per; without DH, dW alone of g = dl (d_per
-// absent, no multiply; w2, dh and dper are not touched).  Every thread
-// must call it; it may be called again in the same launch (its
-// shared-memory writes follow a barrier or touch what no thread reads
-// after the last one).
-template <int OT, int VW, bool DH>
+// absent, no multiply; w2, dh and dper are not touched).  E is h's, w2's,
+// dh's and dW's type: float, or bf16 under the compute policy, where g is
+// rounded to bf16 as it is staged (repro/kernels/loss_head.py:157, :166:
+// dl · d_per cast to the operands' dtype before each product) and dh and
+// dW are rounded once from their f32 sums.  Every thread must call it; it
+// may be called again in the same launch (its shared-memory writes follow
+// a barrier or touch what no thread reads after the last one).
+template <int OT, int VW, bool DH, typename E = float>
 __device__ __forceinline__ void stream_bwd(
     const float* __restrict__ dper, const float* __restrict__ dl, int ldo,
-    const float* __restrict__ h, const float* __restrict__ w2,
-    const int* __restrict__ block_seg, float* __restrict__ dh,
-    float* __restrict__ dw, int B, int H, int O, int P, int block,
-    int lanes, int rows) {
+    const typename given<E>::type* __restrict__ h,
+    const typename given<E>::type* __restrict__ w2,
+    const int* __restrict__ block_seg, typename given<E>::type* __restrict__ dh,
+    typename given<E>::type* __restrict__ dw, int B, int H, int O, int P,
+    int block, int lanes, int rows) {
   constexpr int R = rows_in_flight<OT>();
   const int T = blockDim.x;
   const int tid = threadIdx.x;
@@ -109,7 +118,13 @@ __device__ __forceinline__ void stream_bwd(
 #pragma unroll 4
     for (int i = tid; i < nr * nblk * OT; i += T) {
       const int o = i % OT, k = (i / OT) % nblk, rr = i / (OT * nblk);
-      if constexpr (DH) {
+      if constexpr (DH && sizeof(E) == 2) {
+        stage[i] =
+            o < O ? bf16x::round_bf16(
+                        dl[((size_t)(r0 + rr) * P + sseg[k]) * O + o] *
+                        sdper[k])
+                  : 0.f;
+      } else if constexpr (DH) {
         stage[i] = o < O ? dl[((size_t)(r0 + rr) * P + sseg[k]) * O + o] *
                                sdper[k]
                          : 0.f;

@@ -23,6 +23,10 @@
 //     Both hand stream_logits the same f32 weights for the same values
 //     (q · s is exact-rounded either way), so the int8 kernel is bitwise
 //     the f32 kernel on the dequantized weight at the same instance;
+//       - BF16Weights (the bf16 compute policy, with bf16 h): w2 bf16, VW
+//         values a class in one load (8 bytes at VW = 4), widened; h's VW
+//         units come in one 8-byte load a row, and every product and sum
+//         runs in f32 as over f32 operands;
 //   * it streams h rows with R of them in flight (R · OT = 16 floats) and
 //     issues the next R rows before it reduces these;
 //   * a CTA is 256 threads in 1, 2, 4 or 8 lanes of rows over one tile of
@@ -48,7 +52,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace head {
+
+using bf16x::bf16;
 
 constexpr int MAX_O = 16;
 constexpr int MAX_THREADS = 256;  // threads a CTA
@@ -95,11 +103,36 @@ __device__ __forceinline__ void store_units(float* __restrict__ p,
   }
 }
 
-// rows b0, b0 + 1, ... b0 + R − 1 of h at unit j; rows from the n-th on
-// read as zeros
-template <int R, int VW>
+// bf16: VW values widened from one 8-byte load (VW = 4), and stored each
+// rounded to nearest even, 4 packed in one 8-byte store
+template <int VW>
+__device__ __forceinline__ void load_units(float (&v)[VW],
+                                           const bf16* __restrict__ p) {
+  if constexpr (VW == 4) {
+    const float4 t = bf16x::load4(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) v[i] = __bfloat162float(p[i]);
+  }
+}
+
+template <int VW>
+__device__ __forceinline__ void store_units(bf16* __restrict__ p,
+                                            const float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    bf16x::store4(p, v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VW; ++i) bf16x::store1(p + i, v[i]);
+  }
+}
+
+// rows b0, b0 + 1, ... b0 + R − 1 of h (f32 or bf16) at unit j; rows from
+// the n-th on read as zeros
+template <int R, int VW, typename HT>
 __device__ __forceinline__ void load_rows(float (&hv)[R][VW],
-                                          const float* __restrict__ h, int H,
+                                          const HT* __restrict__ h, int H,
                                           int j, int b0, int n) {
 #pragma unroll
   for (int r = 0; r < R; ++r) {
@@ -114,8 +147,11 @@ __device__ __forceinline__ void load_rows(float (&hv)[R][VW],
 
 // The weight policies: the w[OT][VW] a thread holds for its units j … j +
 // VW − 1, class o < O, zeros past O or where the thread has no units.
-struct F32Weights {
-  const float* __restrict__ w2;  // (O, H)
+// DenseWeights<float> (F32Weights) reads f32 w2, DenseWeights<bf16>
+// (BF16Weights) bf16 w2 widened.
+template <typename T>
+struct DenseWeights {
+  const T* __restrict__ w2;  // (O, H)
   int H;
   template <int OT, int VW>
   __device__ __forceinline__ void load(float (&w)[OT][VW], int O, int j,
@@ -131,6 +167,9 @@ struct F32Weights {
     }
   }
 };
+
+using F32Weights = DenseWeights<float>;
+using BF16Weights = DenseWeights<bf16>;
 
 struct I8Weights {
   const int8_t* __restrict__ q;      // (O, H)
@@ -216,9 +255,9 @@ __device__ inline void cta_members(const int* __restrict__ member_ptr, int P,
 // lanes][OT][pad] shared scratch of the partials.  Every thread must call
 // it, after a barrier that makes mstart and z visible; z is complete for
 // every thread when it returns.
-template <int OT, int VW, class W>
+template <int OT, int VW, class W, typename HT>
 __device__ __forceinline__ void stream_logits(
-    const float* __restrict__ h, const W& wl, int H, int O, int r0, int nr,
+    const HT* __restrict__ h, const W& wl, int H, int O, int r0, int nr,
     const int* mstart, int nb, int mb_cap, int lanes, float* part,
     float* z) {
   constexpr int R = rows_in_flight<OT>();
@@ -286,9 +325,9 @@ __device__ __forceinline__ void stream_logits(
 // [OT], mstart [mb_cap + 1].  Every thread must call it; it may be called
 // again in the same launch (its first barrier comes before its first
 // shared-memory write).
-template <int OT, int VW, class W, class Epi>
+template <int OT, int VW, class W, class Epi, typename HT>
 __device__ __forceinline__ void stream_members(
-    const float* __restrict__ h, const W& wl,
+    const HT* __restrict__ h, const W& wl,
     const int* __restrict__ member_ptr, int B, int H, int O, int P,
     int block, int n_tiles, int lanes, int mb_cap, const Epi& epi) {
   const int T = blockDim.x;
@@ -344,6 +383,15 @@ inline bool takes_vec4(int block, long long H, const void* const* ptrs,
     if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
   for (int i = 0; i < n8; ++i)
     if (reinterpret_cast<uintptr_t>(ptrs8[i]) % 4 != 0) return false;
+  return true;
+}
+
+// the same rule over bf16 tensors: aligned to 4 of their elements, 8 bytes
+inline bool takes_vec4_bf16(int block, long long H, const void* const* ptrs,
+                            int n) {
+  if (block % 4 != 0 || H % 4 != 0) return false;
+  for (int i = 0; i < n; ++i)
+    if (!bf16x::aligned8(ptrs[i])) return false;
   return true;
 }
 

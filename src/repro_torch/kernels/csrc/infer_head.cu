@@ -44,6 +44,12 @@
 // w2_q 4-byte aligned, block and H multiples of 4 for the vec4 instance,
 // else the scalar one.  What bounds it: bytes, as for the f32 head (h is
 // 164 MB at full width and B = 32; w2 shrinks from 10 MB to 2.6 MB).
+//
+// infer_head_bf16 is the same kernel under the bf16 compute policy (the
+// bf16 instance of infer_head_fwd: h and w2 bf16, cast by the policy
+// before the kernel): head_stream.cuh's BF16Weights and bf16 h loads,
+// widened to f32; the logits, the bias and the log-softmax stay f32
+// (repro/kernels/infer_head.py:100).  h shrinks to 82 MB at full width.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -102,6 +108,11 @@ struct HeadEpilogue {
       const int *__restrict__ member_ptr, float *__restrict__ y, int B,     \
       int H, int O, int P, int block, int log_probs, int n_tiles,           \
       int lanes, int mb_cap
+#define INFER_HEAD_BF16_PARAMS                                              \
+  const bf16 *__restrict__ h, const bf16 *__restrict__ w2,                  \
+      const float *__restrict__ b2, const int *__restrict__ member_ptr,     \
+      float *__restrict__ y, int B, int H, int O, int P, int block,         \
+      int log_probs, int n_tiles, int lanes, int mb_cap
 #define INFER_HEAD_BODY_ARGS                                                \
   member_ptr, B, H, O, P, block, n_tiles, lanes, mb_cap,                    \
       HeadEpilogue{b2, y, O, P, log_probs}
@@ -129,6 +140,39 @@ __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_i8_kernel_scalar(INFER_HEAD_I8_PARAMS) {
   stream_members<OT, 1>(h, I8Weights{w2q, w2_scale, H, block},
                         INFER_HEAD_BODY_ARGS);
+}
+
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_bf16_kernel_vec4(INFER_HEAD_BF16_PARAMS) {
+  stream_members<OT, 4>(h, BF16Weights{w2, H}, INFER_HEAD_BODY_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_bf16_kernel_scalar(INFER_HEAD_BF16_PARAMS) {
+  stream_members<OT, 1>(h, BF16Weights{w2, H}, INFER_HEAD_BODY_ARGS);
+}
+
+template <int OT>
+int launch_bf16(const bf16* h, const bf16* w2, const float* b2,
+                const int* member_ptr, float* y, int B, int H, int O, int P,
+                int block, int log_probs, cudaStream_t stream) {
+  const void* ptrs[] = {h, w2};
+  FwdShape sh;
+  size_t smem;
+  if (!head_launch_shape<OT>(H, block, takes_vec4_bf16(block, H, ptrs, 2),
+                             sh, smem))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes, mb_cap = sh.mb_cap;
+  if (sh.vec)
+    infer_head_bf16_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
+                                      stream>>>(
+        h, w2, INFER_HEAD_LAUNCH_ARGS);
+  else
+    infer_head_bf16_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS,
+                                        smem, stream>>>(
+        h, w2, INFER_HEAD_LAUNCH_ARGS);
+  return (int)cudaGetLastError();
 }
 
 template <int OT>
@@ -218,5 +262,27 @@ extern "C" int infer_head_i8(const float* h, const int8_t* w2_q,
                                 O, P, block, log_probs, s);
     default: return launch_i8<16>(h, w2_q, w2_scale, b2, member_ptr, y, B,
                                   H, O, P, block, log_probs, s);
+  }
+}
+
+// The bf16 compute policy: h (B, H) and w2 (O, H) bf16, b2 f32 → y
+// (B, P, O) f32.
+extern "C" int infer_head_bf16(const bf16* h, const bf16* w2,
+                               const float* b2, const int* member_ptr,
+                               float* y, int B, int H, int O, int P,
+                               int block, int log_probs, void* stream) {
+  if (B <= 0 || P <= 0) return 0;
+  if (H < 0 || O <= 0 || O > MAX_O || block <= 0)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_bf16<2>(h, w2, b2, member_ptr, y, B, H, O, P,
+                                  block, log_probs, s);
+    case 4: return launch_bf16<4>(h, w2, b2, member_ptr, y, B, H, O, P,
+                                  block, log_probs, s);
+    case 8: return launch_bf16<8>(h, w2, b2, member_ptr, y, B, H, O, P,
+                                  block, log_probs, s);
+    default: return launch_bf16<16>(h, w2, b2, member_ptr, y, B, H, O, P,
+                                    block, log_probs, s);
   }
 }

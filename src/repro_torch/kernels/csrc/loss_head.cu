@@ -65,6 +65,15 @@
 // helpers both kernels use live in head_stream.cuh, which infer_head.cu's
 // kernels (f32 and int8 weights) and the M3 forward instantiate with their
 // own epilogue (stream_members).
+//
+// loss_head_fwd_bf16 and loss_head_bwd_bf16 are the same two kernels under
+// the bf16 compute policy (h and w2 bf16, cast before the kernels): the
+// forward widens them (BF16Weights, bf16 h loads) and its logits, per and
+// dl stay f32 (repro/kernels/loss_head.py:111-114); the backward rounds
+// dl · d_per to bf16 before its products (:157, :166) and stores dh and
+// dW in bf16, each rounded once from its f32 sum (:204-205).  h, dh and w2
+// halve: at full width the forward reads 87 MB, the backward 92 MB and
+// writes 87 MB.
 #include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -77,9 +86,9 @@ namespace {
 
 using namespace head;
 
-template <int OT, int VW>
+template <int OT, int VW, typename E>
 __device__ __forceinline__ void fwd_body(
-    const float* __restrict__ h, const float* __restrict__ w2,
+    const E* __restrict__ h, const E* __restrict__ w2,
     const float* __restrict__ b2, const int* __restrict__ targets,
     const int* __restrict__ member_ptr, float* __restrict__ per,
     float* __restrict__ dl, int B, int H, int O, int P, int block,
@@ -118,8 +127,8 @@ __device__ __forceinline__ void fwd_body(
       for (int i = tid; i < nr; i += T) tgt[i] = targets[r0 + i];
       __syncthreads();
 
-      stream_logits<OT, VW>(h, F32Weights{w2, H}, H, O, r0, nr, mstart, nb,
-                            mb_cap, lanes, part, z);
+      stream_logits<OT, VW>(h, DenseWeights<E>{w2, H}, H, O, r0, nr, mstart,
+                            nb, mb_cap, lanes, part, z);
 
       // epilogue: one thread per (row, member), consecutive members on
       // consecutive threads (their dl rows are contiguous)
@@ -211,13 +220,51 @@ loss_head_bwd_kernel_scalar(LOSS_HEAD_BWD_PARAMS) {
   stream_bwd<OT, 1, true>(LOSS_HEAD_BWD_ARGS);
 }
 
+#define LOSS_HEAD_FWD_BF16_PARAMS                                           \
+  const bf16 *__restrict__ h, const bf16 *__restrict__ w2,                  \
+      const float *__restrict__ b2, const int *__restrict__ targets,        \
+      const int *__restrict__ member_ptr, float *__restrict__ per,          \
+      float *__restrict__ dl, int B, int H, int O, int P, int block,        \
+      float inv_b, int n_tiles, int lanes, int mb_cap
+#define LOSS_HEAD_BWD_BF16_PARAMS                                           \
+  const float *__restrict__ dper, const float *__restrict__ dl,             \
+      const bf16 *__restrict__ h, const bf16 *__restrict__ w2,              \
+      const int *__restrict__ block_seg, bf16 *__restrict__ dh,             \
+      bf16 *__restrict__ dw, int B, int H, int O, int P, int block,          \
+      int lanes, int rows
+
 template <int OT>
-int launch_fwd(const float* h, const float* w2, const float* b2,
-               const int* targets, const int* member_ptr, float* per,
-               float* dl, int B, int H, int O, int P, int block, float inv_b,
-               cudaStream_t stream) {
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_fwd_bf16_kernel_vec4(LOSS_HEAD_FWD_BF16_PARAMS) {
+  fwd_body<OT, 4>(LOSS_HEAD_FWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_fwd_bf16_kernel_scalar(LOSS_HEAD_FWD_BF16_PARAMS) {
+  fwd_body<OT, 1>(LOSS_HEAD_FWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_bwd_bf16_kernel_vec4(LOSS_HEAD_BWD_BF16_PARAMS) {
+  stream_bwd<OT, 4, true, bf16>(LOSS_HEAD_BWD_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+loss_head_bwd_bf16_kernel_scalar(LOSS_HEAD_BWD_BF16_PARAMS) {
+  stream_bwd<OT, 1, true, bf16>(LOSS_HEAD_BWD_ARGS);
+}
+
+// a forward launch, f32 or bf16 operands (T): the instance by takes_vec4
+// (bf16: takes_vec4_bf16)
+template <int OT, typename T>
+int launch_fwd(const T* h, const T* w2, const float* b2, const int* targets,
+               const int* member_ptr, float* per, float* dl, int B, int H,
+               int O, int P, int block, float inv_b, cudaStream_t stream) {
+  constexpr bool BF = sizeof(T) == 2;
   const void* ptrs[] = {h, w2};
-  const FwdShape sh = fwd_shape(H, block, takes_vec4(block, H, ptrs, 2));
+  const FwdShape sh = fwd_shape(
+      H, block, BF ? takes_vec4_bf16(block, H, ptrs, 2)
+                   : takes_vec4(block, H, ptrs, 2));
   const int rb = fwd_rows_held<OT>(sh.lanes), mb_cap = sh.mb_cap;
   // the streaming core's partials and z, then nll, nll_acc, bias, mstart,
   // tgt
@@ -228,36 +275,47 @@ int launch_fwd(const float* h, const float* w2, const float* b2,
   if (sh.n_tiles > INT_MAX || smem > SMEM_LIMIT)
     return (int)cudaErrorInvalidValue;
   const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes;
-  if (sh.vec)
-    loss_head_fwd_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
-                                    stream>>>(
+  if constexpr (BF) {
+    auto* kernel = sh.vec ? loss_head_fwd_bf16_kernel_vec4<OT>
+                          : loss_head_fwd_bf16_kernel_scalar<OT>;
+    kernel<<<(unsigned)n_tiles, MAX_THREADS, smem, stream>>>(
         h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,
         n_tiles, lanes, mb_cap);
-  else
-    loss_head_fwd_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS, smem,
-                                      stream>>>(
+  } else {
+    auto* kernel = sh.vec ? loss_head_fwd_kernel_vec4<OT>
+                          : loss_head_fwd_kernel_scalar<OT>;
+    kernel<<<(unsigned)n_tiles, MAX_THREADS, smem, stream>>>(
         h, w2, b2, targets, member_ptr, per, dl, B, H, O, P, block, inv_b,
         n_tiles, lanes, mb_cap);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int OT>
-int launch_bwd(const float* dper, const float* dl, const float* h,
-               const float* w2, const int* block_seg, float* dh, float* dw,
-               int B, int H, int O, int P, int block, cudaStream_t stream) {
+// a backward launch, f32 or bf16 h, w2, dh and dW (T)
+template <int OT, typename T>
+int launch_bwd(const float* dper, const float* dl, const T* h, const T* w2,
+               const int* block_seg, T* dh, T* dw, int B, int H, int O, int P,
+               int block, cudaStream_t stream) {
+  constexpr bool BF = sizeof(T) == 2;
   const void* ptrs[] = {h, w2, dh, dw};
   BwdShape sh;
-  if (!bwd_shape<OT>(B, H, block, takes_vec4(block, H, ptrs, 4), sh))
+  if (!bwd_shape<OT>(B, H, block,
+                     BF ? takes_vec4_bf16(block, H, ptrs, 4)
+                        : takes_vec4(block, H, ptrs, 4),
+                     sh))
     return (int)cudaErrorInvalidValue;
   const int lanes = sh.lanes, rows = sh.rows;
-  if (sh.vec)
-    loss_head_bwd_kernel_vec4<OT><<<(unsigned)sh.n_tiles, MAX_THREADS,
-                                    sh.smem, stream>>>(
+  if constexpr (BF) {
+    auto* kernel = sh.vec ? loss_head_bwd_bf16_kernel_vec4<OT>
+                          : loss_head_bwd_bf16_kernel_scalar<OT>;
+    kernel<<<(unsigned)sh.n_tiles, MAX_THREADS, sh.smem, stream>>>(
         dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows);
-  else
-    loss_head_bwd_kernel_scalar<OT><<<(unsigned)sh.n_tiles, MAX_THREADS,
-                                      sh.smem, stream>>>(
+  } else {
+    auto* kernel = sh.vec ? loss_head_bwd_kernel_vec4<OT>
+                          : loss_head_bwd_kernel_scalar<OT>;
+    kernel<<<(unsigned)sh.n_tiles, MAX_THREADS, sh.smem, stream>>>(
         dper, dl, h, w2, block_seg, dh, dw, B, H, O, P, block, lanes, rows);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -289,6 +347,52 @@ extern "C" int loss_head_bwd_f32(const float* dper, const float* dl,
                                  const int* block_seg, float* dh, float* dw,
                                  int B, int H, int O, int P, int block,
                                  void* stream) {
+  if (H <= 0) return 0;
+  if (B <= 0 || O <= 0 || O > MAX_O || block <= 0 || P <= 0)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_bwd<2>(dper, dl, h, w2, block_seg, dh, dw, B, H, O,
+                                 P, block, s);
+    case 4: return launch_bwd<4>(dper, dl, h, w2, block_seg, dh, dw, B, H, O,
+                                 P, block, s);
+    case 8: return launch_bwd<8>(dper, dl, h, w2, block_seg, dh, dw, B, H, O,
+                                 P, block, s);
+    default: return launch_bwd<16>(dper, dl, h, w2, block_seg, dh, dw, B, H,
+                                   O, P, block, s);
+  }
+}
+
+// The bf16 compute policy: h (B, H) and w2 (O, H) bf16, b2 f32 → per (P,)
+// and dl (B, P, O) f32.
+extern "C" int loss_head_fwd_bf16(const bf16* h, const bf16* w2,
+                                  const float* b2, const int* targets,
+                                  const int* member_ptr, float* per,
+                                  float* dl, int B, int H, int O, int P,
+                                  int block, float inv_b, void* stream) {
+  if (P <= 0) return 0;
+  if (B <= 0 || H < 0 || O <= 0 || O > MAX_O || block <= 0)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_fwd<2>(h, w2, b2, targets, member_ptr, per, dl, B,
+                                 H, O, P, block, inv_b, s);
+    case 4: return launch_fwd<4>(h, w2, b2, targets, member_ptr, per, dl, B,
+                                 H, O, P, block, inv_b, s);
+    case 8: return launch_fwd<8>(h, w2, b2, targets, member_ptr, per, dl, B,
+                                 H, O, P, block, inv_b, s);
+    default: return launch_fwd<16>(h, w2, b2, targets, member_ptr, per, dl,
+                                   B, H, O, P, block, inv_b, s);
+  }
+}
+
+// d_per (P,), dl (B, P, O) f32, h (B, H) and w2 (O, H) bf16 → dh (B, H)
+// and dW (O, H) bf16.
+extern "C" int loss_head_bwd_bf16(const float* dper, const float* dl,
+                                  const bf16* h, const bf16* w2,
+                                  const int* block_seg, bf16* dh, bf16* dw,
+                                  int B, int H, int O, int P, int block,
+                                  void* stream) {
   if (H <= 0) return 0;
   if (B <= 0 || O <= 0 || O > MAX_O || block <= 0 || P <= 0)
     return (int)cudaErrorInvalidValue;

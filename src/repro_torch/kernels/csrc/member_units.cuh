@@ -15,7 +15,11 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bf16.cuh"
+
 namespace munits {
+
+using bf16x::bf16;
 
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -69,6 +73,26 @@ __device__ __forceinline__ void store(float* p, const float (&v)[V]) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   else
     p[0] = v[0];
+}
+
+// bf16 (the compute policy): V values widened from one 8-byte load (V =
+// 4), and stored rounded to nearest even, 4 packed in an 8-byte store
+template <int V>
+__device__ __forceinline__ void load(const bf16* p, float (&v)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = bf16x::ldg4(p);
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store(bf16* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    bf16x::store4(p, v[0], v[1], v[2], v[3]);
+  else
+    bf16x::store1(p, v[0]);
 }
 
 __device__ __forceinline__ float4 lds4(const float* p) {

@@ -27,7 +27,19 @@ x and w it returns dW (H, F) and, when asked, dx (B, F).  Its dW streams
 not allow it, 4-byte ones (``"scalar"``, the same kernel's other
 instance): ``bwd_path`` says which, by the rule the C entry applies.
 
-Each ``*_plain`` function is the same function in plain PyTorch.
+The bf16 compute policy (DESIGN.md §7): x and w bf16 (bias, mask f32)
+launch the same kernels' bf16 instances (entries ``fused_input_infer_bf16``
+/ ``fused_input_train_bf16`` and ``fused_input_bwd_bf16``): operands widened
+to f32, sums in f32, y and g' (forward) and dW and dx (backward) stored in
+bf16, each rounded once from its f32 value; the backward rounds du = dy·g'
+to bf16 first, as the TPU kernel multiplies two bf16 tiles.  Their
+``"vec4"`` instance copies 4 values (8 bytes) at a time, so a bf16 row of F
+= 100 (200 bytes, 8-byte aligned) takes it.  They count in
+``bf16_launches`` and ``bf16_bwd_launches``.
+
+Each ``*_plain`` function is the same function in plain PyTorch, on f32 or
+bf16 operands (widened: a product of two bf16 values is exact in f32; sums
+in f32; the outputs rounded where the kernels round them).
 """
 from __future__ import annotations
 
@@ -43,23 +55,33 @@ from repro_torch.kernels import _build
 launches = 0          # the forward, with or without g'
 int8_launches = 0     # the forward over int8 weights
 bwd_launches = 0      # the backward
+bf16_launches = 0     # the forward's bf16 instance (the compute policy)
+bf16_bwd_launches = 0  # the backward's bf16 instance
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DX_BATCH_TILE, DX_FEATURE_TILE = 32, 128   # fused_input_bwd.cu's BB, BF
+DW_BATCH_CHUNK = 32   # fused_input_bwd.cu's AB: dW's batch rows a stage
+
+
+def _z(x, w, bias):
+    """x·wᵀ + bias in f32 (f64 for f64 operands): bf16 operands widened."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return x.to(acc) @ w.to(acc).t() + bias
 
 
 def fused_input_plain(x, w, bias, mask, act_ids, *, block: int):
-    z = x @ w.t() + bias
+    """→ y (B, H) in x's dtype."""
+    z = _z(x, w, bias)
     cols = act_ids.repeat_interleave(block)
-    return apply_activations_masked(z, cols) * mask
+    return (apply_activations_masked(z, cols) * mask).to(x.dtype)
 
 
 def fused_input_train_plain(x, w, bias, mask, act_ids, *, block: int):
-    """→ (y, g'), both (B, H)."""
-    z = x @ w.t() + bias
+    """→ (y, g'), both (B, H) in x's dtype."""
+    z = _z(x, w, bias)
     cols = act_ids.repeat_interleave(block)
-    return (apply_activations_masked(z, cols) * mask,
-            apply_activation_derivs_masked(z, cols) * mask)
+    return ((apply_activations_masked(z, cols) * mask).to(x.dtype),
+            (apply_activation_derivs_masked(z, cols) * mask).to(x.dtype))
 
 
 def fused_input_int8_plain(x, w_q, w_scale, bias, mask, act_ids, *,
@@ -71,20 +93,28 @@ def fused_input_int8_plain(x, w_q, w_scale, bias, mask, act_ids, *,
 
 
 def fused_input_bwd_plain(dy, g, x, w, *, with_dx: bool):
-    """→ (dx (B, F) or None, dW (H, F)), du = dy·g'."""
-    du = dy * g
-    return (du @ w if with_dx else None), du.t() @ x
+    """→ (dx (B, F) or None, dW (H, F)) in dy's dtype, du = dy·g' (in
+    dy's dtype: bf16 operands give a bf16 du, then widened)."""
+    acc = torch.promote_types(dy.dtype, torch.float32)
+    du = (dy * g).to(acc)
+    dx = (du @ w.to(acc)).to(dy.dtype) if with_dx else None
+    return dx, (du.t() @ x.to(acc)).to(dy.dtype)
+
+
+def _aligned4(*tensors) -> bool:
+    """Every tensor starts on a boundary of 4 of its elements (16 bytes
+    for f32, 8 for bf16)."""
+    return all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
 
 
 def bwd_path(dy, g, x, dw) -> str:
     """The instance a ``fused_input_bwd`` launch takes: ``"vec4"`` where F
-    and H are multiples of 4 and dy, g', x and dW start on a 16-byte
-    boundary (a thread's 4 features are one float4 of a dW row, dy and g'
-    come in 16-byte copies along H), else ``"scalar"``.
-    ``csrc/fused_input_bwd.cu::fused_input_bwd_f32`` applies the same
-    rule."""
-    vec = x.shape[1] % 4 == 0 and dy.shape[1] % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (dy, g, x, dw))
+    and H are multiples of 4 and dy, g', x and dW start on a boundary of 4
+    of their elements (16 bytes f32, 8 bf16: dy and g' come 4 values a
+    copy along H), else ``"scalar"``.  ``csrc/fused_input_bwd.cu``'s
+    entries apply the same rule."""
+    vec = x.shape[1] % 4 == 0 and dy.shape[1] % 4 == 0 \
+        and _aligned4(dy, g, x, dw)
     return "vec4" if vec else "scalar"
 
 
@@ -92,11 +122,13 @@ def fwd_path(x, w, y, g=None) -> str:
     """The instance a forward launch takes: ``"vec4"`` where F, H and w's
     row stride (F, or F_pad for int8 weights) are multiples of 4 and x, w,
     y (and g') start on a 16-byte boundary (W rows and x come in 16-byte
-    copies, 4 int8 weights a copy, y and g' leave in 16-byte stores), else
+    copies, 4 int8 weights a copy, y and g' leave in 16-byte stores) — an
+    8-byte one under the bf16 policy, 4 values a copy or a store — else
     ``"scalar"``.  ``csrc/fused_input.cu::launch`` applies the same rule."""
+    align = 8 if x.dtype == torch.bfloat16 else 16
     vec = x.shape[1] % 4 == 0 and w.shape[0] % 4 == 0 \
         and w.shape[1] % 4 == 0 and all(
-            t.data_ptr() % 16 == 0 for t in (x, w, y, g) if t is not None)
+            t.data_ptr() % align == 0 for t in (x, w, y, g) if t is not None)
     return "vec4" if vec else "scalar"
 
 
@@ -106,10 +138,11 @@ def _fwd_args(x, w, bias, mask, act_ids, block):
     if w.shape[1] != f or bias.shape != (h,) or mask.shape != (h,) \
             or act_ids.shape != (h // block,):
         raise ValueError("fused_input: inconsistent shapes")
+    _build.operand_suffix("fused_input", x)
     _build.check_tensors(
         "fused_input", x,
-        ("x", x, torch.float32),
-        ("w", w, torch.float32),
+        ("x", x, x.dtype),
+        ("w", w, x.dtype),
         ("bias", bias, torch.float32),
         ("mask", mask, torch.float32),
         ("act_ids", act_ids, torch.int32))
@@ -117,34 +150,37 @@ def _fwd_args(x, w, bias, mask, act_ids, block):
 
 
 def fused_input_cuda(x, w, bias, mask, act_ids, *, block: int):
-    global launches
+    """One launch → y (B, H) in x's dtype (f32 or bf16)."""
     b, f, h = _fwd_args(x, w, bias, mask, act_ids, block)
-    fn = _build.function("fused_input", "fused_input_infer_f32",
-                         [_P] * 6 + [_I] * 4 + [_P])
-    y = torch.empty(b, h, device=x.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_input",
+        "fused_input_infer_" + _build.operand_suffix("fused_input", x),
+        [_P] * 6 + [_I] * 4 + [_P])
+    y = torch.empty(b, h, device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), mask.data_ptr(),
                 act_ids.data_ptr(), y.data_ptr(), b, f, h, block,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_input")
-    launches += 1
+    _build.count(globals(), "launches", x.dtype)
     return y
 
 
 def fused_input_train_cuda(x, w, bias, mask, act_ids, *, block: int):
-    """The training forward: one launch → (y, g')."""
-    global launches
+    """The training forward: one launch → (y, g') in x's dtype."""
     b, f, h = _fwd_args(x, w, bias, mask, act_ids, block)
-    fn = _build.function("fused_input", "fused_input_train_f32",
-                         [_P] * 7 + [_I] * 4 + [_P])
-    y = torch.empty(b, h, device=x.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_input",
+        "fused_input_train_" + _build.operand_suffix("fused_input", x),
+        [_P] * 7 + [_I] * 4 + [_P])
+    y = torch.empty(b, h, device=x.device, dtype=x.dtype)
     g = torch.empty_like(y)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w.data_ptr(), bias.data_ptr(), mask.data_ptr(),
                 act_ids.data_ptr(), y.data_ptr(), g.data_ptr(), b, f, h,
                 block, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_input_train")
-    launches += 1
+    _build.count(globals(), "launches", x.dtype)
     return y, g
 
 
@@ -180,38 +216,46 @@ def fused_input_int8_cuda(x, w_q, w_scale, bias, mask, act_ids, *,
 
 
 def fused_input_bwd_cuda(dy, g, x, w, *, with_dx: bool):
-    """One launch → (dx (B, F) or None, dW (H, F)).  The dx path sums
-    partials over fixed hidden chunks in a workspace allocated here."""
-    global bwd_launches
+    """One launch → (dx (B, F) or None, dW (H, F)) in dy's dtype (f32 or
+    bf16).  The dx path sums partials over fixed hidden chunks in a
+    workspace allocated here; a bf16 dW past one 32-row batch chunk sums
+    in an f32 scratch allocated here too."""
     b, h = dy.shape
     f = x.shape[1]
+    bf16 = _build.operand_suffix("fused_input_bwd", dy) == "bf16"
     _build.check_tensors(
         "fused_input_bwd", dy,
-        ("dy", dy, torch.float32),
-        ("g", g, torch.float32),
-        ("x", x, torch.float32),
-        ("w", w, torch.float32))
+        ("dy", dy, dy.dtype),
+        ("g", g, dy.dtype),
+        ("x", x, dy.dtype),
+        ("w", w, dy.dtype))
     if g.shape != (b, h) or x.shape[0] != b or w.shape != (h, f):
         raise ValueError("fused_input_bwd: inconsistent shapes")
-    fn = _build.function("fused_input_bwd", "fused_input_bwd_f32",
-                         [_P] * 8 + [_I] * 4 + [_P])
-    dw = torch.empty(h, f, device=dy.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_input_bwd",
+        "fused_input_bwd_bf16" if bf16 else "fused_input_bwd_f32",
+        [_P] * (9 if bf16 else 8) + [_I] * 4 + [_P])
+    dw = torch.empty(h, f, device=dy.device, dtype=dy.dtype)
+    # a bf16 dW's f32 sums where B spans more than one batch chunk
+    dws = (torch.empty(h, f, device=dy.device, dtype=torch.float32)
+           if bf16 and b > DW_BATCH_CHUNK else None)
     dx = ws = tickets = None
     if with_dx:
         chunks = _build.function("fused_input_bwd", "fused_input_bwd_chunks",
                                  [_I, ctypes.POINTER(_I)])
         chunk_h = _I(0)
         n_chunks = chunks(h, ctypes.byref(chunk_h))
-        dx = torch.empty(b, f, device=dy.device, dtype=torch.float32)
+        dx = torch.empty(b, f, device=dy.device, dtype=dy.dtype)
         ws = torch.empty(n_chunks, b, f, device=dy.device,
                          dtype=torch.float32)
         n_groups = -(-b // DX_BATCH_TILE) * -(-f // DX_FEATURE_TILE)
         tickets = torch.zeros(n_groups, device=dy.device, dtype=torch.int32)
     ptr = (lambda t: None if t is None else t.data_ptr())
+    outs = (dw.data_ptr(), ptr(dws)) if bf16 else (dw.data_ptr(),)
     with torch.cuda.device(dy.device):
         rc = fn(dy.data_ptr(), g.data_ptr(), x.data_ptr(), w.data_ptr(),
-                dw.data_ptr(), ptr(dx), ptr(ws), ptr(tickets), b, f, h,
+                *outs, ptr(dx), ptr(ws), ptr(tickets), b, f, h,
                 int(bool(with_dx)), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_input_bwd")
-    bwd_launches += 1
+    _build.count(globals(), "bwd_launches", dy.dtype)
     return dx, dw

@@ -31,7 +31,16 @@ member units and job packing of ``block_diag.member_units`` /
 n_in_tiles·blk) and dWB (n_param_blocks, blk, blk), member by member.  ``transposed_tiles`` (the JAX package's per-member-transposed
 tiles) feeds the unfused route's dh.
 
-Each ``*_plain`` function is the same function in plain PyTorch.
+The bf16 compute policy (DESIGN.md §7): bf16 x and tiles (b_eff, mask
+f32) launch the same cores' bf16 instances (entries
+``fused_layer_infer_bf16`` / ``fused_layer_train_bf16``: the group core's
+``BF16W`` policy widens x and the tiles as it stages them, y and g' leave
+rounded once to bf16; ``fused_layer_dx_dw_bf16``: du = dy·g' rounded to
+bf16, dx and dWB rounded once from their f32 sums).  They count in
+``bf16_launches`` and ``bf16_dx_dw_launches``.
+
+Each ``*_plain`` function is the same function in plain PyTorch, on f32 or
+bf16 operands (widened, summed in f32, rounded where the kernels round).
 
 The TPU kernels walk the flat ``BlockDiagLayout`` steps in order on a
 sequential grid axis.  Each output tile's steps are consecutive there, so
@@ -59,7 +68,10 @@ from repro_torch.kernels.block_diag import (
 launches = 0          # the forward, with or without g'
 int8_launches = 0     # the forward over int8 tiles
 dx_dw_launches = 0    # the backward
+bf16_launches = 0     # the forward's bf16 instance (the compute policy)
+bf16_dx_dw_launches = 0  # the backward's bf16 instance
 MAX_BLOCK = 128       # widest tile the kernel keeps in shared memory
+DX_DW_BATCH_CHUNK = 32   # member_units.cuh's BCH: the backward's rows a pass
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -193,10 +205,19 @@ def kernel_stages() -> tuple[int, int, int, int]:
     return tuple(out)
 
 
+def _z(x, wb, b_eff, rowptr, s_in, s_w, blk):
+    """The projection plus the bias in f32 (f64 for f64 operands)."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    return block_diag_fwd_plain(x.to(acc), wb.to(acc), rowptr, s_in, s_w,
+                                blk=blk) + b_eff
+
+
 def fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
                       blk: int):
-    z = block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, blk=blk) + b_eff
-    return apply_activations_masked(z, tile_act.repeat_interleave(blk)) * mask
+    """→ y in x's dtype."""
+    z = _z(x, wb, b_eff, rowptr, s_in, s_w, blk)
+    return (apply_activations_masked(z, tile_act.repeat_interleave(blk))
+            * mask).to(x.dtype)
 
 
 def fused_layer_int8_plain(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
@@ -209,39 +230,42 @@ def fused_layer_int8_plain(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
 
 def fused_layer_train_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                             *, blk: int):
-    """→ (y, g'), both (B, n_out_tiles·blk)."""
-    z = block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, blk=blk) + b_eff
+    """→ (y, g'), both (B, n_out_tiles·blk) in x's dtype."""
+    z = _z(x, wb, b_eff, rowptr, s_in, s_w, blk)
     cols = tile_act.repeat_interleave(blk)
-    return (apply_activations_masked(z, cols) * mask,
-            apply_activation_derivs_masked(z, cols) * mask)
+    return ((apply_activations_masked(z, cols) * mask).to(x.dtype),
+            (apply_activation_derivs_masked(z, cols) * mask).to(x.dtype))
 
 
 def fused_layer_dx_dw_plain(dy, g, x, wb, units, job_ptr, *, blk: int):
     """→ (dx (B, n_in_tiles·blk), dWB (n_param_blocks, blk, blk)), du =
     dy·g': each real tile (r, c) of a unit adds du_r·W_rc to dx_c and owns
     dW_rc = du_rᵀ·x_c; a pass-through tile copies du into dx.  ``job_ptr``
-    (the kernel's packing) does not change the function."""
+    (the kernel's packing) does not change the function.  dx and dWB come
+    in dy's dtype; bf16 operands give a bf16 du (then widened)."""
     b = dy.shape[0]
-    du = (dy * g).reshape(b, -1, blk)
-    xt = x.reshape(b, -1, blk)
+    acc = torch.promote_types(dy.dtype, torch.float32)
+    du = (dy * g).to(acc).reshape(b, -1, blk)
+    xt = x.to(acc).reshape(b, -1, blk)
     rt, q, o_t, i_t = unit_tiles(units)
     dx = torch.zeros_like(xt)
     du_r = du[:, o_t[rt]]
     dx.index_add_(1, i_t[rt],
-                  torch.einsum("bsr,src->bsc", du_r, wb[q[rt]]))
+                  torch.einsum("bsr,src->bsc", du_r, wb[q[rt]].to(acc)))
     dx[:, i_t[~rt]] = du[:, o_t[~rt]]
-    dwb = torch.zeros_like(wb)
+    dwb = torch.zeros(wb.shape, dtype=acc, device=wb.device)
     dwb[q[rt]] = torch.einsum("bsr,bsc->src", du_r, xt[:, i_t[rt]])
-    return dx.reshape(b, -1), dwb
+    return dx.reshape(b, -1).to(dy.dtype), dwb.to(dy.dtype)
 
 
 def _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, blk,
-              w_dtype=torch.float32):
+              w_dtype=None):
     n_out = rowptr.shape[0] - 1
+    _build.operand_suffix("fused_layer", x)
     _build.check_tensors(
         "fused_layer", x,
-        ("x", x, torch.float32),
-        ("wb", wb, w_dtype),
+        ("x", x, x.dtype),
+        ("wb", wb, x.dtype if w_dtype is None else w_dtype),
         ("b_eff", b_eff, torch.float32),
         ("mask", mask, torch.float32),
         ("tile_act", tile_act, torch.int32),
@@ -268,34 +292,36 @@ def _ptrs(*tensors):
 
 def fused_layer_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
                      blk: int):
-    """One launch → y (B, n_out_tiles·blk), walking the CSR's group table
-    (``block_diag.groups_on``)."""
-    global launches
+    """One launch → y (B, n_out_tiles·blk) in x's dtype, walking the CSR's
+    group table (``block_diag.groups_on``)."""
     b, n_out = _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk)
     groups = checked_groups("fused_layer", x, wb, rowptr, s_in, s_w, blk)
-    fn = _build.function("fused_layer", "fused_layer_infer_f32",
-                         [_P] * 9 + [_I] * 5 + [_P])
-    y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_layer",
+        "fused_layer_infer_" + _build.operand_suffix("fused_layer", x),
+        [_P] * 9 + [_I] * 5 + [_P])
+    y = torch.empty(b, n_out * blk, device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = fn(*_ptrs(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y),
                 b, x.shape[1] // blk, n_out, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer")
-    launches += 1
+    _build.count(globals(), "launches", x.dtype)
     return y
 
 
 def fused_layer_train_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                            *, blk: int):
-    """The training forward: one launch → (y, g')."""
-    global launches
+    """The training forward: one launch → (y, g') in x's dtype."""
     b, n_out = _fwd_args(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk)
     groups = checked_groups("fused_layer", x, wb, rowptr, s_in, s_w, blk)
-    fn = _build.function("fused_layer", "fused_layer_train_f32",
-                         [_P] * 10 + [_I] * 5 + [_P])
-    y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_layer",
+        "fused_layer_train_" + _build.operand_suffix("fused_layer", x),
+        [_P] * 10 + [_I] * 5 + [_P])
+    y = torch.empty(b, n_out * blk, device=x.device, dtype=x.dtype)
     g = torch.empty_like(y)
     with torch.cuda.device(x.device):
         rc = fn(*_ptrs(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y,
@@ -303,7 +329,7 @@ def fused_layer_train_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                 b, x.shape[1] // blk, n_out, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer_train")
-    launches += 1
+    _build.count(globals(), "launches", x.dtype)
     return y, g
 
 
@@ -314,7 +340,7 @@ def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
     global int8_launches
     b, n_out = _fwd_args(x, wb_q, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk, w_dtype=torch.int8)
-    _build.check_tensors("fused_layer_int8", x,
+    _build.check_tensors("fused_layer_int8", x, ("x", x, torch.float32),
                          ("wb_scale", wb_scale, torch.float32))
     if wb_scale.shape != (wb_q.shape[0],):
         raise ValueError("fused_layer_int8: one scale per tile")
@@ -334,15 +360,17 @@ def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
 
 
 def fused_layer_dx_dw_cuda(dy, g, x, wb, units, job_ptr, *, blk: int):
-    """One launch → (dx (B, n_in_tiles·blk), dWB (n_param, blk, blk))."""
-    global dx_dw_launches
+    """One launch → (dx (B, n_in_tiles·blk), dWB (n_param, blk, blk)) in
+    dy's dtype; a bf16 dWB past one 32-row batch chunk sums in an f32
+    scratch allocated here."""
     b = dy.shape[0]
+    bf16 = _build.operand_suffix("fused_layer_dx_dw", dy) == "bf16"
     _build.check_tensors(
         "fused_layer_dx_dw", dy,
-        ("dy", dy, torch.float32),
-        ("g", g, torch.float32),
-        ("x", x, torch.float32),
-        ("wb", wb, torch.float32),
+        ("dy", dy, dy.dtype),
+        ("g", g, dy.dtype),
+        ("x", x, dy.dtype),
+        ("wb", wb, dy.dtype),
         ("units", units, torch.int32),
         ("job_ptr", job_ptr, torch.int32))
     _check_block(blk)
@@ -353,15 +381,23 @@ def fused_layer_dx_dw_cuda(dy, g, x, wb, units, job_ptr, *, blk: int):
             or job_ptr.dim() != 1:
         raise ValueError("fused_layer_dx_dw: inconsistent shapes")
     check_reach(units, job_ptr, x, dy, wb, blk=blk)
-    fn = _build.function("fused_layer_dx_dw", "fused_layer_dx_dw_f32",
-                         [_P] * 8 + [_I] * 5 + [_P])
     dx = torch.empty_like(x)
     dwb = torch.empty_like(wb)
+    if bf16:
+        fn = _build.function("fused_layer_dx_dw", "fused_layer_dx_dw_bf16",
+                             [_P] * 9 + [_I] * 5 + [_P])
+        dws = (torch.empty(wb.shape, device=dy.device, dtype=torch.float32)
+               if b > DX_DW_BATCH_CHUNK else None)
+        outs = (*_ptrs(dx, dwb), None if dws is None else dws.data_ptr())
+    else:
+        fn = _build.function("fused_layer_dx_dw", "fused_layer_dx_dw_f32",
+                             [_P] * 8 + [_I] * 5 + [_P])
+        outs = _ptrs(dx, dwb)
     with torch.cuda.device(dy.device):
-        rc = fn(*_ptrs(dy, g, x, wb, units, job_ptr, dx, dwb),
+        rc = fn(*_ptrs(dy, g, x, wb, units, job_ptr), *outs,
                 b, x.shape[1] // blk, dy.shape[1] // blk, blk,
                 job_ptr.shape[0] - 1,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer_dx_dw")
-    dx_dw_launches += 1
+    _build.count(globals(), "dx_dw_launches", dy.dtype)
     return dx, dwb

@@ -22,6 +22,12 @@ f32 scale per hidden tile (H / block,), on the same streaming core, each
 thread's weights dequantized in registers once a tile; its ``kernel_path``
 is the same rule, applied to an int8 w2 (4-byte alignment).
 ``infer_head_int8_plain`` dequantizes, then runs ``infer_head_plain``.
+
+The bf16 compute policy (DESIGN.md §7): bf16 h and w2 (b2 f32) launch the
+f32 kernel's bf16 instance (entry ``infer_head_bf16``, the streaming core's
+``BF16Weights`` and bf16 h loads, widened): the logits (and log-probs) stay
+f32.  Its ``kernel_path`` is the same rule at bf16's 8-byte alignment.  It
+counts in ``bf16_launches``.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from repro_torch.kernels import _build
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 launches = 0          # f32 weights
 int8_launches = 0     # int8 weights
+bf16_launches = 0     # bf16 h and weights (the compute policy)
 MAX_O = 16            # classes the kernel keeps in registers (infer_head.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -106,7 +113,8 @@ def infer_head_int8_plain(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
 
 def _check(where, h, w2, b2, member_ptr, w_dtype):
     _build.check_tensors(where, h,
-                         ("h", h, torch.float32), ("w2", w2, w_dtype),
+                         ("h", h, h.dtype if w_dtype == h.dtype
+                          else torch.float32), ("w2", w2, w_dtype),
                          ("b2", b2, torch.float32),
                          ("member_ptr", member_ptr, torch.int32))
     o, p = w2.shape[0], b2.shape[0]
@@ -120,11 +128,13 @@ def _check(where, h, w2, b2, member_ptr, w_dtype):
 
 def infer_head_cuda(h, w2, b2, member_ptr, *, block: int,
                     log_probs: bool = False):
-    global launches
-    _check("infer_head", h, w2, b2, member_ptr, torch.float32)
+    """One launch → (B, P, O) f32 logits (log-probs), h and w2 f32 or both
+    bf16."""
+    suffix = _build.operand_suffix("infer_head", h)
+    _check("infer_head", h, w2, b2, member_ptr, h.dtype)
     b, hh = h.shape
     o, p = w2.shape[0], b2.shape[0]
-    fn = _build.function("infer_head", "infer_head_f32",
+    fn = _build.function("infer_head", "infer_head_" + suffix,
                          [_P] * 5 + [_I] * 6 + [_P])
     y = torch.empty(b, p, o, device=h.device, dtype=torch.float32)
     with torch.cuda.device(h.device):
@@ -132,7 +142,7 @@ def infer_head_cuda(h, w2, b2, member_ptr, *, block: int,
                 member_ptr.data_ptr(), y.data_ptr(), b, hh, o, p, block,
                 int(bool(log_probs)), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "infer_head")
-    launches += 1
+    _build.count(globals(), "launches", h.dtype)
     return y
 
 

@@ -15,6 +15,13 @@ both f32.  ``b_real`` is the row count the mean divides by.
 Backward: d_per (P,), dl (B, P, O), h, w2 and one member id per hidden
 block → dh (B, H) and dW (O, H).
 
+The bf16 compute policy (DESIGN.md §7): bf16 h and w2 (b2 f32) launch the
+two kernels' bf16 instances (entries ``loss_head_fwd_bf16``,
+``loss_head_bwd_bf16``): per and dl stay f32; the backward rounds dl·d_per
+to bf16 before its products, as the TPU kernel casts it to the operands'
+dtype, and returns dh and dW in bf16, each rounded once from its f32 sum.
+They count in ``bf16_fwd_launches`` and ``bf16_bwd_launches``.
+
 Both kernels stream h with 16-byte loads (``"vec4"``) or, where the block
 or a tensor does not allow it, with 4-byte ones (``"scalar"``, the same
 kernel's other instance): ``kernel_path`` says which, by the rule the C
@@ -37,6 +44,8 @@ from repro_torch.kernels.infer_head import cta_members as fwd_cta_members
 # kernel launches (the CPU dispatch in ops counts its plain calls too)
 fwd_launches = 0
 bwd_launches = 0
+bf16_fwd_launches = 0    # the bf16 instances (the compute policy)
+bf16_bwd_launches = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -55,11 +64,15 @@ def loss_head_fwd_plain(h, w2, b2, targets, member_ptr, *, block: int,
 
 
 def loss_head_bwd_plain(dper, dl, h, w2, block_seg, *, block: int):
+    """→ (dh, dW) in h's dtype: for bf16 h and w2, dl·d_per rounded to
+    bf16 first, the sums in f32, each output rounded once."""
+    acc = torch.promote_types(h.dtype, torch.float32)
     seg = block_seg.long().repeat_interleave(block)            # (H,)
-    dlu = (dl * dper[None, :, None])[:, seg, :]                # (B, H, O)
-    dh = (dlu * w2.t()[None]).sum(-1)
-    dw = (dlu * h[:, :, None]).sum(0).t()
-    return dh, dw
+    g = (dl * dper[None, :, None]).to(h.dtype).to(acc)
+    dlu = g[:, seg, :]                                         # (B, H, O)
+    dh = (dlu * w2.to(acc).t()[None]).sum(-1)
+    dw = (dlu * h.to(acc)[:, :, None]).sum(0).t()
+    return dh.to(h.dtype), dw.to(h.dtype)
 
 
 def _check_o(o: int):
@@ -71,13 +84,13 @@ def _check_o(o: int):
 def loss_head_fwd_cuda(h, w2, b2, targets, member_ptr, *, block: int,
                        b_real: int):
     """One launch → (per (P,), dl (B, P, O))."""
-    global fwd_launches
+    suffix = _build.operand_suffix("loss_head_fwd", h)
     b, hh = h.shape
     o, p = w2.shape[0], b2.shape[0]
     _build.check_tensors(
         "loss_head_fwd", h,
-        ("h", h, torch.float32),
-        ("w2", w2, torch.float32),
+        ("h", h, h.dtype),
+        ("w2", w2, h.dtype),
         ("b2", b2, torch.float32),
         ("targets", targets, torch.int32),
         ("member_ptr", member_ptr, torch.int32))
@@ -85,7 +98,7 @@ def loss_head_fwd_cuda(h, w2, b2, targets, member_ptr, *, block: int,
             or member_ptr.shape != (p + 1,):
         raise ValueError("loss_head_fwd: inconsistent shapes")
     _check_o(o)
-    fn = _build.function("loss_head", "loss_head_fwd_f32",
+    fn = _build.function("loss_head", "loss_head_fwd_" + suffix,
                          [_P] * 7 + [_I] * 5 + [_F, _P])
     per = torch.empty(p, device=h.device, dtype=torch.float32)
     dl = torch.empty(b, p, o, device=h.device, dtype=torch.float32)
@@ -95,13 +108,13 @@ def loss_head_fwd_cuda(h, w2, b2, targets, member_ptr, *, block: int,
                 dl.data_ptr(), b, hh, o, p, block, 1.0 / b_real,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "loss_head_fwd")
-    fwd_launches += 1
+    _build.count(globals(), "fwd_launches", h.dtype)
     return per, dl
 
 
 def loss_head_bwd_cuda(dper, dl, h, w2, block_seg, *, block: int):
-    """One launch → (dh (B, H), dW (O, H))."""
-    global bwd_launches
+    """One launch → (dh (B, H), dW (O, H)) in h's dtype."""
+    suffix = _build.operand_suffix("loss_head_bwd", h)
     b, hh = h.shape
     o = w2.shape[0]
     p = dper.shape[0]
@@ -109,21 +122,21 @@ def loss_head_bwd_cuda(dper, dl, h, w2, block_seg, *, block: int):
         "loss_head_bwd", h,
         ("dper", dper, torch.float32),
         ("dl", dl, torch.float32),
-        ("h", h, torch.float32),
-        ("w2", w2, torch.float32),
+        ("h", h, h.dtype),
+        ("w2", w2, h.dtype),
         ("block_seg", block_seg, torch.int32))
     if w2.shape[1] != hh or dl.shape != (b, p, o) \
             or block_seg.shape != (hh // block,):
         raise ValueError("loss_head_bwd: inconsistent shapes")
     _check_o(o)
-    fn = _build.function("loss_head", "loss_head_bwd_f32",
+    fn = _build.function("loss_head", "loss_head_bwd_" + suffix,
                          [_P] * 7 + [_I] * 5 + [_P])
-    dh = torch.empty(b, hh, device=h.device, dtype=torch.float32)
-    dw = torch.empty(o, hh, device=h.device, dtype=torch.float32)
+    dh = torch.empty(b, hh, device=h.device, dtype=h.dtype)
+    dw = torch.empty(o, hh, device=h.device, dtype=h.dtype)
     with torch.cuda.device(h.device):
         rc = fn(dper.data_ptr(), dl.data_ptr(), h.data_ptr(), w2.data_ptr(),
                 block_seg.data_ptr(), dh.data_ptr(), dw.data_ptr(), b, hh, o,
                 p, block, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "loss_head_bwd")
-    bwd_launches += 1
+    _build.count(globals(), "bwd_launches", h.dtype)
     return dh, dw

@@ -34,13 +34,25 @@ operands of one dtype and return their result in that dtype.
 
 Static layout arrays (activation ids, masks, segment ids) may be numpy or
 tensors; callers on the hot path pass tensors already on the device.
-Activations compute in f32; weights are f32, or int8 on the serving twins.
+
+Operands (activations and weights) are f32, or bf16 under the compute
+policy (DESIGN.md §7): the fused input and mid layers and both heads take
+either, of one dtype, and launch the kernel's instance of that dtype (the
+CPU dispatch runs the plain version on them and counts in the ``bf16_``
+counters).  Accumulators, biases, masks, the heads' logits, losses and
+dlogits, and the bias cotangents stay f32 (``Σ_b dy·g'`` sums f32 products
+of the bf16 values, as JAX's ``(dy.astype(f32) * gp.astype(f32)).sum(0)``);
+the other cotangents come back in the operands' dtype.  The unfused
+route's kernels (``block_diag_gemm``, ``m3_matmul``) take f32 only so far
+(ROADMAP.md, Queue 1 item 6b); the int8 serving twins take f32
+activations.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import block_diag as _bdk
 from repro_torch.kernels import flash_attn as _fak
 from repro_torch.kernels import fused_input as _fik
@@ -70,9 +82,33 @@ def _as(a, device, dtype) -> torch.Tensor:
 def _require_f32(**tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernels compute in "
-                            "float32 only (bf16: see ROADMAP.md; int8 "
+            raise TypeError(f"{name} is {t.dtype}; it is float32 under every "
+                            "policy here (bf16 on the unfused route and the "
+                            "M3 kernels: ROADMAP.md, Queue 1 item 6b; int8 "
                             "weights: the *_int8 entries)")
+
+
+def _require_operands(**tensors):
+    """The compute policy's operands: f32, or bf16, all of one dtype."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(
+            "operands " + ", ".join(f"{n} {t.dtype}"
+                                    for n, t in tensors.items())
+            + ": the kernels take float32, or bfloat16 (the compute "
+            "policy), of one dtype")
+
+
+def _count(mod, name: str, t: torch.Tensor):
+    """The CPU dispatch's count of a plain call, in the kernel's counter
+    (``bf16_`` for bf16 operands)."""
+    _build.count(vars(mod), name, t.dtype)
+
+
+def _bias_grad(dy: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Σ_b dy·g' of f32 products, whatever the operands' dtype (JAX:
+    ``(dy.astype(f32) * gp.astype(f32)).sum(0)``)."""
+    return (dy.float() * g.float()).sum(0)
 
 
 def _require_int8(what: str, t: torch.Tensor):
@@ -91,17 +127,18 @@ def _wants_grad(*tensors) -> bool:
 def _input_args(x, w_in, b_in, block_act_ids, mask, block):
     if x.shape[1] != w_in.shape[1]:
         raise ValueError(f"feature axis {x.shape[1]} != {w_in.shape[1]}")
-    _require_f32(w_in=w_in)
+    _require_operands(x=x, w_in=w_in)
     return _input_common(x, w_in.shape[0], b_in, block_act_ids, mask, block)
 
 
 def _input_common(x, h, b_in, block_act_ids, mask, block):
-    """The checks shared by the f32 and int8 input layers → (ids, mask)."""
+    """The checks shared by the f32/bf16 and int8 input layers → (ids,
+    mask)."""
     if h % block:
         raise ValueError(f"hidden axis {h} not {block}-aligned")
     if tuple(b_in.shape) != (h,):
         raise ValueError(f"bias shape {tuple(b_in.shape)} != ({h},)")
-    _require_f32(x=x, b_in=b_in)
+    _require_f32(b_in=b_in)
     dev = x.device
     ids = _as(block_act_ids, dev, torch.int32)
     m = _as(mask, dev, torch.float32)
@@ -116,13 +153,14 @@ def fused_input_infer(x: torch.Tensor, w_in: torch.Tensor,
                       b_in: torch.Tensor, block_act_ids, mask, *,
                       block: int) -> torch.Tensor:
     """Dense input projection + bias + per-block activation + padding mask
-    in one kernel.  x (B, F), w_in (H, F), b_in (H,) → (B, H) of
-    ``act(x·W_inᵀ + b_in)·mask``.  H must be block-aligned."""
+    in one kernel.  x (B, F), w_in (H, F) (f32, or both bf16), b_in (H,)
+    f32 → (B, H) of ``act(x·W_inᵀ + b_in)·mask`` in x's dtype.  H must be
+    block-aligned."""
     ids, m = _input_args(x, w_in, b_in, block_act_ids, mask, block)
     if _on_card(x):
         return _fik.fused_input_cuda(x.contiguous(), w_in.contiguous(),
                                      b_in.contiguous(), m, ids, block=block)
-    _fik.launches += 1
+    _count(_fik, "launches", x)
     return _fik.fused_input_plain(x, w_in, b_in, m, ids, block=block)
 
 
@@ -146,7 +184,7 @@ def fused_input_infer_int8(x: torch.Tensor, w_q: torch.Tensor,
     if tuple(w_scale.shape) != (h // block,):
         raise ValueError(f"scales {tuple(w_scale.shape)} != "
                          f"({h // block},)")
-    _require_f32(w_scale=w_scale)
+    _require_f32(x=x, w_scale=w_scale)
     if _on_card(x):
         return _fik.fused_input_int8_cuda(
             x.contiguous(), w_q.contiguous(), w_scale.contiguous(),
@@ -168,7 +206,7 @@ class _FusedInput(torch.autograd.Function):
                 x.contiguous(), w_in.contiguous(), b_in.contiguous(), m, ids,
                 block=block)
         else:
-            _fik.launches += 1
+            _count(_fik, "launches", x)
             y, g = _fik.fused_input_train_plain(x, w_in, b_in, m, ids,
                                                 block=block)
         ctx.save_for_backward(x, w_in, g)
@@ -183,10 +221,10 @@ class _FusedInput(torch.autograd.Function):
             dx, dw = _fik.fused_input_bwd_cuda(
                 dy, g, x.contiguous(), w_in.contiguous(), with_dx=want_dx)
         else:
-            _fik.bwd_launches += 1
+            _count(_fik, "bwd_launches", dy)
             dx, dw = _fik.fused_input_bwd_plain(dy, g, x, w_in,
                                                 with_dx=want_dx)
-        db = (dy * g).sum(0) if ctx.needs_input_grad[2] else None
+        db = _bias_grad(dy, g) if ctx.needs_input_grad[2] else None
         return dx, dw, db, None, None, None
 
 
@@ -212,12 +250,13 @@ def _layer_args(h, wb, b_eff, layout, block_act_ids, mask):
     if tuple(wb.shape) != (layout.n_param_blocks, blk, blk):
         raise ValueError(f"weight tiles {tuple(wb.shape)} != "
                          f"({layout.n_param_blocks}, {blk}, {blk})")
-    _require_f32(wb=wb)
+    _require_operands(h=h, wb=wb)
     return _layer_common(h, b_eff, layout, block_act_ids, mask)
 
 
 def _layer_common(h, b_eff, layout, block_act_ids, mask):
-    """The checks shared by the f32 and int8 mid layers → (acts, mask)."""
+    """The checks shared by the f32/bf16 and int8 mid layers → (acts,
+    mask)."""
     blk = layout.block
     if h.shape[1] != layout.n_in_tiles * blk:
         raise ValueError(f"input axis {h.shape[1]} != "
@@ -225,7 +264,7 @@ def _layer_common(h, b_eff, layout, block_act_ids, mask):
     h_out = layout.n_out_tiles * blk
     if tuple(b_eff.shape) != (h_out,):
         raise ValueError(f"bias shape {tuple(b_eff.shape)} != ({h_out},)")
-    _require_f32(h=h, b_eff=b_eff)
+    _require_f32(b_eff=b_eff)
     dev = h.device
     acts = _as(block_act_ids, dev, torch.int32)
     if tuple(acts.shape) != (layout.n_out_tiles,):
@@ -249,10 +288,11 @@ def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
                       ) -> torch.Tensor:
     """Block-diagonal projection + gated bias + per-tile activation +
     padding mask in one kernel.  h (B, n_in_tiles·blk), wb
-    (n_param_blocks, blk, blk), b_eff (n_out_tiles·blk,), ``layout`` a
-    ``BlockDiagLayout``, ``block_act_ids`` / ``mask`` of the OUTPUT layer →
-    (B, n_out_tiles·blk).  Pass-through members use the shared identity
-    tile appended here."""
+    (n_param_blocks, blk, blk) (f32, or both bf16), b_eff
+    (n_out_tiles·blk,) f32, ``layout`` a ``BlockDiagLayout``,
+    ``block_act_ids`` / ``mask`` of the OUTPUT layer → (B,
+    n_out_tiles·blk) in h's dtype.  Pass-through members use the shared
+    identity tile appended here."""
     acts, m = _layer_args(h, wb, b_eff, layout, block_act_ids, mask)
     blk = layout.block
     wb_aug = _augment(wb)
@@ -261,7 +301,7 @@ def fused_layer_infer(h: torch.Tensor, wb: torch.Tensor,
         return _flk.fused_layer_cuda(h.contiguous(), wb_aug,
                                      b_eff.contiguous(), m, acts, rowptr,
                                      s_in, s_w, blk=blk)
-    _flk.launches += 1
+    _count(_flk, "launches", h)
     return _flk.fused_layer_plain(h, wb_aug, b_eff, m, acts, rowptr, s_in,
                                   s_w, blk=blk)
 
@@ -283,7 +323,7 @@ def fused_layer_infer_int8(h: torch.Tensor, wb_q: torch.Tensor,
             "quantize_population)")
     if tuple(wb_scale.shape) != (n_tiles,):
         raise ValueError(f"scales {tuple(wb_scale.shape)} != ({n_tiles},)")
-    _require_f32(wb_scale=wb_scale)
+    _require_f32(h=h, wb_scale=wb_scale)
     acts, m = _layer_common(h, b_eff, layout, block_act_ids, mask)
     rowptr, s_in, s_w = _flk.schedule_on(layout, h.device)
     args = (h.contiguous(), wb_q.contiguous(), wb_scale.contiguous(),
@@ -308,7 +348,7 @@ class _FusedLayer(torch.autograd.Function):
         if _on_card(h):
             y, g = _flk.fused_layer_train_cuda(*args, blk=blk)
         else:
-            _flk.launches += 1
+            _count(_flk, "launches", h)
             y, g = _flk.fused_layer_train_plain(*args, blk=blk)
         ctx.layout = layout
         ctx.save_for_backward(h, wb_aug, g)
@@ -325,9 +365,9 @@ class _FusedLayer(torch.autograd.Function):
         if _on_card(dy):
             dx, dwb = _flk.fused_layer_dx_dw_cuda(*args, blk=layout.block)
         else:
-            _flk.dx_dw_launches += 1
+            _count(_flk, "dx_dw_launches", dy)
             dx, dwb = _flk.fused_layer_dx_dw_plain(*args, blk=layout.block)
-        db = (dy * g).sum(0) if ctx.needs_input_grad[2] else None
+        db = _bias_grad(dy, g) if ctx.needs_input_grad[2] else None
         return dx, dwb, db, None, None, None
 
 
@@ -553,7 +593,7 @@ def _head_args(h, w_out, b_out, block_seg_ids, block_h):
     if b_out.shape[1] != w_out.shape[0]:
         raise ValueError(f"bias {tuple(b_out.shape)} vs {w_out.shape[0]} "
                          "classes")
-    _require_f32(h=h, b_out=b_out)
+    _require_f32(b_out=b_out)
     dev = h.device
     if not isinstance(block_seg_ids, torch.Tensor) \
             and np.any(np.diff(np.asarray(block_seg_ids)) < 0):
@@ -570,18 +610,18 @@ def infer_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
                block_seg_ids, *, block_h: int,
                log_probs: bool = False) -> torch.Tensor:
     """Forward-only output head: M3 projection + per-member bias (+ stable
-    log-softmax) in one kernel.  h (B, H), w_out (O, H), b_out (P, O) →
-    (B, P, O) f32 logits, or log-probabilities with ``log_probs``.  H must
-    be block_h-aligned and every member's blocks contiguous (sorted
-    ``block_seg_ids``)."""
+    log-softmax) in one kernel.  h (B, H), w_out (O, H) (f32, or both
+    bf16), b_out (P, O) f32 → (B, P, O) f32 logits, or log-probabilities
+    with ``log_probs``.  H must be block_h-aligned and every member's blocks
+    contiguous (sorted ``block_seg_ids``)."""
     seg = _head_args(h, w_out, b_out, block_seg_ids, block_h)
-    _require_f32(w_out=w_out)
+    _require_operands(h=h, w_out=w_out)
     ptr = _ihk.member_ptr(seg, b_out.shape[0])
     if _on_card(h):
         return _ihk.infer_head_cuda(h.contiguous(), w_out.contiguous(),
                                     b_out.contiguous(), ptr, block=block_h,
                                     log_probs=log_probs)
-    _ihk.launches += 1
+    _count(_ihk, "launches", h)
     return _ihk.infer_head_plain(h, w_out, b_out, ptr, block=block_h,
                                  log_probs=log_probs)
 
@@ -599,7 +639,7 @@ def infer_head_int8(h: torch.Tensor, w_q: torch.Tensor,
     if tuple(w_scale.shape) != (h.shape[1] // block_h,):
         raise ValueError(f"scales {tuple(w_scale.shape)} != "
                          f"({h.shape[1] // block_h},)")
-    _require_f32(w_scale=w_scale)
+    _require_f32(h=h, w_scale=w_scale)
     ptr = _ihk.member_ptr(seg, b_out.shape[0])
     if _on_card(h):
         return _ihk.infer_head_int8_cuda(
@@ -624,7 +664,7 @@ class _LossHead(torch.autograd.Function):
             per, dl = _lhk.loss_head_fwd_cuda(*args, block=block_h,
                                               b_real=b_real)
         else:
-            _lhk.fwd_launches += 1
+            _count(_lhk, "fwd_launches", h)
             per, dl = _lhk.loss_head_fwd_plain(*args, block=block_h,
                                                b_real=b_real)
         ctx.block_h = block_h
@@ -639,7 +679,7 @@ class _LossHead(torch.autograd.Function):
         if _on_card(dper):
             dh, dw = _lhk.loss_head_bwd_cuda(*args, block=ctx.block_h)
         else:
-            _lhk.bwd_launches += 1
+            _count(_lhk, "bwd_launches", h)
             dh, dw = _lhk.loss_head_bwd_plain(*args, block=ctx.block_h)
         db = dper[:, None] * dl.sum(0) if ctx.needs_input_grad[2] else None
         return dh, dw, db, None, None, None
@@ -649,11 +689,12 @@ def loss_head(h: torch.Tensor, w_out: torch.Tensor, b_out: torch.Tensor,
               targets, block_seg_ids, *, block_h: int) -> torch.Tensor:
     """Output projection + per-member softmax cross-entropy in one kernel,
     differentiable through a one-launch backward (JAX: ``ops.loss_head``'s
-    custom VJP).  h (B, H), w_out (O, H), b_out (P, O), integer targets
-    (B,) → per-member mean NLL (P,) f32; ``per.sum()`` is the training
-    loss.  The (B, P, O) logits never reach device memory."""
+    custom VJP).  h (B, H), w_out (O, H) (f32, or both bf16: dh and dW_out
+    come back bf16), b_out (P, O) f32, integer targets (B,) → per-member
+    mean NLL (P,) f32; ``per.sum()`` is the training loss.  The (B, P, O)
+    logits never reach device memory."""
     seg = _head_args(h, w_out, b_out, block_seg_ids, block_h)
-    _require_f32(w_out=w_out)
+    _require_operands(h=h, w_out=w_out)
     tgt = _as(targets, h.device, torch.int32).reshape(-1)
     if tgt.shape[0] != h.shape[0]:
         raise ValueError(f"{tgt.shape[0]} targets for {h.shape[0]} rows")

@@ -9,13 +9,17 @@ counts the plain version's calls in the same counter.  So the budgets below are 
 device.  The training forwards (the kernels with g' in their epilogue)
 count under the serving forwards' names: they are the same kernels.  The
 int8 serving kernels count under names of their own (``*_int8``), so a run
-shows which weights it served.  The unfused route's backward dh is the
+shows which weights it served, and so do the bf16 instances of the bf16
+compute policy (``*_bf16``: the fused input and mid layers, both
+directions, and the two heads), so a run shows which policy it ran.  The unfused route's backward dh is the
 forward block-diagonal kernel on transposed tiles, and counts as
 ``block_diag_fwd``, as in the JAX package.  ``flash_attention`` counts its
 forwards only: its backward recomputes through the dense plain version and
 launches nothing.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels import (block_diag, flash_attn, fused_input,
                                  fused_layer, grouped_gemm, infer_head,
@@ -26,13 +30,20 @@ _COUNTERS = {
     "fused_input": (fused_input, "launches"),
     "fused_input_int8": (fused_input, "int8_launches"),
     "fused_input_bwd": (fused_input, "bwd_launches"),
+    "fused_input_bf16": (fused_input, "bf16_launches"),
+    "fused_input_bwd_bf16": (fused_input, "bf16_bwd_launches"),
     "fused_layer": (fused_layer, "launches"),
     "fused_layer_int8": (fused_layer, "int8_launches"),
     "fused_layer_dx_dw": (fused_layer, "dx_dw_launches"),
+    "fused_layer_bf16": (fused_layer, "bf16_launches"),
+    "fused_layer_dx_dw_bf16": (fused_layer, "bf16_dx_dw_launches"),
     "infer_head": (infer_head, "launches"),
     "infer_head_int8": (infer_head, "int8_launches"),
+    "infer_head_bf16": (infer_head, "bf16_launches"),
     "loss_head_fwd": (loss_head, "fwd_launches"),
     "loss_head_bwd": (loss_head, "bwd_launches"),
+    "loss_head_fwd_bf16": (loss_head, "bf16_fwd_launches"),
+    "loss_head_bwd_bf16": (loss_head, "bf16_bwd_launches"),
     "block_diag_fwd": (block_diag, "fwd_launches"),
     "block_diag_dw": (block_diag, "dw_launches"),
     "seg_act": (seg_act, "launches"),
@@ -63,6 +74,39 @@ def fused_infer_budget(depth: int) -> dict:
     head = depth+1 launches per request batch, independent of batch
     size."""
     return {"fwd": depth + 1, "total": depth + 1}
+
+
+def _suffix(compute_dtype=None, weights_dtype=None) -> str:
+    """The counter names' suffix of a policy: "" (f32), "_bf16" (the bf16
+    compute policy) or "_int8" (the int8 serve copy)."""
+    if weights_dtype == "int8":
+        return "_int8"
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        return "_bf16"
+    return ""
+
+
+def fused_infer_kernels(depth: int, compute_dtype=None,
+                        weights_dtype=None) -> dict:
+    """``fused_infer_budget`` kernel by kernel, under the names of the
+    policy's instances: a bf16 forward launches ``*_bf16`` kernels only, an
+    int8 one ``*_int8`` only."""
+    sfx = _suffix(compute_dtype, weights_dtype)
+    out = {"fused_input" + sfx: 1, "fused_layer" + sfx: depth - 1,
+           "infer_head" + sfx: 1}
+    return {k: v for k, v in out.items() if v}
+
+
+def fused_step_kernels(depth: int, compute_dtype=None) -> dict:
+    """``fused_step_budget`` kernel by kernel (the training forwards count
+    under the serving names), under the names of the compute policy's
+    instances: a bf16 step launches ``*_bf16`` kernels only."""
+    sfx = _suffix(compute_dtype)
+    out = {"fused_input" + sfx: 1, "fused_input_bwd" + sfx: 1,
+           "fused_layer" + sfx: depth - 1,
+           "fused_layer_dx_dw" + sfx: depth - 1,
+           "loss_head_fwd" + sfx: 1, "loss_head_bwd" + sfx: 1}
+    return {k: v for k, v in out.items() if v}
 
 
 def fused_step_budget(depth: int) -> dict:

@@ -26,6 +26,13 @@ calibration split evaluated with the SAME forward-only kernels
 ``topk``'s vote.  Shard-pad fillers can never be published or reduced
 over (``core.ensemble`` validates).
 
+``compute_dtype="bfloat16"`` (``--compute-dtype bfloat16``) serves under
+the bf16 compute policy (DESIGN.md §7): the requests and the weights are
+cast to bf16 at every projection, each of the depth+1 launches is its
+kernel's bf16 instance (``check_budget`` holds both), the logits stay f32,
+and ``publish`` scores with the same forward.  With the int8 copy or the
+unfused route's kernels it raises (ROADMAP.md, Queue 1 item 6b).
+
 ``weights_dtype="int8"`` (``--weights-dtype int8``) serves the int8 copy
 (DESIGN.md §12): the server quantizes the restored masters once, on their
 device (``quant.quantize_population``), drops them, and every forward —
@@ -46,6 +53,7 @@ from repro_torch.core.ensemble import (ENSEMBLE_MODES, ensemble_predict,
                                        real_slots)
 from repro_torch.core.selection import evaluate_population, leaderboard
 from repro_torch.launch.launch_count import (fused_infer_budget,
+                                             fused_infer_kernels,
                                              kernel_launches)
 from repro_torch.quant import serve_copy_bytes
 
@@ -58,7 +66,9 @@ class PopulationServer:
                  act_impl: str = "pallas", compute_dtype=None,
                  weights_dtype=None, batch: int = 32, topk: int = 4,
                  max_latency_ms: float = 5.0):
-        self.weights_dtype = check_dtypes(compute_dtype, weights_dtype)
+        self.weights_dtype = check_dtypes(compute_dtype, weights_dtype,
+                                          bd_impl)
+        self.compute_dtype = compute_dtype
         self.params = params
         self.layout = layout
         self.device = params["w_in"].device
@@ -66,6 +76,7 @@ class PopulationServer:
         self.topk = int(topk)
         self.max_latency_ms = float(max_latency_ms)
         self._fw = dict(bd_impl=bd_impl, act_impl=act_impl, infer=True,
+                        compute_dtype=compute_dtype,
                         weights_dtype=self.weights_dtype)
         # the int8 copy is made once from the masters (at the first
         # consumer of self.params), which are then released
@@ -220,19 +231,28 @@ class PopulationServer:
 
     def check_budget(self):
         """One serve forward must advance the kernel counters by exactly
-        depth+1: input + (depth−1) mid layers + infer head.  Raises
-        otherwise."""
+        depth+1: input + (depth−1) mid layers + infer head, each the
+        instance of the served weights and compute dtype
+        (``launch_count.fused_infer_kernels``).  Raises otherwise."""
         self._ensure_quantized()
         lp = self.layout
         xb = torch.zeros((self.batch, lp.in_features), device=self.device)
-        before = sum(kernel_launches().values())
+        before = kernel_launches()
         with torch.inference_mode():
             forward(self.params, xb, lp, **self._fw)
-        got = sum(kernel_launches().values()) - before
+        after = kernel_launches()
+        diff = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+        got = sum(diff.values())
         budget = fused_infer_budget(lp.depth)["total"]
         if got != budget:
             raise RuntimeError(f"serve forward made {got} kernel launches, "
                                f"the budget is {budget} (depth+1)")
+        want = fused_infer_kernels(lp.depth, self.compute_dtype,
+                                   self.weights_dtype)
+        if diff != want:
+            raise RuntimeError(f"serve forward launched {diff}, expected "
+                               f"{want}")
         return {"launches": got, "budget": budget}
 
     @classmethod
@@ -268,7 +288,10 @@ def main(argv=None) -> dict:
                     help="activation pass of the unfused routes (the fused "
                     "kernels apply the activation in their epilogue)")
     ap.add_argument("--compute-dtype", default=None,
-                    help="float32 only in this port so far")
+                    choices=["float32", "bfloat16"],
+                    help="bfloat16: the mixed-precision policy (bf16 "
+                    "operands, f32 sums and logits) on the fused kernels' "
+                    "bf16 instances or the plain route")
     ap.add_argument("--weights-dtype", default=None, choices=["int8"],
                     help="int8: quantize the restored weights once "
                     "(quant.quantize_population) and serve only the int8 "
@@ -281,13 +304,13 @@ def main(argv=None) -> dict:
     if args.sharded:
         raise NotImplementedError("--sharded: multi-card serving is not "
                                   "ported yet (ROADMAP.md)")
-    check_dtypes(args.compute_dtype, args.weights_dtype)
+    check_dtypes(args.compute_dtype, args.weights_dtype, args.bd_impl)
 
     server, step = PopulationServer.from_checkpoint(
         args.ckpt_dir, step=args.step, device=args.device, batch=args.batch,
         topk=args.topk, max_latency_ms=args.max_latency_ms,
         bd_impl=args.bd_impl, act_impl=args.act_impl,
-        weights_dtype=args.weights_dtype)
+        compute_dtype=args.compute_dtype, weights_dtype=args.weights_dtype)
     lp = server.layout
     print(f"restored step {step}: {real_slots(lp)} members "
           f"(+{lp.num_members - real_slots(lp)} fillers), "
@@ -307,7 +330,9 @@ def main(argv=None) -> dict:
     board = server.publish(xc, yc)
     served_bytes = serve_copy_bytes(server.params)
     print(f"serving {args.weights_dtype or 'float32'} weights: "
-          f"{served_bytes} bytes of parameters on {server.device}")
+          f"{served_bytes} bytes of parameters on {server.device}"
+          + (f"; compute {args.compute_dtype}" if args.compute_dtype
+             else ""))
     print(f"published: best1={server.published['best1']} "
           f"topk={server.published['topk']}")
     for row in board[:3]:

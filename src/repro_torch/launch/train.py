@@ -49,11 +49,20 @@ with the layout under ``--refill arch``) into a fresh state on the new
 layout (``rewarm_adafactor_state``).  Checkpoints are written off the
 training thread (``checkpoint.AsyncCheckpointer``).
 
-Single device: the population is not shard-padded.  Flags whose paths are
-not ported yet raise ``NotImplementedError`` naming the ROADMAP item:
-``--compute-dtype bfloat16``, ``--serve-publish`` and ``--pipeline on``.
-``--pipeline`` defaults to ``off`` here (the JAX package's trajectory is
-bit-identical either way).
+``--compute-dtype bfloat16`` trains under the bf16 compute policy
+(DESIGN.md §7): on the fused route every launch of a step is its kernel's
+bf16 instance, on the plain route (``--bd-impl einsum``) the matmuls take
+bf16 operands; the masters, the optimizer state, the checkpoint and the
+rung evals and closing leaderboard stay f32.  With ``--bd-impl pallas`` or
+``--m3-impl pallas`` it raises (ROADMAP.md, Queue 1 item 6b).
+``--serve-publish`` keeps an f32 ``PopulationServer`` on the live run,
+refreshed and republished at every rung boundary and at the end
+(``published: best1=… topk=…``).
+
+Single device: the population is not shard-padded.  ``--pipeline on``
+raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 7); ``--pipeline``
+defaults to ``off`` here (the JAX package's trajectory is bit-identical
+either way).
 """
 from __future__ import annotations
 
@@ -102,17 +111,11 @@ def population_from_flags(depths: str, acts: str, features: int,
 def check_supported(args):
     """Raise ``NotImplementedError`` for every flag whose path the port
     does not have yet."""
-    unsupported = [
-        (args.compute_dtype != "float32", "--compute-dtype bfloat16: the "
-         f"bf16 policy is {_QUEUE1}, item 6)"),
-        (args.serve_publish, "--serve-publish: PopulationServer.refresh "
-         f"from a live run is {_QUEUE1}, item 6)"),
-        (args.pipeline == "on", "--pipeline on: the streaming data plane "
-         f"is {_QUEUE1}, item 7)"),
-    ]
-    for bad, why in unsupported:
-        if bad:
-            raise NotImplementedError(why)
+    from repro_torch.core.deep import check_dtypes
+    check_dtypes(args.compute_dtype, None, args.bd_impl, args.m3_impl)
+    if args.pipeline == "on":
+        raise NotImplementedError("--pipeline on: the streaming data plane "
+                                  f"is {_QUEUE1}, item 7)")
 
 
 def check_recipe_flags(args, opt_name: str):
@@ -434,7 +437,8 @@ def run_population(arch, args):
             chunk.clear()
             chunk[key] = deep.make_population_train_step(
                 lp, optimizer=opt, grad_clip=grad_clip, scan_steps=scan,
-                lr_schedule=lr_sched, **route)
+                lr_schedule=lr_sched, compute_dtype=args.compute_dtype,
+                **route)
             stats["chunk_builds"] += 1
         chunk_fn = chunk[key]
         lr = arch.lr if lr0 is None else member_tree(lr0, lp)
@@ -509,6 +513,30 @@ def run_population(arch, args):
     n_eval = len(yte)
     if args.rung_eval_batches:
         n_eval = min(n_eval, args.rung_eval_batches * args.batch)
+    server = None
+
+    def publish_live(params, lp):
+        """--serve-publish: refresh the serving leaderboard from the LIVE
+        run, so that the published member set tracks the halving ladder
+        (rung boundaries and the final state).  One f32 server (top-k
+        ``min(4, real members)``), re-targeted at each call; scored over
+        the rung evals' calibration rows."""
+        nonlocal server
+        from repro_torch.launch.serve_population import PopulationServer
+        if server is None:
+            server = PopulationServer(params, lp, bd_impl=args.bd_impl,
+                                      act_impl=args.act_impl,
+                                      batch=args.batch,
+                                      topk=min(4, lp.num_real))
+        else:
+            server.refresh(params, lp)
+        server.publish(xte[:n_eval], yte[:n_eval])
+        print(f"published: best1={server.published['best1']} "
+              f"topk={server.published['topk']}")
+        stats.setdefault("published", []).append(
+            {"step": pos - 1, "best1": list(server.published["best1"]),
+             "topk": list(server.published["topk"])})
+        return server
     t0 = time.time()
     pos = start
     for i in range(min(rung, len(segments) - 1) if schedule else 0,
@@ -656,6 +684,8 @@ def run_population(arch, args):
                             extra_state=opt_state,
                             lifecycle=lifecycle_meta(),
                             train_meta=train_meta)
+        if args.serve_publish:
+            publish_live(params, lp)
     _sync(device)
     dt = time.time() - t0
 
@@ -681,6 +711,9 @@ def run_population(arch, args):
                                 extra_state=opt_state,
                                 lifecycle=lifecycle_meta(),
                                 train_meta=train_meta)
+    if args.serve_publish:
+        # final refresh: the served set matches the state the run ended on
+        publish_live(params, lp)
 
     losses, accs = evaluate_population(params, lp, xte, yte, infer=True,
                                        **route)

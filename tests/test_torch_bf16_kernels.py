@@ -1,0 +1,303 @@
+"""The plain versions of the fused route's kernels on bf16 operands (the
+bf16 compute policy), against the JAX package's Pallas kernels in
+interpret mode on the same bf16 inputs: the input layer (y; y and g') and
+its backward (dW, dx), the mid layer (y; y and g') and its one-pass
+backward (dx, dWB), the loss head (per, dl; dh, dW) and the serving head.
+Inputs are made with numpy from a seed and rounded to bf16 once, the same
+values on both sides; the backward comparisons feed both sides the same
+residuals (JAX's g' and dl).
+
+JAX's kernels widen bf16 tiles into an f32 accumulator
+(``preferred_element_type``), round du = dy·g' and dl·d_per to bf16 where
+they multiply two bf16 tiles, and store each bf16 output once from its f32
+value.  XLA's CPU compiler may keep such a bf16 intermediate in f32 (its
+``xla_allow_excess_precision``, on by default: JAX's interpret-mode
+fused_input backward then rounds du for dx and not for dW), so the JAX
+kernels here run compiled with that liberty off (``_jax``): they compute
+what their source says.  Tolerance: a bf16 output within one bf16 ulp,
+element by element
+(both round an f32 sum once, and two orders of that sum may round to
+neighbouring bf16 values); an f32 output (logits, per, dl) at rtol 1e-5 /
+atol 1e-6 (both sum exact f32 products, in other orders).  The bias
+cotangents are held to JAX's f32 sum of f32 products at rtol 1e-6 through
+the port's own autograd backward.
+"""
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.activations import ACTIVATION_ORDER
+from repro.core.population import LayeredPopulation as JLayered
+from repro.kernels import fused_input as jfik
+from repro.kernels import ops as jops
+from repro_torch.core.population import LayeredPopulation as TLayered
+from repro_torch.kernels import fused_input as fik
+from repro_torch.kernels import fused_layer as flk
+from repro_torch.kernels import infer_head as ihk
+from repro_torch.kernels import loss_head as lhk
+from repro_torch.kernels import ops as tops
+
+F32 = dict(rtol=1e-5, atol=1e-6)
+
+
+def _bf16(a):
+    """numpy → (the same bf16 values for JAX, for torch)."""
+    a = np.ascontiguousarray(np.asarray(a, np.float32))
+    return jnp.asarray(a, jnp.bfloat16), torch.from_numpy(a).to(
+        torch.bfloat16)
+
+
+
+def _jax(fn, *args):
+    """``fn(*args)`` (array arguments; the rest closed over in ``fn``)
+    jitted and compiled without XLA's excess precision."""
+    return jax.jit(fn).lower(*args).compile(
+        {"xla_allow_excess_precision": False})(*args)
+
+
+def _as_bf16(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(jnp.asarray(a, jnp.float32))).to(
+        torch.bfloat16)
+
+
+def _ordered(t: torch.Tensor) -> np.ndarray:
+    """bf16 values → integers in the order of the values, one apart for
+    neighbouring bf16 numbers (±0 both 0)."""
+    i = t.contiguous().view(torch.int16).numpy().astype(np.int32)
+    return np.where(i < 0, -(i & 0x7FFF), i)
+
+
+def _within_one_bf16_ulp(got: torch.Tensor, want):
+    assert got.dtype == torch.bfloat16
+    want = _as_bf16(want)
+    assert got.shape == want.shape
+    assert np.abs(_ordered(got) - _ordered(want)).max() <= 1
+
+
+def _input_case(b, f, block, n_blocks, seed):
+    """x, W (bf16 both sides), bias, mask, ids; JAX's x and W zero-padded
+    to its feature tile (the padding adds exact zeros)."""
+    rng = np.random.default_rng(seed)
+    h = block * n_blocks
+    jx, tx = _bf16(rng.normal(0, 1, (b, f)))
+    jw, tw = _bf16(rng.normal(0, 1, (h, f)) / np.sqrt(f))
+    bias = rng.normal(0, 1, h).astype(np.float32)
+    mask = (rng.random(h) > 0.2).astype(np.float32)
+    ids = (np.arange(n_blocks) % len(ACTIVATION_ORDER)).astype(np.int32)
+    f_pad = -(-f // 8) * 8
+    jx = jnp.pad(jx, ((0, 0), (0, f_pad - f)))
+    jw = jnp.pad(jw, ((0, 0), (0, f_pad - f)))
+    return (jx, jw, tx, tw, bias, mask, ids)
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks", [
+    (8, 24, 8, 10), (16, 100, 8, 6), (8, 100, 128, 2)])
+def test_fused_input_fwd(b, f, block, n_blocks):
+    """y and (y, g') in bf16 from bf16 x and W, f32 bias and mask."""
+    jx, jw, tx, tw, bias, mask, ids = _input_case(b, f, block, n_blocks, b)
+    jargs = (jx, jw, jnp.asarray(bias)[None], jnp.asarray(mask)[None],
+             jnp.asarray(ids))
+    targs = (tx, tw, torch.from_numpy(bias), torch.from_numpy(mask),
+             torch.from_numpy(ids))
+    y = fik.fused_input_plain(*targs, block=block)
+    _within_one_bf16_ulp(y, _jax(lambda *a: jfik.fused_input_fwd(
+        *a, block=block, block_b=8, with_deriv=False, interpret=True),
+        *jargs))
+    jy, jg = _jax(lambda *a: jfik.fused_input_fwd(
+        *a, block=block, block_b=8, with_deriv=True, interpret=True), *jargs)
+    ty, tg = fik.fused_input_train_plain(*targs, block=block)
+    _within_one_bf16_ulp(ty, jy)
+    _within_one_bf16_ulp(tg, jg)
+    assert torch.equal(ty, y)
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks", [(16, 24, 8, 10),
+                                                (8, 100, 8, 6)])
+def test_fused_input_bwd(b, f, block, n_blocks):
+    """dW and dx in bf16: du = dy·g' rounded to bf16, sums in f32 (B 16:
+    two of JAX's batch tiles, dW carried across them)."""
+    jx, jw, tx, tw, *_ = _input_case(b, f, block, n_blocks, 3 * b)
+    rng = np.random.default_rng(b + f)
+    h = block * n_blocks
+    jdy, tdy = _bf16(rng.normal(0, 1, (b, h)))
+    jg, tg = _bf16(rng.random((b, h)) * (rng.random(h) > 0.2))
+    jdx, jdw = _jax(lambda *a: jfik.fused_input_bwd(
+        *a, block=block, block_b=8, interpret=True), jdy, jg, jx, jw)
+    dx, dw = fik.fused_input_bwd_plain(tdy, tg, tx, tw, with_dx=True)
+    _within_one_bf16_ulp(dw, jdw[:, :f])
+    _within_one_bf16_ulp(dx, jdx[:, :f])
+    assert fik.fused_input_bwd_plain(tdy, tg, tx, tw, with_dx=False)[0] \
+        is None
+
+
+_MID = [(((24,), (13, 5), (17, 9), (32, 16, 8)), 8),
+        (((64, 32, 16), (13, 5), (7,)) * 2, 8),      # the depth-3 members
+        (((40, 20), (17, 33, 9), (7,), (3, 5)), 16)]
+
+
+def _mid_layers(widths, block):
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    return (JLayered(5, 3, widths, acts, block=block),
+            TLayered(5, 3, widths, acts, block=block))
+
+
+@pytest.mark.parametrize("widths,block", _MID)
+def test_fused_layer_fwd_and_dx_dw(widths, block):
+    """Each mid layer: y (serving) and (y, g') (training) in bf16, then dx
+    and dWB from the same dy and JAX's g' (pass-through members through
+    the identity tile)."""
+    jlp, tlp = _mid_layers(widths, block)
+    rng = np.random.default_rng(block + len(widths))
+    b = 16
+    for l in range(jlp.depth - 1):
+        jlay, tlay = jlp.bd_layout(l), tlp.bd_layout(l)
+        pout = jlp.layer_pop(l + 1)
+        jh, th = _bf16(rng.normal(0, 1, (b, jlay.n_in_tiles * block)))
+        jw, tw = _bf16(rng.normal(0, 1, (jlay.n_param_blocks, block, block))
+                       / np.sqrt(block))
+        b_eff = rng.normal(0, 1, jlay.n_out_tiles * block).astype(np.float32)
+        mask = np.array(pout.hidden_mask, np.float32)
+        acts = np.array(pout.block_act_ids, np.int32)
+        s_act = acts[np.asarray(jlay.s_out, np.int32)]
+        acts_s = jops._StaticArray(s_act, np.int32)
+        mask_s = jops._StaticArray(mask, np.float32)
+        jy, (_, _, jgp) = _jax(lambda h, w, b: jops._fused_fwd(
+            h, w, b, jlay, acts_s, mask_s, 8, True), jh, jw,
+            jnp.asarray(b_eff))
+        wb_aug = torch.cat([tw, torch.eye(block, dtype=torch.bfloat16)[None]])
+        targs = (th, wb_aug, torch.from_numpy(b_eff), torch.from_numpy(mask),
+                 torch.from_numpy(acts), *flk.schedule_on(tlay, "cpu"))
+        ty, tg = flk.fused_layer_train_plain(*targs, blk=block)
+        _within_one_bf16_ulp(ty, jy)
+        _within_one_bf16_ulp(tg, jgp)
+        _within_one_bf16_ulp(
+            flk.fused_layer_plain(*targs, blk=block),
+            _jax(lambda h, w, b: jops.fused_layer_infer(
+                h, w, b, jlay, acts, mask, interpret=True), jh, jw,
+                jnp.asarray(b_eff)))
+        jdy, tdy = _bf16(rng.normal(0, 1, (b, jlay.n_out_tiles * block)))
+        jdh, jdwb, jdb = _jax(lambda h, w, g, d: jops._fused_bwd(
+            jlay, acts_s, mask_s, 8, True, (h, w, g), d), jh, jw, jgp, jdy)
+        g = _as_bf16(jgp)
+        dx, dwb = flk.fused_layer_dx_dw_plain(
+            tdy, g, th, tw, *flk.dx_dw_schedule_on(tlay, "cpu"), blk=block)
+        _within_one_bf16_ulp(dx, jdh)
+        _within_one_bf16_ulp(dwb, jdwb)
+        # the bias cotangent through the port's autograd backward, on the
+        # same residuals: an f32 sum of f32 products, as JAX's
+        ctx = SimpleNamespace(saved_tensors=(th, wb_aug, g), layout=tlay,
+                              needs_input_grad=(True, True, True))
+        got = tops._FusedLayer.backward(ctx, tdy)
+        assert got[2].dtype == torch.float32
+        np.testing.assert_allclose(got[2].numpy(), np.asarray(jdb),
+                                   rtol=1e-6, atol=0)
+        assert torch.equal(got[0], dx) and torch.equal(got[1], dwb)
+
+
+def test_bias_cotangents_sum_f32_products():
+    """Σ_b dy·g' under bf16: the port's input-layer backward (its autograd
+    ``backward`` on JAX's residuals) returns JAX's db — the f32 sum of f32
+    products of the bf16 values — within rtol 1e-6, where a sum of bf16
+    products (what ``(dy * g).sum(0)`` gives on bf16 tensors) misses it by
+    far more."""
+    b, f, block, n = 32, 24, 8, 16
+    jx, jw, tx, tw, bias, mask, ids = _input_case(b, f, block, n, 11)
+    rng = np.random.default_rng(12)
+    jdy, tdy = _bf16(rng.normal(0, 1, (b, block * n)))
+    static = (jops._StaticArray(ids, np.int32),
+              jops._StaticArray(mask, np.float32), block, 8, True)
+    _, res = _jax(lambda x, w, b: jops._fin_fwd(x, w, b, *static), jx, jw,
+                  jnp.asarray(bias))
+    _, _, jdb = _jax(lambda x, w, g, d: jops._fin_bwd(*static, (x, w, g), d),
+                     *res, jdy)
+    g = _as_bf16(res[2])
+    ctx = SimpleNamespace(saved_tensors=(tx, tw, g),
+                          needs_input_grad=(False, True, True))
+    got = tops._FusedInput.backward(ctx, tdy)[2]
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(jdb), rtol=1e-6,
+                               atol=0)
+    naive = (tdy * g).sum(0).float().numpy()
+    assert not np.allclose(naive, np.asarray(jdb), rtol=1e-6, atol=0)
+
+
+_HEADS = [((128,) * 6, 128, 2, 32), ((8, 16, 8, 16, 16, 8, 24), 8, 2, 16),
+          ((40, 12, 100, 4), 4, 5, 24)]
+
+
+def _segments(widths, block):
+    blocks = [-(-w // block) for w in widths]
+    seg = np.repeat(np.arange(len(widths)), blocks).astype(np.int32)
+    ptr = ihk.member_ptr(torch.from_numpy(seg), len(widths))
+    return seg, ptr, int(sum(blocks)) * block
+
+
+@pytest.mark.parametrize("widths,block,o,b", _HEADS)
+def test_loss_head_fwd_bwd(widths, block, o, b):
+    """per and dl in f32 from bf16 h and W_out; then dh and dW_out in
+    bf16, dl·d_per rounded to bf16 before each product (from JAX's dl)."""
+    rng = np.random.default_rng(b + o)
+    seg, ptr, hh = _segments(widths, block)
+    jh, th = _bf16(rng.normal(0, 1, (b, hh)))
+    jw, tw = _bf16(rng.normal(0, 1, (o, hh)) / 4)
+    b2 = rng.normal(0, 1, (len(widths), o)).astype(np.float32)
+    tgt = rng.integers(0, o, b).astype(np.int32)
+    tgt[-2:] = -1
+    seg_s = jops._StaticArray(seg, np.int32)
+    jper, (_, _, jdl) = _jax(lambda h, w, b2_, t: jops._lh_fwd(
+        h, w, b2_, t, seg_s, b - 2, block, 8, True), jh, jw, jnp.asarray(b2),
+        jnp.asarray(tgt)[:, None])
+    per, dl = lhk.loss_head_fwd_plain(th, tw, torch.from_numpy(b2),
+                                      torch.from_numpy(tgt), ptr,
+                                      block=block, b_real=b - 2)
+    assert per.dtype == dl.dtype == torch.float32
+    np.testing.assert_allclose(per.numpy(), np.asarray(jper), **F32)
+    np.testing.assert_allclose(dl.numpy(), np.asarray(jdl), **F32)
+    dper = rng.normal(0, 1, len(widths)).astype(np.float32)
+    jdh, jdw = _jax(lambda h, w, dl_, d: jops._lh_bwd(
+        seg_s, b - 2, block, 8, True, (h, w, dl_), d)[:2], jh, jw, jdl,
+        jnp.asarray(dper))
+    tdl = torch.from_numpy(np.array(jdl))
+    dh, dw = lhk.loss_head_bwd_plain(torch.from_numpy(dper), tdl, th, tw,
+                                     torch.from_numpy(seg), block=block)
+    _within_one_bf16_ulp(dh, jdh)
+    _within_one_bf16_ulp(dw, jdw)
+
+
+@pytest.mark.parametrize("log_probs", [False, True])
+@pytest.mark.parametrize("widths,block,o,b", _HEADS)
+def test_infer_head(widths, block, o, b, log_probs):
+    """f32 logits (log-probs) from bf16 h and W_out through ops, as the
+    serving forward calls it."""
+    rng = np.random.default_rng(3 * b + o)
+    seg, _, hh = _segments(widths, block)
+    jh, th = _bf16(rng.normal(0, 1, (b, hh)))
+    jw, tw = _bf16(rng.normal(0, 1, (o, hh)) / 4)
+    b2 = rng.normal(0, 1, (len(widths), o)).astype(np.float32)
+    want = _jax(lambda h, w: jops.infer_head(
+        h, w, b2, seg, block_h=block, log_probs=log_probs, interpret=True),
+        jh, jw)
+    n0 = ihk.bf16_launches
+    got = tops.infer_head(th, tw, torch.from_numpy(b2), seg, block_h=block,
+                          log_probs=log_probs)
+    assert ihk.bf16_launches == n0 + 1 and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+def test_operands_of_two_dtypes_are_refused():
+    """The policy's operands come in one dtype: f32 activations with bf16
+    weights (or the reverse) raise, as do bf16 biases."""
+    x, w = torch.zeros(2, 8), torch.zeros(8, 8, dtype=torch.bfloat16)
+    ids, mask = np.zeros(1, np.int32), np.ones(8, np.float32)
+    with pytest.raises(TypeError, match="one dtype"):
+        tops.fused_input(x, w, torch.zeros(8), ids, mask, block=8)
+    with pytest.raises(TypeError, match="one dtype"):
+        tops.fused_input(x.bfloat16(), w.float(), torch.zeros(8), ids, mask,
+                         block=8)
+    with pytest.raises(TypeError, match="float32"):
+        tops.fused_input(x.bfloat16(), w, torch.zeros(8).bfloat16(), ids,
+                         mask, block=8)

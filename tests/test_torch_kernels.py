@@ -387,13 +387,15 @@ def test_fused_input_train_matches_plain(dev, b, f, block, n_blocks, shift):
     _close(g, wg)
 
 
-def _shifted(a, shift: int, dev):
-    """``a`` on the card in a tensor whose storage starts ``shift``
-    elements past a (256-byte aligned) allocation."""
+def _shifted(a, shift: int, dev, dtype=None):
+    """``a`` on the card in a tensor (of ``dtype``; default int8 for int8
+    arrays, else f32) whose storage starts ``shift`` elements past a
+    (256-byte aligned) allocation."""
     a = np.asarray(a)
+    if dtype is None:
+        dtype = torch.int8 if a.dtype == np.int8 else torch.float32
     t = torch.empty(a.size + shift, device=dev,
-                    dtype=torch.int8 if a.dtype == np.int8 else
-                    torch.float32)[shift:].view(a.shape)
+                    dtype=dtype)[shift:].view(a.shape)
     t.copy_(torch.as_tensor(a))
     return t
 
@@ -1488,3 +1490,280 @@ def test_bf16_kernels_run_on_the_tensor_cores(dev):
         for name, body in funcs.items():
             assert ("HGMMA" in body) == (name in tc), \
                 f"{lib}: {name} {'lacks' if name in tc else 'has'} HGMMA"
+
+
+# --------------------------------------------------------------------- #
+# the bf16 compute policy's instances                                   #
+# --------------------------------------------------------------------- #
+#
+# bf16 operands on the card against the plain versions on the card, on
+# the same bf16 inputs: both widen them (exact), sum in f32 in different
+# orders and round each bf16 output once, so an output may land on the
+# neighbouring bf16 value and no further — at most 1 bf16 ulp apart,
+# element by element (``_bf16_ulps``) — except where the two f32 sums
+# themselves differ by more than half a bf16 step: a sum over hundreds of
+# products (B = 300) that cancels to near 0, where the two orders differ
+# by up to the f32 tests' atol (1e-5); such elements are held to that
+# atol instead.  f32 outputs (the heads' logits, per and dl) keep the f32
+# tolerance.  du = dy·g' and dl·d_per are rounded to bf16 on both sides
+# the same way (a product of two bf16 values rounded once), so they add
+# no difference of their own.
+
+def _bf16_ulps(a: torch.Tensor, b: torch.Tensor, atol: float = ATOL) -> int:
+    """The largest distance between two bf16 tensors in bf16 ulps (steps
+    of the bf16 grid; +0 and -0 the same point), over the elements more
+    than ``atol`` apart."""
+    assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+
+    def key(t):
+        v = t.contiguous().view(torch.int16).int()
+        return torch.where(v < 0, -(v + 32768), v)
+
+    torch.cuda.synchronize()
+    far = (a.float() - b.float()).abs() > atol
+    return int((key(a) - key(b)).abs()[far].max().item()) \
+        if far.any() else 0
+
+
+def _bf16(a, dev, shift: int = 0):
+    """``a`` as a bf16 tensor on the card (``_shifted``)."""
+    return _shifted(np.asarray(a, np.float32), shift, dev, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks,shift", [
+    (32, 100, 128, 12, 0),    # parallelmlp-10k's rows: 200 bytes, vec4
+    (32, 100, 8, 13, 0),      # block 8, H 104
+    (300, 100, 128, 2, 0),    # B > 32: ten batch tiles
+    (3, 100, 8, 9, 0),        # B < 32
+    (5, 101, 8, 9, 0),        # F % 4 != 0: scalar
+    (32, 100, 8, 13, 1),      # x 2 bytes off an 8-byte boundary: scalar
+    (33, 1030, 8, 5, 0),      # F over many stages, x not resident
+])
+def test_bf16_fused_input_matches_plain(dev, b, f, block, n_blocks, shift):
+    """The bf16 instance (y; y and g'): ≤ 1 bf16 ulp from the plain
+    version, on the instance ``fwd_path`` names, counted in
+    ``bf16_launches``; two launches bitwise equal."""
+    rng = np.random.default_rng(b + f)
+    x32, w32, bias, mask, ids = _fwd_inputs(rng, b, f, block, n_blocks, 0,
+                                            dev)
+    x = _bf16(x32.cpu().numpy(), dev, shift)
+    w = w32.to(torch.bfloat16)
+    n0, m0 = fik.bf16_launches, fik.launches
+    got, ran = _kernels_run(lambda: fik.fused_input_cuda(
+        x, w, bias, mask, ids, block=block), "fused_input_kernel")
+    assert (fik.bf16_launches, fik.launches) == (n0 + 1, m0)
+    assert got.dtype == torch.bfloat16
+    path = fik.fwd_path(x, w, got)
+    assert path == ("vec4" if f % 4 == 0 and shift % 4 == 0 else "scalar")
+    assert len(ran) == 1 and ("fused_input_kernel<%d, __nv_bfloat16"
+                              % (4 if path == "vec4" else 1)) in ran[0], ran
+    assert _bf16_ulps(got, fik.fused_input_plain(
+        x, w, bias, mask, ids, block=block)) <= 1
+    assert torch.equal(got, fik.fused_input_cuda(x, w, bias, mask, ids,
+                                                 block=block))
+    y, g = fik.fused_input_train_cuda(x, w, bias, mask, ids, block=block)
+    wy, wg = fik.fused_input_train_plain(x, w, bias, mask, ids, block=block)
+    assert torch.equal(y, got)
+    assert _bf16_ulps(g, wg) <= 1 and _bf16_ulps(y, wy) <= 1
+
+
+@pytest.mark.parametrize("with_dx", [False, True])
+@pytest.mark.parametrize("b,f,h,shift", [
+    (32, 100, 8192, 0),     # parallelmlp-10k's F, one batch chunk
+    (300, 100, 1000, 0),    # ten chunks: dW summed in the f32 scratch
+    (32, 102, 4100, 0),     # F % 4 != 0: scalar
+    (32, 100, 8192, 1),     # dy 2 bytes off: scalar
+    (33, 1030, 260, 0),     # two feature groups a thread
+])
+def test_bf16_fused_input_bwd_matches_plain(dev, with_dx, b, f, h, shift):
+    """dW (and dx) of the bf16 instance: ≤ 1 bf16 ulp from the plain
+    version (du rounded to bf16 on both sides), on the instance
+    ``bwd_path`` names; two launches bitwise equal."""
+    rng = np.random.default_rng(h + b)
+    dy = _bf16(rng.normal(0, 1, (b, h)), dev, shift)
+    g = _bf16(rng.random((b, h)) * (rng.random(h) > 0.2), dev)
+    x = _bf16(rng.normal(0, 1, (b, f)), dev)
+    w = _bf16(rng.normal(0, 1, (h, f)) / np.sqrt(f), dev)
+    path = fik.bwd_path(dy, g, x, torch.empty(4, device=dev,
+                                              dtype=torch.bfloat16))
+    assert path == ("vec4" if f % 4 == 0 and h % 4 == 0 and shift % 4 == 0
+                    else "scalar")
+    n0 = fik.bf16_bwd_launches
+    (dx, dw), ran = _kernels_run(lambda: fik.fused_input_bwd_cuda(
+        dy, g, x, w, with_dx=with_dx), "fused_input_bwd")
+    assert fik.bf16_bwd_launches == n0 + 1
+    assert len(ran) == 1 and ("fused_input_bwd_bf16_kernel<%d>"
+                              % (4 if path == "vec4" else 1)) in ran[0], ran
+    wdx, wdw = fik.fused_input_bwd_plain(dy, g, x, w, with_dx=with_dx)
+    assert dw.dtype == torch.bfloat16 and _bf16_ulps(dw, wdw) <= 1
+    again = fik.fused_input_bwd_cuda(dy, g, x, w, with_dx=with_dx)
+    assert torch.equal(dw, again[1])
+    if with_dx:
+        assert _bf16_ulps(dx, wdx) <= 1 and torch.equal(dx, again[0])
+
+
+@pytest.mark.parametrize("widths,block,b,shift", [
+    (((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 11, 0),
+    (((64, 32, 16), (13, 5), (7,)) * 4, 8, 32, 0),   # the depth-3 members
+    (((40, 20), (17, 33, 9), (7,)), 16, 70, 0),
+    (((200, 130), (64, 100), (7,)), 128, 33, 0),
+    (((512, 384), (13, 5), (7,)), 8, 300, 0),         # dWB over 10 chunks
+    (((40, 20), (17, 33, 9), (7,)), 5, 33, 0),        # block 5: scalar
+    (((64, 32, 16), (13, 5), (7,)) * 4, 8, 32, 1),   # 2 bytes off: scalar
+])
+def test_bf16_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b,
+                                                      shift):
+    """The bf16 instances of the mid layer: y and g' (and y of the serving
+    launch, bitwise the training one's), then dx and dWB, each ≤ 1 bf16
+    ulp from the plain version, on the instance ``block_diag.fwd_path``
+    names; two launches bitwise equal."""
+    from repro_torch.kernels import block_diag as bdk
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    lp = LayeredPopulation(5, 3, widths, acts, block=block)
+    rng = np.random.default_rng(b + block)
+    for l in range(lp.depth - 1):
+        lay = lp.bd_layout(l)
+        pout = lp.layer_pop(l + 1)
+        x = _bf16(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev, shift)
+        wbn = rng.normal(0, 1, (lay.n_param_blocks + 1, block, block)) \
+            / np.sqrt(block)
+        wbn[-1] = np.eye(block)
+        wb = _bf16(wbn, dev, shift)
+        b_eff = _t(rng.normal(0, 1, lay.n_out_tiles * block), dev)
+        mask = _t(pout.hidden_mask, dev)
+        acts_t = _t(pout.block_act_ids, dev, torch.int32)
+        fargs = (x, wb, b_eff, mask, acts_t, *flk.schedule_on(lay, dev))
+        n0 = flk.bf16_launches
+        (y, g), ran = _kernels_run(
+            lambda: flk.fused_layer_train_cuda(*fargs, blk=block),
+            "fused_layer_bf16_group_kernel")
+        assert flk.bf16_launches == n0 + 1
+        path = bdk.fwd_path(x, wb, y, g)
+        assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                        else "scalar")
+        _group_instance(ran, path, "fused_layer_bf16_group_kernel")
+        wy, wg = flk.fused_layer_train_plain(*fargs, blk=block)
+        assert _bf16_ulps(y, wy) <= 1 and _bf16_ulps(g, wg) <= 1
+        again = flk.fused_layer_train_cuda(*fargs, blk=block)
+        assert torch.equal(y, again[0]) and torch.equal(g, again[1])
+        assert torch.equal(y, flk.fused_layer_cuda(*fargs, blk=block))
+        dy = _bf16(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev)
+        args = (dy, g, x, wb[:-1], *flk.dx_dw_schedule_on(lay, dev))
+        n0 = flk.bf16_dx_dw_launches
+        (dx, dwb), ran = _kernels_run(
+            lambda: flk.fused_layer_dx_dw_cuda(*args, blk=block),
+            "fused_layer_dx_dw")
+        assert flk.bf16_dx_dw_launches == n0 + 1
+        assert len(ran) == 1 and "fused_layer_dx_dw_bf16_kernel" in ran[0]
+        wdx, wdwb = flk.fused_layer_dx_dw_plain(*args, blk=block)
+        assert _bf16_ulps(dx, wdx) <= 1 and _bf16_ulps(dwb, wdwb) <= 1
+        again = flk.fused_layer_dx_dw_cuda(*args, blk=block)
+        assert torch.equal(dx, again[0]) and torch.equal(dwb, again[1])
+
+
+@pytest.mark.parametrize("widths,block,o,b,shift", [
+    ((128,) * 40, 128, 2, 32, 0),           # parallelmlp-10k's members
+    (_NARROW, 8, 2, 32, 0),                 # the depth-3 head's
+    ((40, 5000, 16, 24), 8, 2, 257, 0),     # a member over several tiles
+    ((7, 13, 30, 2, 64, 9), 6, 2, 32, 0),   # a block not a multiple of 4
+    (_NARROW[:80], 8, 2, 32, 1),            # h 2 bytes off: scalar
+])
+def test_bf16_heads_match_plain(dev, widths, block, o, b, shift):
+    """The heads' bf16 instances: infer_head's logits and log-probs and
+    the loss head's per and dl (f32, within the f32 tolerance of the plain
+    version on the same bf16 operands), the loss head's dh and dW (bf16,
+    ≤ 1 ulp); each on the design ``kernel_path`` names, two launches
+    bitwise equal."""
+    rng = np.random.default_rng(len(widths) + o + 1)
+    blocks = [-(-w // block) for w in widths]
+    seg = _t(np.repeat(np.arange(len(widths)), blocks), dev, torch.int32)
+    hh = int(sum(blocks)) * block
+    h = _bf16(rng.normal(0, 1, (b, hh)), dev, shift)
+    w2 = _bf16(rng.normal(0, 1, (o, hh)) / 8, dev)
+    b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
+    tgt = rng.integers(0, o, b)
+    tgt[b - 1:] = -1
+    tgt = _t(tgt, dev, torch.int32)
+    ptr = ihk.member_ptr(seg, len(widths))
+    path = ihk.kernel_path(block, h, w2)
+    assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                    else "scalar")
+    for log_probs in (False, True):
+        n0 = ihk.bf16_launches
+        got, ran = _kernels_run(lambda: ihk.infer_head_cuda(
+            h, w2, b2, ptr, block=block, log_probs=log_probs), "infer_head")
+        assert ihk.bf16_launches == n0 + 1 and got.dtype == torch.float32
+        assert len(ran) == 1 and f"infer_head_bf16_kernel_{path}" in ran[0]
+        _close(got, ihk.infer_head_plain(
+            h.double(), w2.double(), b2.double(), ptr, block=block,
+            log_probs=log_probs))
+        assert torch.equal(got, ihk.infer_head_cuda(
+            h, w2, b2, ptr, block=block, log_probs=log_probs))
+    fwd = (h, w2, b2, tgt, ptr)
+    n0, m0 = lhk.bf16_fwd_launches, lhk.bf16_bwd_launches
+    (per, dl), ran = _kernels_run(lambda: lhk.loss_head_fwd_cuda(
+        *fwd, block=block, b_real=b - 1), "loss_head")
+    assert len(ran) == 1 and f"loss_head_fwd_bf16_kernel_{path}" in ran[0]
+    wper, wdl = lhk.loss_head_fwd_plain(h.double(), w2.double(),
+                                        b2.double(), tgt, ptr, block=block,
+                                        b_real=b - 1)
+    _close(per, wper)
+    _close(dl, wdl)
+    dper = _t(rng.normal(0, 1, len(widths)), dev)
+    (dh, dw), ran = _kernels_run(lambda: lhk.loss_head_bwd_cuda(
+        dper, dl, h, w2, seg, block=block), "loss_head")
+    assert len(ran) == 1 and f"loss_head_bwd_bf16_kernel_{path}" in ran[0]
+    assert (lhk.bf16_fwd_launches, lhk.bf16_bwd_launches) == (n0 + 1, m0 + 1)
+    wdh, wdw = lhk.loss_head_bwd_plain(dper, dl, h, w2, seg, block=block)
+    assert _bf16_ulps(dh, wdh) <= 1 and _bf16_ulps(dw, wdw) <= 1
+    again = lhk.loss_head_bwd_cuda(dper, dl, h, w2, seg, block=block)
+    assert torch.equal(dh, again[0]) and torch.equal(dw, again[1])
+
+
+def test_bf16_step_on_card_matches_cpu(dev):
+    """One fused step under the bf16 policy on the card — 2·(depth+1)
+    launches, each a bf16 instance — against the same step on the CPU
+    (the plain versions); f32 masters and gradients; two steps bitwise
+    equal; and a bf16 served forward, depth+1 bf16 launches."""
+    from repro_torch.core import deep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.launch_count import (fused_infer_kernels,
+                                                 fused_step_kernels,
+                                                 kernel_launches)
+    from repro_torch.optim.optimizers import sgd
+    lp = _serve_layout()
+    p_cpu = deep.init_params(torch.Generator().manual_seed(0), lp)
+    p_dev = _params_on(p_cpu, dev)
+    x = torch.randn(32, 6, generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 3, (32,), generator=torch.Generator().manual_seed(2))
+    opt = sgd()
+
+    def step(params, xx, yy):
+        return deep.opt_step(params, opt.init(params), xx, yy, 0.1, opt, lp,
+                             bd_impl="fused", compute_dtype="bfloat16")
+
+    def diff(before):
+        after = kernel_launches()
+        return {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+
+    before = kernel_launches()
+    got = step(p_dev, x.to(dev), y.to(dev))
+    assert diff(before) == fused_step_kernels(lp.depth, "bfloat16")
+    assert all(t.dtype == torch.float32 for t in tree_leaves(got[0]))
+    again = step(p_dev, x.to(dev), y.to(dev))
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(again[0])):
+        assert torch.equal(a, b)
+    want = step(p_cpu, x, y)
+    # the losses: the f32 tolerance of the slice's CPU tests over bf16
+    # operands (2e-2, JAX's bf16 fused-vs-einsum tolerance)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].numpy(),
+                               rtol=2e-2, atol=2e-2)
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=2e-2,
+                                   atol=2e-3)
+    before = kernel_launches()
+    with torch.inference_mode():
+        deep.forward(p_dev, x.to(dev), lp, bd_impl="fused", infer=True,
+                     compute_dtype="bfloat16")
+    assert diff(before) == fused_infer_kernels(lp.depth, "bfloat16")

@@ -240,10 +240,12 @@ def test_params_carry_and_init_distribution(np_params):
 
 
 def test_rejects_unported_dtypes(np_params):
-    """bf16 compute is not ported yet (the int8 serve copy is:
-    tests/test_torch_quant.py)."""
+    """bf16 compute runs on the fused kernels and the plain route
+    (tests/test_torch_bf16_policy.py); on the unfused route's kernels it is
+    still to be ported (Queue 1 item 6b), and raises."""
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
-    kw = {"compute_dtype": "bfloat16"}
+    kw = {"compute_dtype": "bfloat16", "bd_impl": "pallas",
+          "act_impl": "pallas"}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdeep.forward(params, torch.zeros(2, 6), TLP, infer=True, **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

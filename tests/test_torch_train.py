@@ -134,19 +134,27 @@ def test_fused_step_is_two_depth_plus_one_launches(np_params, batches):
         "infer_head_int8": 0, "block_diag_fwd": 0, "block_diag_dw": 0,
         "seg_act": 0, "seg_act_bwd": 0, "m3_matmul_fwd": 0,
         "m3_matmul_dh": 0, "m3_matmul_dw": 0, "flash_attention": 0,
-        "moe_gemm": 0}
+        "moe_gemm": 0, "fused_input_bf16": 0, "fused_input_bwd_bf16": 0,
+        "fused_layer_bf16": 0, "fused_layer_dx_dw_bf16": 0,
+        "infer_head_bf16": 0, "loss_head_fwd_bf16": 0,
+        "loss_head_bwd_bf16": 0}
     assert launch_count.fused_step_budget(3) == {"fwd": 4, "bwd": 4,
                                                  "total": 8}
 
 
 def test_rejects_unported_routes(np_params, batches):
-    """bf16 compute is not ported yet (the M3 routes are:
-    tests/test_torch_m3.py holds them against JAX; adafactor and the bf16
-    AdamW state: tests/test_torch_adafactor.py)."""
+    """bf16 compute on the unfused route's kernels and on the M3 kernels is
+    still to be ported (Queue 1 item 6b; the fused and plain routes run it:
+    tests/test_torch_bf16_policy.py; the M3 routes in f32:
+    tests/test_torch_m3.py; adafactor and the bf16 AdamW state:
+    tests/test_torch_adafactor.py)."""
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
     x, y = _t(batches[0][0]), _t(batches[1][0], torch.long)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdeep.fused_loss(params, x, y, TLP, compute_dtype="bfloat16")
+    for kw in (dict(bd_impl="pallas", act_impl="pallas"),
+               dict(m3_impl="pallas")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdeep.fused_loss(params, x, y, TLP, compute_dtype="bfloat16",
+                             **kw)
 
 
 # --------------------------------------------------------------------- #

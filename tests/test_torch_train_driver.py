@@ -164,8 +164,9 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--compute-dtype", "bfloat16"],
-    ["--serve-publish"],
+    ["--compute-dtype", "bfloat16", "--bd-impl", "pallas", "--act-impl",
+     "pallas"],
+    ["--compute-dtype", "bfloat16", "--m3-impl", "pallas"],
     ["--pipeline", "on"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flags, tmp_path):
