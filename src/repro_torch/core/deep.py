@@ -42,14 +42,18 @@ loop.  ``qparams_from_numpy`` carries the JAX package's int8 tree in.
 ``compute_dtype="bfloat16"`` is the mixed-precision policy (DESIGN.md §7),
 with the JAX package's rounding points: the matmul OPERANDS (activations
 and weights) are cast to bf16 at every projection boundary, the kernels
-(or the plain route's matmuls) sum in f32, and the biases, the logits, the
-loss, the f32 master parameters and their gradients stay f32.  On the
-fused route every launch is the kernel's bf16 instance (the same depth+1
-and 2·(depth+1) launches); the plain route (``bd_impl="einsum"``, any
-``m3_impl`` but ``"pallas"``, any ``act_impl``) runs it in plain PyTorch.
-bf16 on the unfused route's kernels (``bd_impl="pallas"``,
-``m3_impl="pallas"``) and over the int8 copy is still to be ported
-(ROADMAP.md, Queue 1 item 6b): ``check_dtypes`` raises for it.
+(or the plain route's matmuls) sum in f32, and the biases, the head's
+logits after the bias, the loss, the f32 master parameters and their
+gradients stay f32.  On the fused route every launch is the kernel's bf16
+instance (the same depth+1 and 2·(depth+1) launches); on the unfused
+route (``bd_impl="pallas"``) each mid layer's projection is the
+block-diagonal kernel's bf16 instance, whose bf16 output plus the f32
+bias hands the segmented activation f32, and the ``m3_impl="pallas"``
+head is the M3 kernels' bf16 instances (bf16 logits, widened before the
+bias); over the int8 copy x and h are cast to bf16 before each int8
+kernel, which then runs its bf16-activation instance; the plain route
+(``bd_impl="einsum"``, any other ``m3_impl``, any ``act_impl``) runs it
+in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -66,11 +70,6 @@ from repro_torch.core.population import LayeredPopulation
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import layout_tensor as _static
 from repro_torch.quant import abstract_qparams
-
-_ITEM_6B = ("is not ported yet: the bf16 compute policy runs on the fused "
-            "kernels and the plain route; the unfused route's kernels and "
-            "the int8 serve copy under it are ROADMAP.md, Queue 1 item 6b")
-
 
 # ---------------------------------------------------------------------- #
 # block-diagonal mid-layer projection                                    #
@@ -535,22 +534,12 @@ def resolve_compute_dtype(compute_dtype):
                      "(float32 or bfloat16)")
 
 
-def check_dtypes(compute_dtype=None, weights_dtype=None, bd_impl=None,
-                 m3_impl=None):
-    """Reject what the port cannot compute, rather than ignore it →
-    the resolved weights dtype (None or "int8").  Under bf16 compute the
-    unfused route's kernels (``bd_impl="pallas"``, ``m3_impl="pallas"``)
-    and the int8 copy raise ``NotImplementedError`` (Queue 1 item 6b), on
-    any device."""
-    wd = _resolve_weights_dtype(weights_dtype)
-    if resolve_compute_dtype(compute_dtype) is not None:
-        for bad, what in ((wd is not None, "weights_dtype='int8'"),
-                          (bd_impl == "pallas", "bd_impl='pallas'"),
-                          (m3_impl == "pallas", "m3_impl='pallas'")):
-            if bad:
-                raise NotImplementedError(
-                    f"compute_dtype='bfloat16' with {what} " + _ITEM_6B)
-    return wd
+def check_dtypes(compute_dtype=None, weights_dtype=None):
+    """Reject an unknown compute or weights dtype (``ValueError``, as the
+    JAX package) → the resolved weights dtype (None or "int8").  Every
+    combination of the two with any route runs."""
+    resolve_compute_dtype(compute_dtype)
+    return _resolve_weights_dtype(weights_dtype)
 
 
 def _caster(compute_dtype):
@@ -560,9 +549,11 @@ def _caster(compute_dtype):
 
 
 def _hidden_int8(qparams, x, lp: LayeredPopulation, bd_impl: str, in_impl,
-                 infer: bool) -> torch.Tensor:
+                 infer: bool, cast) -> torch.Tensor:
     """The trunk over the int8 serve copy: the fused-dequant input layer
-    and one fused-dequant mid layer per projection."""
+    and one fused-dequant mid layer per projection, each fed its
+    activations through the policy's ``cast`` (JAX: ``cast(x)``,
+    ``cast(h)``), so under bf16 each runs its bf16-activation instance."""
     if not infer:
         raise ValueError(
             "weights_dtype='int8' is a serving-only path — the quantized "
@@ -573,10 +564,10 @@ def _hidden_int8(qparams, x, lp: LayeredPopulation, bd_impl: str, in_impl,
             "weights_dtype='int8' needs the fused serving kernels "
             f"(bd_impl='fused'), got bd_impl={bd_impl!r}, "
             f"in_impl={in_impl!r}")
-    h = input_fused_infer_int8(x, qparams["w_in"], qparams["w_in_scale"],
-                               qparams["b_in"], lp)
+    h = input_fused_infer_int8(cast(x), qparams["w_in"],
+                               qparams["w_in_scale"], qparams["b_in"], lp)
     for l in range(lp.depth - 1):
-        h = block_diag_fused_infer_int8(h, qparams["mid"][l], lp, l)
+        h = block_diag_fused_infer_int8(cast(h), qparams["mid"][l], lp, l)
     return h
 
 
@@ -589,16 +580,17 @@ def _hidden(params, x, lp: LayeredPopulation, bd_impl: str = "einsum",
     runs the int8 serve copy through their fused-dequant twins.  Under
     ``compute_dtype="bfloat16"`` x, h and every weight are cast to bf16 at
     each projection (JAX's ``cast``); a fused layer returns bf16
-    activations, a plain one adds its f32 bias to the bf16 sum (f32)."""
+    activations, a plain or unfused one adds its f32 bias to the bf16
+    projection (f32)."""
     if bd_impl.endswith("_int8"):
         raise ValueError(f"bd_impl {bd_impl!r} is the weights_dtype='int8' "
                          "route — request it via weights_dtype, not bd_impl")
-    if check_dtypes(compute_dtype, weights_dtype, bd_impl) is not None:
-        return _hidden_int8(params, x, lp, bd_impl, in_impl, infer)
+    cast = _caster(compute_dtype)
+    if check_dtypes(compute_dtype, weights_dtype) is not None:
+        return _hidden_int8(params, x, lp, bd_impl, in_impl, infer, cast)
     if bd_impl not in BD_IMPLS:
         raise ValueError(f"unknown bd_impl {bd_impl!r} "
                          f"(have {sorted(BD_IMPLS)})")
-    cast = _caster(compute_dtype)
     in_impl = _resolve_in_impl(in_impl, bd_impl)
     h = IN_IMPLS[in_impl](cast(x), cast(params["w_in"]), params["b_in"], lp,
                           act_impl)
@@ -638,7 +630,8 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
     ``"fused_int8"`` serves int8 weights and nothing else.
 
     ``compute_dtype="bfloat16"``: the bf16 policy (module docstring); the
-    logits come back f32."""
+    logits come back f32 (the M3 kernels' bf16 logits widened before the
+    bias, as JAX's ``astype(f32)``)."""
     int8 = _resolve_weights_dtype(weights_dtype) is not None
     cast = _caster(compute_dtype)
     h = _hidden(params, x, lp, bd_impl, act_impl, compute_dtype, in_impl,
@@ -660,7 +653,8 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
                 raise ValueError("head_impl='fused_int8' needs "
                                  "weights_dtype='int8'")
             return m3_infer_head_int8(
-                h, params["w_out"], params["w_out_scale"], params["b_out"],
+                cast(h), params["w_out"], params["w_out_scale"],
+                params["b_out"],
                 plast, log_probs=log_probs,
                 seg=_static(lp, "seg_last", h.device,
                             plast.block_segment_ids, torch.int32))
@@ -670,7 +664,6 @@ def forward(params, x, lp: LayeredPopulation, m3_impl: str = "bucketed",
                 log_probs=log_probs,
                 seg=_static(lp, "seg_last", h.device,
                             plast.block_segment_ids, torch.int32))
-    check_dtypes(compute_dtype, m3_impl=m3_impl)
     y = m3(cast(h), cast(params["w_out"]), plast, impl=m3_impl)
     if y.dtype == torch.bfloat16:
         y = y.float()

@@ -22,7 +22,17 @@ The kernel walks the member-owned units of ``dw_units``
 shares): a member's rectangle of parameter tiles, or a chunk of its
 columns, or one tile where the list traces no rectangle.
 
-Each ``*_plain`` function is the same function in plain PyTorch.
+The bf16 compute policy (DESIGN.md §7; JAX's kernels on bf16 operands,
+``repro/kernels/block_diag.py:75-79, :131-135``): bf16 x (dy) and tiles
+launch the kernels' bf16 instances (entries ``block_diag_fwd_bf16``, the
+group core's ``BF16W`` policy, and ``block_diag_dw_bf16``, the same member
+units over bf16 loads): products and sums in f32, each output rounded once
+to bf16 — dWB after its sum over the whole batch.  They count in
+``bf16_fwd_launches`` and ``bf16_dw_launches``.
+
+Each ``*_plain`` function is the same function in plain PyTorch, on f32 or
+bf16 operands (widened: a product of two bf16 values is exact in f32; sums
+in f32; the output rounded once to the operands' dtype).
 """
 from __future__ import annotations
 
@@ -37,6 +47,8 @@ from repro_torch.kernels import _build
 # kernel launches (the CPU dispatch in ops counts its plain calls too):
 fwd_launches = 0      # the forward, and the backward's dh
 dw_launches = 0       # the weight gradient
+bf16_fwd_launches = 0  # their bf16 instances (the compute policy)
+bf16_dw_launches = 0
 MAX_BLOCK = 128       # widest tile the kernels keep in shared memory
 # the group core's shapes (csrc/block_diag_core.cuh; ``core_shapes`` reads
 # them from the library): a lane's register tile covers LANE_COLS columns
@@ -244,11 +256,13 @@ def fwd_path(x, wb, y, g=None) -> str:
 
 def dw_path(dy, x, dwb) -> str:
     """The instance a ``block_diag_dw`` launch takes: ``"vec4"`` where the
-    block is a multiple of 4 and dy, x and dWB start on a 16-byte boundary
-    (16-byte loads of dy and x, 16-byte stores of dWB), else ``"scalar"``.
-    ``csrc/block_diag.cu::block_diag_dw_f32`` applies the same rule."""
+    block is a multiple of 4 and dy, x and dWB start on a boundary of 4 of
+    their elements (4 values a load of dy and x, a store of dWB: 16 bytes
+    in f32, 8 under the bf16 policy), else ``"scalar"``.
+    ``csrc/block_diag.cu``'s ``block_diag_dw_f32`` and
+    ``block_diag_dw_bf16`` apply the same rule."""
     vec = dwb.shape[-1] % 4 == 0 and all(
-        t.data_ptr() % 16 == 0 for t in (dy, x, dwb))
+        t.data_ptr() % (4 * t.element_size()) == 0 for t in (dy, x, dwb))
     return "vec4" if vec else "scalar"
 
 
@@ -429,11 +443,16 @@ def block_diag_fwd_plain(x, wb, rowptr, s_in, s_w, *, blk: int):
 
 
 def block_diag_dw_plain(dy, x, wb_out_tile, wb_in_tile, *, blk: int):
-    """dWB[q] = Σ_b dy[:, wb_out_tile[q]]ᵀ · x[:, wb_in_tile[q]]."""
+    """dWB[q] = Σ_b dy[:, wb_out_tile[q]]ᵀ · x[:, wb_in_tile[q]] → (n_param,
+    blk, blk) in dy's dtype; products and sums in f32 (f64 for f64 inputs),
+    rounded once, as JAX's kernel sums every batch tile into one f32
+    accumulator."""
     b = dy.shape[0]
+    acc = torch.promote_types(dy.dtype, torch.float32)
     return torch.einsum("bqr,bqc->qrc",
-                        dy.reshape(b, -1, blk)[:, wb_out_tile.long()],
-                        x.reshape(b, -1, blk)[:, wb_in_tile.long()])
+                        dy.to(acc).reshape(b, -1, blk)[:, wb_out_tile.long()],
+                        x.to(acc).reshape(b, -1, blk)[:, wb_in_tile.long()]
+                        ).to(dy.dtype)
 
 
 def _check_block(where: str, blk: int):
@@ -443,13 +462,14 @@ def _check_block(where: str, blk: int):
 
 
 def block_diag_fwd_cuda(x, wb, rowptr, s_in, s_w, *, blk: int):
-    """One launch → (B, n_rows·blk), n_rows = len(rowptr) − 1, walking
-    the CSR's group table (``groups_on``)."""
-    global fwd_launches
+    """One launch → (B, n_rows·blk) in x's dtype, n_rows = len(rowptr) −
+    1, walking the CSR's group table (``groups_on``); x and wb f32, or both
+    bf16."""
+    suffix = _build.operand_suffix("block_diag_fwd", x)
     _build.check_tensors(
         "block_diag_fwd", x,
-        ("x", x, torch.float32),
-        ("wb", wb, torch.float32),
+        ("x", x, x.dtype),
+        ("wb", wb, x.dtype),
         ("rowptr", rowptr, torch.int32),
         ("s_in", s_in, torch.int32),
         ("s_w", s_w, torch.int32))
@@ -459,27 +479,28 @@ def block_diag_fwd_cuda(x, wb, rowptr, s_in, s_w, *, blk: int):
         raise ValueError("block_diag_fwd: inconsistent shapes")
     groups = checked_groups("block_diag_fwd", x, wb, rowptr, s_in, s_w, blk)
     b, n_rows = x.shape[0], rowptr.shape[0] - 1
-    fn = _build.function("block_diag", "block_diag_fwd_f32",
+    fn = _build.function("block_diag", "block_diag_fwd_" + suffix,
                          [_P] * 6 + [_I] * 5 + [_P])
-    y = torch.empty(b, n_rows * blk, device=x.device, dtype=torch.float32)
+    y = torch.empty(b, n_rows * blk, device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), wb.data_ptr(), s_in.data_ptr(),
                 s_w.data_ptr(), groups.data_ptr(), y.data_ptr(),
                 b, x.shape[1] // blk, n_rows, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "block_diag_fwd")
-    fwd_launches += 1
+    _build.count(globals(), "fwd_launches", x.dtype)
     return y
 
 
 def block_diag_dw_cuda(dy, x, wb_out_tile, wb_in_tile, *, blk: int):
-    """One launch → dWB (n_param, blk, blk), n_param = len(wb_out_tile),
-    walking the tiles' member-owned units (``checked_dw_units``)."""
-    global dw_launches
+    """One launch → dWB (n_param, blk, blk) in dy's dtype, n_param =
+    len(wb_out_tile), walking the tiles' member-owned units
+    (``checked_dw_units``); dy and x f32, or both bf16."""
+    suffix = _build.operand_suffix("block_diag_dw", dy)
     _build.check_tensors(
         "block_diag_dw", dy,
-        ("dy", dy, torch.float32),
-        ("x", x, torch.float32),
+        ("dy", dy, dy.dtype),
+        ("x", x, dy.dtype),
         ("wb_out_tile", wb_out_tile, torch.int32),
         ("wb_in_tile", wb_in_tile, torch.int32))
     _check_block("block_diag_dw", blk)
@@ -489,15 +510,14 @@ def block_diag_dw_cuda(dy, x, wb_out_tile, wb_in_tile, *, blk: int):
             or wb_in_tile.shape != (n_param,):
         raise ValueError("block_diag_dw: inconsistent shapes")
     units, ptr = checked_dw_units(dy, x, wb_out_tile, wb_in_tile, blk)
-    fn = _build.function("block_diag", "block_diag_dw_f32",
+    fn = _build.function("block_diag", "block_diag_dw_" + suffix,
                          [_P] * 5 + [_I] * 5 + [_P])
-    dwb = torch.empty(n_param, blk, blk, device=dy.device,
-                      dtype=torch.float32)
+    dwb = torch.empty(n_param, blk, blk, device=dy.device, dtype=dy.dtype)
     with torch.cuda.device(dy.device):
         rc = fn(dy.data_ptr(), x.data_ptr(), units.data_ptr(),
                 ptr.data_ptr(), dwb.data_ptr(), dy.shape[0],
                 dy.shape[1] // blk, x.shape[1] // blk, blk,
                 ptr.shape[0] - 1, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "block_diag_dw")
-    dw_launches += 1
+    _build.count(globals(), "dw_launches", dy.dtype)
     return dwb

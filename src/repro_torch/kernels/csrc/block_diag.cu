@@ -5,7 +5,9 @@
 //
 // Replaces the TPU kernels repro/kernels/block_diag.py::block_diag_fwd
 // (block_diag_fwd_f32 here) and ::block_diag_dw (block_diag_dw_f32 here),
-// the pair behind repro/kernels/ops.py::block_diag_gemm's custom VJP.  As
+// the pair behind repro/kernels/ops.py::block_diag_gemm's custom VJP, and
+// their instances under the bf16 compute policy (block_diag_fwd_bf16,
+// block_diag_dw_bf16; see below).  As
 // there, the forward kernel is also the backward's dh: fed dy, the
 // per-member-transposed tiles and the transposed steps it computes
 // dh[:, i] = Σ_{transposed steps s of input tile i} dy[:, s_in_t[s]] ·
@@ -44,6 +46,19 @@
 //     in order) is the one of the per-tile kernel it replaced.
 // Any block up to 128 (block 8, the LayeredPopulation default, included).
 //
+// bf16 (the compute policy: x, the tiles and dy bf16, as JAX's kernels
+// take them on the unfused route; block_diag_fwd_bf16, kernel
+// block_diag_bf16_group_kernel; block_diag_dw_bf16, kernel
+// block_diag_dw_bf16_member_kernel): the forward runs the group core under
+// its BF16W policy (x and the tiles widened into the f32 stage as a chunk
+// is issued) and stores u rounded once to bf16, 4 values an 8-byte store;
+// the dW stages dy and x widened (8-byte loads) and keeps the same chain —
+// each 32-row chunk's sum from 0, the chunks' sums added in order, in
+// registers — then rounds each dW element once, at the end, as JAX sums
+// every batch tile into one f32 accumulator and rounds it once
+// (repro/kernels/block_diag.py:131-135).  The vec4 instances take bf16
+// tensors on 8-byte boundaries (4 values a load or a store).
+//
 // What bounds it: bytes at training and serving batch sizes.  A step reads
 // one blk × blk weight tile and one (32 × blk) input tile for 2·32·blk²
 // FLOP (16 FLOP per weight byte at B = 32), below the card's f32 ridge
@@ -53,6 +68,7 @@
 // tile once.
 #include <climits>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 #include "block_diag_core.cuh"
 #include "member_units.cuh"
@@ -61,10 +77,14 @@ namespace {
 
 constexpr int MAX_BLK = 128;
 
+using bdcore::bf16;
+
+// T: float, or bf16 under the compute policy (dWB rounded once)
+template <typename T>
 struct DwArgs {
-  const float* dy;
-  const float* x;
-  float* dwb;
+  const T* dy;
+  const T* x;
+  T* dwb;
   int B, out_w, in_w, blk;
 };
 
@@ -74,8 +94,8 @@ struct DwArgs {
 // summed over the batch 32 rows at a time
 template <int V>
 struct DwUnit {
-  template <int NT, class S>
-  __device__ static void run(const int* u, const DwArgs& a, float* s,
+  template <int NT, class S, typename T>
+  __device__ static void run(const int* u, const DwArgs<T>& a, float* s,
                              int l) {
     using namespace munits;
     const int in0 = u[0], nc = u[1], out0 = u[2], no = u[3], q = u[4],
@@ -129,7 +149,22 @@ struct DwUnit {
         for (int i = 0; i < 4; ++i) {
           if (r0 + i >= oc) break;
           const size_t row = (size_t)q + (size_t)rt * ld;
-          if constexpr (V == 4) {  // 4 columns of one tile (blk % 4 == 0)
+          if constexpr (std::is_same<T, bf16>::value) {  // rounded once
+            if constexpr (V == 4) {
+              bf16x::store4<true>(a.dwb + ((row + ct) * blk + au) * blk + jc,
+                                  tot[i][0], tot[i][1], tot[i][2],
+                                  tot[i][3]);
+            } else {
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                if (j0 + j >= cw) break;
+                const int jb = ja + j;
+                bf16x::store1<true>(
+                    a.dwb + ((row + jb / blk) * blk + au) * blk + jb % blk,
+                    tot[i][j]);
+              }
+            }
+          } else if constexpr (V == 4) {  // 4 columns of one tile (blk % 4 == 0)
             __stcs(reinterpret_cast<float4*>(
                        a.dwb + ((row + ct) * blk + au) * blk + jc),
                    make_float4(tot[i][0], tot[i][1], tot[i][2], tot[i][3]));
@@ -156,15 +191,28 @@ constexpr int DW_SMEM =
 
 template <int V>
 __global__ void __launch_bounds__(munits::THREADS)
-block_diag_dw_member_kernel(DwArgs a, const int* __restrict__ units,
+block_diag_dw_member_kernel(DwArgs<float> a, const int* __restrict__ units,
                             const int* __restrict__ job_ptr) {
   __shared__ __align__(16) float smem[DW_SMEM];
   munits::run_job<DwUnit<V>>(a, units, job_ptr, smem,
                              munits::WarpStage::DW_FLOATS);
 }
 
+template <int V>
+__global__ void __launch_bounds__(munits::THREADS)
+block_diag_dw_bf16_member_kernel(DwArgs<bf16> a,
+                                 const int* __restrict__ units,
+                                 const int* __restrict__ job_ptr) {
+  __shared__ __align__(16) float smem[DW_SMEM];
+  munits::run_job<DwUnit<V>>(a, units, job_ptr, smem,
+                             munits::WarpStage::DW_FLOATS);
+}
+
 // the forward's epilogue: u as it is, from the lane's registers, 16-byte
-// evict-first stores where the vec4 instance runs
+// evict-first stores where the vec4 instance runs; with BF (the bf16
+// compute policy) to a.yh, each value rounded once to bf16, 4 values an
+// 8-byte store
+template <bool BF = false>
 struct StoreU {
   template <int V>
   __device__ __forceinline__ void run(const bdcore::Args& a,
@@ -180,6 +228,19 @@ struct StoreU {
     for (int i = 0; i < bdcore::RPL; ++i) {
       const int b = (lane & 7) + 8 * i;
       if (b >= nb) break;
+      if constexpr (BF) {
+        bf16* yh = a.yh + (size_t)(b0 + b) * a.out_w + col0;
+#pragma unroll
+        for (int c = 0; c < bdcore::CG; c += (V == 4 ? 4 : 1)) {
+          if (c >= ncol) break;
+          if constexpr (V == 4)
+            bf16x::store4<true>(yh + c, acc[i][c], acc[i][c + 1],
+                                acc[i][c + 2], acc[i][c + 3]);
+          else
+            bf16x::store1<true>(yh + c, acc[i][c]);
+        }
+        continue;
+      }
       float* y = a.y + (size_t)(b0 + b) * a.out_w + col0;
       if constexpr (V == 4) {
 #pragma unroll
@@ -200,7 +261,20 @@ struct StoreU {
 template <int V>
 __global__ void __launch_bounds__(bdcore::THREADS, 3)
 block_diag_group_kernel(bdcore::Args a) {
-  bdcore::run_groups<V, StoreU>(a);
+  bdcore::run_groups<V, StoreU<>>(a);
+}
+
+template <int V>
+__global__ void __launch_bounds__(bdcore::THREADS, 3)
+block_diag_bf16_group_kernel(bdcore::Args a) {
+  bdcore::run_groups<V, StoreU<true>, bdcore::BF16W>(a);
+}
+
+bool dw_args_bad(int B, int n_out_tiles, int n_in_tiles, int blk,
+                 int n_jobs) {
+  return blk <= 0 || blk > MAX_BLK || B < 0 || n_jobs < 0 ||
+         (long long)n_in_tiles * blk > INT_MAX ||
+         (long long)n_out_tiles * blk > INT_MAX;
 }
 
 }  // namespace
@@ -238,17 +312,60 @@ extern "C" int block_diag_dw_f32(const float* dy, const float* x,
                                  float* dwb, int B, int n_out_tiles,
                                  int n_in_tiles, int blk, int n_jobs,
                                  void* stream) {
-  if (blk <= 0 || blk > MAX_BLK || B < 0 || n_jobs < 0)
-    return (int)cudaErrorInvalidValue;
-  if ((long long)n_in_tiles * blk > INT_MAX ||
-      (long long)n_out_tiles * blk > INT_MAX)
+  if (dw_args_bad(B, n_out_tiles, n_in_tiles, blk, n_jobs))
     return (int)cudaErrorInvalidValue;
   if (n_jobs == 0) return 0;
-  const DwArgs a{dy, x, dwb, B, n_out_tiles * blk, n_in_tiles * blk, blk};
+  const DwArgs<float> a{dy, x, dwb, B, n_out_tiles * blk, n_in_tiles * blk,
+                        blk};
   const bool v4 = blk % 4 == 0 && munits::aligned16(dy) &&
                   munits::aligned16(x) && munits::aligned16(dwb);
   auto* kernel =
       v4 ? block_diag_dw_member_kernel<4> : block_diag_dw_member_kernel<1>;
+  kernel<<<(unsigned)n_jobs, munits::THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(a, units, job_ptr);
+  return (int)cudaGetLastError();
+}
+
+// The bf16 compute policy: x (B, n_in_tiles·blk) and wb (n_tiles, blk,
+// blk) bf16, the CSR steps and their group table as for the f32 entry → y
+// (B, n_rows·blk) bf16, each value rounded once from its f32 sum.
+extern "C" int block_diag_fwd_bf16(const bf16* x, const bf16* wb,
+                                   const int* s_in, const int* s_w,
+                                   const int* groups, bf16* y, int B,
+                                   int n_in_tiles, int n_rows, int blk,
+                                   int n_groups, void* stream) {
+  if (n_rows <= 0) return 0;
+  bdcore::Args a{nullptr, nullptr, s_in,    s_w,        groups,
+                 nullptr, nullptr, nullptr, nullptr,    nullptr,
+                 B,       n_in_tiles, n_rows, blk,      n_groups};
+  a.xh = x;
+  a.wh = wb;
+  a.yh = y;
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(block_diag_bf16_group_kernel<4>),
+      reinterpret_cast<const void*>(block_diag_bf16_group_kernel<1>), a,
+      stream);
+}
+
+// The bf16 compute policy: dy (B, n_out_tiles·blk) and x (B,
+// n_in_tiles·blk) bf16, the units and job_ptr as for the f32 entry → dWB
+// (n_param, blk, blk) bf16, each element rounded once from its f32 sum
+// over the whole batch.
+extern "C" int block_diag_dw_bf16(const bf16* dy, const bf16* x,
+                                  const int* units, const int* job_ptr,
+                                  bf16* dwb, int B, int n_out_tiles,
+                                  int n_in_tiles, int blk, int n_jobs,
+                                  void* stream) {
+  if (dw_args_bad(B, n_out_tiles, n_in_tiles, blk, n_jobs))
+    return (int)cudaErrorInvalidValue;
+  if (n_jobs == 0) return 0;
+  const DwArgs<bf16> a{dy, x, dwb, B, n_out_tiles * blk, n_in_tiles * blk,
+                       blk};
+  using bf16x::aligned8;
+  const bool v4 =
+      blk % 4 == 0 && aligned8(dy) && aligned8(x) && aligned8(dwb);
+  auto* kernel = v4 ? block_diag_dw_bf16_member_kernel<4>
+                    : block_diag_dw_bf16_member_kernel<1>;
   kernel<<<(unsigned)n_jobs, munits::THREADS, 0,
            static_cast<cudaStream_t>(stream)>>>(a, units, job_ptr);
   return (int)cudaGetLastError();

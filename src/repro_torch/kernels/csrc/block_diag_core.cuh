@@ -5,8 +5,9 @@
 // the tiles read through a weight policy (F32W: f32 tiles; I8W: int8 tiles
 // and one f32 scale a tile, each weight formed as (float)q · scale; BF16W:
 // the bf16 compute policy, bf16 x and tiles widened to f32 as they are
-// staged) and u handed to an epilogue policy (u stored as it is, or bias,
-// activation, mask and g').
+// staged; I8BW: I8W's tiles under the bf16 compute policy, bf16 x widened
+// as BF16W stages it) and u handed to an epilogue policy (u stored as it
+// is, or bias, activation, mask and g'; in f32, or rounded once to bf16).
 //
 // A group (row0, nr, u0, nu, L, diag, s0) is nr consecutive CSR rows of L
 // steps each, from step s0 on, and their output units [u0, u0 + nu):
@@ -325,6 +326,18 @@ struct BF16W {
                                               int, float*, int) {}
 };
 
+// I8BW: the int8 serve copy under the bf16 compute policy — I8W's tiles,
+// scales and landing pass (the bytes by cp.async, turned into f32 slots
+// after they land), with x bf16, widened into its f32 slots as BF16W
+// stages it (a load and a store at issue)
+struct I8BW : I8W {
+  template <int V>
+  __device__ __forceinline__ static void copy_x(const Args& a, float* dst,
+                                                size_t at) {
+    BF16W::widen_to<V>(dst, a.xh + at);
+  }
+};
+
 // one chunk's copies, spread over the warp: lane l copies piece
 // q = l mod npp (V floats deep) of rows l / npp, l / npp + 32 / npp, …,
 // each tile's index read from s_in or s_w.  x streams through L2; the tiles come through L1, because the
@@ -506,8 +519,9 @@ inline bool aligned16(const void* p) {
 // Launch `vec4` or `scalar` (the rule of block_diag.py::fwd_path: a block
 // that is a multiple of 4, x, y and g' on 16-byte boundaries, and the f32
 // tiles wb on a 16-byte boundary or the int8 tiles wq on a 4-byte one;
-// under the bf16 policy x, the tiles, y and g' on 8-byte boundaries), one
-// warp a group.
+// under the bf16 policy x, y and g' on 8-byte boundaries, and the bf16
+// tiles on an 8-byte one or the int8 tiles on a 4-byte one), one warp a
+// group.
 inline int launch_groups(const void* vec4, const void* scalar, Args a,
                          void* stream) {
   if (a.blk <= 0 || a.blk > MAX_BLK || a.B < 0 || a.n_groups < 0)
@@ -520,10 +534,9 @@ inline int launch_groups(const void* vec4, const void* scalar, Args a,
   if (a.B == 0 || a.n_groups == 0) return 0;
   using bf16x::aligned8;
   const bool bf = a.xh != nullptr;
-  const bool w_ok = bf ? aligned8(a.wh)
-                    : a.wq != nullptr
+  const bool w_ok = a.wq != nullptr
                         ? reinterpret_cast<uintptr_t>(a.wq) % 4 == 0
-                        : aligned16(a.wb);
+                        : bf ? aligned8(a.wh) : aligned16(a.wb);
   const bool v4 =
       a.blk % 4 == 0 && w_ok &&
       (bf ? aligned8(a.xh) && aligned8(a.yh) &&

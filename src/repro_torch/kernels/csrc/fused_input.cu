@@ -14,6 +14,14 @@
 // (B, F) and the kernel reads only the first F bytes of each weight row.
 // Each hidden row block of `block` rows has one f32 scale (H / block,).
 //
+// The int8 serve copy under the bf16 compute policy (fused_input_infer_i8_bf16
+// here, kernel fused_input_i8_bf16_kernel; JAX's fused_input_int8_fwd on
+// bf16 x, repro/kernels/fused_input.py:146-158, out dtype x's at :189): the
+// int8 weight policy with bf16 activations — x widened into the same f32
+// shared rows, y stored in bf16, rounded once.  The weights' type and the
+// activations' type are separate parameters of the kernel body
+// (fused_input_body<VEC, W, X, ...>); fused_input_kernel keeps X = Act<W>.
+//
 // Under the bf16 compute policy (DESIGN.md §7) the same template with bf16
 // weights replaces fused_input_fwd on bf16 operands (fused_input_infer_bf16
 // and fused_input_train_bf16 here): x and W bf16, y and g' bf16, each
@@ -463,21 +471,18 @@ __device__ __forceinline__ void epilogue(const float (&acc)[RB][U],
 
 // W is float (w_scale unused, ldw = F), bf16 (the compute policy: x, y
 // and g' bf16 too, Act<W>; w_scale unused, ldw = F) or int8_t (w_scale one
-// f32 per row block, ldw = F_pad the row stride).  VEC first, so the name
-// the profiler records begins with the instance: fused_input_kernel<4, …>
-// or <1, …>.
-template <int VEC, typename W, bool DERIV, int RB>
-__global__ void __launch_bounds__(THREADS, 1)
-fused_input_kernel(const Act<W>* __restrict__ x, const W* __restrict__ w,
-                   const float* __restrict__ w_scale, int ldw,
-                   const float* __restrict__ bias,
-                   const float* __restrict__ mask,
-                   const int* __restrict__ act_ids, Act<W>* __restrict__ y,
-                   Act<W>* __restrict__ g, int B, int F, int H, int block,
-                   Plan p) {
+// f32 per row block, ldw = F_pad the row stride); X, the activations' type
+// (x, y, g'), is f32, or bf16 under the compute policy.
+template <int VEC, typename W, typename X, bool DERIV, int RB>
+__device__ __forceinline__ void fused_input_body(
+    const X* __restrict__ x, const W* __restrict__ w,
+    const float* __restrict__ w_scale, int ldw,
+    const float* __restrict__ bias, const float* __restrict__ mask,
+    const int* __restrict__ act_ids, X* __restrict__ y, X* __restrict__ g,
+    int B, int F, int H, int block, const Plan& p) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr bool INT8 = std::is_same<W, int8_t>::value;
-  constexpr bool BF16 = std::is_same<W, bf16>::value;
+  constexpr bool BF16 = std::is_same<X, bf16>::value;  // x widened
   const int t = threadIdx.x;
   const int lane = t % 32, warp = t / 32;
   const int bg = lane / 8, ug = lane % 8;  // batch group, unit group
@@ -614,6 +619,50 @@ fused_input_kernel(const Act<W>* __restrict__ x, const W* __restrict__ w,
   }
 }
 
+// The kernels.  VEC first, so the name the profiler records begins with
+// the instance: fused_input_kernel<4, …> or <1, …>.
+template <int VEC, typename W, bool DERIV, int RB>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_input_kernel(const Act<W>* __restrict__ x, const W* __restrict__ w,
+                   const float* __restrict__ w_scale, int ldw,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ mask,
+                   const int* __restrict__ act_ids, Act<W>* __restrict__ y,
+                   Act<W>* __restrict__ g, int B, int F, int H, int block,
+                   Plan p) {
+  fused_input_body<VEC, W, Act<W>, DERIV, RB>(x, w, w_scale, ldw, bias, mask,
+                                              act_ids, y, g, B, F, H, block,
+                                              p);
+}
+
+// int8 weights, bf16 activations (the int8 serve copy under the bf16
+// compute policy; serving only)
+template <int VEC, int RB>
+__global__ void __launch_bounds__(THREADS, 1)
+fused_input_i8_bf16_kernel(const bf16* __restrict__ x,
+                           const int8_t* __restrict__ w,
+                           const float* __restrict__ w_scale, int ldw,
+                           const float* __restrict__ bias,
+                           const float* __restrict__ mask,
+                           const int* __restrict__ act_ids,
+                           bf16* __restrict__ y, bf16* __restrict__ g, int B,
+                           int F, int H, int block, Plan p) {
+  fused_input_body<VEC, int8_t, bf16, false, RB>(x, w, w_scale, ldw, bias,
+                                                 mask, act_ids, y, g, B, F,
+                                                 H, block, p);
+}
+
+// the kernel of an instance: fused_input_kernel where the activations'
+// type is the weights' Act<W>, else (int8 weights, bf16 activations)
+// fused_input_i8_bf16_kernel
+template <int VEC, typename W, typename X, bool DERIV, int RB>
+constexpr auto kernel_of() {
+  if constexpr (std::is_same<X, Act<W>>::value)
+    return fused_input_kernel<VEC, W, DERIV, RB>;
+  else
+    return fused_input_i8_bf16_kernel<VEC, RB>;
+}
+
 // SMs of the current device (cached per device)
 int sm_count() {
   static int count[64] = {};
@@ -631,13 +680,14 @@ bool aligned16(const void* p) {
 
 // one instance's launch: as many CTAs as fit the card at once, at most one
 // per 8 warp tiles
-template <int VEC, typename W, bool DERIV, int RB>
-int launch_instance(const Plan& p, const Act<W>* x, const W* w,
+template <int VEC, typename W, typename X, bool DERIV, int RB>
+int launch_instance(const Plan& p, const X* x, const W* w,
                     const float* w_scale, int ldw, const float* bias,
-                    const float* mask, const int* act_ids, Act<W>* y,
-                    Act<W>* g, int B, int F, int H, int block,
-                    cudaStream_t stream) {
-  auto kernel = fused_input_kernel<VEC, W, DERIV, RB>;
+                    const float* mask, const int* act_ids, X* y, X* g, int B,
+                    int F, int H, int block, cudaStream_t stream) {
+  static_assert(!DERIV || std::is_same<X, Act<W>>::value,
+                "int8 weights with bf16 activations: serving only");
+  auto kernel = kernel_of<VEC, W, X, DERIV, RB>();
   static bool opted_in = false;
   static int at_smem = -1;   // per_sm is the occupancy at this smem
   static int per_sm = 0;
@@ -658,56 +708,56 @@ int launch_instance(const Plan& p, const Act<W>* x, const W* w,
   const long long n_ctas =
       std::min<long long>((p.n_tiles + WARPS - 1) / WARPS,
                           (long long)sm_count() * std::max(per_sm, 1));
-  fused_input_kernel<VEC, W, DERIV, RB>
-      <<<(unsigned)n_ctas, THREADS, p.smem, stream>>>(
-          x, w, w_scale, ldw, bias, mask, act_ids, y, g, B, F, H, block, p);
+  kernel<<<(unsigned)n_ctas, THREADS, p.smem, stream>>>(
+      x, w, w_scale, ldw, bias, mask, act_ids, y, g, B, F, H, block, p);
   return (int)cudaGetLastError();
 }
 
-template <int VEC, typename W, bool DERIV>
-int launch_rows(const Plan& p, const Act<W>* x, const W* w,
-                const float* w_scale, int ldw, const float* bias,
-                const float* mask, const int* act_ids, Act<W>* y, Act<W>* g,
-                int B, int F, int H, int block, cudaStream_t stream) {
+template <int VEC, typename W, typename X, bool DERIV>
+int launch_rows(const Plan& p, const X* x, const W* w, const float* w_scale,
+                int ldw, const float* bias, const float* mask,
+                const int* act_ids, X* y, X* g, int B, int F, int H,
+                int block, cudaStream_t stream) {
   switch (p.rb) {
     case 1:
-      return launch_instance<VEC, W, DERIV, 1>(p, x, w, w_scale, ldw, bias,
-                                               mask, act_ids, y, g, B, F, H,
-                                               block, stream);
+      return launch_instance<VEC, W, X, DERIV, 1>(p, x, w, w_scale, ldw,
+                                                  bias, mask, act_ids, y, g,
+                                                  B, F, H, block, stream);
     case 2:
-      return launch_instance<VEC, W, DERIV, 2>(p, x, w, w_scale, ldw, bias,
-                                               mask, act_ids, y, g, B, F, H,
-                                               block, stream);
+      return launch_instance<VEC, W, X, DERIV, 2>(p, x, w, w_scale, ldw,
+                                                  bias, mask, act_ids, y, g,
+                                                  B, F, H, block, stream);
     case 4:
-      return launch_instance<VEC, W, DERIV, 4>(p, x, w, w_scale, ldw, bias,
-                                               mask, act_ids, y, g, B, F, H,
-                                               block, stream);
+      return launch_instance<VEC, W, X, DERIV, 4>(p, x, w, w_scale, ldw,
+                                                  bias, mask, act_ids, y, g,
+                                                  B, F, H, block, stream);
     default:
-      return launch_instance<VEC, W, DERIV, 8>(p, x, w, w_scale, ldw, bias,
-                                               mask, act_ids, y, g, B, F, H,
-                                               block, stream);
+      return launch_instance<VEC, W, X, DERIV, 8>(p, x, w, w_scale, ldw,
+                                                  bias, mask, act_ids, y, g,
+                                                  B, F, H, block, stream);
   }
 }
 
 // The vec4 instance where F, H and the weight row stride are multiples of
 // 4 and x, W, y and g' start on a 16-byte boundary — an 8-byte one for
-// bf16, whose 4 values a copy are 8 bytes (fwd_path() in fused_input.py) —
-// else the scalar one.
-template <typename W, bool DERIV>
-int launch(const Act<W>* x, const W* w, const float* w_scale, int ldw,
-           const float* bias, const float* mask, const int* act_ids,
-           Act<W>* y, Act<W>* g, int B, int F, int H, int block,
-           void* stream) {
+// bf16 tensors, whose 4 values a copy are 8 bytes (fwd_path() in
+// fused_input.py) — else the scalar one.
+template <typename W, typename X, bool DERIV>
+int launch(const X* x, const W* w, const float* w_scale, int ldw,
+           const float* bias, const float* mask, const int* act_ids, X* y,
+           X* g, int B, int F, int H, int block, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (F <= 0 || block <= 0 || ldw < F) return (int)cudaErrorInvalidValue;
   if ((long long)B * F > INT_MAX) return (int)cudaErrorInvalidValue;
   const Plan p = make_plan(B, F, H, block, (int)sizeof(W));
   const auto s = static_cast<cudaStream_t>(stream);
-  const auto al = std::is_same<W, bf16>::value ? bf16x::aligned8
+  const auto ax = std::is_same<X, bf16>::value ? bf16x::aligned8
                                                : aligned16;
-  const bool vec = F % 4 == 0 && H % 4 == 0 && ldw % 4 == 0 && al(x) &&
-                   al(w) && al(y) && (g == nullptr || al(g));
-  return (vec ? launch_rows<4, W, DERIV> : launch_rows<1, W, DERIV>)(
+  const auto aw = std::is_same<W, bf16>::value ? bf16x::aligned8
+                                               : aligned16;
+  const bool vec = F % 4 == 0 && H % 4 == 0 && ldw % 4 == 0 && ax(x) &&
+                   aw(w) && ax(y) && (g == nullptr || ax(g));
+  return (vec ? launch_rows<4, W, X, DERIV> : launch_rows<1, W, X, DERIV>)(
       p, x, w, w_scale, ldw, bias, mask, act_ids, y, g, B, F, H, block, s);
 }
 
@@ -717,7 +767,7 @@ extern "C" int fused_input_infer_f32(const float* x, const float* w,
                                      const float* bias, const float* mask,
                                      const int* act_ids, float* y, int B,
                                      int F, int H, int block, void* stream) {
-  return launch<float, false>(x, w, nullptr, F, bias, mask, act_ids, y,
+  return launch<float, float, false>(x, w, nullptr, F, bias, mask, act_ids, y,
                               nullptr, B, F, H, block, stream);
 }
 
@@ -726,7 +776,7 @@ extern "C" int fused_input_train_f32(const float* x, const float* w,
                                      const int* act_ids, float* y, float* g,
                                      int B, int F, int H, int block,
                                      void* stream) {
-  return launch<float, true>(x, w, nullptr, F, bias, mask, act_ids, y, g, B,
+  return launch<float, float, true>(x, w, nullptr, F, bias, mask, act_ids, y, g, B,
                              F, H, block, stream);
 }
 
@@ -736,7 +786,7 @@ extern "C" int fused_input_infer_bf16(const bf16* x, const bf16* w,
                                       const float* bias, const float* mask,
                                       const int* act_ids, bf16* y, int B,
                                       int F, int H, int block, void* stream) {
-  return launch<bf16, false>(x, w, nullptr, F, bias, mask, act_ids, y,
+  return launch<bf16, bf16, false>(x, w, nullptr, F, bias, mask, act_ids, y,
                              nullptr, B, F, H, block, stream);
 }
 
@@ -745,7 +795,7 @@ extern "C" int fused_input_train_bf16(const bf16* x, const bf16* w,
                                       const int* act_ids, bf16* y, bf16* g,
                                       int B, int F, int H, int block,
                                       void* stream) {
-  return launch<bf16, true>(x, w, nullptr, F, bias, mask, act_ids, y, g, B,
+  return launch<bf16, bf16, true>(x, w, nullptr, F, bias, mask, act_ids, y, g, B,
                             F, H, block, stream);
 }
 
@@ -755,6 +805,21 @@ extern "C" int fused_input_infer_i8(const float* x, const int8_t* w_q,
                                     const float* mask, const int* act_ids,
                                     float* y, int B, int F, int F_pad, int H,
                                     int block, void* stream) {
-  return launch<int8_t, false>(x, w_q, w_scale, F_pad, bias, mask, act_ids,
+  return launch<int8_t, float, false>(x, w_q, w_scale, F_pad, bias, mask, act_ids,
                                y, nullptr, B, F, H, block, stream);
+}
+
+// The int8 serve copy under the bf16 compute policy: x (B, F) bf16, w_q
+// (H, F_pad) int8, w_scale (H / block,) f32 → y (B, H) bf16, rounded once
+// from its f32 value.
+extern "C" int fused_input_infer_i8_bf16(const bf16* x, const int8_t* w_q,
+                                         const float* w_scale,
+                                         const float* bias,
+                                         const float* mask,
+                                         const int* act_ids, bf16* y, int B,
+                                         int F, int F_pad, int H, int block,
+                                         void* stream) {
+  return launch<int8_t, bf16, false>(x, w_q, w_scale, F_pad, bias, mask,
+                                     act_ids, y, nullptr, B, F, H, block,
+                                     stream);
 }

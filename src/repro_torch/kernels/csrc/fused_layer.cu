@@ -43,6 +43,13 @@
 // replaced kernel forms it (so its bits are the f32 instance's on tiles
 // dequantized the same way).
 //
+// int8 under the bf16 compute policy (fused_layer_infer_i8_bf16, kernel
+// fused_layer_i8_bf16_group_kernel; JAX's fused_layer_int8_fwd on bf16
+// x, repro/kernels/fused_layer.py:171-180, out dtype x's at :222): the core
+// under its I8BW policy (I8W's tiles, scales and landing pass; x bf16,
+// widened into the f32 stage as BF16W stages it) and this epilogue storing
+// y in bf16, rounded once.
+//
 // bf16 (the compute policy; fused_layer_infer_bf16 / fused_layer_train_bf16,
 // kernel fused_layer_bf16_group_kernel): the same core under its BF16W
 // policy (x and the tiles bf16, widened into the f32 stage as a chunk is
@@ -188,6 +195,12 @@ fused_layer_bf16_group_kernel(bdcore::Args a) {
   bdcore::run_groups<V, ActOut<DERIV, true>, bdcore::BF16W>(a);
 }
 
+template <int V>
+__global__ void __launch_bounds__(bdcore::THREADS, 3)
+fused_layer_i8_bf16_group_kernel(bdcore::Args a) {
+  bdcore::run_groups<V, ActOut<false, true>, bdcore::I8BW>(a);
+}
+
 // the bf16 entries' launch: y (and g') bf16, x and the tiles bf16
 int launch_bf16(const bdcore::bf16* x, const bdcore::bf16* wb,
                 const float* b_eff, const float* mask, const int* tile_act,
@@ -300,4 +313,31 @@ extern "C" int fused_layer_train_bf16(const bdcore::bf16* x,
                                       int blk, int n_groups, void* stream) {
   return launch_bf16(x, wb, b_eff, mask, tile_act, s_in, s_w, groups, y, g,
                      B, n_in_tiles, n_out_tiles, blk, n_groups, stream);
+}
+
+// The int8 serve copy under the bf16 compute policy: x (B, n_in_tiles·blk)
+// bf16, wb_q and wb_scale as for fused_layer_infer_i8 → y bf16, rounded
+// once from its f32 value.
+extern "C" int fused_layer_infer_i8_bf16(const bdcore::bf16* x,
+                                         const int8_t* wb_q,
+                                         const float* wb_scale,
+                                         const float* b_eff,
+                                         const float* mask,
+                                         const int* tile_act,
+                                         const int* s_in, const int* s_w,
+                                         const int* groups, bdcore::bf16* y,
+                                         int B, int n_in_tiles,
+                                         int n_out_tiles, int blk,
+                                         int n_groups, void* stream) {
+  if (n_out_tiles <= 0) return 0;
+  bdcore::Args a{nullptr, nullptr, s_in,  s_w,      groups,
+                 nullptr, nullptr, b_eff, mask,     tile_act,
+                 B,       n_in_tiles, n_out_tiles, blk, n_groups,
+                 wb_q,    wb_scale};
+  a.xh = x;
+  a.yh = y;
+  return bdcore::launch_groups(
+      reinterpret_cast<const void*>(fused_layer_i8_bf16_group_kernel<4>),
+      reinterpret_cast<const void*>(fused_layer_i8_bf16_group_kernel<1>),
+      a, stream);
 }

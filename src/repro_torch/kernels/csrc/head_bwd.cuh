@@ -57,12 +57,14 @@ struct given {  // E named, never deduced
 // dh's and dW's type: float, or bf16 under the compute policy, where g is
 // rounded to bf16 as it is staged (repro/kernels/loss_head.py:157, :166:
 // dl · d_per cast to the operands' dtype before each product) and dh and
-// dW are rounded once from their f32 sums.  Every thread must call it; it
-// may be called again in the same launch (its shared-memory writes follow
-// a barrier or touch what no thread reads after the last one).
-template <int OT, int VW, bool DH, typename E = float>
+// dW are rounded once from their f32 sums.  D is dl's type: f32, or, in
+// the dW-only role under the compute policy (the M3 dW's bf16 dy), bf16,
+// widened as it is staged.  Every thread must call it; it may be called
+// again in the same launch (its shared-memory writes follow a barrier or
+// touch what no thread reads after the last one).
+template <int OT, int VW, bool DH, typename E = float, typename D = float>
 __device__ __forceinline__ void stream_bwd(
-    const float* __restrict__ dper, const float* __restrict__ dl, int ldo,
+    const float* __restrict__ dper, const D* __restrict__ dl, int ldo,
     const typename given<E>::type* __restrict__ h,
     const typename given<E>::type* __restrict__ w2,
     const int* __restrict__ block_seg, typename given<E>::type* __restrict__ dh,
@@ -129,8 +131,8 @@ __device__ __forceinline__ void stream_bwd(
                                sdper[k]
                          : 0.f;
       } else {
-        const float* src = dl + ((size_t)(r0 + rr) * P + sseg[k]) * ldo + o;
-        stage[i] = o < O ? *src : 0.f;
+        const D* src = dl + ((size_t)(r0 + rr) * P + sseg[k]) * ldo + o;
+        stage[i] = o < O ? bf16x::to_f32(*src) : 0.f;
       }
     }
     __syncthreads();

@@ -50,6 +50,12 @@
 // before the kernel): head_stream.cuh's BF16Weights and bf16 h loads,
 // widened to f32; the logits, the bias and the log-softmax stay f32
 // (repro/kernels/infer_head.py:100).  h shrinks to 82 MB at full width.
+//
+// infer_head_i8_bf16 is the int8 kernel under the bf16 compute policy
+// (JAX's infer_head_int8_fwd on bf16 h, repro/kernels/infer_head.py:
+// 131-150, f32 logits at :176): I8Weights with bf16 h loads (8 bytes a
+// row of a thread's 4 units, widened); the logits stay f32.  Its vec4
+// instance takes h on an 8-byte boundary and w2_q on a 4-byte one.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -113,6 +119,12 @@ struct HeadEpilogue {
       const float *__restrict__ b2, const int *__restrict__ member_ptr,     \
       float *__restrict__ y, int B, int H, int O, int P, int block,         \
       int log_probs, int n_tiles, int lanes, int mb_cap
+#define INFER_HEAD_I8_BF16_PARAMS                                           \
+  const bf16 *__restrict__ h, const int8_t *__restrict__ w2q,               \
+      const float *__restrict__ w2_scale, const float *__restrict__ b2,     \
+      const int *__restrict__ member_ptr, float *__restrict__ y, int B,     \
+      int H, int O, int P, int block, int log_probs, int n_tiles,           \
+      int lanes, int mb_cap
 #define INFER_HEAD_BODY_ARGS                                                \
   member_ptr, B, H, O, P, block, n_tiles, lanes, mb_cap,                    \
       HeadEpilogue{b2, y, O, P, log_probs}
@@ -151,6 +163,19 @@ template <int OT>
 __global__ void __launch_bounds__(MAX_THREADS)
 infer_head_bf16_kernel_scalar(INFER_HEAD_BF16_PARAMS) {
   stream_members<OT, 1>(h, BF16Weights{w2, H}, INFER_HEAD_BODY_ARGS);
+}
+
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_i8_bf16_kernel_vec4(INFER_HEAD_I8_BF16_PARAMS) {
+  stream_members<OT, 4>(h, I8Weights{w2q, w2_scale, H, block},
+                        INFER_HEAD_BODY_ARGS);
+}
+template <int OT>
+__global__ void __launch_bounds__(MAX_THREADS)
+infer_head_i8_bf16_kernel_scalar(INFER_HEAD_I8_BF16_PARAMS) {
+  stream_members<OT, 1>(h, I8Weights{w2q, w2_scale, H, block},
+                        INFER_HEAD_BODY_ARGS);
 }
 
 template <int OT>
@@ -221,6 +246,32 @@ int launch_i8(const float* h, const int8_t* w2q, const float* w2_scale,
   return (int)cudaGetLastError();
 }
 
+template <int OT>
+int launch_i8_bf16(const bf16* h, const int8_t* w2q, const float* w2_scale,
+                   const float* b2, const int* member_ptr, float* y, int B,
+                   int H, int O, int P, int block, int log_probs,
+                   cudaStream_t stream) {
+  const void* ptrs[] = {h};
+  FwdShape sh;
+  size_t smem;
+  if (!head_launch_shape<OT>(
+          H, block,
+          takes_vec4_bf16(block, H, ptrs, 1) &&
+              reinterpret_cast<uintptr_t>(w2q) % 4 == 0,
+          sh, smem))
+    return (int)cudaErrorInvalidValue;
+  const int n_tiles = (int)sh.n_tiles, lanes = sh.lanes, mb_cap = sh.mb_cap;
+  if (sh.vec)
+    infer_head_i8_bf16_kernel_vec4<OT><<<(unsigned)n_tiles, MAX_THREADS,
+                                         smem, stream>>>(
+        h, w2q, w2_scale, INFER_HEAD_LAUNCH_ARGS);
+  else
+    infer_head_i8_bf16_kernel_scalar<OT><<<(unsigned)n_tiles, MAX_THREADS,
+                                           smem, stream>>>(
+        h, w2q, w2_scale, INFER_HEAD_LAUNCH_ARGS);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int infer_head_f32(const float* h, const float* w2,
@@ -284,5 +335,28 @@ extern "C" int infer_head_bf16(const bf16* h, const bf16* w2,
                                   block, log_probs, s);
     default: return launch_bf16<16>(h, w2, b2, member_ptr, y, B, H, O, P,
                                     block, log_probs, s);
+  }
+}
+
+// The int8 serve copy under the bf16 compute policy: h (B, H) bf16, w2_q
+// (O, H) int8, w2_scale (H / block,) f32 → y (B, P, O) f32.
+extern "C" int infer_head_i8_bf16(const bf16* h, const int8_t* w2_q,
+                                  const float* w2_scale, const float* b2,
+                                  const int* member_ptr, float* y, int B,
+                                  int H, int O, int P, int block,
+                                  int log_probs, void* stream) {
+  if (B <= 0 || P <= 0) return 0;
+  if (H < 0 || O <= 0 || O > MAX_O || block <= 0 || H % block)
+    return (int)cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (classes_tile(O)) {
+    case 2: return launch_i8_bf16<2>(h, w2_q, w2_scale, b2, member_ptr, y, B,
+                                     H, O, P, block, log_probs, s);
+    case 4: return launch_i8_bf16<4>(h, w2_q, w2_scale, b2, member_ptr, y, B,
+                                     H, O, P, block, log_probs, s);
+    case 8: return launch_i8_bf16<8>(h, w2_q, w2_scale, b2, member_ptr, y, B,
+                                     H, O, P, block, log_probs, s);
+    default: return launch_i8_bf16<16>(h, w2_q, w2_scale, b2, member_ptr, y,
+                                       B, H, O, P, block, log_probs, s);
   }
 }

@@ -109,13 +109,14 @@ __device__ __forceinline__ void fma4x4(float (&acc)[4][4], const float4 a,
     for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
 }
 
-// rows × cols floats of a row-major global array (rows `gld` apart) into
-// shared memory (rows `sld` apart), V at a time, over NT threads
-// (thread l's piece i = l + k·NT at row i / nv, piece i mod nv, both
-// stepped by NT's quotient and remainder rather than divided anew)
-template <int NT, int V>
+// rows × cols values of a row-major global array (rows `gld` apart; f32,
+// or bf16 widened) into f32 shared memory (rows `sld` apart), V at a time,
+// over NT threads (thread l's piece i = l + k·NT at row i / nv, piece i
+// mod nv, both stepped by NT's quotient and remainder rather than divided
+// anew)
+template <int NT, int V, typename T>
 __device__ __forceinline__ void stage_rows(float* dst, int sld,
-                                           const float* src, int gld,
+                                           const T* src, int gld,
                                            int rows, int cols, int l) {
   const int nv = cols / V;
   const int dr = NT / nv, dj = NT - dr * nv;

@@ -12,7 +12,10 @@ Int8 serving: ``fused_input_int8_cuda`` launches the same kernel with int8
 weights (``csrc/fused_input.cu``, entry ``fused_input_infer_i8``; the port
 of ``fused_input.py::fused_input_int8_fwd``): w_q (H, F_pad) int8 as
 ``quant.quantize_population`` stores it, one f32 scale per row block
-(H / block,); x stays (B, F).
+(H / block,); x stays (B, F).  Under the bf16 compute policy x is bf16
+(entry ``fused_input_infer_i8_bf16``, the same core with bf16
+activations): y comes back bf16, rounded once; it counts in
+``bf16_int8_launches``.
 
 The forward streams W through each warp's ring of shared-memory stages
 (16-byte copies, 4 int8 weights a copy, and 16-byte stores of y and g':
@@ -57,6 +60,7 @@ int8_launches = 0     # the forward over int8 weights
 bwd_launches = 0      # the backward
 bf16_launches = 0     # the forward's bf16 instance (the compute policy)
 bf16_bwd_launches = 0  # the backward's bf16 instance
+bf16_int8_launches = 0  # int8 weights, bf16 activations (the compute policy)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 DX_BATCH_TILE, DX_FEATURE_TILE = 32, 128   # fused_input_bwd.cu's BB, BF
@@ -86,7 +90,8 @@ def fused_input_train_plain(x, w, bias, mask, act_ids, *, block: int):
 
 def fused_input_int8_plain(x, w_q, w_scale, bias, mask, act_ids, *,
                            block: int):
-    """Dequantize the first F columns of w_q, then ``fused_input_plain``."""
+    """Dequantize the first F columns of w_q (f32), then
+    ``fused_input_plain``: y in x's dtype (f32, or bf16 rounded once)."""
     w = w_q[:, :x.shape[1]].to(torch.float32) \
         * w_scale.repeat_interleave(block)[:, None]
     return fused_input_plain(x, w, bias, mask, act_ids, block=block)
@@ -123,12 +128,15 @@ def fwd_path(x, w, y, g=None) -> str:
     row stride (F, or F_pad for int8 weights) are multiples of 4 and x, w,
     y (and g') start on a 16-byte boundary (W rows and x come in 16-byte
     copies, 4 int8 weights a copy, y and g' leave in 16-byte stores) — an
-    8-byte one under the bf16 policy, 4 values a copy or a store — else
-    ``"scalar"``.  ``csrc/fused_input.cu::launch`` applies the same rule."""
-    align = 8 if x.dtype == torch.bfloat16 else 16
+    8-byte one for the bf16 tensors of the bf16 policy (x, y, g', and w
+    where it is bf16), 4 values a copy or a store — else ``"scalar"``.
+    ``csrc/fused_input.cu::launch`` applies the same rule."""
+    def align(t):
+        return 8 if t.dtype == torch.bfloat16 else 16
     vec = x.shape[1] % 4 == 0 and w.shape[0] % 4 == 0 \
         and w.shape[1] % 4 == 0 and all(
-            t.data_ptr() % align == 0 for t in (x, w, y, g) if t is not None)
+            t.data_ptr() % align(t) == 0 for t in (x, w, y, g)
+            if t is not None)
     return "vec4" if vec else "scalar"
 
 
@@ -186,8 +194,9 @@ def fused_input_train_cuda(x, w, bias, mask, act_ids, *, block: int):
 
 def fused_input_int8_cuda(x, w_q, w_scale, bias, mask, act_ids, *,
                           block: int):
-    """One launch → y (B, H); reads only the first F columns of w_q."""
-    global int8_launches
+    """One launch → y (B, H) in x's dtype (f32, or bf16 under the compute
+    policy); reads only the first F columns of w_q."""
+    suffix = _build.operand_suffix("fused_input_int8", x)
     b, f = x.shape
     h, f_pad = w_q.shape
     if f_pad < f or h % block or w_scale.shape != (h // block,) \
@@ -196,22 +205,24 @@ def fused_input_int8_cuda(x, w_q, w_scale, bias, mask, act_ids, *,
         raise ValueError("fused_input_int8: inconsistent shapes")
     _build.check_tensors(
         "fused_input_int8", x,
-        ("x", x, torch.float32),
+        ("x", x, x.dtype),
         ("w_q", w_q, torch.int8),
         ("w_scale", w_scale, torch.float32),
         ("bias", bias, torch.float32),
         ("mask", mask, torch.float32),
         ("act_ids", act_ids, torch.int32))
-    fn = _build.function("fused_input", "fused_input_infer_i8",
-                         [_P] * 7 + [_I] * 5 + [_P])
-    y = torch.empty(b, h, device=x.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_input",
+        "fused_input_infer_i8" + ("_bf16" if suffix == "bf16" else ""),
+        [_P] * 7 + [_I] * 5 + [_P])
+    y = torch.empty(b, h, device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), w_q.data_ptr(), w_scale.data_ptr(),
                 bias.data_ptr(), mask.data_ptr(), act_ids.data_ptr(),
                 y.data_ptr(), b, f, f_pad, h, block,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_input_int8")
-    int8_launches += 1
+    _build.count(globals(), "int8_launches", x.dtype)
     return y
 
 

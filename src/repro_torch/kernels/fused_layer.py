@@ -19,7 +19,10 @@ int8 weight policy over the int8 serve copy (entry
 ``fused_layer.py::fused_layer_int8_fwd``): the packer's identity-augmented
 int8 tile array and one f32 scale per tile, 1.0 for the identity, each
 weight formed as q·scale; the instance by ``block_diag.fwd_path`` of the
-int8 tiles.
+int8 tiles.  Under the bf16 compute policy x is bf16 (entry
+``fused_layer_infer_i8_bf16``: the core's ``I8BW`` policy, I8W's tiles and
+landing pass with x widened as it is staged): y comes back bf16, rounded
+once; it counts in ``bf16_int8_launches``.
 
 Backward: ``fused_layer_dx_dw_cuda`` launches ``csrc/fused_layer_dx_dw.cu``
 (the port of ``fused_layer.py::fused_layer_dx_dw``): from dy and g', x, the
@@ -70,6 +73,7 @@ int8_launches = 0     # the forward over int8 tiles
 dx_dw_launches = 0    # the backward
 bf16_launches = 0     # the forward's bf16 instance (the compute policy)
 bf16_dx_dw_launches = 0  # the backward's bf16 instance
+bf16_int8_launches = 0  # int8 tiles, bf16 activations (the compute policy)
 MAX_BLOCK = 128       # widest tile the kernel keeps in shared memory
 DX_DW_BATCH_CHUNK = 32   # member_units.cuh's BCH: the backward's rows a pass
 
@@ -222,7 +226,8 @@ def fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w, *,
 
 def fused_layer_int8_plain(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
                            s_in, s_w, *, blk: int):
-    """Dequantize every tile (q·s), then ``fused_layer_plain``."""
+    """Dequantize every tile (q·s, f32), then ``fused_layer_plain``: y in
+    x's dtype (f32, or bf16 rounded once)."""
     wb = wb_q.to(torch.float32) * wb_scale[:, None, None]
     return fused_layer_plain(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
                              blk=blk)
@@ -335,27 +340,30 @@ def fused_layer_train_cuda(x, wb, b_eff, mask, tile_act, rowptr, s_in, s_w,
 
 def fused_layer_int8_cuda(x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr,
                           s_in, s_w, *, blk: int):
-    """One launch → y (B, n_out_tiles·blk) over int8 tiles, walking the
-    CSR's group table (``block_diag.groups_on``)."""
-    global int8_launches
+    """One launch → y (B, n_out_tiles·blk) in x's dtype (f32, or bf16
+    under the compute policy) over int8 tiles, walking the CSR's group
+    table (``block_diag.groups_on``)."""
     b, n_out = _fwd_args(x, wb_q, b_eff, mask, tile_act, rowptr, s_in, s_w,
                          blk, w_dtype=torch.int8)
-    _build.check_tensors("fused_layer_int8", x, ("x", x, torch.float32),
+    suffix = _build.operand_suffix("fused_layer_int8", x)
+    _build.check_tensors("fused_layer_int8", x,
                          ("wb_scale", wb_scale, torch.float32))
     if wb_scale.shape != (wb_q.shape[0],):
         raise ValueError("fused_layer_int8: one scale per tile")
     groups = checked_groups("fused_layer_int8", x, wb_q, rowptr, s_in, s_w,
                             blk)
-    fn = _build.function("fused_layer", "fused_layer_infer_i8",
-                         [_P] * 10 + [_I] * 5 + [_P])
-    y = torch.empty(b, n_out * blk, device=x.device, dtype=torch.float32)
+    fn = _build.function(
+        "fused_layer",
+        "fused_layer_infer_i8" + ("_bf16" if suffix == "bf16" else ""),
+        [_P] * 10 + [_I] * 5 + [_P])
+    y = torch.empty(b, n_out * blk, device=x.device, dtype=x.dtype)
     with torch.cuda.device(x.device):
         rc = fn(*_ptrs(x, wb_q, wb_scale, b_eff, mask, tile_act, s_in, s_w,
                        groups, y),
                 b, x.shape[1] // blk, n_out, blk, groups.shape[0],
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "fused_layer_int8")
-    int8_launches += 1
+    _build.count(globals(), "int8_launches", x.dtype)
     return y
 
 

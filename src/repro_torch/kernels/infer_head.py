@@ -27,7 +27,9 @@ The bf16 compute policy (DESIGN.md §7): bf16 h and w2 (b2 f32) launch the
 f32 kernel's bf16 instance (entry ``infer_head_bf16``, the streaming core's
 ``BF16Weights`` and bf16 h loads, widened): the logits (and log-probs) stay
 f32.  Its ``kernel_path`` is the same rule at bf16's 8-byte alignment.  It
-counts in ``bf16_launches``.
+counts in ``bf16_launches``.  The int8 kernel under the policy takes bf16
+h (entry ``infer_head_i8_bf16``: ``I8Weights`` with bf16 h loads); its
+logits stay f32; it counts in ``bf16_int8_launches``.
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ from repro_torch.kernels import _build
 launches = 0          # f32 weights
 int8_launches = 0     # int8 weights
 bf16_launches = 0     # bf16 h and weights (the compute policy)
+bf16_int8_launches = 0  # int8 weights, bf16 h (the compute policy)
 MAX_O = 16            # classes the kernel keeps in registers (infer_head.cu)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -112,9 +115,9 @@ def infer_head_int8_plain(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
 
 
 def _check(where, h, w2, b2, member_ptr, w_dtype):
+    _build.operand_suffix(where, h)
     _build.check_tensors(where, h,
-                         ("h", h, h.dtype if w_dtype == h.dtype
-                          else torch.float32), ("w2", w2, w_dtype),
+                         ("h", h, h.dtype), ("w2", w2, w_dtype),
                          ("b2", b2, torch.float32),
                          ("member_ptr", member_ptr, torch.int32))
     o, p = w2.shape[0], b2.shape[0]
@@ -148,7 +151,8 @@ def infer_head_cuda(h, w2, b2, member_ptr, *, block: int,
 
 def infer_head_int8_cuda(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
                          log_probs: bool = False):
-    global int8_launches
+    """One launch → (B, P, O) f32 logits (log-probs) over int8 w2, h f32
+    or bf16."""
     _check("infer_head_int8", h, w2_q, b2, member_ptr, torch.int8)
     _build.check_tensors("infer_head_int8", h,
                          ("w2_scale", w2_scale, torch.float32))
@@ -156,8 +160,10 @@ def infer_head_int8_cuda(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
     o, p = w2_q.shape[0], b2.shape[0]
     if hh % block or w2_scale.shape != (hh // block,):
         raise ValueError("infer_head_int8: one scale per hidden tile")
-    fn = _build.function("infer_head", "infer_head_i8",
-                         [_P] * 6 + [_I] * 6 + [_P])
+    fn = _build.function(
+        "infer_head",
+        "infer_head_i8" + ("_bf16" if h.dtype == torch.bfloat16 else ""),
+        [_P] * 6 + [_I] * 6 + [_P])
     y = torch.empty(b, p, o, device=h.device, dtype=torch.float32)
     with torch.cuda.device(h.device):
         rc = fn(h.data_ptr(), w2_q.data_ptr(), w2_scale.data_ptr(),
@@ -165,5 +171,5 @@ def infer_head_int8_cuda(h, w2_q, w2_scale, b2, member_ptr, *, block: int,
                 p, block, int(bool(log_probs)),
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "infer_head_int8")
-    int8_launches += 1
+    _build.count(globals(), "int8_launches", h.dtype)
     return y

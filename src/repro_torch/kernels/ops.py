@@ -36,16 +36,19 @@ Static layout arrays (activation ids, masks, segment ids) may be numpy or
 tensors; callers on the hot path pass tensors already on the device.
 
 Operands (activations and weights) are f32, or bf16 under the compute
-policy (DESIGN.md §7): the fused input and mid layers and both heads take
-either, of one dtype, and launch the kernel's instance of that dtype (the
-CPU dispatch runs the plain version on them and counts in the ``bf16_``
-counters).  Accumulators, biases, masks, the heads' logits, losses and
-dlogits, and the bias cotangents stay f32 (``Σ_b dy·g'`` sums f32 products
-of the bf16 values, as JAX's ``(dy.astype(f32) * gp.astype(f32)).sum(0)``);
-the other cotangents come back in the operands' dtype.  The unfused
-route's kernels (``block_diag_gemm``, ``m3_matmul``) take f32 only so far
-(ROADMAP.md, Queue 1 item 6b); the int8 serving twins take f32
-activations.
+policy (DESIGN.md §7): the fused input and mid layers, both heads and the
+unfused route's ``block_diag_gemm`` and ``m3_matmul`` take either, of one
+dtype, and launch the kernel's instance of that dtype (the CPU dispatch
+runs the plain version on them and counts in the ``bf16_`` counters); the
+int8 serving twins take f32 or bf16 activations beside their int8 weights
+(counted as ``bf16_int8_*`` under bf16).  Accumulators, biases, masks,
+scales, the heads' logits, losses and dlogits, and the bias cotangents
+stay f32 (``Σ_b dy·g'`` sums f32 products of the bf16 values, as JAX's
+``(dy.astype(f32) * gp.astype(f32)).sum(0)``); the other cotangents come
+back in the operands' dtype, and so do ``block_diag_gemm``'s output and
+``m3_matmul``'s logits (JAX's out dtype is the operands': under bf16 they
+are rounded once to bf16).  ``seg_act`` takes f32 (the policy hands it the
+f32 sum of a bf16 projection and an f32 bias).
 """
 from __future__ import annotations
 
@@ -83,9 +86,8 @@ def _require_f32(**tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; it is float32 under every "
-                            "policy here (bf16 on the unfused route and the "
-                            "M3 kernels: ROADMAP.md, Queue 1 item 6b; int8 "
-                            "weights: the *_int8 entries)")
+                            "policy here (int8 weights: the *_int8 entries; "
+                            "bf16 operands to seg_act: ROADMAP.md, Queue 1)")
 
 
 def _require_operands(**tensors):
@@ -172,7 +174,8 @@ def fused_input_infer_int8(x: torch.Tensor, w_q: torch.Tensor,
     int8, stored pre-padded to the JAX kernel's feature tile
     (``quantize_population``), one f32 scale per hidden row block
     (H / block,).  x stays (B, F): the kernel reads only the first F
-    weight columns, so no weight byte is padded or upcast per call."""
+    weight columns, so no weight byte is padded or upcast per call.  x f32,
+    or bf16 under the compute policy (y then bf16)."""
     h = w_q.shape[0]
     _require_int8("input weight", w_q)
     f_pad = _input_f_pad(x.shape[1])
@@ -184,12 +187,13 @@ def fused_input_infer_int8(x: torch.Tensor, w_q: torch.Tensor,
     if tuple(w_scale.shape) != (h // block,):
         raise ValueError(f"scales {tuple(w_scale.shape)} != "
                          f"({h // block},)")
-    _require_f32(x=x, w_scale=w_scale)
+    _require_operands(x=x)
+    _require_f32(w_scale=w_scale)
     if _on_card(x):
         return _fik.fused_input_int8_cuda(
             x.contiguous(), w_q.contiguous(), w_scale.contiguous(),
             b_in.contiguous(), m, ids, block=block)
-    _fik.int8_launches += 1
+    _count(_fik, "int8_launches", x)
     return _fik.fused_input_int8_plain(x, w_q, w_scale, b_in, m, ids,
                                        block=block)
 
@@ -312,7 +316,8 @@ def fused_layer_infer_int8(h: torch.Tensor, wb_q: torch.Tensor,
     """``fused_layer_infer`` over the int8 serve copy: ``wb_q`` is the
     packer's tile array with the identity tile already appended
     (n_param_blocks + 1, blk, blk) int8, ``wb_scale`` one f32 scale per
-    tile (1.0 for the identity).  Nothing is packed or appended per call."""
+    tile (1.0 for the identity).  Nothing is packed or appended per call.
+    h f32, or bf16 under the compute policy (y then bf16)."""
     blk = layout.block
     _require_int8("weight tiles", wb_q)
     n_tiles = layout.n_param_blocks + 1
@@ -323,14 +328,15 @@ def fused_layer_infer_int8(h: torch.Tensor, wb_q: torch.Tensor,
             "quantize_population)")
     if tuple(wb_scale.shape) != (n_tiles,):
         raise ValueError(f"scales {tuple(wb_scale.shape)} != ({n_tiles},)")
-    _require_f32(h=h, wb_scale=wb_scale)
+    _require_operands(h=h)
+    _require_f32(wb_scale=wb_scale)
     acts, m = _layer_common(h, b_eff, layout, block_act_ids, mask)
     rowptr, s_in, s_w = _flk.schedule_on(layout, h.device)
     args = (h.contiguous(), wb_q.contiguous(), wb_scale.contiguous(),
             b_eff.contiguous(), m, acts, rowptr, s_in, s_w)
     if _on_card(h):
         return _flk.fused_layer_int8_cuda(*args, blk=blk)
-    _flk.int8_launches += 1
+    _count(_flk, "int8_launches", h)
     return _flk.fused_layer_int8_plain(*args, blk=blk)
 
 
@@ -390,14 +396,15 @@ def fused_layer(h: torch.Tensor, wb: torch.Tensor, b_eff: torch.Tensor,
 def _bd_fwd(x, wb_aug, rowptr, s_in, s_w, blk):
     if _on_card(x):
         return _bdk.block_diag_fwd_cuda(x, wb_aug, rowptr, s_in, s_w, blk=blk)
-    _bdk.fwd_launches += 1
+    _count(_bdk, "fwd_launches", x)
     return _bdk.block_diag_fwd_plain(x, wb_aug, rowptr, s_in, s_w, blk=blk)
 
 
 class _BlockDiag(torch.autograd.Function):
     """Forward: one launch.  Backward: dh from the forward kernel on the
     transposed tiles and steps, and dWB over the parameter tiles only (the
-    identity tile is not a parameter)."""
+    identity tile is not a parameter).  Under bf16 the cotangent of the
+    bf16 output is bf16, and so are dh and dWB."""
 
     @staticmethod
     def forward(ctx, h, wb, layout):
@@ -423,7 +430,7 @@ class _BlockDiag(torch.autograd.Function):
             if _on_card(dy):
                 dwb = _bdk.block_diag_dw_cuda(*args, blk=blk)
             else:
-                _bdk.dw_launches += 1
+                _count(_bdk, "dw_launches", dy)
                 dwb = _bdk.block_diag_dw_plain(*args, blk=blk)
         return dh, dwb, None
 
@@ -432,9 +439,11 @@ def block_diag_gemm(h: torch.Tensor, wb: torch.Tensor, layout
                     ) -> torch.Tensor:
     """The bare block-diagonal member projection (JAX:
     ``ops.block_diag_gemm``'s custom VJP): h (B, n_in_tiles·blk), wb
-    (n_param_blocks, blk, blk), ``layout`` a ``BlockDiagLayout`` → (B,
-    n_out_tiles·blk).  Pass-through members are copied through the shared
-    identity tile appended here, and get no weight gradient."""
+    (n_param_blocks, blk, blk) (f32, or both bf16), ``layout`` a
+    ``BlockDiagLayout`` → (B, n_out_tiles·blk) in h's dtype (bf16: the f32
+    sum rounded once).  Pass-through members are copied through the shared
+    identity tile appended here (in the tiles' dtype: exact), and get no
+    weight gradient."""
     blk = layout.block
     if h.shape[1] != layout.n_in_tiles * blk:
         raise ValueError(f"input axis {h.shape[1]} != "
@@ -442,7 +451,7 @@ def block_diag_gemm(h: torch.Tensor, wb: torch.Tensor, layout
     if tuple(wb.shape) != (layout.n_param_blocks, blk, blk):
         raise ValueError(f"weight tiles {tuple(wb.shape)} != "
                          f"({layout.n_param_blocks}, {blk}, {blk})")
-    _require_f32(h=h, wb=wb)
+    _require_operands(h=h, wb=wb)
     if _wants_grad(h, wb):
         return _BlockDiag.apply(h, wb, layout)
     return _bd_fwd(h.contiguous(), _augment(wb),
@@ -505,13 +514,14 @@ def seg_act(h: torch.Tensor, block_act_ids, mask, *, block: int
 def _m3_fwd(h, w2, ptr, block):
     if _on_card(h):
         return _m3k.m3_matmul_fwd_cuda(h, w2, ptr, block=block)
-    _m3k.fwd_launches += 1
+    _count(_m3k, "fwd_launches", h)
     return _m3k.m3_matmul_fwd_plain(h, w2, ptr, block=block)
 
 
 class _M3Matmul(torch.autograd.Function):
     """Forward: one launch.  Backward: dh (only when h needs a gradient),
-    then dW2 (only when w2 does), one launch each."""
+    then dW2 (only when w2 does), one launch each; under bf16 dy, dh and
+    dW2 are bf16."""
 
     @staticmethod
     def forward(ctx, h, w2, seg, ptr, block):
@@ -529,14 +539,14 @@ class _M3Matmul(torch.autograd.Function):
             if _on_card(dy):
                 dh = _m3k.m3_matmul_dh_cuda(*args, block=block)
             else:
-                _m3k.dh_launches += 1
+                _count(_m3k, "dh_launches", dy)
                 dh = _m3k.m3_matmul_dh_plain(*args, block=block)
         if ctx.needs_input_grad[1]:
             args = (dy, h.contiguous(), seg)
             if _on_card(dy):
                 dw = _m3k.m3_matmul_dw_cuda(*args, block=block)
             else:
-                _m3k.dw_launches += 1
+                _count(_m3k, "dw_launches", dy)
                 dw = _m3k.m3_matmul_dw_plain(*args, block=block)
         return dh, dw, None, None, None
 
@@ -545,9 +555,10 @@ def m3_matmul(h: torch.Tensor, w2: torch.Tensor, block_seg_ids,
               num_members: int, *, block_h: int,
               member_ptr=None) -> torch.Tensor:
     """The segment-blocked matmul (JAX: ``ops.m3_matmul``'s custom VJP):
-    h (B, H), w2 (O, H), one member id per hidden block of ``block_h``
-    units (sorted: every member's blocks contiguous) → y (B, P, O) f32,
-    ``y[b, m, o] = Σ_{j in member m} h[b, j]·w2[o, j]``.  Differentiable
+    h (B, H), w2 (O, H) (f32, or both bf16), one member id per hidden
+    block of ``block_h`` units (sorted: every member's blocks contiguous) →
+    y (B, P, O) in h's dtype (bf16: each f32 sum rounded once, as JAX's out
+    dtype), ``y[b, m, o] = Σ_{j in member m} h[b, j]·w2[o, j]``.  Differentiable
     through two backward launches (dh, dW2).  H must already be
     block_h-aligned.  Nothing is padded: JAX pads B to its batch tile and
     O to 128 lanes for the TPU; the kernels take both as they are.
@@ -559,7 +570,7 @@ def m3_matmul(h: torch.Tensor, w2: torch.Tensor, block_seg_ids,
     if w2.dim() != 2 or w2.shape[1] != h.shape[1]:
         raise ValueError(f"w2 {tuple(w2.shape)} does not match hidden axis "
                          f"{h.shape[1]}")
-    _require_f32(h=h, w2=w2)
+    _require_operands(h=h, w2=w2)
     if not isinstance(block_seg_ids, torch.Tensor) \
             and np.any(np.diff(np.asarray(block_seg_ids)) < 0):
         raise ValueError("m3_matmul: members' hidden blocks must be "
@@ -633,19 +644,21 @@ def infer_head_int8(h: torch.Tensor, w_q: torch.Tensor,
     """``infer_head`` over the int8 serve copy: ``w_q`` (O, H) int8 with
     one f32 scale per hidden tile (H / block_h,), dequantized inside the
     kernel.  The classes are not padded (JAX pads O to 128); members are
-    the same CSR ranges as in the f32 head."""
+    the same CSR ranges as in the f32 head.  h f32, or bf16 under the
+    compute policy; the logits stay f32."""
     _require_int8("head weight", w_q)
     seg = _head_args(h, w_q, b_out, block_seg_ids, block_h)
     if tuple(w_scale.shape) != (h.shape[1] // block_h,):
         raise ValueError(f"scales {tuple(w_scale.shape)} != "
                          f"({h.shape[1] // block_h},)")
-    _require_f32(h=h, w_scale=w_scale)
+    _require_operands(h=h)
+    _require_f32(w_scale=w_scale)
     ptr = _ihk.member_ptr(seg, b_out.shape[0])
     if _on_card(h):
         return _ihk.infer_head_int8_cuda(
             h.contiguous(), w_q.contiguous(), w_scale.contiguous(),
             b_out.contiguous(), ptr, block=block_h, log_probs=log_probs)
-    _ihk.int8_launches += 1
+    _count(_ihk, "int8_launches", h)
     return _ihk.infer_head_int8_plain(h, w_q, w_scale, b_out, ptr,
                                       block=block_h, log_probs=log_probs)
 

@@ -30,8 +30,11 @@ over (``core.ensemble`` validates).
 the bf16 compute policy (DESIGN.md §7): the requests and the weights are
 cast to bf16 at every projection, each of the depth+1 launches is its
 kernel's bf16 instance (``check_budget`` holds both), the logits stay f32,
-and ``publish`` scores with the same forward.  With the int8 copy or the
-unfused route's kernels it raises (ROADMAP.md, Queue 1 item 6b).
+and ``publish`` scores with the same forward.  On the unfused route
+(``--bd-impl pallas``) the block-diagonal kernel's bf16 instance runs each
+mid layer; over the int8 copy (``--weights-dtype int8``) the activations
+are cast to bf16 before each int8 kernel, which runs its bf16-activation
+instance (``*_int8_bf16``), still depth+1 launches.
 
 ``weights_dtype="int8"`` (``--weights-dtype int8``) serves the int8 copy
 (DESIGN.md §12): the server quantizes the restored masters once, on their
@@ -66,8 +69,7 @@ class PopulationServer:
                  act_impl: str = "pallas", compute_dtype=None,
                  weights_dtype=None, batch: int = 32, topk: int = 4,
                  max_latency_ms: float = 5.0):
-        self.weights_dtype = check_dtypes(compute_dtype, weights_dtype,
-                                          bd_impl)
+        self.weights_dtype = check_dtypes(compute_dtype, weights_dtype)
         self.compute_dtype = compute_dtype
         self.params = params
         self.layout = layout
@@ -290,8 +292,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--compute-dtype", default=None,
                     choices=["float32", "bfloat16"],
                     help="bfloat16: the mixed-precision policy (bf16 "
-                    "operands, f32 sums and logits) on the fused kernels' "
-                    "bf16 instances or the plain route")
+                    "operands, f32 sums and logits) on the kernels' bf16 "
+                    "instances (any --bd-impl, --weights-dtype int8) or "
+                    "the plain route")
     ap.add_argument("--weights-dtype", default=None, choices=["int8"],
                     help="int8: quantize the restored weights once "
                     "(quant.quantize_population) and serve only the int8 "
@@ -304,7 +307,7 @@ def main(argv=None) -> dict:
     if args.sharded:
         raise NotImplementedError("--sharded: multi-card serving is not "
                                   "ported yet (ROADMAP.md)")
-    check_dtypes(args.compute_dtype, args.weights_dtype, args.bd_impl)
+    check_dtypes(args.compute_dtype, args.weights_dtype)
 
     server, step = PopulationServer.from_checkpoint(
         args.ckpt_dir, step=args.step, device=args.device, batch=args.batch,

@@ -51,10 +51,12 @@ training thread (``checkpoint.AsyncCheckpointer``).
 
 ``--compute-dtype bfloat16`` trains under the bf16 compute policy
 (DESIGN.md §7): on the fused route every launch of a step is its kernel's
-bf16 instance, on the plain route (``--bd-impl einsum``) the matmuls take
-bf16 operands; the masters, the optimizer state, the checkpoint and the
-rung evals and closing leaderboard stay f32.  With ``--bd-impl pallas`` or
-``--m3-impl pallas`` it raises (ROADMAP.md, Queue 1 item 6b).
+bf16 instance; on the unfused route (``--bd-impl pallas``) the
+block-diagonal kernels' and, with ``--m3-impl pallas``, the M3 kernels'
+bf16 instances (the segmented activation in f32, as the policy hands it
+f32); on the plain route (``--bd-impl einsum``) the matmuls take bf16
+operands; the masters, the optimizer state, the checkpoint and the rung
+evals and closing leaderboard stay f32.
 ``--serve-publish`` keeps an f32 ``PopulationServer`` on the live run,
 refreshed and republished at every rung boundary and at the end
 (``published: best1=… topk=…``).
@@ -111,8 +113,6 @@ def population_from_flags(depths: str, acts: str, features: int,
 def check_supported(args):
     """Raise ``NotImplementedError`` for every flag whose path the port
     does not have yet."""
-    from repro_torch.core.deep import check_dtypes
-    check_dtypes(args.compute_dtype, None, args.bd_impl, args.m3_impl)
     if args.pipeline == "on":
         raise NotImplementedError("--pipeline on: the streaming data plane "
                                   f"is {_QUEUE1}, item 7)")

@@ -1,8 +1,11 @@
-"""The plain versions of the fused route's kernels on bf16 operands (the
-bf16 compute policy), against the JAX package's Pallas kernels in
-interpret mode on the same bf16 inputs: the input layer (y; y and g') and
-its backward (dW, dx), the mid layer (y; y and g') and its one-pass
-backward (dx, dWB), the loss head (per, dl; dh, dW) and the serving head.
+"""The plain versions of the kernels on bf16 operands (the bf16 compute
+policy), against the JAX package's Pallas kernels in interpret mode on the
+same bf16 inputs: the input layer (y; y and g') and its backward (dW, dx),
+the mid layer (y; y and g') and its one-pass backward (dx, dWB), the loss
+head (per, dl; dh, dW) and the serving head; the unfused route's
+block-diagonal GEMM (y, its dh and dWB, through ``ops.block_diag_gemm``
+and autograd), the M3 kernels (y, dh, dW2, through ``ops.m3_matmul``) and
+the three int8 serving twins on bf16 activations.
 Inputs are made with numpy from a seed and rounded to bf16 once, the same
 values on both sides; the backward comparisons feed both sides the same
 residuals (JAX's g' and dl).
@@ -35,10 +38,12 @@ from repro.core.population import LayeredPopulation as JLayered
 from repro.kernels import fused_input as jfik
 from repro.kernels import ops as jops
 from repro_torch.core.population import LayeredPopulation as TLayered
+from repro_torch.kernels import block_diag as bdk
 from repro_torch.kernels import fused_input as fik
 from repro_torch.kernels import fused_layer as flk
 from repro_torch.kernels import infer_head as ihk
 from repro_torch.kernels import loss_head as lhk
+from repro_torch.kernels import m3_matmul as m3k
 from repro_torch.kernels import ops as tops
 
 F32 = dict(rtol=1e-5, atol=1e-6)
@@ -301,3 +306,157 @@ def test_operands_of_two_dtypes_are_refused():
     with pytest.raises(TypeError, match="float32"):
         tops.fused_input(x.bfloat16(), w, torch.zeros(8).bfloat16(), ids,
                          mask, block=8)
+
+
+# --------------------------------------------------------------------- #
+# the unfused route, the M3 kernels and the int8 twins under bf16       #
+# --------------------------------------------------------------------- #
+
+def _grads(fn, *operands, dy):
+    """``fn`` on copies of ``operands`` that need a gradient → (output, its
+    cotangents' gradients with respect to each operand, for ``dy``)."""
+    leaves = [t.clone().requires_grad_(True) for t in operands]
+    y = fn(*leaves)
+    return (y.detach(), *torch.autograd.grad(y, leaves, dy))
+
+
+_BD = [(((24,), (13, 5), (17, 9), (32, 16, 8)), 8, 70),
+       (((64, 32, 16), (13, 5), (7,)) * 2, 8, 40),   # the depth-3 members
+       (((40, 20), (17, 33, 9), (7,), (3, 5)), 16, 9)]
+
+
+@pytest.mark.parametrize("widths,block,b", _BD)
+def test_block_diag_gemm_fwd_dh_dw(widths, block, b):
+    """y, dh and dWB in bf16 from bf16 h, tiles and dy, through
+    ``ops.block_diag_gemm`` and autograd (the plain versions, counted as
+    bf16 launches), against JAX's ``block_diag_gemm`` and its VJP in
+    interpret mode on 32-row batch tiles (B 70 and 40: dWB summed over
+    three and two of them, rounded once)."""
+    jlp, tlp = _mid_layers(widths, block)
+    rng = np.random.default_rng(block + b)
+    for l in range(jlp.depth - 1):
+        jlay, tlay = jlp.bd_layout(l), tlp.bd_layout(l)
+        jh, th = _bf16(rng.normal(0, 1, (b, jlay.n_in_tiles * block)))
+        jw, tw = _bf16(rng.normal(0, 1, (jlay.n_param_blocks, block, block))
+                       / np.sqrt(block))
+        jdy, tdy = _bf16(rng.normal(0, 1, (b, jlay.n_out_tiles * block)))
+
+        def jfn(h, w, dy):
+            y, vjp = jax.vjp(lambda h_, w_: jops.block_diag_gemm(
+                h_, w_, jlay, block_b=32, interpret=True), h, w)
+            return (y, *vjp(dy))
+
+        jy, jdh, jdw = _jax(jfn, jh, jw, jdy)
+        n0 = (bdk.bf16_fwd_launches, bdk.bf16_dw_launches,
+              bdk.fwd_launches, bdk.dw_launches)
+        ty, tdh, tdw = _grads(
+            lambda h, w: tops.block_diag_gemm(h, w, tlay), th, tw, dy=tdy)
+        assert (bdk.bf16_fwd_launches, bdk.bf16_dw_launches,
+                bdk.fwd_launches, bdk.dw_launches) == (
+            n0[0] + 2, n0[1] + 1, n0[2], n0[3])
+        for got, want in ((ty, jy), (tdh, jdh), (tdw, jdw)):
+            _within_one_bf16_ulp(got, want)
+
+
+@pytest.mark.parametrize("widths,block,o,b", _HEADS)
+def test_m3_matmul_fwd_dh_dw(widths, block, o, b):
+    """The M3 kernels on bf16 h, w2 and dy through ``ops.m3_matmul`` and
+    autograd: bf16 logits (rounded once, as JAX's out dtype), dh and dW2,
+    against JAX's ``m3_matmul`` and its VJP in interpret mode on 8-row
+    batch tiles (dW2 summed over them, rounded once)."""
+    rng = np.random.default_rng(5 * b + o)
+    seg, _, hh = _segments(widths, block)
+    p = len(widths)
+    jh, th = _bf16(rng.normal(0, 1, (b, hh)))
+    jw, tw = _bf16(rng.normal(0, 1, (o, hh)) / 4)
+    jdy, tdy = _bf16(rng.normal(0, 1, (b, p, o)))
+
+    def jfn(h, w, dy):
+        y, vjp = jax.vjp(lambda h_, w_: jops.m3_matmul(
+            h_, w_, seg, p, block_h=block, block_b=8, interpret=True), h, w)
+        return (y, *vjp(dy))
+
+    jy, jdh, jdw = _jax(jfn, jh, jw, jdy)
+    n0 = (m3k.bf16_fwd_launches, m3k.bf16_dh_launches, m3k.bf16_dw_launches,
+          m3k.fwd_launches)
+    ty, tdh, tdw = _grads(lambda h, w: tops.m3_matmul(
+        h, w, seg, p, block_h=block), th, tw, dy=tdy)
+    assert (m3k.bf16_fwd_launches, m3k.bf16_dh_launches,
+            m3k.bf16_dw_launches, m3k.fwd_launches) == (
+        n0[0] + 1, n0[1] + 1, n0[2] + 1, n0[3])
+    for got, want in ((ty, jy), (tdh, jdh), (tdw, jdw)):
+        _within_one_bf16_ulp(got, want)
+
+
+def test_int8_twins_on_bf16_activations():
+    """The three int8 serving kernels on bf16 activations (the int8 copy
+    under the policy): the input and mid layers' bf16 outputs within one
+    bf16 ulp, the head's f32 logits and log-probs at the f32 tolerance, of
+    JAX's int8 twins in interpret mode on the same int8 bytes, f32 scales
+    and bf16 activations; each counted as a ``bf16_int8`` launch.  The
+    scales are what ``quantize_population`` gives the initial weights
+    (max |w| / 127, |w| ≤ 1/sqrt(fan-in))."""
+    rng = np.random.default_rng(31)
+    b, f, block, n = 12, 100, 8, 7
+    h = block * n
+    f_pad = 104
+    jx, tx = _bf16(rng.normal(0, 1, (b, f)))
+    wq = rng.integers(-127, 128, (h, f_pad)).astype(np.int8)
+    ws = ((rng.random(n) * 0.2 + 0.8) / np.sqrt(f) / 127).astype(np.float32)
+    bias = rng.normal(0, 1, h).astype(np.float32)
+    mask = (rng.random(h) > 0.2).astype(np.float32)
+    ids = (np.arange(n) % len(ACTIVATION_ORDER)).astype(np.int32)
+    want = _jax(lambda x, w: jops.fused_input_infer_int8(
+        x, w, jnp.asarray(ws), jnp.asarray(bias), ids, mask, block=block,
+        interpret=True), jx, jnp.asarray(wq))
+    n0 = fik.bf16_int8_launches
+    got = tops.fused_input_infer_int8(tx, torch.from_numpy(wq),
+                                      torch.from_numpy(ws),
+                                      torch.from_numpy(bias), ids, mask,
+                                      block=block)
+    assert fik.bf16_int8_launches == n0 + 1
+    _within_one_bf16_ulp(got, want)
+
+    jlp, tlp = _mid_layers(((64, 32, 16), (13, 5), (7,), (40, 20)), 8)
+    for l in range(jlp.depth - 1):
+        jlay, tlay = jlp.bd_layout(l), tlp.bd_layout(l)
+        pout = jlp.layer_pop(l + 1)
+        jh, th = _bf16(rng.normal(0, 1, (b, jlay.n_in_tiles * 8)))
+        wbq = rng.integers(-127, 128, (jlay.n_param_blocks + 1, 8, 8)
+                           ).astype(np.int8)
+        wbq[-1] = np.eye(8, dtype=np.int8)
+        wbs = ((rng.random(jlay.n_param_blocks + 1) * 0.2 + 0.8)
+               / np.sqrt(64) / 127).astype(np.float32)
+        wbs[-1] = 1.0
+        b_eff = rng.normal(0, 1, jlay.n_out_tiles * 8).astype(np.float32)
+        acts = np.array(pout.block_act_ids, np.int32)
+        mk = np.array(pout.hidden_mask, np.float32)
+        want = _jax(lambda x, w: jops.fused_layer_infer_int8(
+            x, w, jnp.asarray(wbs), jnp.asarray(b_eff), jlay, acts, mk,
+            interpret=True), jh, jnp.asarray(wbq))
+        n0 = flk.bf16_int8_launches
+        got = tops.fused_layer_infer_int8(
+            th, torch.from_numpy(wbq), torch.from_numpy(wbs),
+            torch.from_numpy(b_eff), tlay, acts, mk)
+        assert flk.bf16_int8_launches == n0 + 1
+        _within_one_bf16_ulp(got, want)
+
+    widths, block, o = (8, 16, 8, 16, 16, 8, 24), 8, 2
+    seg, _, hh = _segments(widths, block)
+    jh, th = _bf16(rng.normal(0, 1, (b, hh)))
+    w2q = rng.integers(-127, 128, (o, hh)).astype(np.int8)
+    w2s = ((rng.random(hh // block) * 0.2 + 0.8) / np.sqrt(16) / 127
+           ).astype(np.float32)
+    b2 = rng.normal(0, 1, (len(widths), o)).astype(np.float32)
+    for log_probs in (False, True):
+        want = _jax(lambda x, w: jops.infer_head_int8(
+            x, w, jnp.asarray(w2s), jnp.asarray(b2), seg, block_h=block,
+            log_probs=log_probs, interpret=True), jh, jnp.asarray(w2q))
+        n0 = ihk.bf16_int8_launches
+        got = tops.infer_head_int8(th, torch.from_numpy(w2q),
+                                   torch.from_numpy(w2s),
+                                   torch.from_numpy(b2), seg,
+                                   block_h=block, log_probs=log_probs)
+        assert ihk.bf16_int8_launches == n0 + 1
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)

@@ -1,12 +1,13 @@
 """The bf16 compute policy as a whole (``compute_dtype="bfloat16"``), held
 against the JAX package on the CPU, on the fused route (each kernel's
 plain version: the port's dispatch picks it for a CPU tensor; JAX's
-kernels in interpret mode) and on the plain einsum route: the served
-forward and the loss, the f32 gradients, an sgd and an AdamW chunk, the
-serving engine and its driver, the training driver (the twin of
-tests/test_train_driver.py's bf16 halving run, ``--serve-publish``
-through a ladder, a bf16 run resumed across the packages both ways) and
-the combinations still to be ported (Queue 1 item 6b).
+kernels in interpret mode), on the unfused route's kernels and the M3
+kernels, over the int8 serve copy, and on the plain einsum route: the
+served forward and the loss, the f32 gradients, the exact bf16 launch
+counts, an sgd and an AdamW chunk, the serving engine and its driver, the
+training driver (the twin of tests/test_train_driver.py's bf16 halving
+run, ``--serve-publish`` through a ladder, bf16 runs resumed across the
+packages both ways on the plain and the unfused route).
 
 Same numpy parameters and batches go through both packages.  Tolerances:
 the forward and the loss at rtol 2e-2 / atol 2e-2, the JAX package's own
@@ -30,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import quant as jquant
 from repro.checkpoint import checkpoint as jckpt
 from repro.core import deep as jdeep
 from repro.core.activations import ACTIVATION_ORDER
@@ -333,31 +335,146 @@ def test_bf16_run_resumes_across_packages(tmp_path):
                   atol=1e-5)
 
 
+def test_unfused_bf16_run_resumes_a_jax_run(tmp_path):
+    """A bf16-policy run on the unfused route's kernels (sgd, 6 steps,
+    checkpoints every 2): JAX's checkpoint of step 3 resumed by the port
+    for the last two steps lands on JAX's straight run, at the slice's
+    trajectory tolerance for a kernel route (rtol 1e-2 / atol 1e-3: the
+    plain versions and JAX's interpret-mode kernels round within a bf16
+    ulp of each other)."""
+    flags = _TINY + ["--batch", "8", "--bd-impl", "pallas", "--act-impl",
+                     "pallas", "--compute-dtype", BF16, "--ckpt-every", "2",
+                     "--steps", "6"]
+    jparams, _ = jtrain.main(flags + ["--pipeline", "off", "--ckpt-dir",
+                                      str(tmp_path / "jax")])
+    shutil.copytree(tmp_path / "jax", tmp_path / "jax3",
+                    ignore=shutil.ignore_patterns("step_00000005"))
+    meta, step = tckpt.load_meta(str(tmp_path / "jax3"))
+    assert step == 3 and meta["train"]["compute_dtype"] == BF16
+    params, _, stats = ttrain.main(flags + ["--resume", "--device", "cpu",
+                                            "--ckpt-dir",
+                                            str(tmp_path / "jax3")])
+    assert stats["steps"] == 2
+    assert stats["segments"][0]["launches"] == {
+        k: 2 * v for k, v in launch_count.unfused_step_launches(
+            2, "bucketed", BF16).items()}
+    _assert_trees(params, jax.device_get(jparams), **GRAD)
+
+
 @pytest.mark.parametrize("kw", [
     dict(bd_impl="pallas", act_impl="pallas"),
     dict(bd_impl="einsum", m3_impl="pallas"),
     dict(bd_impl="fused", weights_dtype="int8"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
-def test_item_6b_combinations_raise(np_params, kw):
-    """bf16 on the unfused route's kernels, on the M3 kernels and over the
-    int8 copy is still to be ported: each raises naming Queue 1 item 6b,
-    on the CPU as it would on the card."""
+def test_item_6b_combinations_raise(np_params, batches, kw):
+    """The three combinations that raised before Queue 1 item 6b was
+    ported now run: bf16 on the unfused route's kernels, on the M3 kernels
+    and over the int8 copy each serves JAX's logits (the int8 copy: on the
+    bytes of JAX's own ``quantize_population``), each launch the bf16
+    instance of its kernel, and the server takes the combination."""
+    x = batches[0][2]
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-        tdeep.check_dtypes(BF16, kw.get("weights_dtype"), kw.get("bd_impl"),
-                           kw.get("m3_impl"))
-    if "weights_dtype" not in kw:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            tdeep.fused_loss(params, torch.zeros(2, 6), torch.zeros(2).long(),
-                             TLP, compute_dtype=BF16, **kw)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            tdeep.forward(params, torch.zeros(2, 6), TLP,
-                          compute_dtype=BF16, **kw)
+    assert tdeep.check_dtypes(BF16, kw.get("weights_dtype")) == \
+        kw.get("weights_dtype")
+    jp = np_params
+    tp = params
+    if "weights_dtype" in kw:
+        jp = jax.device_get(jquant.quantize_population(np_params, JLP))
+        tp = tdeep.qparams_from_numpy(jp, TLP, device="cpu")
+    want = jax.jit(jdeep.forward, static_argnames=(
+        "lp", "bd_impl", "act_impl", "m3_impl", "compute_dtype", "infer",
+        "weights_dtype"))(jp, x, JLP, compute_dtype=BF16, infer=True, **kw)
+    got, n = _launches(lambda: tdeep.forward(tp, _t(x), TLP,
+                                             compute_dtype=BF16, infer=True,
+                                             **kw))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+    assert n and all(k.endswith("_bf16") or k == "seg_act" for k in n)
     if "m3_impl" not in kw:   # the server has no M3 route
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6b"):
-            tserve.PopulationServer(params, TLP, compute_dtype=BF16,
-                                    bd_impl=kw["bd_impl"],
-                                    weights_dtype=kw.get("weights_dtype"))
+        server = tserve.PopulationServer(params, TLP, compute_dtype=BF16,
+                                         bd_impl=kw["bd_impl"],
+                                         act_impl=kw.get("act_impl",
+                                                         "pallas"),
+                                         weights_dtype=kw.get(
+                                             "weights_dtype"))
+        with torch.inference_mode():
+            served = tdeep.forward(tp, _t(x), TLP, **server._fw)
+        assert torch.equal(served, got)
+
+
+_ROUTES = {
+    "unfused": dict(bd_impl="pallas", act_impl="pallas"),
+    "unfused m3": dict(bd_impl="pallas", act_impl="pallas", m3_impl="pallas"),
+    "einsum m3": dict(bd_impl="einsum", m3_impl="pallas"),
+}
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTES))
+def test_unfused_and_m3_routes_match_jax(np_params, batches, route):
+    """The unfused route's kernels and the M3 kernels under the policy:
+    the served forward (log-probs), the loss and the f32 gradients against
+    JAX's (its kernels in interpret mode), and exactly the route's
+    launches under the ``*_bf16`` names (``seg_act`` in f32, as the policy
+    hands it the f32 sum of a bf16 projection and an f32 bias)."""
+    kw = _ROUTES[route]
+    x, y = batches[0][1], batches[1][1]
+    params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
+    static = ("lp", "bd_impl", "act_impl", "m3_impl", "compute_dtype")
+    want = jax.jit(jdeep.forward, static_argnames=static + (
+        "infer", "log_probs"))(np_params, x, JLP, compute_dtype=BF16,
+                               infer=True, log_probs=True, **kw)
+    got, n = _launches(lambda: tdeep.forward(
+        params, _t(x), TLP, compute_dtype=BF16, infer=True, log_probs=True,
+        **kw))
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **FWD)
+    (jloss, jper), jgrads = jax.jit(
+        jax.value_and_grad(jdeep.fused_loss, has_aux=True),
+        static_argnames=static)(np_params, x, y, JLP, compute_dtype=BF16,
+                                **kw)
+    (loss, per, grads), n_step = _launches(lambda: tdeep.loss_and_grads(
+        params, _t(x), _t(y, torch.long), TLP, compute_dtype=BF16, **kw))
+    np.testing.assert_allclose(loss.numpy(), np.asarray(jloss), **FWD)
+    np.testing.assert_allclose(per.numpy(), np.asarray(jper), **FWD)
+    assert all(g.dtype == torch.float32 for g in tree_leaves(grads))
+    _assert_trees(grads, jgrads, **GRAD)
+    m3 = kw.get("m3_impl", "bucketed")
+    if kw["bd_impl"] == "pallas":
+        assert n == launch_count.unfused_infer_launches(TLP.depth, m3, BF16)
+        assert n_step == launch_count.unfused_step_launches(TLP.depth, m3,
+                                                            BF16)
+    else:
+        assert n == {"m3_matmul_fwd_bf16": 1}
+        assert n_step == launch_count.m3_step_launches(BF16)
+    if route == "unfused m3":
+        assert n_step == {"seg_act": 3, "seg_act_bwd": 3,
+                          "block_diag_fwd_bf16": 4, "block_diag_dw_bf16": 2,
+                          "m3_matmul_fwd_bf16": 1, "m3_matmul_dh_bf16": 1,
+                          "m3_matmul_dw_bf16": 1}
+
+
+@pytest.mark.parametrize("flags", [
+    ["--bd-impl", "pallas", "--act-impl", "pallas"],
+    ["--weights-dtype", "int8"],
+], ids=lambda f: " ".join(f))
+def test_serve_main_bf16_routes(np_params, tmp_path, capsys, flags):
+    """``serve_population.main --compute-dtype bfloat16`` on the unfused
+    route and over the int8 copy, end to end on the CPU: publish, the
+    three modes; only bf16 instances launch (``seg_act`` f32), and the
+    int8 copy's launch budget is depth+1 ``*_int8_bf16`` launches."""
+    params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
+    tckpt.save_population(str(tmp_path), 1, params, TLP)
+    _, n = _launches(lambda: tserve.main(
+        ["--ckpt-dir", str(tmp_path), "--requests", "16", "--batch", "8",
+         "--calib-samples", "16", "--device", "cpu", "--compute-dtype",
+         BF16] + flags))
+    out = capsys.readouterr().out
+    assert "compute bfloat16" in out and "published: best1=" in out
+    if "int8" in flags:
+        assert "launch budget: {'launches': 4, 'budget': 4}" in out
+        assert set(n) == {"fused_input_int8_bf16", "fused_layer_int8_bf16",
+                          "infer_head_int8_bf16"}
+    else:
+        assert set(n) == {"seg_act", "block_diag_fwd_bf16"}
 
 
 def test_unknown_compute_dtype_raises():

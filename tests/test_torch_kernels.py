@@ -985,6 +985,42 @@ def test_seg_act_and_bwd_match_plain(dev, b, block, n_blocks, offset):
     _close(dh, sak.seg_act_bwd_plain(h, dy, ids, mask, blk=block))
 
 
+def test_gelu_tail_on_card(dev):
+    """The kernels' gelu (``activations.cuh``: x/2 · (1 + erf(x/√2)), the
+    plain version's form) in its negative tail, through ``seg_act`` and the
+    fused input layer, against the exact value (x/2 · erfc(−x/√2) in f64,
+    JAX's form): within 2e-6 absolute, the bound
+    tests/test_torch_gelu_tail.py holds the CPU's gelu to against JAX's.
+    The relative error is printed: the erf form loses it in the tail."""
+    from repro_torch.kernels import seg_act as sak
+
+    def exact(u):
+        u = u.double().cpu()
+        return 0.5 * u * torch.special.erfc(-u / np.sqrt(2.0))
+
+    rng = np.random.default_rng(7)
+    block, n_blocks, b, f = 8, 64, 32, 100
+    hh = block * n_blocks
+    gelu = ACTIVATION_ORDER.index("gelu")
+    ids = _t(np.full(n_blocks, gelu), dev, torch.int32)
+    ones = torch.ones(hh, device=dev)
+    h = _t(np.linspace(-10, 10, b * hh).reshape(b, hh), dev)
+    x, w, _, _, _ = _fwd_inputs(rng, b, f, block, n_blocks, 0, dev)
+    bias = _t(rng.uniform(-9, -3, hh), dev)
+    u = torch.addmm(bias.double(), x.double(), w.double().t())
+    for what, got, want in (
+            ("seg_act", sak.seg_act_cuda(h, ids, ones, blk=block), exact(h)),
+            ("fused_input", fik.fused_input_cuda(x, w, bias, ones, ids,
+                                                 block=block), exact(u))):
+        torch.cuda.synchronize()
+        err = (got.double().cpu() - want).abs()
+        big = want.abs() > 1e-3
+        rel = (err[big] / want.abs()[big]).max().item()
+        print(f"{what}: gelu max abs err {err.max().item()!r}, max rel err "
+              f"where |gelu| > 1e-3 {rel!r}")
+        assert err.max().item() <= 2e-6, what
+
+
 @pytest.mark.parametrize("widths,block,b,shift", _MID_GRID)
 def test_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b, shift):
     """The forward, the dh pass (the same kernel on the transposed tiles
@@ -1508,21 +1544,82 @@ def test_bf16_kernels_run_on_the_tensor_cores(dev):
 # tolerance.  du = dy·g' and dl·d_per are rounded to bf16 on both sides
 # the same way (a product of two bf16 values rounded once), so they add
 # no difference of their own.
+#
+# The carve-out has a third reference (``_f64_check``): at each element
+# where the kernel is more than 1 bf16 ulp from the plain version but
+# within the atol of it, the kernel is within 1 bf16 ulp of the f64 sum
+# of the same bf16 products rounded once to bf16 — or, where that sum
+# cancels so far that an f32 sum of its terms in any order may stray
+# further (the distance is printed), within the worst-case error of an
+# f32 sum of those n terms, (n − 1)·2^-24·Σ|terms| (twice that through an
+# activation: no activation's slope passes 2), plus its own rounding to
+# bf16, of the exact sum.  So the carve-out is the order of an f32 sum,
+# not a wrong sum.
+
+def _ulp_key(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values → integers in the order of the values, one apart for
+    neighbouring bf16 numbers (±0 both 0)."""
+    v = t.contiguous().view(torch.int16).int()
+    return torch.where(v < 0, -(v + 32768), v)
+
+
+def _f64_to_bf16(v: torch.Tensor) -> torch.Tensor:
+    """f64 values rounded once to bf16, to nearest even.  A cast through
+    f32 rounds twice: where the f32 lands on a bf16 midpoint from an f64
+    off it, it is first moved one f32 step back toward the f64."""
+    f = v.float()
+    off = ((f.view(torch.int32) & 0xFFFF) == 0x8000) & (f.double() != v)
+    toward = torch.where(v > f.double(), torch.full_like(f, np.inf),
+                         torch.full_like(f, -np.inf))
+    return torch.where(off, torch.nextafter(f, toward), f).to(torch.bfloat16)
+
+
+def _sum_bound(lin, a, b, scale: float = 1.0):
+    """The f64 sums ``lin(a, b)`` of the products of two bf16 (or f32)
+    operands, widened, and the worst-case error of an f32 sum of the same
+    products in any order, ``scale``·(n − 1)·2^-24·Σ|products| per output
+    (n the terms of each: ``lin`` on ones)."""
+    a, b = a.double(), b.double()
+    n = lin(torch.ones_like(a), torch.ones_like(b))
+    mag = lin(a.abs(), b.abs())
+    return lin(a, b), scale * (n - 1).clamp(min=0) * 2.0 ** -24 * mag
+
+
+def _f64_check(got, plain, exact, bound) -> int:
+    """The third reference (see above) at the carve-out of
+    ``_bf16_ulps(got, plain)``: asserts it, returns the kernel's largest
+    distance there from ``exact`` rounded once, in bf16 ulps."""
+    torch.cuda.synchronize()
+    exact = exact.to(got.device)
+    excused = ((_ulp_key(got) - _ulp_key(plain)).abs() > 1) \
+        & ((got.float() - plain.float()).abs() <= ATOL)
+    d = (_ulp_key(got) - _ulp_key(_f64_to_bf16(exact))).abs()
+    err = (got.double() - exact).abs()
+    wrong = excused & (d > 1) \
+        & (err > bound.to(got.device) + 2.0 ** -8 * got.double().abs())
+    assert not wrong.any(), (got[wrong][:8], exact[wrong][:8])
+    return int(d[excused].max().item()) if excused.any() else 0
 
 def _bf16_ulps(a: torch.Tensor, b: torch.Tensor, atol: float = ATOL) -> int:
     """The largest distance between two bf16 tensors in bf16 ulps (steps
     of the bf16 grid; +0 and -0 the same point), over the elements more
     than ``atol`` apart."""
     assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
-
-    def key(t):
-        v = t.contiguous().view(torch.int16).int()
-        return torch.where(v < 0, -(v + 32768), v)
-
     torch.cuda.synchronize()
     far = (a.float() - b.float()).abs() > atol
-    return int((key(a) - key(b)).abs()[far].max().item()) \
+    return int((_ulp_key(a) - _ulp_key(b)).abs()[far].max().item()) \
         if far.any() else 0
+
+
+def _act_bound(lin, a, b, bias, exact):
+    """The worst-case error of an output of an activation of an f32 sum
+    of the products ``lin`` sums plus a bias: the sum's (n terms and the
+    bias), through a slope of at most 2, and the activation's own f32
+    evaluation (16 f32 ulps of the output)."""
+    a, b = a.double(), b.double()
+    n = lin(torch.ones_like(a), torch.ones_like(b))
+    mag = lin(a.abs(), b.abs()) + bias.double().abs()
+    return 2 * n * 2.0 ** -24 * mag + 16 * 2.0 ** -24 * exact.abs()
 
 
 def _bf16(a, dev, shift: int = 0):
@@ -1565,6 +1662,11 @@ def test_bf16_fused_input_matches_plain(dev, b, f, block, n_blocks, shift):
     wy, wg = fik.fused_input_train_plain(x, w, bias, mask, ids, block=block)
     assert torch.equal(y, got)
     assert _bf16_ulps(g, wg) <= 1 and _bf16_ulps(y, wy) <= 1
+    ey, eg = fik.fused_input_train_plain(x.double(), w.double(), bias, mask,
+                                         ids, block=block)
+    for out, want, exact in ((y, wy, ey), (g, wg, eg)):
+        _f64_check(out, want, exact, _act_bound(
+            lambda a, b: a @ b.t(), x, w, bias, exact))
 
 
 @pytest.mark.parametrize("with_dx", [False, True])
@@ -1598,8 +1700,11 @@ def test_bf16_fused_input_bwd_matches_plain(dev, with_dx, b, f, h, shift):
     assert dw.dtype == torch.bfloat16 and _bf16_ulps(dw, wdw) <= 1
     again = fik.fused_input_bwd_cuda(dy, g, x, w, with_dx=with_dx)
     assert torch.equal(dw, again[1])
+    du = dy * g   # rounded to bf16 once, as the kernel forms it
+    _f64_check(dw, wdw, *_sum_bound(lambda a, b: a.t() @ b, du, x))
     if with_dx:
         assert _bf16_ulps(dx, wdx) <= 1 and torch.equal(dx, again[0])
+        _f64_check(dx, wdx, *_sum_bound(lambda a, b: a @ b, du, w))
 
 
 @pytest.mark.parametrize("widths,block,b,shift", [
@@ -1644,6 +1749,14 @@ def test_bf16_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b,
         _group_instance(ran, path, "fused_layer_bf16_group_kernel")
         wy, wg = flk.fused_layer_train_plain(*fargs, blk=block)
         assert _bf16_ulps(y, wy) <= 1 and _bf16_ulps(g, wg) <= 1
+        sched = fargs[5:]
+        ey, eg = flk.fused_layer_train_plain(x.double(), wb.double(),
+                                             *fargs[2:], blk=block)
+        for out, want, exact in ((y, wy, ey), (g, wg, eg)):
+            _f64_check(out, want, exact, _act_bound(
+                lambda a, c: bdk.block_diag_fwd_plain(a, c, *sched,
+                                                      blk=block),
+                x, wb, b_eff, exact))
         again = flk.fused_layer_train_cuda(*fargs, blk=block)
         assert torch.equal(y, again[0]) and torch.equal(g, again[1])
         assert torch.equal(y, flk.fused_layer_cuda(*fargs, blk=block))
@@ -1657,6 +1770,14 @@ def test_bf16_fused_layer_train_and_dx_dw_match_plain(dev, widths, block, b,
         assert len(ran) == 1 and "fused_layer_dx_dw_bf16_kernel" in ran[0]
         wdx, wdwb = flk.fused_layer_dx_dw_plain(*args, blk=block)
         assert _bf16_ulps(dx, wdx) <= 1 and _bf16_ulps(dwb, wdwb) <= 1
+        du, units = dy * g, args[4:]   # du rounded to bf16 once, as here
+        one = torch.ones_like(du, dtype=torch.float64)
+        _f64_check(dx, wdx, *_sum_bound(
+            lambda a, c: flk.fused_layer_dx_dw_plain(
+                a, one, x.double(), c, *units, blk=block)[0], du, wb[:-1]))
+        _f64_check(dwb, wdwb, *_sum_bound(
+            lambda a, c: flk.fused_layer_dx_dw_plain(
+                a, one, c, wb[:-1].double(), *units, blk=block)[1], du, x))
         again = flk.fused_layer_dx_dw_cuda(*args, blk=block)
         assert torch.equal(dx, again[0]) and torch.equal(dwb, again[1])
 
@@ -1716,6 +1837,13 @@ def test_bf16_heads_match_plain(dev, widths, block, o, b, shift):
     assert (lhk.bf16_fwd_launches, lhk.bf16_bwd_launches) == (n0 + 1, m0 + 1)
     wdh, wdw = lhk.loss_head_bwd_plain(dper, dl, h, w2, seg, block=block)
     assert _bf16_ulps(dh, wdh) <= 1 and _bf16_ulps(dw, wdw) <= 1
+    # dl·d_per rounded to bf16 once, as the kernel stages it
+    gl = (dl * dper[None, :, None]).to(torch.bfloat16)
+    one = torch.ones_like(dper, dtype=torch.float64)
+    _f64_check(dh, wdh, *_sum_bound(lambda a, c: lhk.loss_head_bwd_plain(
+        one, a, h.double(), c, seg, block=block)[0], gl, w2))
+    _f64_check(dw, wdw, *_sum_bound(lambda a, c: lhk.loss_head_bwd_plain(
+        one, a, c, w2.double(), seg, block=block)[1], gl, h))
     again = lhk.loss_head_bwd_cuda(dper, dl, h, w2, seg, block=block)
     assert torch.equal(dh, again[0]) and torch.equal(dw, again[1])
 
@@ -1767,3 +1895,372 @@ def test_bf16_step_on_card_matches_cpu(dev):
         deep.forward(p_dev, x.to(dev), lp, bd_impl="fused", infer=True,
                      compute_dtype="bfloat16")
     assert diff(before) == fused_infer_kernels(lp.depth, "bfloat16")
+
+
+# --------------------------------------------------------------------- #
+# the bf16 policy on the unfused route, the M3 kernels and the int8     #
+# serve copy                                                            #
+# --------------------------------------------------------------------- #
+#
+# Each bf16 instance sums the same products as its f32 instance on the
+# widened operands, in the same order (the same core, its loads widened),
+# and rounds once: where both take the same instance its output is
+# bitwise the f32 instance's rounded to bf16 (f32 logits: bitwise the f32
+# instance's).  Against its plain version: ≤ 1 bf16 ulp beyond the atol,
+# and the carve-out held to the f64 sum (``_f64_check``).
+
+def _as_f32_rounded(fn, *args):
+    """``fn`` on the operands widened to f32, its output rounded once to
+    bf16."""
+    return fn(*[a.float() if a.dtype == torch.bfloat16 else a
+                for a in args]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("widths,block,b,shift", _MID_GRID + [
+    (((64, 32, 16), (13, 5), (7,)) * 4, 8, 32, 1)])  # 2 bytes off: scalar
+def test_bf16_block_diag_fwd_dh_dw_match_plain(dev, widths, block, b, shift):
+    """The unfused mid layer's bf16 instances: the forward and its dh pass
+    (``block_diag_bf16_group_kernel``) and dWB
+    (``block_diag_dw_bf16_member_kernel``; B = 300: ten 32-row chunks
+    summed in f32, rounded once), each on the instance ``fwd_path`` /
+    ``dw_path`` names, ≤ 1 bf16 ulp from the plain version, bitwise the
+    f32 instance on the widened operands rounded once, two launches
+    bitwise equal; counted in ``bf16_fwd_launches`` /
+    ``bf16_dw_launches``."""
+    from repro_torch.kernels import block_diag as bdk
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    lp = LayeredPopulation(5, 3, widths, acts, block=block)
+    rng = np.random.default_rng(b + 7)
+    word = "block_diag_bf16_group_kernel"
+    for l in range(lp.depth - 1):
+        lay = lp.bd_layout(l)
+        x = _bf16(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev, shift)
+        wbn = rng.normal(0, 1, (lay.n_param_blocks + 1, block, block)) \
+            / np.sqrt(block)
+        wbn[-1] = np.eye(block)
+        wb = _bf16(wbn, dev, shift)
+        sched = flk.schedule_on(lay, dev)
+        n0, m0 = bdk.bf16_fwd_launches, bdk.fwd_launches
+        y, ran = _kernels_run(
+            lambda: bdk.block_diag_fwd_cuda(x, wb, *sched, blk=block), word)
+        assert (bdk.bf16_fwd_launches, bdk.fwd_launches) == (n0 + 1, m0)
+        assert y.dtype == torch.bfloat16
+        path = bdk.fwd_path(x, wb, y)
+        assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                        else "scalar")
+        _group_instance(ran, path, word)
+        want = bdk.block_diag_fwd_plain(x, wb, *sched, blk=block)
+        assert _bf16_ulps(y, want) <= 1
+        _f64_check(y, want, *_sum_bound(
+            lambda a, c: bdk.block_diag_fwd_plain(a, c, *sched, blk=block),
+            x, wb))
+        assert torch.equal(y, bdk.block_diag_fwd_cuda(x, wb, *sched,
+                                                      blk=block))
+        y32 = _as_f32_rounded(lambda a, c: bdk.block_diag_fwd_cuda(
+            a, c, *sched, blk=block), x, wb)
+        if shift == 0:   # the f32 instance takes the same path
+            assert torch.equal(y, y32)
+        rowptr_t, s_in_t, s_w_t, perm_t, out_t, in_t = flk.schedule_on(
+            lay, dev, transposed=True)
+        wb_t = flk.transposed_tiles(wb, perm_t)
+        dy = _bf16(rng.normal(0, 1, (b, lay.n_out_tiles * block)), dev,
+                   shift)
+        dh_args = (dy, wb_t, rowptr_t, s_in_t, s_w_t)
+        dh, ran = _kernels_run(
+            lambda: bdk.block_diag_fwd_cuda(*dh_args, blk=block), word)
+        _group_instance(ran, bdk.fwd_path(dy, wb_t, dh), word)
+        want = bdk.block_diag_fwd_plain(*dh_args, blk=block)
+        assert _bf16_ulps(dh, want) <= 1
+        _f64_check(dh, want, *_sum_bound(
+            lambda a, c: bdk.block_diag_fwd_plain(a, c, *dh_args[2:],
+                                                  blk=block), dy, wb_t))
+        assert torch.equal(dh, bdk.block_diag_fwd_cuda(*dh_args, blk=block))
+        n0, m0 = bdk.bf16_dw_launches, bdk.dw_launches
+        dwb, ran = _kernels_run(
+            lambda: bdk.block_diag_dw_cuda(dy, x, out_t, in_t, blk=block),
+            "block_diag_dw")
+        assert (bdk.bf16_dw_launches, bdk.dw_launches) == (n0 + 1, m0)
+        assert dwb.dtype == torch.bfloat16
+        dpath = bdk.dw_path(dy, x, dwb)
+        assert dpath == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                         else "scalar")
+        assert len(ran) == 1 and ("block_diag_dw_bf16_member_kernel<%d>" % (
+            4 if dpath == "vec4" else 1)) in ran[0], ran
+        want = bdk.block_diag_dw_plain(dy, x, out_t, in_t, blk=block)
+        assert _bf16_ulps(dwb, want) <= 1
+        _f64_check(dwb, want, *_sum_bound(
+            lambda a, c: bdk.block_diag_dw_plain(a, c, out_t, in_t,
+                                                 blk=block), dy, x))
+        assert torch.equal(dwb, bdk.block_diag_dw_cuda(dy, x, out_t, in_t,
+                                                       blk=block))
+        if shift == 0:   # one f32 sum over the whole batch, rounded once
+            assert torch.equal(dwb, _as_f32_rounded(
+                lambda a, c: bdk.block_diag_dw_cuda(a, c, out_t, in_t,
+                                                    blk=block), dy, x))
+
+
+@pytest.mark.parametrize("sizes,block,o,b,offset", [
+    ((3, 9, 1, 20, 5), 1, 2, 7, 0),          # block 1: scalar
+    ((3, 9, 1, 20, 5), 8, 5, 33, 0),
+    ((100, 1, 57, 128), 128, 2, 32, 0),      # parallelmlp-10k's block
+    (_NARROW, 8, 2, 32, 0),                  # the depth-3 head's members
+    ((300, 129, 57, 700), 128, 20, 300, 0),  # O past 16, B = 300
+    ((5, 12, 7), 8, 3, 6, 1),                # h 2 bytes off: scalar
+])
+def test_bf16_m3_matmul_kernels_match_plain(dev, sizes, block, o, b, offset):
+    """The M3 kernels' bf16 instances: y (bf16 logits, rounded once in the
+    forward's epilogue), dh and dW2 (one f32 sum over the batch, rounded
+    once), each on the design ``kernel_path`` names, ≤ 1 bf16 ulp from the
+    plain version, bitwise the f32 instance on the widened operands
+    rounded once where both take the same design, twice bitwise equal;
+    counted in the ``bf16_*`` counters."""
+    from repro_torch.core.population import Population
+    from repro_torch.kernels import m3_matmul as m3k
+    pop = Population(4, o, sizes, ("relu",) * len(sizes), block=block)
+    rng = np.random.default_rng(b + block + o + 1)
+    hh = pop.total_hidden
+    h = _bf16(rng.normal(0, 1, (b, hh)) * pop.hidden_mask, dev, offset)
+    w2 = _bf16(rng.normal(0, 1, (o, hh)), dev)
+    dy = _bf16(rng.normal(0, 1, (b, pop.num_members, o)), dev)
+    seg = _t(pop.block_segment_ids, dev, torch.int32)
+    ptr = ihk.member_ptr(seg, pop.num_members)
+    f32 = (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches)
+    counts = (m3k.bf16_fwd_launches, m3k.bf16_dh_launches,
+              m3k.bf16_dw_launches)
+    path = ihk.kernel_path(block, h, w2)
+    assert path == ("vec4" if block % 4 == 0 and offset % 4 == 0
+                    else "scalar")
+    y, ran = _kernels_run(lambda: m3k.m3_matmul_fwd_cuda(
+        h, w2, ptr, block=block), "m3_")
+    assert len(ran) == 1 and f"m3_fwd_bf16_stream_kernel_{path}" in ran[0]
+    dh, ran = _kernels_run(lambda: m3k.m3_matmul_dh_cuda(
+        dy, w2, seg, block=block), "m3_")
+    assert len(ran) == 1 and "m3_dh_bf16_kernel" in ran[0], ran
+    dw, ran = _kernels_run(lambda: m3k.m3_matmul_dw_cuda(
+        dy, h, seg, block=block), "m3_")
+    assert len(ran) == 1 and "m3_dw_bf16_stream_kernel" in ran[0], ran
+    assert (m3k.fwd_launches, m3k.dh_launches, m3k.dw_launches) == f32
+    assert (m3k.bf16_fwd_launches, m3k.bf16_dh_launches,
+            m3k.bf16_dw_launches) == tuple(c + 1 for c in counts)
+    assert y.dtype == dh.dtype == dw.dtype == torch.bfloat16
+    cases = (
+        (y, lambda a, c: m3k.m3_matmul_fwd_plain(a, c, ptr, block=block),
+         (h, w2), lambda a, c: m3k.m3_matmul_fwd_cuda(a, c, ptr,
+                                                      block=block)),
+        (dh, lambda a, c: m3k.m3_matmul_dh_plain(a, c, seg, block=block),
+         (dy, w2), lambda a, c: m3k.m3_matmul_dh_cuda(a, c, seg,
+                                                      block=block)),
+        (dw, lambda a, c: m3k.m3_matmul_dw_plain(a, c, seg, block=block),
+         (dy, h), lambda a, c: m3k.m3_matmul_dw_cuda(a, c, seg,
+                                                     block=block)))
+    for got, plain, ops_, kernel in cases:
+        want = plain(*ops_)
+        assert _bf16_ulps(got, want) <= 1
+        _f64_check(got, want, *_sum_bound(plain, *ops_))
+        assert torch.equal(got, kernel(*ops_))
+        if offset == 0:
+            assert torch.equal(got, _as_f32_rounded(kernel, *ops_))
+
+
+@pytest.mark.parametrize("b,f,block,n_blocks,shift", [
+    (32, 100, 128, 12, 0),    # parallelmlp-10k's rows: 200 bytes, vec4
+    (32, 100, 8, 13, 0),
+    (300, 100, 128, 2, 0),    # ten batch tiles
+    (5, 101, 8, 9, 0),        # F % 4 != 0: scalar
+    (32, 100, 8, 13, 1),      # x 2 bytes off an 8-byte boundary: scalar
+    (33, 1030, 8, 5, 0),      # x not resident
+])
+def test_bf16_fused_input_int8_matches_plain(dev, b, f, block, n_blocks,
+                                             shift):
+    """The int8 input layer on bf16 x (``fused_input_i8_bf16_kernel``): y
+    bf16, ≤ 1 bf16 ulp from the plain version, bitwise the f32 int8
+    instance on x widened, rounded once, where both take the same
+    instance; two launches bitwise equal; counted in
+    ``bf16_int8_launches``."""
+    from repro_torch.quant import _input_f_pad
+    rng = np.random.default_rng(b + 3)
+    h = block * n_blocks
+    x = _bf16(rng.normal(0, 1, (b, f)), dev, shift)
+    w_q = _int8(rng, (h, _input_f_pad(f)), dev)
+    w_s = _scales(rng, n_blocks, dev)
+    bias = _t(rng.normal(0, 1, h), dev)
+    mask = _t(rng.random(h) > 0.2, dev)
+    ids = _t(np.arange(n_blocks) % len(ACTIVATION_ORDER), dev, torch.int32)
+    n0, m0 = fik.bf16_int8_launches, fik.int8_launches
+    got, ran = _kernels_run(lambda: fik.fused_input_int8_cuda(
+        x, w_q, w_s, bias, mask, ids, block=block), "fused_input")
+    assert (fik.bf16_int8_launches, fik.int8_launches) == (n0 + 1, m0)
+    assert got.dtype == torch.bfloat16
+    path = fik.fwd_path(x, w_q, got)
+    assert path == ("vec4" if f % 4 == 0 and shift % 4 == 0 else "scalar")
+    assert len(ran) == 1 and ("fused_input_i8_bf16_kernel<%d"
+                              % (4 if path == "vec4" else 1)) in ran[0], ran
+    want = fik.fused_input_int8_plain(x, w_q, w_s, bias, mask, ids,
+                                      block=block)
+    assert _bf16_ulps(got, want) <= 1
+    w_dq = w_q[:, :f].float() * w_s.repeat_interleave(block)[:, None]
+    exact = fik.fused_input_plain(x.double(), w_dq.double(), bias, mask, ids,
+                                  block=block)
+    _f64_check(got, want, exact, _act_bound(lambda a, c: a @ c.t(), x, w_dq,
+                                            bias, exact))
+    assert torch.equal(got, fik.fused_input_int8_cuda(
+        x, w_q, w_s, bias, mask, ids, block=block))
+    x32 = x.float()
+    y32 = fik.fused_input_int8_cuda(x32, w_q, w_s, bias, mask, ids,
+                                    block=block)
+    if fik.fwd_path(x32, w_q, y32) == path:
+        assert torch.equal(got, y32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("widths,block,b,shift", _MID_GRID + [
+    (((64, 32, 16), (13, 5), (7,)) * 4, 8, 32, 1)])  # 2 bytes off: scalar
+def test_bf16_fused_layer_int8_matches_plain(dev, widths, block, b, shift):
+    """The int8 mid layer on bf16 x (``fused_layer_i8_bf16_group_kernel``,
+    the core's I8BW policy): y bf16 on the instance ``fwd_path`` names,
+    ≤ 1 bf16 ulp from the plain version, bitwise the f32 int8 instance on
+    x widened, rounded once, where both take the same instance; two
+    launches bitwise equal."""
+    from repro_torch.kernels import block_diag as bdk
+    acts = tuple(ACTIVATION_ORDER[i % 10] for i in range(len(widths)))
+    lp = LayeredPopulation(5, 3, widths, acts, block=block)
+    rng = np.random.default_rng(b + 5)
+    word = "fused_layer_i8_bf16_group_kernel"
+    for l in range(lp.depth - 1):
+        lay = lp.bd_layout(l)
+        pout = lp.layer_pop(l + 1)
+        x = _bf16(rng.normal(0, 1, (b, lay.n_in_tiles * block)), dev, shift)
+        wb_q = _int8(rng, (lay.n_param_blocks + 1, block, block), dev)
+        wb_q[-1] = torch.eye(block, device=dev, dtype=torch.int8)
+        wb_s = _scales(rng, lay.n_param_blocks + 1, dev)
+        wb_s[-1] = 1.0
+        b_eff = _t(rng.normal(0, 1, lay.n_out_tiles * block), dev)
+        mask = _t(pout.hidden_mask, dev)
+        acts_t = _t(pout.block_act_ids, dev, torch.int32)
+        sched = flk.schedule_on(lay, dev)
+        args = (x, wb_q, wb_s, b_eff, mask, acts_t, *sched)
+        n0, m0 = flk.bf16_int8_launches, flk.int8_launches
+        got, ran = _kernels_run(
+            lambda: flk.fused_layer_int8_cuda(*args, blk=block), word)
+        assert (flk.bf16_int8_launches, flk.int8_launches) == (n0 + 1, m0)
+        path = bdk.fwd_path(x, wb_q, got)
+        assert path == ("vec4" if block % 4 == 0 and shift % 4 == 0
+                        else "scalar")
+        _group_instance(ran, path, word)
+        want = flk.fused_layer_int8_plain(*args, blk=block)
+        assert got.dtype == torch.bfloat16 and _bf16_ulps(got, want) <= 1
+        wdq = wb_q.float() * wb_s[:, None, None]
+        exact = flk.fused_layer_plain(x.double(), wdq.double(), *args[3:],
+                                      blk=block)
+        _f64_check(got, want, exact, _act_bound(
+            lambda a, c: bdk.block_diag_fwd_plain(a, c, *sched, blk=block),
+            x, wdq, b_eff, exact))
+        assert torch.equal(got, flk.fused_layer_int8_cuda(*args, blk=block))
+        x32 = x.float()
+        y32 = flk.fused_layer_int8_cuda(x32, *args[1:], blk=block)
+        if bdk.fwd_path(x32, wb_q, y32) == path:
+            assert torch.equal(got, y32.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("log_probs", [False, True])
+@pytest.mark.parametrize("widths,block,o,b,shifts", [
+    ((128,) * 40, 128, 2, 32, (0, 0)),     # parallelmlp-10k's members
+    (_HEAD_NARROW, 8, 2, 32, (0, 0)),      # the depth-3 head's, block 8
+    (_HEAD_EMPTY, 8, 5, 31, (0, 0)),       # empty members
+    ((40, 5000, 16, 24), 8, 16, 33, (0, 0)),  # a member over several tiles
+    ((7, 13, 30, 2, 64, 9), 6, 2, 31, (0, 0)),  # block 6: scalar
+    ((128,) * 40, 128, 2, 32, (1, 0)),     # h 2 bytes off: scalar
+    (_HEAD_NARROW, 8, 2, 32, (0, 2)),      # w2_q 2 bytes off: scalar
+])
+def test_bf16_infer_head_int8_matches_plain(dev, log_probs, widths, block, o,
+                                            b, shifts):
+    """The int8 head on bf16 h (``infer_head_i8_bf16_kernel_*``): f32
+    logits within the f32 tolerance of the plain version on the same
+    operands, on the design ``kernel_path`` names, bitwise the f32 int8
+    instance on h widened where both take the same design; two launches
+    bitwise equal."""
+    rng = np.random.default_rng(len(widths) + o + 3)
+    blocks = [-(-w // block) for w in widths]
+    seg = np.repeat(np.arange(len(widths)), blocks).astype(np.int32)
+    hh = int(sum(blocks)) * block
+    h = _bf16(rng.normal(0, 1, (b, hh)), dev, shifts[0])
+    w_q = _shifted(rng.integers(-127, 128, (o, hh)).astype(np.int8),
+                   shifts[1], dev)
+    w_s = _scales(rng, hh // block, dev)
+    b2 = _t(rng.normal(0, 1, (len(widths), o)), dev)
+    ptr = ihk.member_ptr(_t(seg, dev, torch.int32), len(widths))
+    path = ihk.kernel_path(block, h, w_q)
+    assert path == ("vec4" if block % 4 == 0 and shifts[0] % 4 == 0
+                    and shifts[1] % 4 == 0 else "scalar")
+    n0, m0 = ihk.bf16_int8_launches, ihk.int8_launches
+    got, ran = _kernels_run(lambda: ihk.infer_head_int8_cuda(
+        h, w_q, w_s, b2, ptr, block=block, log_probs=log_probs),
+        "infer_head")
+    assert (ihk.bf16_int8_launches, ihk.int8_launches) == (n0 + 1, m0)
+    assert got.dtype == torch.float32
+    assert len(ran) == 1 and f"infer_head_i8_bf16_kernel_{path}" in ran[0]
+    _close(got, ihk.infer_head_int8_plain(*_f64(h.float(), w_q, w_s, b2,
+                                                ptr), block=block,
+                                          log_probs=log_probs))
+    assert torch.equal(got, ihk.infer_head_int8_cuda(
+        h, w_q, w_s, b2, ptr, block=block, log_probs=log_probs))
+    h32 = h.float()
+    if ihk.kernel_path(block, h32, w_q) == path:
+        assert torch.equal(got, ihk.infer_head_int8_cuda(
+            h32, w_q, w_s, b2, ptr, block=block, log_probs=log_probs))
+
+
+def test_bf16_unfused_m3_and_int8_routes_on_card_match_cpu(dev):
+    """The three combinations on the card against the CPU's plain
+    versions: the unfused step with the M3 head under bf16 (exactly
+    ``unfused_step_launches(depth, "pallas", "bfloat16")``: the
+    block-diagonal and M3 kernels' bf16 instances, ``seg_act`` in f32),
+    its served forward, and the int8 serve copy under bf16 (depth+1
+    ``*_int8_bf16`` launches); f32 masters and gradients."""
+    from repro_torch.core import deep
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.launch_count import (fused_infer_kernels,
+                                                 kernel_launches,
+                                                 unfused_infer_launches,
+                                                 unfused_step_launches)
+    from repro_torch.quant import quantize_population
+    lp = _serve_layout()
+    p_cpu = deep.init_params(torch.Generator().manual_seed(0), lp)
+    p_dev = _params_on(p_cpu, dev)
+    x = torch.randn(33, 6, generator=torch.Generator().manual_seed(1))
+    y = torch.randint(0, 3, (33,), generator=torch.Generator().manual_seed(2))
+    route = dict(bd_impl="pallas", act_impl="pallas", m3_impl="pallas",
+                 compute_dtype="bfloat16")
+
+    def moved(fn):
+        before = kernel_launches()
+        out = fn()
+        after = kernel_launches()
+        return out, {k: after[k] - before[k] for k in after
+                     if after[k] != before[k]}
+
+    got, n = moved(lambda: deep.forward(p_dev, x.to(dev), lp, infer=True,
+                                        **route))
+    assert n == unfused_infer_launches(lp.depth, "pallas", "bfloat16")
+    want = deep.forward(p_cpu, x, lp, infer=True, **route)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    (_, per, grads), n = moved(lambda: deep.loss_and_grads(
+        p_dev, x.to(dev), y.to(dev), lp, **route))
+    assert n == unfused_step_launches(lp.depth, "pallas", "bfloat16")
+    assert all(g.dtype == torch.float32 for g in tree_leaves(grads))
+    _, wper, wgrads = deep.loss_and_grads(p_cpu, x, y, lp, **route)
+    np.testing.assert_allclose(per.cpu().numpy(), wper.numpy(), rtol=2e-2,
+                               atol=2e-2)
+    for a, b in zip(tree_leaves(grads), tree_leaves(wgrads)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-2,
+                                   atol=1e-3)
+    q_dev = quantize_population(p_dev, lp)
+    q_cpu = quantize_population(p_cpu, lp)
+    got, n = moved(lambda: deep.forward(
+        q_dev, x.to(dev), lp, bd_impl="fused", infer=True,
+        weights_dtype="int8", compute_dtype="bfloat16"))
+    assert n == fused_infer_kernels(lp.depth, "bfloat16", "int8")
+    want = deep.forward(q_cpu, x, lp, bd_impl="fused", infer=True,
+                        weights_dtype="int8", compute_dtype="bfloat16")
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-2,
+                               atol=2e-2)

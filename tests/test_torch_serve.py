@@ -240,16 +240,29 @@ def test_params_carry_and_init_distribution(np_params):
 
 
 def test_rejects_unported_dtypes(np_params):
-    """bf16 compute runs on the fused kernels and the plain route
-    (tests/test_torch_bf16_policy.py); on the unfused route's kernels it is
-    still to be ported (Queue 1 item 6b), and raises."""
+    """Every compute dtype the JAX package takes runs on every route: bf16
+    on the unfused route's kernels serves as JAX's (within its bf16 slice
+    tolerance, 2e-2), through ``forward`` and the server; a dtype JAX
+    refuses is refused here too (``ValueError``)."""
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
     kw = {"compute_dtype": "bfloat16", "bd_impl": "pallas",
           "act_impl": "pallas"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdeep.forward(params, torch.zeros(2, 6), TLP, infer=True, **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tserve.PopulationServer(params, TLP, **kw)
+    x = np.random.default_rng(3).normal(0, 1, (5, 6)).astype(np.float32)
+    want = jax.jit(jdeep.forward, static_argnames=(
+        "lp", "bd_impl", "act_impl", "compute_dtype", "infer"))(
+        np_params, x, JLP, infer=True, **kw)
+    got = tdeep.forward(params, torch.from_numpy(x), TLP, infer=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-2,
+                               atol=2e-2)
+    server = tserve.PopulationServer(params, TLP, **kw)
+    with torch.inference_mode():
+        assert torch.equal(tdeep.forward(params, torch.from_numpy(x), TLP,
+                                         **server._fw), got)
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tdeep.forward(params, torch.from_numpy(x), TLP, infer=True,
+                      compute_dtype="float16")
+    with pytest.raises(ValueError, match="weights_dtype"):
+        tserve.PopulationServer(params, TLP, weights_dtype="int4")
 
 
 def test_cuda_entry_points_never_fall_back():

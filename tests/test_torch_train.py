@@ -137,24 +137,37 @@ def test_fused_step_is_two_depth_plus_one_launches(np_params, batches):
         "moe_gemm": 0, "fused_input_bf16": 0, "fused_input_bwd_bf16": 0,
         "fused_layer_bf16": 0, "fused_layer_dx_dw_bf16": 0,
         "infer_head_bf16": 0, "loss_head_fwd_bf16": 0,
-        "loss_head_bwd_bf16": 0}
+        "loss_head_bwd_bf16": 0, "fused_input_int8_bf16": 0,
+        "fused_layer_int8_bf16": 0, "infer_head_int8_bf16": 0,
+        "block_diag_fwd_bf16": 0, "block_diag_dw_bf16": 0,
+        "m3_matmul_fwd_bf16": 0, "m3_matmul_dh_bf16": 0,
+        "m3_matmul_dw_bf16": 0}
     assert launch_count.fused_step_budget(3) == {"fwd": 4, "bwd": 4,
                                                  "total": 8}
 
 
 def test_rejects_unported_routes(np_params, batches):
-    """bf16 compute on the unfused route's kernels and on the M3 kernels is
-    still to be ported (Queue 1 item 6b; the fused and plain routes run it:
-    tests/test_torch_bf16_policy.py; the M3 routes in f32:
+    """bf16 compute trains on the unfused route's kernels and on the M3
+    kernels, its loss as JAX's within the bf16 slice tolerance (2e-2; the
+    gradients: tests/test_torch_bf16_policy.py; the M3 routes in f32:
     tests/test_torch_m3.py; adafactor and the bf16 AdamW state:
-    tests/test_torch_adafactor.py)."""
+    tests/test_torch_adafactor.py); a route JAX refuses is refused here
+    too (``ValueError``)."""
     params = tdeep.params_from_numpy(np_params, TLP, device="cpu")
-    x, y = _t(batches[0][0]), _t(batches[1][0], torch.long)
+    xn, yn = batches[0][0], batches[1][0]
+    x, y = _t(xn), _t(yn, torch.long)
     for kw in (dict(bd_impl="pallas", act_impl="pallas"),
                dict(m3_impl="pallas")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdeep.fused_loss(params, x, y, TLP, compute_dtype="bfloat16",
-                             **kw)
+        loss, per = tdeep.fused_loss(params, x, y, TLP,
+                                     compute_dtype="bfloat16", **kw)
+        jloss, jper = jax.jit(jdeep.fused_loss, static_argnames=(
+            "lp", "bd_impl", "act_impl", "m3_impl", "compute_dtype"))(
+            np_params, xn, yn, JLP, compute_dtype="bfloat16", **kw)
+        np.testing.assert_allclose(per.detach().numpy(), np.asarray(jper),
+                                   rtol=2e-2, atol=2e-2)
+    with pytest.raises(ValueError, match="weights_dtype"):
+        tdeep.fused_loss(params, x, y, TLP, bd_impl="fused_int8",
+                         compute_dtype="bfloat16")
 
 
 # --------------------------------------------------------------------- #

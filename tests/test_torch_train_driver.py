@@ -164,9 +164,6 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--compute-dtype", "bfloat16", "--bd-impl", "pallas", "--act-impl",
-     "pallas"],
-    ["--compute-dtype", "bfloat16", "--m3-impl", "pallas"],
     ["--pipeline", "on"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flags, tmp_path):
@@ -174,6 +171,34 @@ def test_unported_flags_raise(flags, tmp_path):
         ttrain.main(["--arch", "parallelmlp-10k", "--reduced", "--steps",
                      "2", "--ckpt-dir", str(tmp_path), "--device", "cpu",
                      *flags])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--compute-dtype", "bfloat16", "--bd-impl", "pallas", "--act-impl",
+     "pallas"],
+    ["--compute-dtype", "bfloat16", "--m3-impl", "pallas"],
+], ids=lambda f: " ".join(f))
+def test_bf16_unfused_and_m3_flags_run(flags, tmp_path):
+    """The bf16 policy on the unfused route's kernels and on the M3
+    kernels (once refused, Queue 1 item 6b) trains to its end on the CPU:
+    each step exactly its route's launches under the ``*_bf16`` names
+    (``seg_act`` in f32), the policy in the checkpoint's meta, f32
+    masters."""
+    from repro_torch.launch import launch_count
+    params, lp, stats = ttrain.main(TINY + flags + ["--ckpt-dir",
+                                                    str(tmp_path)])
+    assert stats["steps"] == 4
+    route = dict(zip(flags[2::2], flags[3::2]))
+    if route.get("--bd-impl") == "pallas":
+        per_step = launch_count.unfused_step_launches(lp.depth, "bucketed",
+                                                      "bfloat16")
+    else:
+        per_step = launch_count.m3_step_launches("bfloat16")
+    assert stats["segments"][0]["launches"] == {
+        k: 4 * v for k, v in per_step.items()}
+    meta, step = tckpt.load_meta(str(tmp_path))
+    assert step == 3 and meta["train"]["compute_dtype"] == "bfloat16"
+    assert all(p.dtype == torch.float32 for p in tree_leaves(params))
 
 
 TINY = ["--arch", "parallelmlp-10k", "--reduced", "--steps", "4",
