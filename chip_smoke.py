@@ -13,7 +13,16 @@ shapes, the M3 dW at path 4d's, the input layer's
 y) at both input-layer shapes, and the mid layers' (``fused_layer`` y and
 y, g', ``fused_layer_int8`` y, ``block_diag_fwd`` y and dh,
 ``block_diag_dw`` dWB) at both depth-3 mid layers, timing the parent's
-mid-layer kernels and M3 forward and dW beside them (phase 8).
+mid-layer kernels and M3 forward and dW beside them (phase 8).  A parent
+whose gelu is x/2·(1 + erf(x/√2)) (this tree's is x/2·erfc(−x/√2), JAX's)
+differs in the gelu members' columns of the activation epilogues' outputs
+(``fused_input`` and ``fused_layer``, f32 and int8): those are held bitwise
+outside those columns and, inside, within the f32 tolerance of the
+parent's and, where the kernel's own pre-activation lies below −2 (the
+tail, where 1 + erf cancels), no farther in relative terms from the f64
+function of it than the parent's; how many moved and how far is in the
+rows' ``parent_gelu`` fields.  The
+f32 ``seg_act`` kernels' ptxas report is held to the parent's.
 
 Phases (any failure exits non-zero, and no result line is printed):
 
@@ -172,6 +181,28 @@ Phases (any failure exits non-zero, and no result line is printed):
           the f32 atol and, at that carve-out, within 1 ulp of the f64
           sum of the same bf16 products rounded once or within an f32
           sum's worst-case error of it (``bf16_f64_*``);
+       j. the streaming data plane (a process of its own, as 4g; alone:
+          ``chip_smoke.py --pipeline DIR``): (i) ``parallelmlp-10k`` at
+          full width, fused, sgd, B 32, 64 steps in chunks of 8, no
+          checkpoints, a warm-up run, then ``--pipeline on`` and ``off``
+          in turns (on, off, off, on), each counted alone: final
+          parameters bitwise equal, per-chunk losses identical, kernel
+          launches equal; each run's train-loop wall and model-steps/s
+          (with and without the runner's initial-state snapshot); one run
+          of each mode in a
+          profiler window held to the counters, and over its last 4
+          chunks the device's idle share, kernels and copies apart; (ii)
+          the depth-3 population under AdamW, clip 1.0 (4g's flags) with
+          ``--halving "8:0.5" --refill pbt --per-member-lr``, on against
+          off: parameters and the final checkpoint's arrays bitwise equal,
+          the pbt rung building no table and, pipelined, no staging
+          buffer; (iii) every staging buffer pinned, the slab copies
+          ("Pinned -> Device") on a stream apart from the kernels', each
+          slab copy's gap from the kernels in both windows, and, where the
+          host does not wait on the card (a ``Prefetcher`` feeding the 10k
+          input layer's training forward chunk by chunk), a copy of a
+          chunk overlapping a kernel of an earlier chunk (both timestamps
+          printed);
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -303,7 +334,12 @@ Phases (any failure exits non-zero, and no result line is printed):
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
-     ``seg_act_bwd`` have none, and say why; the two rows of phase 6 carry
+     ``seg_act_bwd`` have none, and say why, and carry their bf16
+     instances at the depth-3 population's unfused shapes as ``bf16_*``
+     (``bf16_launches`` from ``ops.seg_act`` on bf16 h, forward and
+     backward, counted alone; each against its plain version, timed, the
+     bound at bf16 bytes, summed over the three layers); the two rows of
+     phase 6 carry
      their bf16 runs as ``bf16_*`` fields (flash also danube's f32 and
      bf16 runs as ``danube_f32_*``, ``danube_bf16_*``), each run's design
      as ``*path``
@@ -331,6 +367,7 @@ BATCH = 32
 PROFILE_PAD_S = 0.1   # idle host time at each end of a profiler window
 SENTINEL = "spin_kernel"   # torch.cuda._sleep's kernel, a window's first
 SENTINELS = 16
+CHUNK_SPAN = "train_chunk"   # the trainer's record_function around a chunk
 DEPTH3 = dict(depths="64,32,16;13,5;7", acts="paper", features=100,
               repeats=1000)
 SERVE_KERNELS = ("fused_input", "fused_layer", "infer_head")
@@ -1110,7 +1147,8 @@ KERNEL_SYMBOLS = ("fused_input_i8_bf16_kernel",
                   "infer_head_kernel", "loss_head_fwd_kernel",
                   "loss_head_bwd_kernel", "block_diag_group_kernel",
                   "block_diag_dw_member_kernel", "seg_act_fwd_kernel",
-                  "seg_act_bwd_kernel", "m3_fwd_stream_kernel",
+                  "seg_act_bwd_kernel", "seg_act_bf16_fwd_kernel",
+                  "seg_act_bf16_bwd_kernel", "m3_fwd_stream_kernel",
                   "m3_dh_kernel", "m3_dw_stream_kernel")
 
 
@@ -1429,18 +1467,22 @@ def check_batch():
     return x, y
 
 
-def lifecycle_process(workdir: Path) -> tuple:
-    """Path 4g in a process of its own (``chip_smoke.py --lifecycle DIR``,
-    waited for; after its runs the profiler loses the first kernel of a
-    window, which ``_profiled``'s sentinel takes).  Returns (the results, the kernel launches of its runs)."""
-    out = workdir / "lifecycle"
+def path_process(workdir: Path, key: str) -> dict:
+    """Path 4g, 4h, 4i or 4j (``key`` "lifecycle", "optim", "bf16" or
+    "pipeline") in a process of its own (``chip_smoke.py --KEY DIR``,
+    waited for), so that its profiler windows leave the later phases'
+    whole (after 4g's or 4i's runs the profiler loses the first kernels of
+    a window; ``_profiled``'s sentinels take them).  Returns its
+    ``KEY.json``: the results and the kernel launches of its runs (4i's
+    results also carry its kernel rows' fields)."""
+    out = workdir / key
     out.mkdir()
     sys.stdout.flush()
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        "--lifecycle", str(out)], timeout=900)
-    _require(r.returncode == 0, f"path 4g exited {r.returncode}")
-    got = json.loads((out / "lifecycle.json").read_text())
-    return got["results"], got["launches"]
+                        f"--{key}", str(out)], timeout=900)
+    _require(r.returncode == 0, f"chip_smoke.py --{key} exited "
+             f"{r.returncode}")
+    return json.loads((out / f"{key}.json").read_text())
 
 
 def _segment_want(n: int, depth: int) -> dict:
@@ -1540,8 +1582,12 @@ def segment_rows(name: str, stats: dict, walls: dict | None = None,
     raw = ours = []
     if prof is not None:
         cuda = torch.autograd.DeviceType.CUDA
+        # the trainer's chunk spans also leave a record on the device
+        # timeline: no device work
         raw = sorted((e for e in prof.profiler.kineto_results.events()
-                      if e.device_type() == cuda), key=lambda e: e.start_ns())
+                      if e.device_type() == cuda
+                      and e.name() != CHUNK_SPAN),
+                     key=lambda e: e.start_ns())
         ours = [e for e in raw if any(k in e.name() for k in KERNEL_SYMBOLS)]
     rows, idx = [], 0
     walls = walls or stats
@@ -1874,21 +1920,6 @@ def _optimizer(name: str):
             "adamw bf16": lambda: adamw(weight_decay=0.01,
                                         state_dtype=torch.bfloat16),
             "adafactor": lambda: adafactor(weight_decay=0.001)}[name]()
-
-
-def optim_process(workdir: Path) -> tuple:
-    """Path 4h in a process of its own (``chip_smoke.py --optim DIR``,
-    waited for), as path 4g, so that its profiler windows leave the later
-    phases' whole.  Returns (the results, the kernel launches of its
-    runs)."""
-    out = workdir / "optim"
-    out.mkdir()
-    sys.stdout.flush()
-    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        "--optim", str(out)], timeout=900)
-    _require(r.returncode == 0, f"path 4h exited {r.returncode}")
-    got = json.loads((out / "optim.json").read_text())
-    return got["results"], got["launches"]
 
 
 def state_bytes(state) -> tuple:
@@ -2295,6 +2326,8 @@ BF16_ROWS = {"fused_input_bf16": "fused_input",
              "m3_matmul_dh_bf16": "m3_matmul_dh",
              "m3_matmul_dw_bf16": "m3_matmul_dw"}
 BF16_KERNELS = tuple(BF16_ROWS)
+# rows 16-17's bf16 instances: the kernel API's, on no population path
+SEG_BF16_KERNELS = ("seg_act_bf16", "seg_act_bwd_bf16")
 # JAX's own tolerance of bf16 compute against f32 (tests/test_infer_path.py)
 BF16_POLICY_TOL = (1e-1, 5e-2)
 # the CPU tests' slice tolerances under the policy
@@ -2386,22 +2419,6 @@ def _excused_vs_f64(got, plain, exact, bound) -> dict:
             if bool(excused.any()) else 0,
             "beyond_1ulp_at_excused": int(far.sum().item()),
             "beyond_f32_bound": int(wrong.sum().item())}
-
-
-def bf16_process(workdir: Path) -> tuple:
-    """Path 4i in a process of its own (``chip_smoke.py --bf16 DIR``,
-    waited for), as 4g and 4h, on the checkpoints phase 3 served.
-    Returns (the results, the kernel launches of its runs, each bf16
-    kernel row's fields)."""
-    out = workdir / "bf16"
-    out.mkdir()
-    sys.stdout.flush()
-    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        "--bf16", str(out)], timeout=900)
-    _require(r.returncode == 0, f"path 4i exited {r.returncode}")
-    got = json.loads((out / "bf16.json").read_text())
-    return got["results"], got["launches"], got["results"].pop(
-        "kernel_rows")
 
 
 def serve_bf16(name: str, ckpt: Path, lp, x, flags=()) -> tuple:
@@ -2758,6 +2775,76 @@ def _sum_fields(rows: list) -> dict:
             out[key] = sum(vals)
         elif key.endswith("bitwise_repeat"):
             out[key] = all(vals)
+    return out
+
+
+def seg_act_bf16_fields(lp3k) -> dict:
+    """Rows 16–17's bf16 instances at the depth-3 population's unfused
+    shapes, path 4i's (B 32, block 8, each layer's hidden width,
+    activation ids and mask), on seeded bf16 pre-activations and
+    cotangents: first ``ops.seg_act`` forward and backward on each
+    layer's bf16 h — the kernel API's entry, which no population path
+    calls on bf16 (the policy hands it f32) — the counters set to 0 just
+    before and read just after (``bf16_launches``: one of each instance a
+    layer, nothing else); then each layer's kernel against its plain
+    version (``_bf16_fields``), summed over the layers.  Returns {row:
+    fields}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import seg_act as sak
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    blk = lp3k.block
+    layers = []
+    for l in range(lp3k.depth):
+        pop = lp3k.layer_pop(l)
+        ids = torch.as_tensor(pop.block_act_ids, dtype=torch.int32,
+                              device="cuda")
+        mask = torch.as_tensor(pop.hidden_mask, dtype=torch.float32,
+                               device="cuda")
+        h, dy = (torch.randn(BATCH, pop.total_hidden, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for _ in range(2))
+        layers.append((h, dy, ids, mask))
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    for h, dy, ids, mask in layers:
+        hg = h.clone().requires_grad_(True)
+        y = ops.seg_act(hg, ids, mask, block=blk)
+        (dh,) = torch.autograd.grad(y, (hg,), dy)
+        _require(y.dtype == dh.dtype == torch.bfloat16,
+                 f"ops.seg_act on bf16 h gave {y.dtype}, {dh.dtype}")
+    torch.cuda.synchronize()
+    n = {k: v for k, v in kernel_launches().items() if v}
+    want = {"seg_act_bf16": lp3k.depth, "seg_act_bwd_bf16": lp3k.depth}
+    _require(n == want, f"ops.seg_act on bf16: launches {n}, expected "
+             f"{want}")
+    no_call = ("no single PyTorch call applies a different activation to "
+               "each block of columns")
+    fwd, bwd = [], []
+    for l, (h, dy, ids, mask) in enumerate(layers):
+        y = sak.seg_act_cuda(h, ids, mask, blk=blk)
+        fwd.append(_bf16_fields(
+            "bf16_", partial(sak.seg_act_cuda, h, ids, mask, blk=blk),
+            partial(sak.seg_act_plain, h, ids, mask, blk=blk), no_call,
+            _nbytes(h, ids, mask, y), 2 * h.numel(), 20,
+            "seg_act_bf16_fwd_kernel", label=f"seg_act bf16 at layer {l}"))
+        bwd.append(_bf16_fields(
+            "bf16_", partial(sak.seg_act_bwd_cuda, h, dy, ids, mask,
+                             blk=blk),
+            partial(sak.seg_act_bwd_plain, h, dy, ids, mask, blk=blk),
+            no_call, _nbytes(h, dy, ids, mask, y), 3 * h.numel(), 20,
+            "seg_act_bf16_bwd_kernel",
+            label=f"seg_act_bwd bf16 at layer {l}"))
+    out = {"seg_act": _sum_fields(fwd), "seg_act_bwd": _sum_fields(bwd)}
+    widths = [lp3k.layer_pop(l).total_hidden for l in range(lp3k.depth)]
+    for row, key in (("seg_act", "seg_act_bf16"),
+                     ("seg_act_bwd", "seg_act_bwd_bf16")):
+        out[row].update(bf16_launches=n[key], bf16_hidden=widths,
+                        bf16_path=["vec4" if w % 4 == 0 else "scalar"
+                                   for w in widths])
     return out
 
 
@@ -3299,6 +3386,357 @@ def bf16_path(workdir: Path) -> tuple:
 
 
 # --------------------------------------------------------------------- #
+# path 4j: the streaming data plane                                     #
+# --------------------------------------------------------------------- #
+
+PIPELINE_STEPS = 64         # (i): 8 chunks of 8 steps at 10k
+PIPELINE_WINDOW = 4         # chunks of a profiled window
+
+
+def pipeline_train(name: str, workdir: Path, flags: list, mode: str,
+                   profile: bool = False):
+    """One ``train.main`` run of path 4j on the fused route (batch 32,
+    chunks of 8, seed 0) with ``--pipeline mode``, the kernel counters set
+    to 0 just before it and read just after it, optionally in a
+    ``_counted_window``.  Returns (params, layout, stats, launches,
+    profiler or None)."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    argv = ["--bd-impl", "fused", "--batch", str(BATCH), "--scan-steps",
+            "8", "--seed", "0", "--ckpt-dir",
+            str(workdir / f"pipe-{name}-{mode}"), "--pipeline", mode,
+            *flags]
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    window = (_counted_window(f"{name} --pipeline {mode}") if profile
+              else contextlib.nullcontext())
+    with window as prof:
+        params, lp, stats = train_driver.main(argv)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    _require(stats["restarts"] == 0, f"{name}: {stats['restarts']} restarts")
+    pinned = stats["staging"]["pinned"]
+    _require(pinned and all(pinned), f"{name} --pipeline {mode}: staging "
+             f"buffers pinned {pinned}")
+    return params, lp, stats, launches, prof
+
+
+def _union_ms(spans, t0, t1) -> float:
+    """The length of the union of ``spans`` (ns pairs) inside [t0, t1],
+    in ms."""
+    total, end = 0, t0
+    for a, b in sorted(spans):
+        a, b = max(a, end), min(b, t1)
+        if b > a:
+            total += b - a
+            end = b
+    return total / 1e6
+
+
+def _loop_window(prof, last: int = PIPELINE_WINDOW) -> dict:
+    """The device activity of the last ``last`` chunks of a ``train.main``
+    run under ``torch.profiler``: a chunk is the trainer's ``CHUNK_SPAN``
+    span on the training thread, and a device event belongs to it when its
+    launch call falls inside the span (the producer's copies, launched
+    from its own thread, count by time).  The window runs from the first
+    start to the last end of those events; in it, the device's busy time
+    (the union of every device event but the spans' own records on the
+    device timeline), the kernels' and the copies' apart, the idle share,
+    and the device time by name (the 10 largest); and the host time of the
+    chunks' spans.  Also: the streams the slab copies (pinned host to
+    device) ran on against the port's kernels', the other host-to-device
+    copies by name, and each slab copy's gap from the end of the last
+    kernel that started before it (< 0: it overlaps one), with the count
+    of overlapping copies."""
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = prof.profiler.kineto_results.events()
+    spans = sorted((e.start_ns(), e.end_ns()) for e in raw
+                   if e.device_type() != cuda and e.name() == CHUNK_SPAN)
+    _require(len(spans) >= last, f"{len(spans)} {CHUNK_SPAN} spans")
+    spans = spans[-last:]
+    dev = {e.correlation_id(): e for e in raw
+           if e.device_type() == cuda and e.correlation_id()
+           and e.name() != CHUNK_SPAN}
+    # launch calls are the CUDA API's records (cudaLaunchKernel,
+    # cudaMemcpyAsync, ...); other host records may carry ids of their own
+    mine = [dev[e.correlation_id()] for e in raw
+            if e.device_type() != cuda and e.name().startswith("cu")
+            and e.correlation_id() in dev
+            and any(a <= e.start_ns() <= b for a, b in spans)]
+    _require(mine, "no device activity launched in the chunks' spans")
+    t0 = min(e.start_ns() for e in mine)
+    t1 = max(e.end_ns() for e in mine)
+    devs = [e for e in raw if e.device_type() == cuda
+            and SENTINEL not in e.name() and e.name() != CHUNK_SPAN]
+    copies = [e for e in devs if "Memcpy" in e.name()]
+    htod = [e for e in copies if "HtoD" in e.name()]
+    slab = [e for e in htod if "Pinned" in e.name()]
+    kernels = [e for e in devs if "Memcpy" not in e.name()
+               and "Memset" not in e.name()]
+    ours = [e for e in kernels if any(k in e.name()
+                                      for k in KERNEL_SYMBOLS)]
+    win = (t1 - t0) / 1e6
+    busy = _union_ms([(e.start_ns(), e.end_ns()) for e in devs], t0, t1)
+    by_name = {}
+    for e in devs:
+        a, b = max(e.start_ns(), t0), min(e.end_ns(), t1)
+        if b > a:
+            key = e.name().split("(")[0][:80]
+            by_name[key] = by_name.get(key, 0.0) + (b - a) / 1e6
+    out = {"chunks_host_ms": (spans[-1][1] - spans[0][0]) / 1e6,
+           "window_ms": win, "busy_ms": busy, "idle_share": 1 - busy / win,
+           "kernel_busy_ms": _union_ms([(e.start_ns(), e.end_ns())
+                                        for e in kernels], t0, t1),
+           "copy_busy_ms": _union_ms([(e.start_ns(), e.end_ns())
+                                      for e in copies], t0, t1),
+           "top_ms": dict(sorted(by_name.items(),
+                                 key=lambda kv: -kv[1])[:10]),
+           "slab_copies": len(slab),
+           "slab_streams": sorted({e.device_resource_id() for e in slab}),
+           "other_htod": {n: sum(1 for e in htod if e.name() == n)
+                          for n in {e.name() for e in htod}
+                          if "Pinned" not in n},
+           "kernel_streams": sorted({e.device_resource_id() for e in ours})}
+    # each slab copy's distance from the device's kernels: the gap from
+    # the end of the last kernel before it to its start (< 0: overlap)
+    gaps = []
+    for c in slab:
+        prev = [k.end_ns() for k in kernels if k.start_ns() <= c.start_ns()]
+        gaps.append((c.start_ns() - max(prev)) / 1e3 if prev else None)
+    out["slab_copy_gaps_us"] = gaps
+    out["slab_copies_overlapping"] = sum(1 for g in gaps
+                                         if g is not None and g < 0)
+    return out
+
+
+def slab_overlap(name: str, chunks: int = 8) -> dict:
+    """(iii) The slab copies against compute that does not wait on the
+    host: a ``Prefetcher`` over a ``SlabStager`` at path 4j's slab shapes
+    (8 batches of the task's B 32 × F 100 rows and labels a chunk) feeding
+    each chunk's 8 batches to the 10k input layer's training forward
+    (``fused_input_train_cuda``, full width, weights from a seeded init),
+    the host never waiting on the card, in a ``_counted_window``: every
+    slab copy on a stream apart from the kernels', and a copy of a chunk
+    overlapping a kernel of an earlier chunk (kernels and copies assigned
+    to chunks in their stream order), both timestamps printed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import parallelmlp_10k
+    from repro_torch.core import deep
+    from repro_torch.data import Prefetcher, SlabStager
+    from repro_torch.data.synthetic import TabularTask
+    from repro_torch.kernels import fused_input as fik
+    lp = parallelmlp_10k.config().model.layered()
+    p0 = lp.layer_pop(0)
+    params = deep.init_params(torch.Generator(device="cuda").manual_seed(0),
+                              lp)
+    w, b = params["w_in"], params["b_in"]
+    del params
+    ids = torch.as_tensor(p0.block_act_ids, dtype=torch.int32,
+                          device="cuda")
+    mask = torch.as_tensor(p0.hidden_mask, dtype=torch.float32,
+                           device="cuda")
+    task = TabularTask(2048, lp.in_features, n_classes=lp.out_features,
+                       seed=0)
+    stager = SlabStager("cuda")
+    specs = (((8, BATCH, lp.in_features), np.float32), ((8, BATCH), np.int32))
+
+    def produce(c, staging):
+        return stager.stage(staging, 8, lambda sx, sy: task.batch_slab(
+            8 * c, 8, BATCH, out=(sx, sy)))
+
+    fik.fused_input_train_cuda(torch.zeros(BATCH, lp.in_features,
+                                           device="cuda"), w, b, mask, ids,
+                               block=lp.block)
+    torch.cuda.synchronize()
+    with _counted_window(name) as prof:
+        with Prefetcher(produce, chunks,
+                        make_staging=lambda: stager.staging(specs)) as pf:
+            for c in range(chunks):
+                xs, _ = pf.get(c, timeout=60.0).take()
+                for k in range(8):
+                    fik.fused_input_train_cuda(xs[k], w, b, mask, ids,
+                                               block=lp.block)
+    cuda = torch.autograd.DeviceType.CUDA
+    raw = prof.profiler.kineto_results.events()
+    kernels = sorted((e for e in raw if e.device_type() == cuda
+                      and "fused_input_kernel" in e.name()),
+                     key=lambda e: e.start_ns())
+    slab = sorted((e for e in raw if e.device_type() == cuda
+                   and "Pinned -> Device" in e.name()),
+                  key=lambda e: e.start_ns())
+    _require(len(kernels) == 8 * chunks and len(slab) == 2 * chunks,
+             f"{name}: {len(kernels)} kernels, {len(slab)} slab copies")
+    out = {"pinned": stager.pinned,
+           "slab_streams": sorted({e.device_resource_id() for e in slab}),
+           "kernel_streams": sorted({e.device_resource_id()
+                                     for e in kernels})}
+    t0 = kernels[0].start_ns()
+    for j, c in enumerate(slab):
+        k = next((i for i, k in enumerate(kernels)
+                  if i // 8 < j // 2 and k.start_ns() < c.end_ns()
+                  and c.start_ns() < k.end_ns()), None)
+        if k is not None:
+            out["overlap"] = {
+                "copy_chunk": j // 2, "copy_us": [(c.start_ns() - t0) / 1e3,
+                                                  (c.end_ns() - t0) / 1e3],
+                "kernel_chunk": k // 8,
+                "kernel_us": [(kernels[k].start_ns() - t0) / 1e3,
+                              (kernels[k].end_ns() - t0) / 1e3]}
+            break
+    print(f"[{name}] {out}", flush=True)
+    _require(all(stager.pinned) and not set(out["slab_streams"])
+             & set(out["kernel_streams"]), f"{name}: {out}")
+    _require("overlap" in out, f"{name}: no slab copy overlapped a kernel "
+             f"of an earlier chunk: {out}")
+    return out
+
+
+def pipeline_path(workdir: Path) -> tuple:
+    """Path 4j (``chip_smoke.py --pipeline DIR``): (i) ``parallelmlp-10k``
+    at full width, fused, sgd, B 32, 64 steps in chunks of 8, no
+    checkpoints, a warm-up run, then ``--pipeline on`` and ``off`` in
+    turns (on, off, off, on): final parameters bitwise equal, the
+    per-chunk losses identical, the kernel launches equal; each run's
+    train-loop wall and model-steps/s (``train.main``'s, which holds the
+    runner's host snapshot of the initial state, and the runner's chunks
+    alone); then one run of each mode in a ``_counted_window``: the
+    device's idle share over its last 4 chunks (``_loop_window``),
+    kernels and copies apart.  (ii) The depth-3 population under AdamW,
+    clip 1.0 (path 4g's flags, a constant lr) with ``--halving "8:0.5"
+    --refill pbt --per-member-lr``, 24 steps, checkpoints every 8: a
+    warm-up run, then off and on, each against the warm-up's parameters
+    and final checkpoint arrays (the optimizer state) bitwise, the same
+    launches, the pbt rung building no table and no staging buffer (two
+    in a pipelined run, one a segment in a synchronous one).  (iii) Every
+    staging buffer pinned; the slab copies ("Pinned -> Device") on
+    streams apart from the kernels'; each slab copy's gap from the
+    kernels in both windows (the step's own host syncs drain the card
+    before most copies); and ``slab_overlap``: a copy of a chunk
+    overlapping a kernel of an earlier chunk where the host does not wait
+    on the card.  Returns (results, the launches of its runs)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import latest_steps
+    t_path = time.perf_counter()
+    n_all = {}
+
+    def count(n):
+        for k, v in n.items():
+            n_all[k] = n_all.get(k, 0) + v
+
+    res = {"runs": []}
+    flags10k = ["--arch", "parallelmlp-10k", "--steps",
+                str(PIPELINE_STEPS), "--ckpt-every", "0"]
+    first, ref = None, {}
+    # run 0 warms the process up (allocator, host memory, first launches):
+    # held bitwise like the rest, timed apart from runs 1-4
+    for i, mode in enumerate(("on", "on", "off", "off", "on")):
+        params, lp, st, n, _ = pipeline_train(f"10k run {i}", workdir,
+                                              flags10k, mode)
+        count(n)
+        run_s = sum(seg["seconds"] for seg in st["segments"])
+        run = {"mode": mode, "loop_s": st["seconds"],
+               "model_steps_per_s": st["member_steps"] / st["seconds"],
+               "runner_s": run_s,
+               "runner_model_steps_per_s": st["member_steps"] / run_s,
+               "chunk_loss": st["chunk_loss"], "launches": n,
+               "staging_made": st["staging"]["made"]}
+        res["runs"].append(run)
+        print(f"[pipeline 10k run {i} --pipeline {mode}] train loop "
+              f"{st['seconds']!r} s, {run['model_steps_per_s']!r} "
+              f"model-steps/s; the runner's chunks {run_s!r} s, "
+              f"{run['runner_model_steps_per_s']!r} model-steps/s; "
+              f"launches {n}", flush=True)
+        if first is None:
+            first, ref = params, run
+            continue
+        _require(_same_trees(params, first), f"10k run {i} ({mode}): the "
+                 "final parameters are not bitwise run 0's")
+        _require(run["chunk_loss"] == ref["chunk_loss"]
+                 and n == ref["launches"], f"10k run {i} ({mode}): losses "
+                 f"{run['chunk_loss']} launches {n} against run 0's "
+                 f"{ref['chunk_loss']} {ref['launches']}")
+        del params
+    del first
+    torch.cuda.empty_cache()
+    res["windows"] = {}
+    for mode in ("on", "off"):
+        params, lp, st, n, prof = pipeline_train(
+            "10k profiled", workdir, flags10k, mode, profile=True)
+        count(n)
+        win = _loop_window(prof)
+        res["windows"][mode] = win
+        print(f"[pipeline 10k --pipeline {mode}] last {PIPELINE_WINDOW} "
+              f"chunks: {win}", flush=True)
+        _require(win["slab_copies"] > 0 and not set(win["slab_streams"])
+                 & set(win["kernel_streams"]), f"--pipeline {mode}: the "
+                 f"slab copies (pinned -> device) against the kernels' "
+                 f"streams: {win}")
+        del params, prof
+    torch.cuda.empty_cache()
+    res["slab_overlap"] = slab_overlap("pipeline slab copies")
+    # (ii) the depth-3 pbt ladder, on against off
+    depth3 = depth3_flags()
+    cut = depth3.index("--lr-schedule")
+    flags3 = depth3[:cut] + depth3[cut + 2:] + [
+        "--halving", "8:0.5", "--refill", "pbt", "--per-member-lr",
+        "--steps", "24", "--ckpt-every", "8"]
+    # run 0 warms the process up for the depth-3 layout (its host-side
+    # tables); runs 1 and 2 are timed
+    got = []
+    for i, mode in enumerate(("on", "off", "on")):
+        params, lp, st, n, _ = pipeline_train(f"depth-3 pbt {i}", workdir,
+                                              flags3, mode)
+        count(n)
+        ck = workdir / f"pipe-depth-3 pbt {i}-{mode}"
+        step = latest_steps(str(ck))[-1]
+        arrays = dict(np.load(ck / f"step_{step:08d}" / "arrays.npz"))
+        got.append((mode, params, lp, st, n, arrays))
+    _, p0, lp0, s0, n0, z0 = got[0]
+    for i, (mode, p, lp, st, n, z) in enumerate(got[1:], 1):
+        _require(lp == lp0 and _same_trees(p, p0), f"depth-3 pbt run {i} "
+                 f"({mode}): other parameters than run 0's")
+        _require(sorted(z) == sorted(z0) and any(k.startswith("extra/")
+                                                  for k in z)
+                 and all(np.array_equal(z[k], z0[k]) for k in z),
+                 f"depth-3 pbt run {i} ({mode}): the final checkpoint's "
+                 "arrays differ from run 0's")
+        _require(n == n0 and st["chunk_loss"] == s0["chunk_loss"],
+                 f"depth-3 pbt run {i} ({mode}): launches {n} / {n0}, "
+                 "losses differ")
+    for mode, _, _, st, _, _ in got:
+        _require(len(st["rungs"]) == 1
+                 and st["rungs"][0]["tables_built"] == 0
+                 and st["staging"]["made"] == (
+                     2 if mode == "on" else len(st["segments"])),
+                 f"depth-3 pbt --pipeline {mode}: rungs {st['rungs']}, "
+                 f"staging buffers made {st['staging']['made']} (2: none "
+                 "rebuilt at the rung)")
+    res["depth3_pbt"] = [
+        {"mode": mode, "loop_s": st["seconds"],
+         "model_steps_per_s": st["member_steps"] / st["seconds"],
+         "runner_s": sum(seg["seconds"] for seg in st["segments"]),
+         "staging_made": st["staging"]["made"],
+         "rung_tables_built": st["rungs"][0]["tables_built"],
+         "last_loss": st["last_loss"]} for mode, _, _, st, _, _ in got]
+    del got
+    res["seconds"] = time.perf_counter() - t_path
+    print(f"[pipeline] path 4j: --pipeline on and off bitwise equal at 10k "
+          f"and through the depth-3 pbt ladder; {res['depth3_pbt']}; "
+          f"{res['seconds']:.1f} s", flush=True)
+    return res, n_all
+
+
+# --------------------------------------------------------------------- #
 # the kernel API at LM widths: flash attention and the grouped GEMM     #
 # --------------------------------------------------------------------- #
 
@@ -3678,17 +4116,18 @@ def _prefixed(prefix: str, row: dict) -> dict:
     return {f"{prefix}_{k}": row[k] for k in keys if k in row}
 
 
-def _ptxas(lib: str) -> dict:
-    """The report of ``nvcc -Xptxas -v`` in ``build/kernels/<lib>.log``,
-    printed: {kernel: registers, static shared-memory bytes, spill bytes},
-    each kernel named as ``c++filt`` demangles it, without its
-    parameters."""
+def _ptxas(lib: str, build_dir: Path | None = None) -> dict:
+    """The report of ``nvcc -Xptxas -v`` in ``build/kernels/<lib>.log``
+    (or ``build_dir``'s), printed: {kernel: registers, static
+    shared-memory bytes, spill bytes}, each kernel named as ``c++filt``
+    demangles it, without its parameters."""
     import re
     import shutil
 
     from repro_torch.kernels import _build
     out, cur = {}, None
-    for line in (_build.BUILD_DIR / f"{lib}.log").read_text().splitlines():
+    log = (build_dir or _build.BUILD_DIR) / f"{lib}.log"
+    for line in log.read_text().splitlines():
         if m := re.search(r"Compiling entry function '(\w+)'", line):
             cur = out.setdefault(m[1], {})
         elif m := re.search(r"Function properties for (\w+)", line):
@@ -4016,8 +4455,10 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         2 * BATCH * wq.shape[0] * x.shape[1], int8_n["fused_input_int8"], 20)
     del wdq
     rows["fused_input_int8"].update(_fused_input_int8_fields(fin8, blk))
+    gelu_moves = {}      # --parent: how far the gelu columns moved
     if parent_libs:
-        same_input_as_parent(parent_libs, "parallelmlp-10k", fin, fin8, blk)
+        gelu_moves["parallelmlp-10k"] = same_input_as_parent(
+            parent_libs, "parallelmlp-10k", fin, fin8, blk)
 
     # ---- fused_input_bwd at full width, as on the path (no dx: x is data)
     dy = torch.randn(h.shape, generator=gen, device=dev) * 1e-3
@@ -4156,8 +4597,8 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
                                           hin8).items():
         rows[key].update(fields)
     if parent_libs:
-        same_input_as_parent(parent_libs, "the depth-3 input layer", fin3,
-                             fin83, lp3k.block)
+        gelu_moves["depth-3 input layer"] = same_input_as_parent(
+            parent_libs, "the depth-3 input layer", fin3, fin83, lp3k.block)
     fwd_rows, bwd_rows, int8_rows, bd_rows, dw_rows = [], [], [], [], []
     for l in range(lp3k.depth - 1):
         lay = lp3k.bd_layout(l)
@@ -4283,6 +4724,8 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
         theirs = (same_mid_as_parent(parent_libs, f"mid layer {l}", args,
                                      args8, dh_args, dw_args, b3)
                   if parent_libs else {})
+        if parent_libs:
+            gelu_moves[f"depth-3 mid layer {l}"] = theirs.pop("parent_gelu")
         for r, key in ((row, "block_diag_fwd"), (fwd_rows[-1], "fused_layer"),
                        (int8_rows[-1], "fused_layer_int8")):
             r.update(theirs.get(key, {}))
@@ -4514,6 +4957,14 @@ def kernel_rows(p10k, lp10k, p3k, lp3k, serve_n, train_n, int8_n,
     if parent_libs:
         same_as_parent(parent_libs, "the depth-3 head", lh_b, lb_b, ih8_b,
                        blk_b)
+    # --parent: the gelu columns' moves, f32 (y; y, g') and int8 (y) apart
+    for where, rep in gelu_moves.items():
+        row = "fused_input" if "input" in where or "10k" in where \
+            else "fused_layer"
+        rows[row].setdefault("parent_gelu", {})[where] = {
+            k: v for k, v in rep.items() if k != "int8_y"}
+        rows[row + "_int8"].setdefault("parent_gelu", {})[where] = \
+            rep["int8_y"]
     return rows
 
 
@@ -4976,12 +5427,92 @@ def _same_bits(a, b) -> bool:
     return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
-def same_input_as_parent(libs, name, fin, fin8, block):
+def _gelu_cols(act_ids, block: int):
+    """The columns of the gelu members' blocks (one id a block)."""
+    from repro_torch.core.activations import ACTIVATION_ORDER
+    return (act_ids == ACTIVATION_ORDER.index("gelu")).repeat_interleave(
+        block)
+
+
+def _identity_ids(act_ids):
+    """Every block's activation the identity: the same launch then writes
+    its f32 pre-activation (the epilogue picks the function per element
+    after the sums)."""
+    import torch
+
+    from repro_torch.core.activations import ACTIVATION_ORDER
+    return torch.full_like(act_ids, ACTIVATION_ORDER.index("identity"))
+
+
+GELU_TAIL = -2.0   # below it 1 + erf(x/√2) < 0.046: the sum cancels
+
+
+def _gelu_moved(name, got, theirs, cols, u, mask, deriv=False) -> dict:
+    """``got`` (this tree's kernel) against ``theirs`` (the parent's C
+    entry on the same inputs), where the parent computed the gelu as
+    x/2·(1 + erf(x/√2)) and this tree as x/2·erfc(−x/√2), JAX's form
+    (``deriv``: their derivatives): bitwise outside the gelu members'
+    columns ``cols``; in them within the f32 tolerance of the parent's
+    and, in the tail the erfc form repairs (the kernel's own f32
+    pre-activation ``u`` below ``GELU_TAIL``, the value above 1e-6), no
+    farther from the f64 function of ``u`` (times the mask) in relative
+    terms than the parent's.  Returns the elements that moved and the
+    largest move; both trees' largest relative error in that tail, their
+    summed error over every negative pre-activation and their largest
+    error; and (y) their largest relative error wherever |gelu| > 1e-6."""
+    import torch
+
+    from repro_torch.core.activations import ACTIVATIONS, ACTIVATION_DERIVS
+    _require(_same_bits(got[:, ~cols].contiguous(),
+                        theirs[:, ~cols].contiguous()),
+             f"{name}: outside the gelu members' columns not bitwise the "
+             "parent's")
+    g, t = got[:, cols].double(), theirs[:, cols].double()
+    uc = u[:, cols].double()
+    fn = (ACTIVATION_DERIVS if deriv else ACTIVATIONS)["gelu"]
+    exact = fn(uc) * mask[cols].double()
+    err_new, err_par = (g - exact).abs(), (t - exact).abs()
+
+    def worst_rel(err, where):
+        return ((err[where] / exact.abs()[where]).max().item()
+                if bool(where.any()) else 0.0)
+
+    neg = uc < 0
+    tail = (uc < GELU_TAIL) & (exact.abs() > 1e-6)
+    bits = got[:, cols].contiguous().view(torch.int32) \
+        != theirs[:, cols].contiguous().view(torch.int32)
+    out = {"elements": int(g.numel()), "moved": int(bits.sum().item()),
+           "max_move": (g - t).abs().max().item() if g.numel() else 0.0,
+           "tail_elements": int(tail.sum().item()),
+           "tail_max_rel_err": worst_rel(err_new, tail),
+           "parent_tail_max_rel_err": worst_rel(err_par, tail),
+           "negative_err_sum": err_new[neg].sum().item(),
+           "parent_negative_err_sum": err_par[neg].sum().item(),
+           "max_abs_err": err_new.max().item() if g.numel() else 0.0,
+           "parent_max_abs_err": err_par.max().item() if g.numel() else 0.0}
+    if not deriv:
+        big = exact.abs() > 1e-6
+        out["max_rel_err"] = worst_rel(err_new, big)
+        out["parent_max_rel_err"] = worst_rel(err_par, big)
+    print(f"[{name}] gelu columns against the parent: {out}", flush=True)
+    _require(torch.allclose(g, t, rtol=RTOL, atol=ATOL),
+             f"{name}: the gelu columns moved beyond the f32 tolerance of "
+             f"the parent's: {out}")
+    _require(out["tail_max_rel_err"] <= out["parent_tail_max_rel_err"],
+             f"{name}: the gelu tail is no closer to the f64 value than the "
+             f"parent's: {out}")
+    return out
+
+
+def same_input_as_parent(libs, name, fin, fin8, block) -> dict:
     """The input layer's outputs of this tree's kernels — y, the training
     launch's (y, g') and the int8 y — on fin = (x, w, bias, mask, act_ids)
     and fin8 = (x, w_q, w_scale, bias, mask, act_ids) against the C entries
-    of ``libs`` (``parent_libs``), which keep their signatures: bitwise, or
-    fail."""
+    of ``libs`` (``parent_libs``), which keep their signatures: bitwise
+    outside the gelu members' columns, and there as ``_gelu_moved`` holds
+    them (the pre-activations from the same kernels with every block's
+    activation the identity).  Returns {output: ``_gelu_moved``'s
+    report}."""
     import ctypes
 
     import torch
@@ -5000,23 +5531,35 @@ def same_input_as_parent(libs, name, fin, fin8, block):
     ptr = [t.data_ptr() for t in (x, w, b, m, ids)]
     stream = torch.cuda.current_stream().cuda_stream
     y, g = (torch.empty(bb, h, device=x.device) for _ in range(2))
+    cols = _gelu_cols(ids, block)
+    ones = torch.ones_like(m)
+    u = fik.fused_input_cuda(x, w, b, ones, _identity_ids(ids), block=block)
+    u8 = fik.fused_input_int8_cuda(*fin8[:4], ones, _identity_ids(ids),
+                                   block=block)
+    out = {}
     _require(fi(*ptr, y.data_ptr(), bb, f, h, block, stream) == 0,
              "the parent's fused_input_infer_f32 failed")
-    _require(_same_bits(y, fik.fused_input_cuda(*fin, block=block)),
-             f"fused_input at {name}: not bitwise the parent's")
+    out["y"] = _gelu_moved(f"fused_input at {name}",
+                           fik.fused_input_cuda(*fin, block=block), y, cols,
+                           u, m)
     _require(ft(*ptr, y.data_ptr(), g.data_ptr(), bb, f, h, block,
                 stream) == 0, "the parent's fused_input_train_f32 failed")
     got = fik.fused_input_train_cuda(*fin, block=block)
-    _require(_same_bits(y, got[0]) and _same_bits(g, got[1]),
-             f"fused_input (with g') at {name}: not bitwise the parent's")
+    out["train_y"] = _gelu_moved(f"fused_input (with g') y at {name}",
+                                 got[0], y, cols, u, m)
+    out["train_g"] = _gelu_moved(f"fused_input (with g') g' at {name}",
+                                 got[1], g, cols, u, m, deriv=True)
     wq = fin8[1]
     _require(f8(*[t.data_ptr() for t in fin8], y.data_ptr(), bb, f,
                 wq.shape[1], h, block, stream) == 0,
              "the parent's fused_input_infer_i8 failed")
-    _require(_same_bits(y, fik.fused_input_int8_cuda(*fin8, block=block)),
-             f"fused_input_int8 at {name}: not bitwise the parent's")
+    out["int8_y"] = _gelu_moved(f"fused_input_int8 at {name}",
+                                fik.fused_input_int8_cuda(*fin8,
+                                                          block=block),
+                                y, cols, u8, m)
     print(f"[{name}] fused_input (y; y, g') and fused_input_int8 bitwise the "
-          "parent's", flush=True)
+          "parent's outside the gelu members' columns", flush=True)
+    return out
 
 
 def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
@@ -5031,10 +5574,14 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
     dh_args = (dy, wb_t, rowptr_t, s_in_t, s_w_t), ``fused_layer_int8`` y
     on args8 = (x, wb_q, wb_scale, b_eff, mask, tile_act, rowptr, s_in,
     s_w), ``block_diag_dw`` dWB on dw_args = (dy, x, wb_out_tile,
-    wb_in_tile), and dWB again on a 300-row dy and x: bitwise, or fail.
-    Returns the parent kernels' device times from ``torch.profiler`` as
-    {row: fields} (``parent_device_ms``, and ``parent_train_device_ms`` or
-    ``parent_dh_device_ms``)."""
+    wb_in_tile), and dWB again on a 300-row dy and x: bitwise, or fail —
+    but the ``fused_layer`` outputs in the gelu members' columns, which
+    ``_gelu_moved`` holds (the pre-activations from the same kernels with
+    every tile's activation the identity).  Returns the parent kernels'
+    device times from ``torch.profiler`` as {row: fields}
+    (``parent_device_ms``, and ``parent_train_device_ms`` or
+    ``parent_dh_device_ms``) and ``_gelu_moved``'s reports as
+    ``parent_gelu``."""
     import ctypes
 
     import torch
@@ -5103,16 +5650,28 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
 
     dw = dw_call(*dw_args[:2])
 
+    mask, tile_act = args[3], args[4]
+    cols = _gelu_cols(tile_act, block)
+    ones = torch.ones_like(mask)
+    u = flk.fused_layer_cuda(*args[:3], ones, _identity_ids(tile_act),
+                             *args[5:], blk=block)
+    u8 = flk.fused_layer_int8_cuda(*args8[:4], ones, _identity_ids(tile_act),
+                                   *args8[6:], blk=block)
+    gelu = {}
     _require(serve() == 0, "the parent's fused_layer_infer_f32 failed")
-    _require(_same_bits(y, flk.fused_layer_cuda(*args, blk=block)),
-             f"fused_layer at {name}: not bitwise the parent's")
+    gelu["y"] = _gelu_moved(f"fused_layer at {name}",
+                            flk.fused_layer_cuda(*args, blk=block), y, cols,
+                            u, mask)
     _require(train() == 0, "the parent's fused_layer_train_f32 failed")
     got = flk.fused_layer_train_cuda(*args, blk=block)
-    _require(_same_bits(y, got[0]) and _same_bits(g, got[1]),
-             f"fused_layer (with g') at {name}: not bitwise the parent's")
+    gelu["train_y"] = _gelu_moved(f"fused_layer (with g') y at {name}",
+                                  got[0], y, cols, u, mask)
+    gelu["train_g"] = _gelu_moved(f"fused_layer (with g') g' at {name}",
+                                  got[1], g, cols, u, mask, deriv=True)
     _require(int8() == 0, "the parent's fused_layer_infer_i8 failed")
-    _require(_same_bits(y, flk.fused_layer_int8_cuda(*args8, blk=block)),
-             f"fused_layer_int8 at {name}: not bitwise the parent's")
+    gelu["int8_y"] = _gelu_moved(f"fused_layer_int8 at {name}",
+                                 flk.fused_layer_int8_cuda(*args8, blk=block),
+                                 y, cols, u8, mask)
     _require(fwd() == 0, "the parent's block_diag_fwd_f32 failed")
     _require(_same_bits(y, bdk.block_diag_fwd_cuda(x, wb, *args[5:],
                                                    blk=block)),
@@ -5149,9 +5708,10 @@ def same_mid_as_parent(libs, name, args, args8, dh_args, dw_args, block):
            "block_diag_dw": {
                "parent_device_ms": _device_ms(
                    dw, "block_diag_dw_member_kernel", 50)}}
-    print(f"[{name}] fused_layer (y; y, g'), fused_layer_int8, "
-          f"block_diag_fwd (y, dh) and block_diag_dw (B = {b} and 300) "
-          f"bitwise the parent's; "
+    out["parent_gelu"] = gelu
+    print(f"[{name}] fused_layer (y; y, g') and fused_layer_int8 outside "
+          f"the gelu members' columns, block_diag_fwd (y, dh) and "
+          f"block_diag_dw (B = {b} and 300) bitwise the parent's; "
           f"the parent's device times {out}", flush=True)
     return out
 
@@ -5238,6 +5798,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # path 4h's own process
     ap.add_argument("--bf16", type=Path, default=None,
                     help=argparse.SUPPRESS)   # path 4i's own process
+    ap.add_argument("--pipeline", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4j's own process
     args = ap.parse_args()
     try:
         import torch
@@ -5258,7 +5820,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     for out, path, key in ((args.lifecycle, lifecycle_path, "lifecycle"),
                            (args.optim, optim_path, "optim"),
-                           (args.bf16, bf16_path, "bf16")):
+                           (args.bf16, bf16_path, "bf16"),
+                           (args.pipeline, pipeline_path, "pipeline")):
         if out:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -5374,7 +5937,8 @@ def main() -> int:
               flush=True)
         for name, n in train_n.items():
             _require((n == 0) if name in INT8_KERNELS + UNFUSED_KERNELS
-                     + M3_KERNELS + LM_KERNELS + BF16_KERNELS else (n > 0),
+                     + M3_KERNELS + LM_KERNELS + BF16_KERNELS
+                     + SEG_BF16_KERNELS else (n > 0),
                      f"kernel {name} was launched {n} times on the "
                      "training path")
 
@@ -5412,23 +5976,34 @@ def main() -> int:
         # 4g. the lifecycle: the 10k ladder, the depth-3 population's three
         # runs, each counted alone, and the gathers on the card
         t0 = time.perf_counter()
-        life, life_n = lifecycle_process(workdir)
+        got = path_process(workdir, "lifecycle")
+        life, life_n = got["results"], got["launches"]
         print(f"[lifecycle] path 4g in {time.perf_counter() - t0:.1f} s; "
               f"kernel launches {life_n}", flush=True)
         # 4h. the optimizers and the checkpoint: the 10k step under each
         # optimizer, adafactor's 10k ladder, the depth-3 runs, the 10k
         # checkpoint off the training thread
         t0 = time.perf_counter()
-        optim, optim_n = optim_process(workdir)
+        got = path_process(workdir, "optim")
+        optim, optim_n = got["results"], got["launches"]
         print(f"[optim] path 4h in {time.perf_counter() - t0:.1f} s; "
               f"kernel launches {optim_n}", flush=True)
         # 4i. the bf16 compute policy on the fused route: both checkpoints
         # served, the 10k trained, the depth-3 ladder with --serve-publish,
         # the bf16 instances of the kernel rows
         t0 = time.perf_counter()
-        bf16, bf16_n, bf16_rows = bf16_process(workdir)
+        got = path_process(workdir, "bf16")
+        bf16, bf16_n = got["results"], got["launches"]
+        bf16_rows = bf16.pop("kernel_rows")
         print(f"[bf16] path 4i in {time.perf_counter() - t0:.1f} s; "
               f"kernel launches {bf16_n}", flush=True)
+        # 4j. the data plane: --pipeline on against off at 10k and through
+        # the depth-3 pbt ladder, the copies pinned, apart, overlapping
+        t0 = time.perf_counter()
+        got = path_process(workdir, "pipeline")
+        pipe, pipe_n = got["results"], got["launches"]
+        print(f"[pipeline] path 4j in {time.perf_counter() - t0:.1f} s; "
+              f"kernel launches {pipe_n}", flush=True)
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -5482,8 +6057,11 @@ def main() -> int:
         rows[name].update(fields)
     for name, fields in bf16_rows.items():
         rows[name].update(fields)
+    for name, fields in seg_act_bf16_fields(lp3k).items():
+        rows[name].update(fields)
     for field, counts in (("lifecycle_launches", life_n),
-                          ("optim_launches", optim_n)):
+                          ("optim_launches", optim_n),
+                          ("pipeline_launches", pipe_n)):
         for name, n in counts.items():
             if n:
                 rows[name][field] = n
@@ -5508,9 +6086,22 @@ def main() -> int:
              ("fused_layer_i8_group_kernel",)),
             ("block_diag_fwd", "block_diag", ("block_diag_group_kernel",)),
             ("block_diag_dw", "block_diag",
-             ("block_diag_dw_member_kernel",))):
+             ("block_diag_dw_member_kernel",)),
+            ("seg_act", "seg_act", ("seg_act_fwd_kernel",)),
+            ("seg_act_bwd", "seg_act", ("seg_act_bwd_kernel",))):
         rows[row]["ptxas"] = {k: v for k, v in ptxas[lib].items()
                               if all(word in k for word in words)}
+    if args.parent:
+        # rows 16-17's f32 kernels: the parent's ptxas report
+        theirs = _ptxas("seg_act", args.parent.resolve() / "build"
+                        / "kernels")
+        for row in ("seg_act", "seg_act_bwd"):
+            same = all(theirs.get(k) == v
+                       for k, v in rows[row]["ptxas"].items())
+            rows[row]["parent_ptxas_same"] = same
+            _require(same and rows[row]["ptxas"], f"{row}: the f32 "
+                     f"kernels' ptxas {rows[row]['ptxas']} against the "
+                     f"parent's {theirs}")
     for row, lib, words in (
             ("fused_input", "fused_input",
              ("fused_input_kernel", "__nv_bfloat16")),
@@ -5532,7 +6123,9 @@ def main() -> int:
              ("block_diag_dw_bf16_member_kernel",)),
             ("m3_matmul_fwd", "m3_matmul", ("m3_fwd_bf16_stream_kernel",)),
             ("m3_matmul_dh", "m3_matmul", ("m3_dh_bf16_kernel",)),
-            ("m3_matmul_dw", "m3_matmul", ("m3_dw_bf16_stream_kernel",))):
+            ("m3_matmul_dw", "m3_matmul", ("m3_dw_bf16_stream_kernel",)),
+            ("seg_act", "seg_act", ("seg_act_bf16_fwd_kernel",)),
+            ("seg_act_bwd", "seg_act", ("seg_act_bf16_bwd_kernel",))):
         rows[row]["bf16_ptxas"] = {k: v for k, v in ptxas[lib].items()
                                    if all(word in k for word in words)}
     rows = [rows[name] for name in REPLACES if name in rows]
@@ -5559,12 +6152,15 @@ def main() -> int:
                       "lifecycle": life,
                       "optim": optim,
                       "bf16": bf16,
+                      "pipeline": pipe,
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,
                           "feature_selection": feat},
                       "lm_kernels_max_abs_err": lm_err,
                       "seconds": time.perf_counter() - t_start}))
+    print(f"chip_smoke: the whole run in {time.perf_counter() - t_start:.1f}"
+          f" s (path 4j {pipe['seconds']:.1f} s)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@
 Ids follow ``ACTIVATION_ORDER`` (the sorted names), shared with
 ``Population.act_ids`` and the CUDA kernels' epilogue
 (``kernels/csrc/activations.cuh``).  Definitions match the JAX package's
-exactly: gelu is the exact (erf) form, leaky_relu has slope 0.01,
+exactly: gelu is the exact form x/2·erfc(−x/√2), JAX's, leaky_relu has slope 0.01,
 hardshrink uses λ=0.5 with strict inequalities, mish is
 ``x·tanh(softplus(x))`` with ``softplus(x) = logaddexp(x, 0)``.
 """
@@ -39,7 +39,8 @@ def _selu(x):
 
 
 def _gelu(x):
-    return F.gelu(x, approximate="none")
+    # erfc, not 1 + erf: the sum cancels for x below 0
+    return 0.5 * x * torch.special.erfc(-x * 0.7071067811865476)
 
 
 def _leaky_relu(x):
@@ -115,7 +116,7 @@ def _d_selu(x):
 
 
 def _d_gelu(x):
-    return (0.5 * (1 + torch.erf(x * 0.7071067811865476))
+    return (0.5 * torch.special.erfc(-x * 0.7071067811865476)
             + x * torch.exp(-0.5 * x * x) * 0.3989422804014327)
 
 

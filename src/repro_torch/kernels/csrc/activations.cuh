@@ -3,7 +3,8 @@
 // Ids follow repro_torch.core.activations.ACTIVATION_ORDER (sorted names):
 //   0 elu, 1 gelu, 2 hardshrink, 3 identity, 4 leaky_relu, 5 mish, 6 relu,
 //   7 selu, 8 sigmoid, 9 tanh.
-// Definitions match the plain versions: exact (erf) gelu, leaky slope 0.01,
+// Definitions match the plain versions: exact gelu x/2·erfc(−x/√2) (the
+// erfc form keeps the negative tail, where 1 + erf cancels), leaky slope 0.01,
 // hardshrink λ=0.5 with strict inequalities, mish = x·tanh(softplus(x)) with
 // softplus(x) = max(x, 0) + log1p(exp(-|x|)).  Full-precision libm calls
 // (no fast-math): the kernels are checked against the plain versions at
@@ -17,7 +18,7 @@ __device__ __forceinline__ float apply_act(int id, float x) {
     case 0:  // elu
       return x > 0.f ? x : expm1f(x);
     case 1:  // gelu (exact)
-      return 0.5f * x * (1.f + erff(x * 0.70710678118654752440f));
+      return 0.5f * x * erfcf(-x * 0.70710678118654752440f);
     case 2:  // hardshrink
       return (x > 0.5f || x < -0.5f) ? x : 0.f;
     case 3:  // identity
@@ -53,7 +54,7 @@ __device__ __forceinline__ float apply_act_deriv(int id, float x) {
     case 0:  // elu
       return x > 0.f ? 1.f : expf(x);
     case 1:  // gelu (exact)
-      return 0.5f * (1.f + erff(x * 0.70710678118654752440f)) +
+      return 0.5f * erfcf(-x * 0.70710678118654752440f) +
              x * expf(-0.5f * x * x) * 0.39894228040143267794f;
     case 2:  // hardshrink
       return (x > 0.5f || x < -0.5f) ? 1.f : 0.f;

@@ -86,8 +86,7 @@ def _require_f32(**tensors):
     for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} is {t.dtype}; it is float32 under every "
-                            "policy here (int8 weights: the *_int8 entries; "
-                            "bf16 operands to seg_act: ROADMAP.md, Queue 1)")
+                            "policy here (int8 weights: the *_int8 entries)")
 
 
 def _require_operands(**tensors):
@@ -461,12 +460,13 @@ def block_diag_gemm(h: torch.Tensor, wb: torch.Tensor, layout
 def _seg_fwd(h, ids, m, block):
     if _on_card(h):
         return _sak.seg_act_cuda(h, ids, m, blk=block)
-    _sak.launches += 1
+    _count(_sak, "launches", h)
     return _sak.seg_act_plain(h, ids, m, blk=block)
 
 
 class _SegAct(torch.autograd.Function):
-    """Forward: one launch.  Backward: one launch of (dy·mask)·act'(h)."""
+    """Forward: one launch.  Backward: one launch of (dy·mask)·act'(h), in
+    h's dtype (a bf16 h gets a bf16 gradient)."""
 
     @staticmethod
     def forward(ctx, h, ids, m, block):
@@ -477,11 +477,11 @@ class _SegAct(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         h, ids, m = ctx.saved_tensors
-        args = (h.contiguous(), dy.contiguous(), ids, m)
+        args = (h.contiguous(), dy.to(h.dtype).contiguous(), ids, m)
         if _on_card(dy):
             dh = _sak.seg_act_bwd_cuda(*args, blk=ctx.block)
         else:
-            _sak.bwd_launches += 1
+            _count(_sak, "bwd_launches", h)
             dh = _sak.seg_act_bwd_plain(*args, blk=ctx.block)
         return dh, None, None, None
 
@@ -489,13 +489,14 @@ class _SegAct(torch.autograd.Function):
 def seg_act(h: torch.Tensor, block_act_ids, mask, *, block: int
             ) -> torch.Tensor:
     """One-pass per-block activation + padding mask (JAX: ``ops.seg_act``'s
-    custom VJP): h (B, H) f32, one activation id per block of ``block``
-    columns, mask (H,) → ``act(h)·mask`` (B, H).  Differentiable through a
+    custom VJP): h (B, H) f32 or bf16, one activation id per block of
+    ``block`` columns, mask (H,) f32 → ``act(h)·mask`` (B, H) in h's dtype
+    (bf16: computed in f32, rounded once).  Differentiable through a
     one-launch backward."""
     hh = h.shape[1]
     if hh % block:
         raise ValueError(f"hidden axis {hh} not {block}-aligned")
-    _require_f32(h=h)
+    _require_operands(h=h)
     ids = _as(block_act_ids, h.device, torch.int32)
     m = _as(mask, h.device, torch.float32)
     if tuple(ids.shape) != (hh // block,) or tuple(m.shape) != (hh,):

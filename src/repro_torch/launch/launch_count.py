@@ -14,7 +14,9 @@ compute policy (``*_bf16``: the fused input and mid layers, both
 directions, the two heads, the unfused route's block-diagonal GEMM and
 dW, the three M3 kernels; ``*_int8_bf16``: the int8 kernels on bf16
 activations), so a run shows which policy it ran.  The segmented
-activation keeps its f32 names under the policy, which hands it f32.  The
+activation keeps its f32 names under the policy, which hands it f32; its
+bf16 instances (``seg_act_bf16``, ``seg_act_bwd_bf16``) count the kernel
+API's calls on bf16 h.  The
 unfused route's backward dh is the forward block-diagonal kernel on
 transposed tiles, and counts as ``block_diag_fwd`` (``_bf16``), as in the
 JAX package.  ``flash_attention`` counts its
@@ -57,6 +59,8 @@ _COUNTERS = {
     "block_diag_dw_bf16": (block_diag, "bf16_dw_launches"),
     "seg_act": (seg_act, "launches"),
     "seg_act_bwd": (seg_act, "bwd_launches"),
+    "seg_act_bf16": (seg_act, "bf16_launches"),
+    "seg_act_bwd_bf16": (seg_act, "bf16_bwd_launches"),
     "m3_matmul_fwd": (m3_matmul, "fwd_launches"),
     "m3_matmul_dh": (m3_matmul, "dh_launches"),
     "m3_matmul_dw": (m3_matmul, "dw_launches"),

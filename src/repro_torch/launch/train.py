@@ -61,10 +61,15 @@ evals and closing leaderboard stay f32.
 refreshed and republished at every rung boundary and at the end
 (``published: best1=… topk=…``).
 
-Single device: the population is not shard-padded.  ``--pipeline on``
-raises ``NotImplementedError`` (ROADMAP.md, Queue 1 item 7); ``--pipeline``
-defaults to ``off`` here (the JAX package's trajectory is bit-identical
-either way).
+``--pipeline on`` (the default, as in the JAX package) runs each segment
+through the streaming data plane (``data/pipeline.py``): a producer thread
+builds chunk c+1's slab into pinned host staging and copies it on a side
+stream while chunk c runs, and each chunk's metrics are fetched after the
+next chunk is launched.  ``--pipeline off`` builds and copies the same way
+on the training thread and fetches each chunk's metrics before the next
+launch.  The trajectory is bitwise the same either way.
+
+Single device: the population is not shard-padded.
 """
 from __future__ import annotations
 
@@ -74,8 +79,6 @@ import time
 
 import numpy as np
 import torch
-
-_QUEUE1 = "not ported yet (ROADMAP.md, Queue 1"
 
 
 def parse_depth_spec(spec: str):
@@ -108,14 +111,6 @@ def population_from_flags(depths: str, acts: str, features: int,
     return LayeredPopulation(features, classes, widths * repeats,
                              tuple(names[i % len(names)] for i in range(n)),
                              block=block).sorted()
-
-
-def check_supported(args):
-    """Raise ``NotImplementedError`` for every flag whose path the port
-    does not have yet."""
-    if args.pipeline == "on":
-        raise NotImplementedError("--pipeline on: the streaming data plane "
-                                  f"is {_QUEUE1}, item 7)")
 
 
 def check_recipe_flags(args, opt_name: str):
@@ -228,6 +223,8 @@ def run_population(arch, args):
                                             refill_state, survivors)
     from repro_torch.core.population import LayeredPopulation, Population
     from repro_torch.core.selection import evaluate_population, leaderboard
+    from repro_torch.data.pipeline import (DeferredMetrics, Prefetcher,
+                                           SlabStager)
     from repro_torch.data.synthetic import TabularTask
     from repro_torch.device import resolve
     from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
@@ -237,7 +234,6 @@ def run_population(arch, args):
                                               warmup_cosine)
     from repro_torch.search import RefillController, SearchSpace
 
-    check_supported(args)
     schedule = HalvingSchedule.parse(args.halving) if args.halving else None
     refill_mode = args.refill
     space = SearchSpace.parse(args.search_space)
@@ -424,14 +420,23 @@ def run_population(arch, args):
     total = args.steps
     print_every = max(50 // scan, 1)
     stats = {"restarts": 0, "member_steps": 0, "chunk_builds": 0,
-             "refilled": 0, "segments": [], "rungs": []}
+             "refilled": 0, "segments": [], "rungs": [], "chunk_loss": {}}
     # the chunk of the current (layout, optimizer epoch): a rung boundary
     # that changes neither reuses it, with every table of the layout
     chunk = {}
+    pipeline = args.pipeline == "on"
+    stager = SlabStager(device)    # pinned staging, side-stream copies
+    pf = None          # ONE Prefetcher for the run, retargeted per rung
+    pending = []       # the in-flight chunk's DeferredMetrics (≤ 1)
 
     def train_segment(params, opt_state, lp, opt, seg_start, seg_end):
         """Global steps [seg_start, seg_end) under the current layout, in
-        chunks of ``scan`` steps under a ``TrainRunner``."""
+        chunks of ``scan`` steps under a ``TrainRunner``.  With
+        ``--pipeline on`` chunk c+1's slab is built and copied by the
+        prefetcher while chunk c runs, and chunk c's metrics resolve after
+        chunk c+1 is launched; with ``off`` the same builder runs on this
+        thread and each chunk's metrics resolve before the next launch."""
+        nonlocal pf
         key = (lp, opt_epoch)
         if key not in chunk:
             chunk.clear()
@@ -444,28 +449,94 @@ def run_population(arch, args):
         lr = arch.lr if lr0 is None else member_tree(lr0, lp)
         n_chunks = (seg_end - seg_start + scan - 1) // scan
 
+        # one probe batch pins the staging dtypes/shapes (a pure function
+        # of the step index)
+        bx0, by0 = task.batch(seg_start, args.batch)
+        specs = (((scan,) + bx0.shape, bx0.dtype),
+                 ((scan,) + by0.shape, by0.dtype))
+
+        def make_staging():
+            return stager.staging(specs)
+
+        def build_slab(c, staging):
+            """Chunk c's (scan, B, ...) slab built into ``staging`` and
+            copied to the device (the producer thread's body, and the
+            synchronous path's builder: both stage and copy alike)."""
+            g0 = seg_start + c * scan
+            n = min(scan, seg_end - g0)
+            return stager.stage(staging, n, lambda sx, sy: task.batch_slab(
+                g0, n, args.batch, out=(sx, sy)))
+
+        if pipeline:
+            if pf is None:
+                pf = Prefetcher(build_slab, n_chunks,
+                                make_staging=make_staging,
+                                depth=args.prefetch_depth)
+            else:
+                # rung boundary: drop the old segment's slabs; the
+                # signature keeps the staging buffers where the slab
+                # shapes are unchanged
+                sig = tuple((shape, np.dtype(dt).str) for shape, dt in specs)
+                pf.retarget(build_slab, n_chunks,
+                            make_staging=make_staging, signature=sig)
+        sync_staging = None if pipeline else make_staging()
+
+        def resolve_metrics(per_host, gn_host, ev, g0, n, c):
+            """Host side of chunk c's metrics, from copies queued right
+            after its launch: waits for them (``ev``), never for a later
+            chunk; runs in chunk order in both modes."""
+            def resolve():
+                if ev is not None:
+                    ev.synchronize()
+                # the mean runs over REAL members only
+                per = per_host.numpy()
+                stats.setdefault("first_loss", float(per[0].mean()))
+                mean = float(per[-1].mean())
+                stats["last_loss"] = mean
+                stats["chunk_loss"][g0 + n - 1] = mean
+                metrics = {"loss": mean, "step": g0 + n - 1}
+                if gn_host is not None:
+                    metrics["grad_norm"] = float(gn_host[0])
+                if c % print_every == 0:
+                    gn = (f"  grad norm {metrics['grad_norm']:.3f}"
+                          if gn_host is not None else "")
+                    print(f"step {g0 + n - 1:4d}  mean member loss "
+                          f"{mean:.4f}{gn}")
+                return metrics
+            return resolve
+
         def step_fn(state, c):
             g0 = seg_start + c * scan
             n = min(scan, seg_end - g0)
-            xs, ys = task.batch_slab(g0, n, args.batch)
-            p, st, _losses, pers, gnorms = chunk_fn(
-                state["params"], state["extra"],
-                torch.from_numpy(xs).to(device),
-                torch.from_numpy(ys).to(device), lr, g0)
-            # one fetch per chunk; the mean runs over REAL members only
-            per = pers[:, :lp.num_real].cpu().numpy()
-            stats.setdefault("first_loss", float(per[0].mean()))
-            mean = float(per[-1].mean())
-            stats["last_loss"] = mean
-            metrics = {"loss": mean, "step": g0 + n - 1}
-            if gnorms is not None:
-                metrics["grad_norm"] = float(gnorms[n - 1].cpu())
-            if c % print_every == 0:
-                gn = (f"  grad norm {metrics['grad_norm']:.3f}"
-                      if gnorms is not None else "")
-                print(f"step {g0 + n - 1:4d}  mean member loss "
-                      f"{mean:.4f}{gn}")
-            return {"params": p, "extra": st}, metrics
+            with torch.profiler.record_function("train_chunk"):
+                slab = pf.get(c) if pipeline else build_slab(c, sync_staging)
+                xs, ys = slab.take()
+                p, st, _losses, pers, gnorms = chunk_fn(
+                    state["params"], state["extra"], xs, ys, lr, g0)
+                # the host copies of this chunk's metrics, queued now
+                per_host = pers[:, :lp.num_real].to("cpu", non_blocking=True)
+                gn_host = (None if gnorms is None
+                           else gnorms[n - 1:n].to("cpu", non_blocking=True))
+                ev = None
+                if device.type == "cuda":
+                    ev = torch.cuda.Event()
+                    ev.record()
+                dm = DeferredMetrics(resolve_metrics(per_host, gn_host, ev,
+                                                     g0, n, c))
+                if pipeline:
+                    # chunk c is launched: now pay chunk c-1's fetch
+                    while pending:
+                        pending.pop(0).force()
+                    pending.append(dm)
+                else:
+                    dm.force()
+            return {"params": p, "extra": st}, dm
+
+        def on_restore(c):
+            # crash replay: metrics queued for the abandoned trajectory
+            # must not resolve (their chunks re-run); the prefetcher
+            # re-seeks itself on the out-of-order get(c)
+            pending.clear()
 
         def chunk_crosses_cadence(c):
             # chunk c covers global steps [g0, g1): checkpoint iff one of
@@ -486,11 +557,16 @@ def run_population(arch, args):
             ckpt_step_map=lambda c: min(seg_start + (c + 1) * scan,
                                         seg_end) - 1,
             ckpt_step_unmap=lambda g: (g + 1 - seg_start) // scan - 1,
-            ckpt_save_pred=chunk_crosses_cadence)
+            ckpt_save_pred=chunk_crosses_cadence,
+            on_restore=on_restore)
         n_before = kernel_launches()
         tables_before = device_mod.table_builds
         t0 = time.perf_counter()
         runner.run(n_chunks)
+        # the segment's last chunk still owes its fetch: resolve it before
+        # the rung boundary and the closing eval read stats
+        while pending:
+            pending.pop(0).force()
         _sync(device)
         n_after = kernel_launches()
         stats["segments"].append({
@@ -539,153 +615,161 @@ def run_population(arch, args):
         return server
     t0 = time.time()
     pos = start
-    for i in range(min(rung, len(segments) - 1) if schedule else 0,
-                   len(segments)):
-        seg_end, keep_frac = segments[i]
-        if pos < seg_end:
-            params, opt_state = train_segment(params, opt_state, lp, opt,
-                                              pos, seg_end)
-            pos = seg_end
-        if keep_frac is None:
-            continue
-        # ---- rung boundary: eval (on the run's own route), prune, then
-        # refill in place, compact, or compact and grow; the new layout's
-        # device tables are built here, not in the next segment's step
-        tables_before = device_mod.table_builds
-        launches_before = sum(kernel_launches().values())
-        t_r = time.perf_counter()
-        losses, _ = evaluate_population(params, lp, xte[:n_eval],
-                                        yte[:n_eval], infer=True, **route)
-        n_before = lp.num_real
-        rung_losses = losses.cpu().numpy()[:n_before]
-        keep = survivors(rung_losses, keep_frac)
-        t_eval = time.perf_counter() - t_r
-        eval_launches = sum(kernel_launches().values()) - launches_before
-        rung = i + 1
-        plan = None
-        if controller is not None:
-            plan = controller.plan(
-                lp, rung_losses, keep, member_ids, rung=rung,
-                next_id=next_id, base_lr=arch.lr,
-                lr=None if lr0 is None else lr0[member_ids],
-                momentum=None if mom0 is None else mom0[member_ids],
-                wd=None if wd0 is None else wd0[member_ids],
-                base_momentum=args.momentum, base_wd=args.weight_decay)
-            # refilled recipes append at their fresh ids (plan order is id
-            # order); survivors' entries are untouched
-            for f in plan.members:
-                lineage[f.member_id] = (f.parent_id, f.birth_rung)
-                if lr0 is not None:
-                    lr0 = np.append(lr0, np.float32(f.lr))
-                if mom0 is not None:
-                    mom0 = np.append(mom0, np.float32(f.momentum))
-                if wd0 is not None:
-                    wd0 = np.append(wd0, np.float32(f.wd))
-            next_id += len(plan.members)
-            stats["refilled"] += len(plan.members)
-        t_g = time.perf_counter()
-        if refill_mode == "pbt":
-            # the population size is held: the layout, its tables and the
-            # chunk stay; one gather/scatter and a moment mask
-            fresh = None
-            fm = plan.fresh_members
-            if fm:
-                fresh = fresh_member_params(
-                    args.seed, rung,
-                    LayeredPopulation(lp.in_features, lp.out_features,
-                                      tuple(f.widths for f in fm),
-                                      tuple(f.acts for f in fm),
-                                      block=lp.block), device)
-            params = refill_params(lp, params, plan.assignments, fresh)
-            opt_state = refill_state(opt_state, lp, plan.slots)
-            member_ids = member_ids.copy()
-            for f in plan.members:
-                member_ids[f.slot] = f.member_id
-            if mom0 is not None or wd0 is not None:
-                opt = build_opt(lp)       # new recipe trees: a new chunk
-            hit = (lp, opt_epoch) in chunk
-            n_ex = sum(1 for f in plan.members if f.origin == "exploit")
-            msg = (f"pruned {n_before - len(keep)}/{n_before}, refilled in "
-                   f"place ({n_ex} exploit, {len(plan.members) - n_ex} "
-                   "fresh) -> layout unchanged, chunk "
-                   + ("cache-hit (zero re-jit)" if hit else "rebuild"))
-        else:
-            kept_ids = member_ids[keep]
-            carry = None
-            if opt_name == "adafactor":
-                # the factored statistics cannot ride the member-major
-                # gather: carry the momentum and the count, re-init the rest
-                lp_new, params, carry = compact_factored(lp, params,
-                                                         opt_state, keep)
-                opt_state = None
+    try:
+        for i in range(min(rung, len(segments) - 1) if schedule else 0,
+                       len(segments)):
+            seg_end, keep_frac = segments[i]
+            if pos < seg_end:
+                params, opt_state = train_segment(params, opt_state, lp, opt,
+                                                  pos, seg_end)
+                pos = seg_end
+            if keep_frac is None:
+                continue
+            # ---- rung boundary: eval (on the run's own route), prune, then
+            # refill in place, compact, or compact and grow; the new layout's
+            # device tables are built here, not in the next segment's step
+            tables_before = device_mod.table_builds
+            launches_before = sum(kernel_launches().values())
+            t_r = time.perf_counter()
+            losses, _ = evaluate_population(params, lp, xte[:n_eval],
+                                            yte[:n_eval], infer=True, **route)
+            n_before = lp.num_real
+            rung_losses = losses.cpu().numpy()[:n_before]
+            keep = survivors(rung_losses, keep_frac)
+            t_eval = time.perf_counter() - t_r
+            eval_launches = sum(kernel_launches().values()) - launches_before
+            rung = i + 1
+            plan = None
+            if controller is not None:
+                plan = controller.plan(
+                    lp, rung_losses, keep, member_ids, rung=rung,
+                    next_id=next_id, base_lr=arch.lr,
+                    lr=None if lr0 is None else lr0[member_ids],
+                    momentum=None if mom0 is None else mom0[member_ids],
+                    wd=None if wd0 is None else wd0[member_ids],
+                    base_momentum=args.momentum, base_wd=args.weight_decay)
+                # refilled recipes append at their fresh ids (plan order is id
+                # order); survivors' entries are untouched
+                for f in plan.members:
+                    lineage[f.member_id] = (f.parent_id, f.birth_rung)
+                    if lr0 is not None:
+                        lr0 = np.append(lr0, np.float32(f.lr))
+                    if mom0 is not None:
+                        mom0 = np.append(mom0, np.float32(f.momentum))
+                    if wd0 is not None:
+                        wd0 = np.append(wd0, np.float32(f.wd))
+                next_id += len(plan.members)
+                stats["refilled"] += len(plan.members)
+            t_g = time.perf_counter()
+            if refill_mode == "pbt":
+                # the population size is held: the layout, its tables and the
+                # chunk stay; one gather/scatter and a moment mask
+                fresh = None
+                fm = plan.fresh_members
+                if fm:
+                    fresh = fresh_member_params(
+                        args.seed, rung,
+                        LayeredPopulation(lp.in_features, lp.out_features,
+                                          tuple(f.widths for f in fm),
+                                          tuple(f.acts for f in fm),
+                                          block=lp.block), device)
+                params = refill_params(lp, params, plan.assignments, fresh)
+                opt_state = refill_state(opt_state, lp, plan.slots)
+                member_ids = member_ids.copy()
+                for f in plan.members:
+                    member_ids[f.slot] = f.member_id
+                if mom0 is not None or wd0 is not None:
+                    opt = build_opt(lp)       # new recipe trees: a new chunk
+                hit = (lp, opt_epoch) in chunk
+                n_ex = sum(1 for f in plan.members if f.origin == "exploit")
+                msg = (f"pruned {n_before - len(keep)}/{n_before}, refilled "
+                       f"in place ({n_ex} exploit, "
+                       f"{len(plan.members) - n_ex} fresh) -> layout "
+                       "unchanged, chunk "
+                       + ("cache-hit (zero re-jit)" if hit else "rebuild"))
             else:
-                lp_new, params, opt_state = compact(lp, params, opt_state,
-                                                    keep)
-            member_ids = kept_ids
-            msg = f"kept {len(keep)}/{n_before} members -> "
-            if refill_mode == "arch":
-                widths_new = tuple(f.widths for f in plan.members)
-                acts_new = tuple(f.acts for f in plan.members)
-                positions = lp_new.grow_positions(widths_new, acts_new)
-                lp_grown = lp_new.grow(widths_new, acts_new, positions)
-                fresh_lp = lp_grown.subset(tuple(sorted(positions)))
-                fresh = fresh_member_params(args.seed, rung, fresh_lp,
-                                            device)
-                if carry is not None and carry["m"] is not None:
-                    m = carry["m"]
-                    carry = {**carry, "m": grow_params(
-                        lp_new, lp_grown, m, positions,
-                        deep.zeros_like_abstract(
-                            deep.abstract_params(fresh_lp),
-                            m["w_in"].dtype, device))}
-                lp_new, params, opt_state = grow(
-                    lp_new, params, opt_state, widths_new, acts_new,
-                    positions, fresh)
-                pos_of = {p: j for j, p in enumerate(positions)}
-                ids, oi = [], 0
-                for slot in range(lp_new.num_real):
-                    if slot in pos_of:
-                        ids.append(plan.members[pos_of[slot]].member_id)
-                    else:
-                        ids.append(member_ids[oi])
-                        oi += 1
-                member_ids = np.asarray(ids, member_ids.dtype)
-                msg = (f"kept {len(keep)}/{n_before}, grew "
-                       f"{len(plan.members)} sampled archs -> ")
-            lp = lp_new
-            opt = build_opt(lp)
-            if carry is not None:
-                opt_state = rewarm_adafactor_state(opt.init(params), carry)
-            msg += lp.describe()
-        _sync(device)
-        t_gather = time.perf_counter() - t_g
-        t_b = time.perf_counter()
-        if refill_mode != "pbt":
-            deep.build_tables(lp, device, per_member=lr0 is not None
-                              or mom0 is not None or wd0 is not None,
-                              **route)
+                kept_ids = member_ids[keep]
+                carry = None
+                if opt_name == "adafactor":
+                    # the factored statistics cannot ride the member-major
+                    # gather: carry the momentum and the count, re-init the
+                    # rest
+                    lp_new, params, carry = compact_factored(lp, params,
+                                                             opt_state, keep)
+                    opt_state = None
+                else:
+                    lp_new, params, opt_state = compact(lp, params, opt_state,
+                                                        keep)
+                member_ids = kept_ids
+                msg = f"kept {len(keep)}/{n_before} members -> "
+                if refill_mode == "arch":
+                    widths_new = tuple(f.widths for f in plan.members)
+                    acts_new = tuple(f.acts for f in plan.members)
+                    positions = lp_new.grow_positions(widths_new, acts_new)
+                    lp_grown = lp_new.grow(widths_new, acts_new, positions)
+                    fresh_lp = lp_grown.subset(tuple(sorted(positions)))
+                    fresh = fresh_member_params(args.seed, rung, fresh_lp,
+                                                device)
+                    if carry is not None and carry["m"] is not None:
+                        m = carry["m"]
+                        carry = {**carry, "m": grow_params(
+                            lp_new, lp_grown, m, positions,
+                            deep.zeros_like_abstract(
+                                deep.abstract_params(fresh_lp),
+                                m["w_in"].dtype, device))}
+                    lp_new, params, opt_state = grow(
+                        lp_new, params, opt_state, widths_new, acts_new,
+                        positions, fresh)
+                    pos_of = {p: j for j, p in enumerate(positions)}
+                    ids, oi = [], 0
+                    for slot in range(lp_new.num_real):
+                        if slot in pos_of:
+                            ids.append(plan.members[pos_of[slot]].member_id)
+                        else:
+                            ids.append(member_ids[oi])
+                            oi += 1
+                    member_ids = np.asarray(ids, member_ids.dtype)
+                    msg = (f"kept {len(keep)}/{n_before}, grew "
+                           f"{len(plan.members)} sampled archs -> ")
+                lp = lp_new
+                opt = build_opt(lp)
+                if carry is not None:
+                    opt_state = rewarm_adafactor_state(opt.init(params), carry)
+                msg += lp.describe()
             _sync(device)
-        t_tables = time.perf_counter() - t_b
-        print(f"rung {i} @ step {pos - 1}: {msg}")
-        stats["rungs"].append({
-            "rung": rung, "step": pos - 1, "members_before": n_before,
-            "members": lp.num_real, "depth": lp.depth,
-            "fused_hidden": [lp.layer_pop(l).total_hidden
-                             for l in range(lp.depth)],
-            "eval_s": t_eval, "eval_launches": eval_launches,
-            "gather_s": t_gather, "tables_s": t_tables,
-            "tables_built": device_mod.table_builds - tables_before,
-            "memory_allocated": _memory(device)})
-        if args.ckpt_every:
-            # force-save the post-rung state at the last COMPLETED step,
-            # overwriting any cadence save of it: the latest checkpoint
-            # always matches the live layout
-            save_population(args.ckpt_dir, pos - 1, params, lp,
-                            extra_state=opt_state,
-                            lifecycle=lifecycle_meta(),
-                            train_meta=train_meta)
-        if args.serve_publish:
-            publish_live(params, lp)
+            t_gather = time.perf_counter() - t_g
+            t_b = time.perf_counter()
+            if refill_mode != "pbt":
+                deep.build_tables(lp, device, per_member=lr0 is not None
+                                  or mom0 is not None or wd0 is not None,
+                                  **route)
+                _sync(device)
+            t_tables = time.perf_counter() - t_b
+            print(f"rung {i} @ step {pos - 1}: {msg}")
+            stats["rungs"].append({
+                "rung": rung, "step": pos - 1, "members_before": n_before,
+                "members": lp.num_real, "depth": lp.depth,
+                "fused_hidden": [lp.layer_pop(l).total_hidden
+                                 for l in range(lp.depth)],
+                "eval_s": t_eval, "eval_launches": eval_launches,
+                "gather_s": t_gather, "tables_s": t_tables,
+                "tables_built": device_mod.table_builds - tables_before,
+                "memory_allocated": _memory(device)})
+            if args.ckpt_every:
+                # force-save the post-rung state at the last COMPLETED step,
+                # overwriting any cadence save of it: the latest checkpoint
+                # always matches the live layout
+                save_population(args.ckpt_dir, pos - 1, params, lp,
+                                extra_state=opt_state,
+                                lifecycle=lifecycle_meta(),
+                                train_meta=train_meta)
+            if args.serve_publish:
+                publish_live(params, lp)
+    finally:
+        # no producer thread outlives the run, whether it returns or raises
+        if pf is not None:
+            pf.close()
+    stats["staging"] = {"made": stager.made, "pinned": list(stager.pinned)}
     _sync(device)
     dt = time.time() - t0
 
@@ -786,10 +870,16 @@ def main(argv=None):
     ap.add_argument("--scan-steps", type=int, default=8,
                     help="optimizer steps per chunk (metrics are fetched "
                          "once per chunk)")
-    ap.add_argument("--pipeline", default="off", choices=["on", "off"],
-                    help="the streaming data plane (not ported yet; 'off' "
-                         "is the synchronous build-then-run loop)")
-    ap.add_argument("--prefetch-depth", type=int, default=2)
+    ap.add_argument("--pipeline", default="on", choices=["on", "off"],
+                    help="the streaming data plane: 'on' builds and copies "
+                         "chunk c+1's slab on a producer thread (pinned "
+                         "staging, a side-stream copy) while chunk c runs "
+                         "and fetches chunk c's metrics after chunk c+1 is "
+                         "launched; 'off' does both on the training thread "
+                         "(bitwise the same trajectory)")
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="--pipeline on: how many chunks the producer may "
+                         "run ahead")
     ap.add_argument("--serve-publish", action="store_true")
     ap.add_argument("--per-member-lr", action="store_true")
     ap.add_argument("--lr-schedule", default="constant",

@@ -4,8 +4,9 @@ same bf16 inputs: the input layer (y; y and g') and its backward (dW, dx),
 the mid layer (y; y and g') and its one-pass backward (dx, dWB), the loss
 head (per, dl; dh, dW) and the serving head; the unfused route's
 block-diagonal GEMM (y, its dh and dWB, through ``ops.block_diag_gemm``
-and autograd), the M3 kernels (y, dh, dW2, through ``ops.m3_matmul``) and
-the three int8 serving twins on bf16 activations.
+and autograd), the M3 kernels (y, dh, dW2, through ``ops.m3_matmul``), the
+three int8 serving twins on bf16 activations, and the segmented activation
+and its backward (``ops.seg_act`` on bf16 h and dy).
 Inputs are made with numpy from a seed and rounded to bf16 once, the same
 values on both sides; the backward comparisons feed both sides the same
 residuals (JAX's g' and dl).
@@ -45,6 +46,7 @@ from repro_torch.kernels import infer_head as ihk
 from repro_torch.kernels import loss_head as lhk
 from repro_torch.kernels import m3_matmul as m3k
 from repro_torch.kernels import ops as tops
+from repro_torch.kernels import seg_act as sak
 
 F32 = dict(rtol=1e-5, atol=1e-6)
 
@@ -460,3 +462,128 @@ def test_int8_twins_on_bf16_activations():
         assert ihk.bf16_int8_launches == n0 + 1
         assert got.dtype == torch.float32
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+
+
+# --------------------------------------------------------------------- #
+# the segmented activation on bf16 h and dy                             #
+# --------------------------------------------------------------------- #
+# JAX's kernel evaluates each activation in bf16 arithmetic, op by op
+# (compiled without excess precision, a multi-op activation rounds several
+# times); the port's plain version computes it in f32 on the widened values
+# and rounds once.  So they are held at JAX's own bf16 tolerance for the
+# kernel (tests/test_kernels.py: rtol/atol 2e-2), and the port alone within
+# one bf16 ulp of the f64 value rounded once.
+
+
+def _f64_rounded(t: torch.Tensor) -> torch.Tensor:
+    """An f64 tensor rounded to bf16 (through f32: where that rounds twice
+    it lands on a neighbour of the once-rounded value, still within one
+    ulp of the f32 computation's once-rounded result)."""
+    return t.to(torch.bfloat16)
+
+
+def _seg_case(rng, b, blocks, block, first):
+    ids = ((np.arange(blocks) + first) % len(ACTIVATION_ORDER)
+           ).astype(np.int32)
+    hh = blocks * block
+    mask = (rng.random(hh) > 0.2).astype(np.float32)
+    jh, th = _bf16(rng.normal(0, 1, (b, hh)))
+    jdy, tdy = _bf16(rng.normal(0, 1, (b, hh)))
+    return ids, mask, jh, th, jdy, tdy
+
+
+@pytest.mark.parametrize("b,blocks,block", [(4, 3, 8), (9, 10, 8),
+                                            (2, 4, 16)])
+def test_seg_act_fwd_bwd_against_jax(b, blocks, block):
+    """tests/test_kernels.py's shapes, each run until every one of the ten
+    activations has had a block: the port's plain bf16 ``seg_act`` and
+    ``seg_act_bwd`` against JAX's interpret-mode kernels (its custom VJP)
+    at JAX's 2e-2, the largest ulp distance printed by activation; and
+    within one bf16 ulp of the f64 function rounded once."""
+    rng = np.random.default_rng(b * blocks)
+    for first in range(0, len(ACTIVATION_ORDER), blocks):
+        ids, mask, jh, th, jdy, tdy = _seg_case(rng, b, blocks, block, first)
+
+        def jax_fwd_bwd(h, dy):
+            y, vjp = jax.vjp(lambda a: jops.seg_act(
+                a, ids, mask, block_h=block, interpret=True), h)
+            return y, vjp(dy)[0]
+
+        jy, jdh = _jax(jax_fwd_bwd, jh, jdy)
+        tids, tmask = torch.tensor(ids), torch.tensor(mask)
+        ty = sak.seg_act_plain(th, tids, tmask, blk=block)
+        tdh = sak.seg_act_bwd_plain(th, tdy, tids, tmask, blk=block)
+        ey = sak.seg_act_plain(th.double(), tids, tmask.double(), blk=block)
+        edh = sak.seg_act_bwd_plain(th.double(), tdy.double(), tids,
+                                    tmask.double(), blk=block)
+        cols = np.repeat(ids, block)
+        for what, got, want, exact in (("y", ty, jy, ey),
+                                       ("dh", tdh, jdh, edh)):
+            assert got.dtype == torch.bfloat16
+            np.testing.assert_allclose(
+                got.float().numpy(), np.asarray(want, np.float32),
+                rtol=2e-2, atol=2e-2, err_msg=what)
+            d = np.abs(_ordered(got) - _ordered(_as_bf16(want)))
+            print(f"{what} vs JAX, largest ulp distance by activation: "
+                  + str({ACTIVATION_ORDER[i]: int(d[:, cols == i].max())
+                         for i in sorted(set(ids))}))
+            assert np.abs(_ordered(got)
+                          - _ordered(_f64_rounded(exact))).max() <= 1, what
+
+
+def test_seg_act_bf16_every_input_against_f64():
+    """Every bf16 value in [−12, 12] through each activation and its
+    derivative: the plain bf16 version within one bf16 ulp of the f64
+    value rounded once, but where the f32 derivative forms cancel (JAX's
+    forms, the f32 kernels' too): tanh' = 1 − t² for |x| > 6.5 and
+    sigmoid' = s·(1 − s) for |x| > 11, whose true values lie below 2^-16
+    and 2^-15; there the f32 result is within 2^-23 of them."""
+    allb = torch.arange(-32768, 32768, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    v = allb[torch.isfinite(allb.float()) & (allb.float().abs() <= 12)]
+    h = v[:v.numel() // 8 * 8].reshape(1, -1)
+    ones = torch.ones(h.shape[1])
+    for a, name in enumerate(ACTIVATION_ORDER):
+        ids = torch.full((h.shape[1] // 8,), a, dtype=torch.int32)
+        for what, got, exact in (
+                ("y", sak.seg_act_plain(h, ids, ones, blk=8),
+                 sak.seg_act_plain(h.double(), ids, ones.double(), blk=8)),
+                ("dh", sak.seg_act_bwd_plain(h, torch.ones_like(h), ids,
+                                             ones, blk=8),
+                 sak.seg_act_bwd_plain(h.double(), torch.ones_like(
+                     h, dtype=torch.float64), ids, ones.double(), blk=8))):
+            d = np.abs(_ordered(got) - _ordered(_f64_rounded(exact)))[0]
+            edge = {"tanh": 6.5, "sigmoid": 11.0}.get(name)
+            far = h[0].float().abs().numpy() > (edge or np.inf)
+            if what == "dh" and edge:
+                err = (got.double() - exact).abs()[0].numpy()
+                assert err[far].max() <= 2.0 ** -23, (name, what)
+            assert d[~far if what == "dh" else slice(None)].max() <= 1, (
+                name, what)
+
+
+def test_ops_seg_act_bf16_forward_and_backward():
+    """``ops.seg_act`` takes bf16 h: a bf16 output, a bf16 gradient through
+    its custom backward, each the plain version's bits, one launch each
+    counted under the ``bf16_`` counters (the f32 counters untouched)."""
+    rng = np.random.default_rng(5)
+    block, blocks, b = 8, 12, 6
+    ids = (np.arange(blocks) % len(ACTIVATION_ORDER)).astype(np.int32)
+    mask = (rng.random(block * blocks) > 0.2).astype(np.float32)
+    _, h = _bf16(rng.normal(0, 1, (b, block * blocks)))
+    _, dy = _bf16(rng.normal(0, 1, (b, block * blocks)))
+    n0 = (sak.launches, sak.bwd_launches, sak.bf16_launches,
+          sak.bf16_bwd_launches)
+    hg = h.clone().requires_grad_(True)
+    y = tops.seg_act(hg, ids, mask, block=block)
+    (dh,) = torch.autograd.grad(y, (hg,), dy)
+    assert y.dtype == dh.dtype == torch.bfloat16
+    assert (sak.launches, sak.bwd_launches, sak.bf16_launches,
+            sak.bf16_bwd_launches) == (n0[0], n0[1], n0[2] + 1, n0[3] + 1)
+    tids, tmask = torch.tensor(ids), torch.tensor(mask)
+    assert torch.equal(y.detach(), sak.seg_act_plain(h, tids, tmask,
+                                                     blk=block))
+    assert torch.equal(dh, sak.seg_act_bwd_plain(h, dy, tids, tmask,
+                                                 blk=block))
+    with pytest.raises(TypeError, match="float32, or bfloat16"):
+        tops.seg_act(h.half(), ids, mask, block=block)

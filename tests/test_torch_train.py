@@ -141,7 +141,7 @@ def test_fused_step_is_two_depth_plus_one_launches(np_params, batches):
         "fused_layer_int8_bf16": 0, "infer_head_int8_bf16": 0,
         "block_diag_fwd_bf16": 0, "block_diag_dw_bf16": 0,
         "m3_matmul_fwd_bf16": 0, "m3_matmul_dh_bf16": 0,
-        "m3_matmul_dw_bf16": 0}
+        "m3_matmul_dw_bf16": 0, "seg_act_bf16": 0, "seg_act_bwd_bf16": 0}
     assert launch_count.fused_step_budget(3) == {"fwd": 4, "bwd": 4,
                                                  "total": 8}
 

@@ -4,7 +4,8 @@ checkpoint restored by JAX, crash replay, the M3 routes (``--m3-impl
 pallas|onehot``), the lifecycle and recipe flags (``--halving``,
 ``--refill``, ``--per-member-*``) run to their end, adafactor and the
 bf16 AdamW state through a halving ladder resumed mid-ladder across the
-packages in both directions, and the flags not ported yet.
+packages in both directions, and ``--pipeline on`` (once not ported)
+against ``--pipeline off``.
 
 The JAX driver trains on its einsum route; the port's driver resumes with
 ``--device cpu``, where every kernel runs its plain PyTorch version.
@@ -167,10 +168,23 @@ def test_crash_replay_matches_an_unbroken_run(tmp_path):
     ["--pipeline", "on"],
 ], ids=lambda f: " ".join(f))
 def test_unported_flags_raise(flags, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrain.main(["--arch", "parallelmlp-10k", "--reduced", "--steps",
-                     "2", "--ckpt-dir", str(tmp_path), "--device", "cpu",
-                     *flags])
+    """``--pipeline on`` once raised here (ROADMAP.md, Queue 1 item 7); it
+    now runs, and is the default: its run is bitwise the synchronous
+    ``--pipeline off`` run (parameters, losses, launches)."""
+    from repro_torch.launch import launch_count
+    base = ["--arch", "parallelmlp-10k", "--reduced", "--steps", "2",
+            "--device", "cpu"]
+    runs = {}
+    for tag, extra in (("on", flags), ("off", ["--pipeline", "off"])):
+        launch_count.reset_kernel_launches()
+        params, lp, stats = ttrain.main(
+            base + ["--ckpt-dir", str(tmp_path / tag), *extra])
+        runs[tag] = (params, lp, stats, launch_count.kernel_launches())
+    (pa, lpa, sa, na), (pb, lpb, sb, nb) = runs["on"], runs["off"]
+    assert lpa == lpb and sa["steps"] == 2 and na == nb
+    assert sa["chunk_loss"] == sb["chunk_loss"] and sa["chunk_loss"]
+    for a, b in zip(tree_leaves(pa), tree_leaves(pb)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("flags", [
