@@ -203,6 +203,29 @@ Phases (any failure exits non-zero, and no result line is printed):
           input layer's training forward chunk by chunk), a copy of a
           chunk overlapping a kernel of an earlier chunk (both timestamps
           printed);
+       k. the population axis across ranks (a process of its own, as 4g;
+          alone: ``chip_smoke.py --sharded DIR``), W ranks sharing the one
+          card under ``torch.distributed.run --standalone`` (gloo), each
+          job's kernel counters set to 0 just before it and read just
+          after on every rank: (i) ``parallelmlp-10k`` at full width,
+          fused, sgd, B 32, 16 steps in chunks of 8, checkpoints at steps
+          8 and 16, on W = 2 against W = 1: every checkpoint array
+          byte-equal and the manifests equal (no fillers at 10k: the real
+          members bitwise), the per-chunk losses equal, each rank's loop
+          2·(depth+1) launches a step, both one-card walls and
+          model-steps/s; (ii) the depth-3 population at 999 repeats
+          (2,997 members, ``shard_pad(4)`` adding 3 fillers), AdamW, clip
+          1.0, ``--halving "4:0.5,8:0.5"``, 12 steps, ``--shard-pad 4``:
+          W = 4 against W = 1 within the optimizer tolerance (rtol 1e-5 /
+          atol 1e-6) with the same survivors at both rungs and each
+          rank's segments 2·(depth+1) launches a step of its own depth,
+          then W = 4's checkpoint after the first rung resumed at W = 1
+          and W = 1's at W = 2, each within the tolerance of the run it
+          left; (iii) ``serve_population --sharded`` at W = 2 over the 10k
+          checkpoint in f32 and int8: every mode's predictions equal
+          W = 1's, the served logits on a batch bitwise W = 1's, each
+          rank's forward depth+1 launches, req/s and p50/p99 beside
+          W = 1's;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -1468,8 +1491,8 @@ def check_batch():
 
 
 def path_process(workdir: Path, key: str) -> dict:
-    """Path 4g, 4h, 4i or 4j (``key`` "lifecycle", "optim", "bf16" or
-    "pipeline") in a process of its own (``chip_smoke.py --KEY DIR``,
+    """Path 4g, 4h, 4i, 4j or 4k (``key`` "lifecycle", "optim", "bf16",
+    "pipeline" or "sharded") in a process of its own (``chip_smoke.py --KEY DIR``,
     waited for), so that its profiler windows leave the later phases'
     whole (after 4g's or 4i's runs the profiler loses the first kernels of
     a window; ``_profiled``'s sentinels take them).  Returns its
@@ -3737,6 +3760,374 @@ def pipeline_path(workdir: Path) -> tuple:
 
 
 # --------------------------------------------------------------------- #
+# path 4k: the population axis across ranks                             #
+# --------------------------------------------------------------------- #
+
+SHARDED_STEPS = 16          # (i): 2 chunks of 8 steps at 10k
+# (ii): the depth-3 ladder.  AdamW with the clip amplifies a reordered sum
+# of the clip's norm to ~1e-6 in a weight over 24 steps, the edge of the
+# optimizer tolerance (measured on one H100: 1.8e-6 at 24 steps);
+# 12 steps keep the comparison inside it
+SHARDED_LADDER = 12
+SHARDED_HALVING = "4:0.5,8:0.5"
+SHARDED_TOL = (1e-5, 1e-6)  # the optimizer tolerance (tests' TRAJ)
+
+
+def _json_stats(st: dict) -> dict:
+    """The parts of ``train.main``'s stats path 4k reads, as JSON."""
+    seg_keys = ("start", "end", "members", "depth", "fused_hidden",
+                "seconds", "launches", "ranks", "rank_fused_hidden")
+    return {"chunk_loss": {str(k): v for k, v in st["chunk_loss"].items()},
+            "seconds": st["seconds"], "member_steps": st["member_steps"],
+            "restarts": st["restarts"], "steps": st["steps"],
+            "ranks": st.get("ranks"),
+            "rank_fused_hidden": st.get("rank_fused_hidden"),
+            "segments": [{k: s[k] for k in seg_keys if k in s}
+                         for s in st["segments"]],
+            "rungs": [[r["members_before"], r["members"]]
+                      for r in st["rungs"]]}
+
+
+def serve_logits(ckpt: Path, x, mesh=None, int8: bool = False):
+    """The served logits of ``ckpt`` on the batch ``x``: a
+    ``PopulationServer``'s forward (f32 or its int8 copy) on its layout,
+    on W ranks each rank's share gathered to rank 0 (None elsewhere)."""
+    import torch
+
+    from repro_torch.core.deep import forward
+    from repro_torch.launch.serve_population import PopulationServer
+    server, _ = PopulationServer.from_checkpoint(
+        str(ckpt), device=x.device, mesh=mesh,
+        weights_dtype="int8" if int8 else None)
+    server._ensure_quantized()
+    with torch.inference_mode():
+        logits = forward(server.params, x, server.local, bd_impl="fused",
+                         infer=True, weights_dtype=server.weights_dtype)
+    if server.shard is None:
+        return logits.cpu()
+    got = server.shard.gather_members(logits.transpose(1, 2), dst=0)
+    return None if got is None else got.transpose(1, 2).contiguous()
+
+
+def rank_jobs(spec: Path) -> int:
+    """One rank of a path-4k job (``chip_smoke.py --rank-jobs SPEC`` under
+    ``torch.distributed.run``): each job of SPEC (``train.main`` or
+    ``serve_population.main`` argv), the kernel counters set to 0 just
+    before it and read just after; writes ``OUT.RANK.json`` per job (and
+    rank 0 a serve job's logits on ``check_batch`` as ``OUT.pt``)."""
+    import torch
+
+    from repro_torch.launch import serve_population
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    from repro_torch.launch.mesh import close, make_host_mesh
+    mesh = make_host_mesh()
+    try:
+        for job in json.loads(spec.read_text()):
+            torch.cuda.synchronize()
+            reset_kernel_launches()
+            if job["kind"] == "train":
+                _, _, st = train_driver.main(job["argv"])
+                res = {"stats": _json_stats(st)}
+            else:
+                out = serve_population.main(job["argv"])
+                res = {k: out.get(k) for k in ("serve", "pred", "budget",
+                                               "ranks")}
+            torch.cuda.synchronize()
+            res["launches"] = {k: v for k, v in kernel_launches().items()
+                               if v}
+            if job["kind"] == "serve":
+                got = serve_logits(Path(job["ckpt"]), check_batch()[0], mesh,
+                                   job["int8"])
+                if got is not None:
+                    torch.save(got, f"{job['out']}.pt")
+            Path(f"{job['out']}.{mesh.rank}.json").write_text(
+                json.dumps(res))
+    finally:
+        close(mesh)
+    return 0
+
+
+def run_ranks(workdir: Path, n: int, jobs: list, timeout: int = 600) -> dict:
+    """``jobs`` on ``n`` ranks of one card (``python -m
+    torch.distributed.run --standalone --nproc-per-node n``, gloo): its
+    own session, killed whole at ``timeout``.  Returns each job's per-rank
+    results ``{out: [rank 0's, rank 1's, ...]}``."""
+    import os
+    import signal
+    spec = workdir / f"ranks{n}-{int(time.time() * 1e3)}.json"
+    spec.write_text(json.dumps(jobs))
+    sys.stdout.flush()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(n), str(ROOT / "chip_smoke.py"),
+         "--rank-jobs", str(spec)], start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    _require(rc == 0, f"{n} ranks: exited {rc}")
+    print(f"[sharded] {n} ranks ran {len(jobs)} jobs in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {job["out"]: [json.loads(Path(f"{job['out']}.{r}.json")
+                                    .read_text()) for r in range(n)]
+            for job in jobs}
+
+
+def _truncated(src: Path, dst: Path, step: int) -> Path:
+    """A copy of checkpoint directory ``src`` holding steps ≤ ``step``."""
+    import shutil
+
+    from repro_torch.checkpoint.checkpoint import latest_steps
+    shutil.copytree(src, dst)
+    for s in latest_steps(str(dst)):
+        if s > step:
+            shutil.rmtree(dst / f"step_{s:08d}")
+    return dst
+
+
+def _ckpt_arrays(ck: Path, step: int) -> tuple:
+    """(each array of a checkpoint's ``arrays.npz`` as bytes, its
+    tree.json) — the npz archive's entries carry their write times, so the
+    files are compared array by array."""
+    import numpy as np
+    d = ck / f"step_{step:08d}"
+    with np.load(d / "arrays.npz") as z:
+        arrays = {k: (z[k].dtype.str, z[k].shape, z[k].tobytes())
+                  for k in z.files}
+    return arrays, json.loads((d / "tree.json").read_text())
+
+
+def _ckpt_close(name: str, a: Path, b: Path, tol=SHARDED_TOL) -> float:
+    """Two checkpoints' parameters and optimizer state leaf by leaf within
+    ``tol`` (bf16 leaves as floats) → the max |difference|."""
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpoint import latest_steps
+    sa, sb = latest_steps(str(a))[-1], latest_steps(str(b))[-1]
+    _require(sa == sb, f"{name}: last steps {sa} and {sb}")
+    za, ta = _ckpt_arrays(a, sa)
+    zb, tb = _ckpt_arrays(b, sb)
+    _require(sorted(za) == sorted(zb) and ta["meta"]["population"]
+             == tb["meta"]["population"], f"{name}: other trees")
+    worst = 0.0
+    for k in za:
+        x, y = (np.frombuffer(z[k][2], np.dtype(z[k][0])).reshape(z[k][1])
+                for z in (za, zb))
+        if ta["manifest"][k]["dtype"] == "bfloat16":
+            x, y = ((v.astype(np.uint32) << 16).view(np.float32)
+                    for v in (x, y))
+        x, y = x.astype(np.float64), y.astype(np.float64)
+        if x.size:
+            worst = max(worst, float(np.abs(x - y).max()))
+        _require(np.allclose(x, y, rtol=tol[0], atol=tol[1]),
+                 f"{name}: {k} beyond rtol {tol[0]} / atol {tol[1]}: max "
+                 f"|diff| {float(np.abs(x - y).max())}")
+    return worst
+
+
+def sharded_path(workdir: Path) -> tuple:
+    """Path 4k (``chip_smoke.py --sharded DIR``): the population axis on
+    W ranks sharing the one card (gloo).  (i) ``parallelmlp-10k`` at full
+    width, fused, sgd, B 32, 16 steps in chunks of 8, checkpoints at steps
+    8 and 16, on W = 2 against W = 1: every checkpoint array byte-equal
+    and the manifests equal (no fillers at 10k: the real members bitwise),
+    the printed per-chunk losses equal, each rank's loop 2·(depth+1)
+    launches a step; both runs' walls and model-steps/s.  (ii) The depth-3
+    population at 999 repeats (2,997 members; ``shard_pad(4)`` adds 3
+    fillers), AdamW, clip 1.0, ``--halving "4:0.5,8:0.5"``, 12 steps,
+    checkpoints every 4, ``--shard-pad 4`` everywhere: W = 4 against W = 1
+    (every array within the optimizer tolerance, the same survivors at
+    every rung), then W = 1 resuming W = 4's checkpoint after the first
+    rung and W = 2 resuming W = 1's, each continuing within the tolerance of the run it
+    left.  (iii) ``serve_population --sharded`` at W = 2 over the 10k
+    checkpoint in f32 and int8: the predictions of every mode equal
+    W = 1's, the served logits on a batch bitwise W = 1's, each rank's
+    forward depth+1 launches; req/s and p50/p99 of both.  Returns
+    (results, the launches of its runs, summed over the ranks)."""
+    import torch
+
+    from repro_torch.launch import serve_population
+    from repro_torch.launch import train as train_driver
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    from repro_torch.launch.train import population_from_flags
+    t_path = time.perf_counter()
+    n_all = {}
+    lp3 = population_from_flags(DEPTH3["depths"], DEPTH3["acts"],
+                                DEPTH3["features"], repeats=999).shard_pad(4)
+    _require((lp3.num_real, lp3.n_pad) == (2997, 3), "the depth-3 "
+             f"population at 999 repeats: {lp3.describe()}")
+
+    def count(n):
+        for k, v in n.items():
+            n_all[k] = n_all.get(k, 0) + v
+
+    def here(argv):
+        """``train.main`` on one rank in this process, counted."""
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        _, _, st = train_driver.main(argv)
+        torch.cuda.synchronize()
+        count(kernel_launches())
+        _require(st["restarts"] == 0, f"{argv}: restarts")
+        return _json_stats(st)
+
+    common = ["--bd-impl", "fused", "--batch", str(BATCH), "--scan-steps",
+              "8", "--seed", "0", "--ckpt-every", "8"]
+    flags10k = common + ["--arch", "parallelmlp-10k", "--steps",
+                         str(SHARDED_STEPS)]
+    depth3 = depth3_flags()
+    rep = depth3.index("--population-repeats")
+    flags3 = common + depth3[:rep + 1] + ["999"] + depth3[rep + 2:] + [
+        "--halving", SHARDED_HALVING, "--steps", str(SHARDED_LADDER),
+        "--shard-pad", "4", "--ckpt-every", "4"]
+    d = {k: workdir / k for k in ("w1_10k", "w2_10k", "w1_d3", "w4_d3",
+                                  "w1_from_w4", "w2_from_w1", "w2_serve")}
+    res = {}
+    # W = 1: the 10k run and the depth-3 ladder on the padded layout
+    s1 = here(flags10k + ["--ckpt-dir", str(d["w1_10k"])])
+    s1d = here(flags3 + ["--ckpt-dir", str(d["w1_d3"])])
+    # W = 4: the depth-3 ladder
+    got4 = run_ranks(workdir, 4, [
+        {"kind": "train", "out": str(d["w4_d3"]),
+         "argv": flags3 + ["--ckpt-dir", str(d["w4_d3"])]}])
+    r4 = got4[str(d["w4_d3"])]
+    for r in r4:
+        count(r["launches"])
+    # 4 → 1: one rank resumes the 4 ranks' checkpoint after the first rung
+    _truncated(d["w4_d3"], d["w1_from_w4"], 3)
+    s1r = here(flags3 + ["--ckpt-dir", str(d["w1_from_w4"]), "--resume"])
+    # W = 2: the 10k run, 1 → 2, and the sharded server over the 10k
+    _truncated(d["w1_d3"], d["w2_from_w1"], 3)
+    serve_argv = ["--ckpt-dir", str(d["w1_10k"]), "--requests",
+                  str(SERVE_REQUESTS), "--batch", str(BATCH)]
+    got2 = run_ranks(workdir, 2, [
+        {"kind": "train", "out": str(d["w2_10k"]),
+         "argv": flags10k + ["--ckpt-dir", str(d["w2_10k"])]},
+        {"kind": "train", "out": str(d["w2_from_w1"]),
+         "argv": flags3 + ["--ckpt-dir", str(d["w2_from_w1"]),
+                           "--resume"]},
+        {"kind": "serve", "out": str(d["w2_serve"]) + "-f32",
+         "ckpt": str(d["w1_10k"]), "int8": False,
+         "argv": serve_argv + ["--sharded"]},
+        {"kind": "serve", "out": str(d["w2_serve"]) + "-int8",
+         "ckpt": str(d["w1_10k"]), "int8": True,
+         "argv": serve_argv + ["--sharded", "--weights-dtype", "int8"]}])
+    for per_rank in got2.values():
+        for r in per_rank:
+            count(r["launches"])
+
+    # (i) 10k: W = 2 against W = 1
+    r2 = got2[str(d["w2_10k"])]
+    for step in (7, 15):
+        a, ta = _ckpt_arrays(d["w1_10k"], step)
+        b, tb = _ckpt_arrays(d["w2_10k"], step)
+        _require(a == b and ta == tb, f"10k step {step}: the W = 2 "
+                 "checkpoint is not the W = 1 one's arrays and manifest")
+    _require(all(r["stats"]["chunk_loss"] == s1["chunk_loss"] for r in r2),
+             f"10k: per-chunk losses {[r['stats']['chunk_loss'] for r in r2]}"
+             f" against W = 1's {s1['chunk_loss']}")
+    want = _segment_want(SHARDED_STEPS, 1)
+    for rank, r in enumerate(r2):
+        got = r["stats"]["segments"][0]["launches"]
+        _require(got == want, f"10k rank {rank}: the loop launched {got}, "
+                 f"2·(depth+1) a step is {want}")
+    w1_rate = s1["member_steps"] / s1["seconds"]
+    w2_rate = r2[0]["stats"]["member_steps"] / r2[0]["stats"]["seconds"]
+    res["10k"] = {
+        "w1_s": s1["seconds"], "w1_model_steps_per_s": w1_rate,
+        "w2_s": r2[0]["stats"]["seconds"], "w2_model_steps_per_s": w2_rate,
+        "ranks": r2[0]["stats"]["ranks"],
+        "rank_fused_hidden": r2[0]["stats"]["rank_fused_hidden"],
+        "rank_launches": [r["stats"]["segments"][0]["launches"]
+                          for r in r2],
+        "checkpoints_equal": [7, 15], "chunk_loss": s1["chunk_loss"]}
+    print(f"[sharded 10k] W = 2 ranks {res['10k']['ranks']} (fused widths "
+          f"{res['10k']['rank_fused_hidden']}): checkpoints at steps 8 and "
+          f"16 array for array and manifest equal to W = 1's, losses "
+          f"equal, each rank {want} in its loop; one-card walls W = 1 "
+          f"{s1['seconds']!r} s ({w1_rate!r} model-steps/s), W = 2 "
+          f"{r2[0]['stats']['seconds']!r} s ({w2_rate!r} model-steps/s)",
+          flush=True)
+
+    # (ii) the depth-3 ladder with fillers: W = 4 against W = 1, resumes
+    s4 = r4[0]["stats"]
+    _require(s4["rungs"] == s1d["rungs"] and len(s1d["rungs"]) == 2,
+             f"depth-3: rungs {s4['rungs']} against W = 1's {s1d['rungs']}")
+    ids = [_ckpt_arrays(p, SHARDED_LADDER - 1)[1]["meta"]["lifecycle"]
+           ["member_ids"] for p in (d["w1_d3"], d["w4_d3"])]
+    _require(ids[0] == ids[1], "depth-3: W = 4 kept other survivors")
+    for rank, r in enumerate(r4):
+        for seg in r["stats"]["segments"]:
+            n = seg["end"] - seg["start"]
+            depth = len(seg["rank_fused_hidden"][rank])
+            _require(seg["launches"] == _segment_want(n, depth),
+                     f"depth-3 rank {rank}: segment {seg['start']}-"
+                     f"{seg['end']} launched {seg['launches']}")
+    err4 = _ckpt_close("depth-3 W = 4 / W = 1", d["w4_d3"], d["w1_d3"])
+    err41 = _ckpt_close("depth-3 resumed 4 -> 1", d["w1_from_w4"],
+                        d["w4_d3"])
+    err12 = _ckpt_close("depth-3 resumed 1 -> 2", d["w2_from_w1"],
+                        d["w1_d3"])
+    s2r = got2[str(d["w2_from_w1"])][0]["stats"]
+    res["depth3"] = {
+        "members": lp3.num_real, "fillers": lp3.n_pad, "rungs": s1d["rungs"],
+        "ranks": [seg.get("ranks") for seg in s4["segments"]],
+        "rank_fused_hidden": [seg.get("rank_fused_hidden")
+                              for seg in s4["segments"]],
+        "w4_vs_w1_max_abs_err": err4, "resume_4_to_1_max_abs_err": err41,
+        "resume_1_to_2_max_abs_err": err12,
+        "w1_s": s1d["seconds"], "w4_s": s4["seconds"],
+        "resumed_steps": [s1r["steps"], s2r["steps"]]}
+    print(f"[sharded depth-3] {lp3.num_real} members + {lp3.n_pad} "
+          f"fillers, rungs "
+          f"{s1d['rungs']} the same on W = 4 and W = 1, the survivors "
+          f"equal; max |diff| W = 4 / W = 1 {err4!r}, resumed 4 -> 1 "
+          f"{err41!r}, 1 -> 2 {err12!r} (tolerance rtol {SHARDED_TOL[0]} / "
+          f"atol {SHARDED_TOL[1]}); ranks by segment "
+          f"{res['depth3']['ranks']}", flush=True)
+
+    # (iii) the sharded server against one rank
+    x = check_batch()[0]
+    res["serve"] = {}
+    for tag, flags in (("f32", []), ("int8", ["--weights-dtype", "int8"])):
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        one = serve_population.main(serve_argv + flags)
+        torch.cuda.synchronize()
+        count(kernel_launches())
+        out = str(d["w2_serve"]) + f"-{tag}"
+        ranks = got2[out]
+        _require(ranks[0]["pred"] == one["pred"], f"serve {tag}: W = 2 "
+                 "predictions differ from W = 1's")
+        for rank, r in enumerate(ranks):
+            _require(r["budget"]["launches"] == r["budget"]["budget"] == 2,
+                     f"serve {tag} rank {rank}: budget {r['budget']}")
+        mine = serve_logits(d["w1_10k"], x, None, tag == "int8")
+        theirs = torch.load(out + ".pt")
+        _require(_same_bits(mine, theirs), f"serve {tag}: the W = 2 logits "
+                 "are not bitwise W = 1's")
+        res["serve"][tag] = {"w1": one["serve"], "w2": ranks[0]["serve"]}
+        for mode in one["serve"]:
+            a, b = one["serve"][mode], ranks[0]["serve"][mode]
+            print(f"[sharded serve {tag}] {mode:5s} W = 1 "
+                  f"{a['req_per_s']!r} req/s p50 {a['p50_ms']!r} p99 "
+                  f"{a['p99_ms']!r} ms | W = 2 {b['req_per_s']!r} req/s p50 "
+                  f"{b['p50_ms']!r} p99 {b['p99_ms']!r} ms", flush=True)
+    print("[sharded serve] f32 and int8 predictions equal to W = 1's in "
+          "every mode, the logits bitwise", flush=True)
+    res["seconds"] = time.perf_counter() - t_path
+    print(f"[sharded] path 4k in {res['seconds']:.1f} s; launches {n_all}",
+          flush=True)
+    return res, n_all
+
+
+# --------------------------------------------------------------------- #
 # the kernel API at LM widths: flash attention and the grouped GEMM     #
 # --------------------------------------------------------------------- #
 
@@ -5800,6 +6191,10 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # path 4i's own process
     ap.add_argument("--pipeline", type=Path, default=None,
                     help=argparse.SUPPRESS)   # path 4j's own process
+    ap.add_argument("--sharded", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4k's own process
+    ap.add_argument("--rank-jobs", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # one of path 4k's ranks
     args = ap.parse_args()
     try:
         import torch
@@ -5818,10 +6213,13 @@ def main() -> int:
     sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.rank_jobs:
+        return rank_jobs(args.rank_jobs)
     for out, path, key in ((args.lifecycle, lifecycle_path, "lifecycle"),
                            (args.optim, optim_path, "optim"),
                            (args.bf16, bf16_path, "bf16"),
-                           (args.pipeline, pipeline_path, "pipeline")):
+                           (args.pipeline, pipeline_path, "pipeline"),
+                           (args.sharded, sharded_path, "sharded")):
         if out:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -6004,6 +6402,19 @@ def main() -> int:
         pipe, pipe_n = got["results"], got["launches"]
         print(f"[pipeline] path 4j in {time.perf_counter() - t0:.1f} s; "
               f"kernel launches {pipe_n}", flush=True)
+        # 4k. the population axis on 2 and 4 ranks sharing the card: the
+        # 10k run, the depth-3 ladder with fillers, resumes across world
+        # sizes, the sharded server, each against one rank
+        t0 = time.perf_counter()
+        got = path_process(workdir, "sharded")
+        sharded, sharded_n = got["results"], got["launches"]
+        print(f"[sharded] path 4k in {time.perf_counter() - t0:.1f} s; "
+              f"kernel launches over its ranks {sharded_n}", flush=True)
+        for name in ("fused_input", "fused_input_bwd", "fused_layer",
+                     "fused_layer_dx_dw", "loss_head_fwd", "loss_head_bwd",
+                     "infer_head", "fused_input_int8", "infer_head_int8"):
+            _require(sharded_n.get(name, 0) > 0, f"kernel {name} was not "
+                     "launched on path 4k")
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -6061,7 +6472,8 @@ def main() -> int:
         rows[name].update(fields)
     for field, counts in (("lifecycle_launches", life_n),
                           ("optim_launches", optim_n),
-                          ("pipeline_launches", pipe_n)):
+                          ("pipeline_launches", pipe_n),
+                          ("sharded_launches", sharded_n)):
         for name, n in counts.items():
             if n:
                 rows[name][field] = n
@@ -6153,6 +6565,7 @@ def main() -> int:
                       "optim": optim,
                       "bf16": bf16,
                       "pipeline": pipe,
+                      "sharded": sharded,
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,
@@ -6160,7 +6573,8 @@ def main() -> int:
                       "lm_kernels_max_abs_err": lm_err,
                       "seconds": time.perf_counter() - t_start}))
     print(f"chip_smoke: the whole run in {time.perf_counter() - t_start:.1f}"
-          f" s (path 4j {pipe['seconds']:.1f} s)", flush=True)
+          f" s (path 4j {pipe['seconds']:.1f} s, path 4k "
+          f"{sharded['seconds']:.1f} s)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

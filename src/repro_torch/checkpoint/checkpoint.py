@@ -285,7 +285,7 @@ PARAM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def restore_population(directory: str, step: int | None = None,
-                       device="cuda", extra_like=None):
+                       device="cuda", extra_like=None, mesh=None):
     """→ (params, layout, step[, extra_state]), the parameter tree rebuilt
     from the stored layout on ``device``.  The layout matches the params:
     a ``LayeredPopulation`` for layered-schema checkpoints, a
@@ -294,10 +294,30 @@ def restore_population(directory: str, step: int | None = None,
     tensors are fine, e.g. ``opt.init(deep.abstract_params(layout))``) to
     restore it too.  The parameters come back in the dtype the checkpoint
     records (float32, or bf16 — which training and serving do not take
-    yet: ``deep.check_dtypes``)."""
+    yet: ``deep.check_dtypes``).
+
+    With ``mesh`` (``launch.mesh.make_host_mesh``) of more than one rank
+    on the population axis, each rank loads the whole host arrays and
+    keeps its share (``distributed.sharding.PopulationShard``): the
+    parameters (and ``extra``) come back as that rank's trees on
+    ``device``, the layout is the WHOLE (shard-padded) layout, and the
+    shard is appended to the result.  ``extra_like`` is then the whole
+    layout's state tree."""
     from repro_torch.core import deep, parallel_mlp
     from repro_torch.core.population import Population
+    from repro_torch.distributed.sharding import pop_axis_size
     device = resolve(device)
+    if pop_axis_size(mesh) > 1:
+        from repro_torch.distributed.fault_tolerance import elastic_remesh
+        out = restore_population(directory, step, device="cpu",
+                                 extra_like=extra_like)
+        state = {"params": out[0]}
+        if extra_like is not None:
+            state["extra"] = out[3]
+        _, shard, state = elastic_remesh(state, out[1], mesh)
+        state = tree_map(lambda t: t.to(device), state)
+        rest = (state["extra"],) if extra_like is not None else ()
+        return (state["params"], out[1], out[2]) + rest + (shard,)
     meta, step = load_meta(directory, step)
     if "population" not in meta:
         raise ValueError(f"{directory} step {step}: not a population "
@@ -349,11 +369,18 @@ class AsyncCheckpointer:
     ``step_map`` turns the caller's step counter into the recorded step (a
     chunked loop counts chunks, checkpoints carry global steps);
     ``save_pred`` replaces the ``step % every`` cadence with a predicate on
-    the caller's counter."""
+    the caller's counter.
+
+    ``gather`` (a rank's share of a population on W ranks:
+    ``PopulationShard.gather_tree``) turns the host snapshot of this
+    rank's share into the whole tree on rank 0 and None elsewhere; only
+    rank 0 writes, and the others count the save as made."""
 
     def __init__(self, directory: str, every: int = 100, keep_last: int = 3,
-                 meta: dict | None = None, step_map=None, save_pred=None):
+                 meta: dict | None = None, step_map=None, save_pred=None,
+                 gather=None):
         self.directory = directory
+        self.gather = gather
         self.every = every
         self.keep_last = keep_last
         self.meta = meta
@@ -372,6 +399,11 @@ class AsyncCheckpointer:
         self.wait()
         host_tree = tree_map(_snapshot, state_tree)
         rec_step = self.step_map(step)
+        if self.gather is not None:
+            host_tree = self.gather(host_tree)
+            if host_tree is None:          # not rank 0: rank 0 writes
+                self.saved.append(None)
+                return True
 
         def work():
             try:

@@ -331,7 +331,8 @@ def _fill_layout(lp: LayeredPopulation,
 
 def _concat_pad(params: dict, fp: dict, depth: int) -> dict:
     """Append a filler-members tree ``fp`` behind ``params`` on every
-    member-major axis (the trailing-pad embedding of ``pad_state``)."""
+    member-major axis (the trailing-pad embedding of ``pad_params`` and
+    ``pad_state``)."""
     return {
         "w_in": torch.cat([params["w_in"], fp["w_in"]], dim=0),
         "b_in": torch.cat([params["b_in"], fp["b_in"]], dim=0),
@@ -342,6 +343,23 @@ def _concat_pad(params: dict, fp: dict, depth: int) -> dict:
         "w_out": torch.cat([params["w_out"], fp["w_out"]], dim=1),
         "b_out": torch.cat([params["b_out"], fp["b_out"]], dim=0),
     }
+
+
+def pad_params(params, lp: LayeredPopulation, lp_pad: LayeredPopulation,
+               generator: torch.Generator) -> dict:
+    """Embed ``params`` (initialised for ``lp``) into the shard-padded
+    layout ``lp_pad = lp.shard_pad(n)``, the filler members' parameters
+    drawn from ``generator`` (``init_params`` of the fillers' own layout;
+    the trainer seeds it from ``(seed, 1)``, JAX's ``fold_in(key, 1)``).
+    Fillers are trailing on every member-major axis and never share a
+    bucket with a real member, so the real region of the result is
+    ``params`` bit for bit: a run on W ranks initialises its real members
+    exactly as a run on one.  ``lp_pad == lp`` returns ``params``."""
+    if lp_pad == lp:
+        return params
+    fill = _fill_layout(lp, lp_pad)
+    return _concat_pad(params, init_params(generator, fill,
+                                           params["w_in"].dtype), lp.depth)
 
 
 def zeros_like_abstract(ref, dtype, device) -> dict:
@@ -820,7 +838,8 @@ def sgd_step(params, x, targets, lr, lp: LayeredPopulation,
 
 def opt_step(params, opt_state, x, targets, lr, opt, lp: LayeredPopulation,
              m3_impl: str = "bucketed", bd_impl: str = "einsum",
-             act_impl: str = "sliced", compute_dtype=None, grad_clip=None):
+             act_impl: str = "sliced", compute_dtype=None, grad_clip=None,
+             reduce=None):
     """One fused optimizer step with state: fused loss + grads → optional
     global-norm clip → ``opt.update`` → ``apply_updates`` →
     ``(params, opt_state, loss, per_member_losses, grad_norm)``;
@@ -830,7 +849,13 @@ def opt_step(params, opt_state, x, targets, lr, opt, lp: LayeredPopulation,
     vector (expanded through ``member_lr_tree``) or a scale tree.  With
     ``opt=sgd()`` the update is bit for bit ``sgd_step``'s ``p − lr·g``:
     the engine computes ``p + (−lr)·g``, and IEEE negation, product and
-    sum make the two equal (DESIGN.md §8)."""
+    sum make the two equal (DESIGN.md §8).
+
+    ``reduce`` (a ``distributed.sharding.PopulationReduce``; None on one
+    rank) is the population axis's sum over ranks, for the two places
+    where the reference's arithmetic mixes members: the global norm of
+    the clip and adafactor's statistics over a member axis.  ``lp`` is
+    then this rank's share of the layout."""
     from repro_torch.optim.optimizers import (apply_updates,
                                               clip_by_global_norm)
     loss, per, grads = loss_and_grads(
@@ -838,9 +863,13 @@ def opt_step(params, opt_state, x, targets, lr, opt, lp: LayeredPopulation,
         act_impl=act_impl, compute_dtype=compute_dtype)
     gnorm = None
     if grad_clip:
-        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, grad_clip, reduce=reduce)
     lr = _lr_on(lr, lp, tree_leaves(params)[0].device)
-    upd, opt_state = opt.update(grads, opt_state, params, lr)
+    if reduce is None:
+        upd, opt_state = opt.update(grads, opt_state, params, lr)
+    else:
+        upd, opt_state = opt.update(grads, opt_state, params, lr,
+                                    reduce=reduce)
     return apply_updates(params, upd), opt_state, loss, per, gnorm
 
 
@@ -848,7 +877,8 @@ def make_population_train_step(lp: LayeredPopulation, *, optimizer,
                                grad_clip=None, m3_impl: str = "bucketed",
                                bd_impl: str = "einsum",
                                act_impl: str = "sliced", scan_steps: int = 1,
-                               compute_dtype=None, lr_schedule=None):
+                               compute_dtype=None, lr_schedule=None,
+                               reduce=None):
     """The multi-step population train chunk (JAX: a jitted ``lax.scan``;
     here a Python loop over the chunk's steps, eagerly).
 
@@ -864,7 +894,8 @@ def make_population_train_step(lp: LayeredPopulation, *, optimizer,
     ``step -> multiplier`` callable, e.g. ``optim.warmup_cosine(1.0,
     ...)``) adds a trailing ``step0`` argument, the global step of the
     chunk's first batch; inner step k trains at ``lr · lr_schedule(step0 +
-    k)``."""
+    k)``.  ``reduce``: ``opt_step``'s, for a rank's share of the
+    layout."""
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     route = dict(m3_impl=m3_impl, bd_impl=bd_impl, act_impl=act_impl,
@@ -890,7 +921,8 @@ def make_population_train_step(lp: LayeredPopulation, *, optimizer,
         for k in range(steps(xs)):
             params, opt_state, loss, per, gnorm = opt_step(
                 params, opt_state, xs[k], ys[k], lr_at(lr, step0 + k),
-                optimizer, lp, grad_clip=grad_clip, **route)
+                optimizer, lp, grad_clip=grad_clip, reduce=reduce,
+                **route)
             losses.append(loss)
             pers.append(per)
             gnorms.append(gnorm)

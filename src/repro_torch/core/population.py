@@ -330,9 +330,11 @@ class LayeredPopulation:
                 f"({len(self.activations)}) must have the same length")
         if not self.widths:
             raise ValueError("empty population")
-        if not 0 <= self.n_pad < len(self.widths):
+        # a rank's share of a shard-padded layout (``member_range``) may
+        # hold fillers only; a whole layout holds at least one real member
+        if not 0 <= self.n_pad <= len(self.widths):
             raise ValueError(f"n_pad {self.n_pad} out of range "
-                             f"[0, {len(self.widths)})")
+                             f"[0, {len(self.widths)}]")
         widths = tuple(tuple(int(h) for h in w) for w in self.widths)
         for m, w in enumerate(widths):
             if len(w) < 1:
@@ -655,6 +657,27 @@ class LayeredPopulation:
             self.in_features, self.out_features,
             tuple(self.widths[m] for m in keep),
             tuple(self.activations[m] for m in keep), block=self.block)
+
+    def member_range(self, start: int, stop: int) -> "LayeredPopulation":
+        """The layout of members ``[start, stop)``, in order, FILLERS
+        INCLUDED: the shard-pad fillers of the range stay trailing and are
+        its ``n_pad`` (a range of fillers only has no real member).  One
+        rank's share of the population axis
+        (``repro_torch.distributed.sharding``).  A member keeps its padded
+        slices, its buckets' keys and its depth, so every member-major
+        array of the range is a slice of the whole layout's; the depth is
+        the range's deepest member's, so layers that only pass the
+        range's members through are dropped (as ``subset`` drops them).
+        The new instance starts with empty device caches."""
+        start, stop = int(start), int(stop)
+        if not 0 <= start < stop <= self.num_members:
+            raise ValueError(f"member_range: [{start}, {stop}) is not a "
+                             f"non-empty range of [0, {self.num_members})")
+        return LayeredPopulation(
+            self.in_features, self.out_features, self.widths[start:stop],
+            self.activations[start:stop], block=self.block,
+            n_pad=stop - max(start, self.num_real) if stop > self.num_real
+            else 0)
 
     def describe(self) -> str:
         by_depth = collections.Counter(self.member_depths)

@@ -1,1 +1,2 @@
-"""Checkpoint/restart training loop and straggler watchdog (one device)."""
+"""Checkpoint/restart training loop, straggler watchdog and elastic re-mesh
+(``fault_tolerance``); the population axis across ranks (``sharding``)."""

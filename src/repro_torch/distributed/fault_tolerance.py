@@ -1,5 +1,5 @@
-"""Fault tolerance on one device: the checkpoint/restart loop and the
-straggler watchdog.
+"""Fault tolerance: the checkpoint/restart loop, the straggler watchdog
+and the elastic re-mesh.
 
 The train loop is a RESUMABLE pure function of (checkpoint, step,
 data(step)):
@@ -17,7 +17,21 @@ Saves go through ``checkpoint.AsyncCheckpointer``: the state is
 snapshotted to the host at the save, the write runs off the training
 thread, and every restore joins the write in flight first.  A write that
 fails raises at the next save (a restart, like any failure) or at the
-run's end.  Not ported yet (ROADMAP.md): ``elastic_remesh``.
+run's end.
+
+On W ranks (``TrainRunner(shard=...)``, a
+``distributed.sharding.PopulationShard``) each rank steps its share of
+the population; a save gathers the shares to rank 0, the only writer; a
+restore reads the step rank 0 found committed and hands each rank its
+share of it.  A failure is acted on together: before every step the ranks
+all-reduce a flag (an injected failure, a straggler's strikes), and all
+of them restore when any raised it.  A failure inside a step (where the
+other ranks may wait in one of the step's collectives) ends the run: the
+process group's timeout bounds how long the others wait.
+
+``elastic_remesh`` puts a host state on a (new) world: any world the mesh
+rule accepts resumes any world's checkpoint, since a whole-member
+partition needs no divisibility.
 """
 from __future__ import annotations
 
@@ -52,6 +66,22 @@ class StragglerPolicy:
                 f"{self.timeout_s}s — requesting restart")
 
 
+def elastic_remesh(state, lp, mesh=None):
+    """The whole layout's host ``state`` (a tree of tensors: parameters,
+    optimizer state, or a dict of both) and a world → ``(mesh, shard,
+    this rank's share)``: the mesh of the job's current ranks
+    (``launch.mesh.make_host_mesh`` when ``mesh`` is None), this rank's
+    ``PopulationShard`` of ``lp`` on it, and its share of ``state`` (still
+    on the host).  The layout is not re-padded: a checkpoint's layout
+    wins, as in the JAX package."""
+    from repro_torch.distributed.sharding import PopulationShard
+    if mesh is None:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh()
+    shard = PopulationShard(lp, mesh)
+    return mesh, shard, shard.shard(state)
+
+
 def _host_copy(state):
     return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
 
@@ -66,7 +96,13 @@ class TrainRunner:
     GLOBAL step numbers while the runner counts chunks);
     ``ckpt_step_unmap`` maps a restored checkpoint's recorded step back
     into the runner's step domain.  ``on_restore(step)`` fires after every crash restore with the
-    step the replay re-enters at."""
+    step the replay re-enters at.
+
+    ``shard`` (a ``PopulationShard`` on more than one rank, with
+    ``full_like``: the whole layout's state tree, meta tensors are fine)
+    makes ``state`` this rank's share: saves gather to rank 0, restores
+    take this rank's share of rank 0's step, and failures are decided
+    together (module docstring)."""
 
     def __init__(self, step_fn, state, *, ckpt_dir: str,
                  ckpt_every: int = 50, keep_last: int = 3,
@@ -76,14 +112,17 @@ class TrainRunner:
                  ckpt_step_map: Optional[Callable[[int], int]] = None,
                  ckpt_step_unmap: Optional[Callable[[int], int]] = None,
                  ckpt_save_pred: Optional[Callable[[int], bool]] = None,
-                 on_restore: Optional[Callable[[int], None]] = None):
+                 on_restore: Optional[Callable[[int], None]] = None,
+                 shard=None, full_like=None):
         self.step_fn = step_fn
         self.state = state
         self.device = tree_leaves(state)[0].device
-        self.ckpt = AsyncCheckpointer(ckpt_dir, every=ckpt_every,
-                                      keep_last=keep_last, meta=ckpt_meta,
-                                      step_map=ckpt_step_map,
-                                      save_pred=ckpt_save_pred)
+        self.shard = shard if shard is not None and shard.sharded else None
+        self.full_like = full_like
+        self.ckpt = AsyncCheckpointer(
+            ckpt_dir, every=ckpt_every, keep_last=keep_last, meta=ckpt_meta,
+            step_map=ckpt_step_map, save_pred=ckpt_save_pred,
+            gather=None if self.shard is None else self.shard.gather_tree)
         self.ckpt_step_unmap = ckpt_step_unmap or (lambda s: s)
         self.on_restore = on_restore
         self.straggler = straggler or StragglerPolicy(timeout_s=1e9)
@@ -101,6 +140,10 @@ class TrainRunner:
     def _restore(self) -> int:
         self.ckpt.wait()
         steps = latest_steps(self.ckpt.directory)
+        if self.shard is not None:
+            # rank 0 wrote; every rank restores the step it found committed
+            last = self.shard.mesh.broadcast_int(steps[-1] if steps else -1)
+            steps = [last] if last >= 0 else []
         if not steps:
             if self._init_state_host is None:
                 raise RuntimeError(
@@ -109,6 +152,12 @@ class TrainRunner:
             self.state = tree_map(lambda t: t.to(self.device),
                                   self._init_state_host)
             step = 0
+        elif self.shard is not None:
+            full, saved = restore(self.ckpt.directory, self.full_like,
+                                  step=steps[-1], device="cpu")
+            self.state = tree_map(lambda t: t.to(self.device),
+                                  self.shard.shard(full))
+            step = self.ckpt_step_unmap(saved) + 1
         else:
             self.state, saved = restore(self.ckpt.directory, self.state,
                                         device=self.device)
@@ -117,8 +166,48 @@ class TrainRunner:
             self.on_restore(step)
         return step
 
+    def _fail(self, err) -> int:
+        self.restarts += 1
+        if self.restarts > self.max_restarts:
+            raise RuntimeError(
+                f"exceeded {self.max_restarts} restarts") from err
+        return self._restore()
+
+    def _run_sharded(self, num_steps: int, step: int) -> int:
+        """``run`` on W ranks: a failure outside a step is acted on by all
+        ranks together; one inside a step ends the run."""
+        late = None          # a straggler's strikes, acted on next step
+        while step < num_steps:
+            err, late = late, None
+            if err is None:
+                try:
+                    if self.failure_hook:
+                        self.failure_hook(step)
+                except KeyboardInterrupt:
+                    raise
+                except Exception as e:   # noqa: BLE001 — decided together
+                    err = e
+            if self.shard.mesh.agree(err is not None):
+                step = self._fail(err)
+                continue
+            t0 = time.time()
+            self.state, metrics = self.step_fn(self.state, step)
+            try:
+                self.straggler.observe(step, time.time() - t0)
+            except TimeoutError as e:
+                late = e
+            self.metrics_log.append((step, metrics))
+            self.ckpt.maybe_save(step, self.state)
+            if self._init_state_host is not None and self.ckpt.saved:
+                self._init_state_host = None
+            step += 1
+        self.ckpt.wait()
+        return step
+
     def run(self, num_steps: int, start_step: int = 0) -> int:
         step = start_step
+        if self.shard is not None:
+            return self._run_sharded(num_steps, step)
         while step < num_steps:
             try:
                 t0 = time.time()
@@ -134,10 +223,6 @@ class TrainRunner:
             except KeyboardInterrupt:
                 raise
             except Exception as e:   # noqa: BLE001 — restart on ANY failure
-                self.restarts += 1
-                if self.restarts > self.max_restarts:
-                    raise RuntimeError(
-                        f"exceeded {self.max_restarts} restarts") from e
-                step = self._restore()
+                step = self._fail(e)
         self.ckpt.wait()
         return step

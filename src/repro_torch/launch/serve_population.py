@@ -1,4 +1,5 @@
-"""Population serving engine: batched ensemble inference on one card.
+"""Population serving engine: batched ensemble inference on one card, or
+with ``--sharded`` under ``torchrun`` on several ranks.
 
 ``python -m repro_torch.launch.serve_population --ckpt-dir CKPT``
 
@@ -41,6 +42,17 @@ instance (``*_int8_bf16``), still depth+1 launches.
 device (``quant.quantize_population``), drops them, and every forward —
 publish, the serve steps, the launch budget — runs the fused-dequant
 kernels, still depth+1 launches.
+
+``--sharded`` under ``torchrun --nproc-per-node W`` serves the population
+axis across the W ranks (``distributed/sharding.py``): each rank restores
+its range of whole members (``restore_population(mesh=)``) and runs its
+share's forward — the same kernels, depth+1 launches of its own depth —
+on the whole request slab; the per-member logits go to rank 0 over the
+host, and rank 0 reduces best1, topk or all over the REAL members only
+(``core.ensemble``), so its answers are a one-rank server's.  ``publish``
+ranks the members' losses gathered from every rank.  The int8 copy is
+packed per rank, from the rank's share (every scale is a member's).
+Without a process group ``--sharded`` serves as one rank.
 """
 from __future__ import annotations
 
@@ -68,11 +80,11 @@ class PopulationServer:
     def __init__(self, params, layout, *, bd_impl: str = "fused",
                  act_impl: str = "pallas", compute_dtype=None,
                  weights_dtype=None, batch: int = 32, topk: int = 4,
-                 max_latency_ms: float = 5.0):
+                 max_latency_ms: float = 5.0, shard=None):
         self.weights_dtype = check_dtypes(compute_dtype, weights_dtype)
         self.compute_dtype = compute_dtype
         self.params = params
-        self.layout = layout
+        self._target(layout, shard)
         self.device = params["w_in"].device
         self.batch = int(batch)
         self.topk = int(topk)
@@ -88,6 +100,19 @@ class PopulationServer:
         self.board = None
         self.published: dict = {"all": None}
 
+    def _target(self, layout, shard):
+        """``layout`` is the whole layout; on W ranks (``shard``, a
+        ``PopulationShard`` of it) ``params`` are this rank's share and
+        every forward runs ``self.local``, its layout."""
+        self.layout = layout
+        self.shard = shard if shard is not None and shard.sharded else None
+        self.local = layout if self.shard is None else self.shard.local
+
+    @property
+    def is_writer(self) -> bool:
+        """The rank that reduces and answers: rank 0, or the only one."""
+        return self.shard is None or self.shard.is_writer
+
     def _staging(self, features: int) -> list[torch.Tensor]:
         """The two alternating host slabs (pinned when serving the card, so
         the copy to it is asynchronous)."""
@@ -99,7 +124,7 @@ class PopulationServer:
     # published member set                                              #
     # ----------------------------------------------------------------- #
 
-    def refresh(self, params, layout):
+    def refresh(self, params, layout, shard=None):
         """Re-target the server at new (params, layout) — e.g. a training
         run's state after a halving rung.  Everything keyed on the layout
         resets: the leaderboard and published sets, and the staging slabs
@@ -108,7 +133,7 @@ class PopulationServer:
         if layout.in_features != self.layout.in_features:
             self._host = self._staging(layout.in_features)
         self.params = params
-        self.layout = layout
+        self._target(layout, shard)
         self.device = params["w_in"].device
         # a halving rung may shrink the population below the served top-k
         self.topk = max(1, min(self.topk, real_slots(layout)))
@@ -125,7 +150,7 @@ class PopulationServer:
         if self._quantized:
             return
         from repro_torch.quant import quantize_population
-        self.params = quantize_population(self.params, self.layout)
+        self.params = quantize_population(self.params, self.local)
         self._quantized = True
 
     def publish(self, x_calib, y_calib, task: str = "classification",
@@ -136,8 +161,11 @@ class PopulationServer:
         Returns the leaderboard rows."""
         self._ensure_quantized()
         losses, accs = evaluate_population(
-            self.params, self.layout, x_calib, y_calib, task=task,
+            self.params, self.local, x_calib, y_calib, task=task,
             **self._fw)
+        if self.shard is not None:
+            losses = self.shard.gather_members(losses)
+            accs = None if accs is None else self.shard.gather_members(accs)
         self.board = leaderboard(self.layout, losses, accs,
                                  k=max(self.topk, 1), sort_by=sort_by)
         self.published = {
@@ -153,7 +181,9 @@ class PopulationServer:
 
     def _step(self, mode: str):
         """The eager serve step of ``mode`` over the current published set:
-        forward-only fused path, then the on-device ensemble reduction."""
+        forward-only fused path, then the on-device ensemble reduction (on
+        W ranks, on rank 0 over every rank's logits; the others' step
+        returns None)."""
         if mode not in ENSEMBLE_MODES:
             raise ValueError(f"unknown mode {mode!r} (have {ENSEMBLE_MODES})")
         if mode != "all" and mode not in self.published:
@@ -161,11 +191,18 @@ class PopulationServer:
                              "— call publish() first")
         self._ensure_quantized()
         ids = self.published.get(mode)
-        lp, fw = self.layout, self._fw
+        lp, local, fw, shard = self.layout, self.local, self._fw, self.shard
 
         def step(params, xb):
             with torch.inference_mode():
-                logits = forward(params, xb, lp, **fw)
+                logits = forward(params, xb, local, **fw)
+                if shard is not None:
+                    # (B, P_r, O) → rank 0's (B, P, O), over the host
+                    got = shard.gather_members(logits.transpose(1, 2),
+                                               dst=0)
+                    if got is None:
+                        return None
+                    logits = got.transpose(1, 2).to(xb.device)
                 return ensemble_predict(logits, lp, mode, member_ids=ids,
                                         with_uncertainty=True)
 
@@ -189,9 +226,10 @@ class PopulationServer:
         preds = np.zeros(n, np.int64)
         unc = np.zeros(n, np.float32)
         if warmup:
-            step(self.params, torch.zeros(
-                (self.batch, self.layout.in_features),
-                device=self.device))["pred"].cpu()
+            out = step(self.params, torch.zeros(
+                (self.batch, self.layout.in_features), device=self.device))
+            if out is not None:
+                out["pred"].cpu()
         t0 = time.perf_counter()
         i = 0
         while i < n:
@@ -202,15 +240,16 @@ class PopulationServer:
             if nb < self.batch:               # max-latency flush: timer fired
                 buf[nb:] = 0.0
             out = step(self.params, buf.to(self.device, non_blocking=True))
-            pred = out["pred"].cpu().numpy()[:nb]
-            mi = out["mutual_information"].cpu().numpy()[:nb]
+            if out is not None:
+                preds[i:i + nb] = out["pred"].cpu().numpy()[:nb]
+                unc[i:i + nb] = out["mutual_information"].cpu().numpy()[:nb]
+            elif self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             done = time.perf_counter() - t0
             # every request in the slab completes at the flush's done time;
             # a timer-fired partial slab waited out max_latency first
             lat[i:i + nb] = done + (self.max_latency_ms / 1e3
                                     if nb < self.batch else 0.0)
-            preds[i:i + nb] = pred
-            unc[i:i + nb] = mi
             i += nb
         wall = time.perf_counter() - t0
         return {
@@ -235,9 +274,10 @@ class PopulationServer:
         """One serve forward must advance the kernel counters by exactly
         depth+1: input + (depth−1) mid layers + infer head, each the
         instance of the served weights and compute dtype
-        (``launch_count.fused_infer_kernels``).  Raises otherwise."""
+        (``launch_count.fused_infer_kernels``); on W ranks, of this rank's
+        layout's depth.  Raises otherwise."""
         self._ensure_quantized()
-        lp = self.layout
+        lp = self.local
         xb = torch.zeros((self.batch, lp.in_features), device=self.device)
         before = kernel_launches()
         with torch.inference_mode():
@@ -259,11 +299,25 @@ class PopulationServer:
 
     @classmethod
     def from_checkpoint(cls, ckpt_dir: str, step: int | None = None,
-                        device="cuda", **kw):
-        from repro_torch.checkpoint.checkpoint import restore_population
-        params, layout, step = restore_population(ckpt_dir, step=step,
-                                                  device=device)
-        return cls(params, layout, **kw), step
+                        device="cuda", mesh=None, **kw):
+        """A server over a checkpoint; with ``mesh`` of W ranks, over this
+        rank's share (every rank reads the step rank 0 found)."""
+        from repro_torch.checkpoint.checkpoint import (latest_steps,
+                                                       restore_population)
+        from repro_torch.distributed.sharding import pop_axis_size
+        if pop_axis_size(mesh) == 1:
+            params, layout, step = restore_population(ckpt_dir, step=step,
+                                                      device=device)
+            return cls(params, layout, **kw), step
+        if step is None:
+            found = latest_steps(ckpt_dir) if mesh.is_writer else []
+            step = mesh.broadcast_int(found[-1] if found else -1)
+            if step < 0:
+                raise FileNotFoundError(
+                    f"no committed checkpoints under {ckpt_dir}")
+        params, layout, step, shard = restore_population(
+            ckpt_dir, step=step, device=device, mesh=mesh)
+        return cls(params, layout, shard=shard, **kw), step
 
 
 def main(argv=None) -> dict:
@@ -281,8 +335,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-latency-ms", type=float, default=5.0)
     ap.add_argument("--calib-samples", type=int, default=512)
     ap.add_argument("--sharded", action="store_true",
-                    help="shard the population over the visible cards "
-                    "(not ported yet: raises)")
+                    help="under torchrun: serve the population axis "
+                    "across the ranks (each rank its range of whole "
+                    "members, rank 0 reduces); without a process group, "
+                    "one rank")
     ap.add_argument("--bd-impl", default="fused",
                     choices=["fused", "pallas", "einsum"])
     ap.add_argument("--act-impl", default="pallas",
@@ -302,23 +358,44 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
                     "PyTorch versions)")
+    ap.add_argument("--dist-timeout", type=float, default=600.0,
+                    help="--sharded under torchrun: the process group's "
+                    "timeout in seconds")
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError("--sharded: multi-card serving is not "
-                                  "ported yet (ROADMAP.md)")
     check_dtypes(args.compute_dtype, args.weights_dtype)
+    mesh = None
+    if args.sharded:
+        from repro_torch.launch.mesh import make_host_mesh
+        mesh = make_host_mesh(timeout_s=args.dist_timeout)
+    try:
+        return _serve(args, mesh)
+    finally:
+        if mesh is not None:
+            from repro_torch.launch.mesh import close
+            close(mesh)
 
+
+def _serve(args, mesh) -> dict:
+    device = args.device
+    if mesh is not None and mesh.group is not None:
+        device = mesh.device(args.device)
+        print(mesh.describe(device), flush=True)
     server, step = PopulationServer.from_checkpoint(
-        args.ckpt_dir, step=args.step, device=args.device, batch=args.batch,
-        topk=args.topk, max_latency_ms=args.max_latency_ms,
-        bd_impl=args.bd_impl, act_impl=args.act_impl,
-        compute_dtype=args.compute_dtype, weights_dtype=args.weights_dtype)
+        args.ckpt_dir, step=args.step, device=device, mesh=mesh,
+        batch=args.batch, topk=args.topk,
+        max_latency_ms=args.max_latency_ms, bd_impl=args.bd_impl,
+        act_impl=args.act_impl, compute_dtype=args.compute_dtype,
+        weights_dtype=args.weights_dtype)
+    say = print if server.is_writer else (lambda *a, **k: None)
     lp = server.layout
-    print(f"restored step {step}: {real_slots(lp)} members "
-          f"(+{lp.num_members - real_slots(lp)} fillers), "
-          f"F={lp.in_features} O={lp.out_features} depth={lp.depth} "
-          f"on {server.device}")
+    say(f"restored step {step}: {real_slots(lp)} members "
+        f"(+{lp.num_members - real_slots(lp)} fillers), "
+        f"F={lp.in_features} O={lp.out_features} depth={lp.depth} "
+        f"on {server.device}")
+    if server.shard is not None:
+        say(f"sharded over {server.shard.n} ranks: members "
+            f"{list(server.shard.ranges)}")
 
     from repro_torch.data.synthetic import TabularTask
     task = TabularTask(args.calib_samples + args.requests, lp.in_features,
@@ -329,27 +406,35 @@ def main(argv=None) -> dict:
     budget = None
     if args.bd_impl == "fused":
         budget = server.check_budget()
-        print("launch budget:", budget)
+        say("launch budget:", budget)
     board = server.publish(xc, yc)
     served_bytes = serve_copy_bytes(server.params)
-    print(f"serving {args.weights_dtype or 'float32'} weights: "
-          f"{served_bytes} bytes of parameters on {server.device}"
-          + (f"; compute {args.compute_dtype}" if args.compute_dtype
-             else ""))
-    print(f"published: best1={server.published['best1']} "
-          f"topk={server.published['topk']}")
+    say(f"serving {args.weights_dtype or 'float32'} weights: "
+        f"{served_bytes} bytes of parameters on {server.device}"
+        + (" (this rank's share)" if server.shard is not None else "")
+        + (f"; compute {args.compute_dtype}" if args.compute_dtype
+           else ""))
+    say(f"published: best1={server.published['best1']} "
+        f"topk={server.published['topk']}")
     for row in board[:3]:
-        print("  ", row)
+        say("  ", row)
     results = {}
+    preds = {}
     for mode in args.modes:
         r = server.run(xr[:args.requests], mode)
         results[mode] = {k: v for k, v in r.items()
                          if k not in ("pred", "mutual_information")}
-        print(f"{mode:6s} members={r['members_served']:3d} "
-              f"p50={r['p50_ms']:.2f}ms p99={r['p99_ms']:.2f}ms "
-              f"{r['req_per_s']:.0f} req/s")
+        preds[mode] = r["pred"]
+        say(f"{mode:6s} members={r['members_served']:3d} "
+            f"p50={r['p50_ms']:.2f}ms p99={r['p99_ms']:.2f}ms "
+            f"{r['req_per_s']:.0f} req/s")
     out = {"step": step, "budget": budget, "board": board, "serve": results,
            "serve_copy_bytes": served_bytes}
+    if server.shard is not None:
+        out["ranks"] = list(server.shard.ranges)
+    if not server.is_writer:
+        return out
+    out["pred"] = {m: p.tolist() for m, p in preds.items()}
     if args.json_out:
         with open(args.json_out, "w") as f:
             json.dump(out, f, indent=2, default=str)

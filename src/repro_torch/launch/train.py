@@ -69,7 +69,20 @@ next chunk is launched.  ``--pipeline off`` builds and copies the same way
 on the training thread and fetches each chunk's metrics before the next
 launch.  The trajectory is bitwise the same either way.
 
-Single device: the population is not shard-padded.
+Under ``torchrun --nproc-per-node W`` (W of 2, 4, 8 or 16;
+``launch/mesh.py``) the population axis spans the W ranks, as the JAX
+driver's does a mesh's ``model`` axis (``distributed/sharding.py``): the
+layout is shard-padded to W (``shard_pad``; the fillers drawn from a
+generator seeded from ``(seed, 1)``, the real members bitwise a one-rank
+init), each rank trains a contiguous range of whole members on the same
+kernels, and the ranks meet only where the reference mixes members (the
+clip's global norm, adafactor's member-axis statistics), to gather
+per-member losses for the reports and the rungs, and to gather the state
+to rank 0, the only writer of checkpoints, and to every rank at a rung,
+where the one-rank code compacts, refills or grows it before it is
+re-padded and re-partitioned.  A checkpoint of either package, padded for
+any world, resumes on any W (its layout wins).  Only rank 0 prints the
+run's reports.  On one rank nothing of this runs.
 """
 from __future__ import annotations
 
@@ -166,10 +179,7 @@ def fresh_member_params(seed: int, rung: int, fresh_lp, device) -> dict:
     draws the same newborns (the JAX package folds the same numbers into
     its ``jax.random`` key: the same distribution, other numbers)."""
     from repro_torch.core.deep import init_params
-    state = np.random.SeedSequence([int(seed), 5000 + int(rung)])
-    gen = torch.Generator(device=device).manual_seed(
-        int(state.generate_state(1, np.uint32)[0]))
-    return init_params(gen, fresh_lp)
+    return init_params(_seeded(seed, 5000 + int(rung), device), fresh_lp)
 
 
 def rewarm_adafactor_state(fresh, carried):
@@ -189,6 +199,18 @@ def rewarm_adafactor_state(fresh, carried):
                                is_leaf=is_state_leaf)}
 
 
+def _seeded(seed: int, k: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from ``(seed, k)`` (the counterpart
+    of JAX's ``fold_in(key, k)``: the same role, other numbers)."""
+    state = np.random.SeedSequence([int(seed), int(k)])
+    return torch.Generator(device=device).manual_seed(
+        int(state.generate_state(1, np.uint32)[0]))
+
+
+def _quiet(*args, **kwargs):
+    """``print`` of a rank other than 0."""
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -199,14 +221,18 @@ def _memory(device):
             else None)
 
 
-def run_population(arch, args):
-    """Fused population training on one device → ``(params, layout,
-    stats)``; ``stats``: first/last mean member loss, steps, seconds,
-    restarts, member steps, chunk builds, and with ``--halving`` one entry
-    per trained segment (``segments``: steps, members, fused widths,
-    seconds, kernel launches, tables built) and per rung (``rungs``: the
-    eval, the gather and the table build, each timed, and the device
-    memory after)."""
+def run_population(arch, args, mesh=None):
+    """Fused population training → ``(params, layout, stats)``; ``stats``:
+    first/last mean member loss, steps, seconds, restarts, member steps,
+    chunk builds, and with ``--halving`` one entry per trained segment
+    (``segments``: steps, members, fused widths, seconds, kernel launches,
+    tables built) and per rung (``rungs``: the eval, the gather and the
+    table build, each timed, and the device memory after).
+
+    ``mesh`` (``launch.mesh.make_host_mesh``) of W ranks: ``params`` is
+    this rank's share of the WHOLE layout returned, ``stats["ranks"]`` the
+    ranks' member ranges and ``stats["rank_fused_hidden"]`` their fused
+    widths."""
     from repro_torch import device as device_mod
     from repro_torch.checkpoint.checkpoint import (latest_steps,
                                                    layout_from_meta,
@@ -217,6 +243,7 @@ def run_population(arch, args):
                                                    restore_population,
                                                    save_population)
     from repro_torch.core import deep
+    from repro_torch.core.tree import tree_map
     from repro_torch.core.lifecycle import (HalvingSchedule, compact,
                                             compact_factored, grow,
                                             grow_params, refill_params,
@@ -229,6 +256,8 @@ def run_population(arch, args):
     from repro_torch.device import resolve
     from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
                                                          TrainRunner)
+    from repro_torch.distributed.sharding import (PopulationShard,
+                                                  pop_axis_size)
     from repro_torch.launch.launch_count import kernel_launches
     from repro_torch.optim.optimizers import (adafactor, adamw, sgd,
                                               warmup_cosine)
@@ -245,12 +274,26 @@ def run_population(arch, args):
         controller = RefillController(space, mode=refill_mode,
                                       seed=args.seed,
                                       exploit_frac=args.refill_exploit_frac)
+    W = pop_axis_size(mesh)
+    # the population axis the layout is padded for: the world's, unless
+    # --shard-pad asks for another (one rank can then follow W ranks' run)
+    pad = getattr(args, "shard_pad", None) or W
+    say = print if W == 1 or mesh.is_writer else _quiet
     if args.ckpt_dir is None:
         if args.resume:
             raise SystemExit("--resume needs --ckpt-dir")
-        args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
-        print(f"checkpoints: {args.ckpt_dir}")
-    device = resolve(args.device)
+        if W == 1:
+            args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        else:        # one directory for the job: rank 0's
+            args.ckpt_dir = mesh.broadcast_object(
+                tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+                if mesh.is_writer else None)
+        say(f"checkpoints: {args.ckpt_dir}")
+    if W == 1:
+        device = resolve(args.device)
+    else:
+        device = mesh.device(args.device)
+        print(mesh.describe(device), flush=True)
     opt_name = args.optimizer or arch.optimizer
     grad_clip = args.grad_clip if args.grad_clip else None
     if opt_name not in ("sgd", "momentum", "adamw", "adafactor"):
@@ -269,32 +312,41 @@ def run_population(arch, args):
         model = arch.model
         lp = model.layered() if isinstance(model, Population) else model
     scan = max(args.scan_steps, 1)
-    print(f"device={device} scan_steps={scan}")
+    if W == 1:
+        print(f"device={device} scan_steps={scan}")
+    else:
+        say(f"mesh={dict(mesh.shape)} device={device} scan_steps={scan}")
 
     start = 0
     rung = 0
     life = {}
-    resuming = bool(args.resume and latest_steps(args.ckpt_dir))
+    ck_step = None
+    if W == 1:
+        resuming = bool(args.resume and latest_steps(args.ckpt_dir))
+    else:
+        # the job resumes the step rank 0 found committed
+        found = (latest_steps(args.ckpt_dir)
+                 if args.resume and mesh.is_writer else [])
+        ck_step = mesh.broadcast_int(found[-1] if found else -1)
+        resuming = ck_step >= 0
     if resuming:
-        meta, last = load_meta(args.ckpt_dir)
+        meta, last = load_meta(args.ckpt_dir, ck_step)
         stored = require_optimizer_match(meta, opt_record)
         if stored is None and opt_name != "sgd":
             raise SystemExit(
                 f"--resume: the checkpoint at step {last} carries no "
                 "optimizer state; it can only resume with the stateless "
                 "'--optimizer sgd'")
+        # the checkpoint's layout wins, shard-padded for whatever world
+        # wrote it: a whole-member partition needs no divisibility
         lp = layout_from_meta(meta)
-        if lp.n_pad:
-            raise NotImplementedError(
-                "--resume: the checkpoint's layout is shard-padded for a "
-                "multi-device mesh; multi-GPU is not ported yet "
-                "(ROADMAP.md, Queue 1, item 8)")
         rung, member_ids, n0 = lifecycle_from_meta(meta, lp)
         life = meta.get("lifecycle") or {}
         start = last + 1
     else:
         n0 = lp.num_members
         member_ids = np.arange(n0)
+        lp_real, lp = lp, lp.shard_pad(pad)
 
     # ---- per-member recipe vectors over the ORIGINAL n0 members, indexed
     # by original id (a refilled member appends its recipe at its fresh
@@ -324,16 +376,16 @@ def run_population(arch, args):
                         lambda: space.init_wd(args.seed, n0,
                                               args.weight_decay))
     if lr0 is not None:
-        print(f"per-member learning rates in "
-              f"[{arch.lr * space.lr_scale[0]:.4f}, "
-              f"{arch.lr * space.lr_scale[1]:.4f}]")
+        say(f"per-member learning rates in "
+            f"[{arch.lr * space.lr_scale[0]:.4f}, "
+            f"{arch.lr * space.lr_scale[1]:.4f}]")
     if mom0 is not None:
-        print(f"per-member momentum in [{space.momentum_range[0]:.2f}, "
-              f"{space.momentum_range[1]:.2f}]")
+        say(f"per-member momentum in [{space.momentum_range[0]:.2f}, "
+            f"{space.momentum_range[1]:.2f}]")
     if wd0 is not None:
-        print(f"per-member weight decay in "
-              f"[{args.weight_decay * space.wd_scale[0]:.5f}, "
-              f"{args.weight_decay * space.wd_scale[1]:.5f}]")
+        say(f"per-member weight decay in "
+            f"[{args.weight_decay * space.wd_scale[0]:.5f}, "
+            f"{args.weight_decay * space.wd_scale[1]:.5f}]")
 
     # ---- lineage: original id → (parent id, birth rung); ids come from a
     # counter above every id issued, so a newborn never aliases a seed
@@ -344,12 +396,16 @@ def run_population(arch, args):
         lineage = {int(k): (int(v[0]), int(v[1]))
                    for k, v in (life.get("lineage") or {}).items()}
 
-    def member_tree(vec0, lp):
-        """A recipe vector indexed down to the layout's slots, expanded to
-        a scale tree on the device: copied there once per layout or
-        recipe change, not once a step."""
-        v = torch.as_tensor(vec0[member_ids], device=device)
-        return deep.member_lr_tree(lp, v)
+    def member_tree(vec0, base, sh):
+        """A recipe vector indexed down to the layout's slots (fillers get
+        ``base``), cut to this rank's members and expanded to a scale tree
+        on the device: copied there once per layout or recipe change, not
+        once a step."""
+        v = vec0[member_ids]
+        if sh.lp.n_pad:
+            v = np.concatenate([v, np.full(sh.lp.n_pad, base, v.dtype)])
+        v = torch.as_tensor(v[sh.start:sh.stop], device=device)
+        return deep.member_lr_tree(sh.local, v)
 
     # bumped by every build_opt: part of the chunk cache's key, so a
     # rebuilt optimizer (new momentum / decay trees) builds a new chunk,
@@ -357,42 +413,54 @@ def run_population(arch, args):
     # per-member lr only) reuses it
     opt_epoch = 0
 
-    def build_opt(lp):
+    def build_opt(sh):
         nonlocal opt_epoch
         opt_epoch += 1
         if opt_name == "sgd":
             return sgd()
         if opt_name == "momentum":
             return sgd(momentum=args.momentum if mom0 is None
-                       else member_tree(mom0, lp))
-        wd = args.weight_decay if wd0 is None else member_tree(wd0, lp)
+                       else member_tree(mom0, args.momentum, sh))
+        wd = (args.weight_decay if wd0 is None
+              else member_tree(wd0, args.weight_decay, sh))
         if opt_name == "adamw":
             return adamw(weight_decay=wd, state_dtype=args.opt_state_dtype)
         return adafactor(weight_decay=wd)
 
+    sh = PopulationShard(lp, mesh)
     if resuming:
-        opt = build_opt(lp)
+        opt = build_opt(sh)
+        at = {} if W == 1 else {"step": ck_step, "mesh": mesh}
         if stored is None:
-            params, lp_ckpt, _ = restore_population(args.ckpt_dir,
-                                                    device=device)
+            params, lp_ckpt, *_ = restore_population(args.ckpt_dir,
+                                                     device=device, **at)
             opt_state = opt.init(params)
         else:
-            params, lp_ckpt, _, opt_state = restore_population(
+            params, lp_ckpt, _, opt_state, *_ = restore_population(
                 args.ckpt_dir, device=device,
-                extra_like=opt.init(deep.abstract_params(lp)))
+                extra_like=opt.init(deep.abstract_params(lp)), **at)
         if lp_ckpt != lp:
             raise ValueError("--resume: the checkpoint's layout does not "
                              "match its meta")
-        print(f"resumed from step {last}"
-              + (f" (rung {rung}, {lp.num_real} survivors)"
-                 if rung else ""))
+        say(f"resumed from step {last}"
+            + (f" (rung {rung}, {lp.num_real} survivors)"
+               if rung else ""))
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = deep.init_params(gen, lp)
-        opt = build_opt(lp)
-        opt_state = opt.init(params)
-    print(f"population: {lp.describe()}  optimizer: {opt_name}"
-          + (f" (grad clip {grad_clip})" if grad_clip else ""))
+        params = deep.init_params(gen, lp_real)
+        if lp is not lp_real:
+            # born padded: the real members bitwise a one-rank init, the
+            # fillers from their own generator; each rank keeps its share
+            params = deep.pad_params(params, lp_real, lp,
+                                     _seeded(args.seed, 1, device))
+        opt = build_opt(sh)
+        opt_state = opt.init(params)    # factored by the whole shapes
+        params, opt_state = sh.shard(params), sh.shard(opt_state)
+    say(f"population: {lp.describe()}  optimizer: {opt_name}"
+        + (f" (grad clip {grad_clip})" if grad_clip else ""))
+    if W > 1:
+        say(f"population axis: {W} ranks, members {list(sh.ranges)}, "
+            f"fused widths {sh.widths()}")
 
     task = TabularTask(args.samples, lp.in_features,
                        n_classes=lp.out_features, seed=args.seed)
@@ -429,24 +497,27 @@ def run_population(arch, args):
     pf = None          # ONE Prefetcher for the run, retargeted per rung
     pending = []       # the in-flight chunk's DeferredMetrics (≤ 1)
 
-    def train_segment(params, opt_state, lp, opt, seg_start, seg_end):
-        """Global steps [seg_start, seg_end) under the current layout, in
-        chunks of ``scan`` steps under a ``TrainRunner``.  With
-        ``--pipeline on`` chunk c+1's slab is built and copied by the
-        prefetcher while chunk c runs, and chunk c's metrics resolve after
-        chunk c+1 is launched; with ``off`` the same builder runs on this
-        thread and each chunk's metrics resolve before the next launch."""
+    def train_segment(params, opt_state, sh, opt, seg_start, seg_end):
+        """Global steps [seg_start, seg_end) under the current layout
+        (``sh.lp``; this rank trains ``sh.local``), in chunks of ``scan``
+        steps under a ``TrainRunner``.  With ``--pipeline on`` chunk c+1's
+        slab is built and copied by the prefetcher while chunk c runs, and
+        chunk c's metrics resolve after chunk c+1 is launched; with
+        ``off`` the same builder runs on this thread and each chunk's
+        metrics resolve before the next launch."""
         nonlocal pf
-        key = (lp, opt_epoch)
+        lp = sh.lp
+        key = (sh.local, opt_epoch)
         if key not in chunk:
             chunk.clear()
             chunk[key] = deep.make_population_train_step(
-                lp, optimizer=opt, grad_clip=grad_clip, scan_steps=scan,
-                lr_schedule=lr_sched, compute_dtype=args.compute_dtype,
+                sh.local, optimizer=opt, grad_clip=grad_clip,
+                scan_steps=scan, lr_schedule=lr_sched,
+                compute_dtype=args.compute_dtype, reduce=sh.reduce,
                 **route)
             stats["chunk_builds"] += 1
         chunk_fn = chunk[key]
-        lr = arch.lr if lr0 is None else member_tree(lr0, lp)
+        lr = arch.lr if lr0 is None else member_tree(lr0, arch.lr, sh)
         n_chunks = (seg_end - seg_start + scan - 1) // scan
 
         # one probe batch pins the staging dtypes/shapes (a pure function
@@ -488,8 +559,10 @@ def run_population(arch, args):
             def resolve():
                 if ev is not None:
                     ev.synchronize()
-                # the mean runs over REAL members only
-                per = per_host.numpy()
+                # the mean runs over REAL members only (on W ranks, of the
+                # per-member losses gathered from every rank)
+                per = (per_host.numpy() if not sh.sharded else
+                       sh.gather_members(per_host)[:, :lp.num_real].numpy())
                 stats.setdefault("first_loss", float(per[0].mean()))
                 mean = float(per[-1].mean())
                 stats["last_loss"] = mean
@@ -500,8 +573,8 @@ def run_population(arch, args):
                 if c % print_every == 0:
                     gn = (f"  grad norm {metrics['grad_norm']:.3f}"
                           if gn_host is not None else "")
-                    print(f"step {g0 + n - 1:4d}  mean member loss "
-                          f"{mean:.4f}{gn}")
+                    say(f"step {g0 + n - 1:4d}  mean member loss "
+                        f"{mean:.4f}{gn}")
                 return metrics
             return resolve
 
@@ -514,7 +587,8 @@ def run_population(arch, args):
                 p, st, _losses, pers, gnorms = chunk_fn(
                     state["params"], state["extra"], xs, ys, lr, g0)
                 # the host copies of this chunk's metrics, queued now
-                per_host = pers[:, :lp.num_real].to("cpu", non_blocking=True)
+                per_host = (pers if sh.sharded else pers[:, :lp.num_real]
+                            ).to("cpu", non_blocking=True)
                 gn_host = (None if gnorms is None
                            else gnorms[n - 1:n].to("cpu", non_blocking=True))
                 ev = None
@@ -558,7 +632,10 @@ def run_population(arch, args):
                                         seg_end) - 1,
             ckpt_step_unmap=lambda g: (g + 1 - seg_start) // scan - 1,
             ckpt_save_pred=chunk_crosses_cadence,
-            on_restore=on_restore)
+            on_restore=on_restore, shard=sh,
+            full_like=None if not sh.sharded else {
+                "params": deep.abstract_params(lp),
+                "extra": opt.init(deep.abstract_params(lp))})
         n_before = kernel_launches()
         tables_before = device_mod.table_builds
         t0 = time.perf_counter()
@@ -578,6 +655,9 @@ def run_population(arch, args):
             "launches": {k: n_after[k] - n_before[k] for k in n_after
                          if n_after[k] != n_before[k]},
             "tables_built": device_mod.table_builds - tables_before})
+        if sh.sharded:
+            stats["segments"][-1].update(
+                ranks=list(sh.ranges), rank_fused_hidden=sh.widths())
         stats["restarts"] += runner.restarts
         stats["member_steps"] += lp.num_real * (seg_end - seg_start)
         return runner.state["params"], runner.state["extra"]
@@ -591,24 +671,25 @@ def run_population(arch, args):
         n_eval = min(n_eval, args.rung_eval_batches * args.batch)
     server = None
 
-    def publish_live(params, lp):
+    def publish_live(params, sh):
         """--serve-publish: refresh the serving leaderboard from the LIVE
         run, so that the published member set tracks the halving ladder
         (rung boundaries and the final state).  One f32 server (top-k
         ``min(4, real members)``), re-targeted at each call; scored over
-        the rung evals' calibration rows."""
+        the rung evals' calibration rows (on W ranks, each rank's share)."""
         nonlocal server
         from repro_torch.launch.serve_population import PopulationServer
+        lp = sh.lp
         if server is None:
             server = PopulationServer(params, lp, bd_impl=args.bd_impl,
                                       act_impl=args.act_impl,
                                       batch=args.batch,
-                                      topk=min(4, lp.num_real))
+                                      topk=min(4, lp.num_real), shard=sh)
         else:
-            server.refresh(params, lp)
+            server.refresh(params, lp, shard=sh)
         server.publish(xte[:n_eval], yte[:n_eval])
-        print(f"published: best1={server.published['best1']} "
-              f"topk={server.published['topk']}")
+        say(f"published: best1={server.published['best1']} "
+            f"topk={server.published['topk']}")
         stats.setdefault("published", []).append(
             {"step": pos - 1, "best1": list(server.published["best1"]),
              "topk": list(server.published["topk"])})
@@ -620,7 +701,7 @@ def run_population(arch, args):
                        len(segments)):
             seg_end, keep_frac = segments[i]
             if pos < seg_end:
-                params, opt_state = train_segment(params, opt_state, lp, opt,
+                params, opt_state = train_segment(params, opt_state, sh, opt,
                                                   pos, seg_end)
                 pos = seg_end
             if keep_frac is None:
@@ -631,10 +712,10 @@ def run_population(arch, args):
             tables_before = device_mod.table_builds
             launches_before = sum(kernel_launches().values())
             t_r = time.perf_counter()
-            losses, _ = evaluate_population(params, lp, xte[:n_eval],
+            losses, _ = evaluate_population(params, sh.local, xte[:n_eval],
                                             yte[:n_eval], infer=True, **route)
             n_before = lp.num_real
-            rung_losses = losses.cpu().numpy()[:n_before]
+            rung_losses = sh.gather_members(losses.cpu()).numpy()[:n_before]
             keep = survivors(rung_losses, keep_frac)
             t_eval = time.perf_counter() - t_r
             eval_launches = sum(kernel_launches().values()) - launches_before
@@ -661,6 +742,14 @@ def run_population(arch, args):
                 next_id += len(plan.members)
                 stats["refilled"] += len(plan.members)
             t_g = time.perf_counter()
+            if sh.sharded:
+                # every rank takes the whole state and runs the one-rank
+                # code on it: the same survivors, refills and growth
+                full = sh.gather_tree({"params": params, "extra": opt_state},
+                                      everywhere=True)
+                full = tree_map(lambda t: t.to(device), full)
+                params, opt_state = full["params"], full["extra"]
+                del full
             if refill_mode == "pbt":
                 # the population size is held: the layout, its tables and the
                 # chunk stay; one gather/scatter and a moment mask
@@ -679,7 +768,7 @@ def run_population(arch, args):
                 for f in plan.members:
                     member_ids[f.slot] = f.member_id
                 if mom0 is not None or wd0 is not None:
-                    opt = build_opt(lp)       # new recipe trees: a new chunk
+                    opt = build_opt(sh)       # new recipe trees: a new chunk
                 hit = (lp, opt_epoch) in chunk
                 n_ex = sum(1 for f in plan.members if f.origin == "exploit")
                 msg = (f"pruned {n_before - len(keep)}/{n_before}, refilled "
@@ -731,21 +820,40 @@ def run_population(arch, args):
                     member_ids = np.asarray(ids, member_ids.dtype)
                     msg = (f"kept {len(keep)}/{n_before}, grew "
                            f"{len(plan.members)} sampled archs -> ")
+                if pad > 1:
+                    # re-pad to the ranks, the fillers from a generator of
+                    # this rung, zero moments
+                    lp_pad = lp_new.shard_pad(pad)
+                    params = deep.pad_params(
+                        params, lp_new, lp_pad,
+                        _seeded(args.seed, 1000 + rung, device))
+                    if carry is not None and carry["m"] is not None:
+                        carry = {**carry, "m": deep.pad_state(
+                            carry["m"], lp_new, lp_pad)}
+                    elif carry is None:
+                        opt_state = deep.pad_state(opt_state, lp_new, lp_pad)
+                    lp_new = lp_pad
                 lp = lp_new
-                opt = build_opt(lp)
+                sh = PopulationShard(lp, mesh)
+                opt = build_opt(sh)
                 if carry is not None:
                     opt_state = rewarm_adafactor_state(opt.init(params), carry)
                 msg += lp.describe()
+            full = None
+            if sh.sharded:
+                full = (params, opt_state)
+                params, opt_state = sh.shard(params), sh.shard(opt_state)
             _sync(device)
             t_gather = time.perf_counter() - t_g
             t_b = time.perf_counter()
             if refill_mode != "pbt":
-                deep.build_tables(lp, device, per_member=lr0 is not None
+                deep.build_tables(sh.local, device,
+                                  per_member=lr0 is not None
                                   or mom0 is not None or wd0 is not None,
                                   **route)
                 _sync(device)
             t_tables = time.perf_counter() - t_b
-            print(f"rung {i} @ step {pos - 1}: {msg}")
+            say(f"rung {i} @ step {pos - 1}: {msg}")
             stats["rungs"].append({
                 "rung": rung, "step": pos - 1, "members_before": n_before,
                 "members": lp.num_real, "depth": lp.depth,
@@ -755,16 +863,22 @@ def run_population(arch, args):
                 "gather_s": t_gather, "tables_s": t_tables,
                 "tables_built": device_mod.table_builds - tables_before,
                 "memory_allocated": _memory(device)})
-            if args.ckpt_every:
+            if sh.sharded:
+                stats["rungs"][-1].update(ranks=list(sh.ranges),
+                                          rank_fused_hidden=sh.widths())
+            if args.ckpt_every and (full is None or sh.is_writer):
                 # force-save the post-rung state at the last COMPLETED step,
                 # overwriting any cadence save of it: the latest checkpoint
-                # always matches the live layout
-                save_population(args.ckpt_dir, pos - 1, params, lp,
-                                extra_state=opt_state,
+                # always matches the live layout (on W ranks rank 0 writes
+                # the whole state every rank held)
+                p_all, st_all = full or (params, opt_state)
+                save_population(args.ckpt_dir, pos - 1, p_all, lp,
+                                extra_state=st_all,
                                 lifecycle=lifecycle_meta(),
                                 train_meta=train_meta)
+            del full
             if args.serve_publish:
-                publish_live(params, lp)
+                publish_live(params, sh)
     finally:
         # no producer thread outlives the run, whether it returns or raises
         if pf is not None:
@@ -775,33 +889,47 @@ def run_population(arch, args):
 
     steps_run = max(total - start, 0)
     stats.update(steps=steps_run, seconds=dt, explored=next_id)
+    if sh.sharded:
+        stats.update(ranks=list(sh.ranges), rank_fused_hidden=sh.widths())
     if steps_run:
         loss0 = stats.get("first_loss", 0.0)
         loss = stats.get("last_loss", 0.0)
         pop_desc = (f"{n0}->{lp.num_real}" if lp.num_real != n0
                     else f"{lp.num_real}")
-        print(f"trained {pop_desc} MLPs × {steps_run} steps in "
-              f"{dt:.1f}s ({stats['member_steps'] / max(dt, 1e-9):.0f} "
-              f"model-steps/s); loss {loss0:.4f} -> {loss:.4f}")
+        say(f"trained {pop_desc} MLPs × {steps_run} steps in "
+            f"{dt:.1f}s ({stats['member_steps'] / max(dt, 1e-9):.0f} "
+            f"model-steps/s); loss {loss0:.4f} -> {loss:.4f}")
         if refill_mode != "off":
-            print(f"explored {next_id} models ({stats['refilled']} "
-                  f"refilled) in {dt:.1f}s ({next_id / max(dt, 1e-9):.2f} "
-                  f"models/s); {stats['chunk_builds']} chunk builds")
+            say(f"explored {next_id} models ({stats['refilled']} "
+                f"refilled) in {dt:.1f}s ({next_id / max(dt, 1e-9):.2f} "
+                f"models/s); {stats['chunk_builds']} chunk builds")
         if args.ckpt_every:
             # final checkpoint ONLY if the cadence didn't just write it
-            saved = latest_steps(args.ckpt_dir)
-            if not saved or saved[-1] != total - 1:
-                save_population(args.ckpt_dir, total - 1, params, lp,
-                                extra_state=opt_state,
-                                lifecycle=lifecycle_meta(),
-                                train_meta=train_meta)
+            # (rank 0's directory decides for every rank)
+            saved = latest_steps(args.ckpt_dir) if sh.is_writer else []
+            need = not saved or saved[-1] != total - 1
+            if sh.sharded:
+                need = bool(mesh.broadcast_int(need))
+            if need:
+                p_all, st_all = params, opt_state
+                if sh.sharded:
+                    got = sh.gather_tree({"params": params,
+                                          "extra": opt_state})
+                    p_all, st_all = (got or {}).get("params"), \
+                        (got or {}).get("extra")
+                if sh.is_writer:
+                    save_population(args.ckpt_dir, total - 1, p_all, lp,
+                                    extra_state=st_all,
+                                    lifecycle=lifecycle_meta(),
+                                    train_meta=train_meta)
     if args.serve_publish:
         # final refresh: the served set matches the state the run ended on
-        publish_live(params, lp)
+        publish_live(params, sh)
 
-    losses, accs = evaluate_population(params, lp, xte, yte, infer=True,
-                                       **route)
-    print("leaderboard:")
+    losses, accs = evaluate_population(params, sh.local, xte, yte,
+                                       infer=True, **route)
+    losses, accs = sh.gather_members(losses), sh.gather_members(accs)
+    say("leaderboard:")
     for row in leaderboard(lp, losses, accs, k=min(10, lp.num_real),
                            member_ids=member_ids,
                            lineage=lineage if refill_mode != "off"
@@ -812,9 +940,9 @@ def run_population(arch, args):
             lin = (f"  born r{li['born_rung']}"
                    + (f" of {li['parent']}" if li["parent"] >= 0
                       else " fresh" if li["born_rung"] else " seed"))
-        print(f"  #{row['rank']:2d} member {row['member']:4d} "
-              f"hidden={row['hidden']} {row['activation']:11s} "
-              f"loss={row['loss']:.4f} acc={row['acc']:.3f}{lin}")
+        say(f"  #{row['rank']:2d} member {row['member']:4d} "
+            f"hidden={row['hidden']} {row['activation']:11s} "
+            f"loss={row['loss']:.4f} acc={row['acc']:.3f}{lin}")
     return params, lp, stats
 
 
@@ -918,12 +1046,27 @@ def main(argv=None):
                          "the slot-arch-matching survivors")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the kernels' plain "
-                         "PyTorch versions)")
+                         "PyTorch versions); under torchrun each rank "
+                         "takes cuda:(LOCAL_RANK mod the cards)")
+    ap.add_argument("--shard-pad", type=int, default=None,
+                    help="pad the population for this many ranks of the "
+                         "population axis (default: the world's), so that "
+                         "a run on fewer ranks follows theirs member for "
+                         "member, fillers included")
+    ap.add_argument("--dist-timeout", type=float, default=600.0,
+                    help="under torchrun: the process group's timeout in "
+                         "seconds, the longest a rank waits for the others "
+                         "in a collective before the run fails")
     args = ap.parse_args(argv)
 
     from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import close, make_host_mesh
     arch = get_arch(args.arch, reduced=args.reduced)
-    return run_population(arch, args)
+    mesh = make_host_mesh(timeout_s=args.dist_timeout)
+    try:
+        return run_population(arch, args, mesh=mesh)
+    finally:
+        close(mesh)
 
 
 if __name__ == "__main__":

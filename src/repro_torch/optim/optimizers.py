@@ -12,6 +12,8 @@ tensors), with the JAX package's update rules and state trees.
 API: ``Optimizer(init, update)``.
   init(params) -> state
   update(grads, state, params, lr) -> (updates, new_state)   # updates: deltas
+  update(..., reduce=r)  a rank's share of a population: ``r`` sums over
+                         the ranks where the rule mixes members
 
 The state trees keep the JAX package's keys (``count``, ``mu``, ``m``,
 ``v``; adafactor ``count`` and ``leaves``, a parameter tree of per-param
@@ -50,15 +52,18 @@ def tree_zeros_like(tree, dtype=None):
                     tree)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, reduce=None) -> torch.Tensor:
+    """The l2 norm of every leaf together; with ``reduce`` (a rank's share
+    of a population, ``distributed.sharding.PopulationReduce``) the
+    squares are summed over the ranks first."""
+    sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
+    return torch.sqrt(sq if reduce is None else reduce.sum(sq))
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, reduce=None):
     """→ (grads scaled to a global norm of at most ``max_norm``, the norm
-    before clipping)."""
-    norm = global_norm(grads)
+    before clipping); ``reduce`` as in :func:`global_norm`."""
+    norm = global_norm(grads, reduce)
     scale = torch.clamp(_f32(max_norm, norm)
                         / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
@@ -130,7 +135,8 @@ def sgd(momentum=0.0, nesterov: bool = False) -> Optimizer:
             st["mu"] = tree_zeros_like(params, torch.float32)
         return st
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, reduce=None):
+        # elementwise: a rank's share updates alone (``reduce`` unused)
         lrs = broadcast_lr(lr, grads)
         if not stateful:
             upd = tree_map(lambda g, l: -l * g.float(), grads, lrs)
@@ -166,7 +172,8 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
                 "m": tree_zeros_like(params, state_dtype),
                 "v": tree_zeros_like(params, state_dtype)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, reduce=None):
+        # elementwise: a rank's share updates alone (``reduce`` unused)
         c = state["count"] + 1
         cf = c.float()
         bc1 = 1.0 - torch.pow(_f32(b1, cf), cf)
@@ -221,7 +228,17 @@ def adafactor(b2: float = 0.99, eps: float = 1e-30, momentum: float = 0.9,
     ``clip_threshold`` over the whole leaf, then averaged into a momentum
     stored in ``momentum_dtype`` (bf16; the update uses the float32 value
     before rounding).  ``weight_decay`` may be a scalar or a per-leaf
-    scale tree, like :func:`adamw`; ``momentum`` is a scalar."""
+    scale tree, like :func:`adamw`; ``momentum`` is a scalar.
+
+    ``update(..., reduce=)`` updates a rank's share of a population
+    (``distributed.sharding.PopulationReduce``): the statistics the
+    reference takes over a member axis (``v_col`` of ``w_in`` and
+    ``b_out``, ``v_row`` of ``w_out``, the means of ``v_row`` of ``w_in``
+    and ``b_out``) and every leaf's update RMS are summed over the ranks
+    and divided by the whole layout's counts, fillers included, as the
+    reference's padded run computes them; the rest stays local.  The
+    state must be the rank's share of the whole layout's state (a leaf is
+    factored by its whole shape)."""
     momentum_dtype = _dtype(momentum_dtype)
     decoupled = hyper_on(weight_decay)
 
@@ -240,8 +257,10 @@ def adafactor(b2: float = 0.99, eps: float = 1e-30, momentum: float = 0.9,
             return st
         return {"count": _count0(params), "leaves": tree_map(leaf, params)}
 
-    def update(grads, state, params, lr):
+    def update(grads, state, params, lr, reduce=None):
         c = state["count"] + 1
+        if reduce is not None:
+            return _adafactor_sharded(grads, state, params, lr, reduce, c)
 
         def leaf(g, st, p, l, wd):
             gf = g.float()
@@ -280,6 +299,86 @@ def adafactor(b2: float = 0.99, eps: float = 1e-30, momentum: float = 0.9,
         return (tree_unflatten(grads, [o[0] for o in out]),
                 {"count": c,
                  "leaves": tree_unflatten(grads, [o[1] for o in out])})
+
+    def _adafactor_sharded(grads, state, params, lr, reduce, c):
+        """``update`` on a rank's share: two sums over the ranks a step,
+        the member-axis statistics, then every leaf's update RMS."""
+        flat_g = [g.float() for g in tree_leaves(grads)]
+        flat_st = tree_leaves(state["leaves"], is_leaf=is_state_leaf)
+        flat_p = tree_leaves(params)
+        flat_l = tree_leaves(broadcast_lr(lr, grads))
+        flat_wd = (tree_leaves(broadcast_scale(weight_decay, grads,
+                                               "weight_decay"))
+                   if decoupled else [None] * len(flat_g))
+        kinds = reduce.leaf_kinds
+        g2s = [g * g + eps for g in flat_g]
+        # 1. the member-axis sums: w_in's column sums and v_row sum, w_out's
+        # row sums, b_out's column sums and v_row sum
+        new_st = [{} for _ in flat_g]
+        parts = []
+        for i, (g2, st) in enumerate(zip(g2s, flat_st)):
+            if "v" in st:
+                new_st[i]["v"] = b2 * st["v"] + (1 - b2) * g2
+                continue
+            if kinds[i] in ("w_in", "b_out"):
+                v_row = b2 * st["v_row"] + (1 - b2) * g2.mean(-1)
+                new_st[i]["v_row"] = v_row
+                parts += [g2.sum(-2), v_row.sum()[None]]
+            elif kinds[i] == "w_out":
+                new_st[i]["v_col"] = (b2 * st["v_col"]
+                                      + (1 - b2) * g2.mean(-2))
+                parts.append(g2.sum(-1))
+            else:                     # a bucket stack: within its members
+                new_st[i]["v_row"] = (b2 * st["v_row"]
+                                      + (1 - b2) * g2.mean(-1))
+                new_st[i]["v_col"] = (b2 * st["v_col"]
+                                      + (1 - b2) * g2.mean(-2))
+        sums = reduce.sum(torch.cat(parts)) if parts else None
+        off = 0
+        us = []
+        for i, (g, st) in enumerate(zip(flat_g, flat_st)):
+            ns = new_st[i]
+            if "v" in st:
+                us.append(g * torch.rsqrt(ns["v"] + eps))
+                continue
+            if kinds[i] in ("w_in", "b_out"):
+                n = g.shape[-1]
+                col, row_sum = sums[off:off + n], sums[off + n]
+                off += n + 1
+                extent = reduce.member_extent[kinds[i]]
+                ns["v_col"] = b2 * st["v_col"] + (1 - b2) * (col / extent)
+                row_mean = torch.clamp(row_sum / extent, min=eps)
+            elif kinds[i] == "w_out":
+                n = g.shape[0]
+                row = sums[off:off + n]
+                off += n
+                ns["v_row"] = (b2 * st["v_row"] + (1 - b2)
+                               * (row / reduce.member_extent["w_out"]))
+                row_mean = torch.clamp(ns["v_row"].mean(-1, keepdim=True),
+                                       min=eps)
+            else:
+                row_mean = torch.clamp(ns["v_row"].mean(-1, keepdim=True),
+                                       min=eps)
+            r = ns["v_row"] / row_mean
+            us.append(g * torch.rsqrt(r[..., None] * ns["v_col"][..., None, :]
+                                      + eps))
+        # 2. every leaf's update RMS over the whole layout's leaf
+        rms = reduce.leaf_sums([torch.sum(u * u) for u in us])
+        out = []
+        for i, (u, st, p, l, wd) in enumerate(zip(us, flat_st, flat_p, flat_l,
+                                                 flat_wd)):
+            u_rms = torch.sqrt(rms[i] / reduce.leaf_numel[i] + 1e-30)
+            u = u / torch.clamp(u_rms / clip_threshold, min=1.0)
+            if momentum:
+                m = momentum * st["m"].float() + (1 - momentum) * u
+                new_st[i]["m"] = m.to(momentum_dtype)
+                u = m
+            if wd is not None:
+                u = u + wd * p.float()
+            out.append(-l * u)
+        return (tree_unflatten(grads, out),
+                {"count": c,
+                 "leaves": tree_unflatten(grads, new_st)})
 
     return Optimizer(init, update)
 
