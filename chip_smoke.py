@@ -225,7 +225,21 @@ Phases (any failure exits non-zero, and no result line is printed):
           checkpoint in f32 and int8: every mode's predictions equal
           W = 1's, the served logits on a batch bitwise W = 1's, each
           rank's forward depth+1 launches, req/s and p50/p99 beside
-          W = 1's;
+          W = 1's; then the data axis: (iv) the 10k at B 48, 8 steps,
+          on W = 3 (data 3: 16 rows a rank, the gradients averaged over
+          the data column by gloo on the card's tensors) against W = 1:
+          the checkpoint within the optimizer tolerance, the three ranks'
+          parameters the same bits, 4 launches a step on each rank, both
+          one-card walls and the all-reduce's host ms a step; (v) the
+          depth-3 ladder of (ii) at B 48 on W = 6 (data 3 × model 2)
+          against W = 1 with ``--shard-pad 2``: the same survivors at
+          both rungs, each data column's ranks the same bits, each rank's
+          segments 2·(depth+1) a step of its own depth; (vi)
+          ``serve_population --sharded`` at W = 3, flushes of 48 split
+          over the data axis: every mode's predictions equal W = 1's, a
+          split flush's logits bitwise W = 1's on the same row shares
+          and within the tolerance of its whole flush, each rank's
+          forward depth+1 launches;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -1480,13 +1494,13 @@ def depth3_flags() -> list:
             "--lr-schedule", "warmup_cosine"]
 
 
-def check_batch():
+def check_batch(rows: int = BATCH):
     """The batch of the task the checks use (phases 3c, 4g and 5), made on
     the card from a seeded generator."""
     import torch
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn(BATCH, 100, generator=gen, device="cuda")
-    y = torch.randint(0, 2, (BATCH,), generator=gen, device="cuda")
+    x = torch.randn(rows, 100, generator=gen, device="cuda")
+    y = torch.randint(0, 2, (rows,), generator=gen, device="cuda")
     return x, y
 
 
@@ -3771,6 +3785,10 @@ SHARDED_STEPS = 16          # (i): 2 chunks of 8 steps at 10k
 SHARDED_LADDER = 12
 SHARDED_HALVING = "4:0.5,8:0.5"
 SHARDED_TOL = (1e-5, 1e-6)  # the optimizer tolerance (tests' TRAJ)
+# (iv)-(vi): the data axis.  A batch of 48 splits over a data axis of 3
+# (16 rows a rank); the 10k runs 8 steps in chunks of 4 at W = 3
+DATA_BATCH = 48
+DATA_STEPS = 8
 
 
 def _json_stats(st: dict) -> dict:
@@ -3782,39 +3800,62 @@ def _json_stats(st: dict) -> dict:
             "restarts": st["restarts"], "steps": st["steps"],
             "ranks": st.get("ranks"),
             "rank_fused_hidden": st.get("rank_fused_hidden"),
+            "rows": st.get("rows"),
+            "data_reduce_calls": st.get("data_reduce_calls"),
+            "data_reduce_s": st.get("data_reduce_s"),
             "segments": [{k: s[k] for k in seg_keys if k in s}
                          for s in st["segments"]],
             "rungs": [[r["members_before"], r["members"]]
                       for r in st["rungs"]]}
 
 
-def serve_logits(ckpt: Path, x, mesh=None, int8: bool = False):
-    """The served logits of ``ckpt`` on the batch ``x``: a
-    ``PopulationServer``'s forward (f32 or its int8 copy) on its layout,
-    on W ranks each rank's share gathered to rank 0 (None elsewhere)."""
+def serve_logits(ckpt: Path, x, mesh=None, int8: bool = False,
+                 blocks: int = 1):
+    """The served logits of ``ckpt`` on the batch ``x``, through a
+    ``PopulationServer``'s own flush (``flush_logits``, f32 or its int8
+    copy) of ``len(x)`` rows: on W ranks each rank's members of its rows
+    of the flush (split over a data axis that divides it) gathered to rank
+    0 (None elsewhere); on one rank with ``blocks`` > 1, ``x`` in that
+    many equal flushes, concatenated (the rows a data axis of ``blocks``
+    hands each rank)."""
     import torch
 
-    from repro_torch.core.deep import forward
     from repro_torch.launch.serve_population import PopulationServer
+    k = int(x.shape[0]) // blocks
     server, _ = PopulationServer.from_checkpoint(
-        str(ckpt), device=x.device, mesh=mesh,
+        str(ckpt), device=x.device, mesh=mesh, bd_impl="fused", batch=k,
         weights_dtype="int8" if int8 else None)
     server._ensure_quantized()
-    with torch.inference_mode():
-        logits = forward(server.params, x, server.local, bd_impl="fused",
-                         infer=True, weights_dtype=server.weights_dtype)
     if server.shard is None:
-        return logits.cpu()
-    got = server.shard.gather_members(logits.transpose(1, 2), dst=0)
-    return None if got is None else got.transpose(1, 2).contiguous()
+        return torch.cat([server.flush_logits(server.params,
+                                              x[i * k:(i + 1) * k])
+                          for i in range(blocks)]).cpu()
+    lo, hi = server.rows
+    got = server.flush_logits(server.params, x[lo:hi])
+    return None if got is None else got.cpu()
+
+
+def _digest(tree) -> str:
+    """sha256 of every leaf's bytes, in ``tree_leaves`` order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().reshape(-1).contiguous()
+                 .view(torch.uint8).numpy())
+    return h.hexdigest()
 
 
 def rank_jobs(spec: Path) -> int:
     """One rank of a path-4k job (``chip_smoke.py --rank-jobs SPEC`` under
     ``torch.distributed.run``): each job of SPEC (``train.main`` or
     ``serve_population.main`` argv), the kernel counters set to 0 just
-    before it and read just after; writes ``OUT.RANK.json`` per job (and
-    rank 0 a serve job's logits on ``check_batch`` as ``OUT.pt``)."""
+    before it and read just after; writes ``OUT.RANK.json`` per job (with
+    ``"digest"``, the sha256 of the rank's final parameters), and rank 0
+    a serve job's logits on ``check_batch`` as ``OUT.pt``."""
     import torch
 
     from repro_torch.launch import serve_population
@@ -3828,8 +3869,11 @@ def rank_jobs(spec: Path) -> int:
             torch.cuda.synchronize()
             reset_kernel_launches()
             if job["kind"] == "train":
-                _, _, st = train_driver.main(job["argv"])
+                params, _, st = train_driver.main(job["argv"])
                 res = {"stats": _json_stats(st)}
+                if job.get("digest"):
+                    res["digest"] = _digest(params)
+                del params
             else:
                 out = serve_population.main(job["argv"])
                 res = {k: out.get(k) for k in ("serve", "pred", "budget",
@@ -3838,8 +3882,9 @@ def rank_jobs(spec: Path) -> int:
             res["launches"] = {k: v for k, v in kernel_launches().items()
                                if v}
             if job["kind"] == "serve":
-                got = serve_logits(Path(job["ckpt"]), check_batch()[0], mesh,
-                                   job["int8"])
+                got = serve_logits(Path(job["ckpt"]),
+                                   check_batch(job.get("rows", BATCH))[0],
+                                   mesh, job["int8"])
                 if got is not None:
                     torch.save(got, f"{job['out']}.pt")
             Path(f"{job['out']}.{mesh.rank}.json").write_text(
@@ -3947,8 +3992,9 @@ def sharded_path(workdir: Path) -> tuple:
     left.  (iii) ``serve_population --sharded`` at W = 2 over the 10k
     checkpoint in f32 and int8: the predictions of every mode equal
     W = 1's, the served logits on a batch bitwise W = 1's, each rank's
-    forward depth+1 launches; req/s and p50/p99 of both.  Returns
-    (results, the launches of its runs, summed over the ranks)."""
+    forward depth+1 launches; req/s and p50/p99 of both.  (iv)-(vi) the
+    data axis (``data_axis_runs``).  Returns (results, the launches of
+    its runs, summed over the ranks)."""
     import torch
 
     from repro_torch.launch import serve_population
@@ -4121,10 +4167,196 @@ def sharded_path(workdir: Path) -> tuple:
                   f"{b['p50_ms']!r} p99 {b['p99_ms']!r} ms", flush=True)
     print("[sharded serve] f32 and int8 predictions equal to W = 1's in "
           "every mode, the logits bitwise", flush=True)
+    res.update(data_axis_runs(workdir, d, flags10k, flags3, serve_argv,
+                              here, count))
     res["seconds"] = time.perf_counter() - t_path
     print(f"[sharded] path 4k in {res['seconds']:.1f} s; launches {n_all}",
           flush=True)
     return res, n_all
+
+
+def data_axis_runs(workdir: Path, d: dict, flags10k: list, flags3: list,
+                   serve_argv: list, here, count) -> dict:
+    """Path 4k (iv)-(vi): the data axis, ranks sharing the one card.
+    (iv) ``parallelmlp-10k`` at full width, fused, sgd, B 48, 8 steps in
+    chunks of 4, at W = 3 (data 3: 16 rows a rank, the gradients averaged
+    over the column by gloo on the card's tensors) against W = 1: the
+    checkpoint within the optimizer tolerance, the three ranks' final
+    parameters the same bits, each rank's loop 2·(depth+1) launches a
+    step; both one-card walls and the all-reduce's host ms a step.  (v)
+    The depth-3 ladder of (ii) at B 48 on W = 6 (data 3 × model 2)
+    against W = 1 with ``--shard-pad 2``: the same survivors at both
+    rungs, each data column's ranks the same bits, each rank's segments
+    2·(depth+1) launches a step of its own depth; the max |difference|
+    of the checkpoints as a finding.  (vi) ``serve_population --sharded``
+    at W = 3 over the 10k checkpoint, flushes of 48 split over the data
+    axis: every mode's predictions equal W = 1's at the same flush, each
+    rank's forward depth+1 launches; the logits of a flush of 48 split
+    over the three ranks and gathered by rank 0 bitwise W = 1's on the
+    same three 16-row shares, and within the tolerance of W = 1's whole
+    flush."""
+    import torch
+
+    from repro_torch.launch import serve_population
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    for k in ("w1_10k48", "w3_10k", "w1_d3p2", "w6_d3", "w3_serve"):
+        d[k] = workdir / k
+    res = {}
+    flags10k = flags10k + ["--batch", str(DATA_BATCH), "--steps",
+                           str(DATA_STEPS), "--scan-steps", "4",
+                           "--ckpt-every", "4"]
+    flags3 = flags3 + ["--batch", str(DATA_BATCH), "--shard-pad", "2"]
+    serve48 = serve_argv + ["--batch", str(DATA_BATCH)]
+    s1 = here(flags10k + ["--ckpt-dir", str(d["w1_10k48"])])
+    s1d = here(flags3 + ["--ckpt-dir", str(d["w1_d3p2"])])
+    torch.cuda.synchronize()
+    reset_kernel_launches()
+    one = serve_population.main(serve48)
+    torch.cuda.synchronize()
+    count(kernel_launches())
+    got3 = run_ranks(workdir, 3, [
+        {"kind": "train", "out": str(d["w3_10k"]), "digest": True,
+         "argv": flags10k + ["--ckpt-dir", str(d["w3_10k"])]},
+        {"kind": "serve", "out": str(d["w3_serve"]),
+         "ckpt": str(d["w1_10k"]), "int8": False, "rows": DATA_BATCH,
+         "argv": serve48 + ["--sharded"]}])
+    got6 = run_ranks(workdir, 6, [
+        {"kind": "train", "out": str(d["w6_d3"]), "digest": True,
+         "argv": flags3 + ["--ckpt-dir", str(d["w6_d3"])]}])
+    for per_rank in list(got3.values()) + list(got6.values()):
+        for r in per_rank:
+            count(r["launches"])
+
+    # (iv) 10k: W = 3 against W = 1
+    r3 = got3[str(d["w3_10k"])]
+    err = _ckpt_close("10k W = 3 / W = 1", d["w3_10k"], d["w1_10k48"])
+    _require(len({r["digest"] for r in r3}) == 1, "10k W = 3: the data "
+             "column's ranks hold other parameters")
+    want = _segment_want(DATA_STEPS, 1)
+    for rank, r in enumerate(r3):
+        st = r["stats"]
+        _require(st["segments"][0]["launches"] == want, f"10k W = 3 rank "
+                 f"{rank}: the loop launched {st['segments'][0]['launches']}"
+                 f", 2·(depth+1) a step is {want}")
+        _require(st["rows"] == [16 * rank, 16 * rank + 16]
+                 and st["data_reduce_calls"] == DATA_STEPS,
+                 f"10k W = 3 rank {rank}: rows {st['rows']}, "
+                 f"{st['data_reduce_calls']} all-reduces")
+    st3 = r3[0]["stats"]
+    reduce_ms = [r["stats"]["data_reduce_s"] / DATA_STEPS * 1e3 for r in r3]
+    res["data10k"] = {
+        "batch": DATA_BATCH, "steps": DATA_STEPS, "max_abs_err": err,
+        "w1_s": s1["seconds"], "w3_s": st3["seconds"],
+        "w1_model_steps_per_s": s1["member_steps"] / s1["seconds"],
+        "w3_model_steps_per_s": st3["member_steps"] / st3["seconds"],
+        "allreduce_host_ms_per_step": reduce_ms,
+        "rank_launches": [r["stats"]["segments"][0]["launches"]
+                          for r in r3]}
+    print(f"[data 10k] W = 3 (data 3, {DATA_BATCH // 3} of {DATA_BATCH} "
+          f"rows a rank): checkpoint max |diff| {err!r} from W = 1's "
+          f"(rtol {SHARDED_TOL[0]} / atol {SHARDED_TOL[1]}), the three "
+          f"ranks' parameters the same bits, each rank {want} in its "
+          f"loop; one-card walls W = 1 {s1['seconds']!r} s, W = 3 "
+          f"{st3['seconds']!r} s; the gradient all-reduce's host ms a "
+          f"step by rank {reduce_ms!r}", flush=True)
+
+    # (v) the depth-3 ladder on W = 6 against W = 1, --shard-pad 2
+    r6 = got6[str(d["w6_d3"])]
+    s6 = r6[0]["stats"]
+    _require(s6["rungs"] == s1d["rungs"] and len(s1d["rungs"]) == 2,
+             f"depth-3 W = 6: rungs {s6['rungs']} against W = 1's "
+             f"{s1d['rungs']}")
+    ids = [_ckpt_arrays(p, SHARDED_LADDER - 1)[1]["meta"]["lifecycle"]
+           ["member_ids"] for p in (d["w1_d3p2"], d["w6_d3"])]
+    _require(ids[0] == ids[1], "depth-3: W = 6 kept other survivors")
+    for j in range(2):               # the data columns of (3, 2)
+        _require(len({r6[i]["digest"] for i in (j, j + 2, j + 4)}) == 1,
+                 f"depth-3 W = 6: data column {j}'s ranks hold other "
+                 "parameters")
+    for rank, r in enumerate(r6):
+        for seg in r["stats"]["segments"]:
+            n = seg["end"] - seg["start"]
+            depth = len(seg["rank_fused_hidden"][rank % 2])
+            _require(seg["launches"] == _segment_want(n, depth),
+                     f"depth-3 W = 6 rank {rank}: segment {seg['start']}-"
+                     f"{seg['end']} launched {seg['launches']}")
+    diff = _ckpt_diff(d["w6_d3"], d["w1_d3p2"])
+    res["data_depth3"] = {
+        "rungs": s1d["rungs"], "survivors_equal": True,
+        "ranks": [seg.get("ranks") for seg in s6["segments"]],
+        "w6_vs_w1": diff, "w1_s": s1d["seconds"],
+        "w6_s": s6["seconds"],
+        "allreduce_host_ms_per_step": [
+            r["stats"]["data_reduce_s"] / SHARDED_LADDER * 1e3 for r in r6]}
+    print(f"[data depth-3] W = 6 (data 3 × model 2): rungs {s6['rungs']} "
+          f"and the survivors equal to W = 1's (--shard-pad 2), each data "
+          f"column the same bits, each rank 2·(depth+1) a step of its own "
+          f"depth; the checkpoints apart by {diff!r}; walls W = 1 "
+          f"{s1d['seconds']!r} s, W = 6 {s6['seconds']!r} s", flush=True)
+
+    # (vi) the server at W = 3, flushes split over the data axis
+    ranks = got3[str(d["w3_serve"])]
+    _require(ranks[0]["pred"] == one["pred"], "serve W = 3: predictions "
+             "differ from W = 1's")
+    for rank, r in enumerate(ranks):
+        _require(r["budget"]["launches"] == r["budget"]["budget"] == 2,
+                 f"serve W = 3 rank {rank}: budget {r['budget']}")
+    # a flush of 48 split in three: each rank's 16 rows gathered by rank 0
+    x = check_batch(DATA_BATCH)[0]
+    theirs = torch.load(str(d["w3_serve"]) + ".pt")
+    shares = serve_logits(d["w1_10k"], x, blocks=3)
+    _require(_same_bits(shares, theirs), "serve W = 3: the split flush's "
+             "logits are not bitwise W = 1's on the same rows")
+    whole = serve_logits(d["w1_10k"], x)
+    _require(torch.allclose(theirs, whole, rtol=SHARDED_TOL[0],
+                            atol=SHARDED_TOL[1]),
+             "serve W = 3: the split flush's logits are beyond the "
+             "tolerance of W = 1's whole flush")
+    gap = float((theirs - whole).abs().max())
+    res["data_serve"] = {"w1": one["serve"], "w3": ranks[0]["serve"],
+                         "logits_vs_whole_flush": gap}
+    for mode in one["serve"]:
+        a, b = one["serve"][mode], ranks[0]["serve"][mode]
+        print(f"[data serve] {mode:5s} flush {DATA_BATCH}: W = 1 "
+              f"{a['req_per_s']!r} req/s p50 {a['p50_ms']!r} p99 "
+              f"{a['p99_ms']!r} ms | W = 3 {b['req_per_s']!r} req/s p50 "
+              f"{b['p50_ms']!r} p99 {b['p99_ms']!r} ms", flush=True)
+    print(f"[data serve] W = 3 predictions equal to W = 1's in every mode; "
+          f"a split flush's logits bitwise W = 1's on the same 16-row "
+          f"shares, max |diff| {gap!r} from W = 1's whole flush of "
+          f"{DATA_BATCH}", flush=True)
+    return res
+
+
+def _ckpt_diff(a: Path, b: Path) -> dict:
+    """Where two checkpoints of one tree differ most (bf16 leaves as
+    floats): the max |difference|, its array, and how many elements of
+    the parameters lie beyond the optimizer tolerance."""
+    import numpy as np
+
+    from repro_torch.checkpoint.checkpoint import latest_steps
+    za, ta = _ckpt_arrays(a, latest_steps(str(a))[-1])
+    zb, _ = _ckpt_arrays(b, latest_steps(str(b))[-1])
+    out = {"max_abs_diff": 0.0, "at": None, "params_beyond_tol": 0,
+           "params": 0}
+    for k in za:
+        x, y = (np.frombuffer(z[k][2], np.dtype(z[k][0])).reshape(z[k][1])
+                for z in (za, zb))
+        if ta["manifest"][k]["dtype"] == "bfloat16":
+            x, y = ((v.astype(np.uint32) << 16).view(np.float32)
+                    for v in (x, y))
+        x, y = x.astype(np.float64), y.astype(np.float64)
+        if not x.size:
+            continue
+        gap = float(np.abs(x - y).max())
+        if gap > out["max_abs_diff"]:
+            out.update(max_abs_diff=gap, at=k)
+        if k.startswith("params"):
+            out["params"] += x.size
+            out["params_beyond_tol"] += int(np.sum(~np.isclose(
+                x, y, rtol=SHARDED_TOL[0], atol=SHARDED_TOL[1])))
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -6404,7 +6636,9 @@ def main() -> int:
               f"kernel launches {pipe_n}", flush=True)
         # 4k. the population axis on 2 and 4 ranks sharing the card: the
         # 10k run, the depth-3 ladder with fillers, resumes across world
-        # sizes, the sharded server, each against one rank
+        # sizes, the sharded server, each against one rank; then the data
+        # axis on 3 and 6 ranks: the 10k with its batch split, the depth-3
+        # ladder on (3, 2), the server with its flushes split
         t0 = time.perf_counter()
         got = path_process(workdir, "sharded")
         sharded, sharded_n = got["results"], got["launches"]

@@ -296,18 +296,18 @@ def restore_population(directory: str, step: int | None = None,
     records (float32, or bf16 — which training and serving do not take
     yet: ``deep.check_dtypes``).
 
-    With ``mesh`` (``launch.mesh.make_host_mesh``) of more than one rank
-    on the population axis, each rank loads the whole host arrays and
-    keeps its share (``distributed.sharding.PopulationShard``): the
+    With ``mesh`` (``launch.mesh.make_host_mesh``) of more than one rank,
+    each rank loads the whole host arrays and keeps its model row's share
+    (``distributed.sharding.PopulationShard``; the whole tree where the
+    model axis is 1): the
     parameters (and ``extra``) come back as that rank's trees on
     ``device``, the layout is the WHOLE (shard-padded) layout, and the
     shard is appended to the result.  ``extra_like`` is then the whole
     layout's state tree."""
     from repro_torch.core import deep, parallel_mlp
     from repro_torch.core.population import Population
-    from repro_torch.distributed.sharding import pop_axis_size
     device = resolve(device)
-    if pop_axis_size(mesh) > 1:
+    if mesh is not None and mesh.size > 1:
         from repro_torch.distributed.fault_tolerance import elastic_remesh
         out = restore_population(directory, step, device="cpu",
                                  extra_like=extra_like)
@@ -373,8 +373,9 @@ class AsyncCheckpointer:
 
     ``gather`` (a rank's share of a population on W ranks:
     ``PopulationShard.gather_tree``) turns the host snapshot of this
-    rank's share into the whole tree on rank 0 and None elsewhere; only
-    rank 0 writes, and the others count the save as made."""
+    rank's share into the whole tree on rank 0 (gathered over model row
+    0) and None elsewhere; only rank 0 writes, and the others count the
+    save as made."""
 
     def __init__(self, directory: str, every: int = 100, keep_last: int = 3,
                  meta: dict | None = None, step_map=None, save_pred=None,

@@ -839,7 +839,7 @@ def sgd_step(params, x, targets, lr, lp: LayeredPopulation,
 def opt_step(params, opt_state, x, targets, lr, opt, lp: LayeredPopulation,
              m3_impl: str = "bucketed", bd_impl: str = "einsum",
              act_impl: str = "sliced", compute_dtype=None, grad_clip=None,
-             reduce=None):
+             reduce=None, data_reduce=None):
     """One fused optimizer step with state: fused loss + grads → optional
     global-norm clip → ``opt.update`` → ``apply_updates`` →
     ``(params, opt_state, loss, per_member_losses, grad_norm)``;
@@ -855,12 +855,23 @@ def opt_step(params, opt_state, x, targets, lr, opt, lp: LayeredPopulation,
     rank) is the population axis's sum over ranks, for the two places
     where the reference's arithmetic mixes members: the global norm of
     the clip and adafactor's statistics over a member axis.  ``lp`` is
-    then this rank's share of the layout."""
+    then this rank's share of the layout.
+
+    ``data_reduce`` (a ``distributed.sharding.DataReduce``; None unless
+    the data axis splits the batch) averages the loss, the per-member
+    losses and the gradients over the ranks of the data column, each a
+    mean over the rank's own rows, into the full batch's means — before
+    the clip's norm and the optimizer, so those see the full batch's
+    gradient and, with ``reduce``, still sum over the model row only."""
     from repro_torch.optim.optimizers import (apply_updates,
                                               clip_by_global_norm)
     loss, per, grads = loss_and_grads(
         params, x, targets, lp, m3_impl=m3_impl, bd_impl=bd_impl,
         act_impl=act_impl, compute_dtype=compute_dtype)
+    if data_reduce is not None:
+        loss, per, *leaves = data_reduce.mean([loss, per,
+                                               *tree_leaves(grads)])
+        grads = tree_unflatten(grads, leaves)
     gnorm = None
     if grad_clip:
         grads, gnorm = clip_by_global_norm(grads, grad_clip, reduce=reduce)
@@ -878,7 +889,7 @@ def make_population_train_step(lp: LayeredPopulation, *, optimizer,
                                bd_impl: str = "einsum",
                                act_impl: str = "sliced", scan_steps: int = 1,
                                compute_dtype=None, lr_schedule=None,
-                               reduce=None):
+                               reduce=None, data_reduce=None):
     """The multi-step population train chunk (JAX: a jitted ``lax.scan``;
     here a Python loop over the chunk's steps, eagerly).
 
@@ -894,8 +905,8 @@ def make_population_train_step(lp: LayeredPopulation, *, optimizer,
     ``step -> multiplier`` callable, e.g. ``optim.warmup_cosine(1.0,
     ...)``) adds a trailing ``step0`` argument, the global step of the
     chunk's first batch; inner step k trains at ``lr · lr_schedule(step0 +
-    k)``.  ``reduce``: ``opt_step``'s, for a rank's share of the
-    layout."""
+    k)``.  ``reduce``, ``data_reduce``: ``opt_step``'s, for a rank's
+    share of the layout and of the batch."""
     if scan_steps < 1:
         raise ValueError(f"scan_steps must be >= 1, got {scan_steps}")
     route = dict(m3_impl=m3_impl, bd_impl=bd_impl, act_impl=act_impl,
@@ -922,7 +933,7 @@ def make_population_train_step(lp: LayeredPopulation, *, optimizer,
             params, opt_state, loss, per, gnorm = opt_step(
                 params, opt_state, xs[k], ys[k], lr_at(lr, step0 + k),
                 optimizer, lp, grad_clip=grad_clip, reduce=reduce,
-                **route)
+                data_reduce=data_reduce, **route)
             losses.append(loss)
             pers.append(per)
             gnorms.append(gnorm)

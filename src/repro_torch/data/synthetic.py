@@ -57,7 +57,7 @@ class TabularTask:
         return self.x[idx], self.y[idx]
 
     def batch_slab(self, start: int, n_steps: int, batch_size: int,
-                   out=None):
+                   out=None, rows=None):
         """``n_steps`` consecutive batches as one ``(n_steps, ...)`` slab —
         VALUE-IDENTICAL to stacking ``batch(step)`` for ``step`` in
         ``[start, start + n_steps)`` (tests/test_pipeline.py pins this).
@@ -69,14 +69,17 @@ class TabularTask:
         cache, so consecutive slabs inside one epoch pay only the row
         gathers).  ``out=(xs, ys)`` writes into caller-owned staging
         buffers (the prefetcher's alternating pair) instead of
-        allocating."""
+        allocating.  ``rows=(lo, hi)`` builds only rows ``[lo, hi)`` of
+        each batch (a rank's share of a batch split over the data axis):
+        the full slab's ``[:, lo:hi]``."""
         n = self.n_samples
         per_epoch = max(n // batch_size, 1)
+        lo, hi = (0, batch_size) if rows is None else rows
         if out is not None:
             xs, ys = out
         else:
-            xs = np.empty((n_steps, batch_size, self.n_features), np.float32)
-            ys = np.empty((n_steps, batch_size), np.int32)
+            xs = np.empty((n_steps, hi - lo, self.n_features), np.float32)
+            ys = np.empty((n_steps, hi - lo), np.int32)
         for j in range(n_steps):
             epoch, k = divmod(start + j, per_epoch)
             cached = getattr(self, "_epoch_order", None)
@@ -89,6 +92,7 @@ class TabularTask:
                         + batch_size]
             if len(idx) < batch_size:  # wrap, as batch() does
                 idx = np.concatenate([idx, order[:batch_size - len(idx)]])
+            idx = idx[lo:hi]
             xs[j], ys[j] = self.x[idx], self.y[idx]
         return xs, ys
 

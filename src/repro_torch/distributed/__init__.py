@@ -1,2 +1,3 @@
 """Checkpoint/restart training loop, straggler watchdog and elastic re-mesh
-(``fault_tolerance``); the population axis across ranks (``sharding``)."""
+(``fault_tolerance``); the population and data axes across ranks
+(``sharding``); the int8 error-feedback all-reduce (``compression``)."""

@@ -20,18 +20,21 @@ fails raises at the next save (a restart, like any failure) or at the
 run's end.
 
 On W ranks (``TrainRunner(shard=...)``, a
-``distributed.sharding.PopulationShard``) each rank steps its share of
-the population; a save gathers the shares to rank 0, the only writer; a
-restore reads the step rank 0 found committed and hands each rank its
-share of it.  A failure is acted on together: before every step the ranks
-all-reduce a flag (an injected failure, a straggler's strikes), and all
-of them restore when any raised it.  A failure inside a step (where the
+``distributed.sharding.PopulationShard`` of a mesh of more than one rank,
+on either axis) each rank steps its share of the population and of the
+batch; a save gathers model row 0's shares to rank 0, the only writer
+(the other data rows hold the same members); a restore reads the step
+rank 0 found committed and hands each rank its share of it.  A failure
+is acted on together: before every step the whole world all-reduces a
+flag (an injected failure, a straggler's strikes), and every rank
+restores when any raised it.  A failure inside a step (where the
 other ranks may wait in one of the step's collectives) ends the run: the
 process group's timeout bounds how long the others wait.
 
 ``elastic_remesh`` puts a host state on a (new) world: any world the mesh
-rule accepts resumes any world's checkpoint, since a whole-member
-partition needs no divisibility.
+rule accepts — any W, with or without a data axis — resumes any world's
+checkpoint, since a whole-member partition needs no divisibility and
+every data row holds the whole state of its row.
 """
 from __future__ import annotations
 
@@ -98,11 +101,11 @@ class TrainRunner:
     into the runner's step domain.  ``on_restore(step)`` fires after every crash restore with the
     step the replay re-enters at.
 
-    ``shard`` (a ``PopulationShard`` on more than one rank, with
-    ``full_like``: the whole layout's state tree, meta tensors are fine)
-    makes ``state`` this rank's share: saves gather to rank 0, restores
-    take this rank's share of rank 0's step, and failures are decided
-    together (module docstring)."""
+    ``shard`` (a ``PopulationShard`` of a mesh of more than one rank,
+    with ``full_like``: the whole layout's state tree, meta tensors are
+    fine) makes ``state`` this rank's share: saves gather to rank 0,
+    restores take this rank's share of rank 0's step, and failures are
+    decided together (module docstring)."""
 
     def __init__(self, step_fn, state, *, ckpt_dir: str,
                  ckpt_every: int = 50, keep_last: int = 3,
@@ -117,7 +120,8 @@ class TrainRunner:
         self.step_fn = step_fn
         self.state = state
         self.device = tree_leaves(state)[0].device
-        self.shard = shard if shard is not None and shard.sharded else None
+        self.shard = (shard if shard is not None and shard.distributed
+                      else None)
         self.full_like = full_like
         self.ckpt = AsyncCheckpointer(
             ckpt_dir, every=ckpt_every, keep_last=keep_last, meta=ckpt_meta,

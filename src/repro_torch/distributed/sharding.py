@@ -35,9 +35,18 @@ norm of ``--grad-clip`` and adafactor's statistics over a member axis and
 its update RMS.  They divide by the padded layout's counts, fillers
 included, as JAX's sharded run does.
 
-Batches are not sharded (``population_batch_shardings``): with ``data ==
-1`` every rank draws the whole batch, each rank's ``Prefetcher`` building
-the same slabs from the same seed.  The LM parts of the JAX module
+The batch axis (``data``): a train chunk's ``(scan, B, ...)`` slab is
+split over the ranks of a data column by rows
+(``population_batch_shardings``: rank ``d`` of ``data = D`` builds rows ``[d·B/D, (d+1)·B/D)``, the scan axis
+whole), as JAX's ``POP_BATCH_X``/``POP_BATCH_Y`` split it, and falls back
+to the whole slab on every rank where D does not divide B (JAX's
+``filter_spec`` degradation to replication).  A split step's per-member
+losses and gradients are each rank's means over its own rows; the data
+column averages them (``DataReduce``: one flat buffer a step, summed over
+the column and divided by D) into the full batch's, before the clip and
+adafactor's statistics, which then sum over the model row only.  A
+replicated batch needs no reduction: every rank of the column computes
+the full batch's step itself.  The LM parts of the JAX module
 (``filter_spec``, ``constrain``, the ``ACT_*`` specs) wait for the LM
 trainer (ROADMAP.md, Queue 1 item 9).
 """
@@ -61,11 +70,60 @@ def pop_axis_size(mesh=None) -> int:
     return int(dict(mesh.shape).get(POP_AXIS, 1))
 
 
+def data_axis_size(mesh=None) -> int:
+    """The batch axis's size: ``mesh.shape["data"]``, 1 without a mesh."""
+    if mesh is None:
+        return 1
+    return int(dict(mesh.shape).get("data", 1))
+
+
 def population_batch_shardings(mesh, batch_size: int) -> tuple:
-    """The part of a ``(scan, B, ...)`` train chunk each rank draws: all of
-    it (``data == 1``; a data axis is ROADMAP.md's Queue 1 item 8b), so
-    the slices are whole on every rank."""
-    return slice(None), slice(None)
+    """The part of a ``(scan, B, ...)`` train chunk this rank draws, as
+    the slices of its two leading axes (the second alone is a ``(B,
+    ...)`` flush's): the scan axis whole; the batch axis its data
+    coordinate's contiguous ``B / data`` rows where ``data`` divides B,
+    else whole."""
+    n = data_axis_size(mesh)
+    if n == 1 or batch_size % n:
+        return slice(None), slice(None)
+    k = batch_size // n
+    return slice(None), slice(mesh.data_rank * k, (mesh.data_rank + 1) * k)
+
+
+class DataReduce:
+    """The data axis's mean of a step over the ``n`` ranks of a data
+    column (``group``), for a batch split by rows: ``mean(tensors)`` packs
+    the tensors into one flat buffer, all-reduces its sum over the column
+    and divides by ``n`` (the ranks' means of equal row counts averaged:
+    the full batch's mean), and unpacks.  Every rank of the column gets
+    the same bits.  ``seconds`` and ``calls`` count the host time spent in
+    the all-reduce."""
+
+    def __init__(self, group, n: int):
+        self.group = group
+        self.n = int(n)
+        self.seconds = 0.0
+        self.calls = 0
+
+    def sum(self, flat: torch.Tensor) -> torch.Tensor:
+        """``flat`` summed over the column's ranks, in place."""
+        import time
+
+        import torch.distributed as dist
+        t0 = time.perf_counter()
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return flat
+
+    def mean(self, tensors: list) -> list:
+        flat = self.sum(torch.cat([t.reshape(-1) for t in tensors]))
+        flat = flat / self.n
+        out, at = [], 0
+        for t in tensors:
+            out.append(flat[at:at + t.numel()].view(t.shape))
+            at += t.numel()
+        return out
 
 
 # --------------------------------------------------------------------- #
@@ -378,9 +436,18 @@ def _full_shapes(lp: LayeredPopulation) -> dict:
 # a rank's share of a run                                               #
 # --------------------------------------------------------------------- #
 
+def _global(group, r: int) -> int:
+    """The global rank of rank ``r`` of ``group``."""
+    import torch.distributed as dist
+    if group is None or group is dist.group.WORLD:
+        return r
+    return dist.get_global_rank(group, r)
+
+
 def _gather_objects(obj, group, dst: int | None):
-    """``obj`` from every rank, over the host: a list on ``dst`` (None
-    elsewhere), or on every rank when ``dst`` is None."""
+    """``obj`` from every rank of ``group``, over the host: a list on its
+    rank ``dst`` (None elsewhere), or on every rank when ``dst`` is
+    None."""
     import torch.distributed as dist
     n = dist.get_world_size(group)
     if dst is None:
@@ -388,7 +455,7 @@ def _gather_objects(obj, group, dst: int | None):
         dist.all_gather_object(out, obj, group=group)
         return out
     out = [None] * n if dist.get_rank(group) == dst else None
-    dist.gather_object(obj, out, dst=dst, group=group)
+    dist.gather_object(obj, out, dst=_global(group, dst), group=group)
     return out
 
 
@@ -398,17 +465,23 @@ def _host(tree):
 
 class PopulationShard:
     """One rank's share of a layout on a mesh: the whole layout ``lp``,
-    the ranks' ranges, this rank's ``[start, stop)`` and its layout
-    ``local``, and the host collectives a run on W ranks needs.  On a
+    the model row's ranges, this rank's ``[start, stop)`` and its layout
+    ``local``, and the host collectives a run on W ranks needs (over the
+    model row, ``group``; the data rows hold the same members).  On a
     world of one (``mesh`` None or one rank) every method is the identity
-    and ``local is lp``."""
+    and ``local is lp``; on a mesh whose model axis is 1 the layout is
+    whole on every rank (``sharded`` false) but the run is still
+    ``distributed``."""
 
     def __init__(self, lp: LayeredPopulation, mesh=None):
         self.lp = lp
         self.mesh = mesh
         self.n = pop_axis_size(mesh)
         self.rank = mesh.pop_rank if mesh is not None else 0
-        self.group = getattr(mesh, "group", None)
+        self.group = getattr(mesh, "row_group", None)
+        self.data = data_axis_size(mesh)
+        self.data_rank = mesh.data_rank if mesh is not None else 0
+        self.world = 1 if mesh is None else mesh.size
         self.ranges = member_partition(lp, self.n)
         self.start, self.stop = self.ranges[self.rank]
         self.local = shard_layout(lp, self.rank, self.n)
@@ -418,11 +491,27 @@ class PopulationShard:
 
     @property
     def sharded(self) -> bool:
+        """The members are split over more than one rank."""
         return self.n > 1
 
     @property
+    def distributed(self) -> bool:
+        """The run spans more than one rank (on either axis)."""
+        return self.world > 1
+
+    @property
     def is_writer(self) -> bool:
-        return self.rank == 0
+        """Rank 0 of the world: the one rank that writes and answers."""
+        return self.mesh is None or self.mesh.rank == 0
+
+    def data_reduce(self, batch_size: int):
+        """The ``DataReduce`` of a ``batch_size``-row step on this mesh:
+        over this rank's data column where the data axis splits the
+        batch, else None (a replicated batch needs none)."""
+        if population_batch_shardings(self.mesh,
+                                      batch_size)[1] == slice(None):
+            return None
+        return DataReduce(self.mesh.col_group, self.data)
 
     def widths(self) -> list:
         """Each rank's fused widths, per layer of its layout."""
@@ -441,8 +530,13 @@ class PopulationShard:
         return unshard_trees(trees, self.lp, self.ranges)
 
     def gather_tree(self, tree, everywhere: bool = False):
-        """The whole layout's tree from every rank's share, on the host:
-        on rank 0 (None elsewhere), or on every rank."""
+        """The whole layout's tree from the model row's shares, on the
+        host: on rank 0 (None elsewhere; only row 0 gathers, the other
+        data rows hold the same members), or on every rank (each row
+        over itself)."""
+        if not everywhere and not self.is_writer and (
+                not self.sharded or self.data_rank > 0):
+            return None
         if not self.sharded:
             return _host(tree)
         parts = _gather_objects(_host(tree), self.group,
@@ -451,8 +545,9 @@ class PopulationShard:
 
     def gather_members(self, t: torch.Tensor, dst: int | None = None):
         """A tensor whose last axis is this rank's members → the whole
-        layout's, over the host: a CPU tensor on every rank, or with
-        ``dst`` on that rank only (None elsewhere).  One rank: ``t``."""
+        layout's, over the model row and the host: a CPU tensor on every
+        rank, or with ``dst`` on the row's rank ``dst`` only (None
+        elsewhere).  A model axis of one: ``t``."""
         if not self.sharded:
             return t
         import torch.distributed as dist
@@ -466,8 +561,28 @@ class PopulationShard:
         else:
             parts = ([torch.empty_like(pad) for _ in range(self.n)]
                      if self.rank == dst else None)
-            dist.gather(pad, parts, dst=dst, group=self.group)
+            dist.gather(pad, parts, dst=_global(self.group, dst),
+                        group=self.group)
             if parts is None:
                 return None
         return torch.cat([p[..., :b - a]
                           for p, (a, b) in zip(parts, self.ranges)], dim=-1)
+
+    def gather_rows(self, t: torch.Tensor, split: bool):
+        """A tensor of this rank's rows (leading axis) and members (last
+        axis) → the whole batch's and the whole layout's on rank 0, over
+        the host (None elsewhere): the members over each model row to its
+        rank 0, then, where the batch was ``split`` over the data axis,
+        the rows over the data column of those ranks to rank 0; unsplit,
+        row 0's is the whole batch."""
+        t = self.gather_members(t, dst=0) if self.sharded else t
+        if t is None or (self.data_rank > 0 and not split):
+            return None
+        if not split:
+            return t.to("cpu")
+        import torch.distributed as dist
+        t = t.detach().to("cpu").contiguous()
+        parts = ([torch.empty_like(t) for _ in range(self.data)]
+                 if self.is_writer else None)
+        dist.gather(t, parts, dst=0, group=self.mesh.col_group)
+        return None if parts is None else torch.cat(parts, dim=0)

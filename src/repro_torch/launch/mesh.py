@@ -7,16 +7,28 @@ package's ``(data, model)`` mesh (``repro.launch.mesh``).
 factors its device count: ``model`` (the population axis) is the largest
 of 16, 8, 4, 2 that divides it, ``data`` the rest.  Without that
 environment (or with a world of one) the mesh is ``(1, 1)`` and no process
-group is made.  Only ``data == 1`` is ported: the population axis over
-every rank, each rank a contiguous range of whole members
-(``distributed.sharding``); a mesh with a data axis raises
-(ROADMAP.md, Queue 1 item 8b).
+group is made.  Rank r sits at ``data = r // model``, ``model = r %
+model``, as JAX lays a mesh over its devices.
 
-The process group is gloo: the host collectives (gathers of trees and of
-per-member losses, the step a resume agrees on) run on CPU tensors, and
-the one in-step reduction, the population axis's sum
-(``sharding.PopulationReduce``), on the device tensors themselves
-(gloo's ``all_reduce`` takes CUDA tensors).  The group has a timeout
+The process groups (gloo):
+
+  * ``group``, the whole world: the host decisions every rank takes
+    together (``agree``, ``broadcast_int``, ``broadcast_object``);
+  * ``row_group``, this rank's model row (the ranks of its ``data``
+    coordinate): the population axis, over which the members are split
+    (``distributed.sharding.PopulationShard``, ``PopulationReduce``);
+  * ``col_group``, this rank's data column (the ranks of its ``model``
+    coordinate, which hold the same members): the batch axis, over which
+    a step's gradients are averaged (``sharding.DataReduce``) and a
+    served flush's rows gathered.
+
+A row of a ``data == 1`` mesh is the world, and so is a column of a
+``model == 1`` one: those groups are ``group`` itself; an axis of size 1
+has no group (None).  Otherwise every rank makes every row's and every
+column's group with ``dist.new_group``, rows first, in one fixed order.
+The host collectives run on CPU tensors, the in-step reductions on the
+device tensors themselves (gloo's collectives take CUDA tensors and
+stage them through the host).  Each group has the timeout
 (``--dist-timeout``), so a rank that diverges or dies fails the others
 within it instead of leaving them blocked.
 
@@ -38,13 +50,17 @@ import torch
 @dataclasses.dataclass
 class HostMesh:
     """A ``(data, model)`` mesh over the ranks of a job (``model`` the
-    population axis).  ``group`` is the population axis's process group
-    (None on a world of one); ``coords`` this rank's place on each axis."""
+    population axis).  ``group`` is the world's process group (None on a
+    world of one), ``row_group`` this rank's model row's and
+    ``col_group`` its data column's (module docstring); ``coords`` this
+    rank's place on each axis."""
     shape: dict
     rank: int = 0
     local_rank: int = 0
     group: object = None
     owns_group: bool = False
+    row_group: object = None
+    col_group: object = None
 
     @property
     def size(self) -> int:
@@ -58,6 +74,20 @@ class HostMesh:
     @property
     def pop_rank(self) -> int:
         return self.coords["model"]
+
+    @property
+    def data_rank(self) -> int:
+        return self.coords["data"]
+
+    def row_ranks(self, d: int) -> list:
+        """The global ranks of model row ``d`` (data coordinate ``d``)."""
+        m = self.shape["model"]
+        return list(range(d * m, (d + 1) * m))
+
+    def col_ranks(self, j: int) -> list:
+        """The global ranks of data column ``j`` (model coordinate ``j``)."""
+        m = self.shape["model"]
+        return list(range(j, self.size, m))
 
     @property
     def is_writer(self) -> bool:
@@ -127,12 +157,18 @@ def _factor(n: int, model: int | None) -> tuple:
     return n // model, model
 
 
+# the world group the subgroups were made in (held, so that no later
+# world is taken for it), and per (data, model) the rows' groups and the
+# columns' groups
+_SUBGROUPS: dict = {"world": None, "groups": {}}
+
+
 def make_host_mesh(model: int | None = None,
                    timeout_s: float = 600.0) -> HostMesh:
     """The largest ``(data, model)`` mesh on the job's ranks (JAX's rule,
     module docstring).  Joins the job's gloo process group, made here from
-    the environment with a ``timeout_s`` timeout unless one exists.  A
-    mesh with ``data > 1`` raises ``NotImplementedError``."""
+    the environment with a ``timeout_s`` timeout unless one exists, and
+    makes the rows' and columns' groups."""
     import torch.distributed as dist
     if dist.is_available() and dist.is_initialized():
         world, rank = dist.get_world_size(), dist.get_rank()
@@ -140,21 +176,35 @@ def make_host_mesh(model: int | None = None,
         world = int(os.environ.get("WORLD_SIZE", "1"))
         rank = int(os.environ.get("RANK", "0"))
     data, model = _factor(world, model)
-    if data > 1:
-        raise NotImplementedError(
-            f"a world of {world} ranks factors as data={data} x "
-            f"model={model}: the data axis (batch sharding and the "
-            "gradient all-reduce) is not ported yet (ROADMAP.md, Queue 1, "
-            "item 8b); run on a world of 1, 2, 4, 8 or 16 ranks")
     mesh = HostMesh({"data": data, "model": model}, rank=rank,
                     local_rank=int(os.environ.get("LOCAL_RANK", rank)))
     if world > 1:
+        timeout = datetime.timedelta(seconds=timeout_s)
         if not dist.is_initialized():
             dist.init_process_group(
                 "gloo", init_method="env://", world_size=world, rank=rank,
-                timeout=datetime.timedelta(seconds=timeout_s))
+                timeout=timeout)
             mesh.owns_group = True
         mesh.group = dist.group.WORLD
+        if data == 1:
+            mesh.row_group = mesh.group
+        elif model == 1:
+            mesh.col_group = mesh.group
+        else:
+            # every rank makes every group, in this order, once per world
+            # group (a later mesh of the same job reuses them)
+            if _SUBGROUPS["world"] is not dist.group.WORLD:
+                _SUBGROUPS.update(world=dist.group.WORLD, groups={})
+            groups = _SUBGROUPS["groups"]
+            if (data, model) not in groups:
+                groups[data, model] = (
+                    [dist.new_group(mesh.row_ranks(d), timeout=timeout,
+                                    backend="gloo") for d in range(data)],
+                    [dist.new_group(mesh.col_ranks(j), timeout=timeout,
+                                    backend="gloo") for j in range(model)])
+            rows, cols = groups[data, model]
+            mesh.row_group = rows[mesh.data_rank]
+            mesh.col_group = cols[mesh.pop_rank]
     return mesh
 
 
@@ -170,6 +220,7 @@ def close(mesh):
     ``make_host_mesh`` made it (a caller's own group stays)."""
     import torch.distributed as dist
     if mesh.owns_group and dist.is_initialized():
-        dist.destroy_process_group()
-    mesh.group = None
+        dist.destroy_process_group()      # the rows' and columns' too
+        _SUBGROUPS.update(world=None, groups={})
+    mesh.group = mesh.row_group = mesh.col_group = None
     mesh.owns_group = False

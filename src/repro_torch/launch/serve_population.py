@@ -43,16 +43,21 @@ device (``quant.quantize_population``), drops them, and every forward —
 publish, the serve steps, the launch budget — runs the fused-dequant
 kernels, still depth+1 launches.
 
-``--sharded`` under ``torchrun --nproc-per-node W`` serves the population
-axis across the W ranks (``distributed/sharding.py``): each rank restores
-its range of whole members (``restore_population(mesh=)``) and runs its
-share's forward — the same kernels, depth+1 launches of its own depth —
-on the whole request slab; the per-member logits go to rank 0 over the
-host, and rank 0 reduces best1, topk or all over the REAL members only
-(``core.ensemble``), so its answers are a one-rank server's.  ``publish``
-ranks the members' losses gathered from every rank.  The int8 copy is
-packed per rank, from the rank's share (every scale is a member's).
-Without a process group ``--sharded`` serves as one rank.
+``--sharded`` under ``torchrun --nproc-per-node W`` serves on the ranks'
+``(data, model)`` mesh (``launch/mesh.py``, ``distributed/sharding.py``):
+each model row holds the population, each rank restoring its range of
+whole members (``restore_population(mesh=)``), and runs its share's
+forward — the same kernels, depth+1 launches of its own depth — on its
+rows of each flush: the flush's batch is split over the data axis where
+the axis divides it (JAX's ``POP_LOGITS``, batch over ``data``, members
+over ``model``), else every data row takes the whole flush.  The
+per-member logits go to rank 0 over the host (members over each row,
+then rows over the data column), and rank 0 reduces best1, topk or all
+over the REAL members only (``core.ensemble``), so its answers are a
+one-rank server's.  ``publish`` ranks the members' losses gathered over
+the model row (every row scores the whole calibration split).  The int8
+copy is packed per rank, from the rank's share (every scale is a
+member's).  Without a process group ``--sharded`` serves as one rank.
 """
 from __future__ import annotations
 
@@ -84,9 +89,9 @@ class PopulationServer:
         self.weights_dtype = check_dtypes(compute_dtype, weights_dtype)
         self.compute_dtype = compute_dtype
         self.params = params
+        self.batch = int(batch)
         self._target(layout, shard)
         self.device = params["w_in"].device
-        self.batch = int(batch)
         self.topk = int(topk)
         self.max_latency_ms = float(max_latency_ms)
         self._fw = dict(bd_impl=bd_impl, act_impl=act_impl, infer=True,
@@ -103,10 +108,18 @@ class PopulationServer:
     def _target(self, layout, shard):
         """``layout`` is the whole layout; on W ranks (``shard``, a
         ``PopulationShard`` of it) ``params`` are this rank's share and
-        every forward runs ``self.local``, its layout."""
+        every forward runs ``self.local``, its layout, on this rank's rows
+        ``self.rows`` of each flush (``population_batch_shardings``)."""
+        from repro_torch.distributed.sharding import \
+            population_batch_shardings
         self.layout = layout
-        self.shard = shard if shard is not None and shard.sharded else None
+        self.shard = (shard if shard is not None and shard.distributed
+                      else None)
         self.local = layout if self.shard is None else self.shard.local
+        self.rows = population_batch_shardings(
+            None if self.shard is None else self.shard.mesh,
+            self.batch)[1].indices(self.batch)[:2]
+        self.split = self.rows != (0, self.batch)
 
     @property
     def is_writer(self) -> bool:
@@ -180,10 +193,10 @@ class PopulationServer:
     # ----------------------------------------------------------------- #
 
     def _step(self, mode: str):
-        """The eager serve step of ``mode`` over the current published set:
-        forward-only fused path, then the on-device ensemble reduction (on
-        W ranks, on rank 0 over every rank's logits; the others' step
-        returns None)."""
+        """The eager serve step of ``mode`` over the current published set,
+        on this rank's rows of a flush: forward-only fused path, then the
+        on-device ensemble reduction (on W ranks, on rank 0 over every
+        rank's logits; the others' step returns None)."""
         if mode not in ENSEMBLE_MODES:
             raise ValueError(f"unknown mode {mode!r} (have {ENSEMBLE_MODES})")
         if mode != "all" and mode not in self.published:
@@ -191,22 +204,30 @@ class PopulationServer:
                              "— call publish() first")
         self._ensure_quantized()
         ids = self.published.get(mode)
-        lp, local, fw, shard = self.layout, self.local, self._fw, self.shard
+        lp, flush_logits = self.layout, self.flush_logits
 
         def step(params, xb):
+            logits = flush_logits(params, xb)
+            if logits is None:
+                return None
             with torch.inference_mode():
-                logits = forward(params, xb, local, **fw)
-                if shard is not None:
-                    # (B, P_r, O) → rank 0's (B, P, O), over the host
-                    got = shard.gather_members(logits.transpose(1, 2),
-                                               dst=0)
-                    if got is None:
-                        return None
-                    logits = got.transpose(1, 2).to(xb.device)
                 return ensemble_predict(logits, lp, mode, member_ids=ids,
                                         with_uncertainty=True)
 
         return step
+
+    def flush_logits(self, params, xb):
+        """A flush's logits ``(B, P, O)`` from this rank's rows of it,
+        ``xb`` (``self.rows``): the forward of this rank's members, and
+        on W ranks every rank's members and rows gathered to rank 0 over
+        the host (None elsewhere)."""
+        with torch.inference_mode():
+            logits = forward(params, xb, self.local, **self._fw)
+            if self.shard is None:
+                return logits
+            # (B_r, P_r, O) → rank 0's (B, P, O)
+            got = self.shard.gather_rows(logits.transpose(1, 2), self.split)
+            return None if got is None else got.transpose(1, 2).to(xb.device)
 
     # ----------------------------------------------------------------- #
     # request loop                                                      #
@@ -220,6 +241,7 @@ class PopulationServer:
         in their recorded latency).  ``warmup`` runs one zero slab before
         the clock starts."""
         step = self._step(mode)
+        lo, hi = self.rows
         xs = np.asarray(xs, np.float32)
         n = int(xs.shape[0])
         lat = np.zeros(n)
@@ -227,7 +249,7 @@ class PopulationServer:
         unc = np.zeros(n, np.float32)
         if warmup:
             out = step(self.params, torch.zeros(
-                (self.batch, self.layout.in_features), device=self.device))
+                (hi - lo, self.layout.in_features), device=self.device))
             if out is not None:
                 out["pred"].cpu()
         t0 = time.perf_counter()
@@ -239,7 +261,9 @@ class PopulationServer:
             buf[:nb] = torch.from_numpy(xs[i:i + nb])
             if nb < self.batch:               # max-latency flush: timer fired
                 buf[nb:] = 0.0
-            out = step(self.params, buf.to(self.device, non_blocking=True))
+            # this rank's rows of the flush
+            out = step(self.params, buf[lo:hi].to(self.device,
+                                                  non_blocking=True))
             if out is not None:
                 preds[i:i + nb] = out["pred"].cpu().numpy()[:nb]
                 unc[i:i + nb] = out["mutual_information"].cpu().numpy()[:nb]
@@ -278,7 +302,8 @@ class PopulationServer:
         layout's depth.  Raises otherwise."""
         self._ensure_quantized()
         lp = self.local
-        xb = torch.zeros((self.batch, lp.in_features), device=self.device)
+        xb = torch.zeros((self.rows[1] - self.rows[0], lp.in_features),
+                         device=self.device)
         before = kernel_launches()
         with torch.inference_mode():
             forward(self.params, xb, lp, **self._fw)
@@ -304,8 +329,7 @@ class PopulationServer:
         rank's share (every rank reads the step rank 0 found)."""
         from repro_torch.checkpoint.checkpoint import (latest_steps,
                                                        restore_population)
-        from repro_torch.distributed.sharding import pop_axis_size
-        if pop_axis_size(mesh) == 1:
+        if mesh is None or mesh.size == 1:
             params, layout, step = restore_population(ckpt_dir, step=step,
                                                       device=device)
             return cls(params, layout, **kw), step
@@ -394,8 +418,11 @@ def _serve(args, mesh) -> dict:
         f"F={lp.in_features} O={lp.out_features} depth={lp.depth} "
         f"on {server.device}")
     if server.shard is not None:
-        say(f"sharded over {server.shard.n} ranks: members "
-            f"{list(server.shard.ranges)}")
+        say(f"mesh {dict(server.shard.mesh.shape)}: members over the model "
+            f"axis {list(server.shard.ranges)}, rows of a flush of "
+            f"{server.batch} "
+            + ("split over the data axis" if server.split else
+               "on every data row"))
 
     from repro_torch.data.synthetic import TabularTask
     task = TabularTask(args.calib_samples + args.requests, lp.in_features,
@@ -432,6 +459,7 @@ def _serve(args, mesh) -> dict:
            "serve_copy_bytes": served_bytes}
     if server.shard is not None:
         out["ranks"] = list(server.shard.ranges)
+        out["rows"] = list(server.rows)
     if not server.is_writer:
         return out
     out["pred"] = {m: p.tolist() for m, p in preds.items()}

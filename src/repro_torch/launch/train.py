@@ -69,20 +69,27 @@ next chunk is launched.  ``--pipeline off`` builds and copies the same way
 on the training thread and fetches each chunk's metrics before the next
 launch.  The trajectory is bitwise the same either way.
 
-Under ``torchrun --nproc-per-node W`` (W of 2, 4, 8 or 16;
-``launch/mesh.py``) the population axis spans the W ranks, as the JAX
-driver's does a mesh's ``model`` axis (``distributed/sharding.py``): the
-layout is shard-padded to W (``shard_pad``; the fillers drawn from a
-generator seeded from ``(seed, 1)``, the real members bitwise a one-rank
-init), each rank trains a contiguous range of whole members on the same
-kernels, and the ranks meet only where the reference mixes members (the
-clip's global norm, adafactor's member-axis statistics), to gather
-per-member losses for the reports and the rungs, and to gather the state
-to rank 0, the only writer of checkpoints, and to every rank at a rung,
-where the one-rank code compacts, refills or grows it before it is
-re-padded and re-partitioned.  A checkpoint of either package, padded for
-any world, resumes on any W (its layout wins).  Only rank 0 prints the
-run's reports.  On one rank nothing of this runs.
+Under ``torchrun --nproc-per-node W`` the ranks form JAX's ``(data,
+model)`` mesh (``launch/mesh.py``: ``model`` the largest of 16, 8, 4, 2
+dividing W, ``data`` the rest).  The population axis spans a model row,
+as the JAX driver's does a mesh's ``model`` axis
+(``distributed/sharding.py``): the layout is shard-padded to ``model``
+(``shard_pad``; the fillers drawn from a generator seeded from ``(seed,
+1)``, the real members bitwise a one-rank init), each rank trains a
+contiguous range of whole members on the same kernels, and the ranks of
+a row meet only where the reference mixes members (the clip's global
+norm, adafactor's member-axis statistics), to gather per-member losses
+for the reports and the rungs, and to gather the state to rank 0, the
+only writer of checkpoints, and to every rank at a rung, where the
+one-rank code compacts, refills or grows it before it is re-padded and
+re-partitioned.  The data axis splits each batch by rows where it
+divides ``--batch`` (each rank builds and copies only its rows), and the
+ranks of a data column, which hold the same members, average each step's
+losses and gradients (``sharding.DataReduce``) before the clip and the
+optimizer; where it does not divide, every rank takes the whole batch.
+Failures are decided by the whole world.  A checkpoint of either
+package, padded for any world, resumes on any W (its layout wins).  Only
+rank 0 prints the run's reports.  On one rank nothing of this runs.
 """
 from __future__ import annotations
 
@@ -256,8 +263,8 @@ def run_population(arch, args, mesh=None):
     from repro_torch.device import resolve
     from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
                                                          TrainRunner)
-    from repro_torch.distributed.sharding import (PopulationShard,
-                                                  pop_axis_size)
+    from repro_torch.distributed.sharding import (
+        PopulationShard, pop_axis_size, population_batch_shardings)
     from repro_torch.launch.launch_count import kernel_launches
     from repro_torch.optim.optimizers import (adafactor, adamw, sgd,
                                               warmup_cosine)
@@ -275,21 +282,26 @@ def run_population(arch, args, mesh=None):
                                       seed=args.seed,
                                       exploit_frac=args.refill_exploit_frac)
     W = pop_axis_size(mesh)
-    # the population axis the layout is padded for: the world's, unless
+    world = 1 if mesh is None else mesh.size
+    # the population axis the layout is padded for: the mesh's, unless
     # --shard-pad asks for another (one rank can then follow W ranks' run)
     pad = getattr(args, "shard_pad", None) or W
-    say = print if W == 1 or mesh.is_writer else _quiet
+    say = print if world == 1 or mesh.is_writer else _quiet
+    # this rank's rows of each batch: all of them unless the data axis
+    # splits it
+    rows = population_batch_shardings(mesh, args.batch)[1].indices(
+        args.batch)[:2]
     if args.ckpt_dir is None:
         if args.resume:
             raise SystemExit("--resume needs --ckpt-dir")
-        if W == 1:
+        if world == 1:
             args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
         else:        # one directory for the job: rank 0's
             args.ckpt_dir = mesh.broadcast_object(
                 tempfile.mkdtemp(prefix="repro_torch_ckpt_")
                 if mesh.is_writer else None)
         say(f"checkpoints: {args.ckpt_dir}")
-    if W == 1:
+    if world == 1:
         device = resolve(args.device)
     else:
         device = mesh.device(args.device)
@@ -312,7 +324,7 @@ def run_population(arch, args, mesh=None):
         model = arch.model
         lp = model.layered() if isinstance(model, Population) else model
     scan = max(args.scan_steps, 1)
-    if W == 1:
+    if world == 1:
         print(f"device={device} scan_steps={scan}")
     else:
         say(f"mesh={dict(mesh.shape)} device={device} scan_steps={scan}")
@@ -321,7 +333,7 @@ def run_population(arch, args, mesh=None):
     rung = 0
     life = {}
     ck_step = None
-    if W == 1:
+    if world == 1:
         resuming = bool(args.resume and latest_steps(args.ckpt_dir))
     else:
         # the job resumes the step rank 0 found committed
@@ -430,7 +442,7 @@ def run_population(arch, args, mesh=None):
     sh = PopulationShard(lp, mesh)
     if resuming:
         opt = build_opt(sh)
-        at = {} if W == 1 else {"step": ck_step, "mesh": mesh}
+        at = {} if world == 1 else {"step": ck_step, "mesh": mesh}
         if stored is None:
             params, lp_ckpt, *_ = restore_population(args.ckpt_dir,
                                                      device=device, **at)
@@ -461,6 +473,14 @@ def run_population(arch, args, mesh=None):
     if W > 1:
         say(f"population axis: {W} ranks, members {list(sh.ranges)}, "
             f"fused widths {sh.widths()}")
+    if sh.data > 1:
+        say(f"data axis: {sh.data} ranks, "
+            + (f"{rows[1] - rows[0]} of {args.batch} rows a rank, the "
+               "gradients averaged over each data column"
+               if rows != (0, args.batch) else
+               f"{args.batch} rows on every rank (the data axis does not "
+               "divide them)"))
+    data_reduce = sh.data_reduce(args.batch)
 
     task = TabularTask(args.samples, lp.in_features,
                        n_classes=lp.out_features, seed=args.seed)
@@ -514,29 +534,34 @@ def run_population(arch, args, mesh=None):
                 sh.local, optimizer=opt, grad_clip=grad_clip,
                 scan_steps=scan, lr_schedule=lr_sched,
                 compute_dtype=args.compute_dtype, reduce=sh.reduce,
-                **route)
+                data_reduce=data_reduce, **route)
             stats["chunk_builds"] += 1
         chunk_fn = chunk[key]
         lr = arch.lr if lr0 is None else member_tree(lr0, arch.lr, sh)
         n_chunks = (seg_end - seg_start + scan - 1) // scan
 
         # one probe batch pins the staging dtypes/shapes (a pure function
-        # of the step index)
+        # of the step index): this rank's rows of it
         bx0, by0 = task.batch(seg_start, args.batch)
+        bx0, by0 = bx0[rows[0]:rows[1]], by0[rows[0]:rows[1]]
         specs = (((scan,) + bx0.shape, bx0.dtype),
                  ((scan,) + by0.shape, by0.dtype))
+        # an unsplit batch calls batch_slab as one rank always has, so a
+        # stand-in for it that predates ``rows`` still serves one rank
+        slab_rows = {} if rows == (0, args.batch) else {"rows": rows}
 
         def make_staging():
             return stager.staging(specs)
 
         def build_slab(c, staging):
-            """Chunk c's (scan, B, ...) slab built into ``staging`` and
-            copied to the device (the producer thread's body, and the
-            synchronous path's builder: both stage and copy alike)."""
+            """Chunk c's (scan, B, ...) slab — this rank's rows of it —
+            built into ``staging`` and copied to the device (the producer
+            thread's body, and the synchronous path's builder: both stage
+            and copy alike)."""
             g0 = seg_start + c * scan
             n = min(scan, seg_end - g0)
             return stager.stage(staging, n, lambda sx, sy: task.batch_slab(
-                g0, n, args.batch, out=(sx, sy)))
+                g0, n, args.batch, out=(sx, sy), **slab_rows))
 
         if pipeline:
             if pf is None:
@@ -633,7 +658,7 @@ def run_population(arch, args, mesh=None):
             ckpt_step_unmap=lambda g: (g + 1 - seg_start) // scan - 1,
             ckpt_save_pred=chunk_crosses_cadence,
             on_restore=on_restore, shard=sh,
-            full_like=None if not sh.sharded else {
+            full_like=None if not sh.distributed else {
                 "params": deep.abstract_params(lp),
                 "extra": opt.init(deep.abstract_params(lp))})
         n_before = kernel_launches()
@@ -866,7 +891,7 @@ def run_population(arch, args, mesh=None):
             if sh.sharded:
                 stats["rungs"][-1].update(ranks=list(sh.ranges),
                                           rank_fused_hidden=sh.widths())
-            if args.ckpt_every and (full is None or sh.is_writer):
+            if args.ckpt_every and sh.is_writer:
                 # force-save the post-rung state at the last COMPLETED step,
                 # overwriting any cadence save of it: the latest checkpoint
                 # always matches the live layout (on W ranks rank 0 writes
@@ -891,6 +916,10 @@ def run_population(arch, args, mesh=None):
     stats.update(steps=steps_run, seconds=dt, explored=next_id)
     if sh.sharded:
         stats.update(ranks=list(sh.ranges), rank_fused_hidden=sh.widths())
+    if sh.data > 1:
+        stats.update(rows=list(rows), data_reduce_calls=(
+            data_reduce.calls if data_reduce else 0),
+            data_reduce_s=data_reduce.seconds if data_reduce else 0.0)
     if steps_run:
         loss0 = stats.get("first_loss", 0.0)
         loss = stats.get("last_loss", 0.0)
@@ -908,11 +937,11 @@ def run_population(arch, args, mesh=None):
             # (rank 0's directory decides for every rank)
             saved = latest_steps(args.ckpt_dir) if sh.is_writer else []
             need = not saved or saved[-1] != total - 1
-            if sh.sharded:
+            if sh.distributed:
                 need = bool(mesh.broadcast_int(need))
             if need:
                 p_all, st_all = params, opt_state
-                if sh.sharded:
+                if sh.distributed:
                     got = sh.gather_tree({"params": params,
                                           "extra": opt_state})
                     p_all, st_all = (got or {}).get("params"), \

@@ -34,6 +34,7 @@ thread; rendezvous on a free port (``torchrun --standalone``).
 """
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -100,61 +101,116 @@ print("OK")
 """
 
 _WORKER = r"""
-import json, sys
+import faulthandler, hashlib, json, sys
+faulthandler.enable()      # a fatal signal prints every thread's stack
 import torch
 torch.set_num_threads(1)
 import torch.distributed as dist
 from repro_torch.core import deep
+from repro_torch.core.tree import tree_leaves
 from repro_torch.distributed import fault_tolerance as ft
 from repro_torch.launch import serve_population, train
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import close, make_host_mesh
+
+
+def digest(state):
+    h = hashlib.sha256()
+    for t in tree_leaves(state):
+        if isinstance(t, torch.Tensor):
+            h.update(t.detach().cpu().reshape(-1).contiguous()
+                     .view(torch.uint8).numpy())
+        else:
+            h.update(repr(t).encode())
+    return h.hexdigest()
+
 
 jobs = json.load(open(sys.argv[1]))
 mesh = make_host_mesh(timeout_s=float(sys.argv[2]))   # kept for every job
 rank = dist.get_rank()
+where = {"shape": mesh.shape, "coords": mesh.coords, "row": None,
+         "col": None}
+for axis, g in (("row", mesh.row_group), ("col", mesh.col_group)):
+    if g is not None:
+        where[axis] = dist.get_process_group_ranks(g)
 runner, chunk_maker = ft.TrainRunner, deep.make_population_train_step
-for job in jobs:
-    ft.TrainRunner, deep.make_population_train_step = runner, chunk_maker
-    if "fail_hook" in job:            # a failure before a step: replayed
-        at, who = job["fail_hook"]
+try:
+    for job in jobs:
+        ft.TrainRunner, deep.make_population_train_step = runner, chunk_maker
+        if "fail_hook" in job:        # a failure before a step: replayed
+            at, who = job["fail_hook"]
 
-        class Failing(runner):
-            def __init__(self, *a, **k):
-                done = []
+            class Failing(runner):
+                def __init__(self, *a, **k):
+                    done = []
 
-                def hook(c):
-                    if c == at and rank == who and not done:
-                        done.append(c)
-                        raise RuntimeError("injected failure")
-                k["failure_hook"] = hook
-                super().__init__(*a, **k)
-        ft.TrainRunner = Failing
-    if "fail_step" in job:            # a failure inside a step: fatal
-        at, who = job["fail_step"]
+                    def hook(c):
+                        if c == at and rank == who and not done:
+                            done.append(c)
+                            raise RuntimeError("injected failure")
+                    k["failure_hook"] = hook
+                    super().__init__(*a, **k)
+            ft.TrainRunner = Failing
+        if "fail_step" in job:        # a failure inside a step: fatal
+            at, who = job["fail_step"]
 
-        def failing_maker(*a, **k):
-            chunk, calls = chunk_maker(*a, **k), []
+            def failing_maker(*a, **k):
+                chunk, calls = chunk_maker(*a, **k), []
 
-            def wrapped(*args):
-                calls.append(1)
-                if rank == who and len(calls) == at:
-                    raise RuntimeError("rank failed inside a step")
-                return chunk(*args)
-            return wrapped
-        deep.make_population_train_step = failing_maker
-    if job["kind"] == "train":
-        _, lp, stats = train.main(job["argv"])
-        res = {"chunk_loss": stats["chunk_loss"],
-               "restarts": stats["restarts"], "ranks": stats.get("ranks"),
-               "rungs": [[r["members_before"], r["members"]]
-                         for r in stats["rungs"]]}
-    else:
-        out = serve_population.main(job["argv"])
-        res = {"pred": out.get("pred"), "ranks": out.get("ranks"),
-               "budget": out["budget"],
-               "board": [[r["slot"], r["loss"]] for r in out["board"]]}
-    with open(f"{job['out']}.{rank}.json", "w") as f:
-        json.dump(res, f)
+                def wrapped(*args):
+                    calls.append(1)
+                    if rank == who and len(calls) == at:
+                        raise RuntimeError("rank failed inside a step")
+                    return chunk(*args)
+                return wrapped
+            deep.make_population_train_step = failing_maker
+        digests = []
+        if job.get("digest"):         # this rank's state after every chunk
+            inner = ft.TrainRunner
+
+            class Digesting(inner):
+                def __init__(self, step_fn, *a, **k):
+                    def step(state, c):
+                        state, metrics = step_fn(state, c)
+                        digests.append([c, digest(state)])
+                        return state, metrics
+                    super().__init__(step, *a, **k)
+            ft.TrainRunner = Digesting
+        if job["kind"] == "train":
+            _, lp, stats = train.main(job["argv"])
+            res = {"chunk_loss": stats["chunk_loss"],
+                   "restarts": stats["restarts"],
+                   "ranks": stats.get("ranks"), "digests": digests,
+                   # (steps, this rank's depth, its launches) a segment
+                   "segments": [
+                       [g["end"] - g["start"],
+                        len(g["rank_fused_hidden"][mesh.pop_rank])
+                        if "rank_fused_hidden" in g else g["depth"],
+                        g["launches"]] for g in stats["segments"]],
+                   "rungs": [[r["members_before"], r["members"]]
+                             for r in stats["rungs"]]}
+        else:
+            out = serve_population.main(job["argv"])
+            res = {"pred": out.get("pred"), "ranks": out.get("ranks"),
+                   "budget": out["budget"], "rows": out.get("rows"),
+                   "board": [[r["slot"], r["loss"]] for r in out["board"]]}
+            if "logits" in job:       # one flush through the server's path
+                lg = job["logits"]
+                server, _ = serve_population.PopulationServer.from_checkpoint(
+                    lg["ckpt"], device="cpu", mesh=mesh, batch=lg["rows"],
+                    **lg["kw"])
+                server._ensure_quantized()
+                x = torch.randn(lg["rows"], server.layout.in_features,
+                                generator=torch.Generator().manual_seed(3))
+                lo, hi = server.rows
+                got = server.flush_logits(server.params, x[lo:hi])
+                res["logits"] = got is not None       # rank 0's alone
+                if got is not None:
+                    torch.save(got, f"{job['out']}.logits.pt")
+        res["mesh"] = where
+        with open(f"{job['out']}.{rank}.json", "w") as f:
+            json.dump(res, f)
+finally:
+    close(mesh)
 print("WORKER OK", rank)
 """
 
@@ -172,19 +228,44 @@ def _env():
 def torchrun(tmp: Path, n: int, jobs: list, timeout_s: float = 60.0,
              limit: float = 240.0):
     """Run ``jobs`` in one ``torchrun`` job of ``n`` ranks → the
-    subprocess's result."""
+    subprocess's result, with ``logs``: the directory each rank's stdout
+    and stderr are written to (``--log-dir``, ``--tee 3``)."""
     script = tmp / "worker.py"
     script.write_text(_WORKER)
-    spec = tmp / f"jobs{n}-{len(list(tmp.iterdir()))}.json"
+    tag = f"{n}-{len(list(tmp.iterdir()))}"
+    spec = tmp / f"jobs{tag}.json"
     spec.write_text(json.dumps(jobs))
-    return subprocess.run(
+    logs = tmp / f"logs{tag}"
+    r = subprocess.run(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
-         "--nproc-per-node", str(n), str(script), str(spec), str(timeout_s)],
+         "--nproc-per-node", str(n), "--log-dir", str(logs), "--tee", "3",
+         str(script), str(spec), str(timeout_s)],
         capture_output=True, text=True, env=_env(), timeout=limit)
+    r.logs = logs
+    return r
+
+
+def _rank_logs(logs: Path) -> dict:
+    """rank → its stderr file, of a ``torchrun`` job's ``--log-dir``."""
+    return {int(p.parent.name): p for p in logs.rglob("stderr.log")}
 
 
 def _ok(r):
-    assert r.returncode == 0, (r.stdout[-4000:], r.stderr[-4000:])
+    """Fail with the job's failing rank's whole stderr first (torchrun's
+    root cause: the first rank to fail), then every other rank's, then
+    the end of torchrun's own."""
+    if r.returncode == 0:
+        return
+    files = _rank_logs(r.logs)
+    m = re.search(r"Root Cause.*?rank\s*:\s*(\d+)", r.stderr, re.S)
+    first = int(m.group(1)) if m else None
+    order = ([first] if first in files else []) + sorted(
+        k for k in files if k != first)
+    text = "".join(f"\n---- rank {k} stderr ({files[k]}) ----\n"
+                   f"{files[k].read_text(errors='replace')}" for k in order)
+    pytest.fail(f"torchrun exited {r.returncode}; first failure: rank "
+                f"{first}{text}\n---- torchrun stderr (end) ----\n"
+                f"{r.stderr[-4000:]}", pytrace=False)
 
 
 def _train(d: Path, name: str, argv: list, **extra):
@@ -203,9 +284,9 @@ def _resume_copy(src: Path, dst: Path, step: int) -> Path:
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """The JAX runs on 4 devices, the port's jobs at W = 2 and 4, and the
-    port's one-rank runs they are held to."""
+def jax4(tmp_path_factory):
+    """The JAX runs on 4 devices, and copies of their step-1 checkpoints
+    for the port to resume."""
     d = tmp_path_factory.mktemp("dist")
     jax_runs = {k: BASE + v + ["--steps", "4", "--pipeline", "off"]
                 for k, v in OPT.items()}
@@ -216,6 +297,13 @@ def runs(tmp_path_factory):
     for k in OPT:
         for w in ("w1", "w2", "w4"):
             _resume_copy(d / "jax" / k, d / f"{w}_jax_{k}", 1)
+    return d
+
+
+@pytest.fixture(scope="module")
+def w2(jax4):
+    """The port's jobs at W = 2 and the one-rank runs they are held to."""
+    d = jax4
     jck = str(d / "jax" / "sgd")
     jobs2 = [_train(d, f"w2_jax_{k}", v + ["--steps", "4", "--resume"])
              for k, v in OPT.items()]
@@ -235,23 +323,11 @@ def runs(tmp_path_factory):
          "argv": ["--ckpt-dir", jck, "--sharded", "--compute-dtype",
                   "bfloat16", *SERVE]}]
     _ok(torchrun(d, 2, jobs2))
-    clip_halving = OPT["adamw"] + ["--steps", "6", "--halving", "2:0.5"]
-    jobs4 = [_train(d, "w4_jax_adamw", OPT["adamw"] + ["--steps", "4",
-                                                       "--resume"]),
-             _train(d, "w4_adamw", OPT["adamw"] + ["--steps", "4"]),
-             _train(d, "w4_adafactor", OPT["adafactor"] + ["--steps", "4"]),
-             _train(d, "w4_halving", clip_halving)]
-    _ok(torchrun(d, 4, jobs4))
     one = {}
     for name, argv in (
             ("w1_sgd", OPT["sgd"] + ["--steps", "6"]),
             ("w1_pbt", OPT["sgd"] + ["--steps", "6", "--halving", "2:0.5",
                                      "--refill", "pbt", "--per-member-lr"]),
-            ("w1_adamw", OPT["adamw"] + ["--steps", "4", "--shard-pad",
-                                         "4"]),
-            ("w1_adafactor", OPT["adafactor"] + ["--steps", "4",
-                                                 "--shard-pad", "4"]),
-            ("w1_halving", clip_halving + ["--shard-pad", "4"]),
             ("w1_jax_adamw", OPT["adamw"] + ["--steps", "4", "--resume"])):
         one[name] = ttrain.main(BASE + PORT + argv
                                 + ["--ckpt-dir", str(d / name)])
@@ -263,6 +339,30 @@ def runs(tmp_path_factory):
         one[f"serve_{tag}"] = tserve.main(["--ckpt-dir", jck, *SERVE,
                                            *extra])
     return d, one
+
+
+CLIP_HALVING = OPT["adamw"] + ["--steps", "6", "--halving", "2:0.5"]
+
+
+@pytest.fixture(scope="module")
+def w4(jax4):
+    """The port's jobs at W = 4 and the one-rank runs on the same padded
+    layout they are held to."""
+    d = jax4
+    jobs4 = [_train(d, "w4_jax_adamw", OPT["adamw"] + ["--steps", "4",
+                                                       "--resume"]),
+             _train(d, "w4_adamw", OPT["adamw"] + ["--steps", "4"]),
+             _train(d, "w4_adafactor", OPT["adafactor"] + ["--steps", "4"]),
+             _train(d, "w4_halving", CLIP_HALVING)]
+    _ok(torchrun(d, 4, jobs4))
+    for name, argv in (
+            ("w1_adamw", OPT["adamw"] + ["--steps", "4", "--shard-pad",
+                                         "4"]),
+            ("w1_adafactor", OPT["adafactor"] + ["--steps", "4",
+                                                 "--shard-pad", "4"]),
+            ("w1_halving", CLIP_HALVING + ["--shard-pad", "4"])):
+        ttrain.main(BASE + PORT + argv + ["--ckpt-dir", str(d / name)])
+    return d
 
 
 def _ckpt(d: Path, name: str):
@@ -303,8 +403,8 @@ def _equal(a, b):
 
 
 @pytest.mark.parametrize("name", sorted(OPT))
-def test_w2_resumes_jax_4_device_runs(runs, name):
-    d, _ = runs
+def test_w2_resumes_jax_4_device_runs(w2, name):
+    d, _ = w2
     (jp, jlp), _ = _ckpt(d / "jax", name)
     (tp, tlp), meta = _ckpt(d, f"w2_jax_{name}")
     assert tlp == jlp and jlp.n_pad == 2
@@ -319,8 +419,10 @@ def test_w2_resumes_jax_4_device_runs(runs, name):
 
 
 @pytest.mark.parametrize("world", ["w1", "w4"])
-def test_jax_padded_checkpoint_resumes_at_w1_and_w4(runs, world):
-    d, _ = runs
+def test_jax_padded_checkpoint_resumes_at_w1_and_w4(request, world):
+    # W = 1's run is one of the W = 2 job's one-rank twins
+    d = (request.getfixturevalue("w2")[0] if world == "w1"
+         else request.getfixturevalue("w4"))
     (jp, jlp), _ = _ckpt(d / "jax", "adamw")
     (tp, tlp), _ = _ckpt(d, f"{world}_jax_adamw")
     assert tlp == jlp
@@ -328,12 +430,12 @@ def test_jax_padded_checkpoint_resumes_at_w1_and_w4(runs, world):
     np.testing.assert_allclose(_losses(tp, tlp), _losses(jp, jlp), **TRAJ)
 
 
-def test_w2_real_members_follow_w1(runs):
+def test_w2_real_members_follow_w1(w2):
     """On the CPU every kernel runs its plain version, whose sums (BLAS,
     torch reductions) may take another order on another layout's shapes:
     the real members are held to the tolerance here (bit for bit on the
     card: chip_smoke.py path 4k)."""
-    d, one = runs
+    d, one = w2
     (p2, lp2), _ = _ckpt(d, "w2_sgd")
     (p1, lp1), _ = _ckpt(d, "w1_sgd")
     assert lp2.n_pad == 2 and lp1.n_pad == 0
@@ -348,8 +450,8 @@ def test_w2_real_members_follow_w1(runs):
     assert _result(d, "w2_sgd", 1)["chunk_loss"] == got["chunk_loss"]
 
 
-def test_crash_replay_on_one_rank_is_bitwise_the_unbroken_run(runs):
-    d, _ = runs
+def test_crash_replay_on_one_rank_is_bitwise_the_unbroken_run(w2):
+    d, _ = w2
     assert [_result(d, "w2_crash", r)["restarts"] for r in (0, 1)] == [1, 1]
     (pc, _), _ = _ckpt(d, "w2_crash")
     (pu, _), _ = _ckpt(d, "w2_sgd")
@@ -362,8 +464,8 @@ def test_crash_replay_on_one_rank_is_bitwise_the_unbroken_run(runs):
             assert a[k].tobytes() == b[k].tobytes(), (s, k)
 
 
-def test_pbt_ladder_keeps_the_survivors_of_one_rank(runs):
-    d, one = runs
+def test_pbt_ladder_keeps_the_survivors_of_one_rank(w2):
+    d, _ = w2
     (p2, lp2), m2 = _ckpt(d, "w2_pbt")
     (p1, lp1), m1 = _ckpt(d, "w1_pbt")
     l1, l2 = m1["lifecycle"], m2["lifecycle"]
@@ -375,8 +477,8 @@ def test_pbt_ladder_keeps_the_survivors_of_one_rank(runs):
 
 
 @pytest.mark.parametrize("name", ["adamw", "adafactor", "halving"])
-def test_w4_follows_w1_on_the_same_padded_layout(runs, name):
-    d, _ = runs
+def test_w4_follows_w1_on_the_same_padded_layout(w4, name):
+    d = w4
     (p4, lp4), m4 = _ckpt(d, f"w4_{name}")
     (p1, lp1), m1 = _ckpt(d, f"w1_{name}")
     assert lp4 == lp1 and lp4.n_pad > 0
@@ -389,8 +491,8 @@ def test_w4_follows_w1_on_the_same_padded_layout(runs, name):
         assert lp4.num_real == 3 and lp4.num_members == 4
 
 
-def test_a_w2_checkpoint_resumes_at_w1(runs):
-    d, one = runs
+def test_a_w2_checkpoint_resumes_at_w1(w2):
+    d, one = w2
     (pa, lpa), _ = _ckpt(d, "w1_from_w2")
     (pb, lpb), _ = _ckpt(d, "w2_sgd")
     assert lpa == lpb and lpa.n_pad == 2
@@ -399,8 +501,8 @@ def test_a_w2_checkpoint_resumes_at_w1(runs):
 
 
 @pytest.mark.parametrize("tag", ["f32", "int8", "bf16"])
-def test_sharded_serving_matches_one_rank_and_jax(runs, tag):
-    d, one = runs
+def test_sharded_serving_matches_one_rank_and_jax(w2, tag):
+    d, one = w2
     name = {"f32": "w2_serve", "int8": "w2_serve8",
             "bf16": "w2_serve16"}[tag]
     got = _result(d, name)

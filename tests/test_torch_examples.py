@@ -1,8 +1,10 @@
 """The port's example twins (``examples/torch_quickstart.py``,
-``examples/torch_feature_selection.py``) run end to end on the CPU through
-their ``main``: the quickstart at a tiny size, the feature-selection
-example at its own sizes (a few seconds), every masked w1 entry exactly 0
-after every step."""
+``examples/torch_feature_selection.py``,
+``examples/torch_search_population.py``) run end to end on the CPU
+through their ``main``: the quickstart at a tiny size, the
+feature-selection example at its own sizes (a few seconds), every masked
+w1 entry exactly 0 after every step, and the refill search at a reduced
+ladder, its one chunk building no table after the first."""
 import importlib.util
 from pathlib import Path
 
@@ -45,3 +47,22 @@ def test_feature_selection(m3_impl, capsys):
     # 150 steps, then the closing forward
     assert m3 == ({"m3_matmul_fwd": 151, "m3_matmul_dh": 150,
                    "m3_matmul_dw": 150} if m3_impl == "pallas" else {})
+
+
+def test_search_population(capsys):
+    tlc.reset_kernel_launches()
+    res = _load("torch_search_population").main(
+        ["--device", "cpu", "--steps", "12", "--ladder", "4:0.5,8:0.5",
+         "--batch", "32", "--samples", "512"])
+    out = capsys.readouterr().out
+    assert res["chunk_builds"] == 1 and res["tables_rebuilt"] == 0
+    # 16 seeds, 8 slots refilled at each of the two rungs
+    assert res["explored"] == 32 and "layout unchanged" in out
+    assert len(set(res["member_ids"])) == 16
+    losses = [r["loss"] for r in res["leaderboard"]]
+    assert losses == sorted(losses) and len(losses) == 5
+    # 12 fused steps of the depth-2 layout, then the evaluations (each a
+    # forward of depth + 1 launches): two rungs and the closing one
+    n = {k: v for k, v in tlc.kernel_launches().items() if v}
+    assert n["fused_input_bwd"] == 12 and n["loss_head_bwd"] == 12
+    assert n["fused_layer_dx_dw"] == 12

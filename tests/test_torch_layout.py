@@ -206,12 +206,14 @@ def test_port_imports_neither_jax_nor_repro():
     assert r.returncode == 0, r.stderr
     assert len(mods) >= 35
     assert [os.path.basename(t) for t in twins] == [
-        "torch_feature_selection.py", "torch_quickstart.py"]
+        "torch_feature_selection.py", "torch_quickstart.py",
+        "torch_search_population.py"]
     # the training slice's modules and the paper's workflow are among
     # those imported
     assert {"repro_torch.core.tree", "repro_torch.kernels.loss_head",
             "repro_torch.optim.optimizers", "repro_torch.launch.train",
             "repro_torch.distributed.fault_tolerance",
+            "repro_torch.distributed.compression",
             "repro_torch.configs", "repro_torch.kernels.flash_attn",
             "repro_torch.kernels.grouped_gemm",
             "repro_torch.core.feature_selection",

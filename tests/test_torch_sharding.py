@@ -3,7 +3,9 @@
 CPU.
 
 - ``make_host_mesh``'s factorisation against the JAX package's rule for
-  worlds 1–32 (a world with a data axis raises, naming item 8b).
+  worlds 1–32, every world built (the process-group calls stubbed), each
+  rank at JAX's coordinates with its model row's and data column's
+  groups.
 - ``member_partition``: every member once, contiguous, the same on every
   call, balanced by the stated rule; ``member_range`` carries the range's
   fillers as its ``n_pad``.
@@ -23,6 +25,7 @@ CPU.
   slices of the whole copy.
 """
 import threading
+import types
 
 import jax
 import numpy as np
@@ -61,26 +64,94 @@ def rand_tree(like, seed):
 # the mesh                                                              #
 # --------------------------------------------------------------------- #
 
+class FakeDist:
+    """The process-group calls ``make_host_mesh`` makes, recorded: the
+    world's group is "WORLD", a new group the tuple of its ranks."""
+
+    def __init__(self, monkeypatch):
+        import torch.distributed as dist
+        self.made = []
+        self.inited = False
+        monkeypatch.setattr(dist, "is_initialized", lambda: self.inited)
+        monkeypatch.setattr(dist, "init_process_group", self.init)
+        monkeypatch.setattr(dist, "new_group", self.new_group)
+        monkeypatch.setattr(dist, "group", types.SimpleNamespace(
+            WORLD="WORLD"))
+
+    def init(self, *a, **k):
+        self.inited = True
+
+    def new_group(self, ranks, **k):
+        self.made.append(tuple(ranks))
+        return tuple(ranks)
+
+
 @pytest.mark.parametrize("world", range(1, 33))
 def test_host_mesh_factors_as_jax(world, monkeypatch):
     """JAX's ``make_host_mesh`` on ``world`` devices (its device list and
-    mesh maker stubbed) against the port's: the same (data, model); the
-    port builds the mesh only where data is 1 and raises naming item 8b
-    elsewhere, before any process group is made."""
+    mesh maker stubbed) against the port's: the same (data, model), and
+    the port builds every world (its process-group calls stubbed): each
+    rank at JAX's coordinates (``data = r // model``), every rank making
+    every row's and then every column's group in one order, and holding
+    its own row's and column's (the world's where an axis is the whole
+    world, none where an axis is 1)."""
     monkeypatch.setattr(jmesh.jax, "devices", lambda: list(range(world)))
     monkeypatch.setattr(jmesh, "make_mesh", lambda shape, axes: shape)
     want = tuple(jmesh.make_host_mesh())
     assert tmesh._factor(world, None) == want
     monkeypatch.setenv("WORLD_SIZE", str(world))
     monkeypatch.setenv("RANK", "0")
-    if want[0] > 1:
-        with pytest.raises(NotImplementedError, match="item 8b"):
-            tmesh.make_host_mesh()
-    elif world == 1:
+    if world == 1:
         m = tmesh.make_host_mesh()
         assert m.shape == {"data": 1, "model": 1} and m.group is None
+        assert m.row_group is None and m.col_group is None
         assert tmesh.mesh_num_devices(m) == 1 and m.is_writer
         assert sh.pop_axis_size(m) == 1 and sh.pop_axis_size() == 1
+        return
+    data, model = want
+    rows = [tuple(range(d * model, (d + 1) * model)) for d in range(data)]
+    cols = [tuple(range(j, world, model)) for j in range(model)]
+    for rank in range(world):
+        fake = FakeDist(monkeypatch)
+        monkeypatch.setattr(tmesh, "_SUBGROUPS",
+                            {"world": None, "groups": {}})
+        monkeypatch.setenv("RANK", str(rank))
+        m = tmesh.make_host_mesh()
+        assert m.shape == {"data": data, "model": model} and m.owns_group
+        assert m.coords == {"data": rank // model, "model": rank % model}
+        assert m.group == "WORLD" and m.is_writer == (rank == 0)
+        assert sh.pop_axis_size(m) == model and sh.data_axis_size(m) == data
+        if data > 1 and model > 1:
+            assert fake.made == rows + cols
+            assert m.row_group == rows[rank // model]
+            assert m.col_group == cols[rank % model]
+        else:
+            assert fake.made == []
+            assert m.row_group == ("WORLD" if data == 1 else None)
+            assert m.col_group == ("WORLD" if model == 1 else None)
+
+
+def test_host_mesh_remakes_its_groups_in_a_new_world(monkeypatch):
+    """A later mesh of one world reuses the rows' and columns' groups; a
+    mesh of another world group makes its own, even where the first
+    world was left by its caller and not by ``close``."""
+    import torch.distributed as dist
+    monkeypatch.setattr(tmesh, "_SUBGROUPS", {"world": None, "groups": {}})
+    monkeypatch.setenv("WORLD_SIZE", "6")
+    monkeypatch.setenv("RANK", "3")
+    fake = FakeDist(monkeypatch)
+    fake.inited = True
+    monkeypatch.setattr(dist, "get_world_size", lambda: 6)
+    monkeypatch.setattr(dist, "get_rank", lambda: 3)
+    a = tmesh.make_host_mesh()
+    b = tmesh.make_host_mesh()
+    assert len(fake.made) == 5 and not a.owns_group
+    assert (a.row_group, a.col_group) == (b.row_group, b.col_group)
+    monkeypatch.setattr(dist, "group", types.SimpleNamespace(
+        WORLD=object()))
+    c = tmesh.make_host_mesh()
+    assert len(fake.made) == 10 and c.row_group == (2, 3)
+    assert c.col_group == (1, 3, 5)
 
 
 # --------------------------------------------------------------------- #
