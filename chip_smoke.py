@@ -240,6 +240,29 @@ Phases (any failure exits non-zero, and no result line is printed):
           split flush's logits bitwise W = 1's on the same row shares
           and within the tolerance of its whole flush, each rank's
           forward depth+1 launches;
+       l. the decoder LMs served (a process of its own, as 4g; alone:
+          ``chip_smoke.py --lm DIR``) by ``repro_torch.launch.serve.
+          generate_lm`` with random bf16 weights from a seeded generator:
+          qwen3-1.7b whole (28 layers, 4 prompts of 512 tokens, 32 greedy
+          tokens), deepseek-moe-16b at full width cut to 4 layers (its
+          dense layer 0 and three MoE layers of 64 experts, top-6, 2
+          shared; the same traffic) and h2o-danube-3-4b at full width cut
+          to 2 layers (one prompt of 4,608 tokens, past its 4,096 window,
+          then 16 tokens), each run twice with the counters set to 0 just
+          before and read just after: exactly one ``flash_attention``
+          launch per attention layer in the prefill and none in decode,
+          three ``moe_gemm`` launches per MoE layer per forward, nothing
+          else, the two runs' tokens equal; prefill ms, decode ms a token
+          and tokens/s of the second run; the prefill's last logits and
+          up to 8 teacher-forced decode steps' logits against the same
+          calls with ``flash_attn_dense``/``moe_gemm_dense`` on the card
+          (max |difference| within 1e-2 of the logits' scale or 2 bf16
+          ulps of it; the greedy tokens' agreement reported, not
+          asserted); each distinct kernel
+          call of a prefill and a decode step at the model's shapes
+          against its plain version, timed beside it, SDPA (``is_causal``,
+          ``enable_gqa``; the window as a boolean mask) or ``torch.bmm``
+          over the capacity buffer, and its bound;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -369,7 +392,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      bound and the instance (``block1_*``; ``block1_launches`` the grid
      cell's parallel arm);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
-     nineteen; the int8 rows' library call is the f32 row's on the
+     nineteen; rows 18-19's ``launches`` are path 4l's, phase 6's
+     ``api_launches``, and ``lm_serve`` holds their calls at the served
+     models' shapes; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
      ``seg_act_bwd`` have none, and say why, and carry their bf16
      instances at the depth-3 population's unfused shapes as ``bf16_*``
@@ -391,7 +416,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from functools import partial
 from pathlib import Path
 
@@ -427,7 +452,7 @@ LADDER10K = ["--arch", "parallelmlp-10k", "--halving", "8:0.5,16:0.5",
 ARCH_SPACE = "widths=64,32,16|13,5|7|32,16;acts=relu,tanh,gelu"
 SERVE_REQUESTS = 256
 # the JAX package's kernel API at three model configurations' widths (the
-# port has no LM configs yet; the shapes are those of src/repro/configs/):
+# shapes of src/repro_torch/configs/, copied from src/repro/configs/):
 # qwen3_1_7b.py attention at the train_4k shape; h2o_danube_3_4b.py's
 # sliding-window attention (d_head 3840 / 32 = 120); deepseek_moe_16b.py's
 # routed experts over the capacity buffer nn/ffn.py::moe_apply_dense builds
@@ -1505,8 +1530,9 @@ def check_batch(rows: int = BATCH):
 
 
 def path_process(workdir: Path, key: str) -> dict:
-    """Path 4g, 4h, 4i, 4j or 4k (``key`` "lifecycle", "optim", "bf16",
-    "pipeline" or "sharded") in a process of its own (``chip_smoke.py --KEY DIR``,
+    """Path 4g, 4h, 4i, 4j, 4k or 4l (``key`` "lifecycle", "optim",
+    "bf16", "pipeline", "sharded" or "lm") in a process of its own
+    (``chip_smoke.py --KEY DIR``,
     waited for), so that its profiler windows leave the later phases'
     whole (after 4g's or 4i's runs the profiler loses the first kernels of
     a window; ``_profiled``'s sentinels take them).  Returns its
@@ -4360,6 +4386,326 @@ def _ckpt_diff(a: Path, b: Path) -> dict:
 
 
 # --------------------------------------------------------------------- #
+# path 4l: LM serving                                                   #
+# --------------------------------------------------------------------- #
+
+# the served models: arch id → (layers kept: None = all, prompts, prompt
+# length, new tokens).  qwen3-1.7b whole; deepseek-moe-16b at full width,
+# its dense layer 0 and three MoE layers; h2o-danube-3-4b at full width,
+# two layers, one prompt past its 4,096 window
+LM_SERVE = {"qwen3-1.7b": (None, 4, 512, 32),
+            "deepseek-moe-16b": (4, 4, 512, 32),
+            "h2o-danube-3-4b": (2, 1, 4608, 16)}
+# logits of the kernels' run against the plain versions' (both bf16): the
+# largest |difference| within LM_LOGIT_TOL of the plain logits' largest
+# |value| (rtol 1e-2 of the kernel API's bf16 entries, taken of the
+# outputs' scale: a model's logits cross zero, and each layer's bf16
+# roundings move every logit by a share of that scale), and never below
+# 2 bf16 ulps of that value: the logits are bf16, so one rounding of the
+# largest apart is 1 ulp, 2^-8 to 2^-7 of the scale by where it sits in
+# its binade (on an H100 every step read 1 ulp apart)
+LM_LOGIT_TOL = 1e-2
+
+
+def _lm_model(arch_id: str):
+    """The arch's full config, its depth cut to ``LM_SERVE``'s layers →
+    (arch, the full config's layer count)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    arch = get_arch(arch_id)
+    full = arch.model.n_layers
+    keep = LM_SERVE[arch_id][0]
+    if keep is not None:
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, layers=arch.model.layers[:keep]))
+    return arch, full
+
+
+@contextmanager
+def _lm_ops(flash, moe):
+    """``ops.flash_attention`` and ``ops.moe_gemm`` replaced for the body
+    by ``flash(the kernel's entry)`` and ``moe(...)``.  Nothing of the port
+    changes; its modules call ``ops.*`` at call time."""
+    from repro_torch.kernels import ops
+    saved = ops.flash_attention, ops.moe_gemm
+    ops.flash_attention, ops.moe_gemm = flash(saved[0]), moe(saved[1])
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.moe_gemm = saved
+
+
+def _plain_lm_kernels():
+    """The reference run of the same calls: the plain versions on the same
+    (card) tensors."""
+    from repro_torch.kernels import flash_attn as fak
+    from repro_torch.kernels import grouped_gemm as moek
+
+    def flash(_):
+        return lambda q, k, v, scale, causal=True, window=0, **__: \
+            fak.flash_attn_dense(q, k, v, scale=scale, causal=causal,
+                                 window=int(window or 0))
+
+    def moe(_):
+        return lambda x, w, ids, *, block_t=128, **__: \
+            moek.moe_gemm_dense(x, w, ids, block_t=block_t)
+
+    return _lm_ops(flash, moe)
+
+
+def _recorded_lm_calls(calls: dict):
+    """Each ``ops.flash_attention`` and ``ops.moe_gemm`` call's arguments
+    kept in ``calls`` (its first call of each kind and shape), the calls
+    made as they are."""
+    def flash(entry):
+        def call(q, k, v, scale, causal=True, window=0, **kw):
+            calls.setdefault(("flash", tuple(q.shape)),
+                             (q, k, v, scale, causal, int(window or 0)))
+            return entry(q, k, v, scale, causal, window, **kw)
+        return call
+
+    def moe(entry):
+        def call(x, w, ids, *, block_t=128, **kw):
+            calls.setdefault(("moe", tuple(x.shape), tuple(w.shape)),
+                             (x, w, ids, block_t))
+            return entry(x, w, ids, block_t=block_t, **kw)
+        return call
+
+    return _lm_ops(flash, moe)
+
+
+def _logit_err(name: str, got, want, vocab: int, power: str) -> dict:
+    """The kernels' logits against the plain versions' over the real
+    vocabulary (the padded slots hold −1e30): max |difference| within
+    ``LM_LOGIT_TOL`` of the plain logits' scale; the argmax agreement
+    reported."""
+    import torch
+    got, want = got[..., :vocab].float(), want[..., :vocab].float()
+    _require(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    tol = max(LM_LOGIT_TOL * scale,
+              2 * 2.0 ** (math.floor(math.log2(scale)) - 7))
+    same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    print(f"[lm serve] {name} ({power}): logits max |kernels - plain| "
+          f"{err!r} of scale {scale!r} (tol {tol!r}); argmax agree "
+          f"{same!r}", flush=True)
+    _require(err <= tol, f"{name}: logits max |err| {err} beyond {tol} "
+             f"(scale {scale})")
+    return {"max_abs_err": err, "scale": scale, "tol": tol,
+            "argmax_agree": same}
+
+
+def _lm_kernel_fields(calls: dict, power: str) -> dict:
+    """Each distinct flash-attention and grouped-GEMM call of a prefill at
+    the model's shapes: the kernel against its plain version, the kernel,
+    plain version and library call timed (SDPA with ``is_causal`` and
+    ``enable_gqa``, a window as a boolean mask; ``torch.bmm`` over the
+    (E, C, ·) capacity buffer), the bound from this call's bytes and
+    operations at the bf16 peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attn as fak
+    from repro_torch.kernels import grouped_gemm as moek
+    out = {}
+    for key, args in calls.items():
+        if key[0] == "flash":
+            q, k, v, sc, causal, window = args
+            mask = (fak.attention_mask(q.shape[2], k.shape[2], causal=causal,
+                                       window=window, device=q.device)
+                    if window else None)
+            library = partial(F.scaled_dot_product_attention, q, k, v,
+                              attn_mask=mask, is_causal=mask is None
+                              and causal, scale=sc, enable_gqa=True)
+            row = compare(
+                "flash_attention",
+                partial(fak.flash_attention_cuda, q, k, v, scale=sc,
+                        causal=causal, window=window),
+                partial(fak.flash_attn_dense, q, k, v, scale=sc,
+                        causal=causal, window=window),
+                library, _nbytes(q, k, v, q),
+                4 * q.shape[0] * q.shape[1] * q.shape[3]
+                * _pairs(q.shape[2], k.shape[2], causal, window), None, 3,
+                _flash_bf16_tol(fak.flash_attn_dense, q, k, v, scale=sc,
+                                causal=causal, window=window),
+                BF16_FLOP_PER_S,
+                label=f"flash_attention {tuple(q.shape)} ({power})")
+            row["path"] = fak.kernel_path(q.dtype, q.shape[-1])
+            name = "flash {}x{}x{}x{} w{}".format(*q.shape, window)
+        else:
+            x, w, ids, bt = args
+            e = w.shape[0]
+            library = partial(torch.bmm, x.view(e, -1, x.shape[1]), w)
+            row = compare(
+                "moe_gemm", partial(moek.moe_gemm_cuda, x, w, ids,
+                                    block_t=bt),
+                partial(moek.moe_gemm_dense, x, w, ids, block_t=bt),
+                library, _nbytes(x, w, ids) + x.shape[0] * w.shape[2]
+                * x.element_size(), 2 * x.shape[0] * x.shape[1] * w.shape[2],
+                None, 3, MOE_BF16_TOL, BF16_FLOP_PER_S,
+                label=f"moe_gemm {tuple(x.shape)}x{tuple(w.shape)} "
+                f"({power})")
+            row["path"] = moek.kernel_path(x.dtype, x.shape[1], w.shape[2],
+                                           bt)
+            if row["path"] == "fma":
+                row["fma_instance"] = moek.fma_instance(
+                    x.shape[1], w.shape[2], bt, x, w)
+            row["block_t"] = bt
+            name = "moe {}x{} -> {}".format(*x.shape, w.shape[2])
+        out[name] = {k: row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "path", "fma_instance", "block_t") if k in row}
+        out[name]["card"] = power
+    return out
+
+
+def lm_serve_one(arch_id: str, power: str) -> tuple:
+    """One model of path 4l: ``generate_lm`` twice (a first run, then the
+    timed one), the counters set to 0 just before each and read just
+    after; then the prefill's last logits and teacher-forced decode steps
+    against the same calls on the plain versions; then each kernel call's
+    fields at the model's shapes.  Returns (results, launches of the
+    timed run)."""
+    import torch
+
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import serve
+    from repro_torch.launch.launch_count import (kernel_launches,
+                                                 reset_kernel_launches)
+    from repro_torch.models import lm
+    arch, full_layers = _lm_model(arch_id)
+    cfg = arch.model
+    _, b, s, new = LM_SERVE[arch_id]
+    t0 = time.perf_counter()
+    params = lm.init_params(torch.Generator("cuda").manual_seed(17), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"[lm serve] {arch_id}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {n_params} parameters, {n_bytes} B "
+          f"({cfg.param_dtype}), init {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    gen = torch.Generator("cuda").manual_seed(18)
+    prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    attn = sum(1 for l in cfg.layers if l.mixer == "attn")
+    moe = sum(1 for l in cfg.layers if l.ffn == "moe")
+    want = {"flash_attention": attn, "moe_gemm": 3 * moe * new}
+    runs = []
+    for run in range(2):
+        torch.cuda.synchronize()
+        reset_kernel_launches()
+        toks, stats = serve.generate_lm(arch, prompts, new, "cuda",
+                                        params=params)
+        torch.cuda.synchronize()
+        n = {k: v for k, v in kernel_launches().items() if v}
+        _require(n == {k: v for k, v in want.items() if v},
+                 f"{arch_id} run {run}: launches {n}, expected {want} "
+                 "(flash once per attention layer in the prefill, none in "
+                 "decode; three grouped GEMMs per MoE layer per forward)")
+        runs.append((toks, stats, n))
+    toks, stats, n = runs[1]
+    _require(toks.shape == (b, s + new), f"{arch_id}: tokens {toks.shape}")
+    _require(torch.equal(toks, runs[0][0]), f"{arch_id}: two greedy runs "
+             "gave different tokens")
+    res = {"layers": cfg.n_layers, "layers_of": full_layers,
+           "params": n_params, "param_bytes": n_bytes, "batch": b,
+           "prompt": s, "new_tokens": new, "launches": n,
+           "prefill_ms": stats["prefill_s"] * 1e3,
+           "decode_ms_per_token": stats["decode_s"] * 1e3 / max(new - 1, 1),
+           "tok_per_s": stats["tok_per_s"],
+           "first_run": {"prefill_ms": runs[0][1]["prefill_s"] * 1e3,
+                         "decode_s": runs[0][1]["decode_s"]},
+           "card": power}
+    print(f"[lm serve] {arch_id} ({power}): prefill {res['prefill_ms']!r} "
+          f"ms ({b} x {s}), decode {res['decode_ms_per_token']!r} ms a "
+          f"token ({b} a step), {res['tok_per_s']!r} tokens/s; launches "
+          f"{n}", flush=True)
+
+    # the logits: the kernels' prefill and teacher-forced decode (the
+    # greedy tokens) against the same calls on the plain versions
+    step = lm.make_serve_step(cfg)
+    with torch.inference_mode():
+        outs = {}
+        for label in ("kernels", "plain"):
+            with (_plain_lm_kernels() if label == "plain"
+                  else nullcontext()):
+                last, caches = lm.prefill(params, cfg, {"tokens": prompts},
+                                          max_len=s + new)
+                logits = [last]
+                for i in range(min(new - 1, 8)):
+                    pos = torch.full((b,), s + i, dtype=torch.int32,
+                                     device="cuda")
+                    lg, caches = step(params, caches,
+                                      {"tokens": toks[:, s + i:s + i + 1]},
+                                      pos)
+                    logits.append(lg)
+                outs[label] = logits
+                del caches
+        res["prefill_logits"] = _logit_err(f"{arch_id} prefill",
+                                           outs["kernels"][0],
+                                           outs["plain"][0], cfg.vocab,
+                                           power)
+        res["decode_logits"] = [
+            _logit_err(f"{arch_id} decode step {i}", a, p, cfg.vocab, power)
+            for i, (a, p) in enumerate(zip(outs["kernels"][1:],
+                                           outs["plain"][1:]))]
+        plain_greedy = torch.cat([lg[:, -1:, :cfg.vocab].argmax(-1)
+                                  for lg in outs["plain"]], 1)
+        res["greedy_agree_plain"] = (
+            plain_greedy == toks[:, s:s + plain_greedy.shape[1]]) \
+            .float().mean().item()
+        del outs
+        # each kernel call at the model's shapes
+        calls = {}
+        with _recorded_lm_calls(calls):
+            lm.prefill(params, cfg, {"tokens": prompts}, max_len=s + new)
+        step_calls = {}
+        caches = lm.prefill(params, cfg, {"tokens": prompts},
+                            max_len=s + new)[1]
+        with _recorded_lm_calls(step_calls):
+            step(params, caches, {"tokens": toks[:, s:s + 1]},
+                 torch.full((b,), s, dtype=torch.int32, device="cuda"))
+        del caches
+        calls.update(step_calls)
+        res["kernels"] = _lm_kernel_fields(calls, power)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, n
+
+
+def lm_serve_path(workdir: Path) -> tuple:
+    """Path 4l (``chip_smoke.py --lm DIR``): the decoder LMs served by
+    ``repro_torch.launch.serve.generate_lm`` with random bf16 weights from
+    a seeded generator (``lm_serve_one`` each): qwen3-1.7b whole (28
+    layers, 4 prompts of 512 tokens, 32 greedy tokens), deepseek-moe-16b
+    at full width cut to 4 layers (its dense layer 0, three MoE layers of
+    64 experts, top-6, 2 shared), h2o-danube-3-4b at full width cut to 2
+    layers (one prompt of 4,608 tokens, past its 4,096 window, 16 tokens).
+    Returns (results, the launches of the timed runs, summed)."""
+    import torch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    power = smi.stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    res, total = {"card": power}, {}
+    for arch_id in LM_SERVE:
+        res[arch_id], n = lm_serve_one(arch_id, power)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[lm serve] path 4l in {res['seconds']:.1f} s on {power}; peak "
+          f"device memory {res['peak_gib']:.2f} GiB; launches {total}",
+          flush=True)
+    return res, total
+
+
+# --------------------------------------------------------------------- #
 # the kernel API at LM widths: flash attention and the grouped GEMM     #
 # --------------------------------------------------------------------- #
 
@@ -6427,6 +6773,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # path 4k's own process
     ap.add_argument("--rank-jobs", type=Path, default=None,
                     help=argparse.SUPPRESS)   # one of path 4k's ranks
+    ap.add_argument("--lm", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4l's own process
     args = ap.parse_args()
     try:
         import torch
@@ -6451,7 +6799,8 @@ def main() -> int:
                            (args.optim, optim_path, "optim"),
                            (args.bf16, bf16_path, "bf16"),
                            (args.pipeline, pipeline_path, "pipeline"),
-                           (args.sharded, sharded_path, "sharded")):
+                           (args.sharded, sharded_path, "sharded"),
+                           (args.lm, lm_serve_path, "lm")):
         if out:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -6649,6 +6998,17 @@ def main() -> int:
                      "infer_head", "fused_input_int8", "infer_head_int8"):
             _require(sharded_n.get(name, 0) > 0, f"kernel {name} was not "
                      "launched on path 4k")
+        # 4l. the decoder LMs served: qwen3-1.7b whole, deepseek-moe-16b
+        # (4 layers) and h2o-danube-3-4b (2 layers) at full width, each
+        # against the same calls on the plain versions
+        t0 = time.perf_counter()
+        got = path_process(workdir, "lm")
+        lm_serve, lm_serve_n = got["results"], got["launches"]
+        print(f"[lm serve] path 4l in {time.perf_counter() - t0:.1f} s; "
+              f"kernel launches {lm_serve_n}", flush=True)
+        for name in LM_KERNELS:
+            _require(lm_serve_n.get(name, 0) > 0, f"kernel {name} was not "
+                     "launched on path 4l")
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -6714,6 +7074,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     rows.update(lm_rows(lm_inputs(), lm_n, lm_designs, ptxas, parent))
+    # rows 18-19: path 4l's launches (the model path's), phase 6's apart,
+    # and each call at the served models' shapes
+    for name in LM_KERNELS:
+        rows[name]["api_launches"] = rows[name]["launches"]
+        rows[name]["launches"] = lm_serve_n[name]
+        rows[name]["lm_serve"] = {
+            arch_id: {shape: fields for shape, fields in
+                      lm_serve[arch_id]["kernels"].items()
+                      if shape.startswith(name.split("_")[0])}
+            for arch_id in LM_SERVE}
     for row, lib, words in (
             ("fused_input", "fused_input", ("fused_input_kernel", ", float,")),
             ("fused_input_int8", "fused_input",
@@ -6800,6 +7170,10 @@ def main() -> int:
                       "bf16": bf16,
                       "pipeline": pipe,
                       "sharded": sharded,
+                      "lm_serve": {k: ({f: x for f, x in v.items()
+                                        if f != "kernels"}
+                                       if isinstance(v, dict) else v)
+                                   for k, v in lm_serve.items()},
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,
@@ -6808,7 +7182,8 @@ def main() -> int:
                       "seconds": time.perf_counter() - t_start}))
     print(f"chip_smoke: the whole run in {time.perf_counter() - t_start:.1f}"
           f" s (path 4j {pipe['seconds']:.1f} s, path 4k "
-          f"{sharded['seconds']:.1f} s)", flush=True)
+          f"{sharded['seconds']:.1f} s, path 4l {lm_serve['seconds']:.1f} "
+          "s)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1091,6 +1091,11 @@ def main(argv=None):
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import close, make_host_mesh
     arch = get_arch(args.arch, reduced=args.reduced)
+    if arch.kind != "population":
+        raise NotImplementedError(
+            f"arch {args.arch!r}: LM training (the JAX package's run_lm) is "
+            "not ported yet (ROADMAP.md, Queue 1 item 9(a′)); the port "
+            "serves LMs (python -m repro_torch.launch.serve)")
     mesh = make_host_mesh(timeout_s=args.dist_timeout)
     try:
         return run_population(arch, args, mesh=mesh)

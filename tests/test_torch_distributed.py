@@ -101,7 +101,7 @@ print("OK")
 """
 
 _WORKER = r"""
-import faulthandler, hashlib, json, sys
+import faulthandler, gc, hashlib, json, os, sys
 faulthandler.enable()      # a fatal signal prints every thread's stack
 import torch
 torch.set_num_threads(1)
@@ -127,91 +127,108 @@ def digest(state):
 jobs = json.load(open(sys.argv[1]))
 mesh = make_host_mesh(timeout_s=float(sys.argv[2]))   # kept for every job
 rank = dist.get_rank()
-where = {"shape": mesh.shape, "coords": mesh.coords, "row": None,
-         "col": None}
-for axis, g in (("row", mesh.row_group), ("col", mesh.col_group)):
-    if g is not None:
-        where[axis] = dist.get_process_group_ranks(g)
+# no name of this module may hold a group, or an object that holds one (a
+# server: each job runs in run()): a group still referenced when close(mesh)
+# destroys it keeps its gloo threads, which then abort the interpreter's
+# exit now and then ("terminate called without an active exception")
+where = {"shape": mesh.shape, "coords": mesh.coords,
+         **{axis: None if g is None else dist.get_process_group_ranks(g)
+            for axis, g in (("row", mesh.row_group),
+                            ("col", mesh.col_group))}}
 runner, chunk_maker = ft.TrainRunner, deep.make_population_train_step
+
+
+def run(job):
+    # one job: whatever it makes (a server holds the mesh's groups) dies
+    # with this frame, before close(mesh)
+    ft.TrainRunner, deep.make_population_train_step = runner, chunk_maker
+    if "fail_hook" in job:        # a failure before a step: replayed
+        at, who = job["fail_hook"]
+
+        class Failing(runner):
+            def __init__(self, *a, **k):
+                done = []
+
+                def hook(c):
+                    if c == at and rank == who and not done:
+                        done.append(c)
+                        raise RuntimeError("injected failure")
+                k["failure_hook"] = hook
+                super().__init__(*a, **k)
+        ft.TrainRunner = Failing
+    if "fail_step" in job:        # a failure inside a step: fatal
+        at, who = job["fail_step"]
+
+        def failing_maker(*a, **k):
+            chunk, calls = chunk_maker(*a, **k), []
+
+            def wrapped(*args):
+                calls.append(1)
+                if rank == who and len(calls) == at:
+                    raise RuntimeError("rank failed inside a step")
+                return chunk(*args)
+            return wrapped
+        deep.make_population_train_step = failing_maker
+    digests = []
+    if job.get("digest"):         # this rank's state after every chunk
+        inner = ft.TrainRunner
+
+        class Digesting(inner):
+            def __init__(self, step_fn, *a, **k):
+                def step(state, c):
+                    state, metrics = step_fn(state, c)
+                    digests.append([c, digest(state)])
+                    return state, metrics
+                super().__init__(step, *a, **k)
+        ft.TrainRunner = Digesting
+    if job["kind"] == "train":
+        _, lp, stats = train.main(job["argv"])
+        res = {"chunk_loss": stats["chunk_loss"],
+               "restarts": stats["restarts"],
+               "ranks": stats.get("ranks"), "digests": digests,
+               # (steps, this rank's depth, its launches) a segment
+               "segments": [
+                   [g["end"] - g["start"],
+                    len(g["rank_fused_hidden"][mesh.pop_rank])
+                    if "rank_fused_hidden" in g else g["depth"],
+                    g["launches"]] for g in stats["segments"]],
+               "rungs": [[r["members_before"], r["members"]]
+                         for r in stats["rungs"]]}
+    else:
+        out = serve_population.main(job["argv"])
+        res = {"pred": out.get("pred"), "ranks": out.get("ranks"),
+               "budget": out["budget"], "rows": out.get("rows"),
+               "board": [[r["slot"], r["loss"]] for r in out["board"]]}
+        if "logits" in job:       # one flush through the server's path
+            lg = job["logits"]
+            server, _ = serve_population.PopulationServer.from_checkpoint(
+                lg["ckpt"], device="cpu", mesh=mesh, batch=lg["rows"],
+                **lg["kw"])
+            server._ensure_quantized()
+            x = torch.randn(lg["rows"], server.layout.in_features,
+                            generator=torch.Generator().manual_seed(3))
+            lo, hi = server.rows
+            got = server.flush_logits(server.params, x[lo:hi])
+            res["logits"] = got is not None       # rank 0's alone
+            if got is not None:
+                torch.save(got, f"{job['out']}.logits.pt")
+    res["mesh"] = where
+    with open(f"{job['out']}.{rank}.json", "w") as f:
+        json.dump(res, f)
+
+
 try:
     for job in jobs:
-        ft.TrainRunner, deep.make_population_train_step = runner, chunk_maker
-        if "fail_hook" in job:        # a failure before a step: replayed
-            at, who = job["fail_hook"]
-
-            class Failing(runner):
-                def __init__(self, *a, **k):
-                    done = []
-
-                    def hook(c):
-                        if c == at and rank == who and not done:
-                            done.append(c)
-                            raise RuntimeError("injected failure")
-                    k["failure_hook"] = hook
-                    super().__init__(*a, **k)
-            ft.TrainRunner = Failing
-        if "fail_step" in job:        # a failure inside a step: fatal
-            at, who = job["fail_step"]
-
-            def failing_maker(*a, **k):
-                chunk, calls = chunk_maker(*a, **k), []
-
-                def wrapped(*args):
-                    calls.append(1)
-                    if rank == who and len(calls) == at:
-                        raise RuntimeError("rank failed inside a step")
-                    return chunk(*args)
-                return wrapped
-            deep.make_population_train_step = failing_maker
-        digests = []
-        if job.get("digest"):         # this rank's state after every chunk
-            inner = ft.TrainRunner
-
-            class Digesting(inner):
-                def __init__(self, step_fn, *a, **k):
-                    def step(state, c):
-                        state, metrics = step_fn(state, c)
-                        digests.append([c, digest(state)])
-                        return state, metrics
-                    super().__init__(step, *a, **k)
-            ft.TrainRunner = Digesting
-        if job["kind"] == "train":
-            _, lp, stats = train.main(job["argv"])
-            res = {"chunk_loss": stats["chunk_loss"],
-                   "restarts": stats["restarts"],
-                   "ranks": stats.get("ranks"), "digests": digests,
-                   # (steps, this rank's depth, its launches) a segment
-                   "segments": [
-                       [g["end"] - g["start"],
-                        len(g["rank_fused_hidden"][mesh.pop_rank])
-                        if "rank_fused_hidden" in g else g["depth"],
-                        g["launches"]] for g in stats["segments"]],
-                   "rungs": [[r["members_before"], r["members"]]
-                             for r in stats["rungs"]]}
-        else:
-            out = serve_population.main(job["argv"])
-            res = {"pred": out.get("pred"), "ranks": out.get("ranks"),
-                   "budget": out["budget"], "rows": out.get("rows"),
-                   "board": [[r["slot"], r["loss"]] for r in out["board"]]}
-            if "logits" in job:       # one flush through the server's path
-                lg = job["logits"]
-                server, _ = serve_population.PopulationServer.from_checkpoint(
-                    lg["ckpt"], device="cpu", mesh=mesh, batch=lg["rows"],
-                    **lg["kw"])
-                server._ensure_quantized()
-                x = torch.randn(lg["rows"], server.layout.in_features,
-                                generator=torch.Generator().manual_seed(3))
-                lo, hi = server.rows
-                got = server.flush_logits(server.params, x[lo:hi])
-                res["logits"] = got is not None       # rank 0's alone
-                if got is not None:
-                    torch.save(got, f"{job['out']}.logits.pt")
-        res["mesh"] = where
-        with open(f"{job['out']}.{rank}.json", "w") as f:
-            json.dump(res, f)
+        run(job)
 finally:
+    gc.collect()          # a cycle that holds a group goes first
     close(mesh)
-print("WORKER OK", rank)
+# the gloo threads still alive once the group is destroyed: 0 unless a
+# reference to a group outlives close(mesh) (_ok holds every rank to 0)
+tasks = "/proc/self/task"
+left = sum("gloo" in open(f"{tasks}/{t}/comm").read()
+           for t in os.listdir(tasks))
+print("WORKER OK", rank, "gloo threads", left)
 """
 
 
@@ -253,8 +270,16 @@ def _rank_logs(logs: Path) -> dict:
 def _ok(r):
     """Fail with the job's failing rank's whole stderr first (torchrun's
     root cause: the first rank to fail), then every other rank's, then
-    the end of torchrun's own."""
+    the end of torchrun's own.  A job that exits 0 must have left no gloo
+    thread alive on any rank after closing its mesh: a group kept alive
+    past ``destroy_process_group`` (by a name, or an object, still
+    holding it) takes its
+    threads into the interpreter's exit, where they abort it now and then
+    ("terminate called without an active exception")."""
     if r.returncode == 0:
+        left = re.findall(r"WORKER OK (\d+) gloo threads (\d+)", r.stdout)
+        assert all(n == "0" for _, n in left), \
+            f"gloo threads alive at a worker's exit (rank, threads): {left}"
         return
     files = _rank_logs(r.logs)
     m = re.search(r"Root Cause.*?rank\s*:\s*(\d+)", r.stderr, re.S)
