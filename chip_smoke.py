@@ -263,6 +263,38 @@ Phases (any failure exits non-zero, and no result line is printed):
           against its plain version, timed beside it, SDPA (``is_causal``,
           ``enable_gqa``; the window as a boolean mask) or ``torch.bmm``
           over the capacity buffer, and its bound;
+       m. the decoder LMs trained (a process of its own, as 4g; alone:
+          ``chip_smoke.py --lm-train DIR``): (a) qwen3-1.7b whole (28
+          layers, bf16 parameters, remat, AdamW) trained by
+          ``repro_torch.launch.train.main --arch qwen3-1.7b --batch 4
+          --seq 512 --steps 16 --warmup 4 --ckpt-every 0``, the counters
+          set to 0 just before and read just after: exactly two
+          ``flash_attention`` launches a layer a step (the forward and
+          its recompute) and nothing else; the step walls (the median of
+          steps 2-15), the peak device memory, and the loss of a held-out
+          ``TokenTask`` batch (a step no run draws) before training (the
+          driver's init, a generator seeded 0) and after it, which must
+          be lower; then two more steps of the driver's step function
+          under ``torch.profiler``: device ms, launches and idle share a
+          step; (b) from that state and one batch, the gradients
+          (``lm.loss_and_grads``, the step's own) and one
+          ``make_train_step`` update through the kernels and through the
+          plain versions (4l's swap): every gradient leaf, the loss and
+          the gradient norm within 1e-2 of the plain value's scale or 2
+          bf16 ulps of it, or, where larger, within bf16's own reach: the
+          plain run's max distance from the same function on the
+          parameters widened to f32 (how many leaves the first rule
+          holds is printed), and the leaves a second run of the
+          kernels' gradients does not give bitwise (printed); (c) the same update in 2 microbatches: its
+          loss at that rule and twice the flash launches; the training
+          forward's flash call at its shape against its plain version
+          and SDPA, timed, and its bound; (d) deepseek-moe-16b at full
+          width cut to 4 layers trained 4 steps of B 4 × S 512 by
+          ``train.run_lm``: no grouped-GEMM launch (the experts train on
+          JAX's einsum route), every (layer, expert) gradient of the
+          three expert weights finite and non-zero, then the trained
+          parameters served by ``generate_lm`` with three grouped-GEMM
+          launches a MoE layer a forward;
   5. the training step's invariants: one ``opt_step`` is exactly
      2·(depth+1) kernel launches; a fused step on the card against the
      plain route on the card and the same step on the CPU (per-member
@@ -393,8 +425,11 @@ Phases (any failure exits non-zero, and no result line is printed):
      cell's parallel arm);
   9. one JSON line ``{"kernels": [...]}`` (one row per ported TPU kernel,
      nineteen; rows 18-19's ``launches`` are path 4l's, phase 6's
-     ``api_launches``, and ``lm_serve`` holds their calls at the served
-     models' shapes; the int8 rows' library call is the f32 row's on the
+     ``api_launches``, path 4m's training runs' ``lm_train_launches``
+     (the grouped GEMM's 0; its serving after 4m's training
+     ``lm_train_serve_launches``), ``lm_serve`` holds their calls at the
+     served models' shapes and row 18's ``lm_train`` its call at the
+     training shape; the int8 rows' library call is the f32 row's on the
      dequantized weight, the dequantization not timed; ``seg_act``/
      ``seg_act_bwd`` have none, and say why, and carry their bf16
      instances at the depth-3 population's unfused shapes as ``bf16_*``
@@ -1530,9 +1565,9 @@ def check_batch(rows: int = BATCH):
 
 
 def path_process(workdir: Path, key: str) -> dict:
-    """Path 4g, 4h, 4i, 4j, 4k or 4l (``key`` "lifecycle", "optim",
-    "bf16", "pipeline", "sharded" or "lm") in a process of its own
-    (``chip_smoke.py --KEY DIR``,
+    """Path 4g, 4h, 4i, 4j, 4k, 4l or 4m (``key`` "lifecycle", "optim",
+    "bf16", "pipeline", "sharded", "lm" or "lm_train") in a process of its
+    own (``chip_smoke.py --KEY DIR``, underscores as dashes,
     waited for), so that its profiler windows leave the later phases'
     whole (after 4g's or 4i's runs the profiler loses the first kernels of
     a window; ``_profiled``'s sentinels take them).  Returns its
@@ -1542,7 +1577,8 @@ def path_process(workdir: Path, key: str) -> dict:
     out.mkdir()
     sys.stdout.flush()
     r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                        f"--{key}", str(out)], timeout=900)
+                        f"--{key.replace('_', '-')}", str(out)],
+                       timeout=900)
     _require(r.returncode == 0, f"chip_smoke.py --{key} exited "
              f"{r.returncode}")
     return json.loads((out / f"{key}.json").read_text())
@@ -4706,6 +4742,430 @@ def lm_serve_path(workdir: Path) -> tuple:
 
 
 # --------------------------------------------------------------------- #
+# path 4m: LM training                                                  #
+# --------------------------------------------------------------------- #
+
+# qwen3-1.7b whole through train.main: B 4 × S 512, 16 steps, warmup 4,
+# no checkpoint (--ckpt-every 0: a step-0 save would write 17 GB)
+LM_TRAIN = dict(batch=4, seq=512, steps=16, warmup=4)
+# deepseek-moe-16b at full width cut to 4 of 28 layers (path 4l's cut):
+# 4 steps of B 4 × S 512 through run_lm, then served, 4 new tokens
+LM_TRAIN_MOE = dict(layers=4, batch=4, seq=512, steps=4, new=4)
+HELDOUT_STEP = 1_000_000     # a TokenTask step that no run draws
+
+
+def _token_batch(cfg, step: int, b: int, s: int) -> dict:
+    """``TokenTask(vocab, seed 0)``'s batch of ``step`` on the card."""
+    import torch
+
+    from repro_torch.data.synthetic import TokenTask
+    return {k: torch.from_numpy(v).to("cuda") for k, v in
+            TokenTask(vocab=cfg.vocab, seed=0).batch(step, b, s).items()}
+
+
+def _heldout_loss(params, cfg, batch) -> float:
+    """The step's loss (NLL, z-loss and aux) on ``batch``, no gradient."""
+    import torch
+
+    from repro_torch.models import lm
+    with torch.inference_mode():
+        return lm.loss_and_metrics(params, cfg, batch)[0].item()
+
+
+def _bf16_rule(name: str, got, want, reach: float = 0.0) -> dict:
+    """Path 4l's bf16 rule on a tensor or a scalar: max |got − want|
+    within ``LM_LOGIT_TOL`` of ``want``'s scale (its largest |value|),
+    never below 2 bf16 ulps of that scale, or within ``reach`` (bf16's
+    own: ``want``'s max distance from the same function in f32) where
+    that is larger; a leaf whose scale is 0 must be equal."""
+    import torch
+    got = torch.as_tensor(got).float()
+    want = torch.as_tensor(want).float().to(got.device)
+    _require(bool(torch.isfinite(got).all()), f"{name}: non-finite values")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    rule = (max(LM_LOGIT_TOL * scale,
+                2 * 2.0 ** (math.floor(math.log2(scale)) - 7))
+            if scale > 0 else 0.0)
+    tol = max(rule, reach)
+    _require(err <= tol, f"{name}: max |kernels - plain| {err} beyond {tol} "
+             f"(scale {scale}, bf16's reach {reach})")
+    return {"max_abs_err": err, "scale": scale, "rule": rule,
+            "bf16_reach": reach, "tol": tol}
+
+
+def _max_diff(a, b) -> float:
+    import torch
+    return (torch.as_tensor(a).float()
+            - torch.as_tensor(b).float()).abs().max().item()
+
+
+def _launched() -> dict:
+    from repro_torch.launch.launch_count import kernel_launches
+    return {k: v for k, v in kernel_launches().items() if v}
+
+
+def lm_train_qwen3(workdir: Path, power: str) -> tuple:
+    """Path 4m (a): qwen3-1.7b whole trained by ``train.main``: the
+    counters, the step walls, the held-out loss before and after, the
+    peak device memory; two more steps of the driver's step function
+    under ``torch.profiler``: device ms, idle share, launches a step.
+    Returns (results, the training run's launches, the trained state
+    two profiled steps later)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.launch.launch_count import reset_kernel_launches
+    from repro_torch.models import lm
+    arch = get_arch("qwen3-1.7b")
+    cfg = arch.model
+    _require(cfg.n_layers == 28 and cfg.remat
+             and cfg.param_dtype == "bfloat16",
+             "qwen3-1.7b is not whole, bf16, with remat")
+    b, s, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    held = _token_batch(cfg, HELDOUT_STEP, b, s)
+    # the held-out loss before: run_lm's init (a generator seeded 0)
+    p0 = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
+    n_params = sum(t.numel() for t in tree_leaves(p0))
+    before = _heldout_loss(p0, cfg, held)
+    del p0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) train.main, the counters set to 0 just before and read after
+    flags = ["--arch", "qwen3-1.7b", "--batch", str(b), "--seq", str(s),
+             "--steps", str(steps), "--warmup", str(LM_TRAIN["warmup"]),
+             "--ckpt-every", "0", "--ckpt-dir", str(workdir / "qwen3"),
+             "--device", "cuda"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    runner = train.main(flags)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    n = _launched()
+    attn = sum(1 for ls in cfg.layers if ls.mixer == "attn")
+    want = {"flash_attention": attn * steps * 2}
+    _require(n == want, f"qwen3-1.7b training: launches {n}, expected "
+             f"{want} (two flash launches a layer a step under remat, no "
+             "other kernel)")
+    peak = torch.cuda.max_memory_allocated()
+    walls = [dt for _, dt in runner.walls]
+    losses = [m["loss"] for _, m in runner.metrics_log]
+    _require(len(walls) == steps and runner.restarts == 0
+             and all(math.isfinite(x) for x in losses),
+             f"qwen3-1.7b training: {len(walls)} steps, {runner.restarts} "
+             f"restarts, losses {losses}")
+    step_ms = statistics.median(walls[2:]) * 1e3
+    state = runner.state
+    after = _heldout_loss(state["params"], cfg, held)
+    print(f"[lm train] qwen3-1.7b ({power}): {n_params} parameters, "
+          f"train.main {main_s:.1f} s; step {step_ms!r} ms (median of "
+          f"steps 2-{steps - 1}); loss {losses[0]!r} -> {losses[-1]!r}; "
+          f"held-out {before!r} -> {after!r}; peak "
+          f"{peak / 2 ** 30:.2f} GiB; launches {n}", flush=True)
+    _require(after < before, f"qwen3-1.7b: the held-out loss {after} is "
+             f"not below its value before training, {before}")
+
+    # two more steps of the driver's own step function, profiled
+    reset_kernel_launches()
+    with _profiled() as prof:
+        for k in range(2):
+            state, _ = runner.step_fn(state, steps + k)
+    n_prof = _launched()
+    runner.state = None
+    del runner
+    cuda = torch.autograd.DeviceType.CUDA
+    dev = [e for e in prof.events() if e.device_type == cuda
+           and SENTINEL not in e.name]
+    flash_seen = sum(1 for e in dev if "flash_attn" in e.name)
+    _require(flash_seen == n_prof.get("flash_attention", 0) == 4 * attn,
+             f"profiled steps: {flash_seen} flash kernels seen, counters "
+             f"{n_prof}")
+    device_ms = sum(e.device_time_total for e in dev) / 2e3
+    flash_ms = sum(e.device_time_total for e in dev
+                   if "flash_attn" in e.name) / 2e3
+    by_name = {}
+    for e in dev:
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) \
+            + e.device_time_total / 2e3
+    res = {"layers": cfg.n_layers, "params": n_params, "batch": b,
+           "seq": s, "steps": steps, "train_main_s": main_s,
+           "step_walls_ms": [w * 1e3 for w in walls],
+           "step_wall_ms": step_ms, "losses": losses,
+           "heldout_before": before, "heldout_after": after,
+           "peak_gib": peak / 2 ** 30, "launches": n,
+           "launches_per_step": {k: v / steps for k, v in n.items()},
+           "device_ms": device_ms, "flash_device_ms": flash_ms,
+           "device_launches": len(dev) / 2,
+           "device_idle_share": 1 - device_ms / step_ms,
+           "device_ms_by_kernel": dict(sorted(
+               by_name.items(), key=lambda kv: -kv[1])[:12]),
+           "card": power}
+    print(f"[lm train] qwen3-1.7b step: device {device_ms!r} ms in "
+          f"{len(dev) / 2} launches (flash {flash_ms!r} ms); idle share "
+          f"{res['device_idle_share']!r} of the {step_ms!r} ms step",
+          flush=True)
+    del prof, dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, n, state
+
+
+def lm_train_compare(params, opt_state, arch, power: str) -> dict:
+    """Path 4m (b)-(c) on a trained state: one batch's gradients
+    (``lm.loss_and_grads``, the step's own function) and one
+    ``make_train_step`` update through the kernels and through the plain
+    versions (4l's swap), every gradient leaf, the loss and the norm at
+    4l's bf16 rule or within bf16's own reach, where that is larger: the
+    plain run's max distance from the same function on the parameters
+    widened to f32 (a bf16 gradient after 28 layers is 2-9 % of its
+    leaf's scale from the f32 one, ``scripts/lm_grad_rounding.py``); then
+    the update in 2 microbatches, its loss at the same rule and twice the
+    flash launches; and the flash call of the training forward at its
+    shape against its plain version and SDPA."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.core.tree import tree_leaves, tree_map
+    from repro_torch.launch.launch_count import reset_kernel_launches
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import (build_optimizer, global_norm,
+                                              warmup_cosine)
+    cfg = arch.model
+    b, s, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    attn = sum(1 for ls in cfg.layers if ls.mixer == "attn")
+    batch = _token_batch(cfg, steps, b, s)
+    opt = build_optimizer(arch)
+    lr_fn = warmup_cosine(arch.lr, LM_TRAIN["warmup"], steps)
+    runs = {}
+    for label in ("kernels", "plain"):
+        with (_plain_lm_kernels() if label == "plain" else nullcontext()):
+            reset_kernel_launches()
+            total, _, grads = lm.loss_and_grads(params, cfg, batch)
+            n_grad = _launched()
+            _, _, m = lm.make_train_step(cfg, opt, lr_fn)(
+                params, opt_state, batch, steps)
+            m = {k: v.item() for k, v in m.items()}
+            torch.cuda.synchronize()
+            n_all = _launched()
+        want = ({"flash_attention": 2 * attn} if label == "kernels" else {})
+        _require(n_grad == want and n_all == {
+            k: 2 * v for k, v in want.items()},
+            f"{label}: gradient launches {n_grad}, with the update "
+            f"{n_all}; expected {want} each")
+        runs[label] = (total, grads, m)
+        gc.collect()
+    (tk, gk, mk), (tp, gp, mp) = runs["kernels"], runs["plain"]
+    # the same gradients again: which leaves a replay on the card does
+    # not give bitwise (reported, not required: atomics sum in any order)
+    _, _, again = lm.loss_and_grads(params, cfg, batch)
+    replay = {i: _max_diff(a, b) for i, (a, b) in enumerate(
+        zip(tree_leaves(gk), tree_leaves(again))) if not torch.equal(a, b)}
+    del again
+    # the reference of bf16's reach: the plain versions in f32
+    with _plain_lm_kernels():
+        tf, _, gf = lm.loss_and_grads(
+            tree_map(lambda t: t.float(), params),
+            dataclasses.replace(cfg, param_dtype="float32"), batch)
+    nf = global_norm(gf).item()
+    leaves, worst = [], {"share": 0.0}
+    for i, (a, w, f32) in enumerate(zip(tree_leaves(gk), tree_leaves(gp),
+                                        tree_leaves(gf))):
+        f = _bf16_rule(f"gradient leaf {i}", a, w, _max_diff(w, f32))
+        f["share"] = f["max_abs_err"] / f["tol"] if f["tol"] else 0.0
+        f["kernels_f32"] = _max_diff(a, f32)
+        leaves.append(f)
+        if f["share"] >= worst["share"]:
+            worst = {"leaf": i, **f}
+    loss_reach = abs(tp.item() - tf.item())
+    out = {"loss": _bf16_rule("loss", tk, tp, loss_reach),
+           "step_loss": _bf16_rule("step loss", mk["loss"], mp["loss"],
+                                   loss_reach),
+           "grad_norm": _bf16_rule("grad_norm", mk["grad_norm"],
+                                   mp["grad_norm"],
+                                   abs(mp["grad_norm"] - nf)),
+           "f32_loss": tf.item(), "f32_grad_norm": nf,
+           "gradient_leaves": leaves, "worst_gradient_leaf": worst,
+           "within_rule": sum(f["max_abs_err"] <= f["rule"]
+                              for f in leaves),
+           "kernels_step": mk, "plain_step": mp,
+           "replay_not_bitwise": replay}
+    del runs, gk, gp, gf
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[lm train] kernels vs plain ({power}): loss {tk.item()!r} / "
+          f"{tp.item()!r} (f32 {tf.item()!r}), grad_norm "
+          f"{mk['grad_norm']!r} / {mp['grad_norm']!r} (f32 {nf!r}); "
+          f"{out['within_rule']} of {len(leaves)} gradient leaves within "
+          f"4l's rule, every one within max(rule, bf16's reach); the worst "
+          f"leaf {worst['leaf']} at {worst['share']!r} of its tolerance "
+          f"({worst['max_abs_err']!r} against the rule's {worst['rule']!r} "
+          f"and bf16's reach {worst['bf16_reach']!r}); a replay's "
+          f"gradients differ at leaves {replay} (max |difference|)",
+          flush=True)
+
+    # (c) the same batch in 2 microbatches
+    reset_kernel_launches()
+    _, _, m2 = lm.make_train_step(cfg, opt, lr_fn, num_micro=2)(
+        params, opt_state, batch, steps)
+    m2 = {k: v.item() for k, v in m2.items()}
+    n2 = _launched()
+    _require(n2 == {"flash_attention": 2 * 2 * attn},
+             f"num_micro 2: launches {n2}, expected twice the step's")
+    out["num_micro_2"] = {"step": m2, "launches": n2,
+                          "loss": _bf16_rule("num_micro 2 loss", m2["loss"],
+                                             mk["loss"], loss_reach)}
+    print(f"[lm train] num_micro 2: loss {m2['loss']!r} against "
+          f"{mk['loss']!r}; launches {n2}", flush=True)
+
+    # the flash call of the training forward, at its shape
+    calls = {}
+    with torch.no_grad(), _recorded_lm_calls(calls):
+        lm.forward(params, cfg, batch)
+    out["kernels"] = _lm_kernel_fields(calls, power)
+    del calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_train_moe(workdir: Path, power: str) -> tuple:
+    """Path 4m (d): deepseek-moe-16b at full width cut to 4 of 28 layers,
+    trained by ``run_lm`` (no grouped-GEMM launch: the experts train on
+    JAX's einsum route), every expert's gradient finite and non-zero,
+    then the trained parameters served by ``generate_lm`` (three
+    grouped-GEMM launches a MoE layer a forward).  Returns (results, the
+    training run's launches)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.launch_count import reset_kernel_launches
+    from repro_torch.models import lm
+    d = LM_TRAIN_MOE
+    arch = get_arch("deepseek-moe-16b")
+    full = arch.model.n_layers
+    arch = dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, layers=arch.model.layers[:d["layers"]]))
+    cfg = arch.model
+    attn = sum(1 for ls in cfg.layers if ls.mixer == "attn")
+    moe = sum(1 for ls in cfg.layers if ls.ffn == "moe")
+    args = train.parser().parse_args([
+        "--arch", "deepseek-moe-16b", "--batch", str(d["batch"]), "--seq",
+        str(d["seq"]), "--steps", str(d["steps"]), "--warmup", "1",
+        "--ckpt-every", "0", "--ckpt-dir", str(workdir / "deepseek"),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    runner = train.run_lm(arch, args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _launched()
+    want = {"flash_attention": attn * d["steps"] * (2 if cfg.remat else 1)}
+    _require(n == want, f"deepseek-moe-16b training: launches {n}, expected "
+             f"{want} (no grouped GEMM in training)")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for _, m in runner.metrics_log]
+    walls = [dt * 1e3 for _, dt in runner.walls]
+    params = runner.state["params"]
+    runner.state = None
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = _token_batch(cfg, d["steps"], d["batch"], d["seq"])
+    reset_kernel_launches()
+    _, _, grads = lm.loss_and_grads(params, cfg, batch)
+    _require(_launched() == {"flash_attention": attn * 2},
+             f"deepseek gradients: launches {_launched()}")
+    experts = 0
+    for gi, sub in grads.items():
+        if not (gi.startswith("g") and "experts" in sub.get("ffn", {})):
+            continue
+        for name, g in sub["ffn"]["experts"].items():
+            _require(bool(torch.isfinite(g).all()),
+                     f"deepseek {gi} {name}: a non-finite gradient")
+            per = g.float().abs().flatten(2).amax(2)       # (layers, E)
+            _require(bool((per > 0).all()), f"deepseek {gi} {name}: "
+                     f"{int((per == 0).sum())} (layer, expert) gradients "
+                     "are all zero")
+            experts += per.numel()
+    _require(experts == 3 * moe * cfg.moe.num_experts,
+             f"deepseek: {experts} expert gradients checked")
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator("cuda").manual_seed(18)
+    prompts = torch.randint(0, cfg.vocab, (d["batch"], d["seq"]),
+                            generator=gen, device="cuda", dtype=torch.int32)
+    reset_kernel_launches()
+    toks, stats = serve.generate_lm(arch, prompts, d["new"], "cuda",
+                                    params=params)
+    torch.cuda.synchronize()
+    n_serve = _launched()
+    want_serve = {"flash_attention": attn, "moe_gemm": 3 * moe * d["new"]}
+    _require(n_serve == want_serve, f"deepseek served after training: "
+             f"launches {n_serve}, expected {want_serve}")
+    _require(toks.shape == (d["batch"], d["seq"] + d["new"]),
+             f"deepseek served: tokens {tuple(toks.shape)}")
+    res = {"layers": cfg.n_layers, "layers_of": full,
+           "params": sum(t.numel() for t in tree_leaves(params)),
+           "run_lm_s": secs, "step_walls_ms": walls, "losses": losses,
+           "peak_gib": peak / 2 ** 30, "launches": n,
+           "expert_gradients_checked": experts,
+           "serve_launches": n_serve,
+           "serve_prefill_ms": stats["prefill_s"] * 1e3, "card": power}
+    print(f"[lm train] deepseek-moe-16b ({cfg.n_layers} of {full} layers, "
+          f"{power}): run_lm {secs:.1f} s, steps {walls} ms, loss "
+          f"{losses}; peak {res['peak_gib']:.2f} GiB; launches {n}; "
+          f"{experts} (layer, expert) gradients finite and non-zero; "
+          f"served: launches {n_serve}", flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, n
+
+
+def lm_train_path(workdir: Path) -> tuple:
+    """Path 4m (``chip_smoke.py --lm-train DIR``): LM training on the card
+    (``lm_train_qwen3``, ``lm_train_compare``, ``lm_train_moe``).
+    Returns (results, the training runs' launches, summed)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True, timeout=60)
+    power = smi.stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    res = {"card": power}
+    res["qwen3-1.7b"], total, state = lm_train_qwen3(workdir, power)
+    res["compare"] = lm_train_compare(state["params"], state["opt"],
+                                      get_arch("qwen3-1.7b"), power)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["deepseek-moe-16b"], n = lm_train_moe(workdir, power)
+    for k, v in n.items():
+        total[k] = total.get(k, 0) + v
+    res["seconds"] = time.perf_counter() - t0
+    print(f"[lm train] path 4m in {res['seconds']:.1f} s on {power}; "
+          f"training launches {total}", flush=True)
+    return res, total
+
+
+# --------------------------------------------------------------------- #
 # the kernel API at LM widths: flash attention and the grouped GEMM     #
 # --------------------------------------------------------------------- #
 
@@ -6775,6 +7235,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)   # one of path 4k's ranks
     ap.add_argument("--lm", type=Path, default=None,
                     help=argparse.SUPPRESS)   # path 4l's own process
+    ap.add_argument("--lm-train", type=Path, default=None,
+                    help=argparse.SUPPRESS)   # path 4m's own process
     args = ap.parse_args()
     try:
         import torch
@@ -6800,7 +7262,8 @@ def main() -> int:
                            (args.bf16, bf16_path, "bf16"),
                            (args.pipeline, pipeline_path, "pipeline"),
                            (args.sharded, sharded_path, "sharded"),
-                           (args.lm, lm_serve_path, "lm")):
+                           (args.lm, lm_serve_path, "lm"),
+                           (args.lm_train, lm_train_path, "lm_train")):
         if out:
             from repro_torch.kernels import _build
             _build.build_all()
@@ -7009,6 +7472,18 @@ def main() -> int:
         for name in LM_KERNELS:
             _require(lm_serve_n.get(name, 0) > 0, f"kernel {name} was not "
                      "launched on path 4l")
+        # 4m. LM training: qwen3-1.7b whole through train.main, its
+        # gradients and update against the plain versions, microbatches;
+        # deepseek-moe-16b (4 layers) trained, then served
+        t0 = time.perf_counter()
+        got = path_process(workdir, "lm_train")
+        lm_train, lm_train_n = got["results"], got["launches"]
+        print(f"[lm train] path 4m in {time.perf_counter() - t0:.1f} s; "
+              f"training launches {lm_train_n}", flush=True)
+        _require(lm_train_n.get("flash_attention", 0) > 0
+                 and "moe_gemm" not in lm_train_n,
+                 f"path 4m's training launched {lm_train_n}: flash "
+                 "attention in every layer, no grouped GEMM")
 
     # 5. the training step's invariants, on a batch of the task
     check_train_step("parallelmlp-10k", t10k, lp10k, x, y)
@@ -7079,11 +7554,15 @@ def main() -> int:
     for name in LM_KERNELS:
         rows[name]["api_launches"] = rows[name]["launches"]
         rows[name]["launches"] = lm_serve_n[name]
+        rows[name]["lm_train_launches"] = lm_train_n.get(name, 0)
         rows[name]["lm_serve"] = {
             arch_id: {shape: fields for shape, fields in
                       lm_serve[arch_id]["kernels"].items()
                       if shape.startswith(name.split("_")[0])}
             for arch_id in LM_SERVE}
+    rows["flash_attention"]["lm_train"] = lm_train["compare"]["kernels"]
+    rows["moe_gemm"]["lm_train_serve_launches"] = \
+        lm_train["deepseek-moe-16b"]["serve_launches"]["moe_gemm"]
     for row, lib, words in (
             ("fused_input", "fused_input", ("fused_input_kernel", ", float,")),
             ("fused_input_int8", "fused_input",
@@ -7174,6 +7653,7 @@ def main() -> int:
                                         if f != "kernels"}
                                        if isinstance(v, dict) else v)
                                    for k, v in lm_serve.items()},
+                      "lm_train": lm_train,
                       "paper_tables": {
                           "cell": paper_row, "launches": paper_n,
                           "independence_max_abs_err": indep_err,
@@ -7183,7 +7663,7 @@ def main() -> int:
     print(f"chip_smoke: the whole run in {time.perf_counter() - t_start:.1f}"
           f" s (path 4j {pipe['seconds']:.1f} s, path 4k "
           f"{sharded['seconds']:.1f} s, path 4l {lm_serve['seconds']:.1f} "
-          "s)", flush=True)
+          f"s, path 4m {lm_train['seconds']:.1f} s)", flush=True)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

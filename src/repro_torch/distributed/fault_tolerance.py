@@ -94,6 +94,9 @@ class TrainRunner:
 
     ``step_fn(state, step) -> (state, metrics)`` must be pure and
     replayable; ``state`` is a tree of tensors on one device.
+    ``metrics_log`` and ``walls`` keep each step's metrics and seconds
+    (the failure hook's and the step's, as the straggler watchdog sees
+    them), replays included.
     ``ckpt_meta`` / ``ckpt_step_map`` / ``ckpt_save_pred`` go to the
     ``AsyncCheckpointer`` (population runs attach the layout and record
     GLOBAL step numbers while the runner counts chunks);
@@ -134,6 +137,7 @@ class TrainRunner:
         self.max_restarts = max_restarts
         self.restarts = 0
         self.metrics_log = []
+        self.walls = []       # (step, seconds) of each step that ran
         # host snapshot of the INITIAL state: a failure before the first
         # committed checkpoint replays from step 0.  Skipped when the
         # directory already holds a checkpoint (a resume restores from disk)
@@ -196,10 +200,12 @@ class TrainRunner:
                 continue
             t0 = time.time()
             self.state, metrics = self.step_fn(self.state, step)
+            dt = time.time() - t0
             try:
-                self.straggler.observe(step, time.time() - t0)
+                self.straggler.observe(step, dt)
             except TimeoutError as e:
                 late = e
+            self.walls.append((step, dt))
             self.metrics_log.append((step, metrics))
             self.ckpt.maybe_save(step, self.state)
             if self._init_state_host is not None and self.ckpt.saved:
@@ -218,7 +224,9 @@ class TrainRunner:
                 if self.failure_hook:
                     self.failure_hook(step)
                 self.state, metrics = self.step_fn(self.state, step)
-                self.straggler.observe(step, time.time() - t0)
+                dt = time.time() - t0
+                self.walls.append((step, dt))
+                self.straggler.observe(step, dt)
                 self.metrics_log.append((step, metrics))
                 self.ckpt.maybe_save(step, self.state)
                 if self._init_state_host is not None and self.ckpt.saved:

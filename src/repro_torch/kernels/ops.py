@@ -789,7 +789,16 @@ def moe_gemm(x: torch.Tensor, w: torch.Tensor, block_expert_ids, *,
     (capacity padding upstream); D and F are taken as they are (JAX pads
     them to its tiles).  Forward only, as in JAX.  ``block_d`` and
     ``block_f`` are the TPU's tiles; they are accepted and do not change
-    the result."""
+    the result.  Raises where autograd would record the call (grad mode
+    on and ``x`` or ``w`` requiring grad), on either device: the kernel's
+    output has no backward, so a gradient through it would silently be
+    none.  Training takes JAX's einsum route (``nn.ffn._expert_ffn``)."""
+    if _wants_grad(x, w):
+        raise RuntimeError(
+            "moe_gemm is forward only (no backward kernel, as in JAX): "
+            "autograd would record this call with no gradient for x or w; "
+            "call it under torch.no_grad() or inference_mode, or train "
+            "through batched einsums (nn.ffn._expert_ffn)")
     ids = _as(block_expert_ids, x.device, torch.int32)
     if _on_card(x):
         return _moek.moe_gemm_cuda(x.contiguous(), w.contiguous(), ids,

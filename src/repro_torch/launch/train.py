@@ -1,6 +1,21 @@
-"""Population training driver: ``python -m repro_torch.launch.train --arch
-parallelmlp-10k [...]``, with the JAX package's flag names and prints
+"""Training driver: ``python -m repro_torch.launch.train --arch <id>
+[...]``, with the JAX package's flag names and prints
 (``repro.launch.train``), on one card.
+
+LM archs (``--arch qwen3-1.7b``, any of the seven attention LMs;
+``--reduced`` for the laptop-scale config) train through ``run_lm``, the
+JAX driver's: parameters from a generator seeded 0 (JAX: ``PRNGKey(0)``),
+the arch's optimizer (``optim.build_optimizer``), ``warmup_cosine`` over
+``--warmup`` and ``--steps``, ``TokenTask`` batches of ``--batch`` ×
+``--seq`` (the ``embeds`` frontend draws its inputs as JAX's does), the
+step of ``models.lm.make_train_step`` with ``--num-micro`` microbatches
+and the global-norm clip at ``--grad-clip`` (1.0 when unset), under a
+``TrainRunner`` (checkpoints every ``--ckpt-every`` steps, the straggler
+watchdog, ``--resume`` from the last committed step, crash replay).  Its
+checkpoints and JAX's restore in either package.  Not yet: the
+encoder-decoder (ROADMAP Queue 1 item 9(c)), the SSM and hybrid LMs
+(item 9(b), refused by ``configs.get_arch``), an LM across ranks (item
+9(d)).
 
 The population path: build (or resume) a ``LayeredPopulation``, initialise
 parameters and optimizer state on the device, and train in chunks of
@@ -226,6 +241,84 @@ def _sync(device):
 def _memory(device):
     return (torch.cuda.memory_allocated(device) if device.type == "cuda"
             else None)
+
+
+def run_lm(arch, args, mesh=None):
+    """LM training, the JAX driver's ``run_lm`` → the ``TrainRunner``
+    (``metrics_log``: each step's loss, grad_norm and lr; ``walls``: each
+    step's seconds; ``state``: the trained {"params", "opt"})."""
+    from repro_torch.checkpoint.checkpoint import latest_steps, restore
+    from repro_torch.data.synthetic import TokenTask
+    from repro_torch.device import resolve
+    from repro_torch.distributed.fault_tolerance import (StragglerPolicy,
+                                                         TrainRunner)
+    from repro_torch.models import lm
+    from repro_torch.optim.optimizers import build_optimizer, warmup_cosine
+
+    if arch.kind == "encdec":
+        raise NotImplementedError(
+            f"arch {arch.arch_id!r}: the encoder-decoder is not ported yet "
+            "(ROADMAP.md, Queue 1 item 9(c))")
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"arch {arch.arch_id!r} on {mesh.size} ranks: the LM across "
+            "ranks is not ported yet (ROADMAP.md, Queue 1 item 9(d))")
+    if args.batch % args.num_micro:
+        # before the runner, which would replay a failing step
+        raise ValueError(f"--num-micro {args.num_micro} does not divide "
+                         f"--batch {args.batch}")
+    cfg = arch.model
+    device = resolve(args.device)
+    if args.ckpt_dir is None:
+        if args.resume:
+            raise SystemExit("--resume needs --ckpt-dir")
+        args.ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+        print(f"checkpoints: {args.ckpt_dir}")
+    print(f"arch={arch.arch_id} device={device}")
+    params = lm.init_params(torch.Generator(device).manual_seed(0), cfg)
+    opt = build_optimizer(arch)
+    lr_fn = warmup_cosine(arch.lr, args.warmup, args.steps)
+    # LM default stays 1.0 when the flag is unset (populations default to
+    # clipping off), as in the JAX driver
+    train_step = lm.make_train_step(
+        cfg, opt, lr_fn, num_micro=args.num_micro,
+        grad_clip=1.0 if args.grad_clip is None else args.grad_clip)
+    task = TokenTask(vocab=cfg.vocab, seed=args.seed)
+
+    def make_batch(step):
+        b = task.batch(step, args.batch, args.seq)
+        if cfg.frontend == "embeds":
+            rng = np.random.default_rng([args.seed, step])
+            b["embeds"] = rng.normal(
+                0, 1, (args.batch, args.seq, cfg.d_model)).astype(np.float32)
+            del b["tokens"]
+        return {k: torch.from_numpy(v).to(device) for k, v in b.items()}
+
+    def step_fn(state, step):
+        p, o, metrics = train_step(state["params"], state["opt"],
+                                   make_batch(step), step)
+        return {"params": p, "opt": o}, {k: float(v)
+                                         for k, v in metrics.items()}
+
+    runner = TrainRunner(
+        step_fn, {"params": params, "opt": opt.init(params)},
+        ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+        straggler=StragglerPolicy(timeout_s=args.straggler_timeout))
+    del params
+    start = 0
+    if args.resume and latest_steps(args.ckpt_dir):
+        runner.state, last = restore(args.ckpt_dir, runner.state,
+                                     device=device)
+        start = last + 1
+        print(f"resumed from step {last}")
+    t0 = time.time()
+    runner.run(args.steps, start_step=start)
+    dt = time.time() - t0
+    losses = [m["loss"] for _, m in runner.metrics_log]
+    if losses:
+        print(f"done: {len(losses)} steps in {dt:.1f}s; "
+              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}")
+    return runner
 
 
 def run_population(arch, args, mesh=None):
@@ -975,7 +1068,8 @@ def run_population(arch, args, mesh=None):
     return params, lp, stats
 
 
-def main(argv=None):
+def parser() -> argparse.ArgumentParser:
+    """The driver's flags (the JAX driver's names)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -983,9 +1077,15 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--warmup", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128,
+                    help="LM archs: tokens a sequence")
+    ap.add_argument("--num-micro", type=int, default=1,
+                    help="LM archs: microbatches a step (gradient "
+                         "accumulation; must divide --batch)")
     ap.add_argument("--grad-clip", type=float, default=None,
-                    help="global-norm gradient clip, default OFF (0 "
-                         "disables; when set, the pre-clip norm is logged)")
+                    help="global-norm gradient clip; populations: default "
+                         "OFF (0 disables; when set, the pre-clip norm is "
+                         "logged); LM archs: 1.0 when unset")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint directory (default: a new temporary "
@@ -1086,19 +1186,22 @@ def main(argv=None):
                     help="under torchrun: the process group's timeout in "
                          "seconds, the longest a rank waits for the others "
                          "in a collective before the run fails")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    """Train ``--arch``: a population → ``(params, layout, stats)``
+    (``run_population``); an LM → its ``TrainRunner`` (``run_lm``)."""
+    args = parser().parse_args(argv)
 
     from repro_torch.configs import get_arch
     from repro_torch.launch.mesh import close, make_host_mesh
     arch = get_arch(args.arch, reduced=args.reduced)
-    if arch.kind != "population":
-        raise NotImplementedError(
-            f"arch {args.arch!r}: LM training (the JAX package's run_lm) is "
-            "not ported yet (ROADMAP.md, Queue 1 item 9(a′)); the port "
-            "serves LMs (python -m repro_torch.launch.serve)")
     mesh = make_host_mesh(timeout_s=args.dist_timeout)
     try:
-        return run_population(arch, args, mesh=mesh)
+        if arch.kind == "population":
+            return run_population(arch, args, mesh=mesh)
+        return run_lm(arch, args, mesh=mesh)
     finally:
         close(mesh)
 

@@ -1,25 +1,34 @@
-"""The decoder-only LM of the JAX package's ``repro/models/lm.py``, for
-serving: its attention families — dense GQA (qwen3, h2o-danube with
-sliding windows, command-r's parallel block with LayerNorm and scaled
-tied logits, nemotron's relu², the qwen2-vl backbone with M-RoPE, qkv
-biases and an embeddings frontend) and MoE (deepseek-moe's 64 experts
-top-6 with shared experts after a dense first layer, mixtral's 8 top-2
-with sliding windows).
+"""The decoder-only LM of the JAX package's ``repro/models/lm.py``: its
+attention families — dense GQA (qwen3, h2o-danube with sliding windows,
+command-r's parallel block with LayerNorm and scaled tied logits,
+nemotron's relu², the qwen2-vl backbone with M-RoPE, qkv biases and an
+embeddings frontend) and MoE (deepseek-moe's 64 experts top-6 with shared
+experts after a dense first layer, mixtral's 8 top-2 with sliding
+windows).
 
-One config, one forward, prefill and a one-token decode step.  Layers are
-grouped into maximal runs of one (mixer, ffn) structure; a group's
-parameters are stacked on axis 0, as JAX stacks them for its
-``lax.scan``, so that weights carry across leaf for leaf
-(``params_from_jax``); the scan is a Python loop over the stack here
-(remat means nothing for serving).  Each attention layer's prefill is one
-flash-attention call (``nn.attention.attention``), each MoE layer's
-forward three grouped-GEMM calls (``nn.ffn._expert_ffn``); decode is plain
-PyTorch, as in JAX, with the caches updated in place (JAX donates them).
+One config, one forward, one train step, prefill and a one-token decode
+step.  Layers are grouped into maximal runs of one (mixer, ffn)
+structure; a group's parameters are stacked on axis 0, as JAX stacks them
+for its ``lax.scan``, so that weights carry across leaf for leaf
+(``params_from_jax``); the scan is a Python loop over the stack here.
+Each attention layer's forward is one flash-attention call
+(``nn.attention.attention``); an MoE layer's forward is three
+grouped-GEMM calls when it serves and JAX's batched einsums when autograd
+records it (``nn.ffn._expert_ffn``); decode is plain PyTorch, as in JAX,
+with the caches updated in place (JAX donates them).
+
+Training (``make_train_step``) follows JAX's step: one microbatch, or
+``num_micro`` accumulated in ``accum_dtype``, then the global-norm clip
+and the optimizer.  Under ``cfg.remat`` each layer's body runs under
+``torch.utils.checkpoint`` with nothing saved inside it and is recomputed
+in the backward (JAX: ``jax.checkpoint(..., nothing_saveable)`` around
+each scanned layer), so a training step launches the flash kernel twice a
+layer; serving never rematerialises.
 
 Not here: the SSM and hybrid mixers (mamba2, hymba: ROADMAP Queue 1 item
-9(b)), training (``make_train_step``: item 9(a′)), the sharding specs and
-the shard_map MoE (item 9(d)): without a mesh JAX's ``_moe_dispatch`` takes
-``moe_apply_dense``, as the port always does.
+9(b)), the sharding specs and the shard_map MoE (item 9(d)): without a
+mesh JAX's ``_moe_dispatch`` takes ``moe_apply_dense``, as the port
+always does.
 """
 from __future__ import annotations
 
@@ -28,8 +37,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core.tree import tree_leaves, tree_map
+from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import resolve
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ffn as ffn_lib
@@ -71,7 +81,7 @@ class LMConfig:
     logit_scale: float = 1.0           # command-r multiplies logits
     parallel_block: bool = False       # command-r: x + attn(n(x)) + ffn(n(x))
     param_dtype: str = "bfloat16"
-    remat: bool = True                 # JAX's training policy; unused here
+    remat: bool = True                 # training: recompute each layer
     moe_impl: str = "dense"            # dense | shard_map (JAX's EP on a mesh)
     frontend: str = "tokens"           # tokens | embeds (vlm/audio stub)
     vocab_pad_to: int = 128
@@ -253,21 +263,36 @@ def _readout(params, cfg: LMConfig, x):
     return logits * cfg.logit_scale
 
 
+def _layer_apply(lp, cfg: LMConfig, ffn_kind: str, x, positions,
+                 window: int):
+    """One transformer block (norm1, attention, the residual block) →
+    (x', aux)."""
+    h = norm_apply(lp["norm1"], x)
+    mix = attn_lib.attention(lp["mixer"], cfg.attn, h, positions,
+                             window=window)
+    return _block(lp, cfg, ffn_kind, x, h, mix)
+
+
 def forward(params, cfg: LMConfig, batch):
-    """batch: {tokens|embeds} -> (logits (B,S,Vp), aux_loss)."""
+    """batch: {tokens|embeds} -> (logits (B,S,Vp), aux_loss).  Under
+    ``cfg.remat`` with grad enabled each layer is checkpointed: only its
+    inputs are kept, and the backward recomputes it."""
     x = _embed_in(params, cfg, batch)
     b, s = x.shape[:2]
     positions = _positions_for(cfg, b, s, x.device)
     aux = torch.zeros((), device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for gi, ((mixer, ffn_kind), layer_specs, _) in enumerate(cfg.groups()):
         if mixer != "attn":
             _unported(mixer)
         for li, ls in enumerate(layer_specs):
             lp = _layer(params[f"g{gi}"], li)
-            h = norm_apply(lp["norm1"], x)
-            mix = attn_lib.attention(lp["mixer"], cfg.attn, h, positions,
-                                     window=ls.window)
-            x, a = _block(lp, cfg, ffn_kind, x, h, mix)
+            if remat:
+                x, a = checkpoint(_layer_apply, lp, cfg, ffn_kind, x,
+                                  positions, ls.window, use_reentrant=False)
+            else:
+                x, a = _layer_apply(lp, cfg, ffn_kind, x, positions,
+                                    ls.window)
             aux = aux + a
     return _readout(params, cfg, x), aux
 
@@ -292,6 +317,74 @@ def loss_and_metrics(params, cfg: LMConfig, batch):
     tokens = torch.tensor(float(batch["labels"].numel()),
                           device=loss.device)
     return loss + aux, {"loss": loss, "aux_loss": aux, "tokens": tokens}
+
+
+def loss_and_grads(params, cfg: LMConfig, batch):
+    """``loss_and_metrics`` and its gradient with respect to every leaf of
+    ``params`` (JAX: ``jax.value_and_grad(..., has_aux=True)``) →
+    (total, metrics, grads in the parameters' dtypes).  ``params`` are
+    left untouched."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        total, metrics = loss_and_metrics(live, cfg, batch)
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for t, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return total.detach(), metrics, tree_unflatten(params, grads)
+
+
+def make_train_step(cfg: LMConfig, optimizer, lr_fn, *, num_micro: int = 1,
+                    grad_clip: float = 1.0, accum_dtype=torch.float32):
+    """(params, opt_state, batch, step) -> (params, opt_state, metrics),
+    JAX's ``make_train_step`` statement for statement.
+
+    ``batch``: a dict of tensors on the parameters' device ({tokens|embeds,
+    labels}, batch-major).  ``num_micro > 1`` splits the batch into that
+    many microbatches along axis 0; each one's gradients are cast to
+    ``accum_dtype`` and added, in order, into zeros of ``accum_dtype``; the
+    sum is cast to f32 and divided by ``num_micro`` (the loss likewise, a
+    f32 sum).  Then the global-norm clip at ``grad_clip``, the optimizer's
+    update at ``lr_fn(step)`` and ``apply_updates``.  Metrics: "loss" (the
+    NLL plus the aux term, as in JAX), "grad_norm" (before the clip),
+    "lr".  The LM across ranks (JAX's ``mesh``, ``param_specs``) is ROADMAP
+    Queue 1 item 9(d)."""
+    from repro_torch.optim.optimizers import (apply_updates,
+                                              clip_by_global_norm)
+
+    def train_step(params, opt_state, batch, step):
+        lr = lr_fn(step)
+        if num_micro == 1:
+            loss, _, grads = loss_and_grads(params, cfg, batch)
+            grads = tree_map(lambda g: g.float(), grads)
+        else:
+            rows = next(iter(batch.values())).shape[0]
+            if rows % num_micro:
+                raise ValueError(f"num_micro {num_micro} does not divide "
+                                 f"the batch of {rows} rows")
+            mb = {k: v.reshape(num_micro, rows // num_micro, *v.shape[1:])
+                  for k, v in batch.items()}
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype,
+                                                  device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32,
+                               device=tree_leaves(params)[0].device)
+            for i in range(num_micro):
+                lo, _, g = loss_and_grads(params, cfg,
+                                          {k: v[i] for k, v in mb.items()})
+                for a, b in zip(tree_leaves(gsum), tree_leaves(g)):
+                    a.add_(b.to(accum_dtype))
+                lsum = lsum + lo
+                del g
+            grads = tree_map(lambda g: g.float() / num_micro, gsum)
+            loss = lsum / num_micro
+        grads, gnorm = clip_by_global_norm(grads, grad_clip)
+        upd, opt_state = optimizer.update(grads, opt_state, params, lr)
+        params = apply_updates(params, upd)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
+
+    return train_step
 
 
 # --------------------------------------------------------------------- #

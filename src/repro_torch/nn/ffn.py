@@ -2,16 +2,17 @@
 capacity-padded Mixture-of-Experts, ported from the JAX package's
 ``repro/nn/ffn.py``.
 
-The expert FFN runs its three products on the grouped-GEMM kernel,
-``kernels.ops.moe_gemm`` (the port of the TPU kernel
+The expert FFN has two routes, chosen by autograd's mode in
+``_expert_ffn``.  Serving runs its three products on the grouped-GEMM
+kernel, ``kernels.ops.moe_gemm`` (the port of the TPU kernel
 ``repro/kernels/moe_gemm.py``, which JAX's docstring names as the TPU form
 of its per-expert matmuls): ``_dispatch_combine`` lays the tokens out as
 the capacity-padded (E, C, D) buffer, which is the kernel's input of
 tokens sorted by expert, every expert's run C rows long.  On a CUDA tensor
 that is three launches per MoE layer per forward; on a CPU tensor the
 kernel's plain version ``moe_gemm_dense``.  The kernel has no backward
-(none in JAX either): this route serves, and a differentiable expert FFN
-is the LM training slice's (ROADMAP Queue 1 item 9(a′)).
+(none in JAX either), so where autograd records the call, training takes
+JAX's own route: three batched einsums over the same buffer.
 
 JAX's sharding constraints (``_tp_inner``) and its shard_map MoE
 (``moe_apply_shard_map``, ``moe_apply_tp_shard_map``) are placement over a
@@ -137,10 +138,17 @@ def block_rows(capacity: int) -> int:
 
 
 def _expert_ffn(experts, cfg: MoEConfig, buf):
-    """buf (E, C, D) -> (E, C, D), SwiGLU per expert: three
+    """buf (E, C, D) -> (E, C, D), SwiGLU per expert.  Serving: three
     ``ops.moe_gemm`` calls over the (E·C, D) buffer, expert e's C rows a
-    run.  Forward only (the kernel has no backward)."""
+    run.  Training (autograd records): the batched einsums."""
     act = FFN_ACTS[cfg.act]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (buf, *experts.values())):
+        # JAX's _expert_ffn (repro/nn/ffn.py:171-176), its only route:
+        # the grouped GEMM is forward only, so training runs these
+        h = act(torch.einsum("ecd,edf->ecf", buf, experts["w_gate"])) * \
+            torch.einsum("ecd,edf->ecf", buf, experts["w_up"])
+        return torch.einsum("ecf,efd->ecd", h, experts["w_down"])
     e, c, d = buf.shape
     bt = block_rows(c)
     ids = torch.arange(e, dtype=torch.int32, device=buf.device) \

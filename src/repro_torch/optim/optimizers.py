@@ -390,6 +390,17 @@ def make_optimizer(name: str, **kw) -> Optimizer:
     return OPTIMIZERS[name](**kw)
 
 
+def build_optimizer(arch) -> Optimizer:
+    """An ``ArchSpec``'s optimizer: its ``optimizer`` with its
+    ``optimizer_kwargs()``, each ``*dtype`` string as a torch dtype (the
+    JAX package's ``repro/launch/cells.py::build_optimizer``)."""
+    kw = arch.optimizer_kwargs()
+    for k, v in kw.items():
+        if isinstance(v, str) and k.endswith("dtype"):
+            kw[k] = _dtype(v)
+    return make_optimizer(arch.optimizer, **kw)
+
+
 def apply_updates(params, updates):
     """params + updates (float32 updates)."""
     return tree_map(lambda p, u: (p.float() + u).to(p.dtype), params,

@@ -1,10 +1,14 @@
 """The port's example twins (``examples/torch_quickstart.py``,
 ``examples/torch_feature_selection.py``,
-``examples/torch_search_population.py``) run end to end on the CPU
+``examples/torch_search_population.py``, ``examples/torch_train_lm.py``,
+``examples/torch_fault_tolerant_train.py``) run end to end on the CPU
 through their ``main``: the quickstart at a tiny size, the
 feature-selection example at its own sizes (a few seconds), every masked
-w1 entry exactly 0 after every step, and the refill search at a reduced
-ladder, its one chunk building no table after the first."""
+w1 entry exactly 0 after every step, the refill search at a reduced
+ladder, its one chunk building no table after the first, the LM trainer
+at its ``--tiny`` size with microbatches and a checkpoint, and the
+fault-tolerance demo at its own (reduced) size, its restarted run
+matching the unbroken one."""
 import importlib.util
 from pathlib import Path
 
@@ -66,3 +70,38 @@ def test_search_population(capsys):
     n = {k: v for k, v in tlc.kernel_launches().items() if v}
     assert n["fused_input_bwd"] == 12 and n["loss_head_bwd"] == 12
     assert n["fused_layer_dx_dw"] == 12
+
+
+@pytest.fixture()
+def one_thread():
+    """One intra-op thread for the LM examples' many small CPU steps (a
+    full thread pool slows them many times over when the test workers
+    share the machine's cores)."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_train_lm(tmp_path, capsys, one_thread):
+    from repro_torch.kernels import flash_attn as fak
+    f0 = fak.launches
+    res = _load("torch_train_lm").main(
+        ["--device", "cpu", "--tiny", "--steps", "4", "--batch", "4",
+         "--seq", "16", "--num-micro", "2", "--ckpt-every", "2",
+         "--ckpt-dir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert "model: qwen3-tiny" in out and "done in" in out
+    assert len(res["losses"]) == 4 and len(res["saved"]) == 2
+    # 2 layers, 2 microbatches, 4 steps: one flash launch each
+    assert fak.launches - f0 == 2 * 2 * 4
+
+
+def test_fault_tolerant_train(tmp_path, capsys, one_thread):
+    res = _load("torch_fault_tolerant_train").main(
+        ["--device", "cpu", "--workdir", str(tmp_path)])
+    out = capsys.readouterr().out
+    assert res["restarts"] == 2 and "identical: True" in out
+    assert res["ref_loss"] == res["ft_loss"]
+    assert res["wire_bytes"] == 4096 + 4 and res["rel_err"] < 0.02

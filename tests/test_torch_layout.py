@@ -206,8 +206,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert r.returncode == 0, r.stderr
     assert len(mods) >= 35
     assert [os.path.basename(t) for t in twins] == [
-        "torch_feature_selection.py", "torch_quickstart.py",
-        "torch_search_population.py"]
+        "torch_fault_tolerant_train.py", "torch_feature_selection.py",
+        "torch_quickstart.py", "torch_search_population.py",
+        "torch_train_lm.py"]
     # the training slice's modules and the paper's workflow are among
     # those imported
     assert {"repro_torch.core.tree", "repro_torch.kernels.loss_head",
