@@ -246,37 +246,45 @@ Phases (any failure exits non-zero, and no result line is printed):
           qwen3-1.7b whole (28 layers, 4 prompts of 512 tokens, 32 greedy
           tokens), deepseek-moe-16b at full width cut to 4 layers (its
           dense layer 0 and three MoE layers of 64 experts, top-6, 2
-          shared; the same traffic) and h2o-danube-3-4b at full width cut
+          shared; the same traffic), h2o-danube-3-4b at full width cut
           to 2 layers (one prompt of 4,608 tokens, past its 4,096 window,
-          then 16 tokens), each run twice with the counters set to 0 just
-          before and read just after: exactly one ``flash_attention``
-          launch per attention layer in the prefill and none in decode,
+          then 16 tokens), nemotron-4-340b at full width cut to 2 of 96
+          layers (d_head 192; 4 × 512 + 16), mamba2-780m whole (48 SSM
+          layers; 4 × 512 + 32) and hymba-1.5b whole (32 hybrid layers;
+          one prompt of 2,048 tokens, past its 1,024 window, + 32), each
+          run twice with the counters set to 0 just before and read just
+          after: exactly one ``flash_attention`` launch per attention or
+          hybrid layer in the prefill and none in decode,
           three ``moe_gemm`` launches per MoE layer per forward, nothing
           else, the two runs' tokens equal; prefill ms, decode ms a token
-          and tokens/s of the second run; the prefill's last logits and
-          up to 8 teacher-forced decode steps' logits against the same
-          calls with ``flash_attn_dense``/``moe_gemm_dense`` on the card
-          (max |difference| within 1e-2 of the logits' scale or 2 bf16
-          ulps of it; the greedy tokens' agreement reported, not
-          asserted); each distinct kernel
-          call of a prefill and a decode step at the model's shapes
-          against its plain version, timed beside it, SDPA (``is_causal``,
-          ``enable_gqa``; the window as a boolean mask) or ``torch.bmm``
-          over the capacity buffer, and its bound;
+          and tokens/s of the second run; each distinct kernel call (shape
+          and window) of a prefill and a decode step at the model's
+          shapes against its plain version, timed beside it, SDPA
+          (``is_causal``, ``enable_gqa``; the window as a boolean mask)
+          or ``torch.bmm`` over the capacity buffer, and its bound; the
+          prefill's last logits and up to 8 teacher-forced decode steps'
+          logits against the same calls with ``flash_attn_dense``/
+          ``moe_gemm_dense`` on the card (max |difference| within 1e-2 of
+          the logits' scale or 2 bf16 ulps of it, or else the kernels' run
+          no farther from the same calls in f32 than twice the plain
+          run is; the greedy tokens' agreement reported, not asserted);
        m. the decoder LMs trained (a process of its own, as 4g; alone:
           ``chip_smoke.py --lm-train DIR``): (a) qwen3-1.7b whole (28
           layers, bf16 parameters, remat, AdamW) trained by
           ``repro_torch.launch.train.main --arch qwen3-1.7b --batch 4
-          --seq 512 --steps 16 --warmup 4 --ckpt-every 0``, the counters
-          set to 0 just before and read just after: exactly two
-          ``flash_attention`` launches a layer a step (the forward and
-          its recompute) and nothing else; the step walls (the median of
-          steps 2-15), the peak device memory, and the loss of a held-out
+          --seq 512 --steps 16 --warmup 4 --ckpt-every 0``, then
+          hymba-1.5b whole (8 steps) and mamba2-780m whole (4 steps) the
+          same way, the counters set to 0 just before and read just
+          after: exactly two ``flash_attention`` launches an attention or
+          hybrid layer a step (the forward and its recompute; none for
+          mamba2) and nothing else; the step walls (the median of steps
+          2 on), the peak device memory, and the loss of a held-out
           ``TokenTask`` batch (a step no run draws) before training (the
           driver's init, a generator seeded 0) and after it, which must
           be lower; then two more steps of the driver's step function
           under ``torch.profiler``: device ms, launches and idle share a
-          step; (b) from that state and one batch, the gradients
+          step; (b) from qwen3's and mamba2's states and one batch each,
+          the gradients
           (``lm.loss_and_grads``, the step's own) and one
           ``make_train_step`` update through the kernels and through the
           plain versions (4l's swap): every gradient leaf, the loss and
@@ -320,12 +328,15 @@ Phases (any failure exits non-zero, and no result line is printed):
      forward in f32 and bf16, then an f32 forward and backward on the
      model layout's transposed views; h2o-danube-
      3-4b's (B 1, S 8192, H 32, Hkv 8, dh 120, window 4096) bf16 forward;
+     nemotron-4-340b's (B 4, S 512, H 96, Hkv 8, dh 192, causal) forward
+     in f32 and bf16 on the DP 192 instances (their names as the profiler
+     recorded them);
      deepseek-moe-16b's two expert projections (64 experts, D 2048, F 1408)
      over the capacity buffer of 4096 tokens top-6 (512 rows an expert,
      T = 32,768) in f32 and bf16, and both over a seeded top-6 routing with
      every expert's run padded to 128 rows, some empty (f32; the up
      projection in bf16 too).  Exactly one launch a forward, none in the
-     backward (4 flash, 7 grouped-GEMM launches), every bf16 launch on the
+     backward (6 flash, 7 grouped-GEMM launches), every bf16 launch on the
      tensor-core design and every f32 one on the FMA design (each
      wrapper's ``kernel_path``, and the kernel ``torch.profiler`` saw
      launched: ``*wgmma_kernel``, and for the grouped GEMM's f32 launches
@@ -413,8 +424,10 @@ Phases (any failure exits non-zero, and no result line is printed):
      their library call (``depth3_library_*``: the logits only, on the
      dequantized weight for int8; dh only for ``loss_head_bwd``), held to
      the plain version and timed by events and ``torch.profiler``; the f32
-     flash attention at qwen3-1.7b's and h2o-danube-3-4b's shapes
-     (``danube_f32_*``) its device time, two launches bitwise equal and
+     flash attention at qwen3-1.7b's, h2o-danube-3-4b's
+     (``danube_f32_*``) and nemotron-4-340b's (``nemotron_f32_*``; the
+     bf16 run ``nemotron_bf16_*`` too) shapes its device time, two
+     launches bitwise equal and
      (``--parent``) the parent kernel's device time and the max
      |difference| of the two trees' outputs (``*parent_*``); the three
      ``m3_matmul`` rows also at path 4f's block-1 head (B 32, H 505,000,
@@ -495,6 +508,9 @@ SERVE_REQUESTS = 256
 # to 512 so that every run is block_t = 128-aligned)
 QWEN3 = dict(b=2, s=4096, h=16, hkv=8, dh=128, window=0)
 DANUBE = dict(b=1, s=8192, h=32, hkv=8, dh=120, window=4096)
+# nemotron_4_340b.py's attention at path 4l's prefill (4 × 512 tokens):
+# d_head 192, the kernel's widest instance (DP 192)
+NEMOTRON = dict(b=4, s=512, h=96, hkv=8, dh=192, window=0)
 MOE = dict(experts=64, d=2048, f=1408, top_k=6, tokens=4096, capacity=512,
            block_t=128)
 LM_KERNELS = ("flash_attention", "moe_gemm")
@@ -4428,10 +4444,17 @@ def _ckpt_diff(a: Path, b: Path) -> dict:
 # the served models: arch id → (layers kept: None = all, prompts, prompt
 # length, new tokens).  qwen3-1.7b whole; deepseek-moe-16b at full width,
 # its dense layer 0 and three MoE layers; h2o-danube-3-4b at full width,
-# two layers, one prompt past its 4,096 window
+# two layers, one prompt past its 4,096 window; nemotron-4-340b at full
+# width (d_head 192), 2 of its 96 layers (6.9 GB of bf16 weights a layer,
+# 18.9 GB of embeddings: 33 GB); mamba2-780m whole (48 SSM layers, no
+# attention); hymba-1.5b whole (32 hybrid layers, 3 global, the rest a
+# 1,024 window), one prompt of 2,048 tokens past its window
 LM_SERVE = {"qwen3-1.7b": (None, 4, 512, 32),
             "deepseek-moe-16b": (4, 4, 512, 32),
-            "h2o-danube-3-4b": (2, 1, 4608, 16)}
+            "h2o-danube-3-4b": (2, 1, 4608, 16),
+            "nemotron-4-340b": (2, 4, 512, 16),
+            "mamba2-780m": (None, 4, 512, 32),
+            "hymba-1.5b": (None, 1, 2048, 32)}
 # logits of the kernels' run against the plain versions' (both bf16): the
 # largest |difference| within LM_LOGIT_TOL of the plain logits' largest
 # |value| (rtol 1e-2 of the kernel API's bf16 entries, taken of the
@@ -4441,6 +4464,12 @@ LM_SERVE = {"qwen3-1.7b": (None, 4, 512, 32),
 # largest apart is 1 ulp, 2^-8 to 2^-7 of the scale by where it sits in
 # its binade (on an H100 every step read 1 ulp apart)
 LM_LOGIT_TOL = 1e-2
+
+
+def _flash_layers(cfg) -> int:
+    """The layers whose forward is one flash-attention call: attention
+    and hybrid (attention beside SSM heads) mixers."""
+    return sum(1 for l in cfg.layers if l.mixer in ("attn", "hybrid"))
 
 
 def _lm_model(arch_id: str):
@@ -4496,7 +4525,7 @@ def _recorded_lm_calls(calls: dict):
     made as they are."""
     def flash(entry):
         def call(q, k, v, scale, causal=True, window=0, **kw):
-            calls.setdefault(("flash", tuple(q.shape)),
+            calls.setdefault(("flash", tuple(q.shape), int(window or 0)),
                              (q, k, v, scale, causal, int(window or 0)))
             return entry(q, k, v, scale, causal, window, **kw)
         return call
@@ -4511,26 +4540,45 @@ def _recorded_lm_calls(calls: dict):
     return _lm_ops(flash, moe)
 
 
-def _logit_err(name: str, got, want, vocab: int, power: str) -> dict:
+def _logit_err(name: str, got, want, vocab: int, power: str,
+               f32=None) -> dict:
     """The kernels' logits against the plain versions' over the real
     vocabulary (the padded slots hold −1e30): max |difference| within
-    ``LM_LOGIT_TOL`` of the plain logits' scale; the argmax agreement
-    reported."""
+    ``LM_LOGIT_TOL`` of the plain logits' scale; where that rule does not
+    hold them and ``f32()`` gives the same calls' logits on the
+    parameters widened to f32, the kernels' run no farther from that f32
+    function than twice the plain run is (bf16's own reach: two bf16 runs
+    a rounding apart in every layer drift apart as far as either drifts
+    from f32; each kernel call is held per element at the model's shapes
+    by ``_lm_kernel_fields``); the argmax agreement reported."""
     import torch
     got, want = got[..., :vocab].float(), want[..., :vocab].float()
     _require(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
     err = (got - want).abs().max().item()
     scale = want.abs().max().item()
-    tol = max(LM_LOGIT_TOL * scale,
-              2 * 2.0 ** (math.floor(math.log2(scale)) - 7))
+    rule = max(LM_LOGIT_TOL * scale,
+               2 * 2.0 ** (math.floor(math.log2(scale)) - 7))
     same = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+    out = {"max_abs_err": err, "scale": scale, "rule": rule,
+           "argmax_agree": same}
     print(f"[lm serve] {name} ({power}): logits max |kernels - plain| "
-          f"{err!r} of scale {scale!r} (tol {tol!r}); argmax agree "
+          f"{err!r} of scale {scale!r} (rule {rule!r}); argmax agree "
           f"{same!r}", flush=True)
-    _require(err <= tol, f"{name}: logits max |err| {err} beyond {tol} "
-             f"(scale {scale})")
-    return {"max_abs_err": err, "scale": scale, "tol": tol,
-            "argmax_agree": same}
+    if err <= rule or f32 is None:
+        _require(err <= rule, f"{name}: logits max |err| {err} beyond "
+                 f"{rule} (scale {scale})")
+        return out
+    ref = f32()[..., :vocab].float()
+    out["kernels_f32"] = (got - ref).abs().max().item()
+    out["plain_f32"] = (want - ref).abs().max().item()
+    print(f"[lm serve] {name}: beyond the rule; from the f32 function "
+          f"the kernels' run {out['kernels_f32']!r}, the plain run's "
+          f"{out['plain_f32']!r}", flush=True)
+    _require(out["kernels_f32"] <= 2 * out["plain_f32"],
+             f"{name}: the kernels' logits {out['kernels_f32']} from the "
+             f"f32 function, beyond twice the plain run's "
+             f"{out['plain_f32']}")
+    return out
 
 
 def _lm_kernel_fields(calls: dict, power: str) -> dict:
@@ -4600,13 +4648,16 @@ def _lm_kernel_fields(calls: dict, power: str) -> dict:
 def lm_serve_one(arch_id: str, power: str) -> tuple:
     """One model of path 4l: ``generate_lm`` twice (a first run, then the
     timed one), the counters set to 0 just before each and read just
-    after; then the prefill's last logits and teacher-forced decode steps
-    against the same calls on the plain versions; then each kernel call's
-    fields at the model's shapes.  Returns (results, launches of the
-    timed run)."""
+    after; then each kernel call's fields at the model's shapes (every
+    distinct shape and window); then the prefill's last logits and
+    teacher-forced decode steps against the same calls on the plain
+    versions (``_logit_err``).  Returns (results, launches of the timed
+    run)."""
+    import dataclasses
+
     import torch
 
-    from repro_torch.core.tree import tree_leaves
+    from repro_torch.core.tree import tree_leaves, tree_map
     from repro_torch.launch import serve
     from repro_torch.launch.launch_count import (kernel_launches,
                                                  reset_kernel_launches)
@@ -4626,7 +4677,7 @@ def lm_serve_one(arch_id: str, power: str) -> tuple:
     gen = torch.Generator("cuda").manual_seed(18)
     prompts = torch.randint(0, cfg.vocab, (b, s), generator=gen,
                             device="cuda", dtype=torch.int32)
-    attn = sum(1 for l in cfg.layers if l.mixer == "attn")
+    attn = _flash_layers(cfg)
     moe = sum(1 for l in cfg.layers if l.ffn == "moe")
     want = {"flash_attention": attn, "moe_gemm": 3 * moe * new}
     runs = []
@@ -4639,8 +4690,9 @@ def lm_serve_one(arch_id: str, power: str) -> tuple:
         n = {k: v for k, v in kernel_launches().items() if v}
         _require(n == {k: v for k, v in want.items() if v},
                  f"{arch_id} run {run}: launches {n}, expected {want} "
-                 "(flash once per attention layer in the prefill, none in "
-                 "decode; three grouped GEMMs per MoE layer per forward)")
+                 "(flash once per attention or hybrid layer in the "
+                 "prefill, none in decode; three grouped GEMMs per MoE "
+                 "layer per forward)")
         runs.append((toks, stats, n))
     toks, stats, n = runs[1]
     _require(toks.shape == (b, s + new), f"{arch_id}: tokens {toks.shape}")
@@ -4662,39 +4714,42 @@ def lm_serve_one(arch_id: str, power: str) -> tuple:
 
     # the logits: the kernels' prefill and teacher-forced decode (the
     # greedy tokens) against the same calls on the plain versions
+    def teacher_forced(p, c):
+        """The prefill's last logits, then up to 8 decode steps on the
+        greedy tokens."""
+        step = lm.make_serve_step(c)
+        last, caches = lm.prefill(p, c, {"tokens": prompts},
+                                  max_len=s + new)
+        logits = [last]
+        for i in range(min(new - 1, 8)):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            lg, caches = step(p, caches,
+                              {"tokens": toks[:, s + i:s + i + 1]}, pos)
+            logits.append(lg)
+        return logits
+
     step = lm.make_serve_step(cfg)
     with torch.inference_mode():
         outs = {}
         for label in ("kernels", "plain"):
             with (_plain_lm_kernels() if label == "plain"
                   else nullcontext()):
-                last, caches = lm.prefill(params, cfg, {"tokens": prompts},
-                                          max_len=s + new)
-                logits = [last]
-                for i in range(min(new - 1, 8)):
-                    pos = torch.full((b,), s + i, dtype=torch.int32,
-                                     device="cuda")
-                    lg, caches = step(params, caches,
-                                      {"tokens": toks[:, s + i:s + i + 1]},
-                                      pos)
-                    logits.append(lg)
-                outs[label] = logits
-                del caches
-        res["prefill_logits"] = _logit_err(f"{arch_id} prefill",
-                                           outs["kernels"][0],
-                                           outs["plain"][0], cfg.vocab,
-                                           power)
-        res["decode_logits"] = [
-            _logit_err(f"{arch_id} decode step {i}", a, p, cfg.vocab, power)
-            for i, (a, p) in enumerate(zip(outs["kernels"][1:],
-                                           outs["plain"][1:]))]
-        plain_greedy = torch.cat([lg[:, -1:, :cfg.vocab].argmax(-1)
-                                  for lg in outs["plain"]], 1)
-        res["greedy_agree_plain"] = (
-            plain_greedy == toks[:, s:s + plain_greedy.shape[1]]) \
-            .float().mean().item()
-        del outs
-        # each kernel call at the model's shapes
+                outs[label] = teacher_forced(params, cfg)
+
+        def f32(i):
+            """Logits i of the same calls on the plain versions with the
+            parameters widened to f32 (run once, when a check needs it)."""
+            def fn():
+                if "f32" not in outs:
+                    with _plain_lm_kernels():
+                        outs["f32"] = teacher_forced(
+                            tree_map(lambda t: t.float(), params),
+                            dataclasses.replace(cfg, param_dtype="float32"))
+                return outs["f32"][i]
+            return fn
+
+        # each kernel call at the model's shapes first: the kernel against
+        # its plain version per element, before the model's logits
         calls = {}
         with _recorded_lm_calls(calls):
             lm.prefill(params, cfg, {"tokens": prompts}, max_len=s + new)
@@ -4707,6 +4762,23 @@ def lm_serve_one(arch_id: str, power: str) -> tuple:
         del caches
         calls.update(step_calls)
         res["kernels"] = _lm_kernel_fields(calls, power)
+        del calls, step_calls
+
+        res["prefill_logits"] = _logit_err(f"{arch_id} prefill",
+                                           outs["kernels"][0],
+                                           outs["plain"][0], cfg.vocab,
+                                           power, f32(0))
+        res["decode_logits"] = [
+            _logit_err(f"{arch_id} decode step {i}", a, p, cfg.vocab, power,
+                       f32(i + 1))
+            for i, (a, p) in enumerate(zip(outs["kernels"][1:],
+                                           outs["plain"][1:]))]
+        plain_greedy = torch.cat([lg[:, -1:, :cfg.vocab].argmax(-1)
+                                  for lg in outs["plain"]], 1)
+        res["greedy_agree_plain"] = (
+            plain_greedy == toks[:, s:s + plain_greedy.shape[1]]) \
+            .float().mean().item()
+        del outs
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4720,8 +4792,11 @@ def lm_serve_path(workdir: Path) -> tuple:
     layers, 4 prompts of 512 tokens, 32 greedy tokens), deepseek-moe-16b
     at full width cut to 4 layers (its dense layer 0, three MoE layers of
     64 experts, top-6, 2 shared), h2o-danube-3-4b at full width cut to 2
-    layers (one prompt of 4,608 tokens, past its 4,096 window, 16 tokens).
-    Returns (results, the launches of the timed runs, summed)."""
+    layers (one prompt of 4,608 tokens, past its 4,096 window, 16 tokens),
+    nemotron-4-340b at full width cut to 2 of 96 layers (d_head 192, 4 ×
+    512 + 16), mamba2-780m whole (4 × 512 + 32, no attention) and
+    hymba-1.5b whole (1 × 2,048 + 32, past its 1,024 window).  Returns
+    (results, the launches of the timed runs, summed)."""
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
@@ -4745,9 +4820,13 @@ def lm_serve_path(workdir: Path) -> tuple:
 # path 4m: LM training                                                  #
 # --------------------------------------------------------------------- #
 
-# qwen3-1.7b whole through train.main: B 4 × S 512, 16 steps, warmup 4,
-# no checkpoint (--ckpt-every 0: a step-0 save would write 17 GB)
-LM_TRAIN = dict(batch=4, seq=512, steps=16, warmup=4)
+# whole models through train.main, B 4 × S 512, no checkpoint
+# (--ckpt-every 0: a step-0 save of qwen3-1.7b would write 17 GB), AdamW
+# with f32 moments, remat: qwen3-1.7b 16 steps (warmup 4), hymba-1.5b 8
+# (warmup 2), mamba2-780m 4 (warmup 1)
+LM_TRAIN = {"qwen3-1.7b": dict(batch=4, seq=512, steps=16, warmup=4),
+            "hymba-1.5b": dict(batch=4, seq=512, steps=8, warmup=2),
+            "mamba2-780m": dict(batch=4, seq=512, steps=4, warmup=1)}
 # deepseek-moe-16b at full width cut to 4 of 28 layers (path 4l's cut):
 # 4 steps of B 4 × S 512 through run_lm, then served, 4 new tokens
 LM_TRAIN_MOE = dict(layers=4, batch=4, seq=512, steps=4, new=4)
@@ -4805,13 +4884,13 @@ def _launched() -> dict:
     return {k: v for k, v in kernel_launches().items() if v}
 
 
-def lm_train_qwen3(workdir: Path, power: str) -> tuple:
-    """Path 4m (a): qwen3-1.7b whole trained by ``train.main``: the
-    counters, the step walls, the held-out loss before and after, the
-    peak device memory; two more steps of the driver's step function
-    under ``torch.profiler``: device ms, idle share, launches a step.
-    Returns (results, the training run's launches, the trained state
-    two profiled steps later)."""
+def lm_train_whole(arch_id: str, workdir: Path, power: str) -> tuple:
+    """Path 4m (a): a whole model (``LM_TRAIN``) trained by
+    ``train.main``: the counters, the step walls, the held-out loss before
+    and after (it must fall), the peak device memory; two more steps of
+    the driver's step function under ``torch.profiler``: device ms, idle
+    share, launches a step.  Returns (results, the training run's
+    launches, the trained state two profiled steps later)."""
     import statistics
 
     import torch
@@ -4821,12 +4900,12 @@ def lm_train_qwen3(workdir: Path, power: str) -> tuple:
     from repro_torch.launch import train
     from repro_torch.launch.launch_count import reset_kernel_launches
     from repro_torch.models import lm
-    arch = get_arch("qwen3-1.7b")
+    arch = get_arch(arch_id)
     cfg = arch.model
-    _require(cfg.n_layers == 28 and cfg.remat
-             and cfg.param_dtype == "bfloat16",
-             "qwen3-1.7b is not whole, bf16, with remat")
-    b, s, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
+    _require(cfg.remat and cfg.param_dtype == "bfloat16",
+             f"{arch_id} is not bf16 with remat")
+    d = LM_TRAIN[arch_id]
+    b, s, steps = d["batch"], d["seq"], d["steps"]
     held = _token_batch(cfg, HELDOUT_STEP, b, s)
     # the held-out loss before: run_lm's init (a generator seeded 0)
     p0 = lm.init_params(torch.Generator("cuda").manual_seed(0), cfg)
@@ -4837,9 +4916,9 @@ def lm_train_qwen3(workdir: Path, power: str) -> tuple:
     torch.cuda.empty_cache()
 
     # (a) train.main, the counters set to 0 just before and read after
-    flags = ["--arch", "qwen3-1.7b", "--batch", str(b), "--seq", str(s),
-             "--steps", str(steps), "--warmup", str(LM_TRAIN["warmup"]),
-             "--ckpt-every", "0", "--ckpt-dir", str(workdir / "qwen3"),
+    flags = ["--arch", arch_id, "--batch", str(b), "--seq", str(s),
+             "--steps", str(steps), "--warmup", str(d["warmup"]),
+             "--ckpt-every", "0", "--ckpt-dir", str(workdir / arch_id),
              "--device", "cuda"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4849,27 +4928,27 @@ def lm_train_qwen3(workdir: Path, power: str) -> tuple:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     n = _launched()
-    attn = sum(1 for ls in cfg.layers if ls.mixer == "attn")
-    want = {"flash_attention": attn * steps * 2}
-    _require(n == want, f"qwen3-1.7b training: launches {n}, expected "
-             f"{want} (two flash launches a layer a step under remat, no "
-             "other kernel)")
+    attn = _flash_layers(cfg)
+    want = {"flash_attention": attn * steps * 2} if attn else {}
+    _require(n == want, f"{arch_id} training: launches {n}, expected "
+             f"{want} (two flash launches an attention or hybrid layer a "
+             "step under remat, no other kernel)")
     peak = torch.cuda.max_memory_allocated()
     walls = [dt for _, dt in runner.walls]
     losses = [m["loss"] for _, m in runner.metrics_log]
     _require(len(walls) == steps and runner.restarts == 0
              and all(math.isfinite(x) for x in losses),
-             f"qwen3-1.7b training: {len(walls)} steps, {runner.restarts} "
+             f"{arch_id} training: {len(walls)} steps, {runner.restarts} "
              f"restarts, losses {losses}")
     step_ms = statistics.median(walls[2:]) * 1e3
     state = runner.state
     after = _heldout_loss(state["params"], cfg, held)
-    print(f"[lm train] qwen3-1.7b ({power}): {n_params} parameters, "
+    print(f"[lm train] {arch_id} ({power}): {n_params} parameters, "
           f"train.main {main_s:.1f} s; step {step_ms!r} ms (median of "
           f"steps 2-{steps - 1}); loss {losses[0]!r} -> {losses[-1]!r}; "
           f"held-out {before!r} -> {after!r}; peak "
           f"{peak / 2 ** 30:.2f} GiB; launches {n}", flush=True)
-    _require(after < before, f"qwen3-1.7b: the held-out loss {after} is "
+    _require(after < before, f"{arch_id}: the held-out loss {after} is "
              f"not below its value before training, {before}")
 
     # two more steps of the driver's own step function, profiled
@@ -4907,7 +4986,7 @@ def lm_train_qwen3(workdir: Path, power: str) -> tuple:
            "device_ms_by_kernel": dict(sorted(
                by_name.items(), key=lambda kv: -kv[1])[:12]),
            "card": power}
-    print(f"[lm train] qwen3-1.7b step: device {device_ms!r} ms in "
+    print(f"[lm train] {arch_id} step: device {device_ms!r} ms in "
           f"{len(dev) / 2} launches (flash {flash_ms!r} ms); idle share "
           f"{res['device_idle_share']!r} of the {step_ms!r} ms step",
           flush=True)
@@ -4939,11 +5018,12 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
     from repro_torch.optim.optimizers import (build_optimizer, global_norm,
                                               warmup_cosine)
     cfg = arch.model
-    b, s, steps = LM_TRAIN["batch"], LM_TRAIN["seq"], LM_TRAIN["steps"]
-    attn = sum(1 for ls in cfg.layers if ls.mixer == "attn")
+    d = LM_TRAIN[arch.arch_id]
+    b, s, steps = d["batch"], d["seq"], d["steps"]
+    attn = _flash_layers(cfg)
     batch = _token_batch(cfg, steps, b, s)
     opt = build_optimizer(arch)
-    lr_fn = warmup_cosine(arch.lr, LM_TRAIN["warmup"], steps)
+    lr_fn = warmup_cosine(arch.lr, d["warmup"], steps)
     runs = {}
     for label in ("kernels", "plain"):
         with (_plain_lm_kernels() if label == "plain" else nullcontext()):
@@ -4955,7 +5035,8 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
             m = {k: v.item() for k, v in m.items()}
             torch.cuda.synchronize()
             n_all = _launched()
-        want = ({"flash_attention": 2 * attn} if label == "kernels" else {})
+        want = ({"flash_attention": 2 * attn}
+                if label == "kernels" and attn else {})
         _require(n_grad == want and n_all == {
             k: 2 * v for k, v in want.items()},
             f"{label}: gradient launches {n_grad}, with the update "
@@ -5000,7 +5081,8 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
     del runs, gk, gp, gf
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"[lm train] kernels vs plain ({power}): loss {tk.item()!r} / "
+    print(f"[lm train] {arch.arch_id} kernels vs plain ({power}): loss "
+          f"{tk.item()!r} / "
           f"{tp.item()!r} (f32 {tf.item()!r}), grad_norm "
           f"{mk['grad_norm']!r} / {mp['grad_norm']!r} (f32 {nf!r}); "
           f"{out['within_rule']} of {len(leaves)} gradient leaves within "
@@ -5017,7 +5099,7 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
         params, opt_state, batch, steps)
     m2 = {k: v.item() for k, v in m2.items()}
     n2 = _launched()
-    _require(n2 == {"flash_attention": 2 * 2 * attn},
+    _require(n2 == ({"flash_attention": 2 * 2 * attn} if attn else {}),
              f"num_micro 2: launches {n2}, expected twice the step's")
     out["num_micro_2"] = {"step": m2, "launches": n2,
                           "loss": _bf16_rule("num_micro 2 loss", m2["loss"],
@@ -5139,8 +5221,10 @@ def lm_train_moe(workdir: Path, power: str) -> tuple:
 
 def lm_train_path(workdir: Path) -> tuple:
     """Path 4m (``chip_smoke.py --lm-train DIR``): LM training on the card
-    (``lm_train_qwen3``, ``lm_train_compare``, ``lm_train_moe``).
-    Returns (results, the training runs' launches, summed)."""
+    (``lm_train_whole``: qwen3-1.7b, hymba-1.5b and mamba2-780m whole;
+    ``lm_train_compare`` on qwen3's and mamba2's trained states;
+    ``lm_train_moe``).  Returns (results, the training runs' launches,
+    summed)."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -5149,13 +5233,17 @@ def lm_train_path(workdir: Path) -> tuple:
                          capture_output=True, text=True, timeout=60)
     power = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
-    res = {"card": power}
-    res["qwen3-1.7b"], total, state = lm_train_qwen3(workdir, power)
-    res["compare"] = lm_train_compare(state["params"], state["opt"],
-                                      get_arch("qwen3-1.7b"), power)
-    del state
-    gc.collect()
-    torch.cuda.empty_cache()
+    res, total = {"card": power}, {}
+    for arch_id in LM_TRAIN:
+        res[arch_id], n, state = lm_train_whole(arch_id, workdir, power)
+        if arch_id != "hymba-1.5b":
+            res[arch_id]["compare"] = lm_train_compare(
+                state["params"], state["opt"], get_arch(arch_id), power)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
     res["deepseek-moe-16b"], n = lm_train_moe(workdir, power)
     for k, v in n.items():
         total[k] = total.get(k, 0) + v
@@ -5183,7 +5271,7 @@ def _moe_ids(counts, block_t: int, device):
 def lm_inputs():
     """The phase's inputs, made on the card from a seeded generator:
     qwen3-1.7b's q, k, v (f32, and a bf16 copy), h2o-danube-3-4b's (f32,
-    and a bf16 copy),
+    and a bf16 copy), nemotron-4-340b's (f32, and a bf16 copy),
     deepseek-moe-16b's capacity buffer and expert weights for both
     projections (f32, and bf16 copies; weights at the 1/sqrt(fan-in) scale
     of an init), and a seeded top-6 routing of 4096 tokens with each
@@ -5196,12 +5284,14 @@ def lm_inputs():
     def randn(*shape, scale=1.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
-    c, d = QWEN3, DANUBE
+    c, d, nm = QWEN3, DANUBE, NEMOTRON
     qkv = (randn(c["b"], c["h"], c["s"], c["dh"]),
            randn(c["b"], c["hkv"], c["s"], c["dh"]),
            randn(c["b"], c["hkv"], c["s"], c["dh"]))
     qkv_d = tuple(randn(d["b"], n, d["s"], d["dh"])
                   for n in (d["h"], d["hkv"], d["hkv"]))
+    qkv_n = tuple(randn(nm["b"], n, nm["s"], nm["dh"])
+                  for n in (nm["h"], nm["hkv"], nm["hkv"]))
     m = MOE
     e, dm, f = m["experts"], m["d"], m["f"]
     t = e * m["capacity"]
@@ -5224,7 +5314,9 @@ def lm_inputs():
     moe["ragged"] = {"ids": ids_r, "x": x_r,
                      "counts": counts.tolist()}
     return {"qwen3": qkv, "danube_f32": qkv_d,
-            "danube": tuple(t.bfloat16() for t in qkv_d), "moe": moe}
+            "danube": tuple(t.bfloat16() for t in qkv_d),
+            "nemotron_f32": qkv_n,
+            "nemotron_bf16": tuple(t.bfloat16() for t in qkv_n), "moe": moe}
 
 
 def lm_path(inp):
@@ -5238,8 +5330,11 @@ def lm_path(inp):
     f32 and bf16, then both over the ragged routing and the up projection
     again in bf16 (one launch each; every bf16 launch on the tensor cores,
     every f32 one on the FMA units: by each wrapper's ``kernel_path``, and
-    by the name of the kernel ``torch.profiler`` saw run).  Returns
-    (outputs, the phase's kernel launches, {output: the design that ran}).
+    by the name of the kernel ``torch.profiler`` saw run); nemotron-4-340b's
+    causal forward at d_head 192 in f32 and bf16 (the DP 192 instances, by
+    the recorded kernel name).  Returns (outputs, the phase's kernel
+    launches, {output: the design that ran; nemotron's also the kernel
+    name}).
     """
     import torch
 
@@ -5304,6 +5399,9 @@ def lm_path(inp):
                                   lambda: ops.flash_attention(
                                       qd, kd, vd, DANUBE["dh"] ** -0.5, True,
                                       DANUBE["window"]))
+        for key in ("nemotron_f32", "nemotron_bf16"):
+            out[key] = once(key, "flash", lambda: ops.flash_attention(
+                *inp[key], NEMOTRON["dh"] ** -0.5, True, 0))
         for proj in ("up", "down"):
             x, w = mo[proj]
             key = f"moe_{proj}"
@@ -5328,8 +5426,8 @@ def lm_path(inp):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         n = {k_: v_ for k_, v_ in kernel_launches().items() if v_}
-    _require(n == {"flash_attention": 4, "moe_gemm": 7},
-             f"the kernel API phase launched {n}, expected 4 flash and 7 "
+    _require(n == {"flash_attention": 6, "moe_gemm": 7},
+             f"the kernel API phase launched {n}, expected 6 flash and 7 "
              "grouped-GEMM launches and nothing else")
     # which kernels the card ran, in launch order, against each launch's
     # design: the tensor-core kernels are the *wgmma_kernel entries
@@ -5350,7 +5448,13 @@ def lm_path(inp):
                  or "moe_gemm_simt_kernel" in name,
                  f"{key}: the card ran {name!r}, expected the SIMT GEMM "
                  "(moe_gemm_simt_kernel)")
+        _require(not key.startswith("nemotron") or "<192>" in name,
+                 f"{key}: the card ran {name!r}, expected the DP 192 "
+                 "instance")
         designs[key] = got
+        if key.startswith("nemotron"):
+            designs[f"{key}_kernel"] = name.removeprefix("void ") \
+                .rsplit("(", 1)[0]
     print("[lm kernels] kernels the card ran: "
           f"{[n.removeprefix('void ').rsplit('(', 1)[0] for n in ran]}",
           flush=True)
@@ -5416,7 +5520,8 @@ def check_lm_outputs(inp, out):
     its plain version on the card (flash: the dense oracle at rtol 1e-4 /
     atol 1e-5 in f32 and at the per-element bound of ``_flash_bf16_tol``
     in bf16, danube's by head group, with a second reading of the bf16
-    error against ``_flash_p_rounded``; the grouped GEMM against the
+    error against ``_flash_p_rounded``; nemotron-4-340b's at d_head 192
+    the same way; the grouped GEMM against the
     per-block bmm).  The backward's gradients are held against autograd of
     the dense version: the backward is that same autograd, so this checks
     the Function's wiring (each gradient to its input, through the strided
@@ -5465,6 +5570,19 @@ def check_lm_outputs(inp, out):
         _flash_bf16_tol(dense_g, qd, kd, vd, **kw))
     errs["danube_bf16_vs_p_rounded"] = (got.float() - _by_head_group(
         _flash_p_rounded, qd, kd, vd, **kw)).abs().max().item()
+    kw = dict(scale=NEMOTRON["dh"] ** -0.5, causal=True, window=0)
+    for key in ("nemotron_f32", "nemotron_bf16"):
+        args, got = inp[key], out[key]
+        _require(got.shape == args[0].shape and got.dtype == args[0].dtype
+                 and bool(torch.isfinite(got).all()),
+                 f"{key}: {tuple(got.shape)} {got.dtype} not finite")
+        tol = ((RTOL, ATOL) if key == "nemotron_f32"
+               else _flash_bf16_tol(flash_attn_dense, *args, **kw))
+        errs[key] = _close(key, got, flash_attn_dense(*args, **kw), tol)
+        del tol
+    errs["nemotron_bf16_vs_p_rounded"] = (
+        out["nemotron_bf16"].float()
+        - _flash_p_rounded(*inp["nemotron_bf16"], **kw)).abs().max().item()
     mo = inp["moe"]
     for proj in ("up", "down"):
         x, w = mo[proj]
@@ -5591,7 +5709,11 @@ def lm_rows(inp, lm_n, designs, ptxas, parent_libs=None):
     ``is_causal`` and ``enable_gqa``), its bf16 times beside them
     (``bf16_*``), and h2o-danube-3-4b's windowed forward in f32
     (``danube_f32_*``) and bf16 (``danube_bf16_*``; library: the same call
-    with the window as a boolean mask; the plain version by head group);
+    with the window as a boolean mask; the plain version by head group),
+    nemotron-4-340b's causal forward at d_head 192 in f32
+    (``nemotron_f32_*``) and bf16 (``nemotron_bf16_*``, with its device
+    time, two launches bitwise equal and the kernel name phase 6 saw:
+    ``*_kernel``; the two DP 192 instances' ptxas as ``dp192_ptxas``);
     the f32 runs also their kernel's device time (``device_ms``), two
     launches bitwise equal, and with ``parent_libs`` (``--parent``) the
     parent's f32 kernel through its C entry: its device time
@@ -5666,7 +5788,35 @@ def lm_rows(inp, lm_n, designs, ptxas, parent_libs=None):
             designs.get(prefix) or fak.kernel_path(qkv_d[0].dtype,
                                                    DANUBE["dh"]))))
         del qkv_d
+    # nemotron-4-340b at d_head 192 (the DP 192 instances), f32 and bf16:
+    # each also its device time, two launches bitwise equal and the kernel
+    # name phase 6's profile recorded
+    sn = NEMOTRON["dh"] ** -0.5
+    for prefix, tol, peak in (("nemotron_f32", (RTOL, ATOL), F32_FLOP_PER_S),
+                              ("nemotron_bf16", None, BF16_FLOP_PER_S)):
+        qkv_n = inp[prefix]
+        fields = flash_row(qkv_n, True, 0, tol, peak, fak.flash_attn_dense,
+                           partial(sdpa, *qkv_n, is_causal=True, scale=sn,
+                                   enable_gqa=True), 5, designs[prefix])
+        if prefix == "nemotron_bf16":     # f32: in _flash_f32_fields
+            kernel = partial(fak.flash_attention_cuda, *qkv_n, scale=sn,
+                             causal=True, window=0)
+            _require(torch.equal(kernel(), kernel()), f"{prefix}: two "
+                     "launches on the same inputs differ")
+            fields.update(bitwise_repeat=True, device_ms=_device_ms(
+                kernel, "flash_attn_wgmma_kernel", 10))
+        row.update(_prefixed(prefix, fields))
+        row[f"{prefix}_kernel"] = designs[f"{prefix}_kernel"]
+        print(f"[flash_attention {prefix}] {row[f'{prefix}_kernel']}: "
+              + ", ".join(f"{k} {fields[k]!r}" for k in (
+                  "ms", "device_ms", "bound_ms", "plain_ms", "library_ms",
+                  "max_abs_err") if k in fields), flush=True)
+        del qkv_n
     row["ptxas"] = ptxas["flash_attn"]
+    row["dp192_ptxas"] = {k: v for k, v in row["ptxas"].items()
+                          if "<192>" in k}
+    _require(len(row["dp192_ptxas"]) == 2, "the DP 192 instances' ptxas "
+             f"report: {row['dp192_ptxas']}")
     qwen3_instance = [r for name, r in row["ptxas"].items()
                       if "flash_attn_fwd_kernel<128>" in name]
     _require(len(qwen3_instance) == 1
@@ -7461,8 +7611,9 @@ def main() -> int:
                      "infer_head", "fused_input_int8", "infer_head_int8"):
             _require(sharded_n.get(name, 0) > 0, f"kernel {name} was not "
                      "launched on path 4k")
-        # 4l. the decoder LMs served: qwen3-1.7b whole, deepseek-moe-16b
-        # (4 layers) and h2o-danube-3-4b (2 layers) at full width, each
+        # 4l. the decoder LMs served: qwen3-1.7b, mamba2-780m and
+        # hymba-1.5b whole, deepseek-moe-16b (4 layers), h2o-danube-3-4b
+        # (2 layers) and nemotron-4-340b (2 layers) at full width, each
         # against the same calls on the plain versions
         t0 = time.perf_counter()
         got = path_process(workdir, "lm")
@@ -7472,9 +7623,10 @@ def main() -> int:
         for name in LM_KERNELS:
             _require(lm_serve_n.get(name, 0) > 0, f"kernel {name} was not "
                      "launched on path 4l")
-        # 4m. LM training: qwen3-1.7b whole through train.main, its
-        # gradients and update against the plain versions, microbatches;
-        # deepseek-moe-16b (4 layers) trained, then served
+        # 4m. LM training: qwen3-1.7b, hymba-1.5b and mamba2-780m whole
+        # through train.main, qwen3's and mamba2's gradients and update
+        # against the plain versions, microbatches; deepseek-moe-16b (4
+        # layers) trained, then served
         t0 = time.perf_counter()
         got = path_process(workdir, "lm_train")
         lm_train, lm_train_n = got["results"], got["launches"]
@@ -7560,7 +7712,8 @@ def main() -> int:
                       lm_serve[arch_id]["kernels"].items()
                       if shape.startswith(name.split("_")[0])}
             for arch_id in LM_SERVE}
-    rows["flash_attention"]["lm_train"] = lm_train["compare"]["kernels"]
+    rows["flash_attention"]["lm_train"] = \
+        lm_train["qwen3-1.7b"]["compare"]["kernels"]
     rows["moe_gemm"]["lm_train_serve_launches"] = \
         lm_train["deepseek-moe-16b"]["serve_launches"]["moe_gemm"]
     for row, lib, words in (

@@ -1,9 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution for the port.
 
-The paper's population experiment and the JAX package's seven attention
-LMs; the SSM and hybrid LMs (mamba2-780m, hymba-1.5b) and the
-encoder-decoder (whisper-small) are not ported yet (ROADMAP.md, Queue 1
-items 9(b) and 9(c))."""
+The paper's population experiment and the JAX package's nine decoder
+LMs: seven attention LMs (``LM_ARCH_IDS``) and the SSM and hybrid LMs
+(``SSM_ARCH_IDS``: mamba2-780m, hymba-1.5b).  The encoder-decoder
+(whisper-small) is not ported yet (ROADMAP.md, Queue 1 item 9(c))."""
 from __future__ import annotations
 
 import importlib
@@ -16,15 +16,16 @@ _MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen2-vl-72b": "qwen2_vl_72b",
+    "mamba2-780m": "mamba2_780m",
+    "hymba-1.5b": "hymba_1_5b",
     "parallelmlp-10k": "parallelmlp_10k",
 }
 _UNPORTED = {
-    "mamba2-780m": "the SSM LM, ROADMAP.md Queue 1 item 9(b)",
-    "hymba-1.5b": "the hybrid attention + SSM LM, ROADMAP.md Queue 1 item "
-                  "9(b)",
     "whisper-small": "the encoder-decoder, ROADMAP.md Queue 1 item 9(c)",
 }
-LM_ARCH_IDS = tuple(k for k in _MODULES if k != "parallelmlp-10k")
+SSM_ARCH_IDS = ("mamba2-780m", "hymba-1.5b")   # an SSM path in every layer
+LM_ARCH_IDS = tuple(k for k in _MODULES
+                    if k != "parallelmlp-10k" and k not in SSM_ARCH_IDS)
 
 
 def get_arch(arch_id: str, reduced: bool = False):

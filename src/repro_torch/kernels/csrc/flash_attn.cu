@@ -10,8 +10,8 @@
 // does the port's: there is no backward kernel).  q (B, H, Sq, dh), k and v
 // (B, Hkv, Sk, dh), all f32 (flash_attn_fwd_f32) or all bf16
 // (flash_attn_fwd_bf16), row-major → o (B, H, Sq, dh) in q's dtype.  dh is
-// a multiple of 8 up to 128 (120 for h2o-danube-3-4b); Sq and Sk are any
-// sizes, Sq ≠ Sk allowed.
+// a multiple of 8 up to 192 (120 for h2o-danube-3-4b, 192 for
+// nemotron-4-340b); Sq and Sk are any sizes, Sq ≠ Sk allowed.
 //
 // Semantics, as the TPU kernel and ref.flash_attn_ref:
 //   * positions from 0 on both axes; causal keeps q_pos ≥ k_pos, a window
@@ -40,26 +40,30 @@
 //   buffers (one full mbarrier each for K and for V, one empty), by 3-D
 //   maps over (dh, S, B·heads) with 128-byte swizzle, so rows past Sq or Sk
 //   read as zeros and never come from the next head.  dh is padded to DP =
-//   64 or 128 in shared memory (zeros past dh from the same out-of-bounds
-//   fill; dh 128 is two 64-column boxes, the descriptor advanced between
-//   them).  Per tile a consumer warpgroup issues S = Q·Kᵀ as
+//   64, 128 or 192 in shared memory (zeros past dh from the same
+//   out-of-bounds fill; a row is DP / 64 boxes of 64 columns, the
+//   descriptor advanced between them; 3 stages at DP 128 and 192, 4 at
+//   64).  Per tile a consumer warpgroup issues S = Q·Kᵀ as
 //   wgmma.m64n64k16 (both operands K-major in shared memory), applies the
 //   scale, the masks and the online softmax to the accumulator registers
 //   (a row's 64 columns lie in one quad of lanes: max and sum are two
 //   shuffles), rounds p to bf16 pairs in registers — the A operand layout
 //   of the next product — and issues O += P·V as wgmma.m64n{DP}k16 with A
-//   from registers and V MN-major through the transpose bit.  l sums the
-//   unrounded p.  exp(x) is computed as exp2f(x · log2 e).  Only tiles on
-//   the causal diagonal, at the window's edge or past Sk mask per element.
-//   CTAs take the longest causal q tiles first.
+//   from registers and V MN-major through the transpose bit (at DP 192 the
+//   O accumulator is 96 f32 a thread).  l sums the unrounded p.  exp(x)
+//   is computed as exp2f(x · log2 e).  Only tiles on the causal diagonal,
+//   at the window's edge or past Sk mask per element.  CTAs take the
+//   longest causal q tiles first.
 // * f32: the FMA units, in full f32 (no TF32: the f32 API's contract is
 //   its plain version at rtol 1e-4 / atol 1e-5), both products as
-//   register-tiled SIMT GEMMs.  A CTA of 256 threads owns 128 q rows and
-//   walks k tiles of 64 columns.  Thread (ty, tx), tx the lane's low four
-//   bits, owns rows 4·ty..4·ty+3 and 64+4·ty..64+4·ty+3: their scores at
-//   columns tx + 16·c (c < 4, 32 in registers) and their outputs at columns
-//   4·tx + 64·g (g < DP / 64, 4 each: 64 accumulators at DP 128), so a
-//   row's 16 threads are one half-warp and its max is four shuffles.  Q,
+//   register-tiled SIMT GEMMs.  A CTA of 256 threads owns BQ = 128 q rows
+//   and walks k tiles of BK = 64 columns (at DP 192: 64 rows and 32
+//   columns, Tile<DP>, so that Q and the two-stage rings fit).  Thread
+//   (ty, tx), tx the lane's low four bits, owns rows 4·ty..4·ty+3 and, at
+//   BQ 128, 64+4·ty..64+4·ty+3: their scores at columns tx + 16·c (c <
+//   BK / 16) and their outputs at columns 4·tx + 64·g (g < DP / 64, 4 each:
+//   64 accumulators at DP 128, 48 at DP 192), so a row's 16 threads are one
+//   half-warp and its max is four shuffles.  Q,
 //   K and V are staged row-major in shared memory by 16-byte cp.async
 //   (Q once; K and V each in their own two-stage ring, one cp.async group
 //   each: tile k + 1's K and V land while tile k's two products run, two
@@ -77,7 +81,9 @@
 //   across the half-warp once, at the end, in one fixed tree; each output
 //   has one owner and one order of sums, so two launches are bitwise
 //   equal.  Only edge tiles mask per element; CTAs take the longest causal
-//   q tiles first.
+//   q tiles first.  The DP 192 instance's QKᵀ reads 6 float4s for 32 FMAs
+//   (5.3 FMAs a load, against 10.7 at DP 128): a simple instance, not yet a
+//   fast one.
 //
 // Both walk only the k tiles [kt_lo, kt_hi) that hold a column some row of
 // the CTA attends, and mask per element only the edge tiles among them
@@ -92,9 +98,12 @@
 // unmasked (q, k) pair, 137.4 GFLOP: 0.139 ms at bf16's dense tensor-core
 // 989 TFLOP/s, 2.05 ms at the f32 rate of 67.  At h2o-danube-3-4b's (B 1,
 // S 8192, H 32, Hkv 8, dh 120, window 4096) 386.6 GFLOP, 0.391 ms in bf16
-// and 5.77 ms in f32.  The f32 kernel issues 16 FMAs a shared-memory load
-// in PV and 10.7 in QKᵀ, with 8 warps an SM (registers for 64
-// accumulators, 32 scores and the fragments); at the 65 % of the FMA peak
+// and 5.77 ms in f32.  At nemotron-4-340b's prefill (B 4, H 96, Hkv 8, S
+// 512, dh 192, causal) 38.7 GFLOP: 0.578 ms in f32; in bf16 the 164 MB
+// of q, k, v and o bound it (0.049 ms) above its 0.039 ms of operations.
+// The f32 kernel issues 16 FMAs a shared-memory load in PV and 10.7 in
+// QKᵀ at DP 128, with 8 warps an SM (registers for 64 accumulators, 32
+// scores and the fragments); at the 65 % of the FMA peak
 // that the SIMT GEMM of moe_gemm.cu reaches it would take 3.2 ms at
 // qwen3-1.7b's shape, about 3 % above the bound's work from the diagonal
 // tiles' masked half.
@@ -107,7 +116,7 @@
 
 namespace {
 
-constexpr int MAX_DH = 128;
+constexpr int MAX_DH = 192;
 constexpr float NEG_INF = -1e30f;
 
 // ---- f32 on the FMA units -----------------------------------------------
@@ -115,24 +124,34 @@ constexpr float NEG_INF = -1e30f;
 namespace f32 {
 
 constexpr int THREADS = 256;
-constexpr int BQ = 128;  // q rows per CTA
-constexpr int BK = 64;   // k columns per tile
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Q, two stages of K and of V, and the p tile (229,376 bytes at DP 128)
+// an instance's tiles: q rows a CTA and k columns a tile.  DP 64 and 128
+// take 128 × 64; DP 192 takes 64 × 32, since 128 × 64 at 192 columns would
+// need 327,680 bytes of shared memory, beyond the 232,448 a block can have
+// (flash_attn.FMA_TILES)
+template <int DP>
+struct Tile {
+  static constexpr int BQ = DP > 128 ? 64 : 128;
+  static constexpr int BK = DP > 128 ? 32 : 64;
+};
+
+// Q, two stages of K and of V, and the p tile (229,376 bytes at DP 128,
+// 155,648 at DP 192)
 template <int DP>
 constexpr size_t smem_bytes() {
+  constexpr int BQ = Tile<DP>::BQ, BK = Tile<DP>::BK;
   return ((size_t)BQ * DP + 4 * (size_t)BK * DP + (size_t)BK * BQ) *
          sizeof(float);
 }
 
-// the k tiles [lo, hi) a CTA of rows q0..q_last walks: every tile if some
-// row lies past Sk + window − 2 (a fully masked row: only a window can
-// empty a row), else only the tiles with a column some row attends
-// (flash_attn.tile_walk is the same rule)
+// the k tiles [lo, hi) of BK columns a CTA of rows q0..q_last walks: every
+// tile if some row lies past Sk + window − 2 (a fully masked row: only a
+// window can empty a row), else only the tiles with a column some row
+// attends (flash_attn.tile_walk is the same rule)
 __device__ __forceinline__ void tile_range(int q0, int q_last, int Sk,
-                                           int causal, int window, int& lo,
-                                           int& hi) {
+                                           int causal, int window, int BK,
+                                           int& lo, int& hi) {
   const int n_k = (Sk + BK - 1) / BK;
   lo = 0;
   hi = n_k;
@@ -142,10 +161,10 @@ __device__ __forceinline__ void tile_range(int q0, int q_last, int Sk,
   }
 }
 
-// whether the tile at k0 holds a column that is masked for some row of the
-// CTA or lies past Sk: only such a tile masks per element
+// whether the tile of BK columns at k0 holds a column that is masked for
+// some row of the CTA or lies past Sk: only such a tile masks per element
 __device__ __forceinline__ bool edge_tile(int k0, int q0, int q_last, int Sk,
-                                          int causal, int window) {
+                                          int causal, int window, int BK) {
   return k0 + BK > Sk || (causal && k0 + BK - 1 > q0) ||
          (window > 0 && q_last - k0 >= window);
 }
@@ -186,13 +205,17 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// grid (B·H, q tiles), 256 threads; DP: the head width padded to 64 or 128
+// grid (B·H, q tiles), 256 threads; DP: the head width padded to 64, 128
+// or 192
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       int H, int Hkv, int Sq, int Sk, int dh, float scale,
                       int causal, int window) {
+  constexpr int BQ = Tile<DP>::BQ, BK = Tile<DP>::BK;
+  constexpr int RI = BQ / 16;  // q rows a thread: 8, or 4 at BQ 64
+  constexpr int CK = BK / 16;  // score columns a thread: 4, or 2 at BK 32
   constexpr int CO = DP / 64;  // 4-column output groups a thread
   extern __shared__ float4 smem_raw[];
   // Q (BQ × DP), chunk c of row r at c ^ (r / 4 % 8); K (two stages of
@@ -211,7 +234,7 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kg = k + (size_t)kvh * Sk * dh;
   const float* vg = v + (size_t)kvh * Sk * dh;
   int kt_lo, kt_hi;
-  tile_range(q0, q_last, Sk, causal, window, kt_lo, kt_hi);
+  tile_range(q0, q_last, Sk, causal, window, BK, kt_lo, kt_hi);
   const int n_iter = kt_hi - kt_lo;
 
   // tile kt's K and V into stage st, one cp.async group each
@@ -228,19 +251,19 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 [](int r) { return (r >> 2) & 7; });  // in K's first group
   stage_kv(kt_lo, 0);
 
-  // thread (ty, tx), a warp's two ty sharing every tx: rows 4·ty + i and
-  // 64 + 4·ty + i (i < 4), score columns tx + 16·c (c < 4), output
-  // columns 4·tx + 64·g + e (g < CO, e < 4); a row's 16 threads are a
-  // half-warp
+  // thread (ty, tx), a warp's two ty sharing every tx: rows 4·ty + i and,
+  // at BQ 128, 64 + 4·ty + i (i < 4), score columns tx + 16·c (c < CK),
+  // output columns 4·tx + 64·g + e (g < CO, e < 4); a row's 16 threads are
+  // a half-warp
   const int lane = threadIdx.x & 31;
   const int tx = lane & 15, ty = 2 * (threadIdx.x >> 5) + (lane >> 4);
   const int qsw = ty & 7, ksw = tx & 7;  // Q's and K's (and p's) swizzles
   const float* qs = Qs + 4 * ty * DP;
   const int nch = dh / 4;
 
-  float acc[8][4 * CO], m[8], l[8];  // l: this thread's share of the sum
+  float acc[RI][4 * CO], m[RI], l[RI];  // l: this thread's share of the sum
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
@@ -261,23 +284,23 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // s[i][c] = q[row i] · k[column c], each over d in order
     const float* ks = Ks + st * BK * DP + tx * DP;
-    float s[8][4];
+    float s[RI][CK];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+      for (int c = 0; c < CK; ++c) s[i][c] = 0.f;
 #pragma unroll 4
     for (int ch = 0; ch < nch; ++ch) {
-      float4 kf[4];
+      float4 kf[CK];
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
+      for (int c = 0; c < CK; ++c)
         kf[c] = ld4(ks + 16 * c * DP + 4 * (ch ^ ksw));
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
+      for (int i = 0; i < RI; ++i) {
         const float4 qf =
             ld4(qs + ((i & 3) + 64 * (i >> 2)) * DP + 4 * (ch ^ qsw));
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
+        for (int c = 0; c < CK; ++c) {
           s[i][c] = fmaf(qf.x, kf[c].x, s[i][c]);
           s[i][c] = fmaf(qf.y, kf[c].y, s[i][c]);
           s[i][c] = fmaf(qf.z, kf[c].z, s[i][c]);
@@ -288,14 +311,14 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
     // the scale on the f32 dot product; masks where the tile needs them;
     // then the online softmax of each row, exp(x) as exp2f(x · log2 e)
-    const bool edge = edge_tile(k0, q0, q_last, Sk, causal, window);
-    float alpha[8];
+    const bool edge = edge_tile(k0, q0, q_last, Sk, causal, window, BK);
+    float alpha[RI];
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
+    for (int i = 0; i < RI; ++i) {
       const int qp = q0 + 4 * ty + (i & 3) + 64 * (i >> 2);
       float mx = -INFINITY;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < CK; ++c) {
         float& x = s[i][c];
         if (edge) {
           const int kp = k0 + tx + 16 * c;
@@ -314,24 +337,25 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       m[i] = m_new;
       float sum = 0.f;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
+      for (int c = 0; c < CK; ++c) {
         s[i][c] = exp2f((s[i][c] - m_new) * LOG2E);
         sum += s[i][c];
       }
       l[i] = l[i] * alpha[i] + sum;
     }
-    // p, column by column: a column's rows 4·ty.. and 64 + 4·ty.. are its
-    // 16-byte chunks ty and 16 + ty
+    // p, column by column: a column's rows 4·ty.. (and 64 + 4·ty..) are
+    // its 16-byte chunks ty (and 16 + ty)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
+    for (int c = 0; c < CK; ++c) {
       float* pc = Ps + (tx + 16 * c) * BQ;
-      *reinterpret_cast<float4*>(pc + 4 * (ty ^ ksw)) =
-          make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
-      *reinterpret_cast<float4*>(pc + 4 * ((16 + ty) ^ ksw)) =
-          make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+#pragma unroll
+      for (int r = 0; r < RI / 4; ++r)
+        *reinterpret_cast<float4*>(pc + 4 * ((16 * r + ty) ^ ksw)) =
+            make_float4(s[4 * r][c], s[4 * r + 1][c], s[4 * r + 2][c],
+                        s[4 * r + 3][c]);
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < 4 * CO; ++j) acc[i][j] *= alpha[i];
     hopper::cp_async_wait<2>();  // this thread's V of tile it
@@ -342,14 +366,20 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 8
     for (int j = 0; j < BK; ++j) {
       const float* pc = Ps + j * BQ;
-      const float4 p0 = ld4(pc + 4 * (ty ^ (j & 7)));
-      const float4 p1 = ld4(pc + 4 * ((16 + ty) ^ (j & 7)));
-      const float p[8] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
+      float p[RI];
+#pragma unroll
+      for (int r = 0; r < RI / 4; ++r) {
+        const float4 pf = ld4(pc + 4 * ((16 * r + ty) ^ (j & 7)));
+        p[4 * r] = pf.x;
+        p[4 * r + 1] = pf.y;
+        p[4 * r + 2] = pf.z;
+        p[4 * r + 3] = pf.w;
+      }
 #pragma unroll
       for (int g = 0; g < CO; ++g) {
         const float4 vf = ld4(vs + j * DP + 64 * g);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
+        for (int i = 0; i < RI; ++i) {
           acc[i][4 * g] = fmaf(p[i], vf.x, acc[i][4 * g]);
           acc[i][4 * g + 1] = fmaf(p[i], vf.y, acc[i][4 * g + 1]);
           acc[i][4 * g + 2] = fmaf(p[i], vf.z, acc[i][4 * g + 2]);
@@ -360,7 +390,7 @@ flash_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
+  for (int i = 0; i < RI; ++i) {
     const float li = row_sum16(l[i]);  // the same tree in every lane
     const int qp = q0 + 4 * ty + (i & 3) + 64 * (i >> 2);
     if (qp >= Sq) continue;
@@ -382,6 +412,8 @@ int launch_dp(const float* q, const float* k, const float* v, float* o,
               int B, int H, int Hkv, int Sq, int Sk, int dh, float scale,
               int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DP>();
+  constexpr int BQ = Tile<DP>::BQ;
+  if ((Sq + BQ - 1) / BQ > 65535) return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_attn_fwd_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -399,14 +431,17 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
       dh < 8 || dh > MAX_DH || dh % 8)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return 0;
-  if ((long long)B * H > 65535 || (Sq + BQ - 1) / BQ > 65535)
-    return (int)cudaErrorInvalidValue;
+  if ((long long)B * H > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // flash_attn.fma_width: the narrowest instance that holds dh
-  return dh <= 64 ? launch_dp<64>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                  causal, window, s)
-                  : launch_dp<128>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                   causal, window, s);
+  if (dh <= 64)
+    return launch_dp<64>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal,
+                         window, s);
+  if (dh <= 128)
+    return launch_dp<128>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal,
+                          window, s);
+  return launch_dp<192>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal,
+                        window, s);
 }
 
 }  // namespace f32
@@ -424,7 +459,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 template <int DP>
 struct Shape {
   static constexpr int NB = DP / 64;            // 64-column boxes a row
-  static constexpr int STAGES = DP == 128 ? 3 : 4;
+  // 4 stages at DP 64; 3 at DP 128 and 192 (197,712 bytes at 192: a
+  // fourth stage would pass the 232,448 a block can have)
+  static constexpr int STAGES = DP >= 128 ? 3 : 4;
   static constexpr int Q_BOX = BQ * 128;        // bytes of one Q box
   static constexpr int KV_BOX = BK * 128;       // bytes of one K or V box
   static constexpr int Q_BYTES = NB * Q_BOX;
@@ -456,6 +493,11 @@ template <>
 __device__ __forceinline__ void pv<128>(float (&o)[64],
                                         const uint32_t (&a)[4], uint64_t db) {
   hopper::wgmma_m64n128_rs<1>(o, a, db, 1);
+}
+template <>
+__device__ __forceinline__ void pv<192>(float (&o)[96],
+                                        const uint32_t (&a)[4], uint64_t db) {
+  hopper::wgmma_m64n192_rs<1>(o, a, db, 1);
 }
 
 // grid (B·H, q tiles); 256 consumer threads, then the producer warpgroup
@@ -630,8 +672,8 @@ flash_attn_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int r = 0; r < 4; ++r)
         pa[kk][r] = pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
 
-    // O += P·V: V's 16-row slices 2048 bytes apart, its second 64-column
-    // box KV_BOX bytes away
+    // O += P·V: V's 16-row slices 2048 bytes apart, its 64-column boxes
+    // KV_BOX bytes apart
     mbar_wait(&v_full[s], ph);
     wgmma_fence();
 #pragma unroll
@@ -698,10 +740,14 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
   if ((long long)B * H > 65535 || (Sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dh <= 64 ? launch_dp<64>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                  causal, window, s)
-                  : launch_dp<128>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale,
-                                   causal, window, s);
+  if (dh <= 64)
+    return launch_dp<64>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal,
+                         window, s);
+  if (dh <= 128)
+    return launch_dp<128>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal,
+                          window, s);
+  return launch_dp<192>(q, k, v, o, B, H, Hkv, Sq, Sk, dh, scale, causal,
+                        window, s);
 }
 
 }  // namespace tc

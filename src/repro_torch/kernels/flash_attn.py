@@ -10,10 +10,11 @@ h // (H / Hkv); kv is never repeated in memory.  ``kernel_path`` names the
 design a launch takes: bf16 runs on the tensor cores (``"wgmma"``: TMA-fed
 K/V tiles, p rounded to bf16 in registers as the A operand of the PV
 product), f32 on the FMA units (``"fma"``: register-tiled SIMT products
-over 128-row q tiles and 64-column k tiles fed by a cp.async ring, in an
-instance for heads up to ``fma_width(dh)`` wide).  ``tile_walk`` is the f32
-kernel's rule for which k tiles a q tile walks and which of them it masks
-per element.
+fed by a cp.async ring, in an instance for heads up to ``fma_width(dh)``
+wide, over ``fma_tiles(dh)``: 128-row q tiles and 64-column k tiles up to
+dh 128, 64 and 32 at dh 192).  Both take dh up to 192 (nemotron-4-340b).
+``tile_walk`` is the f32 kernel's rule for which k tiles a q tile walks
+and which of them it masks per element.
 
 ``flash_attn_dense`` is the same function in plain PyTorch, the port of
 the JAX package's oracle ``repro/kernels/ref.py::flash_attn_ref``: the
@@ -34,12 +35,13 @@ from repro_torch.kernels import _build
 
 # kernel launches (the CPU dispatch in ops counts its plain calls too)
 launches = 0
-MAX_DH = 128          # widest head the kernel takes (a multiple of 8)
+MAX_DH = 192          # widest head the kernel takes (a multiple of 8)
 NEG_INF = -1e30       # the score of a masked (q, k) pair
 DTYPES = {torch.float32: "flash_attn_fwd_f32",
           torch.bfloat16: "flash_attn_fwd_bf16"}
-FMA_BQ, FMA_BK = 128, 64   # the f32 kernel's q rows a CTA, k columns a tile
-FMA_WIDTHS = (64, 128)     # its instances' padded head widths
+# the f32 kernel's instances: padded head width → (q rows a CTA, k columns
+# a tile); at 192, 128 × 64 tiles would not fit in a block's shared memory
+FMA_TILES = {64: (128, 64), 128: (128, 64), 192: (64, 32)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -58,9 +60,15 @@ def kernel_path(dtype, dh: int) -> str:
 
 def fma_width(dh: int) -> int:
     """The padded head width of the f32 kernel's instance for heads of width
-    ``dh``: the narrowest of ``FMA_WIDTHS`` that holds it."""
+    ``dh``: the narrowest of ``FMA_TILES`` that holds it."""
     kernel_path(torch.float32, dh)
-    return next(w for w in FMA_WIDTHS if dh <= w)
+    return next(w for w in FMA_TILES if dh <= w)
+
+
+def fma_tiles(dh: int) -> tuple[int, int]:
+    """(q rows a CTA, k columns a tile) of the f32 instance for heads of
+    width ``dh``: ``tile_walk``'s ``bq`` and ``bk`` for that launch."""
+    return FMA_TILES[fma_width(dh)]
 
 
 def tile_walk(sq: int, sk: int, bq: int, bk: int, causal: bool,

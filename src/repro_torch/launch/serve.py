@@ -5,8 +5,9 @@ from the JAX package's ``repro/launch/serve.py``.
         [--batch 4] [--prompt-len 32] [--tokens 32] [--sample] [--device cpu]
 
 The standard two-phase inference flow: prefill the prompt batch (every
-attention layer one flash-attention launch, every MoE layer three
-grouped-GEMM launches; it builds the ring-buffer KV caches), then step the
+attention or hybrid layer one flash-attention launch, every MoE layer
+three grouped-GEMM launches; it builds the ring-buffer KV caches and the
+SSM layers' conv rings and states), then step the
 decode loop under ``torch.inference_mode`` with the caches updated in
 place (JAX donates them to its jitted step).  Runs on the card unless
 ``--device cpu`` (the kernels' plain versions).

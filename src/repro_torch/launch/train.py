@@ -2,8 +2,9 @@
 [...]``, with the JAX package's flag names and prints
 (``repro.launch.train``), on one card.
 
-LM archs (``--arch qwen3-1.7b``, any of the seven attention LMs;
-``--reduced`` for the laptop-scale config) train through ``run_lm``, the
+LM archs (``--arch qwen3-1.7b``, any of the seven attention LMs, or the
+SSM and hybrid LMs mamba2-780m and hymba-1.5b; ``--reduced`` for the
+laptop-scale config) train through ``run_lm``, the
 JAX driver's: parameters from a generator seeded 0 (JAX: ``PRNGKey(0)``),
 the arch's optimizer (``optim.build_optimizer``), ``warmup_cosine`` over
 ``--warmup`` and ``--steps``, ``TokenTask`` batches of ``--batch`` ×
@@ -13,9 +14,8 @@ and the global-norm clip at ``--grad-clip`` (1.0 when unset), under a
 ``TrainRunner`` (checkpoints every ``--ckpt-every`` steps, the straggler
 watchdog, ``--resume`` from the last committed step, crash replay).  Its
 checkpoints and JAX's restore in either package.  Not yet: the
-encoder-decoder (ROADMAP Queue 1 item 9(c)), the SSM and hybrid LMs
-(item 9(b), refused by ``configs.get_arch``), an LM across ranks (item
-9(d)).
+encoder-decoder (ROADMAP Queue 1 item 9(c), refused by
+``configs.get_arch``), an LM across ranks (item 9(d)).
 
 The population path: build (or resume) a ``LayeredPopulation``, initialise
 parameters and optimizer state on the device, and train in chunks of

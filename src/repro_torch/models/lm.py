@@ -1,18 +1,20 @@
-"""The decoder-only LM of the JAX package's ``repro/models/lm.py``: its
-attention families — dense GQA (qwen3, h2o-danube with sliding windows,
-command-r's parallel block with LayerNorm and scaled tied logits,
-nemotron's relu², the qwen2-vl backbone with M-RoPE, qkv biases and an
-embeddings frontend) and MoE (deepseek-moe's 64 experts top-6 with shared
-experts after a dense first layer, mixtral's 8 top-2 with sliding
-windows).
+"""The decoder-only LM of the JAX package's ``repro/models/lm.py``: dense
+GQA (qwen3, h2o-danube with sliding windows, command-r's parallel block
+with LayerNorm and scaled tied logits, nemotron's relu², the qwen2-vl
+backbone with M-RoPE, qkv biases and an embeddings frontend), MoE
+(deepseek-moe's 64 experts top-6 with shared experts after a dense first
+layer, mixtral's 8 top-2 with sliding windows), SSM (mamba2: attention-free
+Mamba2 blocks, no FFN) and hybrid (hymba: attention and SSM heads in
+parallel in every layer, global and sliding-window layers in one stack).
 
 One config, one forward, one train step, prefill and a one-token decode
 step.  Layers are grouped into maximal runs of one (mixer, ffn)
 structure; a group's parameters are stacked on axis 0, as JAX stacks them
 for its ``lax.scan``, so that weights carry across leaf for leaf
 (``params_from_jax``); the scan is a Python loop over the stack here.
-Each attention layer's forward is one flash-attention call
-(``nn.attention.attention``); an MoE layer's forward is three
+Each attention or hybrid layer's forward is one flash-attention call
+(``nn.attention.attention``); the SSM path (``nn.ssm``, chunked SSD) is
+plain PyTorch, as JAX's is einsums; an MoE layer's forward is three
 grouped-GEMM calls when it serves and JAX's batched einsums when autograd
 records it (``nn.ffn._expert_ffn``); decode is plain PyTorch, as in JAX,
 with the caches updated in place (JAX donates them).
@@ -25,10 +27,9 @@ in the backward (JAX: ``jax.checkpoint(..., nothing_saveable)`` around
 each scanned layer), so a training step launches the flash kernel twice a
 layer; serving never rematerialises.
 
-Not here: the SSM and hybrid mixers (mamba2, hymba: ROADMAP Queue 1 item
-9(b)), the sharding specs and the shard_map MoE (item 9(d)): without a
-mesh JAX's ``_moe_dispatch`` takes ``moe_apply_dense``, as the port
-always does.
+Not here: the sharding specs and the shard_map MoE (ROADMAP Queue 1 item
+9(d)): without a mesh JAX's ``_moe_dispatch`` takes ``moe_apply_dense``,
+as the port always does.
 """
 from __future__ import annotations
 
@@ -43,19 +44,18 @@ from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.device import resolve
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn import ffn as ffn_lib
+from repro_torch.nn import hybrid as hybrid_lib
+from repro_torch.nn import ssm as ssm_lib
 from repro_torch.nn.attention import AttnConfig
 from repro_torch.nn.common import (_device, dense_init, embed_apply,
                                    embed_init, norm_apply, norm_init)
 from repro_torch.nn.ffn import FFNConfig, MoEConfig
+from repro_torch.nn.hybrid import HybridConfig
+from repro_torch.nn.ssm import SSMConfig
 
 NEG = -1e30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def _unported(mixer: str):
-    raise NotImplementedError(
-        f"mixer {mixer!r}: the SSM and hybrid mixers (mamba2, hymba) are "
-        "not ported yet (ROADMAP.md, Queue 1 item 9(b))")
+MIXERS = ("attn", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +72,7 @@ class LMConfig:
     d_model: int
     layers: tuple                      # tuple[LayerSpec]
     attn: Optional[AttnConfig] = None
-    ssm: Optional[object] = None       # the SSM mixer's config (item 9(b))
+    ssm: Optional[SSMConfig] = None
     ffn: Optional[FFNConfig] = None
     dense_ffn0: Optional[FFNConfig] = None  # 'dense' layers' ffn, MoE archs
     moe: Optional[MoEConfig] = None
@@ -115,6 +115,9 @@ class LMConfig:
             i = j + 1
         return out
 
+    def hybrid_cfg(self) -> HybridConfig:
+        return HybridConfig(self.attn, self.ssm)
+
     def num_params(self) -> int:
         """Exact parameter count (from shapes on the meta device: no
         allocation)."""
@@ -146,9 +149,15 @@ def _dense_cfg(cfg: LMConfig) -> FFNConfig:
 def _init_layer(gen, cfg: LMConfig, mixer: str, ffn_kind: str) -> dict:
     dev = _device(gen)
     params = {"norm1": norm_init(cfg.d_model, cfg.dtype, cfg.norm, dev)}
-    if mixer != "attn":
-        _unported(mixer)
-    params["mixer"] = attn_lib.attn_init(gen, cfg.attn, cfg.dtype)
+    if mixer == "attn":
+        params["mixer"] = attn_lib.attn_init(gen, cfg.attn, cfg.dtype)
+    elif mixer == "ssm":
+        params["mixer"] = ssm_lib.ssm_init(gen, cfg.ssm, cfg.dtype)
+    elif mixer == "hybrid":
+        params["mixer"] = hybrid_lib.hybrid_init(gen, cfg.hybrid_cfg(),
+                                                 cfg.dtype)
+    else:
+        raise ValueError(f"mixer {mixer!r}: one of {MIXERS}")
     if ffn_kind != "none":
         if not cfg.parallel_block:
             params["norm2"] = norm_init(cfg.d_model, cfg.dtype, cfg.norm, dev)
@@ -263,13 +272,19 @@ def _readout(params, cfg: LMConfig, x):
     return logits * cfg.logit_scale
 
 
-def _layer_apply(lp, cfg: LMConfig, ffn_kind: str, x, positions,
-                 window: int):
-    """One transformer block (norm1, attention, the residual block) →
+def _layer_apply(lp, cfg: LMConfig, mixer: str, ffn_kind: str, x,
+                 positions, window: int):
+    """One transformer block (norm1, the mixer, the residual block) →
     (x', aux)."""
     h = norm_apply(lp["norm1"], x)
-    mix = attn_lib.attention(lp["mixer"], cfg.attn, h, positions,
-                             window=window)
+    if mixer == "attn":
+        mix = attn_lib.attention(lp["mixer"], cfg.attn, h, positions,
+                                 window=window)
+    elif mixer == "ssm":
+        mix = ssm_lib.ssm_apply(lp["mixer"], cfg.ssm, h)
+    else:
+        mix = hybrid_lib.hybrid_apply(lp["mixer"], cfg.hybrid_cfg(), h,
+                                      positions, window=window)
     return _block(lp, cfg, ffn_kind, x, h, mix)
 
 
@@ -283,15 +298,13 @@ def forward(params, cfg: LMConfig, batch):
     aux = torch.zeros((), device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
     for gi, ((mixer, ffn_kind), layer_specs, _) in enumerate(cfg.groups()):
-        if mixer != "attn":
-            _unported(mixer)
         for li, ls in enumerate(layer_specs):
             lp = _layer(params[f"g{gi}"], li)
             if remat:
-                x, a = checkpoint(_layer_apply, lp, cfg, ffn_kind, x,
+                x, a = checkpoint(_layer_apply, lp, cfg, mixer, ffn_kind, x,
                                   positions, ls.window, use_reentrant=False)
             else:
-                x, a = _layer_apply(lp, cfg, ffn_kind, x, positions,
+                x, a = _layer_apply(lp, cfg, mixer, ffn_kind, x, positions,
                                     ls.window)
             aux = aux + a
     return _readout(params, cfg, x), aux
@@ -402,18 +415,28 @@ def _group_cache_len(cfg: LMConfig, layer_specs, max_len: int) -> int:
 
 def init_caches(cfg: LMConfig, batch: int, max_len: int, device=None):
     """Per-group stacked decode caches (leading axis = layers in group):
-    {"k", "v" (L,B,C,Hkv,dh) in the params' dtype, "pos" (L,B,C) int32,
-    −1 = empty}."""
+    attention {"k", "v" (L,B,C,Hkv,dh) in the params' dtype, "pos" (L,B,C)
+    int32, −1 = empty}; SSM {"conv" (L,B,d_conv−1,conv_dim) in the params'
+    dtype, "state" (L,B,H,P,N) f32}; hybrid {"attn": ..., "ssm": ...}, its
+    ring as long as an attention group's."""
     caches = {}
     for gi, ((mixer, _), layer_specs, _) in enumerate(cfg.groups()):
-        if mixer != "attn":
-            _unported(mixer)
-        proto = attn_lib.init_kv_cache(
-            cfg.attn, batch, _group_cache_len(cfg, layer_specs, max_len),
-            cfg.dtype, device)
-        caches[f"g{gi}"] = {k: v[None].repeat(len(layer_specs),
-                                              *(1,) * v.dim())
-                            for k, v in proto.items()}
+        if mixer == "ssm":
+            proto = ssm_lib.init_ssm_cache(cfg.ssm, batch, cfg.dtype, device)
+        elif mixer == "attn":
+            proto = attn_lib.init_kv_cache(
+                cfg.attn, batch, _group_cache_len(cfg, layer_specs, max_len),
+                cfg.dtype, device)
+        elif mixer == "hybrid":
+            proto = hybrid_lib.init_hybrid_cache(
+                cfg.hybrid_cfg(), batch,
+                _group_cache_len(cfg, layer_specs, max_len), cfg.dtype,
+                device)
+        else:
+            raise ValueError(f"mixer {mixer!r}: one of {MIXERS}")
+        caches[f"g{gi}"] = tree_map(
+            lambda v: v[None].repeat(len(layer_specs), *(1,) * v.dim()),
+            proto)
     return caches
 
 
@@ -425,16 +448,22 @@ def make_serve_step(cfg: LMConfig):
         x = _embed_in(params, cfg, batch)          # (B,1,D)
         for gi, ((mixer, ffn_kind), layer_specs, _) in \
                 enumerate(cfg.groups()):
-            if mixer != "attn":
-                _unported(mixer)
             gcaches = caches[f"g{gi}"]
             for li, ls in enumerate(layer_specs):
                 lp = _layer(params[f"g{gi}"], li)
-                cache = {k: v[li] for k, v in gcaches.items()}   # views
+                cache = _layer(gcaches, li)                     # views
                 h = norm_apply(lp["norm1"], x)
-                mix, _ = attn_lib.decode_step(lp["mixer"], cfg.attn, h,
-                                              cache, cur_pos,
-                                              window=ls.window)
+                if mixer == "attn":
+                    mix, _ = attn_lib.decode_step(lp["mixer"], cfg.attn, h,
+                                                  cache, cur_pos,
+                                                  window=ls.window)
+                elif mixer == "ssm":
+                    mix, _ = ssm_lib.ssm_decode_step(lp["mixer"], cfg.ssm, h,
+                                                     cache)
+                else:
+                    mix, _ = hybrid_lib.hybrid_decode_step(
+                        lp["mixer"], cfg.hybrid_cfg(), h, cache, cur_pos,
+                        window=ls.window)
                 x, _ = _block(lp, cfg, ffn_kind, x, h, mix)
         logits = _readout(params, cfg, x)
         vm = _vocab_mask(cfg, logits.dtype, logits.device)
@@ -455,15 +484,27 @@ def prefill(params, cfg: LMConfig, batch, max_len: int):
     caches = init_caches(cfg, b, max_len, x.device)
     for gi, ((mixer, ffn_kind), layer_specs, _) in enumerate(cfg.groups()):
         gcaches = caches[f"g{gi}"]
-        clen = gcaches["k"].shape[2]
         for li, ls in enumerate(layer_specs):
             lp = _layer(params[f"g{gi}"], li)
             h = norm_apply(lp["norm1"], x)
-            mix, (k, v) = attn_lib.attention(lp["mixer"], cfg.attn, h,
-                                             positions, window=ls.window,
-                                             return_kv=True)
-            for key, val in _kv_to_ring(k, v, s, clen).items():
-                gcaches[key][li].copy_(val)
+            if mixer == "attn":
+                mix, (k, v) = attn_lib.attention(
+                    lp["mixer"], cfg.attn, h, positions, window=ls.window,
+                    return_kv=True)
+                new = _kv_to_ring(k, v, s, gcaches["k"].shape[2])
+            elif mixer == "ssm":
+                mix, new = ssm_lib.ssm_apply(lp["mixer"], cfg.ssm, h,
+                                             return_cache=True)
+            else:
+                mix, (k, v), ssm_cache = hybrid_lib.hybrid_apply(
+                    lp["mixer"], cfg.hybrid_cfg(), h, positions,
+                    window=ls.window, return_cache=True)
+                new = {"attn": _kv_to_ring(k, v, s,
+                                           gcaches["attn"]["k"].shape[2]),
+                       "ssm": ssm_cache}
+            for dst, val in zip(tree_leaves(_layer(gcaches, li)),
+                                tree_leaves(new)):
+                dst.copy_(val)
             x, _ = _block(lp, cfg, ffn_kind, x, h, mix)
     logits = _readout(params, cfg, x[:, -1:])
     vm = _vocab_mask(cfg, logits.dtype, logits.device)

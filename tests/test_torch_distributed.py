@@ -36,6 +36,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -246,18 +247,38 @@ def torchrun(tmp: Path, n: int, jobs: list, timeout_s: float = 60.0,
              limit: float = 240.0):
     """Run ``jobs`` in one ``torchrun`` job of ``n`` ranks → the
     subprocess's result, with ``logs``: the directory each rank's stdout
-    and stderr are written to (``--log-dir``, ``--tee 3``)."""
+    and stderr are written to (``--log-dir``, ``--tee 3``).  A job still
+    running after ``limit`` seconds is killed with its ranks (its own
+    process group) and fails the test with the ranks' logs, naming the
+    limit: torchrun's own ``subprocess.TimeoutExpired`` left the ranks
+    running and showed neither."""
     script = tmp / "worker.py"
     script.write_text(_WORKER)
     tag = f"{n}-{len(list(tmp.iterdir()))}"
     spec = tmp / f"jobs{tag}.json"
     spec.write_text(json.dumps(jobs))
     logs = tmp / f"logs{tag}"
-    r = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-m", "torch.distributed.run", "--standalone",
          "--nproc-per-node", str(n), "--log-dir", str(logs), "--tee", "3",
          str(script), str(spec), str(timeout_s)],
-        capture_output=True, text=True, env=_env(), timeout=limit)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=_env(), start_new_session=True)
+    t0 = time.monotonic()
+    try:
+        out, err = proc.communicate(timeout=limit)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        files = _rank_logs(logs)
+        text = "".join(f"\n---- rank {k} stderr ----\n"
+                       f"{files[k].read_text(errors='replace')[-3000:]}"
+                       for k in sorted(files))
+        pytest.fail(f"torchrun of {n} ranks ({len(jobs)} jobs) passed its "
+                    f"limit of {limit} s (gloo timeout {timeout_s} s) after "
+                    f"{time.monotonic() - t0:.0f} s{text}\n---- torchrun "
+                    f"stderr (end) ----\n{err[-3000:]}", pytrace=False)
+    r = subprocess.CompletedProcess(proc.args, proc.returncode, out, err)
     r.logs = logs
     return r
 
@@ -325,20 +346,30 @@ def jax4(tmp_path_factory):
     return d
 
 
+# the W = 2 jobs' gloo timeout: the longest stretch between two
+# collectives (a rank's start-up before its rendezvous, a save's gather, a
+# server's publish) takes a few seconds alone and many times that beside
+# six busy test workers
+W2_GLOO_TIMEOUT_S = 180.0
+
+
 @pytest.fixture(scope="module")
 def w2(jax4):
-    """The port's jobs at W = 2 and the one-rank runs they are held to."""
+    """The port's jobs at W = 2 and the one-rank runs they are held to:
+    three ``torchrun`` jobs of three (JAX's checkpoints resumed; the fresh,
+    crashed and pbt runs; the three servers), each within its own limit."""
     d = jax4
     jck = str(d / "jax" / "sgd")
-    jobs2 = [_train(d, f"w2_jax_{k}", v + ["--steps", "4", "--resume"])
-             for k, v in OPT.items()]
-    jobs2 += [
+    resumes = [_train(d, f"w2_jax_{k}", v + ["--steps", "4", "--resume"])
+               for k, v in OPT.items()]
+    fresh = [
         _train(d, "w2_sgd", OPT["sgd"] + ["--steps", "6"]),
         _train(d, "w2_crash", OPT["sgd"] + ["--steps", "6"],
                fail_hook=[1, 1]),
         _train(d, "w2_pbt", OPT["sgd"] + [
             "--steps", "6", "--halving", "2:0.5", "--refill", "pbt",
-            "--per-member-lr"]),
+            "--per-member-lr"])]
+    serves = [
         {"kind": "serve", "out": str(d / "w2_serve"),
          "argv": ["--ckpt-dir", jck, "--sharded", *SERVE]},
         {"kind": "serve", "out": str(d / "w2_serve8"),
@@ -347,7 +378,8 @@ def w2(jax4):
         {"kind": "serve", "out": str(d / "w2_serve16"),
          "argv": ["--ckpt-dir", jck, "--sharded", "--compute-dtype",
                   "bfloat16", *SERVE]}]
-    _ok(torchrun(d, 2, jobs2))
+    for jobs in (resumes, fresh, serves):
+        _ok(torchrun(d, 2, jobs, timeout_s=W2_GLOO_TIMEOUT_S))
     one = {}
     for name, argv in (
             ("w1_sgd", OPT["sgd"] + ["--steps", "6"]),

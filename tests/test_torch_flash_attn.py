@@ -41,6 +41,8 @@ def _np(a) -> np.ndarray:
     (2, 4, 1, 64, 64, 16, True, 24, 32, 32),      # MQA + sliding window
     (1, 3, 3, 33, 65, 16, False, 0, 16, 32),      # non-causal, ragged pad
     (1, 8, 2, 128, 128, 32, True, 0, 128, 64),    # bigger blocks
+    (1, 4, 1, 64, 64, 192, True, 0, 32, 32),      # dh 192 (nemotron), GQA 4
+    (1, 2, 1, 48, 40, 136, False, 16, 16, 16),    # dh 136, a window
 ])
 def test_flash_matches_jax(b, h, hkv, sq, sk, dh, causal, window, bq, bk,
                            dtype, rng):
@@ -156,13 +158,15 @@ def test_flash_rejects_bad_operands():
 @pytest.mark.parametrize("dtype,dh,path", [
     (torch.bfloat16, 8, "wgmma"), (torch.bfloat16, 64, "wgmma"),
     (torch.bfloat16, 120, "wgmma"), (torch.bfloat16, 128, "wgmma"),
-    (torch.float32, 8, "fma"), (torch.float32, 128, "fma")])
+    (torch.bfloat16, 136, "wgmma"), (torch.bfloat16, 192, "wgmma"),
+    (torch.float32, 8, "fma"), (torch.float32, 128, "fma"),
+    (torch.float32, 192, "fma")])
 def test_kernel_path(dtype, dh, path):
     assert fak.kernel_path(dtype, dh) == path
 
 
 @pytest.mark.parametrize("dtype,dh,err", [
-    (torch.bfloat16, 12, ValueError), (torch.bfloat16, 136, ValueError),
+    (torch.bfloat16, 12, ValueError), (torch.bfloat16, 200, ValueError),
     (torch.float16, 64, TypeError)])
 def test_kernel_path_rejects_what_no_kernel_takes(dtype, dh, err):
     with pytest.raises(err):

@@ -1,6 +1,7 @@
 """The f32 flash attention kernel's tile walk (``flash_attn.tile_walk``, the
 rule of ``csrc/flash_attn.cu``'s ``tile_range`` and ``edge_tile``) and its
-instance rule (``fma_width``), on the CPU.
+instance rules (``fma_width``, ``fma_tiles``), on the CPU, at both
+tilings (128 × 64 up to dh 128, 64 × 32 at dh 192).
 
 The walk is held against ``attention_mask``: every unmasked (q, k) pair lies
 in a walked tile, every walked tile not flagged as an edge is unmasked for
@@ -22,14 +23,14 @@ from repro_torch.kernels import flash_attn as fak
 # (sq, sk, bq, bk, causal, window): the kernel's tiles and small ones;
 # rows past sk + window − 2 are fully masked in the cases marked so
 _GRID = [
-    (300, 300, fak.FMA_BQ, fak.FMA_BK, True, 0),
-    (129, 65, fak.FMA_BQ, fak.FMA_BK, True, 0),
-    (128, 200, fak.FMA_BQ, fak.FMA_BK, False, 0),
-    (256, 256, fak.FMA_BQ, fak.FMA_BK, True, 40),
-    (300, 190, fak.FMA_BQ, fak.FMA_BK, False, 90),
-    (256, 100, fak.FMA_BQ, fak.FMA_BK, False, 50),   # rows 148+ fully masked
-    (256, 100, fak.FMA_BQ, fak.FMA_BK, True, 50),    # the same, causal
-    (8192, 8192, fak.FMA_BQ, fak.FMA_BK, True, 4096),  # h2o-danube-3-4b
+    (300, 300, *fak.FMA_TILES[128], True, 0),
+    (129, 65, *fak.FMA_TILES[128], True, 0),
+    (128, 200, *fak.FMA_TILES[128], False, 0),
+    (256, 256, *fak.FMA_TILES[128], True, 40),
+    (300, 190, *fak.FMA_TILES[128], False, 90),
+    (256, 100, *fak.FMA_TILES[128], False, 50),   # rows 148+ fully masked
+    (256, 100, *fak.FMA_TILES[128], True, 50),    # the same, causal
+    (8192, 8192, *fak.FMA_TILES[128], True, 4096),  # h2o-danube-3-4b
     (40, 20, 16, 8, True, 4),                        # rows 23-39
     (40, 20, 16, 8, False, 4),
     (48, 80, 16, 16, True, 0),
@@ -38,6 +39,12 @@ _GRID = [
     (70, 30, 32, 8, False, 7),                       # rows 36-69
     (48, 48, 16, 8, True, 2),     # a q tile's first column ends a k tile
     (64, 64, 16, 8, False, 10),   # the same, not causal
+    # the dh-192 instance's tiles: nemotron-4-340b's prefill, ragged and
+    # windowed walks, a fully masked tail
+    (512, 512, *fak.FMA_TILES[192], True, 0),
+    (100, 70, *fak.FMA_TILES[192], True, 0),
+    (200, 200, *fak.FMA_TILES[192], False, 40),
+    (160, 60, *fak.FMA_TILES[192], True, 30),     # rows 89+ fully masked
 ]
 
 
@@ -122,12 +129,14 @@ def test_walked_online_softmax_matches_dense(sq, sk, bq, bk, causal, window):
 
 
 @pytest.mark.parametrize("dh,width", [(8, 64), (56, 64), (64, 64), (72, 128),
-                                      (120, 128), (128, 128)])
+                                      (120, 128), (128, 128), (136, 192),
+                                      (192, 192)])
 def test_fma_width(dh, width):
     assert fak.fma_width(dh) == width
+    assert fak.fma_tiles(dh) == ((64, 32) if width == 192 else (128, 64))
 
 
-@pytest.mark.parametrize("dh", [4, 12, 136])
+@pytest.mark.parametrize("dh", [4, 12, 200])
 def test_fma_width_rejects_what_no_instance_takes(dh):
     with pytest.raises(ValueError):
         fak.fma_width(dh)

@@ -1365,7 +1365,8 @@ _FLASH_GRID = [
     (1, 4, 4, 300, 130, 64, True, 50),     # rows 179-299 fully masked
     (1, 8, 2, 129, 257, 128, False, 0),    # dh 128 (two boxes), GQA 4
     # the f32 kernel's 128-row q tiles and 64-column k tiles, at each of
-    # its instances (fma_width: 64 for dh 8-64, 128 for dh 72-128)
+    # its instances (fma_width: 64 for dh 8-64, 128 for dh 72-128; 192
+    # for dh 136-192 below, on 64-row q and 32-column k tiles)
     (1, 2, 1, 127, 127, 8, True, 0),       # Sq one short of a q tile
     (1, 2, 1, 127, 127, 128, False, 0),    # the same, DP 128
     (1, 4, 2, 128, 200, 64, True, 0),      # Sq one q tile, Sk > Sq
@@ -1377,6 +1378,12 @@ _FLASH_GRID = [
     (1, 2, 1, 256, 100, 72, False, 50),    # q tile 1: rows 148+ fully
     (1, 2, 1, 256, 100, 32, True, 50),     # masked beside real rows
     (2, 4, 2, 384, 384, 120, True, 0),     # dh 120, three q tiles
+    # the DP 192 instances (f32: 64-row q tiles, 32-column k tiles; bf16:
+    # three 64-column boxes, m64n192 PV)
+    (1, 4, 1, 129, 129, 192, True, 0),     # GQA 4, one row past a q tile
+    (1, 2, 1, 65, 97, 136, False, 0),      # dh 136 padded to 192
+    (2, 6, 2, 200, 200, 192, True, 40),    # a window inside the tiles
+    (1, 2, 2, 100, 40, 184, True, 30),     # rows 69-99 fully masked
 ]
 
 
@@ -1416,7 +1423,8 @@ def test_flash_attention_matches_dense(dev, dtype, b, h, hkv, sq, sk, dh,
 @pytest.mark.parametrize("b,h,hkv,sq,sk,dh,causal,window", [
     (1, 4, 2, 300, 300, 128, True, 0), (1, 4, 1, 200, 150, 120, True, 40),
     (1, 2, 1, 256, 100, 72, False, 50), (1, 4, 2, 129, 65, 64, True, 0),
-    (1, 2, 1, 70, 90, 8, False, 0)])
+    (1, 2, 1, 70, 90, 8, False, 0), (1, 4, 1, 129, 129, 192, True, 0),
+    (1, 2, 1, 100, 70, 136, False, 20)])
 def test_flash_attention_f32_is_reproducible(dev, b, h, hkv, sq, sk, dh,
                                              causal, window):
     """Two f32 launches on the same inputs are bitwise equal (each output
