@@ -265,9 +265,10 @@ Phases (any failure exits non-zero, and no result line is printed):
           prefill's last logits and up to 8 teacher-forced decode steps'
           logits against the same calls with ``flash_attn_dense``/
           ``moe_gemm_dense`` on the card (max |difference| within 1e-2 of
-          the logits' scale or 2 bf16 ulps of it, or else the kernels' run
-          no farther from the same calls in f32 than twice the plain
-          run is; the greedy tokens' agreement reported, not asserted);
+          the logits' scale or 2 bf16 ulps of it; hymba-1.5b alone, past
+          that, the kernels' run no farther from the same calls in f32
+          than 1.25 times the plain run is, ``LM_LOGIT_F32``); the
+          greedy tokens' agreement reported, not asserted);
        m. the decoder LMs trained (a process of its own, as 4g; alone:
           ``chip_smoke.py --lm-train DIR``): (a) qwen3-1.7b whole (28
           layers, bf16 parameters, remat, AdamW) trained by
@@ -4464,6 +4465,23 @@ LM_SERVE = {"qwen3-1.7b": (None, 4, 512, 32),
 # largest apart is 1 ulp, 2^-8 to 2^-7 of the scale by where it sits in
 # its binade (on an H100 every step read 1 ulp apart)
 LM_LOGIT_TOL = 1e-2
+# the one model whose logits that rule does not hold (hymba-1.5b: 32
+# hybrid layers, the kernels' and plain runs 3.0-3.75 apart at scales of
+# 143-240, the rule 2.0-2.4, on an H100); where the rule does not hold
+# them, they are held to the same calls on the parameters widened to f32:
+# the kernels' run no farther from that f32 function than
+# LM_LOGIT_F32_RATIO times the plain run is.  The limit, from readings
+# on an H100 (scripts/lm_logit_control.py): the kernels' run reads at most
+# 1.056 (every step of three runs), the kernel with its window dropped
+# 13.9-27.9; subtler planted faults (the softmax scale one bf16 ulp or
+# 1 % high, a window one key wider) read 1.04-1.13, inside bf16's own
+# drift at 32 layers: the per-element check of each call
+# (``_lm_kernel_fields``) is what fails them (1.09-11.0 of its
+# tolerance; the sound kernel 0.55-0.56).  Every other model is held to
+# the rule alone (nemotron-4-340b's f32 copy, 65 GB beside its 33 GB in
+# bf16, would not fit on the card)
+LM_LOGIT_F32 = ("hymba-1.5b",)
+LM_LOGIT_F32_RATIO = 1.25
 
 
 def _flash_layers(cfg) -> int:
@@ -4546,11 +4564,13 @@ def _logit_err(name: str, got, want, vocab: int, power: str,
     vocabulary (the padded slots hold −1e30): max |difference| within
     ``LM_LOGIT_TOL`` of the plain logits' scale; where that rule does not
     hold them and ``f32()`` gives the same calls' logits on the
-    parameters widened to f32, the kernels' run no farther from that f32
-    function than twice the plain run is (bf16's own reach: two bf16 runs
-    a rounding apart in every layer drift apart as far as either drifts
-    from f32; each kernel call is held per element at the model's shapes
-    by ``_lm_kernel_fields``); the argmax agreement reported."""
+    parameters widened to f32 (given for ``LM_LOGIT_F32``'s models only),
+    the kernels' run no farther from that f32 function than
+    ``LM_LOGIT_F32_RATIO`` times the plain run is (bf16's own reach: two
+    bf16 runs a rounding apart in every layer drift apart as far as
+    either drifts from f32; each kernel call is held per element at the
+    model's shapes by ``_lm_kernel_fields``); the argmax agreement
+    reported."""
     import torch
     got, want = got[..., :vocab].float(), want[..., :vocab].float()
     _require(bool(torch.isfinite(got).all()), f"{name}: non-finite logits")
@@ -4571,13 +4591,15 @@ def _logit_err(name: str, got, want, vocab: int, power: str,
     ref = f32()[..., :vocab].float()
     out["kernels_f32"] = (got - ref).abs().max().item()
     out["plain_f32"] = (want - ref).abs().max().item()
+    out["f32_ratio"] = out["kernels_f32"] / out["plain_f32"]
     print(f"[lm serve] {name}: beyond the rule; from the f32 function "
           f"the kernels' run {out['kernels_f32']!r}, the plain run's "
-          f"{out['plain_f32']!r}", flush=True)
-    _require(out["kernels_f32"] <= 2 * out["plain_f32"],
+          f"{out['plain_f32']!r} (ratio {out['f32_ratio']!r}, limit "
+          f"{LM_LOGIT_F32_RATIO})", flush=True)
+    _require(out["f32_ratio"] <= LM_LOGIT_F32_RATIO,
              f"{name}: the kernels' logits {out['kernels_f32']} from the "
-             f"f32 function, beyond twice the plain run's "
-             f"{out['plain_f32']}")
+             f"f32 function, beyond {LM_LOGIT_F32_RATIO} times the plain "
+             f"run's {out['plain_f32']}")
     return out
 
 
@@ -4764,13 +4786,13 @@ def lm_serve_one(arch_id: str, power: str) -> tuple:
         res["kernels"] = _lm_kernel_fields(calls, power)
         del calls, step_calls
 
-        res["prefill_logits"] = _logit_err(f"{arch_id} prefill",
-                                           outs["kernels"][0],
-                                           outs["plain"][0], cfg.vocab,
-                                           power, f32(0))
+        held_f32 = arch_id in LM_LOGIT_F32
+        res["prefill_logits"] = _logit_err(
+            f"{arch_id} prefill", outs["kernels"][0], outs["plain"][0],
+            cfg.vocab, power, f32(0) if held_f32 else None)
         res["decode_logits"] = [
             _logit_err(f"{arch_id} decode step {i}", a, p, cfg.vocab, power,
-                       f32(i + 1))
+                       f32(i + 1) if held_f32 else None)
             for i, (a, p) in enumerate(zip(outs["kernels"][1:],
                                            outs["plain"][1:]))]
         plain_greedy = torch.cat([lg[:, -1:, :cfg.vocab].argmax(-1)
@@ -4823,10 +4845,14 @@ def lm_serve_path(workdir: Path) -> tuple:
 # whole models through train.main, B 4 × S 512, no checkpoint
 # (--ckpt-every 0: a step-0 save of qwen3-1.7b would write 17 GB), AdamW
 # with f32 moments, remat: qwen3-1.7b 16 steps (warmup 4), hymba-1.5b 8
-# (warmup 2), mamba2-780m 4 (warmup 1)
-LM_TRAIN = {"qwen3-1.7b": dict(batch=4, seq=512, steps=16, warmup=4),
-            "hymba-1.5b": dict(batch=4, seq=512, steps=8, warmup=2),
-            "mamba2-780m": dict(batch=4, seq=512, steps=4, warmup=1)}
+# (warmup 2), mamba2-780m 4 (warmup 1); ``compare``: the trained state's
+# gradients and update held to the plain versions' (``lm_train_compare``)
+LM_TRAIN = {"qwen3-1.7b": dict(batch=4, seq=512, steps=16, warmup=4,
+                               compare=True),
+            "hymba-1.5b": dict(batch=4, seq=512, steps=8, warmup=2,
+                               compare=False),
+            "mamba2-780m": dict(batch=4, seq=512, steps=4, warmup=1,
+                                compare=True)}
 # deepseek-moe-16b at full width cut to 4 of 28 layers (path 4l's cut):
 # 4 steps of B 4 × S 512 through run_lm, then served, 4 new tokens
 LM_TRAIN_MOE = dict(layers=4, batch=4, seq=512, steps=4, new=4)
@@ -5062,6 +5088,10 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
         f = _bf16_rule(f"gradient leaf {i}", a, w, _max_diff(w, f32))
         f["share"] = f["max_abs_err"] / f["tol"] if f["tol"] else 0.0
         f["kernels_f32"] = _max_diff(a, f32)
+        # reported, not required: the kernels' distance from f32 over the
+        # plain run's (scripts/lm_grad_rounding.py reads the same ratio)
+        f["f32_ratio"] = (f["kernels_f32"] / f["bf16_reach"]
+                          if f["bf16_reach"] else None)
         leaves.append(f)
         if f["share"] >= worst["share"]:
             worst = {"leaf": i, **f}
@@ -5076,6 +5106,9 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
            "gradient_leaves": leaves, "worst_gradient_leaf": worst,
            "within_rule": sum(f["max_abs_err"] <= f["rule"]
                               for f in leaves),
+           "max_f32_ratio": max((f["f32_ratio"] for f in leaves
+                                 if f["f32_ratio"] is not None),
+                                default=None),
            "kernels_step": mk, "plain_step": mp,
            "replay_not_bitwise": replay}
     del runs, gk, gp, gf
@@ -5089,7 +5122,9 @@ def lm_train_compare(params, opt_state, arch, power: str) -> dict:
           f"4l's rule, every one within max(rule, bf16's reach); the worst "
           f"leaf {worst['leaf']} at {worst['share']!r} of its tolerance "
           f"({worst['max_abs_err']!r} against the rule's {worst['rule']!r} "
-          f"and bf16's reach {worst['bf16_reach']!r}); a replay's "
+          f"and bf16's reach {worst['bf16_reach']!r}); from f32 the "
+          f"kernels' gradient at most {out['max_f32_ratio']!r} times the "
+          f"plain run's distance (reported); a replay's "
           f"gradients differ at leaves {replay} (max |difference|)",
           flush=True)
 
@@ -5236,7 +5271,7 @@ def lm_train_path(workdir: Path) -> tuple:
     res, total = {"card": power}, {}
     for arch_id in LM_TRAIN:
         res[arch_id], n, state = lm_train_whole(arch_id, workdir, power)
-        if arch_id != "hymba-1.5b":
+        if LM_TRAIN[arch_id]["compare"]:
             res[arch_id]["compare"] = lm_train_compare(
                 state["params"], state["opt"], get_arch(arch_id), power)
         del state

@@ -5,20 +5,27 @@ which rounds each softmax weight p to bf16 before its PV product) against
 the same function on the plain versions (the dense attention, p in f32),
 and both against an f32 reference (the same parameters widened to f32,
 the plain f32 attention), leaf by leaf; also against the plain version
-with p rounded to bf16 as the kernel rounds it.
+with p rounded to bf16 as the kernel rounds it; and, as controls, the
+kernels with a planted fault made at the call (the softmax scale one bf16
+ulp high, ×(1 + 2⁻⁸), and 1 % high), each against the f32 reference.
 
     PYTHONPATH=src python3 scripts/lm_grad_rounding.py [--train-steps 16]
-        [--batch 4] [--seq 512] [--device cpu] [--reduced]
+        [--warmup 4] [--extra-steps 0] [--batch 4] [--seq 512]
+        [--device cpu] [--reduced]
 
 Runs on the card unless ``--device cpu`` is passed (there the "kernels"
 are the plain versions, so only the f32 distances say anything).  The
 parameters are ``train.main``'s: an init from a generator seeded 0,
-trained ``--train-steps`` steps of ``TokenTask`` batches (warmup 4,
-AdamW, remat), no checkpoint; ``--reduced`` takes the reduced config in
-bf16 (a rehearsal on the CPU).  For each
-gradient leaf it prints the max |difference| of each pair over the
+trained ``--train-steps`` steps of ``TokenTask`` batches (``--warmup``
+steps of warmup, AdamW, remat), no checkpoint, then ``--extra-steps``
+more steps of the runner's step function (``chip_smoke.py`` path 4m
+profiles two before it compares the state); ``--reduced`` takes the
+reduced config in bf16 (a rehearsal on the CPU).  For each gradient
+leaf it prints the max |difference| of each pair over the
 leaf's scale (its largest |value| in the reference of the pair) and the
-relative l2 distance, and the whole tree's relative l2 distances.
+relative l2 distance, and the whole tree's relative l2 distances; then,
+for each run, each leaf's max |difference| from the f32 reference over
+the plain run's, and the largest of those ratios.
 """
 import argparse
 import dataclasses
@@ -68,6 +75,18 @@ def _p_rounded(q, k, v, scale, causal=True, window=0, **_):
     return (o / p.sum(-1, keepdim=True)).to(q.dtype)
 
 
+def _scaled(entry, factor):
+    """The kernel's entry with its softmax scale multiplied by ``factor``
+    (a planted fault)."""
+    def call(q, k, v, scale, causal=True, window=0, **kw):
+        return entry(q, k, v, scale * factor, causal, window, **kw)
+    return call
+
+
+def _max_diff(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
 def _pair(a, b) -> tuple:
     """(max |a − b| / max |b|, ‖a − b‖ / ‖b‖) in f32."""
     a, b = a.float(), b.float()
@@ -80,6 +99,8 @@ def _pair(a, b) -> tuple:
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--train-steps", type=int, default=16)
+    ap.add_argument("--warmup", type=int, default=4)
+    ap.add_argument("--extra-steps", type=int, default=0)
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=512)
     ap.add_argument("--device", default=None)
@@ -96,18 +117,25 @@ def main(argv=None) -> dict:
         arch.model, param_dtype="bfloat16", remat=True))
     cfg = arch.model
     with tempfile.TemporaryDirectory() as ckpt:
-        state = train.run_lm(arch, train.parser().parse_args([
+        runner = train.run_lm(arch, train.parser().parse_args([
             "--arch", "qwen3-1.7b", "--batch", str(args.batch), "--seq",
             str(args.seq), "--steps", str(args.train_steps), "--warmup",
-            "4", "--ckpt-every", "0", "--ckpt-dir", ckpt, "--device",
-            str(dev)])).state
+            str(args.warmup), "--ckpt-every", "0", "--ckpt-dir", ckpt,
+            "--device", str(dev)]))
+    state = runner.state
+    for k in range(args.extra_steps):
+        state, _ = runner.step_fn(state, args.train_steps + k)
+    del runner
     params = state["params"]
     del state
     batch = {k: torch.from_numpy(v).to(dev) for k, v in TokenTask(
         cfg.vocab, 0).batch(args.train_steps, args.batch, args.seq).items()}
     grads = {}
+    entry = ops.flash_attention
     for label, swap in (("kernels", None), ("plain", _dense),
-                        ("p_rounded", _p_rounded)):
+                        ("p_rounded", _p_rounded),
+                        ("scale_ulp", _scaled(entry, 1 + 2.0 ** -8)),
+                        ("scale_1pct", _scaled(entry, 1.01))):
         with _flash_swapped(swap) if swap else nullcontext():
             grads[label] = lm.loss_and_grads(params, cfg, batch)[2]
     p32 = tree_map(lambda t: t.float(), params)
@@ -134,6 +162,15 @@ def main(argv=None) -> dict:
         den = sum(y.float().norm() ** 2 for y in leaves[b]) ** 0.5
         out[f"{a}-{b}"] = (num / den).item()
         print(f"tree {a}-{b}: relative l2 {out[f'{a}-{b}']:.4g}", flush=True)
+    for run in ("kernels", "p_rounded", "scale_ulp", "scale_1pct"):
+        ratio = [_max_diff(a, f) / _max_diff(p, f) if _max_diff(p, f)
+                 else float(_max_diff(a, f) > 0)
+                 for a, p, f in zip(leaves[run], leaves["plain"],
+                                    leaves["f32"])]
+        out[f"{run}_over_plain_f32"] = ratio
+        print(f"{run}: |run - f32| / |plain - f32| by leaf "
+              f"{[round(r, 4) for r in ratio]}, max {max(ratio)!r}",
+              flush=True)
     print(json.dumps(out))
     return out
 

@@ -350,3 +350,28 @@ def test_head_width_192_lm_matches_jax():
     assert fak.launches - f0 == 2
     _close(last, jlast)
     _trees_close(caches, jcaches, what="caches")
+
+
+def test_logit_control_script_runs_reduced():
+    """``scripts/lm_logit_control.py`` at hymba's reduced size on the CPU
+    (the "kernels" are the plain versions there): the kernels' run is the
+    plain run; dropping the window moves the logits far past path 4l's
+    f32 ratio; at the per-element rule the sound call reads 0 and a 1 %
+    scale or a window one key wider fails its windowed call."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "scripts" / \
+        "lm_logit_control.py"
+    spec = importlib.util.spec_from_file_location("lm_logit_control", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(["--device", "cpu", "--reduced", "--prompt", "48"])
+    assert out["card"] == "cpu" and out["prompt"] == 48
+    assert out["runs"]["kernels"]["from_plain"] == [0.0] * 9
+    assert out["runs"]["no_window"]["max_ratio"] > 1.25
+    windowed = [row for label, row in out["per_element"].items()
+                if not label.endswith(" w0")]
+    assert windowed
+    for row in windowed:
+        assert row["kernels"] == 0.0
+        assert row["scale_1pct"] > 1.0 and row["window_plus1"] > 1.0

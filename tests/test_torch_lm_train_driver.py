@@ -267,9 +267,11 @@ def test_grad_rounding_script_runs_reduced(capsys):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     out = mod.main(["--reduced", "--device", "cpu", "--train-steps", "2",
-                    "--batch", "2", "--seq", "8"])
+                    "--extra-steps", "1", "--batch", "2", "--seq", "8"])
     assert out["card"] == "cpu" and out["layers"] == 3
     assert out["kernels-plain"] == 0.0
     assert 0.0 < out["plain-f32"] < 0.1
     assert len(out["leaves"]) == 13
+    assert out["kernels_over_plain_f32"] == [1.0] * 13
+    assert len(out["scale_1pct_over_plain_f32"]) == 13
     assert "tree plain-f32" in capsys.readouterr().out
